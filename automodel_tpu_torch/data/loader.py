@@ -1,0 +1,52 @@
+"""Deterministic host-side batching (counterpart of ``automodel_tpu/data/loader.py``,
+single process, sized datasets): the epoch order is a permutation seeded by
+(seed + epoch), so batches come in the JAX loader's order."""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Iterator, Sequence
+
+import numpy as np
+
+__all__ = ["DataLoader"]
+
+
+class DataLoader:
+    def __init__(self, dataset: Sequence[Any], batch_size: int,
+                 collate_fn: Callable[[list[Any]], Any] | None = None, seed: int = 0,
+                 shuffle: bool = True, drop_last: bool = True):
+        if not hasattr(dataset, "__len__"):
+            raise NotImplementedError("streaming (unsized) datasets are not ported yet")
+        if drop_last and len(dataset) < batch_size:
+            raise ValueError(
+                f"dataset has {len(dataset)} examples < batch_size {batch_size}: "
+                "every batch would be dropped (drop_last) and training would no-op")
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.collate_fn = collate_fn or (lambda x: x)
+        self.seed = seed
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self.epoch = 0
+        self._cursor = 0  # batch index within the epoch
+
+    def _epoch_order(self) -> np.ndarray:
+        n = len(self.dataset)
+        if self.shuffle:
+            return np.random.RandomState(self.seed + self.epoch).permutation(n)
+        return np.arange(n)
+
+    def __len__(self) -> int:
+        n = len(self.dataset)
+        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+
+    def __iter__(self) -> Iterator[Any]:
+        order = self._epoch_order()
+        nb = len(self)
+        while self._cursor < nb:
+            start = self._cursor * self.batch_size
+            idx = order[start: start + self.batch_size]
+            self._cursor += 1
+            yield self.collate_fn([self.dataset[int(i)] for i in idx])
+        self.epoch += 1
+        self._cursor = 0
