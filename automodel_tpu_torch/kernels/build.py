@@ -33,6 +33,10 @@ SOURCES: dict[str, dict[str, list]] = {
         "flash_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                       _I, _I, _I, _I, _I, _I, _F, _I, _P],
     },
+    "linear_ce.cu": {
+        "lce_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "lce_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    },
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -96,7 +96,9 @@ def init_dense_decoder_params(cfg: DenseDecoderConfig, generator: torch.Generato
 
 
 def resolve_unembed(cfg: DenseDecoderConfig, params: dict, dtype) -> torch.Tensor:
-    """lm_head, or the tied embedding transposed, cast to the compute dtype."""
+    """lm_head, or the tied embedding transposed, cast to the compute dtype. The cast
+    keeps the layout, so a tied unembedding stays a transposed view of a row-major
+    (V, E) tensor, which the linear-CE kernels read in place."""
     w = params.get("lm_head")
     if w is None:
         w = params["embed"].t()

@@ -1,7 +1,9 @@
 """Benchmark recipe (counterpart of ``automodel_tpu/recipes/llm/benchmark.py``):
 warmup and timed train steps on mock data, with every batch staged on the device
 before the timed window. Reports tokens/s, step time, model TFLOP/s, MFU against the
-card's bf16 peak, and the peak device memory; writes ``benchmark.json``.
+card's bf16 peak, and the peak device memory; writes ``benchmark.json``. Like the
+JAX recipe it never saves, so it accepts ``checkpoint.enabled`` (the default) and
+ignores the section.
 
 ``benchmark.profile_start`` / ``profile_end`` (timed-step indices) and
 ``profile_dir`` trace those steps with ``torch.profiler`` (the JAX recipe's
@@ -32,6 +34,13 @@ __all__ = ["BenchmarkingRecipeForNextTokenPrediction", "main"]
 
 
 class BenchmarkingRecipeForNextTokenPrediction(TrainFinetuneRecipeForNextTokenPrediction):
+    saves_checkpoints = False  # like the JAX benchmark: checkpoint.* is read by nobody
+
+    def setup(self):
+        super().setup()
+        if self.cfg.get("checkpoint.enabled", True):
+            logger.info("benchmark recipe: saves no checkpoint (checkpoint.enabled ignored)")
+
     def run_benchmark(self) -> dict:
         cfg = self.cfg
         warmup = int(cfg.get("benchmark.warmup_steps", 3))
@@ -122,6 +131,8 @@ def _kernel_class(name: str) -> str:
     low = name.lower()
     if "flash_fwd_kernel" in low or "flash_bwd_kernel" in low:
         return "flash_kernels"
+    if "lce_" in low:  # lce_fwd/merge/dlogits/gemm kernels of csrc/linear_ce.cu
+        return "linear_ce_kernels"
     if low.startswith("nvjet") or "gemm" in low or "cutlass" in low or "xmma" in low:
         return "gemm"
     if "reduce" in low:

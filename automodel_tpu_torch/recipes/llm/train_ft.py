@@ -1,13 +1,15 @@
 """Single-device SFT recipe (counterpart of ``automodel_tpu/recipes/llm/train_ft.py``).
 
 Ported: the model built from ``model.config`` (an HF config dict), ``model.params_dtype``,
-the loss choice with the JAX recipe's default rule, the data path, the accumulating
-train step with its optimizer and LR schedule, and ``training.jsonl`` rows.
+the loss choice with the JAX recipe's default rule (``linear_ce`` at vocab >= 65536,
+with ``loss.impl`` and ``loss.filter_eps``), the data path with sequence packing
+(``packed_sequence``), the accumulating train step with its optimizer and LR schedule,
+and ``training.jsonl`` rows.
 
 Runs on ``device`` (default ``cuda``). With no card it raises unless the config says
 ``device: cpu``. Sections this slice does not port (a mesh larger than one device,
-PEFT, QAT, MoE, PP, checkpointing, validation, packing, resilience and observability
-services, pretrained weights) raise NotImplementedError.
+PEFT, QAT, MoE, PP, checkpointing, validation, prefetching, resilience and
+observability services, pretrained weights) raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -22,12 +24,14 @@ import torch
 from automodel_tpu_torch.config.cli_overrides import parse_args_and_load_config
 from automodel_tpu_torch.config.loader import ConfigNode
 from automodel_tpu_torch.data.collate import sft_collate, stack_batches
+from automodel_tpu_torch.data.llm.packed import pack_dataset, packed_collate
 from automodel_tpu_torch.data.loader import DataLoader
 from automodel_tpu_torch.loggers.metric_logger import MetricLogger
 from automodel_tpu_torch.models.common.backend import DTYPES, BackendConfig
 from automodel_tpu_torch.models.common.transformer import resolve_unembed
 from automodel_tpu_torch.models.llama.model import LlamaConfig, LlamaForCausalLM
-from automodel_tpu_torch.ops.losses import linear_cross_entropy, masked_cross_entropy
+from automodel_tpu_torch.ops.losses import (LINEAR_CE_IMPLS, linear_cross_entropy,
+                                            masked_cross_entropy)
 from automodel_tpu_torch.optim.builder import build_optimizer
 from automodel_tpu_torch.optim.scheduler import build_lr_schedule
 from automodel_tpu_torch.training.step_scheduler import StepScheduler
@@ -49,8 +53,9 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
-def _unsupported(cfg: ConfigNode) -> list[str]:
-    """The config options this slice does not port, as readable names."""
+def _unsupported(cfg: ConfigNode, saves_checkpoints: bool = True) -> list[str]:
+    """The config options this slice does not port, as readable names. A recipe that
+    never saves (the benchmark) passes ``saves_checkpoints=False``."""
     found = []
     for axis in ("pp", "dp_replicate", "ep", "cp", "tp"):
         if int(cfg.get(f"distributed.{axis}", 1) or 1) > 1:
@@ -61,13 +66,11 @@ def _unsupported(cfg: ConfigNode) -> list[str]:
                 "model.pretrained_model_name_or_path"):
         if cfg.get(key) is not None:
             found.append(key)
-    if cfg.get("checkpoint.enabled", True):
+    if saves_checkpoints and cfg.get("checkpoint.enabled", True):
         found.append("checkpoint.enabled (set it to false)")
     for key in ("resilience.enabled", "observability.enabled", "dataloader.prefetch.enabled"):
         if cfg.get(key):
             found.append(key)
-    if int(cfg.get("packed_sequence.packed_sequence_size", 0) or 0) > 0:
-        found.append("packed_sequence")
     arch = "".join(cfg.get("model.config.architectures") or [])
     if "Moe" in arch or any(cfg.get(f"model.config.{k}") for k in ("num_experts",
                                                                     "n_routed_experts")):
@@ -76,6 +79,8 @@ def _unsupported(cfg: ConfigNode) -> list[str]:
 
 
 class TrainFinetuneRecipeForNextTokenPrediction:
+    saves_checkpoints = True
+
     def __init__(self, cfg: ConfigNode):
         self.cfg = cfg
 
@@ -84,7 +89,7 @@ class TrainFinetuneRecipeForNextTokenPrediction:
         cfg = self.cfg
         logging.basicConfig(level=cfg.get("log_level", "INFO"))
         self.device = resolve_device(cfg.get("device", "cuda"))
-        bad = _unsupported(cfg)
+        bad = _unsupported(cfg, self.saves_checkpoints)
         if bad:
             raise NotImplementedError(
                 f"not ported to the PyTorch package yet: {', '.join(bad)} (see ROADMAP.md)")
@@ -99,15 +104,17 @@ class TrainFinetuneRecipeForNextTokenPrediction:
         config = LlamaConfig.from_hf(self.hf_config)
 
         # loss selection, with the JAX recipe's default: big vocabularies take the
-        # fused linear CE, whose kernels are not ported, so on the card it raises
+        # fused linear CE, so the (tokens, vocab) logits never exist at once.
+        # loss.impl "auto" runs its kernels on the card and their plain version on
+        # the CPU (ops/losses.py)
         default_loss = "linear_ce" if config.vocab_size >= 65536 else "masked_ce"
         self.loss_name = cfg.get("loss.name", default_loss)
         if self.loss_name not in ("masked_ce", "linear_ce"):
             raise NotImplementedError(f"loss {self.loss_name!r} is not ported yet")
-        if self.loss_name == "linear_ce" and self.device.type != "cpu":
-            raise NotImplementedError(
-                "loss linear_ce needs the fused linear-CE kernels, not ported to CUDA yet "
-                "(ROADMAP.md Queue 2: linear_ce); set loss.name: masked_ce")
+        self.loss_impl = cfg.get("loss.impl", "auto")
+        if self.loss_impl not in LINEAR_CE_IMPLS:
+            raise ValueError(f"unknown loss.impl {self.loss_impl!r} {LINEAR_CE_IMPLS}")
+        self.loss_filter_eps = cfg.get("loss.filter_eps", 1e-7)
 
         params_dtype = DTYPES[cfg.get("model.params_dtype", "float32")]
         generator = torch.Generator(device=self.device).manual_seed(seed)
@@ -122,10 +129,9 @@ class TrainFinetuneRecipeForNextTokenPrediction:
         ds_cfg = cfg.get("dataset")
         if ds_cfg is None:
             raise ValueError("config needs a dataset section")
-        self.dataloader = DataLoader(
-            ds_cfg.instantiate(), batch_size=self.micro_batch_size,
-            collate_fn=lambda exs: sft_collate(exs, seq_len=self.seq_len, pad_token_id=0),
-            seed=seed, shuffle=True)
+        dataset, collate = self._wrap_dataset_and_collate(ds_cfg.instantiate(), pad_id=0)
+        self.dataloader = DataLoader(dataset, batch_size=self.micro_batch_size,
+                                     collate_fn=collate, seed=seed, shuffle=True)
 
         ss = (cfg.get("step_scheduler") or ConfigNode()).to_dict()
         ss.setdefault("grad_acc_steps", 1)
@@ -161,13 +167,32 @@ class TrainFinetuneRecipeForNextTokenPrediction:
             config_digest=_digest(cfg), loss_name=self.loss_name, n_params=n_params)
         self._flops_per_token = flops_per_token(self.hf_config, self.seq_len)
 
+    def _wrap_dataset_and_collate(self, dataset, pad_id: int):
+        """Packing (the ``packed_sequence`` section) or per-example padding."""
+        pack_size = int(self.cfg.get("packed_sequence.packed_sequence_size", 0) or 0)
+        if pack_size <= 0:
+            return dataset, (lambda exs: sft_collate(exs, seq_len=self.seq_len,
+                                                     pad_token_id=pad_id))
+        if not self.backend.attention_segments:
+            raise ValueError(
+                "packed sequences need segment masking in attention; drop "
+                "backend.attention_segments: false (it is a fast path for "
+                "right-padded UNPACKED batches only)")
+        dataset = pack_dataset(
+            dataset, pack_size, pad_token_id=pad_id,
+            max_packs=self.cfg.get("packed_sequence.max_packs"),
+            drop_long_samples=bool(self.cfg.get("packed_sequence.drop_long_samples", False)))
+        self.seq_len = pack_size
+        return dataset, packed_collate
+
     def _forward_loss(self, batch, num_label_tokens):
         out = self.model(batch["input_ids"], positions=batch["positions"],
                          segment_ids=batch["segment_ids"],
                          return_hidden=self.loss_name == "linear_ce")
         if self.loss_name == "linear_ce":
             unembed = resolve_unembed(self.model.config, self.params, out.dtype)
-            return linear_cross_entropy(out, unembed, batch["labels"], num_label_tokens)
+            return linear_cross_entropy(out, unembed, batch["labels"], num_label_tokens,
+                                        impl=self.loss_impl, filter_eps=self.loss_filter_eps)
         return masked_cross_entropy(out, batch["labels"], num_label_tokens)
 
     def _to_device(self, stack: dict) -> dict[str, torch.Tensor]:

@@ -8,20 +8,39 @@ Run from the repository root on a machine with a CUDA card:
 Phases, in order; any failure exits non-zero before the last line:
 
 1. the card's name and power limit (nvidia-smi);
-2. build of every CUDA source in automodel_tpu_torch/csrc (nvcc, plain C + ctypes);
+2. build of every CUDA source in automodel_tpu_torch/csrc (nvcc, plain C + ctypes,
+   one nvcc per source, all started together);
 3. flash_fwd / flash_bwd against their plain version (f32 from the same bf16 inputs)
-   in four cases: (a) the Llama-3.2-1B training shape, (b) packed segments with
-   right padding, (c) non-causal, (d) a 16k sequence;
-4. kernel times at shape (a) beside the bound, the plain version and SDPA;
+   in five cases: (a) the Llama-3.2-1B training shape, (b) packed segments with
+   right padding, (c) non-causal, (d) a 16k sequence, (e) the shape and segments of
+   main path 3 (rows of 4096 packed by pack_dataset from 1000-token documents);
+4. flash kernel times at shape (a) beside the bound, the plain version and SDPA;
 5. Llama-3.2-1B width at 2 layers: one forward and backward with attention "flash"
    against attention "xla" on the same weights;
-6. the main path: the benchmark recipe on examples/benchmark/llama3_2_1b.yaml
-   (16 layers, full width), launch counts checked against the kernel counters;
-7. one JSON line of per-kernel numbers, then the result line.
+6. lce_fwd / lce_bwd (fused linear CE) against their plain version in seven cases:
+   (a) N=8192, E=2048, V=128,256 with 10% ignored labels, exact; (b) the same with h
+   scaled up under filter_eps=1e-7; (c) ragged N=8190 with V=50,257; (d) E=4096;
+   (e) shape (b) with a tied unembedding (the (V, E) embedding read in place);
+   (f) E=1000, not a multiple of the 128 tile; (g) E=1003, tied, rows not 16-byte
+   aligned;
+   then their times at shape (a) beside the bound, the plain version and the
+   yardstick torch.logsumexp((h @ w).float(), -1), and the peak memory that one
+   forward and backward of linear_cross_entropy adds;
+7. main path 1: the benchmark recipe on examples/benchmark/llama3_2_1b.yaml
+   (16 layers, full width, masked_ce), launch counts checked against the counters;
+8. main path 2: the benchmark recipe on examples/benchmark/llama3_2_1b_seq4096.yaml
+   (16 layers, full width, untied head, linear_ce, seq 4096);
+9. main path 3: train_ft on the same config with no loss.name (the default picks
+   linear_ce) and packing of 1000-token documents into rows of 4096;
+10. main path 4: the benchmark recipe on main path 1's config (tied embedding) with
+   loss.name linear_ce, so the kernels read the (V, E) embedding in place; its
+   first-step loss is held against main path 1's (same weights and batch);
+11. one JSON line of per-kernel numbers, the card line, then the result line.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -31,7 +50,9 @@ import tempfile
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 BENCH_YAML = os.path.join(HERE, "examples", "benchmark", "llama3_2_1b.yaml")
-WARMUP, TIMED = 2, 5  # benchmark steps of the main-path run (CLI overrides)
+SEQ4096_YAML = os.path.join(HERE, "examples", "benchmark", "llama3_2_1b_seq4096.yaml")
+WARMUP, TIMED = 2, 5  # benchmark steps of the main-path runs (CLI overrides)
+TRAIN_FT_STEPS = 3  # train_ft steps of main path 3
 PEAK_FLOPS = 989e12  # H100 SXM dense bf16
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 # kernel vs plain version, bf16 kernel against f32 plain from the same bf16 inputs:
@@ -41,6 +62,18 @@ TOL_O, TOL_LSE, TOL_GRAD = 2e-2, 1e-3, 1e-2
 # flash vs xla through 2 bf16 layers at full width: both paths round activations and
 # gradients to bf16, so they differ by a few bf16 ulps
 TOL_MODEL_LOSS, TOL_MODEL_GRAD = 1e-2, 2e-2
+# main path 4 (linear_ce, tied) against main path 1 (masked_ce) at the first step, the
+# same weights and batch: linear CE takes f32 logits of the bf16 h and w where masked
+# CE upcasts bf16-rounded logits; the mean over 8192 tokens differs by ~1e-4
+TOL_TIED_LOSS = 1e-3
+# linear CE kernels vs plain version (f32 from the same bf16 inputs). z: the kernel
+# accumulates the same bf16 products in f32 in another order (|z| up to ~150 in case
+# b, where 1e-5 relative is 1.5e-3). dH, dW: the kernel rounds dlogits to bf16
+# before its two products (as the TPU kernel does) and stores dH, dW in bf16, each
+# ~2e-3 relative. Against the exact gradient with the filter on: the skipped blocks
+# hold softmax mass below filter_eps per element, at most V * 1e-7 = 1.3e-2 a row.
+TOL_Z, TOL_LCE_GRAD, TOL_FILTER_EXACT = 2e-3, 1e-2, 2e-2
+LCE_PEAK_LIMIT_GB = 2.1  # less than one bf16 (N, V) logits tensor at N=8192 (2.1 GB)
 
 
 def _card_line() -> str:
@@ -82,6 +115,18 @@ def _kernel_case(torch, fa, name, b, s, h, kh, causal, seg=None):
     del o_ref, lse_ref, grads_ref, qr, kr, vr
     torch.cuda.empty_cache()
     return err_o, err_grad
+
+
+def _packed_segments(torch):
+    """(2, 4096) segment ids as main path 3 packs them: 1000-token documents (the mock
+    samples after the next-token shift), four a row, then 96 pad tokens (segment 0)."""
+    from automodel_tpu_torch.data.llm.mock import MockSFTDataset
+    from automodel_tpu_torch.data.llm.packed import pack_dataset, packed_collate
+
+    packs = pack_dataset(MockSFTDataset(128256, 1000, num_samples=8, seed=0), 4096,
+                         max_packs=2)
+    seg = packed_collate([packs[0], packs[1]])["segment_ids"]
+    return torch.from_numpy(seg).to(device="cuda", dtype=torch.int32)
 
 
 def _time_ms(torch, fn, warmup=3, reps=20) -> float:
@@ -187,38 +232,243 @@ def _model_check(torch):
         raise AssertionError("flash and xla attention disagree through the model")
 
 
-def _main_path(torch, fa):
+def _counters():
+    from automodel_tpu_torch.ops import flash_attention as fa, linear_ce as lce
+
+    return fa.LAUNCHES, lce.LAUNCHES
+
+
+def _reset_counts():
+    for counter in _counters():
+        for key in counter:
+            counter[key] = 0
+
+
+def _read_counts() -> dict:
+    return {k: v for counter in _counters() for k, v in counter.items()}
+
+
+def _release():
+    """Free what earlier phases left behind: a recipe's reference cycles keep its model
+    and optimizer state alive until the collector runs, and the benchmark's peak memory
+    counts everything alive in the process."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _expected(layers, micro, steps, linear_ce):
+    # flash forward: once, plus once more when each layer's checkpoint replays it
+    n = layers * micro * steps
+    lce_n = micro * steps if linear_ce else 0
+    return {"flash_fwd": 2 * n, "flash_bwd": n, "lce_fwd": lce_n, "lce_bwd": lce_n}
+
+
+def _bench_path(name, yaml, linear_ce, overrides=()):
     """The benchmark recipe at full Llama-3.2-1B size, through its entry point."""
-    from automodel_tpu_torch.config.loader import load_config
+    from automodel_tpu_torch.config.cli_overrides import parse_args_and_load_config
     from automodel_tpu_torch.recipes.llm import benchmark
 
-    cfg = load_config(BENCH_YAML)
+    _release()
+    cfg = parse_args_and_load_config(["-c", yaml, *overrides])
     layers = int(cfg.model.config.num_hidden_layers)
     micro = int(cfg.get("step_scheduler.grad_acc_steps", 1))
     with tempfile.TemporaryDirectory() as out_dir:
-        argv = ["-c", BENCH_YAML, "--benchmark.warmup_steps", str(WARMUP),
+        argv = ["-c", yaml, *overrides, "--benchmark.warmup_steps", str(WARMUP),
                 "--benchmark.timed_steps", str(TIMED), "--output_dir", out_dir]
-        for key in fa.LAUNCHES:
-            fa.LAUNCHES[key] = 0
+        _reset_counts()
         result = benchmark.main(argv=argv)
-        launches = dict(fa.LAUNCHES)
-    want_bwd = layers * micro * (WARMUP + TIMED)
-    # forward: once, plus once more when each layer's checkpoint replays it
-    want = {"flash_fwd": 2 * want_bwd, "flash_bwd": want_bwd}
-    print(f"main path: benchmark recipe, Llama-3.2-1B ({layers} layers, {micro} microbatch), "
-          f"mb {cfg.micro_batch_size}, seq {cfg.seq_len}, "
-          f"{WARMUP} warmup + {TIMED} timed steps: {result['tokens_per_sec']:.1f} tokens/s, "
-          f"step {result['step_time_s'] * 1e3:.1f} ms, MFU {result['mfu']}, "
-          f"peak memory {result['peak_memory_gib']} GiB, losses {result['losses']}, "
-          f"launches {launches} (expected {want})", flush=True)
+        launches = _read_counts()
+    want = _expected(layers, micro, WARMUP + TIMED, linear_ce)
+    print(f"{name}: benchmark recipe on {os.path.relpath(yaml, HERE)} ({layers} layers, "
+          f"{micro} microbatch, mb {cfg.micro_batch_size}, seq {cfg.seq_len}, loss "
+          f"{cfg.get('loss.name')}, tied {cfg.model.config.get('tie_word_embeddings')}), {WARMUP} warmup + {TIMED} timed steps: "
+          f"{result['tokens_per_sec']:.1f} tokens/s, step {result['step_time_s'] * 1e3:.1f} ms, "
+          f"MFU {result['mfu']}, peak memory {result['peak_memory_gib']} GiB, losses "
+          f"{result['losses']}, launches {launches} (expected {want})", flush=True)
     ln_vocab = math.log(128256)
     if not all(math.isfinite(x) for x in result["losses"]):
-        raise AssertionError("non-finite loss on the main path")
+        raise AssertionError(f"non-finite loss on {name}")
     if abs(result["loss"] - ln_vocab) > 0.5:
-        raise AssertionError(f"loss {result['loss']} is not within 0.5 of ln(128256)")
+        raise AssertionError(f"{name}: loss {result['loss']} is not within 0.5 of ln(128256)")
     if launches != want:
-        raise AssertionError(f"kernel launches {launches} != expected {want}")
+        raise AssertionError(f"{name}: kernel launches {launches} != expected {want}")
+    return launches, result["losses"]
+
+
+def _train_ft_packed_path():
+    """train_ft through its entry point with the default loss (linear_ce at vocab
+    128,256) and packing: four 1000-token documents a row of 4096, then padding."""
+    from automodel_tpu_torch.config.cli_overrides import parse_args_and_load_config
+    from automodel_tpu_torch.recipes.llm import train_ft
+
+    _release()
+    with tempfile.TemporaryDirectory() as out_dir:
+        cfg = parse_args_and_load_config([
+            "-c", SEQ4096_YAML, "--packed_sequence.packed_sequence_size", "4096",
+            "--dataset.seq_len", "1000", "--backend.attention_segments", "true",
+            "--step_scheduler.max_steps", str(TRAIN_FT_STEPS), "--checkpoint.enabled", "false",
+            "--output_dir", out_dir])
+        del cfg.loss._data["name"]  # the default rule picks the loss
+        _reset_counts()
+        recipe = train_ft.main(cfg=cfg)
+        launches = _read_counts()
+        with open(os.path.join(out_dir, "training.jsonl")) as f:
+            rows = [r for r in map(json.loads, f) if "loss" in r]
+    layers = int(cfg.model.config.num_hidden_layers)
+    micro = int(cfg.get("step_scheduler.grad_acc_steps", 1))
+    want = _expected(layers, micro, TRAIN_FT_STEPS, True)
+    losses = [r["loss"] for r in rows]
+    print(f"main path 3: train_ft, default loss {recipe.loss_name}, packed rows of "
+          f"{recipe.seq_len}, {len(rows)} training.jsonl rows: losses {losses}, step times "
+          f"{[r['step_time_s'] for r in rows]} s, launches {launches} (expected {want})",
+          flush=True)
+    if recipe.loss_name != "linear_ce" or len(rows) != TRAIN_FT_STEPS:
+        raise AssertionError("main path 3: wrong loss or missing training.jsonl rows")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError("main path 3: non-finite loss")
+    if launches != want:
+        raise AssertionError(f"main path 3: kernel launches {launches} != expected {want}")
     return launches
+
+
+def _lce_inputs(torch, n, e, v, seed, h_scale=1.0, tied=False):
+    """h ~ N(0, h_scale^2) (normed hidden states), w ~ N(0, 0.02^2) (the init), 10%
+    ignored labels; bf16 on the card. ``tied``: w is a row-major (V, E) embedding (the
+    caller passes w.t() as the unembedding)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    h = (torch.randn(n, e, device="cuda", generator=g) * h_scale).to(torch.bfloat16)
+    shape = (v, e) if tied else (e, v)
+    w = (torch.randn(*shape, device="cuda", generator=g) * 0.02).to(torch.bfloat16)
+    labels = torch.randint(0, v, (n,), device="cuda", generator=g)
+    labels[torch.rand(n, device="cuda", generator=g) < 0.1] = -100
+    return h, w, labels
+
+
+def _lce_case(torch, name, n, e, v, filter_eps=None, h_scale=1.0, tied=False):
+    """Kernel z, dH, dW against the plain version from the same bf16 inputs. The
+    upstream gradient is the loss's: 1 for a valid label, 0 for an ignored one.
+    ``tied``: the unembedding is the transpose of a row-major (V, E) embedding, and
+    dW is the embedding's gradient."""
+    from automodel_tpu_torch.ops import linear_ce as lce
+    from automodel_tpu_torch.ops import losses
+
+    h, w, labels = _lce_inputs(torch, n, e, v, seed=n + e + v, h_scale=h_scale, tied=tied)
+    unembed = (lambda x: x.t()) if tied else (lambda x: x)
+    dz = (labels != -100).float()
+    hk, wk = h.clone().requires_grad_(), w.clone().requires_grad_()
+    z, _ = losses.fused_linear_ce_tokens(hk, unembed(wk), labels, filter_eps=filter_eps)
+    grads = torch.autograd.grad(z, (hk, wk), dz)
+    torch.cuda.synchronize()
+    out = {}
+    refs = [("plain", filter_eps)] + ([("exact", None)] if filter_eps is not None else [])
+    for ref_name, eps in refs:
+        hr, wr = h.float().requires_grad_(), w.float().requires_grad_()
+        z_ref = lce.fused_logsumexp_reference(hr, unembed(wr), eps)
+        g_ref = torch.autograd.grad(z_ref, (hr, wr), dz)
+        out[ref_name] = ((z - z_ref).abs().max().item(),
+                         [_rel_l2(a, r) for a, r in zip(grads, g_ref)],
+                         max((a.float() - r).abs().max().item() for a, r in zip(grads, g_ref)))
+        del hr, wr, z_ref, g_ref
+        torch.cuda.empty_cache()
+    err_z, rel, err_grad = out["plain"]
+    line = (f"lce case {name}: N={n} E={e} V={v} tied={tied} h_scale={h_scale} "
+            f"filter_eps={filter_eps}: "
+            f"z max abs {err_z:.3e} (tol {TOL_Z}), grad rel L2 dH {rel[0]:.3e} dW {rel[1]:.3e} "
+            f"(tol {TOL_LCE_GRAD})")
+    ok = err_z <= TOL_Z and max(rel) <= TOL_LCE_GRAD
+    if filter_eps is not None:
+        z_k, bmax = lce.lce_fwd(h, w, tied)  # the backward's own decision, from the forward
+        sig = lce.block_significance(bmax, z_k, lce.TILE_N, math.log(filter_eps))
+        skipped = 1.0 - sig.float().mean().item()
+        ex = out["exact"][1]
+        line += (f"; blocks skipped {skipped:.4f}; vs exact gradient rel L2 dH {ex[0]:.3e} "
+                 f"dW {ex[1]:.3e} (bound {TOL_FILTER_EXACT})")
+        ok = ok and skipped > 0 and max(ex) <= TOL_FILTER_EXACT
+    print(line, flush=True)
+    if not ok:
+        raise AssertionError(f"lce case {name}: kernels disagree with the plain version")
+    del h, w, hk, wk, z, grads
+    torch.cuda.empty_cache()
+    return err_z, err_grad
+
+
+def _library_lse(torch, h, w):
+    """The yardstick: one PyTorch call chain for the same z, timed here and used
+    nowhere in the port (it forms the (N, V) logits)."""
+    return torch.logsumexp((h @ w).float(), -1)
+
+
+def _lce_timings(torch):
+    """ms of each linear-CE kernel at shape (a), with bound, plain version and yardstick."""
+    from automodel_tpu_torch.ops import linear_ce as lce
+
+    n, e, v = 8192, 2048, 128256
+    h, w, _ = _lce_inputs(torch, n, e, v, seed=7)
+    dz = torch.ones(n, device="cuda")
+    fwd_flops, bwd_flops = 2 * n * e * v, 6 * n * e * v
+    num_vt = -(-v // lce.TILE_V)
+    hw_bytes = 2 * (h.numel() + w.numel())
+    fwd_bytes = hw_bytes + 4 * n + 4 * num_vt * n  # + z, bmax
+    bwd_bytes = hw_bytes + 4 * n * 2 + hw_bytes  # + z, dz; dH, dW
+    z, _ = lce.lce_fwd(h, w)
+    fwd_ms = _time_ms(torch, lambda: lce.lce_fwd(h, w))
+    bwd_ms = _time_ms(torch, lambda: lce.lce_bwd(h, w, z, dz, None))
+    plain_fwd = _time_ms(torch, lambda: lce.fused_logsumexp_reference(h, w), warmup=1, reps=5)
+    hp, wp = h.clone().requires_grad_(), w.clone().requires_grad_()
+    z_plain = lce.fused_logsumexp_reference(hp, wp)
+    plain_bwd = _time_ms(torch, lambda: torch.autograd.grad(z_plain, (hp, wp), dz,
+                                                            retain_graph=True), warmup=1, reps=5)
+    del z_plain
+    torch.cuda.empty_cache()
+    lib_fwd = _time_ms(torch, lambda: _library_lse(torch, h, w), warmup=1, reps=5)
+    hl, wl = h.clone().requires_grad_(), w.clone().requires_grad_()
+    z_lib = _library_lse(torch, hl, wl)
+    lib_bwd = _time_ms(torch, lambda: torch.autograd.grad(z_lib, (hl, wl), dz, retain_graph=True),
+                       warmup=1, reps=5)
+    del z_lib
+    torch.cuda.empty_cache()
+    out = {}
+    for name, ms, flops, nbytes, plain, lib in (
+            ("lce_fwd", fwd_ms, fwd_flops, fwd_bytes, plain_fwd, lib_fwd),
+            ("lce_bwd", bwd_ms, bwd_flops, bwd_bytes, plain_bwd, lib_bwd)):
+        t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        out[name] = {"ms": ms, "plain_ms": plain, "library_ms": lib,
+                     "bound_ms": max(t_ops, t_bytes),
+                     "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+        print(f"time {name} at N={n} E={e} V={v}: {ms:.3f} ms, bound "
+              f"{out[name]['bound_ms']:.3f} ms ({out[name]['bound_by']}: {flops / 1e12:.2f} "
+              f"TFLOP, {nbytes / 1e6:.1f} MB), plain {plain:.3f} ms, yardstick {lib:.3f} ms",
+              flush=True)
+    return out
+
+
+def _lce_memory(torch):
+    """Peak device memory one forward and backward of linear_cross_entropy adds over
+    its inputs (h, w, labels) and outputs (their gradients), at shape (a)."""
+    from automodel_tpu_torch.ops import losses
+
+    h, w, labels = _lce_inputs(torch, 8192, 2048, 128256, seed=3)
+    h.requires_grad_()
+    w.requires_grad_()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    loss = losses.linear_cross_entropy(h, w, labels, impl="pallas")
+    loss.backward()
+    torch.cuda.synchronize()
+    grads = h.grad.numel() * 2 + w.grad.numel() * 2
+    extra = (torch.cuda.max_memory_allocated() - base - grads) / 1e9
+    print(f"lce memory: one forward + backward of linear_cross_entropy at N=8192 E=2048 "
+          f"V=128256 adds {extra:.3f} GB of peak over inputs and outputs "
+          f"(limit {LCE_PEAK_LIMIT_GB} GB; loss {loss.item():.4f})", flush=True)
+    if extra >= LCE_PEAK_LIMIT_GB:
+        raise AssertionError("linear_cross_entropy formed a tensor as large as the logits")
+    del h, w, labels, loss
+    torch.cuda.empty_cache()
+    return extra
 
 
 def main() -> int:
@@ -236,6 +486,10 @@ def main() -> int:
 
     from automodel_tpu_torch.kernels import build
     from automodel_tpu_torch.ops import flash_attention as fa
+
+    # the plain versions and the yardsticks are f32 / bf16 products in full precision
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     seconds = build.build_all()
     print(f"build: {seconds:.1f} s", flush=True)
@@ -257,20 +511,50 @@ def main() -> int:
     note(_kernel_case(torch, fa, "b", 2, 2048, 32, 8, causal=True, seg=seg))
     note(_kernel_case(torch, fa, "c", 2, 2048, 32, 8, causal=False))
     note(_kernel_case(torch, fa, "d", 1, 16384, 4, 2, causal=True))
+    note(_kernel_case(torch, fa, "e", 2, 4096, 32, 8, causal=True, seg=_packed_segments(torch)))
 
     timings = _timings(torch, fa)
     _model_check(torch)
-    launches = _main_path(torch, fa)
 
-    pallas = "automodel_tpu/ops/pallas/flash_attention.py"
-    replaces = {"flash_fwd": (f"{pallas}:84", []),
-                "flash_bwd": (f"{pallas}:192", [f"{pallas}:151", f"{pallas}:258"])}
+    errs.update({"lce_fwd": 0.0, "lce_bwd": 0.0})
+    for case in (("a", 8192, 2048, 128256), ("b", 8192, 2048, 128256, 1e-7, 32.0),
+                 ("c", 8190, 2048, 50257), ("d", 4096, 4096, 128256),
+                 ("e", 8192, 2048, 128256, 1e-7, 32.0, True), ("f", 1024, 1000, 50257),
+                 ("g", 256, 1003, 3001, None, 1.0, True)):
+        err_z, err_grad = _lce_case(torch, *case)
+        errs["lce_fwd"] = max(errs["lce_fwd"], err_z)
+        errs["lce_bwd"] = max(errs["lce_bwd"], err_grad)
+    timings.update(_lce_timings(torch))
+    _lce_memory(torch)
+
+    by_path, losses = {}, {}
+    by_path["main path 1"], losses[1] = _bench_path("main path 1", BENCH_YAML, linear_ce=False)
+    by_path["main path 2"], _ = _bench_path("main path 2", SEQ4096_YAML, linear_ce=True)
+    by_path["main path 3"] = _train_ft_packed_path()
+    by_path["main path 4"], losses[4] = _bench_path("main path 4", BENCH_YAML, linear_ce=True,
+                                                    overrides=("--loss.name", "linear_ce"))
+    d_first = abs(losses[4][0] - losses[1][0])
+    print(f"main path 4 vs 1 (linear_ce, tied, vs masked_ce): first-step loss |diff| "
+          f"{d_first:.3e} (tol {TOL_TIED_LOSS})", flush=True)
+    if d_first > TOL_TIED_LOSS:
+        raise AssertionError("main path 4: tied linear_ce disagrees with masked_ce")
+
+    flash = "automodel_tpu/ops/pallas/flash_attention.py"
+    lce_src = "automodel_tpu/ops/pallas/linear_ce.py"
+    replaces = {"flash_fwd": (f"{flash}:84", []),
+                "flash_bwd": (f"{flash}:192", [f"{flash}:151", f"{flash}:258"]),
+                "lce_fwd": (f"{lce_src}:105", []),
+                "lce_bwd": (f"{lce_src}:137", [f"{lce_src}:163"])}
+    sources = {"flash_fwd": "flash_attention.cu", "flash_bwd": "flash_attention.cu",
+               "lce_fwd": "linear_ce.cu", "lce_bwd": "linear_ce.cu"}
     kernels = []
-    for name in ("flash_fwd", "flash_bwd"):
+    for name in ("flash_fwd", "flash_bwd", "lce_fwd", "lce_bwd"):
         row = {"name": name, "route": "cuda",
-               "source": "automodel_tpu_torch/csrc/flash_attention.cu",
-               "replaces": replaces[name][0], "launches": launches[name],
-               "max_abs_err": errs[name], **timings[name]}
+               "source": f"automodel_tpu_torch/csrc/{sources[name]}",
+               "replaces": replaces[name][0],
+               "launches": sum(counts[name] for counts in by_path.values()),
+               "max_abs_err": errs[name], **timings[name],
+               "launches_by_path": {p: counts[name] for p, counts in by_path.items()}}
         if replaces[name][1]:
             row["replaces_by_function"] = replaces[name][1]
         kernels.append(row)

@@ -114,3 +114,40 @@ def test_metric_logger_rows(tmp_path):
     assert rows[0]["run_header"] is True
     assert rows[1]["loss"] is None and rows[1]["loss_nonfinite"] is True
     assert rows[1]["tps"] == 12.345679
+
+
+@pytest.mark.parametrize("kw", [
+    dict(seq_len=20, size=64),
+    dict(seq_len=15, size=32, max_packs=3),
+    dict(seq_len=40, size=32, drop_long_samples=True, arith=True),
+], ids=["four_per_pack", "max_packs", "drop_long"])
+def test_packing_identical(kw):
+    """pack_dataset / packed_collate give JAX's arrays on MockSFTDataset."""
+    from automodel_tpu.data.llm.packed import pack_dataset as jax_pack, packed_collate as jax_pc
+    from automodel_tpu_torch.data.llm.packed import pack_dataset, packed_collate
+
+    kw = dict(kw)
+    pattern = "arith" if kw.pop("arith", False) else "random"
+    seq_len, size = kw.pop("seq_len"), kw.pop("size")
+    exs = [MockSFTDataset(500, seq_len, 9, seed=1, pattern=pattern),
+           JaxMock(500, seq_len, 9, seed=1, pattern=pattern)]
+    # a shorter sample among them, so packs hold mixed lengths
+    mixed = [[ds[i] for i in range(len(ds))] for ds in exs]
+    for m in mixed:
+        m.insert(2, {"input_ids": list(range(7)), "prompt_len": 3})
+    got, want = pack_dataset(mixed[0], size, **kw), jax_pack(mixed[1], size, **kw)
+    assert len(got) == len(want) > 0
+    for i in range(len(got)):
+        for k in want[i]:
+            np.testing.assert_array_equal(got[i][k], want[i][k])
+    a, b = packed_collate([got[0], got[-1]]), jax_pc([want[0], want[-1]])
+    assert set(a) == set(b)
+    for k in b:
+        np.testing.assert_array_equal(a[k], b[k])
+
+
+def test_packing_refuses_long_samples():
+    from automodel_tpu_torch.data.llm.packed import pack_dataset
+
+    with pytest.raises(ValueError, match="too long"):
+        pack_dataset(MockSFTDataset(100, 40, 2), 16)

@@ -1,0 +1,285 @@
+"""The port's fused linear CE (ops/linear_ce.py, ops/losses.py) against the JAX package
+on the same numpy inputs, at the JAX suite's size (N, E, V = 48, 128, 512). The JAX side
+runs its Pallas kernels with interpret=True. On the CPU the port runs the kernels' plain
+version, so these hold the plain version and the routing around the CUDA kernels.
+
+Tolerances (f32): z within 1e-5 and dH, dW within 1e-4 absolute (the same f32 sums in
+another order); bf16 inputs within 2e-2, as the JAX suite's own bf16 case.
+"""
+
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from automodel_tpu.ops import losses as jloss
+from automodel_tpu.ops.pallas import linear_ce as jlce
+from automodel_tpu_torch.ops import linear_ce as tlce, losses as tloss
+
+N, E, V = 48, 128, 512
+TOL_Z, TOL_GRAD = 1e-5, 1e-4
+
+
+def _data(seed=0, n=N, e=E, v=V, ignore_frac=0.25):
+    rng = np.random.RandomState(seed)
+    h = (rng.randn(n, e) * 0.3).astype(np.float32)
+    w = (rng.randn(e, v) * 0.1).astype(np.float32)
+    labels = rng.randint(0, v, (n,)).astype(np.int32)
+    labels[rng.rand(n) < ignore_frac] = -100
+    dz = rng.randn(n).astype(np.float32)
+    return h, w, labels, dz
+
+
+def _t(x, grad=False):
+    return torch.tensor(np.asarray(x)).requires_grad_(grad)
+
+
+def _jax_tokens_grads(h, w, labels, dz, filter_eps, vocab_offset=0):
+    def f(h_, w_):
+        z, gold = jloss.fused_linear_ce_tokens(h_, w_, jnp.asarray(labels), interpret=True,
+                                               filter_eps=filter_eps, vocab_offset=vocab_offset)
+        return (z * dz).sum() + gold.sum(), (z, gold)
+
+    (_, (z, gold)), (dh, dw) = jax.value_and_grad(f, argnums=(0, 1), has_aux=True)(
+        jnp.asarray(h), jnp.asarray(w))
+    return [np.asarray(x) for x in (z, gold, dh, dw)]
+
+
+def _port_tokens_grads(h, w, labels, dz, filter_eps, vocab_offset=0):
+    ht, wt = _t(h, True), _t(w, True)
+    z, gold = tloss.fused_linear_ce_tokens(ht, wt, _t(labels), vocab_offset=vocab_offset,
+                                           filter_eps=filter_eps)
+    ((z * _t(dz)).sum() + gold.sum()).backward()
+    return [x.detach().numpy() for x in (z, gold, ht.grad, wt.grad)]
+
+
+@pytest.mark.parametrize("filter_eps", [None, 1e-7], ids=["exact", "filter"])
+def test_tokens_z_gold_and_grads_f32(filter_eps):
+    """z, gold, dH and dW of fused_linear_ce_tokens against JAX's Pallas path."""
+    h, w, labels, dz = _data()
+    want = _jax_tokens_grads(h, w, labels, dz, filter_eps)
+    got = _port_tokens_grads(h, w, labels, dz, filter_eps)
+    for name, g, j, tol in zip(("z", "gold", "dh", "dw"), got, want,
+                               (TOL_Z, TOL_Z, TOL_GRAD, TOL_GRAD)):
+        np.testing.assert_allclose(g, j, atol=tol, rtol=0, err_msg=name)
+
+
+def test_bf16_inputs():
+    h, w, labels, _ = _data(seed=4)
+    hb, wb = jnp.asarray(h).astype(jnp.bfloat16), jnp.asarray(w).astype(jnp.bfloat16)
+    want = float(jloss.linear_cross_entropy(hb, wb, jnp.asarray(labels), 30, impl="pallas"))
+    ht = _t(h).to(torch.bfloat16).requires_grad_()
+    got = tloss.linear_cross_entropy(ht, _t(w).to(torch.bfloat16), _t(labels), 30, impl="pallas")
+    assert got.item() == pytest.approx(want, abs=2e-2, rel=2e-2)
+    got.backward()
+    assert ht.grad.dtype == torch.bfloat16
+
+
+def test_token_padding():
+    """37 tokens, not a multiple of any tile: padded rows leak into nothing."""
+    h, w, labels, _ = _data(seed=2)
+    h, labels = h[:37], labels[:37]
+    want = float(jloss.linear_cross_entropy(jnp.asarray(h), jnp.asarray(w),
+                                            jnp.asarray(labels), 20, impl="pallas"))
+    got = float(tloss.linear_cross_entropy(_t(h), _t(w), _t(labels), 20, impl="pallas"))
+    assert got == pytest.approx(want, abs=TOL_Z)
+
+
+def test_all_ignored_block():
+    h, w, labels, _ = _data(seed=5)
+    labels[:] = -100
+    ht = _t(h, True)
+    loss = tloss.linear_cross_entropy(ht, _t(w), _t(labels), 1, impl="pallas")
+    assert float(loss) == 0.0
+    loss.backward()
+    assert float(ht.grad.abs().max()) == 0.0
+
+
+def test_vocab_shard_combine():
+    """Two vocab shards with vocab_offset: logsumexp of z and sum of gold give the
+    global loss, and each shard's partials match JAX's."""
+    h, w, labels, dz = _data(seed=3)
+    half = V // 2
+    parts = []
+    for lo, hi in ((0, half), (half, V)):
+        want = _jax_tokens_grads(h, w[:, lo:hi], labels, dz, None, vocab_offset=lo)
+        got = _port_tokens_grads(h, w[:, lo:hi], labels, dz, None, vocab_offset=lo)
+        for g, j in zip(got, want):
+            np.testing.assert_allclose(g, j, atol=TOL_GRAD, rtol=0)
+        parts.append(got[:2])
+    z = np.logaddexp(parts[0][0], parts[1][0])
+    gold = parts[0][1] + parts[1][1]
+    valid = labels != -100
+    got = np.where(valid, z - gold, 0.0).sum() / 25.0
+    want = float(jloss.masked_cross_entropy(jnp.asarray(h) @ jnp.asarray(w),
+                                            jnp.asarray(labels), 25))
+    assert got == pytest.approx(want, abs=1e-5)
+
+
+@pytest.mark.parametrize("impl", ["xla", "pallas", "auto"])
+def test_linear_cross_entropy_impls(impl):
+    """Loss and gradients of each impl against JAX's same impl (JAX's auto on the CPU
+    is its blockwise path, the port's the kernels' plain version: the same values)."""
+    h, w, labels, _ = _data(seed=1)
+    h3, l3 = h.reshape(2, 24, E), labels.reshape(2, 24)
+
+    def jf(h_, w_):
+        return jloss.linear_cross_entropy(h_, w_, jnp.asarray(l3), 30, block_size=16, impl=impl)
+
+    want, (jdh, jdw) = jax.value_and_grad(jf, argnums=(0, 1))(jnp.asarray(h3), jnp.asarray(w))
+    ht, wt = _t(h3, True), _t(w, True)
+    got = tloss.linear_cross_entropy(ht, wt, _t(l3), 30, block_size=16, impl=impl)
+    got.backward()
+    assert float(got) == pytest.approx(float(want), abs=TOL_Z)
+    np.testing.assert_allclose(ht.grad.numpy(), np.asarray(jdh), atol=TOL_GRAD, rtol=0)
+    np.testing.assert_allclose(wt.grad.numpy(), np.asarray(jdw), atol=TOL_GRAD, rtol=0)
+
+
+def test_any_embed_takes_the_kernel_route(monkeypatch):
+    """embed % 128 != 0 (64): impl="pallas" and "auto" still take the kernels' route
+    (here their plain version) and match JAX; only "xla" runs the blockwise path."""
+    assert tlce.kernel_supported(64, 200) and not tlce.kernel_supported(0, 200)
+    calls = []
+    plain = tlce.fused_logsumexp_reference
+    monkeypatch.setattr(tlce, "fused_logsumexp_reference",
+                        lambda *a, **k: calls.append(1) or plain(*a, **k))
+    rng = np.random.RandomState(6)
+    h, w = rng.randn(16, 64).astype(np.float32), rng.randn(64, 200).astype(np.float32)
+    labels = rng.randint(0, 200, (16,)).astype(np.int32)
+    want = float(jloss.linear_cross_entropy(jnp.asarray(h), jnp.asarray(w), jnp.asarray(labels),
+                                            16, impl="pallas"))
+    for impl, routed in (("pallas", 1), ("auto", 1), ("xla", 0)):
+        calls.clear()
+        got = float(tloss.linear_cross_entropy(_t(h), _t(w), _t(labels), 16, impl=impl))
+        assert got == pytest.approx(want, abs=1e-4) and len(calls) == routed, impl
+    with pytest.raises(ValueError, match="impl"):
+        tloss.linear_cross_entropy(_t(h), _t(w), _t(labels), impl="triton")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("tied", [True, False], ids=["tied", "untied"])
+def test_unembed_reaches_the_kernels_in_place(tied, dtype):
+    """resolve_unembed's output, tied (embed.t()) or untied (lm_head), is a layout the
+    kernels read without a copy: the embedding's own (V, E) storage when tied, the
+    row-major (E, V) lm_head otherwise. Any other layout raises."""
+    from automodel_tpu_torch.models.common.transformer import resolve_unembed
+
+    params = {"embed": torch.randn(V, E)}
+    if not tied:
+        params["lm_head"] = torch.randn(E, V)
+    w = resolve_unembed(None, params, dtype)
+    assert w.shape == (E, V)
+    store, vmajor = tlce.kernel_operand(w)
+    assert vmajor == tied and store.is_contiguous()
+    assert store.shape == ((V, E) if tied else (E, V))
+    if dtype == torch.float32:
+        src = params["embed"] if tied else params["lm_head"]
+        assert store.data_ptr() == src.data_ptr()
+    with pytest.raises(ValueError, match="row-major"):
+        tlce.kernel_operand(w[:, ::2])
+
+
+@pytest.mark.parametrize("denom", [None, 40])
+def test_chunked_cross_entropy(denom):
+    rng = np.random.RandomState(8)
+    logits = rng.randn(3, 7, 50).astype(np.float32)
+    labels = rng.randint(0, 50, (3, 7)).astype(np.int32)
+    labels[1, 2:] = -100
+    want = float(jloss.chunked_cross_entropy(jnp.asarray(logits), jnp.asarray(labels), denom))
+    lt = _t(logits, True)
+    got = tloss.chunked_cross_entropy(lt, _t(labels), denom)
+    assert float(got) == pytest.approx(want, abs=1e-5)
+    got.backward()
+    gj = jax.grad(lambda x: jloss.chunked_cross_entropy(x, jnp.asarray(labels), denom))(
+        jnp.asarray(logits))
+    np.testing.assert_allclose(lt.grad.numpy(), np.asarray(gj), atol=1e-6)
+
+
+def _peaked(seed=9):
+    """Inputs where vocab block 0 dominates for the first 16 rows only: a constant
+    feature (column 0 of h) lifts block 0's logits by 30 on those rows, so blocks 1-3
+    fall below filter_eps = 1e-7 in token block 0 and stay significant elsewhere."""
+    h, w, labels, dz = _data(seed)
+    h[:, 0] = 0.0
+    h[:16, 0] = 1.0
+    w[0, :] = 0.0
+    w[0, :128] = 30.0
+    return h, w, labels, dz
+
+
+def test_block_significance_matches_jax():
+    """At JAX's backward tiles for this shape (16 tokens, 128 vocab) the port's mask
+    is _block_significance's, and it skips some blocks."""
+    assert jlce.pick_bwd_blocks(E, V, 128, N) == (16, 128)
+    h, w, _, _ = _peaked()
+    logits = h @ w
+    z = np.asarray(jax.nn.logsumexp(jnp.asarray(logits), axis=-1))
+    bmax = logits.reshape(N, V // 128, 128).max(-1).T  # (num_v, N)
+    log_eps = math.log(1e-7)
+    want = np.asarray(jlce._block_significance(jnp.asarray(bmax[:, None, :]), jnp.asarray(z),
+                                               N // 16, V // 128, 16, 1, log_eps))
+    got = tlce.block_significance(tlce.block_maxima(_t(logits), 128), _t(z), 16, log_eps)
+    np.testing.assert_array_equal(got.numpy().astype(np.int32), want)
+    assert 0 < want.sum() < want.size
+
+
+def test_filtered_grads_match_jax():
+    """Filter on, at JAX's tiles: the plain version's gradients equal the Pallas
+    kernels' (interpret mode), and differ from the exact ones where blocks were cut."""
+    h, w, _, dz = _peaked()
+
+    def jf(h_, w_):
+        return (jlce.fused_logsumexp(h_, w_, 16, 128, True, 1e-7) * dz).sum()
+
+    jdh, jdw = jax.grad(jf, argnums=(0, 1))(jnp.asarray(h), jnp.asarray(w))
+    grads = {}
+    for eps in (1e-7, None):
+        ht, wt = _t(h, True), _t(w, True)
+        z = tlce.fused_logsumexp_reference(ht, wt, eps, block_n=16, block_v=128)
+        (z * _t(dz)).sum().backward()
+        grads[eps] = (ht.grad.numpy(), wt.grad.numpy())
+    # dH's column 0 reaches ~30 (the lifted weights): f32 sums there differ by ~1e-4
+    np.testing.assert_allclose(grads[1e-7][0], np.asarray(jdh), atol=TOL_GRAD, rtol=1e-5)
+    np.testing.assert_allclose(grads[1e-7][1], np.asarray(jdw), atol=TOL_GRAD, rtol=1e-5)
+    assert np.abs(grads[1e-7][1] - grads[None][1]).max() > 0
+
+
+def test_gold_logits_matches_jax():
+    h, w, labels, _ = _data(seed=10)
+    want = np.asarray(jlce.gold_logits(jnp.asarray(h), jnp.asarray(w), jnp.asarray(labels - 100)))
+    got = tlce.gold_logits(_t(h), _t(w), _t(labels).long() - 100).numpy()
+    np.testing.assert_allclose(got, want, atol=TOL_Z)
+
+
+def test_meta_tensors_reach_the_kernel_checks(monkeypatch):
+    """A tensor off the CPU goes to the kernel wrapper, whose checks raise; it never
+    reaches the plain version."""
+    def no_plain(*a, **k):
+        raise AssertionError("the plain version was called for a meta tensor")
+
+    monkeypatch.setattr(tlce, "fused_logsumexp_reference", no_plain)
+    h = torch.empty(256, 128, device="meta", dtype=torch.bfloat16)
+    w = torch.empty(128, 1000, device="meta", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        tlce.fused_logsumexp(h, w)
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        tloss.linear_cross_entropy(h[:100], w, torch.zeros(100, dtype=torch.long, device="meta"))
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        tloss.fused_linear_ce_tokens(h, w, torch.zeros(256, dtype=torch.long, device="meta"),
+                                     filter_eps=None)
+
+
+def test_reference_ragged_tiles():
+    """The plain version's filter on tiles that divide neither N nor V keeps its exact
+    gradient when nothing is cut (random inputs, eps tiny)."""
+    h, w, _, dz = _data(seed=11, n=37, v=300)
+    grads = []
+    for eps in (1e-30, None):
+        ht, wt = _t(h, True), _t(w, True)
+        (tlce.fused_logsumexp_reference(ht, wt, eps) * _t(dz)).sum().backward()
+        grads.append((ht.grad, wt.grad))
+    torch.testing.assert_close(grads[0][0], grads[1][0], atol=1e-6, rtol=0)
+    torch.testing.assert_close(grads[0][1], grads[1][1], atol=1e-6, rtol=0)

@@ -136,11 +136,16 @@ def test_linear_cross_entropy_plain_version():
 
 
 def test_linear_cross_entropy_raises_off_cpu():
-    """Its kernels are not ported: a tensor off the CPU raises, naming the ROADMAP row."""
-    h = torch.empty(4, 8, device="meta")
-    with pytest.raises(NotImplementedError, match="linear_ce"):
-        tloss.linear_cross_entropy(h, torch.empty(8, 16, device="meta"),
-                                   torch.zeros(4, dtype=torch.long, device="meta"))
-    with pytest.raises(NotImplementedError, match="linear_ce"):
-        tloss.fused_linear_ce_tokens(h, torch.empty(8, 16, device="meta"),
-                                     torch.zeros(4, dtype=torch.long, device="meta"))
+    """A tensor off the CPU goes to the CUDA kernels' wrapper, whose checks raise for a
+    device, dtype or shape it does not take; nothing falls back to the plain version."""
+    h = torch.empty(4, 128, device="meta", dtype=torch.bfloat16)
+    w = torch.empty(128, 16, device="meta", dtype=torch.bfloat16)
+    labels = torch.zeros(4, dtype=torch.long, device="meta")
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        tloss.linear_cross_entropy(h, w, labels)
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        tloss.fused_linear_ce_tokens(h, w, labels)
+    from automodel_tpu_torch.ops import linear_ce
+
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        linear_ce.fused_logsumexp(h.float(), w)

@@ -7,6 +7,7 @@ import json
 import textwrap
 
 import jax
+import numpy as np
 import pytest
 import torch
 
@@ -143,16 +144,35 @@ def _setup(cfg_path, *overrides):
 
 
 def test_linear_ce_on_cuda_raises(cfg_path, monkeypatch):
-    """Asked for on the card, linear_ce raises before anything is built; it never
-    turns into masked_ce. The same holds for the default it gets at vocab >= 65536."""
+    """On the card the recipe's linear_ce goes to the kernels: the default at vocab >=
+    65536 picks it, loss.impl and loss.filter_eps are read, an unknown impl raises
+    before anything is built, and a non-CPU tensor reaches the kernel checks (which
+    raise on a meta tensor) instead of turning into masked_ce or the plain version."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    with pytest.raises(NotImplementedError, match="linear_ce"):
-        _setup(cfg_path, "--device", "cuda", "--loss.name", "linear_ce")
-    cfg = parse_args_and_load_config(["-c", cfg_path, "--device", "cuda",
-                                      "--model.config.vocab_size", "65536"])
-    del cfg._data["loss"]
-    with pytest.raises(NotImplementedError, match="linear_ce"):
-        train_ft.TrainFinetuneRecipeForNextTokenPrediction(cfg).setup()
+    with pytest.raises(ValueError, match="loss.impl"):
+        _setup(cfg_path, "--device", "cuda", "--loss.impl", "cuda")
+    cfg = parse_args_and_load_config(["-c", cfg_path, "--model.config.vocab_size", "65536",
+                                      "--model.config.hidden_size", "128",
+                                      "--dataset.vocab_size", "65536",
+                                      "--loss.filter_eps", "1e-5",
+                                      "--step_scheduler.max_steps", "1"])
+    del cfg.loss._data["name"]
+    recipe = train_ft.TrainFinetuneRecipeForNextTokenPrediction(cfg)
+    recipe.setup()
+    assert (recipe.loss_name, recipe.loss_impl, recipe.loss_filter_eps) == (
+        "linear_ce", "auto", 1e-5)
+    class MetaModel:  # the decoder's output on a non-CPU device
+        config = recipe.model.config
+
+        def __call__(self, *args, **kwargs):
+            return torch.empty(8, 32, 128, dtype=torch.bfloat16, device="meta")
+
+    recipe.model = MetaModel()
+    recipe.params = {"embed": torch.empty(65536, 128, device="meta")}
+    batch = {k: torch.zeros(8, 32, dtype=torch.long, device="meta")
+             for k in ("input_ids", "positions", "segment_ids", "labels")}
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        recipe._forward_loss(batch, 8)
 
 
 def test_no_device_and_no_card_raises(cfg_path, monkeypatch):
@@ -169,9 +189,9 @@ def test_no_device_and_no_card_raises(cfg_path, monkeypatch):
     ["--peft.dim", "8"],
     ["--checkpoint.enabled", "true"],
     ["--validation_dataset.seq_len", "8"],
-    ["--packed_sequence.packed_sequence_size", "64"],
+    ["--dataloader.prefetch.enabled", "true"],
     ["--optimizer.optimizer", "sgd"],
-], ids=["tp", "dp_shard", "peft", "checkpoint", "validation", "packing", "optimizer"])
+], ids=["tp", "dp_shard", "peft", "checkpoint", "validation", "prefetch", "optimizer"])
 def test_unported_options_raise(cfg_path, override):
     with pytest.raises(NotImplementedError):
         _setup(cfg_path, *override)
@@ -200,3 +220,81 @@ def test_log_cadence(cfg_path, tmp_path):
     with open(tmp_path / "training.jsonl") as f:
         steps = [r["step"] for r in map(json.loads, f) if "step" in r]
     assert steps == [2]
+
+
+SEQ4096 = "examples/benchmark/llama3_2_1b_seq4096.yaml"
+# the seq-4096 config cut to a CPU size; its loss, untied head and missing checkpoint
+# section (checkpoint.enabled defaults to true) stay as they are
+SEQ4096_TINY = ["--device", "cpu", "--model.config.hidden_size", "128",
+                "--model.config.intermediate_size", "256",
+                "--model.config.num_hidden_layers", "2", "--model.config.vocab_size", "512",
+                "--dataset.vocab_size", "512", "--dataset.seq_len", "64", "--seq_len", "64",
+                "--dataset.num_samples", "16", "--micro_batch_size", "2",
+                "--step_scheduler.max_steps", "3", "--benchmark.warmup_steps", "1",
+                "--benchmark.timed_steps", "2"]
+
+
+def test_benchmark_accepts_the_seq4096_config(tmp_path):
+    """The benchmark recipe never saves, so it takes checkpoint.enabled (the default
+    true of a config with no checkpoint section); train_ft still refuses it."""
+    argv = ["-c", SEQ4096, *SEQ4096_TINY, "--output_dir", str(tmp_path)]
+    cfg = parse_args_and_load_config(argv)
+    assert cfg.get("checkpoint") is None and cfg.loss.name == "linear_ce"
+    assert train_ft._unsupported(cfg, saves_checkpoints=False) == []
+    recipe = benchmark.BenchmarkingRecipeForNextTokenPrediction(cfg)
+    recipe.setup()
+    assert "lm_head" in recipe.params and recipe.loss_name == "linear_ce"
+    result = recipe.run_benchmark()
+    assert len(result["losses"]) == 3
+    with pytest.raises(NotImplementedError, match="checkpoint.enabled"):
+        train_ft.TrainFinetuneRecipeForNextTokenPrediction(
+            parse_args_and_load_config(argv)).setup()
+
+
+def test_seq4096_untied_head_through_params_from_jax():
+    """The seq-4096 config's untied lm_head crosses from JAX by name and value."""
+    from automodel_tpu.models.common.backend import BackendConfig as JaxBackend
+    from automodel_tpu.models.llama.model import LlamaForCausalLM as JaxLlama
+    from automodel_tpu_torch.models.llama.model import LlamaConfig
+
+    cfg = parse_args_and_load_config(["-c", SEQ4096, *SEQ4096_TINY])
+    hf = cfg.model.config.to_dict()
+    params = jax.device_get(JaxLlama.from_config(hf, JaxBackend(dtype="float32")).init(
+        jax.random.key(0)))
+    flat = params_from_jax(params, LlamaConfig.from_hf(hf))
+    assert flat["lm_head"].shape == (128, 512)
+    np.testing.assert_array_equal(flat["lm_head"].numpy(), np.asarray(params["lm_head"]))
+    assert not np.array_equal(flat["lm_head"].numpy(), flat["embed"].numpy().T)
+
+
+def test_packed_default_linear_ce_matches_jax(cfg_path, tmp_path):
+    """vocab 65536 with no loss.name: both recipes pick linear_ce, pack documents of 20
+    tokens into rows of 64 (three a row, with padding and segment ids), and take the
+    same 3-step loss trajectory (f32, 1e-4)."""
+    over = ["--model.config.vocab_size", "65536", "--dataset.vocab_size", "65536",
+            "--model.config.hidden_size", "128", "--model.config.intermediate_size", "256",
+            "--dataset.seq_len", "20", "--packed_sequence.packed_sequence_size", "64",
+            "--backend.attention_segments", "true", "--optimizer.optimizer", "adamw"]
+    jcfg = jax_load_config(cfg_path)
+    for key, val in zip(over[::2], over[1::2]):
+        jcfg.set_by_path(key[2:], {"true": True}.get(val, int(val) if val.isdigit() else val))
+    jcfg.set_by_path("output_dir", str(tmp_path / "jax"))
+    del jcfg._data["loss"]
+    jr = JaxTrainFt(jcfg)
+    jr.setup()
+    params = jax.device_get(jr.params)
+    jr.run_train_validation_loop()
+    cfg = parse_args_and_load_config(["-c", cfg_path, *over,
+                                      "--output_dir", str(tmp_path / "port")])
+    del cfg._data["loss"]
+    port = train_ft.TrainFinetuneRecipeForNextTokenPrediction(cfg)
+    port.setup()
+    assert port.loss_name == jr.loss_name == "linear_ce" and port.seq_len == 64
+    port.model.load_params(params_from_jax(params, port.model.config))
+    port.run_train_validation_loop()
+    want = _losses(tmp_path / "jax" / "training.jsonl")
+    got = _losses(tmp_path / "port" / "training.jsonl")
+    assert len(got) == len(want) == 3
+    assert got == pytest.approx(want, abs=1e-4)
+    with pytest.raises(ValueError, match="segment"):
+        _setup(cfg_path, *over[:-4], "--backend.attention_segments", "false")
