@@ -1,0 +1,364 @@
+// Grouped (ragged) expert GEMM for Hopper (sm_90a): the MoE expert projections over
+// token rows sorted by expert, and their weight gradient.
+//
+// Replaces the Pallas kernels of automodel_tpu/ops/pallas/grouped_gemm.py:
+//   gmm  <- _gmm_kernel (out[rows of e] = x[rows of e] @ w[e]); with w read as its
+//           transpose in place it is also the dX of the backward (_bwd_rule), so no
+//           swapaxes copy of the expert stack is made
+//   tgmm <- _tgmm_kernel (dw[e] = x[rows of e]^T @ dout[rows of e]; zeros for an
+//           expert with no rows)
+//
+// Layouts: x (N, K) bf16 row-major, rows sorted so that each expert's rows are
+// contiguous; ends (E,) int32 the inclusive prefix sum of group_sizes (expert e owns
+// rows [ends[e-1], ends[e]) with ends[-1] = 0), on the device; w (E, K, Nout) bf16
+// row-major (forward) or (E, Nout, K) row-major read as its transpose (dX: K = F,
+// Nout = D of a (E, D, F) stack); out (N, Nout) bf16. tgmm: x (N, D), dout (N, F),
+// dw (E, D, F) bf16. Any N, K, Nout, D, F >= 1: every edge is masked in the loads and
+// the epilogues; rows past ends[E-1] get zeros in gmm and count for no expert in tgmm.
+//
+// What bounds it. At the Qwen3-30B-A3B slice shape (N = 65,536 routed rows, E = 128)
+// the gate_up forward (K = 2048, Nout = 1536) is 2NKNout = 412.3 GFLOP, 0.417 ms at
+// 989 TFLOP/s, against x 268 MB + w 805 MB + out 201 MB = 1.27 GB, 0.38 ms at
+// 3.35 TB/s: bound by operations, barely. The down projection (K = 768, Nout = 2048)
+// is 206 GFLOP (0.208 ms) against 0.77 GB (0.23 ms): bound by bytes. So a block reads
+// its expert's weight tile once per 128-row tile, never once per row.
+//
+// Design, simple first (the mainloop of csrc/linear_ce.cu): 128 x 128 output tiles,
+// 8 warps (2 x 4, 64 x 32 each), K steps of 64 through a three-stage cp.async ring in
+// shared memory (108 KB), fragments by ldmatrix, mma.sync m16n8k16 bf16 with f32
+// accumulation.
+//   - No host sync and no schedule built on the host: the grids come from the static
+//     N, K, Nout and E alone. A gmm block owns one 128-row tile, finds the first
+//     expert that overlaps it by binary search over `ends` (read from device memory)
+//     and runs one mainloop per overlapping expert into the same accumulator, each
+//     with the other experts' rows zeroed at the load (the TPU schedule's masked
+//     boundary tiles). The sum over experts is the tile's output: each row takes
+//     exactly one expert's product.
+//   - tgmm: one block per (128 x 128 tile of dw[e], e); K runs over the rows of
+//     expert e alone (operand pointers offset to its first row), so an empty expert
+//     runs no K step and writes zeros.
+// What it leaves on the table: no wgmma, TMA or warp specialisation; a block runs one
+// expert at a time at a boundary tile; tgmm's short K loops (~512 rows an expert at
+// the slice shape) pay the ring's prologue and the epilogue per tile.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int BM = 128;           // output tile rows
+constexpr int BN = 128;           // output tile columns
+constexpr int BK = 64;            // K step
+constexpr int STAGES = 3;         // depth of the cp.async ring
+constexpr int NUM_THREADS = 256;  // 8 warps: 2 along M x 4 along N
+constexpr int LDK = BK + 8;       // row stride of a tile stored K-contiguous ([row][k])
+constexpr int LDR = 128 + 8;      // row stride of a tile stored row-contiguous ([k][col])
+constexpr int STAGE_ELEMS = 128 * LDK;  // >= BK * LDR; one operand of one stage
+constexpr int SMEM_BYTES = 2 * STAGES * STAGE_ELEMS * 2;  // A and B rings, dynamic
+
+static_assert(BK * LDR <= STAGE_ELEMS, "stage buffer too small");
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t r[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// c += a * b for one m16n8k16 tile (a row-major 16x16, b col-major 16x8, c 16x8 f32).
+__device__ __forceinline__ void mma(float c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void cp_async16(bf16* dst, const bf16* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+// Copy a ROWS x COLS tile whose element (r, c) is g[(r0 + r) * ldg + c0 + c] into
+// shared memory at s[r * LDS + c]; elements with r0 + r outside [rlo, rlim) or
+// c0 + c >= clim are zero. `vec`: rows are 16-byte aligned (ldg % 8 == 0, g aligned,
+// c0 % 8 == 0), so 16-byte cp.async copies with a zero-filled tail; otherwise plain
+// scalar loads.
+template <int ROWS, int COLS, int LDS>
+__device__ __forceinline__ void load_tile(bf16* s, const bf16* g, size_t ldg, int r0, int c0,
+                                          int rlo, int rlim, int clim, bool vec) {
+  constexpr int CHUNKS = COLS / 8;
+  for (int i = threadIdx.x; i < ROWS * CHUNKS; i += NUM_THREADS) {
+    const int r = i / CHUNKS, c = (i % CHUNKS) * 8;
+    const int gr = r0 + r, gc = c0 + c;
+    const bool row_in = gr >= rlo && gr < rlim;
+    bf16* dst = s + r * LDS + c;
+    if (vec) {
+      int n = row_in ? min(max(clim - gc, 0), 8) : 0;
+      const bf16* src = n > 0 ? g + (size_t)gr * ldg + gc : g;
+      cp_async16(dst, src, n * 2);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        dst[j] = (row_in && gc + j < clim) ? g[(size_t)gr * ldg + gc + j]
+                                           : __float2bfloat16(0.f);
+      }
+    }
+  }
+}
+
+// One GEMM operand. A is (M x K), B is (K x N). KMAJ: stored with K contiguous, i.e.
+// A(m, k) = p[m * ld + k] and B(k, n) = p[n * ld + k]; otherwise A(m, k) = p[k * ld + m]
+// and B(k, n) = p[k * ld + n]. M or N index valid in [lo, lim) (lo is honoured for a
+// KMAJ operand only), K index valid below klim.
+struct Operand {
+  const bf16* p;
+  size_t ld;
+  int lo;
+  int lim;
+  int klim;
+  bool vec;
+};
+
+__host__ __device__ __forceinline__ bool aligned16(const bf16* p, size_t ld) {
+  return (ld % 8) == 0 && (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+template <bool KMAJ>
+__device__ __forceinline__ void load_operand(bf16* s, const Operand& op, int rc0, int k0) {
+  if (KMAJ)
+    load_tile<128, BK, LDK>(s, op.p, op.ld, rc0, k0, op.lo, op.lim, op.klim, op.vec);
+  else
+    load_tile<BK, 128, LDR>(s, op.p, op.ld, k0, rc0, 0, op.klim, op.lim, op.vec);
+}
+
+// A fragments of one m16k16 step at (m0, k0) of the stage tile.
+template <bool KMAJ>
+__device__ __forceinline__ void frag_a(uint32_t a[4], const bf16* s, int m0, int k0, int lane) {
+  if (KMAJ) {
+    ldsm_x4(a, s + (m0 + (lane & 15)) * LDK + k0 + (lane >> 4) * 8);
+  } else {
+    const int j = lane >> 3, r = lane & 7;
+    ldsm_x4_t(a, s + (k0 + (j >> 1) * 8 + r) * LDR + m0 + (j & 1) * 8);
+  }
+}
+
+// B fragments of two n8 tiles (n0, n0 + 8) of one k16 step: b[0], b[1] for n0 and
+// b[2], b[3] for n0 + 8.
+template <bool KMAJ>
+__device__ __forceinline__ void frag_b(uint32_t b[4], const bf16* s, int n0, int k0, int lane) {
+  const int j = lane >> 3, r = lane & 7;
+  if (KMAJ)
+    ldsm_x4(b, s + (n0 + (j >> 1) * 8 + r) * LDK + k0 + (j & 1) * 8);
+  else
+    ldsm_x4_t(b, s + (k0 + (j & 1) * 8 + r) * LDR + n0 + (j >> 1) * 8);
+}
+
+// acc[mi][ni][e] += A[m0 : m0+128, :K] @ B[:K, n0 : n0+128] for this warp's 64 x 32
+// piece: rows wm*64 + mi*16 + g (+8 for e >= 2), columns wn*32 + ni*8 + t (+1 for odd e).
+template <bool A_KMAJ, bool B_KMAJ>
+__device__ void mainloop(float acc[4][4][4], bf16* smem, const Operand& A, const Operand& B,
+                         int m0, int n0, int K) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wm = warp >> 2, wn = warp & 3;
+  bf16* sA = smem;                           // STAGES slots of A
+  bf16* sB = smem + STAGES * STAGE_ELEMS;    // STAGES slots of B
+  const int nk = (K + BK - 1) / BK;
+  // K step i lives in slot i % STAGES. One commit group per loop turn (empty once K
+  // runs out), so wait_group<STAGES-2> at turn i means step i has landed.
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nk) {
+      load_operand<A_KMAJ>(sA + s * STAGE_ELEMS, A, m0, s * BK);
+      load_operand<B_KMAJ>(sB + s * STAGE_ELEMS, B, n0, s * BK);
+    }
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // step kt is visible; every warp is done with step kt - 1
+    const int fetch = kt + STAGES - 1;
+    if (fetch < nk) {
+      const int slot = fetch % STAGES;  // the slot of step kt - 1
+      load_operand<A_KMAJ>(sA + slot * STAGE_ELEMS, A, m0, fetch * BK);
+      load_operand<B_KMAJ>(sB + slot * STAGE_ELEMS, B, n0, fetch * BK);
+    }
+    cp_async_commit();
+    const bf16* a_s = sA + (kt % STAGES) * STAGE_ELEMS;
+    const bf16* b_s = sB + (kt % STAGES) * STAGE_ELEMS;
+#pragma unroll
+    for (int ks = 0; ks < BK; ks += 16) {
+      uint32_t a[4][4], b[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi) frag_a<A_KMAJ>(a[mi], a_s, wm * 64 + mi * 16, ks, lane);
+#pragma unroll
+      for (int nj = 0; nj < 2; ++nj) frag_b<B_KMAJ>(b[nj], b_s, wn * 32 + nj * 16, ks, lane);
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi) {
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+          mma(acc[mi][ni], a[mi], b[ni >> 1][(ni & 1) * 2], b[ni >> 1][(ni & 1) * 2 + 1]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free for the caller's next mainloop
+}
+
+// out[row, col] = bf16(acc) for row < M, col < N (row-major, leading dimension N).
+__device__ __forceinline__ void store_tile(float acc[4][4][4], bf16* __restrict__ out,
+                                           int m0, int n0, int M, int N) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wm = warp >> 2, wn = warp & 3;
+  const int g = lane >> 2, t = (lane & 3) * 2;
+  const bool pairs = (N % 2) == 0;  // col is even, so (row, col) pairs are 4-byte aligned
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi) {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int row = m0 + wm * 64 + mi * 16 + g + hf * 8;
+      if (row >= M) continue;
+      bf16* orow = out + (size_t)row * N;
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+        const int col = n0 + wn * 32 + ni * 8 + t;
+        const float x0 = acc[mi][ni][hf * 2], x1 = acc[mi][ni][hf * 2 + 1];
+        if (pairs) {
+          if (col < N)
+            *reinterpret_cast<__nv_bfloat162*>(orow + col) = __floats2bfloat162_rn(x0, x1);
+        } else {
+          if (col < N) orow[col] = __float2bfloat16(x0);
+          if (col + 1 < N) orow[col + 1] = __float2bfloat16(x1);
+        }
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void zero_acc(float acc[4][4][4]) {
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+}
+
+// First expert whose row range reaches past `row`: the smallest e with ends[e] > row
+// (E when none). Every thread of the block computes the same value.
+__device__ __forceinline__ int first_expert(const int* __restrict__ ends, int E, int row) {
+  int lo = 0, hi = E;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (ends[mid] > row) hi = mid; else lo = mid + 1;
+  }
+  return lo;
+}
+
+// grid (ceil(Nout / 128), ceil(N / 128)). Block (nt, mt) owns out[128 mt : +128,
+// 128 nt : +128] and sums one masked product per expert overlapping its rows.
+template <bool W_KMAJ>
+__global__ void __launch_bounds__(NUM_THREADS)
+gmm_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w, const int* __restrict__ ends,
+           bf16* __restrict__ out, int N, int K, int Nout, int E) {
+  extern __shared__ __align__(16) unsigned char dyn_smem[];
+  bf16* smem = reinterpret_cast<bf16*>(dyn_smem);
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int row_end = min(m0 + BM, N);
+  const size_t w_stride = (size_t)K * Nout;
+  const size_t ld_w = W_KMAJ ? (size_t)K : (size_t)Nout;
+
+  float acc[4][4][4];
+  zero_acc(acc);
+  for (int e = first_expert(ends, E, m0); e < E; ++e) {
+    const int start = e > 0 ? ends[e - 1] : 0;
+    if (start >= row_end) break;
+    const int lo = max(start, m0), hi = min(ends[e], row_end);
+    if (hi <= lo) continue;  // an empty expert
+    const bf16* we = w + (size_t)e * w_stride;
+    const Operand A{x, (size_t)K, lo, hi, K, aligned16(x, K)};
+    const Operand B{we, ld_w, 0, Nout, K, aligned16(we, ld_w)};
+    mainloop<true, W_KMAJ>(acc, smem, A, B, m0, n0, K);
+  }
+  store_tile(acc, out, m0, n0, N, Nout);
+}
+
+// grid (ceil(F / 128), ceil(D / 128), E). Block (ft, dt, e) owns dw[e][128 dt : +128,
+// 128 ft : +128] = x[rows of e]^T @ dout[rows of e].
+__global__ void __launch_bounds__(NUM_THREADS)
+tgmm_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dout,
+            const int* __restrict__ ends, bf16* __restrict__ dw, int N, int D, int F) {
+  extern __shared__ __align__(16) unsigned char dyn_smem[];
+  bf16* smem = reinterpret_cast<bf16*>(dyn_smem);
+  const int e = blockIdx.z;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int start = min(e > 0 ? ends[e - 1] : 0, N);
+  const int rows = max(min(ends[e], N) - start, 0);
+  const bf16* xe = x + (size_t)start * D;
+  const bf16* ge = dout + (size_t)start * F;
+  // A = x_e^T: A(d, r) = xe[r * D + d], stored row-contiguous along d; B = dout_e
+  const Operand A{xe, (size_t)D, 0, D, rows, aligned16(xe, D)};
+  const Operand B{ge, (size_t)F, 0, F, rows, aligned16(ge, F)};
+
+  float acc[4][4][4];
+  zero_acc(acc);
+  mainloop<false, false>(acc, smem, A, B, m0, n0, rows);
+  store_tile(acc, dw + (size_t)e * D * F, m0, n0, D, F);
+}
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+}
+
+}  // namespace
+
+// Plain C entry points (bound with ctypes). Each returns a cudaError_t; the caller
+// checks inputs beforehand (see the layout note at the top) and allocates the output.
+
+// out (N, Nout) = ragged_dot(x (N, K), w, group_sizes); w_kmajor: w is (E, Nout, K)
+// and is read as its transpose (the dX of the backward), else (E, K, Nout).
+extern "C" int gmm(const void* x, const void* w, const int* ends, void* out, int N, int K,
+                   int Nout, int E, int w_kmajor, void* stream) {
+  if (N < 1 || K < 1 || Nout < 1 || E < 1) return (int)cudaErrorInvalidValue;
+  const auto kernel = w_kmajor ? gmm_kernel<true> : gmm_kernel<false>;
+  cudaError_t err = allow_smem(kernel);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((Nout + BN - 1) / BN, (N + BM - 1) / BM);
+  kernel<<<grid, NUM_THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w), ends, static_cast<bf16*>(out),
+      N, K, Nout, E);
+  return (int)cudaGetLastError();
+}
+
+// dw (E, D, F): dw[e] = x[rows of e]^T @ dout[rows of e], zeros for an empty expert.
+extern "C" int tgmm(const void* x, const void* dout, const int* ends, void* dw, int N, int D,
+                    int F, int E, void* stream) {
+  if (N < 1 || D < 1 || F < 1 || E < 1) return (int)cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(tgmm_kernel);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((F + BN - 1) / BN, (D + BM - 1) / BM, E);
+  tgmm_kernel<<<grid, NUM_THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(dout), ends,
+      static_cast<bf16*>(dw), N, D, F);
+  return (int)cudaGetLastError();
+}

@@ -37,6 +37,10 @@ SOURCES: dict[str, dict[str, list]] = {
         "lce_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
         "lce_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     },
+    "grouped_gemm.cu": {
+        "gmm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "tgmm": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    },
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

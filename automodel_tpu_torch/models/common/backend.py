@@ -37,6 +37,12 @@ class BackendConfig:
     remat_policy:       one of REMAT_POLICIES (see the module docstring)
     scan_layers:        layout-only, accepted and ignored
     dtype:              activation and compute dtype
+    experts_backend:    MoE only: "ragged_dot" | "pallas" (both the grouped GEMM
+                        kernels on the card, its plain version on the CPU) | "dense"
+                        (capacity one-hot einsums); see moe/experts.py
+    dispatcher:         MoE only: "dense"; "a2a" (expert parallel) is not ported yet
+    fake_balanced_gate: MoE only: round-robin routing for benchmarks
+    fake_gate_noise:    its noise (> 0 is not ported yet)
     """
 
     attention: str = "xla"
@@ -44,6 +50,10 @@ class BackendConfig:
     remat_policy: str = "none"
     scan_layers: bool = True
     dtype: str = "bfloat16"
+    experts_backend: str = "ragged_dot"
+    dispatcher: str = "dense"
+    fake_balanced_gate: bool = False
+    fake_gate_noise: float = 0.0
 
     def __post_init__(self):
         if self.attention not in ("xla", "flash"):
@@ -53,6 +63,11 @@ class BackendConfig:
                              f"(choose from {list(REMAT_POLICIES)})")
         if self.dtype not in DTYPES:
             raise ValueError(f"unknown dtype {self.dtype!r} (choose from {list(DTYPES)})")
+        if self.experts_backend not in ("ragged_dot", "pallas", "dense"):
+            raise ValueError(f"unknown experts_backend {self.experts_backend!r} "
+                             "(ragged_dot | pallas | dense)")
+        if self.dispatcher not in ("dense", "a2a"):
+            raise ValueError(f"unknown dispatcher {self.dispatcher!r} (dense | a2a)")
 
     @property
     def torch_dtype(self) -> torch.dtype:

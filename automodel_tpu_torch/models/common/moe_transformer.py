@@ -1,0 +1,143 @@
+"""GQA + MoE decoder, training path (counterpart of
+``automodel_tpu/models/common/moe_transformer.py``).
+
+A model may have a dense prefix (``first_k_dense_replace`` layers with the dense MLP,
+stacked under ``dense_layers.``); the MoE layers follow, stacked under ``moe_layers.``
+with their MoE block under ``moe_layers.moe.``. The forward returns ``(out, stats)``
+with the summed ``aux_loss`` (or None) and the per-layer ``expert_load`` (L_moe, E).
+
+  dense_layers: the dense decoder's layer table (``transformer.layer_shapes``)
+  moe_layers:   the same minus w_gate/w_up/w_down, plus moe.gate.weight (L,E,D)
+                | moe.experts.gate_up_proj (L,E,D,2I) | moe.experts.down_proj (L,E,I,D)
+                | [router / expert biases, shared experts]
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from automodel_tpu_torch.models.common.backend import BackendConfig
+from automodel_tpu_torch.models.common.transformer import (
+    DenseDecoderConfig, attention_block, decoder_layer, layer_shapes, resolve_unembed)
+from automodel_tpu_torch.moe.config import MoEConfig
+from automodel_tpu_torch.moe.dispatch import make_moe_block_forward
+from automodel_tpu_torch.moe.layers import (cast_moe_compute_params, moe_param_shapes,
+                                            nest_moe_params)
+from automodel_tpu_torch.ops.norms import rms_norm
+from automodel_tpu_torch.ops.rope import rope_attention_scaling, rope_frequencies
+
+__all__ = ["MoEDecoderConfig", "moe_decoder_forward", "moe_decoder_param_shapes"]
+
+_DENSE_MLP = ("w_gate", "w_up", "w_down")
+
+
+@dataclasses.dataclass
+class MoEDecoderConfig(DenseDecoderConfig):
+    """GQA decoder whose layers from ``first_k_dense_replace`` on use an MoE block."""
+
+    moe: MoEConfig | None = None
+    first_k_dense_replace: int = 0
+
+    def __post_init__(self):
+        super().__post_init__()
+        if self.moe is None:
+            raise ValueError("MoEDecoderConfig requires a MoEConfig in .moe")
+
+    @property
+    def num_moe_layers(self) -> int:
+        return self.num_hidden_layers - self.first_k_dense_replace
+
+
+def _attn_only_shapes(cfg: MoEDecoderConfig) -> dict[str, tuple[int, ...]]:
+    return {n: s for n, s in layer_shapes(cfg).items() if n not in _DENSE_MLP}
+
+
+def moe_decoder_param_shapes(cfg: MoEDecoderConfig) -> dict[str, tuple[int, ...]]:
+    """Flat name -> shape of every parameter, named as the JAX tree flattens them."""
+    shapes = {"embed": (cfg.vocab_size, cfg.hidden_size), "final_norm": (cfg.hidden_size,)}
+    k = cfg.first_k_dense_replace
+    if k > 0:
+        shapes |= {f"dense_layers.{n}": (k, *s) for n, s in layer_shapes(cfg).items()}
+    lm = cfg.num_moe_layers
+    shapes |= {f"moe_layers.{n}": (lm, *s) for n, s in _attn_only_shapes(cfg).items()}
+    shapes |= {f"moe_layers.moe.{n}": (lm, *s) for n, s in moe_param_shapes(cfg.moe).items()}
+    if not cfg.tie_word_embeddings:
+        shapes["lm_head"] = (cfg.hidden_size, cfg.vocab_size)
+    return shapes
+
+
+def _moe_layer(cfg, backend, moe_block, attn_names, moe_names, h, positions, segment_ids,
+               token_mask, inv_freq, attn_scale, *weights):
+    """One MoE layer: h + attn(norm(h)), then + moe(norm(h)). Returns (h, aux, load)."""
+    dtype = backend.torch_dtype
+    n_attn = len(attn_names)
+    lp = {n: w.to(dtype) for n, w in zip(attn_names, weights[:n_attn])}
+    moe_params = cast_moe_compute_params(nest_moe_params(dict(zip(moe_names, weights[n_attn:]))),
+                                         dtype)
+    x = rms_norm(h, lp["attn_norm"], cfg.rms_norm_eps)
+    h = h + attention_block(cfg, backend, lp, x, positions, segment_ids, inv_freq, attn_scale)
+    x = rms_norm(h, lp["mlp_norm"], cfg.rms_norm_eps)
+    y, aux, load, _ = moe_block(moe_params, x, token_mask)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    return h + y, aux, load
+
+
+def moe_decoder_forward(
+    cfg: MoEDecoderConfig,
+    backend: BackendConfig,
+    params: dict[str, torch.Tensor],
+    input_ids: torch.Tensor,  # (B, S)
+    positions: torch.Tensor | None = None,
+    segment_ids: torch.Tensor | None = None,
+    token_mask: torch.Tensor | None = None,  # (B, S) True = valid (counts for routing)
+    return_hidden: bool = False,
+    training: bool = True,
+) -> tuple[torch.Tensor, dict[str, Any]]:
+    """``(logits or hidden, stats)``; stats: ``aux_loss`` (summed over MoE layers, or
+    None when the aux loss is off) and ``expert_load`` (L_moe, E)."""
+    dtype = backend.torch_dtype
+    if positions is None:
+        positions = torch.arange(input_ids.shape[1], device=input_ids.device).expand(
+            input_ids.shape)
+    inv_freq = rope_frequencies(cfg.head_dim, cfg.rope_theta, cfg.rope_scaling,
+                                device=input_ids.device)
+    attn_scale = rope_attention_scaling(cfg.rope_scaling)
+    emit_aux = cfg.moe.aux_loss_coeff > 0 and training and not backend.fake_balanced_gate
+    remat = backend.checkpoint_layers and torch.is_grad_enabled()
+    h = F.embedding(input_ids.long(), params["embed"].to(dtype))
+
+    dense_names = list(layer_shapes(cfg))
+    dense = [params[f"dense_layers.{n}"].unbind(0) for n in dense_names] \
+        if cfg.first_k_dense_replace > 0 else []
+    for i in range(cfg.first_k_dense_replace):
+        args = (cfg, backend, dense_names, h, positions, segment_ids, inv_freq, attn_scale,
+                *[w[i] for w in dense])
+        h = (checkpoint(decoder_layer, *args, use_reentrant=False) if remat
+             else decoder_layer(*args))
+
+    moe_block = make_moe_block_forward(cfg.moe, backend, training=training)
+    attn_names = list(_attn_only_shapes(cfg))
+    moe_names = list(moe_param_shapes(cfg.moe))
+    per_layer = ([params[f"moe_layers.{n}"].unbind(0) for n in attn_names]
+                 + [params[f"moe_layers.moe.{n}"].unbind(0) for n in moe_names])
+    auxs, loads = [], []
+    for i in range(cfg.num_moe_layers):
+        args = (cfg, backend, moe_block, attn_names, moe_names, h, positions, segment_ids,
+                token_mask, inv_freq, attn_scale, *[w[i] for w in per_layer])
+        h, aux, load = (checkpoint(_moe_layer, *args, use_reentrant=False) if remat
+                        else _moe_layer(*args))
+        auxs.append(aux)
+        loads.append(load)
+
+    h = rms_norm(h, params["final_norm"].to(dtype), cfg.rms_norm_eps)
+    stats = {"aux_loss": torch.stack(auxs).sum() if emit_aux else None,
+             "expert_load": torch.stack(loads)}
+    if return_hidden:
+        return h, stats
+    return torch.matmul(h, resolve_unembed(cfg, params, dtype)), stats

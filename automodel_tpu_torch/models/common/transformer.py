@@ -7,6 +7,7 @@ and shape, and the optimizer sees the same tensor shapes in both.
 
   layers: attn_norm (L,D) | wq (L,D,N,H) | wk/wv (L,D,K,H) | wo (L,N,H,D)
           | mlp_norm (L,D) | w_gate/w_up (L,D,I) | w_down (L,I,D)
+          | [q_norm/k_norm (L,H) with qk_norm]
   top:    embed (V,D) | final_norm (D,) | [lm_head (D,V) unless tied]
 
 The forward unbinds the stacks once into per-layer views; the gradient of that
@@ -27,8 +28,9 @@ from automodel_tpu_torch.ops.attention import dot_product_attention
 from automodel_tpu_torch.ops.norms import rms_norm
 from automodel_tpu_torch.ops.rope import apply_rope, rope_attention_scaling, rope_frequencies
 
-__all__ = ["DenseDecoderConfig", "decoder_forward", "init_dense_decoder_params",
-           "layer_shapes", "resolve_unembed"]
+__all__ = ["DenseDecoderConfig", "attention_block", "decoder_forward", "decoder_layer",
+           "init_dense_decoder_params", "init_params", "layer_shapes", "param_shapes",
+           "resolve_unembed"]
 
 
 @dataclasses.dataclass
@@ -49,6 +51,7 @@ class DenseDecoderConfig:
     tie_word_embeddings: bool = False
     initializer_range: float = 0.02
     causal: bool = True
+    qk_norm: bool = False  # qwen3: RMSNorm over head_dim of each q / k head, before RoPE
 
     def __post_init__(self):
         if self.head_dim is None:
@@ -59,11 +62,14 @@ def layer_shapes(cfg: DenseDecoderConfig) -> dict[str, tuple[int, ...]]:
     """Per-layer parameter shapes (without the stacked L axis)."""
     d, n, k, h, i = (cfg.hidden_size, cfg.num_attention_heads, cfg.num_key_value_heads,
                      cfg.head_dim, cfg.intermediate_size)
-    return {
+    shapes = {
         "attn_norm": (d,), "wq": (d, n, h), "wk": (d, k, h), "wv": (d, k, h),
         "wo": (n, h, d), "mlp_norm": (d,), "w_gate": (d, i), "w_up": (d, i),
         "w_down": (i, d),
     }
+    if cfg.qk_norm:
+        shapes |= {"q_norm": (h,), "k_norm": (h,)}
+    return shapes
 
 
 def param_shapes(cfg: DenseDecoderConfig) -> dict[str, tuple[int, ...]]:
@@ -76,23 +82,33 @@ def param_shapes(cfg: DenseDecoderConfig) -> dict[str, tuple[int, ...]]:
     return shapes
 
 
-def init_dense_decoder_params(cfg: DenseDecoderConfig, generator: torch.Generator,
-                              dtype=torch.float32, device=None) -> dict[str, torch.Tensor]:
-    """Random init with HF's conventions: normal(0, initializer_range), norms at 1.
-
-    Draws on ``generator``'s device; the values are not the JAX package's (its
-    generator differs), so comparisons carry weights across with
-    :func:`automodel_tpu_torch.models.llama.convert.params_from_jax`.
-    """
+def init_params(shapes: dict[str, tuple[int, ...]], generator: torch.Generator, std: float,
+                dtype=torch.float32, device=None) -> dict[str, torch.Tensor]:
+    """Random init with HF's conventions: normal(0, std), norms at 1, biases at 0 (a
+    routing correction bias kept in f32). Draws on ``generator``'s device in the order of
+    ``shapes``; the values are not the JAX package's (its generator differs), so
+    comparisons carry weights across with
+    :func:`automodel_tpu_torch.models.llama.convert.params_from_jax`."""
     out = {}
-    for name, shape in param_shapes(cfg).items():
-        if name.endswith("norm"):
+    for name, shape in shapes.items():
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf.endswith("norm"):
             out[name] = torch.ones(shape, dtype=dtype, device=device)
+        elif leaf.endswith("bias"):
+            keep_f32 = leaf == "score_correction_bias"
+            out[name] = torch.zeros(shape, dtype=torch.float32 if keep_f32 else dtype,
+                                    device=device)
         else:
             w = torch.empty(shape, dtype=torch.float32, device=generator.device)
-            w.normal_(0.0, cfg.initializer_range, generator=generator)
+            w.normal_(0.0, std, generator=generator)
             out[name] = w.to(device=device, dtype=dtype)
     return out
+
+
+def init_dense_decoder_params(cfg: DenseDecoderConfig, generator: torch.Generator,
+                              dtype=torch.float32, device=None) -> dict[str, torch.Tensor]:
+    """Random init of every parameter of :func:`param_shapes` (see :func:`init_params`)."""
+    return init_params(param_shapes(cfg), generator, cfg.initializer_range, dtype, device)
 
 
 def resolve_unembed(cfg: DenseDecoderConfig, params: dict, dtype) -> torch.Tensor:
@@ -115,20 +131,32 @@ def _project(x, w, n_in):
     return torch.matmul(x2, w.reshape(k, -1)).reshape(*x2.shape[:-1], *out_shape)
 
 
-def _layer(cfg, backend, names, h, positions, segment_ids, inv_freq, attn_scale, *weights):
-    """One pre-norm decoder layer: h + attn(norm(h)), then + mlp(norm(h))."""
-    dtype = backend.torch_dtype
-    lp = {n: w.to(dtype) for n, w in zip(names, weights)}
-    x = rms_norm(h, lp["attn_norm"], cfg.rms_norm_eps)
-    q = apply_rope(_project(x, lp["wq"], 1), positions, inv_freq, attn_scale)
-    k = apply_rope(_project(x, lp["wk"], 1), positions, inv_freq, attn_scale)
+def attention_block(cfg, backend, lp, x, positions, segment_ids, inv_freq, attn_scale):
+    """Self-attention of one layer on the normed input x: projections, per-head q/k
+    RMSNorm (``qk_norm``), RoPE, attention and the output projection."""
+    q = _project(x, lp["wq"], 1)
+    k = _project(x, lp["wk"], 1)
+    if cfg.qk_norm:
+        q = rms_norm(q, lp["q_norm"], cfg.rms_norm_eps)
+        k = rms_norm(k, lp["k_norm"], cfg.rms_norm_eps)
+    q = apply_rope(q, positions, inv_freq, attn_scale)
+    k = apply_rope(k, positions, inv_freq, attn_scale)
     v = _project(x, lp["wv"], 1)
     # attention_segments=False: right-padded unpacked batches, where causal masking
     # alone keeps real tokens away from trailing pads (bidirectional stacks keep it)
     seg = segment_ids if (backend.attention_segments or not cfg.causal) else None
     out = dot_product_attention(q, k, v, causal=cfg.causal, segment_ids_q=seg,
                                 backend=backend.attention)
-    h = h + _project(out, lp["wo"], 2)
+    return _project(out, lp["wo"], 2)
+
+
+def decoder_layer(cfg, backend, names, h, positions, segment_ids, inv_freq, attn_scale,
+                  *weights):
+    """One pre-norm decoder layer: h + attn(norm(h)), then + mlp(norm(h))."""
+    dtype = backend.torch_dtype
+    lp = {n: w.to(dtype) for n, w in zip(names, weights)}
+    x = rms_norm(h, lp["attn_norm"], cfg.rms_norm_eps)
+    h = h + attention_block(cfg, backend, lp, x, positions, segment_ids, inv_freq, attn_scale)
     x = rms_norm(h, lp["mlp_norm"], cfg.rms_norm_eps)
     up = _project(x, lp["w_up"], 1)
     gate = _project(x, lp["w_gate"], 1)
@@ -159,9 +187,9 @@ def decoder_forward(
         weights = [w[i] for w in per_layer]
         args = (cfg, backend, names, h, positions, segment_ids, inv_freq, attn_scale, *weights)
         if backend.checkpoint_layers and torch.is_grad_enabled():
-            h = checkpoint(_layer, *args, use_reentrant=False)
+            h = checkpoint(decoder_layer, *args, use_reentrant=False)
         else:
-            h = _layer(*args)
+            h = decoder_layer(*args)
     h = rms_norm(h, params["final_norm"].to(dtype), cfg.rms_norm_eps)
     if return_hidden:
         return h

@@ -12,9 +12,9 @@ import dataclasses
 from typing import Any
 
 import torch
-from torch import nn
 
 from automodel_tpu_torch.models.common.backend import BackendConfig
+from automodel_tpu_torch.models.common.param_module import ParamModule
 from automodel_tpu_torch.models.common.transformer import (
     DenseDecoderConfig, decoder_forward, init_dense_decoder_params,
 )
@@ -73,22 +73,20 @@ class LlamaConfig(DenseDecoderConfig):
         )
 
 
-class LlamaForCausalLM(nn.Module):
+class LlamaForCausalLM(ParamModule):
     """Holds the parameters (JAX layout, flat names) and runs the dense decoder."""
+
+    config_class = LlamaConfig
 
     def __init__(self, config: LlamaConfig, backend: BackendConfig | None = None, *,
                  device: torch.device | str = "cuda", dtype=torch.float32,
                  generator: torch.Generator | None = None):
-        super().__init__()
-        self.config = config
-        self.backend = backend or BackendConfig()
         device = torch.device(device)
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(0)
-        init = init_dense_decoder_params(config, generator, dtype, device)
-        # ParameterDict keys cannot hold dots: "layers.wq" is stored as "layers__wq"
-        self.params = nn.ParameterDict({k.replace(".", "__"): nn.Parameter(v)
-                                        for k, v in init.items()})
+        super().__init__(init_dense_decoder_params(config, generator, dtype, device))
+        self.config = config
+        self.backend = backend or BackendConfig()
 
     @classmethod
     def from_config(cls, config: LlamaConfig | dict, backend: BackendConfig | None = None,
@@ -96,22 +94,6 @@ class LlamaForCausalLM(nn.Module):
         if isinstance(config, dict):
             config = LlamaConfig.from_hf(config)
         return cls(config, backend, **kw)
-
-    def param_dict(self) -> dict[str, torch.Tensor]:
-        """name -> parameter, with the JAX tree's names (``layers.wq``)."""
-        return {k.replace("__", "."): v for k, v in self.params.items()}
-
-    def load_params(self, tensors: dict[str, torch.Tensor]) -> None:
-        """Copy ``tensors`` (flat JAX names, e.g. from ``params_from_jax``) in place."""
-        own = self.param_dict()
-        if set(tensors) != set(own):
-            raise KeyError(f"parameter names differ: missing {sorted(set(own) - set(tensors))}, "
-                           f"unexpected {sorted(set(tensors) - set(own))}")
-        with torch.no_grad():
-            for name, t in tensors.items():
-                if tuple(t.shape) != tuple(own[name].shape):
-                    raise ValueError(f"{name}: shape {tuple(t.shape)} != {tuple(own[name].shape)}")
-                own[name].copy_(t)
 
     def forward(self, input_ids, positions=None, segment_ids=None, return_hidden=False):
         return decoder_forward(self.config, self.backend, self.param_dict(), input_ids,

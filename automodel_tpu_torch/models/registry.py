@@ -1,0 +1,30 @@
+"""HF architecture name -> the port's model class (counterpart of
+``automodel_tpu/models/registry.py`` for the families the port has). Names the JAX
+registry sends to its Llama lineage go to the port's Llama, whose ``from_hf`` raises
+for the lineage members not ported yet."""
+
+from __future__ import annotations
+
+import importlib
+
+__all__ = ["MODEL_REGISTRY", "resolve_model_class"]
+
+_LLAMA = "automodel_tpu_torch.models.llama.model:LlamaForCausalLM"
+MODEL_REGISTRY: dict[str, str] = {
+    **{arch: _LLAMA for arch in (
+        "LlamaForCausalLM", "Qwen2ForCausalLM", "Qwen3ForCausalLM", "MistralForCausalLM",
+        "GraniteForCausalLM", "SmolLM3ForCausalLM", "Olmo2ForCausalLM", "Olmo3ForCausalLM",
+        "CohereForCausalLM", "Cohere2ForCausalLM", "ArceeForCausalLM")},
+    "Qwen3MoeForCausalLM": "automodel_tpu_torch.models.qwen3_moe.model:Qwen3MoeForCausalLM",
+}
+
+
+def resolve_model_class(architecture: str):
+    """The model class of an HF architecture name; NotImplementedError for a family the
+    port does not have yet."""
+    target = MODEL_REGISTRY.get(architecture)
+    if target is None:
+        raise NotImplementedError(f"architecture {architecture!r} is not ported to the "
+                                  f"PyTorch package yet (ported: {sorted(MODEL_REGISTRY)})")
+    module, name = target.split(":")
+    return getattr(importlib.import_module(module), name)

@@ -6,9 +6,9 @@ the kernels in ``csrc/flash_attention.cu`` (``flash_fwd``, ``flash_bwd``) or rai
 a CPU tensor goes to :func:`flash_attention_reference`, a direct masked softmax in
 f32 that also serves as the kernels' check on the card.
 
-The kernels cover what the Llama path uses: causal and non-causal masks, GQA, segment
-ids, bf16 and head_dim 64. Sliding window, logit soft-cap and sinks exist only in the
-plain version and raise on CUDA.
+The kernels cover what the Llama and Qwen3-MoE paths use: causal and non-causal
+masks, GQA, segment ids, bf16, head_dim 64 and 128. Sliding window, logit soft-cap and
+sinks exist only in the plain version and raise on CUDA.
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ NEG_INF = -1e30
 # one count per kernel launch, so a run can show that it went through the kernels
 LAUNCHES = {"flash_fwd": 0, "flash_bwd": 0}
 _SOURCE = "flash_attention.cu"
-_HEAD_DIMS = (64,)
+_HEAD_DIMS = (64, 128)
 
 
 def _mask(sq, skv, causal, seg_q, seg_kv, sliding_window, device):

@@ -9,6 +9,11 @@ gradients:
 - ``adamw``: ``optax.adamw`` (scale_by_adam, masked add_decayed_weights, -lr);
 - ``adafactor_nomom``: ``optax.scale_by_factored_rms(decay_rate=betas[1])``, then the
   masked decay and -lr;
+- ``adamw_lowmem``: the JAX package's ``low_mem_scale_by_adam`` (both moments stored in
+  bf16, the math in f32), then the masked decay and -lr. Large leaves are updated in
+  slices of at most ``_SLICE_ELEMS`` elements (rows of the leaf seen as a matrix, i.e.
+  slices along its stacked leading dims), so the f32 temporaries stay a few hundred MB
+  whatever the leaf; the arithmetic is elementwise, so the slices change no value;
 - both behind ``optax.clip_by_global_norm`` when ``max_grad_norm`` is set.
 
 Other optimizer names raise NotImplementedError until a slice ports them.
@@ -28,7 +33,9 @@ Tree = dict[str, torch.Tensor]
 
 def no_decay_mask(params: Tree) -> dict[str, bool]:
     """True where weight decay applies: per-layer rank >= 2 (stacked leaves under
-    ``layers.`` carry one extra leading dim), as the JAX mask decides."""
+    ``layers.`` carry one extra leading dim), as the JAX mask decides. JAX treats only
+    the key ``layers`` as stacked, so ``moe_layers.`` / ``dense_layers.`` norms (rank 2
+    with their stack dim) decay there, and here alike."""
     return {k: v.ndim - (1 if k.startswith("layers.") else 0) >= 2 for k, v in params.items()}
 
 
@@ -66,6 +73,51 @@ def _scale_by_adam(b1, b2, eps):
         bc1 = 1 - b1 ** count.item()
         bc2 = 1 - b2 ** count.item()
         upd = {k: (mu[k] / bc1) / (torch.sqrt(nu[k] / bc2) + eps) for k in grads}
+        return upd, {"count": count, "mu": mu, "nu": nu}
+    return init, update
+
+
+_SLICE_ELEMS = 1 << 26  # elements per slice of the adamw_lowmem update (256 MB in f32)
+
+
+def _row_slices(t: torch.Tensor, max_elems: int):
+    """Views of contiguous ``t`` (as rows of its last dim) of at most ``max_elems``
+    elements each, or of one row when a row is larger."""
+    rows = t.reshape(-1, t.shape[-1]) if t.ndim else t.reshape(1, 1)
+    step = max(max_elems // rows.shape[1], 1)
+    return [rows[i:i + step] for i in range(0, rows.shape[0], step)]
+
+
+def _scale_by_adam_lowmem(b1, b2, eps, slice_elems=_SLICE_ELEMS):
+    """low_mem_scale_by_adam: bf16 mu and nu, f32 math, updates in the gradient's dtype."""
+    def zeros(p):  # contiguous, so that the row slices below are views
+        return torch.zeros(p.shape, dtype=torch.bfloat16, device=p.device)
+
+    def init(params):
+        return {"count": torch.zeros((), dtype=torch.int32),
+                "mu": {k: zeros(p) for k, p in params.items()},
+                "nu": {k: zeros(p) for k, p in params.items()}}
+
+    def update(grads, state, params):
+        count = state["count"] + 1
+        # bias corrections in f32, as JAX computes them from the f32 count
+        bc1 = (1 - torch.tensor(b1, dtype=torch.float32) ** count.float()).item()
+        bc2 = (1 - torch.tensor(b2, dtype=torch.float32) ** count.float()).item()
+        upd, mu, nu = {}, {}, {}
+        for k, g in grads.items():
+            g = g.contiguous()
+            upd[k] = torch.empty(g.shape, dtype=g.dtype, device=g.device)
+            mu[k], nu[k] = (torch.empty(g.shape, dtype=torch.bfloat16, device=g.device)
+                            for _ in range(2))
+            for gs, ms, ns, us, mo, no in zip(*(_row_slices(t, slice_elems) for t in (
+                    g, state["mu"][k].contiguous(), state["nu"][k].contiguous(), upd[k],
+                    mu[k], nu[k]))):
+                g32 = gs.float()
+                mu32 = b1 * ms.float() + (1 - b1) * g32
+                nu32 = b2 * ns.float() + (1 - b2) * g32 * g32
+                us.copy_((mu32 / bc1) / (torch.sqrt(nu32 / bc2) + eps))
+                mo.copy_(mu32)
+                no.copy_(nu32)
         return upd, {"count": count, "mu": mu, "nu": nu}
     return init, update
 
@@ -179,12 +231,14 @@ def build_optimizer(
         chain.append(_clip(max_grad_norm))
     if optimizer == "adamw":
         chain.append(_scale_by_adam(betas[0], betas[1], eps))
+    elif optimizer == "adamw_lowmem":
+        chain.append(_scale_by_adam_lowmem(betas[0], betas[1], eps))
     elif optimizer == "adafactor_nomom":
         chain.append(_scale_by_factored_rms(decay_rate=betas[1]))
     else:
         raise NotImplementedError(
             f"optimizer {optimizer!r} is not ported to the PyTorch package yet "
-            "(adamw | adafactor_nomom)")
+            "(adamw | adamw_lowmem | adafactor_nomom)")
     if weight_decay:
         chain.append(_add_decayed_weights(weight_decay, no_decay_mask))
     chain.append(_scale_by_learning_rate(lr))

@@ -133,6 +133,8 @@ def _kernel_class(name: str) -> str:
         return "flash_kernels"
     if "lce_" in low:  # lce_fwd/merge/dlogits/gemm kernels of csrc/linear_ce.cu
         return "linear_ce_kernels"
+    if "gmm_kernel" in low:  # gmm_kernel / tgmm_kernel of csrc/grouped_gemm.cu
+        return "grouped_gemm_kernels"
     if low.startswith("nvjet") or "gemm" in low or "cutlass" in low or "xmma" in low:
         return "gemm"
     if "reduce" in low:

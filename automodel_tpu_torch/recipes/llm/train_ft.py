@@ -1,15 +1,18 @@
 """Single-device SFT recipe (counterpart of ``automodel_tpu/recipes/llm/train_ft.py``).
 
-Ported: the model built from ``model.config`` (an HF config dict), ``model.params_dtype``,
+Ported: the model built from ``model.config`` (an HF config dict; the class from its
+``architectures`` through ``models/registry.py``: Llama, Qwen3-MoE), ``model.params_dtype``,
 the loss choice with the JAX recipe's default rule (``linear_ce`` at vocab >= 65536,
-with ``loss.impl`` and ``loss.filter_eps``), the data path with sequence packing
-(``packed_sequence``), the accumulating train step with its optimizer and LR schedule,
-and ``training.jsonl`` rows.
+with ``loss.impl`` and ``loss.filter_eps``), an MoE model's token mask, aux-loss term
+and ``moe_load/*`` rows (``moe_metrics.mode``, default ``brief``), the data path with
+sequence packing (``packed_sequence``), the accumulating train step with its optimizer
+and LR schedule, and ``training.jsonl`` rows.
 
 Runs on ``device`` (default ``cuda``). With no card it raises unless the config says
 ``device: cpu``. Sections this slice does not port (a mesh larger than one device,
-PEFT, QAT, MoE, PP, checkpointing, validation, prefetching, resilience and
-observability services, pretrained weights) raise NotImplementedError.
+expert parallelism and the ``a2a`` dispatcher, PEFT, QAT, PP, checkpointing,
+validation, prefetching, resilience and observability services, pretrained weights,
+noisy fake routing, the gate-bias update) raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -29,13 +32,14 @@ from automodel_tpu_torch.data.loader import DataLoader
 from automodel_tpu_torch.loggers.metric_logger import MetricLogger
 from automodel_tpu_torch.models.common.backend import DTYPES, BackendConfig
 from automodel_tpu_torch.models.common.transformer import resolve_unembed
-from automodel_tpu_torch.models.llama.model import LlamaConfig, LlamaForCausalLM
+from automodel_tpu_torch.models.registry import resolve_model_class
+from automodel_tpu_torch.moe.metrics import compute_load_balance_metrics
 from automodel_tpu_torch.ops.losses import (LINEAR_CE_IMPLS, linear_cross_entropy,
                                             masked_cross_entropy)
 from automodel_tpu_torch.optim.builder import build_optimizer
 from automodel_tpu_torch.optim.scheduler import build_lr_schedule
 from automodel_tpu_torch.training.step_scheduler import StepScheduler
-from automodel_tpu_torch.training.train_step import make_train_step
+from automodel_tpu_torch.training.train_step import count_label_tokens, make_train_step
 from automodel_tpu_torch.utils.flops import flops_per_token, mfu
 
 logger = logging.getLogger(__name__)
@@ -71,10 +75,10 @@ def _unsupported(cfg: ConfigNode, saves_checkpoints: bool = True) -> list[str]:
     for key in ("resilience.enabled", "observability.enabled", "dataloader.prefetch.enabled"):
         if cfg.get(key):
             found.append(key)
-    arch = "".join(cfg.get("model.config.architectures") or [])
-    if "Moe" in arch or any(cfg.get(f"model.config.{k}") for k in ("num_experts",
-                                                                    "n_routed_experts")):
-        found.append("MoE models")
+    if cfg.get("backend.dispatcher", "dense") != "dense":
+        found.append(f"backend.dispatcher {cfg.get('backend.dispatcher')}")
+    if float(cfg.get("backend.fake_gate_noise", 0.0) or 0.0) > 0:
+        found.append("backend.fake_gate_noise > 0")
     return found
 
 
@@ -101,7 +105,13 @@ class TrainFinetuneRecipeForNextTokenPrediction:
         if model_cfg is None:
             raise ValueError("config needs model.config (an HF config dict)")
         self.hf_config = model_cfg.to_dict() if isinstance(model_cfg, ConfigNode) else dict(model_cfg)
-        config = LlamaConfig.from_hf(self.hf_config)
+        model_cls = resolve_model_class((self.hf_config.get("architectures")
+                                         or ["LlamaForCausalLM"])[0])
+        config = model_cls.config_class.from_hf(self.hf_config)
+        self.moe = getattr(config, "moe", None)
+        if self.moe is not None and self.moe.gate_bias_update_factor > 0:
+            raise NotImplementedError("the MoE gate-bias update is not ported yet "
+                                      "(the DeepSeek family, ROADMAP.md)")
 
         # loss selection, with the JAX recipe's default: big vocabularies take the
         # fused linear CE, so the (tokens, vocab) logits never exist at once.
@@ -118,11 +128,17 @@ class TrainFinetuneRecipeForNextTokenPrediction:
 
         params_dtype = DTYPES[cfg.get("model.params_dtype", "float32")]
         generator = torch.Generator(device=self.device).manual_seed(seed)
-        self.model = LlamaForCausalLM(config, self.backend, device=self.device,
-                                      dtype=params_dtype, generator=generator)
+        self.model = model_cls(config, self.backend, device=self.device, dtype=params_dtype,
+                               generator=generator)
         self.params = self.model.param_dict()
         n_params = sum(p.numel() for p in self.params.values())
-        logger.info("model: LlamaForCausalLM (%.1fM params) on %s", n_params / 1e6, self.device)
+        logger.info("model: %s (%.1fM params) on %s", model_cls.__name__, n_params / 1e6,
+                    self.device)
+        # MoE load-balance rows, as the JAX recipe: "brief" by default for MoE models
+        self.moe_metrics_mode = cfg.get("moe_metrics.mode",
+                                        "brief" if self.moe is not None else None)
+        if not cfg.get("moe_metrics.enabled", True):
+            self.moe_metrics_mode = None
 
         self.micro_batch_size = int(cfg.get("micro_batch_size", 1))
         self.seq_len = int(cfg.get("seq_len", 1024))
@@ -186,14 +202,30 @@ class TrainFinetuneRecipeForNextTokenPrediction:
         return dataset, packed_collate
 
     def _forward_loss(self, batch, num_label_tokens):
+        kwargs = {}
+        if self.moe is not None:
+            # segment id 0 marks padding: pad tokens count for no routing load or aux loss
+            kwargs = {"token_mask": batch["segment_ids"] != 0, "training": True}
         out = self.model(batch["input_ids"], positions=batch["positions"],
                          segment_ids=batch["segment_ids"],
-                         return_hidden=self.loss_name == "linear_ce")
+                         return_hidden=self.loss_name == "linear_ce", **kwargs)
+        out, stats = out if isinstance(out, tuple) else (out, None)
         if self.loss_name == "linear_ce":
             unembed = resolve_unembed(self.model.config, self.params, out.dtype)
-            return linear_cross_entropy(out, unembed, batch["labels"], num_label_tokens,
+            loss = linear_cross_entropy(out, unembed, batch["labels"], num_label_tokens,
                                         impl=self.loss_impl, filter_eps=self.loss_filter_eps)
-        return masked_cross_entropy(out, batch["labels"], num_label_tokens)
+        else:
+            loss = masked_cross_entropy(out, batch["labels"], num_label_tokens)
+        if stats is None:
+            return loss
+        aux = {"expert_load": stats["expert_load"]}
+        if stats["aux_loss"] is not None:
+            # scaled by the microbatch's token share, undoing the 1/num_label_tokens
+            # normalisation; summed over microbatches it is the token-weighted mean
+            share = count_label_tokens(batch["labels"]).float() / num_label_tokens
+            loss = loss + self.moe.aux_loss_coeff * stats["aux_loss"] * share
+            aux["moe_aux_loss"] = (stats["aux_loss"] * share).detach()
+        return loss, aux
 
     def _to_device(self, stack: dict) -> dict[str, torch.Tensor]:
         return {k: torch.from_numpy(v).to(self.device) for k, v in stack.items()}
@@ -220,12 +252,16 @@ class TrainFinetuneRecipeForNextTokenPrediction:
                     continue
                 tps = len(batches) * tokens / dt
                 util = mfu(tps, self._flops_per_token, self.device_kind)
+                extra = {}
+                if "expert_load" in m and self.moe_metrics_mode:
+                    extra = compute_load_balance_metrics(m["expert_load"].cpu().numpy(),
+                                                         mode=self.moe_metrics_mode)
                 self.metric_logger.log(
                     step, loss=loss, grad_norm=float(m["grad_norm"]),
                     lr=self.lr_schedule(step), num_label_tokens=int(m["num_label_tokens"]),
                     step_time_s=round(dt, 4), tps=round(tps, 1), tps_per_chip=round(tps, 1),
                     tflops_per_chip=round(tps * self._flops_per_token / 1e12, 2),
-                    mfu=None if util is None else round(util, 4))
+                    mfu=None if util is None else round(util, 4), **extra)
         finally:
             self.metric_logger.close()
 

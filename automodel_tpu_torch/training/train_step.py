@@ -48,10 +48,12 @@ def make_train_step(
     """Build ``train_step(opt_state, batch_stack) -> (opt_state, metrics)``.
 
     ``forward_loss(microbatch, num_label_tokens)`` returns the microbatch's CE sum
-    divided by the global ``num_label_tokens``; ``params`` are the tensors it
+    divided by the global ``num_label_tokens``, or ``(loss, aux)`` with a dict of aux
+    tensors (an MoE model's ``expert_load``, ``moe_aux_loss``) that are summed over the
+    microbatches, as the JAX scan carry sums them; ``params`` are the tensors it
     differentiates, updated in place. ``batch_stack`` holds (n_micro, ...) tensors.
-    Metrics: ``loss``, ``grad_norm`` (before clipping), ``num_label_tokens``, and
-    ``nonfinite`` under ``guard_nonfinite``; all are device scalars.
+    Metrics: ``loss``, ``grad_norm`` (before clipping), ``num_label_tokens``, the summed
+    aux entries, and ``nonfinite`` under ``guard_nonfinite``; all are device tensors.
     """
     names = list(params)
     leaves = [params[n] for n in names]
@@ -60,19 +62,25 @@ def make_train_step(
         num_label_tokens = count_label_tokens(batch_stack["labels"])
         n_micro = batch_stack["labels"].shape[0]
         grads = None
+        aux_acc: dict[str, torch.Tensor] = {}
         loss_acc = torch.zeros((), dtype=torch.float32, device=num_label_tokens.device)
         for i in range(n_micro):
             micro = {k: v[i] for k, v in batch_stack.items()}
-            loss = forward_loss(micro, num_label_tokens)
-            g = torch.autograd.grad(loss, leaves)
+            out = forward_loss(micro, num_label_tokens)
+            loss, aux = out if isinstance(out, tuple) else (out, {})
+            # a parameter the loss does not reach (a router under fake_balanced_gate)
+            # gets a zero gradient, as jax.grad gives it
+            g = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
             grads = list(g) if grads is None else [a + b for a, b in zip(grads, g)]
             loss_acc = loss_acc + loss.detach().float()
+            for k, v in aux.items():
+                aux_acc[k] = v.detach() if k not in aux_acc else aux_acc[k] + v.detach()
         grads = dict(zip(names, grads))
         grad_norm = global_norm(grads)
         with torch.no_grad():
             updates, new_state = optimizer.update(grads, opt_state, params)
             metrics = {"loss": loss_acc, "grad_norm": grad_norm,
-                       "num_label_tokens": num_label_tokens}
+                       "num_label_tokens": num_label_tokens, **aux_acc}
             if guard_nonfinite:
                 updates, new_state, metrics["nonfinite"] = _guard_nonfinite_update(
                     updates, new_state, opt_state, grad_norm, loss_acc)

@@ -1,8 +1,10 @@
 """Analytic training FLOPs and MFU (counterpart of ``automodel_tpu/utils/flops.py``,
-dense GQA decoders only).
+GQA decoders with a dense or MoE MLP).
 
 Train FLOPs = 3 x forward. The attention score term counts the full S x S product,
-as the JAX package counts it. MFU is achieved over the card's dense bf16 peak.
+as the JAX package counts it. An MoE layer counts its active experts (top-k) plus
+shared experts, a dense prefix (``first_k_dense_replace``) the dense MLP; the router's
+product is not counted, as in JAX. MFU is achieved over the card's dense bf16 peak.
 """
 
 from __future__ import annotations
@@ -16,19 +18,29 @@ PEAK_TFLOPS: dict[str, float] = {"h100": 989.0, "h200": 989.0}
 
 
 def flops_per_token(cfg: Any, seq_len: int, training: bool = True) -> float:
-    """FLOPs per token of a dense decoder given as an HF-config-like dict or object."""
+    """FLOPs per token of a decoder given as an HF-config-like dict or object."""
     get = cfg.get if isinstance(cfg, dict) else (lambda k, d=None: getattr(cfg, k, d))
-    for key in ("num_experts", "n_routed_experts", "kv_lora_rank", "layer_types",
-                "hybrid_override_pattern", "vision_config", "text_config"):
+    for key in ("kv_lora_rank", "layer_types", "hybrid_override_pattern", "vision_config",
+                "text_config"):
         if get(key):
             raise NotImplementedError(f"flops_per_token: {key} configs are not ported yet")
     d, L, v = get("hidden_size"), get("num_hidden_layers"), get("vocab_size")
     n = get("num_attention_heads")
     k = get("num_key_value_heads", n) or n
     h = get("head_dim") or d // n
+    inter = get("intermediate_size")
     attn = 2 * d * (n + 2 * k) * h + 2 * n * h * d + 2 * 2 * seq_len * n * h
-    mlp = 3 * 2 * d * get("intermediate_size")
-    fwd = L * (attn + mlp) + 2 * d * v
+    n_routed = get("num_experts") or get("n_routed_experts") or 0
+    if n_routed:
+        top_k = get("num_experts_per_tok") or get("top_k") or 1
+        moe_inter = get("moe_intermediate_size") or inter
+        shared = get("n_shared_experts") or 0
+        dense = get("first_k_dense_replace") or 0
+        moe_mlp = 3 * 2 * d * moe_inter * (top_k + shared)
+        mlp_total = dense * 3 * 2 * d * inter + (L - dense) * moe_mlp
+    else:
+        mlp_total = L * 3 * 2 * d * inter
+    fwd = L * attn + mlp_total + 2 * d * v
     return 3.0 * fwd if training else fwd
 
 

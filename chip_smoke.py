@@ -9,12 +9,14 @@ Phases, in order; any failure exits non-zero before the last line:
 
 1. the card's name and power limit (nvidia-smi);
 2. build of every CUDA source in automodel_tpu_torch/csrc (nvcc, plain C + ctypes,
-   one nvcc per source, all started together);
+   one nvcc per source, all started together), with each kernel's registers and
+   spills from -Xptxas -v;
 3. flash_fwd / flash_bwd against their plain version (f32 from the same bf16 inputs)
-   in five cases: (a) the Llama-3.2-1B training shape, (b) packed segments with
+   in seven cases: (a) the Llama-3.2-1B training shape, (b) packed segments with
    right padding, (c) non-causal, (d) a 16k sequence, (e) the shape and segments of
-   main path 3 (rows of 4096 packed by pack_dataset from 1000-token documents);
-4. flash kernel times at shape (a) beside the bound, the plain version and SDPA;
+   main path 3 (rows of 4096 packed by pack_dataset from 1000-token documents); at
+   head_dim 128: (f) the Qwen3-30B-A3B training shape, (g) case e's rows and segments;
+4. flash kernel times at shapes (a) and (f) beside the bound, the plain version and SDPA;
 5. Llama-3.2-1B width at 2 layers: one forward and backward with attention "flash"
    against attention "xla" on the same weights;
 6. lce_fwd / lce_bwd (fused linear CE) against their plain version in seven cases:
@@ -26,16 +28,37 @@ Phases, in order; any failure exits non-zero before the last line:
    then their times at shape (a) beside the bound, the plain version and the
    yardstick torch.logsumexp((h @ w).float(), -1), and the peak memory that one
    forward and backward of linear_cross_entropy adds;
-7. main path 1: the benchmark recipe on examples/benchmark/llama3_2_1b.yaml
+7. gmm / tgmm (grouped expert GEMM: forward, dX, dW) against their plain version in
+   four cases: (a) the slice's gate_up (N=65,536 routed rows, D=2048, F=1536, E=128,
+   group sizes from a softmax top-8 router), (b) its down projection (D=768, F=2048),
+   (c) empty head / middle / tail experts with N, D and F off the tiles, (d) one expert
+   owning every row with rows not 16-byte aligned; then gmm and tgmm times at (a) and
+   (b) beside the bound, the plain version and torch._grouped_mm;
+8. Qwen3-30B-A3B width at 1 layer: the kernels against the plain versions on the same
+   weights, with routing held fixed;
+9. main path 1: the benchmark recipe on examples/benchmark/llama3_2_1b.yaml
    (16 layers, full width, masked_ce), launch counts checked against the counters;
-8. main path 2: the benchmark recipe on examples/benchmark/llama3_2_1b_seq4096.yaml
+10. main path 2: the benchmark recipe on examples/benchmark/llama3_2_1b_seq4096.yaml
    (16 layers, full width, untied head, linear_ce, seq 4096);
-9. main path 3: train_ft on the same config with no loss.name (the default picks
+11. main path 3: train_ft on the same config with no loss.name (the default picks
    linear_ce) and packing of 1000-token documents into rows of 4096;
-10. main path 4: the benchmark recipe on main path 1's config (tied embedding) with
+12. main path 4: the benchmark recipe on main path 1's config (tied embedding) with
    loss.name linear_ce, so the kernels read the (V, E) embedding in place; its
    first-step loss is held against main path 1's (same weights and batch);
-11. one JSON line of per-kernel numbers, the card line, then the result line.
+13. main path 5: the benchmark recipe on examples/benchmark/qwen3_moe_a3b_proxy.yaml
+   with the published Qwen3-30B-A3B widths at 4 layers (QWEN3_30B_A3B, qwen3_args) and
+   the pallas experts backend;
+14. main path 6: train_ft on the same at 2 layers, default loss, packing 500-token
+   documents into rows of 2048 (token mask from segment ids, the aux-loss term,
+   moe_load/* rows);
+15. one JSON line of per-kernel numbers, the card line, then the result line.
+
+To run one phase alone on the card, import the script: e.g.
+``python3 -c "import chip_smoke, torch; chip_smoke._gmm_phase(torch, {})"``, or the
+main path 5 configuration through the recipe:
+``python3 -m automodel_tpu_torch.recipes.llm.benchmark -c
+examples/benchmark/qwen3_moe_a3b_proxy.yaml $(python3 -c "import chip_smoke;
+print(' '.join(chip_smoke.qwen3_args()))")``.
 """
 
 from __future__ import annotations
@@ -44,6 +67,7 @@ import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -51,6 +75,32 @@ import tempfile
 HERE = os.path.dirname(os.path.abspath(__file__))
 BENCH_YAML = os.path.join(HERE, "examples", "benchmark", "llama3_2_1b.yaml")
 SEQ4096_YAML = os.path.join(HERE, "examples", "benchmark", "llama3_2_1b_seq4096.yaml")
+MOE_YAML = os.path.join(HERE, "examples", "benchmark", "qwen3_moe_a3b_proxy.yaml")
+# The published widths of Qwen/Qwen3-30B-A3B (its config.json on the Hugging Face Hub)
+# laid over the proxy config, at 4 of its 48 layers; every layer is MoE, so
+# intermediate_size is unused. The experts run the pallas backend, as
+# examples/llm_finetune/qwen3_moe_fastpath.yaml sets it.
+QWEN3_30B_A3B = {
+    "hidden_size": 2048, "intermediate_size": 6144, "moe_intermediate_size": 768,
+    "num_attention_heads": 32, "num_key_value_heads": 4, "head_dim": 128,
+    "num_experts": 128, "num_experts_per_tok": 8, "norm_topk_prob": True,
+    "vocab_size": 151936, "tie_word_embeddings": False, "rope_theta": 1000000.0,
+    "rms_norm_eps": 1e-6, "router_aux_loss_coef": 0.001, "max_position_embeddings": 40960,
+    "num_hidden_layers": 4,
+}
+MOE_LAYERS_TRAIN_FT = 2  # depth of main path 6
+
+
+def qwen3_args(layers: int = QWEN3_30B_A3B["num_hidden_layers"]) -> list[str]:
+    """CLI overrides that turn the proxy config into the slice configuration."""
+    args = []
+    for key, value in dict(QWEN3_30B_A3B, num_hidden_layers=layers).items():
+        args += [f"--model.config.{key}", str(value).lower() if isinstance(value, bool)
+                 else str(value)]
+    return args + ["--dataset.vocab_size", str(QWEN3_30B_A3B["vocab_size"]),
+                   "--backend.experts_backend", "pallas"]
+
+
 WARMUP, TIMED = 2, 5  # benchmark steps of the main-path runs (CLI overrides)
 TRAIN_FT_STEPS = 3  # train_ft steps of main path 3
 PEAK_FLOPS = 989e12  # H100 SXM dense bf16
@@ -62,6 +112,10 @@ TOL_O, TOL_LSE, TOL_GRAD = 2e-2, 1e-3, 1e-2
 # flash vs xla through 2 bf16 layers at full width: both paths round activations and
 # gradients to bf16, so they differ by a few bf16 ulps
 TOL_MODEL_LOSS, TOL_MODEL_GRAD = 1e-2, 2e-2
+# Qwen3-MoE, 1 layer at the slice widths: the kernels (flash, gmm/tgmm) against the plain
+# versions (xla attention, the grouped GEMM's reference) with routing held fixed; bf16
+# activations and gradients as in the Llama check above
+TOL_MOE_LOSS, TOL_MOE_GRAD = 1e-2, 2e-2
 # main path 4 (linear_ce, tied) against main path 1 (masked_ce) at the first step, the
 # same weights and batch: linear CE takes f32 logits of the bf16 h and w where masked
 # CE upcasts bf16-rounded logits; the mean over 8192 tokens differs by ~1e-4
@@ -74,12 +128,31 @@ TOL_TIED_LOSS = 1e-3
 # hold softmax mass below filter_eps per element, at most V * 1e-7 = 1.3e-2 a row.
 TOL_Z, TOL_LCE_GRAD, TOL_FILTER_EXACT = 2e-3, 1e-2, 2e-2
 LCE_PEAK_LIMIT_GB = 2.1  # less than one bf16 (N, V) logits tensor at N=8192 (2.1 GB)
+# grouped GEMM kernels vs plain version (f32 from the same bf16 inputs), relative L2 of
+# out, dX and dW: the kernels round their f32 sums to bf16 once (~2e-3 relative)
+TOL_GMM = 1e-2
 
 
 def _card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def _ptxas_report(log: str) -> list[str]:
+    """``kernel<template args>: registers, spills`` from nvcc's -Xptxas -v output."""
+    out, name = [], None
+    for line in log.splitlines():
+        entry = re.search(r"entry function '(\S+)'", line)
+        if entry:
+            name = entry.group(1)  # mangled; shortened to kernel<args> where it parses
+            k = re.search(r"\d([a-z_]*kernel[a-z_]*)(I(?:L[ib]\d+E)+E)?", name)
+            if k:
+                args = re.findall(r"L[ib](\d+)E", k.group(2) or "")
+                name = k.group(1) + (f"<{','.join(args)}>" if args else "")
+        elif name and ("registers" in line or "spill" in line):
+            out.append(f"{name}: {line.split(':', 1)[-1].strip()}")
+    return out
 
 
 def _rel_l2(a, b) -> float:
@@ -93,8 +166,8 @@ def _inputs(torch, b, s, h, kh, d=64, seed=0):
     return q, k, v, do
 
 
-def _kernel_case(torch, fa, name, b, s, h, kh, causal, seg=None):
-    q, k, v, do = _inputs(torch, b, s, h, kh)
+def _kernel_case(torch, fa, name, b, s, h, kh, causal, seg=None, d=64):
+    q, k, v, do = _inputs(torch, b, s, h, kh, d)
     qk, kk, vk = (x.clone().requires_grad_() for x in (q, k, v))
     o, lse = fa.flash_attention_cuda(qk, kk, vk, causal=causal, segment_ids_q=seg)
     grads = torch.autograd.grad(o, (qk, kk, vk), do)
@@ -106,7 +179,8 @@ def _kernel_case(torch, fa, name, b, s, h, kh, causal, seg=None):
     err_lse = (lse - lse_ref).abs().max().item()
     rel = [_rel_l2(a, r) for a, r in zip(grads, grads_ref)]
     err_grad = max((a.float() - r).abs().max().item() for a, r in zip(grads, grads_ref))
-    print(f"case {name}: B={b} S={s} H={h} KH={kh} causal={causal} segments={seg is not None}: "
+    print(f"case {name}: B={b} S={s} H={h} KH={kh} D={d} causal={causal} "
+          f"segments={seg is not None}: "
           f"O max abs {err_o:.3e} (tol {TOL_O}), lse max abs {err_lse:.3e} (tol {TOL_LSE}), "
           f"grad rel L2 dq {rel[0]:.3e} dk {rel[1]:.3e} dv {rel[2]:.3e} (tol {TOL_GRAD})",
           flush=True)
@@ -153,9 +227,9 @@ def _library_sdpa(torch, q, k, v, causal):
                                           enable_gqa=True).transpose(1, 2)
 
 
-def _timings(torch, fa):
-    """ms of each kernel at shape (a), with bound, plain version and SDPA."""
-    b, s, h, kh, d = 4, 2048, 32, 8, 64
+def _timings(torch, fa, b=4, s=2048, h=32, kh=8, d=64):
+    """ms of each kernel at shape (a), or at the shape given, with bound, plain version
+    and SDPA."""
     q, k, v, do = _inputs(torch, b, s, h, kh, seed=1)
     scale = d**-0.5
     pairs = b * h * s * (s + 1) // 2  # allowed (q, k) pairs of this causal run
@@ -193,6 +267,139 @@ def _timings(torch, fa):
               f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB), plain {plain:.3f} ms, "
               f"SDPA {lib:.3f} ms", flush=True)
     return out
+
+
+def _router_group_sizes(torch, tokens, d, e, k, seed=0):
+    """(E,) int32 rows per expert from a softmax top-k router on random weights: the
+    router's (T, D) x (D, E) product at init scale, as the MoE layer routes."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(tokens, d, device="cuda", generator=g).to(torch.bfloat16)
+    wg = (torch.randn(e, d, device="cuda", generator=g) * 0.02).to(torch.bfloat16)
+    idx = torch.topk(torch.softmax(x.float() @ wg.float().t(), -1), k, -1).indices.reshape(-1)
+    return torch.zeros(e, dtype=torch.int32, device="cuda").scatter_add_(
+        0, idx, torch.ones_like(idx, dtype=torch.int32))
+
+
+def _gmm_inputs(torch, sizes, d, f, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    n = int(sizes.sum())
+    x = torch.randn(n, d, device="cuda", generator=g).to(torch.bfloat16)
+    w = (torch.randn(sizes.numel(), d, f, device="cuda", generator=g) / d**0.5).to(torch.bfloat16)
+    dout = torch.randn(n, f, device="cuda", generator=g).to(torch.bfloat16)
+    return x, w, dout
+
+
+def _gmm_case(torch, name, sizes, d, f):
+    """gmm (forward, dX) and tgmm (dW) against the plain version in f32 from the same
+    bf16 inputs; dW of an empty expert must be exactly zero."""
+    from automodel_tpu_torch.ops import grouped_gemm as gg
+
+    x, w, dout = _gmm_inputs(torch, sizes, d, f, seed=d + f)
+    xk, wk = x.clone().requires_grad_(), w.clone().requires_grad_()
+    out = gg.grouped_matmul(xk, wk, sizes)
+    dx, dw = torch.autograd.grad(out, (xk, wk), dout)
+    torch.cuda.synchronize()
+    xr, wr = x.float().requires_grad_(), w.float().requires_grad_()
+    ref = gg.grouped_matmul_reference(xr, wr, sizes)
+    rdx, rdw = torch.autograd.grad(ref, (xr, wr), dout.float())
+    rel = [_rel_l2(a, r) for a, r in ((out, ref), (dx, rdx), (dw, rdw))]
+    empty = sizes == 0
+    n_empty = int(empty.sum())
+    empty_ok = n_empty == 0 or bool((dw[empty] == 0).all())
+    print(f"gmm case {name}: N={x.shape[0]} D={d} F={f} E={sizes.numel()} ({n_empty} empty, "
+          f"largest {int(sizes.max())} rows): rel L2 out {rel[0]:.3e} dX {rel[1]:.3e} dW "
+          f"{rel[2]:.3e} (tol {TOL_GMM}), dW of empty experts exactly 0: {empty_ok}",
+          flush=True)
+    if not (max(rel) <= TOL_GMM and empty_ok):
+        raise AssertionError(f"gmm case {name}: kernels disagree with the plain version")
+    err_gmm = max((out.float() - ref).abs().max().item(), (dx.float() - rdx).abs().max().item())
+    err_tgmm = (dw.float() - rdw).abs().max().item()
+    del x, w, dout, xk, wk, out, dx, dw, xr, wr, ref, rdx, rdw
+    torch.cuda.empty_cache()
+    return err_gmm, err_tgmm
+
+
+def _library_grouped_mm(torch, x, w, dout, ends):
+    """The yardstick: ``torch._grouped_mm`` (forward and dW) where this torch has it,
+    timed here and used nowhere in the port; else one cuBLAS ``torch.matmul`` of the
+    same FLOPs, (N, D) x (D, F). Returns (name, forward fn, dW fn)."""
+    if hasattr(torch, "_grouped_mm"):
+        fwd = (lambda: torch._grouped_mm(x, w, offs=ends))
+        dw = (lambda: torch._grouped_mm(x.t(), dout, offs=ends))
+        try:
+            fwd(), dw()
+            torch.cuda.synchronize()
+            return f"torch._grouped_mm (torch {torch.__version__})", fwd, dw
+        except RuntimeError as exc:
+            print(f"  torch._grouped_mm refused these operands: {str(exc).splitlines()[0]}")
+    w0 = w[0].contiguous()
+    return ("torch.matmul (N, D) x (D, F)", lambda: torch.matmul(x, w0),
+            lambda: torch.matmul(x.t(), dout))
+
+
+def _gmm_timings(torch, sizes):
+    """ms of gmm (forward) and tgmm (dW) at the slice's gate_up (a) and down (b) shapes,
+    with bound, plain version and yardstick."""
+    from automodel_tpu_torch.ops import grouped_gemm as gg
+
+    out = {"gmm": {}, "tgmm": {}}
+    e = sizes.numel()
+    live = int((sizes > 0).sum())  # experts with rows: only their weights are read
+    ends = gg._ends(sizes)
+    for case, d, f in (("a", 2048, 1536), ("b", 768, 2048)):
+        x, w, dout = _gmm_inputs(torch, sizes, d, f, seed=11)
+        n = x.shape[0]
+        flops = 2 * n * d * f
+        fwd_bytes = 2 * (n * d + live * d * f + n * f) + 4 * e
+        dw_bytes = 2 * (n * d + n * f + e * d * f) + 4 * e
+        name, lib_fwd, lib_dw = _library_grouped_mm(torch, x, w, dout, ends)
+        wp = w.clone().requires_grad_()
+        ref = gg.grouped_matmul_reference(x, wp, sizes)
+        times = {
+            "gmm": (_time_ms(torch, lambda: gg.gmm(x, w, ends)),
+                    _time_ms(torch, lambda: gg.grouped_matmul_reference(x, w, sizes),
+                             warmup=1, reps=5),
+                    _time_ms(torch, lib_fwd), fwd_bytes),
+            "tgmm": (_time_ms(torch, lambda: gg.tgmm(x, dout, ends, e)),
+                     _time_ms(torch, lambda: torch.autograd.grad(ref, wp, dout,
+                                                                 retain_graph=True),
+                              warmup=1, reps=5),
+                     _time_ms(torch, lib_dw), dw_bytes)}
+        for kname, (ms, plain, lib, nbytes) in times.items():
+            t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+            row = {"ms": ms, "plain_ms": plain, "library_ms": lib,
+                   "bound_ms": max(t_ops, t_bytes),
+                   "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library": name}
+            if case == "a":
+                out[kname].update(row)
+            else:
+                out[kname]["at_case_b"] = row
+            print(f"time {kname} case {case} at N={n} D={d} F={f} E={e}: {ms:.3f} ms, bound "
+                  f"{row['bound_ms']:.3f} ms ({row['bound_by']}: {flops / 1e9:.1f} GFLOP, "
+                  f"{nbytes / 1e6:.1f} MB), plain {plain:.3f} ms, yardstick {lib:.3f} ms "
+                  f"({name})", flush=True)
+        del x, w, dout, wp, ref
+        torch.cuda.empty_cache()
+    return out
+
+
+def _gmm_phase(torch, errs):
+    """Grouped GEMM cases a-d and timings. a / b: the slice's gate_up and down shapes
+    with group sizes from a softmax top-8 router over 8192 tokens and 128 experts; c:
+    empty head / mid / tail experts, N not a tile multiple, D = 1000 and F = 1003; d:
+    one expert owning every row, D = 1003 (rows of x and the K of dW not 16-byte
+    aligned)."""
+    sizes = _router_group_sizes(torch, 8192, 2048, 128, 8)
+    ragged = torch.tensor([0, 0, 300, 0, 77, 5, 0, 1, 134, 0, 0], dtype=torch.int32,
+                          device="cuda")
+    owner = torch.tensor([0, 1000, 0, 0], dtype=torch.int32, device="cuda")
+    errs.update({"gmm": 0.0, "tgmm": 0.0})
+    for case in (("a", sizes, 2048, 1536), ("b", sizes, 768, 2048),
+                 ("c", ragged, 1000, 1003), ("d", owner, 1003, 1000)):
+        err_gmm, err_tgmm = _gmm_case(torch, *case)
+        errs["gmm"] = max(errs["gmm"], err_gmm)
+        errs["tgmm"] = max(errs["tgmm"], err_tgmm)
+    return _gmm_timings(torch, sizes)
 
 
 def _model_check(torch):
@@ -233,9 +440,9 @@ def _model_check(torch):
 
 
 def _counters():
-    from automodel_tpu_torch.ops import flash_attention as fa, linear_ce as lce
+    from automodel_tpu_torch.ops import flash_attention as fa, grouped_gemm as gg, linear_ce as lce
 
-    return fa.LAUNCHES, lce.LAUNCHES
+    return fa.LAUNCHES, lce.LAUNCHES, gg.LAUNCHES
 
 
 def _reset_counts():
@@ -258,15 +465,21 @@ def _release():
     torch.cuda.empty_cache()
 
 
-def _expected(layers, micro, steps, linear_ce):
-    # flash forward: once, plus once more when each layer's checkpoint replays it
+def _expected(layers, micro, steps, linear_ce, moe=False):
+    """Launches of each kernel in a run, n = layers x microbatches x steps.
+
+    flash_fwd 2n (the forward, and once more when each layer's checkpoint replays it),
+    flash_bwd n; lce_fwd and lce_bwd once a microbatch with linear_ce; an MoE layer's
+    two expert GEMMs (gate_up, down) each launch gmm three times (the forward, the
+    replay, dX) and tgmm once (dW): gmm 6n, tgmm 2n."""
     n = layers * micro * steps
     lce_n = micro * steps if linear_ce else 0
-    return {"flash_fwd": 2 * n, "flash_bwd": n, "lce_fwd": lce_n, "lce_bwd": lce_n}
+    return {"flash_fwd": 2 * n, "flash_bwd": n, "lce_fwd": lce_n, "lce_bwd": lce_n,
+            "gmm": 6 * n if moe else 0, "tgmm": 2 * n if moe else 0}
 
 
 def _bench_path(name, yaml, linear_ce, overrides=()):
-    """The benchmark recipe at full Llama-3.2-1B size, through its entry point."""
+    """The benchmark recipe at full width, through its entry point."""
     from automodel_tpu_torch.config.cli_overrides import parse_args_and_load_config
     from automodel_tpu_torch.recipes.llm import benchmark
 
@@ -280,37 +493,38 @@ def _bench_path(name, yaml, linear_ce, overrides=()):
         _reset_counts()
         result = benchmark.main(argv=argv)
         launches = _read_counts()
-    want = _expected(layers, micro, WARMUP + TIMED, linear_ce)
+    vocab = int(cfg.model.config.vocab_size)
+    want = _expected(layers, micro, WARMUP + TIMED, linear_ce,
+                     moe=bool(cfg.model.config.get("num_experts")))
     print(f"{name}: benchmark recipe on {os.path.relpath(yaml, HERE)} ({layers} layers, "
           f"{micro} microbatch, mb {cfg.micro_batch_size}, seq {cfg.seq_len}, loss "
           f"{cfg.get('loss.name')}, tied {cfg.model.config.get('tie_word_embeddings')}), {WARMUP} warmup + {TIMED} timed steps: "
           f"{result['tokens_per_sec']:.1f} tokens/s, step {result['step_time_s'] * 1e3:.1f} ms, "
           f"MFU {result['mfu']}, peak memory {result['peak_memory_gib']} GiB, losses "
           f"{result['losses']}, launches {launches} (expected {want})", flush=True)
-    ln_vocab = math.log(128256)
+    ln_vocab = math.log(vocab)
     if not all(math.isfinite(x) for x in result["losses"]):
         raise AssertionError(f"non-finite loss on {name}")
     if abs(result["loss"] - ln_vocab) > 0.5:
-        raise AssertionError(f"{name}: loss {result['loss']} is not within 0.5 of ln(128256)")
+        raise AssertionError(f"{name}: loss {result['loss']} is not within 0.5 of ln({vocab})")
     if launches != want:
         raise AssertionError(f"{name}: kernel launches {launches} != expected {want}")
     return launches, result["losses"]
 
 
-def _train_ft_packed_path():
-    """train_ft through its entry point with the default loss (linear_ce at vocab
-    128,256) and packing: four 1000-token documents a row of 4096, then padding."""
+def _train_ft_path(name, yaml, overrides):
+    """train_ft through its entry point with the default loss (the vocab rule picks
+    linear_ce), packed rows, TRAIN_FT_STEPS steps; an MoE model must log moe_load/*
+    rows."""
     from automodel_tpu_torch.config.cli_overrides import parse_args_and_load_config
     from automodel_tpu_torch.recipes.llm import train_ft
 
     _release()
     with tempfile.TemporaryDirectory() as out_dir:
         cfg = parse_args_and_load_config([
-            "-c", SEQ4096_YAML, "--packed_sequence.packed_sequence_size", "4096",
-            "--dataset.seq_len", "1000", "--backend.attention_segments", "true",
-            "--step_scheduler.max_steps", str(TRAIN_FT_STEPS), "--checkpoint.enabled", "false",
-            "--output_dir", out_dir])
-        del cfg.loss._data["name"]  # the default rule picks the loss
+            "-c", yaml, *overrides, "--step_scheduler.max_steps", str(TRAIN_FT_STEPS),
+            "--checkpoint.enabled", "false", "--output_dir", out_dir])
+        cfg.loss._data.pop("name", None)  # the default rule picks the loss
         _reset_counts()
         recipe = train_ft.main(cfg=cfg)
         launches = _read_counts()
@@ -318,19 +532,71 @@ def _train_ft_packed_path():
             rows = [r for r in map(json.loads, f) if "loss" in r]
     layers = int(cfg.model.config.num_hidden_layers)
     micro = int(cfg.get("step_scheduler.grad_acc_steps", 1))
-    want = _expected(layers, micro, TRAIN_FT_STEPS, True)
+    moe = bool(cfg.model.config.get("num_experts"))
+    want = _expected(layers, micro, TRAIN_FT_STEPS, True, moe)
     losses = [r["loss"] for r in rows]
-    print(f"main path 3: train_ft, default loss {recipe.loss_name}, packed rows of "
-          f"{recipe.seq_len}, {len(rows)} training.jsonl rows: losses {losses}, step times "
-          f"{[r['step_time_s'] for r in rows]} s, launches {launches} (expected {want})",
-          flush=True)
+    moe_rows = [sorted(k for k in r if k.startswith("moe_load/")) for r in rows]
+    print(f"{name}: train_ft on {os.path.relpath(yaml, HERE)} ({layers} layers), default loss "
+          f"{recipe.loss_name}, packed rows of {recipe.seq_len}, {len(rows)} training.jsonl "
+          f"rows: losses {losses}, step times {[r['step_time_s'] for r in rows]} s, "
+          f"moe_load rows {len(moe_rows[0]) if moe_rows else 0} keys, launches {launches} "
+          f"(expected {want})", flush=True)
     if recipe.loss_name != "linear_ce" or len(rows) != TRAIN_FT_STEPS:
-        raise AssertionError("main path 3: wrong loss or missing training.jsonl rows")
+        raise AssertionError(f"{name}: wrong loss or missing training.jsonl rows")
     if not all(math.isfinite(x) for x in losses):
-        raise AssertionError("main path 3: non-finite loss")
+        raise AssertionError(f"{name}: non-finite loss")
+    if moe and not all(moe_rows):
+        raise AssertionError(f"{name}: training.jsonl rows without moe_load/* metrics")
     if launches != want:
-        raise AssertionError(f"main path 3: kernel launches {launches} != expected {want}")
+        raise AssertionError(f"{name}: kernel launches {launches} != expected {want}")
     return launches
+
+
+def _moe_model_check(torch):
+    """Qwen3-MoE at the slice widths, 1 layer, bf16: the kernels (flash attention, gmm and
+    tgmm) against the plain versions (xla attention, the grouped GEMM's reference,
+    swapped in by this script) on the same weights and batch. Routing is held fixed
+    (fake_balanced_gate): a bf16 near-tie could otherwise send a token to another expert
+    when attention differs in the last bit."""
+    from automodel_tpu_torch.data.collate import sft_collate
+    from automodel_tpu_torch.data.llm.mock import MockSFTDataset
+    from automodel_tpu_torch.models.common.backend import BackendConfig
+    from automodel_tpu_torch.models.qwen3_moe.model import Qwen3MoeForCausalLM
+    from automodel_tpu_torch.moe import experts
+    from automodel_tpu_torch.ops import grouped_gemm as gg
+    from automodel_tpu_torch.ops.losses import masked_cross_entropy
+
+    hf = dict(QWEN3_30B_A3B, num_hidden_layers=1, architectures=["Qwen3MoeForCausalLM"])
+    ds = MockSFTDataset(hf["vocab_size"], 2048, num_samples=2, seed=0)
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in sft_collate([ds[i] for i in range(2)], 2048).items()}
+    results = {}
+    for kernels in (True, False):
+        backend = BackendConfig(attention="flash" if kernels else "xla", remat_policy="mlp_dots",
+                                dtype="bfloat16", experts_backend="pallas",
+                                fake_balanced_gate=True)
+        model = Qwen3MoeForCausalLM.from_config(
+            hf, backend, device="cuda", dtype=torch.bfloat16,
+            generator=torch.Generator(device="cuda").manual_seed(0))
+        params = [p for n, p in model.param_dict().items() if not n.endswith("gate.weight")]
+        experts.grouped_matmul = gg.grouped_matmul if kernels else gg.grouped_matmul_reference
+        try:
+            logits, _ = model(batch["input_ids"], positions=batch["positions"],
+                              segment_ids=batch["segment_ids"])
+            loss = masked_cross_entropy(logits, batch["labels"])
+            grads = torch.autograd.grad(loss, params)
+        finally:
+            experts.grouped_matmul = gg.grouped_matmul
+        results[kernels] = (loss.item(), torch.cat([g.float().flatten() for g in grads]))
+        del model, params, logits, grads
+        torch.cuda.empty_cache()
+    d_loss = abs(results[True][0] - results[False][0])
+    rel = _rel_l2(results[True][1], results[False][1])
+    print(f"MoE model check (1 layer, Qwen3-30B-A3B width, bf16, fixed routing): loss kernels "
+          f"{results[True][0]:.6f} plain {results[False][0]:.6f} |diff| {d_loss:.3e} (tol "
+          f"{TOL_MOE_LOSS}), grad rel L2 {rel:.3e} (tol {TOL_MOE_GRAD})", flush=True)
+    if not (d_loss <= TOL_MOE_LOSS and rel <= TOL_MOE_GRAD):
+        raise AssertionError("the MoE model's kernels disagree with the plain versions")
 
 
 def _lce_inputs(torch, n, e, v, seed, h_scale=1.0, tied=False):
@@ -494,9 +760,8 @@ def main() -> int:
     seconds = build.build_all()
     print(f"build: {seconds:.1f} s", flush=True)
     for source, log in build.BUILD_LOGS.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {source}: {line.strip()}")
+        for line in _ptxas_report(log):
+            print(f"  {source}: {line}")
 
     errs = {"flash_fwd": 0.0, "flash_bwd": 0.0}
 
@@ -512,8 +777,14 @@ def main() -> int:
     note(_kernel_case(torch, fa, "c", 2, 2048, 32, 8, causal=False))
     note(_kernel_case(torch, fa, "d", 1, 16384, 4, 2, causal=True))
     note(_kernel_case(torch, fa, "e", 2, 4096, 32, 8, causal=True, seg=_packed_segments(torch)))
+    # head_dim 128: the Qwen3-MoE slice's shape, and main path 6's packed rows of 2048
+    note(_kernel_case(torch, fa, "f", 4, 2048, 32, 4, causal=True, d=128))
+    note(_kernel_case(torch, fa, "g", 2, 4096, 32, 4, causal=True, seg=_packed_segments(torch),
+                      d=128))
 
     timings = _timings(torch, fa)
+    for name, row in _timings(torch, fa, 4, 2048, 32, 4, 128).items():
+        timings[name]["at_d128"] = row
     _model_check(torch)
 
     errs.update({"lce_fwd": 0.0, "lce_bwd": 0.0})
@@ -526,11 +797,16 @@ def main() -> int:
         errs["lce_bwd"] = max(errs["lce_bwd"], err_grad)
     timings.update(_lce_timings(torch))
     _lce_memory(torch)
+    timings.update(_gmm_phase(torch, errs))
+    _moe_model_check(torch)
 
     by_path, losses = {}, {}
     by_path["main path 1"], losses[1] = _bench_path("main path 1", BENCH_YAML, linear_ce=False)
     by_path["main path 2"], _ = _bench_path("main path 2", SEQ4096_YAML, linear_ce=True)
-    by_path["main path 3"] = _train_ft_packed_path()
+    by_path["main path 3"] = _train_ft_path(
+        "main path 3", SEQ4096_YAML, ["--packed_sequence.packed_sequence_size", "4096",
+                                      "--dataset.seq_len", "1000",
+                                      "--backend.attention_segments", "true"])
     by_path["main path 4"], losses[4] = _bench_path("main path 4", BENCH_YAML, linear_ce=True,
                                                     overrides=("--loss.name", "linear_ce"))
     d_first = abs(losses[4][0] - losses[1][0])
@@ -538,17 +814,27 @@ def main() -> int:
           f"{d_first:.3e} (tol {TOL_TIED_LOSS})", flush=True)
     if d_first > TOL_TIED_LOSS:
         raise AssertionError("main path 4: tied linear_ce disagrees with masked_ce")
+    by_path["main path 5"], _ = _bench_path("main path 5", MOE_YAML, linear_ce=True,
+                                            overrides=qwen3_args())
+    by_path["main path 6"] = _train_ft_path(
+        "main path 6", MOE_YAML, [*qwen3_args(MOE_LAYERS_TRAIN_FT),
+                                  "--packed_sequence.packed_sequence_size", "2048",
+                                  "--dataset.seq_len", "500"])
 
     flash = "automodel_tpu/ops/pallas/flash_attention.py"
     lce_src = "automodel_tpu/ops/pallas/linear_ce.py"
+    gmm_src = "automodel_tpu/ops/pallas/grouped_gemm.py"
     replaces = {"flash_fwd": (f"{flash}:84", []),
                 "flash_bwd": (f"{flash}:192", [f"{flash}:151", f"{flash}:258"]),
                 "lce_fwd": (f"{lce_src}:105", []),
-                "lce_bwd": (f"{lce_src}:137", [f"{lce_src}:163"])}
+                "lce_bwd": (f"{lce_src}:137", [f"{lce_src}:163"]),
+                "gmm": (f"{gmm_src}:126", []),
+                "tgmm": (f"{gmm_src}:151", [])}
     sources = {"flash_fwd": "flash_attention.cu", "flash_bwd": "flash_attention.cu",
-               "lce_fwd": "linear_ce.cu", "lce_bwd": "linear_ce.cu"}
+               "lce_fwd": "linear_ce.cu", "lce_bwd": "linear_ce.cu",
+               "gmm": "grouped_gemm.cu", "tgmm": "grouped_gemm.cu"}
     kernels = []
-    for name in ("flash_fwd", "flash_bwd", "lce_fwd", "lce_bwd"):
+    for name in replaces:
         row = {"name": name, "route": "cuda",
                "source": f"automodel_tpu_torch/csrc/{sources[name]}",
                "replaces": replaces[name][0],

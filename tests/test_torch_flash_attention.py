@@ -77,6 +77,10 @@ CASES = {
     "non_causal": dict(shape=(1, 64, 2, 2, 16), causal=False),
     "gqa": dict(shape=(2, 64, 8, 2, 16), causal=True),
     "packed_segments": dict(shape=(2, 64, 4, 2, 16), causal=True, segments=True),
+    # head_dim 128, the Qwen3-MoE width the kernels also take (named to sort after
+    # the cases above, whose seeds are their sorted positions)
+    "wide_gqa_d128": dict(shape=(1, 64, 4, 2, 128), causal=True),
+    "wide_packed_d128": dict(shape=(1, 64, 4, 2, 128), causal=True, segments=True),
 }
 
 

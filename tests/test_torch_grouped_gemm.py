@@ -1,0 +1,99 @@
+"""The port's grouped GEMM against the JAX package's: the plain version (what a CPU
+tensor runs, and what the CUDA kernels are checked against on the card) against the
+Pallas kernel in interpret mode and against ``jax.lax.ragged_dot``, forward, dX and
+dW, over tests/unit/test_grouped_gemm.py's groupings. Inputs from numpy seeds.
+Tolerances: f32 1e-5; bf16 relative L2 1e-2 against the f32 product of the same
+bf16-rounded inputs, as the JAX test bounds its kernel."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from automodel_tpu.ops.pallas.grouped_gemm import grouped_matmul as jax_gmm
+from automodel_tpu_torch.ops import grouped_gemm as tgg
+
+GROUPINGS = {
+    "balanced": (8, 8, 8, 8),
+    "ragged": (3, 13, 1, 15),
+    "empty_head": (0, 0, 17, 15),
+    "empty_mid_tail": (11, 0, 21, 0),
+    "one_big": (0, 32, 0, 0),
+    "ragged_tail": (5, 9, 7, 9),  # N=30, not a multiple of the JAX row block
+    "singletons": (1,) * 8,
+}
+
+
+def _case(sizes, d=16, f=24, seed=0):
+    rng = np.random.RandomState(seed)
+    n = int(sum(sizes))
+    x = rng.randn(n, d).astype(np.float32)
+    w = (rng.randn(len(sizes), d, f) / np.sqrt(d)).astype(np.float32)
+    dout = rng.randn(n, f).astype(np.float32)
+    return x, w, np.asarray(sizes, np.int32), dout
+
+
+def _torch_fwd_grads(x, w, gs, dout, dtype=torch.float32):
+    xt = torch.tensor(x).to(dtype).requires_grad_()
+    wt = torch.tensor(w).to(dtype).requires_grad_()
+    out = tgg.grouped_matmul(xt, wt, torch.tensor(gs))
+    dx, dw = torch.autograd.grad(out, (xt, wt), torch.tensor(dout).to(dtype))
+    return [t.detach().float().numpy() for t in (out, dx, dw)]
+
+
+def _jax_fwd_grads(fn, x, w, dout):
+    out, vjp = jax.vjp(fn, jnp.asarray(x), jnp.asarray(w))
+    dx, dw = vjp(jnp.asarray(dout))
+    return [np.asarray(t, np.float32) for t in (out, dx, dw)]
+
+
+@pytest.mark.parametrize("name", sorted(GROUPINGS))
+def test_plain_version_matches_pallas_and_ragged_dot_f32(name):
+    x, w, gs, dout = _case(GROUPINGS[name])
+    got = _torch_fwd_grads(x, w, gs, dout)
+    jgs = jnp.asarray(gs)
+    for fn in (lambda a, b: jax_gmm(a, b, jgs, interpret=True),
+               lambda a, b: jax.lax.ragged_dot(a, b, jgs)):
+        for g, want in zip(got, _jax_fwd_grads(fn, x, w, dout)):
+            np.testing.assert_allclose(g, want, atol=1e-5, rtol=1e-5)
+    for e, size in enumerate(gs):  # an empty expert's dW is exactly zero
+        if size == 0:
+            assert np.all(got[2][e] == 0)
+
+
+@pytest.mark.parametrize("name", sorted(GROUPINGS))
+def test_plain_version_bf16_within_tolerance(name):
+    x, w, gs, dout = _case(GROUPINGS[name], seed=1)
+    bf = lambda a: np.asarray(jnp.asarray(a, jnp.bfloat16), np.float32)  # noqa: E731
+    xb, wb, db = bf(x), bf(w), bf(dout)
+    got = _torch_fwd_grads(xb, wb, gs, db, dtype=torch.bfloat16)
+    jgs = jnp.asarray(gs)
+    want = _jax_fwd_grads(lambda a, b: jax.lax.ragged_dot(a, b, jgs), xb, wb, db)
+    pallas = _jax_fwd_grads(
+        lambda a, b: jax_gmm(a.astype(jnp.bfloat16), b.astype(jnp.bfloat16), jgs,
+                             interpret=True).astype(jnp.float32), xb, wb, db)
+    for g, p, r in zip(got, pallas, want):
+        for arr in (g, p):
+            assert np.linalg.norm(arr - r) <= 1e-2 * max(np.linalg.norm(r), 1e-30)
+
+
+def test_rows_past_the_groups_are_zero():
+    """Rows no group owns (sum(group_sizes) < N) come out zero, as ragged_dot's do."""
+    x, w, gs, _ = _case((3, 0, 4))
+    x = np.concatenate([x, np.ones((5, x.shape[1]), np.float32)])
+    got = tgg.grouped_matmul(torch.tensor(x), torch.tensor(w), torch.tensor(gs)).numpy()
+    want = np.asarray(jax.lax.ragged_dot(jnp.asarray(x), jnp.asarray(w), jnp.asarray(gs)))
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+    assert np.all(got[7:] == 0)
+
+
+def test_non_cpu_tensors_never_fall_back():
+    """A tensor off the CPU goes to the kernels or raises: never to the plain version."""
+    x = torch.empty(32, 16, dtype=torch.bfloat16, device="meta")
+    w = torch.empty(4, 16, 24, dtype=torch.bfloat16, device="meta")
+    gs = torch.empty(4, dtype=torch.int32, device="meta")
+    before = dict(tgg.LAUNCHES)
+    with pytest.raises(ValueError, match="meta"):
+        tgg.grouped_matmul(x, w, gs)
+    assert tgg.LAUNCHES == before

@@ -149,3 +149,45 @@ def test_linear_cross_entropy_raises_off_cpu():
 
     with pytest.raises(ValueError, match="not a CUDA device"):
         linear_ce.fused_logsumexp(h.float(), w)
+
+
+@pytest.mark.parametrize("qk_norm", [True, False], ids=["qk_norm", "plain"])
+def test_attention_block_qk_norm_matches_jax(qk_norm):
+    """The decoder's attention block with Qwen3's per-head q/k RMSNorm (weights of shape
+    (head_dim,), applied before RoPE) against the JAX block: output and gradients."""
+    from automodel_tpu.models.common import transformer as jtr
+    from automodel_tpu.models.common.backend import BackendConfig as JaxBackend
+    from automodel_tpu_torch.models.common import transformer as ttr
+    from automodel_tpu_torch.models.common.backend import BackendConfig
+
+    kw = dict(vocab_size=64, hidden_size=32, intermediate_size=64, num_hidden_layers=1,
+              num_attention_heads=4, num_key_value_heads=2, head_dim=16, qk_norm=qk_norm,
+              rms_norm_eps=1e-6, rope_theta=1e6)
+    jcfg, tcfg = jtr.DenseDecoderConfig(**kw), ttr.DenseDecoderConfig(**kw)
+    rng = np.random.RandomState(5)
+    shapes = {n: s for n, s in ttr.layer_shapes(tcfg).items() if n in (
+        "wq", "wk", "wv", "wo", "q_norm", "k_norm")}
+    assert ("q_norm" in shapes) == qk_norm and shapes.get("q_norm", (16,)) == (16,)
+    lp = {n: (rng.randn(*s) * (0.3 if n.endswith("norm") else 0.2)
+              + (1.0 if n.endswith("norm") else 0.0)).astype(np.float32)
+          for n, s in shapes.items()}
+    x = rng.randn(2, 12, 32).astype(np.float32)
+    pos = np.arange(12)[None].repeat(2, 0)
+    ct = rng.randn(2, 12, 32).astype(np.float32)
+    inv = jrope.rope_frequencies(16, 1e6, None)
+
+    def jax_fn(lp, x):
+        out = jtr._attention_block(jcfg, JaxBackend(dtype="float32"), lp, x, jnp.asarray(pos),
+                                   None, inv, 1.0, None, None)
+        return jnp.sum(out * ct), out
+
+    (_, jout), jgrads = jax.value_and_grad(jax_fn, argnums=(0, 1), has_aux=True)(
+        {k: jnp.asarray(v) for k, v in lp.items()}, jnp.asarray(x))
+    tlp = {k: torch.tensor(v, requires_grad=True) for k, v in lp.items()}
+    tx = torch.tensor(x, requires_grad=True)
+    out = ttr.attention_block(tcfg, BackendConfig(dtype="float32"), tlp, tx, _t(pos), None,
+                              trope.rope_frequencies(16, 1e6, None), 1.0)
+    grads = torch.autograd.grad((out * _t(ct)).sum(), [*tlp.values(), tx])
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout), atol=ATOL, rtol=1e-5)
+    for g, w in zip(grads, [jgrads[0][k] for k in tlp] + [jgrads[1]]):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-4, rtol=1e-4)

@@ -298,3 +298,98 @@ def test_packed_default_linear_ce_matches_jax(cfg_path, tmp_path):
     assert got == pytest.approx(want, abs=1e-4)
     with pytest.raises(ValueError, match="segment"):
         _setup(cfg_path, *over[:-4], "--backend.attention_segments", "false")
+
+
+MOE_YAML = YAML.replace("""    architectures: [LlamaForCausalLM]
+    vocab_size: 128
+    hidden_size: 64
+    intermediate_size: 128
+    num_hidden_layers: 2
+    num_attention_heads: 4
+    num_key_value_heads: 2
+    tie_word_embeddings: true""", """    architectures: [Qwen3MoeForCausalLM]
+    vocab_size: 128
+    hidden_size: 64
+    intermediate_size: 96
+    moe_intermediate_size: 32
+    num_hidden_layers: 2
+    num_attention_heads: 4
+    num_key_value_heads: 2
+    head_dim: 16
+    num_experts: 8
+    num_experts_per_tok: 2
+    norm_topk_prob: true
+    router_aux_loss_coef: 0.01""").replace("""  remat_policy: mlp_attn_dots
+  attention_segments: false""", """  remat_policy: mlp_dots
+  attention_segments: false
+  experts_backend: pallas""").replace("""  optimizer: adafactor_nomom""", """  optimizer: adamw_lowmem""")
+
+
+@pytest.fixture
+def moe_cfg_path(tmp_path):
+    p = tmp_path / "tiny_moe.yaml"
+    p.write_text(textwrap.dedent(MOE_YAML))
+    return str(p)
+
+
+def _moe_rows(path):
+    with open(path) as f:
+        return [{k: v for k, v in r.items() if k.startswith("moe_load/")}
+                for r in map(json.loads, f) if "loss" in r]
+
+
+def test_moe_train_ft_matches_jax(moe_cfg_path, tmp_path):
+    """A tiny Qwen3-MoE (8 experts, top-2, aux loss 0.01, adamw_lowmem, the pallas
+    experts backend) through both train_ft recipes: the same 3-step losses (f32, 1e-4)
+    with the aux-loss term, and the same moe_load/* rows."""
+    jax_recipe, params = _jax_recipe(JaxTrainFt, moe_cfg_path, tmp_path / "jax")
+    jax_recipe.run_train_validation_loop()
+    port = _port_recipe(train_ft.TrainFinetuneRecipeForNextTokenPrediction, moe_cfg_path,
+                        tmp_path / "port", params)
+    assert type(port.model).__name__ == "Qwen3MoeForCausalLM"
+    assert port.moe_metrics_mode == "brief"
+    port.run_train_validation_loop()
+    want = _losses(tmp_path / "jax" / "training.jsonl")
+    got = _losses(tmp_path / "port" / "training.jsonl")
+    assert len(got) == len(want) == 3
+    assert got == pytest.approx(want, abs=1e-4)
+    got_rows = _moe_rows(tmp_path / "port" / "training.jsonl")
+    want_rows = _moe_rows(tmp_path / "jax" / "training.jsonl")
+    assert got_rows[0] and [sorted(r) for r in got_rows] == [sorted(r) for r in want_rows]
+    for g, w in zip(got_rows, want_rows):
+        assert g == pytest.approx(w, abs=1e-6)
+
+
+def test_moe_benchmark_matches_jax(moe_cfg_path, tmp_path):
+    jax_recipe, params = _jax_recipe(JaxBenchmark, moe_cfg_path, tmp_path / "jax")
+    want = jax_recipe.run_benchmark()
+    port = _port_recipe(benchmark.BenchmarkingRecipeForNextTokenPrediction, moe_cfg_path,
+                        tmp_path / "port", params)
+    got = port.run_benchmark()
+    assert len(got["losses"]) == 3
+    assert got["loss"] == pytest.approx(want["loss"], abs=1e-4)
+
+
+def test_moe_fake_balanced_gate_trains(moe_cfg_path, tmp_path):
+    """Round-robin routing leaves the router out of the loss: its gradient is zero, as
+    jax.grad gives it, and the step runs (weight decay off, so the router stays put)."""
+    cfg = parse_args_and_load_config(["-c", moe_cfg_path, "--output_dir", str(tmp_path),
+                                      "--backend.fake_balanced_gate", "true",
+                                      "--step_scheduler.max_steps", "1"])
+    recipe = train_ft.TrainFinetuneRecipeForNextTokenPrediction(cfg)
+    recipe.setup()
+    router = recipe.params["moe_layers.moe.gate.weight"]
+    before = router.detach().clone()
+    recipe.run_train_validation_loop()
+    assert torch.equal(router.detach(), before)
+    assert len(_losses(tmp_path / "training.jsonl")) == 1
+
+
+@pytest.mark.parametrize("override", [
+    ["--backend.dispatcher", "a2a"],
+    ["--distributed.ep", "2"],
+    ["--backend.fake_balanced_gate", "true", "--backend.fake_gate_noise", "0.1"],
+], ids=["a2a", "ep", "gate_noise"])
+def test_unported_moe_options_raise(moe_cfg_path, override):
+    with pytest.raises(NotImplementedError):
+        _setup(moe_cfg_path, *override)

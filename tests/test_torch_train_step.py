@@ -39,6 +39,8 @@ SCHED = dict(max_lr=3e-3, min_lr=3e-4, lr_warmup_steps=2, lr_decay_steps=3)
 OPTIMIZERS = {
     "adamw": dict(optimizer="adamw", weight_decay=0.1, max_grad_norm=0.5, eps=1e-5),
     "adafactor_nomom": dict(optimizer="adafactor_nomom", max_grad_norm=0.5),
+    "adamw_lowmem": dict(optimizer="adamw_lowmem", weight_decay=0.1, max_grad_norm=0.5,
+                         eps=1e-5),
 }
 
 
@@ -107,8 +109,16 @@ def test_three_steps_match_jax(name):
     want = params_from_jax(jax_params, LlamaForCausalLM.from_config(
         HF, device="cpu").config)
     for key, ref in want.items():
-        err = (torch_params[key] - ref).abs().max() / ref.abs().max()
-        assert err <= 1e-4, f"{key}: relative error {err:.2e}"
+        diff = (torch_params[key] - ref).abs()
+        err = diff.max() / ref.abs().max()
+        if name == "adamw_lowmem":
+            # bf16 moments: an f32 moment a last bit apart in the two packages can round
+            # to neighbouring bf16 values (2^-8 apart), which moves that element's update
+            # by up to ~0.8% of lr (3e-3), i.e. ~2.3e-5; such flips stay rare
+            assert err <= 1e-3, f"{key}: relative error {err:.2e}"
+            assert (diff > 1e-6).float().mean() <= 0.01, f"{key}: flips not rare"
+        else:
+            assert err <= 1e-4, f"{key}: relative error {err:.2e}"
 
 
 def test_nonfinite_step_keeps_params_and_state():
@@ -136,3 +146,62 @@ def test_unported_optimizer_raises():
 def test_global_norm():
     tree = {"a": torch.ones(3), "b": torch.full((2, 2), 2.0)}
     assert float(global_norm(tree)) == pytest.approx(np.sqrt(3 + 16))
+
+
+def test_adamw_lowmem_slices_change_no_value():
+    """The sliced update (slices of 7 elements, so rows split and leaves of every rank
+    take several slices) equals the whole-leaf update bit for bit, state included."""
+    from automodel_tpu_torch.optim import builder
+
+    gen = torch.Generator().manual_seed(0)
+    params = {"a": torch.randn(3, 5, 4, generator=gen), "b": torch.randn(6, generator=gen),
+              "c": torch.randn(2, 40, generator=gen).to(torch.bfloat16)}
+    out = {}
+    for budget in (7, 1 << 26):
+        init, update = builder._scale_by_adam_lowmem(0.9, 0.95, 1e-8, slice_elems=budget)
+        state = init(params)
+        for step in range(3):
+            grads = {k: torch.randn(p.shape, generator=torch.Generator().manual_seed(step))
+                     .to(p.dtype) for k, p in params.items()}
+            upd, state = update(grads, state, params)
+        out[budget] = (upd, state)
+    (u1, s1), (u2, s2) = out.values()
+    for k in params:
+        assert u1[k].dtype == params[k].dtype
+        assert torch.equal(u1[k], u2[k])
+        assert torch.equal(s1["mu"][k], s2["mu"][k]) and s1["mu"][k].dtype == torch.bfloat16
+        assert torch.equal(s1["nu"][k], s2["nu"][k]) and s1["nu"][k].dtype == torch.bfloat16
+    assert int(s1["count"]) == 3
+
+
+def test_aux_sums_over_microbatches_as_jax():
+    """forward_loss may return (loss, aux): aux tensors sum over the microbatches into
+    the metrics, as the JAX step's scan carry sums them."""
+    rng = np.random.RandomState(0)
+    x = rng.randn(3, 4, 5).astype(np.float32)  # 3 microbatches
+    labels = np.ones((3, 4), np.int32)
+    w0 = rng.randn(5).astype(np.float32)
+
+    def jax_fwd(p, batch, n):
+        y = batch["x"] @ p["w"]
+        return jnp.sum(y ** 2) / n, {"expert_load": jnp.abs(batch["x"]).sum(0),
+                                     "moe_aux_loss": jnp.sum(y) / n}
+
+    jstep = jax.jit(jax_make_train_step(jax_fwd, jax_build_optimizer(lr=0.1)))
+    jparams, _, jm = jstep({"w": jnp.asarray(w0)}, jax_build_optimizer(lr=0.1).init(
+        {"w": jnp.asarray(w0)}), {"x": jnp.asarray(x), "labels": jnp.asarray(labels)})
+
+    w = torch.nn.Parameter(torch.tensor(w0))
+
+    def fwd(batch, n):
+        y = batch["x"] @ w
+        return (y ** 2).sum() / n, {"expert_load": batch["x"].abs().sum(0),
+                                    "moe_aux_loss": y.sum() / n}
+
+    opt = build_optimizer(lr=0.1)
+    _, m = make_train_step(fwd, {"w": w}, opt)(opt.init({"w": w}), {
+        "x": torch.tensor(x), "labels": torch.tensor(labels)})
+    for k in ("loss", "moe_aux_loss", "expert_load"):
+        np.testing.assert_allclose(m[k].numpy(), np.asarray(jm[k]), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(w.detach().numpy(), np.asarray(jparams["w"]), rtol=1e-5,
+                               atol=1e-6)
