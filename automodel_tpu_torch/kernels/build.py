@@ -41,6 +41,12 @@ SOURCES: dict[str, dict[str, list]] = {
         "gmm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
         "tgmm": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     },
+    "ring_chunk.cu": {
+        "ring_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                     _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P],
+        "ring_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                     _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P],
+    },
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -59,9 +65,13 @@ def nvcc_path() -> str:
 
 
 def _lib_path(source: str) -> str:
-    src = os.path.join(_PKG, "csrc", source)
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    """The library of ``source``, named by a hash of it, the shared headers and the flags."""
+    csrc = os.path.join(_PKG, "csrc")
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in [source] + sorted(n for n in os.listdir(csrc) if n.endswith(".cuh")):
+        with open(os.path.join(csrc, name), "rb") as f:
+            h.update(f.read())
+    digest = h.hexdigest()[:16]
     return os.path.join(BUILD_DIR, f"{os.path.splitext(source)[0]}-{digest}.so")
 
 

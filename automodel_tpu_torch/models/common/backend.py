@@ -1,9 +1,12 @@
 """Backend switchboard (counterpart of ``automodel_tpu/models/common/backend.py``).
 
 ``attention``: "xla" (plain einsum softmax) | "flash" (the CUDA kernels on the card,
-their plain version on the CPU). ``scan_layers`` is accepted for config
-compatibility and changes nothing: the port always loops over the stacked layer
-parameters in Python.
+their plain version on the CPU). ``context_parallel``: "allgather" | "ring"; with a mesh
+whose cp axis is larger than 1, "ring" runs ring attention over cp
+(``parallel/ring_attention.py``, the ring chunk kernels on the card) and "allgather" is
+the ordinary attention path (on one card the whole sequence is already there).
+``scan_layers`` is accepted for config compatibility and changes nothing: the port
+always loops over the stacked layer parameters in Python.
 
 Rematerialisation. The names are the JAX package's. JAX maps "full" to no
 ``jax.checkpoint`` at all and every other name, "none" included (policy None: save
@@ -34,6 +37,7 @@ class BackendConfig:
     attention:          "xla" | "flash"
     attention_segments: pass segment ids into the attention mask (False is the fast
                         path for right-padded unpacked batches, as in JAX)
+    context_parallel:   "allgather" | "ring" (see the module docstring)
     remat_policy:       one of REMAT_POLICIES (see the module docstring)
     scan_layers:        layout-only, accepted and ignored
     dtype:              activation and compute dtype
@@ -47,6 +51,7 @@ class BackendConfig:
 
     attention: str = "xla"
     attention_segments: bool = True
+    context_parallel: str = "allgather"
     remat_policy: str = "none"
     scan_layers: bool = True
     dtype: str = "bfloat16"
@@ -58,6 +63,9 @@ class BackendConfig:
     def __post_init__(self):
         if self.attention not in ("xla", "flash"):
             raise ValueError(f"unknown attention backend {self.attention!r} (xla | flash)")
+        if self.context_parallel not in ("allgather", "ring"):
+            raise ValueError(f"unknown context_parallel {self.context_parallel!r} "
+                             "(allgather | ring)")
         if self.remat_policy not in REMAT_POLICIES:
             raise ValueError(f"unknown remat_policy {self.remat_policy!r} "
                              f"(choose from {list(REMAT_POLICIES)})")

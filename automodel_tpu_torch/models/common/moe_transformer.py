@@ -72,7 +72,7 @@ def moe_decoder_param_shapes(cfg: MoEDecoderConfig) -> dict[str, tuple[int, ...]
 
 
 def _moe_layer(cfg, backend, moe_block, attn_names, moe_names, h, positions, segment_ids,
-               token_mask, inv_freq, attn_scale, *weights):
+               token_mask, inv_freq, attn_scale, mesh, *weights):
     """One MoE layer: h + attn(norm(h)), then + moe(norm(h)). Returns (h, aux, load)."""
     dtype = backend.torch_dtype
     n_attn = len(attn_names)
@@ -80,7 +80,8 @@ def _moe_layer(cfg, backend, moe_block, attn_names, moe_names, h, positions, seg
     moe_params = cast_moe_compute_params(nest_moe_params(dict(zip(moe_names, weights[n_attn:]))),
                                          dtype)
     x = rms_norm(h, lp["attn_norm"], cfg.rms_norm_eps)
-    h = h + attention_block(cfg, backend, lp, x, positions, segment_ids, inv_freq, attn_scale)
+    h = h + attention_block(cfg, backend, lp, x, positions, segment_ids, inv_freq, attn_scale,
+                            mesh)
     x = rms_norm(h, lp["mlp_norm"], cfg.rms_norm_eps)
     y, aux, load, _ = moe_block(moe_params, x, token_mask)
     if aux is None:
@@ -98,9 +99,11 @@ def moe_decoder_forward(
     token_mask: torch.Tensor | None = None,  # (B, S) True = valid (counts for routing)
     return_hidden: bool = False,
     training: bool = True,
+    mesh=None,
 ) -> tuple[torch.Tensor, dict[str, Any]]:
     """``(logits or hidden, stats)``; stats: ``aux_loss`` (summed over MoE layers, or
-    None when the aux loss is off) and ``expert_load`` (L_moe, E)."""
+    None when the aux loss is off) and ``expert_load`` (L_moe, E). ``mesh`` as for
+    ``transformer.decoder_forward``."""
     dtype = backend.torch_dtype
     if positions is None:
         positions = torch.arange(input_ids.shape[1], device=input_ids.device).expand(
@@ -117,7 +120,7 @@ def moe_decoder_forward(
         if cfg.first_k_dense_replace > 0 else []
     for i in range(cfg.first_k_dense_replace):
         args = (cfg, backend, dense_names, h, positions, segment_ids, inv_freq, attn_scale,
-                *[w[i] for w in dense])
+                mesh, *[w[i] for w in dense])
         h = (checkpoint(decoder_layer, *args, use_reentrant=False) if remat
              else decoder_layer(*args))
 
@@ -129,7 +132,7 @@ def moe_decoder_forward(
     auxs, loads = [], []
     for i in range(cfg.num_moe_layers):
         args = (cfg, backend, moe_block, attn_names, moe_names, h, positions, segment_ids,
-                token_mask, inv_freq, attn_scale, *[w[i] for w in per_layer])
+                token_mask, inv_freq, attn_scale, mesh, *[w[i] for w in per_layer])
         h, aux, load = (checkpoint(_moe_layer, *args, use_reentrant=False) if remat
                         else _moe_layer(*args))
         auxs.append(aux)

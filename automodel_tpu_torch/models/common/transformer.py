@@ -27,6 +27,7 @@ from automodel_tpu_torch.models.common.backend import BackendConfig
 from automodel_tpu_torch.ops.attention import dot_product_attention
 from automodel_tpu_torch.ops.norms import rms_norm
 from automodel_tpu_torch.ops.rope import apply_rope, rope_attention_scaling, rope_frequencies
+from automodel_tpu_torch.parallel.ring_attention import make_ring_attention
 
 __all__ = ["DenseDecoderConfig", "attention_block", "decoder_forward", "decoder_layer",
            "init_dense_decoder_params", "init_params", "layer_shapes", "param_shapes",
@@ -131,9 +132,16 @@ def _project(x, w, n_in):
     return torch.matmul(x2, w.reshape(k, -1)).reshape(*x2.shape[:-1], *out_shape)
 
 
-def attention_block(cfg, backend, lp, x, positions, segment_ids, inv_freq, attn_scale):
+def attention_block(cfg, backend, lp, x, positions, segment_ids, inv_freq, attn_scale,
+                    mesh=None):
     """Self-attention of one layer on the normed input x: projections, per-head q/k
-    RMSNorm (``qk_norm``), RoPE, attention and the output projection."""
+    RMSNorm (``qk_norm``), RoPE, attention and the output projection. With
+    ``context_parallel: ring`` and a mesh whose cp axis is larger than 1, attention is
+    ring attention over cp, given positions and segment ids whatever
+    ``attention_segments`` says (as JAX's ``use_ring``; the port's decoders have no
+    sinks and no sliding window, the ring's other two guards there). The softmax scale
+    is head_dim ** -0.5 on both paths: JAX's ``attention_multiplier`` (Granite) is
+    refused by ``LlamaConfig.from_hf`` until that family is ported."""
     q = _project(x, lp["wq"], 1)
     k = _project(x, lp["wk"], 1)
     if cfg.qk_norm:
@@ -142,6 +150,9 @@ def attention_block(cfg, backend, lp, x, positions, segment_ids, inv_freq, attn_
     q = apply_rope(q, positions, inv_freq, attn_scale)
     k = apply_rope(k, positions, inv_freq, attn_scale)
     v = _project(x, lp["wv"], 1)
+    if backend.context_parallel == "ring" and mesh is not None and mesh.cp > 1:
+        ring = make_ring_attention(mesh, causal=cfg.causal)
+        return _project(ring(q, k, v, positions, segment_ids), lp["wo"], 2)
     # attention_segments=False: right-padded unpacked batches, where causal masking
     # alone keeps real tokens away from trailing pads (bidirectional stacks keep it)
     seg = segment_ids if (backend.attention_segments or not cfg.causal) else None
@@ -150,13 +161,14 @@ def attention_block(cfg, backend, lp, x, positions, segment_ids, inv_freq, attn_
     return _project(out, lp["wo"], 2)
 
 
-def decoder_layer(cfg, backend, names, h, positions, segment_ids, inv_freq, attn_scale,
+def decoder_layer(cfg, backend, names, h, positions, segment_ids, inv_freq, attn_scale, mesh,
                   *weights):
     """One pre-norm decoder layer: h + attn(norm(h)), then + mlp(norm(h))."""
     dtype = backend.torch_dtype
     lp = {n: w.to(dtype) for n, w in zip(names, weights)}
     x = rms_norm(h, lp["attn_norm"], cfg.rms_norm_eps)
-    h = h + attention_block(cfg, backend, lp, x, positions, segment_ids, inv_freq, attn_scale)
+    h = h + attention_block(cfg, backend, lp, x, positions, segment_ids, inv_freq, attn_scale,
+                            mesh)
     x = rms_norm(h, lp["mlp_norm"], cfg.rms_norm_eps)
     up = _project(x, lp["w_up"], 1)
     gate = _project(x, lp["w_gate"], 1)
@@ -171,8 +183,10 @@ def decoder_forward(
     positions: torch.Tensor | None = None,
     segment_ids: torch.Tensor | None = None,
     return_hidden: bool = False,
+    mesh=None,
 ) -> torch.Tensor:
-    """Logits (B, S, V) in the compute dtype, or the final hidden states."""
+    """Logits (B, S, V) in the compute dtype, or the final hidden states. ``mesh``: a
+    ``parallel.mesh.MeshContext`` (its cp axis drives ring attention), or None."""
     dtype = backend.torch_dtype
     if positions is None:
         positions = torch.arange(input_ids.shape[1], device=input_ids.device).expand(
@@ -185,7 +199,8 @@ def decoder_forward(
     per_layer = [params[f"layers.{n}"].unbind(0) for n in names]
     for i in range(cfg.num_hidden_layers):
         weights = [w[i] for w in per_layer]
-        args = (cfg, backend, names, h, positions, segment_ids, inv_freq, attn_scale, *weights)
+        args = (cfg, backend, names, h, positions, segment_ids, inv_freq, attn_scale, mesh,
+                *weights)
         if backend.checkpoint_layers and torch.is_grad_enabled():
             h = checkpoint(decoder_layer, *args, use_reentrant=False)
         else:

@@ -95,7 +95,8 @@ class LlamaForCausalLM(ParamModule):
             config = LlamaConfig.from_hf(config)
         return cls(config, backend, **kw)
 
-    def forward(self, input_ids, positions=None, segment_ids=None, return_hidden=False):
+    def forward(self, input_ids, positions=None, segment_ids=None, return_hidden=False,
+                mesh=None):
         return decoder_forward(self.config, self.backend, self.param_dict(), input_ids,
                                positions=positions, segment_ids=segment_ids,
-                               return_hidden=return_hidden)
+                               return_hidden=return_hidden, mesh=mesh)

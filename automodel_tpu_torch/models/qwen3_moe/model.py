@@ -94,8 +94,8 @@ class Qwen3MoeForCausalLM(ParamModule):
         return cls(config, backend, **kw)
 
     def forward(self, input_ids, positions=None, segment_ids=None, token_mask=None,
-                return_hidden=False, training=True):
+                return_hidden=False, training=True, mesh=None):
         return moe_decoder_forward(self.config, self.backend, self.param_dict(), input_ids,
                                    positions=positions, segment_ids=segment_ids,
                                    token_mask=token_mask, return_hidden=return_hidden,
-                                   training=training)
+                                   training=training, mesh=mesh)

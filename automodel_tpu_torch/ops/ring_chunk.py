@@ -1,0 +1,251 @@
+"""Ring-attention chunk kernels: hand-written CUDA for the card, a plain version for the CPU.
+
+Counterpart of ``automodel_tpu/ops/pallas/ring_chunk.py``. One ring step of context
+parallelism attends the local q against one visiting kv chunk. The forward merges that
+chunk's attention into the online-softmax carry (acc, m, l); the backward gives the dq
+partial and the chunk's dk / dv from one recompute, given the global lse and delta.
+Masks come from data: global positions (causal, sliding window) and segment ids travel
+with the chunks.
+
+Layouts are the JAX package's row form, except that positions, segment ids and the
+per-row statistics are compact instead of broadcast over the TPU's 128 lanes / 8
+sublanes:
+
+  q (B*H, Sq, D)   k (B*KH, Skv, D)   v (B*KH, Skv, Dv)     H = KH * groups
+  pos_q, seg_q (B, Sq) int32   pos_kv, seg_kv (B, Skv) int32   (segments optional)
+  carry: acc (B*H, Sq, Dv) f32, m / l (B*H, Sq) f32
+  backward: do (B*H, Sq, Dv), lse / delta (B*H, Sq) f32; dq (B*H, Sq, D),
+            dk (B*KH, Skv, D), dv (B*KH, Skv, Dv) f32 accumulators
+
+Both wrappers work in place: :func:`chunk_attention_fwd` writes the updated carry into
+acc / m / l and :func:`chunk_attention_bwd` adds into dq / dk / dv (dk / dv already
+summed over the GQA group, where the TPU kernel returns them per q head). CUDA tensors
+go to ``ring_fwd`` / ``ring_bwd`` in ``csrc/ring_chunk.cu`` or raise; CPU tensors go to
+the plain versions below. The JAX arguments ``block_q``, ``block_k``, ``interpret`` and
+``vma`` have no counterpart. The kernels take D = Dv in {64, 128} in bf16; Dv != D
+(MLA) runs in the plain version only.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["LAUNCHES", "NEG_INF", "allowed_mask", "chunk_attention_bwd",
+           "chunk_attention_bwd_reference", "chunk_attention_fwd",
+           "chunk_attention_fwd_reference", "ring_bwd", "ring_fwd"]
+
+NEG_INF = -1e30
+# one count per kernel launch, so a run can show that it went through the kernels
+LAUNCHES = {"ring_fwd": 0, "ring_bwd": 0}
+_SOURCE = "ring_chunk.cu"
+_HEAD_DIMS = (64, 128)
+# the plain versions form (batch, H, Sq, Skv) f32 scores; they loop over batch rows so
+# that one slice holds at most this many score elements (2 GiB in f32)
+_SCORE_ELEMS = 1 << 29
+
+
+def allowed_mask(pos_q, pos_kv, seg_q, seg_kv, causal, window):
+    """(B, Sq, Skv) bool allowed-mask from positions and segments; None when unmasked."""
+    allowed = None
+
+    def _and(a, b):
+        return b if a is None else a & b
+
+    pq, pkv = pos_q[:, :, None], pos_kv[:, None, :]
+    if causal:
+        allowed = _and(allowed, pq >= pkv)
+    if window is not None:
+        allowed = _and(allowed, pq - pkv < window)
+    if seg_q is not None:
+        allowed = _and(allowed, seg_q[:, :, None] == seg_kv[:, None, :])
+    return allowed
+
+
+def _batch_slices(b, h, sq, skv):
+    step = max(1, _SCORE_ELEMS // max(1, h * sq * skv))
+    return [slice(i, min(i + step, b)) for i in range(0, b, step)]
+
+
+def chunk_attention_fwd_reference(q, k, v, pos_q, pos_kv, seg_q, seg_kv, acc, m, l, *,
+                                  scale, causal, window, groups, n_heads):
+    """The forward kernel's plain version in f32: the updated ``(acc, m, l)`` as new
+    tensors. A masked logit is NEG_INF and a masked p is 0, so a row with nothing
+    allowed keeps m = NEG_INF, l = 0, acc = 0."""
+    bn, sq, d = q.shape
+    b, kh = bn // n_heads, n_heads // groups
+    skv, dv = k.shape[1], v.shape[2]
+    outs = []
+    for sl in _batch_slices(b, n_heads, sq, skv):
+        nb = sl.stop - sl.start
+        qf = q.float().view(b, kh, groups, sq, d)[sl]
+        kf = k.float().view(b, kh, 1, skv, d)[sl]
+        vf = v.float().view(b, kh, 1, skv, dv)[sl]
+        s = torch.matmul(qf, kf.transpose(-1, -2)) * scale  # (nb, kh, g, sq, skv)
+        allowed = allowed_mask(pos_q[sl], pos_kv[sl], None if seg_q is None else seg_q[sl],
+                           None if seg_kv is None else seg_kv[sl], causal, window)
+        if allowed is not None:
+            allowed = allowed[:, None, None]
+            s = s.masked_fill(~allowed, NEG_INF)
+        m_prev = m.float().view(b, kh, groups, sq, 1)[sl]
+        m_new = torch.maximum(m_prev, s.amax(-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        if allowed is not None:
+            p = p.masked_fill(~allowed, 0.0)
+        alpha = torch.exp(m_prev - m_new)
+        l_new = l.float().view(b, kh, groups, sq, 1)[sl] * alpha + p.sum(-1, keepdim=True)
+        acc_new = (acc.float().view(b, kh, groups, sq, dv)[sl] * alpha
+                   + torch.matmul(p, vf))
+        outs.append((acc_new.reshape(nb * n_heads, sq, dv), m_new.reshape(nb * n_heads, sq),
+                     l_new.reshape(nb * n_heads, sq)))
+    return tuple(torch.cat(parts) for parts in zip(*outs))
+
+
+def chunk_attention_bwd_reference(q, k, v, pos_q, pos_kv, seg_q, seg_kv, do, lse, delta, *,
+                                  scale, causal, window, groups, n_heads):
+    """The backward kernel's plain version in f32: ``(dq, dk, dv)`` of this chunk as new
+    tensors, dk / dv summed over the GQA group. p = exp(s - lse) with the global lse,
+    ds = p * (dp - delta)."""
+    bn, sq, d = q.shape
+    b, kh = bn // n_heads, n_heads // groups
+    skv, dv = k.shape[1], v.shape[2]
+    dqs, dks, dvs = [], [], []
+    for sl in _batch_slices(b, n_heads, sq, skv):
+        nb = sl.stop - sl.start
+        qf = q.float().view(b, kh, groups, sq, d)[sl]
+        kf = k.float().view(b, kh, 1, skv, d)[sl]
+        vf = v.float().view(b, kh, 1, skv, dv)[sl]
+        dof = do.float().view(b, kh, groups, sq, dv)[sl]
+        s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+        allowed = allowed_mask(pos_q[sl], pos_kv[sl], None if seg_q is None else seg_q[sl],
+                           None if seg_kv is None else seg_kv[sl], causal, window)
+        if allowed is not None:
+            allowed = allowed[:, None, None]
+            s = s.masked_fill(~allowed, NEG_INF)
+        p = torch.exp(s - lse.float().view(b, kh, groups, sq, 1)[sl])
+        if allowed is not None:
+            p = p.masked_fill(~allowed, 0.0)
+        dp = torch.matmul(dof, vf.transpose(-1, -2))
+        ds = p * (dp - delta.float().view(b, kh, groups, sq, 1)[sl])
+        dqs.append((torch.matmul(ds, kf) * scale).reshape(nb * n_heads, sq, d))
+        dks.append((torch.matmul(ds.transpose(-1, -2), qf) * scale).sum(2)
+                   .reshape(nb * kh, skv, d))
+        dvs.append(torch.matmul(p.transpose(-1, -2), dof).sum(2).reshape(nb * kh, skv, dv))
+    return torch.cat(dqs), torch.cat(dks), torch.cat(dvs)
+
+
+def _check_cuda(q, k, v, pos_q, pos_kv, seg_q, seg_kv, f32, groups, n_heads):
+    """Raise on anything the kernels do not take; nothing falls back."""
+    for name, t in (("q", q), ("k", k), ("v", v), *f32.items()):
+        if t.device.type != "cuda":
+            raise ValueError(f"ring chunk kernels: {name} is on {t.device}, not a CUDA device")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"ring chunk kernels: {name} must be contiguous and 16-byte aligned")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"ring chunk kernels take bf16 q/k/v, {name} is {t.dtype}")
+    bn, sq, d = q.shape
+    if v.shape[-1] != d:
+        raise NotImplementedError(
+            f"ring chunk kernels take Dv == D; Dv={v.shape[-1]} != D={d} (MLA) runs in the "
+            "plain version only (ROADMAP.md: with DeepSeek-V3)")
+    shapes = {"acc": (bn, sq, d), "m": (bn, sq), "l": (bn, sq), "lse": (bn, sq),
+              "delta": (bn, sq), "dq": (bn, sq, d), "dk": tuple(k.shape), "dv": tuple(v.shape)}
+    for name, t in f32.items():
+        if t.dtype != torch.float32 or tuple(t.shape) != shapes[name]:
+            raise ValueError(f"ring chunk kernels: {name} must be f32 {shapes[name]}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    if d not in _HEAD_DIMS:
+        raise NotImplementedError(f"ring chunk kernels take head_dim in {_HEAD_DIMS}, got {d}")
+    if n_heads % groups or bn % n_heads or k.shape[0] * groups != bn or k.shape != v.shape:
+        raise ValueError(f"ring chunk kernels: bad shapes q {tuple(q.shape)} k {tuple(k.shape)} "
+                         f"v {tuple(v.shape)} for n_heads={n_heads}, groups={groups}")
+    b = bn // n_heads
+    for name, t, s in (("pos_q", pos_q, sq), ("pos_kv", pos_kv, k.shape[1]),
+                       ("seg_q", seg_q, sq), ("seg_kv", seg_kv, k.shape[1])):
+        if t is None:
+            continue
+        if t.shape != (b, s) or t.dtype != torch.int32 or not t.is_contiguous() \
+                or t.device != q.device:
+            raise ValueError(f"ring chunk kernels: {name} must be contiguous int32 ({b}, {s}) "
+                             f"on {q.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if (seg_q is None) != (seg_kv is None):
+        raise ValueError("ring chunk kernels: seg_q and seg_kv come together")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _window(window):
+    return (0, 0) if window is None else (1, int(window))
+
+
+def ring_fwd(q, k, v, pos_q, pos_kv, seg_q, seg_kv, acc, m, l, *, scale, causal, window,
+             groups, n_heads):
+    """Launch the forward kernel on checked inputs; updates (acc, m, l) in place."""
+    from automodel_tpu_torch.kernels.build import check, library
+
+    bn, sq, d = q.shape
+    has_window, win = _window(window)
+    fn = library(_SOURCE).ring_fwd
+    with torch.cuda.device(q.device):  # the launch goes to the calling thread's device
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), pos_q.data_ptr(), pos_kv.data_ptr(),
+                 _ptr(seg_q), _ptr(seg_kv), acc.data_ptr(), m.data_ptr(), l.data_ptr(),
+                 bn // n_heads, sq, k.shape[1], n_heads, n_heads // groups, d, float(scale),
+                 int(causal), has_window, win, torch.cuda.current_stream(q.device).cuda_stream)
+    check(err, "ring_fwd")
+    LAUNCHES["ring_fwd"] += 1
+    return acc, m, l
+
+
+def ring_bwd(q, k, v, pos_q, pos_kv, seg_q, seg_kv, do, lse, delta, dq, dk, dv, *, scale,
+             causal, window, groups, n_heads):
+    """Launch the backward kernel on checked inputs; adds into (dq, dk, dv) in place."""
+    from automodel_tpu_torch.kernels.build import check, library
+
+    bn, sq, d = q.shape
+    has_window, win = _window(window)
+    fn = library(_SOURCE).ring_bwd
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), pos_q.data_ptr(), pos_kv.data_ptr(),
+                 _ptr(seg_q), _ptr(seg_kv), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), bn // n_heads, sq, k.shape[1],
+                 n_heads, n_heads // groups, d, float(scale), int(causal), has_window, win,
+                 torch.cuda.current_stream(q.device).cuda_stream)
+    check(err, "ring_bwd")
+    LAUNCHES["ring_bwd"] += 1
+    return dq, dk, dv
+
+
+def chunk_attention_fwd(q, k, v, pos_q, pos_kv, seg_q, seg_kv, acc, m, l, *, scale, causal,
+                        window, groups, n_heads):
+    """One ring step: merge attention against a visiting kv chunk into (acc, m, l), in
+    place; returns them. CUDA tensors launch ``ring_fwd`` or raise."""
+    kw = dict(scale=scale, causal=causal, window=window, groups=groups, n_heads=n_heads)
+    if q.device.type == "cpu":
+        out = chunk_attention_fwd_reference(q, k, v, pos_q, pos_kv, seg_q, seg_kv, acc, m, l,
+                                            **kw)
+        for dst, src in zip((acc, m, l), out):
+            dst.copy_(src)
+        return acc, m, l
+    _check_cuda(q, k, v, pos_q, pos_kv, seg_q, seg_kv, {"acc": acc, "m": m, "l": l},
+                groups, n_heads)
+    return ring_fwd(q, k, v, pos_q, pos_kv, seg_q, seg_kv, acc, m, l, **kw)
+
+
+def chunk_attention_bwd(q, k, v, pos_q, pos_kv, seg_q, seg_kv, do, lse, delta, dq, dk, dv, *,
+                        scale, causal, window, groups, n_heads):
+    """One backward ring step: add the dq partial and the chunk's dk / dv into (dq, dk,
+    dv), in place; returns them. CUDA tensors launch ``ring_bwd`` or raise."""
+    kw = dict(scale=scale, causal=causal, window=window, groups=groups, n_heads=n_heads)
+    if q.device.type == "cpu":
+        out = chunk_attention_bwd_reference(q, k, v, pos_q, pos_kv, seg_q, seg_kv, do, lse,
+                                            delta, **kw)
+        for dst, src in zip((dq, dk, dv), out):
+            dst.add_(src)
+        return dq, dk, dv
+    if do.dtype != q.dtype or not do.is_contiguous() or do.shape != q.shape:
+        raise ValueError("ring chunk kernels: do must be contiguous, of q's shape and dtype")
+    _check_cuda(q, k, v, pos_q, pos_kv, seg_q, seg_kv,
+                {"lse": lse, "delta": delta, "dq": dq, "dk": dk, "dv": dv}, groups, n_heads)
+    return ring_bwd(q, k, v, pos_q, pos_kv, seg_q, seg_kv, do, lse, delta, dq, dk, dv, **kw)

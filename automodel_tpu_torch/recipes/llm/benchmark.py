@@ -135,6 +135,8 @@ def _kernel_class(name: str) -> str:
         return "linear_ce_kernels"
     if "gmm_kernel" in low:  # gmm_kernel / tgmm_kernel of csrc/grouped_gemm.cu
         return "grouped_gemm_kernels"
+    if "ring_fwd_kernel" in low or "ring_bwd_kernel" in low:  # csrc/ring_chunk.cu
+        return "ring_kernels"
     if low.startswith("nvjet") or "gemm" in low or "cutlass" in low or "xmma" in low:
         return "gemm"
     if "reduce" in low:

@@ -9,8 +9,11 @@ sequence packing (``packed_sequence``), the accumulating train step with its opt
 and LR schedule, and ``training.jsonl`` rows.
 
 Runs on ``device`` (default ``cuda``). With no card it raises unless the config says
-``device: cpu``. Sections this slice does not port (a mesh larger than one device,
-expert parallelism and the ``a2a`` dispatcher, PEFT, QAT, PP, checkpointing,
+``device: cpu``. The ``distributed`` section builds a ``MeshContext``; on one process a
+``cp`` larger than 1 folds onto the one card (``parallel/mesh.py``) and, with
+``backend.context_parallel: ring``, runs ring attention over it. Sections this slice
+does not port (any other mesh axis larger than one device, expert parallelism and the
+``a2a`` dispatcher, PEFT, QAT, PP, checkpointing,
 validation, prefetching, resilience and observability services, pretrained weights,
 noisy fake routing, the gate-bias update) raise NotImplementedError.
 """
@@ -38,6 +41,7 @@ from automodel_tpu_torch.ops.losses import (LINEAR_CE_IMPLS, linear_cross_entrop
                                             masked_cross_entropy)
 from automodel_tpu_torch.optim.builder import build_optimizer
 from automodel_tpu_torch.optim.scheduler import build_lr_schedule
+from automodel_tpu_torch.parallel.mesh import MeshAxis, MeshContext
 from automodel_tpu_torch.training.step_scheduler import StepScheduler
 from automodel_tpu_torch.training.train_step import count_label_tokens, make_train_step
 from automodel_tpu_torch.utils.flops import flops_per_token, mfu
@@ -61,7 +65,7 @@ def _unsupported(cfg: ConfigNode, saves_checkpoints: bool = True) -> list[str]:
     """The config options this slice does not port, as readable names. A recipe that
     never saves (the benchmark) passes ``saves_checkpoints=False``."""
     found = []
-    for axis in ("pp", "dp_replicate", "ep", "cp", "tp"):
+    for axis in ("pp", "dp_replicate", "ep", "tp"):
         if int(cfg.get(f"distributed.{axis}", 1) or 1) > 1:
             found.append(f"distributed.{axis} > 1")
     if int(cfg.get("distributed.dp_shard", 1) or 1) not in (1, -1):
@@ -98,6 +102,11 @@ class TrainFinetuneRecipeForNextTokenPrediction:
             raise NotImplementedError(
                 f"not ported to the PyTorch package yet: {', '.join(bad)} (see ROADMAP.md)")
         seed = int(cfg.get("seed", 42))
+        dist_cfg = {k: int(v) for k, v in (cfg.get("distributed") or ConfigNode()).items()
+                    if k in MeshAxis.ALL and v is not None}
+        self.mesh = MeshContext(**dist_cfg)
+        logger.info("mesh: %s%s", self.mesh.shape,
+                    " (cp folded onto one card)" if self.mesh.folded else "")
 
         backend_cfg = cfg.get("backend")
         self.backend = BackendConfig(**backend_cfg.to_dict()) if backend_cfg else BackendConfig()
@@ -194,6 +203,8 @@ class TrainFinetuneRecipeForNextTokenPrediction:
                 "packed sequences need segment masking in attention; drop "
                 "backend.attention_segments: false (it is a fast path for "
                 "right-padded UNPACKED batches only)")
+        if pack_size % self.mesh.cp != 0:
+            raise ValueError(f"packed_sequence_size {pack_size} must divide by cp={self.mesh.cp}")
         dataset = pack_dataset(
             dataset, pack_size, pad_token_id=pad_id,
             max_packs=self.cfg.get("packed_sequence.max_packs"),
@@ -208,7 +219,7 @@ class TrainFinetuneRecipeForNextTokenPrediction:
             kwargs = {"token_mask": batch["segment_ids"] != 0, "training": True}
         out = self.model(batch["input_ids"], positions=batch["positions"],
                          segment_ids=batch["segment_ids"],
-                         return_hidden=self.loss_name == "linear_ce", **kwargs)
+                         return_hidden=self.loss_name == "linear_ce", mesh=self.mesh, **kwargs)
         out, stats = out if isinstance(out, tuple) else (out, None)
         if self.loss_name == "linear_ce":
             unembed = resolve_unembed(self.model.config, self.params, out.dtype)

@@ -36,6 +36,15 @@ Phases, in order; any failure exits non-zero before the last line:
    (b) beside the bound, the plain version and torch._grouped_mm;
 8. Qwen3-30B-A3B width at 1 layer: the kernels against the plain versions on the same
    weights, with routing held fixed;
+8b. ring_fwd / ring_bwd (ring-attention chunk kernels) against their plain version, one
+   full folded ring forward and backward each, in six cases: (a) the slice's shape (cp 8
+   folded, B 1, S_local 4096, H 32, KH 8, D 128, causal), (b) packed segments with
+   positions restarting per document, (c) the round-robin layout, (d) a sliding window,
+   (e) D 64, KH 2, non-causal, (f) S_local 1000 at cp 3; their times at (a) beside the
+   bound and the plain version, and the whole ring against flash_fwd / flash_bwd and
+   SDPA on the unsharded S 32768;
+8c. Llama-3-8B width at 2 layers, seq 8192, cp 4 folded: context_parallel ring (the ring
+   kernels) against allgather (the flash kernels) on the same weights;
 9. main path 1: the benchmark recipe on examples/benchmark/llama3_2_1b.yaml
    (16 layers, full width, masked_ce), launch counts checked against the counters;
 10. main path 2: the benchmark recipe on examples/benchmark/llama3_2_1b_seq4096.yaml
@@ -51,7 +60,14 @@ Phases, in order; any failure exits non-zero before the last line:
 14. main path 6: train_ft on the same at 2 layers, default loss, packing 500-token
    documents into rows of 2048 (token mask from segment ids, the aux-loss term,
    moe_load/* rows);
-15. one JSON line of per-kernel numbers, the card line, then the result line.
+15. main path 7: the benchmark recipe on
+   examples/llm_finetune/llama3_8b_long_context_cp.yaml (cp 8 folded onto the card,
+   ring attention, seq 32768, remat dots, adamw, f32 params, linear_ce) with its dataset
+   section replaced by the mock dataset (cp_config) and the published Meta-Llama-3-8B
+   widths at 4 layers, one microbatch a step (LLAMA3_8B, llama3_8b_args);
+16. main path 8: train_ft on the same at 2 layers, default loss, 4096-token documents
+   packed into rows of 32768;
+17. one JSON line of per-kernel numbers, the card line, then the result line.
 
 To run one phase alone on the card, import the script: e.g.
 ``python3 -c "import chip_smoke, torch; chip_smoke._gmm_phase(torch, {})"``, or the
@@ -89,6 +105,47 @@ QWEN3_30B_A3B = {
     "num_hidden_layers": 4,
 }
 MOE_LAYERS_TRAIN_FT = 2  # depth of main path 6
+CP_YAML = os.path.join(HERE, "examples", "llm_finetune", "llama3_8b_long_context_cp.yaml")
+# The published widths of meta-llama/Meta-Llama-3-8B (its config.json on the Hugging Face
+# Hub) laid over the long-context CP config, at 4 of its 32 layers; random weights from
+# the seed (no weights in the repository).
+LLAMA3_8B = {
+    "vocab_size": 128256, "hidden_size": 4096, "intermediate_size": 14336,
+    "num_attention_heads": 32, "num_key_value_heads": 8, "head_dim": 128,
+    "tie_word_embeddings": False, "rope_theta": 500000.0, "rms_norm_eps": 1e-5,
+    "max_position_embeddings": 8192, "num_hidden_layers": 4,
+}
+CP_LAYERS_TRAIN_FT = 2  # depth of main path 8
+
+
+def llama3_8b_args(layers: int = LLAMA3_8B["num_hidden_layers"]) -> list[str]:
+    """CLI overrides that turn the CP config (with its dataset section replaced by
+    :func:`cp_config`) into the slice configuration: the published widths, random
+    weights, one microbatch a step, no periodic checkpoint."""
+    args = []
+    for key, value in dict(LLAMA3_8B, num_hidden_layers=layers).items():
+        args += [f"--model.config.{key}", str(value).lower() if isinstance(value, bool)
+                 else str(value)]
+    return args + ["--model.pretrained_model_name_or_path", "null",
+                   "--step_scheduler.grad_acc_steps", "1",
+                   "--step_scheduler.ckpt_every_steps", "0"]
+
+
+def cp_config(out_dir: str) -> str:
+    """The CP config with its HellaSwag dataset section (no files in the repository, no
+    network) replaced by the mock dataset at seq 32768, written to ``out_dir``. CLI
+    overrides cannot drop the section's keys, hence a derived file."""
+    import yaml
+
+    with open(CP_YAML) as f:
+        cfg = yaml.safe_load(f)
+    cfg["dataset"] = {"_target_": "automodel_tpu_torch.data.llm.mock.MockSFTDataset",
+                      "vocab_size": LLAMA3_8B["vocab_size"], "seq_len": cfg["seq_len"],
+                      "num_samples": 64, "seed": 0}
+    path = os.path.join(out_dir, "llama3_8b_long_context_cp_mock.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return path
 
 
 def qwen3_args(layers: int = QWEN3_30B_A3B["num_hidden_layers"]) -> list[str]:
@@ -269,6 +326,369 @@ def _timings(torch, fa, b=4, s=2048, h=32, kh=8, d=64):
     return out
 
 
+def _ring_layout(torch, b, cp, s_loc, h, kh, d, seed, seg=None, positions=None):
+    """Row-form inputs of one folded ring from global (B, S, H, D) bf16 tensors: q / dO
+    (B*cp*H, S_loc, D), k / v (B*cp*KH, S_loc, D), positions / segments (B*cp, S_loc)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    s = cp * s_loc
+    q, k, v, do = (torch.randn(b, s, n, d, device="cuda", generator=g).to(torch.bfloat16)
+                   for n in (h, kh, kh, h))
+    if positions is None:
+        positions = torch.arange(s, device="cuda", dtype=torch.int32).expand(b, s)
+
+    def rows(x):
+        x = x.reshape(b * cp, s_loc, x.shape[2], d)
+        return x.transpose(1, 2).reshape(-1, s_loc, d).contiguous()
+
+    def ids(x):
+        return None if x is None else x.reshape(b * cp, s_loc).to(torch.int32).contiguous()
+
+    return [rows(x) for x in (q, k, v, do)] + [ids(positions), ids(seg)]
+
+
+def _plain_chunk_fwd(q, k, v, pq, pkv, sq, skv, acc, m, l, **kw):
+    from automodel_tpu_torch.ops import ring_chunk as rc
+
+    for dst, src in zip((acc, m, l), rc.chunk_attention_fwd_reference(
+            q, k, v, pq, pkv, sq, skv, acc, m, l, **kw)):
+        dst.copy_(src)
+
+
+def _plain_chunk_bwd(q, k, v, pq, pkv, sq, skv, do, lse, delta, dq, dk, dv, **kw):
+    from automodel_tpu_torch.ops import ring_chunk as rc
+
+    for dst, src in zip((dq, dk, dv), rc.chunk_attention_bwd_reference(
+            q, k, v, pq, pkv, sq, skv, do, lse, delta, **kw)):
+        dst.add_(src)
+
+
+def _ring_case(torch, name, cp, b, s_loc, h, kh, d=128, causal=True, window=None, seg=None,
+               positions=None):
+    """One full folded ring forward and backward through ring_fwd / ring_bwd against the
+    same ring through their plain version (f32 from the same bf16 inputs)."""
+    from automodel_tpu_torch.parallel import ring_attention as ra
+
+    q, k, v, do, pos, sid = _ring_layout(torch, b, cp, s_loc, h, kh, d, seed=cp + s_loc + d,
+                                         seg=seg, positions=positions)
+    rot = ra.FoldedRotation(cp)
+    kw = dict(scale=d**-0.5, causal=causal, window=window, groups=h // kh, n_heads=h)
+    out, lse = ra.ring_flash_forward(q, k, v, pos, pos, sid, sid, rot, kw)
+    grads = ra.ring_flash_backward(q, k, v, pos, pos, sid, sid, out, lse, do, rot, kw)
+    torch.cuda.synchronize()
+    qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
+    out_ref, lse_ref = ra.ring_flash_forward(qf, kf, vf, pos, pos, sid, sid, rot, kw,
+                                             chunk_fwd=_plain_chunk_fwd)
+    grads_ref = ra.ring_flash_backward(qf, kf, vf, pos, pos, sid, sid, out_ref, lse_ref, dof, rot,
+                                       kw, chunk_bwd=_plain_chunk_bwd)
+    err_o = (out.float() - out_ref).abs().max().item()
+    err_lse = (lse - lse_ref).abs().max().item()
+    rel = [_rel_l2(a, r) for a, r in zip(grads, grads_ref)]
+    err_grad = max((a.float() - r).abs().max().item() for a, r in zip(grads, grads_ref))
+    print(f"ring case {name}: cp={cp} folded, B={b} S_local={s_loc} H={h} KH={kh} D={d} "
+          f"causal={causal} window={window} segments={seg is not None} "
+          f"positions={'given' if positions is not None else 'arange'}: "
+          f"O max abs {err_o:.3e} (tol {TOL_O}), lse max abs {err_lse:.3e} (tol {TOL_LSE}), "
+          f"grad rel L2 dq {rel[0]:.3e} dk {rel[1]:.3e} dv {rel[2]:.3e} (tol {TOL_GRAD})",
+          flush=True)
+    if not (err_o <= TOL_O and err_lse <= TOL_LSE and max(rel) <= TOL_GRAD):
+        raise AssertionError(f"ring case {name}: kernels disagree with the plain version")
+    del q, k, v, do, out, lse, grads, qf, kf, vf, dof, out_ref, lse_ref, grads_ref
+    torch.cuda.empty_cache()
+    return err_o, err_grad
+
+
+def _packed_ring_segments(torch, b, s, seed=0):
+    """(B, S) segment ids and positions as pack_dataset lays them out: documents of
+    500-3000 tokens, positions restarting at 0 in each, a tail of padding (segment 0,
+    position 0)."""
+    rng = __import__("random").Random(seed)
+    seg = torch.zeros(b, s, dtype=torch.int32)
+    pos = torch.zeros(b, s, dtype=torch.int32)
+    for row in range(b):
+        start, doc = 0, 1
+        while True:
+            n = rng.randint(500, 3000)
+            if start + n > s - 100:
+                break
+            seg[row, start:start + n] = doc
+            pos[row, start:start + n] = torch.arange(n, dtype=torch.int32)
+            start, doc = start + n, doc + 1
+    return seg.cuda(), pos.cuda()
+
+
+def _ring_phase(torch, errs):
+    """Ring kernel cases a-f against the plain version: (a) the slice's shape (cp 8
+    folded, B 1, S_local 4096, H 32, KH 8, D 128, causal); (b) packed segments with
+    positions restarting per document; (c) the round-robin layout of
+    test_interleaved_positions_load_balance; (d) a sliding window; (e) D 64, KH 2,
+    non-causal; (f) a ragged local length (S_local 1000, cp 3)."""
+    errs.update({"ring_fwd": 0.0, "ring_bwd": 0.0})
+
+    def note(e):
+        errs["ring_fwd"] = max(errs["ring_fwd"], e[0])
+        errs["ring_bwd"] = max(errs["ring_bwd"], e[1])
+
+    note(_ring_case(torch, "a", 8, 1, 4096, 32, 8))
+    seg, pos = _packed_ring_segments(torch, 2, 4 * 2048)
+    note(_ring_case(torch, "b", 4, 2, 2048, 32, 8, seg=seg, positions=pos))
+    s = 4 * 2048
+    order = torch.arange(s, dtype=torch.int32).reshape(4, -1).t().reshape(-1)
+    note(_ring_case(torch, "c", 4, 1, 2048, 32, 8, positions=order.cuda()[None]))
+    note(_ring_case(torch, "d", 4, 1, 2048, 32, 8, window=1024))
+    note(_ring_case(torch, "e", 4, 1, 2048, 16, 2, d=64, causal=False))
+    note(_ring_case(torch, "f", 3, 1, 1000, 32, 8))
+
+
+def _ring_timings(torch):
+    """ms of ring_fwd / ring_bwd a launch at case (a) beside the bound and the plain
+    version; the bound counts this ring's allowed (q, k) pairs, a launch's share of the
+    whole ring. Then, as a comparison, the whole ring (cp launches and the rotations)
+    against the port's flash_fwd / flash_bwd and SDPA on the unsharded sequence."""
+    from automodel_tpu_torch.ops import flash_attention as fa, ring_chunk as rc
+    from automodel_tpu_torch.parallel import ring_attention as ra
+
+    cp, b, s_loc, h, kh, d = 8, 1, 4096, 32, 8, 128
+    q, k, v, do, pos, _ = _ring_layout(torch, b, cp, s_loc, h, kh, d, seed=5)
+    kw = dict(scale=d**-0.5, causal=True, window=None, groups=h // kh, n_heads=h)
+    bn = q.shape[0]
+    f32 = dict(dtype=torch.float32, device="cuda")
+    acc, m, l = (torch.zeros(bn, s_loc, d, **f32), torch.full((bn, s_loc), -1e30, **f32),
+                 torch.zeros(bn, s_loc, **f32))
+    rot = ra.FoldedRotation(cp)
+    out, lse = ra.ring_flash_forward(q, k, v, pos, pos, None, None, rot, kw)
+    delta = (out.float() * do.float()).sum(-1)
+    dq, dk, dv = (torch.zeros(x.shape, **f32) for x in (q, k, v))
+    s = cp * s_loc
+    pairs = b * h * s * (s + 1) // 2 / cp  # a launch's share of the causal ring's pairs
+    qkv_bytes = 2 * (q.numel() + k.numel() + v.numel())
+    ids_bytes = 4 * 2 * pos.numel()
+    fwd_bytes = qkv_bytes + ids_bytes + 2 * 4 * (acc.numel() + m.numel() + l.numel())
+    bwd_bytes = (qkv_bytes + ids_bytes + 2 * do.numel() + 4 * 2 * bn * s_loc
+                 + 2 * 4 * (dq.numel() + dk.numel() + dv.numel()))
+    times = {
+        "ring_fwd": (_time_ms(torch, lambda: rc.ring_fwd(q, k, v, pos, pos, None, None, acc, m,
+                                                         l, **kw), warmup=2, reps=10),
+                     _time_ms(torch, lambda: rc.chunk_attention_fwd_reference(
+                         q, k, v, pos, pos, None, None, acc, m, l, **kw), warmup=1, reps=3),
+                     4 * d * pairs, fwd_bytes),
+        "ring_bwd": (_time_ms(torch, lambda: rc.ring_bwd(q, k, v, pos, pos, None, None, do, lse,
+                                                         delta, dq, dk, dv, **kw),
+                              warmup=2, reps=10),
+                     _time_ms(torch, lambda: rc.chunk_attention_bwd_reference(
+                         q, k, v, pos, pos, None, None, do, lse, delta, **kw), warmup=1, reps=3),
+                     10 * d * pairs, bwd_bytes)}
+    ring_fwd_all = _time_ms(torch, lambda: ra.ring_flash_forward(q, k, v, pos, pos, None, None,
+                                                                 rot, kw), warmup=1, reps=3)
+    ring_bwd_all = _time_ms(torch, lambda: ra.ring_flash_backward(
+        q, k, v, pos, pos, None, None, out, lse, do, rot, kw), warmup=1, reps=3)
+    del acc, m, l, dq, dk, dv, out, lse, delta, q, k, v, do
+    torch.cuda.empty_cache()
+    out = {}
+    for name, (ms, plain, flops, nbytes) in times.items():
+        t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        out[name] = {"ms": ms, "plain_ms": plain, "library_ms": None,
+                     "library": "no single PyTorch call computes a carried ring step",
+                     "bound_ms": max(t_ops, t_bytes),
+                     "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+        print(f"time {name} at cp={cp} folded B={b} S_local={s_loc} H={h} KH={kh} D={d} causal: "
+              f"{ms:.3f} ms a launch, bound {out[name]['bound_ms']:.3f} ms "
+              f"({out[name]['bound_by']}: {flops / 1e12:.3f} TFLOP, the launch's share of the "
+              f"ring's allowed pairs; {nbytes / 1e6:.1f} MB), plain {plain:.3f} ms", flush=True)
+
+    # comparison: the whole ring against one attention call over the unsharded sequence
+    qg, kg, vg, dog = _inputs(torch, b, s, h, kh, d)
+    scale = d**-0.5
+    o, lse_g = fa.flash_fwd(qg, kg, vg, None, None, scale, True)
+    flash_fwd_ms = _time_ms(torch, lambda: fa.flash_fwd(qg, kg, vg, None, None, scale, True),
+                            warmup=1, reps=3)
+    flash_bwd_ms = _time_ms(torch, lambda: fa.flash_bwd(qg, kg, vg, None, None, o, lse_g, dog,
+                                                        scale, True), warmup=1, reps=3)
+    del o, lse_g
+    sdpa_fwd_ms = _time_ms(torch, lambda: _library_sdpa(torch, qg, kg, vg, True), warmup=1,
+                           reps=3)
+    ql, kl, vl = (x.clone().requires_grad_() for x in (qg, kg, vg))
+    o_lib = _library_sdpa(torch, ql, kl, vl, True)
+    sdpa_bwd_ms = _time_ms(torch, lambda: torch.autograd.grad(o_lib, (ql, kl, vl), dog,
+                                                              retain_graph=True),
+                           warmup=1, reps=3)
+    del o_lib, ql, kl, vl, qg, kg, vg, dog
+    torch.cuda.empty_cache()
+    comparison = {"S": s, "ring_fwd_whole_ms": ring_fwd_all, "ring_bwd_whole_ms": ring_bwd_all,
+                  "flash_fwd_ms": flash_fwd_ms, "flash_bwd_ms": flash_bwd_ms,
+                  "sdpa_fwd_ms": sdpa_fwd_ms, "sdpa_bwd_ms": sdpa_bwd_ms}
+    print(f"comparison at S={s} (B={b} H={h} KH={kh} D={d} causal): the whole folded ring "
+          f"(cp={cp} launches and rotations) forward {ring_fwd_all:.3f} ms, backward "
+          f"{ring_bwd_all:.3f} ms; flash_fwd {flash_fwd_ms:.3f} ms, flash_bwd "
+          f"{flash_bwd_ms:.3f} ms on the unsharded sequence; SDPA forward {sdpa_fwd_ms:.3f} "
+          f"ms, backward {sdpa_bwd_ms:.3f} ms", flush=True)
+    out["ring_fwd"]["comparison_unsharded"] = comparison
+    return out
+
+
+def _ring_model_check(torch):
+    """Ring attention (the ring kernels) against context_parallel allgather (the flash
+    kernels) on the same weights: Llama-3-8B width, 2 layers, seq 8192, cp 4 folded, bf16."""
+    from automodel_tpu_torch.data.collate import sft_collate
+    from automodel_tpu_torch.data.llm.mock import MockSFTDataset
+    from automodel_tpu_torch.models.common.backend import BackendConfig
+    from automodel_tpu_torch.models.llama.model import LlamaForCausalLM
+    from automodel_tpu_torch.ops.losses import masked_cross_entropy
+    from automodel_tpu_torch.parallel.mesh import MeshContext
+
+    hf = dict(LLAMA3_8B, num_hidden_layers=2)
+    ds = MockSFTDataset(hf["vocab_size"], 8192, num_samples=1, seed=0)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in sft_collate([ds[0]], 8192).items()}
+    mesh = MeshContext(cp=4)
+    results = {}
+    for mode in ("ring", "allgather"):
+        backend = BackendConfig(attention="flash", context_parallel=mode, remat_policy="dots",
+                                dtype="bfloat16")
+        model = LlamaForCausalLM.from_config(
+            hf, backend, device="cuda", dtype=torch.bfloat16,
+            generator=torch.Generator(device="cuda").manual_seed(0))
+        params = model.param_dict()
+        _reset_counts()
+        logits = model(batch["input_ids"], positions=batch["positions"],
+                       segment_ids=batch["segment_ids"], mesh=mesh)
+        loss = masked_cross_entropy(logits, batch["labels"])
+        grads = torch.autograd.grad(loss, list(params.values()))
+        counts = _read_counts()
+        results[mode] = (loss.item(), torch.cat([g.float().flatten() for g in grads]), counts)
+        del model, params, logits, grads
+        torch.cuda.empty_cache()
+    d_loss = abs(results["ring"][0] - results["allgather"][0])
+    rel = _rel_l2(results["ring"][1], results["allgather"][1])
+    routes = (results["ring"][2]["ring_fwd"] > 0 and results["ring"][2]["flash_fwd"] == 0
+              and results["allgather"][2]["flash_fwd"] > 0
+              and results["allgather"][2]["ring_fwd"] == 0)
+    print(f"ring model check (2 layers, Llama-3-8B width, seq 8192, cp 4 folded, bf16): loss "
+          f"ring {results['ring'][0]:.6f} allgather {results['allgather'][0]:.6f} |diff| "
+          f"{d_loss:.3e} (tol {TOL_MODEL_LOSS}), grad rel L2 {rel:.3e} (tol {TOL_MODEL_GRAD}); "
+          f"launches ring {results['ring'][2]} allgather {results['allgather'][2]}", flush=True)
+    if not (d_loss <= TOL_MODEL_LOSS and rel <= TOL_MODEL_GRAD and routes):
+        raise AssertionError("ring attention disagrees with allgather through the model")
+
+
+# the process-group ring (``--cp-processes N``, one process per card): Llama-3-8B heads
+# over a 32768-token sequence at cp 4
+PG_S_LOCAL, PG_H, PG_KH, PG_D = 8192, 32, 8, 128
+# process-group ring against the fold: the same kernels on the same shards in the same
+# step order; only dq's atomicAdd order differs between runs
+TOL_PG_OUT, TOL_PG_GRAD = 1e-6, 1e-4
+
+
+def _pg_inputs(torch, cp):
+    """Global bf16 q, k, v, dO drawn on the CPU from one seed, so every process holds the
+    same numbers."""
+    g = torch.Generator().manual_seed(17)
+    return [torch.randn(1, cp * PG_S_LOCAL, n, PG_D, generator=g).to(torch.bfloat16)
+            for n in (PG_H, PG_KH, PG_KH, PG_H)]
+
+
+def _pg_ring_step(torch, ring, q, k, v, do):
+    qq, kk, vv = (x.clone().requires_grad_() for x in (q, k, v))
+    out = ring(qq, kk, vv)
+    return out.detach(), torch.autograd.grad(out, (qq, kk, vv), do)
+
+
+def _pg_ring_rank(out_dir: str) -> None:
+    """One rank of the process-group ring: its shard on card RANK, kv bundles passed with
+    batch_isend_irecv over NCCL; writes its output, gradients and time to out_dir."""
+    import torch
+    import torch.distributed as dist
+
+    from automodel_tpu_torch.parallel.init import initialize_distributed
+    from automodel_tpu_torch.parallel.ring_attention import (ProcessGroupRotation,
+                                                             ring_attention_local)
+
+    info = initialize_distributed(device="cuda", timeout_s=120)
+    rank, cp = info.rank, info.world_size
+    sl = slice(rank * PG_S_LOCAL, (rank + 1) * PG_S_LOCAL)
+    q, k, v, do = (x[:, sl].cuda() for x in _pg_inputs(torch, cp))
+    pos = torch.arange(sl.start, sl.stop, dtype=torch.int32, device="cuda")[None]
+    rot = ProcessGroupRotation()
+
+    def ring(a, b, c):
+        return ring_attention_local(a, b, c, pos, pos, rotation=rot)
+
+    out, grads = _pg_ring_step(torch, ring, q, k, v, do)
+    times = []
+    for _ in range(3):
+        dist.barrier()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        _pg_ring_step(torch, ring, q, k, v, do)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    torch.save({"out": out.cpu(), "grads": [g.cpu() for g in grads],
+                "ms": sorted(times)[1]}, os.path.join(out_dir, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def _pg_ring_phase(torch, nproc: int) -> dict:
+    """The process-group ring over ``nproc`` cards (one process each, NCCL) against the
+    fold of the same ring on card 0: outputs and gradients, and the forward + backward
+    time of each."""
+    import socket
+
+    from automodel_tpu_torch.parallel.mesh import MeshContext
+    from automodel_tpu_torch.parallel.ring_attention import make_ring_attention
+
+    if torch.cuda.device_count() < nproc:
+        raise RuntimeError(f"--cp-processes {nproc} needs {nproc} cards, found "
+                           f"{torch.cuda.device_count()}")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    with tempfile.TemporaryDirectory() as out_dir:
+        code = (f"import sys; sys.path.insert(0, {HERE!r}); import chip_smoke; "
+                f"chip_smoke._pg_ring_rank({out_dir!r})")
+        procs, logs = [], []
+        for rank in range(nproc):
+            env = dict(os.environ, RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(nproc),
+                       MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+            procs.append(subprocess.Popen([sys.executable, "-c", code], env=env,
+                                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=600)[0].decode(errors="replace"))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        if any(p.returncode != 0 for p in procs):
+            raise AssertionError("process-group ring failed:\n" + "\n".join(logs))
+        ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt")) for r in range(nproc)]
+
+    q, k, v, do = (x.cuda() for x in _pg_inputs(torch, nproc))
+    pos = torch.arange(q.shape[1], dtype=torch.int32, device="cuda")[None]
+    fold = make_ring_attention(MeshContext(cp=nproc))
+
+    def ring(a, b, c):
+        return fold(a, b, c, pos)
+
+    out, grads = _pg_ring_step(torch, ring, q, k, v, do)
+    fold_ms = _time_ms(torch, lambda: _pg_ring_step(torch, ring, q, k, v, do), warmup=1, reps=3)
+    err_out, rel = 0.0, 0.0
+    for r, got in enumerate(ranks):
+        sl = slice(r * PG_S_LOCAL, (r + 1) * PG_S_LOCAL)
+        err_out = max(err_out, (got["out"].cuda().float() - out[:, sl].float()).abs().max().item())
+        rel = max(rel, *(_rel_l2(g.cuda(), w[:, sl]) for g, w in zip(got["grads"], grads)))
+    pg_ms = max(got["ms"] for got in ranks)
+    print(f"process-group ring: {nproc} processes on {nproc} cards (NCCL batch_isend_irecv), "
+          f"B=1 S={nproc * PG_S_LOCAL} (S_local {PG_S_LOCAL}) H={PG_H} KH={PG_KH} D={PG_D} "
+          f"causal, against the fold of the same ring on one card: O max abs {err_out:.3e} "
+          f"(tol {TOL_PG_OUT}), grad rel L2 {rel:.3e} (tol {TOL_PG_GRAD}); forward + backward "
+          f"{pg_ms:.3f} ms (slowest rank) against {fold_ms:.3f} ms folded on one card",
+          flush=True)
+    if not (err_out <= TOL_PG_OUT and rel <= TOL_PG_GRAD):
+        raise AssertionError("the process-group ring disagrees with the fold")
+    return {"processes": nproc, "S": nproc * PG_S_LOCAL, "max_abs_err_out": err_out,
+            "grad_rel_l2": rel, "pg_ms": pg_ms, "fold_ms": fold_ms}
+
+
 def _router_group_sizes(torch, tokens, d, e, k, seed=0):
     """(E,) int32 rows per expert from a softmax top-k router on random weights: the
     router's (T, D) x (D, E) product at init scale, as the MoE layer routes."""
@@ -441,8 +861,9 @@ def _model_check(torch):
 
 def _counters():
     from automodel_tpu_torch.ops import flash_attention as fa, grouped_gemm as gg, linear_ce as lce
+    from automodel_tpu_torch.ops import ring_chunk as rc
 
-    return fa.LAUNCHES, lce.LAUNCHES, gg.LAUNCHES
+    return fa.LAUNCHES, lce.LAUNCHES, gg.LAUNCHES, rc.LAUNCHES
 
 
 def _reset_counts():
@@ -465,17 +886,43 @@ def _release():
     torch.cuda.empty_cache()
 
 
-def _expected(layers, micro, steps, linear_ce, moe=False):
+def _expected(layers, micro, steps, linear_ce, moe=False, ring_cp=1):
     """Launches of each kernel in a run, n = layers x microbatches x steps.
 
     flash_fwd 2n (the forward, and once more when each layer's checkpoint replays it),
     flash_bwd n; lce_fwd and lce_bwd once a microbatch with linear_ce; an MoE layer's
     two expert GEMMs (gate_up, down) each launch gmm three times (the forward, the
-    replay, dX) and tgmm once (dW): gmm 6n, tgmm 2n."""
+    replay, dX) and tgmm once (dW): gmm 6n, tgmm 2n. With ring attention over cp > 1
+    (``ring_cp``) the ring kernels take flash's place, once per ring step: ring_fwd
+    2n x cp, ring_bwd n x cp."""
     n = layers * micro * steps
     lce_n = micro * steps if linear_ce else 0
-    return {"flash_fwd": 2 * n, "flash_bwd": n, "lce_fwd": lce_n, "lce_bwd": lce_n,
-            "gmm": 6 * n if moe else 0, "tgmm": 2 * n if moe else 0}
+    ring = ring_cp > 1
+    return {"flash_fwd": 0 if ring else 2 * n, "flash_bwd": 0 if ring else n,
+            "lce_fwd": lce_n, "lce_bwd": lce_n,
+            "gmm": 6 * n if moe else 0, "tgmm": 2 * n if moe else 0,
+            "ring_fwd": 2 * n * ring_cp if ring else 0, "ring_bwd": n * ring_cp if ring else 0}
+
+
+def _ring_cp(cfg) -> int:
+    """The cp of a config whose attention runs the ring, else 1."""
+    if cfg.get("backend.context_parallel", "allgather") != "ring":
+        return 1
+    return int(cfg.get("distributed.cp", 1) or 1)
+
+
+def random_init_loss(vocab: int, hidden: int, std: float) -> float:
+    """The cross entropy of random labels under random weights: the logits of the normed
+    hidden state through W ~ N(0, std^2) have variance hidden * std^2, so the loss is
+    about ln(vocab) + hidden * std^2 / 2 (0.41 over ln(vocab) at hidden 2048, 0.82 at
+    4096)."""
+    return math.log(vocab) + hidden * std**2 / 2
+
+
+def _shown(yaml: str) -> str:
+    """A config's path for the log: relative to the checkout, or the derived file's name."""
+    rel = os.path.relpath(yaml, HERE)
+    return os.path.basename(yaml) if rel.startswith("..") else rel
 
 
 def _bench_path(name, yaml, linear_ce, overrides=()):
@@ -495,18 +942,21 @@ def _bench_path(name, yaml, linear_ce, overrides=()):
         launches = _read_counts()
     vocab = int(cfg.model.config.vocab_size)
     want = _expected(layers, micro, WARMUP + TIMED, linear_ce,
-                     moe=bool(cfg.model.config.get("num_experts")))
-    print(f"{name}: benchmark recipe on {os.path.relpath(yaml, HERE)} ({layers} layers, "
+                     moe=bool(cfg.model.config.get("num_experts")), ring_cp=_ring_cp(cfg))
+    print(f"{name}: benchmark recipe on {_shown(yaml)} ({layers} layers, "
           f"{micro} microbatch, mb {cfg.micro_batch_size}, seq {cfg.seq_len}, loss "
           f"{cfg.get('loss.name')}, tied {cfg.model.config.get('tie_word_embeddings')}), {WARMUP} warmup + {TIMED} timed steps: "
           f"{result['tokens_per_sec']:.1f} tokens/s, step {result['step_time_s'] * 1e3:.1f} ms, "
           f"MFU {result['mfu']}, peak memory {result['peak_memory_gib']} GiB, losses "
           f"{result['losses']}, launches {launches} (expected {want})", flush=True)
-    ln_vocab = math.log(vocab)
+    hidden = int(cfg.model.config.hidden_size)
+    std = float(cfg.model.config.get("initializer_range", 0.02))
+    want_loss = random_init_loss(vocab, hidden, std)
     if not all(math.isfinite(x) for x in result["losses"]):
         raise AssertionError(f"non-finite loss on {name}")
-    if abs(result["loss"] - ln_vocab) > 0.5:
-        raise AssertionError(f"{name}: loss {result['loss']} is not within 0.5 of ln({vocab})")
+    if abs(result["loss"] - want_loss) > 0.5:
+        raise AssertionError(f"{name}: loss {result['loss']} is not within 0.5 of "
+                             f"ln({vocab}) + {hidden} * {std}^2 / 2 = {want_loss:.3f}")
     if launches != want:
         raise AssertionError(f"{name}: kernel launches {launches} != expected {want}")
     return launches, result["losses"]
@@ -524,7 +974,8 @@ def _train_ft_path(name, yaml, overrides):
         cfg = parse_args_and_load_config([
             "-c", yaml, *overrides, "--step_scheduler.max_steps", str(TRAIN_FT_STEPS),
             "--checkpoint.enabled", "false", "--output_dir", out_dir])
-        cfg.loss._data.pop("name", None)  # the default rule picks the loss
+        if cfg.get("loss") is not None:
+            cfg.loss._data.pop("name", None)  # the default rule picks the loss
         _reset_counts()
         recipe = train_ft.main(cfg=cfg)
         launches = _read_counts()
@@ -533,10 +984,10 @@ def _train_ft_path(name, yaml, overrides):
     layers = int(cfg.model.config.num_hidden_layers)
     micro = int(cfg.get("step_scheduler.grad_acc_steps", 1))
     moe = bool(cfg.model.config.get("num_experts"))
-    want = _expected(layers, micro, TRAIN_FT_STEPS, True, moe)
+    want = _expected(layers, micro, TRAIN_FT_STEPS, True, moe, ring_cp=_ring_cp(cfg))
     losses = [r["loss"] for r in rows]
     moe_rows = [sorted(k for k in r if k.startswith("moe_load/")) for r in rows]
-    print(f"{name}: train_ft on {os.path.relpath(yaml, HERE)} ({layers} layers), default loss "
+    print(f"{name}: train_ft on {_shown(yaml)} ({layers} layers), default loss "
           f"{recipe.loss_name}, packed rows of {recipe.seq_len}, {len(rows)} training.jsonl "
           f"rows: losses {losses}, step times {[r['step_time_s'] for r in rows]} s, "
           f"moe_load rows {len(moe_rows[0]) if moe_rows else 0} keys, launches {launches} "
@@ -737,7 +1188,7 @@ def _lce_memory(torch):
     return extra
 
 
-def main() -> int:
+def main(argv: list[str]) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -762,6 +1213,16 @@ def main() -> int:
     for source, log in build.BUILD_LOGS.items():
         for line in _ptxas_report(log):
             print(f"  {source}: {line}")
+    if argv:  # --cp-processes N: the process-group ring across N cards, and nothing else
+        if len(argv) != 2 or argv[0] != "--cp-processes":
+            print("usage: chip_smoke.py [--cp-processes N]", file=sys.stderr)
+            return 2
+        print(json.dumps({"process_group_ring": _pg_ring_phase(torch, int(argv[1]))}))
+        print(f"card: {_card_line()}")
+        print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                 "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}))
+        return 0
 
     errs = {"flash_fwd": 0.0, "flash_bwd": 0.0}
 
@@ -799,6 +1260,9 @@ def main() -> int:
     _lce_memory(torch)
     timings.update(_gmm_phase(torch, errs))
     _moe_model_check(torch)
+    _ring_phase(torch, errs)
+    timings.update(_ring_timings(torch))
+    _ring_model_check(torch)
 
     by_path, losses = {}, {}
     by_path["main path 1"], losses[1] = _bench_path("main path 1", BENCH_YAML, linear_ce=False)
@@ -820,19 +1284,31 @@ def main() -> int:
         "main path 6", MOE_YAML, [*qwen3_args(MOE_LAYERS_TRAIN_FT),
                                   "--packed_sequence.packed_sequence_size", "2048",
                                   "--dataset.seq_len", "500"])
+    with tempfile.TemporaryDirectory() as cfg_dir:
+        cp_yaml = cp_config(cfg_dir)
+        by_path["main path 7"], _ = _bench_path("main path 7", cp_yaml, linear_ce=True,
+                                                overrides=llama3_8b_args())
+        by_path["main path 8"] = _train_ft_path(
+            "main path 8", cp_yaml, [*llama3_8b_args(CP_LAYERS_TRAIN_FT),
+                                     "--packed_sequence.packed_sequence_size", "32768",
+                                     "--dataset.seq_len", "4096"])
 
     flash = "automodel_tpu/ops/pallas/flash_attention.py"
     lce_src = "automodel_tpu/ops/pallas/linear_ce.py"
     gmm_src = "automodel_tpu/ops/pallas/grouped_gemm.py"
+    ring_src = "automodel_tpu/ops/pallas/ring_chunk.py"
     replaces = {"flash_fwd": (f"{flash}:84", []),
                 "flash_bwd": (f"{flash}:192", [f"{flash}:151", f"{flash}:258"]),
                 "lce_fwd": (f"{lce_src}:105", []),
                 "lce_bwd": (f"{lce_src}:137", [f"{lce_src}:163"]),
                 "gmm": (f"{gmm_src}:126", []),
-                "tgmm": (f"{gmm_src}:151", [])}
+                "tgmm": (f"{gmm_src}:151", []),
+                "ring_fwd": (f"{ring_src}:110", []),
+                "ring_bwd": (f"{ring_src}:204", [])}
     sources = {"flash_fwd": "flash_attention.cu", "flash_bwd": "flash_attention.cu",
                "lce_fwd": "linear_ce.cu", "lce_bwd": "linear_ce.cu",
-               "gmm": "grouped_gemm.cu", "tgmm": "grouped_gemm.cu"}
+               "gmm": "grouped_gemm.cu", "tgmm": "grouped_gemm.cu",
+               "ring_fwd": "ring_chunk.cu", "ring_bwd": "ring_chunk.cu"}
     kernels = []
     for name in replaces:
         row = {"name": name, "route": "cuda",
@@ -853,4 +1329,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))
