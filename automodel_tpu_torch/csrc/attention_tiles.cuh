@@ -1,6 +1,7 @@
-// Tiles and tensor-core fragments shared by the attention kernels (flash_attention.cu,
-// ring_chunk.cu): mma.sync m16n8k16 bf16 with f32 accumulation, fragment loaders
-// from shared memory, a tile loader and quad reductions. Included once per source;
+// Tiles and tensor-core fragments of the ring kernels (ring_chunk.cu): mma.sync
+// m16n8k16 bf16 with f32 accumulation, fragment loaders from shared memory, a tile
+// loader and quad reductions; flash_attention.cu takes only the bf16 packing, NEG_INF
+// and the quad reductions (its tiles are in hopper.cuh). Included once per source;
 // everything sits in an anonymous namespace.
 
 #pragma once

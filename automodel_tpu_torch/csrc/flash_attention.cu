@@ -3,568 +3,722 @@
 // Replaces the Pallas kernels of automodel_tpu/ops/pallas/flash_attention.py:
 //   flash_fwd  <- _fwd_kernel (online-softmax forward, emits O and the logsumexp)
 //   flash_bwd  <- _dqdkv_kernel (fused dq+dk+dv backward from one s/p recompute),
-//                 and by function _dq_kernel + _dkv_kernel (the split backward
-//                 the TPU takes past its VMEM budget): here one kernel serves
-//                 every sequence length, since dk/dv live in registers per key
-//                 tile and dq goes to an f32 buffer by atomicAdd.
+//                 and by function _dq_kernel + _dkv_kernel (the split backward the
+//                 TPU takes past its VMEM budget): here one kernel serves every
+//                 sequence length, since dK/dV live in registers per key tile and dQ
+//                 is summed in an f32 buffer by bulk reduce-adds.
 //
 // Layouts: q/o (B, Sq, H, D), k/v (B, Skv, KH, D), bf16, contiguous; GQA maps q head
 // h to kv head h / (H / KH). lse and delta are (B*H, Sq) f32. Segment ids are
 // optional int32 (B, Sq) / (B, Skv). Masks: causal (absolute index q >= kv) and
-// segment equality, applied per element; key tiles past the causal limit are skipped.
-// A row with no allowed key gives O = 0 and lse = -1e30, as the TPU kernel's finalize.
+// segment equality. A row with no allowed key gives O = 0 and lse = -1e30, as the TPU
+// kernel's finalize.
 //
-// What bounds it. At the Llama-3.2-1B training shape (B=4, S=2048, H=32, KH=8,
-// D=64, causal) the forward does 4*B*H*S^2*D/2 = 68.7 GFLOP, 69 us at the
-// H100's 989 TFLOP/s dense bf16; the backward does 2.5x that (171.8 GFLOP, 174 us).
-// q/k/v/O traffic is ~85 MB, 25 us at 3.35 TB/s. Both kernels are compute-bound.
+// What bounds it. At the Llama-3.2-1B training shape (B=4, S=2048, H=32, KH=8, D=64,
+// causal) the forward does 4*B*H*S^2*D/2 = 68.7 GFLOP, 69 us at the H100's 989
+// TFLOP/s dense bf16; the backward 2.5x that (174 us). q/k/v/O traffic is ~85 MB, 25
+// us at 3.35 TB/s. At the Qwen3-30B-A3B shape (KH=4, D=128) the forward does 137.5
+// GFLOP (139 us) and the backward 348 us against 45 us of traffic. Both kernels are
+// bound by the tensor cores, so the design feeds wgmma from shared memory that TMA
+// fills in the background.
 //
-// At the Qwen3-30B-A3B training shape (B=4, S=2048, H=32, KH=4, D=128, causal) the
-// forward does 137.5 GFLOP (139 us) and the backward 343.7 GFLOP (348 us), against
-// 151 MB of q/k/v/O (45 us): bound by operations as at D=64.
-//
-// Design, simple first: blocks of 4 warps, 64 query rows (forward) or 64 keys
-// (backward) per block, 16 rows per warp. At D=128 the backward's per-warp dK/dV
-// for 16 keys x 128 columns would be 128 f32 accumulators a thread before any
-// fragment, so D=128 takes flash_bwd_kernel_dsplit instead: 8 warps, each with 16
-// keys x 64 columns of dK/dV (the head dim split across two warps), S/dP split 16
-// query rows x 32 keys a warp, dQ 16 query rows x 64 columns a warp. D=64 keeps the
-// 4-warp kernel. Tiles of 64 go through shared memory and
-// every product runs on the tensor cores as mma.sync m16n8k16 bf16 with f32
-// accumulation. P is rounded to bf16 before P.V (as the TPU kernel casts p to v's
-// dtype); the backward also rounds P and dS to bf16 for its three products.
-// What it leaves on the table: fragments are gathered from shared memory with
-// scalar loads (no ldmatrix), tiles are loaded synchronously (no cp.async/TMA
-// pipeline), no wgmma or warp specialisation, and dq goes through global atomics.
+// Design. Both kernels are warp-specialised: 3 warpgroups (384 threads) a block.
+// Warpgroup 0 gives up its registers (setmaxnreg.dec) and is the producer: one lane
+// issues the TMA loads of 128-byte-swizzled tiles (tensor maps over q, k, v, dO as they
+// lie, 3-d (B, S, heads*D), so rows past S read as zeros) into a ring of stages under
+// full/empty mbarriers, and the small per-row data (segment ids; in the backward lse
+// and delta, by cp.async from a second warp) lands beside them. Warpgroups 1 and 2
+// take the registers (setmaxnreg.inc) and compute:
+//   forward: a block owns 128 query rows (64 per consumer warpgroup) of one (b, h)
+//     and walks key tiles of 128. S = Q K^T is a wgmma with both operands in shared
+//     memory; the online softmax runs in registers in the log2 domain (log2(e) folded
+//     into the scale, one ex2 a score); P is rounded to bf16 in registers (as the TPU
+//     kernel casts p to v's dtype) and O += P V is a wgmma with P as the register A
+//     operand and V read through the transpose flag. The P.V of key tile i runs on the
+//     tensor cores while the softmax of tile i+1 runs. Blocks start with the heaviest
+//     causal q tiles.
+//   backward: a block owns 128 keys (64 per consumer warpgroup) of one (b, kv head)
+//     and walks the GQA group's q heads and the q tiles of 64 from the causal start,
+//     so dK and dV sum in registers. S^T = K Q^T and dP^T = V dO^T are shared-memory
+//     wgmmas whose accumulators are already the A layout of dV += P^T dO and dK +=
+//     dS^T Q (register A, transposed B). While those run, dS^T goes to shared memory
+//     (4-byte swizzled stores, two buffers); dQ = dS K is a wgmma per warpgroup over
+//     half of D, staged in swizzled shared memory and added into the f32 dq buffer by
+//     TMA reduce-adds of 32-column boxes (one or two a warpgroup and step) instead of
+//     per-element atomics.
+// Masks are applied only to tiles that cross the causal diagonal, the ragged end, or
+// a segment boundary (the test is in one place: tile_needs_mask); key tiles past the
+// causal limit are never loaded.
+// What it leaves on the table: the two consumer warpgroups are not scheduled in turns
+// (ping-pong), so their softmax and their wgmmas overlap only by chance; in the
+// backward each step waits for its own products (at D=128 the registers hold dK and dV
+// and leave no room to run a step ahead), and the two warpgroups meet at a barrier
+// every step to share dS; the epilogues store straight from registers.
+
+#include <climits>
 
 #include "attention_tiles.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int NUM_WARPS = 4;
-constexpr int NUM_THREADS = NUM_WARPS * 32;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+constexpr int THREADS = 384;   // producer warpgroup + 2 consumer warpgroups
+// registers a thread after setmaxnreg: 128 x producer + 256 x consumer may not pass the
+// 384 x 168 the block is launched with (65,536 / 384, rounded down to a multiple of 8),
+// or setmaxnreg.inc waits forever
+constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
+static_assert(128 * PRODUCER_REGS + 256 * CONSUMER_REGS <= 384 * 168, "setmaxnreg budget");
+constexpr int BOX = 64;        // bf16 columns of one 128-byte swizzled box
+constexpr int ROW_BYTES = 128;
+constexpr int SEG_PAD_Q = -1;  // segment ids of rows past Sq / keys past Skv
+constexpr int SEG_PAD_KV = -2;
 
-// load_tile_n for this file's 4-warp blocks.
-template <int D, int ROWS>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, size_t row_stride,
-                                          int row0, int nrows) {
-  load_tile_n<D, ROWS, NUM_THREADS>(dst, src, row_stride, row0, nrows);
+// The dynamic shared memory rounded up to 1024 bytes (the 128-byte swizzle's period).
+// Offsetting the __shared__ array itself keeps its address space visible to the
+// compiler, so the accesses through it stay shared-memory loads and stores.
+__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
 }
 
-template <int D>
-constexpr int fwd_smem_bytes() {
-  return (BLOCK_M + 2 * BLOCK_N) * (D + 8) * 2 + BLOCK_N * 4;
+// 2^x in one MUFU.EX2 (exp2f adds a range fix-up for results below 2^-126, which are
+// 0 here anyway); 2^-inf = 0.
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// grid (ceil(Sq / BLOCK_M), B * H); warp w owns query rows w*16 .. w*16+15 of the tile.
-template <int D>
-__global__ void __launch_bounds__(NUM_THREADS)
-flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, const int* __restrict__ seg_q,
-                 const int* __restrict__ seg_kv, bf16* __restrict__ o,
-                 float* __restrict__ lse, int Sq, int Skv, int H, int KH, float scale,
-                 int causal) {
-  constexpr int LD = D + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = sQ + BLOCK_M * LD;
-  bf16* sV = sK + BLOCK_N * LD;
-  int* sSegKv = reinterpret_cast<int*>(sV + BLOCK_N * LD);
+// A consumer warp is done with a stage: one arrival a warp (an mbarrier arrival is an
+// atomic on one shared word, so 256 of them a tile would serialise).
+__device__ __forceinline__ void release(uint64_t* bar, int lane) {
+  __syncwarp();
+  if (lane == 0) mbar_arrive(bar);
+}
 
-  const int q_start = blockIdx.x * BLOCK_M;
+// The one place where a tile decides whether it needs per-element masks: a tile of
+// query rows [q0, q0 + nq) and keys [k0, k0 + nk) is masked when it crosses the causal
+// diagonal, runs past Sq or Skv, or does not hold a single segment id on both sides
+// (q_id, k_id: the one id each side holds, or NO_ID).
+constexpr int NO_ID = INT_MIN;
+
+__device__ __forceinline__ int one_id(int lo, int hi) { return lo == hi ? lo : NO_ID; }
+
+__device__ __forceinline__ bool tile_needs_mask(int q0, int nq, int k0, int nk, int Sq, int Skv,
+                                                bool causal, bool segmented, int q_id, int k_id) {
+  if (causal && k0 + nk - 1 > q0) return true;
+  if (q0 + nq > Sq || k0 + nk > Skv) return true;
+  return segmented && !(q_id != NO_ID && q_id == k_id);
+}
+
+// Masks one accumulator tile, branch-free: register 4j + e holds row rows[e >> 1] and
+// column col0 + 8j + tc + (e & 1); a pair outside [0, row_end) x [0, col_end), above
+// the causal diagonal or across a segment boundary gets -inf. KEY_ROWS: the rows are
+// keys and the columns queries (the backward's S^T), else the reverse.
+template <bool KEY_ROWS, int N>
+__device__ __forceinline__ void mask_tile(float (&s)[N], const int (&rows)[2], int col0, int tc,
+                                          int row_end, int col_end, bool causal, bool segmented,
+                                          const int (&row_seg)[2], const int* col_seg) {
+#pragma unroll
+  for (int r = 0; r < N; ++r) {
+    const int i = (r >> 1) & 1;
+    const int c = 8 * (r / 4) + tc + (r & 1);
+    const int col = col0 + c;
+    bool ok = (rows[i] < row_end) & (col < col_end);
+    ok &= !causal | (KEY_ROWS ? col >= rows[i] : rows[i] >= col);
+    ok &= !segmented | (row_seg[i] == col_seg[c]);
+    s[r] = ok ? s[r] : -INFINITY;
+  }
+}
+
+// ------------------------------------------------------------------ forward
+
+template <int D>
+struct Fwd {
+  static constexpr int DIM = D;
+  static constexpr int BM = 128, BN = 128;
+  // K/V stages: 4 x 32 KB at D=64; 3 x 64 KB at D=128, with Q 32 KB just inside 227 KB
+  static constexpr int STAGES = D == 64 ? 4 : 3;
+  static constexpr int BOXES = D / BOX;
+  static constexpr int Q_BYTES = BM * D * 2, KV_BYTES = BN * D * 2;
+  static constexpr int K_OFF = Q_BYTES;
+  static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
+  static constexpr int SEG_OFF = V_OFF + STAGES * KV_BYTES;  // per stage: BN ids, one_id
+  static constexpr int SEG_STRIDE = BN + 1;
+  static constexpr int QSEG_OFF = SEG_OFF + STAGES * SEG_STRIDE * 4;  // 2 wgs x 4 warps x lo, hi
+  static constexpr int BAR_OFF = (QSEG_OFF + 2 * 4 * 2 * 4 + 7) / 8 * 8;
+  static constexpr int SMEM = BAR_OFF + (1 + 2 * STAGES) * 8 + 1024;  // + alignment slack
+};
+
+// O += P V for one key tile: P (64 rows x 128 keys) from registers, V (keys x D, D
+// contiguous) in shared memory through the transpose flag. The caller fences first.
+template <class C>
+__device__ __forceinline__ void pv_product(float (&acc)[C::DIM / 2],
+                                           const uint32_t (&pa)[C::BN / 16][4], uint32_t v_addr) {
+#pragma unroll
+  for (int kk = 0; kk < C::BN / 16; ++kk)
+    wgmma_rs<C::DIM, 1>(acc, pa[kk], desc_sw128(v_addr + kk * 16 * ROW_BYTES, C::BN * ROW_BYTES),
+                        1);
+}
+
+template <class C>
+__device__ __forceinline__ void fence_pa(uint32_t (&pa)[C::BN / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < C::BN / 16; ++kk) fence_regs(pa[kk]);
+}
+
+// grid (ceil(Sq / 128), B * H), 384 threads; block x takes q tile gridDim.x - 1 - x.
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv, const int* __restrict__ seg_q,
+                 const int* __restrict__ seg_kv, bf16* __restrict__ o, float* __restrict__ lse,
+                 int Sq, int Skv, int H, int KH, float scale_log2, int causal) {
+  using C = Fwd<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  int* sSeg = reinterpret_cast<int*>(smem + C::SEG_OFF);
+  int* sQSeg = reinterpret_cast<int*>(smem + C::QSEG_OFF);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + C::BAR_OFF);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + C::STAGES;
+
+  const int q_start = (gridDim.x - 1 - blockIdx.x) * C::BM;  // heaviest causal tiles first
   const int bh = blockIdx.y;
   const int b = bh / H, h = bh % H;
   const int kvh = h / (H / KH);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = (lane & 3) * 2;
+  const int kv_end = causal ? min(Skv, q_start + C::BM) : Skv;
+  const int n_tiles = (kv_end + C::BN - 1) / C::BN;
+  const bool segmented = seg_q != nullptr;
+  const int wg = threadIdx.x / 128;
 
-  const size_t q_stride = (size_t)H * D, kv_stride = (size_t)KH * D;
-  const bf16* q_base = q + ((size_t)b * Sq * H + h) * D;
-  const bf16* k_base = k + ((size_t)b * Skv * KH + kvh) * D;
-  const bf16* v_base = v + ((size_t)b * Skv * KH + kvh) * D;
-
-  load_tile<D, BLOCK_M>(sQ, q_base, q_stride, q_start, Sq);
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(&full[s], 1);   // the producer's lane 0, after the warp's row copies
+      mbar_init(&empty[s], 8);  // lane 0 of each consumer warp
+    }
+    fence_barrier_init();
+  }
   __syncthreads();
-  uint32_t qf[D / 16][4];
-#pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks) load_a_rows(qf[ks], sQ + warp * 16 * LD + ks * 16, LD, lane);
 
-  const int row[2] = {q_start + warp * 16 + g, q_start + warp * 16 + g + 8};
-  int segr[2] = {0, 0};
-  if (seg_q != nullptr) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) segr[i] = row[i] < Sq ? seg_q[(size_t)b * Sq + row[i]] : -1;
+  if (wg == 0) {
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x >= 32) return;
+    const int lane = threadIdx.x;
+    if (lane == 0) {
+      mbar_arrive_expect_tx(q_full, C::Q_BYTES);
+      for (int c = 0; c < C::BOXES; ++c)
+        tma_load_3d(smem + c * C::BM * ROW_BYTES, &tq, q_full, h * D + c * BOX, q_start, b);
+    }
+    for (int it = 0; it < n_tiles; ++it) {
+      const int stage = it % C::STAGES;
+      mbar_wait(&empty[stage], ((it / C::STAGES) & 1) ^ 1);
+      const int kv_start = it * C::BN;
+      if (segmented) {
+        int* ids = sSeg + stage * C::SEG_STRIDE;
+        int lo = INT_MAX, hi = INT_MIN;
+        for (int i = lane; i < C::BN; i += 32) {
+          const int id = kv_start + i < Skv ? seg_kv[(size_t)b * Skv + kv_start + i] : SEG_PAD_KV;
+          ids[i] = id;
+          lo = min(lo, id);
+          hi = max(hi, id);
+        }
+        lo = __reduce_min_sync(0xffffffffu, lo);
+        hi = __reduce_max_sync(0xffffffffu, hi);
+        if (lane == 0) ids[C::BN] = one_id(lo, hi);
+      }
+      __syncwarp();  // the lanes' row copies before lane 0's arrival (a release)
+      if (lane == 0) {
+        mbar_arrive_expect_tx(&full[stage], 2 * C::KV_BYTES);
+        unsigned char* sk = smem + C::K_OFF + stage * C::KV_BYTES;
+        unsigned char* sv = smem + C::V_OFF + stage * C::KV_BYTES;
+        for (int c = 0; c < C::BOXES; ++c) {
+          tma_load_3d(sk + c * C::BN * ROW_BYTES, &tk, &full[stage], kvh * D + c * BOX,
+                      kv_start, b);
+          tma_load_3d(sv + c * C::BN * ROW_BYTES, &tv, &full[stage], kvh * D + c * BOX,
+                      kv_start, b);
+        }
+      }
+    }
+    return;
   }
 
-  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
-  float acc[D / 8][4];
+  setmaxnreg_inc<CONSUMER_REGS>();
+  const int cw = wg - 1;  // consumer warpgroup: query rows cw*64 .. cw*64+63 of the tile
+  const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+  const int g = lane / 4, tc = (lane % 4) * 2;
+  const int q0 = q_start + cw * 64;
+  const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
+  int segr[2] = {0, 0}, q_id = NO_ID;
+  if (segmented) {
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-
-  const int kv_end = causal ? min(Skv, q_start + BLOCK_M) : Skv;
-  for (int kv_start = 0; kv_start < kv_end; kv_start += BLOCK_N) {
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile<D, BLOCK_N>(sK, k_base, kv_stride, kv_start, Skv);
-    load_tile<D, BLOCK_N>(sV, v_base, kv_stride, kv_start, Skv);
-    if (seg_kv != nullptr) {
-      for (int i = threadIdx.x; i < BLOCK_N; i += NUM_THREADS)
-        sSegKv[i] = kv_start + i < Skv ? seg_kv[(size_t)b * Skv + kv_start + i] : -2;
+    for (int i = 0; i < 2; ++i) segr[i] = row[i] < Sq ? seg_q[(size_t)b * Sq + row[i]] : SEG_PAD_Q;
+    const int lo = __reduce_min_sync(0xffffffffu, min(segr[0], segr[1]));
+    const int hi = __reduce_max_sync(0xffffffffu, max(segr[0], segr[1]));
+    if (lane == 0) sQSeg[(cw * 4 + warp) * 2] = lo, sQSeg[(cw * 4 + warp) * 2 + 1] = hi;
+    named_sync(1 + cw, 128);
+    int q_lo = INT_MAX, q_hi = INT_MIN;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      q_lo = min(q_lo, sQSeg[(cw * 4 + w) * 2]);
+      q_hi = max(q_hi, sQSeg[(cw * 4 + w) * 2 + 1]);
     }
-    __syncthreads();
+    q_id = one_id(q_lo, q_hi);
+  }
 
-    float s[BLOCK_N / 8][4];
+  const uint32_t q_addr = smem_u32(smem) + cw * 64 * ROW_BYTES;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float acc[D / 2];
 #pragma unroll
-    for (int n = 0; n < BLOCK_N / 8; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < D / 16; ++ks) {
-        uint32_t kb[2];
-        load_b_kcontig(kb, sK + n * 8 * LD + ks * 16, LD, lane);
-        mma(s[n], qf[ks], kb);
-      }
-    }
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
 
-    // scale + mask; allowed bits kept so fully masked rows give p = 0
-    uint32_t allowed = 0u;
-    float mx[2] = {NEG_INF, NEG_INF};
+  // Key tile `it`: S_it = Q K_it^T is issued together with O += P_{it-1} V_{it-1}, so
+  // the tensor cores run the previous tile's P.V while this tile's softmax runs. Tile 0
+  // is peeled off, so that every P.V and its wait sit in one block (ptxas serialises
+  // every wgmma of a kernel when it cannot pair them).
+  uint32_t pa[C::BN / 16][4];
+  float s[C::BN / 2];
+  int prev_stage = 0;
+
+  // S of tile `it` into s (the full barrier of its stage waited for)
+  auto issue_s = [&](int it) {
+    const uint32_t k_addr = smem_u32(smem + C::K_OFF + (it % C::STAGES) * C::KV_BYTES);
+    wgmma_fence();
 #pragma unroll
-    for (int n = 0; n < BLOCK_N / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e >> 1;
-        const int col = kv_start + n * 8 + t + (e & 1);
-        bool ok = col < Skv && (!causal || row[i] >= col);
-        if (seg_kv != nullptr) ok = ok && segr[i] == sSegKv[col - kv_start];
-        const float x = ok ? s[n][e] * scale : NEG_INF;
-        s[n][e] = x;
-        if (ok) allowed |= 1u << (n * 4 + e);
-        mx[i] = fmaxf(mx[i], x);
-      }
+    for (int ks = 0; ks < D / 16; ++ks) {
+      const uint32_t off = (ks / 4) * C::BM * ROW_BYTES + (ks % 4) * 32;
+      const uint32_t koff = (ks / 4) * C::BN * ROW_BYTES + (ks % 4) * 32;
+      wgmma_ss<C::BN, 0, 0>(s, desc_sw128(q_addr + off, 16), desc_sw128(k_addr + koff, 16), ks);
     }
-    float alpha[2];
+    wgmma_commit();
+  };
+  // mask, scale and exponentiate s in place (log2 domain); returns O's rescale factors
+  auto softmax = [&](int it, float (&alpha)[2]) {
+    const int stage = it % C::STAGES;
+    const int kv_start = it * C::BN;
+    const int* ids = sSeg + stage * C::SEG_STRIDE;
+    if (tile_needs_mask(q0, 64, kv_start, C::BN, Sq, Skv, causal, segmented, q_id,
+                        segmented ? ids[C::BN] : NO_ID))
+      mask_tile<false>(s, row, kv_start, tc, Sq, Skv, causal, segmented, segr, ids);
+    float mx[2] = {-INFINITY, -INFINITY};  // of the unscaled scores (the scale is > 0)
+#pragma unroll
+    for (int r = 0; r < C::BN / 2; ++r) mx[(r >> 1) & 1] = fmaxf(mx[(r >> 1) & 1], s[r]);
+    float m_use[2];
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      const float m_new = fmaxf(m[i], quad_max(mx[i]));
-      alpha[i] = expf(m[i] - m_new);
+      const float m_new = fmaxf(m[i], quad_max(mx[i]) * scale_log2);
+      m_use[i] = m_new == -INFINITY ? 0.f : m_new;  // a row with nothing allowed yet
+      alpha[i] = fast_exp2(m[i] - m_use[i]);
       m[i] = m_new;
     }
     float rs[2] = {0.f, 0.f};
 #pragma unroll
-    for (int n = 0; n < BLOCK_N / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e >> 1;
-        const float p = (allowed >> (n * 4 + e)) & 1u ? expf(s[n][e] - m[i]) : 0.f;
-        s[n][e] = p;
-        rs[i] += p;
-      }
+    for (int r = 0; r < C::BN / 2; ++r) {
+      s[r] = fast_exp2(fmaf(s[r], scale_log2, -m_use[(r >> 1) & 1]));
+      rs[(r >> 1) & 1] += s[r];
     }
 #pragma unroll
-    for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + quad_sum(rs[i]);
+    for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + rs[i];  // quad-partial; summed at the end
+  };
+  // O *= alpha, then P (s) rounded to bf16 as the A operand of P.V: registers 8kk..8kk+7
+  // are keys 16kk..16kk+15
+  auto rescale_and_pack = [&](const float (&alpha)[2]) {
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      acc[n][0] *= alpha[0];
-      acc[n][1] *= alpha[0];
-      acc[n][2] *= alpha[1];
-      acc[n][3] *= alpha[1];
+    for (int j = 0; j < D / 8; ++j) {
+      acc[4 * j] *= alpha[0];
+      acc[4 * j + 1] *= alpha[0];
+      acc[4 * j + 2] *= alpha[1];
+      acc[4 * j + 3] *= alpha[1];
     }
+#pragma unroll
+    for (int kk = 0; kk < C::BN / 16; ++kk) {
+#pragma unroll
+      for (int f = 0; f < 4; ++f) pa[kk][f] = pack_f32(s[8 * kk + 2 * f], s[8 * kk + 2 * f + 1]);
+    }
+  };
+  // O += P V with the V of `stage`, issued after a fence
+  auto issue_pv = [&](int stage) {
+    fence_regs(acc);
+    wgmma_fence();
+    pv_product<C>(acc, pa, smem_u32(smem + C::V_OFF + stage * C::KV_BYTES));
+    wgmma_commit();
+  };
 
-    // O += P V: the accumulator layout of two adjacent n8 tiles is the A layout of
-    // one k16 step, so P goes from registers straight into the product.
-#pragma unroll
-    for (int kk = 0; kk < BLOCK_N / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_f32(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_f32(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_f32(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_f32(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        uint32_t vb[2];
-        load_b_ncontig(vb, sV + kk * 16 * LD + n * 8, LD, lane);
-        mma(acc[n], pa, vb);
-      }
-    }
+  mbar_wait(q_full, 0);
+  if (n_tiles > 0) {
+    float alpha[2];
+    mbar_wait(&full[0], 0);
+    issue_s(0);
+    wgmma_wait<0>();
+    fence_regs(s);
+    softmax(0, alpha);
+    rescale_and_pack(alpha);
+  }
+  for (int it = 1; it < n_tiles; ++it) {
+    const int stage = it % C::STAGES;
+    float alpha[2];
+    mbar_wait(&full[stage], (it / C::STAGES) & 1);
+    issue_s(it);
+    issue_pv(prev_stage);
+    wgmma_wait<1>();  // S is done; the previous tile's P.V runs on
+    fence_regs(s);
+    softmax(it, alpha);
+    wgmma_wait<0>();  // P.V is done: its stage is free, O can be rescaled
+    fence_regs(acc);
+    fence_pa<C>(pa);
+    release(&empty[prev_stage], lane);
+    rescale_and_pack(alpha);
+    prev_stage = stage;
+  }
+  if (n_tiles > 0) {
+    issue_pv(prev_stage);
+    wgmma_wait<0>();
+    fence_regs(acc);
+    fence_pa<C>(pa);
+    release(&empty[prev_stage], lane);
   }
 
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
+    const float li = quad_sum(l[i]);
     if (row[i] >= Sq) continue;
-    const bool empty = l[i] == 0.f;
-    const float denom = empty ? 1.f : l[i];
-    bf16* orow = o + ((size_t)b * Sq + row[i]) * q_stride + (size_t)h * D;
+    const bool none = li == 0.f;
+    const float inv = none ? 0.f : 1.f / li;
+    bf16* orow = o + ((size_t)b * Sq + row[i]) * H * D + (size_t)h * D;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      *reinterpret_cast<uint32_t*>(orow + n * 8 + t) =
-          pack_f32(acc[n][2 * i] / denom, acc[n][2 * i + 1] / denom);
-    }
-    if ((lane & 3) == 0) lse[(size_t)bh * Sq + row[i]] = empty ? NEG_INF : m[i] + logf(denom);
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(orow + 8 * j + tc) =
+          pack_f32(acc[4 * j + 2 * i] * inv, acc[4 * j + 2 * i + 1] * inv);
+    if ((lane & 3) == 0)
+      lse[(size_t)bh * Sq + row[i]] = none ? NEG_INF : (m[i] + log2f(li)) * LN2;
   }
 }
 
+// ------------------------------------------------------------------ backward
+
 template <int D>
-constexpr int bwd_smem_bytes() {
-  return (2 * BLOCK_N + 2 * BLOCK_M) * (D + 8) * 2 + 2 * BLOCK_M * LDS * 2 +
-         (3 * BLOCK_M + BLOCK_N) * 4;
+struct Bwd {
+  static constexpr int BN = 128, BM = 64;  // keys a block (64 a consumer warpgroup), q rows a step
+  static constexpr int STAGES = 2;
+  static constexpr int BOXES = D / BOX;
+  static constexpr int DH = D / 2;  // dQ columns of one consumer warpgroup
+  static constexpr int KV_BYTES = BN * D * 2, QT_BYTES = BM * D * 2;
+  static constexpr int DS_BYTES = BN * BM * 2;   // dS^T (keys x q rows), one buffer
+  static constexpr int DQ_BYTES = BM * DH * 4;   // one warpgroup's staged dQ partial
+  static constexpr int K_OFF = 0, V_OFF = KV_BYTES;
+  static constexpr int Q_OFF = 2 * KV_BYTES;                   // per stage
+  static constexpr int DO_OFF = Q_OFF + STAGES * QT_BYTES;     // per stage
+  static constexpr int DS_OFF = DO_OFF + STAGES * QT_BYTES;    // 2 buffers
+  static constexpr int DQ_OFF = DS_OFF + 2 * DS_BYTES;         // 2 warpgroups
+  // per stage: lse, delta, q segment ids (BM each)
+  static constexpr int ROWS_STRIDE = 3 * BM;
+  static constexpr int ROWS_OFF = DQ_OFF + 2 * DQ_BYTES;
+  static constexpr int KSEG_OFF = ROWS_OFF + STAGES * ROWS_STRIDE * 4;  // the BN keys' ids
+  static constexpr int BAR_OFF = KSEG_OFF + BN * 4;
+  static constexpr int SMEM = BAR_OFF + (1 + 2 * STAGES) * 8 + 1024;
+};
+
+// Byte offset of bf16 element (r, c) in a 128-byte-swizzled tile of 64-column rows.
+__device__ __forceinline__ uint32_t swz_bf16(int r, int c) {
+  return r * ROW_BYTES + ((((c * 2) >> 4) ^ (r & 7)) << 4) + ((c * 2) & 15);
 }
 
-// grid (ceil(Skv / BLOCK_N), B * KH). Each block holds one K/V tile, loops over the
-// q heads of its GQA group and over the q tiles from the causal start, and owns its
-// dK/dV rows (warp w: keys w*16 .. w*16+15), so the group sum needs no second pass.
+// Byte offset of f32 element (r, c) in 128-byte-swizzled boxes of 32 columns, nrows rows each.
+__device__ __forceinline__ uint32_t swz_f32(int r, int c, int nrows) {
+  const int cb = c & 31;
+  return (c >> 5) * nrows * ROW_BYTES + r * ROW_BYTES + ((((cb * 4) >> 4) ^ (r & 7)) << 4) +
+         ((cb * 4) & 15);
+}
+
+// grid (ceil(Skv / 128), B * KH), 384 threads. Each block holds one 128-key K/V tile,
+// loops over the q heads of its GQA group and the q tiles from the causal start, and
+// owns its dK/dV rows (consumer warpgroup w: keys w*64 .. w*64+63), so the group sum
+// needs no second pass; dq (f32, zeroed by the caller) gets the dQ partials.
 template <int D>
-__global__ void __launch_bounds__(NUM_THREADS)
-flash_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, const int* __restrict__ seg_q,
-                 const int* __restrict__ seg_kv, const bf16* __restrict__ dout,
-                 const float* __restrict__ lse, const float* __restrict__ delta,
-                 float* __restrict__ dq, bf16* __restrict__ dk, bf16* __restrict__ dv,
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                 const __grid_constant__ CUtensorMap tdq, const int* __restrict__ seg_q,
+                 const int* __restrict__ seg_kv, const float* __restrict__ lse,
+                 const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv,
                  int Sq, int Skv, int H, int KH, float scale, int causal) {
-  constexpr int LD = D + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);
-  bf16* sV = sK + BLOCK_N * LD;
-  bf16* sQ = sV + BLOCK_N * LD;
-  bf16* sdO = sQ + BLOCK_M * LD;
-  bf16* sP = sdO + BLOCK_M * LD;
-  bf16* sdS = sP + BLOCK_M * LDS;
-  float* sLse = reinterpret_cast<float*>(sdS + BLOCK_M * LDS);
-  float* sDelta = sLse + BLOCK_M;
-  int* sSegQ = reinterpret_cast<int*>(sDelta + BLOCK_M);
-  int* sSegKv = sSegQ + BLOCK_M;
+  using C = Bwd<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  float* sRows = reinterpret_cast<float*>(smem + C::ROWS_OFF);
+  int* sKSeg = reinterpret_cast<int*>(smem + C::KSEG_OFF);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + C::BAR_OFF);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + C::STAGES;
 
-  const int kv_start = blockIdx.x * BLOCK_N;
+  const int kv_start = blockIdx.x * C::BN;
   const int b = blockIdx.y / KH, kvh = blockIdx.y % KH;
   const int groups = H / KH;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = (lane & 3) * 2;
+  const int m_first = causal ? kv_start / C::BM : 0;
   const bool segmented = seg_q != nullptr;
+  const int wg = threadIdx.x / 128;
 
-  const size_t q_stride = (size_t)H * D, kv_stride = (size_t)KH * D;
-  const bf16* k_base = k + ((size_t)b * Skv * KH + kvh) * D;
-  const bf16* v_base = v + ((size_t)b * Skv * KH + kvh) * D;
-  load_tile<D, BLOCK_N>(sK, k_base, kv_stride, kv_start, Skv);
-  load_tile<D, BLOCK_N>(sV, v_base, kv_stride, kv_start, Skv);
-  if (segmented) {
-    for (int i = threadIdx.x; i < BLOCK_N; i += NUM_THREADS)
-      sSegKv[i] = kv_start + i < Skv ? seg_kv[(size_t)b * Skv + kv_start + i] : -2;
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(&full[s], 33);  // the TMA warp's lane 0 and the row warp's 32 lanes
+      mbar_init(&empty[s], 8);
+    }
+    fence_barrier_init();
   }
+  __syncthreads();
 
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
-  }
-
-  const int m_first = causal ? kv_start / BLOCK_M : 0;
-  const int m_tiles = (Sq + BLOCK_M - 1) / BLOCK_M;
-  for (int hh = 0; hh < groups; ++hh) {
-    const int h = kvh * groups + hh;
-    const size_t bh = (size_t)b * H + h;
-    const bf16* q_base = q + ((size_t)b * Sq * H + h) * D;
-    const bf16* do_base = dout + ((size_t)b * Sq * H + h) * D;
-    for (int mt = m_first; mt < m_tiles; ++mt) {
-      const int q_start = mt * BLOCK_M;
-      __syncthreads();  // the previous tile's readers of sQ/sdO/sP/sdS are done
-      load_tile<D, BLOCK_M>(sQ, q_base, q_stride, q_start, Sq);
-      load_tile<D, BLOCK_M>(sdO, do_base, q_stride, q_start, Sq);
-      for (int i = threadIdx.x; i < BLOCK_M; i += NUM_THREADS) {
-        const bool in = q_start + i < Sq;
-        sLse[i] = in ? lse[bh * Sq + q_start + i] : 0.f;
-        sDelta[i] = in ? delta[bh * Sq + q_start + i] : 0.f;
-        if (segmented) sSegQ[i] = in ? seg_q[(size_t)b * Sq + q_start + i] : -1;
-      }
-      __syncthreads();
-
-      // S = Q K^T and dP = dO V^T for this warp's 16 query rows x 64 keys
-      float s[BLOCK_N / 8][4], dp[BLOCK_N / 8][4];
-      uint32_t qa[D / 16][4], da[D / 16][4];
-#pragma unroll
-      for (int ks = 0; ks < D / 16; ++ks) {
-        load_a_rows(qa[ks], sQ + warp * 16 * LD + ks * 16, LD, lane);
-        load_a_rows(da[ks], sdO + warp * 16 * LD + ks * 16, LD, lane);
-      }
-#pragma unroll
-      for (int n = 0; n < BLOCK_N / 8; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-        for (int ks = 0; ks < D / 16; ++ks) {
-          uint32_t kb[2], vb[2];
-          load_b_kcontig(kb, sK + n * 8 * LD + ks * 16, LD, lane);
-          load_b_kcontig(vb, sV + n * 8 * LD + ks * 16, LD, lane);
-          mma(s[n], qa[ks], kb);
-          mma(dp[n], da[ks], vb);
-        }
-      }
-
-      // P = exp(S * scale - lse), dS = P * (dP - delta); both to shared as bf16
-#pragma unroll
-      for (int n = 0; n < BLOCK_N / 8; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int lr = warp * 16 + g + (e >> 1) * 8;
-          const int lc = n * 8 + t + (e & 1);
-          const int r = q_start + lr, c = kv_start + lc;
-          bool ok = r < Sq && c < Skv && (!causal || r >= c);
-          if (segmented) ok = ok && sSegQ[lr] == sSegKv[lc];
-          const float p = ok ? expf(s[n][e] * scale - sLse[lr]) : 0.f;
-          const float ds = p * (dp[n][e] - sDelta[lr]);
-          sP[lr * LDS + lc] = __float2bfloat16(p);
-          sdS[lr * LDS + lc] = __float2bfloat16(ds);
-        }
-      }
-      __syncthreads();
-
-      // dV += P^T dO and dK += dS^T Q for this warp's 16 keys; reduction over q rows
-#pragma unroll
-      for (int kk = 0; kk < BLOCK_M / 16; ++kk) {
-        uint32_t pa[4], sa[4];
-        load_a_cols(pa, sP + kk * 16 * LDS + warp * 16, LDS, lane);
-        load_a_cols(sa, sdS + kk * 16 * LDS + warp * 16, LDS, lane);
-#pragma unroll
-        for (int n = 0; n < D / 8; ++n) {
-          uint32_t ob[2], qb[2];
-          load_b_ncontig(ob, sdO + kk * 16 * LD + n * 8, LD, lane);
-          load_b_ncontig(qb, sQ + kk * 16 * LD + n * 8, LD, lane);
-          mma(dv_acc[n], pa, ob);
-          mma(dk_acc[n], sa, qb);
-        }
-      }
-
-      // dQ += dS K for this warp's 16 query rows; summed across key tiles by atomics
-      float dq_part[D / 8][4];
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) dq_part[n][0] = dq_part[n][1] = dq_part[n][2] = dq_part[n][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < BLOCK_N / 16; ++kk) {
-        uint32_t sa[4];
-        load_a_rows(sa, sdS + warp * 16 * LDS + kk * 16, LDS, lane);
-#pragma unroll
-        for (int n = 0; n < D / 8; ++n) {
-          uint32_t kb[2];
-          load_b_ncontig(kb, sK + kk * 16 * LD + n * 8, LD, lane);
-          mma(dq_part[n], sa, kb);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int r = q_start + warp * 16 + g + i * 8;
-        if (r >= Sq) continue;
-        float* dq_row = dq + ((size_t)b * Sq + r) * q_stride + (size_t)h * D;
-#pragma unroll
-        for (int n = 0; n < D / 8; ++n) {
-          atomicAdd(dq_row + n * 8 + t, dq_part[n][2 * i] * scale);
-          atomicAdd(dq_row + n * 8 + t + 1, dq_part[n][2 * i + 1] * scale);
-        }
+  if (wg == 0) {
+    // producer warpgroup: warp 0 issues the TMA loads, warp 1 copies the rows (lse,
+    // delta, segment ids) of each q tile; both arrive on the stage's full barrier
+    setmaxnreg_dec<PRODUCER_REGS>();
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    if (warp > 1) return;
+    if (warp == 0 && lane == 0) {
+      mbar_arrive_expect_tx(kv_full, 2 * C::KV_BYTES);
+      for (int c = 0; c < C::BOXES; ++c) {
+        tma_load_3d(smem + C::K_OFF + c * C::BN * ROW_BYTES, &tk, kv_full, kvh * D + c * BOX,
+                    kv_start, b);
+        tma_load_3d(smem + C::V_OFF + c * C::BN * ROW_BYTES, &tv, kv_full, kvh * D + c * BOX,
+                    kv_start, b);
       }
     }
+    int stage = 0, phase = 1;  // the first pass over the stages finds them empty
+    for (int h = kvh * groups; h < (kvh + 1) * groups; ++h) {
+      for (int q_start = m_first * C::BM; q_start < Sq; q_start += C::BM) {
+        mbar_wait(&empty[stage], phase);
+        if (warp == 0) {
+          if (lane == 0) {
+            mbar_arrive_expect_tx(&full[stage], 2 * C::QT_BYTES);
+            unsigned char* sq = smem + C::Q_OFF + stage * C::QT_BYTES;
+            unsigned char* sdo = smem + C::DO_OFF + stage * C::QT_BYTES;
+            for (int c = 0; c < C::BOXES; ++c) {
+              tma_load_3d(sq + c * C::BM * ROW_BYTES, &tq, &full[stage], h * D + c * BOX,
+                          q_start, b);
+              tma_load_3d(sdo + c * C::BM * ROW_BYTES, &tdo, &full[stage], h * D + c * BOX,
+                          q_start, b);
+            }
+          }
+        } else {
+          // asynchronous 4-byte copies, no data through registers; past Sq they fill zeros
+          // (such rows are masked). Each lane's arrival counts when its copies land.
+          const size_t bh = (size_t)b * H + h;
+          float* rows = sRows + stage * C::ROWS_STRIDE;
+#pragma unroll
+          for (int j = 0; j < C::BM / 32; ++j) {
+            const int i = lane + 32 * j;
+            const int q = q_start + i;
+            const bool in = q < Sq;
+            cp_async_4(rows + i, lse + (in ? bh * Sq + q : 0), in);
+            cp_async_4(rows + C::BM + i, delta + (in ? bh * Sq + q : 0), in);
+            if (segmented)
+              cp_async_4(rows + 2 * C::BM + i, seg_q + (in ? (size_t)b * Sq + q : 0), in);
+          }
+          cp_async_arrive(&full[stage]);
+        }
+        if (++stage == C::STAGES) stage = 0, phase ^= 1;
+      }
+    }
+    return;
   }
+
+  setmaxnreg_inc<CONSUMER_REGS>();
+  const int cw = wg - 1;  // consumer warpgroup: keys cw*64 .. cw*64+63 of the tile
+  const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+  const int g = lane / 4, tc = (lane % 4) * 2;
+  const int k0 = kv_start + cw * 64;
+  const int krow = warp * 16 + g;  // this thread's keys: k0 + krow, k0 + krow + 8
+  // the segment ids of this warpgroup's keys wait in shared memory for masked tiles
+  // (registers are scarce at D=128); k_id is their one id, or NO_ID
+  int* kseg = sKSeg + cw * 64;
+  int k_id = NO_ID;
+  if (segmented) {
+    if (t < 64) kseg[t] = k0 + t < Skv ? seg_kv[(size_t)b * Skv + k0 + t] : SEG_PAD_KV;
+    named_sync(1 + cw, 128);
+    const int a = kseg[lane], c = kseg[lane + 32];
+    k_id = one_id(__reduce_min_sync(0xffffffffu, min(a, c)),
+                  __reduce_max_sync(0xffffffffu, max(a, c)));
+  }
+
+  const float scale_log2 = scale * LOG2E;
+  const uint32_t k_addr = smem_u32(smem + C::K_OFF), v_addr = smem_u32(smem + C::V_OFF);
+  float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+  mbar_wait(kv_full, 0);
+  int it = 0;  // steps so far: the stage ring and the dS buffers follow it
+  for (int h = kvh * groups; h < (kvh + 1) * groups; ++h)
+  for (int q_start = m_first * C::BM; q_start < Sq; q_start += C::BM, ++it) {
+    const int stage = it % C::STAGES;
+    mbar_wait(&full[stage], (it / C::STAGES) & 1);
+    const uint32_t q_addr = smem_u32(smem + C::Q_OFF + stage * C::QT_BYTES);
+    const uint32_t do_addr = smem_u32(smem + C::DO_OFF + stage * C::QT_BYTES);
+    const float* rows = sRows + stage * C::ROWS_STRIDE;
+    const int* ids = reinterpret_cast<const int*>(rows + 2 * C::BM);
+
+    // S^T = K Q^T and dP^T = V dO^T: this warpgroup's 64 keys x 64 q rows
+    float s[C::BM / 2], dp[C::BM / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks) {
+      const uint32_t aoff = (ks / 4) * C::BN * ROW_BYTES + cw * 64 * ROW_BYTES + (ks % 4) * 32;
+      const uint32_t boff = (ks / 4) * C::BM * ROW_BYTES + (ks % 4) * 32;
+      wgmma_ss<C::BM, 0, 0>(s, desc_sw128(k_addr + aoff, 16), desc_sw128(q_addr + boff, 16), ks);
+    }
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks) {
+      const uint32_t aoff = (ks / 4) * C::BN * ROW_BYTES + cw * 64 * ROW_BYTES + (ks % 4) * 32;
+      const uint32_t boff = (ks / 4) * C::BM * ROW_BYTES + (ks % 4) * 32;
+      wgmma_ss<C::BM, 0, 0>(dp, desc_sw128(v_addr + aoff, 16), desc_sw128(do_addr + boff, 16),
+                            ks);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // P^T = exp(S^T * scale - lse), dS^T = P^T * (dP^T - delta): bf16 A fragments of both
+    int q_id = NO_ID;  // the q tile's one segment id
+    if (segmented) {
+      const int a = ids[lane], c = ids[lane + 32];
+      q_id = one_id(__reduce_min_sync(0xffffffffu, min(a, c)),
+                    __reduce_max_sync(0xffffffffu, max(a, c)));
+    }
+    unsigned char* sds = smem + C::DS_OFF + (it & 1) * C::DS_BYTES;
+    if (tile_needs_mask(q_start, C::BM, k0, 64, Sq, Skv, causal, segmented, q_id, k_id)) {
+      const int keys[2] = {k0 + krow, k0 + krow + 8};
+      const int segk[2] = {kseg[krow], kseg[krow + 8]};
+      mask_tile<true>(s, keys, q_start, tc, Skv, Sq, causal, segmented, segk, ids);
+    }
+    uint32_t pa[C::BM / 16][4], sa[C::BM / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < C::BM / 16; ++kk) {
+      float p[8], ds[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int qc = 16 * kk + 8 * (e >> 2) + tc + (e & 1);  // q column within the tile
+        const int r = 8 * kk + e;                              // accumulator register
+        p[e] = fast_exp2(fmaf(s[r], scale_log2, -rows[qc] * LOG2E));
+        ds[e] = p[e] * (dp[r] - rows[C::BM + qc]);
+      }
+#pragma unroll
+      for (int f = 0; f < 4; ++f) {
+        pa[kk][f] = pack_f32(p[2 * f], p[2 * f + 1]);
+        sa[kk][f] = pack_f32(ds[2 * f], ds[2 * f + 1]);
+      }
+    }
+
+    // dV += P^T dO and dK += dS^T Q: register A, B (q rows x D, D contiguous) transposed
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < C::BM / 16; ++kk)
+      wgmma_rs<D, 1>(dv_acc, pa[kk], desc_sw128(do_addr + kk * 16 * ROW_BYTES, C::BM * ROW_BYTES),
+                     1);
+#pragma unroll
+    for (int kk = 0; kk < C::BM / 16; ++kk)
+      wgmma_rs<D, 1>(dk_acc, sa[kk], desc_sw128(q_addr + kk * 16 * ROW_BYTES, C::BM * ROW_BYTES),
+                     1);
+    wgmma_commit();
+    // while they run, dS^T to shared memory for dQ: sa[kk][f] holds key row
+    // krow + 8 * (f & 1), q columns 16kk + 8 * (f >> 1) + tc, +1
+#pragma unroll
+    for (int kk = 0; kk < C::BM / 16; ++kk) {
+#pragma unroll
+      for (int f = 0; f < 4; ++f)
+        *reinterpret_cast<uint32_t*>(sds + swz_bf16(cw * 64 + krow + 8 * (f & 1),
+                                                    16 * kk + 8 * (f >> 1) + tc)) = sa[kk][f];
+    }
+    fence_proxy_async();
+    named_sync(3, 256);  // both warpgroups' dS^T rows are in shared memory
+
+    // dQ[:, cw*DH ..] = dS K: A = dS (q rows x 128 keys) read from dS^T through the
+    // transpose flag, B = K (keys x D, D contiguous) transposed, this warpgroup's columns
+    float dq[C::DH / 2];
+    const uint32_t ds_addr = smem_u32(sds);
+    const uint32_t kcol = (D == 64) ? cw * C::DH * 2 : cw * C::BN * ROW_BYTES;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < C::BN / 16; ++kk)
+      wgmma_ss<C::DH, 1, 1>(dq, desc_sw128(ds_addr + kk * 16 * ROW_BYTES, C::BN * ROW_BYTES),
+                            desc_sw128(k_addr + kcol + kk * 16 * ROW_BYTES, C::BN * ROW_BYTES), kk);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dv_acc);
+    fence_regs(dk_acc);
+    fence_regs(dq);
+#pragma unroll
+    for (int kk = 0; kk < C::BM / 16; ++kk) {
+      fence_regs(pa[kk]);
+      fence_regs(sa[kk]);
+    }
+    release(&empty[stage], lane);  // Q and dO of this stage are read
+
+    // stage dQ * scale (swizzled f32 boxes of 32 columns) and add it into dq in one
+    // bulk reduce-add; the previous one must have finished reading the buffer
+    unsigned char* sdq = smem + C::DQ_OFF + cw * C::DQ_BYTES;
+    if (t == 0) bulk_wait_read();
+    named_sync(1 + cw, 128);
+#pragma unroll
+    for (int j = 0; j < C::DH / 8; ++j) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        *reinterpret_cast<float2*>(sdq + swz_f32(warp * 16 + g + 8 * i, 8 * j + tc, C::BM)) =
+            make_float2(dq[4 * j + 2 * i] * scale, dq[4 * j + 2 * i + 1] * scale);
+    }
+    fence_proxy_async();
+    named_sync(1 + cw, 128);
+    if (t == 0) {
+      for (int c = 0; c < C::DH / 32; ++c)
+        tma_reduce_add_3d(&tdq, sdq + c * C::BM * ROW_BYTES, h * D + cw * C::DH + c * 32, q_start,
+                          b);
+      bulk_commit();
+    }
+  }
+  if (t == 0) bulk_wait();
 
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int c = kv_start + warp * 16 + g + i * 8;
-    if (c >= Skv) continue;
-    const size_t off = ((size_t)b * Skv + c) * kv_stride + (size_t)kvh * D;
+    const int key = k0 + krow + 8 * i;
+    if (key >= Skv) continue;
+    const size_t off = ((size_t)b * Skv + key) * KH * D + (size_t)kvh * D;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      *reinterpret_cast<uint32_t*>(dk + off + n * 8 + t) =
-          pack_f32(dk_acc[n][2 * i] * scale, dk_acc[n][2 * i + 1] * scale);
-      *reinterpret_cast<uint32_t*>(dv + off + n * 8 + t) =
-          pack_f32(dv_acc[n][2 * i], dv_acc[n][2 * i + 1]);
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<uint32_t*>(dk + off + 8 * j + tc) =
+          pack_f32(dk_acc[4 * j + 2 * i] * scale, dk_acc[4 * j + 2 * i + 1] * scale);
+      *reinterpret_cast<uint32_t*>(dv + off + 8 * j + tc) =
+          pack_f32(dv_acc[4 * j + 2 * i], dv_acc[4 * j + 2 * i + 1]);
     }
   }
 }
 
-constexpr int DSPLIT_WARPS = 8;
-constexpr int DSPLIT_THREADS = DSPLIT_WARPS * 32;
-
-// flash_bwd_kernel for wide heads: the same work per block (one 64-key K/V tile, the
-// GQA group's q heads, the q tiles from the causal start) over 8 warps, so that no
-// warp holds more than 16 keys x D/2 columns of dK and dV. Warp w: S and dP for query
-// rows (w % 4) * 16 and keys (w / 4) * 32; dK/dV for keys (w % 4) * 16 and columns
-// (w / 4) * D/2; dQ for query rows (w % 4) * 16 and columns (w / 4) * D/2.
-template <int D>
-__global__ void __launch_bounds__(DSPLIT_THREADS)
-flash_bwd_kernel_dsplit(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v, const int* __restrict__ seg_q,
-                        const int* __restrict__ seg_kv, const bf16* __restrict__ dout,
-                        const float* __restrict__ lse, const float* __restrict__ delta,
-                        float* __restrict__ dq, bf16* __restrict__ dk, bf16* __restrict__ dv,
-                        int Sq, int Skv, int H, int KH, float scale, int causal) {
-  constexpr int LD = D + 8;
-  constexpr int DH = D / 2;  // columns of dK / dV / dQ per warp
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);
-  bf16* sV = sK + BLOCK_N * LD;
-  bf16* sQ = sV + BLOCK_N * LD;
-  bf16* sdO = sQ + BLOCK_M * LD;
-  bf16* sP = sdO + BLOCK_M * LD;
-  bf16* sdS = sP + BLOCK_M * LDS;
-  float* sLse = reinterpret_cast<float*>(sdS + BLOCK_M * LDS);
-  float* sDelta = sLse + BLOCK_M;
-  int* sSegQ = reinterpret_cast<int*>(sDelta + BLOCK_M);
-  int* sSegKv = sSegQ + BLOCK_M;
-
-  const int kv_start = blockIdx.x * BLOCK_N;
-  const int b = blockIdx.y / KH, kvh = blockIdx.y % KH;
-  const int groups = H / KH;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = (lane & 3) * 2;
-  const int r16 = (warp & 3) * 16;         // this warp's 16 query rows, or 16 keys
-  const int c32 = (warp >> 2) * 32;        // its 32 keys of S / dP
-  const int dcol = (warp >> 2) * DH;       // its D/2 columns of dK / dV / dQ
-  const bool segmented = seg_q != nullptr;
-
-  const size_t q_stride = (size_t)H * D, kv_stride = (size_t)KH * D;
-  const bf16* k_base = k + ((size_t)b * Skv * KH + kvh) * D;
-  const bf16* v_base = v + ((size_t)b * Skv * KH + kvh) * D;
-  load_tile_n<D, BLOCK_N, DSPLIT_THREADS>(sK, k_base, kv_stride, kv_start, Skv);
-  load_tile_n<D, BLOCK_N, DSPLIT_THREADS>(sV, v_base, kv_stride, kv_start, Skv);
-  if (segmented) {
-    for (int i = threadIdx.x; i < BLOCK_N; i += DSPLIT_THREADS)
-      sSegKv[i] = kv_start + i < Skv ? seg_kv[(size_t)b * Skv + kv_start + i] : -2;
-  }
-
-  float dk_acc[DH / 8][4], dv_acc[DH / 8][4];
-#pragma unroll
-  for (int n = 0; n < DH / 8; ++n) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
-  }
-
-  const int m_first = causal ? kv_start / BLOCK_M : 0;
-  const int m_tiles = (Sq + BLOCK_M - 1) / BLOCK_M;
-  for (int hh = 0; hh < groups; ++hh) {
-    const int h = kvh * groups + hh;
-    const size_t bh = (size_t)b * H + h;
-    const bf16* q_base = q + ((size_t)b * Sq * H + h) * D;
-    const bf16* do_base = dout + ((size_t)b * Sq * H + h) * D;
-    for (int mt = m_first; mt < m_tiles; ++mt) {
-      const int q_start = mt * BLOCK_M;
-      __syncthreads();  // the previous tile's readers of sQ/sdO/sP/sdS are done
-      load_tile_n<D, BLOCK_M, DSPLIT_THREADS>(sQ, q_base, q_stride, q_start, Sq);
-      load_tile_n<D, BLOCK_M, DSPLIT_THREADS>(sdO, do_base, q_stride, q_start, Sq);
-      for (int i = threadIdx.x; i < BLOCK_M; i += DSPLIT_THREADS) {
-        const bool in = q_start + i < Sq;
-        sLse[i] = in ? lse[bh * Sq + q_start + i] : 0.f;
-        sDelta[i] = in ? delta[bh * Sq + q_start + i] : 0.f;
-        if (segmented) sSegQ[i] = in ? seg_q[(size_t)b * Sq + q_start + i] : -1;
-      }
-      __syncthreads();
-
-      // S = Q K^T and dP = dO V^T for 16 query rows x 32 keys
-      float s[4][4], dp[4][4];
-#pragma unroll
-      for (int n = 0; n < 4; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-      }
-#pragma unroll
-      for (int ks = 0; ks < D / 16; ++ks) {
-        uint32_t qa[4], da[4];
-        load_a_rows(qa, sQ + r16 * LD + ks * 16, LD, lane);
-        load_a_rows(da, sdO + r16 * LD + ks * 16, LD, lane);
-#pragma unroll
-        for (int n = 0; n < 4; ++n) {
-          uint32_t kb[2], vb[2];
-          load_b_kcontig(kb, sK + (c32 + n * 8) * LD + ks * 16, LD, lane);
-          load_b_kcontig(vb, sV + (c32 + n * 8) * LD + ks * 16, LD, lane);
-          mma(s[n], qa, kb);
-          mma(dp[n], da, vb);
-        }
-      }
-
-      // P = exp(S * scale - lse), dS = P * (dP - delta); both to shared as bf16
-#pragma unroll
-      for (int n = 0; n < 4; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int lr = r16 + g + (e >> 1) * 8;
-          const int lc = c32 + n * 8 + t + (e & 1);
-          const int r = q_start + lr, c = kv_start + lc;
-          bool ok = r < Sq && c < Skv && (!causal || r >= c);
-          if (segmented) ok = ok && sSegQ[lr] == sSegKv[lc];
-          const float p = ok ? expf(s[n][e] * scale - sLse[lr]) : 0.f;
-          const float ds = p * (dp[n][e] - sDelta[lr]);
-          sP[lr * LDS + lc] = __float2bfloat16(p);
-          sdS[lr * LDS + lc] = __float2bfloat16(ds);
-        }
-      }
-      __syncthreads();
-
-      // dV += P^T dO and dK += dS^T Q for 16 keys x D/2 columns
-#pragma unroll
-      for (int kk = 0; kk < BLOCK_M / 16; ++kk) {
-        uint32_t pa[4], sa[4];
-        load_a_cols(pa, sP + kk * 16 * LDS + r16, LDS, lane);
-        load_a_cols(sa, sdS + kk * 16 * LDS + r16, LDS, lane);
-#pragma unroll
-        for (int n = 0; n < DH / 8; ++n) {
-          uint32_t ob[2], qb[2];
-          load_b_ncontig(ob, sdO + kk * 16 * LD + dcol + n * 8, LD, lane);
-          load_b_ncontig(qb, sQ + kk * 16 * LD + dcol + n * 8, LD, lane);
-          mma(dv_acc[n], pa, ob);
-          mma(dk_acc[n], sa, qb);
-        }
-      }
-
-      // dQ += dS K for 16 query rows x D/2 columns; summed across key tiles by atomics
-      float dq_part[DH / 8][4];
-#pragma unroll
-      for (int n = 0; n < DH / 8; ++n) dq_part[n][0] = dq_part[n][1] = dq_part[n][2] = dq_part[n][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < BLOCK_N / 16; ++kk) {
-        uint32_t sa[4];
-        load_a_rows(sa, sdS + r16 * LDS + kk * 16, LDS, lane);
-#pragma unroll
-        for (int n = 0; n < DH / 8; ++n) {
-          uint32_t kb[2];
-          load_b_ncontig(kb, sK + kk * 16 * LD + dcol + n * 8, LD, lane);
-          mma(dq_part[n], sa, kb);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int r = q_start + r16 + g + i * 8;
-        if (r >= Sq) continue;
-        float* dq_row = dq + ((size_t)b * Sq + r) * q_stride + (size_t)h * D + dcol;
-#pragma unroll
-        for (int n = 0; n < DH / 8; ++n) {
-          atomicAdd(dq_row + n * 8 + t, dq_part[n][2 * i] * scale);
-          atomicAdd(dq_row + n * 8 + t + 1, dq_part[n][2 * i + 1] * scale);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int c = kv_start + r16 + g + i * 8;
-    if (c >= Skv) continue;
-    const size_t off = ((size_t)b * Skv + c) * kv_stride + (size_t)kvh * D + dcol;
-#pragma unroll
-    for (int n = 0; n < DH / 8; ++n) {
-      *reinterpret_cast<uint32_t*>(dk + off + n * 8 + t) =
-          pack_f32(dk_acc[n][2 * i] * scale, dk_acc[n][2 * i + 1] * scale);
-      *reinterpret_cast<uint32_t*>(dv + off + n * 8 + t) =
-          pack_f32(dv_acc[n][2 * i], dv_acc[n][2 * i + 1]);
-    }
-  }
+// Tensor maps over a (B, S, heads, D) bf16 tensor as (B, S, heads*D), boxes of 64
+// columns x `rows` rows.
+inline cudaError_t bf16_map(CUtensorMap* map, const void* p, int B, int S, int heads, int D,
+                            int rows) {
+  return make_map_3d(map, p, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, (uint64_t)heads * D, S, B, BOX,
+                     rows);
 }
 
 template <int D>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, const int* seg_q,
-                       const int* seg_kv, void* o, float* lse, int B, int Sq, int Skv,
-                       int H, int KH, float scale, int causal, cudaStream_t stream) {
-  constexpr int smem = fwd_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+                       const int* seg_kv, void* o, float* lse, int B, int Sq, int Skv, int H,
+                       int KH, float scale, int causal, cudaStream_t stream) {
+  using C = Fwd<D>;
+  CUtensorMap tq, tk, tv;
+  cudaError_t err = bf16_map(&tq, q, B, Sq, H, D, C::BM);
+  if (err == cudaSuccess) err = bf16_map(&tk, k, B, Skv, KH, D, C::BN);
+  if (err == cudaSuccess) err = bf16_map(&tv, v, B, Skv, KH, D, C::BN);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               C::SMEM);
   if (err != cudaSuccess) return err;
-  dim3 grid((Sq + BLOCK_M - 1) / BLOCK_M, B * H);
-  flash_fwd_kernel<D><<<grid, NUM_THREADS, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      seg_q, seg_kv, static_cast<bf16*>(o), lse, Sq, Skv, H, KH, scale, causal);
+  dim3 grid((Sq + C::BM - 1) / C::BM, B * H);
+  flash_fwd_kernel<D><<<grid, THREADS, C::SMEM, stream>>>(
+      tq, tk, tv, seg_q, seg_kv, static_cast<bf16*>(o), lse, Sq, Skv, H, KH, scale * LOG2E,
+      causal);
   return cudaGetLastError();
 }
 
@@ -574,27 +728,23 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const int* s
                        const float* delta, float* dq, void* dk, void* dv, int B, int Sq,
                        int Skv, int H, int KH, float scale, int causal,
                        cudaStream_t stream) {
-  constexpr int smem = bwd_smem_bytes<D>();
-  // D > 64 takes the 8-warp kernel (see flash_bwd_kernel_dsplit); only one is built per D
-  void (*kernel)(const bf16*, const bf16*, const bf16*, const int*, const int*, const bf16*,
-                 const float*, const float*, float*, bf16*, bf16*, int, int, int, int, float,
-                 int);
-  int threads;
-  if constexpr (D > 64) {
-    kernel = flash_bwd_kernel_dsplit<D>;
-    threads = DSPLIT_THREADS;
-  } else {
-    kernel = flash_bwd_kernel<D>;
-    threads = NUM_THREADS;
-  }
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         smem);
+  using C = Bwd<D>;
+  CUtensorMap tq, tk, tv, tdo, tdq;
+  cudaError_t err = bf16_map(&tq, q, B, Sq, H, D, C::BM);
+  if (err == cudaSuccess) err = bf16_map(&tdo, dout, B, Sq, H, D, C::BM);
+  if (err == cudaSuccess) err = bf16_map(&tk, k, B, Skv, KH, D, C::BN);
+  if (err == cudaSuccess) err = bf16_map(&tv, v, B, Skv, KH, D, C::BN);
+  if (err == cudaSuccess)  // f32 boxes of 32 columns (128 bytes) x 64 rows
+    err = make_map_3d(&tdq, dq, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, (uint64_t)H * D, Sq, B, 32,
+                      C::BM);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(flash_bwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               C::SMEM);
   if (err != cudaSuccess) return err;
-  dim3 grid((Skv + BLOCK_N - 1) / BLOCK_N, B * KH);
-  kernel<<<grid, threads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      seg_q, seg_kv, static_cast<const bf16*>(dout), lse, delta, dq,
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), Sq, Skv, H, KH, scale, causal);
+  dim3 grid((Skv + C::BN - 1) / C::BN, B * KH);
+  flash_bwd_kernel<D><<<grid, THREADS, C::SMEM, stream>>>(
+      tq, tk, tv, tdo, tdq, seg_q, seg_kv, lse, delta, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), Sq, Skv, H, KH, scale, causal);
   return cudaGetLastError();
 }
 
@@ -602,7 +752,7 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const int* s
 
 // Plain C entry points (bound with ctypes). Each returns a cudaError_t; the caller
 // checks inputs (bf16, contiguous, 16-byte aligned, D in {64, 128}, H % KH == 0)
-// beforehand.
+// beforehand, and zeroes dq.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, const int* seg_q,
                          const int* seg_kv, void* o, float* lse, int B, int Sq, int Skv,
                          int H, int KH, int D, float scale, int causal, void* stream) {

@@ -38,6 +38,8 @@ class BackendConfig:
     attention_segments: pass segment ids into the attention mask (False is the fast
                         path for right-padded unpacked batches, as in JAX)
     context_parallel:   "allgather" | "ring" (see the module docstring)
+    linear:             "default" | "fp8"; the recipes refuse "fp8" until its slice
+                        lands
     remat_policy:       one of REMAT_POLICIES (see the module docstring)
     scan_layers:        layout-only, accepted and ignored
     dtype:              activation and compute dtype
@@ -45,6 +47,8 @@ class BackendConfig:
                         kernels on the card, its plain version on the CPU) | "dense"
                         (capacity one-hot einsums); see moe/experts.py
     dispatcher:         MoE only: "dense"; "a2a" (expert parallel) is not ported yet
+    ep_capacity_factor: a2a only: per-rank send capacity factor (accepted, unused
+                        while a2a raises)
     fake_balanced_gate: MoE only: round-robin routing for benchmarks
     fake_gate_noise:    its noise (> 0 is not ported yet)
     """
@@ -52,17 +56,21 @@ class BackendConfig:
     attention: str = "xla"
     attention_segments: bool = True
     context_parallel: str = "allgather"
+    linear: str = "default"
     remat_policy: str = "none"
     scan_layers: bool = True
     dtype: str = "bfloat16"
     experts_backend: str = "ragged_dot"
     dispatcher: str = "dense"
+    ep_capacity_factor: float = 1.5
     fake_balanced_gate: bool = False
     fake_gate_noise: float = 0.0
 
     def __post_init__(self):
         if self.attention not in ("xla", "flash"):
             raise ValueError(f"unknown attention backend {self.attention!r} (xla | flash)")
+        if self.linear not in ("default", "fp8"):
+            raise ValueError(f"unknown linear backend {self.linear!r} (default | fp8)")
         if self.context_parallel not in ("allgather", "ring"):
             raise ValueError(f"unknown context_parallel {self.context_parallel!r} "
                              "(allgather | ring)")

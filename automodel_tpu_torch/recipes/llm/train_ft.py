@@ -79,6 +79,8 @@ def _unsupported(cfg: ConfigNode, saves_checkpoints: bool = True) -> list[str]:
     for key in ("resilience.enabled", "observability.enabled", "dataloader.prefetch.enabled"):
         if cfg.get(key):
             found.append(key)
+    if cfg.get("backend.linear", "default") == "fp8":
+        found.append("backend.linear fp8")
     if cfg.get("backend.dispatcher", "dense") != "dense":
         found.append(f"backend.dispatcher {cfg.get('backend.dispatcher')}")
     if float(cfg.get("backend.fake_gate_noise", 0.0) or 0.0) > 0:

@@ -16,7 +16,11 @@ Phases, in order; any failure exits non-zero before the last line:
    right padding, (c) non-causal, (d) a 16k sequence, (e) the shape and segments of
    main path 3 (rows of 4096 packed by pack_dataset from 1000-token documents); at
    head_dim 128: (f) the Qwen3-30B-A3B training shape, (g) case e's rows and segments;
-4. flash kernel times at shapes (a) and (f) beside the bound, the plain version and SDPA;
+   at the tiles' edges: (h) S=1000 at head_dim 64 and 128, (i) H=KH=8, head_dim 128,
+   non-causal, segment boundaries inside tiles, (j) a grid smaller than the card (B=1,
+   H=4, KH=1, S=4096, head_dim 128);
+4. flash kernel times at shapes (a) and (f) beside the bound, the plain version and SDPA
+   (one phase alone: ``chip_smoke._timings(torch, fa, 4, 2048, 32, 4, 128)``);
 5. Llama-3.2-1B width at 2 layers: one forward and backward with attention "flash"
    against attention "xla" on the same weights;
 6. lce_fwd / lce_bwd (fused linear CE) against their plain version in seven cases:
@@ -197,9 +201,13 @@ def _card_line() -> str:
 
 
 def _ptxas_report(log: str) -> list[str]:
-    """``kernel<template args>: registers, spills`` from nvcc's -Xptxas -v output."""
+    """``kernel<template args>: registers, spills`` from nvcc's -Xptxas -v output, and
+    any note that ptxas serialised a kernel's wgmma instructions (C7514)."""
     out, name = [], None
     for line in log.splitlines():
+        if "C7514" in line:  # ptxas serialised a kernel's wgmmas
+            out.append(line.strip())
+            continue
         entry = re.search(r"entry function '(\S+)'", line)
         if entry:
             name = entry.group(1)  # mangled; shortened to kernel<args> where it parses
@@ -216,11 +224,24 @@ def _rel_l2(a, b) -> float:
     return ((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30)).item()
 
 
-def _inputs(torch, b, s, h, kh, d=64, seed=0):
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    q, k, v, do = (torch.randn(b, s, n, d, device="cuda", generator=g).to(torch.bfloat16)
+def _inputs(torch, b, s, h, kh, d=64, seed=0, device="cuda"):
+    g = torch.Generator(device=device).manual_seed(seed)
+    q, k, v, do = (torch.randn(b, s, n, d, device=device, generator=g).to(torch.bfloat16)
                    for n in (h, kh, kh, h))
     return q, k, v, do
+
+
+def _flash_work(q, k, v):
+    """FLOP and byte counts of one causal flash forward and backward, read from the
+    timed tensors' own shapes: {"flash_fwd": (flops, bytes), "flash_bwd": (...)}. The
+    bytes count each input read once and each output written once."""
+    b, s, h, d = q.shape
+    pairs = b * h * s * (s + 1) // 2  # allowed (q, k) pairs of a causal run
+    qkv_bytes = 2 * (q.numel() + k.numel() + v.numel())
+    lse_bytes = 4 * b * h * s
+    return {"flash_fwd": (4 * d * pairs, qkv_bytes + 2 * q.numel() + lse_bytes),  # + O, lse
+            # + O, dO, lse read; dq, dk, dv written
+            "flash_bwd": (10 * d * pairs, 2 * qkv_bytes + 2 * 2 * q.numel() + lse_bytes)}
 
 
 def _kernel_case(torch, fa, name, b, s, h, kh, causal, seg=None, d=64):
@@ -260,6 +281,47 @@ def _packed_segments(torch):
     return torch.from_numpy(seg).to(device="cuda", dtype=torch.int32)
 
 
+def _inner_segments(torch):
+    """(2, 2048) segment ids whose boundaries fall inside 64- and 128-row tiles, with a
+    one-token segment and a padded tail (segment 0)."""
+    seg = torch.zeros(2, 2048, dtype=torch.int32)
+    for row, cuts in enumerate(((0, 37, 100, 101, 333, 1000, 1777, 2000),
+                                (0, 65, 191, 700, 1203, 1300, 2048))):
+        for i, (a, b) in enumerate(zip(cuts[:-1], cuts[1:])):
+            seg[row, a:b] = i + 1
+    return seg.cuda()
+
+
+def _flash_phase(torch, fa, errs):
+    """flash_fwd / flash_bwd cases a-j against the plain version (see the module
+    docstring); the largest errors go into ``errs``."""
+    errs.update({"flash_fwd": 0.0, "flash_bwd": 0.0})
+
+    def note(e):
+        errs["flash_fwd"] = max(errs["flash_fwd"], e[0])
+        errs["flash_bwd"] = max(errs["flash_bwd"], e[1])
+
+    note(_kernel_case(torch, fa, "a", 4, 2048, 32, 8, causal=True))
+    seg = torch.zeros(2, 2048, dtype=torch.int32, device="cuda")
+    seg[0, :1000], seg[0, 1000:1900] = 1, 2
+    seg[1, :700], seg[1, 700:2000] = 1, 2
+    note(_kernel_case(torch, fa, "b", 2, 2048, 32, 8, causal=True, seg=seg))
+    note(_kernel_case(torch, fa, "c", 2, 2048, 32, 8, causal=False))
+    note(_kernel_case(torch, fa, "d", 1, 16384, 4, 2, causal=True))
+    note(_kernel_case(torch, fa, "e", 2, 4096, 32, 8, causal=True, seg=_packed_segments(torch)))
+    # head_dim 128: the Qwen3-MoE slice's shape, and main path 6's packed rows of 2048
+    note(_kernel_case(torch, fa, "f", 4, 2048, 32, 4, causal=True, d=128))
+    note(_kernel_case(torch, fa, "g", 2, 4096, 32, 4, causal=True, seg=_packed_segments(torch),
+                      d=128))
+    # the edges of the tiles: a length that is no multiple of 64 or 128, segment
+    # boundaries inside a tile without the causal mask, and a grid smaller than the card
+    note(_kernel_case(torch, fa, "h", 2, 1000, 32, 8, causal=True))
+    note(_kernel_case(torch, fa, "h", 2, 1000, 32, 8, causal=True, d=128))
+    note(_kernel_case(torch, fa, "i", 2, 2048, 8, 8, causal=False, seg=_inner_segments(torch),
+                      d=128))
+    note(_kernel_case(torch, fa, "j", 1, 4096, 4, 1, causal=True, d=128))
+
+
 def _time_ms(torch, fn, warmup=3, reps=20) -> float:
     """Median of ``reps`` CUDA-event timings of one call, after ``warmup`` calls."""
     for _ in range(warmup):
@@ -284,21 +346,28 @@ def _library_sdpa(torch, q, k, v, causal):
                                           enable_gqa=True).transpose(1, 2)
 
 
+def _flash_timing_inputs(torch, b, s, h, kh, d, device="cuda"):
+    """The tensors a flash timing row times, (q, k, v, dO) at head dim ``d``, and the
+    work they hold (:func:`_flash_work`)."""
+    q, k, v, do = _inputs(torch, b, s, h, kh, d, seed=1, device=device)
+    return (q, k, v, do), _flash_work(q, k, v)
+
+
 def _timings(torch, fa, b=4, s=2048, h=32, kh=8, d=64):
     """ms of each kernel at shape (a), or at the shape given, with bound, plain version
-    and SDPA."""
-    q, k, v, do = _inputs(torch, b, s, h, kh, seed=1)
-    scale = d**-0.5
-    pairs = b * h * s * (s + 1) // 2  # allowed (q, k) pairs of this causal run
-    fwd_flops, bwd_flops = 4 * d * pairs, 10 * d * pairs
-    qkv_bytes = 2 * (q.numel() + k.numel() + v.numel())
-    fwd_bytes = qkv_bytes + 2 * q.numel() + 4 * b * h * s  # + O, lse
-    bwd_bytes = qkv_bytes + 2 * 2 * q.numel() + 4 * b * h * s + qkv_bytes  # + O, dO, lse; grads
+    and SDPA. The work behind the bound is read from the timed tensors."""
+    (q, k, v, do), work = _flash_timing_inputs(torch, b, s, h, kh, d)
+    scale = q.shape[-1]**-0.5
     out = {}
 
     o, lse = fa.flash_fwd(q, k, v, None, None, scale, True)
     fwd_ms = _time_ms(torch, lambda: fa.flash_fwd(q, k, v, None, None, scale, True))
     bwd_ms = _time_ms(torch, lambda: fa.flash_bwd(q, k, v, None, None, o, lse, do, scale, True))
+    # the plain tensor work that flash_bwd's wrapper does around its kernel (delta =
+    # rowsum(dO * O), dq's zeroing and bf16 cast), inside flash_bwd's time
+    bwd_plain_ops = _time_ms(torch, lambda: (
+        (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous(),
+        torch.zeros(q.shape, dtype=torch.float32, device="cuda").to(torch.bfloat16)))
     plain_fwd = _time_ms(torch, lambda: fa.flash_attention_reference(q, k, v, causal=True))
     qp, kp, vp = (x.clone().requires_grad_() for x in (q, k, v))
     o_plain, _ = fa.flash_attention_reference(qp, kp, vp, causal=True)
@@ -312,17 +381,21 @@ def _timings(torch, fa, b=4, s=2048, h=32, kh=8, d=64):
                                                           retain_graph=True))
     del o_lib
     torch.cuda.empty_cache()
-    for name, ms, flops, nbytes, plain, lib in (
-            ("flash_fwd", fwd_ms, fwd_flops, fwd_bytes, plain_fwd, lib_fwd),
-            ("flash_bwd", bwd_ms, bwd_flops, bwd_bytes, plain_bwd, lib_bwd)):
+    for name, ms, plain, lib in (("flash_fwd", fwd_ms, plain_fwd, lib_fwd),
+                                 ("flash_bwd", bwd_ms, plain_bwd, lib_bwd)):
+        flops, nbytes = work[name]
         t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
         out[name] = {"ms": ms, "plain_ms": plain, "library_ms": lib,
                      "bound_ms": max(t_ops, t_bytes),
-                     "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
-        print(f"time {name} at B={b} S={s} H={h} KH={kh} D={d} causal: {ms:.3f} ms, "
+                     "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                     "shape": {"B": b, "S": s, "H": h, "KH": kh, "D": q.shape[-1]}}
+        if name == "flash_bwd":
+            out[name]["plain_tensor_ops_ms"] = bwd_plain_ops
+        print(f"time {name} at B={b} S={s} H={h} KH={kh} D={q.shape[-1]} causal: {ms:.3f} ms, "
               f"bound {out[name]['bound_ms']:.3f} ms ({out[name]['bound_by']}: "
               f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB), plain {plain:.3f} ms, "
-              f"SDPA {lib:.3f} ms", flush=True)
+              f"SDPA {lib:.3f} ms" + (f", of it plain tensor ops {bwd_plain_ops:.3f} ms"
+                                      if name == "flash_bwd" else ""), flush=True)
     return out
 
 
@@ -1224,25 +1297,8 @@ def main(argv: list[str]) -> int:
                                                  "count": torch.cuda.device_count()}}))
         return 0
 
-    errs = {"flash_fwd": 0.0, "flash_bwd": 0.0}
-
-    def note(e):
-        errs["flash_fwd"] = max(errs["flash_fwd"], e[0])
-        errs["flash_bwd"] = max(errs["flash_bwd"], e[1])
-
-    note(_kernel_case(torch, fa, "a", 4, 2048, 32, 8, causal=True))
-    seg = torch.zeros(2, 2048, dtype=torch.int32, device="cuda")
-    seg[0, :1000], seg[0, 1000:1900] = 1, 2
-    seg[1, :700], seg[1, 700:2000] = 1, 2
-    note(_kernel_case(torch, fa, "b", 2, 2048, 32, 8, causal=True, seg=seg))
-    note(_kernel_case(torch, fa, "c", 2, 2048, 32, 8, causal=False))
-    note(_kernel_case(torch, fa, "d", 1, 16384, 4, 2, causal=True))
-    note(_kernel_case(torch, fa, "e", 2, 4096, 32, 8, causal=True, seg=_packed_segments(torch)))
-    # head_dim 128: the Qwen3-MoE slice's shape, and main path 6's packed rows of 2048
-    note(_kernel_case(torch, fa, "f", 4, 2048, 32, 4, causal=True, d=128))
-    note(_kernel_case(torch, fa, "g", 2, 4096, 32, 4, causal=True, seg=_packed_segments(torch),
-                      d=128))
-
+    errs = {}
+    _flash_phase(torch, fa, errs)
     timings = _timings(torch, fa)
     for name, row in _timings(torch, fa, 4, 2048, 32, 4, 128).items():
         timings[name]["at_d128"] = row

@@ -76,3 +76,38 @@ def test_cp_config_runs_through_both_recipes(tmp_path):
     recipe = train_ft.main(cfg=cfg)
     assert recipe.mesh.folded and recipe.mesh.cp == 8
     assert os.path.exists(tmp_path / "ft" / "training.jsonl")
+
+
+@pytest.mark.parametrize("d,kh", [(64, 8), (128, 4)])
+def test_flash_timing_inputs_have_the_named_head_dim(d, kh):
+    """The flash timing rows build their tensors at the head dim and kv heads they name,
+    and the bound's work is read from those tensors: at D=128 the causal forward of
+    B=4, S=2048, H=32 is 137.5 GFLOP, twice D=64's."""
+    (q, k, v, do), work = chip_smoke._flash_timing_inputs(torch, 1, 64, 4, kh // 4, d,
+                                                          device="cpu")
+    assert q.shape == do.shape == (1, 64, 4, d) and k.shape == v.shape == (1, 64, kh // 4, d)
+    assert work["flash_fwd"][0] == 4 * d * 4 * 64 * 65 // 2
+    b, s, h = 4, 2048, 32
+    full = [torch.empty(b, s, n, d, dtype=torch.bfloat16, device="meta") for n in (h, kh, kh)]
+    work = chip_smoke._flash_work(*full)
+    pairs = b * h * s * (s + 1) // 2
+    assert work["flash_fwd"][0] == 4 * d * pairs and work["flash_bwd"][0] == 10 * d * pairs
+    assert work["flash_fwd"][0] == pytest.approx(137.5e9 * d / 128, rel=1e-3)
+    qkv = 2 * b * s * d * (h + 2 * kh)
+    assert work["flash_fwd"][1] == qkv + 2 * b * s * h * d + 4 * b * h * s
+    assert work["flash_bwd"][1] == 2 * qkv + 4 * b * s * h * d + 4 * b * h * s
+
+
+def test_ptxas_report_keeps_registers_spills_and_wgmma_serialisation():
+    log = "\n".join([
+        "ptxas info    : (C7514) Potential Performance Loss: wgmma.mma_async instructions are "
+        "serialized due to ... in the function '_ZN4_GLOBAL16flash_fwd_kernelILi64EEEv'",
+        "ptxas info    : Compiling entry function '_ZN4_GLOBAL16flash_fwd_kernelILi64EEEv' for "
+        "'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 168 registers, used 16 barriers"])
+    report = chip_smoke._ptxas_report(log)
+    assert report[0].startswith("ptxas info    : (C7514)")
+    assert report[1:] == [
+        "flash_fwd_kernel<64>: 0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "flash_fwd_kernel<64>: Used 168 registers, used 16 barriers"]

@@ -4,6 +4,7 @@ with device: cpu and the same initial weights: per-step losses agree to 1e-4 (f3
 Also: linear_ce on a CUDA device raises, and so does a run with no device and no card."""
 
 import json
+import os
 import textwrap
 
 import jax
@@ -19,6 +20,9 @@ from automodel_tpu.recipes.llm.train_ft import (
 from automodel_tpu_torch.config.cli_overrides import parse_args_and_load_config
 from automodel_tpu_torch.models.llama.convert import params_from_jax
 from automodel_tpu_torch.recipes.llm import benchmark, train_ft
+
+EXAMPLES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "examples",
+                        "llm_finetune")
 
 YAML = """
 seed: 7
@@ -393,3 +397,36 @@ def test_moe_fake_balanced_gate_trains(moe_cfg_path, tmp_path):
 def test_unported_moe_options_raise(moe_cfg_path, override):
     with pytest.raises(NotImplementedError):
         _setup(moe_cfg_path, *override)
+
+
+@pytest.mark.parametrize("recipe_cls", [train_ft.TrainFinetuneRecipeForNextTokenPrediction,
+                                        benchmark.BenchmarkingRecipeForNextTokenPrediction],
+                         ids=["train_ft", "benchmark"])
+def test_fp8_linear_is_refused_by_name(cfg_path, recipe_cls):
+    """backend.linear fp8 (JAX's fp8 projections) is listed among the unported options
+    with NotImplementedError, not refused by BackendConfig with a TypeError."""
+    cfg = parse_args_and_load_config(["-c", cfg_path, "--backend.linear", "fp8"])
+    with pytest.raises(NotImplementedError, match="backend.linear fp8"):
+        recipe_cls(cfg).setup()
+
+
+@pytest.mark.parametrize("name", ["llama3_2_1b_fp8.yaml", "llama3_8b_fp8_linears.yaml"])
+def test_fp8_example_configs_name_backend_linear(name):
+    cfg = parse_args_and_load_config([
+        "-c", os.path.join(EXAMPLES, name), "--device", "cpu",
+        "--checkpoint.enabled", "false"])
+    with pytest.raises(NotImplementedError, match="backend.linear fp8"):
+        train_ft.TrainFinetuneRecipeForNextTokenPrediction(cfg).setup()
+
+
+def test_default_linear_and_capacity_factor_are_accepted(cfg_path):
+    cfg = parse_args_and_load_config(["-c", cfg_path, "--backend.linear", "default",
+                                      "--backend.ep_capacity_factor", "2.0"])
+    recipe = benchmark.BenchmarkingRecipeForNextTokenPrediction(cfg)
+    recipe.setup()
+    assert (recipe.backend.linear, recipe.backend.ep_capacity_factor) == ("default", 2.0)
+
+
+def test_unknown_linear_raises_value_error(cfg_path):
+    with pytest.raises(ValueError, match="unknown linear backend"):
+        _setup(cfg_path, "--backend.linear", "int4")
