@@ -2,10 +2,10 @@
 // token rows sorted by expert, and their weight gradient.
 //
 // Replaces the Pallas kernels of automodel_tpu/ops/pallas/grouped_gemm.py:
-//   gmm  <- _gmm_kernel (out[rows of e] = x[rows of e] @ w[e]); with w read as its
-//           transpose in place it is also the dX of the backward (_bwd_rule), so no
+//   gmm  <- _gmm_kernel (:126, out[rows of e] = x[rows of e] @ w[e]); with w read as
+//           its transpose in place it is also the dX of the backward (_bwd_rule), so no
 //           swapaxes copy of the expert stack is made
-//   tgmm <- _tgmm_kernel (dw[e] = x[rows of e]^T @ dout[rows of e]; zeros for an
+//   tgmm <- _tgmm_kernel (:151, dw[e] = x[rows of e]^T @ dout[rows of e]; zeros for an
 //           expert with no rows)
 //
 // Layouts: x (N, K) bf16 row-major, rows sorted so that each expert's rows are
@@ -13,8 +13,9 @@
 // rows [ends[e-1], ends[e]) with ends[-1] = 0), on the device; w (E, K, Nout) bf16
 // row-major (forward) or (E, Nout, K) row-major read as its transpose (dX: K = F,
 // Nout = D of a (E, D, F) stack); out (N, Nout) bf16. tgmm: x (N, D), dout (N, F),
-// dw (E, D, F) bf16. Any N, K, Nout, D, F >= 1: every edge is masked in the loads and
-// the epilogues; rows past ends[E-1] get zeros in gmm and count for no expert in tgmm.
+// dw (E, D, F) bf16. Any N, K, Nout, D, F >= 1 between the two routes below; rows
+// past ends[E-1] get zeros in gmm and count for no expert in tgmm. No launch waits for
+// the host: every grid comes from the static shapes.
 //
 // What bounds it. At the Qwen3-30B-A3B slice shape (N = 65,536 routed rows, E = 128)
 // the gate_up forward (K = 2048, Nout = 1536) is 2NKNout = 412.3 GFLOP, 0.417 ms at
@@ -23,27 +24,39 @@
 // is 206 GFLOP (0.208 ms) against 0.77 GB (0.23 ms): bound by bytes. So a block reads
 // its expert's weight tile once per 128-row tile, never once per row.
 //
-// Design, simple first (the mainloop of csrc/linear_ce.cu): 128 x 128 output tiles,
-// 8 warps (2 x 4, 64 x 32 each), K steps of 64 through a three-stage cp.async ring in
-// shared memory (108 KB), fragments by ldmatrix, mma.sync m16n8k16 bf16 with f32
-// accumulation.
-//   - No host sync and no schedule built on the host: the grids come from the static
-//     N, K, Nout and E alone. A gmm block owns one 128-row tile, finds the first
-//     expert that overlaps it by binary search over `ends` (read from device memory)
-//     and runs one mainloop per overlapping expert into the same accumulator, each
-//     with the other experts' rows zeroed at the load (the TPU schedule's masked
-//     boundary tiles). The sum over experts is the tile's output: each row takes
-//     exactly one expert's product.
-//   - tgmm: one block per (128 x 128 tile of dw[e], e); K runs over the rows of
-//     expert e alone (operand pointers offset to its first row), so an empty expert
-//     runs no K step and writes zeros.
-// What it leaves on the table: no wgmma, TMA or warp specialisation; a block runs one
-// expert at a time at a boundary tile; tgmm's short K loops (~512 rows an expert at
-// the slice shape) pay the ring's prologue and the epilogue per tile.
+// Two routes, picked by the wrapper (ops/grouped_gemm.py) from the shapes before the
+// launch:
+//   - gmm_wgmma, when K and Nout are multiples of 8 (TMA's 16-byte strides): the Hopper
+//     core of gemm_sm90.cuh (TMA into 4 mbarrier stages, a producer warpgroup, two
+//     wgmma consumer warpgroups, 128 x 256 tiles, 16-byte epilogue stores). x is the
+//     K-major A operand; w[e] is B, MN-major in the forward and K-major in dX, the
+//     expert picked by the tensor map's batch coordinate. Tiles start at each
+//     expert's first row, ceil(size_e / 128) of them an expert, then tiles that zero
+//     the rows past ends[E-1]; at most ceil(N / 128) + E tiles, a static grid whose
+//     spare blocks exit at once. A block finds its tile from `ends` itself (row_tile:
+//     a warp scan of the experts' tile counts), so no schedule is built or stored.
+//     Each tile stores only its expert's rows [lo, hi); rows of the next expert that
+//     its TMA box also loads are computed and thrown away. That is the schedule's
+//     waste: half a tile an expert on average, ~64 of ~576 tiles (11%) at the slice
+//     shape, against ~25% for tiles aligned to 128 rows that run one mainloop per
+//     expert they overlap. Tail tiles run no K step and store the zero accumulator.
+//   - gmm (mma.sync), for strides TMA cannot map: 128 x 128 tiles, 8 warps, a
+//     three-stage cp.async ring (108 KB), ldmatrix and mma.sync m16n8k16; a block owns
+//     one 128-row tile, finds its first expert by binary search over `ends` and runs one
+//     masked mainloop per expert that overlaps it. tgmm always takes this mainloop: one
+//     block per (128 x 128 tile of dw[e], e), K over the rows of expert e alone, so an
+//     empty expert runs no K step and writes zeros.
+// What it leaves on the table: the wgmma route's tiles pay their own prologue and
+// epilogue with the tensor cores idle (gemm_sm90.cuh: a ping-pong of the consumer
+// warpgroups would hide them) and read an expert's weight tile once per row tile from
+// L2; tgmm still runs on mma.sync (its short K loops, ~512 rows an expert at the slice
+// shape, pay the ring's prologue and the epilogue per tile).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "gemm_sm90.cuh"
 
 namespace {
 
@@ -325,6 +338,74 @@ tgmm_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dout,
   store_tile(acc, dw + (size_t)e * D * F, m0, n0, D, F);
 }
 
+// A wgmma-route tile: rows [lo, hi) of expert e (e == E: rows past ends[E-1]).
+struct RowTile {
+  int e, lo, hi;
+};
+
+// Tile t of the wgmma route, worked out from ends by every warp alike: expert e owns
+// ceil(rows_e / 128) tiles from its first row on, in expert order, the last one cut at
+// its end; the tiles after them cover the rows past ends[E-1] and then nothing
+// (lo == hi). sum_e ceil(s_e / 128) <= ceil(S / 128) + E - 1 and the tail adds
+// ceil((N - S) / 128), so ceil(N / 128) + E tiles cover every row. Each lane counts
+// the tiles of its run of E / 32 experts, a warp scan places the runs, and the lane
+// whose run holds t walks it.
+__device__ __forceinline__ RowTile row_tile(const int* __restrict__ ends, int N, int E, int t) {
+  constexpr unsigned ALL = 0xffffffffu;
+  const int lane = threadIdx.x & 31, per = (E + 31) / 32;
+  const int e0 = min(lane * per, E), e1 = min(e0 + per, E);
+  int count = 0;
+  for (int e = e0; e < e1; ++e) {
+    const int start = e > 0 ? min(ends[e - 1], N) : 0;
+    count += (min(ends[e], N) - start + sm90::BM - 1) / sm90::BM;
+  }
+  int incl = count;  // inclusive scan of the runs' tile counts
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int v = __shfl_up_sync(ALL, incl, o);
+    if (lane >= o) incl += v;
+  }
+  const unsigned owner = __ballot_sync(ALL, t >= incl - count && t < incl);
+  if (owner == 0) {  // past every expert's tiles
+    const int total = __shfl_sync(ALL, incl, 31);
+    const int lo = min(min(ends[E - 1], N) + (t - total) * sm90::BM, N);
+    return {E, lo, min(lo + sm90::BM, N)};
+  }
+  const int src = __ffs(owner) - 1;
+  RowTile r{0, 0, 0};
+  if (lane == src) {
+    int base = incl - count;
+    for (int e = e0; e < e1; ++e) {
+      const int start = e > 0 ? min(ends[e - 1], N) : 0, end = min(ends[e], N);
+      const int tiles = (end - start + sm90::BM - 1) / sm90::BM;
+      if (t < base + tiles) {
+        r = {e, start + (t - base) * sm90::BM, min(start + (t - base + 1) * sm90::BM, end)};
+        break;
+      }
+      base += tiles;
+    }
+  }
+  return {__shfl_sync(ALL, r.e, src), __shfl_sync(ALL, r.lo, src), __shfl_sync(ALL, r.hi, src)};
+}
+
+// wgmma route. grid (ceil(Nout / 256), ceil(N / 128) + E): block (nt, t) takes tile t
+// (row_tile) and writes out[lo : hi, 256 nt : +256]; column tiles run fastest, so the
+// blocks in flight share x's rows and the expert's weights in L2. Rows past ends[E-1]
+// get no products: the epilogue stores zeros. An empty tile exits. W_KMAJ: w is read
+// as its transpose (dX).
+template <bool W_KMAJ>
+__global__ void __launch_bounds__(sm90::THREADS, 1)
+gmm_sm90_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
+                const int* __restrict__ ends, bf16* __restrict__ out, int N, int K, int Nout,
+                int E) {
+  const RowTile rt = row_tile(ends, N, E, blockIdx.y);
+  if (rt.hi <= rt.lo) return;
+  const int n0 = blockIdx.x * sm90::BN;
+  const sm90::Tile tile{rt.lo, n0, 0, rt.e, rt.e < E ? (K + sm90::BK - 1) / sm90::BK : 0};
+  sm90::gemm_tile<false, !W_KMAJ>(&tx, &tw, tile, sm90::AllSteps{},
+                                  sm90::StoreBf16{out, (size_t)Nout, rt.lo, rt.hi, n0, Nout});
+}
+
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
@@ -335,8 +416,9 @@ cudaError_t allow_smem(Kernel kernel) {
 // Plain C entry points (bound with ctypes). Each returns a cudaError_t; the caller
 // checks inputs beforehand (see the layout note at the top) and allocates the output.
 
-// out (N, Nout) = ragged_dot(x (N, K), w, group_sizes); w_kmajor: w is (E, Nout, K)
-// and is read as its transpose (the dX of the backward), else (E, K, Nout).
+// out (N, Nout) = ragged_dot(x (N, K), w, group_sizes) on the mma.sync route (any
+// shape); w_kmajor: w is (E, Nout, K) and is read as its transpose (the dX of the
+// backward), else (E, K, Nout).
 extern "C" int gmm(const void* x, const void* w, const int* ends, void* out, int N, int K,
                    int Nout, int E, int w_kmajor, void* stream) {
   if (N < 1 || K < 1 || Nout < 1 || E < 1) return (int)cudaErrorInvalidValue;
@@ -347,6 +429,30 @@ extern "C" int gmm(const void* x, const void* w, const int* ends, void* out, int
   kernel<<<grid, NUM_THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(w), ends, static_cast<bf16*>(out),
       N, K, Nout, E);
+  return (int)cudaGetLastError();
+}
+
+// The same product on the wgmma route (K % 8 == 0, Nout % 8 == 0, x and w 16-byte
+// aligned), with the same arguments.
+extern "C" int gmm_wgmma(const void* x, const void* w, const int* ends, void* out, int N, int K,
+                         int Nout, int E, int w_kmajor, void* stream) {
+  if (N < 1 || K < 1 || Nout < 1 || E < 1 || K % 8 || Nout % 8)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap tx, tw;
+  cudaError_t err = sm90::operand_map(&tx, x, K, N, K, 1, (uint64_t)N * K,
+                                      sm90::box_rows(true, false));
+  if (err == cudaSuccess)
+    err = w_kmajor ? sm90::operand_map(&tw, w, K, Nout, K, E, (uint64_t)Nout * K,
+                                       sm90::box_rows(false, false))
+                   : sm90::operand_map(&tw, w, Nout, K, Nout, E, (uint64_t)K * Nout,
+                                       sm90::box_rows(false, true));
+  const auto kernel = w_kmajor ? gmm_sm90_kernel<true> : gmm_sm90_kernel<false>;
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, sm90::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((Nout + sm90::BN - 1) / sm90::BN, (N + sm90::BM - 1) / sm90::BM + E);
+  kernel<<<grid, sm90::THREADS, sm90::SMEM, static_cast<cudaStream_t>(stream)>>>(
+      tx, tw, ends, static_cast<bf16*>(out), N, K, Nout, E);
   return (int)cudaGetLastError();
 }
 

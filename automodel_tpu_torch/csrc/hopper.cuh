@@ -51,22 +51,41 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A 3-d tiled map over (batch, rows, inner) row-major elements, innermost first, with
-// the 128-byte swizzle; a box is (box_inner, box_rows, 1). Rows past `rows` read as
+// A 3-d tiled map over (batch, rows, inner) elements, innermost first, with the 128-byte
+// swizzle; a row is `row_bytes` and a batch entry `batch_bytes` apart (both multiples
+// of 16); a box is (box_inner, box_rows, 1). Elements past `inner` or `rows` read as
 // zeros and are skipped by stores and reductions.
-inline cudaError_t make_map_3d(CUtensorMap* map, const void* ptr, CUtensorMapDataType type,
-                               uint32_t elem_bytes, uint64_t inner, uint64_t rows,
-                               uint64_t batch, uint32_t box_inner, uint32_t box_rows) {
+inline cudaError_t make_map_3d_strided(CUtensorMap* map, const void* ptr,
+                                       CUtensorMapDataType type, uint64_t inner, uint64_t rows,
+                                       uint64_t batch, uint64_t row_bytes, uint64_t batch_bytes,
+                                       uint32_t box_inner, uint32_t box_rows) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return cudaErrorSymbolNotFound;
+  // cuTensorMapEncodeTiled needs a current context. A host thread that has made no
+  // runtime call yet (autograd's backward worker, when the caching allocator served
+  // every tensor) has none; setting the device binds its primary context.
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
   const cuuint64_t dims[3] = {inner, rows, batch};
-  const cuuint64_t strides[2] = {inner * elem_bytes, rows * inner * elem_bytes};
+  const cuuint64_t strides[2] = {row_bytes, batch_bytes};
   const cuuint32_t box[3] = {box_inner, box_rows, 1};
   const cuuint32_t elem_strides[3] = {1, 1, 1};
   CUresult r = fn(map, type, 3, const_cast<void*>(ptr), dims, strides, box, elem_strides,
                   CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A 3-d tiled map over (batch, rows, inner) row-major elements, innermost first, with
+// the 128-byte swizzle; a box is (box_inner, box_rows, 1). Rows past `rows` read as
+// zeros and are skipped by stores and reductions.
+inline cudaError_t make_map_3d(CUtensorMap* map, const void* ptr, CUtensorMapDataType type,
+                               uint32_t elem_bytes, uint64_t inner, uint64_t rows,
+                               uint64_t batch, uint32_t box_inner, uint32_t box_rows) {
+  return make_map_3d_strided(map, ptr, type, inner, rows, batch, inner * elem_bytes,
+                             rows * inner * elem_bytes, box_inner, box_rows);
 }
 
 // ---------------------------------------------------------------- device: barriers

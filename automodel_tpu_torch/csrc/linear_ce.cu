@@ -2,51 +2,72 @@
 // its gradient, with the (tokens, vocab) logits never stored whole in device memory.
 //
 // Replaces the Pallas kernels of automodel_tpu/ops/pallas/linear_ce.py:
-//   lce_fwd <- _fwd_kernel (online logsumexp over vocab tiles; per-(vocab tile, row)
-//              maxima `bmax` for the backward's block filter)
-//   lce_bwd <- _bwd_dh_kernel (dH = (softmax * dz) @ W^T) and, by function,
-//              _bwd_dw_kernel (dW = H^T @ (softmax * dz)), both skipping the blocks
-//              the filter marks as insignificant.
+//   lce_fwd <- _fwd_kernel (:105, online logsumexp over vocab tiles; per-(vocab tile,
+//              row) maxima `bmax` for the backward's block filter)
+//   lce_bwd <- _bwd_dh_kernel (:137, dH = (softmax * dz) @ W^T) and, by function,
+//              _bwd_dw_kernel (:163, dW = H^T @ (softmax * dz)), both skipping the
+//              blocks the filter marks as insignificant.
 //
 // Layouts: h (N, E) bf16 row-major, N a multiple of 128 (the caller pads tokens with
 // zero rows); w bf16 either (E, V) row-major or, with w_vmajor, (V, E) row-major (a
-// tied embedding, read in place as a K-major operand); E and V any positive size (the
-// K, token and vocab edges are masked here). z (N,) f32; bmax (ceil(V/128), N) f32;
-// dz (N,) f32; sig (N/128, ceil(V/128)) int32 or null (null: every block is
-// significant); dh (N, E) bf16 and dw bf16 in w's layout.
+// tied embedding, read in place); E and V any positive size. z (N,) f32; bmax
+// (ceil(V/128), N) f32; dz (N,) f32; sig (N/128, ceil(V/128)) int32 or null (null:
+// every block is significant); dh (N, E) bf16 and dw bf16 in w's layout.
 //
 // What bounds it. At the slice shape (N = 8192, E = 2048, V = 128,256) the forward is
 // 2NEV = 4.30 TFLOP, 4.35 ms at 989 TFLOP/s dense bf16, against 0.16 ms to read w:
 // bound by operations. The backward needs the logits again and two products,
-// 6NEV = 12.9 TFLOP, 13.05 ms: also bound by operations.
+// 6NEV = 12.9 TFLOP, 13.05 ms: also bound by operations (at main path 7's N = 32768,
+// E = 4096: 103 TFLOP, 104 ms).
 //
 // Design. The TPU kernels carry (block_n, E) and (E, block_v) f32 accumulators along a
 // sequential grid axis; on Hopper a block has 227 KB of shared memory and blocks run
-// in no order, so the backward is reshaped around one recompute of the logits:
-//   - every product runs through one tiled mainloop: 128 x 128 output tiles, 8 warps
-//     (2 x 4, 64 x 32 each), K steps of 64 in a three-stage cp.async ring in shared
-//     memory (108 KB), fragments by ldmatrix, mma.sync m16n8k16 bf16 with f32
-//     accumulation;
-//   - forward: a block owns 128 tokens and a contiguous range of vocab tiles (the
-//     vocab is split across blocks so that N = 8192 gives ~2 blocks per SM, not 64
-//     blocks in all), keeps (m, l) per row across its tiles and writes one partial
-//     pair per split; lce_merge_kernel folds the splits into z;
-//   - backward, per vocab chunk of Vc columns: lce_dlogits_kernel recomputes the
-//     logits tile once and writes dlogits = exp(s - z) * dz, rounded to bf16 as the
-//     TPU kernel rounds dl to w's dtype, into an (N, Vc) bf16 buffer (zeros for a
-//     block the filter skips); two GEMMs then take dH += dlogits @ w_chunk^T (f32
-//     scratch of dH's size across chunks) and dW[:, chunk] = h^T @ dlogits, each
-//     skipping the K steps of insignificant blocks. 6NEV in all, no second recompute.
-//   Device memory beyond inputs and outputs: the (N, Vc) bf16 chunk buffer (Vc chosen
-//   by the caller, 268 MB at the slice shape), an f32 scratch of dH's size when there
-//   is more than one chunk (67 MB), and the forward's per-split (m, l) (N * splits f32).
-// What it leaves on the table: no wgmma, TMA or warp specialisation, one block per
-// SM, scalar loads where a row is not 16-byte aligned (V % 8 != 0), and scalar bf16
-// stores in the epilogues.
+// in no order, so the backward is reshaped around one recompute of the logits, per
+// vocab chunk of Vc columns (Vc chosen by the caller from a memory budget):
+//   1. dlogits: S = h . w[:, chunk] recomputed, dl = exp(S - z) * dz rounded to bf16
+//      (as the TPU kernel rounds dl to w's dtype) into an (N, Vc) bf16 buffer; a
+//      (128-token, 128-vocab) block the filter skips is written as zeros;
+//   2. dH (+)= dl . w[:, chunk]^T into an f32 scratch of dH's size, the last chunk
+//      writing bf16 dH; K steps over insignificant blocks are skipped;
+//   3. dW[:, chunk] = h^T . dl (for the tied (V, E) layout dW[chunk, :] = dl^T . h,
+//      written in place), K steps over insignificant blocks skipped.
+// 6NEV in all, no second recompute. Device memory beyond inputs and outputs: the
+// (N, Vc) chunk buffer (268 MB at the slice shape), the f32 dH scratch when there is
+// more than one chunk (67 MB), and the forward's per-split (m, l) (N * splits f32).
+//
+// Routes (picked by the wrapper, ops/linear_ce.py, from the shapes before the launch):
+//   - lce_bwd_wgmma, when E and V are multiples of 8 (TMA's 16-byte strides): the three
+//     products on the Hopper core of gemm_sm90.cuh (TMA into 4 mbarrier stages, a
+//     producer warpgroup, two wgmma consumer warpgroups, 128 x 256 tiles). The operands
+//     are read in place through the descriptors' major-ness: dlogits h (K-major) . w
+//     (MN-major, or K-major tied); dH dl (K-major) . w^T (K-major, or MN-major tied);
+//     dW h^T (MN-major) . dl (MN-major), or tied dl^T (MN-major) . h (MN-major). The
+//     epilogues stage the tile in shared memory and store 16 bytes a thread: exp(s - z)
+//     * dz to bf16 for dlogits, the f32 add into the scratch (bf16 at the last chunk)
+//     for dH, bf16 for dW. The filter is a K-step predicate both the TMA producer and
+//     the consumers follow; a dlogits tile spans two vocab tiles and skips its
+//     products when both are insignificant, zeroing either half that is. Blocks run
+//     in groups of 16 row tiles, column by column, so that the blocks in flight share
+//     their operands in L2.
+//   - lce_bwd (mma.sync), any E and V (e.g. GPT-2's V = 50,257): 128 x 128 tiles, 8
+//     warps, a three-stage cp.async ring (108 KB), ldmatrix and mma.sync m16n8k16,
+//     scalar loads where a row is not 16-byte aligned, scalar bf16 stores.
+//   lce_fwd runs on that mma.sync mainloop for every shape: a block owns 128 tokens and
+//   a contiguous range of vocab tiles (the vocab is split across blocks so that N = 8192
+//   gives ~2 blocks per SM), keeps (m, l) per row across its tiles and writes one
+//   partial pair per split; lce_merge_kernel folds the splits into z.
+// What it leaves on the table: lce_fwd has no wgmma, TMA or warp specialisation; the
+// wgmma route's tiles pay their own prologue and epilogue with the tensor cores idle
+// (the most for dlogits, whose K is only E and whose epilogue takes an exp an element;
+// gemm_sm90.cuh: a ping-pong of the consumer warpgroups would hide them), and the f32
+// dH scratch is read and written once per chunk (32 times, ~34 GB, at main path 7's
+// N = 32768, where the buffer budget gives Vc = 4096).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "gemm_sm90.cuh"
 
 namespace {
 
@@ -464,6 +485,141 @@ lce_gemm_kernel(Operand A, Operand B, int M, int N, int K, KFilter filt,
   }
 }
 
+// ---------------------------------------------------------------- wgmma route
+
+static_assert(TOK_TILE == 2 * sm90::BK && BN == 2 * sm90::BK, "a filter tile is two K steps");
+static_assert(sm90::BM == TOK_TILE && sm90::BN == 2 * BN, "a core tile is two vocab tiles wide");
+
+// lce_bwd's block filter as the core's K-step predicate. sig (num_t, num_vt) int32, or
+// null (every step). A core tile is 128 rows by two 128-column vocab tiles; a K step is
+// half a token or vocab tile.
+struct SigFilter {
+  enum Mode { DLOGITS, DH, DW_COLS, DW_ROWS };
+  const int* sig;
+  int num_vt;
+  int vt_end;  // one past the chunk's last vocab tile
+  int mode;
+  int t;       // the token tile (DLOGITS, DH)
+  int vt;      // the vocab tile of the block's first column (DLOGITS, DW_COLS), row
+               // (DW_ROWS) or K step 0 (DH); the chunk's first before at()
+
+  __device__ void at(int m0, int n0) {
+    t = m0 / TOK_TILE;
+    if (mode == DLOGITS || mode == DW_COLS) vt += n0 / BN;
+    if (mode == DW_ROWS) vt += m0 / BN;
+  }
+  __device__ bool live(int tt, int v) const {
+    return sig == nullptr || (v < vt_end && sig[(size_t)tt * num_vt + v] != 0);
+  }
+  __device__ bool skips() const { return sig != nullptr; }
+  __device__ bool active(int k) const {
+    switch (mode) {
+      case DLOGITS: return live(t, vt) || live(t, vt + 1);  // the whole tile
+      case DH: return live(t, vt + k / 2);                   // K runs over vocab
+      case DW_COLS: return live(k / 2, vt) || live(k / 2, vt + 1);  // K over tokens
+      default: return live(k / 2, vt);
+    }
+  }
+};
+
+// dl[m0 + r, n0 + c] = bf16(exp(s - z) * dz) for the chunk's columns n0 + c < ncols;
+// zero past the vocab (vlim) and in a vocab tile the filter skips.
+struct DLogitsEpi {
+  static constexpr bool F32 = false;
+  const float* z;
+  const float* dz;
+  bf16* dl;
+  size_t ldl;
+  int vlim, ncols;
+  int m0, n0;
+  bool live[2];
+  __device__ void at(int m, int n, const SigFilter& f) {
+    m0 = m, n0 = n;
+    live[0] = f.live(f.t, f.vt);
+    live[1] = f.live(f.t, f.vt + 1);
+  }
+  struct Row {
+    float z, dz;
+  };
+  __device__ Row row(int r) const { return {z[m0 + r], dz[m0 + r]}; }
+  __device__ float apply(const Row& row, int c, float x) const {
+    return (live[c / BN] && n0 + c < vlim) ? __expf(x - row.z) * row.dz : 0.f;
+  }
+  __device__ void store(int r, int c, const uint4& v) const {
+    if (n0 + c < ncols) *reinterpret_cast<uint4*>(dl + (size_t)(m0 + r) * ldl + n0 + c) = v;
+  }
+};
+
+// dH: acc (+ dh32 if beta) into the f32 scratch, or at the last chunk into bf16 dh.
+struct DhEpi {
+  static constexpr bool F32 = true;
+  float* dh32;
+  bf16* dh;
+  int E, beta, last;
+  int m0, n0;
+  __device__ void at(int m, int n, const SigFilter&) { m0 = m, n0 = n; }
+  __device__ void store(int r, int c, float4 a, float4 b) const {
+    if (n0 + c >= E) return;
+    const size_t off = (size_t)(m0 + r) * E + n0 + c;
+    if (beta) {
+      const float4 p = *reinterpret_cast<const float4*>(dh32 + off);
+      const float4 q = *reinterpret_cast<const float4*>(dh32 + off + 4);
+      a = make_float4(a.x + p.x, a.y + p.y, a.z + p.z, a.w + p.w);
+      b = make_float4(b.x + q.x, b.y + q.y, b.z + q.z, b.w + q.w);
+    }
+    if (last) {
+      *reinterpret_cast<uint4*>(dh + off) =
+          uint4{sm90::pack_bf16x2(a.x, a.y), sm90::pack_bf16x2(a.z, a.w),
+                sm90::pack_bf16x2(b.x, b.y), sm90::pack_bf16x2(b.z, b.w)};
+    } else {
+      *reinterpret_cast<float4*>(dh32 + off) = a;
+      *reinterpret_cast<float4*>(dh32 + off + 4) = b;
+    }
+  }
+};
+
+// dW: bf16 stores of the tile at (m0, n0) of the chunk's slice of dw.
+struct DwEpi : sm90::StoreBf16 {
+  __device__ void at(int m, int n, const SigFilter&) { r0 = m, c0 = n; }
+};
+
+constexpr int GROUP_ROWS = 16;  // row tiles of a group in the block order below
+
+// One tile of one of lce_bwd's products: grid (ceil(cols / 256), ceil(rows / 128)).
+// B's n coordinate is offset by b_n (dlogits: the chunk's first vocab column), its k
+// coordinate by b_k0 (dH: the same).
+template <bool A_MN, bool B_MN, class Epi>
+__global__ void __launch_bounds__(sm90::THREADS, 1)
+lce_sm90_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
+                int b_n, int b_k0, int nk, SigFilter filt, Epi epi) {
+  // Blocks run in groups of GROUP_ROWS row tiles, column by column, so that the blocks
+  // in flight share their A rows and B columns in L2 (row by row, the 132 blocks in
+  // flight would stream every column of B, 64 MB of w for dlogits, for one or two row
+  // tiles).
+  const int num_n = gridDim.x, num_m = gridDim.y;
+  const int pid = blockIdx.y * num_n + blockIdx.x;
+  const int first = pid / (GROUP_ROWS * num_n) * GROUP_ROWS;
+  const int rows = min(num_m - first, GROUP_ROWS);
+  const int in_group = pid - first * num_n;
+  const int m0 = (first + in_group % rows) * sm90::BM, n0 = in_group / rows * sm90::BN;
+  filt.at(m0, n0);
+  epi.at(m0, n0, filt);
+  sm90::gemm_tile<A_MN, B_MN>(&ta, &tb, sm90::Tile{m0, b_n + n0, b_k0, 0, nk}, filt, epi);
+}
+
+template <bool A_MN, bool B_MN, class Epi>
+cudaError_t launch_sm90(const CUtensorMap& ta, const CUtensorMap& tb, int cols, int rows,
+                        int b_n, int b_k0, int nk, const SigFilter& filt, const Epi& epi,
+                        cudaStream_t s) {
+  const auto kernel = lce_sm90_kernel<A_MN, B_MN, Epi>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, sm90::SMEM);
+  if (err != cudaSuccess) return err;
+  dim3 grid((cols + sm90::BN - 1) / sm90::BN, (rows + sm90::BM - 1) / sm90::BM);
+  kernel<<<grid, sm90::THREADS, sm90::SMEM, s>>>(ta, tb, b_n, b_k0, nk, filt, epi);
+  return cudaGetLastError();
+}
+
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
@@ -498,7 +654,7 @@ extern "C" int lce_fwd(const void* h, const void* w, float* z, float* bmax, floa
 
 // dh (N, E) bf16; dw bf16 in w's layout. dl: (N, chunk) bf16 scratch, chunk a multiple
 // of 128; dh32: (N, E) f32 scratch, needed when V > chunk (else may be null). sig may
-// be null.
+// be null. The mma.sync route: any E and V.
 extern "C" int lce_bwd(const void* h, const void* w, const float* z, const float* dz,
                        const int* sig, void* dh, void* dw, void* dl, float* dh32, int N, int E,
                        int V, int w_vmajor, int chunk, void* stream) {
@@ -563,4 +719,74 @@ extern "C" int lce_bwd(const void* h, const void* w, const float* z, const float
     if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaSuccess;
+}
+
+// The wgmma route of lce_bwd (E % 8 == 0, V % 8 == 0, h and w 16-byte aligned), with
+// lce_bwd's arguments.
+extern "C" int lce_bwd_wgmma(const void* h, const void* w, const float* z, const float* dz,
+                             const int* sig, void* dh, void* dw, void* dl, float* dh32, int N,
+                             int E, int V, int w_vmajor, int chunk, void* stream) {
+  if (N % TOK_TILE || E < 1 || V < 1 || E % 8 || V % 8 || chunk < BN || chunk % BN)
+    return (int)cudaErrorInvalidValue;
+  const int n_chunks = (V + chunk - 1) / chunk;
+  if (n_chunks > 1 && dh32 == nullptr) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int num_vt = (V + BN - 1) / BN;
+  // h as the K-major A of dlogits, and MN-major (dW's A untied, B tied); w as dlogits'
+  // B and as dH's B = w^T
+  CUtensorMap h_k, h_mn, w_dl, w_dh;
+  const uint64_t hn = (uint64_t)N * E, wn = (uint64_t)E * V;
+  cudaError_t err = sm90::operand_map(&h_k, h, E, N, E, 1, hn, sm90::box_rows(true, false));
+  if (err == cudaSuccess) err = sm90::operand_map(&h_mn, h, E, N, E, 1, hn, 64);
+  if (err == cudaSuccess)
+    err = w_vmajor ? sm90::operand_map(&w_dl, w, E, V, E, 1, wn, sm90::box_rows(false, false))
+                   : sm90::operand_map(&w_dl, w, V, E, V, 1, wn, sm90::box_rows(false, true));
+  if (err == cudaSuccess)
+    err = w_vmajor ? sm90::operand_map(&w_dh, w, E, V, E, 1, wn, sm90::box_rows(false, true))
+                   : sm90::operand_map(&w_dh, w, V, E, V, 1, wn, sm90::box_rows(false, false));
+  if (err != cudaSuccess) return (int)err;
+  for (int c = 0; c < n_chunks && err == cudaSuccess; ++c) {
+    const int v0 = c * chunk;
+    const int width = min(chunk, V - v0);  // real vocab columns of this chunk
+    const int kpad = (width + BN - 1) / BN * BN;  // columns of dl written for this chunk
+    const int vt0 = v0 / BN, vt_end = vt0 + kpad / BN;
+    // dl (N, kpad) with rows `chunk` apart: K-major A of dH, MN-major for dW
+    CUtensorMap dl_k, dl_mn;
+    const uint64_t dln = (uint64_t)N * chunk;
+    err = sm90::operand_map(&dl_k, dl, kpad, N, chunk, 1, dln, sm90::box_rows(true, false));
+    if (err == cudaSuccess) err = sm90::operand_map(&dl_mn, dl, kpad, N, chunk, 1, dln, 64);
+    if (err != cudaSuccess) break;
+
+    const SigFilter f_dl{sig, num_vt, vt_end, SigFilter::DLOGITS, 0, vt0};
+    const DLogitsEpi e_dl{z, dz, static_cast<bf16*>(dl), (size_t)chunk, V - v0, kpad};
+    const int e_steps = (E + sm90::BK - 1) / sm90::BK;
+    err = w_vmajor ? launch_sm90<false, false>(h_k, w_dl, kpad, N, v0, 0, e_steps, f_dl, e_dl, s)
+                   : launch_sm90<false, true>(h_k, w_dl, kpad, N, v0, 0, e_steps, f_dl, e_dl, s);
+    if (err != cudaSuccess) break;
+
+    const bool last = c == n_chunks - 1;
+    const SigFilter f_dh{sig, num_vt, vt_end, SigFilter::DH, 0, vt0};
+    const DhEpi e_dh{dh32, static_cast<bf16*>(dh), E, c > 0 ? 1 : 0, last ? 1 : 0};
+    const int v_steps = kpad / sm90::BK;
+    err = w_vmajor ? launch_sm90<false, true>(dl_k, w_dh, E, N, 0, v0, v_steps, f_dh, e_dh, s)
+                   : launch_sm90<false, false>(dl_k, w_dh, E, N, 0, v0, v_steps, f_dh, e_dh, s);
+    if (err != cudaSuccess) break;
+
+    const int t_steps = N / sm90::BK;
+    bf16* dwp = static_cast<bf16*>(dw);
+    if (w_vmajor) {
+      // dW[v0 : v0 + width, :] = dl^T (width x N) . h (N x E)
+      const SigFilter f_dw{sig, num_vt, vt_end, SigFilter::DW_ROWS, 0, vt0};
+      DwEpi e_dw;
+      e_dw.out = dwp + (size_t)v0 * E, e_dw.ld = E, e_dw.r_end = width, e_dw.c_end = E;
+      err = launch_sm90<true, true>(dl_mn, h_mn, E, width, 0, 0, t_steps, f_dw, e_dw, s);
+    } else {
+      // dW[:, v0 : v0 + width] = h^T (E x N) . dl (N x kpad)
+      const SigFilter f_dw{sig, num_vt, vt_end, SigFilter::DW_COLS, 0, vt0};
+      DwEpi e_dw;
+      e_dw.out = dwp + v0, e_dw.ld = V, e_dw.r_end = E, e_dw.c_end = width;
+      err = launch_sm90<true, true>(h_mn, dl_mn, kpad, E, 0, 0, t_steps, f_dw, e_dw, s);
+    }
+  }
+  return (int)err;
 }

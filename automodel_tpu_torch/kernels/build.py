@@ -16,7 +16,7 @@ import shutil
 import subprocess
 import time
 
-__all__ = ["SOURCES", "build_all", "check", "library", "nvcc_path"]
+__all__ = ["SOURCES", "aligned16", "build_all", "check", "launch", "library", "nvcc_path"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -36,9 +36,11 @@ SOURCES: dict[str, dict[str, list]] = {
     "linear_ce.cu": {
         "lce_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
         "lce_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "lce_bwd_wgmma": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     },
     "grouped_gemm.cu": {
         "gmm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "gmm_wgmma": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
         "tgmm": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     },
     "ring_chunk.cu": {
@@ -123,3 +125,18 @@ def check(err: int, name: str) -> None:
     """Raise when a C entry point returned a CUDA error."""
     if err != 0:
         raise RuntimeError(f"{name} failed with cudaError_t {err}")
+
+
+def launch(source: str, name: str, device, *args) -> None:
+    """Call the C entry point ``name`` of ``source`` on ``device``'s current stream
+    (appended as the last argument) and raise if it returns a CUDA error."""
+    import torch
+
+    with torch.cuda.device(device):  # the launch goes to the calling thread's device
+        err = getattr(library(source), name)(*args, torch.cuda.current_stream(device).cuda_stream)
+    check(err, name)
+
+
+def aligned16(*tensors) -> bool:
+    """True when every tensor's storage starts on a 16-byte boundary (TMA's rule)."""
+    return all(t.data_ptr() % 16 == 0 for t in tensors)

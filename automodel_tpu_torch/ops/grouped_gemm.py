@@ -10,20 +10,27 @@ w read as its transpose in place, for dX; ``tgmm`` for dW. A CPU tensor goes to
 :func:`grouped_matmul_reference`, a per-group loop with f32 accumulation that also
 serves as the kernels' check on the card.
 
-The kernels take any N, D, F (every edge is masked), so unlike the JAX wrapper nothing
+``gmm`` has two routes, picked from the shapes before the launch (:func:`gmm_route`):
+``wgmma`` (the Hopper core, TMA-fed) when the row lengths K and Nout are multiples of
+8 bf16 and the operands start 16-byte aligned, as TMA requires, else ``mma_sync`` (any
+shape). Between them the kernels take any N, D, F, so unlike the JAX wrapper nothing
 is rerouted to another implementation: a shape or dtype they cannot take raises.
 ``group_sizes`` stays on the device: the wrapper derives its prefix sum there and the
-grids from the static shapes, so no launch waits for the host.
+grids from the static shapes (each wgmma-route block finds its rows from the prefix
+sum itself), so no launch waits for the host.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["LAUNCHES", "gmm", "grouped_matmul", "grouped_matmul_reference", "tgmm"]
+__all__ = ["LAUNCHES", "ROUTE_LAUNCHES", "gmm", "gmm_route", "grouped_matmul",
+           "grouped_matmul_reference", "tgmm"]
 
 # one count per kernel launch, so a run can show that it went through the kernels
 LAUNCHES = {"gmm": 0, "tgmm": 0}
+# gmm's launches by route (their sum is LAUNCHES["gmm"])
+ROUTE_LAUNCHES = {"gmm/wgmma": 0, "gmm/mma_sync": 0}
 _SOURCE = "grouped_gemm.cu"
 
 
@@ -62,35 +69,43 @@ def _ends(group_sizes: torch.Tensor) -> torch.Tensor:
     return torch.cumsum(group_sizes, 0, dtype=torch.int32)
 
 
+def gmm_route(x: torch.Tensor, w: torch.Tensor, transpose_w: bool = False) -> str:
+    """``"wgmma"`` when TMA can map x and w (K and Nout multiples of 8 bf16, both
+    starting 16-byte aligned), else ``"mma_sync"``; decided before the launch."""
+    from automodel_tpu_torch.kernels.build import aligned16
+
+    k = x.shape[1]
+    n_out = w.shape[1] if transpose_w else w.shape[2]
+    return "wgmma" if k % 8 == 0 and n_out % 8 == 0 and aligned16(x, w) else "mma_sync"
+
+
 def gmm(x: torch.Tensor, w: torch.Tensor, ends: torch.Tensor, transpose_w: bool = False):
     """Launch ``gmm`` on checked inputs: ``x @ w[e]`` per group, or with
-    ``transpose_w`` ``x @ w[e]^T`` (w (E, D, F) read in place; x (N, F) -> (N, D))."""
-    from automodel_tpu_torch.kernels.build import check, library
+    ``transpose_w`` ``x @ w[e]^T`` (w (E, D, F) read in place; x (N, F) -> (N, D)), on
+    the route :func:`gmm_route` picks."""
+    from automodel_tpu_torch.kernels.build import launch
 
     n, k = x.shape
     n_out = w.shape[1] if transpose_w else w.shape[2]
     out = torch.empty((n, n_out), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):  # the launch goes to the calling thread's device
-        err = library(_SOURCE).gmm(x.data_ptr(), w.data_ptr(), ends.data_ptr(), out.data_ptr(),
-                                   n, k, n_out, w.shape[0], int(transpose_w),
-                                   torch.cuda.current_stream(x.device).cuda_stream)
-    check(err, "gmm")
+    route = gmm_route(x, w, transpose_w)
+    launch(_SOURCE, "gmm_wgmma" if route == "wgmma" else "gmm", x.device, x.data_ptr(),
+           w.data_ptr(), ends.data_ptr(), out.data_ptr(), n, k, n_out, w.shape[0],
+           int(transpose_w))
     LAUNCHES["gmm"] += 1
+    ROUTE_LAUNCHES[f"gmm/{route}"] += 1
     return out
 
 
 def tgmm(x: torch.Tensor, dout: torch.Tensor, ends: torch.Tensor, num_groups: int):
     """Launch ``tgmm`` on checked inputs: (E, D, F) with ``dw[e] = x_e^T @ dout_e``."""
-    from automodel_tpu_torch.kernels.build import check, library
+    from automodel_tpu_torch.kernels.build import launch
 
     n, d = x.shape
     f = dout.shape[1]
     dw = torch.empty((num_groups, d, f), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        err = library(_SOURCE).tgmm(x.data_ptr(), dout.data_ptr(), ends.data_ptr(),
-                                    dw.data_ptr(), n, d, f, num_groups,
-                                    torch.cuda.current_stream(x.device).cuda_stream)
-    check(err, "tgmm")
+    launch(_SOURCE, "tgmm", x.device, x.data_ptr(), dout.data_ptr(), ends.data_ptr(),
+           dw.data_ptr(), n, d, f, num_groups)
     LAUNCHES["tgmm"] += 1
     return dw
 

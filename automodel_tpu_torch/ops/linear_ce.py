@@ -13,6 +13,11 @@ gradient and is skipped. The test runs in torch between the kernels
 (:func:`block_significance`, the counterpart of ``_block_significance``), from the
 forward's per-(vocab tile, row) maxima. ``filter_eps=None`` gives exact gradients.
 
+``lce_bwd`` has two routes, picked from the shapes before the launch
+(:func:`lce_bwd_route`): ``wgmma`` (its three products on the Hopper core, TMA-fed)
+when E and V are multiples of 8 bf16 and h and w start 16-byte aligned, as TMA
+requires, else ``mma_sync`` (any E and V, e.g. GPT-2's vocabulary of 50,257).
+
 A CUDA tensor goes to the kernels or raises; a CPU tensor goes to
 :func:`fused_logsumexp_reference`, in f32, which applies the same filter at a tile
 given by the caller (the kernels' 128 x 128 by default; the JAX package's tiles in the
@@ -28,15 +33,18 @@ import math
 import torch
 import torch.nn.functional as F
 
-__all__ = ["LAUNCHES", "TILE_N", "TILE_V", "block_maxima", "block_significance",
-           "fused_logsumexp", "fused_logsumexp_reference", "gold_logits", "kernel_operand",
-           "kernel_supported", "lce_bwd", "lce_fwd"]
+__all__ = ["LAUNCHES", "ROUTE_LAUNCHES", "TILE_N", "TILE_V", "block_maxima",
+           "block_significance", "fused_logsumexp", "fused_logsumexp_reference", "gold_logits",
+           "kernel_operand", "kernel_supported", "lce_bwd", "lce_bwd_route", "lce_chunk",
+           "lce_fwd"]
 
 NEG_INF = -1e30
 TILE_N = 128  # token tile of the kernels and of the filter
 TILE_V = 128  # vocab tile of the kernels, of bmax and of the filter
 # one count per kernel launch, so a run can show that it went through the kernels
 LAUNCHES = {"lce_fwd": 0, "lce_bwd": 0}
+# lce_bwd's launches by route (their sum is LAUNCHES["lce_bwd"])
+ROUTE_LAUNCHES = {"lce_bwd/wgmma": 0, "lce_bwd/mma_sync": 0}
 _SOURCE = "linear_ce.cu"
 _CHUNK_BYTES = 256 * 2**20  # budget of the backward's (tokens, vocab chunk) bf16 buffer
 
@@ -159,7 +167,7 @@ def lce_fwd(h: torch.Tensor, w: torch.Tensor,
             vmajor: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the forward on checked inputs: ``(z (N,), bmax (ceil(V/128), N))``, f32.
     ``w`` is the (E, V) unembedding, or with ``vmajor`` its row-major (V, E) storage."""
-    from automodel_tpu_torch.kernels.build import check, library
+    from automodel_tpu_torch.kernels.build import launch
 
     n, e = h.shape
     v = w.shape[0] if vmajor else w.shape[1]
@@ -169,25 +177,38 @@ def lce_fwd(h: torch.Tensor, w: torch.Tensor,
     z = torch.empty(n, dtype=torch.float32, device=h.device)
     bmax = torch.empty((num_vt, n), dtype=torch.float32, device=h.device)
     part = torch.empty((2, splits, n), dtype=torch.float32, device=h.device)
-    with torch.cuda.device(h.device):
-        err = library(_SOURCE).lce_fwd(h.data_ptr(), w.data_ptr(), z.data_ptr(), bmax.data_ptr(),
-                                       part[0].data_ptr(), part[1].data_ptr(), n, e, v,
-                                       int(vmajor), splits,
-                                       torch.cuda.current_stream(h.device).cuda_stream)
-    check(err, "lce_fwd")
+    launch(_SOURCE, "lce_fwd", h.device, h.data_ptr(), w.data_ptr(), z.data_ptr(),
+           bmax.data_ptr(), part[0].data_ptr(), part[1].data_ptr(), n, e, v, int(vmajor), splits)
     LAUNCHES["lce_fwd"] += 1
     return z, bmax
 
 
+def lce_bwd_route(h: torch.Tensor, w: torch.Tensor, vmajor: bool = False) -> str:
+    """``"wgmma"`` when TMA can map h and w (E and V multiples of 8 bf16, both starting
+    16-byte aligned), else ``"mma_sync"``; decided before the launch. ``w`` as for
+    :func:`lce_fwd`."""
+    from automodel_tpu_torch.kernels.build import aligned16
+
+    e = h.shape[1]
+    v = w.shape[0] if vmajor else w.shape[1]
+    return "wgmma" if e % 8 == 0 and v % 8 == 0 and aligned16(h, w) else "mma_sync"
+
+
+def lce_chunk(n: int, v: int) -> int:
+    """Vocab columns of the backward's (n, chunk) bf16 buffer: a multiple of the tile
+    within ``_CHUNK_BYTES``, at least one tile and at most the padded vocabulary."""
+    return max(TILE_V, min(-(-v // TILE_V) * TILE_V, _CHUNK_BYTES // (2 * n) // TILE_V * TILE_V))
+
+
 def lce_bwd(h, w, z, dz, sig, vmajor: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the backward on checked inputs: ``(dh, dw)`` in bf16, dw in w's layout
-    (see :func:`lce_fwd`). ``sig`` is the (N/128, ceil(V/128)) int32 filter mask, or
-    None for exact gradients."""
-    from automodel_tpu_torch.kernels.build import check, library
+    (see :func:`lce_fwd`), on the route :func:`lce_bwd_route` picks. ``sig`` is the
+    (N/128, ceil(V/128)) int32 filter mask, or None for exact gradients."""
+    from automodel_tpu_torch.kernels.build import launch
 
     n, e = h.shape
     v = w.shape[0] if vmajor else w.shape[1]
-    chunk = max(TILE_V, min(-(-v // TILE_V) * TILE_V, _CHUNK_BYTES // (2 * n) // TILE_V * TILE_V))
+    chunk = lce_chunk(n, v)
     dh = torch.empty_like(h)
     dw = torch.empty_like(w)
     dl = torch.empty((n, chunk), dtype=torch.bfloat16, device=h.device)
@@ -195,14 +216,13 @@ def lce_bwd(h, w, z, dz, sig, vmajor: bool = False) -> tuple[torch.Tensor, torch
     z, dz = z.contiguous(), dz.float().contiguous()
     if sig is not None:
         sig = sig.to(torch.int32).contiguous()
-    with torch.cuda.device(h.device):
-        err = library(_SOURCE).lce_bwd(
-            h.data_ptr(), w.data_ptr(), z.data_ptr(), dz.data_ptr(),
-            None if sig is None else sig.data_ptr(), dh.data_ptr(), dw.data_ptr(),
-            dl.data_ptr(), None if dh32 is None else dh32.data_ptr(), n, e, v, int(vmajor), chunk,
-            torch.cuda.current_stream(h.device).cuda_stream)
-    check(err, "lce_bwd")
+    route = lce_bwd_route(h, w, vmajor)
+    launch(_SOURCE, "lce_bwd_wgmma" if route == "wgmma" else "lce_bwd", h.device, h.data_ptr(),
+           w.data_ptr(), z.data_ptr(), dz.data_ptr(), None if sig is None else sig.data_ptr(),
+           dh.data_ptr(), dw.data_ptr(), dl.data_ptr(), None if dh32 is None else dh32.data_ptr(),
+           n, e, v, int(vmajor), chunk)
     LAUNCHES["lce_bwd"] += 1
+    ROUTE_LAUNCHES[f"lce_bwd/{route}"] += 1
     return dh, dw
 
 

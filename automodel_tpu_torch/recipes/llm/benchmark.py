@@ -133,7 +133,7 @@ def _kernel_class(name: str) -> str:
         return "flash_kernels"
     if "lce_" in low:  # lce_fwd/merge/dlogits/gemm kernels of csrc/linear_ce.cu
         return "linear_ce_kernels"
-    if "gmm_kernel" in low:  # gmm_kernel / tgmm_kernel of csrc/grouped_gemm.cu
+    if "gmm_kernel" in low or "gmm_sm90_kernel" in low:  # csrc/grouped_gemm.cu
         return "grouped_gemm_kernels"
     if "ring_fwd_kernel" in low or "ring_bwd_kernel" in low:  # csrc/ring_chunk.cu
         return "ring_kernels"

@@ -23,21 +23,28 @@ Phases, in order; any failure exits non-zero before the last line:
    (one phase alone: ``chip_smoke._timings(torch, fa, 4, 2048, 32, 4, 128)``);
 5. Llama-3.2-1B width at 2 layers: one forward and backward with attention "flash"
    against attention "xla" on the same weights;
-6. lce_fwd / lce_bwd (fused linear CE) against their plain version in seven cases:
+6. lce_fwd / lce_bwd (fused linear CE) against their plain version in eight cases:
    (a) N=8192, E=2048, V=128,256 with 10% ignored labels, exact; (b) the same with h
    scaled up under filter_eps=1e-7; (c) ragged N=8190 with V=50,257; (d) E=4096;
    (e) shape (b) with a tied unembedding (the (V, E) embedding read in place);
    (f) E=1000, not a multiple of the 128 tile; (g) E=1003, tied, rows not 16-byte
-   aligned;
+   aligned; (h) E=8, V=16, tied, every dimension inside one tile; each case line
+   names lce_bwd's route (wgmma where E and V are multiples of 8, else mma_sync: c, f,
+   g) and fails if another was launched;
    then their times at shape (a) beside the bound, the plain version and the
-   yardstick torch.logsumexp((h @ w).float(), -1), and the peak memory that one
-   forward and backward of linear_cross_entropy adds;
+   yardstick torch.logsumexp((h @ w).float(), -1), lce_bwd's time at main path 7's
+   shape (N=32768, E=4096) beside its bound, and the peak memory that one forward and
+   backward of linear_cross_entropy adds;
 7. gmm / tgmm (grouped expert GEMM: forward, dX, dW) against their plain version in
-   four cases: (a) the slice's gate_up (N=65,536 routed rows, D=2048, F=1536, E=128,
+   six cases: (a) the slice's gate_up (N=65,536 routed rows, D=2048, F=1536, E=128,
    group sizes from a softmax top-8 router), (b) its down projection (D=768, F=2048),
    (c) empty head / middle / tail experts with N, D and F off the tiles, (d) one expert
-   owning every row with rows not 16-byte aligned; then gmm and tgmm times at (a) and
-   (b) beside the bound, the plain version and torch._grouped_mm;
+   owning every row with rows not 16-byte aligned, (e) D=16, F=24, N=30, every
+   dimension inside one tile, (f) c's experts and 300 rows past the groups, whose out
+   and dX must be exactly 0; each case line names gmm's routes
+   (wgmma where K and Nout are multiples of 8, else mma_sync: c, d) and fails if
+   others were launched; then gmm (forward and dX) and tgmm times at (a) and (b)
+   beside the bound, the plain version and torch._grouped_mm;
 8. Qwen3-30B-A3B width at 1 layer: the kernels against the plain versions on the same
    weights, with routing held fixed;
 8b. ring_fwd / ring_bwd (ring-attention chunk kernels) against their plain version, one
@@ -46,7 +53,7 @@ Phases, in order; any failure exits non-zero before the last line:
    positions restarting per document, (c) the round-robin layout, (d) a sliding window,
    (e) D 64, KH 2, non-causal, (f) S_local 1000 at cp 3; their times at (a) beside the
    bound and the plain version, and the whole ring against flash_fwd / flash_bwd and
-   SDPA on the unsharded S 32768;
+   SDPA on the unsharded S 32768, with flash's bound there;
 8c. Llama-3-8B width at 2 layers, seq 8192, cp 4 folded: context_parallel ring (the ring
    kernels) against allgather (the flash kernels) on the same weights;
 9. main path 1: the benchmark recipe on examples/benchmark/llama3_2_1b.yaml
@@ -70,7 +77,8 @@ Phases, in order; any failure exits non-zero before the last line:
    section replaced by the mock dataset (cp_config) and the published Meta-Llama-3-8B
    widths at 4 layers, one microbatch a step (LLAMA3_8B, llama3_8b_args);
 16. main path 8: train_ft on the same at 2 layers, default loss, 4096-token documents
-   packed into rows of 32768;
+   packed into rows of 32768; every main path also checks that each of its gmm and
+   lce_bwd launches took the wgmma route (``launches by route`` on its line);
 17. one JSON line of per-kernel numbers, the card line, then the result line.
 
 To run one phase alone on the card, import the script: e.g.
@@ -79,6 +87,11 @@ main path 5 configuration through the recipe:
 ``python3 -m automodel_tpu_torch.recipes.llm.benchmark -c
 examples/benchmark/qwen3_moe_a3b_proxy.yaml $(python3 -c "import chip_smoke;
 print(' '.join(chip_smoke.qwen3_args()))")``.
+
+``python3 chip_smoke.py --kernel-times [ROOT]`` builds the package of the checkout at
+ROOT (default: this one) and times only its gmm (forward and dX at a and b) and lce_bwd
+(at N=8192 / E=2048 and at main path 7's shape) on the inputs of the timing rows, so
+that two checkouts' kernels can be compared on one card in one call.
 """
 
 from __future__ import annotations
@@ -200,6 +213,36 @@ def _card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def _kernel_name(mangled: str) -> str:
+    """``kernel<args>`` from a mangled kernel name (template arguments that are ints,
+    bools or classes); the mangled name where it does not parse."""
+    name = mangled.replace("12_GLOBAL__N_1", "")  # the anonymous namespace
+    for m in re.finditer(r"(\d+)(?=[A-Za-z_])", name):
+        start = m.end()
+        ident = name[start:start + int(m.group(1))]
+        if not ident.endswith("kernel"):
+            continue
+        rest, args = name[start + len(ident):], []
+        if rest.startswith("I"):
+            i = 1
+            while i < len(rest) and rest[i] != "E":
+                lit = re.match(r"L[ib](\d+)E", rest[i:])
+                # a class: its length-prefixed name, nested (N ... E) in a namespace
+                # that may be a substitution (S_)
+                cls = re.match(r"(N(?:S[0-9A-Z]*_)?)?(\d+)", rest[i:])
+                if lit:
+                    args.append(lit.group(1))
+                    i += lit.end()
+                elif cls:
+                    j = i + cls.end()
+                    args.append(rest[j:j + int(cls.group(2))])
+                    i = j + int(cls.group(2)) + (1 if cls.group(1) else 0)
+                else:
+                    break
+        return ident + (f"<{','.join(args)}>" if args else "")
+    return mangled
+
+
 def _ptxas_report(log: str) -> list[str]:
     """``kernel<template args>: registers, spills`` from nvcc's -Xptxas -v output, and
     any note that ptxas serialised a kernel's wgmma instructions (C7514)."""
@@ -210,11 +253,7 @@ def _ptxas_report(log: str) -> list[str]:
             continue
         entry = re.search(r"entry function '(\S+)'", line)
         if entry:
-            name = entry.group(1)  # mangled; shortened to kernel<args> where it parses
-            k = re.search(r"\d([a-z_]*kernel[a-z_]*)(I(?:L[ib]\d+E)+E)?", name)
-            if k:
-                args = re.findall(r"L[ib](\d+)E", k.group(2) or "")
-                name = k.group(1) + (f"<{','.join(args)}>" if args else "")
+            name = _kernel_name(entry.group(1))
         elif name and ("registers" in line or "spill" in line):
             out.append(f"{name}: {line.split(':', 1)[-1].strip()}")
     return out
@@ -584,16 +623,22 @@ def _ring_timings(torch):
     sdpa_bwd_ms = _time_ms(torch, lambda: torch.autograd.grad(o_lib, (ql, kl, vl), dog,
                                                               retain_graph=True),
                            warmup=1, reps=3)
+    flash_bound = {}  # flash's bound at (L), from the timed tensors
+    for name, (flops, nbytes) in _flash_work(qg, kg, vg).items():
+        flash_bound[name] = max(flops / PEAK_FLOPS, nbytes / PEAK_BYTES) * 1e3
     del o_lib, ql, kl, vl, qg, kg, vg, dog
     torch.cuda.empty_cache()
     comparison = {"S": s, "ring_fwd_whole_ms": ring_fwd_all, "ring_bwd_whole_ms": ring_bwd_all,
                   "flash_fwd_ms": flash_fwd_ms, "flash_bwd_ms": flash_bwd_ms,
+                  "flash_fwd_bound_ms": flash_bound["flash_fwd"],
+                  "flash_bwd_bound_ms": flash_bound["flash_bwd"],
                   "sdpa_fwd_ms": sdpa_fwd_ms, "sdpa_bwd_ms": sdpa_bwd_ms}
     print(f"comparison at S={s} (B={b} H={h} KH={kh} D={d} causal): the whole folded ring "
           f"(cp={cp} launches and rotations) forward {ring_fwd_all:.3f} ms, backward "
-          f"{ring_bwd_all:.3f} ms; flash_fwd {flash_fwd_ms:.3f} ms, flash_bwd "
-          f"{flash_bwd_ms:.3f} ms on the unsharded sequence; SDPA forward {sdpa_fwd_ms:.3f} "
-          f"ms, backward {sdpa_bwd_ms:.3f} ms", flush=True)
+          f"{ring_bwd_all:.3f} ms; flash_fwd {flash_fwd_ms:.3f} ms (bound "
+          f"{flash_bound['flash_fwd']:.3f} ms), flash_bwd {flash_bwd_ms:.3f} ms (bound "
+          f"{flash_bound['flash_bwd']:.3f} ms) on the unsharded sequence; SDPA forward "
+          f"{sdpa_fwd_ms:.3f} ms, backward {sdpa_bwd_ms:.3f} ms", flush=True)
     out["ring_fwd"]["comparison_unsharded"] = comparison
     return out
 
@@ -773,25 +818,32 @@ def _router_group_sizes(torch, tokens, d, e, k, seed=0):
         0, idx, torch.ones_like(idx, dtype=torch.int32))
 
 
-def _gmm_inputs(torch, sizes, d, f, seed):
+def _gmm_inputs(torch, sizes, d, f, seed, extra=0):
+    """x, w, dout with N = sum(sizes) + ``extra`` rows (rows past the groups)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    n = int(sizes.sum())
+    n = int(sizes.sum()) + extra
     x = torch.randn(n, d, device="cuda", generator=g).to(torch.bfloat16)
     w = (torch.randn(sizes.numel(), d, f, device="cuda", generator=g) / d**0.5).to(torch.bfloat16)
     dout = torch.randn(n, f, device="cuda", generator=g).to(torch.bfloat16)
     return x, w, dout
 
 
-def _gmm_case(torch, name, sizes, d, f):
+def _gmm_case(torch, name, sizes, d, f, extra=0):
     """gmm (forward, dX) and tgmm (dW) against the plain version in f32 from the same
-    bf16 inputs; dW of an empty expert must be exactly zero."""
+    bf16 inputs; dW of an empty expert must be exactly zero, and so must out and dX on
+    the ``extra`` rows past the groups; each gmm launch must take the route the wrapper
+    names for its shapes."""
     from automodel_tpu_torch.ops import grouped_gemm as gg
 
-    x, w, dout = _gmm_inputs(torch, sizes, d, f, seed=d + f)
+    x, w, dout = _gmm_inputs(torch, sizes, d, f, seed=d + f, extra=extra)
+    routes = {"forward": gg.gmm_route(x, w), "dX": gg.gmm_route(dout, w, transpose_w=True)}
     xk, wk = x.clone().requires_grad_(), w.clone().requires_grad_()
+    before = dict(gg.ROUTE_LAUNCHES)
     out = gg.grouped_matmul(xk, wk, sizes)
     dx, dw = torch.autograd.grad(out, (xk, wk), dout)
     torch.cuda.synchronize()
+    taken = {k: gg.ROUTE_LAUNCHES[k] - before[k] for k in before}
+    want = {k: sum(f"gmm/{r}" == k for r in routes.values()) for k in before}
     xr, wr = x.float().requires_grad_(), w.float().requires_grad_()
     ref = gg.grouped_matmul_reference(xr, wr, sizes)
     rdx, rdw = torch.autograd.grad(ref, (xr, wr), dout.float())
@@ -799,12 +851,17 @@ def _gmm_case(torch, name, sizes, d, f):
     empty = sizes == 0
     n_empty = int(empty.sum())
     empty_ok = n_empty == 0 or bool((dw[empty] == 0).all())
+    past = x.shape[0] - extra
+    tail_ok = bool((out[past:] == 0).all() and (dx[past:] == 0).all())
     print(f"gmm case {name}: N={x.shape[0]} D={d} F={f} E={sizes.numel()} ({n_empty} empty, "
-          f"largest {int(sizes.max())} rows): rel L2 out {rel[0]:.3e} dX {rel[1]:.3e} dW "
-          f"{rel[2]:.3e} (tol {TOL_GMM}), dW of empty experts exactly 0: {empty_ok}",
-          flush=True)
-    if not (max(rel) <= TOL_GMM and empty_ok):
+          f"largest {int(sizes.max())} rows, {extra} rows past the groups): rel L2 out "
+          f"{rel[0]:.3e} dX {rel[1]:.3e} dW {rel[2]:.3e} (tol {TOL_GMM}), dW of empty experts "
+          f"exactly 0: {empty_ok}, out and dX past the groups exactly 0: {tail_ok}; routes "
+          f"forward {routes['forward']}, dX {routes['dX']} (launched {taken})", flush=True)
+    if not (max(rel) <= TOL_GMM and empty_ok and tail_ok):
         raise AssertionError(f"gmm case {name}: kernels disagree with the plain version")
+    if taken != want:
+        raise AssertionError(f"gmm case {name}: routes launched {taken}, named {want}")
     err_gmm = max((out.float() - ref).abs().max().item(), (dx.float() - rdx).abs().max().item())
     err_tgmm = (dw.float() - rdw).abs().max().item()
     del x, w, dout, xk, wk, out, dx, dw, xr, wr, ref, rdx, rdw
@@ -813,82 +870,110 @@ def _gmm_case(torch, name, sizes, d, f):
 
 
 def _library_grouped_mm(torch, x, w, dout, ends):
-    """The yardstick: ``torch._grouped_mm`` (forward and dW) where this torch has it,
-    timed here and used nowhere in the port; else one cuBLAS ``torch.matmul`` of the
-    same FLOPs, (N, D) x (D, F). Returns (name, forward fn, dW fn)."""
+    """The yardsticks: ``torch._grouped_mm`` for the forward, dX (w transposed in place)
+    and dW where this torch has it, timed here and used nowhere in the port; else one
+    cuBLAS ``torch.matmul`` of the same FLOPs. Returns (name, forward fn, dX fn, dW fn)."""
     if hasattr(torch, "_grouped_mm"):
         fwd = (lambda: torch._grouped_mm(x, w, offs=ends))
+        dx = (lambda: torch._grouped_mm(dout, w.transpose(-2, -1), offs=ends))
         dw = (lambda: torch._grouped_mm(x.t(), dout, offs=ends))
         try:
-            fwd(), dw()
+            fwd(), dx(), dw()
             torch.cuda.synchronize()
-            return f"torch._grouped_mm (torch {torch.__version__})", fwd, dw
+            return f"torch._grouped_mm (torch {torch.__version__})", fwd, dx, dw
         except RuntimeError as exc:
             print(f"  torch._grouped_mm refused these operands: {str(exc).splitlines()[0]}")
     w0 = w[0].contiguous()
-    return ("torch.matmul (N, D) x (D, F)", lambda: torch.matmul(x, w0),
-            lambda: torch.matmul(x.t(), dout))
+    return ("torch.matmul stand-in of the same FLOPs", lambda: torch.matmul(x, w0),
+            lambda: torch.matmul(dout, w0.t()), lambda: torch.matmul(x.t(), dout))
+
+
+def _gmm_work(n, d, f, e, live):
+    """FLOPs and bytes of gmm's forward, its dX and tgmm at N routed rows, D, F, E
+    experts of which ``live`` have rows (only their weights are read); each input read
+    once, each output written once, plus the (E,) int32 group offsets."""
+    flops = 2 * n * d * f
+    return {"forward": (flops, 2 * (n * d + live * d * f + n * f) + 4 * e),
+            "dX": (flops, 2 * (n * f + live * d * f + n * d) + 4 * e),
+            "tgmm": (flops, 2 * (n * d + n * f + e * d * f) + 4 * e)}
+
+
+# where each grouped GEMM timing goes in the kernels line: case a's forward and tgmm
+# are the rows themselves (None), the rest keyed sub-rows
+_GMM_ROW_KEYS = {("forward", "a"): None, ("forward", "b"): "at_case_b", ("dX", "a"): "dx",
+                 ("dX", "b"): "dx_at_case_b", ("tgmm", "a"): None, ("tgmm", "b"): "at_case_b"}
 
 
 def _gmm_timings(torch, sizes):
-    """ms of gmm (forward) and tgmm (dW) at the slice's gate_up (a) and down (b) shapes,
-    with bound, plain version and yardstick."""
+    """ms of gmm (forward and dX) and tgmm (dW) at the slice's gate_up (a) and down (b)
+    shapes, with bound, plain version and yardstick."""
     from automodel_tpu_torch.ops import grouped_gemm as gg
 
     out = {"gmm": {}, "tgmm": {}}
     e = sizes.numel()
-    live = int((sizes > 0).sum())  # experts with rows: only their weights are read
+    live = int((sizes > 0).sum())
     ends = gg._ends(sizes)
     for case, d, f in (("a", 2048, 1536), ("b", 768, 2048)):
         x, w, dout = _gmm_inputs(torch, sizes, d, f, seed=11)
         n = x.shape[0]
-        flops = 2 * n * d * f
-        fwd_bytes = 2 * (n * d + live * d * f + n * f) + 4 * e
-        dw_bytes = 2 * (n * d + n * f + e * d * f) + 4 * e
-        name, lib_fwd, lib_dw = _library_grouped_mm(torch, x, w, dout, ends)
-        wp = w.clone().requires_grad_()
-        ref = gg.grouped_matmul_reference(x, wp, sizes)
+        work = _gmm_work(n, d, f, e, live)
+        name, lib_fwd, lib_dx, lib_dw = _library_grouped_mm(torch, x, w, dout, ends)
+        xp, wp = x.clone().requires_grad_(), w.clone().requires_grad_()
+        ref = gg.grouped_matmul_reference(xp, wp, sizes)
         times = {
-            "gmm": (_time_ms(torch, lambda: gg.gmm(x, w, ends)),
-                    _time_ms(torch, lambda: gg.grouped_matmul_reference(x, w, sizes),
-                             warmup=1, reps=5),
-                    _time_ms(torch, lib_fwd), fwd_bytes),
+            "forward": (_time_ms(torch, lambda: gg.gmm(x, w, ends)),
+                        _time_ms(torch, lambda: gg.grouped_matmul_reference(x, w, sizes),
+                                 warmup=1, reps=5),
+                        _time_ms(torch, lib_fwd), gg.gmm_route(x, w)),
+            "dX": (_time_ms(torch, lambda: gg.gmm(dout, w, ends, transpose_w=True)),
+                   _time_ms(torch, lambda: torch.autograd.grad(ref, xp, dout, retain_graph=True),
+                            warmup=1, reps=5),
+                   _time_ms(torch, lib_dx), gg.gmm_route(dout, w, transpose_w=True)),
             "tgmm": (_time_ms(torch, lambda: gg.tgmm(x, dout, ends, e)),
                      _time_ms(torch, lambda: torch.autograd.grad(ref, wp, dout,
                                                                  retain_graph=True),
                               warmup=1, reps=5),
-                     _time_ms(torch, lib_dw), dw_bytes)}
-        for kname, (ms, plain, lib, nbytes) in times.items():
+                     _time_ms(torch, lib_dw), "mma_sync")}
+        for part, (ms, plain, lib, route) in times.items():
+            flops, nbytes = work[part]
             t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
             row = {"ms": ms, "plain_ms": plain, "library_ms": lib,
                    "bound_ms": max(t_ops, t_bytes),
-                   "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library": name}
-            if case == "a":
+                   "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library": name,
+                   "route": route}
+            kname = "tgmm" if part == "tgmm" else "gmm"
+            key = _GMM_ROW_KEYS[part, case]
+            if key is None:
                 out[kname].update(row)
             else:
-                out[kname]["at_case_b"] = row
-            print(f"time {kname} case {case} at N={n} D={d} F={f} E={e}: {ms:.3f} ms, bound "
-                  f"{row['bound_ms']:.3f} ms ({row['bound_by']}: {flops / 1e9:.1f} GFLOP, "
-                  f"{nbytes / 1e6:.1f} MB), plain {plain:.3f} ms, yardstick {lib:.3f} ms "
-                  f"({name})", flush=True)
-        del x, w, dout, wp, ref
+                out[kname][key] = row
+            print(f"time {kname} {part} case {case} at N={n} D={d} F={f} E={e} ({route}): "
+                  f"{ms:.3f} ms, bound {row['bound_ms']:.3f} ms ({row['bound_by']}: "
+                  f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB), plain {plain:.3f} ms, "
+                  f"yardstick {lib:.3f} ms ({name})", flush=True)
+        del x, w, dout, xp, wp, ref
         torch.cuda.empty_cache()
     return out
 
 
 def _gmm_phase(torch, errs):
-    """Grouped GEMM cases a-d and timings. a / b: the slice's gate_up and down shapes
+    """Grouped GEMM cases a-f and timings. a / b: the slice's gate_up and down shapes
     with group sizes from a softmax top-8 router over 8192 tokens and 128 experts; c:
     empty head / mid / tail experts, N not a tile multiple, D = 1000 and F = 1003; d:
     one expert owning every row, D = 1003 (rows of x and the K of dW not 16-byte
-    aligned)."""
+    aligned); e: D = 16, F = 24, N = 30 with an empty expert, on the wgmma route with
+    every dimension inside one tile (TMA boxes past the tensor's edges); f: c's group
+    sizes with 300 rows past the groups at D = 256, F = 512, on the wgmma route (its
+    tail tiles zero those rows)."""
     sizes = _router_group_sizes(torch, 8192, 2048, 128, 8)
     ragged = torch.tensor([0, 0, 300, 0, 77, 5, 0, 1, 134, 0, 0], dtype=torch.int32,
                           device="cuda")
     owner = torch.tensor([0, 1000, 0, 0], dtype=torch.int32, device="cuda")
+    small = torch.tensor([5, 0, 11, 14], dtype=torch.int32, device="cuda")
     errs.update({"gmm": 0.0, "tgmm": 0.0})
     for case in (("a", sizes, 2048, 1536), ("b", sizes, 768, 2048),
-                 ("c", ragged, 1000, 1003), ("d", owner, 1003, 1000)):
+                 ("c", ragged, 1000, 1003), ("d", owner, 1003, 1000), ("e", small, 16, 24),
+                 ("f", ragged, 256, 512, 300)):
         err_gmm, err_tgmm = _gmm_case(torch, *case)
         errs["gmm"] = max(errs["gmm"], err_gmm)
         errs["tgmm"] = max(errs["tgmm"], err_tgmm)
@@ -940,13 +1025,36 @@ def _counters():
 
 
 def _reset_counts():
-    for counter in _counters():
+    for counter in (*_counters(), *_route_counters()):
         for key in counter:
             counter[key] = 0
 
 
 def _read_counts() -> dict:
     return {k: v for counter in _counters() for k, v in counter.items()}
+
+
+def _route_counters():
+    from automodel_tpu_torch.ops import grouped_gemm as gg, linear_ce as lce
+
+    return gg.ROUTE_LAUNCHES, lce.ROUTE_LAUNCHES
+
+
+def _read_routes() -> dict:
+    """Launches of gmm and lce_bwd by route ("gmm/wgmma", "lce_bwd/mma_sync", ...)."""
+    return {k: v for counter in _route_counters() for k, v in counter.items()}
+
+
+def _check_routes(name, launches) -> dict:
+    """Every launch of gmm and lce_bwd on a main path must have taken the wgmma route;
+    returns the launches with the route counts added."""
+    routes = _read_routes()
+    print(f"{name}: launches by route {routes}", flush=True)
+    for kernel in ("gmm", "lce_bwd"):
+        if routes[f"{kernel}/wgmma"] != launches[kernel]:
+            raise AssertionError(f"{name}: {launches[kernel]} {kernel} launches, "
+                                 f"{routes[f'{kernel}/wgmma']} of them on the wgmma route")
+    return {**launches, **routes}
 
 
 def _release():
@@ -1032,7 +1140,7 @@ def _bench_path(name, yaml, linear_ce, overrides=()):
                              f"ln({vocab}) + {hidden} * {std}^2 / 2 = {want_loss:.3f}")
     if launches != want:
         raise AssertionError(f"{name}: kernel launches {launches} != expected {want}")
-    return launches, result["losses"]
+    return _check_routes(name, launches), result["losses"]
 
 
 def _train_ft_path(name, yaml, overrides):
@@ -1073,7 +1181,7 @@ def _train_ft_path(name, yaml, overrides):
         raise AssertionError(f"{name}: training.jsonl rows without moe_load/* metrics")
     if launches != want:
         raise AssertionError(f"{name}: kernel launches {launches} != expected {want}")
-    return launches
+    return _check_routes(name, launches)
 
 
 def _moe_model_check(torch):
@@ -1147,10 +1255,13 @@ def _lce_case(torch, name, n, e, v, filter_eps=None, h_scale=1.0, tied=False):
     h, w, labels = _lce_inputs(torch, n, e, v, seed=n + e + v, h_scale=h_scale, tied=tied)
     unembed = (lambda x: x.t()) if tied else (lambda x: x)
     dz = (labels != -100).float()
+    route = lce.lce_bwd_route(h, *lce.kernel_operand(unembed(w)))
     hk, wk = h.clone().requires_grad_(), w.clone().requires_grad_()
+    before = dict(lce.ROUTE_LAUNCHES)
     z, _ = losses.fused_linear_ce_tokens(hk, unembed(wk), labels, filter_eps=filter_eps)
     grads = torch.autograd.grad(z, (hk, wk), dz)
     torch.cuda.synchronize()
+    taken = {k: lce.ROUTE_LAUNCHES[k] - before[k] for k in before}
     out = {}
     refs = [("plain", filter_eps)] + ([("exact", None)] if filter_eps is not None else [])
     for ref_name, eps in refs:
@@ -1164,10 +1275,13 @@ def _lce_case(torch, name, n, e, v, filter_eps=None, h_scale=1.0, tied=False):
         torch.cuda.empty_cache()
     err_z, rel, err_grad = out["plain"]
     line = (f"lce case {name}: N={n} E={e} V={v} tied={tied} h_scale={h_scale} "
-            f"filter_eps={filter_eps}: "
+            f"filter_eps={filter_eps}, lce_bwd route {route} (launched {taken}): "
             f"z max abs {err_z:.3e} (tol {TOL_Z}), grad rel L2 dH {rel[0]:.3e} dW {rel[1]:.3e} "
             f"(tol {TOL_LCE_GRAD})")
     ok = err_z <= TOL_Z and max(rel) <= TOL_LCE_GRAD
+    if taken != {k: int(k == f"lce_bwd/{route}") for k in taken}:
+        print(line, flush=True)
+        raise AssertionError(f"lce case {name}: lce_bwd did not take the {route} route")
     if filter_eps is not None:
         z_k, bmax = lce.lce_fwd(h, w, tied)  # the backward's own decision, from the forward
         sig = lce.block_significance(bmax, z_k, lce.TILE_N, math.log(filter_eps))
@@ -1197,11 +1311,10 @@ def _lce_timings(torch):
     n, e, v = 8192, 2048, 128256
     h, w, _ = _lce_inputs(torch, n, e, v, seed=7)
     dz = torch.ones(n, device="cuda")
-    fwd_flops, bwd_flops = 2 * n * e * v, 6 * n * e * v
+    fwd_flops = 2 * n * e * v
+    bwd_flops, bwd_bytes = _lce_work(n, e, v)
     num_vt = -(-v // lce.TILE_V)
-    hw_bytes = 2 * (h.numel() + w.numel())
-    fwd_bytes = hw_bytes + 4 * n + 4 * num_vt * n  # + z, bmax
-    bwd_bytes = hw_bytes + 4 * n * 2 + hw_bytes  # + z, dz; dH, dW
+    fwd_bytes = 2 * (h.numel() + w.numel()) + 4 * n + 4 * num_vt * n  # + z, bmax
     z, _ = lce.lce_fwd(h, w)
     fwd_ms = _time_ms(torch, lambda: lce.lce_fwd(h, w))
     bwd_ms = _time_ms(torch, lambda: lce.lce_bwd(h, w, z, dz, None))
@@ -1231,6 +1344,75 @@ def _lce_timings(torch):
               f"{out[name]['bound_ms']:.3f} ms ({out[name]['bound_by']}: {flops / 1e12:.2f} "
               f"TFLOP, {nbytes / 1e6:.1f} MB), plain {plain:.3f} ms, yardstick {lib:.3f} ms",
               flush=True)
+    out["lce_bwd"]["route"] = lce.lce_bwd_route(h, w)
+    del h, w, z, dz
+    torch.cuda.empty_cache()
+    out["lce_bwd"]["at_path7_shape"] = _lce_bwd_timing_large(torch)
+    return out
+
+
+def _lce_work(n, e, v):
+    """FLOPs and bytes of lce_bwd at (N, E, V): 6NEV (the recompute and two products);
+    h and w read, z and dz read, dH and dW written."""
+    return 6 * n * e * v, 2 * 2 * (n * e + e * v) + 4 * n * 2
+
+
+def _lce_bwd_timing_large(torch):
+    """ms of lce_bwd at main path 7's shape (N = 32768 tokens, E = 4096, V = 128,256)
+    beside its bound. No plain version or yardstick: each forms the f32 (N, V) logits
+    (16.8 GB) and its gradient, ~70 GB with autograd's temporaries."""
+    from automodel_tpu_torch.ops import linear_ce as lce
+
+    n, e, v = 32768, LLAMA3_8B["hidden_size"], LLAMA3_8B["vocab_size"]
+    h, w, _ = _lce_inputs(torch, n, e, v, seed=9)
+    dz = torch.ones(n, device="cuda")
+    z, _ = lce.lce_fwd(h, w)
+    ms = _time_ms(torch, lambda: lce.lce_bwd(h, w, z, dz, None), warmup=1, reps=5)
+    flops, nbytes = _lce_work(n, e, v)
+    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    chunk = lce.lce_chunk(n, v)
+    row = {"ms": ms, "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes", "plain_ms": None,
+           "library_ms": None, "library": "not timed: the f32 logits alone are 16.8 GB",
+           "route": lce.lce_bwd_route(h, w), "shape": {"N": n, "E": e, "V": v},
+           "chunk": chunk}
+    print(f"time lce_bwd at N={n} E={e} V={v} ({row['route']}, vocab chunks of {chunk}): "
+          f"{ms:.3f} ms, bound {row['bound_ms']:.3f} ms ({row['bound_by']}: "
+          f"{flops / 1e12:.2f} TFLOP, {nbytes / 1e6:.1f} MB)", flush=True)
+    del h, w, z, dz
+    torch.cuda.empty_cache()
+    return row
+
+
+def _kernel_times(torch):
+    """ms of gmm (forward and dX at the slice's shapes (a) and (b)) and of lce_bwd (at
+    N=8192, E=2048, V=128,256 and at main path 7's shape) on the inputs their timing
+    rows use, called only through the wrapper calls that the package has had since
+    both kernels were ported (``gmm(x, w, ends, transpose_w)``,
+    ``lce_bwd(h, w, z, dz, None)``), so that ``--kernel-times ROOT`` can time an older
+    checkout's kernels beside this one's."""
+    from automodel_tpu_torch.ops import grouped_gemm as gg
+    from automodel_tpu_torch.ops import linear_ce as lce
+
+    out = {}
+    sizes = _router_group_sizes(torch, 8192, 2048, 128, 8)
+    ends = gg._ends(sizes)
+    for case, d, f in (("a", 2048, 1536), ("b", 768, 2048)):
+        x, w, dout = _gmm_inputs(torch, sizes, d, f, seed=11)
+        out[f"gmm forward {case}"] = _time_ms(torch, lambda: gg.gmm(x, w, ends))
+        out[f"gmm dX {case}"] = _time_ms(torch, lambda: gg.gmm(dout, w, ends, transpose_w=True))
+        del x, w, dout
+    for shape, n, e, seed, reps in (("N=8192 E=2048", 8192, 2048, 7, 20),
+                                    ("N=32768 E=4096", 32768, LLAMA3_8B["hidden_size"], 9, 5)):
+        h, w, _ = _lce_inputs(torch, n, e, LLAMA3_8B["vocab_size"], seed=seed)
+        dz = torch.ones(n, device="cuda")
+        z, _ = lce.lce_fwd(h, w)
+        out[f"lce_bwd {shape}"] = _time_ms(torch, lambda: lce.lce_bwd(h, w, z, dz, None),
+                                           warmup=1, reps=reps)
+        del h, w, z, dz
+        torch.cuda.empty_cache()
+    for name, ms in out.items():
+        print(f"kernel time {name}: {ms:.3f} ms", flush=True)
     return out
 
 
@@ -1267,10 +1449,16 @@ def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    if not os.path.isdir(os.path.join(HERE, "automodel_tpu_torch")):
+    if argv and not ((argv[0] == "--cp-processes" and len(argv) == 2)
+                     or (argv[0] == "--kernel-times" and len(argv) <= 2)):
+        print("usage: chip_smoke.py [--cp-processes N | --kernel-times [ROOT]]",
+              file=sys.stderr)
+        return 2
+    root = os.path.abspath(argv[1]) if argv[:1] == ["--kernel-times"] and argv[1:] else HERE
+    if not os.path.isdir(os.path.join(root, "automodel_tpu_torch")):
         print("chip_smoke: run it from a checkout of the repository", file=sys.stderr)
         return 1
-    sys.path.insert(0, HERE)
+    sys.path.insert(0, root)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
     print(f"card: {_card_line()}", flush=True)
 
@@ -1286,11 +1474,12 @@ def main(argv: list[str]) -> int:
     for source, log in build.BUILD_LOGS.items():
         for line in _ptxas_report(log):
             print(f"  {source}: {line}")
-    if argv:  # --cp-processes N: the process-group ring across N cards, and nothing else
-        if len(argv) != 2 or argv[0] != "--cp-processes":
-            print("usage: chip_smoke.py [--cp-processes N]", file=sys.stderr)
-            return 2
-        print(json.dumps({"process_group_ring": _pg_ring_phase(torch, int(argv[1]))}))
+    if argv:  # one option, one phase, and nothing else
+        # --cp-processes N: the process-group ring across N cards; --kernel-times [ROOT]:
+        # gmm and lce_bwd of the package in ROOT (default: this checkout)
+        print(json.dumps({"process_group_ring": _pg_ring_phase(torch, int(argv[1]))}
+                         if argv[0] == "--cp-processes"
+                         else {"kernel_times": _kernel_times(torch), "package": root}))
         print(f"card: {_card_line()}")
         print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                                  "kind": torch.cuda.get_device_name(0),
@@ -1308,7 +1497,7 @@ def main(argv: list[str]) -> int:
     for case in (("a", 8192, 2048, 128256), ("b", 8192, 2048, 128256, 1e-7, 32.0),
                  ("c", 8190, 2048, 50257), ("d", 4096, 4096, 128256),
                  ("e", 8192, 2048, 128256, 1e-7, 32.0, True), ("f", 1024, 1000, 50257),
-                 ("g", 256, 1003, 3001, None, 1.0, True)):
+                 ("g", 256, 1003, 3001, None, 1.0, True), ("h", 256, 8, 16, None, 1.0, True)):
         err_z, err_grad = _lce_case(torch, *case)
         errs["lce_fwd"] = max(errs["lce_fwd"], err_z)
         errs["lce_bwd"] = max(errs["lce_bwd"], err_grad)
@@ -1375,6 +1564,10 @@ def main(argv: list[str]) -> int:
                "launches_by_path": {p: counts[name] for p, counts in by_path.items()}}
         if replaces[name][1]:
             row["replaces_by_function"] = replaces[name][1]
+        if name in ("gmm", "lce_bwd"):  # main-path launches by route
+            row["launches_by_route"] = {
+                r: sum(counts[f"{name}/{r}"] for counts in by_path.values())
+                for r in ("wgmma", "mma_sync")}
         kernels.append(row)
     print(json.dumps({"kernels": kernels}))
     print(f"card: {_card_line()}")

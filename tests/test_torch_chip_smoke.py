@@ -111,3 +111,81 @@ def test_ptxas_report_keeps_registers_spills_and_wgmma_serialisation():
     assert report[1:] == [
         "flash_fwd_kernel<64>: 0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
         "flash_fwd_kernel<64>: Used 168 registers, used 16 barriers"]
+
+
+def test_gmm_timing_work_counts():
+    """The grouped GEMM rows' bounds: 2 N D F FLOPs for the forward, dX and dW alike;
+    bytes count each input once (only the weights of experts with rows) and each
+    output once. At the slice's gate_up shape that is 412.3 GFLOP (0.417 ms)."""
+    n, d, f, e, live = 65536, 2048, 1536, 128, 120
+    work = chip_smoke._gmm_work(n, d, f, e, live)
+    flops = 2 * n * d * f
+    assert work["forward"][0] == work["dX"][0] == work["tgmm"][0] == flops
+    assert flops / chip_smoke.PEAK_FLOPS * 1e3 == pytest.approx(0.417, abs=1e-3)
+    assert work["forward"][1] == 2 * (n * d + live * d * f + n * f) + 4 * e
+    assert work["dX"][1] == 2 * (n * f + live * d * f + n * d) + 4 * e  # dout in, dX out
+    assert work["tgmm"][1] == 2 * (n * d + n * f + e * d * f) + 4 * e  # every dW written
+    # every gmm timing lands in the kernels line: case a's forward is the row itself
+    keys = chip_smoke._GMM_ROW_KEYS
+    assert {p for p, _ in keys} == {"forward", "dX", "tgmm"} and {c for _, c in keys} == {"a", "b"}
+    assert keys["forward", "a"] is None and keys["tgmm", "a"] is None
+    assert len({v for v in keys.values() if v}) == 3
+
+
+def test_lce_bwd_work_at_path7_shape():
+    """lce_bwd's bound at main path 7's shape (N=32768, E=4096, V=128,256): 6NEV =
+    103.3 TFLOP, 104.4 ms at the card's bf16 peak, bound by operations."""
+    n, e, v = 32768, 4096, 128256
+    flops, nbytes = chip_smoke._lce_work(n, e, v)
+    assert flops == 6 * n * e * v and nbytes == 4 * (n * e + e * v) + 8 * n
+    assert flops / chip_smoke.PEAK_FLOPS * 1e3 == pytest.approx(104.43, abs=0.01)
+    assert flops / chip_smoke.PEAK_FLOPS > nbytes / chip_smoke.PEAK_BYTES
+
+
+def test_flash_bound_at_the_long_shape():
+    """The bound chip_smoke prints for flash at (L) (B=1, S=32768, H=32, KH=8, D=128,
+    causal), from the same work count as the timed rows: 8.80 TFLOP forward, 22.0
+    backward."""
+    b, s, h, kh, d = 1, 32768, 32, 8, 128
+    q = torch.empty(b, s, h, d, dtype=torch.bfloat16, device="meta")
+    k = v = torch.empty(b, s, kh, d, dtype=torch.bfloat16, device="meta")
+    work = chip_smoke._flash_work(q, k, v)
+    assert work["flash_fwd"][0] == pytest.approx(8.80e12, rel=1e-3)
+    assert work["flash_bwd"][0] == pytest.approx(22.0e12, rel=1e-3)
+    bound = {name: max(fl / chip_smoke.PEAK_FLOPS, by / chip_smoke.PEAK_BYTES) * 1e3
+             for name, (fl, by) in work.items()}
+    assert bound["flash_fwd"] == pytest.approx(8.90, abs=0.01)
+    assert bound["flash_bwd"] == pytest.approx(22.24, abs=0.01)
+
+
+def test_main_paths_refuse_a_launch_off_the_wgmma_route():
+    """Every gmm and lce_bwd launch of a main path must be on the wgmma route: the
+    route counts are reset with the launch counts, and one mma_sync launch fails the
+    path."""
+    from automodel_tpu_torch.ops import grouped_gemm as gg, linear_ce as lce
+
+    chip_smoke._reset_counts()
+    assert set(chip_smoke._read_routes().values()) == {0}
+    launches = {"gmm": 2, "lce_bwd": 1}
+    gg.ROUTE_LAUNCHES["gmm/wgmma"] = 2
+    lce.ROUTE_LAUNCHES["lce_bwd/wgmma"] = 1
+    out = chip_smoke._check_routes("path", launches)
+    assert out["gmm/wgmma"] == 2 and out["lce_bwd/mma_sync"] == 0 and out["gmm"] == 2
+    gg.ROUTE_LAUNCHES["gmm/wgmma"], gg.ROUTE_LAUNCHES["gmm/mma_sync"] = 1, 1
+    with pytest.raises(AssertionError, match="wgmma route"):
+        chip_smoke._check_routes("path", launches)
+    chip_smoke._reset_counts()
+
+
+@pytest.mark.parametrize("mangled,name", [
+    ("_ZN4_GLOBAL16flash_fwd_kernelILi64EEEv", "flash_fwd_kernel<64>"),
+    ("_ZN12_GLOBAL__N_115gmm_sm90_kernelILb1EEEv14CUtensorMap_stS1_PKiP13__nv_bfloat16iii",
+     "gmm_sm90_kernel<1>"),
+    ("_ZN12_GLOBAL__N_115lce_sm90_kernelILb0ELb1ENS_10DLogitsEpiEEEv14CUtensorMap_stS2_iiiNS_"
+     "9SigFilterES1_", "lce_sm90_kernel<0,1,DLogitsEpi>"),
+    ("_ZN12_GLOBAL__N_111tgmm_kernelEPK13__nv_bfloat16S2_PKiPS0_iii", "tgmm_kernel"),
+    ("_Z4mainv", "_Z4mainv")])
+def test_ptxas_report_names_kernels_with_digits_and_class_arguments(mangled, name):
+    """The build report shortens a kernel's mangled name to kernel<args> also when the
+    name holds digits (gmm_sm90_kernel) or a template argument is a class."""
+    assert chip_smoke._kernel_name(mangled) == name

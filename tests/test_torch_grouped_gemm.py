@@ -97,3 +97,53 @@ def test_non_cpu_tensors_never_fall_back():
     with pytest.raises(ValueError, match="meta"):
         tgg.grouped_matmul(x, w, gs)
     assert tgg.LAUNCHES == before
+
+
+# ------------------------------------------------------------ routes
+
+def _recorder(monkeypatch):
+    """Record the C entry points the wrappers launch (name, arguments) instead of
+    launching them, and fail on any call of the plain version."""
+    from automodel_tpu_torch.kernels import build
+
+    calls = []
+    monkeypatch.setattr(build, "launch", lambda source, name, device, *args:
+                        calls.append((name, args)))
+
+    def no_plain(*a, **k):
+        raise AssertionError("the kernels' route fell back to the plain version")
+
+    monkeypatch.setattr(tgg, "grouped_matmul_reference", no_plain)
+    return calls
+
+
+@pytest.mark.parametrize("d,f,route", [(16, 24, "wgmma"), (16, 1003, "mma_sync"),
+                                       (1003, 24, "mma_sync"), (1000, 1000, "wgmma")])
+def test_gmm_route_is_picked_from_the_shapes(monkeypatch, d, f, route):
+    """K and Nout multiples of 8 (16-byte rows for TMA) take the wgmma route for the
+    forward and dX, other strides the mma.sync route; both routes take the same
+    arguments (x, w, the groups' ends, out, N, K, Nout, E, transpose), and the autograd
+    function launches tgmm for dW. Nothing reaches the plain version."""
+    calls = _recorder(monkeypatch)
+    gs = torch.tensor([5, 0, 11], dtype=torch.int32)
+    x = torch.zeros(16, d, dtype=torch.bfloat16, requires_grad=True)
+    w = torch.zeros(3, d, f, dtype=torch.bfloat16, requires_grad=True)
+    before = dict(tgg.ROUTE_LAUNCHES)
+    assert tgg.gmm_route(x, w) == tgg.gmm_route(torch.zeros(16, f), w, True) == route
+    out = tgg._GroupedMatmul.apply(x, w, gs)
+    out.backward(torch.zeros(16, f, dtype=torch.bfloat16))
+    entry = "gmm_wgmma" if route == "wgmma" else "gmm"
+    assert [name for name, _ in calls] == [entry, entry, "tgmm"]
+    fwd, dx = calls[0][1], calls[1][1]
+    assert fwd[-1] == 0 and dx[-1] == 1  # w read as stored, then transposed
+    assert fwd[4:8] == (16, d, f, 3) and dx[4:8] == (16, f, d, 3)
+    assert tgg.ROUTE_LAUNCHES[f"gmm/{route}"] - before[f"gmm/{route}"] == 2
+
+
+def test_a_misaligned_operand_takes_the_mma_sync_route():
+    """A view that starts off a 16-byte boundary cannot be a TMA operand."""
+    base = torch.zeros(16 * 16 + 1, dtype=torch.bfloat16)
+    x = base[1:].view(16, 16)
+    w = torch.zeros(2, 16, 24, dtype=torch.bfloat16)
+    assert tgg.gmm_route(x, w) == "mma_sync"
+    assert tgg.gmm_route(base[:256].view(16, 16), w) == "wgmma"

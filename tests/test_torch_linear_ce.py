@@ -283,3 +283,55 @@ def test_reference_ragged_tiles():
         grads.append((ht.grad, wt.grad))
     torch.testing.assert_close(grads[0][0], grads[1][0], atol=1e-6, rtol=0)
     torch.testing.assert_close(grads[0][1], grads[1][1], atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("e,v,tied,route", [
+    (128, 512, False, "wgmma"), (128, 512, True, "wgmma"), (1000, 50264, False, "wgmma"),
+    (128, 1003, False, "mma_sync"), (1003, 512, True, "mma_sync"), (1000, 50257, False, "mma_sync")])
+def test_lce_bwd_route_is_picked_from_the_shapes(monkeypatch, e, v, tied, route):
+    """E and V multiples of 8 (16-byte rows for TMA) take lce_bwd's wgmma route, any
+    other stride its mma.sync route, tied or not; lce_fwd has one route. The launch
+    recorder stands in for the card; nothing reaches the plain version."""
+    from automodel_tpu_torch.kernels import build
+
+    calls = []
+    monkeypatch.setattr(build, "launch", lambda source, name, device, *args:
+                        calls.append((name, args)))
+    monkeypatch.setattr(tlce, "_sm_count", lambda device: 132)
+
+    def no_plain(*a, **k):
+        raise AssertionError("the kernels' route fell back to the plain version")
+
+    monkeypatch.setattr(tlce, "fused_logsumexp_reference", no_plain)
+    n = 256
+    h = torch.zeros(n, e, dtype=torch.bfloat16, requires_grad=True)
+    w = torch.zeros((v, e) if tied else (e, v), dtype=torch.bfloat16, requires_grad=True)
+    assert tlce.lce_bwd_route(h, w, tied) == route
+    before = dict(tlce.ROUTE_LAUNCHES)
+    z = tlce._FusedLogsumexp.apply(h, w, tied, None)
+    z.backward(torch.ones(n))
+    assert [name for name, _ in calls] == [
+        "lce_fwd", "lce_bwd_wgmma" if route == "wgmma" else "lce_bwd"]
+    args = calls[1][1]
+    assert args[4] is None and args[9:13] == (n, e, v, int(tied))  # exact: no filter mask
+    assert args[13] == tlce.lce_chunk(n, v) and args[13] % tlce.TILE_V == 0
+    assert (args[8] is None) == (v <= args[13])  # the f32 dH scratch only across chunks
+    assert tlce.ROUTE_LAUNCHES[f"lce_bwd/{route}"] - before[f"lce_bwd/{route}"] == 1
+
+
+def test_a_misaligned_hidden_state_takes_the_mma_sync_route():
+    """h starting off a 16-byte boundary cannot be a TMA operand."""
+    base = torch.zeros(128 * 64 + 1, dtype=torch.bfloat16)
+    w = torch.zeros(64, 512, dtype=torch.bfloat16)
+    assert tlce.lce_bwd_route(base[1:].view(128, 64), w) == "mma_sync"
+    assert tlce.lce_bwd_route(base[:-1].view(128, 64), w) == "wgmma"
+
+
+def test_lce_chunk_keeps_the_buffer_within_its_budget():
+    """The backward's (N, chunk) bf16 buffer: a multiple of the vocab tile, within the
+    byte budget, at least one tile, at most the padded vocabulary."""
+    for n, v in ((8192, 128256), (32768, 128256), (256, 3001), (2**20, 1000)):
+        chunk = tlce.lce_chunk(n, v)
+        assert chunk % tlce.TILE_V == 0 and tlce.TILE_V <= chunk <= -(-v // 128) * 128
+        assert chunk == tlce.TILE_V or 2 * n * chunk <= tlce._CHUNK_BYTES
+    assert tlce.lce_chunk(8192, 128256) == 16384 and tlce.lce_chunk(32768, 128256) == 4096

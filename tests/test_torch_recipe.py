@@ -142,6 +142,36 @@ def test_benchmark_entry_point(cfg_path, tmp_path, capsys):
                              "--benchmark.timed_steps", "5"])
 
 
+_GMM_ARGS = "(CUtensorMap_st, CUtensorMap_st, int const*, __nv_bfloat16*, int, int, int, int)"
+_LCE_ARGS = "(CUtensorMap_st, CUtensorMap_st, int, int, int, int)"
+
+
+@pytest.mark.parametrize("name,cls", [
+    (f"void (anonymous namespace)::gmm_sm90_kernel<false>{_GMM_ARGS}", "grouped_gemm_kernels"),
+    (f"void (anonymous namespace)::gmm_sm90_kernel<true>{_GMM_ARGS}", "grouped_gemm_kernels"),
+    ("void (anonymous namespace)::gmm_kernel<true>(__nv_bfloat16 const*, __nv_bfloat16 const*, "
+     "int const*, __nv_bfloat16*, int, int, int, int)", "grouped_gemm_kernels"),
+    ("void (anonymous namespace)::tgmm_kernel(__nv_bfloat16 const*, __nv_bfloat16 const*, "
+     "int const*, __nv_bfloat16*, int, int, int)", "grouped_gemm_kernels"),
+    ("void (anonymous namespace)::lce_sm90_kernel<false, true, (anonymous namespace)::"
+     f"DLogitsEpi>{_LCE_ARGS}", "linear_ce_kernels"),
+    ("void (anonymous namespace)::lce_sm90_kernel<false, false, (anonymous namespace)::"
+     f"DhEpi>{_LCE_ARGS}", "linear_ce_kernels"),
+    ("void (anonymous namespace)::lce_sm90_kernel<true, true, (anonymous namespace)::"
+     f"DwEpi>{_LCE_ARGS}", "linear_ce_kernels"),
+    ("void (anonymous namespace)::lce_fwd_kernel<false>(__nv_bfloat16 const*)", "linear_ce_kernels"),
+    ("void (anonymous namespace)::flash_fwd_kernel<64>(CUtensorMap_st)", "flash_kernels"),
+    ("void (anonymous namespace)::ring_bwd_kernel<128>(float*)", "ring_kernels"),
+    ("nvjet_tst_128x256_64x4_1x2_h_bz_coopA_TNT", "gemm"),
+    ("void at::native::vectorized_elementwise_kernel<4, at::native::CUDAFunctor_add<float>>",
+     "elementwise_other"),
+])
+def test_profiler_classes_each_port_kernel(name, cls):
+    """The profile summary's classes take each port kernel by its demangled name, the
+    wgmma-route ones (gmm_sm90_kernel, lce_sm90_kernel) included."""
+    assert benchmark._kernel_class(name) == cls
+
+
 def _setup(cfg_path, *overrides):
     cfg = parse_args_and_load_config(["-c", cfg_path, *overrides])
     train_ft.TrainFinetuneRecipeForNextTokenPrediction(cfg).setup()
