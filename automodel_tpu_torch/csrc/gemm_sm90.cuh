@@ -1,7 +1,8 @@
 // One Hopper (sm_90a) GEMM core: a 128 x 256 output tile of C = A . B, bf16 operands
 // with f32 accumulation, fed by TMA through a ring of mbarrier stages and computed by
-// wgmma. grouped_gemm.cu (`gmm`, forward and dX) and linear_ce.cu (the three products of
-// `lce_bwd`) build their kernels on it; the TPU kernels they replace are named there.
+// wgmma. grouped_gemm.cu (`gmm`, forward and dX, and `tgmm`) and linear_ce.cu (the
+// logits product of `lce_fwd` and the three products of `lce_bwd`) build their kernels
+// on it; the TPU kernels they replace are named there.
 // Included once per source; everything sits in sm90:: inside an anonymous namespace.
 //
 // What bounds a GEMM on this card: 989 TFLOP/s of bf16 tensor-core work, which only
@@ -28,7 +29,9 @@
 //     producer loads only the active ones, the consumers count them once up front.
 //   - Epilogue: once both consumer warpgroups are done the ring is free; each stages
 //     its 64 x 256 tile there, as bf16 after a per-element transform or as f32, and a
-//     functor stores it 16 bytes a thread, a warp a whole 512-byte row of the tile.
+//     functor stores it 16 bytes a thread, a warp a whole 512-byte row of the tile. An
+//     epilogue derived from RegsEpilogue (lce_fwd's row reductions) takes the
+//     accumulators in registers instead and stages nothing.
 // Why 128 x 256: a warpgroup's k16 step is 64 x 256 x 16 products for 2 KB of A and
 // 8 KB of B read from shared memory, and a 64 x 256 f32 accumulator is 128 registers
 // a thread, inside the 232 that setmaxnreg gives the consumers; 128 x 128 tiles would
@@ -37,7 +40,10 @@
 // the next tile during this one's epilogue) needs the epilogue's staging buffer beside
 // the ring, which leaves room for 3 stages instead of 4; on the H100 that version
 // measured slower for both gmm and lce_bwd, since both consumer warpgroups run the
-// epilogue at once, so the tensor cores idle through it either way.
+// epilogue at once, so the tensor cores idle through it either way. tgmm, whose tiles
+// have ~8 K steps, is the exception: its kernel (grouped_gemm.cu) walks tiles on this
+// core's pieces (load_stage, stage_products, zero_k_rows for its ragged K) and stores
+// by TMA, and measured faster so.
 // TMA needs 16-byte-aligned global strides: every operand row must hold a multiple of
 // 8 bf16 and start 16-byte aligned. The callers route other shapes, before the launch,
 // to their mma.sync kernels.
@@ -49,6 +55,8 @@
 #pragma once
 
 #include <cuda_bf16.h>
+
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -195,6 +203,75 @@ __device__ __forceinline__ void epilogue(float (&acc)[2][64], unsigned char* sme
   }
 }
 
+// An epilogue that takes the accumulators in registers, with no staging: a class
+// derived from RegsEpilogue has regs(acc, cw, t) (acc in wgmma_ss's layout, columns
+// 0..127 in acc[0] and 128..255 in acc[1]; cw the consumer warpgroup, t its thread).
+struct RegsEpilogue {};
+
+// Zero the k rows [from, 64) of one MN-major A box (64 k rows of 128 bytes) that a
+// consumer warpgroup is about to read, and make the writes visible to wgmma (the async
+// proxy) before any of its 128 threads issues one. A k row is a whole 128-byte row of
+// the box whatever the swizzle, which moves 16-byte chunks only within a row. For a
+// ragged K (tgmm's last step over an expert's rows, whose box also holds the next
+// expert's): with A MN-major, consumer warpgroup cw reads only A box cw.
+__device__ __forceinline__ void zero_k_rows(unsigned char* box, int from, int cw, int t) {
+  uint4* p = reinterpret_cast<uint4*>(box + from * ROW_BYTES);
+  for (int i = t; i < (64 - from) * (ROW_BYTES / 16); i += 128) p[i] = make_uint4(0, 0, 0, 0);
+  fence_proxy_async();
+  named_sync(4 + cw, 128);
+}
+
+// The producer's loads of one K step into the stage at `sa` (A, then B at sa + A_BYTES),
+// counted on `bar`: A's rows from m coordinate a_m at k coordinate a_k, B's columns
+// from n coordinate b_n at k coordinate b_k of batch entry `batch`.
+template <bool A_MN, bool B_MN>
+__device__ __forceinline__ void load_stage(unsigned char* sa, const CUtensorMap* ta,
+                                           const CUtensorMap* tb, uint64_t* bar, int a_m,
+                                           int a_k, int b_n, int b_k, int batch) {
+  unsigned char* sb = sa + A_BYTES;
+  mbar_arrive_expect_tx(bar, STAGE_BYTES);
+  if (A_MN) {
+#pragma unroll
+    for (int c = 0; c < BM / 64; ++c)
+      tma_load_3d(sa + c * BOX64_BYTES, ta, bar, a_m + 64 * c, a_k, 0);
+  } else {
+    tma_load_3d(sa, ta, bar, a_k, a_m, 0);
+  }
+  if (B_MN) {
+#pragma unroll
+    for (int c = 0; c < BN / 64; ++c)
+      tma_load_3d(sb + c * BOX64_BYTES, tb, bar, b_n + 64 * c, b_k, batch);
+  } else {
+    tma_load_3d(sb, tb, bar, b_k, b_n, batch);
+  }
+}
+
+// One K step's products of consumer warpgroup cw from the stage at shared address a
+// (B at a + A_BYTES), issued and committed, not waited for: acc[h] (+)= its 64 rows
+// of A . columns 128h .. 128h + 127 of B.
+template <bool A_MN, bool B_MN>
+__device__ __forceinline__ void stage_products(float (&acc)[2][64], uint32_t a, int cw) {
+  const uint32_t b = a + A_BYTES;
+  fence_regs(acc[0]);
+  fence_regs(acc[1]);
+  wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < BK / 16; ++ks) {
+    // A: this warpgroup's 64 rows; K-major steps 32 bytes a k16, MN-major 16 rows
+    const uint64_t da = A_MN ? desc_sw128(a + cw * BOX64_BYTES + ks * 16 * ROW_BYTES,
+                                          BOX64_BYTES)
+                             : desc_sw128(a + cw * 64 * ROW_BYTES + ks * 32, 16);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const uint64_t db =
+          B_MN ? desc_sw128(b + h * 2 * BOX64_BYTES + ks * 16 * ROW_BYTES, BOX64_BYTES)
+               : desc_sw128(b + h * 128 * ROW_BYTES + ks * 32, 16);
+      wgmma_ss<128, A_MN ? 1 : 0, B_MN ? 1 : 0>(acc[h], da, db, 1);
+    }
+  }
+  wgmma_commit();
+}
+
 // One 128 x BN tile of A . B, run by all THREADS threads of the block as the last thing
 // the kernel does: ta / tb are __grid_constant__ tensor maps (A_MN / B_MN: the operand
 // is MN-major), `filt` picks the K steps, `epi` stores the result (zeros when the
@@ -237,25 +314,8 @@ __device__ __forceinline__ void gemm_tile(const CUtensorMap* ta, const CUtensorM
       if (!filt.active(k)) continue;
       const int stage = cnt % STAGES;
       mbar_wait(&empty[stage], ((cnt / STAGES) & 1) ^ 1);  // the first pass finds it empty
-      unsigned char* sa = smem + stage * STAGE_BYTES;
-      unsigned char* sb = sa + A_BYTES;
-      const int k0 = k * BK;
-      mbar_arrive_expect_tx(&full[stage], STAGE_BYTES);
-      if (A_MN) {
-#pragma unroll
-        for (int c = 0; c < BM / 64; ++c)
-          tma_load_3d(sa + c * BOX64_BYTES, ta, &full[stage], tile.a_m + 64 * c, k0, 0);
-      } else {
-        tma_load_3d(sa, ta, &full[stage], k0, tile.a_m, 0);
-      }
-      if (B_MN) {
-#pragma unroll
-        for (int c = 0; c < BN / 64; ++c)
-          tma_load_3d(sb + c * BOX64_BYTES, tb, &full[stage], tile.b_n + 64 * c,
-                      tile.b_k0 + k0, tile.batch);
-      } else {
-        tma_load_3d(sb, tb, &full[stage], tile.b_k0 + k0, tile.b_n, tile.batch);
-      }
+      load_stage<A_MN, B_MN>(smem + stage * STAGE_BYTES, ta, tb, &full[stage], tile.a_m, k * BK,
+                             tile.b_n, tile.b_k0 + k * BK, tile.batch);
       ++cnt;
     }
     return;
@@ -273,25 +333,7 @@ __device__ __forceinline__ void gemm_tile(const CUtensorMap* ta, const CUtensorM
   for (int it = 0; it < n_active; ++it) {
     const int stage = it % STAGES;
     mbar_wait(&full[stage], (it / STAGES) & 1);
-    const uint32_t a = smem_u32(smem + stage * STAGE_BYTES), b = a + A_BYTES;
-    fence_regs(acc[0]);
-    fence_regs(acc[1]);
-    wgmma_fence();
-#pragma unroll
-    for (int ks = 0; ks < BK / 16; ++ks) {
-      // A: this warpgroup's 64 rows; K-major steps 32 bytes a k16, MN-major 16 rows
-      const uint64_t da = A_MN ? desc_sw128(a + cw * BOX64_BYTES + ks * 16 * ROW_BYTES,
-                                            BOX64_BYTES)
-                               : desc_sw128(a + cw * 64 * ROW_BYTES + ks * 32, 16);
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const uint64_t db =
-            B_MN ? desc_sw128(b + h * 2 * BOX64_BYTES + ks * 16 * ROW_BYTES, BOX64_BYTES)
-                 : desc_sw128(b + h * 128 * ROW_BYTES + ks * 32, 16);
-        wgmma_ss<128, A_MN ? 1 : 0, B_MN ? 1 : 0>(acc[h], da, db, 1);
-      }
-    }
-    wgmma_commit();
+    stage_products<A_MN, B_MN>(acc, smem_u32(smem + stage * STAGE_BYTES), cw);
     wgmma_wait<1>();  // the previous step's products are done: its stage is free
     fence_regs(acc[0]);
     fence_regs(acc[1]);
@@ -300,7 +342,10 @@ __device__ __forceinline__ void gemm_tile(const CUtensorMap* ta, const CUtensorM
   wgmma_wait<0>();
   fence_regs(acc[0]);
   fence_regs(acc[1]);
-  epilogue(acc, smem, cw, t, epi);
+  if constexpr (std::is_base_of<RegsEpilogue, Epi>::value)
+    epi.regs(acc, cw, t);
+  else
+    epilogue(acc, smem, cw, t, epi);
 }
 
 }  // namespace sm90

@@ -24,8 +24,8 @@
 // is 206 GFLOP (0.208 ms) against 0.77 GB (0.23 ms): bound by bytes. So a block reads
 // its expert's weight tile once per 128-row tile, never once per row.
 //
-// Two routes, picked by the wrapper (ops/grouped_gemm.py) from the shapes before the
-// launch:
+// Two routes for each kernel, picked by the wrapper (ops/grouped_gemm.py) from the
+// shapes before the launch:
 //   - gmm_wgmma, when K and Nout are multiples of 8 (TMA's 16-byte strides): the Hopper
 //     core of gemm_sm90.cuh (TMA into 4 mbarrier stages, a producer warpgroup, two
 //     wgmma consumer warpgroups, 128 x 256 tiles, 16-byte epilogue stores). x is the
@@ -40,17 +40,31 @@
 //     waste: half a tile an expert on average, ~64 of ~576 tiles (11%) at the slice
 //     shape, against ~25% for tiles aligned to 128 rows that run one mainloop per
 //     expert they overlap. Tail tiles run no K step and store the zero accumulator.
-//   - gmm (mma.sync), for strides TMA cannot map: 128 x 128 tiles, 8 warps, a
-//     three-stage cp.async ring (108 KB), ldmatrix and mma.sync m16n8k16; a block owns
-//     one 128-row tile, finds its first expert by binary search over `ends` and runs one
-//     masked mainloop per expert that overlaps it. tgmm always takes this mainloop: one
-//     block per (128 x 128 tile of dw[e], e), K over the rows of expert e alone, so an
-//     empty expert runs no K step and writes zeros.
-// What it leaves on the table: the wgmma route's tiles pay their own prologue and
-// epilogue with the tensor cores idle (gemm_sm90.cuh: a ping-pong of the consumer
-// warpgroups would hide them) and read an expert's weight tile once per row tile from
-// L2; tgmm still runs on mma.sync (its short K loops, ~512 rows an expert at the slice
-// shape, pay the ring's prologue and the epilogue per tile).
+//   - tgmm_wgmma, when D and F are multiples of 8: 128 x 256 tiles of dw[e] on the
+//     core's pieces. A = x_e^T and B = dout_e are both MN-major, read in place from
+//     the expert's first row (TMA coordinates are per element, so no row alignment is
+//     needed); K runs over the expert's rows in steps of 64. TMA fills zeros only past
+//     the tensor's edge, so the last step's box also holds the next expert's rows (or
+//     the rows past the groups): the consumers zero those k rows of the A tile in
+//     shared memory before their wgmma (sm90::zero_k_rows), as _tgmm_kernel masks x.
+//     An empty expert runs no K step and stores the zero tile. A tile has only ~8 K
+//     steps at the slice shape, so the kernel is persistent (one block an SM walking
+//     the tiles; a 3-stage ring beside a staging buffer) and stores dW by TMA: the next
+//     tile's loads and products overlap this tile's stores. One tile a block on the
+//     core's 4-stage ring, with its staged epilogue, read 1.05x torch._grouped_mm at
+//     the gate_up shape, this kernel 0.97-1.06x over four calls (NVIDIA H100 80GB
+//     HBM3, 700 W; PERF.md).
+//   - gmm and tgmm (mma.sync), for strides TMA cannot map: 128 x 128 tiles, 8 warps, a
+//     three-stage cp.async ring (108 KB), ldmatrix and mma.sync m16n8k16. A gmm block
+//     owns one 128-row tile, finds its first expert by binary search over `ends` and
+//     runs one masked mainloop per expert that overlaps it; a tgmm block owns one
+//     (128 x 128 tile of dw[e], e), K over the rows of expert e alone.
+// What it leaves on the table: gmm's tiles pay their own prologue and epilogue with
+// the tensor cores idle (gemm_sm90.cuh: a ping-pong of the consumer warpgroups would
+// hide them), and gmm reads an expert's weight tile once per row tile from L2; tgmm's
+// two consumer warpgroups still stage their tile in step, with the tensor cores idle,
+// and every tile loads 48 KB of operands from L2 a K step (no cluster multicast of
+// the x or dout boxes its neighbours share).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -406,6 +420,136 @@ gmm_sm90_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ 
                                   sm90::StoreBf16{out, (size_t)Nout, rt.lo, rt.hi, n0, Nout});
 }
 
+// wgmma route of tgmm: dw[e] = x_e^T . dout_e in 128 x 256 tiles, (ft, dt, e) with
+// column tiles fastest, so that the blocks in flight share expert e's rows of x and
+// dout in L2. A = x_e^T and B = dout_e are both MN-major, read in place from the
+// expert's first row (TMA coordinates are per element, so `start` needs no alignment);
+// K runs over the expert's rows in steps of 64, and the last step's rows of the next
+// expert (or past the groups) are zeroed in A's tile (sm90::zero_k_rows), as
+// _tgmm_kernel masks x. An empty expert runs no K step and stores the zero tile.
+// Persistent: one block an SM walks the tiles, with a 3-stage ring beside a 64 KB
+// staging buffer, so the producer loads the next tile's K steps while the consumers
+// stage this tile's bf16 dW in 128-byte-swizzled (64 x 64) boxes, which one thread a
+// warpgroup stores by TMA (clipped at D and F) without waiting for the writes.
+namespace tgmm_sm90 {
+constexpr int STAGES = 3;
+constexpr int OUT_OFF = STAGES * sm90::STAGE_BYTES;
+constexpr int OUT_BYTES = sm90::BM * sm90::BN * 2;  // 8 boxes of 64 rows x 128 bytes
+constexpr int BAR_OFF = OUT_OFF + OUT_BYTES;
+constexpr int SMEM = BAR_OFF + 2 * STAGES * 8 + 1024;  // + alignment slack
+static_assert(SMEM <= 232448, "shared memory of one block");
+
+// Tile `tile` of the walk: its dw rows (m0), columns (n0), expert and K range.
+struct Work {
+  int e, m0, n0, start, rows, nk;
+  __device__ Work(int tile, const int* ends, int N, int D, int F) {
+    const int nft = (F + sm90::BN - 1) / sm90::BN, ndt = (D + sm90::BM - 1) / sm90::BM;
+    e = tile / (nft * ndt);
+    m0 = tile / nft % ndt * sm90::BM;
+    n0 = tile % nft * sm90::BN;
+    start = min(e > 0 ? ends[e - 1] : 0, N);
+    rows = max(min(ends[e], N) - start, 0);
+    nk = (rows + sm90::BK - 1) / sm90::BK;
+  }
+};
+}  // namespace tgmm_sm90
+
+__global__ void __launch_bounds__(sm90::THREADS, 1)
+tgmm_sm90_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tg,
+                 const __grid_constant__ CUtensorMap tw, const int* __restrict__ ends, int N,
+                 int D, int F, int E) {
+  namespace P = tgmm_sm90;
+  constexpr int S = P::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = sm90::align_1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + P::BAR_OFF);
+  uint64_t* empty = full + S;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);   // the producer's arrival with the stage's bytes
+      mbar_init(&empty[s], 8);  // lane 0 of each consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+  const int tiles = (F + sm90::BN - 1) / sm90::BN * ((D + sm90::BM - 1) / sm90::BM) * E;
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    setmaxnreg_dec<sm90::PRODUCER_REGS>();
+    if (threadIdx.x != 0) return;
+    int cnt = 0;  // K steps loaded so far, over all of this block's tiles
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const P::Work w(tile, ends, N, D, F);
+      for (int k = 0; k < w.nk; ++k, ++cnt) {
+        const int stage = cnt % S;
+        mbar_wait(&empty[stage], ((cnt / S) & 1) ^ 1);  // the first pass finds it empty
+        const int k0 = w.start + k * sm90::BK;
+        sm90::load_stage<true, true>(smem + stage * sm90::STAGE_BYTES, &tx, &tg, &full[stage],
+                                     w.m0, k0, w.n0, k0, 0);
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<sm90::CONSUMER_REGS>();
+  const int cw = wg - 1;  // consumer warpgroup: tile rows cw*64 .. cw*64+63
+  const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+  const int g = lane / 4, tc = (lane % 4) * 2;
+  unsigned char* out = smem + P::OUT_OFF + cw * 4 * sm90::BOX64_BYTES;  // this warpgroup's
+  int it = 0;  // K steps consumed so far, over all of this block's tiles
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const P::Work w(tile, ends, N, D, F);
+    float acc[2][64];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[h][i] = 0.f;
+    for (int k = 0; k < w.nk; ++k, ++it) {
+      const int stage = it % S;
+      mbar_wait(&full[stage], (it / S) & 1);
+      unsigned char* sa = smem + stage * sm90::STAGE_BYTES;
+      const int valid = w.rows - k * sm90::BK;  // k rows of this step inside the expert
+      if (valid < sm90::BK) sm90::zero_k_rows(sa + cw * sm90::BOX64_BYTES, valid, cw, t);
+      sm90::stage_products<true, true>(acc, smem_u32(sa), cw);
+      wgmma_wait<1>();  // the previous step's products are done: its stage is free
+      fence_regs(acc[0]);
+      fence_regs(acc[1]);
+      if (k > 0) sm90::release(&empty[(it - 1) % S], lane);
+    }
+    wgmma_wait<0>();
+    fence_regs(acc[0]);
+    fence_regs(acc[1]);
+    if (w.nk > 0) sm90::release(&empty[(it - 1) % S], lane);  // the tile's last stage
+
+    // stage this warpgroup's 64 x 256 bf16 rows as four swizzled (64 x 64) boxes (16-byte
+    // chunk c of row r at chunk c ^ (r % 8)); the previous tile's stores must have
+    // read them first
+    if (t == 0) bulk_wait_read();
+    named_sync(2 + cw, 128);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = warp * 16 + g + 8 * i;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int j = 0; j < 16; ++j)  // columns 128h + 8j + tc, tc + 1: box 2h + j / 8
+          *reinterpret_cast<uint32_t*>(out + (2 * h + j / 8) * sm90::BOX64_BYTES +
+                                       r * sm90::ROW_BYTES + (((j % 8) ^ (r % 8)) << 4) +
+                                       tc * 2) =
+              sm90::pack_bf16x2(acc[h][4 * j + 2 * i], acc[h][4 * j + 2 * i + 1]);
+    }
+    fence_proxy_async();
+    named_sync(2 + cw, 128);
+    if (t == 0) {
+      for (int c = 0; c < sm90::BN / 64; ++c)
+        tma_store_3d(&tw, out + c * sm90::BOX64_BYTES, w.n0 + 64 * c, w.m0 + 64 * cw, w.e);
+      bulk_commit();
+    }
+  }
+  if (t == 0) bulk_wait();
+}
+
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
@@ -466,5 +610,29 @@ extern "C" int tgmm(const void* x, const void* dout, const int* ends, void* dw, 
   tgmm_kernel<<<grid, NUM_THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(dout), ends,
       static_cast<bf16*>(dw), N, D, F);
+  return (int)cudaGetLastError();
+}
+
+// The same dW on the wgmma route (D % 8 == 0, F % 8 == 0, x and dout 16-byte aligned),
+// with the same arguments: min(tiles, SMs) persistent blocks.
+extern "C" int tgmm_wgmma(const void* x, const void* dout, const int* ends, void* dw, int N,
+                          int D, int F, int E, void* stream) {
+  if (N < 1 || D < 1 || F < 1 || E < 1 || D % 8 || F % 8) return (int)cudaErrorInvalidValue;
+  // x and dout MN-major ((64 d or f, 64 rows) boxes); dw (E, D, F) in (64 f, 64 d) boxes
+  CUtensorMap tx, tg, tw;
+  cudaError_t err = sm90::operand_map(&tx, x, D, N, D, 1, (uint64_t)N * D, 64);
+  if (err == cudaSuccess) err = sm90::operand_map(&tg, dout, F, N, F, 1, (uint64_t)N * F, 64);
+  if (err == cudaSuccess) err = sm90::operand_map(&tw, dw, F, D, F, E, (uint64_t)D * F, 64);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(tgmm_sm90_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               tgmm_sm90::SMEM);
+  int device = 0, sms = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles = (F + sm90::BN - 1) / sm90::BN * ((D + sm90::BM - 1) / sm90::BM) * E;
+  tgmm_sm90_kernel<<<min(tiles, sms), sm90::THREADS, tgmm_sm90::SMEM,
+                     static_cast<cudaStream_t>(stream)>>>(tx, tg, tw, ends, N, D, F, E);
   return (int)cudaGetLastError();
 }

@@ -164,6 +164,17 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// Store one box from shared memory into global memory; parts of the box past the
+// tensor's edges are not written.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 // Add one f32 box from shared memory into global memory (element-wise, in L2).
 __device__ __forceinline__ void tma_reduce_add_3d(const CUtensorMap* map, const void* src,
                                                   int c0, int c1, int c2) {

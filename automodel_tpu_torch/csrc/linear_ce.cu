@@ -33,10 +33,19 @@
 //      written in place), K steps over insignificant blocks skipped.
 // 6NEV in all, no second recompute. Device memory beyond inputs and outputs: the
 // (N, Vc) chunk buffer (268 MB at the slice shape), the f32 dH scratch when there is
-// more than one chunk (67 MB), and the forward's per-split (m, l) (N * splits f32).
+// more than one chunk (67 MB), and the forward's partial (m, l) pairs (2 * N * splits
+// f32; on the wgmma route splits = ceil(V / 256): 32.8 MB at the slice shape).
 //
 // Routes (picked by the wrapper, ops/linear_ce.py, from the shapes before the launch):
-//   - lce_bwd_wgmma, when E and V are multiples of 8 (TMA's 16-byte strides): the three
+//   - lce_fwd_wgmma, when E and V are multiples of 8 (TMA's 16-byte strides): the
+//     logits product of dlogits below (h K-major . w MN-major, or K-major tied) on the
+//     Hopper core of gemm_sm90.cuh, one 128 x 256 tile a block on the same grouped
+//     order, with an epilogue in registers (FwdEpi): each consumer warpgroup's half of
+//     the accumulators is one 128-column vocab tile of its 64 rows, so it writes that
+//     row's bmax entry, then the tile's (m, l) (one ex2 a logit) as one partial of
+//     (ceil(V/256), N); lce_merge_kernel folds them into z. Columns past V, which TMA
+//     fills with zeros (logit 0, not -inf), are masked out of both.
+//   - lce_bwd_wgmma, on the same condition: the three
 //     products on the Hopper core of gemm_sm90.cuh (TMA into 4 mbarrier stages, a
 //     producer warpgroup, two wgmma consumer warpgroups, 128 x 256 tiles). The operands
 //     are read in place through the descriptors' major-ness: dlogits h (K-major) . w
@@ -52,16 +61,18 @@
 //   - lce_bwd (mma.sync), any E and V (e.g. GPT-2's V = 50,257): 128 x 128 tiles, 8
 //     warps, a three-stage cp.async ring (108 KB), ldmatrix and mma.sync m16n8k16,
 //     scalar loads where a row is not 16-byte aligned, scalar bf16 stores.
-//   lce_fwd runs on that mma.sync mainloop for every shape: a block owns 128 tokens and
-//   a contiguous range of vocab tiles (the vocab is split across blocks so that N = 8192
-//   gives ~2 blocks per SM), keeps (m, l) per row across its tiles and writes one
-//   partial pair per split; lce_merge_kernel folds the splits into z.
-// What it leaves on the table: lce_fwd has no wgmma, TMA or warp specialisation; the
-// wgmma route's tiles pay their own prologue and epilogue with the tensor cores idle
-// (the most for dlogits, whose K is only E and whose epilogue takes an exp an element;
-// gemm_sm90.cuh: a ping-pong of the consumer warpgroups would hide them), and the f32
-// dH scratch is read and written once per chunk (32 times, ~34 GB, at main path 7's
-// N = 32768, where the buffer budget gives Vc = 4096).
+//   - lce_fwd (mma.sync), any E and V, on that mainloop: a block owns 128 tokens and a
+//     contiguous range of vocab tiles (the vocab is split across blocks so that N = 8192
+//     gives ~2 blocks per SM), keeps (m, l) per row across its tiles and writes one
+//     partial pair per split; lce_merge_kernel folds the splits into z.
+// What it leaves on the table: the wgmma route's tiles pay their own prologue and
+// epilogue with the tensor cores idle (the most for lce_fwd and dlogits, whose K is
+// only E and whose epilogue takes an exp an element; gemm_sm90.cuh: a ping-pong of the
+// consumer warpgroups would hide them); lce_fwd writes 8 bytes of partials a token a
+// 256-column tile (131 MB at main path 7's shape) where a block walking several tiles
+// would keep them in registers; the f32 dH scratch is read and written once per chunk
+// (32 times, ~34 GB, at main path 7's N = 32768, where the buffer budget gives
+// Vc = 4096).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -583,6 +594,67 @@ struct DwEpi : sm90::StoreBf16 {
   __device__ void at(int m, int n, const SigFilter&) { r0 = m, c0 = n; }
 };
 
+// 2^x in one MUFU.EX2; the arguments here are <= 0, so the flush of results below
+// 2^-126 to 0 loses nothing a sum of such terms could hold.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// lce_fwd on the core, in registers: a tile is 128 tokens by two 128-column vocab tiles,
+// acc[h] of a consumer warpgroup one vocab tile of its 64 rows. For each row it writes
+// the vocab tiles' maxima over columns < V to bmax (ceil(V/128), N), and the tile's
+// (m, l) = (max, sum of exp(s - max)) over those columns to the partials
+// (ceil(V/256), N), which lce_merge_kernel folds into z. TMA fills columns past V with
+// zeros, which would read as logit 0: they are masked, not read.
+struct FwdEpi : sm90::RegsEpilogue {
+  float* bmax;
+  float* part_m;
+  float* part_l;
+  int N, V;
+  int m0, n0;
+  __device__ void at(int m, int n, const SigFilter&) { m0 = m, n0 = n; }
+  __device__ void regs(float (&acc)[2][64], int cw, int t) const {
+    constexpr float LOG2E = 1.4426950408889634f;
+    const int warp = t / 32, lane = t % 32, g = lane / 4, tc = (lane % 4) * 2;
+    const int ncols = min(V - n0, sm90::BN);  // columns < V in this tile
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {  // rows g and g + 8 of this warp's 16
+      const int row = m0 + cw * 64 + warp * 16 + g + 8 * i;
+      float mh[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float x = NEG_INF;
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+#pragma unroll
+          for (int c = 0; c < 2; ++c)
+            if (h * 128 + 8 * j + tc + c < ncols) x = fmaxf(x, acc[h][4 * j + 2 * i + c]);
+        x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));  // the quad shares the row
+        mh[h] = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+        if (tc == 0 && h * 128 < ncols) bmax[(size_t)(n0 / BN + h) * N + row] = mh[h];
+      }
+      const float m = fmaxf(mh[0], mh[1]), ms = m * LOG2E;
+      float l = 0.f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+#pragma unroll
+          for (int c = 0; c < 2; ++c)
+            if (h * 128 + 8 * j + tc + c < ncols)
+              l += ex2(fmaf(acc[h][4 * j + 2 * i + c], LOG2E, -ms));
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      if (tc == 0) {
+        part_m[(size_t)(n0 / sm90::BN) * N + row] = m;
+        part_l[(size_t)(n0 / sm90::BN) * N + row] = l;
+      }
+    }
+  }
+};
+
 constexpr int GROUP_ROWS = 16;  // row tiles of a group in the block order below
 
 // One tile of one of lce_bwd's products: grid (ceil(cols / 256), ceil(rows / 128)).
@@ -647,6 +719,36 @@ extern "C" int lce_fwd(const void* h, const void* w, float* z, float* bmax, floa
       static_cast<const bf16*>(h), static_cast<const bf16*>(w), bmax, part_m, part_l, N, E, V,
       per);
   err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  lce_merge_kernel<<<(N + 255) / 256, 256, 0, s>>>(part_m, part_l, z, N, splits);
+  return (int)cudaGetLastError();
+}
+
+// The wgmma route of lce_fwd (E % 8 == 0, V % 8 == 0, h and w 16-byte aligned), with
+// lce_fwd's arguments; the partials are one (m, l) pair per 256-column tile, so
+// splits must be ceil(V / 256).
+extern "C" int lce_fwd_wgmma(const void* h, const void* w, float* z, float* bmax, float* part_m,
+                             float* part_l, int N, int E, int V, int w_vmajor, int splits,
+                             void* stream) {
+  if (N % TOK_TILE || E < 1 || V < 1 || E % 8 || V % 8 ||
+      splits != (V + sm90::BN - 1) / sm90::BN)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // h K-major, w as dlogits reads it (MN-major, or K-major tied)
+  CUtensorMap h_k, w_dl;
+  const uint64_t wn = (uint64_t)E * V;
+  cudaError_t err = sm90::operand_map(&h_k, h, E, N, E, 1, (uint64_t)N * E,
+                                      sm90::box_rows(true, false));
+  if (err == cudaSuccess)
+    err = w_vmajor ? sm90::operand_map(&w_dl, w, E, V, E, 1, wn, sm90::box_rows(false, false))
+                   : sm90::operand_map(&w_dl, w, V, E, V, 1, wn, sm90::box_rows(false, true));
+  if (err != cudaSuccess) return (int)err;
+  const int num_vt = (V + BN - 1) / BN;
+  const SigFilter all{nullptr, num_vt, num_vt, SigFilter::DLOGITS, 0, 0};
+  const FwdEpi epi{{}, bmax, part_m, part_l, N, V, 0, 0};
+  const int e_steps = (E + sm90::BK - 1) / sm90::BK;
+  err = w_vmajor ? launch_sm90<false, false>(h_k, w_dl, V, N, 0, 0, e_steps, all, epi, s)
+                 : launch_sm90<false, true>(h_k, w_dl, V, N, 0, 0, e_steps, all, epi, s);
   if (err != cudaSuccess) return (int)err;
   lce_merge_kernel<<<(N + 255) / 256, 256, 0, s>>>(part_m, part_l, z, N, splits);
   return (int)cudaGetLastError();

@@ -35,6 +35,7 @@ SOURCES: dict[str, dict[str, list]] = {
     },
     "linear_ce.cu": {
         "lce_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "lce_fwd_wgmma": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
         "lce_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
         "lce_bwd_wgmma": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     },
@@ -42,6 +43,7 @@ SOURCES: dict[str, dict[str, list]] = {
         "gmm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
         "gmm_wgmma": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
         "tgmm": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "tgmm_wgmma": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     },
     "ring_chunk.cu": {
         "ring_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

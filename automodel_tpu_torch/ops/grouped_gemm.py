@@ -10,11 +10,12 @@ w read as its transpose in place, for dX; ``tgmm`` for dW. A CPU tensor goes to
 :func:`grouped_matmul_reference`, a per-group loop with f32 accumulation that also
 serves as the kernels' check on the card.
 
-``gmm`` has two routes, picked from the shapes before the launch (:func:`gmm_route`):
-``wgmma`` (the Hopper core, TMA-fed) when the row lengths K and Nout are multiples of
-8 bf16 and the operands start 16-byte aligned, as TMA requires, else ``mma_sync`` (any
-shape). Between them the kernels take any N, D, F, so unlike the JAX wrapper nothing
-is rerouted to another implementation: a shape or dtype they cannot take raises.
+``gmm`` and ``tgmm`` each have two routes, picked from the shapes before the launch
+(:func:`gmm_route`, :func:`tgmm_route`): ``wgmma`` (the Hopper core, TMA-fed) when the
+operands' row lengths (K and Nout; D and F) are multiples of 8 bf16 and the operands
+start 16-byte aligned, as TMA requires, else ``mma_sync`` (any shape). Between them
+the kernels take any N, D, F, so unlike the JAX wrapper nothing is rerouted to
+another implementation: a shape or dtype they cannot take raises.
 ``group_sizes`` stays on the device: the wrapper derives its prefix sum there and the
 grids from the static shapes (each wgmma-route block finds its rows from the prefix
 sum itself), so no launch waits for the host.
@@ -25,12 +26,12 @@ from __future__ import annotations
 import torch
 
 __all__ = ["LAUNCHES", "ROUTE_LAUNCHES", "gmm", "gmm_route", "grouped_matmul",
-           "grouped_matmul_reference", "tgmm"]
+           "grouped_matmul_reference", "tgmm", "tgmm_route"]
 
 # one count per kernel launch, so a run can show that it went through the kernels
 LAUNCHES = {"gmm": 0, "tgmm": 0}
-# gmm's launches by route (their sum is LAUNCHES["gmm"])
-ROUTE_LAUNCHES = {"gmm/wgmma": 0, "gmm/mma_sync": 0}
+# launches by route (each kernel's sum is its LAUNCHES count)
+ROUTE_LAUNCHES = {"gmm/wgmma": 0, "gmm/mma_sync": 0, "tgmm/wgmma": 0, "tgmm/mma_sync": 0}
 _SOURCE = "grouped_gemm.cu"
 
 
@@ -69,14 +70,24 @@ def _ends(group_sizes: torch.Tensor) -> torch.Tensor:
     return torch.cumsum(group_sizes, 0, dtype=torch.int32)
 
 
-def gmm_route(x: torch.Tensor, w: torch.Tensor, transpose_w: bool = False) -> str:
-    """``"wgmma"`` when TMA can map x and w (K and Nout multiples of 8 bf16, both
-    starting 16-byte aligned), else ``"mma_sync"``; decided before the launch."""
+def _route(a: torch.Tensor, b: torch.Tensor, *row_lengths: int) -> str:
+    """``"wgmma"`` when TMA can map both operands (every row length a multiple of 8
+    bf16, both starting 16-byte aligned), else ``"mma_sync"``."""
     from automodel_tpu_torch.kernels.build import aligned16
 
-    k = x.shape[1]
-    n_out = w.shape[1] if transpose_w else w.shape[2]
-    return "wgmma" if k % 8 == 0 and n_out % 8 == 0 and aligned16(x, w) else "mma_sync"
+    return "wgmma" if all(n % 8 == 0 for n in row_lengths) and aligned16(a, b) else "mma_sync"
+
+
+def gmm_route(x: torch.Tensor, w: torch.Tensor, transpose_w: bool = False) -> str:
+    """gmm's route, decided before the launch: ``"wgmma"`` when K and Nout are
+    multiples of 8 and x and w start 16-byte aligned, else ``"mma_sync"``."""
+    return _route(x, w, x.shape[1], w.shape[1] if transpose_w else w.shape[2])
+
+
+def tgmm_route(x: torch.Tensor, dout: torch.Tensor) -> str:
+    """tgmm's route, decided before the launch: ``"wgmma"`` when D and F are multiples
+    of 8 and x and dout start 16-byte aligned, else ``"mma_sync"``."""
+    return _route(x, dout, x.shape[1], dout.shape[1])
 
 
 def gmm(x: torch.Tensor, w: torch.Tensor, ends: torch.Tensor, transpose_w: bool = False):
@@ -98,15 +109,18 @@ def gmm(x: torch.Tensor, w: torch.Tensor, ends: torch.Tensor, transpose_w: bool 
 
 
 def tgmm(x: torch.Tensor, dout: torch.Tensor, ends: torch.Tensor, num_groups: int):
-    """Launch ``tgmm`` on checked inputs: (E, D, F) with ``dw[e] = x_e^T @ dout_e``."""
+    """Launch ``tgmm`` on checked inputs: (E, D, F) with ``dw[e] = x_e^T @ dout_e``, on
+    the route :func:`tgmm_route` picks."""
     from automodel_tpu_torch.kernels.build import launch
 
     n, d = x.shape
     f = dout.shape[1]
     dw = torch.empty((num_groups, d, f), dtype=x.dtype, device=x.device)
-    launch(_SOURCE, "tgmm", x.device, x.data_ptr(), dout.data_ptr(), ends.data_ptr(),
-           dw.data_ptr(), n, d, f, num_groups)
+    route = tgmm_route(x, dout)
+    launch(_SOURCE, "tgmm_wgmma" if route == "wgmma" else "tgmm", x.device, x.data_ptr(),
+           dout.data_ptr(), ends.data_ptr(), dw.data_ptr(), n, d, f, num_groups)
     LAUNCHES["tgmm"] += 1
+    ROUTE_LAUNCHES[f"tgmm/{route}"] += 1
     return dw
 
 

@@ -13,10 +13,11 @@ gradient and is skipped. The test runs in torch between the kernels
 (:func:`block_significance`, the counterpart of ``_block_significance``), from the
 forward's per-(vocab tile, row) maxima. ``filter_eps=None`` gives exact gradients.
 
-``lce_bwd`` has two routes, picked from the shapes before the launch
-(:func:`lce_bwd_route`): ``wgmma`` (its three products on the Hopper core, TMA-fed)
-when E and V are multiples of 8 bf16 and h and w start 16-byte aligned, as TMA
-requires, else ``mma_sync`` (any E and V, e.g. GPT-2's vocabulary of 50,257).
+``lce_fwd`` and ``lce_bwd`` each have two routes, picked from the shapes before the
+launch (:func:`lce_fwd_route`, :func:`lce_bwd_route`, the same rule): ``wgmma`` (their
+products on the Hopper core, TMA-fed) when E and V are multiples of 8 bf16 and h and
+w start 16-byte aligned, as TMA requires, else ``mma_sync`` (any E and V, e.g.
+GPT-2's vocabulary of 50,257).
 
 A CUDA tensor goes to the kernels or raises; a CPU tensor goes to
 :func:`fused_logsumexp_reference`, in f32, which applies the same filter at a tile
@@ -36,15 +37,16 @@ import torch.nn.functional as F
 __all__ = ["LAUNCHES", "ROUTE_LAUNCHES", "TILE_N", "TILE_V", "block_maxima",
            "block_significance", "fused_logsumexp", "fused_logsumexp_reference", "gold_logits",
            "kernel_operand", "kernel_supported", "lce_bwd", "lce_bwd_route", "lce_chunk",
-           "lce_fwd"]
+           "lce_fwd", "lce_fwd_route"]
 
 NEG_INF = -1e30
 TILE_N = 128  # token tile of the kernels and of the filter
 TILE_V = 128  # vocab tile of the kernels, of bmax and of the filter
 # one count per kernel launch, so a run can show that it went through the kernels
 LAUNCHES = {"lce_fwd": 0, "lce_bwd": 0}
-# lce_bwd's launches by route (their sum is LAUNCHES["lce_bwd"])
-ROUTE_LAUNCHES = {"lce_bwd/wgmma": 0, "lce_bwd/mma_sync": 0}
+# launches by route (each kernel's sum is its LAUNCHES count)
+ROUTE_LAUNCHES = {"lce_fwd/wgmma": 0, "lce_fwd/mma_sync": 0,
+                  "lce_bwd/wgmma": 0, "lce_bwd/mma_sync": 0}
 _SOURCE = "linear_ce.cu"
 _CHUNK_BYTES = 256 * 2**20  # budget of the backward's (tokens, vocab chunk) bf16 buffer
 
@@ -165,21 +167,27 @@ def _check_cuda(h, w):
 
 def lce_fwd(h: torch.Tensor, w: torch.Tensor,
             vmajor: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the forward on checked inputs: ``(z (N,), bmax (ceil(V/128), N))``, f32.
-    ``w`` is the (E, V) unembedding, or with ``vmajor`` its row-major (V, E) storage."""
+    """Launch the forward on checked inputs: ``(z (N,), bmax (ceil(V/128), N))``, f32,
+    on the route :func:`lce_fwd_route` picks. ``w`` is the (E, V) unembedding, or with
+    ``vmajor`` its row-major (V, E) storage."""
     from automodel_tpu_torch.kernels.build import launch
 
     n, e = h.shape
     v = w.shape[0] if vmajor else w.shape[1]
     num_t, num_vt = n // TILE_N, -(-v // TILE_V)
-    # split the vocab so that the grid gives about two blocks per SM
-    splits = min(num_vt, max(1, -(-2 * _sm_count(h.device) // num_t)))
+    route = lce_fwd_route(h, w, vmajor)
+    if route == "wgmma":  # one partial (m, l) a 256-column tile of the core
+        splits = -(-v // (2 * TILE_V))
+    else:  # split the vocab so that the grid gives about two blocks per SM
+        splits = min(num_vt, max(1, -(-2 * _sm_count(h.device) // num_t)))
     z = torch.empty(n, dtype=torch.float32, device=h.device)
     bmax = torch.empty((num_vt, n), dtype=torch.float32, device=h.device)
     part = torch.empty((2, splits, n), dtype=torch.float32, device=h.device)
-    launch(_SOURCE, "lce_fwd", h.device, h.data_ptr(), w.data_ptr(), z.data_ptr(),
-           bmax.data_ptr(), part[0].data_ptr(), part[1].data_ptr(), n, e, v, int(vmajor), splits)
+    launch(_SOURCE, "lce_fwd_wgmma" if route == "wgmma" else "lce_fwd", h.device, h.data_ptr(),
+           w.data_ptr(), z.data_ptr(), bmax.data_ptr(), part[0].data_ptr(), part[1].data_ptr(),
+           n, e, v, int(vmajor), splits)
     LAUNCHES["lce_fwd"] += 1
+    ROUTE_LAUNCHES[f"lce_fwd/{route}"] += 1
     return z, bmax
 
 
@@ -192,6 +200,9 @@ def lce_bwd_route(h: torch.Tensor, w: torch.Tensor, vmajor: bool = False) -> str
     e = h.shape[1]
     v = w.shape[0] if vmajor else w.shape[1]
     return "wgmma" if e % 8 == 0 and v % 8 == 0 and aligned16(h, w) else "mma_sync"
+
+
+lce_fwd_route = lce_bwd_route  # both kernels' wgmma routes read h and w through TMA
 
 
 def lce_chunk(n: int, v: int) -> int:

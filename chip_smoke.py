@@ -23,28 +23,33 @@ Phases, in order; any failure exits non-zero before the last line:
    (one phase alone: ``chip_smoke._timings(torch, fa, 4, 2048, 32, 4, 128)``);
 5. Llama-3.2-1B width at 2 layers: one forward and backward with attention "flash"
    against attention "xla" on the same weights;
-6. lce_fwd / lce_bwd (fused linear CE) against their plain version in eight cases:
+6. lce_fwd / lce_bwd (fused linear CE) against their plain version in nine cases:
    (a) N=8192, E=2048, V=128,256 with 10% ignored labels, exact; (b) the same with h
    scaled up under filter_eps=1e-7; (c) ragged N=8190 with V=50,257; (d) E=4096;
    (e) shape (b) with a tied unembedding (the (V, E) embedding read in place);
    (f) E=1000, not a multiple of the 128 tile; (g) E=1003, tied, rows not 16-byte
-   aligned; (h) E=8, V=16, tied, every dimension inside one tile; each case line
-   names lce_bwd's route (wgmma where E and V are multiples of 8, else mma_sync: c, f,
-   g) and fails if another was launched;
+   aligned; (h) E=8, V=16, tied, every dimension inside one tile; (i) E=1000,
+   V=50,264, a multiple of 8 but not of the 256-column tile, so lce_fwd's wgmma route
+   must mask the columns past V that TMA fills with zeros; each case line names the
+   routes of lce_fwd and lce_bwd (wgmma where E and V are multiples of 8, else
+   mma_sync: c, f, g) and fails if others were launched;
    then their times at shape (a) beside the bound, the plain version and the
-   yardstick torch.logsumexp((h @ w).float(), -1), lce_bwd's time at main path 7's
-   shape (N=32768, E=4096) beside its bound, and the peak memory that one forward and
-   backward of linear_cross_entropy adds;
+   yardstick torch.logsumexp((h @ w).float(), -1), both kernels' times at main path 7's
+   shape (N=32768, E=4096) beside their bounds (lce_fwd's also beside its plain
+   version and yardstick, where the card holds their logits), and the peak memory
+   that one forward and backward of linear_cross_entropy adds;
 7. gmm / tgmm (grouped expert GEMM: forward, dX, dW) against their plain version in
-   six cases: (a) the slice's gate_up (N=65,536 routed rows, D=2048, F=1536, E=128,
+   seven cases: (a) the slice's gate_up (N=65,536 routed rows, D=2048, F=1536, E=128,
    group sizes from a softmax top-8 router), (b) its down projection (D=768, F=2048),
    (c) empty head / middle / tail experts with N, D and F off the tiles, (d) one expert
    owning every row with rows not 16-byte aligned, (e) D=16, F=24, N=30, every
    dimension inside one tile, (f) c's experts and 300 rows past the groups, whose out
-   and dX must be exactly 0; each case line names gmm's routes
-   (wgmma where K and Nout are multiples of 8, else mma_sync: c, d) and fails if
-   others were launched; then gmm (forward and dX) and tgmm times at (a) and (b)
-   beside the bound, the plain version and torch._grouped_mm;
+   and dX must be exactly 0, (g) tgmm's ragged K steps: experts of 1, 63, 64, 65, 127,
+   0 and 200 rows (starts off the 64-row steps) and 37 rows past the groups at D=256,
+   F=512; each case line names the routes of gmm and tgmm (wgmma where the row
+   lengths are multiples of 8, else mma_sync: c, d) and fails if others were launched;
+   then gmm (forward and dX) and tgmm times at (a) and (b) beside the bound, the plain
+   version and torch._grouped_mm;
 8. Qwen3-30B-A3B width at 1 layer: the kernels against the plain versions on the same
    weights, with routing held fixed;
 8b. ring_fwd / ring_bwd (ring-attention chunk kernels) against their plain version, one
@@ -77,8 +82,9 @@ Phases, in order; any failure exits non-zero before the last line:
    section replaced by the mock dataset (cp_config) and the published Meta-Llama-3-8B
    widths at 4 layers, one microbatch a step (LLAMA3_8B, llama3_8b_args);
 16. main path 8: train_ft on the same at 2 layers, default loss, 4096-token documents
-   packed into rows of 32768; every main path also checks that each of its gmm and
-   lce_bwd launches took the wgmma route (``launches by route`` on its line);
+   packed into rows of 32768; every main path also checks that each of its gmm, tgmm,
+   lce_fwd and lce_bwd launches took the wgmma route (``launches by route`` on its
+   line);
 17. one JSON line of per-kernel numbers, the card line, then the result line.
 
 To run one phase alone on the card, import the script: e.g.
@@ -89,9 +95,10 @@ examples/benchmark/qwen3_moe_a3b_proxy.yaml $(python3 -c "import chip_smoke;
 print(' '.join(chip_smoke.qwen3_args()))")``.
 
 ``python3 chip_smoke.py --kernel-times [ROOT]`` builds the package of the checkout at
-ROOT (default: this one) and times only its gmm (forward and dX at a and b) and lce_bwd
-(at N=8192 / E=2048 and at main path 7's shape) on the inputs of the timing rows, so
-that two checkouts' kernels can be compared on one card in one call.
+ROOT (default: this one) and times only its gmm (forward and dX) and tgmm at a and b,
+and its lce_fwd and lce_bwd at N=8192 / E=2048 and at main path 7's shape, on the
+inputs of the timing rows, so that two checkouts' kernels can be compared on one card
+in one call.
 """
 
 from __future__ import annotations
@@ -836,14 +843,16 @@ def _gmm_case(torch, name, sizes, d, f, extra=0):
     from automodel_tpu_torch.ops import grouped_gemm as gg
 
     x, w, dout = _gmm_inputs(torch, sizes, d, f, seed=d + f, extra=extra)
-    routes = {"forward": gg.gmm_route(x, w), "dX": gg.gmm_route(dout, w, transpose_w=True)}
+    routes = {"forward": gg.gmm_route(x, w), "dX": gg.gmm_route(dout, w, transpose_w=True),
+              "dW": gg.tgmm_route(x, dout)}
     xk, wk = x.clone().requires_grad_(), w.clone().requires_grad_()
     before = dict(gg.ROUTE_LAUNCHES)
     out = gg.grouped_matmul(xk, wk, sizes)
     dx, dw = torch.autograd.grad(out, (xk, wk), dout)
     torch.cuda.synchronize()
     taken = {k: gg.ROUTE_LAUNCHES[k] - before[k] for k in before}
-    want = {k: sum(f"gmm/{r}" == k for r in routes.values()) for k in before}
+    want = {k: sum(f"{'tgmm' if part == 'dW' else 'gmm'}/{r}" == k for part, r in routes.items())
+            for k in before}
     xr, wr = x.float().requires_grad_(), w.float().requires_grad_()
     ref = gg.grouped_matmul_reference(xr, wr, sizes)
     rdx, rdw = torch.autograd.grad(ref, (xr, wr), dout.float())
@@ -857,7 +866,8 @@ def _gmm_case(torch, name, sizes, d, f, extra=0):
           f"largest {int(sizes.max())} rows, {extra} rows past the groups): rel L2 out "
           f"{rel[0]:.3e} dX {rel[1]:.3e} dW {rel[2]:.3e} (tol {TOL_GMM}), dW of empty experts "
           f"exactly 0: {empty_ok}, out and dX past the groups exactly 0: {tail_ok}; routes "
-          f"forward {routes['forward']}, dX {routes['dX']} (launched {taken})", flush=True)
+          f"gmm forward {routes['forward']}, gmm dX {routes['dX']}, tgmm {routes['dW']} "
+          f"(launched {taken})", flush=True)
     if not (max(rel) <= TOL_GMM and empty_ok and tail_ok):
         raise AssertionError(f"gmm case {name}: kernels disagree with the plain version")
     if taken != want:
@@ -933,7 +943,7 @@ def _gmm_timings(torch, sizes):
                      _time_ms(torch, lambda: torch.autograd.grad(ref, wp, dout,
                                                                  retain_graph=True),
                               warmup=1, reps=5),
-                     _time_ms(torch, lib_dw), "mma_sync")}
+                     _time_ms(torch, lib_dw), gg.tgmm_route(x, dout))}
         for part, (ms, plain, lib, route) in times.items():
             flops, nbytes = work[part]
             t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
@@ -947,7 +957,8 @@ def _gmm_timings(torch, sizes):
                 out[kname].update(row)
             else:
                 out[kname][key] = row
-            print(f"time {kname} {part} case {case} at N={n} D={d} F={f} E={e} ({route}): "
+            label = kname if part == kname else f"{kname} {part}"
+            print(f"time {label} case {case} at N={n} D={d} F={f} E={e} ({route}): "
                   f"{ms:.3f} ms, bound {row['bound_ms']:.3f} ms ({row['bound_by']}: "
                   f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB), plain {plain:.3f} ms, "
                   f"yardstick {lib:.3f} ms ({name})", flush=True)
@@ -964,16 +975,19 @@ def _gmm_phase(torch, errs):
     aligned); e: D = 16, F = 24, N = 30 with an empty expert, on the wgmma route with
     every dimension inside one tile (TMA boxes past the tensor's edges); f: c's group
     sizes with 300 rows past the groups at D = 256, F = 512, on the wgmma route (its
-    tail tiles zero those rows)."""
+    tail tiles zero those rows); g: tgmm's wgmma route with every kind of last K step
+    (experts of 1, 63, 64, 65, 127 and 200 rows, one empty, 37 rows past the groups
+    whose x must not enter the last expert's dW)."""
     sizes = _router_group_sizes(torch, 8192, 2048, 128, 8)
     ragged = torch.tensor([0, 0, 300, 0, 77, 5, 0, 1, 134, 0, 0], dtype=torch.int32,
                           device="cuda")
     owner = torch.tensor([0, 1000, 0, 0], dtype=torch.int32, device="cuda")
     small = torch.tensor([5, 0, 11, 14], dtype=torch.int32, device="cuda")
+    tails = torch.tensor([1, 63, 64, 65, 127, 0, 200], dtype=torch.int32, device="cuda")
     errs.update({"gmm": 0.0, "tgmm": 0.0})
     for case in (("a", sizes, 2048, 1536), ("b", sizes, 768, 2048),
                  ("c", ragged, 1000, 1003), ("d", owner, 1003, 1000), ("e", small, 16, 24),
-                 ("f", ragged, 256, 512, 300)):
+                 ("f", ragged, 256, 512, 300), ("g", tails, 256, 512, 37)):
         err_gmm, err_tgmm = _gmm_case(torch, *case)
         errs["gmm"] = max(errs["gmm"], err_gmm)
         errs["tgmm"] = max(errs["tgmm"], err_tgmm)
@@ -1040,19 +1054,22 @@ def _route_counters():
     return gg.ROUTE_LAUNCHES, lce.ROUTE_LAUNCHES
 
 
+ROUTED = ("gmm", "tgmm", "lce_fwd", "lce_bwd")  # the kernels with a wgmma and an mma_sync route
+
+
 def _read_routes() -> dict:
-    """Launches of gmm and lce_bwd by route ("gmm/wgmma", "lce_bwd/mma_sync", ...)."""
+    """Launches of the routed kernels by route ("gmm/wgmma", "lce_fwd/mma_sync", ...)."""
     return {k: v for counter in _route_counters() for k, v in counter.items()}
 
 
 def _check_routes(name, launches) -> dict:
-    """Every launch of gmm and lce_bwd on a main path must have taken the wgmma route;
-    returns the launches with the route counts added."""
+    """Every launch of gmm, tgmm, lce_fwd and lce_bwd on a main path must have taken
+    the wgmma route; returns the launches with the route counts added."""
     routes = _read_routes()
     print(f"{name}: launches by route {routes}", flush=True)
-    for kernel in ("gmm", "lce_bwd"):
-        if routes[f"{kernel}/wgmma"] != launches[kernel]:
-            raise AssertionError(f"{name}: {launches[kernel]} {kernel} launches, "
+    for kernel in ROUTED:
+        if routes[f"{kernel}/wgmma"] != launches.get(kernel, 0):
+            raise AssertionError(f"{name}: {launches.get(kernel, 0)} {kernel} launches, "
                                  f"{routes[f'{kernel}/wgmma']} of them on the wgmma route")
     return {**launches, **routes}
 
@@ -1256,6 +1273,7 @@ def _lce_case(torch, name, n, e, v, filter_eps=None, h_scale=1.0, tied=False):
     unembed = (lambda x: x.t()) if tied else (lambda x: x)
     dz = (labels != -100).float()
     route = lce.lce_bwd_route(h, *lce.kernel_operand(unembed(w)))
+    fwd_route = lce.lce_fwd_route(h, *lce.kernel_operand(unembed(w)))
     hk, wk = h.clone().requires_grad_(), w.clone().requires_grad_()
     before = dict(lce.ROUTE_LAUNCHES)
     z, _ = losses.fused_linear_ce_tokens(hk, unembed(wk), labels, filter_eps=filter_eps)
@@ -1275,13 +1293,15 @@ def _lce_case(torch, name, n, e, v, filter_eps=None, h_scale=1.0, tied=False):
         torch.cuda.empty_cache()
     err_z, rel, err_grad = out["plain"]
     line = (f"lce case {name}: N={n} E={e} V={v} tied={tied} h_scale={h_scale} "
-            f"filter_eps={filter_eps}, lce_bwd route {route} (launched {taken}): "
+            f"filter_eps={filter_eps}, lce_fwd route {fwd_route}, lce_bwd route {route} "
+            f"(launched {taken}): "
             f"z max abs {err_z:.3e} (tol {TOL_Z}), grad rel L2 dH {rel[0]:.3e} dW {rel[1]:.3e} "
             f"(tol {TOL_LCE_GRAD})")
     ok = err_z <= TOL_Z and max(rel) <= TOL_LCE_GRAD
-    if taken != {k: int(k == f"lce_bwd/{route}") for k in taken}:
+    if taken != {k: int(k in (f"lce_fwd/{fwd_route}", f"lce_bwd/{route}")) for k in taken}:
         print(line, flush=True)
-        raise AssertionError(f"lce case {name}: lce_bwd did not take the {route} route")
+        raise AssertionError(f"lce case {name}: launched {taken}, named lce_fwd {fwd_route}, "
+                             f"lce_bwd {route}")
     if filter_eps is not None:
         z_k, bmax = lce.lce_fwd(h, w, tied)  # the backward's own decision, from the forward
         sig = lce.block_significance(bmax, z_k, lce.TILE_N, math.log(filter_eps))
@@ -1313,8 +1333,7 @@ def _lce_timings(torch):
     dz = torch.ones(n, device="cuda")
     fwd_flops = 2 * n * e * v
     bwd_flops, bwd_bytes = _lce_work(n, e, v)
-    num_vt = -(-v // lce.TILE_V)
-    fwd_bytes = 2 * (h.numel() + w.numel()) + 4 * n + 4 * num_vt * n  # + z, bmax
+    fwd_bytes = _lce_fwd_bytes(n, e, v)
     z, _ = lce.lce_fwd(h, w)
     fwd_ms = _time_ms(torch, lambda: lce.lce_fwd(h, w))
     bwd_ms = _time_ms(torch, lambda: lce.lce_bwd(h, w, z, dz, None))
@@ -1344,10 +1363,11 @@ def _lce_timings(torch):
               f"{out[name]['bound_ms']:.3f} ms ({out[name]['bound_by']}: {flops / 1e12:.2f} "
               f"TFLOP, {nbytes / 1e6:.1f} MB), plain {plain:.3f} ms, yardstick {lib:.3f} ms",
               flush=True)
+    out["lce_fwd"]["route"] = lce.lce_fwd_route(h, w)
     out["lce_bwd"]["route"] = lce.lce_bwd_route(h, w)
     del h, w, z, dz
     torch.cuda.empty_cache()
-    out["lce_bwd"]["at_path7_shape"] = _lce_bwd_timing_large(torch)
+    out["lce_fwd"]["at_path7_shape"], out["lce_bwd"]["at_path7_shape"] = _lce_timing_large(torch)
     return out
 
 
@@ -1357,40 +1377,69 @@ def _lce_work(n, e, v):
     return 6 * n * e * v, 2 * 2 * (n * e + e * v) + 4 * n * 2
 
 
-def _lce_bwd_timing_large(torch):
-    """ms of lce_bwd at main path 7's shape (N = 32768 tokens, E = 4096, V = 128,256)
-    beside its bound. No plain version or yardstick: each forms the f32 (N, V) logits
-    (16.8 GB) and its gradient, ~70 GB with autograd's temporaries."""
+def _lce_fwd_bytes(n, e, v):
+    """Bytes of lce_fwd at (N, E, V): h and w read, z (N,) and bmax (ceil(V/128), N)
+    written, all once."""
+    return 2 * (n * e + e * v) + 4 * n + 4 * -(-v // 128) * n
+
+
+def _lce_timing_large(torch):
+    """Rows of lce_fwd and lce_bwd at main path 7's shape (N = 32768 tokens, E = 4096,
+    V = 128,256) beside their bounds. lce_fwd also beside its plain version and
+    yardstick, each of which forms the f32 (N, V) logits (16.8 GB) and logsumexp's
+    two temporaries of that size: where the card cannot hold them, the row says so.
+    lce_bwd has neither: with autograd's gradient of the logits they need ~70 GB."""
     from automodel_tpu_torch.ops import linear_ce as lce
 
     n, e, v = 32768, LLAMA3_8B["hidden_size"], LLAMA3_8B["vocab_size"]
     h, w, _ = _lce_inputs(torch, n, e, v, seed=9)
     dz = torch.ones(n, device="cuda")
     z, _ = lce.lce_fwd(h, w)
-    ms = _time_ms(torch, lambda: lce.lce_bwd(h, w, z, dz, None), warmup=1, reps=5)
-    flops, nbytes = _lce_work(n, e, v)
-    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
     chunk = lce.lce_chunk(n, v)
-    row = {"ms": ms, "bound_ms": max(t_ops, t_bytes),
-           "bound_by": "operations" if t_ops >= t_bytes else "bytes", "plain_ms": None,
-           "library_ms": None, "library": "not timed: the f32 logits alone are 16.8 GB",
-           "route": lce.lce_bwd_route(h, w), "shape": {"N": n, "E": e, "V": v},
-           "chunk": chunk}
-    print(f"time lce_bwd at N={n} E={e} V={v} ({row['route']}, vocab chunks of {chunk}): "
-          f"{ms:.3f} ms, bound {row['bound_ms']:.3f} ms ({row['bound_by']}: "
-          f"{flops / 1e12:.2f} TFLOP, {nbytes / 1e6:.1f} MB)", flush=True)
-    del h, w, z, dz
+    times = {"lce_fwd": (_time_ms(torch, lambda: lce.lce_fwd(h, w), warmup=1, reps=5),
+                         2 * n * e * v, _lce_fwd_bytes(n, e, v), lce.lce_fwd_route(h, w)),
+             "lce_bwd": (_time_ms(torch, lambda: lce.lce_bwd(h, w, z, dz, None), warmup=1,
+                                  reps=5), *_lce_work(n, e, v), lce.lce_bwd_route(h, w))}
+    del z, dz
     torch.cuda.empty_cache()
-    return row
+    rows = {}
+    for name, (ms, flops, nbytes, route) in times.items():
+        t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        rows[name] = {"ms": ms, "bound_ms": max(t_ops, t_bytes),
+                      "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                      "plain_ms": None, "library_ms": None, "route": route,
+                      "shape": {"N": n, "E": e, "V": v},
+                      "library": "not timed: with autograd the f32 logits need ~70 GB"}
+        if name == "lce_bwd":
+            rows[name]["chunk"] = chunk
+        print(f"time {name} at N={n} E={e} V={v} ({route}"
+              + (f", vocab chunks of {chunk}" if name == "lce_bwd" else "")
+              + f"): {ms:.3f} ms, bound {rows[name]['bound_ms']:.3f} ms "
+              f"({rows[name]['bound_by']}: {flops / 1e12:.2f} TFLOP, {nbytes / 1e6:.1f} MB)",
+              flush=True)
+    fwd = rows["lce_fwd"]
+    for key, fn in (("library_ms", lambda: _library_lse(torch, h, w)),
+                    ("plain_ms", lambda: lce.fused_logsumexp_reference(h, w))):
+        try:
+            fwd[key] = _time_ms(torch, fn, warmup=1, reps=3)
+        except torch.cuda.OutOfMemoryError as exc:  # the row keeps None and the reason
+            fwd[f"{key}_note"] = f"not timed: {str(exc).splitlines()[0][:160]}"
+        torch.cuda.empty_cache()
+    fwd["library"] = "torch.logsumexp((h @ w).float(), -1)"
+    print(f"time lce_fwd at N={n} E={e} V={v}: plain {fwd['plain_ms']} ms, yardstick "
+          f"{fwd['library_ms']} ms", flush=True)
+    del h, w
+    torch.cuda.empty_cache()
+    return rows["lce_fwd"], rows["lce_bwd"]
 
 
 def _kernel_times(torch):
-    """ms of gmm (forward and dX at the slice's shapes (a) and (b)) and of lce_bwd (at
-    N=8192, E=2048, V=128,256 and at main path 7's shape) on the inputs their timing
-    rows use, called only through the wrapper calls that the package has had since
-    both kernels were ported (``gmm(x, w, ends, transpose_w)``,
-    ``lce_bwd(h, w, z, dz, None)``), so that ``--kernel-times ROOT`` can time an older
-    checkout's kernels beside this one's."""
+    """ms of gmm (forward and dX) and tgmm at the slice's shapes (a) and (b), and of
+    lce_fwd and lce_bwd at N=8192, E=2048, V=128,256 and at main path 7's shape, on the
+    inputs their timing rows use, called only through the wrapper calls that the
+    package has had since the kernels were ported (``gmm(x, w, ends, transpose_w)``,
+    ``tgmm(x, dout, ends, e)``, ``lce_fwd(h, w)``, ``lce_bwd(h, w, z, dz, None)``), so
+    that ``--kernel-times ROOT`` can time an older checkout's kernels beside this one's."""
     from automodel_tpu_torch.ops import grouped_gemm as gg
     from automodel_tpu_torch.ops import linear_ce as lce
 
@@ -1401,12 +1450,14 @@ def _kernel_times(torch):
         x, w, dout = _gmm_inputs(torch, sizes, d, f, seed=11)
         out[f"gmm forward {case}"] = _time_ms(torch, lambda: gg.gmm(x, w, ends))
         out[f"gmm dX {case}"] = _time_ms(torch, lambda: gg.gmm(dout, w, ends, transpose_w=True))
+        out[f"tgmm {case}"] = _time_ms(torch, lambda: gg.tgmm(x, dout, ends, sizes.numel()))
         del x, w, dout
     for shape, n, e, seed, reps in (("N=8192 E=2048", 8192, 2048, 7, 20),
                                     ("N=32768 E=4096", 32768, LLAMA3_8B["hidden_size"], 9, 5)):
         h, w, _ = _lce_inputs(torch, n, e, LLAMA3_8B["vocab_size"], seed=seed)
         dz = torch.ones(n, device="cuda")
         z, _ = lce.lce_fwd(h, w)
+        out[f"lce_fwd {shape}"] = _time_ms(torch, lambda: lce.lce_fwd(h, w), warmup=1, reps=reps)
         out[f"lce_bwd {shape}"] = _time_ms(torch, lambda: lce.lce_bwd(h, w, z, dz, None),
                                            warmup=1, reps=reps)
         del h, w, z, dz
@@ -1476,7 +1527,8 @@ def main(argv: list[str]) -> int:
             print(f"  {source}: {line}")
     if argv:  # one option, one phase, and nothing else
         # --cp-processes N: the process-group ring across N cards; --kernel-times [ROOT]:
-        # gmm and lce_bwd of the package in ROOT (default: this checkout)
+        # the grouped GEMM and linear-CE kernels of the package in ROOT (default: this
+        # checkout)
         print(json.dumps({"process_group_ring": _pg_ring_phase(torch, int(argv[1]))}
                          if argv[0] == "--cp-processes"
                          else {"kernel_times": _kernel_times(torch), "package": root}))
@@ -1497,7 +1549,8 @@ def main(argv: list[str]) -> int:
     for case in (("a", 8192, 2048, 128256), ("b", 8192, 2048, 128256, 1e-7, 32.0),
                  ("c", 8190, 2048, 50257), ("d", 4096, 4096, 128256),
                  ("e", 8192, 2048, 128256, 1e-7, 32.0, True), ("f", 1024, 1000, 50257),
-                 ("g", 256, 1003, 3001, None, 1.0, True), ("h", 256, 8, 16, None, 1.0, True)):
+                 ("g", 256, 1003, 3001, None, 1.0, True), ("h", 256, 8, 16, None, 1.0, True),
+                 ("i", 1024, 1000, 50264)):
         err_z, err_grad = _lce_case(torch, *case)
         errs["lce_fwd"] = max(errs["lce_fwd"], err_z)
         errs["lce_bwd"] = max(errs["lce_bwd"], err_grad)
@@ -1564,7 +1617,7 @@ def main(argv: list[str]) -> int:
                "launches_by_path": {p: counts[name] for p, counts in by_path.items()}}
         if replaces[name][1]:
             row["replaces_by_function"] = replaces[name][1]
-        if name in ("gmm", "lce_bwd"):  # main-path launches by route
+        if name in ROUTED:  # main-path launches by route
             row["launches_by_route"] = {
                 r: sum(counts[f"{name}/{r}"] for counts in by_path.values())
                 for r in ("wgmma", "mma_sync")}

@@ -177,6 +177,38 @@ def test_main_paths_refuse_a_launch_off_the_wgmma_route():
     chip_smoke._reset_counts()
 
 
+@pytest.mark.parametrize("kernel", ["tgmm", "lce_fwd"])
+def test_main_paths_refuse_a_tgmm_or_lce_fwd_launch_off_the_wgmma_route(kernel):
+    """tgmm and lce_fwd are held to the wgmma route on a main path as gmm and lce_bwd
+    are: a path whose launches all took it passes, one mma_sync launch fails it."""
+    from automodel_tpu_torch.ops import grouped_gemm as gg, linear_ce as lce
+
+    routes = gg.ROUTE_LAUNCHES if kernel == "tgmm" else lce.ROUTE_LAUNCHES
+    chip_smoke._reset_counts()
+    assert set(chip_smoke._read_routes()) >= {f"{kernel}/wgmma", f"{kernel}/mma_sync"}
+    launches = {"gmm": 0, "tgmm": 0, "lce_fwd": 0, "lce_bwd": 0, kernel: 8}
+    routes[f"{kernel}/wgmma"] = 8
+    out = chip_smoke._check_routes("path", launches)
+    assert out[f"{kernel}/wgmma"] == 8 and out[f"{kernel}/mma_sync"] == 0
+    routes[f"{kernel}/wgmma"], routes[f"{kernel}/mma_sync"] = 7, 1
+    try:
+        with pytest.raises(AssertionError, match=f"{kernel} launches, 7 of them"):
+            chip_smoke._check_routes("path", launches)
+    finally:
+        chip_smoke._reset_counts()
+
+
+def test_lce_fwd_work_at_path7_shape():
+    """lce_fwd's bound at main path 7's shape (N=32768, E=4096, V=128,256): 2NEV =
+    34.4 TFLOP, 34.8 ms at the card's bf16 peak, bound by operations; its bytes are h,
+    w, z and bmax once each."""
+    n, e, v = 32768, 4096, 128256
+    nbytes = chip_smoke._lce_fwd_bytes(n, e, v)
+    assert nbytes == 2 * (n * e + e * v) + 4 * n + 4 * 1002 * n
+    t_ops = 2 * n * e * v / chip_smoke.PEAK_FLOPS * 1e3
+    assert t_ops == pytest.approx(34.8, abs=0.05) and t_ops > nbytes / chip_smoke.PEAK_BYTES * 1e3
+
+
 @pytest.mark.parametrize("mangled,name", [
     ("_ZN4_GLOBAL16flash_fwd_kernelILi64EEEv", "flash_fwd_kernel<64>"),
     ("_ZN12_GLOBAL__N_115gmm_sm90_kernelILb1EEEv14CUtensorMap_stS1_PKiP13__nv_bfloat16iii",

@@ -123,7 +123,7 @@ def test_gmm_route_is_picked_from_the_shapes(monkeypatch, d, f, route):
     """K and Nout multiples of 8 (16-byte rows for TMA) take the wgmma route for the
     forward and dX, other strides the mma.sync route; both routes take the same
     arguments (x, w, the groups' ends, out, N, K, Nout, E, transpose), and the autograd
-    function launches tgmm for dW. Nothing reaches the plain version."""
+    function launches tgmm for dW on its own route. Nothing reaches the plain version."""
     calls = _recorder(monkeypatch)
     gs = torch.tensor([5, 0, 11], dtype=torch.int32)
     x = torch.zeros(16, d, dtype=torch.bfloat16, requires_grad=True)
@@ -133,7 +133,8 @@ def test_gmm_route_is_picked_from_the_shapes(monkeypatch, d, f, route):
     out = tgg._GroupedMatmul.apply(x, w, gs)
     out.backward(torch.zeros(16, f, dtype=torch.bfloat16))
     entry = "gmm_wgmma" if route == "wgmma" else "gmm"
-    assert [name for name, _ in calls] == [entry, entry, "tgmm"]
+    tgmm_entry = "tgmm_wgmma" if route == "wgmma" else "tgmm"  # D and F as K and Nout
+    assert [name for name, _ in calls] == [entry, entry, tgmm_entry]
     fwd, dx = calls[0][1], calls[1][1]
     assert fwd[-1] == 0 and dx[-1] == 1  # w read as stored, then transposed
     assert fwd[4:8] == (16, d, f, 3) and dx[4:8] == (16, f, d, 3)
@@ -147,3 +148,39 @@ def test_a_misaligned_operand_takes_the_mma_sync_route():
     w = torch.zeros(2, 16, 24, dtype=torch.bfloat16)
     assert tgg.gmm_route(x, w) == "mma_sync"
     assert tgg.gmm_route(base[:256].view(16, 16), w) == "wgmma"
+
+
+@pytest.mark.parametrize("d,f,route", [(16, 24, "wgmma"), (1000, 1000, "wgmma"),
+                                       (16, 1003, "mma_sync"), (1003, 24, "mma_sync"),
+                                       (1003, 1003, "mma_sync")])
+def test_tgmm_route_is_picked_from_the_shapes(monkeypatch, d, f, route):
+    """tgmm takes the wgmma route when D and F are multiples of 8 (16-byte rows of x
+    and dout for TMA), else the mma.sync route; both entry points take (x, dout, the
+    groups' ends, dw, N, D, F, E) in that order, the route is counted, and nothing
+    reaches the plain version."""
+    calls = _recorder(monkeypatch)
+    gs = torch.tensor([5, 0, 11], dtype=torch.int32)
+    x = torch.zeros(16, d, dtype=torch.bfloat16)
+    dout = torch.zeros(16, f, dtype=torch.bfloat16)
+    before = dict(tgg.ROUTE_LAUNCHES)
+    assert tgg.tgmm_route(x, dout) == route
+    dw = tgg.tgmm(x, dout, tgg._ends(gs), 3)
+    assert dw.shape == (3, d, f) and dw.dtype == torch.bfloat16
+    assert [name for name, _ in calls] == ["tgmm_wgmma" if route == "wgmma" else "tgmm"]
+    args = calls[0][1]
+    assert args[:4] == (x.data_ptr(), dout.data_ptr(), args[2], dw.data_ptr())
+    assert args[4:] == (16, d, f, 3)
+    taken = {k: tgg.ROUTE_LAUNCHES[k] - before[k] for k in before}
+    assert taken == {k: int(k == f"tgmm/{route}") for k in before}
+
+
+@pytest.mark.parametrize("which", ["x", "dout"])
+def test_a_misaligned_tgmm_operand_takes_the_mma_sync_route(which):
+    """tgmm's x or dout starting off a 16-byte boundary cannot be a TMA operand."""
+    base = torch.zeros(16 * 24 + 1, dtype=torch.bfloat16)
+    shapes = {"x": (16, 16), "dout": (16, 24)}
+    ops = {k: torch.zeros(*v, dtype=torch.bfloat16) for k, v in shapes.items()}
+    assert tgg.tgmm_route(ops["x"], ops["dout"]) == "wgmma"
+    n = shapes[which][0] * shapes[which][1]
+    ops[which] = base[1:n + 1].view(shapes[which])
+    assert tgg.tgmm_route(ops["x"], ops["dout"]) == "mma_sync"

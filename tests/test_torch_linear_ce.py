@@ -290,8 +290,9 @@ def test_reference_ragged_tiles():
     (128, 1003, False, "mma_sync"), (1003, 512, True, "mma_sync"), (1000, 50257, False, "mma_sync")])
 def test_lce_bwd_route_is_picked_from_the_shapes(monkeypatch, e, v, tied, route):
     """E and V multiples of 8 (16-byte rows for TMA) take lce_bwd's wgmma route, any
-    other stride its mma.sync route, tied or not; lce_fwd has one route. The launch
-    recorder stands in for the card; nothing reaches the plain version."""
+    other stride its mma.sync route, tied or not; lce_fwd takes the route of the same
+    rule. The launch recorder stands in for the card; nothing reaches the plain
+    version."""
     from automodel_tpu_torch.kernels import build
 
     calls = []
@@ -311,7 +312,8 @@ def test_lce_bwd_route_is_picked_from_the_shapes(monkeypatch, e, v, tied, route)
     z = tlce._FusedLogsumexp.apply(h, w, tied, None)
     z.backward(torch.ones(n))
     assert [name for name, _ in calls] == [
-        "lce_fwd", "lce_bwd_wgmma" if route == "wgmma" else "lce_bwd"]
+        "lce_fwd_wgmma" if route == "wgmma" else "lce_fwd",
+        "lce_bwd_wgmma" if route == "wgmma" else "lce_bwd"]
     args = calls[1][1]
     assert args[4] is None and args[9:13] == (n, e, v, int(tied))  # exact: no filter mask
     assert args[13] == tlce.lce_chunk(n, v) and args[13] % tlce.TILE_V == 0
@@ -325,6 +327,68 @@ def test_a_misaligned_hidden_state_takes_the_mma_sync_route():
     w = torch.zeros(64, 512, dtype=torch.bfloat16)
     assert tlce.lce_bwd_route(base[1:].view(128, 64), w) == "mma_sync"
     assert tlce.lce_bwd_route(base[:-1].view(128, 64), w) == "wgmma"
+
+
+def _fwd_recorder(monkeypatch):
+    """Record lce_fwd's C entry point (name, arguments) instead of launching it, with
+    the card's 132 SMs, and fail on any call of the plain version."""
+    from automodel_tpu_torch.kernels import build
+
+    calls = []
+    monkeypatch.setattr(build, "launch", lambda source, name, device, *args:
+                        calls.append((name, args)))
+    monkeypatch.setattr(tlce, "_sm_count", lambda device: 132)
+
+    def no_plain(*a, **k):
+        raise AssertionError("the kernels' route fell back to the plain version")
+
+    monkeypatch.setattr(tlce, "fused_logsumexp_reference", no_plain)
+    return calls
+
+
+@pytest.mark.parametrize("n,e,v,tied,route", [
+    (256, 128, 512, False, "wgmma"), (256, 128, 512, True, "wgmma"),
+    (256, 1000, 50264, False, "wgmma"), (256, 8, 16, True, "wgmma"),
+    (256, 128, 1003, False, "mma_sync"), (256, 1003, 512, True, "mma_sync"),
+    (8192, 64, 50257, False, "mma_sync")])
+def test_lce_fwd_route_is_picked_from_the_shapes(monkeypatch, n, e, v, tied, route):
+    """lce_fwd takes the wgmma route when E and V are multiples of 8 (as lce_bwd does),
+    else the mma.sync route. Both entry points take (h, w, z, bmax, part_m, part_l, N,
+    E, V, vmajor, splits) in that order; the wgmma route's partials are one (m, l) pair
+    a 256-column tile of the core (splits = ceil(V / 256)), the mma.sync route's the
+    vocab split that gives ~2 blocks an SM; the wrapper's outputs are (z, bmax) either
+    way. Nothing reaches the plain version."""
+    calls = _fwd_recorder(monkeypatch)
+    h = torch.zeros(n, e, dtype=torch.bfloat16)
+    w = torch.zeros((v, e) if tied else (e, v), dtype=torch.bfloat16)
+    assert tlce.lce_fwd_route(h, w, tied) == route == tlce.lce_bwd_route(h, w, tied)
+    before = dict(tlce.ROUTE_LAUNCHES)
+    z, bmax = tlce.lce_fwd(h, w, tied)
+    num_vt = -(-v // tlce.TILE_V)
+    assert z.shape == (n,) and bmax.shape == (num_vt, n)
+    assert [name for name, _ in calls] == ["lce_fwd_wgmma" if route == "wgmma" else "lce_fwd"]
+    args = calls[0][1]
+    assert args[0] == h.data_ptr() and args[1] == w.data_ptr()
+    assert args[2] == z.data_ptr() and args[3] == bmax.data_ptr()
+    splits = -(-v // 256) if route == "wgmma" else min(num_vt, max(1, -(-264 // (n // 128))))
+    assert args[5] - args[4] == 4 * splits * n  # part_l follows part_m's (splits, N) block
+    assert args[6:] == (n, e, v, int(tied), splits)
+    taken = {k: tlce.ROUTE_LAUNCHES[k] - before[k] for k in before}
+    assert taken == {k: int(k == f"lce_fwd/{route}") for k in before}
+
+
+@pytest.mark.parametrize("which", ["h", "w"])
+def test_a_misaligned_operand_takes_lce_fwd_off_the_wgmma_route(monkeypatch, which):
+    """h or w starting off a 16-byte boundary cannot be a TMA operand: lce_fwd then
+    launches its mma.sync entry point."""
+    calls = _fwd_recorder(monkeypatch)
+    base = torch.zeros(128 * 512 + 1, dtype=torch.bfloat16)
+    ops = {"h": torch.zeros(128, 64, dtype=torch.bfloat16),
+           "w": torch.zeros(64, 512, dtype=torch.bfloat16)}
+    ops[which] = base[1:ops[which].numel() + 1].view(ops[which].shape)
+    assert tlce.lce_fwd_route(ops["h"], ops["w"]) == "mma_sync"
+    tlce.lce_fwd(ops["h"], ops["w"])
+    assert [name for name, _ in calls] == ["lce_fwd"]
 
 
 def test_lce_chunk_keeps_the_buffer_within_its_budget():

@@ -153,6 +153,10 @@ _LCE_ARGS = "(CUtensorMap_st, CUtensorMap_st, int, int, int, int)"
      "int const*, __nv_bfloat16*, int, int, int, int)", "grouped_gemm_kernels"),
     ("void (anonymous namespace)::tgmm_kernel(__nv_bfloat16 const*, __nv_bfloat16 const*, "
      "int const*, __nv_bfloat16*, int, int, int)", "grouped_gemm_kernels"),
+    ("void (anonymous namespace)::tgmm_sm90_kernel(CUtensorMap_st, CUtensorMap_st, "
+     "CUtensorMap_st, int const*, int, int, int, int)", "grouped_gemm_kernels"),
+    ("void (anonymous namespace)::lce_sm90_kernel<false, true, (anonymous namespace)::"
+     f"FwdEpi>{_LCE_ARGS}", "linear_ce_kernels"),
     ("void (anonymous namespace)::lce_sm90_kernel<false, true, (anonymous namespace)::"
      f"DLogitsEpi>{_LCE_ARGS}", "linear_ce_kernels"),
     ("void (anonymous namespace)::lce_sm90_kernel<false, false, (anonymous namespace)::"
