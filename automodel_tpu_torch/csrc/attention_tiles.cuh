@@ -1,8 +1,8 @@
-// Tiles and tensor-core fragments of the ring kernels (ring_chunk.cu): mma.sync
-// m16n8k16 bf16 with f32 accumulation, fragment loaders from shared memory, a tile
-// loader and quad reductions; flash_attention.cu takes only the bf16 packing, NEG_INF
-// and the quad reductions (its tiles are in hopper.cuh). Included once per source;
-// everything sits in an anonymous namespace.
+// Pieces shared by the two Hopper attention sources, flash_attention.cu and
+// ring_chunk.cu: the warp-specialised block's shape and register budget, bf16 packing,
+// quad reductions, exp2, the 1024-byte alignment of the dynamic shared memory and the
+// swizzled shared-memory offsets of the backward's dS and dQ tiles. Included once per
+// source; everything sits in an anonymous namespace.
 
 #pragma once
 
@@ -10,14 +10,23 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int BLOCK_M = 64;  // query rows per tile
-constexpr int BLOCK_N = 64;  // keys per tile
 constexpr float NEG_INF = -1e30f;
-constexpr int LDS = BLOCK_N + 8;  // row stride of the (64 x 64) P / dS tiles
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+constexpr int THREADS = 384;  // producer warpgroup + 2 consumer warpgroups
+// registers a thread after setmaxnreg: 128 x producer + 256 x consumer may not pass the
+// 384 x 168 the block is launched with (65,536 / 384, rounded down to a multiple of 8),
+// or setmaxnreg.inc waits forever
+constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
+static_assert(128 * PRODUCER_REGS + 256 * CONSUMER_REGS <= 384 * 168, "setmaxnreg budget");
+constexpr int BOX = 64;  // bf16 columns of one 128-byte swizzled box
+constexpr int ROW_BYTES = 128;
 
 __device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
   return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
@@ -25,67 +34,6 @@ __device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
 
 __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
   return pack_bf16(__float2bfloat16(lo), __float2bfloat16(hi));
-}
-
-// c += a * b for one m16n8k16 tile (a row-major 16x16, b col-major 16x8, c 16x8 f32).
-__device__ __forceinline__ void mma(float c[4], const uint32_t a[4], const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// Fragment loaders from shared memory. Lane l holds rows g = l/4 (+8) and columns
-// t = 2*(l%4) (+1, +8, +9) of the m16n8k16 operand layouts.
-//
-// A (16x16) whose element (r, c) sits at p[r * rs + c]: pairs are contiguous.
-__device__ __forceinline__ void load_a_rows(uint32_t a[4], const bf16* p, int rs, int lane) {
-  const int g = lane >> 2, t = (lane & 3) * 2;
-  a[0] = *reinterpret_cast<const uint32_t*>(p + g * rs + t);
-  a[1] = *reinterpret_cast<const uint32_t*>(p + (g + 8) * rs + t);
-  a[2] = *reinterpret_cast<const uint32_t*>(p + g * rs + t + 8);
-  a[3] = *reinterpret_cast<const uint32_t*>(p + (g + 8) * rs + t + 8);
-}
-
-// A (16x16) whose element (r, c) sits at p[c * cs + r]: the transpose of a stored tile.
-__device__ __forceinline__ void load_a_cols(uint32_t a[4], const bf16* p, int cs, int lane) {
-  const int g = lane >> 2, t = (lane & 3) * 2;
-  a[0] = pack_bf16(p[t * cs + g], p[(t + 1) * cs + g]);
-  a[1] = pack_bf16(p[t * cs + g + 8], p[(t + 1) * cs + g + 8]);
-  a[2] = pack_bf16(p[(t + 8) * cs + g], p[(t + 9) * cs + g]);
-  a[3] = pack_bf16(p[(t + 8) * cs + g + 8], p[(t + 9) * cs + g + 8]);
-}
-
-// B (16x8, k x n) whose element (k, n) sits at p[n * ns + k]: pairs are contiguous.
-__device__ __forceinline__ void load_b_kcontig(uint32_t b[2], const bf16* p, int ns, int lane) {
-  const int g = lane >> 2, t = (lane & 3) * 2;
-  b[0] = *reinterpret_cast<const uint32_t*>(p + g * ns + t);
-  b[1] = *reinterpret_cast<const uint32_t*>(p + g * ns + t + 8);
-}
-
-// B (16x8, k x n) whose element (k, n) sits at p[k * ks + n].
-__device__ __forceinline__ void load_b_ncontig(uint32_t b[2], const bf16* p, int ks, int lane) {
-  const int g = lane >> 2, t = (lane & 3) * 2;
-  b[0] = pack_bf16(p[t * ks + g], p[(t + 1) * ks + g]);
-  b[1] = pack_bf16(p[(t + 8) * ks + g], p[(t + 9) * ks + g]);
-}
-
-// Copy rows [row0, row0 + ROWS) of a (seq, D) slice with the given row stride into a
-// shared tile with row stride D + 8, with a block of THREADS threads; rows past
-// `nrows` are zero.
-template <int D, int ROWS, int THREADS>
-__device__ __forceinline__ void load_tile_n(bf16* dst, const bf16* src, size_t row_stride,
-                                            int row0, int nrows) {
-  constexpr int CHUNKS = D / 8;
-  constexpr int LD = D + 8;
-  for (int i = threadIdx.x; i < ROWS * CHUNKS; i += THREADS) {
-    const int r = i / CHUNKS, c = i % CHUNKS;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < nrows)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * row_stride + c * 8);
-    *reinterpret_cast<uint4*>(dst + r * LD + c * 8) = val;
-  }
 }
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -96,6 +44,40 @@ __device__ __forceinline__ float quad_max(float x) {
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// The dynamic shared memory rounded up to 1024 bytes (the 128-byte swizzle's period).
+// Offsetting the __shared__ array itself keeps its address space visible to the
+// compiler, so the accesses through it stay shared-memory loads and stores.
+__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
+}
+
+// 2^x in one MUFU.EX2 (exp2f adds a range fix-up for results below 2^-126, which are
+// 0 here anyway); 2^-inf = 0.
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// A consumer warp is done with a stage: one arrival a warp (an mbarrier arrival is an
+// atomic on one shared word, so 256 of them a tile would serialise).
+__device__ __forceinline__ void release(uint64_t* bar, int lane) {
+  __syncwarp();
+  if (lane == 0) mbar_arrive(bar);
+}
+
+// Byte offset of bf16 element (r, c) in a 128-byte-swizzled tile of 64-column rows.
+__device__ __forceinline__ uint32_t swz_bf16(int r, int c) {
+  return r * ROW_BYTES + ((((c * 2) >> 4) ^ (r & 7)) << 4) + ((c * 2) & 15);
+}
+
+// Byte offset of f32 element (r, c) in 128-byte-swizzled boxes of 32 columns, nrows rows each.
+__device__ __forceinline__ uint32_t swz_f32(int r, int c, int nrows) {
+  const int cb = c & 31;
+  return (c >> 5) * nrows * ROW_BYTES + r * ROW_BYTES + ((((cb * 4) >> 4) ^ (r & 7)) << 4) +
+         ((cb * 4) & 15);
 }
 
 }  // namespace

@@ -21,8 +21,14 @@ Both wrappers work in place: :func:`chunk_attention_fwd` writes the updated carr
 acc / m / l and :func:`chunk_attention_bwd` adds into dq / dk / dv (dk / dv already
 summed over the GQA group, where the TPU kernel returns them per q head). CUDA tensors
 go to ``ring_fwd`` / ``ring_bwd`` in ``csrc/ring_chunk.cu`` or raise; CPU tensors go to
-the plain versions below. The JAX arguments ``block_q``, ``block_k``, ``interpret`` and
-``vma`` have no counterpart. The kernels take D = Dv in {64, 128} in bf16; Dv != D
+the plain versions below. The kernels skip a (q tile, kv tile) pair that holds no
+allowed pair and leave a pair that holds only allowed pairs unmasked, from the ranges
+of positions and segment ids the two tiles hold: :func:`tile_class` is that rule, for
+the tests and for counting; the plain versions do not use it. Given ``tile_counts``, a
+(3,) int32 CUDA tensor, a kernel adds the pairs of each class it met (SKIP, PARTIAL,
+FULL, over every q head forward and every kv head backward), so that a run can hold the
+device's rule against :func:`tile_classes`. The JAX arguments
+``block_q``, ``block_k``, ``interpret`` and ``vma`` have no counterpart. The kernels take D = Dv in {64, 128} in bf16; Dv != D
 (MLA) runs in the plain version only.
 """
 
@@ -30,15 +36,18 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["LAUNCHES", "NEG_INF", "allowed_mask", "chunk_attention_bwd",
-           "chunk_attention_bwd_reference", "chunk_attention_fwd",
-           "chunk_attention_fwd_reference", "ring_bwd", "ring_fwd"]
+__all__ = ["FULL", "LAUNCHES", "NEG_INF", "PARTIAL", "SKIP", "allowed_mask",
+           "chunk_attention_bwd", "chunk_attention_bwd_reference", "chunk_attention_fwd",
+           "chunk_attention_fwd_reference", "ring_bwd", "ring_fwd", "tile_class",
+           "tile_classes"]
 
 NEG_INF = -1e30
 # one count per kernel launch, so a run can show that it went through the kernels
 LAUNCHES = {"ring_fwd": 0, "ring_bwd": 0}
 _SOURCE = "ring_chunk.cu"
 _HEAD_DIMS = (64, 128)
+# tile classes (csrc/ring_chunk.cu: SKIP, PARTIAL, FULL)
+SKIP, PARTIAL, FULL = 0, 1, 2
 # the plain versions form (batch, H, Sq, Skv) f32 scores; they loop over batch rows so
 # that one slice holds at most this many score elements (2 GiB in f32)
 _SCORE_ELEMS = 1 << 29
@@ -59,6 +68,58 @@ def allowed_mask(pos_q, pos_kv, seg_q, seg_kv, causal, window):
     if seg_q is not None:
         allowed = _and(allowed, seg_q[:, :, None] == seg_kv[:, None, :])
     return allowed
+
+
+def tile_class(q, kv, causal, window):
+    """The class of (q tile, kv tile) pairs from the ranges of ids each tile holds:
+    ``q`` and ``kv`` are ``(pos_lo, pos_hi, seg_lo, seg_hi, ragged)``, over the tile's
+    rows inside Sq / Skv (``seg_*`` None without segments; ``ragged``: the tile runs
+    past its chunk), as ints or broadcastable tensors. SKIP when no pair is allowed,
+    FULL when every pair is and neither tile is ragged, else PARTIAL."""
+    qp_lo, qp_hi, qs_lo, qs_hi, q_ragged = q
+    kp_lo, kp_hi, ks_lo, ks_hi, k_ragged = kv
+    skip = False
+    if causal:
+        skip = skip | (qp_hi < kp_lo)
+    if window is not None:
+        skip = skip | (qp_lo - kp_hi >= window)
+    if qs_lo is not None:
+        skip = skip | (qs_hi < ks_lo) | (ks_hi < qs_lo)
+    full = ~torch.as_tensor(q_ragged | k_ragged)
+    if causal:
+        full = full & (qp_lo >= kp_hi)
+    if window is not None:
+        full = full & (qp_hi - kp_lo < window)
+    if qs_lo is not None:
+        full = full & (qs_lo == qs_hi) & (ks_lo == ks_hi) & (qs_lo == ks_lo)
+    return torch.where(torch.as_tensor(skip), SKIP, torch.where(full, FULL, PARTIAL))
+
+
+def _tile_ranges(ids, block):
+    """(lo, hi) over tiles of ``block`` rows of (B, S) ids, rows inside S only: (B, n)."""
+    b, s = ids.shape
+    n = -(-s // block)
+    x = ids.to(torch.int64)
+    # rows past S hold the extremes, so that they move neither end of a range (F.pad's
+    # value goes through a float, where int64's extremes do not survive)
+    lo = x.new_full((b, n * block), torch.iinfo(torch.int64).max)
+    hi = x.new_full((b, n * block), torch.iinfo(torch.int64).min)
+    lo[:, :s], hi[:, :s] = x, x
+    return lo.view(b, n, block).amin(-1), hi.view(b, n, block).amax(-1)
+
+
+def tile_classes(pos_q, pos_kv, seg_q, seg_kv, causal, window, block_q, block_kv):
+    """(B, n_q, n_kv) :func:`tile_class` of every (q tile, kv tile) pair of one chunk
+    step, tiles of ``block_q`` q rows and ``block_kv`` keys."""
+    def ranges(pos, seg, block, dim):  # the q side along dim 1 of the result, kv along 2
+        p_lo, p_hi = _tile_ranges(pos, block)
+        s_lo, s_hi = (None, None) if seg is None else _tile_ranges(seg, block)
+        ragged = (torch.arange(p_lo.shape[1], device=pos.device) + 1) * block > pos.shape[1]
+        return tuple(None if x is None else x.unsqueeze(3 - dim)
+                     for x in (p_lo, p_hi, s_lo, s_hi, ragged.expand_as(p_lo)))
+
+    return tile_class(ranges(pos_q, seg_q, block_q, 1), ranges(pos_kv, seg_kv, block_kv, 2),
+                      causal, window)
 
 
 def _batch_slices(b, h, sq, skv):
@@ -176,13 +237,24 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _counts(tile_counts, q):
+    """The pointer of an optional (3,) int32 tile-count tensor on q's device."""
+    if tile_counts is None:
+        return None
+    if (tile_counts.shape != (3,) or tile_counts.dtype != torch.int32
+            or tile_counts.device != q.device):
+        raise ValueError(f"ring chunk kernels: tile_counts must be int32 (3,) on {q.device}")
+    return tile_counts.data_ptr()
+
+
 def _window(window):
     return (0, 0) if window is None else (1, int(window))
 
 
 def ring_fwd(q, k, v, pos_q, pos_kv, seg_q, seg_kv, acc, m, l, *, scale, causal, window,
-             groups, n_heads):
-    """Launch the forward kernel on checked inputs; updates (acc, m, l) in place."""
+             groups, n_heads, tile_counts=None):
+    """Launch the forward kernel on checked inputs; updates (acc, m, l) in place, and
+    adds its tile counts into ``tile_counts`` when given."""
     from automodel_tpu_torch.kernels.build import check, library
 
     bn, sq, d = q.shape
@@ -192,15 +264,17 @@ def ring_fwd(q, k, v, pos_q, pos_kv, seg_q, seg_kv, acc, m, l, *, scale, causal,
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), pos_q.data_ptr(), pos_kv.data_ptr(),
                  _ptr(seg_q), _ptr(seg_kv), acc.data_ptr(), m.data_ptr(), l.data_ptr(),
                  bn // n_heads, sq, k.shape[1], n_heads, n_heads // groups, d, float(scale),
-                 int(causal), has_window, win, torch.cuda.current_stream(q.device).cuda_stream)
+                 int(causal), has_window, win, _counts(tile_counts, q),
+                 torch.cuda.current_stream(q.device).cuda_stream)
     check(err, "ring_fwd")
     LAUNCHES["ring_fwd"] += 1
     return acc, m, l
 
 
 def ring_bwd(q, k, v, pos_q, pos_kv, seg_q, seg_kv, do, lse, delta, dq, dk, dv, *, scale,
-             causal, window, groups, n_heads):
-    """Launch the backward kernel on checked inputs; adds into (dq, dk, dv) in place."""
+             causal, window, groups, n_heads, tile_counts=None):
+    """Launch the backward kernel on checked inputs; adds into (dq, dk, dv) in place, and
+    its tile counts into ``tile_counts`` when given."""
     from automodel_tpu_torch.kernels.build import check, library
 
     bn, sq, d = q.shape
@@ -211,7 +285,7 @@ def ring_bwd(q, k, v, pos_q, pos_kv, seg_q, seg_kv, do, lse, delta, dq, dk, dv, 
                  _ptr(seg_q), _ptr(seg_kv), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), bn // n_heads, sq, k.shape[1],
                  n_heads, n_heads // groups, d, float(scale), int(causal), has_window, win,
-                 torch.cuda.current_stream(q.device).cuda_stream)
+                 _counts(tile_counts, q), torch.cuda.current_stream(q.device).cuda_stream)
     check(err, "ring_bwd")
     LAUNCHES["ring_bwd"] += 1
     return dq, dk, dv

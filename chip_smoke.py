@@ -56,9 +56,12 @@ Phases, in order; any failure exits non-zero before the last line:
    full folded ring forward and backward each, in six cases: (a) the slice's shape (cp 8
    folded, B 1, S_local 4096, H 32, KH 8, D 128, causal), (b) packed segments with
    positions restarting per document, (c) the round-robin layout, (d) a sliding window,
-   (e) D 64, KH 2, non-causal, (f) S_local 1000 at cp 3; their times at (a) beside the
-   bound and the plain version, and the whole ring against flash_fwd / flash_bwd and
-   SDPA on the unsharded S 32768, with flash's bound there;
+   (e) D 64, KH 2, non-causal, (f) S_local 1000 at cp 3; their times at (a)'s diagonal
+   ring step beside the bound and the plain version, at ring steps 1 and cp - 1 (7 of 8
+   shards' chunks wholly allowed, then wholly skipped) beside their bounds; the tiles the
+   kernels count as skipped, partial and full, held against tile_classes in every case and
+   at each timed step; and the whole ring against
+   flash_fwd / flash_bwd and SDPA on the unsharded S 32768, with flash's bound there;
 8c. Llama-3-8B width at 2 layers, seq 8192, cp 4 folded: context_parallel ring (the ring
    kernels) against allgather (the flash kernels) on the same weights;
 9. main path 1: the benchmark recipe on examples/benchmark/llama3_2_1b.yaml
@@ -96,9 +99,9 @@ print(' '.join(chip_smoke.qwen3_args()))")``.
 
 ``python3 chip_smoke.py --kernel-times [ROOT]`` builds the package of the checkout at
 ROOT (default: this one) and times only its gmm (forward and dX) and tgmm at a and b,
-and its lce_fwd and lce_bwd at N=8192 / E=2048 and at main path 7's shape, on the
-inputs of the timing rows, so that two checkouts' kernels can be compared on one card
-in one call.
+its lce_fwd and lce_bwd at N=8192 / E=2048 and at main path 7's shape, and its ring_fwd
+and ring_bwd at ring case (a)'s diagonal step and step 1, on the inputs of the timing
+rows, so that two checkouts' kernels can be compared on one card in one call.
 """
 
 from __future__ import annotations
@@ -445,15 +448,16 @@ def _timings(torch, fa, b=4, s=2048, h=32, kh=8, d=64):
     return out
 
 
-def _ring_layout(torch, b, cp, s_loc, h, kh, d, seed, seg=None, positions=None):
+def _ring_layout(torch, b, cp, s_loc, h, kh, d, seed, seg=None, positions=None,
+                 device="cuda"):
     """Row-form inputs of one folded ring from global (B, S, H, D) bf16 tensors: q / dO
     (B*cp*H, S_loc, D), k / v (B*cp*KH, S_loc, D), positions / segments (B*cp, S_loc)."""
-    g = torch.Generator(device="cuda").manual_seed(seed)
+    g = torch.Generator(device=device).manual_seed(seed)
     s = cp * s_loc
-    q, k, v, do = (torch.randn(b, s, n, d, device="cuda", generator=g).to(torch.bfloat16)
+    q, k, v, do = (torch.randn(b, s, n, d, device=device, generator=g).to(torch.bfloat16)
                    for n in (h, kh, kh, h))
     if positions is None:
-        positions = torch.arange(s, device="cuda", dtype=torch.int32).expand(b, s)
+        positions = torch.arange(s, device=device, dtype=torch.int32).expand(b, s)
 
     def rows(x):
         x = x.reshape(b * cp, s_loc, x.shape[2], d)
@@ -481,10 +485,47 @@ def _plain_chunk_bwd(q, k, v, pq, pkv, sq, skv, do, lse, delta, dq, dk, dv, **kw
         dst.add_(src)
 
 
+def _counted_tiles(torch, label, launch, cls, heads):
+    """One more launch, given a tile-count buffer: the (q tile, kv tile) pairs the kernel
+    skipped, left partial and ran full must equal tile_classes' ``cls`` times ``heads``
+    (the kernel counts over every head its grid holds)."""
+    from automodel_tpu_torch.ops import ring_chunk as rc
+
+    expected = [int((cls == c).sum()) * heads for c in (rc.SKIP, rc.PARTIAL, rc.FULL)]
+    counts = torch.zeros(3, dtype=torch.int32, device="cuda")
+    launch(tile_counts=counts)
+    tiles = dict(zip(("skip", "partial", "full"), counts.tolist()))
+    print(f"tiles of {label}: {tiles} counted by the kernel, "
+          f"{dict(zip(tiles, expected))} expected by tile_classes", flush=True)
+    if list(tiles.values()) != expected:
+        raise AssertionError(f"{label}: the kernel's tile classes disagree with tile_classes")
+    return tiles
+
+
+def _ring_case_tiles(torch, name, q, k, v, do, pos, sid, kw):
+    """The tiles ring_fwd and ring_bwd count at the case's diagonal ring step (each
+    shard's q against its own kv), on scratch carries and accumulators, held against
+    tile_classes."""
+    from automodel_tpu_torch.ops import ring_chunk as rc
+
+    f32 = dict(dtype=torch.float32, device="cuda")
+    rows = q.shape[:2]
+    cls = {bq: rc.tile_classes(pos, pos, sid, sid, kw["causal"], kw["window"], bq, 128)
+           for bq in (128, 64)}
+    _counted_tiles(torch, f"ring_fwd in ring case {name}", lambda **c: rc.ring_fwd(
+        q, k, v, pos, pos, sid, sid, torch.zeros(q.shape, **f32), torch.full(rows, -1e30, **f32),
+        torch.zeros(rows, **f32), **kw, **c), cls[128], kw["n_heads"])
+    _counted_tiles(torch, f"ring_bwd in ring case {name}", lambda **c: rc.ring_bwd(
+        q, k, v, pos, pos, sid, sid, do, torch.zeros(rows, **f32), torch.zeros(rows, **f32),
+        torch.zeros(q.shape, **f32), torch.zeros(k.shape, **f32), torch.zeros(v.shape, **f32),
+        **kw, **c), cls[64], kw["n_heads"] // kw["groups"])
+
+
 def _ring_case(torch, name, cp, b, s_loc, h, kh, d=128, causal=True, window=None, seg=None,
                positions=None):
     """One full folded ring forward and backward through ring_fwd / ring_bwd against the
-    same ring through their plain version (f32 from the same bf16 inputs)."""
+    same ring through their plain version (f32 from the same bf16 inputs), and the tiles
+    the kernels count at the diagonal step against tile_classes."""
     from automodel_tpu_torch.parallel import ring_attention as ra
 
     q, k, v, do, pos, sid = _ring_layout(torch, b, cp, s_loc, h, kh, d, seed=cp + s_loc + d,
@@ -511,6 +552,7 @@ def _ring_case(torch, name, cp, b, s_loc, h, kh, d=128, causal=True, window=None
           flush=True)
     if not (err_o <= TOL_O and err_lse <= TOL_LSE and max(rel) <= TOL_GRAD):
         raise AssertionError(f"ring case {name}: kernels disagree with the plain version")
+    _ring_case_tiles(torch, name, q, k, v, do, pos, sid, kw)
     del q, k, v, do, out, lse, grads, qf, kf, vf, dof, out_ref, lse_ref, grads_ref
     torch.cuda.empty_cache()
     return err_o, err_grad
@@ -558,63 +600,145 @@ def _ring_phase(torch, errs):
     note(_ring_case(torch, "f", 3, 1, 1000, 32, 8))
 
 
+# ring case (a), the attention of main path 7: cp 8 folded, B 1, S_local 4096, H 32, KH 8,
+# D 128, causal, contiguous shards
+RING_A = dict(cp=8, b=1, s_loc=4096, h=32, kh=8, d=128)
+
+
+def _ring_step_inputs(torch, step, cp, b, s_loc, h, kh, d, device="cuda"):
+    """The tensors of one ring_fwd / ring_bwd launch at ring step ``step`` of a causal ring
+    over contiguous shards (seed 5): q / dO of every shard and the kv bundle rotated
+    ``step`` times by FoldedRotation, so shard r holds the k, v and positions of shard
+    (r - step) mod cp; with the launch's allowed (q, k) pairs over every head and the
+    shards that have any."""
+    from automodel_tpu_torch.ops import ring_chunk as rc
+    from automodel_tpu_torch.parallel import ring_attention as ra
+
+    q, k, v, do, pos, _ = _ring_layout(torch, b, cp, s_loc, h, kh, d, seed=5, device=device)
+    bundle = (k.view(b * cp, kh, s_loc, d), v.view(b * cp, kh, s_loc, d), pos)
+    rot = ra.FoldedRotation(cp)
+    for _ in range(step):
+        bundle = rot(bundle)
+    per_shard = rc.allowed_mask(pos, bundle[2], None, None, True, None).flatten(1).sum(1)
+    return {"q": q, "k": bundle[0].flatten(0, 1).contiguous(),
+            "v": bundle[1].flatten(0, 1).contiguous(), "do": do, "pos_q": pos,
+            "pos_kv": bundle[2].contiguous(), "pairs": int(per_shard.sum()) * h,
+            "live": int((per_shard > 0).sum())}
+
+
+def _ring_work(x, h, kh, d):
+    """FLOP and bytes of one ring_fwd / ring_bwd launch on :func:`_ring_step_inputs`'s
+    tensors: the allowed pairs' products, and each input read once and each output
+    written once on the shards with any allowed pair (the carry and the f32
+    accumulators are read and written)."""
+    s_loc = x["q"].shape[1]
+    qkv = 2 * s_loc * d * (h + 2 * kh)
+    ids = 4 * 2 * s_loc
+    carry = 2 * 4 * (h * s_loc * d + 2 * h * s_loc)
+    grads = 2 * 4 * s_loc * d * (h + 2 * kh)
+    rows = 4 * 2 * h * s_loc  # lse, delta
+    return {"ring_fwd": (4 * d * x["pairs"], x["live"] * (qkv + ids + carry)),
+            "ring_bwd": (10 * d * x["pairs"],
+                         x["live"] * (qkv + ids + 2 * h * s_loc * d + rows + grads))}
+
+
+def _ring_launches(torch, steps):
+    """Per ring step of ``steps`` at RING_A: its inputs and one call each of ring_fwd and
+    ring_bwd through the wrappers as every checkout since the kernels were ported has
+    them (keywords given to a call go on to the wrapper), on the carry of a fresh ring and the lse / delta of one whole ring forward;
+    and that state (``kw``, ``out``, ``lse``, ``delta``, ``acc``, ``m``, ``l``)."""
+    from automodel_tpu_torch.ops import ring_chunk as rc
+    from automodel_tpu_torch.parallel import ring_attention as ra
+
+    a = RING_A
+    kw = dict(scale=a["d"]**-0.5, causal=True, window=None, groups=a["h"] // a["kh"],
+              n_heads=a["h"])
+    base = _ring_step_inputs(torch, 0, **a)
+    q, do, pos = base["q"], base["do"], base["pos_q"]
+    out, lse = ra.ring_flash_forward(q, base["k"], base["v"], pos, pos, None, None,
+                                     ra.FoldedRotation(a["cp"]), kw)
+    delta = (out.float() * do.float()).sum(-1)
+    f32 = dict(dtype=torch.float32, device="cuda")
+    acc, m, l = (torch.zeros(q.shape, **f32), torch.full(q.shape[:2], -1e30, **f32),
+                 torch.zeros(q.shape[:2], **f32))
+    dq = torch.zeros(q.shape, **f32)
+    dk, dv = (torch.zeros(base["k"].shape, **f32) for _ in range(2))
+    calls = {}
+    for step in steps:
+        x = base if step == 0 else _ring_step_inputs(torch, step, **a)
+        k, v, pkv = x["k"], x["v"], x["pos_kv"]
+        calls[step] = (x, (lambda k=k, v=v, pkv=pkv, **more: rc.ring_fwd(
+                           q, k, v, pos, pkv, None, None, acc, m, l, **kw, **more)),
+                       (lambda k=k, v=v, pkv=pkv, **more: rc.ring_bwd(
+                           q, k, v, pos, pkv, None, None, do, lse, delta, dq, dk, dv, **kw,
+                           **more)))
+    return calls, dict(kw=kw, out=out, lse=lse, delta=delta, acc=acc, m=m, l=l)
+
+
 def _ring_timings(torch):
-    """ms of ring_fwd / ring_bwd a launch at case (a) beside the bound and the plain
-    version; the bound counts this ring's allowed (q, k) pairs, a launch's share of the
-    whole ring. Then, as a comparison, the whole ring (cp launches and the rotations)
-    against the port's flash_fwd / flash_bwd and SDPA on the unsharded sequence."""
+    """ms of ring_fwd / ring_bwd a launch at case (a)'s diagonal ring step beside the
+    bound and the plain version, and at ring step 1 (every shard's chunk wholly allowed
+    or wholly skipped: 7 of 8 allowed) and step cp - 1 (7 of 8 wholly skipped), each
+    beside its own bound; a bound counts the allowed (q, k) pairs of its step. At each step
+    one more launch of each kernel counts the tiles it skipped, left partial and ran full
+    (``tile_counts``), and those counts must equal what tile_classes expects. Then, as a
+    comparison, the whole ring (cp launches and the rotations) against the port's
+    flash_fwd / flash_bwd and SDPA on the unsharded sequence."""
     from automodel_tpu_torch.ops import flash_attention as fa, ring_chunk as rc
     from automodel_tpu_torch.parallel import ring_attention as ra
 
-    cp, b, s_loc, h, kh, d = 8, 1, 4096, 32, 8, 128
-    q, k, v, do, pos, _ = _ring_layout(torch, b, cp, s_loc, h, kh, d, seed=5)
-    kw = dict(scale=d**-0.5, causal=True, window=None, groups=h // kh, n_heads=h)
-    bn = q.shape[0]
-    f32 = dict(dtype=torch.float32, device="cuda")
-    acc, m, l = (torch.zeros(bn, s_loc, d, **f32), torch.full((bn, s_loc), -1e30, **f32),
-                 torch.zeros(bn, s_loc, **f32))
+    a = RING_A
+    cp, b, s_loc, h, kh, d = (a[n] for n in ("cp", "b", "s_loc", "h", "kh", "d"))
+    calls, st = _ring_launches(torch, (0, 1, cp - 1))
+    out = {"ring_fwd": {}, "ring_bwd": {}}
+    for step, (x, fwd, bwd) in calls.items():
+        work = _ring_work(x, h, kh, d)
+        for name, fn, block_q, heads in (("ring_fwd", fwd, 128, h), ("ring_bwd", bwd, 64, kh)):
+            cls = rc.tile_classes(x["pos_q"], x["pos_kv"], None, None, True, None, block_q, 128)
+            tiles = _counted_tiles(torch, f"{name} at ring step {step}", fn, cls, heads)
+            ms = _time_ms(torch, fn, warmup=2, reps=10)
+            flops, nbytes = work[name]
+            t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+            row = {"ms": ms, "bound_ms": max(t_ops, t_bytes),
+                   "bound_by": "operations" if t_ops >= t_bytes else "bytes", "tiles": tiles}
+            print(f"time {name} at ring step {step} of cp={cp} folded B={b} S_local={s_loc} "
+                  f"H={h} KH={kh} D={d} causal: {ms:.3f} ms a launch, bound "
+                  f"{row['bound_ms']:.3f} ms ({row['bound_by']}: {flops / 1e12:.3f} TFLOP over "
+                  f"the step's allowed pairs; {nbytes / 1e6:.1f} MB), {x['live']} of {b * cp} "
+                  f"shards with allowed pairs (allowed_mask)", flush=True)
+            if step == 0:
+                out[name].update(row)
+            else:
+                out[name].setdefault("steps", {})[str(step)] = row
+    for name in out:
+        steps = out[name]["steps"]
+        out[name]["skip_ratio"] = steps[str(cp - 1)]["ms"] / steps["1"]["ms"]
+        print(f"{name}: a launch at ring step {cp - 1} takes {out[name]['skip_ratio']:.3f}x "
+              f"the time of one at step 1", flush=True)
+
+    x, kw = calls[0][0], st["kw"]
+    q, k, v, do, pos = x["q"], x["k"], x["v"], x["do"], x["pos_q"]
+    del calls, x
+    torch.cuda.empty_cache()
+    out["ring_fwd"]["plain_ms"] = _time_ms(torch, lambda: rc.chunk_attention_fwd_reference(
+        q, k, v, pos, pos, None, None, st["acc"], st["m"], st["l"], **kw), warmup=1, reps=3)
+    out["ring_bwd"]["plain_ms"] = _time_ms(torch, lambda: rc.chunk_attention_bwd_reference(
+        q, k, v, pos, pos, None, None, do, st["lse"], st["delta"], **kw), warmup=1, reps=3)
     rot = ra.FoldedRotation(cp)
-    out, lse = ra.ring_flash_forward(q, k, v, pos, pos, None, None, rot, kw)
-    delta = (out.float() * do.float()).sum(-1)
-    dq, dk, dv = (torch.zeros(x.shape, **f32) for x in (q, k, v))
-    s = cp * s_loc
-    pairs = b * h * s * (s + 1) // 2 / cp  # a launch's share of the causal ring's pairs
-    qkv_bytes = 2 * (q.numel() + k.numel() + v.numel())
-    ids_bytes = 4 * 2 * pos.numel()
-    fwd_bytes = qkv_bytes + ids_bytes + 2 * 4 * (acc.numel() + m.numel() + l.numel())
-    bwd_bytes = (qkv_bytes + ids_bytes + 2 * do.numel() + 4 * 2 * bn * s_loc
-                 + 2 * 4 * (dq.numel() + dk.numel() + dv.numel()))
-    times = {
-        "ring_fwd": (_time_ms(torch, lambda: rc.ring_fwd(q, k, v, pos, pos, None, None, acc, m,
-                                                         l, **kw), warmup=2, reps=10),
-                     _time_ms(torch, lambda: rc.chunk_attention_fwd_reference(
-                         q, k, v, pos, pos, None, None, acc, m, l, **kw), warmup=1, reps=3),
-                     4 * d * pairs, fwd_bytes),
-        "ring_bwd": (_time_ms(torch, lambda: rc.ring_bwd(q, k, v, pos, pos, None, None, do, lse,
-                                                         delta, dq, dk, dv, **kw),
-                              warmup=2, reps=10),
-                     _time_ms(torch, lambda: rc.chunk_attention_bwd_reference(
-                         q, k, v, pos, pos, None, None, do, lse, delta, **kw), warmup=1, reps=3),
-                     10 * d * pairs, bwd_bytes)}
     ring_fwd_all = _time_ms(torch, lambda: ra.ring_flash_forward(q, k, v, pos, pos, None, None,
                                                                  rot, kw), warmup=1, reps=3)
     ring_bwd_all = _time_ms(torch, lambda: ra.ring_flash_backward(
-        q, k, v, pos, pos, None, None, out, lse, do, rot, kw), warmup=1, reps=3)
-    del acc, m, l, dq, dk, dv, out, lse, delta, q, k, v, do
+        q, k, v, pos, pos, None, None, st["out"], st["lse"], do, rot, kw), warmup=1, reps=3)
+    del st, q, k, v, do
     torch.cuda.empty_cache()
-    out = {}
-    for name, (ms, plain, flops, nbytes) in times.items():
-        t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-        out[name] = {"ms": ms, "plain_ms": plain, "library_ms": None,
-                     "library": "no single PyTorch call computes a carried ring step",
-                     "bound_ms": max(t_ops, t_bytes),
-                     "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
-        print(f"time {name} at cp={cp} folded B={b} S_local={s_loc} H={h} KH={kh} D={d} causal: "
-              f"{ms:.3f} ms a launch, bound {out[name]['bound_ms']:.3f} ms "
-              f"({out[name]['bound_by']}: {flops / 1e12:.3f} TFLOP, the launch's share of the "
-              f"ring's allowed pairs; {nbytes / 1e6:.1f} MB), plain {plain:.3f} ms", flush=True)
+    for name in out:
+        out[name].update({"library_ms": None,
+                          "library": "no single PyTorch call computes a carried ring step"})
+        print(f"time {name} at the diagonal ring step: plain {out[name]['plain_ms']:.3f} ms",
+              flush=True)
 
     # comparison: the whole ring against one attention call over the unsharded sequence
+    s = cp * s_loc
     qg, kg, vg, dog = _inputs(torch, b, s, h, kh, d)
     scale = d**-0.5
     o, lse_g = fa.flash_fwd(qg, kg, vg, None, None, scale, True)
@@ -1163,7 +1287,9 @@ def _bench_path(name, yaml, linear_ce, overrides=()):
 def _train_ft_path(name, yaml, overrides):
     """train_ft through its entry point with the default loss (the vocab rule picks
     linear_ce), packed rows, TRAIN_FT_STEPS steps; an MoE model must log moe_load/*
-    rows."""
+    rows. The peak device memory is the run's, model and optimizer included."""
+    import torch
+
     from automodel_tpu_torch.config.cli_overrides import parse_args_and_load_config
     from automodel_tpu_torch.recipes.llm import train_ft
 
@@ -1175,8 +1301,10 @@ def _train_ft_path(name, yaml, overrides):
         if cfg.get("loss") is not None:
             cfg.loss._data.pop("name", None)  # the default rule picks the loss
         _reset_counts()
+        torch.cuda.reset_peak_memory_stats()
         recipe = train_ft.main(cfg=cfg)
         launches = _read_counts()
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
         with open(os.path.join(out_dir, "training.jsonl")) as f:
             rows = [r for r in map(json.loads, f) if "loss" in r]
     layers = int(cfg.model.config.num_hidden_layers)
@@ -1188,7 +1316,7 @@ def _train_ft_path(name, yaml, overrides):
     print(f"{name}: train_ft on {_shown(yaml)} ({layers} layers), default loss "
           f"{recipe.loss_name}, packed rows of {recipe.seq_len}, {len(rows)} training.jsonl "
           f"rows: losses {losses}, step times {[r['step_time_s'] for r in rows]} s, "
-          f"moe_load rows {len(moe_rows[0]) if moe_rows else 0} keys, launches {launches} "
+          f"peak memory {peak_gib} GiB, moe_load rows {len(moe_rows[0]) if moe_rows else 0} keys, launches {launches} "
           f"(expected {want})", flush=True)
     if recipe.loss_name != "linear_ce" or len(rows) != TRAIN_FT_STEPS:
         raise AssertionError(f"{name}: wrong loss or missing training.jsonl rows")
@@ -1434,12 +1562,14 @@ def _lce_timing_large(torch):
 
 
 def _kernel_times(torch):
-    """ms of gmm (forward and dX) and tgmm at the slice's shapes (a) and (b), and of
-    lce_fwd and lce_bwd at N=8192, E=2048, V=128,256 and at main path 7's shape, on the
-    inputs their timing rows use, called only through the wrapper calls that the
-    package has had since the kernels were ported (``gmm(x, w, ends, transpose_w)``,
-    ``tgmm(x, dout, ends, e)``, ``lce_fwd(h, w)``, ``lce_bwd(h, w, z, dz, None)``), so
-    that ``--kernel-times ROOT`` can time an older checkout's kernels beside this one's."""
+    """ms of gmm (forward and dX) and tgmm at the slice's shapes (a) and (b), of lce_fwd
+    and lce_bwd at N=8192, E=2048, V=128,256 and at main path 7's shape, and of ring_fwd
+    and ring_bwd at ring case (a)'s diagonal step and step 1, on the inputs their timing
+    rows use, called only through the wrapper calls that the package has had since the
+    kernels were ported (``gmm(x, w, ends, transpose_w)``, ``tgmm(x, dout, ends, e)``,
+    ``lce_fwd(h, w)``, ``lce_bwd(h, w, z, dz, None)``, ``ring_fwd(q, k, v, pos_q,
+    pos_kv, seg_q, seg_kv, acc, m, l, **kw)``, ``ring_bwd(...)``), so that
+    ``--kernel-times ROOT`` can time an older checkout's kernels beside this one's."""
     from automodel_tpu_torch.ops import grouped_gemm as gg
     from automodel_tpu_torch.ops import linear_ce as lce
 
@@ -1462,6 +1592,13 @@ def _kernel_times(torch):
                                            warmup=1, reps=reps)
         del h, w, z, dz
         torch.cuda.empty_cache()
+    calls, state = _ring_launches(torch, (0, 1))
+    for step, (_, fwd, bwd) in calls.items():
+        label = "diagonal step" if step == 0 else f"step {step}"
+        out[f"ring_fwd (a) {label}"] = _time_ms(torch, fwd, warmup=2, reps=10)
+        out[f"ring_bwd (a) {label}"] = _time_ms(torch, bwd, warmup=2, reps=10)
+    del calls, state
+    torch.cuda.empty_cache()
     for name, ms in out.items():
         print(f"kernel time {name}: {ms:.3f} ms", flush=True)
     return out
@@ -1527,8 +1664,8 @@ def main(argv: list[str]) -> int:
             print(f"  {source}: {line}")
     if argv:  # one option, one phase, and nothing else
         # --cp-processes N: the process-group ring across N cards; --kernel-times [ROOT]:
-        # the grouped GEMM and linear-CE kernels of the package in ROOT (default: this
-        # checkout)
+        # the grouped GEMM, linear-CE and ring kernels of the package in ROOT (default:
+        # this checkout)
         print(json.dumps({"process_group_ring": _pg_ring_phase(torch, int(argv[1]))}
                          if argv[0] == "--cp-processes"
                          else {"kernel_times": _kernel_times(torch), "package": root}))

@@ -98,6 +98,54 @@ def test_flash_timing_inputs_have_the_named_head_dim(d, kh):
     assert work["flash_bwd"][1] == 2 * qkv + 4 * b * s * h * d + 4 * b * h * s
 
 
+@pytest.mark.parametrize("step", [0, 1, 3])
+def test_ring_step_inputs_hand_shard_r_the_ids_of_shard_r_minus_t(step):
+    """The ring timing rows' inputs at ring step t: shard r holds the k, v and positions
+    of shard (r - t) mod cp, and the launch's allowed pairs and live shards are those of
+    a causal ring over contiguous shards at that step."""
+    cp, b, s_loc, h, kh, d = 4, 2, 8, 4, 2, 16
+    x = chip_smoke._ring_step_inputs(torch, step, cp, b, s_loc, h, kh, d, device="cpu")
+    base = chip_smoke._ring_step_inputs(torch, 0, cp, b, s_loc, h, kh, d, device="cpu")
+    assert torch.equal(x["q"], base["q"]) and torch.equal(x["pos_q"], base["pos_q"])
+    for row in range(b):
+        for r in range(cp):
+            src = row * cp + (r - step) % cp
+            dst = row * cp + r
+            assert torch.equal(x["pos_kv"][dst], base["pos_q"][src])
+            assert torch.equal(x["pos_kv"][dst],
+                               torch.arange(s_loc, dtype=torch.int32) + (src % cp) * s_loc)
+            for name in ("k", "v"):
+                assert torch.equal(x[name].view(b * cp, kh, s_loc, d)[dst],
+                                   base[name].view(b * cp, kh, s_loc, d)[src])
+    if step == 0:
+        assert x["pairs"] == b * cp * h * s_loc * (s_loc + 1) // 2 and x["live"] == b * cp
+    else:  # shards r >= t see a chunk wholly in their past, the others one in their future
+        assert x["pairs"] == b * (cp - step) * h * s_loc**2 and x["live"] == b * (cp - step)
+    work = chip_smoke._ring_work(x, h, kh, d)
+    assert work["ring_fwd"][0] == 4 * d * x["pairs"] and work["ring_bwd"][0] == 10 * d * x["pairs"]
+
+
+def test_ring_work_at_case_a():
+    """The bounds of the ring timing rows at case (a) (cp 8, S_local 4096, H 32, KH 8,
+    D 128): the diagonal step allows half of each shard's pairs, 1.10 TFLOP forward
+    (1.112 ms at the card's bf16 peak) and 2.75 backward (2.780 ms); step 1 allows 7
+    whole chunks, step 7 one."""
+    a = chip_smoke.RING_A
+    cp, s_loc, h, kh, d = a["cp"], a["s_loc"], a["h"], a["kh"], a["d"]
+    q = torch.empty(cp * h, s_loc, d, device="meta")
+    bound = {}
+    for step, pairs, live in ((0, cp * h * s_loc * (s_loc + 1) // 2, cp),
+                              (1, (cp - 1) * h * s_loc**2, cp - 1), (7, h * s_loc**2, 1)):
+        work = chip_smoke._ring_work({"q": q, "pairs": pairs, "live": live}, h, kh, d)
+        bound[step] = {n: max(fl / chip_smoke.PEAK_FLOPS, by / chip_smoke.PEAK_BYTES) * 1e3
+                       for n, (fl, by) in work.items()}
+        assert all(fl / chip_smoke.PEAK_FLOPS > by / chip_smoke.PEAK_BYTES
+                   for fl, by in work.values())
+    assert bound[0]["ring_fwd"] == pytest.approx(1.112, abs=1e-3)
+    assert bound[0]["ring_bwd"] == pytest.approx(2.780, abs=1e-3)
+    assert bound[7]["ring_fwd"] / bound[1]["ring_fwd"] == pytest.approx(1 / 7)
+
+
 def test_ptxas_report_keeps_registers_spills_and_wgmma_serialisation():
     log = "\n".join([
         "ptxas info    : (C7514) Potential Performance Loss: wgmma.mma_async instructions are "

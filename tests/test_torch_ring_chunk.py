@@ -169,7 +169,22 @@ def test_non_cpu_tensors_reach_the_kernel_checks():
                                 torch.empty(vs[0].shape, device="meta"), **_kw(case))
 
 
-_CTYPE = {"const void*": "P", "void*": "P", "const int*": "P", "float*": "P",
+@pytest.mark.parametrize("counts, ok", [
+    (None, True), (torch.zeros(3, dtype=torch.int32), True),
+    (torch.zeros(3, dtype=torch.int64), False), (torch.zeros(4, dtype=torch.int32), False),
+    (torch.zeros(3, dtype=torch.int32, device="meta"), False)])
+def test_tile_counts_buffer_is_checked(counts, ok):
+    """The wrappers' optional tile-count buffer: None passes no pointer, a (3,) int32
+    tensor on q's device passes its own, anything else raises before a launch."""
+    q = torch.zeros(2, 4, 64)
+    if ok:
+        assert trc._counts(counts, q) == (None if counts is None else counts.data_ptr())
+    else:
+        with pytest.raises(ValueError, match="tile_counts"):
+            trc._counts(counts, q)
+
+
+_CTYPE = {"const void*": "P", "void*": "P", "const int*": "P", "int*": "P", "float*": "P",
           "const float*": "P", "int": "I", "float": "F"}
 
 
@@ -187,3 +202,137 @@ def test_ctypes_argtypes_match_the_c_entry_points(source):
         assert sig, f"{source}: no extern \"C\" int {fn}(...)"
         params = [" ".join(p.split()[:-1]).replace(" *", "*") for p in sig.group(1).split(",")]
         assert [_CTYPE[p] for p in params] == [names[a] for a in argtypes], fn
+
+
+# The six ring layouts of chip_smoke's ring cases, small: (cp, B, S_local, causal, window)
+# and how the ids are made. Tiles of 16 q rows x 16 keys stand in for the kernels' 128 x 128.
+RING_LAYOUTS = {
+    "contiguous_causal": dict(cp=4, b=1, s_loc=64, causal=True),
+    "packed_segments": dict(cp=4, b=2, s_loc=64, causal=True, packed=True),
+    "round_robin": dict(cp=4, b=1, s_loc=64, causal=True, round_robin=True),
+    "window": dict(cp=4, b=1, s_loc=64, causal=True, window=24),
+    "non_causal": dict(cp=4, b=1, s_loc=64, causal=False),
+    "ragged": dict(cp=3, b=1, s_loc=50, causal=True),
+}
+
+
+def _ring_ids(seed, cp, b, s_loc, packed=False, round_robin=False, **_):
+    """Global (B, S) positions and segment ids (None without packing) of one ring layout,
+    cut into cp shards along the batch dim: (B*cp, S_local) each."""
+    rng = np.random.RandomState(seed)
+    s = cp * s_loc
+    pos = np.broadcast_to(np.arange(s, dtype=np.int32), (b, s)).copy()
+    seg = None
+    if round_robin:
+        pos[:] = np.arange(s, dtype=np.int32).reshape(cp, -1).T.reshape(-1)
+    if packed:  # documents of 5-40 tokens, positions restarting in each, a padded tail
+        seg = np.zeros((b, s), np.int32)
+        pos[:] = 0
+        for row in range(b):
+            start, doc = 0, 1
+            while True:
+                n = rng.randint(5, 41)
+                if start + n > s - 6:
+                    break
+                seg[row, start:start + n] = doc
+                pos[row, start:start + n] = np.arange(n)
+                start, doc = start + n, doc + 1
+    shards = lambda x: None if x is None else torch.tensor(x.reshape(b * cp, s_loc))  # noqa: E731
+    return shards(pos), shards(seg)
+
+
+def _rotate(x, cp, step):
+    """The kv ids that shard r holds at ring step ``step``: shard (r - step) mod cp's."""
+    return None if x is None else x.unflatten(0, (-1, cp)).roll(step, 1).flatten(0, 1)
+
+
+@pytest.mark.parametrize("name", list(RING_LAYOUTS))
+def test_tile_class_agrees_with_allowed_mask(name):
+    """At every ring step of each layout, a skipped tile holds no allowed pair and a full
+    tile holds only allowed pairs and lies inside Sq / Skv, for the forward's and the
+    backward's tile shapes."""
+    case = RING_LAYOUTS[name]
+    cp, s_loc, causal, window = case["cp"], case["s_loc"], case["causal"], case.get("window")
+    pos, seg = _ring_ids(len(name), **case)
+    seen = set()
+    for step in range(cp):
+        pkv, skv = _rotate(pos, cp, step), _rotate(seg, cp, step)
+        allowed = trc.allowed_mask(pos, pkv, seg, skv, causal, window)
+        if allowed is None:
+            allowed = torch.ones(pos.shape[0], s_loc, s_loc, dtype=torch.bool)
+        for bq, bk in ((16, 16), (8, 16)):
+            cls = trc.tile_classes(pos, pkv, seg, skv, causal, window, bq, bk)
+            assert cls.shape == (pos.shape[0], -(-s_loc // bq), -(-s_loc // bk))
+            for r, i, j in np.ndindex(*cls.shape):
+                tile = allowed[r, i * bq:(i + 1) * bq, j * bk:(j + 1) * bk]
+                c = int(cls[r, i, j])
+                seen.add(c)
+                if c == trc.SKIP:
+                    assert not tile.any(), (step, r, i, j)
+                elif c == trc.FULL:
+                    assert tile.all() and tile.shape == (bq, bk), (step, r, i, j)
+    # every layout has tiles that need their masks; the contiguous causal ring also skips
+    # and runs unmasked tiles, the non-causal one only runs unmasked (or ragged) tiles
+    want = {"non_causal": {trc.FULL}, "ragged": {trc.SKIP, trc.PARTIAL, trc.FULL},
+            "contiguous_causal": {trc.SKIP, trc.PARTIAL, trc.FULL}}.get(name)
+    assert trc.PARTIAL in seen or name == "non_causal"
+    if want is not None:
+        assert seen == want
+
+
+def test_tile_class_counts_of_contiguous_causal_shards():
+    """cp 8 contiguous causal shards of 4096 rows at 128 x 128 tiles: the diagonal step
+    classes 496 tiles skip, 32 partial and 496 full of each shard's 1024; at step t >= 1
+    shard r's chunk is wholly skipped for r < t and wholly full otherwise."""
+    cp, s_loc = 8, 4096
+    pos = torch.arange(cp * s_loc, dtype=torch.int32).view(cp, s_loc)
+    for step in range(cp):
+        cls = trc.tile_classes(pos, _rotate(pos, cp, step), None, None, True, None, 128, 128)
+        assert cls.shape == (cp, 32, 32)
+        for r in range(cp):
+            counts = [int((cls[r] == c).sum()) for c in (trc.SKIP, trc.PARTIAL, trc.FULL)]
+            if step == 0:
+                assert counts == [496, 32, 496]
+            else:
+                assert counts == ([1024, 0, 0] if r < step else [0, 0, 1024]), (step, r)
+
+
+@pytest.mark.parametrize("block_q, want", [(128, [28, 15, 21]), (64, [56, 23, 49])])
+def test_tile_class_counts_of_a_ragged_chunk(block_q, want):
+    """cp 3 contiguous causal shards of 1000 rows (chip_smoke's ring case f) at the
+    diagonal step: the ragged last kv tile is skipped by every earlier q tile, and the
+    ragged tiles below the diagonal are partial, never full."""
+    pos = torch.arange(3 * 1000, dtype=torch.int32).view(3, 1000)
+    cls = trc.tile_classes(pos, pos, None, None, True, None, block_q, 128)
+    for r in range(3):
+        assert [int((cls[r] == c).sum()) for c in (trc.SKIP, trc.PARTIAL, trc.FULL)] == want
+    assert (cls[:, :-1 if block_q == 128 else -2, -1] == trc.SKIP).all()
+
+
+@pytest.mark.parametrize("ids, block, lo, hi", [
+    ([[5, 6, 7]], 2, [[5, 7]], [[6, 7]]),
+    ([[-3, 9, 2**31 - 1]], 2, [[-3, 2**31 - 1]], [[9, 2**31 - 1]]),
+    ([[4, -2**31]], 4, [[-2**31]], [[4]]),
+])
+def test_tile_ranges_leave_rows_past_s_out(ids, block, lo, hi):
+    """A tile's (lo, hi) counts only its rows inside S, whatever int32 ids they hold."""
+    got = trc._tile_ranges(torch.tensor(ids, dtype=torch.int32), block)
+    assert got[0].tolist() == lo and got[1].tolist() == hi
+
+
+@pytest.mark.parametrize("causal,window,q,kv,want", [
+    (True, None, (0, 127, None, None, False), (128, 255, None, None, False), trc.SKIP),
+    (True, None, (128, 255, None, None, False), (0, 127, None, None, False), trc.FULL),
+    (True, None, (128, 255, None, None, True), (0, 127, None, None, False), trc.PARTIAL),
+    (True, None, (0, 127, None, None, False), (0, 127, None, None, False), trc.PARTIAL),
+    (True, 64, (256, 383, None, None, False), (0, 127, None, None, False), trc.SKIP),
+    (False, 200, (256, 383, None, None, False), (128, 255, None, None, False), trc.PARTIAL),
+    (False, 300, (256, 383, None, None, False), (128, 255, None, None, False), trc.FULL),
+    (True, None, (500, 900, 2, 2, False), (0, 300, 2, 2, False), trc.FULL),
+    (True, None, (500, 900, 2, 3, False), (0, 300, 2, 2, False), trc.PARTIAL),
+    (True, None, (500, 900, 3, 4, False), (0, 300, 1, 2, False), trc.SKIP),
+])
+def test_tile_class_rule(causal, window, q, kv, want):
+    """The rule on ranges: causal, window and segment skips; full only when every pair
+    is allowed and no tile is ragged."""
+    assert int(trc.tile_class(q, kv, causal, window)) == want
