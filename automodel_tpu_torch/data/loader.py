@@ -1,6 +1,7 @@
 """Deterministic host-side batching (counterpart of ``automodel_tpu/data/loader.py``,
 single process, sized datasets): the epoch order is a permutation seeded by
-(seed + epoch), so batches come in the JAX loader's order."""
+(seed + epoch), so batches come in the JAX loader's order. The position (epoch and
+batch cursor) is checkpointable, and a restored loader resumes at the next batch."""
 
 from __future__ import annotations
 
@@ -50,3 +51,35 @@ class DataLoader:
             yield self.collate_fn([self.dataset[int(i)] for i in idx])
         self.epoch += 1
         self._cursor = 0
+
+    def fast_forward(self, n_batches: int) -> None:
+        """Advance the cursor by ``n_batches`` batches without building them; epoch
+        boundaries wrap as iteration would cross them."""
+        n = int(n_batches)
+        if n < 0:
+            raise ValueError(f"fast_forward needs n_batches >= 0, got {n}")
+        nb = len(self)
+        self._cursor += n
+        while self._cursor >= nb and nb > 0:
+            self._cursor -= nb
+            self.epoch += 1
+
+    @property
+    def consumed_examples(self) -> int:
+        """Examples consumed from the current epoch's permutation: its first
+        ``cursor * batch_size`` entries."""
+        return self._cursor * self.batch_size
+
+    def state_dict(self) -> dict:
+        # process_count records the saving pod's geometry, as the JAX loader's does
+        return {"epoch": self.epoch, "cursor": self._cursor, "seed": self.seed,
+                "batch_size": self.batch_size, "process_count": 1}
+
+    def load_state_dict(self, state: dict) -> None:
+        saved_bs = int(state.get("batch_size", self.batch_size) or self.batch_size)
+        if saved_bs != self.batch_size:
+            raise ValueError(f"dataloader state was saved with batch_size {saved_bs} but this "
+                             f"loader uses {self.batch_size}")
+        self.epoch = int(state["epoch"])
+        self._cursor = int(state["cursor"])
+        self.seed = int(state.get("seed", self.seed))

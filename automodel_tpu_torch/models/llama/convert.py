@@ -16,7 +16,7 @@ from automodel_tpu_torch.models.common.moe_transformer import (MoEDecoderConfig,
                                                                moe_decoder_param_shapes)
 from automodel_tpu_torch.models.common.transformer import DenseDecoderConfig, param_shapes
 
-__all__ = ["flatten", "params_from_jax", "to_torch"]
+__all__ = ["check_params", "flatten", "params_from_jax", "to_torch"]
 
 
 def to_torch(a: Any) -> torch.Tensor:
@@ -41,13 +41,19 @@ def flatten(tree: Mapping[str, Any], prefix: str = "") -> dict[str, Any]:
 def params_from_jax(tree: Mapping[str, Any], cfg: DenseDecoderConfig) -> dict[str, torch.Tensor]:
     """Flat state dict (``embed``, ``layers.wq``, ``moe_layers.moe.experts.down_proj``, ...)
     of the port's model, checked name by name and shape by shape against ``cfg``."""
-    flat = {name: to_torch(leaf) for name, leaf in flatten(tree).items()}
+    return check_params({name: to_torch(leaf) for name, leaf in flatten(tree).items()}, cfg,
+                        "JAX tree")
+
+
+def check_params(flat: dict[str, torch.Tensor], cfg: DenseDecoderConfig,
+                 what: str = "state dict") -> dict[str, torch.Tensor]:
+    """``flat``, after checking its names and shapes against the model of ``cfg``."""
     want = (moe_decoder_param_shapes(cfg) if isinstance(cfg, MoEDecoderConfig)
             else param_shapes(cfg))
     if set(flat) != set(want):
-        raise KeyError(f"JAX tree does not match the config: missing {sorted(set(want) - set(flat))},"
-                       f" unexpected {sorted(set(flat) - set(want))}")
+        raise KeyError(f"{what} does not match the config: missing "
+                       f"{sorted(set(want) - set(flat))}, unexpected {sorted(set(flat) - set(want))}")
     for name, shape in want.items():
         if tuple(flat[name].shape) != shape:
-            raise ValueError(f"{name}: JAX shape {tuple(flat[name].shape)} != {shape}")
+            raise ValueError(f"{name}: {what} shape {tuple(flat[name].shape)} != {shape}")
     return flat

@@ -80,11 +80,15 @@ class LlamaForCausalLM(ParamModule):
 
     def __init__(self, config: LlamaConfig, backend: BackendConfig | None = None, *,
                  device: torch.device | str = "cuda", dtype=torch.float32,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 params: dict[str, torch.Tensor] | None = None):
+        """Random weights from ``generator`` (seed 0 by default), or ``params`` as given
+        (``models/auto.py`` passes a checkpoint's, already on their device)."""
         device = torch.device(device)
-        if generator is None:
+        if params is None and generator is None:
             generator = torch.Generator(device=device).manual_seed(0)
-        super().__init__(init_dense_decoder_params(config, generator, dtype, device))
+        super().__init__(params if params is not None
+                         else init_dense_decoder_params(config, generator, dtype, device))
         self.config = config
         self.backend = backend or BackendConfig()
 
@@ -94,6 +98,11 @@ class LlamaForCausalLM(ParamModule):
         if isinstance(config, dict):
             config = LlamaConfig.from_hf(config)
         return cls(config, backend, **kw)
+
+    def state_dict_adapter(self):
+        from automodel_tpu_torch.models.llama.state_dict_adapter import LlamaStateDictAdapter
+
+        return LlamaStateDictAdapter(self.config)
 
     def forward(self, input_ids, positions=None, segment_ids=None, return_hidden=False,
                 mesh=None):

@@ -77,12 +77,16 @@ class Qwen3MoeForCausalLM(ParamModule):
 
     def __init__(self, config: Qwen3MoeConfig, backend: BackendConfig | None = None, *,
                  device: torch.device | str = "cuda", dtype=torch.float32,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 params: dict[str, torch.Tensor] | None = None):
+        """Random weights from ``generator`` (seed 0 by default), or ``params`` as given
+        (``models/auto.py`` passes a checkpoint's, already on their device)."""
         device = torch.device(device)
-        if generator is None:
+        if params is None and generator is None:
             generator = torch.Generator(device=device).manual_seed(0)
-        super().__init__(init_params(moe_decoder_param_shapes(config), generator,
-                                     config.initializer_range, dtype, device))
+        super().__init__(params if params is not None
+                         else init_params(moe_decoder_param_shapes(config), generator,
+                                          config.initializer_range, dtype, device))
         self.config = config
         self.backend = backend or BackendConfig()
 
@@ -92,6 +96,12 @@ class Qwen3MoeForCausalLM(ParamModule):
         if isinstance(config, dict):
             config = Qwen3MoeConfig.from_hf(config)
         return cls(config, backend, **kw)
+
+    def state_dict_adapter(self):
+        from automodel_tpu_torch.models.qwen3_moe.state_dict_adapter import (
+            Qwen3MoeStateDictAdapter)
+
+        return Qwen3MoeStateDictAdapter(self.config)
 
     def forward(self, input_ids, positions=None, segment_ids=None, token_mask=None,
                 return_hidden=False, training=True, mesh=None):

@@ -102,6 +102,7 @@ class BenchmarkingRecipeForNextTokenPrediction(TrainFinetuneRecipeForNextTokenPr
         with open(os.path.join(self.output_dir, "benchmark.json"), "w") as f:
             json.dump(result, f, indent=2)
         self.metric_logger.close()
+        self.val_metric_logger.close()
         return result
 
 

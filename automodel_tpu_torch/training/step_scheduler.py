@@ -1,7 +1,8 @@
 """Gradient-accumulation grouping and run length (counterpart of
 ``automodel_tpu/training/step_scheduler.py``, the part the single-device recipe uses):
 yields one list of ``grad_acc_steps`` microbatches per optimizer step, a trailing
-partial group at an epoch's end included, until ``max_steps`` or ``num_epochs``."""
+partial group at an epoch's end included, until ``max_steps`` or ``num_epochs``; says
+when to log, validate and checkpoint, and is checkpointable."""
 
 from __future__ import annotations
 
@@ -48,6 +49,14 @@ class StepScheduler:
                     return
             self.epoch += 1
 
+    # the *_at(step) forms take the consumer's step: under the prefetch pipeline the
+    # scheduler's own counter runs ahead
+    def is_ckpt_step_at(self, step: int) -> bool:
+        return self.ckpt_every_steps > 0 and step > 0 and step % self.ckpt_every_steps == 0
+
+    def is_val_step_at(self, step: int) -> bool:
+        return self.val_every_steps > 0 and step > 0 and step % self.val_every_steps == 0
+
     def is_log_step_at(self, step: int) -> bool:
         return self.log_every_steps > 0 and step % self.log_every_steps == 0
 
@@ -56,3 +65,10 @@ class StepScheduler:
         if self.max_steps is not None and self.step >= self.max_steps:
             return True
         return self.epoch >= self.num_epochs
+
+    def state_dict(self) -> dict[str, int]:
+        return {"step": self.step, "epoch": self.epoch}
+
+    def load_state_dict(self, state: dict[str, int]) -> None:
+        self.step = int(state["step"])
+        self.epoch = int(state["epoch"])

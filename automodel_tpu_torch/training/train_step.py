@@ -16,7 +16,7 @@ import torch
 from automodel_tpu_torch.ops.losses import IGNORE_INDEX
 from automodel_tpu_torch.optim.builder import Optimizer, apply_updates, global_norm
 
-__all__ = ["count_label_tokens", "make_train_step"]
+__all__ = ["count_label_tokens", "make_eval_step", "make_train_step"]
 
 
 def count_label_tokens(labels: torch.Tensor, ignore_index: int = IGNORE_INDEX) -> torch.Tensor:
@@ -88,3 +88,15 @@ def make_train_step(
         return new_state, metrics
 
     return train_step
+
+
+def make_eval_step(forward_loss: Callable[..., torch.Tensor]):
+    """``eval_step(batch, num_label_tokens) -> loss`` (a device scalar): the loss of
+    ``forward_loss`` without gradients, its aux entries dropped."""
+
+    def eval_step(batch, num_label_tokens):
+        with torch.no_grad():
+            out = forward_loss(batch, num_label_tokens)
+        return out[0] if isinstance(out, tuple) else out
+
+    return eval_step

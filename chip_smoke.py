@@ -85,10 +85,22 @@ Phases, in order; any failure exits non-zero before the last line:
    section replaced by the mock dataset (cp_config) and the published Meta-Llama-3-8B
    widths at 4 layers, one microbatch a step (LLAMA3_8B, llama3_8b_args);
 16. main path 8: train_ft on the same at 2 layers, default loss, 4096-token documents
-   packed into rows of 32768; every main path also checks that each of its gmm, tgmm,
-   lce_fwd and lce_bwd launches took the wgmma route (``launches by route`` on its
-   line);
-17. one JSON line of per-kernel numbers, the card line, then the result line.
+   packed into rows of 32768;
+17. main path 9: BASELINE config #1 (examples/llm_finetune/llama3_2_1b_hellaswag.yaml)
+   through train_ft with its model section pointing at a local HF directory that the
+   port's safetensors writer fills with a random-init Llama-3.2-1B (published config,
+   4 of 16 layers; write_pretrained), its data sections at HellaSwag-shaped JSONL rows
+   read through ByteTokenizer (baseline_config), the prefetch pipeline on, validation
+   and a checkpoint with the consolidated HF export every 2 steps, 4 steps
+   (baseline_args). Run A runs fresh; its step_4 is removed and run B resumes from
+   step 2 in the same directory. Checks: B's step-3 loss equals A's bitwise, its step-4
+   loss within TOL_RESUME_LOSS, validation.jsonl rows at steps 2 and 4, A's step_4/hf
+   reloaded through from_pretrained equals A's final parameters bitwise, and the launch
+   counts with validation's forward-only launches; it prints the bytes and seconds of
+   each save, the restore seconds, the step times and the peak memory. Every main path
+   also checks that each of its gmm, tgmm, lce_fwd and lce_bwd launches took the wgmma
+   route (``launches by route`` on its line);
+18. one JSON line of per-kernel numbers, the card line, then the result line.
 
 To run one phase alone on the card, import the script: e.g.
 ``python3 -c "import chip_smoke, torch; chip_smoke._gmm_phase(torch, {})"``, or the
@@ -143,6 +155,105 @@ LLAMA3_8B = {
     "max_position_embeddings": 8192, "num_hidden_layers": 4,
 }
 CP_LAYERS_TRAIN_FT = 2  # depth of main path 8
+BASELINE_YAML = os.path.join(HERE, "examples", "llm_finetune", "llama3_2_1b_hellaswag.yaml")
+# The published config.json of meta-llama/Llama-3.2-1B (Hugging Face Hub) at 4 of its 16
+# layers: main path 9 writes random weights from the seed in this shape to a local HF
+# directory, which the config loads as pretrained (no weights in the repository). At 16
+# layers a save (f32 parameters, both Adam moments, the HF export) would be ~15 GB.
+LLAMA32_1B = {
+    "architectures": ["LlamaForCausalLM"], "model_type": "llama", "vocab_size": 128256,
+    "hidden_size": 2048, "intermediate_size": 8192, "num_hidden_layers": 4,
+    "num_attention_heads": 32, "num_key_value_heads": 8, "head_dim": 64,
+    "hidden_act": "silu", "max_position_embeddings": 131072, "rope_theta": 500000.0,
+    "rope_scaling": {"factor": 32.0, "high_freq_factor": 4.0, "low_freq_factor": 1.0,
+                     "original_max_position_embeddings": 8192, "rope_type": "llama3"},
+    "rms_norm_eps": 1e-5, "tie_word_embeddings": True, "initializer_range": 0.02,
+    "bos_token_id": 128000, "eos_token_id": 128001, "torch_dtype": "bfloat16",
+}
+BASELINE_STEPS = 4  # max_steps of main path 9: checkpoints and validation at 2 and 4
+BASELINE_VAL_BATCHES = 2  # validation_max_batches of main path 9
+TOL_RESUME_LOSS = 1e-3  # run B's step 4 against run A's: flash_bwd's dQ sums by atomics
+
+
+class ByteTokenizer:
+    """A byte-level stand-in for the model's tokenizer (no tokenizer files in the
+    repository): BOS, then one id per UTF-8 byte (byte + 3); 0 pads, 2 ends."""
+
+    pad_token_id, bos_token_id, eos_token_id = 0, 1, 2
+
+    def encode(self, text: str) -> list[int]:
+        return [self.bos_token_id] + [b + 3 for b in text.encode()]
+
+
+_WORDS = ("the man a woman then is are and of to in on with into her his they "
+          "puts takes walks starts shows continues across around ball water bike "
+          "camera kitchen rope slowly quickly again while holding using").split()
+
+
+def write_hellaswag_jsonl(path: str, rows: int, seed: int) -> str:
+    """HellaSwag-shaped rows ``{ctx, endings, label}`` of random words from ``seed``:
+    contexts of 20-80 words and four endings of 5-25, as the dataset's rows run."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+
+    def words(lo, hi):
+        return " ".join(rng.choice(_WORDS, rng.randint(lo, hi)))
+
+    with open(path, "w") as f:
+        for _ in range(rows):
+            f.write(json.dumps({"ctx": words(20, 80), "endings": [words(5, 25) for _ in range(4)],
+                                "label": int(rng.randint(4))}) + "\n")
+    return path
+
+
+def write_pretrained(out_dir: str, config: dict = LLAMA32_1B, seed: int = 0,
+                     device: str = "cuda") -> str:
+    """A local HF directory (config.json and model.safetensors, bf16 as published) of a
+    random-init Llama of ``config`` (Llama-3.2-1B at LLAMA32_1B's depth), written by the
+    port's own writer."""
+    import torch
+
+    from automodel_tpu_torch.checkpoint.safetensors_io import save_safetensors
+    from automodel_tpu_torch.models.llama.model import LlamaForCausalLM
+
+    model = LlamaForCausalLM.from_config(
+        config, device=device, dtype=torch.bfloat16,
+        generator=torch.Generator(device=device).manual_seed(seed))
+    save_safetensors(model.state_dict_adapter().to_hf_lazy(model.param_dict()), out_dir)
+    with open(os.path.join(out_dir, "config.json"), "w") as f:
+        json.dump(config, f, indent=2)
+    return out_dir
+
+
+def baseline_config(out_dir: str, hf_dir: str, train_jsonl: str, val_jsonl: str) -> str:
+    """BASELINE config #1 (examples/llm_finetune/llama3_2_1b_hellaswag.yaml) with its model
+    section pointing at ``hf_dir`` and its data sections at local HellaSwag JSONL rows with
+    :class:`ByteTokenizer`; every other setting is the file's. Written to ``out_dir``."""
+    import yaml
+
+    with open(BASELINE_YAML) as f:
+        cfg = yaml.safe_load(f)
+    hellaswag = "automodel_tpu_torch.data.llm.hellaswag.HellaSwagDataset"
+    cfg["model"] = {"pretrained_model_name_or_path": hf_dir}
+    cfg["dataset"] = {"_target_": hellaswag, "path_or_dataset_id": train_jsonl, "split": "train"}
+    cfg["validation_dataset"] = {"_target_": hellaswag, "path_or_dataset_id": val_jsonl,
+                                 "split": "validation"}
+    cfg["tokenizer"] = {"_target_": "chip_smoke.ByteTokenizer"}
+    path = os.path.join(out_dir, "llama3_2_1b_hellaswag_local.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return path
+
+
+def baseline_args(ckpt_dir: str) -> list[str]:
+    """CLI overrides of main path 9: prefetch on, a checkpoint and a validation pass every
+    2 steps over 2 batches, BASELINE_STEPS steps, the checkpoints under ``ckpt_dir``."""
+    return ["--dataloader.prefetch.enabled", "true",
+            "--step_scheduler.ckpt_every_steps", "2", "--step_scheduler.val_every_steps", "2",
+            "--validation_max_batches", str(BASELINE_VAL_BATCHES),
+            "--step_scheduler.max_steps", str(BASELINE_STEPS),
+            "--checkpoint.checkpoint_dir", ckpt_dir]
 
 
 def llama3_8b_args(layers: int = LLAMA3_8B["num_hidden_layers"]) -> list[str]:
@@ -1208,7 +1319,7 @@ def _release():
     torch.cuda.empty_cache()
 
 
-def _expected(layers, micro, steps, linear_ce, moe=False, ring_cp=1):
+def _expected(layers, micro, steps, linear_ce, moe=False, ring_cp=1, val_batches=0):
     """Launches of each kernel in a run, n = layers x microbatches x steps.
 
     flash_fwd 2n (the forward, and once more when each layer's checkpoint replays it),
@@ -1216,12 +1327,14 @@ def _expected(layers, micro, steps, linear_ce, moe=False, ring_cp=1):
     two expert GEMMs (gate_up, down) each launch gmm three times (the forward, the
     replay, dX) and tgmm once (dW): gmm 6n, tgmm 2n. With ring attention over cp > 1
     (``ring_cp``) the ring kernels take flash's place, once per ring step: ring_fwd
-    2n x cp, ring_bwd n x cp."""
+    2n x cp, ring_bwd n x cp. Validation runs forward only, with no layer checkpoint:
+    ``val_batches`` (over all passes) add flash_fwd once a layer and lce_fwd once each."""
     n = layers * micro * steps
     lce_n = micro * steps if linear_ce else 0
     ring = ring_cp > 1
-    return {"flash_fwd": 0 if ring else 2 * n, "flash_bwd": 0 if ring else n,
-            "lce_fwd": lce_n, "lce_bwd": lce_n,
+    return {"flash_fwd": 0 if ring else 2 * n + layers * val_batches,
+            "flash_bwd": 0 if ring else n,
+            "lce_fwd": lce_n + (val_batches if linear_ce else 0), "lce_bwd": lce_n,
             "gmm": 6 * n if moe else 0, "tgmm": 2 * n if moe else 0,
             "ring_fwd": 2 * n * ring_cp if ring else 0, "ring_bwd": n * ring_cp if ring else 0}
 
@@ -1327,6 +1440,124 @@ def _train_ft_path(name, yaml, overrides):
     if launches != want:
         raise AssertionError(f"{name}: kernel launches {launches} != expected {want}")
     return _check_routes(name, launches)
+
+
+def _recorded_train_ft(cfg):
+    """Run train_ft through its recipe class, recording each step's loss unrounded (the
+    training.jsonl rows round to 6 digits). Returns (recipe, {step: loss}, rows of
+    training.jsonl, rows of validation.jsonl)."""
+    from automodel_tpu_torch.recipes.llm import train_ft
+
+    recipe = train_ft.TrainFinetuneRecipeForNextTokenPrediction(cfg)
+    recipe.setup()
+    first = recipe.step_scheduler.step + 1
+    losses = []
+    step_fn = recipe._train_step
+
+    def recorded(opt_state, stack):
+        opt_state, m = step_fn(opt_state, stack)
+        losses.append(float(m["loss"]))
+        return opt_state, m
+
+    recipe._train_step = recorded
+    recipe.run_train_validation_loop()
+    rows = {}
+    for name in ("training", "validation"):
+        with open(os.path.join(recipe.output_dir, f"{name}.jsonl")) as f:
+            rows[name] = [r for r in map(json.loads, f) if "run_header" not in r]
+    return recipe, {first + i: x for i, x in enumerate(losses)}, rows["training"], \
+        rows["validation"]
+
+
+def _baseline_path(name):
+    """BASELINE config #1 through train_ft (main path 9): a local pretrained directory,
+    HellaSwag rows through the tokenizer, the prefetch pipeline, validation and a
+    checkpoint (with the consolidated HF export) every 2 steps. Run A runs 4 steps fresh;
+    then its step_4 is removed and run B resumes in the same checkpoint directory from
+    step 2. Returns the launches of both runs."""
+    import shutil
+
+    import torch
+
+    from automodel_tpu_torch.config.cli_overrides import parse_args_and_load_config
+    from automodel_tpu_torch.models.auto import AutoModelForCausalLM
+
+    _release()
+    with tempfile.TemporaryDirectory() as tmp:
+        hf_dir = write_pretrained(os.path.join(tmp, "llama3_2_1b"))
+        yaml = baseline_config(
+            tmp, hf_dir, write_hellaswag_jsonl(os.path.join(tmp, "train.jsonl"), 512, seed=0),
+            write_hellaswag_jsonl(os.path.join(tmp, "val.jsonl"), 64, seed=1))
+        ckpt = os.path.join(tmp, "ckpts")
+        runs = {}
+        for run in ("A", "B"):
+            if run == "B":  # the walk-back must find step 2
+                shutil.rmtree(os.path.join(ckpt, f"step_{BASELINE_STEPS}"))
+            cfg = parse_args_and_load_config(["-c", yaml, *baseline_args(ckpt), "--output_dir",
+                                              os.path.join(tmp, f"run_{run}")])
+            _reset_counts()
+            torch.cuda.reset_peak_memory_stats()
+            recipe, losses, rows, val_rows = _recorded_train_ft(cfg)
+            launches = _read_counts()
+            runs[run] = dict(recipe=recipe, losses=losses, rows=rows, val=val_rows,
+                             launches=launches, routed=_check_routes(f"{name} run {run}", launches),
+                             peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+            if run == "A":  # its consolidated HF export against its final parameters
+                step_hf = os.path.join(ckpt, f"step_{BASELINE_STEPS}", "hf")
+                reloaded = AutoModelForCausalLM.from_pretrained(step_hf, dtype=torch.float32,
+                                                                device="cuda").param_dict()
+                runs[run]["hf_differ"] = sorted(k for k, v in recipe.params.items()
+                                               if not torch.equal(v, reloaded[k]))
+                runs[run]["hf_bytes"] = sum(os.path.getsize(os.path.join(step_hf, f))
+                                            for f in os.listdir(step_hf))
+                del reloaded
+            del recipe
+            runs[run].pop("recipe")
+            _release()
+    layers = LLAMA32_1B["num_hidden_layers"]
+    micro = 4  # the config's grad_acc_steps
+    a, b = runs["A"], runs["B"]
+    for run, r in runs.items():
+        saves = [x for x in r["rows"] if x.get("event") == "checkpoint_save"]
+        restores = [x for x in r["rows"] if x.get("event") == "checkpoint_restore"]
+        print(f"{name} run {run}: train_ft on {_shown(BASELINE_YAML)} (model and data sections "
+              f"swapped; {layers} layers, prefetch), losses {r['losses']}, step times "
+              f"{[x['step_time_s'] for x in r['rows'] if 'loss' in x]} s, validation "
+              f"{[(x['step'], x['val_loss']) for x in r['val']]}, saves "
+              f"{[(x['step'], x['seconds'], x['bytes']) for x in saves]} (step, s, bytes), "
+              f"restores {[(x['step'], x['seconds']) for x in restores]} (step, s), peak memory "
+              f"{r['peak_gib']:.2f} GiB, launches {r['launches']}", flush=True)
+    print(f"{name}: step_{BASELINE_STEPS}/hf {a['hf_bytes']} bytes, reloaded through "
+          f"from_pretrained: {'bitwise equal' if not a['hf_differ'] else a['hf_differ']}; run B "
+          f"from step {min(b['losses'])}: step-3 loss |diff| "
+          f"{abs(b['losses'].get(3, math.nan) - a['losses'][3]):.3e} (bitwise "
+          f"{b['losses'].get(3) == a['losses'][3]}), step-4 |diff| "
+          f"{abs(b['losses'].get(4, math.nan) - a['losses'][4]):.3e} (tol {TOL_RESUME_LOSS})",
+          flush=True)
+    if sorted(a["losses"]) != list(range(1, BASELINE_STEPS + 1)) or sorted(b["losses"]) != [3, 4]:
+        raise AssertionError(f"{name}: run A stepped {sorted(a['losses'])}, run B "
+                             f"{sorted(b['losses'])} (B must resume from step 2)")
+    if not all(math.isfinite(x) for r in runs.values() for x in r["losses"].values()):
+        raise AssertionError(f"{name}: non-finite loss")
+    if b["losses"][3] != a["losses"][3]:
+        raise AssertionError(f"{name}: the resumed step-3 loss differs from the uninterrupted")
+    if abs(b["losses"][4] - a["losses"][4]) > TOL_RESUME_LOSS:
+        raise AssertionError(f"{name}: the resumed step-4 loss is off by more than "
+                             f"{TOL_RESUME_LOSS}")
+    val_steps = [x["step"] for x in a["val"] if x.get("val_loss") is not None
+                 and math.isfinite(x["val_loss"])]
+    if val_steps != [2, 4]:
+        raise AssertionError(f"{name}: finite validation.jsonl rows at steps {val_steps}")
+    if a["hf_differ"]:
+        raise AssertionError(f"{name}: hf/ reloaded differs from the final parameters in "
+                             f"{a['hf_differ']}")
+    want_a = _expected(layers, micro, BASELINE_STEPS, True,
+                       val_batches=2 * BASELINE_VAL_BATCHES)
+    want_b = _expected(layers, micro, 2, True, val_batches=BASELINE_VAL_BATCHES)
+    if a["launches"] != want_a or b["launches"] != want_b:
+        raise AssertionError(f"{name}: kernel launches A {a['launches']} B {b['launches']} != "
+                             f"expected A {want_a} B {want_b}")
+    return {k: a["routed"][k] + b["routed"][k] for k in a["routed"]}
 
 
 def _moe_model_check(torch):
@@ -1727,6 +1958,7 @@ def main(argv: list[str]) -> int:
             "main path 8", cp_yaml, [*llama3_8b_args(CP_LAYERS_TRAIN_FT),
                                      "--packed_sequence.packed_sequence_size", "32768",
                                      "--dataset.seq_len", "4096"])
+    by_path["main path 9"] = _baseline_path("main path 9")
 
     flash = "automodel_tpu/ops/pallas/flash_attention.py"
     lce_src = "automodel_tpu/ops/pallas/linear_ce.py"

@@ -1,7 +1,10 @@
 """What of chip_smoke.py runs without a card: the loss it holds the main paths to, its
-table of expected kernel launches, and the derived long-context CP config (main paths
-7 and 8) through the recipes on the CPU at small widths."""
+table of expected kernel launches (validation's included), the derived long-context CP
+config (main paths 7 and 8) through the recipes on the CPU at small widths, and main
+path 9's helpers: the stub tokenizer, the HellaSwag rows, the derived BASELINE config,
+and the path itself at small widths."""
 
+import json
 import math
 import os
 
@@ -269,3 +272,91 @@ def test_ptxas_report_names_kernels_with_digits_and_class_arguments(mangled, nam
     """The build report shortens a kernel's mangled name to kernel<args> also when the
     name holds digits (gmm_sm90_kernel) or a template argument is a class."""
     assert chip_smoke._kernel_name(mangled) == name
+
+
+def test_expected_launches_count_validation():
+    """Main path 9: validation runs forward only, with no layer checkpoint, so each of its
+    batches adds flash_fwd once a layer and lce_fwd once, and nothing to the backward."""
+    plain = chip_smoke._expected(4, 4, 4, True)
+    want = chip_smoke._expected(4, 4, 4, True, val_batches=4)
+    assert want["flash_fwd"] - plain["flash_fwd"] == 16 and want["lce_fwd"] - plain["lce_fwd"] == 4
+    assert {k: v for k, v in want.items() if k not in ("flash_fwd", "lce_fwd")} == {
+        k: v for k, v in plain.items() if k not in ("flash_fwd", "lce_fwd")}
+    assert (want["flash_fwd"], want["flash_bwd"], want["lce_fwd"], want["lce_bwd"]) == (
+        144, 64, 20, 16)
+
+
+def test_byte_tokenizer_and_hellaswag_rows(tmp_path):
+    from automodel_tpu_torch.data.llm.hellaswag import HellaSwagDataset
+
+    tok = chip_smoke.ByteTokenizer()
+    assert tok.encode("ab") == [1, 100, 101]
+    path = chip_smoke.write_hellaswag_jsonl(str(tmp_path / "rows.jsonl"), 20, seed=4)
+    again = chip_smoke.write_hellaswag_jsonl(str(tmp_path / "again.jsonl"), 20, seed=4)
+    assert open(path).read() == open(again).read()  # from the seed
+    rows = [json.loads(line) for line in open(path)]
+    assert len(rows) == 20 and all(len(r["endings"]) == 4 and 0 <= r["label"] < 4 for r in rows)
+    ds = HellaSwagDataset(path_or_dataset_id=path, tokenizer=tok)
+    ex = ds[0]
+    assert ex["input_ids"][0] == 1 and ex["input_ids"][-1] == 2 and 0 < ex["prompt_len"]
+    assert max(ex["input_ids"]) < 259
+
+
+def test_baseline_config_swaps_only_model_and_data(tmp_path):
+    import yaml
+
+    path = chip_smoke.baseline_config(str(tmp_path), "/hf", "/t.jsonl", "/v.jsonl")
+    with open(chip_smoke.BASELINE_YAML) as f:
+        orig = yaml.safe_load(f)
+    with open(path) as f:
+        derived = yaml.safe_load(f)
+    swapped = {"model", "dataset", "validation_dataset", "tokenizer"}
+    assert {k: v for k, v in derived.items() if k not in swapped} == {
+        k: v for k, v in orig.items() if k not in swapped}
+    assert derived["model"] == {"pretrained_model_name_or_path": "/hf"}
+    assert derived["tokenizer"] == {"_target_": "chip_smoke.ByteTokenizer"}
+    cfg = parse_args_and_load_config(["-c", path, *chip_smoke.baseline_args("/ck")])
+    assert cfg.dataloader.prefetch.enabled and cfg.checkpoint.save_consolidated
+    assert cfg.checkpoint.checkpoint_dir == "/ck" and cfg.validation_max_batches == 2
+    assert (cfg.step_scheduler.ckpt_every_steps, cfg.step_scheduler.val_every_steps,
+            cfg.step_scheduler.max_steps, cfg.step_scheduler.grad_acc_steps) == (2, 2, 4, 4)
+    assert (cfg.micro_batch_size, cfg.seq_len, cfg.backend.attention,
+            cfg.backend.remat_policy) == (2, 2048, "flash", "none")
+    assert cfg.dataset.path_or_dataset_id == "/t.jsonl"
+
+
+def test_baseline_path_resumes_on_cpu(tmp_path):
+    """Main path 9 at small widths on the CPU: a local HF directory written by
+    write_pretrained, the derived config with prefetch, validation and checkpoints every
+    2 steps; run B, resumed from step 2 after step_4 is removed, repeats run A's losses
+    bitwise (no atomics on the CPU), and step_4/hf reloads to run A's final weights."""
+    import shutil
+
+    from automodel_tpu_torch.models.auto import AutoModelForCausalLM
+
+    small = dict(chip_smoke.LLAMA32_1B, hidden_size=64, intermediate_size=128,
+                 num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+                 head_dim=16, vocab_size=512)
+    hf = chip_smoke.write_pretrained(str(tmp_path / "hf"), small, device="cpu")
+    path = chip_smoke.baseline_config(
+        str(tmp_path), hf, chip_smoke.write_hellaswag_jsonl(str(tmp_path / "t.jsonl"), 64, 0),
+        chip_smoke.write_hellaswag_jsonl(str(tmp_path / "v.jsonl"), 16, 1))
+    ckpt = str(tmp_path / "ck")
+    runs = {}
+    for run in ("A", "B"):
+        if run == "B":
+            shutil.rmtree(os.path.join(ckpt, "step_4"))
+        cfg = parse_args_and_load_config([
+            "-c", path, *chip_smoke.baseline_args(ckpt), "--output_dir", str(tmp_path / run),
+            "--device", "cpu", "--seq_len", "256"])
+        runs[run] = chip_smoke._recorded_train_ft(cfg)
+        if run == "A":
+            reloaded = AutoModelForCausalLM.from_pretrained(
+                os.path.join(ckpt, "step_4", "hf"), device="cpu").param_dict()
+            assert all(torch.equal(v, reloaded[k]) for k, v in runs[run][0].params.items())
+    (_, a, rows_a, val_a), (_, b, rows_b, _) = runs["A"], runs["B"]
+    assert sorted(a) == [1, 2, 3, 4] and sorted(b) == [3, 4]
+    assert b[3] == a[3] and b[4] == a[4]
+    assert [r["step"] for r in val_a] == [2, 4] and all(math.isfinite(r["val_loss"]) for r in val_a)
+    assert [r["event"] for r in rows_b if "event" in r][0] == "checkpoint_restore"
+    assert {r["step"] for r in rows_a if r.get("event") == "checkpoint_save"} == {2, 4}

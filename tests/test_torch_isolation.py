@@ -1,6 +1,8 @@
 """The PyTorch package and chip_smoke.py stand alone: they import neither JAX nor
 anything of automodel_tpu, and call no library attention kernel or compiler (SDPA
-appears only in chip_smoke's timing yardstick)."""
+appears only in chip_smoke's timing yardstick). Every module also imports without
+safetensors, transformers and datasets, which the card machine does not have: those
+are imported only inside the functions that need them."""
 
 import ast
 import os
@@ -16,7 +18,8 @@ SMOKE = os.path.join(ROOT, "chip_smoke.py")
 
 _PROBE = r"""
 import importlib, pkgutil, sys
-sys.modules["jax"] = None  # any `import jax` now raises
+for name in ("jax", "safetensors", "transformers", "datasets"):
+    sys.modules[name] = None  # any `import jax` (...) now raises
 sys.path.insert(0, {root!r})
 import automodel_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(automodel_tpu_torch.__path__, "automodel_tpu_torch.")]
@@ -26,8 +29,14 @@ import chip_smoke
 from automodel_tpu_torch.config.loader import ConfigNode
 ConfigNode({{"_target_": "automodel_tpu.data.llm.mock.MockSFTDataset", "vocab_size": 8,
             "seq_len": 4}}).instantiate()
+import tempfile, torch
+from automodel_tpu_torch.checkpoint.safetensors_io import load_safetensors, save_safetensors
+with tempfile.TemporaryDirectory() as d:  # the format is read and written without the package
+    save_safetensors({{"a": torch.ones(3, dtype=torch.bfloat16)}}, d)
+    assert torch.equal(load_safetensors(d)["a"], torch.ones(3, dtype=torch.bfloat16))
 bad = sorted(m for m in sys.modules if m == "automodel_tpu" or m.startswith("automodel_tpu.")
-             or m == "jax" and sys.modules[m] is not None)
+             or m.split(".")[0] in ("jax", "safetensors", "transformers", "datasets")
+             and sys.modules[m] is not None)
 print(len(names), bad)
 """
 
@@ -65,6 +74,9 @@ def test_no_forbidden_imports_or_library_kernels():
             for root in roots:
                 assert root not in ("jax", "jaxlib", "automodel_tpu", "flax", "optax"), \
                     f"{path}:{node.lineno} imports {root}"
+                # only inside a function: the card machine does not have these packages
+                if root in ("safetensors", "transformers", "datasets", "tokenizers"):
+                    assert node.col_offset > 0, f"{path}:{node.lineno} imports {root} at the top"
             if isinstance(node, ast.Attribute) and id(node) not in allowed:
                 assert node.attr != "scaled_dot_product_attention", f"{path}:{node.lineno}"
                 torch_compile = (node.attr == "compile" and isinstance(node.value, ast.Name)

@@ -225,11 +225,12 @@ def test_no_device_and_no_card_raises(cfg_path, monkeypatch):
     ["--distributed.tp", "2"],
     ["--distributed.dp_shard", "2"],
     ["--peft.dim", "8"],
-    ["--checkpoint.enabled", "true"],
-    ["--validation_dataset.seq_len", "8"],
-    ["--dataloader.prefetch.enabled", "true"],
+    ["--checkpoint.enabled", "true", "--checkpoint.async_save", "true"],
+    # a streaming (unsized) validation set: itertools.count stands in for one
+    ["--validation_dataset._target_", "itertools.count"],
+    ["--model.pretrained_model_name_or_path", "meta-llama/Llama-3.2-1B"],
     ["--optimizer.optimizer", "sgd"],
-], ids=["tp", "dp_shard", "peft", "checkpoint", "validation", "prefetch", "optimizer"])
+], ids=["tp", "dp_shard", "peft", "checkpoint", "validation", "hub_id", "optimizer"])
 def test_unported_options_raise(cfg_path, override):
     with pytest.raises(NotImplementedError):
         _setup(cfg_path, *override)
@@ -274,19 +275,23 @@ SEQ4096_TINY = ["--device", "cpu", "--model.config.hidden_size", "128",
 
 def test_benchmark_accepts_the_seq4096_config(tmp_path):
     """The benchmark recipe never saves, so it takes checkpoint.enabled (the default
-    true of a config with no checkpoint section); train_ft still refuses it."""
-    argv = ["-c", SEQ4096, *SEQ4096_TINY, "--output_dir", str(tmp_path)]
+    true of a config with no checkpoint section) and builds no checkpointer; train_ft
+    takes it and checkpoints."""
+    argv = ["-c", SEQ4096, *SEQ4096_TINY, "--output_dir", str(tmp_path),
+            "--checkpoint.checkpoint_dir", str(tmp_path / "ckpts")]
     cfg = parse_args_and_load_config(argv)
-    assert cfg.get("checkpoint") is None and cfg.loss.name == "linear_ce"
-    assert train_ft._unsupported(cfg, saves_checkpoints=False) == []
+    assert cfg.get("checkpoint.enabled") is None and cfg.loss.name == "linear_ce"
+    assert train_ft._unsupported(cfg) == []
     recipe = benchmark.BenchmarkingRecipeForNextTokenPrediction(cfg)
     recipe.setup()
     assert "lm_head" in recipe.params and recipe.loss_name == "linear_ce"
+    assert recipe.checkpointer is None
     result = recipe.run_benchmark()
     assert len(result["losses"]) == 3
-    with pytest.raises(NotImplementedError, match="checkpoint.enabled"):
-        train_ft.TrainFinetuneRecipeForNextTokenPrediction(
-            parse_args_and_load_config(argv)).setup()
+    assert not (tmp_path / "ckpts").exists()
+    ft = train_ft.TrainFinetuneRecipeForNextTokenPrediction(parse_args_and_load_config(argv))
+    ft.setup()
+    assert ft.checkpointer.config.enabled
 
 
 def test_seq4096_untied_head_through_params_from_jax():
