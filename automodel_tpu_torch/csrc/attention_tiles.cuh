@@ -1,8 +1,9 @@
 // Pieces shared by the two Hopper attention sources, flash_attention.cu and
 // ring_chunk.cu: the warp-specialised block's shape and register budget, bf16 packing,
-// quad reductions, exp2, the 1024-byte alignment of the dynamic shared memory and the
-// swizzled shared-memory offsets of the backward's dS and dQ tiles. Included once per
-// source; everything sits in an anonymous namespace.
+// quad reductions, exp2, the 1024-byte alignment of the dynamic shared memory, the
+// swizzled shared-memory offsets of the backward's dS and dQ tiles, and the consumer
+// walk of the q-stationary dQ kernels (flash_dq, ring_dq), templated on the mask of
+// each kernel. Included once per source; everything sits in an anonymous namespace.
 
 #pragma once
 
@@ -78,6 +79,135 @@ __device__ __forceinline__ uint32_t swz_f32(int r, int c, int nrows) {
   const int cb = c & 31;
   return (c >> 5) * nrows * ROW_BYTES + r * ROW_BYTES + ((((cb * 4) >> 4) ^ (r & 7)) << 4) +
          ((cb * 4) & 15);
+}
+
+// ------------------------------------------------------------ q-stationary dQ
+
+// Shared-memory layout of the q-stationary dQ kernels (flash_dq, ring_dq): a block owns
+// 128 query rows of one (b, h) (64 a consumer warpgroup), holds its Q and dO tiles and
+// walks the key tiles of its kv head in order through a ring of K / V stages. Key tiles
+// are 64 rows: the consumers then hold S and dP (32 registers each), dS as bf16 A
+// fragments (16) and the f32 dQ (64 at D=128) with room to spare. The kernel's own
+// per-stage words follow at TAIL_OFF.
+template <int D>
+struct DqTiles {
+  static constexpr int DIM = D;
+  static constexpr int BM = 128, BN = 64;
+  static constexpr int STAGES = 4;
+  static constexpr int BOXES = D / BOX;
+  static constexpr int Q_BYTES = BM * D * 2, KV_BYTES = BN * D * 2;
+  static constexpr int DO_OFF = Q_BYTES;
+  static constexpr int K_OFF = 2 * Q_BYTES;
+  static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
+  static constexpr int TAIL_OFF = V_OFF + STAGES * KV_BYTES;
+};
+
+// The consumer warpgroup cw's walk of a q-stationary dQ kernel over n key tiles, the
+// tile of step `it` in stage it % STAGES (its full barrier arrives when it has landed,
+// its empty barrier takes one arrival a consumer warp). For each tile:
+//   S = Q K^T and dP = dO V^T (shared-memory wgmmas, 64 q rows x 64 keys),
+//   mask(it, s) sets the scores of disallowed pairs to -inf (the kernel's mask policy),
+//   dS = P o (dP - delta) with P = 2^(S scale log2(e) - lse log2(e)),
+//   dQ += dS K (dS from registers as bf16, K through the transpose flag),
+// so dQ sums in f32 registers over the key tiles in the order they were walked: the
+// same order on every run. The dQ product of tile it - 1 runs on the tensor cores while
+// tile it's dS is computed; tile 0 is peeled off so that every wgmma sits in one block
+// with its wait (else ptxas serialises the kernel's wgmmas). lse2: lse * log2(e) of
+// this thread's two rows; acc comes back unscaled (dQ / scale).
+template <class C, class MaskFn>
+__device__ __forceinline__ void dq_walk(float (&acc)[C::DIM / 2], int n, unsigned char* smem,
+                                        int cw, uint64_t* full, uint64_t* empty,
+                                        const float (&lse2)[2], const float (&delta)[2],
+                                        float scale_log2, int lane, MaskFn mask) {
+  constexpr int D = C::DIM, BN = C::BN;
+  const uint32_t q_addr = smem_u32(smem) + cw * 64 * ROW_BYTES;
+  const uint32_t do_addr = smem_u32(smem + C::DO_OFF) + cw * 64 * ROW_BYTES;
+  float s[BN / 2], dp[BN / 2];
+  uint32_t pa[BN / 16][4];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  // S and dP of the tile in `stage`, one commit group
+  auto issue_sdp = [&](int stage) {
+    const uint32_t k_addr = smem_u32(smem + C::K_OFF + stage * C::KV_BYTES);
+    const uint32_t v_addr = smem_u32(smem + C::V_OFF + stage * C::KV_BYTES);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks) {
+      const uint32_t off = (ks / 4) * C::BM * ROW_BYTES + (ks % 4) * 32;
+      const uint32_t koff = (ks / 4) * BN * ROW_BYTES + (ks % 4) * 32;
+      wgmma_ss<BN, 0, 0>(s, desc_sw128(q_addr + off, 16), desc_sw128(k_addr + koff, 16), ks);
+    }
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks) {
+      const uint32_t off = (ks / 4) * C::BM * ROW_BYTES + (ks % 4) * 32;
+      const uint32_t koff = (ks / 4) * BN * ROW_BYTES + (ks % 4) * 32;
+      wgmma_ss<BN, 0, 0>(dp, desc_sw128(do_addr + off, 16), desc_sw128(v_addr + koff, 16), ks);
+    }
+    wgmma_commit();
+  };
+  // dS in place of s (register r: row (r >> 1) & 1 of the thread's two)
+  auto ds_step = [&](int it) {
+    mask(it, s);
+#pragma unroll
+    for (int r = 0; r < BN / 2; ++r) {
+      const int i = (r >> 1) & 1;
+      s[r] = fast_exp2(fmaf(s[r], scale_log2, -lse2[i])) * (dp[r] - delta[i]);
+    }
+  };
+  // dS rounded to bf16 as the A operand: registers 8kk..8kk+7 are keys 16kk..16kk+15
+  auto pack = [&]() {
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+#pragma unroll
+      for (int f = 0; f < 4; ++f) pa[kk][f] = pack_f32(s[8 * kk + 2 * f], s[8 * kk + 2 * f + 1]);
+    }
+  };
+  auto fence_pa = [&]() {
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) fence_regs(pa[kk]);
+  };
+  // dQ += dS K with the K of `stage` (keys x D, D contiguous: the transpose flag)
+  auto issue_dq = [&](int stage) {
+    const uint32_t k_addr = smem_u32(smem + C::K_OFF + stage * C::KV_BYTES);
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk)
+      wgmma_rs<D, 1>(acc, pa[kk], desc_sw128(k_addr + kk * 16 * ROW_BYTES, BN * ROW_BYTES), 1);
+    wgmma_commit();
+  };
+
+  if (n <= 0) return;
+  int prev_stage = 0;
+  mbar_wait(&full[0], 0);
+  issue_sdp(0);
+  wgmma_wait<0>();
+  fence_regs(s);
+  fence_regs(dp);
+  ds_step(0);
+  pack();
+  for (int it = 1; it < n; ++it) {
+    const int stage = it % C::STAGES;
+    mbar_wait(&full[stage], (it / C::STAGES) & 1);
+    issue_sdp(stage);
+    issue_dq(prev_stage);
+    wgmma_wait<1>();  // S and dP are done; the previous tile's dQ product runs on
+    fence_regs(s);
+    fence_regs(dp);
+    ds_step(it);
+    wgmma_wait<0>();  // the dQ product is done: its stage is free, pa can be rewritten
+    fence_regs(acc);
+    fence_pa();
+    release(&empty[prev_stage], lane);
+    pack();
+    prev_stage = stage;
+  }
+  issue_dq(prev_stage);
+  wgmma_wait<0>();
+  fence_regs(acc);
+  fence_pa();
+  release(&empty[prev_stage], lane);
 }
 
 }  // namespace

@@ -1,12 +1,17 @@
-// Flash attention for Hopper (sm_90a): a forward kernel and one backward kernel.
+// Flash attention for Hopper (sm_90a): a forward kernel and a backward split in two.
 //
 // Replaces the Pallas kernels of automodel_tpu/ops/pallas/flash_attention.py:
 //   flash_fwd  <- _fwd_kernel (online-softmax forward, emits O and the logsumexp)
-//   flash_bwd  <- _dqdkv_kernel (fused dq+dk+dv backward from one s/p recompute),
-//                 and by function _dq_kernel + _dkv_kernel (the split backward the
-//                 TPU takes past its VMEM budget): here one kernel serves every
-//                 sequence length, since dK/dV live in registers per key tile and dQ
-//                 is summed in an f32 buffer by bulk reduce-adds.
+//   flash_dq   <- _dq_kernel (q-stationary dQ: a block walks the key tiles in order
+//                 and sums dQ in registers, so dQ is the same on every run)
+//   flash_dkv  <- _dkv_kernel (kv-stationary dK, dV; their GQA group sum is in
+//                 registers and in a fixed order)
+// The pair also stands for _dqdkv_kernel, the fused backward that the TPU package
+// picks by default: flash_dq does 3 products a (q, k) pair (S, dP, dQ) and flash_dkv 4
+// (S, dP, dV, dK), one recompute of S and dP more than a fused kernel's 5, but a
+// fused kernel must sum each key tile's dQ share across blocks, and on the card that
+// sum (f32 reduce-adds into a zeroed buffer, then a cast) cost more than the recompute
+// and landed in no fixed order.
 //
 // Layouts: q/o (B, Sq, H, D), k/v (B, Skv, KH, D), bf16, contiguous; GQA maps q head
 // h to kv head h / (H / KH). lse and delta are (B*H, Sq) f32. Segment ids are
@@ -22,7 +27,7 @@
 // bound by the tensor cores, so the design feeds wgmma from shared memory that TMA
 // fills in the background.
 //
-// Design. Both kernels are warp-specialised: 3 warpgroups (384 threads) a block.
+// Design. The kernels are warp-specialised: 3 warpgroups (384 threads) a block.
 // Warpgroup 0 gives up its registers (setmaxnreg.dec) and is the producer: one lane
 // issues the TMA loads of 128-byte-swizzled tiles (tensor maps over q, k, v, dO as they
 // lie, 3-d (B, S, heads*D), so rows past S read as zeros) into a ring of stages under
@@ -37,23 +42,21 @@
 //     operand and V read through the transpose flag. The P.V of key tile i runs on the
 //     tensor cores while the softmax of tile i+1 runs. Blocks start with the heaviest
 //     causal q tiles.
-//   backward: a block owns 128 keys (64 per consumer warpgroup) of one (b, kv head)
+//   flash_dkv: a block owns 128 keys (64 per consumer warpgroup) of one (b, kv head)
 //     and walks the GQA group's q heads and the q tiles of 64 from the causal start,
 //     so dK and dV sum in registers. S^T = K Q^T and dP^T = V dO^T are shared-memory
 //     wgmmas whose accumulators are already the A layout of dV += P^T dO and dK +=
-//     dS^T Q (register A, transposed B). While those run, dS^T goes to shared memory
-//     (4-byte swizzled stores, two buffers); dQ = dS K is a wgmma per warpgroup over
-//     half of D, staged in swizzled shared memory and added into the f32 dq buffer by
-//     TMA reduce-adds of 32-column boxes (one or two a warpgroup and step) instead of
-//     per-element atomics.
+//     dS^T Q (register A, transposed B).
+//   flash_dq: a block owns 128 query rows of one (b, h), loads Q and dO once and walks
+//     the key tiles of 64 in order to the causal limit (attention_tiles.cuh dq_walk).
 // Masks are applied only to tiles that cross the causal diagonal, the ragged end, or
 // a segment boundary (the test is in one place: tile_needs_mask); key tiles past the
 // causal limit are never loaded.
 // What it leaves on the table: the two consumer warpgroups are not scheduled in turns
 // (ping-pong), so their softmax and their wgmmas overlap only by chance; in the
-// backward each step waits for its own products (at D=128 the registers hold dK and dV
-// and leave no room to run a step ahead), and the two warpgroups meet at a barrier
-// every step to share dS; the epilogues store straight from registers.
+// backward each step waits for its own products (at D=128 the registers hold dK and dV,
+// or dQ, and leave no room to run a step ahead); the epilogues store straight from
+// registers.
 
 #include <climits>
 
@@ -370,18 +373,13 @@ struct Bwd {
   static constexpr int BN = 128, BM = 64;  // keys a block (64 a consumer warpgroup), q rows a step
   static constexpr int STAGES = 2;
   static constexpr int BOXES = D / BOX;
-  static constexpr int DH = D / 2;  // dQ columns of one consumer warpgroup
   static constexpr int KV_BYTES = BN * D * 2, QT_BYTES = BM * D * 2;
-  static constexpr int DS_BYTES = BN * BM * 2;   // dS^T (keys x q rows), one buffer
-  static constexpr int DQ_BYTES = BM * DH * 4;   // one warpgroup's staged dQ partial
   static constexpr int K_OFF = 0, V_OFF = KV_BYTES;
   static constexpr int Q_OFF = 2 * KV_BYTES;                   // per stage
   static constexpr int DO_OFF = Q_OFF + STAGES * QT_BYTES;     // per stage
-  static constexpr int DS_OFF = DO_OFF + STAGES * QT_BYTES;    // 2 buffers
-  static constexpr int DQ_OFF = DS_OFF + 2 * DS_BYTES;         // 2 warpgroups
   // per stage: lse, delta, q segment ids (BM each)
   static constexpr int ROWS_STRIDE = 3 * BM;
-  static constexpr int ROWS_OFF = DQ_OFF + 2 * DQ_BYTES;
+  static constexpr int ROWS_OFF = DO_OFF + STAGES * QT_BYTES;
   static constexpr int KSEG_OFF = ROWS_OFF + STAGES * ROWS_STRIDE * 4;  // the BN keys' ids
   static constexpr int BAR_OFF = KSEG_OFF + BN * 4;
   static constexpr int SMEM = BAR_OFF + (1 + 2 * STAGES) * 8 + 1024;
@@ -390,15 +388,15 @@ struct Bwd {
 // grid (ceil(Skv / 128), B * KH), 384 threads. Each block holds one 128-key K/V tile,
 // loops over the q heads of its GQA group and the q tiles from the causal start, and
 // owns its dK/dV rows (consumer warpgroup w: keys w*64 .. w*64+63), so the group sum
-// needs no second pass; dq (f32, zeroed by the caller) gets the dQ partials.
+// needs no second pass. dQ is flash_dq_kernel's.
 template <int D>
 __global__ void __launch_bounds__(THREADS, 1)
-flash_bwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+flash_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                  const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
-                 const __grid_constant__ CUtensorMap tdq, const int* __restrict__ seg_q,
-                 const int* __restrict__ seg_kv, const float* __restrict__ lse,
-                 const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv,
-                 int Sq, int Skv, int H, int KH, float scale, int causal) {
+                 const int* __restrict__ seg_q, const int* __restrict__ seg_kv,
+                 const float* __restrict__ lse, const float* __restrict__ delta,
+                 bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq, int Skv, int H, int KH,
+                 float scale, int causal) {
   using C = Bwd<D>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
@@ -504,7 +502,7 @@ flash_bwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
   for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
 
   mbar_wait(kv_full, 0);
-  int it = 0;  // steps so far: the stage ring and the dS buffers follow it
+  int it = 0;  // steps so far: the stage ring follows it
   for (int h = kvh * groups; h < (kvh + 1) * groups; ++h)
   for (int q_start = m_first * C::BM; q_start < Sq; q_start += C::BM, ++it) {
     const int stage = it % C::STAGES;
@@ -542,7 +540,6 @@ flash_bwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
       q_id = one_id(__reduce_min_sync(0xffffffffu, min(a, c)),
                     __reduce_max_sync(0xffffffffu, max(a, c)));
     }
-    unsigned char* sds = smem + C::DS_OFF + (it & 1) * C::DS_BYTES;
     if (tile_needs_mask(q_start, C::BM, k0, 64, Sq, Skv, causal, segmented, q_id, k_id)) {
       const int keys[2] = {k0 + krow, k0 + krow + 8};
       const int segk[2] = {kseg[krow], kseg[krow + 8]};
@@ -577,62 +574,16 @@ flash_bwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
       wgmma_rs<D, 1>(dk_acc, sa[kk], desc_sw128(q_addr + kk * 16 * ROW_BYTES, C::BM * ROW_BYTES),
                      1);
     wgmma_commit();
-    // while they run, dS^T to shared memory for dQ: sa[kk][f] holds key row
-    // krow + 8 * (f & 1), q columns 16kk + 8 * (f >> 1) + tc, +1
-#pragma unroll
-    for (int kk = 0; kk < C::BM / 16; ++kk) {
-#pragma unroll
-      for (int f = 0; f < 4; ++f)
-        *reinterpret_cast<uint32_t*>(sds + swz_bf16(cw * 64 + krow + 8 * (f & 1),
-                                                    16 * kk + 8 * (f >> 1) + tc)) = sa[kk][f];
-    }
-    fence_proxy_async();
-    named_sync(3, 256);  // both warpgroups' dS^T rows are in shared memory
-
-    // dQ[:, cw*DH ..] = dS K: A = dS (q rows x 128 keys) read from dS^T through the
-    // transpose flag, B = K (keys x D, D contiguous) transposed, this warpgroup's columns
-    float dq[C::DH / 2];
-    const uint32_t ds_addr = smem_u32(sds);
-    const uint32_t kcol = (D == 64) ? cw * C::DH * 2 : cw * C::BN * ROW_BYTES;
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < C::BN / 16; ++kk)
-      wgmma_ss<C::DH, 1, 1>(dq, desc_sw128(ds_addr + kk * 16 * ROW_BYTES, C::BN * ROW_BYTES),
-                            desc_sw128(k_addr + kcol + kk * 16 * ROW_BYTES, C::BN * ROW_BYTES), kk);
-    wgmma_commit();
     wgmma_wait<0>();
     fence_regs(dv_acc);
     fence_regs(dk_acc);
-    fence_regs(dq);
 #pragma unroll
     for (int kk = 0; kk < C::BM / 16; ++kk) {
       fence_regs(pa[kk]);
       fence_regs(sa[kk]);
     }
     release(&empty[stage], lane);  // Q and dO of this stage are read
-
-    // stage dQ * scale (swizzled f32 boxes of 32 columns) and add it into dq in one
-    // bulk reduce-add; the previous one must have finished reading the buffer
-    unsigned char* sdq = smem + C::DQ_OFF + cw * C::DQ_BYTES;
-    if (t == 0) bulk_wait_read();
-    named_sync(1 + cw, 128);
-#pragma unroll
-    for (int j = 0; j < C::DH / 8; ++j) {
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        *reinterpret_cast<float2*>(sdq + swz_f32(warp * 16 + g + 8 * i, 8 * j + tc, C::BM)) =
-            make_float2(dq[4 * j + 2 * i] * scale, dq[4 * j + 2 * i + 1] * scale);
-    }
-    fence_proxy_async();
-    named_sync(1 + cw, 128);
-    if (t == 0) {
-      for (int c = 0; c < C::DH / 32; ++c)
-        tma_reduce_add_3d(&tdq, sdq + c * C::BM * ROW_BYTES, h * D + cw * C::DH + c * 32, q_start,
-                          b);
-      bulk_commit();
-    }
   }
-  if (t == 0) bulk_wait();
 
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -646,6 +597,158 @@ flash_bwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
       *reinterpret_cast<uint32_t*>(dv + off + 8 * j + tc) =
           pack_f32(dv_acc[4 * j + 2 * i], dv_acc[4 * j + 2 * i + 1]);
     }
+  }
+}
+
+// ------------------------------------------------------------------ dQ, q-stationary
+
+template <int D>
+struct Dq : DqTiles<D> {
+  using T = DqTiles<D>;
+  static constexpr int SEG_STRIDE = T::BN + 1;  // per stage: the BN keys' ids, one_id
+  static constexpr int SEG_OFF = T::TAIL_OFF;
+  static constexpr int QSEG_OFF = SEG_OFF + T::STAGES * SEG_STRIDE * 4;  // 2 wgs x 4 warps x lo, hi
+  static constexpr int BAR_OFF = (QSEG_OFF + 2 * 4 * 2 * 4 + 7) / 8 * 8;
+  static constexpr int SMEM = BAR_OFF + (1 + 2 * T::STAGES) * 8 + 1024;  // + alignment slack
+};
+static_assert(Dq<128>::SMEM <= 232448 && Dq<64>::SMEM <= 232448, "flash_dq shared memory");
+
+// grid (ceil(Sq / 128), B * H), 384 threads; block x takes q tile gridDim.x - 1 - x (the
+// heaviest causal tiles first). The producer loads the block's Q and dO once, then the
+// key tiles from 0 to the causal limit, each with its keys' segment ids; the consumers
+// run dq_walk with flash's masks (tile_needs_mask, mask_tile) and store dQ * scale in
+// q's dtype once. Every dQ element is one block's in-order sum: nothing is added across
+// blocks, so dQ is the same on every run.
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                const int* __restrict__ seg_q, const int* __restrict__ seg_kv,
+                const float* __restrict__ lse, const float* __restrict__ delta,
+                bf16* __restrict__ dq, int Sq, int Skv, int H, int KH, float scale, int causal) {
+  using C = Dq<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  int* sSeg = reinterpret_cast<int*>(smem + C::SEG_OFF);
+  int* sQSeg = reinterpret_cast<int*>(smem + C::QSEG_OFF);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + C::BAR_OFF);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + C::STAGES;
+
+  const int q_start = (gridDim.x - 1 - blockIdx.x) * C::BM;
+  const int bh = blockIdx.y;
+  const int b = bh / H, h = bh % H;
+  const int kvh = h / (H / KH);
+  const int kv_end = causal ? min(Skv, q_start + C::BM) : Skv;
+  const int n_tiles = (kv_end + C::BN - 1) / C::BN;
+  const bool segmented = seg_q != nullptr;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(&full[s], 1);   // the producer's lane 0, after the warp's id copies
+      mbar_init(&empty[s], 8);  // lane 0 of each consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x >= 32) return;
+    const int lane = threadIdx.x;
+    if (lane == 0) {
+      mbar_arrive_expect_tx(q_full, 2 * C::Q_BYTES);
+      for (int c = 0; c < C::BOXES; ++c) {
+        tma_load_3d(smem + c * C::BM * ROW_BYTES, &tq, q_full, h * D + c * BOX, q_start, b);
+        tma_load_3d(smem + C::DO_OFF + c * C::BM * ROW_BYTES, &tdo, q_full, h * D + c * BOX,
+                    q_start, b);
+      }
+    }
+    for (int it = 0; it < n_tiles; ++it) {
+      const int stage = it % C::STAGES;
+      mbar_wait(&empty[stage], ((it / C::STAGES) & 1) ^ 1);
+      const int kv_start = it * C::BN;
+      if (segmented) {
+        int* ids = sSeg + stage * C::SEG_STRIDE;
+        int lo = INT_MAX, hi = INT_MIN;
+        for (int i = lane; i < C::BN; i += 32) {
+          const int id = kv_start + i < Skv ? seg_kv[(size_t)b * Skv + kv_start + i] : SEG_PAD_KV;
+          ids[i] = id;
+          lo = min(lo, id);
+          hi = max(hi, id);
+        }
+        lo = __reduce_min_sync(0xffffffffu, lo);
+        hi = __reduce_max_sync(0xffffffffu, hi);
+        if (lane == 0) ids[C::BN] = one_id(lo, hi);
+      }
+      __syncwarp();  // the lanes' id copies before lane 0's arrival (a release)
+      if (lane == 0) {
+        mbar_arrive_expect_tx(&full[stage], 2 * C::KV_BYTES);
+        unsigned char* sk = smem + C::K_OFF + stage * C::KV_BYTES;
+        unsigned char* sv = smem + C::V_OFF + stage * C::KV_BYTES;
+        for (int c = 0; c < C::BOXES; ++c) {
+          tma_load_3d(sk + c * C::BN * ROW_BYTES, &tk, &full[stage], kvh * D + c * BOX,
+                      kv_start, b);
+          tma_load_3d(sv + c * C::BN * ROW_BYTES, &tv, &full[stage], kvh * D + c * BOX,
+                      kv_start, b);
+        }
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<CONSUMER_REGS>();
+  const int cw = wg - 1;  // consumer warpgroup: query rows cw*64 .. cw*64+63 of the tile
+  const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+  const int g = lane / 4, tc = (lane % 4) * 2;
+  const int q0 = q_start + cw * 64;
+  const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
+  int segr[2] = {0, 0}, q_id = NO_ID;
+  if (segmented) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) segr[i] = row[i] < Sq ? seg_q[(size_t)b * Sq + row[i]] : SEG_PAD_Q;
+    const int lo = __reduce_min_sync(0xffffffffu, min(segr[0], segr[1]));
+    const int hi = __reduce_max_sync(0xffffffffu, max(segr[0], segr[1]));
+    if (lane == 0) sQSeg[(cw * 4 + warp) * 2] = lo, sQSeg[(cw * 4 + warp) * 2 + 1] = hi;
+    named_sync(1 + cw, 128);
+    int q_lo = INT_MAX, q_hi = INT_MIN;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      q_lo = min(q_lo, sQSeg[(cw * 4 + w) * 2]);
+      q_hi = max(q_hi, sQSeg[(cw * 4 + w) * 2 + 1]);
+    }
+    q_id = one_id(q_lo, q_hi);
+  }
+  float lse2[2] = {0.f, 0.f}, dl[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (row[i] < Sq) {
+      lse2[i] = lse[(size_t)bh * Sq + row[i]] * LOG2E;
+      dl[i] = delta[(size_t)bh * Sq + row[i]];
+    }
+  }
+
+  float acc[D / 2];
+  mbar_wait(q_full, 0);
+  dq_walk<C>(acc, n_tiles, smem, cw, full, empty, lse2, dl, scale * LOG2E, lane,
+             [&](int it, float (&s)[C::BN / 2]) {
+               const int kv_start = it * C::BN;
+               const int* ids = sSeg + (it % C::STAGES) * C::SEG_STRIDE;
+               if (tile_needs_mask(q0, 64, kv_start, C::BN, Sq, Skv, causal, segmented, q_id,
+                                   segmented ? ids[C::BN] : NO_ID))
+                 mask_tile<false>(s, row, kv_start, tc, Sq, Skv, causal, segmented, segr, ids);
+             });
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (row[i] >= Sq) continue;
+    bf16* drow = dq + ((size_t)b * Sq + row[i]) * H * D + (size_t)h * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(drow + 8 * j + tc) =
+          pack_f32(acc[4 * j + 2 * i] * scale, acc[4 * j + 2 * i + 1] * scale);
   }
 }
 
@@ -678,28 +781,46 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, const int* s
 }
 
 template <int D>
-cudaError_t launch_bwd(const void* q, const void* k, const void* v, const int* seg_q,
+cudaError_t launch_dkv(const void* q, const void* k, const void* v, const int* seg_q,
                        const int* seg_kv, const void* dout, const float* lse,
-                       const float* delta, float* dq, void* dk, void* dv, int B, int Sq,
-                       int Skv, int H, int KH, float scale, int causal,
-                       cudaStream_t stream) {
+                       const float* delta, void* dk, void* dv, int B, int Sq, int Skv, int H,
+                       int KH, float scale, int causal, cudaStream_t stream) {
   using C = Bwd<D>;
-  CUtensorMap tq, tk, tv, tdo, tdq;
+  CUtensorMap tq, tk, tv, tdo;
   cudaError_t err = bf16_map(&tq, q, B, Sq, H, D, C::BM);
   if (err == cudaSuccess) err = bf16_map(&tdo, dout, B, Sq, H, D, C::BM);
   if (err == cudaSuccess) err = bf16_map(&tk, k, B, Skv, KH, D, C::BN);
   if (err == cudaSuccess) err = bf16_map(&tv, v, B, Skv, KH, D, C::BN);
-  if (err == cudaSuccess)  // f32 boxes of 32 columns (128 bytes) x 64 rows
-    err = make_map_3d(&tdq, dq, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, (uint64_t)H * D, Sq, B, 32,
-                      C::BM);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(flash_bwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    err = cudaFuncSetAttribute(flash_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                C::SMEM);
   if (err != cudaSuccess) return err;
   dim3 grid((Skv + C::BN - 1) / C::BN, B * KH);
-  flash_bwd_kernel<D><<<grid, THREADS, C::SMEM, stream>>>(
-      tq, tk, tv, tdo, tdq, seg_q, seg_kv, lse, delta, static_cast<bf16*>(dk),
+  flash_dkv_kernel<D><<<grid, THREADS, C::SMEM, stream>>>(
+      tq, tk, tv, tdo, seg_q, seg_kv, lse, delta, static_cast<bf16*>(dk),
       static_cast<bf16*>(dv), Sq, Skv, H, KH, scale, causal);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dq(const void* q, const void* k, const void* v, const int* seg_q,
+                      const int* seg_kv, const void* dout, const float* lse, const float* delta,
+                      void* dq, int B, int Sq, int Skv, int H, int KH, float scale, int causal,
+                      cudaStream_t stream) {
+  using C = Dq<D>;
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t err = bf16_map(&tq, q, B, Sq, H, D, C::BM);
+  if (err == cudaSuccess) err = bf16_map(&tdo, dout, B, Sq, H, D, C::BM);
+  if (err == cudaSuccess) err = bf16_map(&tk, k, B, Skv, KH, D, C::BN);
+  if (err == cudaSuccess) err = bf16_map(&tv, v, B, Skv, KH, D, C::BN);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(flash_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               C::SMEM);
+  if (err != cudaSuccess) return err;
+  dim3 grid((Sq + C::BM - 1) / C::BM, B * H);
+  flash_dq_kernel<D><<<grid, THREADS, C::SMEM, stream>>>(tq, tk, tv, tdo, seg_q, seg_kv, lse,
+                                                         delta, static_cast<bf16*>(dq), Sq, Skv,
+                                                         H, KH, scale, causal);
   return cudaGetLastError();
 }
 
@@ -707,7 +828,7 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const int* s
 
 // Plain C entry points (bound with ctypes). Each returns a cudaError_t; the caller
 // checks inputs (bf16, contiguous, 16-byte aligned, D in {64, 128}, H % KH == 0)
-// beforehand, and zeroes dq.
+// beforehand. flash_dq writes dq (bf16, q's layout) whole, each row once.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, const int* seg_q,
                          const int* seg_kv, void* o, float* lse, int B, int Sq, int Skv,
                          int H, int KH, int D, float scale, int causal, void* stream) {
@@ -721,17 +842,30 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, const int*
   return (int)cudaErrorInvalidValue;
 }
 
-extern "C" int flash_bwd(const void* q, const void* k, const void* v, const int* seg_q,
-                         const int* seg_kv, const void* dout, const float* lse,
-                         const float* delta, float* dq, void* dk, void* dv, int B, int Sq,
-                         int Skv, int H, int KH, int D, float scale, int causal,
-                         void* stream) {
+extern "C" int flash_dq(const void* q, const void* k, const void* v, const int* seg_q,
+                        const int* seg_kv, const void* dout, const float* lse,
+                        const float* delta, void* dq, int B, int Sq, int Skv, int H, int KH,
+                        int D, float scale, int causal, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 64)
-    return (int)launch_bwd<64>(q, k, v, seg_q, seg_kv, dout, lse, delta, dq, dk, dv, B, Sq,
-                               Skv, H, KH, scale, causal, s);
+    return (int)launch_dq<64>(q, k, v, seg_q, seg_kv, dout, lse, delta, dq, B, Sq, Skv, H, KH,
+                              scale, causal, s);
   if (D == 128)
-    return (int)launch_bwd<128>(q, k, v, seg_q, seg_kv, dout, lse, delta, dq, dk, dv, B, Sq,
-                                Skv, H, KH, scale, causal, s);
+    return (int)launch_dq<128>(q, k, v, seg_q, seg_kv, dout, lse, delta, dq, B, Sq, Skv, H, KH,
+                               scale, causal, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int flash_dkv(const void* q, const void* k, const void* v, const int* seg_q,
+                         const int* seg_kv, const void* dout, const float* lse,
+                         const float* delta, void* dk, void* dv, int B, int Sq, int Skv, int H,
+                         int KH, int D, float scale, int causal, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 64)
+    return (int)launch_dkv<64>(q, k, v, seg_q, seg_kv, dout, lse, delta, dk, dv, B, Sq, Skv, H,
+                               KH, scale, causal, s);
+  if (D == 128)
+    return (int)launch_dkv<128>(q, k, v, seg_q, seg_kv, dout, lse, delta, dk, dv, B, Sq, Skv, H,
+                                KH, scale, causal, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -6,6 +6,14 @@
 //                visiting kv chunk into the online-softmax carry (acc, m, l)
 //   ring_bwd  <- _chunk_bwd_kernel: dq partial plus the chunk's dk / dv from one s / p
 //                recompute, given the global lse and delta
+//   ring_dkv  <- the dk / dv of _chunk_bwd_kernel: ring_bwd_kernel with DQ = false
+//   ring_dq   <- the dq of _chunk_bwd_kernel, q-stationary: a block walks the chunk's
+//                non-skipped key tiles in order, sums dQ in registers and adds it into
+//                the carried dq by one read-modify-write a q tile
+// ring_dq + ring_dkv are the deterministic route, taken by the wrapper when
+// torch.are_deterministic_algorithms_enabled(): ring steps run in sequence, so dq sums
+// in the same order on every run. ring_bwd is the default because it is faster here:
+// one recompute of S and dP, where the split does two.
 //
 // Layouts (row form, as the TPU kernels): q (B*H, Sq, D), k / v (B*KH, Skv, D) bf16,
 // contiguous, 16-byte aligned; q row b*H + h reads kv row b*KH + h / (H / KH) (GQA).
@@ -539,9 +547,10 @@ __device__ __forceinline__ void mask_queries(float (&s)[N], const int (&key)[2],
 // grid (ceil(Skv / 128), B * KH), 384 threads. Each block holds one 128-key K/V tile,
 // loops over the q heads of its GQA group and their non-skipped q tiles, and owns its
 // dK/dV rows (consumer warpgroup w: keys w*64 .. w*64+63), so the group sum needs no
-// second pass; dq gets the dQ partials by TMA reduce-adds. counts: null, or SKIP /
-// PARTIAL / FULL tallies of the q tiles against this key tile (once, not once a head).
-template <int D>
+// second pass; with DQ, dq gets the dQ partials by TMA reduce-adds (through tdq); without,
+// neither dS is staged nor dQ computed. counts: null, or SKIP / PARTIAL / FULL tallies of
+// the q tiles against this key tile (once, not once a head).
+template <int D, bool DQ>
 __global__ void __launch_bounds__(THREADS, 1)
 ring_bwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
@@ -737,34 +746,36 @@ ring_bwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
       wgmma_rs<D, 1>(dk_acc, sa[kk],
                      desc_sw128(q_addr + kk * 16 * ROW_BYTES, C::BM * ROW_BYTES), 1);
     wgmma_commit();
-    // while they run, dS^T to shared memory for dQ: sa[kk][f] holds key row
-    // krow + 8 * (f & 1), q columns 16kk + 8 * (f >> 1) + tc, +1
-#pragma unroll
-    for (int kk = 0; kk < C::BM / 16; ++kk) {
-#pragma unroll
-      for (int f = 0; f < 4; ++f)
-        *reinterpret_cast<uint32_t*>(sds + swz_bf16(cw * 64 + krow + 8 * (f & 1),
-                                                    16 * kk + 8 * (f >> 1) + tc)) = sa[kk][f];
-    }
-    fence_proxy_async();
-    named_sync(3, 256);  // both warpgroups' dS^T rows are in shared memory
-
-    // dQ[:, cw*DH ..] = dS K: A = dS (q rows x 128 keys) read from dS^T through the
-    // transpose flag, B = K (keys x D, D contiguous) transposed, this warpgroup's columns
     float dq[C::DH / 2];
-    const uint32_t ds_addr = smem_u32(sds);
-    const uint32_t kcol = (D == 64) ? cw * C::DH * 2 : cw * C::BN * ROW_BYTES;
-    wgmma_fence();
+    if constexpr (DQ) {
+      // while they run, dS^T to shared memory for dQ: sa[kk][f] holds key row
+      // krow + 8 * (f & 1), q columns 16kk + 8 * (f >> 1) + tc, +1
 #pragma unroll
-    for (int kk = 0; kk < C::BN / 16; ++kk)
-      wgmma_ss<C::DH, 1, 1>(dq, desc_sw128(ds_addr + kk * 16 * ROW_BYTES, C::BN * ROW_BYTES),
-                            desc_sw128(k_addr + kcol + kk * 16 * ROW_BYTES, C::BN * ROW_BYTES),
-                            kk);
-    wgmma_commit();
+      for (int kk = 0; kk < C::BM / 16; ++kk) {
+#pragma unroll
+        for (int f = 0; f < 4; ++f)
+          *reinterpret_cast<uint32_t*>(sds + swz_bf16(cw * 64 + krow + 8 * (f & 1),
+                                                      16 * kk + 8 * (f >> 1) + tc)) = sa[kk][f];
+      }
+      fence_proxy_async();
+      named_sync(3, 256);  // both warpgroups' dS^T rows are in shared memory
+
+      // dQ[:, cw*DH ..] = dS K: A = dS (q rows x 128 keys) read from dS^T through the
+      // transpose flag, B = K (keys x D, D contiguous) transposed, this warpgroup's columns
+      const uint32_t ds_addr = smem_u32(sds);
+      const uint32_t kcol = (D == 64) ? cw * C::DH * 2 : cw * C::BN * ROW_BYTES;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < C::BN / 16; ++kk)
+        wgmma_ss<C::DH, 1, 1>(dq, desc_sw128(ds_addr + kk * 16 * ROW_BYTES, C::BN * ROW_BYTES),
+                              desc_sw128(k_addr + kcol + kk * 16 * ROW_BYTES, C::BN * ROW_BYTES),
+                              kk);
+      wgmma_commit();
+    }
     wgmma_wait<0>();
     fence_regs(dv_acc);
     fence_regs(dk_acc);
-    fence_regs(dq);
+    if constexpr (DQ) fence_regs(dq);
 #pragma unroll
     for (int kk = 0; kk < C::BM / 16; ++kk) {
       fence_regs(pa[kk]);
@@ -772,27 +783,29 @@ ring_bwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
     }
     release(&empty[stage], lane);  // Q and dO of this stage are read
 
-    // stage dQ * scale (swizzled f32 boxes of 32 columns) and add it into dq in one
-    // bulk reduce-add; the previous one must have finished reading the buffer
-    unsigned char* sdq = smem + C::DQ_OFF + cw * C::DQ_BYTES;
-    if (t == 0) bulk_wait_read();
-    named_sync(1 + cw, 128);
+    if constexpr (DQ) {
+      // stage dQ * scale (swizzled f32 boxes of 32 columns) and add it into dq in one
+      // bulk reduce-add; the previous one must have finished reading the buffer
+      unsigned char* sdq = smem + C::DQ_OFF + cw * C::DQ_BYTES;
+      if (t == 0) bulk_wait_read();
+      named_sync(1 + cw, 128);
 #pragma unroll
-    for (int jj = 0; jj < C::DH / 8; ++jj) {
+      for (int jj = 0; jj < C::DH / 8; ++jj) {
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
-        *reinterpret_cast<float2*>(sdq + swz_f32(warp * 16 + g + 8 * i, 8 * jj + tc, C::BM)) =
-            make_float2(dq[4 * jj + 2 * i] * scale, dq[4 * jj + 2 * i + 1] * scale);
-    }
-    fence_proxy_async();
-    named_sync(1 + cw, 128);
-    if (t == 0) {
-      for (int c = 0; c < C::DH / 32; ++c)
-        tma_reduce_add_3d(&tdq, sdq + c * C::BM * ROW_BYTES, cw * C::DH + c * 32, q_start, bh);
-      bulk_commit();
+        for (int i = 0; i < 2; ++i)
+          *reinterpret_cast<float2*>(sdq + swz_f32(warp * 16 + g + 8 * i, 8 * jj + tc, C::BM)) =
+              make_float2(dq[4 * jj + 2 * i] * scale, dq[4 * jj + 2 * i + 1] * scale);
+      }
+      fence_proxy_async();
+      named_sync(1 + cw, 128);
+      if (t == 0) {
+        for (int c = 0; c < C::DH / 32; ++c)
+          tma_reduce_add_3d(&tdq, sdq + c * C::BM * ROW_BYTES, cw * C::DH + c * 32, q_start, bh);
+        bulk_commit();
+      }
     }
   }
-  if (t == 0) bulk_wait();
+  if (DQ && t == 0) bulk_wait();
 
   // this block owns its keys' rows of dk / dv in this launch: plain read-add-write
 #pragma unroll
@@ -811,6 +824,141 @@ ring_bwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
       c.y += dv_acc[4 * jj + 2 * i + 1];
       *pk = a;
       *pv = c;
+    }
+  }
+}
+
+// ------------------------------------------------------------------ dQ, q-stationary
+
+template <int D>
+struct Dq : DqTiles<D> {
+  using T = DqTiles<D>;
+  static constexpr int WORD_OFF = T::TAIL_OFF;  // one tile word a stage
+  static constexpr int WALK_OFF = WORD_OFF + (4 * T::STAGES + 15) / 16 * 16;  // the Walk
+  static constexpr int BAR_OFF = WALK_OFF + 16;  // 8-byte aligned for the mbarriers
+  static constexpr int SMEM = BAR_OFF + (1 + 2 * T::STAGES) * 8 + 1024;  // + slack
+};
+static_assert(Dq<128>::SMEM <= 232448 && Dq<64>::SMEM <= 232448, "ring_dq shared memory");
+static_assert(Dq<128>::BAR_OFF % 8 == 0 && Dq<64>::BAR_OFF % 8 == 0, "ring_dq barriers");
+
+// grid (ceil(Sq / 128), B * H), 384 threads; block x takes q tile gridDim.x - 1 - x. All
+// warps class the 64-key tiles against the block's 128 q rows (block_walk); a block
+// with no allowed pair returns and leaves dq as it is. The producer loads Q and dO once,
+// then walks the tiles from the first to the last non-skipped one, classes each again,
+// and loads the non-skipped ones in order with their word beside the stage; the
+// consumers run dq_walk with the ring's masks (none for a full tile, mask_keys for a
+// partial one) and add dQ * scale into dq (f32, (B*H, Sq, D)) row by row: the block owns
+// those rows in this launch.
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+ring_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+               const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+               const int* __restrict__ pos_q, const int* __restrict__ pos_kv,
+               const int* __restrict__ seg_q, const int* __restrict__ seg_kv,
+               const float* __restrict__ lse, const float* __restrict__ delta,
+               float* __restrict__ dq, int Sq, int Skv, int H, int KH, float scale, Mask mask) {
+  using C = Dq<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  volatile int* sWord = reinterpret_cast<int*>(smem + C::WORD_OFF);
+  Walk* sWalk = reinterpret_cast<Walk*>(smem + C::WALK_OFF);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + C::BAR_OFF);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + C::STAGES;
+
+  const int q_start = (gridDim.x - 1 - blockIdx.x) * C::BM;
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int bk = b * KH + (bh % H) / (H / KH);
+  const int n_kv = (Skv + C::BN - 1) / C::BN;
+  const int* pq_b = pos_q + (size_t)b * Sq;
+  const int* pkv_b = pos_kv + (size_t)b * Skv;
+  const int* sq_b = mask.segmented ? seg_q + (size_t)b * Sq : nullptr;
+  const int* skv_b = mask.segmented ? seg_kv + (size_t)b * Skv : nullptr;
+  const int wg = threadIdx.x / 128, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(&full[s], 1);   // the producer's arrival with the bytes to come
+      mbar_init(&empty[s], 8);  // lane 0 of each consumer warp
+    }
+    fence_barrier_init();
+  }
+  const Range qr = warp_range<C::BM>(pq_b, sq_b, q_start, Sq, lane);
+  auto cls = [&](int j) {
+    return tile_class(qr, warp_range<C::BN>(pkv_b, skv_b, j * C::BN, Skv, lane), mask);
+  };
+  const Walk walk = block_walk(n_kv, sWalk, cls);
+  if (walk.live == 0) return;  // no allowed pair: dq stays as it is
+
+  if (wg == 0) {
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x >= 32) return;
+    if (lane == 0) {
+      mbar_arrive_expect_tx(q_full, 2 * C::Q_BYTES);
+      for (int x = 0; x < C::BOXES; ++x) {
+        tma_load_3d(smem + x * C::BM * ROW_BYTES, &tq, q_full, x * BOX, q_start, bh);
+        tma_load_3d(smem + C::DO_OFF + x * C::BM * ROW_BYTES, &tdo, q_full, x * BOX, q_start, bh);
+      }
+    }
+    int it = 0;
+    for (int j = walk.first; j <= walk.last; ++j) {
+      const int c = cls(j);  // the whole warp: its reductions take every lane
+      if (c == SKIP) continue;
+      const int stage = it % C::STAGES;
+      mbar_wait(&empty[stage], ((it / C::STAGES) & 1) ^ 1);
+      if (lane == 0) {
+        sWord[stage] = tile_word(j, c);
+        mbar_arrive_expect_tx(&full[stage], 2 * C::KV_BYTES);
+        unsigned char* sk = smem + C::K_OFF + stage * C::KV_BYTES;
+        unsigned char* sv = smem + C::V_OFF + stage * C::KV_BYTES;
+        for (int x = 0; x < C::BOXES; ++x) {
+          tma_load_3d(sk + x * C::BN * ROW_BYTES, &tk, &full[stage], x * BOX, j * C::BN, bk);
+          tma_load_3d(sv + x * C::BN * ROW_BYTES, &tv, &full[stage], x * BOX, j * C::BN, bk);
+        }
+      }
+      ++it;
+    }
+    return;
+  }
+
+  setmaxnreg_inc<CONSUMER_REGS>();
+  const int cw = wg - 1;  // consumer warpgroup: query rows cw*64 .. cw*64+63 of the tile
+  const int warp = (threadIdx.x % 128) / 32;
+  const int g = lane / 4, tc = (lane % 4) * 2;
+  const int q0 = q_start + cw * 64;
+  const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
+  float lse2[2] = {0.f, 0.f}, dl[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (row[i] < Sq) {
+      lse2[i] = lse[(size_t)bh * Sq + row[i]] * LOG2E;
+      dl[i] = delta[(size_t)bh * Sq + row[i]];
+    }
+  }
+
+  float acc[D / 2];
+  mbar_wait(q_full, 0);
+  dq_walk<C>(acc, walk.live, smem, cw, full, empty, lse2, dl, scale * LOG2E, lane,
+             [&](int it, float (&s)[C::BN / 2]) {
+               const int word = sWord[it % C::STAGES];
+               if ((word & 3) == PARTIAL)
+                 mask_keys(s, row, (word >> 2) * C::BN, tc, Sq, Skv, pq_b, sq_b, pkv_b, skv_b,
+                           mask);
+             });
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (row[i] >= Sq) continue;
+    float* drow = dq + ((size_t)bh * Sq + row[i]) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      float2* p = reinterpret_cast<float2*>(drow + 8 * j + tc);
+      float2 a = *p;
+      a.x += acc[4 * j + 2 * i] * scale;
+      a.y += acc[4 * j + 2 * i + 1] * scale;
+      *p = a;
     }
   }
 }
@@ -842,29 +990,52 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, const int* p
   return cudaGetLastError();
 }
 
-template <int D>
+// dq == nullptr: dk / dv only (DQ = false, no tdq map)
+template <int D, bool DQ>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v, const int* pos_q,
                        const int* pos_kv, const int* seg_q, const int* seg_kv,
                        const void* dout, const float* lse, const float* delta, float* dq,
                        float* dk, float* dv, int* counts, int B, int Sq, int Skv, int H, int KH,
                        float scale, Mask mask, cudaStream_t stream) {
   using C = Bwd<D>;
-  CUtensorMap tq, tk, tv, tdo, tdq;
+  CUtensorMap tq, tk, tv, tdo, tdq{};
   cudaError_t err = rows_map(&tq, q, B * H, Sq, D, C::BM);
   if (err == cudaSuccess) err = rows_map(&tdo, dout, B * H, Sq, D, C::BM);
   if (err == cudaSuccess) err = rows_map(&tk, k, B * KH, Skv, D, C::BN);
   if (err == cudaSuccess) err = rows_map(&tv, v, B * KH, Skv, D, C::BN);
-  if (err == cudaSuccess)  // f32 boxes of 32 columns (128 bytes) x 64 rows
+  if (DQ && err == cudaSuccess)  // f32 boxes of 32 columns (128 bytes) x 64 rows
     err = make_map_3d(&tdq, dq, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, D, Sq, (uint64_t)B * H, 32,
                       C::BM);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(ring_bwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               C::SMEM);
+    err = cudaFuncSetAttribute(ring_bwd_kernel<D, DQ>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (err != cudaSuccess) return err;
   dim3 grid((Skv + C::BN - 1) / C::BN, B * KH);
-  ring_bwd_kernel<D><<<grid, THREADS, C::SMEM, stream>>>(
+  ring_bwd_kernel<D, DQ><<<grid, THREADS, C::SMEM, stream>>>(
       tq, tk, tv, tdo, tdq, pos_q, pos_kv, seg_q, seg_kv, lse, delta, dk, dv, counts, Sq, Skv, H,
       KH, scale, mask);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dq(const void* q, const void* k, const void* v, const int* pos_q,
+                      const int* pos_kv, const int* seg_q, const int* seg_kv, const void* dout,
+                      const float* lse, const float* delta, float* dq, int B, int Sq, int Skv,
+                      int H, int KH, float scale, Mask mask, cudaStream_t stream) {
+  using C = Dq<D>;
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t err = rows_map(&tq, q, B * H, Sq, D, C::BM);
+  if (err == cudaSuccess) err = rows_map(&tdo, dout, B * H, Sq, D, C::BM);
+  if (err == cudaSuccess) err = rows_map(&tk, k, B * KH, Skv, D, C::BN);
+  if (err == cudaSuccess) err = rows_map(&tv, v, B * KH, Skv, D, C::BN);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(ring_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               C::SMEM);
+  if (err != cudaSuccess) return err;
+  dim3 grid((Sq + C::BM - 1) / C::BM, B * H);
+  ring_dq_kernel<D><<<grid, THREADS, C::SMEM, stream>>>(tq, tk, tv, tdo, pos_q, pos_kv, seg_q,
+                                                        seg_kv, lse, delta, dq, Sq, Skv, H, KH,
+                                                        scale, mask);
   return cudaGetLastError();
 }
 
@@ -873,7 +1044,8 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const int* p
 // Plain C entry points (bound with ctypes). Each returns a cudaError_t; the caller
 // checks inputs (bf16 q/k/v, f32 carries and gradients, int32 positions and segments,
 // all contiguous and 16-byte aligned, D in {64, 128}, H % KH == 0) beforehand. seg_q /
-// seg_kv are both null or both set; has_window = 0 ignores window. tile_counts: null, or
+// seg_kv are both null or both set; has_window = 0 ignores window. ring_bwd with a null
+// dq adds only dk / dv (ring_dq adds dq). tile_counts: null, or
 // three int32 the kernel adds its (q tile, kv tile) pairs of each class to (SKIP,
 // PARTIAL, FULL; over every q head forward, every kv head backward).
 extern "C" int ring_fwd(const void* q, const void* k, const void* v, const int* pos_q,
@@ -901,10 +1073,46 @@ extern "C" int ring_bwd(const void* q, const void* k, const void* v, const int* 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Mask mask{causal, has_window, window, seg_q != nullptr};
   if (D == 64)
-    return (int)launch_bwd<64>(q, k, v, pos_q, pos_kv, seg_q, seg_kv, dout, lse, delta, dq,
-                               dk, dv, tile_counts, B, Sq, Skv, H, KH, scale, mask, s);
+    return (int)launch_bwd<64, true>(q, k, v, pos_q, pos_kv, seg_q, seg_kv, dout, lse, delta,
+                                     dq, dk, dv, tile_counts, B, Sq, Skv, H, KH, scale, mask, s);
   if (D == 128)
-    return (int)launch_bwd<128>(q, k, v, pos_q, pos_kv, seg_q, seg_kv, dout, lse, delta, dq,
-                                dk, dv, tile_counts, B, Sq, Skv, H, KH, scale, mask, s);
+    return (int)launch_bwd<128, true>(q, k, v, pos_q, pos_kv, seg_q, seg_kv, dout, lse, delta,
+                                      dq, dk, dv, tile_counts, B, Sq, Skv, H, KH, scale, mask, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// ring_bwd_kernel without dQ (ring_dq gives it)
+extern "C" int ring_dkv(const void* q, const void* k, const void* v, const int* pos_q,
+                        const int* pos_kv, const int* seg_q, const int* seg_kv,
+                        const void* dout, const float* lse, const float* delta, float* dk,
+                        float* dv, int B, int Sq, int Skv, int H, int KH, int D, float scale,
+                        int causal, int has_window, int window, int* tile_counts,
+                        void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Mask mask{causal, has_window, window, seg_q != nullptr};
+  if (D == 64)
+    return (int)launch_bwd<64, false>(q, k, v, pos_q, pos_kv, seg_q, seg_kv, dout, lse, delta,
+                                      nullptr, dk, dv, tile_counts, B, Sq, Skv, H, KH, scale,
+                                      mask, s);
+  if (D == 128)
+    return (int)launch_bwd<128, false>(q, k, v, pos_q, pos_kv, seg_q, seg_kv, dout, lse, delta,
+                                       nullptr, dk, dv, tile_counts, B, Sq, Skv, H, KH, scale,
+                                       mask, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int ring_dq(const void* q, const void* k, const void* v, const int* pos_q,
+                       const int* pos_kv, const int* seg_q, const int* seg_kv, const void* dout,
+                       const float* lse, const float* delta, float* dq, int B, int Sq, int Skv,
+                       int H, int KH, int D, float scale, int causal, int has_window, int window,
+                       void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Mask mask{causal, has_window, window, seg_q != nullptr};
+  if (D == 64)
+    return (int)launch_dq<64>(q, k, v, pos_q, pos_kv, seg_q, seg_kv, dout, lse, delta, dq, B, Sq,
+                              Skv, H, KH, scale, mask, s);
+  if (D == 128)
+    return (int)launch_dq<128>(q, k, v, pos_q, pos_kv, seg_q, seg_kv, dout, lse, delta, dq, B,
+                               Sq, Skv, H, KH, scale, mask, s);
   return (int)cudaErrorInvalidValue;
 }

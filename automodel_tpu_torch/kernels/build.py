@@ -30,7 +30,8 @@ _F = ctypes.c_float
 SOURCES: dict[str, dict[str, list]] = {
     "flash_attention.cu": {
         "flash_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
-        "flash_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        "flash_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+        "flash_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                       _I, _I, _I, _I, _I, _I, _F, _I, _P],
     },
     "linear_ce.cu": {
@@ -50,6 +51,10 @@ SOURCES: dict[str, dict[str, list]] = {
                      _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P, _P],
         "ring_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                      _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P, _P],
+        "ring_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                     _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P, _P],
+        "ring_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                    _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P],
     },
 }
 

@@ -8,26 +8,92 @@ the ordinary attention path (on one card the whole sequence is already there).
 ``scan_layers`` is accepted for config compatibility and changes nothing: the port
 always loops over the stacked layer parameters in Python.
 
-Rematerialisation. The names are the JAX package's. JAX maps "full" to no
-``jax.checkpoint`` at all and every other name, "none" included (policy None: save
-nothing), to a per-layer ``jax.checkpoint`` that saves what the policy names. The
-port keeps that split but not the named saves: "full" runs no checkpointing, and
-every other name wraps each layer in ``torch.utils.checkpoint``, which saves only the
-layer's input and replays the whole layer in the backward. That is coarser than the
-named saves and gives the same values.
+Rematerialisation. The names are the JAX package's ``_REMAT_POLICIES``. "full" runs no
+checkpointing. Every other name runs each layer under ``torch.utils.checkpoint`` with a
+selective policy (``create_selective_checkpoint_contexts``): the forward keeps the
+outputs of the aten ops the policy saves, and the backward replays the layer up to the
+last tensor it needs, taking each saved op's output instead of running it again.
+
+- "none" saves nothing; "dots" saves every matmul's output (``mm``, ``addmm``, ``bmm``,
+  ``baddbmm``), "dots_no_batch" only those without batch dimensions (``mm``, ``addmm``),
+  as JAX's ``checkpoint_dots`` / ``checkpoint_dots_with_no_batch_dims`` save
+  ``dot_general`` outputs.
+- The others save the tensors of the names they list, where the models name them as
+  JAX does: ``attn_q`` / ``attn_k`` / ``attn_v`` and ``mlp_gate`` / ``mlp_up`` (the
+  projections, :func:`remat_name` around them: their matmul is saved) and ``attn_out``
+  / ``mlp_act`` and the grouped GEMM's ``mlp_gate`` (:func:`checkpoint_name`: an alias
+  of the tensor is saved, since the attention and grouped GEMM kernels launch outside
+  the dispatcher).
+
+The CUDA kernels launch through ctypes inside ``torch.autograd.Function``s, which the
+dispatcher never sees: a replay runs them again (as JAX replays its Pallas calls,
+whose residuals no policy names), and the buffers they fill (``torch.empty`` and the
+like) are never saved, so a replay never writes into a saved tensor. One difference:
+a saved matmul whose output the backward does not need (the down projection under
+"dots") stays cached until its layer's backward, where JAX drops it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
+import threading
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
-__all__ = ["BackendConfig", "DTYPES", "REMAT_POLICIES"]
+__all__ = ["BackendConfig", "DTYPES", "REMAT_POLICIES", "checkpoint_name", "remat_name"]
 
-REMAT_POLICIES = ("none", "dots", "dots_no_batch", "mlp_dots", "mlp_gate_dot",
-                  "mlp_gate_attn", "mlp_act_dot", "mlp_attn_dots", "full")
+# policy -> (save every matmul, batched matmuls too, the names it saves)
+_REMAT_POLICIES = {
+    "none": (False, False, frozenset()),
+    "dots": (True, True, frozenset()),
+    "dots_no_batch": (True, False, frozenset()),
+    "mlp_dots": (False, False, frozenset({"mlp_gate", "mlp_up"})),
+    "mlp_gate_dot": (False, False, frozenset({"mlp_gate"})),
+    "mlp_gate_attn": (False, False, frozenset({"mlp_gate", "attn_out"})),
+    "mlp_act_dot": (False, False, frozenset({"mlp_act"})),
+    "mlp_attn_dots": (False, False, frozenset({"mlp_gate", "mlp_up", "attn_k", "attn_v",
+                                               "attn_out"})),
+}
+REMAT_POLICIES = (*_REMAT_POLICIES, "full")
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
+
+_aten = torch.ops.aten
+_MATMULS = {_aten.mm.default, _aten.addmm.default, _aten.bmm.default, _aten.baddbmm.default}
+_BATCHED = {_aten.bmm.default, _aten.baddbmm.default}
+_SCOPE = threading.local()  # the innermost remat name of this thread, or None
+
+
+@contextlib.contextmanager
+def remat_name(name: str):
+    """Name what runs inside: a policy that lists ``name`` saves the matmuls in it and
+    the tensors :func:`checkpoint_name` marks in it."""
+    outer = getattr(_SCOPE, "name", None)
+    _SCOPE.name = name
+    try:
+        yield
+    finally:
+        _SCOPE.name = outer
+
+
+def checkpoint_name(x: torch.Tensor, name: str) -> torch.Tensor:
+    """``x`` under ``name`` (JAX's ``checkpoint_name``): an alias the policy saves when it
+    lists the name, for tensors that no matmul under the name produces."""
+    with remat_name(name):
+        return _aten.alias.default(x)
+
+
+def _policy(dots: bool, batched: bool, names: frozenset, ctx, op, *args, **kwargs):
+    del ctx, args, kwargs
+    named = getattr(_SCOPE, "name", None) in names
+    if op in _MATMULS:
+        saved = named or (dots and (batched or op not in _BATCHED))
+    else:  # every other op replays: a kernel's output buffer is never saved
+        saved = named and op is _aten.alias.default
+    return CheckpointPolicy.MUST_SAVE if saved else CheckpointPolicy.PREFER_RECOMPUTE
 
 
 @dataclasses.dataclass
@@ -93,3 +159,23 @@ class BackendConfig:
     def checkpoint_layers(self) -> bool:
         """True when each layer runs under torch.utils.checkpoint."""
         return self.remat_policy != "full"
+
+    def layer_remat(self, fn):
+        """``fn`` (one layer) under the policy: as it is for "full" or without grad, else
+        checkpointed with the policy's saves (see the module docstring)."""
+        if not self.checkpoint_layers:
+            return fn
+        kw = {}
+        # "none" saves nothing, which a plain checkpoint does without the selective
+        # policy's dispatch mode and its host time on every op
+        if self.remat_policy != "none":
+            kw["context_fn"] = functools.partial(
+                create_selective_checkpoint_contexts,
+                functools.partial(_policy, *_REMAT_POLICIES[self.remat_policy]))
+
+        def run(*args):
+            if not torch.is_grad_enabled():
+                return fn(*args)
+            return checkpoint(fn, *args, use_reentrant=False, **kw)
+
+        return run

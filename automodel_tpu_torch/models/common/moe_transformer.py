@@ -19,7 +19,6 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from automodel_tpu_torch.models.common.backend import BackendConfig
 from automodel_tpu_torch.models.common.transformer import (
@@ -29,7 +28,7 @@ from automodel_tpu_torch.moe.dispatch import make_moe_block_forward
 from automodel_tpu_torch.moe.layers import (cast_moe_compute_params, moe_param_shapes,
                                             nest_moe_params)
 from automodel_tpu_torch.ops.norms import rms_norm
-from automodel_tpu_torch.ops.rope import rope_attention_scaling, rope_frequencies
+from automodel_tpu_torch.ops.rope import rope_attention_scaling, rope_frequencies, rope_tables
 
 __all__ = ["MoEDecoderConfig", "moe_decoder_forward", "moe_decoder_param_shapes"]
 
@@ -72,16 +71,16 @@ def moe_decoder_param_shapes(cfg: MoEDecoderConfig) -> dict[str, tuple[int, ...]
 
 
 def _moe_layer(cfg, backend, moe_block, attn_names, moe_names, h, positions, segment_ids,
-               token_mask, inv_freq, attn_scale, mesh, *weights):
-    """One MoE layer: h + attn(norm(h)), then + moe(norm(h)). Returns (h, aux, load)."""
+               token_mask, rope, mesh, *weights):
+    """One MoE layer: h + attn(norm(h)), then + moe(norm(h)). Returns (h, aux, load);
+    ``rope`` is the forward's ``rope_tables``."""
     dtype = backend.torch_dtype
     n_attn = len(attn_names)
     lp = {n: w.to(dtype) for n, w in zip(attn_names, weights[:n_attn])}
     moe_params = cast_moe_compute_params(nest_moe_params(dict(zip(moe_names, weights[n_attn:]))),
                                          dtype)
     x = rms_norm(h, lp["attn_norm"], cfg.rms_norm_eps)
-    h = h + attention_block(cfg, backend, lp, x, positions, segment_ids, inv_freq, attn_scale,
-                            mesh)
+    h = h + attention_block(cfg, backend, lp, x, positions, segment_ids, mesh=mesh, rope=rope)
     x = rms_norm(h, lp["mlp_norm"], cfg.rms_norm_eps)
     y, aux, load, _ = moe_block(moe_params, x, token_mask)
     if aux is None:
@@ -110,19 +109,17 @@ def moe_decoder_forward(
             input_ids.shape)
     inv_freq = rope_frequencies(cfg.head_dim, cfg.rope_theta, cfg.rope_scaling,
                                 device=input_ids.device)
-    attn_scale = rope_attention_scaling(cfg.rope_scaling)
+    rope = rope_tables(positions, inv_freq, rope_attention_scaling(cfg.rope_scaling))
     emit_aux = cfg.moe.aux_loss_coeff > 0 and training and not backend.fake_balanced_gate
-    remat = backend.checkpoint_layers and torch.is_grad_enabled()
     h = F.embedding(input_ids.long(), params["embed"].to(dtype))
 
     dense_names = list(layer_shapes(cfg))
     dense = [params[f"dense_layers.{n}"].unbind(0) for n in dense_names] \
         if cfg.first_k_dense_replace > 0 else []
+    dense_layer = backend.layer_remat(decoder_layer)
     for i in range(cfg.first_k_dense_replace):
-        args = (cfg, backend, dense_names, h, positions, segment_ids, inv_freq, attn_scale,
-                mesh, *[w[i] for w in dense])
-        h = (checkpoint(decoder_layer, *args, use_reentrant=False) if remat
-             else decoder_layer(*args))
+        h = dense_layer(cfg, backend, dense_names, h, positions, segment_ids, rope, mesh,
+                        *[w[i] for w in dense])
 
     moe_block = make_moe_block_forward(cfg.moe, backend, training=training)
     attn_names = list(_attn_only_shapes(cfg))
@@ -130,11 +127,10 @@ def moe_decoder_forward(
     per_layer = ([params[f"moe_layers.{n}"].unbind(0) for n in attn_names]
                  + [params[f"moe_layers.moe.{n}"].unbind(0) for n in moe_names])
     auxs, loads = [], []
+    moe_layer = backend.layer_remat(_moe_layer)
     for i in range(cfg.num_moe_layers):
-        args = (cfg, backend, moe_block, attn_names, moe_names, h, positions, segment_ids,
-                token_mask, inv_freq, attn_scale, mesh, *[w[i] for w in per_layer])
-        h, aux, load = (checkpoint(_moe_layer, *args, use_reentrant=False) if remat
-                        else _moe_layer(*args))
+        h, aux, load = moe_layer(cfg, backend, moe_block, attn_names, moe_names, h, positions,
+                                 segment_ids, token_mask, rope, mesh, *[w[i] for w in per_layer])
         auxs.append(aux)
         loads.append(load)
 

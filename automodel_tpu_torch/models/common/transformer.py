@@ -21,12 +21,12 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
-from automodel_tpu_torch.models.common.backend import BackendConfig
+from automodel_tpu_torch.models.common.backend import BackendConfig, checkpoint_name, remat_name
 from automodel_tpu_torch.ops.attention import dot_product_attention
 from automodel_tpu_torch.ops.norms import rms_norm
-from automodel_tpu_torch.ops.rope import apply_rope, rope_attention_scaling, rope_frequencies
+from automodel_tpu_torch.ops.rope import (apply_rope_tables, rope_attention_scaling,
+                                          rope_frequencies, rope_tables)
 from automodel_tpu_torch.parallel.ring_attention import make_ring_attention
 
 __all__ = ["DenseDecoderConfig", "attention_block", "decoder_forward", "decoder_layer",
@@ -132,8 +132,8 @@ def _project(x, w, n_in):
     return torch.matmul(x2, w.reshape(k, -1)).reshape(*x2.shape[:-1], *out_shape)
 
 
-def attention_block(cfg, backend, lp, x, positions, segment_ids, inv_freq, attn_scale,
-                    mesh=None):
+def attention_block(cfg, backend, lp, x, positions, segment_ids, inv_freq=None, attn_scale=1.0,
+                    mesh=None, *, rope=None):
     """Self-attention of one layer on the normed input x: projections, per-head q/k
     RMSNorm (``qk_norm``), RoPE, attention and the output projection. With
     ``context_parallel: ring`` and a mesh whose cp axis is larger than 1, attention is
@@ -141,37 +141,47 @@ def attention_block(cfg, backend, lp, x, positions, segment_ids, inv_freq, attn_
     ``attention_segments`` says (as JAX's ``use_ring``; the port's decoders have no
     sinks and no sliding window, the ring's other two guards there). The softmax scale
     is head_dim ** -0.5 on both paths: JAX's ``attention_multiplier`` (Granite) is
-    refused by ``LlamaConfig.from_hf`` until that family is ported."""
-    q = _project(x, lp["wq"], 1)
-    k = _project(x, lp["wk"], 1)
+    refused by ``LlamaConfig.from_hf`` until that family is ported. The remat names
+    (``attn_q`` / ``attn_k`` / ``attn_v``, ``attn_out``) sit where JAX sets them.
+    ``rope``: the (cos, sin) of ``rope_tables``, else computed from ``inv_freq`` and
+    ``attn_scale``."""
+    with remat_name("attn_q"):
+        q = _project(x, lp["wq"], 1)
+    with remat_name("attn_k"):
+        k = _project(x, lp["wk"], 1)
+    with remat_name("attn_v"):
+        v = _project(x, lp["wv"], 1)
     if cfg.qk_norm:
         q = rms_norm(q, lp["q_norm"], cfg.rms_norm_eps)
         k = rms_norm(k, lp["k_norm"], cfg.rms_norm_eps)
-    q = apply_rope(q, positions, inv_freq, attn_scale)
-    k = apply_rope(k, positions, inv_freq, attn_scale)
-    v = _project(x, lp["wv"], 1)
+    if rope is None:
+        rope = rope_tables(positions, inv_freq, attn_scale)
+    q = apply_rope_tables(q, *rope)
+    k = apply_rope_tables(k, *rope)
     if backend.context_parallel == "ring" and mesh is not None and mesh.cp > 1:
         ring = make_ring_attention(mesh, causal=cfg.causal)
-        return _project(ring(q, k, v, positions, segment_ids), lp["wo"], 2)
+        return _project(checkpoint_name(ring(q, k, v, positions, segment_ids), "attn_out"),
+                        lp["wo"], 2)
     # attention_segments=False: right-padded unpacked batches, where causal masking
     # alone keeps real tokens away from trailing pads (bidirectional stacks keep it)
     seg = segment_ids if (backend.attention_segments or not cfg.causal) else None
     out = dot_product_attention(q, k, v, causal=cfg.causal, segment_ids_q=seg,
                                 backend=backend.attention)
-    return _project(out, lp["wo"], 2)
+    return _project(checkpoint_name(out, "attn_out"), lp["wo"], 2)
 
 
-def decoder_layer(cfg, backend, names, h, positions, segment_ids, inv_freq, attn_scale, mesh,
-                  *weights):
-    """One pre-norm decoder layer: h + attn(norm(h)), then + mlp(norm(h))."""
+def decoder_layer(cfg, backend, names, h, positions, segment_ids, rope, mesh, *weights):
+    """One pre-norm decoder layer: h + attn(norm(h)), then + mlp(norm(h)); ``rope`` is the
+    forward's ``rope_tables``."""
     dtype = backend.torch_dtype
     lp = {n: w.to(dtype) for n, w in zip(names, weights)}
     x = rms_norm(h, lp["attn_norm"], cfg.rms_norm_eps)
-    h = h + attention_block(cfg, backend, lp, x, positions, segment_ids, inv_freq, attn_scale,
-                            mesh)
+    h = h + attention_block(cfg, backend, lp, x, positions, segment_ids, mesh=mesh, rope=rope)
     x = rms_norm(h, lp["mlp_norm"], cfg.rms_norm_eps)
-    up = _project(x, lp["w_up"], 1)
-    gate = _project(x, lp["w_gate"], 1)
+    with remat_name("mlp_up"):
+        up = _project(x, lp["w_up"], 1)
+    with remat_name("mlp_gate"):
+        gate = _project(x, lp["w_gate"], 1)
     return h + _project(F.silu(gate) * up, lp["w_down"], 1)
 
 
@@ -193,18 +203,15 @@ def decoder_forward(
             input_ids.shape)
     inv_freq = rope_frequencies(cfg.head_dim, cfg.rope_theta, cfg.rope_scaling,
                                 device=input_ids.device)
-    attn_scale = rope_attention_scaling(cfg.rope_scaling)
+    # the RoPE tables once a forward, not in each layer (and again in each replay)
+    rope = rope_tables(positions, inv_freq, rope_attention_scaling(cfg.rope_scaling))
     h = F.embedding(input_ids.long(), params["embed"].to(dtype))
     names = list(layer_shapes(cfg))
     per_layer = [params[f"layers.{n}"].unbind(0) for n in names]
+    layer = backend.layer_remat(decoder_layer)
     for i in range(cfg.num_hidden_layers):
         weights = [w[i] for w in per_layer]
-        args = (cfg, backend, names, h, positions, segment_ids, inv_freq, attn_scale, mesh,
-                *weights)
-        if backend.checkpoint_layers and torch.is_grad_enabled():
-            h = checkpoint(decoder_layer, *args, use_reentrant=False)
-        else:
-            h = decoder_layer(*args)
+        h = layer(cfg, backend, names, h, positions, segment_ids, rope, mesh, *weights)
     h = rms_norm(h, params["final_norm"].to(dtype), cfg.rms_norm_eps)
     if return_hidden:
         return h

@@ -15,6 +15,9 @@ f32, weighted by the router. The backends keep the JAX package's names:
 
 Weight layout: ``gate_up_proj`` (E, D, 2I) with [gate | up] on the last dim
 (non-gated activations: (E, D, I)), ``down_proj`` (E, I, D).
+
+The remat names are JAX's: ``mlp_gate`` on the gate_up product and ``mlp_act`` on the
+activation, so that the ``mlp_*`` policies (``models/common/backend.py``) save them.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from automodel_tpu_torch.models.common.backend import checkpoint_name, remat_name
 from automodel_tpu_torch.moe.config import MoEConfig
 from automodel_tpu_torch.ops.grouped_gemm import grouped_matmul
 
@@ -47,10 +51,10 @@ def sorted_ragged_ffn(cfg: MoEConfig, params: dict, xs: torch.Tensor,
                       sorted_expert_ids: torch.Tensor, group_sizes: torch.Tensor) -> torch.Tensor:
     """The FFN over rows sorted by expert: grouped GEMM gate_up -> bias -> activation ->
     grouped GEMM down -> bias."""
-    h = grouped_matmul(xs, params["gate_up_proj"], group_sizes)
+    h = checkpoint_name(grouped_matmul(xs, params["gate_up_proj"], group_sizes), "mlp_gate")
     if "gate_up_bias" in params:
         h = h + params["gate_up_bias"][sorted_expert_ids]
-    act = expert_activation(cfg, h).to(xs.dtype)
+    act = checkpoint_name(expert_activation(cfg, h).to(xs.dtype), "mlp_act")
     out = grouped_matmul(act, params["down_proj"], group_sizes)
     if "down_bias" in params:
         out = out + params["down_bias"][sorted_expert_ids]
@@ -125,10 +129,11 @@ def capacity_experts_apply(
     disp = torch.einsum("tke,tkc->tec", expert_oh, slot)
     xd = torch.einsum("tec,td->ecd", disp, x)  # (E, C, D)
 
-    h = torch.einsum("ecd,edf->ecf", xd, params["gate_up_proj"].to(x.dtype))
+    with remat_name("mlp_gate"):
+        h = torch.einsum("ecd,edf->ecf", xd, params["gate_up_proj"].to(x.dtype))
     if "gate_up_bias" in params:
         h = h + params["gate_up_bias"][:, None, :]
-    act = expert_activation(cfg, h).to(x.dtype)
+    act = checkpoint_name(expert_activation(cfg, h).to(x.dtype), "mlp_act")
     out = torch.einsum("ecf,efd->ecd", act, params["down_proj"].to(x.dtype))
     if "down_bias" in params:
         out = out + params["down_bias"][:, None, :]

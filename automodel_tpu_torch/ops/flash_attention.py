@@ -2,9 +2,14 @@
 
 Counterpart of ``automodel_tpu/ops/pallas/flash_attention.py``. The signature and the
 ``(batch, seq, heads, head_dim)`` layout are the JAX package's. A CUDA tensor goes to
-the kernels in ``csrc/flash_attention.cu`` (``flash_fwd``, ``flash_bwd``) or raises;
-a CPU tensor goes to :func:`flash_attention_reference`, a direct masked softmax in
-f32 that also serves as the kernels' check on the card.
+the kernels in ``csrc/flash_attention.cu`` or raises; a CPU tensor goes to
+:func:`flash_attention_reference`, a direct masked softmax in f32 that also serves as
+the kernels' check on the card.
+
+The backward is two kernels: ``flash_dq`` (q-stationary: each q tile sums its dQ over
+the key tiles in order) and ``flash_dkv`` (kv-stationary dK and dV), so the gradients
+are the same on every run; their plain versions are :func:`flash_dq_reference` and
+:func:`flash_dkv_reference`.
 
 The kernels cover what the Llama and Qwen3-MoE paths use: causal and non-causal
 masks, GQA, segment ids, bf16, head_dim 64 and 128. Sliding window, logit soft-cap and
@@ -16,11 +21,12 @@ from __future__ import annotations
 import torch
 
 __all__ = ["LAUNCHES", "flash_attention", "flash_attention_cuda", "flash_attention_reference",
-           "flash_bwd", "flash_fwd"]
+           "flash_backward", "flash_dkv", "flash_dkv_reference", "flash_dq",
+           "flash_dq_reference", "flash_fwd"]
 
 NEG_INF = -1e30
 # one count per kernel launch, so a run can show that it went through the kernels
-LAUNCHES = {"flash_fwd": 0, "flash_bwd": 0}
+LAUNCHES = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
 _SOURCE = "flash_attention.cu"
 _HEAD_DIMS = (64, 128)
 
@@ -101,6 +107,55 @@ def flash_attention_reference(
     return o.permute(0, 2, 1, 3).to(q.dtype), lse.reshape(b * h, sq)
 
 
+def _split_backward(q, k, v, do, lse, delta, want_dq, want_dkv, *, causal, segment_ids_q,
+                    segment_ids_kv, softmax_scale):
+    """The split backward's plain arithmetic in f32, from lse and delta as the kernels
+    take them: P = exp(S scale - lse), dS = P (dP - delta); dQ = dS K scale and, summed
+    over each GQA group, dK = dS^T Q scale, dV = P^T dO."""
+    b, sq, h, d = q.shape
+    _, skv, kh, _ = k.shape
+    scale = d**-0.5 if softmax_scale is None else softmax_scale
+    groups = h // kh
+    qf = q.float().permute(0, 2, 1, 3)  # (B, H, Sq, D)
+    kf = k.float().permute(0, 2, 1, 3).repeat_interleave(groups, dim=1)
+    vf = v.float().permute(0, 2, 1, 3).repeat_interleave(groups, dim=1)
+    dof = do.float().permute(0, 2, 1, 3)
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    seg_q, seg_kv = _segments(segment_ids_q, segment_ids_kv)
+    allowed = _mask(sq, skv, causal, seg_q, seg_kv, None, q.device)
+    p = torch.exp(s - lse.float().reshape(b, h, sq, 1))
+    if allowed is not None:
+        p = torch.where(allowed, p, torch.zeros((), device=p.device))
+    ds = p * (torch.matmul(dof, vf.transpose(-1, -2)) - delta.float().reshape(b, h, sq, 1))
+    out = []
+    if want_dq:
+        out.append((torch.matmul(ds, kf) * scale).permute(0, 2, 1, 3).to(q.dtype))
+    if want_dkv:
+        def group_sum(x):  # (B, H, Skv, D) -> (B, Skv, KH, D)
+            return x.reshape(b, kh, groups, skv, d).sum(2).permute(0, 2, 1, 3)
+        out.append(group_sum(torch.matmul(ds.transpose(-1, -2), qf) * scale).to(k.dtype))
+        out.append(group_sum(torch.matmul(p.transpose(-1, -2), dof)).to(v.dtype))
+    return tuple(out)
+
+
+def flash_dq_reference(q, k, v, do, lse, delta, *, causal=True, segment_ids_q=None,
+                       segment_ids_kv=None, softmax_scale=None):
+    """``flash_dq``'s plain version: dQ in q's dtype from ``lse`` and ``delta`` ((B*H, Sq)
+    f32, delta = rowsum(dO * O)). For the CPU and the tests only."""
+    return _split_backward(q, k, v, do, lse, delta, True, False, causal=causal,
+                           segment_ids_q=segment_ids_q, segment_ids_kv=segment_ids_kv,
+                           softmax_scale=softmax_scale)[0]
+
+
+def flash_dkv_reference(q, k, v, do, lse, delta, *, causal=True, segment_ids_q=None,
+                        segment_ids_kv=None, softmax_scale=None):
+    """``flash_dkv``'s plain version: ``(dk, dv)`` in k's and v's dtypes, summed over each
+    GQA group, from ``lse`` and ``delta``. For the CPU and the tests only."""
+    return _split_backward(q, k, v, do, lse, delta, False, True, causal=causal,
+                           segment_ids_q=segment_ids_q, segment_ids_kv=segment_ids_kv,
+                           softmax_scale=softmax_scale)
+
+
 def _check_cuda(q, k, v, seg_q, seg_kv):
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda":
@@ -129,43 +184,62 @@ def _ptr(t):
 
 def flash_fwd(q, k, v, seg_q, seg_kv, scale, causal):
     """Launch the forward kernel on checked inputs: ``(o, lse)``."""
-    from automodel_tpu_torch.kernels.build import check, library
+    from automodel_tpu_torch.kernels.build import launch
 
     b, sq, h, d = q.shape
     skv, kh = k.shape[1], k.shape[2]
     o = torch.empty_like(q)
     lse = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
-    fn = library(_SOURCE).flash_fwd
-    with torch.cuda.device(q.device):  # the launch goes to the calling thread's device
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(seg_q), _ptr(seg_kv),
-                 o.data_ptr(), lse.data_ptr(), b, sq, skv, h, kh, d, float(scale),
-                 int(causal), torch.cuda.current_stream(q.device).cuda_stream)
-    check(err, "flash_fwd")
+    launch(_SOURCE, "flash_fwd", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+           _ptr(seg_q), _ptr(seg_kv), o.data_ptr(), lse.data_ptr(), b, sq, skv, h, kh, d,
+           float(scale), int(causal))
     LAUNCHES["flash_fwd"] += 1
     return o, lse
 
 
-def flash_bwd(q, k, v, seg_q, seg_kv, o, lse, do, scale, causal):
-    """Launch the backward kernel on checked inputs: ``(dq, dk, dv)``."""
-    from automodel_tpu_torch.kernels.build import check, library
+def _delta(o, do):
+    """rowsum(dO * O) as (B*H, Sq) f32, like lse; a plain reduction, as XLA's in JAX."""
+    b, sq, h, _ = o.shape
+    prod = do.to(torch.float32, copy=True).mul_(o)  # one f32 copy; do stays as it is
+    return prod.sum(-1).transpose(1, 2).reshape(b * h, sq).contiguous()
+
+
+def flash_dq(q, k, v, seg_q, seg_kv, do, lse, delta, scale, causal):
+    """Launch the q-stationary dQ kernel on checked inputs (``do`` contiguous, ``delta``
+    from :func:`_delta`): dQ in q's dtype, summed in the same order on every run."""
+    from automodel_tpu_torch.kernels.build import launch
 
     b, sq, h, d = q.shape
-    skv, kh = k.shape[1], k.shape[2]
-    do = do.contiguous()
-    # delta = rowsum(dO * O), (B*H, Sq) like lse; a plain reduction, as XLA's in JAX
-    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).reshape(b * h, sq).contiguous()
-    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dq = torch.empty_like(q)
+    launch(_SOURCE, "flash_dq", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+           _ptr(seg_q), _ptr(seg_kv), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+           dq.data_ptr(), b, sq, k.shape[1], h, k.shape[2], d, float(scale), int(causal))
+    LAUNCHES["flash_dq"] += 1
+    return dq
+
+
+def flash_dkv(q, k, v, seg_q, seg_kv, do, lse, delta, scale, causal):
+    """Launch the backward kernel without dQ on checked inputs: ``(dk, dv)``."""
+    from automodel_tpu_torch.kernels.build import launch
+
+    b, sq, h, d = q.shape
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    fn = library(_SOURCE).flash_bwd
-    with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(seg_q), _ptr(seg_kv),
-                 do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-                 dk.data_ptr(), dv.data_ptr(), b, sq, skv, h, kh, d, float(scale),
-                 int(causal), torch.cuda.current_stream(q.device).cuda_stream)
-    check(err, "flash_bwd")
-    LAUNCHES["flash_bwd"] += 1
-    return dq.to(q.dtype), dk, dv
+    launch(_SOURCE, "flash_dkv", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+           _ptr(seg_q), _ptr(seg_kv), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+           dk.data_ptr(), dv.data_ptr(), b, sq, k.shape[1], h, k.shape[2], d, float(scale),
+           int(causal))
+    LAUNCHES["flash_dkv"] += 1
+    return dk, dv
+
+
+def flash_backward(q, k, v, seg_q, seg_kv, o, lse, do, scale, causal):
+    """``(dq, dk, dv)`` from ``flash_dq`` and ``flash_dkv``, after delta = rowsum(dO * O)."""
+    do = do.contiguous()
+    delta = _delta(o, do)
+    dq = flash_dq(q, k, v, seg_q, seg_kv, do, lse, delta, scale, causal)
+    dk, dv = flash_dkv(q, k, v, seg_q, seg_kv, do, lse, delta, scale, causal)
+    return dq, dk, dv
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -181,7 +255,7 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, do, dlse):
         del dlse  # lse is a residual for the backward, not a differentiated output
         q, k, v, seg_q, seg_kv, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_bwd(q, k, v, seg_q, seg_kv, o, lse, do, ctx.scale, ctx.causal)
+        dq, dk, dv = flash_backward(q, k, v, seg_q, seg_kv, o, lse, do, ctx.scale, ctx.causal)
         return dq, dk, dv, None, None, None, None
 
 
@@ -220,7 +294,7 @@ def flash_attention(
         return o
     if sliding_window is not None or logit_soft_cap is not None or sinks is not None:
         raise NotImplementedError(
-            "flash_fwd/flash_bwd take no sliding window, soft-cap or sinks yet "
+            "the flash kernels take no sliding window, soft-cap or sinks yet "
             "(ROADMAP.md: the Gemma/gpt-oss slice)")
     o, _ = flash_attention_cuda(q, k, v, causal=causal, segment_ids_q=segment_ids_q,
                                 segment_ids_kv=segment_ids_kv, softmax_scale=softmax_scale)

@@ -138,11 +138,15 @@ def fused_logsumexp_reference(h: torch.Tensor, w: torch.Tensor, filter_eps: floa
 
 def gold_logits(h: torch.Tensor, w: torch.Tensor, local_labels: torch.Tensor) -> torch.Tensor:
     """The logit at the (localized) label column, a gather-dot in f32; labels outside
-    [0, V) (ignored or in another vocab shard) give 0. Autograd's dW is a scatter-add."""
+    [0, V) (ignored or in another vocab shard) give 0. Autograd's dW is a scatter-add:
+    indexing's (``index_put_`` with accumulate, which sorts the indices on CUDA, so it
+    sums in the same order on every run) rather than ``index_select``'s (``index_add_``,
+    whose CUDA atomics land in no fixed order unless the deterministic-algorithms flag
+    is set)."""
     v = w.shape[1]
     in_shard = (local_labels >= 0) & (local_labels < v)
     safe = local_labels.clamp(0, v - 1).long()
-    cols = w.index_select(1, safe)  # (E, N)
+    cols = w[:, safe]  # (E, N)
     g = (h.float() * cols.t().float()).sum(-1)
     return torch.where(in_shard, g, torch.zeros_like(g))
 

@@ -27,9 +27,19 @@ of positions and segment ids the two tiles hold: :func:`tile_class` is that rule
 the tests and for counting; the plain versions do not use it. Given ``tile_counts``, a
 (3,) int32 CUDA tensor, a kernel adds the pairs of each class it met (SKIP, PARTIAL,
 FULL, over every q head forward and every kv head backward), so that a run can hold the
-device's rule against :func:`tile_classes`. The JAX arguments
-``block_q``, ``block_k``, ``interpret`` and ``vma`` have no counterpart. The kernels take D = Dv in {64, 128} in bf16; Dv != D
-(MLA) runs in the plain version only.
+device's rule against :func:`tile_classes`.
+
+The backward has two routes. By default ``ring_bwd`` adds the dq partial by TMA
+reduce-adds, which land in no fixed order. When
+``torch.are_deterministic_algorithms_enabled()``, :func:`chunk_attention_bwd` runs
+``ring_dq`` (q-stationary: each q tile sums its dQ over the chunk's key tiles in order
+and adds it into dq once) and ``ring_dkv`` (``ring_bwd`` without dQ); their plain
+versions are :func:`chunk_attention_dq_reference` and
+:func:`chunk_attention_dkv_reference`. Neither route falls back to the other.
+
+The JAX arguments ``block_q``, ``block_k``, ``interpret`` and ``vma`` have no
+counterpart. The kernels take D = Dv in {64, 128} in bf16; Dv != D (MLA) runs in the
+plain version only.
 """
 
 from __future__ import annotations
@@ -37,13 +47,14 @@ from __future__ import annotations
 import torch
 
 __all__ = ["FULL", "LAUNCHES", "NEG_INF", "PARTIAL", "SKIP", "allowed_mask",
-           "chunk_attention_bwd", "chunk_attention_bwd_reference", "chunk_attention_fwd",
-           "chunk_attention_fwd_reference", "ring_bwd", "ring_fwd", "tile_class",
-           "tile_classes"]
+           "chunk_attention_bwd", "chunk_attention_bwd_reference",
+           "chunk_attention_dkv_reference", "chunk_attention_dq_reference",
+           "chunk_attention_fwd", "chunk_attention_fwd_reference", "ring_bwd", "ring_dkv",
+           "ring_dq", "ring_fwd", "tile_class", "tile_classes"]
 
 NEG_INF = -1e30
 # one count per kernel launch, so a run can show that it went through the kernels
-LAUNCHES = {"ring_fwd": 0, "ring_bwd": 0}
+LAUNCHES = {"ring_fwd": 0, "ring_bwd": 0, "ring_dkv": 0, "ring_dq": 0}
 _SOURCE = "ring_chunk.cu"
 _HEAD_DIMS = (64, 128)
 # tile classes (csrc/ring_chunk.cu: SKIP, PARTIAL, FULL)
@@ -161,9 +172,9 @@ def chunk_attention_fwd_reference(q, k, v, pos_q, pos_kv, seg_q, seg_kv, acc, m,
     return tuple(torch.cat(parts) for parts in zip(*outs))
 
 
-def chunk_attention_bwd_reference(q, k, v, pos_q, pos_kv, seg_q, seg_kv, do, lse, delta, *,
-                                  scale, causal, window, groups, n_heads):
-    """The backward kernel's plain version in f32: ``(dq, dk, dv)`` of this chunk as new
+def _chunk_grads(q, k, v, pos_q, pos_kv, seg_q, seg_kv, do, lse, delta, want_dq, want_dkv, *,
+                 scale, causal, window, groups, n_heads):
+    """The backward's plain arithmetic in f32: dq and / or (dk, dv) of this chunk as new
     tensors, dk / dv summed over the GQA group. p = exp(s - lse) with the global lse,
     ds = p * (dp - delta)."""
     bn, sq, d = q.shape
@@ -187,11 +198,34 @@ def chunk_attention_bwd_reference(q, k, v, pos_q, pos_kv, seg_q, seg_kv, do, lse
             p = p.masked_fill(~allowed, 0.0)
         dp = torch.matmul(dof, vf.transpose(-1, -2))
         ds = p * (dp - delta.float().view(b, kh, groups, sq, 1)[sl])
-        dqs.append((torch.matmul(ds, kf) * scale).reshape(nb * n_heads, sq, d))
-        dks.append((torch.matmul(ds.transpose(-1, -2), qf) * scale).sum(2)
-                   .reshape(nb * kh, skv, d))
-        dvs.append(torch.matmul(p.transpose(-1, -2), dof).sum(2).reshape(nb * kh, skv, dv))
-    return torch.cat(dqs), torch.cat(dks), torch.cat(dvs)
+        if want_dq:
+            dqs.append((torch.matmul(ds, kf) * scale).reshape(nb * n_heads, sq, d))
+        if want_dkv:
+            dks.append((torch.matmul(ds.transpose(-1, -2), qf) * scale).sum(2)
+                       .reshape(nb * kh, skv, d))
+            dvs.append(torch.matmul(p.transpose(-1, -2), dof).sum(2).reshape(nb * kh, skv, dv))
+    return tuple(torch.cat(x) for x in (dqs, dks, dvs) if x)
+
+
+def chunk_attention_bwd_reference(q, k, v, pos_q, pos_kv, seg_q, seg_kv, do, lse, delta, **kw):
+    """The backward kernel's plain version in f32: ``(dq, dk, dv)`` of this chunk as new
+    tensors, dk / dv summed over the GQA group. p = exp(s - lse) with the global lse,
+    ds = p * (dp - delta). Keywords: ``scale``, ``causal``, ``window``, ``groups``,
+    ``n_heads``."""
+    return _chunk_grads(q, k, v, pos_q, pos_kv, seg_q, seg_kv, do, lse, delta, True, True, **kw)
+
+
+def chunk_attention_dq_reference(q, k, v, pos_q, pos_kv, seg_q, seg_kv, do, lse, delta, **kw):
+    """``ring_dq``'s plain version: this chunk's dq partial (f32, new tensor)."""
+    return _chunk_grads(q, k, v, pos_q, pos_kv, seg_q, seg_kv, do, lse, delta, True, False,
+                        **kw)[0]
+
+
+def chunk_attention_dkv_reference(q, k, v, pos_q, pos_kv, seg_q, seg_kv, do, lse, delta, **kw):
+    """The plain version of ``ring_bwd`` without dQ: ``(dk, dv)`` of this chunk (f32, new
+    tensors, summed over the GQA group)."""
+    return _chunk_grads(q, k, v, pos_q, pos_kv, seg_q, seg_kv, do, lse, delta, False, True,
+                        **kw)
 
 
 def _check_cuda(q, k, v, pos_q, pos_kv, seg_q, seg_kv, f32, groups, n_heads):
@@ -255,18 +289,15 @@ def ring_fwd(q, k, v, pos_q, pos_kv, seg_q, seg_kv, acc, m, l, *, scale, causal,
              groups, n_heads, tile_counts=None):
     """Launch the forward kernel on checked inputs; updates (acc, m, l) in place, and
     adds its tile counts into ``tile_counts`` when given."""
-    from automodel_tpu_torch.kernels.build import check, library
+    from automodel_tpu_torch.kernels.build import launch
 
     bn, sq, d = q.shape
     has_window, win = _window(window)
-    fn = library(_SOURCE).ring_fwd
-    with torch.cuda.device(q.device):  # the launch goes to the calling thread's device
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), pos_q.data_ptr(), pos_kv.data_ptr(),
-                 _ptr(seg_q), _ptr(seg_kv), acc.data_ptr(), m.data_ptr(), l.data_ptr(),
-                 bn // n_heads, sq, k.shape[1], n_heads, n_heads // groups, d, float(scale),
-                 int(causal), has_window, win, _counts(tile_counts, q),
-                 torch.cuda.current_stream(q.device).cuda_stream)
-    check(err, "ring_fwd")
+    launch(_SOURCE, "ring_fwd", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+           pos_q.data_ptr(), pos_kv.data_ptr(), _ptr(seg_q), _ptr(seg_kv), acc.data_ptr(),
+           m.data_ptr(), l.data_ptr(), bn // n_heads, sq, k.shape[1], n_heads,
+           n_heads // groups, d, float(scale), int(causal), has_window, win,
+           _counts(tile_counts, q))
     LAUNCHES["ring_fwd"] += 1
     return acc, m, l
 
@@ -275,20 +306,50 @@ def ring_bwd(q, k, v, pos_q, pos_kv, seg_q, seg_kv, do, lse, delta, dq, dk, dv, 
              causal, window, groups, n_heads, tile_counts=None):
     """Launch the backward kernel on checked inputs; adds into (dq, dk, dv) in place, and
     its tile counts into ``tile_counts`` when given."""
-    from automodel_tpu_torch.kernels.build import check, library
+    from automodel_tpu_torch.kernels.build import launch
 
     bn, sq, d = q.shape
     has_window, win = _window(window)
-    fn = library(_SOURCE).ring_bwd
-    with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), pos_q.data_ptr(), pos_kv.data_ptr(),
-                 _ptr(seg_q), _ptr(seg_kv), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), bn // n_heads, sq, k.shape[1],
-                 n_heads, n_heads // groups, d, float(scale), int(causal), has_window, win,
-                 _counts(tile_counts, q), torch.cuda.current_stream(q.device).cuda_stream)
-    check(err, "ring_bwd")
+    launch(_SOURCE, "ring_bwd", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+           pos_q.data_ptr(), pos_kv.data_ptr(), _ptr(seg_q), _ptr(seg_kv), do.data_ptr(),
+           lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+           bn // n_heads, sq, k.shape[1], n_heads, n_heads // groups, d, float(scale),
+           int(causal), has_window, win, _counts(tile_counts, q))
     LAUNCHES["ring_bwd"] += 1
     return dq, dk, dv
+
+
+def ring_dkv(q, k, v, pos_q, pos_kv, seg_q, seg_kv, do, lse, delta, dk, dv, *, scale, causal,
+             window, groups, n_heads, tile_counts=None):
+    """Launch the backward kernel without dQ on checked inputs (:func:`ring_dq` gives
+    dq); adds into (dk, dv) in place, and its tile counts into ``tile_counts``."""
+    from automodel_tpu_torch.kernels.build import launch
+
+    bn, sq, d = q.shape
+    has_window, win = _window(window)
+    launch(_SOURCE, "ring_dkv", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+           pos_q.data_ptr(), pos_kv.data_ptr(), _ptr(seg_q), _ptr(seg_kv), do.data_ptr(),
+           lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), bn // n_heads, sq,
+           k.shape[1], n_heads, n_heads // groups, d, float(scale), int(causal), has_window,
+           win, _counts(tile_counts, q))
+    LAUNCHES["ring_dkv"] += 1
+    return dk, dv
+
+
+def ring_dq(q, k, v, pos_q, pos_kv, seg_q, seg_kv, do, lse, delta, dq, *, scale, causal, window,
+            groups, n_heads):
+    """Launch the q-stationary dQ kernel on checked inputs; adds this chunk's dq partial
+    into ``dq`` (f32) in place, summed in the same order on every run."""
+    from automodel_tpu_torch.kernels.build import launch
+
+    bn, sq, d = q.shape
+    has_window, win = _window(window)
+    launch(_SOURCE, "ring_dq", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+           pos_q.data_ptr(), pos_kv.data_ptr(), _ptr(seg_q), _ptr(seg_kv), do.data_ptr(),
+           lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bn // n_heads, sq, k.shape[1],
+           n_heads, n_heads // groups, d, float(scale), int(causal), has_window, win)
+    LAUNCHES["ring_dq"] += 1
+    return dq
 
 
 def chunk_attention_fwd(q, k, v, pos_q, pos_kv, seg_q, seg_kv, acc, m, l, *, scale, causal,
@@ -310,11 +371,15 @@ def chunk_attention_fwd(q, k, v, pos_q, pos_kv, seg_q, seg_kv, acc, m, l, *, sca
 def chunk_attention_bwd(q, k, v, pos_q, pos_kv, seg_q, seg_kv, do, lse, delta, dq, dk, dv, *,
                         scale, causal, window, groups, n_heads):
     """One backward ring step: add the dq partial and the chunk's dk / dv into (dq, dk,
-    dv), in place; returns them. CUDA tensors launch ``ring_bwd`` or raise."""
+    dv), in place; returns them. CUDA tensors launch ``ring_bwd`` (or, with the
+    deterministic-algorithms flag, ``ring_dq`` and ``ring_dkv``) or raise."""
     kw = dict(scale=scale, causal=causal, window=window, groups=groups, n_heads=n_heads)
+    split = torch.are_deterministic_algorithms_enabled()
     if q.device.type == "cpu":
-        out = chunk_attention_bwd_reference(q, k, v, pos_q, pos_kv, seg_q, seg_kv, do, lse,
-                                            delta, **kw)
+        args = (q, k, v, pos_q, pos_kv, seg_q, seg_kv, do, lse, delta)
+        out = ((chunk_attention_dq_reference(*args, **kw),
+                *chunk_attention_dkv_reference(*args, **kw)) if split
+               else chunk_attention_bwd_reference(*args, **kw))
         for dst, src in zip((dq, dk, dv), out):
             dst.add_(src)
         return dq, dk, dv
@@ -322,4 +387,8 @@ def chunk_attention_bwd(q, k, v, pos_q, pos_kv, seg_q, seg_kv, do, lse, delta, d
         raise ValueError("ring chunk kernels: do must be contiguous, of q's shape and dtype")
     _check_cuda(q, k, v, pos_q, pos_kv, seg_q, seg_kv,
                 {"lse": lse, "delta": delta, "dq": dq, "dk": dk, "dv": dv}, groups, n_heads)
-    return ring_bwd(q, k, v, pos_q, pos_kv, seg_q, seg_kv, do, lse, delta, dq, dk, dv, **kw)
+    if not split:
+        return ring_bwd(q, k, v, pos_q, pos_kv, seg_q, seg_kv, do, lse, delta, dq, dk, dv, **kw)
+    ring_dq(q, k, v, pos_q, pos_kv, seg_q, seg_kv, do, lse, delta, dq, **kw)
+    ring_dkv(q, k, v, pos_q, pos_kv, seg_q, seg_kv, do, lse, delta, dk, dv, **kw)
+    return dq, dk, dv

@@ -9,7 +9,8 @@ from typing import Any
 
 import torch
 
-__all__ = ["apply_rope", "rope_attention_scaling", "rope_frequencies"]
+__all__ = ["apply_rope", "apply_rope_tables", "rope_attention_scaling", "rope_frequencies",
+           "rope_tables"]
 
 
 def rope_frequencies(
@@ -56,6 +57,30 @@ def rope_attention_scaling(rope_scaling: dict[str, Any] | None) -> float:
     raise NotImplementedError(f"rope scaling type {rope_type!r} is not ported yet")
 
 
+def rope_tables(positions: torch.Tensor, inv_freq: torch.Tensor,
+                attention_scaling: float = 1.0) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(cos, sin)`` of :func:`apply_rope`, (batch, seq, 1, rotary_dim) in f32. A decoder
+    computes them once a forward and hands them to every layer."""
+    angles = positions[..., None].float() * inv_freq  # (b, s, rot/2)
+    cos = torch.cos(angles) * attention_scaling
+    sin = torch.sin(angles) * attention_scaling
+    return (torch.cat([cos, cos], dim=-1)[:, :, None, :],
+            torch.cat([sin, sin], dim=-1)[:, :, None, :])
+
+
+def apply_rope_tables(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """out = x*cos + [-x2, x1]*sin with the half split at rotary_dim // 2, in f32, from
+    :func:`rope_tables`."""
+    rot = cos.shape[-1]
+    x_rot, x_pass = x[..., :rot], x[..., rot:]
+    xf = x_rot.float()
+    x1, x2 = xf.chunk(2, dim=-1)
+    out = xf * cos + torch.cat([-x2, x1], dim=-1) * sin
+    if x_pass.shape[-1]:
+        return torch.cat([out.to(x.dtype), x_pass], dim=-1)
+    return out.to(x.dtype)
+
+
 def apply_rope(
     x: torch.Tensor,  # (batch, seq, heads, head_dim)
     positions: torch.Tensor,  # (batch, seq)
@@ -63,15 +88,4 @@ def apply_rope(
     attention_scaling: float = 1.0,
 ) -> torch.Tensor:
     """out = x*cos + [-x2, x1]*sin with the half split at rotary_dim // 2, in f32."""
-    angles = positions[..., None].float() * inv_freq  # (b, s, rot/2)
-    cos = torch.cos(angles) * attention_scaling
-    sin = torch.sin(angles) * attention_scaling
-    cos = torch.cat([cos, cos], dim=-1)[:, :, None, :]
-    sin = torch.cat([sin, sin], dim=-1)[:, :, None, :]
-    rot = cos.shape[-1]
-    x_rot, x_pass = x[..., :rot], x[..., rot:]
-    x1, x2 = x_rot.float().chunk(2, dim=-1)
-    out = x_rot.float() * cos + torch.cat([-x2, x1], dim=-1) * sin
-    if x_pass.shape[-1]:
-        return torch.cat([out.to(x.dtype), x_pass], dim=-1)
-    return out.to(x.dtype)
+    return apply_rope_tables(x, *rope_tables(positions, inv_freq, attention_scaling))

@@ -130,14 +130,14 @@ def _kernel_class(name: str) -> str:
     """Coarse class of a device event for the summary: the port's kernels, library
     GEMMs, reductions, copies, everything else (elementwise)."""
     low = name.lower()
-    if "flash_fwd_kernel" in low or "flash_bwd_kernel" in low:
+    if any(k in low for k in ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")):
         return "flash_kernels"
     if "lce_" in low:  # lce_fwd/merge/dlogits/gemm kernels of csrc/linear_ce.cu
         return "linear_ce_kernels"
     if "gmm_kernel" in low or "gmm_sm90_kernel" in low:  # csrc/grouped_gemm.cu
         return "grouped_gemm_kernels"
-    if "ring_fwd_kernel" in low or "ring_bwd_kernel" in low:  # csrc/ring_chunk.cu
-        return "ring_kernels"
+    if "ring_fwd_kernel" in low or "ring_bwd_kernel" in low or "ring_dq_kernel" in low:
+        return "ring_kernels"  # csrc/ring_chunk.cu
     if low.startswith("nvjet") or "gemm" in low or "cutlass" in low or "xmma" in low:
         return "gemm"
     if "reduce" in low:

@@ -11,16 +11,23 @@ Phases, in order; any failure exits non-zero before the last line:
 2. build of every CUDA source in automodel_tpu_torch/csrc (nvcc, plain C + ctypes,
    one nvcc per source, all started together), with each kernel's registers and
    spills from -Xptxas -v;
-3. flash_fwd / flash_bwd against their plain version (f32 from the same bf16 inputs)
-   in seven cases: (a) the Llama-3.2-1B training shape, (b) packed segments with
+2b. the twice-launch phase: each backward kernel launched twice on the same inputs, and
+   the outputs that differ bitwise (flash_dq and flash_dkv at flash cases a and f,
+   ring_bwd, ring_dq and ring_dkv at ring case a's diagonal step, lce_bwd at lce case a,
+   gmm dX and tgmm at gmm case a); fails if flash_dq, flash_dkv, ring_dq or ring_dkv
+   differs;
+3. flash_fwd and the backward (flash_dq + flash_dkv) against their plain version (f32
+   from the same bf16 inputs) in eleven cases: (a) the Llama-3.2-1B training shape, (b) packed segments with
    right padding, (c) non-causal, (d) a 16k sequence, (e) the shape and segments of
    main path 3 (rows of 4096 packed by pack_dataset from 1000-token documents); at
    head_dim 128: (f) the Qwen3-30B-A3B training shape, (g) case e's rows and segments;
    at the tiles' edges: (h) S=1000 at head_dim 64 and 128, (i) H=KH=8, head_dim 128,
    non-causal, segment boundaries inside tiles, (j) a grid smaller than the card (B=1,
    H=4, KH=1, S=4096, head_dim 128);
-4. flash kernel times at shapes (a) and (f) beside the bound, the plain version and SDPA
-   (one phase alone: ``chip_smoke._timings(torch, fa, 4, 2048, 32, 4, 128)``);
+4. flash kernel times (flash_fwd, flash_dq, flash_dkv) at shapes (a) and (f) beside the
+   bound, the plain version and SDPA, and the whole backward as the wrapper runs it
+   (delta, flash_dq, flash_dkv) beside SDPA's backward (one phase alone:
+   ``chip_smoke._timings(torch, fa, 4, 2048, 32, 4, 128)``);
 5. Llama-3.2-1B width at 2 layers: one forward and backward with attention "flash"
    against attention "xla" on the same weights;
 6. lce_fwd / lce_bwd (fused linear CE) against their plain version in nine cases:
@@ -52,16 +59,18 @@ Phases, in order; any failure exits non-zero before the last line:
    version and torch._grouped_mm;
 8. Qwen3-30B-A3B width at 1 layer: the kernels against the plain versions on the same
    weights, with routing held fixed;
-8b. ring_fwd / ring_bwd (ring-attention chunk kernels) against their plain version, one
-   full folded ring forward and backward each, in six cases: (a) the slice's shape (cp 8
+8b. ring_fwd / ring_bwd (ring-attention chunk kernels), and the deterministic route
+   (ring_dq + ring_dkv), against their plain version, one full folded ring
+   forward and backward each, in six cases: (a) the slice's shape (cp 8
    folded, B 1, S_local 4096, H 32, KH 8, D 128, causal), (b) packed segments with
    positions restarting per document, (c) the round-robin layout, (d) a sliding window,
    (e) D 64, KH 2, non-causal, (f) S_local 1000 at cp 3; their times at (a)'s diagonal
    ring step beside the bound and the plain version, at ring steps 1 and cp - 1 (7 of 8
-   shards' chunks wholly allowed, then wholly skipped) beside their bounds; the tiles the
-   kernels count as skipped, partial and full, held against tile_classes in every case and
-   at each timed step; and the whole ring against
-   flash_fwd / flash_bwd and SDPA on the unsharded S 32768, with flash's bound there;
+   shards' chunks wholly allowed, then wholly skipped) beside their bounds, and ring_dq's
+   and ring_dkv's at the diagonal step and step 1; the tiles the kernels count as
+   skipped, partial and full, held against tile_classes in every case and at each timed
+   step; and the whole ring against flash_fwd / flash_dq / flash_dkv / the flash
+   backward and SDPA on the unsharded S 32768 (shape L), with flash's bounds there;
 8c. Llama-3-8B width at 2 layers, seq 8192, cp 4 folded: context_parallel ring (the ring
    kernels) against allgather (the flash kernels) on the same weights;
 9. main path 1: the benchmark recipe on examples/benchmark/llama3_2_1b.yaml
@@ -93,14 +102,21 @@ Phases, in order; any failure exits non-zero before the last line:
    read through ByteTokenizer (baseline_config), the prefetch pipeline on, validation
    and a checkpoint with the consolidated HF export every 2 steps, 4 steps
    (baseline_args). Run A runs fresh; its step_4 is removed and run B resumes from
-   step 2 in the same directory. Checks: B's step-3 loss equals A's bitwise, its step-4
-   loss within TOL_RESUME_LOSS, validation.jsonl rows at steps 2 and 4, A's step_4/hf
+   step 2 in the same directory. Checks: B's step-3 and step-4 losses equal A's
+   bitwise, validation.jsonl rows at steps 2 and 4, A's step_4/hf
    reloaded through from_pretrained equals A's final parameters bitwise, and the launch
    counts with validation's forward-only launches; it prints the bytes and seconds of
-   each save, the restore seconds, the step times and the peak memory. Every main path
-   also checks that each of its gmm, tgmm, lce_fwd and lce_bwd launches took the wgmma
-   route (``launches by route`` on its line);
-18. one JSON line of per-kernel numbers, the card line, then the result line.
+   each save, the restore seconds, the step times and the peak memory (with what is
+   allocated after setup and after the run);
+17b. in a child process with CUBLAS_WORKSPACE_CONFIG=:4096:8 and
+   torch.use_deterministic_algorithms(True) (``_deterministic_child``): main path 9
+   again, where run B's step-4 loss must equal run A's bitwise; and main path 10, main
+   path 8's config run twice, its ring backward through ring_dq + ring_dkv, every loss
+   of the two runs bitwise equal. Every
+   main path also checks that each of its gmm, tgmm, lce_fwd and lce_bwd launches took
+   the wgmma route (``launches by route`` on its line);
+18. one JSON line of per-kernel numbers (every kernel launched on some main path), the
+   card line, then the result line.
 
 To run one phase alone on the card, import the script: e.g.
 ``python3 -c "import chip_smoke, torch; chip_smoke._gmm_phase(torch, {})"``, or the
@@ -118,6 +134,7 @@ rows, so that two checkouts' kernels can be compared on one card in one call.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -172,7 +189,6 @@ LLAMA32_1B = {
 }
 BASELINE_STEPS = 4  # max_steps of main path 9: checkpoints and validation at 2 and 4
 BASELINE_VAL_BATCHES = 2  # validation_max_batches of main path 9
-TOL_RESUME_LOSS = 1e-3  # run B's step 4 against run A's: flash_bwd's dQ sums by atomics
 
 
 class ByteTokenizer:
@@ -393,40 +409,65 @@ def _inputs(torch, b, s, h, kh, d=64, seed=0, device="cuda"):
 
 def _flash_work(q, k, v):
     """FLOP and byte counts of one causal flash forward and backward, read from the
-    timed tensors' own shapes: {"flash_fwd": (flops, bytes), "flash_bwd": (...)}. The
-    bytes count each input read once and each output written once."""
+    timed tensors' own shapes: {"flash_fwd": (flops, bytes), "flash_dq": (...), ...}.
+    The bytes count each input read once and each output written once. Products a
+    (q, k) pair: forward 2 (S, PV), flash_dq 3 (S, dP, dQ), flash_dkv 4 (S, dP, dV,
+    dK), and the backward as the wrapper runs it ("flash_backward": both, from q, k, v,
+    O, dO and lse to dq, dk and dv) 7."""
     b, s, h, d = q.shape
     pairs = b * h * s * (s + 1) // 2  # allowed (q, k) pairs of a causal run
     qkv_bytes = 2 * (q.numel() + k.numel() + v.numel())
     lse_bytes = 4 * b * h * s
     return {"flash_fwd": (4 * d * pairs, qkv_bytes + 2 * q.numel() + lse_bytes),  # + O, lse
-            # + O, dO, lse read; dq, dk, dv written
-            "flash_bwd": (10 * d * pairs, 2 * qkv_bytes + 2 * 2 * q.numel() + lse_bytes)}
+            # q, k, v, dO, lse, delta read; dq written
+            "flash_dq": (6 * d * pairs, qkv_bytes + 2 * 2 * q.numel() + 2 * lse_bytes),
+            # q, k, v, dO, lse, delta read; dk, dv written
+            "flash_dkv": (8 * d * pairs, qkv_bytes + 2 * q.numel() + 2 * lse_bytes
+                          + 2 * (k.numel() + v.numel())),
+            # q, k, v, O, dO, lse read; dq, dk, dv written
+            "flash_backward": (14 * d * pairs,
+                               2 * qkv_bytes + 2 * 2 * q.numel() + lse_bytes)}
+
+
+@contextlib.contextmanager
+def _deterministic(torch, on=True):
+    """``torch.use_deterministic_algorithms(on)`` inside the block, restored after. Only
+    the kernels' calls run under it here: this process has no CUBLAS_WORKSPACE_CONFIG,
+    so a cuBLAS product under the flag would raise."""
+    before = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(on)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(before)
 
 
 def _kernel_case(torch, fa, name, b, s, h, kh, causal, seg=None, d=64):
+    """flash_fwd and the backward (flash_dq, flash_dkv) through flash_attention_cuda
+    against the plain version; returns the largest errors (O, dq, dk / dv)."""
     q, k, v, do = _inputs(torch, b, s, h, kh, d)
     qk, kk, vk = (x.clone().requires_grad_() for x in (q, k, v))
     o, lse = fa.flash_attention_cuda(qk, kk, vk, causal=causal, segment_ids_q=seg)
     grads = torch.autograd.grad(o, (qk, kk, vk), do)
     torch.cuda.synchronize()
+    o = o.detach()
     qr, kr, vr = (x.float().requires_grad_() for x in (q, k, v))
     o_ref, lse_ref = fa.flash_attention_reference(qr, kr, vr, causal=causal, segment_ids_q=seg)
     grads_ref = torch.autograd.grad(o_ref, (qr, kr, vr), do.float())
     err_o = (o.float() - o_ref).abs().max().item()
     err_lse = (lse - lse_ref).abs().max().item()
     rel = [_rel_l2(a, r) for a, r in zip(grads, grads_ref)]
-    err_grad = max((a.float() - r).abs().max().item() for a, r in zip(grads, grads_ref))
+    err = [(a.float() - r).abs().max().item() for a, r in zip(grads, grads_ref)]
     print(f"case {name}: B={b} S={s} H={h} KH={kh} D={d} causal={causal} "
           f"segments={seg is not None}: "
           f"O max abs {err_o:.3e} (tol {TOL_O}), lse max abs {err_lse:.3e} (tol {TOL_LSE}), "
-          f"grad rel L2 dq {rel[0]:.3e} dk {rel[1]:.3e} dv {rel[2]:.3e} (tol {TOL_GRAD})",
-          flush=True)
+          f"grad rel L2 dq (flash_dq) {rel[0]:.3e}, dk {rel[1]:.3e} dv {rel[2]:.3e} "
+          f"(flash_dkv) (tol {TOL_GRAD})", flush=True)
     if not (err_o <= TOL_O and err_lse <= TOL_LSE and max(rel) <= TOL_GRAD):
         raise AssertionError(f"case {name}: kernels disagree with the plain version")
     del o_ref, lse_ref, grads_ref, qr, kr, vr
     torch.cuda.empty_cache()
-    return err_o, err_grad
+    return err_o, err[0], max(err[1:])
 
 
 def _packed_segments(torch):
@@ -453,13 +494,14 @@ def _inner_segments(torch):
 
 
 def _flash_phase(torch, fa, errs):
-    """flash_fwd / flash_bwd cases a-j against the plain version (see the module
-    docstring); the largest errors go into ``errs``."""
-    errs.update({"flash_fwd": 0.0, "flash_bwd": 0.0})
+    """flash_fwd and flash_dq / flash_dkv cases a-j against the plain version (see the
+    module docstring); the largest errors go into ``errs``."""
+    names = ("flash_fwd", "flash_dq", "flash_dkv")
+    errs.update(dict.fromkeys(names, 0.0))
 
     def note(e):
-        errs["flash_fwd"] = max(errs["flash_fwd"], e[0])
-        errs["flash_bwd"] = max(errs["flash_bwd"], e[1])
+        for name, x in zip(names, e):
+            errs[name] = max(errs[name], x)
 
     note(_kernel_case(torch, fa, "a", 4, 2048, 32, 8, causal=True))
     seg = torch.zeros(2, 2048, dtype=torch.int32, device="cuda")
@@ -515,19 +557,26 @@ def _flash_timing_inputs(torch, b, s, h, kh, d, device="cuda"):
 
 def _timings(torch, fa, b=4, s=2048, h=32, kh=8, d=64):
     """ms of each kernel at shape (a), or at the shape given, with bound, plain version
-    and SDPA. The work behind the bound is read from the timed tensors."""
+    and SDPA, and of the whole backward as the wrapper runs it ("flash_backward": delta,
+    flash_dq and flash_dkv) beside SDPA's backward. The work behind the bound is read
+    from the timed tensors."""
     (q, k, v, do), work = _flash_timing_inputs(torch, b, s, h, kh, d)
     scale = q.shape[-1]**-0.5
     out = {}
 
     o, lse = fa.flash_fwd(q, k, v, None, None, scale, True)
+    delta = fa._delta(o, do)
     fwd_ms = _time_ms(torch, lambda: fa.flash_fwd(q, k, v, None, None, scale, True))
-    bwd_ms = _time_ms(torch, lambda: fa.flash_bwd(q, k, v, None, None, o, lse, do, scale, True))
-    # the plain tensor work that flash_bwd's wrapper does around its kernel (delta =
-    # rowsum(dO * O), dq's zeroing and bf16 cast), inside flash_bwd's time
-    bwd_plain_ops = _time_ms(torch, lambda: (
-        (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous(),
-        torch.zeros(q.shape, dtype=torch.float32, device="cuda").to(torch.bfloat16)))
+    dq_ms = _time_ms(torch, lambda: fa.flash_dq(q, k, v, None, None, do, lse, delta, scale, True))
+    dkv_ms = _time_ms(torch, lambda: fa.flash_dkv(q, k, v, None, None, do, lse, delta, scale,
+                                                  True))
+    bwd_ms = _time_ms(torch, lambda: fa.flash_backward(q, k, v, None, None, o, lse, do, scale,
+                                                       True))
+    delta_ms = _time_ms(torch, lambda: fa._delta(o, do))
+    plain_dq = _time_ms(torch, lambda: fa.flash_dq_reference(q, k, v, do, lse, delta),
+                        warmup=1, reps=3)
+    plain_dkv = _time_ms(torch, lambda: fa.flash_dkv_reference(q, k, v, do, lse, delta),
+                         warmup=1, reps=3)
     plain_fwd = _time_ms(torch, lambda: fa.flash_attention_reference(q, k, v, causal=True))
     qp, kp, vp = (x.clone().requires_grad_() for x in (q, k, v))
     o_plain, _ = fa.flash_attention_reference(qp, kp, vp, causal=True)
@@ -539,23 +588,33 @@ def _timings(torch, fa, b=4, s=2048, h=32, kh=8, d=64):
     o_lib = _library_sdpa(torch, ql, kl, vl, True)
     lib_bwd = _time_ms(torch, lambda: torch.autograd.grad(o_lib, (ql, kl, vl), do,
                                                           retain_graph=True))
-    del o_lib
+    del o_lib, delta
     torch.cuda.empty_cache()
+    shown = f"B={b} S={s} H={h} KH={kh} D={q.shape[-1]} causal"
     for name, ms, plain, lib in (("flash_fwd", fwd_ms, plain_fwd, lib_fwd),
-                                 ("flash_bwd", bwd_ms, plain_bwd, lib_bwd)):
+                                 ("flash_dq", dq_ms, plain_dq, None),
+                                 ("flash_dkv", dkv_ms, plain_dkv, None),
+                                 ("flash_backward", bwd_ms, plain_bwd, lib_bwd)):
         flops, nbytes = work[name]
         t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
         out[name] = {"ms": ms, "plain_ms": plain, "library_ms": lib,
                      "bound_ms": max(t_ops, t_bytes),
                      "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                      "shape": {"B": b, "S": s, "H": h, "KH": kh, "D": q.shape[-1]}}
-        if name == "flash_bwd":
-            out[name]["plain_tensor_ops_ms"] = bwd_plain_ops
-        print(f"time {name} at B={b} S={s} H={h} KH={kh} D={q.shape[-1]} causal: {ms:.3f} ms, "
-              f"bound {out[name]['bound_ms']:.3f} ms ({out[name]['bound_by']}: "
-              f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB), plain {plain:.3f} ms, "
-              f"SDPA {lib:.3f} ms" + (f", of it plain tensor ops {bwd_plain_ops:.3f} ms"
-                                      if name == "flash_bwd" else ""), flush=True)
+        if name == "flash_backward":
+            out[name]["delta_ms"] = delta_ms
+        if lib is None:  # SDPA's backward gives dq, dk and dv together: a comparison only
+            out[name]["library"] = "no single PyTorch call computes this part of the backward"
+            out[name]["sdpa_bwd_ms"] = lib_bwd
+        label = ("the backward (delta, flash_dq, flash_dkv)" if name == "flash_backward"
+                 else name)
+        print(f"time {label} at {shown}: {ms:.3f} ms, bound {out[name]['bound_ms']:.3f} ms "
+              f"({out[name]['bound_by']}: {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB), "
+              f"plain {plain:.3f} ms, "
+              + (f"SDPA {lib:.3f} ms" if name == "flash_fwd" else
+                 f"SDPA backward {lib_bwd:.3f} ms")
+              + (f", of it delta {delta_ms:.3f} ms" if name == "flash_backward" else ""),
+              flush=True)
     return out
 
 
@@ -614,9 +673,9 @@ def _counted_tiles(torch, label, launch, cls, heads):
 
 
 def _ring_case_tiles(torch, name, q, k, v, do, pos, sid, kw):
-    """The tiles ring_fwd and ring_bwd count at the case's diagonal ring step (each
-    shard's q against its own kv), on scratch carries and accumulators, held against
-    tile_classes."""
+    """The tiles ring_fwd, ring_bwd and ring_dkv count at the case's diagonal ring step
+    (each shard's q against its own kv), on scratch carries and accumulators, held
+    against tile_classes."""
     from automodel_tpu_torch.ops import ring_chunk as rc
 
     f32 = dict(dtype=torch.float32, device="cuda")
@@ -630,6 +689,10 @@ def _ring_case_tiles(torch, name, q, k, v, do, pos, sid, kw):
         q, k, v, pos, pos, sid, sid, do, torch.zeros(rows, **f32), torch.zeros(rows, **f32),
         torch.zeros(q.shape, **f32), torch.zeros(k.shape, **f32), torch.zeros(v.shape, **f32),
         **kw, **c), cls[64], kw["n_heads"] // kw["groups"])
+    _counted_tiles(torch, f"ring_dkv in ring case {name}", lambda **c: rc.ring_dkv(
+        q, k, v, pos, pos, sid, sid, do, torch.zeros(rows, **f32), torch.zeros(rows, **f32),
+        torch.zeros(k.shape, **f32), torch.zeros(v.shape, **f32), **kw, **c), cls[64],
+        kw["n_heads"] // kw["groups"])
 
 
 def _ring_case(torch, name, cp, b, s_loc, h, kh, d=128, causal=True, window=None, seg=None,
@@ -645,6 +708,8 @@ def _ring_case(torch, name, cp, b, s_loc, h, kh, d=128, causal=True, window=None
     kw = dict(scale=d**-0.5, causal=causal, window=window, groups=h // kh, n_heads=h)
     out, lse = ra.ring_flash_forward(q, k, v, pos, pos, sid, sid, rot, kw)
     grads = ra.ring_flash_backward(q, k, v, pos, pos, sid, sid, out, lse, do, rot, kw)
+    with _deterministic(torch):  # ring_dq + ring_dkv
+        grads_det = ra.ring_flash_backward(q, k, v, pos, pos, sid, sid, out, lse, do, rot, kw)
     torch.cuda.synchronize()
     qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
     out_ref, lse_ref = ra.ring_flash_forward(qf, kf, vf, pos, pos, sid, sid, rot, kw,
@@ -654,19 +719,22 @@ def _ring_case(torch, name, cp, b, s_loc, h, kh, d=128, causal=True, window=None
     err_o = (out.float() - out_ref).abs().max().item()
     err_lse = (lse - lse_ref).abs().max().item()
     rel = [_rel_l2(a, r) for a, r in zip(grads, grads_ref)]
+    rel_det = [_rel_l2(a, r) for a, r in zip(grads_det, grads_ref)]
     err_grad = max((a.float() - r).abs().max().item() for a, r in zip(grads, grads_ref))
+    err_det = [(a.float() - r).abs().max().item() for a, r in zip(grads_det, grads_ref)]
     print(f"ring case {name}: cp={cp} folded, B={b} S_local={s_loc} H={h} KH={kh} D={d} "
           f"causal={causal} window={window} segments={seg is not None} "
           f"positions={'given' if positions is not None else 'arange'}: "
           f"O max abs {err_o:.3e} (tol {TOL_O}), lse max abs {err_lse:.3e} (tol {TOL_LSE}), "
-          f"grad rel L2 dq {rel[0]:.3e} dk {rel[1]:.3e} dv {rel[2]:.3e} (tol {TOL_GRAD})",
-          flush=True)
-    if not (err_o <= TOL_O and err_lse <= TOL_LSE and max(rel) <= TOL_GRAD):
+          f"grad rel L2 dq {rel[0]:.3e} dk {rel[1]:.3e} dv {rel[2]:.3e}; deterministic route "
+          f"(ring_dq, ring_dkv) dq {rel_det[0]:.3e} dk {rel_det[1]:.3e} dv "
+          f"{rel_det[2]:.3e} (tol {TOL_GRAD})", flush=True)
+    if not (err_o <= TOL_O and err_lse <= TOL_LSE and max(rel + rel_det) <= TOL_GRAD):
         raise AssertionError(f"ring case {name}: kernels disagree with the plain version")
     _ring_case_tiles(torch, name, q, k, v, do, pos, sid, kw)
-    del q, k, v, do, out, lse, grads, qf, kf, vf, dof, out_ref, lse_ref, grads_ref
+    del q, k, v, do, out, lse, grads, grads_det, qf, kf, vf, dof, out_ref, lse_ref, grads_ref
     torch.cuda.empty_cache()
-    return err_o, err_grad
+    return err_o, err_grad, err_det[0], max(err_det[1:])
 
 
 def _packed_ring_segments(torch, b, s, seed=0):
@@ -694,11 +762,12 @@ def _ring_phase(torch, errs):
     positions restarting per document; (c) the round-robin layout of
     test_interleaved_positions_load_balance; (d) a sliding window; (e) D 64, KH 2,
     non-causal; (f) a ragged local length (S_local 1000, cp 3)."""
-    errs.update({"ring_fwd": 0.0, "ring_bwd": 0.0})
+    names = ("ring_fwd", "ring_bwd", "ring_dq", "ring_dkv")
+    errs.update(dict.fromkeys(names, 0.0))
 
     def note(e):
-        errs["ring_fwd"] = max(errs["ring_fwd"], e[0])
-        errs["ring_bwd"] = max(errs["ring_bwd"], e[1])
+        for name, x in zip(names, e):
+            errs[name] = max(errs[name], x)
 
     note(_ring_case(torch, "a", 8, 1, 4096, 32, 8))
     seg, pos = _packed_ring_segments(torch, 2, 4 * 2048)
@@ -748,9 +817,14 @@ def _ring_work(x, h, kh, d):
     carry = 2 * 4 * (h * s_loc * d + 2 * h * s_loc)
     grads = 2 * 4 * s_loc * d * (h + 2 * kh)
     rows = 4 * 2 * h * s_loc  # lse, delta
+    dq = 2 * 4 * s_loc * d * h
     return {"ring_fwd": (4 * d * x["pairs"], x["live"] * (qkv + ids + carry)),
             "ring_bwd": (10 * d * x["pairs"],
-                         x["live"] * (qkv + ids + 2 * h * s_loc * d + rows + grads))}
+                         x["live"] * (qkv + ids + 2 * h * s_loc * d + rows + grads)),
+            # the deterministic route: dq alone (3 products a pair), dk / dv alone (4)
+            "ring_dq": (6 * d * x["pairs"], x["live"] * (qkv + ids + 2 * h * s_loc * d + rows + dq)),
+            "ring_dkv": (8 * d * x["pairs"], x["live"] * (
+                qkv + ids + 2 * h * s_loc * d + rows + grads - dq))}
 
 
 def _ring_launches(torch, steps):
@@ -783,6 +857,12 @@ def _ring_launches(torch, steps):
                        (lambda k=k, v=v, pkv=pkv, **more: rc.ring_bwd(
                            q, k, v, pos, pkv, None, None, do, lse, delta, dq, dk, dv, **kw,
                            **more)))
+        if hasattr(rc, "ring_dkv"):  # the deterministic route's two launches
+            calls[step] += ((lambda k=k, v=v, pkv=pkv: rc.ring_dq(
+                                q, k, v, pos, pkv, None, None, do, lse, delta, dq, **kw)),
+                            (lambda k=k, v=v, pkv=pkv, **more: rc.ring_dkv(
+                                q, k, v, pos, pkv, None, None, do, lse, delta, dk, dv, **kw,
+                                **more)))
     return calls, dict(kw=kw, out=out, lse=lse, delta=delta, acc=acc, m=m, l=l)
 
 
@@ -794,17 +874,35 @@ def _ring_timings(torch):
     one more launch of each kernel counts the tiles it skipped, left partial and ran full
     (``tile_counts``), and those counts must equal what tile_classes expects. Then, as a
     comparison, the whole ring (cp launches and the rotations) against the port's
-    flash_fwd / flash_bwd and SDPA on the unsharded sequence."""
+    flash_fwd, flash_dq, flash_dkv, the whole flash backward and SDPA on the unsharded
+    sequence."""
     from automodel_tpu_torch.ops import flash_attention as fa, ring_chunk as rc
     from automodel_tpu_torch.parallel import ring_attention as ra
 
     a = RING_A
     cp, b, s_loc, h, kh, d = (a[n] for n in ("cp", "b", "s_loc", "h", "kh", "d"))
     calls, st = _ring_launches(torch, (0, 1, cp - 1))
-    out = {"ring_fwd": {}, "ring_bwd": {}}
-    for step, (x, fwd, bwd) in calls.items():
+    out = {"ring_fwd": {}, "ring_bwd": {}, "ring_dq": {}, "ring_dkv": {}}
+    for step, (x, fwd, bwd, dq_fn, dkv_fn) in calls.items():
         work = _ring_work(x, h, kh, d)
-        for name, fn, block_q, heads in (("ring_fwd", fwd, 128, h), ("ring_bwd", bwd, 64, kh)):
+        if step < cp - 1:  # ring_dq at the diagonal step and step 1
+            ms = _time_ms(torch, dq_fn, warmup=2, reps=10)
+            flops, nbytes = work["ring_dq"]
+            t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+            row = {"ms": ms, "bound_ms": max(t_ops, t_bytes),
+                   "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+            print(f"time ring_dq at ring step {step} of cp={cp} folded B={b} S_local={s_loc} "
+                  f"H={h} KH={kh} D={d} causal: {ms:.3f} ms a launch, bound "
+                  f"{row['bound_ms']:.3f} ms ({row['bound_by']}: {flops / 1e12:.3f} TFLOP; "
+                  f"{nbytes / 1e6:.1f} MB)", flush=True)
+            if step == 0:
+                out["ring_dq"].update(row)
+            else:
+                out["ring_dq"].setdefault("steps", {})[str(step)] = row
+        timed = [("ring_fwd", fwd, 128, h), ("ring_bwd", bwd, 64, kh)]
+        if step < cp - 1:  # ring_dkv at the diagonal step and step 1
+            timed.append(("ring_dkv", dkv_fn, 64, kh))
+        for name, fn, block_q, heads in timed:
             cls = rc.tile_classes(x["pos_q"], x["pos_kv"], None, None, True, None, block_q, 128)
             tiles = _counted_tiles(torch, f"{name} at ring step {step}", fn, cls, heads)
             ms = _time_ms(torch, fn, warmup=2, reps=10)
@@ -821,7 +919,7 @@ def _ring_timings(torch):
                 out[name].update(row)
             else:
                 out[name].setdefault("steps", {})[str(step)] = row
-    for name in out:
+    for name in ("ring_fwd", "ring_bwd"):
         steps = out[name]["steps"]
         out[name]["skip_ratio"] = steps[str(cp - 1)]["ms"] / steps["1"]["ms"]
         print(f"{name}: a launch at ring step {cp - 1} takes {out[name]['skip_ratio']:.3f}x "
@@ -834,6 +932,10 @@ def _ring_timings(torch):
     out["ring_fwd"]["plain_ms"] = _time_ms(torch, lambda: rc.chunk_attention_fwd_reference(
         q, k, v, pos, pos, None, None, st["acc"], st["m"], st["l"], **kw), warmup=1, reps=3)
     out["ring_bwd"]["plain_ms"] = _time_ms(torch, lambda: rc.chunk_attention_bwd_reference(
+        q, k, v, pos, pos, None, None, do, st["lse"], st["delta"], **kw), warmup=1, reps=3)
+    out["ring_dq"]["plain_ms"] = _time_ms(torch, lambda: rc.chunk_attention_dq_reference(
+        q, k, v, pos, pos, None, None, do, st["lse"], st["delta"], **kw), warmup=1, reps=3)
+    out["ring_dkv"]["plain_ms"] = _time_ms(torch, lambda: rc.chunk_attention_dkv_reference(
         q, k, v, pos, pos, None, None, do, st["lse"], st["delta"], **kw), warmup=1, reps=3)
     rot = ra.FoldedRotation(cp)
     ring_fwd_all = _time_ms(torch, lambda: ra.ring_flash_forward(q, k, v, pos, pos, None, None,
@@ -855,9 +957,14 @@ def _ring_timings(torch):
     o, lse_g = fa.flash_fwd(qg, kg, vg, None, None, scale, True)
     flash_fwd_ms = _time_ms(torch, lambda: fa.flash_fwd(qg, kg, vg, None, None, scale, True),
                             warmup=1, reps=3)
-    flash_bwd_ms = _time_ms(torch, lambda: fa.flash_bwd(qg, kg, vg, None, None, o, lse_g, dog,
-                                                        scale, True), warmup=1, reps=3)
-    del o, lse_g
+    flash_backward_ms = _time_ms(torch, lambda: fa.flash_backward(qg, kg, vg, None, None, o, lse_g,
+                                                             dog, scale, True), warmup=1, reps=3)
+    delta_g = fa._delta(o, dog)
+    flash_dq_ms = _time_ms(torch, lambda: fa.flash_dq(qg, kg, vg, None, None, dog, lse_g, delta_g,
+                                                      scale, True), warmup=1, reps=3)
+    flash_dkv_ms = _time_ms(torch, lambda: fa.flash_dkv(qg, kg, vg, None, None, dog, lse_g,
+                                                        delta_g, scale, True), warmup=1, reps=3)
+    del o, lse_g, delta_g
     sdpa_fwd_ms = _time_ms(torch, lambda: _library_sdpa(torch, qg, kg, vg, True), warmup=1,
                            reps=3)
     ql, kl, vl = (x.clone().requires_grad_() for x in (qg, kg, vg))
@@ -871,15 +978,21 @@ def _ring_timings(torch):
     del o_lib, ql, kl, vl, qg, kg, vg, dog
     torch.cuda.empty_cache()
     comparison = {"S": s, "ring_fwd_whole_ms": ring_fwd_all, "ring_bwd_whole_ms": ring_bwd_all,
-                  "flash_fwd_ms": flash_fwd_ms, "flash_bwd_ms": flash_bwd_ms,
+                  "flash_fwd_ms": flash_fwd_ms, "flash_backward_ms": flash_backward_ms,
+                  "flash_dq_ms": flash_dq_ms, "flash_dkv_ms": flash_dkv_ms,
                   "flash_fwd_bound_ms": flash_bound["flash_fwd"],
-                  "flash_bwd_bound_ms": flash_bound["flash_bwd"],
+                  "flash_backward_bound_ms": flash_bound["flash_backward"],
+                  "flash_dq_bound_ms": flash_bound["flash_dq"],
+                  "flash_dkv_bound_ms": flash_bound["flash_dkv"],
                   "sdpa_fwd_ms": sdpa_fwd_ms, "sdpa_bwd_ms": sdpa_bwd_ms}
     print(f"comparison at S={s} (B={b} H={h} KH={kh} D={d} causal): the whole folded ring "
           f"(cp={cp} launches and rotations) forward {ring_fwd_all:.3f} ms, backward "
           f"{ring_bwd_all:.3f} ms; flash_fwd {flash_fwd_ms:.3f} ms (bound "
-          f"{flash_bound['flash_fwd']:.3f} ms), flash_bwd {flash_bwd_ms:.3f} ms (bound "
-          f"{flash_bound['flash_bwd']:.3f} ms) on the unsharded sequence; SDPA forward "
+          f"{flash_bound['flash_fwd']:.3f} ms), flash_dq {flash_dq_ms:.3f} ms (bound "
+          f"{flash_bound['flash_dq']:.3f} ms), flash_dkv {flash_dkv_ms:.3f} ms (bound "
+          f"{flash_bound['flash_dkv']:.3f} ms), the flash backward (delta, flash_dq, "
+          f"flash_dkv) {flash_backward_ms:.3f} ms (bound {flash_bound['flash_backward']:.3f} ms) "
+          f"on the unsharded sequence; SDPA forward "
           f"{sdpa_fwd_ms:.3f} ms, backward {sdpa_bwd_ms:.3f} ms", flush=True)
     out["ring_fwd"]["comparison_unsharded"] = comparison
     return out
@@ -1229,6 +1342,94 @@ def _gmm_phase(torch, errs):
     return _gmm_timings(torch, sizes)
 
 
+def _twice(torch, label, fn, names):
+    """Run ``fn`` (a launch on fixed inputs that returns fresh output tensors) twice and
+    report which outputs differ bitwise: {output name: max |diff| or 0.0}."""
+    first = [x.clone() for x in fn()]
+    second = fn()
+    torch.cuda.synchronize()
+    out = {n: (a.float() - b.float()).abs().max().item() for n, a, b in zip(names, first, second)}
+    differ = [n for n, a, b in zip(names, first, second) if not torch.equal(a, b)]
+    print(f"twice {label}: " + ", ".join(
+        f"{n} differs (max |diff| {out[n]:.3e})" if n in differ else f"{n} bitwise equal"
+        for n in names), flush=True)
+    return {n: (out[n] if n in differ else 0.0) for n in names}
+
+
+# the kernels of the deterministic route: two launches on the same inputs must agree bitwise
+DETERMINISTIC_KERNELS = ("flash_dq", "flash_dkv", "ring_dq", "ring_dkv")
+
+
+def _twice_phase(torch):
+    """Each backward kernel launched twice on the same inputs, and the outputs that differ
+    bitwise: flash_dq and flash_dkv at flash cases (a) and (f), ring_bwd and the
+    deterministic route (ring_dq, ring_dkv) at ring case (a)'s diagonal step, lce_bwd at
+    lce case (a), gmm dX and tgmm at gmm case (a). Fails if a kernel of
+    DETERMINISTIC_KERNELS differs; the others are reported."""
+    from automodel_tpu_torch.ops import flash_attention as fa, grouped_gemm as gg
+    from automodel_tpu_torch.ops import linear_ce as lce, ring_chunk as rc
+
+    found = {}
+    for case, shape in (("a", (4, 2048, 32, 8, 64)), ("f", (4, 2048, 32, 4, 128))):
+        q, k, v, do = _inputs(torch, *shape, seed=3)
+        scale = q.shape[-1]**-0.5
+        o, lse = fa.flash_fwd(q, k, v, None, None, scale, True)
+        delta = fa._delta(o, do)
+        found[f"flash_dq ({case})"] = _twice(
+            torch, f"flash_dq at flash case ({case})",
+            lambda: (fa.flash_dq(q, k, v, None, None, do, lse, delta, scale, True),), ("dq",))
+        found[f"flash_dkv ({case})"] = _twice(
+            torch, f"flash_dkv at flash case ({case})",
+            lambda: fa.flash_dkv(q, k, v, None, None, do, lse, delta, scale, True), ("dk", "dv"))
+        del q, k, v, do, o, lse, delta
+
+    calls, st = _ring_launches(torch, (0,))
+    x = calls[0][0]
+    q, k, v, do, pos, kw = x["q"], x["k"], x["v"], x["do"], x["pos_q"], st["kw"]
+    f32 = dict(dtype=torch.float32, device="cuda")
+
+    def grads():
+        return (torch.zeros(q.shape, **f32), torch.zeros(k.shape, **f32),
+                torch.zeros(v.shape, **f32))
+
+    found["ring_bwd (a)"] = _twice(torch, "ring_bwd at ring case (a)'s diagonal step", lambda: rc.ring_bwd(
+        q, k, v, pos, pos, None, None, do, st["lse"], st["delta"], *grads(), **kw),
+        ("dq", "dk", "dv"))
+    found["ring_dq (a)"] = _twice(torch, "ring_dq at ring case (a)'s diagonal step", lambda: (rc.ring_dq(
+        q, k, v, pos, pos, None, None, do, st["lse"], st["delta"], grads()[0], **kw),), ("dq",))
+    found["ring_dkv (a)"] = _twice(
+        torch, "ring_dkv at ring case (a)'s diagonal step",
+        lambda: rc.ring_dkv(q, k, v, pos, pos, None, None, do, st["lse"], st["delta"],
+                            *grads()[1:], **kw), ("dk", "dv"))
+    del calls, st, x, q, k, v, do, pos
+
+    h, w, _ = _lce_inputs(torch, 8192, 2048, 128256, seed=7)
+    z, _ = lce.lce_fwd(h, w)
+    dz = torch.ones(h.shape[0], device="cuda")
+    found["lce_bwd (a)"] = _twice(torch, "lce_bwd at lce case (a)",
+                                  lambda: lce.lce_bwd(h, w, z, dz, None), ("dh", "dw"))
+    del h, w, z, dz
+
+    sizes = _router_group_sizes(torch, 8192, 2048, 128, 8)
+    ends = gg._ends(sizes)
+    x, w, dout = _gmm_inputs(torch, sizes, 2048, 1536, seed=11)
+    found["gmm dX (a)"] = _twice(torch, "gmm dX at gmm case (a)", lambda: (
+        gg.gmm(dout, w, ends, transpose_w=True),), ("dx",))
+    found["tgmm (a)"] = _twice(torch, "tgmm at gmm case (a)",
+                               lambda: (gg.tgmm(x, dout, ends, sizes.numel()),), ("dw",))
+    del x, w, dout
+    torch.cuda.empty_cache()
+
+    differ = {k: [n for n, d in v.items() if d] for k, v in found.items()}
+    differ = {k: v for k, v in differ.items() if v}
+    print(f"twice-launch phase: outputs that differ bitwise between two launches: {differ}",
+          flush=True)
+    bad = [k for k in differ if k.rsplit(" (", 1)[0] in DETERMINISTIC_KERNELS]
+    if bad:
+        raise AssertionError(f"deterministic-route kernels differ between launches: {bad}")
+    return {"differ": differ, "max_abs_diff": found}
+
+
 def _model_check(torch):
     """flash vs xla on the same weights: Llama-3.2-1B width, 2 layers, bf16."""
     from automodel_tpu_torch.config.loader import load_config
@@ -1319,24 +1520,33 @@ def _release():
     torch.cuda.empty_cache()
 
 
-def _expected(layers, micro, steps, linear_ce, moe=False, ring_cp=1, val_batches=0):
+def _expected(layers, micro, steps, linear_ce, moe=False, ring_cp=1, val_batches=0,
+              deterministic=False):
     """Launches of each kernel in a run, n = layers x microbatches x steps.
 
-    flash_fwd 2n (the forward, and once more when each layer's checkpoint replays it),
-    flash_bwd n; lce_fwd and lce_bwd once a microbatch with linear_ce; an MoE layer's
-    two expert GEMMs (gate_up, down) each launch gmm three times (the forward, the
-    replay, dX) and tgmm once (dW): gmm 6n, tgmm 2n. With ring attention over cp > 1
-    (``ring_cp``) the ring kernels take flash's place, once per ring step: ring_fwd
-    2n x cp, ring_bwd n x cp. Validation runs forward only, with no layer checkpoint:
-    ``val_batches`` (over all passes) add flash_fwd once a layer and lce_fwd once each."""
+    flash_fwd 2n (the forward, and once more when each layer's checkpoint replays it: no
+    remat policy saves the kernel's lse, as in JAX), flash_dq and flash_dkv n each;
+    lce_fwd and lce_bwd
+    once a microbatch with linear_ce; an MoE layer's two expert GEMMs (gate_up, down)
+    each launch gmm three times (the forward, the replay, dX) and tgmm once (dW): gmm 6n,
+    tgmm 2n. With ring attention over cp > 1 (``ring_cp``) the ring kernels take flash's
+    place, once per ring step: ring_fwd 2n x cp, ring_bwd n x cp. Validation runs forward
+    only, with no layer checkpoint: ``val_batches`` (over all passes) add flash_fwd once a
+    layer and lce_fwd once each. ``deterministic`` (the flag set): ring_dq and ring_dkv
+    n x cp each in ring_bwd's place."""
     n = layers * micro * steps
     lce_n = micro * steps if linear_ce else 0
     ring = ring_cp > 1
+    flash_n = 0 if ring else n
+    ring_bwd = n * ring_cp if ring else 0
     return {"flash_fwd": 0 if ring else 2 * n + layers * val_batches,
-            "flash_bwd": 0 if ring else n,
+            "flash_dq": flash_n, "flash_dkv": flash_n,
             "lce_fwd": lce_n + (val_batches if linear_ce else 0), "lce_bwd": lce_n,
             "gmm": 6 * n if moe else 0, "tgmm": 2 * n if moe else 0,
-            "ring_fwd": 2 * n * ring_cp if ring else 0, "ring_bwd": n * ring_cp if ring else 0}
+            "ring_fwd": 2 * n * ring_cp if ring else 0,
+            "ring_bwd": 0 if deterministic else ring_bwd,
+            "ring_dkv": ring_bwd if deterministic else 0,
+            "ring_dq": ring_bwd if deterministic else 0}
 
 
 def _ring_cp(cfg) -> int:
@@ -1397,10 +1607,12 @@ def _bench_path(name, yaml, linear_ce, overrides=()):
     return _check_routes(name, launches), result["losses"]
 
 
-def _train_ft_path(name, yaml, overrides):
+def _train_ft_path(name, yaml, overrides, deterministic=False):
     """train_ft through its entry point with the default loss (the vocab rule picks
     linear_ce), packed rows, TRAIN_FT_STEPS steps; an MoE model must log moe_load/*
-    rows. The peak device memory is the run's, model and optimizer included."""
+    rows. The peak device memory is the run's, model and optimizer included. Returns the
+    launches (with routes) and the logged losses; ``deterministic``: the process runs
+    with the deterministic-algorithms flag set, and the launches expected are its route's."""
     import torch
 
     from automodel_tpu_torch.config.cli_overrides import parse_args_and_load_config
@@ -1423,7 +1635,8 @@ def _train_ft_path(name, yaml, overrides):
     layers = int(cfg.model.config.num_hidden_layers)
     micro = int(cfg.get("step_scheduler.grad_acc_steps", 1))
     moe = bool(cfg.model.config.get("num_experts"))
-    want = _expected(layers, micro, TRAIN_FT_STEPS, True, moe, ring_cp=_ring_cp(cfg))
+    want = _expected(layers, micro, TRAIN_FT_STEPS, True, moe, ring_cp=_ring_cp(cfg),
+                     deterministic=deterministic)
     losses = [r["loss"] for r in rows]
     moe_rows = [sorted(k for k in r if k.startswith("moe_load/")) for r in rows]
     print(f"{name}: train_ft on {_shown(yaml)} ({layers} layers), default loss "
@@ -1439,10 +1652,10 @@ def _train_ft_path(name, yaml, overrides):
         raise AssertionError(f"{name}: training.jsonl rows without moe_load/* metrics")
     if launches != want:
         raise AssertionError(f"{name}: kernel launches {launches} != expected {want}")
-    return _check_routes(name, launches)
+    return _check_routes(name, launches), losses
 
 
-def _recorded_train_ft(cfg):
+def _recorded_train_ft(cfg, on_setup=None):
     """Run train_ft through its recipe class, recording each step's loss unrounded (the
     training.jsonl rows round to 6 digits). Returns (recipe, {step: loss}, rows of
     training.jsonl, rows of validation.jsonl)."""
@@ -1450,6 +1663,8 @@ def _recorded_train_ft(cfg):
 
     recipe = train_ft.TrainFinetuneRecipeForNextTokenPrediction(cfg)
     recipe.setup()
+    if on_setup is not None:
+        on_setup(recipe)
     first = recipe.step_scheduler.step + 1
     losses = []
     step_fn = recipe._train_step
@@ -1474,7 +1689,8 @@ def _baseline_path(name):
     HellaSwag rows through the tokenizer, the prefetch pipeline, validation and a
     checkpoint (with the consolidated HF export) every 2 steps. Run A runs 4 steps fresh;
     then its step_4 is removed and run B resumes in the same checkpoint directory from
-    step 2. Returns the launches of both runs."""
+    step 2. Run B's step-3 and step-4 losses must equal run A's bitwise, with or without
+    the deterministic-algorithms flag. Returns the launches of both runs."""
     import shutil
 
     import torch
@@ -1497,11 +1713,15 @@ def _baseline_path(name):
                                               os.path.join(tmp, f"run_{run}")])
             _reset_counts()
             torch.cuda.reset_peak_memory_stats()
-            recipe, losses, rows, val_rows = _recorded_train_ft(cfg)
+            setup = {}
+            recipe, losses, rows, val_rows = _recorded_train_ft(
+                cfg, on_setup=lambda r: setup.update(gib=torch.cuda.memory_allocated() / 2**30))
             launches = _read_counts()
             runs[run] = dict(recipe=recipe, losses=losses, rows=rows, val=val_rows,
                              launches=launches, routed=_check_routes(f"{name} run {run}", launches),
-                             peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+                             peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                             setup_gib=setup["gib"],
+                             end_gib=torch.cuda.memory_allocated() / 2**30)
             if run == "A":  # its consolidated HF export against its final parameters
                 step_hf = os.path.join(ckpt, f"step_{BASELINE_STEPS}", "hf")
                 reloaded = AutoModelForCausalLM.from_pretrained(step_hf, dtype=torch.float32,
@@ -1526,24 +1746,24 @@ def _baseline_path(name):
               f"{[(x['step'], x['val_loss']) for x in r['val']]}, saves "
               f"{[(x['step'], x['seconds'], x['bytes']) for x in saves]} (step, s, bytes), "
               f"restores {[(x['step'], x['seconds']) for x in restores]} (step, s), peak memory "
-              f"{r['peak_gib']:.2f} GiB, launches {r['launches']}", flush=True)
+              f"{r['peak_gib']:.2f} GiB (allocated after setup {r['setup_gib']:.2f} GiB, after "
+              f"the run {r['end_gib']:.2f} GiB), launches {r['launches']}", flush=True)
     print(f"{name}: step_{BASELINE_STEPS}/hf {a['hf_bytes']} bytes, reloaded through "
           f"from_pretrained: {'bitwise equal' if not a['hf_differ'] else a['hf_differ']}; run B "
           f"from step {min(b['losses'])}: step-3 loss |diff| "
           f"{abs(b['losses'].get(3, math.nan) - a['losses'][3]):.3e} (bitwise "
           f"{b['losses'].get(3) == a['losses'][3]}), step-4 |diff| "
-          f"{abs(b['losses'].get(4, math.nan) - a['losses'][4]):.3e} (tol {TOL_RESUME_LOSS})",
-          flush=True)
+          f"{abs(b['losses'].get(4, math.nan) - a['losses'][4]):.3e} (bitwise "
+          f"{b['losses'].get(4) == a['losses'][4]}; must be bitwise)", flush=True)
     if sorted(a["losses"]) != list(range(1, BASELINE_STEPS + 1)) or sorted(b["losses"]) != [3, 4]:
         raise AssertionError(f"{name}: run A stepped {sorted(a['losses'])}, run B "
                              f"{sorted(b['losses'])} (B must resume from step 2)")
     if not all(math.isfinite(x) for r in runs.values() for x in r["losses"].values()):
         raise AssertionError(f"{name}: non-finite loss")
-    if b["losses"][3] != a["losses"][3]:
-        raise AssertionError(f"{name}: the resumed step-3 loss differs from the uninterrupted")
-    if abs(b["losses"][4] - a["losses"][4]) > TOL_RESUME_LOSS:
-        raise AssertionError(f"{name}: the resumed step-4 loss is off by more than "
-                             f"{TOL_RESUME_LOSS}")
+    for step in (3, 4):
+        if b["losses"][step] != a["losses"][step]:
+            raise AssertionError(f"{name}: the resumed step-{step} loss differs from the "
+                                 "uninterrupted")
     val_steps = [x["step"] for x in a["val"] if x.get("val_loss") is not None
                  and math.isfinite(x["val_loss"])]
     if val_steps != [2, 4]:
@@ -1558,6 +1778,54 @@ def _baseline_path(name):
         raise AssertionError(f"{name}: kernel launches A {a['launches']} B {b['launches']} != "
                              f"expected A {want_a} B {want_b}")
     return {k: a["routed"][k] + b["routed"][k] for k in a["routed"]}
+
+
+def _cp_train_ft_args(layers=CP_LAYERS_TRAIN_FT) -> list[str]:
+    """Main path 8's overrides of the CP config: packed rows of 32768 from 4096-token
+    documents."""
+    return [*llama3_8b_args(layers), "--packed_sequence.packed_sequence_size", "32768",
+            "--dataset.seq_len", "4096"]
+
+
+def _deterministic_child() -> int:
+    """The deterministic main paths, in a process that set CUBLAS_WORKSPACE_CONFIG before
+    CUDA started and sets torch.use_deterministic_algorithms(True) first: main path 9
+    (run B's step-3 and step-4 losses must equal run A's bitwise) and main path 10 (main
+    path 8's config, the ring backward through ring_dq + ring_dkv, run twice: every loss
+    of the second run must equal the first's bitwise). Prints the launches of each path
+    as the last line."""
+    import torch
+
+    torch.use_deterministic_algorithms(True)
+    by_path = {"main path 9 (deterministic)": _baseline_path("main path 9 (deterministic)")}
+    with tempfile.TemporaryDirectory() as cfg_dir:
+        cp_yaml = cp_config(cfg_dir)
+        runs = [_train_ft_path(f"main path 10 run {run}", cp_yaml, _cp_train_ft_args(),
+                               deterministic=True) for run in ("A", "B")]
+    (launches_a, losses_a), (launches_b, losses_b) = runs
+    print(f"main path 10: train_ft on main path 8's config with the flag set, twice: losses "
+          f"{losses_a} and {losses_b}, bitwise equal {losses_a == losses_b}", flush=True)
+    if losses_a != losses_b:
+        raise AssertionError("main path 10: two runs under the flag gave different losses")
+    by_path["main path 10"] = {k: launches_a[k] + launches_b[k] for k in launches_a}
+    print(json.dumps(by_path))
+    return 0
+
+
+def _deterministic_paths() -> dict:
+    """Run :func:`_deterministic_child` in a child process with
+    CUBLAS_WORKSPACE_CONFIG=:4096:8 (cuBLAS raises under the flag without it, and it is
+    read when CUDA starts); its output is shown, and its launches by path returned."""
+    _release()
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    proc = subprocess.run([sys.executable, "-c",
+                           "import sys, chip_smoke; sys.exit(chip_smoke._deterministic_child())"],
+                          cwd=HERE, env=env, stdout=subprocess.PIPE, text=True, timeout=600)
+    lines = proc.stdout.rstrip().splitlines()
+    print("\n".join(lines[:-1] if proc.returncode == 0 else lines), flush=True)
+    if proc.returncode != 0:
+        raise AssertionError(f"the deterministic main paths failed (exit {proc.returncode})")
+    return json.loads(lines[-1])
 
 
 def _moe_model_check(torch):
@@ -1824,7 +2092,7 @@ def _kernel_times(torch):
         del h, w, z, dz
         torch.cuda.empty_cache()
     calls, state = _ring_launches(torch, (0, 1))
-    for step, (_, fwd, bwd) in calls.items():
+    for step, (_, fwd, bwd, *_) in calls.items():
         label = "diagonal step" if step == 0 else f"step {step}"
         out[f"ring_fwd (a) {label}"] = _time_ms(torch, fwd, warmup=2, reps=10)
         out[f"ring_bwd (a) {label}"] = _time_ms(torch, bwd, warmup=2, reps=10)
@@ -1907,6 +2175,7 @@ def main(argv: list[str]) -> int:
         return 0
 
     errs = {}
+    twice = _twice_phase(torch)
     _flash_phase(torch, fa, errs)
     timings = _timings(torch, fa)
     for name, row in _timings(torch, fa, 4, 2048, 32, 4, 128).items():
@@ -1933,7 +2202,7 @@ def main(argv: list[str]) -> int:
     by_path, losses = {}, {}
     by_path["main path 1"], losses[1] = _bench_path("main path 1", BENCH_YAML, linear_ce=False)
     by_path["main path 2"], _ = _bench_path("main path 2", SEQ4096_YAML, linear_ce=True)
-    by_path["main path 3"] = _train_ft_path(
+    by_path["main path 3"], _ = _train_ft_path(
         "main path 3", SEQ4096_YAML, ["--packed_sequence.packed_sequence_size", "4096",
                                       "--dataset.seq_len", "1000",
                                       "--backend.attention_segments", "true"])
@@ -1946,7 +2215,7 @@ def main(argv: list[str]) -> int:
         raise AssertionError("main path 4: tied linear_ce disagrees with masked_ce")
     by_path["main path 5"], _ = _bench_path("main path 5", MOE_YAML, linear_ce=True,
                                             overrides=qwen3_args())
-    by_path["main path 6"] = _train_ft_path(
+    by_path["main path 6"], _ = _train_ft_path(
         "main path 6", MOE_YAML, [*qwen3_args(MOE_LAYERS_TRAIN_FT),
                                   "--packed_sequence.packed_sequence_size", "2048",
                                   "--dataset.seq_len", "500"])
@@ -1954,28 +2223,31 @@ def main(argv: list[str]) -> int:
         cp_yaml = cp_config(cfg_dir)
         by_path["main path 7"], _ = _bench_path("main path 7", cp_yaml, linear_ce=True,
                                                 overrides=llama3_8b_args())
-        by_path["main path 8"] = _train_ft_path(
-            "main path 8", cp_yaml, [*llama3_8b_args(CP_LAYERS_TRAIN_FT),
-                                     "--packed_sequence.packed_sequence_size", "32768",
-                                     "--dataset.seq_len", "4096"])
+        by_path["main path 8"], _ = _train_ft_path("main path 8", cp_yaml, _cp_train_ft_args())
     by_path["main path 9"] = _baseline_path("main path 9")
+    by_path.update(_deterministic_paths())
 
     flash = "automodel_tpu/ops/pallas/flash_attention.py"
     lce_src = "automodel_tpu/ops/pallas/linear_ce.py"
     gmm_src = "automodel_tpu/ops/pallas/grouped_gemm.py"
     ring_src = "automodel_tpu/ops/pallas/ring_chunk.py"
     replaces = {"flash_fwd": (f"{flash}:84", []),
-                "flash_bwd": (f"{flash}:192", [f"{flash}:151", f"{flash}:258"]),
+                "flash_dq": (f"{flash}:151", [f"{flash}:192"]),
+                "flash_dkv": (f"{flash}:258", [f"{flash}:192"]),
                 "lce_fwd": (f"{lce_src}:105", []),
                 "lce_bwd": (f"{lce_src}:137", [f"{lce_src}:163"]),
                 "gmm": (f"{gmm_src}:126", []),
                 "tgmm": (f"{gmm_src}:151", []),
                 "ring_fwd": (f"{ring_src}:110", []),
-                "ring_bwd": (f"{ring_src}:204", [])}
-    sources = {"flash_fwd": "flash_attention.cu", "flash_bwd": "flash_attention.cu",
+                "ring_bwd": (f"{ring_src}:204", []),
+                "ring_dq": (f"{ring_src}:204", []),
+                "ring_dkv": (f"{ring_src}:204", [])}
+    sources = {"flash_fwd": "flash_attention.cu",
+               "flash_dq": "flash_attention.cu", "flash_dkv": "flash_attention.cu",
                "lce_fwd": "linear_ce.cu", "lce_bwd": "linear_ce.cu",
                "gmm": "grouped_gemm.cu", "tgmm": "grouped_gemm.cu",
-               "ring_fwd": "ring_chunk.cu", "ring_bwd": "ring_chunk.cu"}
+               "ring_fwd": "ring_chunk.cu", "ring_bwd": "ring_chunk.cu",
+               "ring_dq": "ring_chunk.cu", "ring_dkv": "ring_chunk.cu"}
     kernels = []
     for name in replaces:
         row = {"name": name, "route": "cuda",
@@ -1990,7 +2262,13 @@ def main(argv: list[str]) -> int:
             row["launches_by_route"] = {
                 r: sum(counts[f"{name}/{r}"] for counts in by_path.values())
                 for r in ("wgmma", "mma_sync")}
+        if name in ("ring_dq", "ring_dkv"):  # a part of _chunk_bwd_kernel
+            row["replaces_part"] = "dq" if name == "ring_dq" else "dk, dv"
         kernels.append(row)
+    idle = [row["name"] for row in kernels if row["launches"] == 0]
+    if idle:
+        raise AssertionError(f"kernels no main path launched: {idle}")
+    print(f"twice-launch phase: {json.dumps(twice['differ'])}", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(f"card: {_card_line()}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,12 +1,15 @@
 """What of chip_smoke.py runs without a card: the loss it holds the main paths to, its
-table of expected kernel launches (validation's included), the derived long-context CP
-config (main paths 7 and 8) through the recipes on the CPU at small widths, and main
-path 9's helpers: the stub tokenizer, the HellaSwag rows, the derived BASELINE config,
-and the path itself at small widths."""
+table of expected kernel launches (validation's and the deterministic route's included),
+the work behind the new kernels' bounds, the order of its phases, the derived
+long-context CP config (main paths 7, 8 and 10) through the recipes on the CPU at small
+widths, and main path 9's helpers: the stub tokenizer, the HellaSwag rows, the derived
+BASELINE config, and the path itself at small widths."""
 
+import inspect
 import json
 import math
 import os
+import re
 
 import numpy as np
 import pytest
@@ -47,7 +50,7 @@ def test_random_init_loss_matches_the_model(hidden):
 
 def test_expected_launches_of_the_ring_paths():
     want = chip_smoke._expected(4, 1, 7, True, ring_cp=8)
-    assert (want["ring_fwd"], want["ring_bwd"], want["flash_fwd"], want["flash_bwd"]) == (
+    assert (want["ring_fwd"], want["ring_bwd"], want["flash_fwd"], want["flash_dq"]) == (
         448, 224, 0, 0)
     assert chip_smoke._expected(4, 1, 7, True)["ring_fwd"] == 0
 
@@ -94,11 +97,12 @@ def test_flash_timing_inputs_have_the_named_head_dim(d, kh):
     full = [torch.empty(b, s, n, d, dtype=torch.bfloat16, device="meta") for n in (h, kh, kh)]
     work = chip_smoke._flash_work(*full)
     pairs = b * h * s * (s + 1) // 2
-    assert work["flash_fwd"][0] == 4 * d * pairs and work["flash_bwd"][0] == 10 * d * pairs
+    assert work["flash_fwd"][0] == 4 * d * pairs and work["flash_backward"][0] == 14 * d * pairs
+    assert work["flash_backward"][0] == work["flash_dq"][0] + work["flash_dkv"][0]
     assert work["flash_fwd"][0] == pytest.approx(137.5e9 * d / 128, rel=1e-3)
     qkv = 2 * b * s * d * (h + 2 * kh)
     assert work["flash_fwd"][1] == qkv + 2 * b * s * h * d + 4 * b * h * s
-    assert work["flash_bwd"][1] == 2 * qkv + 4 * b * s * h * d + 4 * b * h * s
+    assert work["flash_backward"][1] == 2 * qkv + 4 * b * s * h * d + 4 * b * h * s
 
 
 @pytest.mark.parametrize("step", [0, 1, 3])
@@ -195,18 +199,18 @@ def test_lce_bwd_work_at_path7_shape():
 
 def test_flash_bound_at_the_long_shape():
     """The bound chip_smoke prints for flash at (L) (B=1, S=32768, H=32, KH=8, D=128,
-    causal), from the same work count as the timed rows: 8.80 TFLOP forward, 22.0
-    backward."""
+    causal), from the same work count as the timed rows: 8.80 TFLOP forward, 30.8
+    backward (flash_dq and flash_dkv)."""
     b, s, h, kh, d = 1, 32768, 32, 8, 128
     q = torch.empty(b, s, h, d, dtype=torch.bfloat16, device="meta")
     k = v = torch.empty(b, s, kh, d, dtype=torch.bfloat16, device="meta")
     work = chip_smoke._flash_work(q, k, v)
     assert work["flash_fwd"][0] == pytest.approx(8.80e12, rel=1e-3)
-    assert work["flash_bwd"][0] == pytest.approx(22.0e12, rel=1e-3)
+    assert work["flash_backward"][0] == pytest.approx(30.8e12, rel=1e-3)
     bound = {name: max(fl / chip_smoke.PEAK_FLOPS, by / chip_smoke.PEAK_BYTES) * 1e3
              for name, (fl, by) in work.items()}
     assert bound["flash_fwd"] == pytest.approx(8.90, abs=0.01)
-    assert bound["flash_bwd"] == pytest.approx(22.24, abs=0.01)
+    assert bound["flash_backward"] == pytest.approx(31.13, abs=0.01)
 
 
 def test_main_paths_refuse_a_launch_off_the_wgmma_route():
@@ -282,7 +286,7 @@ def test_expected_launches_count_validation():
     assert want["flash_fwd"] - plain["flash_fwd"] == 16 and want["lce_fwd"] - plain["lce_fwd"] == 4
     assert {k: v for k, v in want.items() if k not in ("flash_fwd", "lce_fwd")} == {
         k: v for k, v in plain.items() if k not in ("flash_fwd", "lce_fwd")}
-    assert (want["flash_fwd"], want["flash_bwd"], want["lce_fwd"], want["lce_bwd"]) == (
+    assert (want["flash_fwd"], want["flash_dq"], want["lce_fwd"], want["lce_bwd"]) == (
         144, 64, 20, 16)
 
 
@@ -360,3 +364,74 @@ def test_baseline_path_resumes_on_cpu(tmp_path):
     assert [r["step"] for r in val_a] == [2, 4] and all(math.isfinite(r["val_loss"]) for r in val_a)
     assert [r["event"] for r in rows_b if "event" in r][0] == "checkpoint_restore"
     assert {r["step"] for r in rows_a if r.get("event") == "checkpoint_save"} == {2, 4}
+
+
+def test_expected_launches_of_the_deterministic_route():
+    """flash_dq and flash_dkv n each with or without the flag; under it ring_dq and
+    ring_dkv take ring_bwd's launches, once a ring step each; the forward counts do not
+    change."""
+    plain = chip_smoke._expected(4, 4, 4, True, val_batches=4)
+    det = chip_smoke._expected(4, 4, 4, True, val_batches=4, deterministic=True)
+    assert det == plain and (det["flash_dq"], det["flash_dkv"]) == (64, 64)
+    ring_plain = chip_smoke._expected(2, 1, 3, True, ring_cp=8)
+    ring = chip_smoke._expected(2, 1, 3, True, ring_cp=8, deterministic=True)
+    assert (ring_plain["ring_bwd"], ring_plain["ring_dkv"], ring_plain["ring_dq"]) == (48, 0, 0)
+    assert (ring["ring_fwd"], ring["ring_bwd"], ring["ring_dkv"], ring["ring_dq"],
+            ring["flash_dq"]) == (96, 0, 48, 48, 0)
+
+
+def test_flash_split_work_at_shape_a():
+    """The deterministic route's bounds at flash shape (a) (B=4, S=2048, H=32, KH=8,
+    D=64, causal): flash_dq does 3 products a pair (103.1 GFLOP, 0.104 ms at 989
+    TFLOP/s), flash_dkv 4 (137.5 GFLOP, 0.139 ms)."""
+    full = [torch.empty(4, 2048, n, 64, dtype=torch.bfloat16, device="meta") for n in (32, 8, 8)]
+    work = chip_smoke._flash_work(*full)
+    pairs = 4 * 32 * 2048 * 2049 // 2
+    assert work["flash_dq"][0] == 6 * 64 * pairs == pytest.approx(103.1e9, rel=1e-3)
+    assert work["flash_dkv"][0] == 8 * 64 * pairs == pytest.approx(137.5e9, rel=1e-3)
+    for name, ms in (("flash_dq", 0.104), ("flash_dkv", 0.139)):
+        flops, nbytes = work[name]
+        assert flops / chip_smoke.PEAK_FLOPS * 1e3 == pytest.approx(ms, abs=5e-4)
+        assert flops / chip_smoke.PEAK_FLOPS > nbytes / chip_smoke.PEAK_BYTES
+    qkv, rows = 2 * 4 * 2048 * 64 * (32 + 16), 4 * 4 * 32 * 2048
+    assert work["flash_dq"][1] == qkv + 2 * 2 * 4 * 2048 * 32 * 64 + 2 * rows
+    assert work["flash_dkv"][1] == 2 * qkv - 2 * 4 * 2048 * 32 * 64 + 2 * 4 * 2048 * 32 * 64 + 2 * rows
+
+
+@pytest.mark.parametrize("step", [0, 1])
+def test_ring_split_work_sums_to_a_fused_launch(step):
+    """ring_dq does 3 products an allowed pair and ring_dkv 4: 7 against the fused
+    launch's 5, the price of the fixed order."""
+    x = chip_smoke._ring_step_inputs(torch, step, 4, 1, 8, 4, 2, 16, device="cpu")
+    work = chip_smoke._ring_work(x, 4, 2, 16)
+    assert work["ring_dq"][0] + work["ring_dkv"][0] == 7 * 16 * x["pairs"] * 2
+    assert work["ring_bwd"][0] == 10 * 16 * x["pairs"]
+
+
+def test_phase_order():
+    """The twice-launch phase runs first, the kernel cases next, then the main paths in
+    order, the deterministic ones (main paths 9 and 10 under the flag, in a child
+    process) last, before the kernels line."""
+    src = inspect.getsource(chip_smoke.main)
+    order = ["_twice_phase(", "_flash_phase(", "_timings(", "_model_check(", "_lce_case(",
+             "_gmm_phase(", "_moe_model_check(", "_ring_phase(", "_ring_timings(",
+             "_ring_model_check(", '"main path 1"', '"main path 2"', '"main path 3"',
+             '"main path 4"', '"main path 5"', '"main path 6"', '"main path 7"',
+             '"main path 8"', '"main path 9"', "_deterministic_paths()", '{"kernels"']
+    at = [re.search(r"(?<!\w)" + re.escape(x), src).start() for x in order]
+    assert at == sorted(at)
+    child = inspect.getsource(chip_smoke._deterministic_child)
+    assert child.index("use_deterministic_algorithms(True)") < child.index("_baseline_path(")
+    assert "deterministic=True" in child and '"main path 10"' in child
+    assert 'CUBLAS_WORKSPACE_CONFIG=":4096:8"' in inspect.getsource(
+        chip_smoke._deterministic_paths)
+
+
+def test_deterministic_restores_the_flag():
+    before = torch.are_deterministic_algorithms_enabled()
+    with chip_smoke._deterministic(torch):
+        assert torch.are_deterministic_algorithms_enabled()
+        with chip_smoke._deterministic(torch, False):
+            assert not torch.are_deterministic_algorithms_enabled()
+        assert torch.are_deterministic_algorithms_enabled()
+    assert torch.are_deterministic_algorithms_enabled() == before

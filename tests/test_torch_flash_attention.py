@@ -4,7 +4,11 @@ On the CPU the port's wrapper runs the kernels' plain version; the JAX side runs
 the Pallas kernels in interpret mode with 32x32 blocks, as tests/unit/
 test_flash_attention.py does, with the fused backward and with the split one.
 Inputs come from numpy seeds. Tolerances, f32 throughout: 2e-5 on O and lse,
-1e-4 on the gradients. The CUDA kernels themselves are checked on the card.
+1e-4 on the gradients. The deterministic route's plain versions (flash_dq_reference,
+flash_dkv_reference) are held against the split backward's kernels (_dq_kernel,
+_dkv_kernel) at 1e-4 too, and the route the wrapper takes under
+torch.use_deterministic_algorithms is read from the entry points it launches. The CUDA
+kernels themselves are checked on the card.
 """
 
 import jax
@@ -14,6 +18,7 @@ import pytest
 import torch
 
 from automodel_tpu.ops.pallas import flash_attention as jfa
+from automodel_tpu_torch.kernels import build
 from automodel_tpu_torch.ops import flash_attention as tfa
 
 ATOL_FWD, ATOL_GRAD = 2e-5, 1e-4
@@ -140,3 +145,81 @@ def test_non_cpu_tensors_never_fall_back(kw, err):
     with pytest.raises(err):
         tfa.flash_attention(q, q, q, **kw)
     assert tfa.LAUNCHES == before
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_split_plain_versions_match_pallas_split_kernels(name, monkeypatch):
+    """flash_dq_reference and flash_dkv_reference, fed the plain forward's lse and
+    delta = rowsum(dO * O), against JAX's split backward (_dq_kernel for dq, _dkv_kernel
+    for dk / dv, interpret mode, fused backward off)."""
+    monkeypatch.setenv("AUTOMODEL_FLASH_FUSED_BWD", "0")
+    case = CASES[name]
+    q, k, v, do = _inputs(sorted(CASES).index(name), *case["shape"])
+    seg_q = seg_kv = None
+    if case.get("segments"):
+        seg_q, seg_kv = _segments(q.shape[0], q.shape[1], pad_row_fully_masked=True)
+    kw = dict(causal=case["causal"])
+    seg_kw = {} if seg_q is None else dict(segment_ids_q=seg_q, segment_ids_kv=seg_kv)
+    tseg = {k_: torch.tensor(v_) for k_, v_ in seg_kw.items()}
+    qt, kt, vt, dot = (torch.tensor(x) for x in (q, k, v, do))
+    o, lse = tfa.flash_attention_reference(qt, kt, vt, **kw, **tseg)
+    delta = tfa._delta(o, dot)
+    dq = tfa.flash_dq_reference(qt, kt, vt, dot, lse, delta, **kw, **tseg)
+    dk, dv = tfa.flash_dkv_reference(qt, kt, vt, dot, lse, delta, **kw, **tseg)
+    grads_j = _jax_grads(q, k, v, do, **kw, **{k_: jnp.asarray(v_) for k_, v_ in seg_kw.items()})
+    for got, want in zip((dq, dk, dv), grads_j):
+        np.testing.assert_allclose(got.numpy(), want, atol=ATOL_GRAD, rtol=0)
+
+
+@pytest.fixture
+def deterministic():
+    """Sets torch.use_deterministic_algorithms for a test and restores it afterwards."""
+    before = torch.are_deterministic_algorithms_enabled()
+    yield torch.use_deterministic_algorithms
+    torch.use_deterministic_algorithms(before)
+
+
+def _recorded_launches(monkeypatch, fail=None):
+    """Record the C entry points the wrappers launch (checked against the argument count
+    build.SOURCES binds, less the stream) instead of launching them; ``fail``: the entry
+    point whose launch raises, as a failed build or launch would."""
+    calls = []
+
+    def launch(source, name, device, *args):
+        assert len(args) + 1 == len(build.SOURCES[source][name]), name
+        calls.append(name)
+        if name == fail:
+            raise RuntimeError(f"{name} failed with cudaError_t 1")
+
+    monkeypatch.setattr(build, "launch", launch)
+    return calls
+
+
+@pytest.mark.parametrize("flag", [False, True], ids=["default", "deterministic"])
+def test_backward_launches_flash_dq_and_flash_dkv(flag, monkeypatch, deterministic):
+    """flash_dq + flash_dkv with or without the deterministic-algorithms flag, each
+    counted under its own name."""
+    route = ["flash_dq", "flash_dkv"]
+    calls = _recorded_launches(monkeypatch)
+    q, k, v, do = (torch.tensor(x).to(torch.bfloat16) for x in _inputs(0, 1, 64, 4, 2, 64))
+    lse = torch.zeros(4, 64)
+    before = dict(tfa.LAUNCHES)
+    deterministic(flag)
+    dq, dk, dv = tfa.flash_backward(q, k, v, None, None, q, lse, do, 0.125, True)
+    assert calls == route
+    assert (dq.shape, dk.shape, dv.shape) == (q.shape, k.shape, v.shape)
+    assert dq.dtype == torch.bfloat16
+    assert {n: tfa.LAUNCHES[n] - before[n] for n in before} == {
+        n: int(n in route) for n in before}
+
+
+@pytest.mark.parametrize("flag", [False, True], ids=["default", "deterministic"])
+@pytest.mark.parametrize("failing", ["flash_dq", "flash_dkv"])
+def test_backward_raises_when_a_kernel_fails(flag, failing, monkeypatch, deterministic):
+    """A backward kernel that fails raises; nothing else is launched in its place."""
+    calls = _recorded_launches(monkeypatch, fail=failing)
+    q, k, v, do = (torch.tensor(x).to(torch.bfloat16) for x in _inputs(0, 1, 64, 4, 2, 64))
+    deterministic(flag)
+    with pytest.raises(RuntimeError, match=failing):
+        tfa.flash_backward(q, k, v, None, None, q, torch.zeros(4, 64), do, 0.125, True)
+    assert calls == ["flash_dq", "flash_dkv"][:["flash_dq", "flash_dkv"].index(failing) + 1]

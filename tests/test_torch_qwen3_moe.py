@@ -6,8 +6,12 @@ parameter's gradient agree: values to 1e-4, gradients to 1e-4 (absolute, f32). A
 head_dim 128 the attention is flash (the port's plain version on the CPU, JAX's Pallas
 kernel in interpret mode) and the experts take the pallas backend (the port's plain
 version, JAX's kernel in interpret mode); at head_dim 16 both sides run xla attention
-and ragged_dot experts."""
+and ragged_dot experts. The remat ladder at head_dim 16: under each policy the loss and
+gradients equal "full" (rtol 1e-5, atol 1e-6) and JAX's under the same policy (1e-4),
+and the matmuls of forward and backward equal JAX's dot_generals (the grouped GEMM,
+a kernel on the card and ragged_dot in JAX, not counted)."""
 
+import contextlib
 import dataclasses
 
 import jax
@@ -19,10 +23,13 @@ import torch
 from automodel_tpu.models.common.backend import BackendConfig as JaxBackend
 from automodel_tpu.models.qwen3_moe.model import Qwen3MoeConfig as JaxQwen3MoeConfig
 from automodel_tpu.models.qwen3_moe.model import Qwen3MoeForCausalLM as JaxQwen3Moe
-from automodel_tpu_torch.models.common.backend import BackendConfig
+from automodel_tpu_torch.models.common.backend import REMAT_POLICIES, BackendConfig
 from automodel_tpu_torch.models.llama.convert import flatten, params_from_jax
 from automodel_tpu_torch.models.qwen3_moe.model import Qwen3MoeConfig, Qwen3MoeForCausalLM
 from automodel_tpu_torch.models.registry import resolve_model_class
+from automodel_tpu_torch.moe import experts as texperts
+from automodel_tpu_torch.ops.grouped_gemm import grouped_matmul_reference
+from tests.test_torch_llama import MatmulCounter, jax_matmul_counts
 
 HF = dict(architectures=["Qwen3MoeForCausalLM"], vocab_size=128, hidden_size=64,
           intermediate_size=96, moe_intermediate_size=32, num_hidden_layers=2,
@@ -144,3 +151,101 @@ def test_eval_forward_drops_the_aux_loss():
     with torch.no_grad():
         _, stats = tm(ids, training=False)
     assert stats["aux_loss"] is None and stats["expert_load"].shape == (2, 8)
+
+
+REMAT_HF = dict(HF, num_hidden_layers=1)
+
+
+def _jax_remat_loss(policy, ids, ct):
+    jm = JaxQwen3Moe.from_config(REMAT_HF, JaxBackend(dtype="float32", remat_policy=policy,
+                                                      attention="xla",
+                                                      experts_backend="ragged_dot"))
+
+    def loss(p):
+        logits, stats = jm(p, jnp.asarray(ids))
+        return jnp.sum(logits * ct) + stats["aux_loss"]
+
+    return loss
+
+
+class _OpaqueGroupedMatmul(torch.autograd.Function):
+    """The grouped GEMM as the card runs it, a Function the dispatcher cannot see into:
+    its plain version runs with the matmul count paused, forward and backward."""
+
+    counter = None
+
+    @staticmethod
+    def forward(ctx, x, w, group_sizes):
+        ctx.save_for_backward(x, w, group_sizes)
+        with _OpaqueGroupedMatmul._paused():
+            return grouped_matmul_reference(x, w, group_sizes)
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, w, group_sizes = ctx.saved_tensors
+        with _OpaqueGroupedMatmul._paused(), torch.enable_grad():
+            x, w = x.detach().requires_grad_(), w.detach().requires_grad_()
+            dx, dw = torch.autograd.grad(grouped_matmul_reference(x, w, group_sizes), (x, w),
+                                         dout)
+        return dx, dw, None
+
+    @staticmethod
+    @contextlib.contextmanager
+    def _paused():
+        counter = _OpaqueGroupedMatmul.counter
+        before = counter.paused
+        counter.paused = True
+        try:
+            yield
+        finally:
+            counter.paused = before
+
+
+def _remat_loss_and_grads(policy, params, ids, ct, count=False):
+    tm = Qwen3MoeForCausalLM.from_config(
+        REMAT_HF, BackendConfig(dtype="float32", remat_policy=policy, attention="xla",
+                                experts_backend="ragged_dot"), device="cpu")
+    tm.load_params(params_from_jax(params, tm.config))
+    with MatmulCounter() if count else contextlib.nullcontext() as counter:
+        _OpaqueGroupedMatmul.counter = counter
+        logits, stats = tm(torch.tensor(ids))
+        loss = (logits * torch.tensor(ct)).sum() + stats["aux_loss"]
+        grads = torch.autograd.grad(loss, list(tm.param_dict().values()))
+    return loss, dict(zip(tm.param_dict(), grads)), counter.counts if count else None
+
+
+def _remat_inputs():
+    ids = np.random.RandomState(2).randint(0, 128, (2, 32)).astype(np.int32)
+    ct = np.random.RandomState(3).randn(2, 32, 128).astype(np.float32)
+    return _jax_params(REMAT_HF), ids, ct
+
+
+@pytest.mark.parametrize("policy", REMAT_POLICIES)
+def test_remat_policy_matches_full_and_jax(policy):
+    """Every policy gives the loss and gradients of "full" and of JAX's same policy."""
+    params, ids, ct = _remat_inputs()
+    loss, grads, _ = _remat_loss_and_grads(policy, params, ids, ct)
+    loss_full, grads_full, _ = _remat_loss_and_grads("full", params, ids, ct)
+    torch.testing.assert_close(loss, loss_full, rtol=1e-5, atol=1e-6)
+    for name, g in grads.items():
+        torch.testing.assert_close(g, grads_full[name], rtol=1e-5, atol=1e-6)
+    want_loss, want = jax.value_and_grad(_jax_remat_loss(policy, ids, ct))(
+        jax.tree.map(jnp.asarray, params))
+    np.testing.assert_allclose(loss.item(), float(want_loss), rtol=1e-5, atol=1e-4)
+    want = flatten(want)
+    for name, g in grads.items():
+        np.testing.assert_allclose(g.numpy(), np.asarray(want[name]), atol=1e-4, rtol=1e-4,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("policy", ["none", "dots", "mlp_dots", "mlp_attn_dots"])
+def test_remat_replays_the_matmuls_jax_replays(policy, monkeypatch):
+    """The matmuls of the forward and backward equal JAX's dot_generals under the same
+    policy; the grouped GEMM (a kernel Function on the card, ragged_dot in JAX) replays
+    outside both counts."""
+    params, ids, ct = _remat_inputs()
+    monkeypatch.setattr(texperts, "grouped_matmul", _OpaqueGroupedMatmul.apply)
+    _, _, counts = _remat_loss_and_grads(policy, params, ids, ct, count=True)
+    want, _ = jax_matmul_counts(jax.make_jaxpr(jax.grad(_jax_remat_loss(policy, ids, ct)))(
+        jax.tree.map(jnp.asarray, params)))
+    assert counts == want

@@ -166,6 +166,9 @@ _LCE_ARGS = "(CUtensorMap_st, CUtensorMap_st, int, int, int, int)"
     ("void (anonymous namespace)::lce_fwd_kernel<false>(__nv_bfloat16 const*)", "linear_ce_kernels"),
     ("void (anonymous namespace)::flash_fwd_kernel<64>(CUtensorMap_st)", "flash_kernels"),
     ("void (anonymous namespace)::ring_bwd_kernel<128>(float*)", "ring_kernels"),
+    ("void (anonymous namespace)::flash_dq_kernel<128>(CUtensorMap_st)", "flash_kernels"),
+    ("void (anonymous namespace)::flash_dkv_kernel<64>(CUtensorMap_st)", "flash_kernels"),
+    ("void (anonymous namespace)::ring_dq_kernel<64>(float*)", "ring_kernels"),
     ("nvjet_tst_128x256_64x4_1x2_h_bz_coopA_TNT", "gemm"),
     ("void at::native::vectorized_elementwise_kernel<4, at::native::CUDAFunctor_add<float>>",
      "elementwise_other"),

@@ -3,8 +3,11 @@
 On the CPU the port's wrappers run the kernels' plain version; the JAX side runs
 ``ops/pallas/ring_chunk.py`` in interpret mode with 16x16 blocks, its positions,
 segments and (m, l, lse, delta) broadcast over the TPU's lanes / sublanes as its ring
-passes them. Inputs come from numpy seeds; f32 throughout, atol 2e-5. The CUDA kernels
-themselves are checked on the card (chip_smoke.py).
+passes them. Inputs come from numpy seeds; f32 throughout, atol 2e-5. The deterministic
+route's plain versions (chunk_attention_dq_reference, chunk_attention_dkv_reference) are
+held against _chunk_bwd_kernel at the same tolerance, and the route the backward takes
+under torch.use_deterministic_algorithms is read from the calls it makes. The CUDA
+kernels themselves are checked on the card (chip_smoke.py).
 """
 
 import re
@@ -336,3 +339,94 @@ def test_tile_class_rule(causal, window, q, kv, want):
     """The rule on ranges: causal, window and segment skips; full only when every pair
     is allowed and no tile is ragged."""
     assert int(trc.tile_class(q, kv, causal, window)) == want
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_split_plain_versions_match_chunk_bwd_kernel(name):
+    """The deterministic route's plain versions, dq and (dk, dv) apart, against JAX's
+    _chunk_bwd_kernel (interpret mode) at both chunks of the case."""
+    case = CASES[name]
+    q, ks, vs, do, pos_q, pos, seg_q, seg = _inputs(len(name) + 7, **case)
+    kw = _kw(case)
+    bn, s = q.shape[:2]
+    rng = np.random.RandomState(4)
+    lse = (rng.randn(bn, s) + 4).astype(np.float32)
+    delta = rng.randn(bn, s).astype(np.float32)
+    for i in range(2):
+        want = _jax_bwd(q, ks[i], vs[i], pos_q, pos[i], seg_q, seg[i], do, lse, delta, kw)
+        args = (_t(q), _t(ks[i]), _t(vs[i]), _t(pos_q), _t(pos[i]), _t(seg_q), _t(seg[i]),
+                _t(do), _t(lse), _t(delta))
+        got = (trc.chunk_attention_dq_reference(*args, **kw),
+               *trc.chunk_attention_dkv_reference(*args, **kw))
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.numpy(), w, atol=ATOL, rtol=0)
+
+
+@pytest.fixture
+def deterministic():
+    """Sets torch.use_deterministic_algorithms for a test and restores it afterwards."""
+    before = torch.are_deterministic_algorithms_enabled()
+    yield torch.use_deterministic_algorithms
+    torch.use_deterministic_algorithms(before)
+
+
+@pytest.mark.parametrize("flag", [False, True], ids=["default", "deterministic"])
+def test_backward_route_follows_the_deterministic_flag(flag, monkeypatch, deterministic):
+    """CPU tensors take the route's plain versions (bwd, or dq then dkv under the flag)
+    with the same sums; a tensor off the CPU takes ring_bwd, or ring_dq and ring_dkv
+    under the flag (the launches recorded, the checks stubbed)."""
+    case = CASES["gqa_segments"]
+    q, ks, vs, do, pos_q, pos, seg_q, seg = _inputs(9, **case)
+    kw = _kw(case)
+    bn, s = q.shape[:2]
+    lse, delta = torch.randn(bn, s) + 4, torch.randn(bn, s)
+    args = (_t(q), _t(ks[0]), _t(vs[0]), _t(pos_q), _t(pos[0]), _t(seg_q), _t(seg[0]), _t(do),
+            lse, delta)
+    want = trc.chunk_attention_bwd_reference(*args, **kw)
+    plain = []
+    for fn in ("chunk_attention_bwd_reference", "chunk_attention_dq_reference",
+               "chunk_attention_dkv_reference"):
+        real = getattr(trc, fn)
+        monkeypatch.setattr(trc, fn, lambda *a, _f=fn, _r=real, **k: plain.append(_f) or _r(*a, **k))
+    deterministic(flag)
+    out = [torch.zeros(bn, s, case["d"]), torch.zeros(ks[0].shape), torch.zeros(vs[0].shape)]
+    trc.chunk_attention_bwd(*args, *out, **kw)
+    assert plain == (["chunk_attention_dq_reference", "chunk_attention_dkv_reference"] if flag
+                     else ["chunk_attention_bwd_reference"])
+    for got, w in zip(out, want):
+        torch.testing.assert_close(got, w, atol=1e-6, rtol=0)
+
+    launched = []
+    monkeypatch.setattr(trc, "_check_cuda", lambda *a, **k: None)
+    monkeypatch.setattr(trc, "ring_bwd", lambda *a, **k: launched.append(("ring_bwd", a[10])))
+    monkeypatch.setattr(trc, "ring_dq", lambda *a, **k: launched.append(("ring_dq", a[10])))
+    monkeypatch.setattr(trc, "ring_dkv", lambda *a, **k: launched.append(("ring_dkv", a[10])))
+    meta = [x.to("meta") for x in (*args, *out)]
+    trc.chunk_attention_bwd(*meta, **kw)
+    dq, dk = meta[10], meta[11]
+    assert launched == ([("ring_dq", dq), ("ring_dkv", dk)] if flag else [("ring_bwd", dq)])
+
+
+def test_ring_dkv_and_ring_dq_launch_their_own_entry_points(monkeypatch):
+    """ring_dkv launches its own C entry point (ring_bwd's kernel without dQ) with no dq
+    argument, counted under its own name; ring_dq passes dq, f32, in place."""
+    calls = []
+    monkeypatch.setattr(build, "launch", lambda source, name, device, *args: calls.append(
+        (name, args)))
+    case = CASES["causal"]
+    q, ks, vs, do, pos_q, pos, _, _ = _inputs(1, **case)
+    kw = _kw(case)
+    bn, s = q.shape[:2]
+    rows = torch.zeros(bn, s)
+    dq, dk, dv = torch.zeros(bn, s, 16), torch.zeros(ks[0].shape), torch.zeros(vs[0].shape)
+    args = (_t(q), _t(ks[0]), _t(vs[0]), _t(pos_q), _t(pos[0]), None, None, _t(do), rows, rows)
+    before = dict(trc.LAUNCHES)
+    trc.ring_dkv(*args, dk, dv, **kw)
+    trc.ring_dq(*args, dq, **kw)
+    (name_b, args_b), (name_q, args_q) = calls
+    assert (name_b, args_b[10], args_b[11]) == ("ring_dkv", dk.data_ptr(), dv.data_ptr())
+    assert (name_q, args_q[10]) == ("ring_dq", dq.data_ptr())
+    assert {n: trc.LAUNCHES[n] - before[n] for n in before} == {
+        "ring_fwd": 0, "ring_bwd": 0, "ring_dkv": 1, "ring_dq": 1}
+    for name, a in calls:
+        assert len(a) + 1 == len(build.SOURCES["ring_chunk.cu"][name])
