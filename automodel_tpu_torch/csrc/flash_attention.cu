@@ -1,7 +1,8 @@
 // Flash attention for Hopper (sm_90a): a forward kernel and a backward split in two.
 //
 // Replaces the Pallas kernels of automodel_tpu/ops/pallas/flash_attention.py:
-//   flash_fwd  <- _fwd_kernel (online-softmax forward, emits O and the logsumexp)
+//   flash_fwd  <- _fwd_kernel (online-softmax forward, emits O and the logsumexp;
+//                 sliding window and per-head sink logits as the TPU kernel has them)
 //   flash_dq   <- _dq_kernel (q-stationary dQ: a block walks the key tiles in order
 //                 and sums dQ in registers, so dQ is the same on every run)
 //   flash_dkv  <- _dkv_kernel (kv-stationary dK, dV; their GQA group sum is in
@@ -15,9 +16,16 @@
 //
 // Layouts: q/o (B, Sq, H, D), k/v (B, Skv, KH, D), bf16, contiguous; GQA maps q head
 // h to kv head h / (H / KH). lse and delta are (B*H, Sq) f32. Segment ids are
-// optional int32 (B, Sq) / (B, Skv). Masks: causal (absolute index q >= kv) and
-// segment equality. A row with no allowed key gives O = 0 and lse = -1e30, as the TPU
-// kernel's finalize.
+// optional int32 (B, Sq) / (B, Skv). Masks: causal (absolute index q >= kv), a sliding
+// window (q - kv < window, a runtime (has_window, window) pair as the ring kernels take
+// it) and segment equality. A row with no allowed key gives O = 0 and lse = -1e30, as the
+// TPU kernel's finalize. Sinks (flash_fwd only): an optional f32 (H,) logit a q head,
+// folded into the softmax denominator in the epilogue as _fwd_kernel's finalize does
+// (m' = max(m, sink), l' = l 2^(m - m') + 2^(sink - m'), O rescaled by the new l), so lse
+// holds the sink and the backward kernels need no sink input (a row with no allowed key
+// then gives O = 0 and lse = sink). The sink is a raw logit: it takes log2(e) only, never
+// the softmax scale. Its gradient, -sum_i 2^(sink - lse_i) delta_i, is a reduction over
+// lse and delta outside the kernels (ops/flash_attention.py), as in the TPU package.
 //
 // What bounds it. At the Llama-3.2-1B training shape (B=4, S=2048, H=32, KH=8, D=64,
 // causal) the forward does 4*B*H*S^2*D/2 = 68.7 GFLOP, 69 us at the H100's 989
@@ -49,9 +57,11 @@
 //     dS^T Q (register A, transposed B).
 //   flash_dq: a block owns 128 query rows of one (b, h), loads Q and dO once and walks
 //     the key tiles of 64 in order to the causal limit (attention_tiles.cuh dq_walk).
-// Masks are applied only to tiles that cross the causal diagonal, the ragged end, or
-// a segment boundary (the test is in one place: tile_needs_mask); key tiles past the
-// causal limit are never loaded.
+// Masks are applied only to tiles that cross the causal diagonal, the window's edge, the
+// ragged end, or a segment boundary (the test is in one place: tile_needs_mask); key tiles
+// past the causal limit or wholly behind the window are never loaded (the forward and
+// flash_dq start their key walk at the window's first tile, flash_dkv ends its q walk at
+// the window's last q tile), as _run_block skips such blocks on the TPU.
 // What it leaves on the table: the two consumer warpgroups are not scheduled in turns
 // (ping-pong), so their softmax and their wgmmas overlap only by chance; in the
 // backward each step waits for its own products (at D=128 the registers hold dK and dV,
@@ -69,27 +79,32 @@ constexpr int SEG_PAD_KV = -2;
 
 // The one place where a tile decides whether it needs per-element masks: a tile of
 // query rows [q0, q0 + nq) and keys [k0, k0 + nk) is masked when it crosses the causal
-// diagonal, runs past Sq or Skv, or does not hold a single segment id on both sides
-// (q_id, k_id: the one id each side holds, or NO_ID).
+// diagonal or the window's edge (its farthest pair, q0 + nq - 1 against k0, is outside),
+// runs past Sq or Skv, or does not hold a single segment id on both sides (q_id, k_id: the
+// one id each side holds, or NO_ID).
 constexpr int NO_ID = INT_MIN;
 
 __device__ __forceinline__ int one_id(int lo, int hi) { return lo == hi ? lo : NO_ID; }
 
 __device__ __forceinline__ bool tile_needs_mask(int q0, int nq, int k0, int nk, int Sq, int Skv,
-                                                bool causal, bool segmented, int q_id, int k_id) {
+                                                bool causal, bool has_window, int window,
+                                                bool segmented, int q_id, int k_id) {
   if (causal && k0 + nk - 1 > q0) return true;
+  if (has_window && q0 + nq - 1 - k0 >= window) return true;
   if (q0 + nq > Sq || k0 + nk > Skv) return true;
   return segmented && !(q_id != NO_ID && q_id == k_id);
 }
 
 // Masks one accumulator tile, branch-free: register 4j + e holds row rows[e >> 1] and
 // column col0 + 8j + tc + (e & 1); a pair outside [0, row_end) x [0, col_end), above
-// the causal diagonal or across a segment boundary gets -inf. KEY_ROWS: the rows are
-// keys and the columns queries (the backward's S^T), else the reverse.
+// the causal diagonal, behind the window or across a segment boundary gets -inf.
+// KEY_ROWS: the rows are keys and the columns queries (the backward's S^T), else the
+// reverse.
 template <bool KEY_ROWS, int N>
 __device__ __forceinline__ void mask_tile(float (&s)[N], const int (&rows)[2], int col0, int tc,
-                                          int row_end, int col_end, bool causal, bool segmented,
-                                          const int (&row_seg)[2], const int* col_seg) {
+                                          int row_end, int col_end, bool causal, bool has_window,
+                                          int window, bool segmented, const int (&row_seg)[2],
+                                          const int* col_seg) {
 #pragma unroll
   for (int r = 0; r < N; ++r) {
     const int i = (r >> 1) & 1;
@@ -97,9 +112,16 @@ __device__ __forceinline__ void mask_tile(float (&s)[N], const int (&rows)[2], i
     const int col = col0 + c;
     bool ok = (rows[i] < row_end) & (col < col_end);
     ok &= !causal | (KEY_ROWS ? col >= rows[i] : rows[i] >= col);
+    ok &= !has_window | ((KEY_ROWS ? col - rows[i] : rows[i] - col) < window);
     ok &= !segmented | (row_seg[i] == col_seg[c]);
     s[r] = ok ? s[r] : -INFINITY;
   }
+}
+
+// The first key tile of `bn` keys that a q tile starting at q_start can see: keys
+// before q_start - window + 1 are behind the window of every row of the tile.
+__device__ __forceinline__ int first_key_tile(int q_start, bool has_window, int window, int bn) {
+  return has_window ? max(0, q_start - window + 1) / bn : 0;
 }
 
 // ------------------------------------------------------------------ forward
@@ -143,8 +165,9 @@ template <int D>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                  const __grid_constant__ CUtensorMap tv, const int* __restrict__ seg_q,
-                 const int* __restrict__ seg_kv, bf16* __restrict__ o, float* __restrict__ lse,
-                 int Sq, int Skv, int H, int KH, float scale_log2, int causal) {
+                 const int* __restrict__ seg_kv, const float* __restrict__ sinks,
+                 bf16* __restrict__ o, float* __restrict__ lse, int Sq, int Skv, int H, int KH,
+                 float scale_log2, int causal, int has_window, int window) {
   using C = Fwd<D>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
@@ -159,7 +182,9 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
   const int b = bh / H, h = bh % H;
   const int kvh = h / (H / KH);
   const int kv_end = causal ? min(Skv, q_start + C::BM) : Skv;
-  const int n_tiles = (kv_end + C::BN - 1) / C::BN;
+  // key tiles first .. the causal limit: step `it` walks tile first + it
+  const int first = first_key_tile(q_start, has_window, window, C::BN);
+  const int n_tiles = max(0, (kv_end + C::BN - 1) / C::BN - first);
   const bool segmented = seg_q != nullptr;
   const int wg = threadIdx.x / 128;
 
@@ -185,7 +210,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
     for (int it = 0; it < n_tiles; ++it) {
       const int stage = it % C::STAGES;
       mbar_wait(&empty[stage], ((it / C::STAGES) & 1) ^ 1);
-      const int kv_start = it * C::BN;
+      const int kv_start = (first + it) * C::BN;
       if (segmented) {
         int* ids = sSeg + stage * C::SEG_STRIDE;
         int lo = INT_MAX, hi = INT_MIN;
@@ -267,11 +292,12 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
   // mask, scale and exponentiate s in place (log2 domain); returns O's rescale factors
   auto softmax = [&](int it, float (&alpha)[2]) {
     const int stage = it % C::STAGES;
-    const int kv_start = it * C::BN;
+    const int kv_start = (first + it) * C::BN;
     const int* ids = sSeg + stage * C::SEG_STRIDE;
-    if (tile_needs_mask(q0, 64, kv_start, C::BN, Sq, Skv, causal, segmented, q_id,
-                        segmented ? ids[C::BN] : NO_ID))
-      mask_tile<false>(s, row, kv_start, tc, Sq, Skv, causal, segmented, segr, ids);
+    if (tile_needs_mask(q0, 64, kv_start, C::BN, Sq, Skv, causal, has_window, window, segmented,
+                        q_id, segmented ? ids[C::BN] : NO_ID))
+      mask_tile<false>(s, row, kv_start, tc, Sq, Skv, causal, has_window, window, segmented, segr,
+                       ids);
     float mx[2] = {-INFINITY, -INFINITY};  // of the unscaled scores (the scale is > 0)
 #pragma unroll
     for (int r = 0; r < C::BN / 2; ++r) mx[(r >> 1) & 1] = fmaxf(mx[(r >> 1) & 1], s[r]);
@@ -350,19 +376,32 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
     release(&empty[prev_stage], lane);
   }
 
+  // the sink (a raw logit) in the log2 domain of m; read here, after the key loop
+  const float sink2 = sinks != nullptr ? sinks[h] * LOG2E : 0.f;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const float li = quad_sum(l[i]);
     if (row[i] >= Sq) continue;
-    const bool none = li == 0.f;
-    const float inv = none ? 0.f : 1.f / li;
+    float inv, lse_i;
+    if (sinks != nullptr) {
+      // m' = max(m, sink); the keys' share is rescaled by 2^(m - m'), 0 for a row with no
+      // allowed key (m = -inf), whose lse is then the sink and whose O is 0
+      const float m_eff = fmaxf(m[i], sink2);
+      const float alpha = exp2f(m[i] - m_eff);
+      const float lt = li * alpha + exp2f(sink2 - m_eff);
+      inv = alpha / lt;
+      lse_i = (m_eff + log2f(lt)) * LN2;
+    } else {
+      const bool none = li == 0.f;
+      inv = none ? 0.f : 1.f / li;
+      lse_i = none ? NEG_INF : (m[i] + log2f(li)) * LN2;
+    }
     bf16* orow = o + ((size_t)b * Sq + row[i]) * H * D + (size_t)h * D;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
       *reinterpret_cast<uint32_t*>(orow + 8 * j + tc) =
           pack_f32(acc[4 * j + 2 * i] * inv, acc[4 * j + 2 * i + 1] * inv);
-    if ((lane & 3) == 0)
-      lse[(size_t)bh * Sq + row[i]] = none ? NEG_INF : (m[i] + log2f(li)) * LN2;
+    if ((lane & 3) == 0) lse[(size_t)bh * Sq + row[i]] = lse_i;
   }
 }
 
@@ -386,7 +425,8 @@ struct Bwd {
 };
 
 // grid (ceil(Skv / 128), B * KH), 384 threads. Each block holds one 128-key K/V tile,
-// loops over the q heads of its GQA group and the q tiles from the causal start, and
+// loops over the q heads of its GQA group and the q tiles from the causal start to the
+// window's end (q_end), and
 // owns its dK/dV rows (consumer warpgroup w: keys w*64 .. w*64+63), so the group sum
 // needs no second pass. dQ is flash_dq_kernel's.
 template <int D>
@@ -396,7 +436,7 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
                  const int* __restrict__ seg_q, const int* __restrict__ seg_kv,
                  const float* __restrict__ lse, const float* __restrict__ delta,
                  bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq, int Skv, int H, int KH,
-                 float scale, int causal) {
+                 float scale, int causal, int has_window, int window) {
   using C = Bwd<D>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
@@ -410,6 +450,8 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
   const int b = blockIdx.y / KH, kvh = blockIdx.y % KH;
   const int groups = H / KH;
   const int m_first = causal ? kv_start / C::BM : 0;
+  // q rows past the last key's window (q - key < window) see none of the block's keys
+  const int q_end = has_window && window < Sq ? min(Sq, kv_start + C::BN - 1 + window) : Sq;
   const bool segmented = seg_q != nullptr;
   const int wg = threadIdx.x / 128;
 
@@ -440,7 +482,7 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
     }
     int stage = 0, phase = 1;  // the first pass over the stages finds them empty
     for (int h = kvh * groups; h < (kvh + 1) * groups; ++h) {
-      for (int q_start = m_first * C::BM; q_start < Sq; q_start += C::BM) {
+      for (int q_start = m_first * C::BM; q_start < q_end; q_start += C::BM) {
         mbar_wait(&empty[stage], phase);
         if (warp == 0) {
           if (lane == 0) {
@@ -504,7 +546,7 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
   mbar_wait(kv_full, 0);
   int it = 0;  // steps so far: the stage ring follows it
   for (int h = kvh * groups; h < (kvh + 1) * groups; ++h)
-  for (int q_start = m_first * C::BM; q_start < Sq; q_start += C::BM, ++it) {
+  for (int q_start = m_first * C::BM; q_start < q_end; q_start += C::BM, ++it) {
     const int stage = it % C::STAGES;
     mbar_wait(&full[stage], (it / C::STAGES) & 1);
     const uint32_t q_addr = smem_u32(smem + C::Q_OFF + stage * C::QT_BYTES);
@@ -540,10 +582,12 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
       q_id = one_id(__reduce_min_sync(0xffffffffu, min(a, c)),
                     __reduce_max_sync(0xffffffffu, max(a, c)));
     }
-    if (tile_needs_mask(q_start, C::BM, k0, 64, Sq, Skv, causal, segmented, q_id, k_id)) {
+    if (tile_needs_mask(q_start, C::BM, k0, 64, Sq, Skv, causal, has_window, window, segmented,
+                        q_id, k_id)) {
       const int keys[2] = {k0 + krow, k0 + krow + 8};
       const int segk[2] = {kseg[krow], kseg[krow + 8]};
-      mask_tile<true>(s, keys, q_start, tc, Skv, Sq, causal, segmented, segk, ids);
+      mask_tile<true>(s, keys, q_start, tc, Skv, Sq, causal, has_window, window, segmented, segk,
+                      ids);
     }
     uint32_t pa[C::BM / 16][4], sa[C::BM / 16][4];
 #pragma unroll
@@ -615,7 +659,8 @@ static_assert(Dq<128>::SMEM <= 232448 && Dq<64>::SMEM <= 232448, "flash_dq share
 
 // grid (ceil(Sq / 128), B * H), 384 threads; block x takes q tile gridDim.x - 1 - x (the
 // heaviest causal tiles first). The producer loads the block's Q and dO once, then the
-// key tiles from 0 to the causal limit, each with its keys' segment ids; the consumers
+// key tiles from the window's first (0 without a window) to the causal limit, each with
+// its keys' segment ids; the consumers
 // run dq_walk with flash's masks (tile_needs_mask, mask_tile) and store dQ * scale in
 // q's dtype once. Every dQ element is one block's in-order sum: nothing is added across
 // blocks, so dQ is the same on every run.
@@ -625,7 +670,8 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
                 const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
                 const int* __restrict__ seg_q, const int* __restrict__ seg_kv,
                 const float* __restrict__ lse, const float* __restrict__ delta,
-                bf16* __restrict__ dq, int Sq, int Skv, int H, int KH, float scale, int causal) {
+                bf16* __restrict__ dq, int Sq, int Skv, int H, int KH, float scale, int causal,
+                int has_window, int window) {
   using C = Dq<D>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
@@ -640,7 +686,8 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
   const int b = bh / H, h = bh % H;
   const int kvh = h / (H / KH);
   const int kv_end = causal ? min(Skv, q_start + C::BM) : Skv;
-  const int n_tiles = (kv_end + C::BN - 1) / C::BN;
+  const int first = first_key_tile(q_start, has_window, window, C::BN);
+  const int n_tiles = max(0, (kv_end + C::BN - 1) / C::BN - first);
   const bool segmented = seg_q != nullptr;
   const int wg = threadIdx.x / 128;
 
@@ -669,7 +716,7 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
     for (int it = 0; it < n_tiles; ++it) {
       const int stage = it % C::STAGES;
       mbar_wait(&empty[stage], ((it / C::STAGES) & 1) ^ 1);
-      const int kv_start = it * C::BN;
+      const int kv_start = (first + it) * C::BN;
       if (segmented) {
         int* ids = sSeg + stage * C::SEG_STRIDE;
         int lo = INT_MAX, hi = INT_MIN;
@@ -734,11 +781,12 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
   mbar_wait(q_full, 0);
   dq_walk<C>(acc, n_tiles, smem, cw, full, empty, lse2, dl, scale * LOG2E, lane,
              [&](int it, float (&s)[C::BN / 2]) {
-               const int kv_start = it * C::BN;
+               const int kv_start = (first + it) * C::BN;
                const int* ids = sSeg + (it % C::STAGES) * C::SEG_STRIDE;
-               if (tile_needs_mask(q0, 64, kv_start, C::BN, Sq, Skv, causal, segmented, q_id,
-                                   segmented ? ids[C::BN] : NO_ID))
-                 mask_tile<false>(s, row, kv_start, tc, Sq, Skv, causal, segmented, segr, ids);
+               if (tile_needs_mask(q0, 64, kv_start, C::BN, Sq, Skv, causal, has_window, window,
+                                   segmented, q_id, segmented ? ids[C::BN] : NO_ID))
+                 mask_tile<false>(s, row, kv_start, tc, Sq, Skv, causal, has_window, window,
+                                  segmented, segr, ids);
              });
 
 #pragma unroll
@@ -762,8 +810,9 @@ inline cudaError_t bf16_map(CUtensorMap* map, const void* p, int B, int S, int h
 
 template <int D>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, const int* seg_q,
-                       const int* seg_kv, void* o, float* lse, int B, int Sq, int Skv, int H,
-                       int KH, float scale, int causal, cudaStream_t stream) {
+                       const int* seg_kv, const float* sinks, void* o, float* lse, int B, int Sq,
+                       int Skv, int H, int KH, float scale, int causal, int has_window,
+                       int window, cudaStream_t stream) {
   using C = Fwd<D>;
   CUtensorMap tq, tk, tv;
   cudaError_t err = bf16_map(&tq, q, B, Sq, H, D, C::BM);
@@ -775,8 +824,8 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, const int* s
   if (err != cudaSuccess) return err;
   dim3 grid((Sq + C::BM - 1) / C::BM, B * H);
   flash_fwd_kernel<D><<<grid, THREADS, C::SMEM, stream>>>(
-      tq, tk, tv, seg_q, seg_kv, static_cast<bf16*>(o), lse, Sq, Skv, H, KH, scale * LOG2E,
-      causal);
+      tq, tk, tv, seg_q, seg_kv, sinks, static_cast<bf16*>(o), lse, Sq, Skv, H, KH,
+      scale * LOG2E, causal, has_window, window);
   return cudaGetLastError();
 }
 
@@ -784,7 +833,8 @@ template <int D>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v, const int* seg_q,
                        const int* seg_kv, const void* dout, const float* lse,
                        const float* delta, void* dk, void* dv, int B, int Sq, int Skv, int H,
-                       int KH, float scale, int causal, cudaStream_t stream) {
+                       int KH, float scale, int causal, int has_window, int window,
+                       cudaStream_t stream) {
   using C = Bwd<D>;
   CUtensorMap tq, tk, tv, tdo;
   cudaError_t err = bf16_map(&tq, q, B, Sq, H, D, C::BM);
@@ -798,7 +848,7 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const int* s
   dim3 grid((Skv + C::BN - 1) / C::BN, B * KH);
   flash_dkv_kernel<D><<<grid, THREADS, C::SMEM, stream>>>(
       tq, tk, tv, tdo, seg_q, seg_kv, lse, delta, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), Sq, Skv, H, KH, scale, causal);
+      static_cast<bf16*>(dv), Sq, Skv, H, KH, scale, causal, has_window, window);
   return cudaGetLastError();
 }
 
@@ -806,7 +856,7 @@ template <int D>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const int* seg_q,
                       const int* seg_kv, const void* dout, const float* lse, const float* delta,
                       void* dq, int B, int Sq, int Skv, int H, int KH, float scale, int causal,
-                      cudaStream_t stream) {
+                      int has_window, int window, cudaStream_t stream) {
   using C = Dq<D>;
   CUtensorMap tq, tk, tv, tdo;
   cudaError_t err = bf16_map(&tq, q, B, Sq, H, D, C::BM);
@@ -820,7 +870,8 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const int* se
   dim3 grid((Sq + C::BM - 1) / C::BM, B * H);
   flash_dq_kernel<D><<<grid, THREADS, C::SMEM, stream>>>(tq, tk, tv, tdo, seg_q, seg_kv, lse,
                                                          delta, static_cast<bf16*>(dq), Sq, Skv,
-                                                         H, KH, scale, causal);
+                                                         H, KH, scale, causal, has_window,
+                                                         window);
   return cudaGetLastError();
 }
 
@@ -828,44 +879,47 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const int* se
 
 // Plain C entry points (bound with ctypes). Each returns a cudaError_t; the caller
 // checks inputs (bf16, contiguous, 16-byte aligned, D in {64, 128}, H % KH == 0)
-// beforehand. flash_dq writes dq (bf16, q's layout) whole, each row once.
+// beforehand. flash_dq writes dq (bf16, q's layout) whole, each row once. has_window = 0
+// ignores window; sinks: null, or f32 (H,).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, const int* seg_q,
-                         const int* seg_kv, void* o, float* lse, int B, int Sq, int Skv,
-                         int H, int KH, int D, float scale, int causal, void* stream) {
+                         const int* seg_kv, const float* sinks, void* o, float* lse, int B,
+                         int Sq, int Skv, int H, int KH, int D, float scale, int causal,
+                         int has_window, int window, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 64)
-    return (int)launch_fwd<64>(q, k, v, seg_q, seg_kv, o, lse, B, Sq, Skv, H, KH, scale,
-                               causal, s);
+    return (int)launch_fwd<64>(q, k, v, seg_q, seg_kv, sinks, o, lse, B, Sq, Skv, H, KH, scale,
+                               causal, has_window, window, s);
   if (D == 128)
-    return (int)launch_fwd<128>(q, k, v, seg_q, seg_kv, o, lse, B, Sq, Skv, H, KH, scale,
-                                causal, s);
+    return (int)launch_fwd<128>(q, k, v, seg_q, seg_kv, sinks, o, lse, B, Sq, Skv, H, KH, scale,
+                                causal, has_window, window, s);
   return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int flash_dq(const void* q, const void* k, const void* v, const int* seg_q,
                         const int* seg_kv, const void* dout, const float* lse,
                         const float* delta, void* dq, int B, int Sq, int Skv, int H, int KH,
-                        int D, float scale, int causal, void* stream) {
+                        int D, float scale, int causal, int has_window, int window, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 64)
     return (int)launch_dq<64>(q, k, v, seg_q, seg_kv, dout, lse, delta, dq, B, Sq, Skv, H, KH,
-                              scale, causal, s);
+                              scale, causal, has_window, window, s);
   if (D == 128)
     return (int)launch_dq<128>(q, k, v, seg_q, seg_kv, dout, lse, delta, dq, B, Sq, Skv, H, KH,
-                               scale, causal, s);
+                               scale, causal, has_window, window, s);
   return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int flash_dkv(const void* q, const void* k, const void* v, const int* seg_q,
                          const int* seg_kv, const void* dout, const float* lse,
                          const float* delta, void* dk, void* dv, int B, int Sq, int Skv, int H,
-                         int KH, int D, float scale, int causal, void* stream) {
+                         int KH, int D, float scale, int causal, int has_window, int window,
+                         void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 64)
     return (int)launch_dkv<64>(q, k, v, seg_q, seg_kv, dout, lse, delta, dk, dv, B, Sq, Skv, H,
-                               KH, scale, causal, s);
+                               KH, scale, causal, has_window, window, s);
   if (D == 128)
     return (int)launch_dkv<128>(q, k, v, seg_q, seg_kv, dout, lse, delta, dk, dv, B, Sq, Skv, H,
-                                KH, scale, causal, s);
+                                KH, scale, causal, has_window, window, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -5,6 +5,8 @@ A model may have a dense prefix (``first_k_dense_replace`` layers with the dense
 stacked under ``dense_layers.``); the MoE layers follow, stacked under ``moe_layers.``
 with their MoE block under ``moe_layers.moe.``. The forward returns ``(out, stats)``
 with the summed ``aux_loss`` (or None) and the per-layer ``expert_load`` (L_moe, E).
+Each layer attends with its own sliding window (``transformer.layer_windows``: the
+window on a "sliding_attention" layer, None on a full one).
 
   dense_layers: the dense decoder's layer table (``transformer.layer_shapes``)
   moe_layers:   the same minus w_gate/w_up/w_down, plus moe.gate.weight (L,E,D)
@@ -21,8 +23,10 @@ import torch
 import torch.nn.functional as F
 
 from automodel_tpu_torch.models.common.backend import BackendConfig
+from automodel_tpu_torch.models.common.param_module import ParamModule
 from automodel_tpu_torch.models.common.transformer import (
-    DenseDecoderConfig, attention_block, decoder_layer, layer_shapes, resolve_unembed)
+    DenseDecoderConfig, attention_block, decoder_layer, init_params, layer_shapes,
+    layer_windows, resolve_unembed)
 from automodel_tpu_torch.moe.config import MoEConfig
 from automodel_tpu_torch.moe.dispatch import make_moe_block_forward
 from automodel_tpu_torch.moe.layers import (cast_moe_compute_params, moe_param_shapes,
@@ -30,7 +34,7 @@ from automodel_tpu_torch.moe.layers import (cast_moe_compute_params, moe_param_s
 from automodel_tpu_torch.ops.norms import rms_norm
 from automodel_tpu_torch.ops.rope import rope_attention_scaling, rope_frequencies, rope_tables
 
-__all__ = ["MoEDecoderConfig", "moe_decoder_forward", "moe_decoder_param_shapes"]
+__all__ = ["MoECausalLM", "MoEDecoderConfig", "moe_decoder_forward", "moe_decoder_param_shapes"]
 
 _DENSE_MLP = ("w_gate", "w_up", "w_down")
 
@@ -71,16 +75,17 @@ def moe_decoder_param_shapes(cfg: MoEDecoderConfig) -> dict[str, tuple[int, ...]
 
 
 def _moe_layer(cfg, backend, moe_block, attn_names, moe_names, h, positions, segment_ids,
-               token_mask, rope, mesh, *weights):
+               token_mask, rope, mesh, window, *weights):
     """One MoE layer: h + attn(norm(h)), then + moe(norm(h)). Returns (h, aux, load);
-    ``rope`` is the forward's ``rope_tables``."""
+    ``rope`` is the forward's ``rope_tables``, ``window`` the layer's sliding window."""
     dtype = backend.torch_dtype
     n_attn = len(attn_names)
     lp = {n: w.to(dtype) for n, w in zip(attn_names, weights[:n_attn])}
     moe_params = cast_moe_compute_params(nest_moe_params(dict(zip(moe_names, weights[n_attn:]))),
                                          dtype)
     x = rms_norm(h, lp["attn_norm"], cfg.rms_norm_eps)
-    h = h + attention_block(cfg, backend, lp, x, positions, segment_ids, mesh=mesh, rope=rope)
+    h = h + attention_block(cfg, backend, lp, x, positions, segment_ids, mesh=mesh, rope=rope,
+                            window=window)
     x = rms_norm(h, lp["mlp_norm"], cfg.rms_norm_eps)
     y, aux, load, _ = moe_block(moe_params, x, token_mask)
     if aux is None:
@@ -116,10 +121,11 @@ def moe_decoder_forward(
     dense_names = list(layer_shapes(cfg))
     dense = [params[f"dense_layers.{n}"].unbind(0) for n in dense_names] \
         if cfg.first_k_dense_replace > 0 else []
+    windows = layer_windows(cfg)
     dense_layer = backend.layer_remat(decoder_layer)
     for i in range(cfg.first_k_dense_replace):
         h = dense_layer(cfg, backend, dense_names, h, positions, segment_ids, rope, mesh,
-                        *[w[i] for w in dense])
+                        windows[i], *[w[i] for w in dense])
 
     moe_block = make_moe_block_forward(cfg.moe, backend, training=training)
     attn_names = list(_attn_only_shapes(cfg))
@@ -130,7 +136,9 @@ def moe_decoder_forward(
     moe_layer = backend.layer_remat(_moe_layer)
     for i in range(cfg.num_moe_layers):
         h, aux, load = moe_layer(cfg, backend, moe_block, attn_names, moe_names, h, positions,
-                                 segment_ids, token_mask, rope, mesh, *[w[i] for w in per_layer])
+                                 segment_ids, token_mask, rope, mesh,
+                                 windows[cfg.first_k_dense_replace + i],
+                                 *[w[i] for w in per_layer])
         auxs.append(aux)
         loads.append(load)
 
@@ -140,3 +148,40 @@ def moe_decoder_forward(
     if return_hidden:
         return h, stats
     return torch.matmul(h, resolve_unembed(cfg, params, dtype)), stats
+
+
+class MoECausalLM(ParamModule):
+    """Holds the parameters of an MoE decoder family (JAX layout, flat names) and runs
+    :func:`moe_decoder_forward`; the forward returns ``(logits or hidden, stats)``. A
+    family sets ``config_class`` (with its ``from_hf``) and ``state_dict_adapter``."""
+
+    config_class = MoEDecoderConfig
+
+    def __init__(self, config: MoEDecoderConfig, backend: BackendConfig | None = None, *,
+                 device: torch.device | str = "cuda", dtype=torch.float32,
+                 generator: torch.Generator | None = None,
+                 params: dict[str, torch.Tensor] | None = None):
+        """Random weights from ``generator`` (seed 0 by default), or ``params`` as given
+        (``models/auto.py`` passes a checkpoint's, already on their device)."""
+        device = torch.device(device)
+        if params is None and generator is None:
+            generator = torch.Generator(device=device).manual_seed(0)
+        super().__init__(params if params is not None
+                         else init_params(moe_decoder_param_shapes(config), generator,
+                                          config.initializer_range, dtype, device))
+        self.config = config
+        self.backend = backend or BackendConfig()
+
+    @classmethod
+    def from_config(cls, config, backend: BackendConfig | None = None, **kw):
+        """From a config object or an HF config.json dict."""
+        if isinstance(config, dict):
+            config = cls.config_class.from_hf(config)
+        return cls(config, backend, **kw)
+
+    def forward(self, input_ids, positions=None, segment_ids=None, token_mask=None,
+                return_hidden=False, training=True, mesh=None):
+        return moe_decoder_forward(self.config, self.backend, self.param_dict(), input_ids,
+                                   positions=positions, segment_ids=segment_ids,
+                                   token_mask=token_mask, return_hidden=return_hidden,
+                                   training=training, mesh=mesh)

@@ -39,9 +39,20 @@ def _t(w: torch.Tensor) -> torch.Tensor:
     return w.T.contiguous()
 
 
+def _bias_in(heads: int, head_dim: int):
+    """HF (heads*head_dim,) -> ours (heads, head_dim)."""
+    return lambda b: b.reshape(heads, head_dim)
+
+
+def _bias_out(heads: int, head_dim: int):
+    return lambda b: b.reshape(heads * head_dim)
+
+
 def attention_entries(cfg: DenseDecoderConfig, ours_prefix: str = "layers",
                       layer_range=None) -> list[Entry]:
-    """GQA attention and the two norms of a layer (the Qwen3 q/k norms with qk_norm)."""
+    """GQA attention and the two norms of a layer: the q / k / v biases with
+    attention_bias, the o bias with attention_out_bias, the sinks with attention_sinks
+    (gpt-oss) and the Qwen3 q/k norms with qk_norm."""
     n, k, h = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     pre = "model.layers.{i}"
     entries = [
@@ -58,6 +69,17 @@ def attention_entries(cfg: DenseDecoderConfig, ours_prefix: str = "layers",
         Entry(f"{pre}.self_attn.o_proj.weight", f"{ours_prefix}.wo", _o_in(n, h),
               _o_out(n, h), layer_range=layer_range),
     ]
+    if cfg.attention_bias:
+        entries += [
+            Entry(f"{pre}.self_attn.{hf}_proj.bias", f"{ours_prefix}.b{hf}",
+                  _bias_in(heads, h), _bias_out(heads, h), layer_range=layer_range)
+            for hf, heads in (("q", n), ("k", k), ("v", k))]
+    if cfg.attention_out_bias:
+        entries.append(Entry(f"{pre}.self_attn.o_proj.bias", f"{ours_prefix}.bo",
+                             layer_range=layer_range))
+    if cfg.attention_sinks:
+        entries.append(Entry(f"{pre}.self_attn.sinks", f"{ours_prefix}.sinks",
+                             layer_range=layer_range))
     if cfg.qk_norm:
         entries += [
             Entry(f"{pre}.self_attn.q_norm.weight", f"{ours_prefix}.q_norm",

@@ -10,13 +10,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any
 
-import torch
-
-from automodel_tpu_torch.models.common.backend import BackendConfig
-from automodel_tpu_torch.models.common.moe_transformer import (
-    MoEDecoderConfig, moe_decoder_forward, moe_decoder_param_shapes)
-from automodel_tpu_torch.models.common.param_module import ParamModule
-from automodel_tpu_torch.models.common.transformer import init_params
+from automodel_tpu_torch.models.common.moe_transformer import MoECausalLM, MoEDecoderConfig
 from automodel_tpu_torch.moe.config import MoEConfig
 
 __all__ = ["Qwen3MoeConfig", "Qwen3MoeForCausalLM"]
@@ -69,43 +63,11 @@ class Qwen3MoeConfig(MoEDecoderConfig):
         )
 
 
-class Qwen3MoeForCausalLM(ParamModule):
-    """Holds the parameters (JAX layout, flat names) and runs the MoE decoder; the
-    forward returns ``(logits or hidden, stats)``."""
-
+class Qwen3MoeForCausalLM(MoECausalLM):
     config_class = Qwen3MoeConfig
-
-    def __init__(self, config: Qwen3MoeConfig, backend: BackendConfig | None = None, *,
-                 device: torch.device | str = "cuda", dtype=torch.float32,
-                 generator: torch.Generator | None = None,
-                 params: dict[str, torch.Tensor] | None = None):
-        """Random weights from ``generator`` (seed 0 by default), or ``params`` as given
-        (``models/auto.py`` passes a checkpoint's, already on their device)."""
-        device = torch.device(device)
-        if params is None and generator is None:
-            generator = torch.Generator(device=device).manual_seed(0)
-        super().__init__(params if params is not None
-                         else init_params(moe_decoder_param_shapes(config), generator,
-                                          config.initializer_range, dtype, device))
-        self.config = config
-        self.backend = backend or BackendConfig()
-
-    @classmethod
-    def from_config(cls, config: Qwen3MoeConfig | dict, backend: BackendConfig | None = None,
-                    **kw) -> "Qwen3MoeForCausalLM":
-        if isinstance(config, dict):
-            config = Qwen3MoeConfig.from_hf(config)
-        return cls(config, backend, **kw)
 
     def state_dict_adapter(self):
         from automodel_tpu_torch.models.qwen3_moe.state_dict_adapter import (
             Qwen3MoeStateDictAdapter)
 
         return Qwen3MoeStateDictAdapter(self.config)
-
-    def forward(self, input_ids, positions=None, segment_ids=None, token_mask=None,
-                return_hidden=False, training=True, mesh=None):
-        return moe_decoder_forward(self.config, self.backend, self.param_dict(), input_ids,
-                                   positions=positions, segment_ids=segment_ids,
-                                   token_mask=token_mask, return_hidden=return_hidden,
-                                   training=training, mesh=mesh)

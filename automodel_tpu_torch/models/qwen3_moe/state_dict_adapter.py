@@ -15,7 +15,7 @@ from automodel_tpu_torch.models.common.state_dict import Entry, MappingAdapter
 from automodel_tpu_torch.models.llama.state_dict_adapter import (_t, attention_entries,
                                                                  dense_mlp_entries)
 
-__all__ = ["Qwen3MoeStateDictAdapter", "moe_expert_entries"]
+__all__ = ["Qwen3MoeStateDictAdapter", "attention_entries", "moe_expert_entries"]
 
 
 def _gate_up_in(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:

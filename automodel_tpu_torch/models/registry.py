@@ -16,6 +16,7 @@ MODEL_REGISTRY: dict[str, str] = {
         "GraniteForCausalLM", "SmolLM3ForCausalLM", "Olmo2ForCausalLM", "Olmo3ForCausalLM",
         "CohereForCausalLM", "Cohere2ForCausalLM", "ArceeForCausalLM")},
     "Qwen3MoeForCausalLM": "automodel_tpu_torch.models.qwen3_moe.model:Qwen3MoeForCausalLM",
+    "GptOssForCausalLM": "automodel_tpu_torch.models.gpt_oss.model:GptOssForCausalLM",
 }
 
 

@@ -11,22 +11,27 @@ the key tiles in order) and ``flash_dkv`` (kv-stationary dK and dV), so the grad
 are the same on every run; their plain versions are :func:`flash_dq_reference` and
 :func:`flash_dkv_reference`.
 
-The kernels cover what the Llama and Qwen3-MoE paths use: causal and non-causal
-masks, GQA, segment ids, bf16, head_dim 64 and 128. Sliding window, logit soft-cap and
-sinks exist only in the plain version and raise on CUDA.
+The kernels take causal and non-causal masks, GQA, segment ids, a sliding window
+(tiles wholly behind it are never loaded), per-head sink logits (folded into the
+forward's softmax denominator, so lse holds them and the backward kernels take none; the
+sinks' gradient is a reduction over lse and delta, :func:`sink_grad`), bf16, head_dim 64
+and 128. Logit soft-cap exists only in the plain version and raises on CUDA, as do
+other head dims.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["LAUNCHES", "flash_attention", "flash_attention_cuda", "flash_attention_reference",
-           "flash_backward", "flash_dkv", "flash_dkv_reference", "flash_dq",
-           "flash_dq_reference", "flash_fwd"]
+__all__ = ["LAUNCHES", "WINDOWED_LAUNCHES", "flash_attention", "flash_attention_cuda",
+           "flash_attention_reference", "flash_backward", "flash_dkv", "flash_dkv_reference",
+           "flash_dq", "flash_dq_reference", "flash_fwd", "sink_grad"]
 
 NEG_INF = -1e30
 # one count per kernel launch, so a run can show that it went through the kernels
 LAUNCHES = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+# the launches of LAUNCHES that carried a sliding window
+WINDOWED_LAUNCHES = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
 _SOURCE = "flash_attention.cu"
 _HEAD_DIMS = (64, 128)
 
@@ -108,7 +113,7 @@ def flash_attention_reference(
 
 
 def _split_backward(q, k, v, do, lse, delta, want_dq, want_dkv, *, causal, segment_ids_q,
-                    segment_ids_kv, softmax_scale):
+                    segment_ids_kv, softmax_scale, sliding_window):
     """The split backward's plain arithmetic in f32, from lse and delta as the kernels
     take them: P = exp(S scale - lse), dS = P (dP - delta); dQ = dS K scale and, summed
     over each GQA group, dK = dS^T Q scale, dV = P^T dO."""
@@ -122,7 +127,7 @@ def _split_backward(q, k, v, do, lse, delta, want_dq, want_dkv, *, causal, segme
     dof = do.float().permute(0, 2, 1, 3)
     s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
     seg_q, seg_kv = _segments(segment_ids_q, segment_ids_kv)
-    allowed = _mask(sq, skv, causal, seg_q, seg_kv, None, q.device)
+    allowed = _mask(sq, skv, causal, seg_q, seg_kv, sliding_window, q.device)
     p = torch.exp(s - lse.float().reshape(b, h, sq, 1))
     if allowed is not None:
         p = torch.where(allowed, p, torch.zeros((), device=p.device))
@@ -139,24 +144,34 @@ def _split_backward(q, k, v, do, lse, delta, want_dq, want_dkv, *, causal, segme
 
 
 def flash_dq_reference(q, k, v, do, lse, delta, *, causal=True, segment_ids_q=None,
-                       segment_ids_kv=None, softmax_scale=None):
+                       segment_ids_kv=None, softmax_scale=None, sliding_window=None):
     """``flash_dq``'s plain version: dQ in q's dtype from ``lse`` and ``delta`` ((B*H, Sq)
-    f32, delta = rowsum(dO * O)). For the CPU and the tests only."""
+    f32, delta = rowsum(dO * O); with sinks, lse already holds them). For the CPU and the
+    tests only."""
     return _split_backward(q, k, v, do, lse, delta, True, False, causal=causal,
                            segment_ids_q=segment_ids_q, segment_ids_kv=segment_ids_kv,
-                           softmax_scale=softmax_scale)[0]
+                           softmax_scale=softmax_scale, sliding_window=sliding_window)[0]
 
 
 def flash_dkv_reference(q, k, v, do, lse, delta, *, causal=True, segment_ids_q=None,
-                        segment_ids_kv=None, softmax_scale=None):
+                        segment_ids_kv=None, softmax_scale=None, sliding_window=None):
     """``flash_dkv``'s plain version: ``(dk, dv)`` in k's and v's dtypes, summed over each
     GQA group, from ``lse`` and ``delta``. For the CPU and the tests only."""
     return _split_backward(q, k, v, do, lse, delta, False, True, causal=causal,
                            segment_ids_q=segment_ids_q, segment_ids_kv=segment_ids_kv,
-                           softmax_scale=softmax_scale)
+                           softmax_scale=softmax_scale, sliding_window=sliding_window)
 
 
-def _check_cuda(q, k, v, seg_q, seg_kv):
+def sink_grad(sinks, lse, delta):
+    """d loss / d sinks from the forward's lse and delta ((B*H, Sq) f32): the sink column's
+    p (dp - delta) with dp = 0, -sum over batch and rows of exp(sink - lse) delta; JAX's
+    ``_dsinks_from_residuals``, a plain reduction on every device. In sinks' dtype."""
+    h = sinks.shape[0]
+    p = torch.exp(sinks.float().reshape(1, h, 1) - lse.float().reshape(-1, h, lse.shape[-1]))
+    return -(p * delta.float().reshape(p.shape)).sum((0, 2)).to(sinks.dtype)
+
+
+def _check_cuda(q, k, v, seg_q, seg_kv, sinks=None):
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda":
             raise ValueError(f"flash_attention: {name} is on {t.device}, q on cuda")
@@ -176,14 +191,29 @@ def _check_cuda(q, k, v, seg_q, seg_kv):
         for t, s in ((seg_q, q.shape[1]), (seg_kv, k.shape[1])):
             if t.shape != (q.shape[0], s) or t.device != q.device:
                 raise ValueError(f"segment ids must be ({q.shape[0]}, {s}) on {q.device}")
+    if sinks is not None and (sinks.shape != (q.shape[2],) or sinks.device != q.device):
+        raise ValueError(f"sinks must be ({q.shape[2]},) on {q.device}, got "
+                         f"{tuple(sinks.shape)} on {sinks.device}")
 
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def flash_fwd(q, k, v, seg_q, seg_kv, scale, causal):
-    """Launch the forward kernel on checked inputs: ``(o, lse)``."""
+def _window(window):
+    """The kernels' (has_window, window) pair."""
+    return (0, 0) if window is None else (1, window)
+
+
+def _count(name, window):
+    LAUNCHES[name] += 1
+    if window is not None:
+        WINDOWED_LAUNCHES[name] += 1
+
+
+def flash_fwd(q, k, v, seg_q, seg_kv, scale, causal, window=None, sinks=None):
+    """Launch the forward kernel on checked inputs (``sinks``: None or f32 (H,),
+    contiguous): ``(o, lse)``."""
     from automodel_tpu_torch.kernels.build import launch
 
     b, sq, h, d = q.shape
@@ -191,9 +221,9 @@ def flash_fwd(q, k, v, seg_q, seg_kv, scale, causal):
     o = torch.empty_like(q)
     lse = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
     launch(_SOURCE, "flash_fwd", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-           _ptr(seg_q), _ptr(seg_kv), o.data_ptr(), lse.data_ptr(), b, sq, skv, h, kh, d,
-           float(scale), int(causal))
-    LAUNCHES["flash_fwd"] += 1
+           _ptr(seg_q), _ptr(seg_kv), _ptr(sinks), o.data_ptr(), lse.data_ptr(), b, sq, skv,
+           h, kh, d, float(scale), int(causal), *_window(window))
+    _count("flash_fwd", window)
     return o, lse
 
 
@@ -204,7 +234,7 @@ def _delta(o, do):
     return prod.sum(-1).transpose(1, 2).reshape(b * h, sq).contiguous()
 
 
-def flash_dq(q, k, v, seg_q, seg_kv, do, lse, delta, scale, causal):
+def flash_dq(q, k, v, seg_q, seg_kv, do, lse, delta, scale, causal, window=None):
     """Launch the q-stationary dQ kernel on checked inputs (``do`` contiguous, ``delta``
     from :func:`_delta`): dQ in q's dtype, summed in the same order on every run."""
     from automodel_tpu_torch.kernels.build import launch
@@ -213,12 +243,13 @@ def flash_dq(q, k, v, seg_q, seg_kv, do, lse, delta, scale, causal):
     dq = torch.empty_like(q)
     launch(_SOURCE, "flash_dq", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
            _ptr(seg_q), _ptr(seg_kv), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-           dq.data_ptr(), b, sq, k.shape[1], h, k.shape[2], d, float(scale), int(causal))
-    LAUNCHES["flash_dq"] += 1
+           dq.data_ptr(), b, sq, k.shape[1], h, k.shape[2], d, float(scale), int(causal),
+           *_window(window))
+    _count("flash_dq", window)
     return dq
 
 
-def flash_dkv(q, k, v, seg_q, seg_kv, do, lse, delta, scale, causal):
+def flash_dkv(q, k, v, seg_q, seg_kv, do, lse, delta, scale, causal, window=None):
     """Launch the backward kernel without dQ on checked inputs: ``(dk, dv)``."""
     from automodel_tpu_torch.kernels.build import launch
 
@@ -228,47 +259,64 @@ def flash_dkv(q, k, v, seg_q, seg_kv, do, lse, delta, scale, causal):
     launch(_SOURCE, "flash_dkv", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
            _ptr(seg_q), _ptr(seg_kv), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
            dk.data_ptr(), dv.data_ptr(), b, sq, k.shape[1], h, k.shape[2], d, float(scale),
-           int(causal))
-    LAUNCHES["flash_dkv"] += 1
+           int(causal), *_window(window))
+    _count("flash_dkv", window)
     return dk, dv
 
 
-def flash_backward(q, k, v, seg_q, seg_kv, o, lse, do, scale, causal):
-    """``(dq, dk, dv)`` from ``flash_dq`` and ``flash_dkv``, after delta = rowsum(dO * O)."""
+def flash_backward(q, k, v, seg_q, seg_kv, o, lse, do, scale, causal, window=None):
+    """``(dq, dk, dv)`` from ``flash_dq`` and ``flash_dkv``, after delta = rowsum(dO * O).
+    With sinks, lse holds them: the kernels take the same inputs."""
+    dq, dk, dv, _ = _backward(q, k, v, seg_q, seg_kv, o, lse, do, scale, causal, window)
+    return dq, dk, dv
+
+
+def _backward(q, k, v, seg_q, seg_kv, o, lse, do, scale, causal, window):
     do = do.contiguous()
     delta = _delta(o, do)
-    dq = flash_dq(q, k, v, seg_q, seg_kv, do, lse, delta, scale, causal)
-    dk, dv = flash_dkv(q, k, v, seg_q, seg_kv, do, lse, delta, scale, causal)
-    return dq, dk, dv
+    dq = flash_dq(q, k, v, seg_q, seg_kv, do, lse, delta, scale, causal, window)
+    dk, dv = flash_dkv(q, k, v, seg_q, seg_kv, do, lse, delta, scale, causal, window)
+    return dq, dk, dv, delta
 
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, seg_q, seg_kv, scale, causal):
-        o, lse = flash_fwd(q, k, v, seg_q, seg_kv, scale, causal)
-        ctx.save_for_backward(q, k, v, seg_q, seg_kv, o, lse)
+    def forward(ctx, q, k, v, seg_q, seg_kv, sinks, scale, causal, window):
+        sinks_f = None if sinks is None else sinks.float().contiguous()
+        o, lse = flash_fwd(q, k, v, seg_q, seg_kv, scale, causal, window, sinks_f)
+        ctx.save_for_backward(q, k, v, seg_q, seg_kv, sinks, o, lse)
         ctx.mark_non_differentiable(lse)
-        ctx.scale, ctx.causal = scale, causal
+        ctx.scale, ctx.causal, ctx.window = scale, causal, window
         return o, lse
 
     @staticmethod
     def backward(ctx, do, dlse):
         del dlse  # lse is a residual for the backward, not a differentiated output
-        q, k, v, seg_q, seg_kv, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_backward(q, k, v, seg_q, seg_kv, o, lse, do, ctx.scale, ctx.causal)
-        return dq, dk, dv, None, None, None, None
+        q, k, v, seg_q, seg_kv, sinks, o, lse = ctx.saved_tensors
+        dq, dk, dv, delta = _backward(q, k, v, seg_q, seg_kv, o, lse, do, ctx.scale, ctx.causal,
+                                      ctx.window)
+        dsinks = None
+        if sinks is not None and ctx.needs_input_grad[5]:
+            dsinks = sink_grad(sinks, lse, delta)
+        return dq, dk, dv, None, None, dsinks, None, None, None
 
 
 def flash_attention_cuda(q, k, v, *, causal=True, segment_ids_q=None, segment_ids_kv=None,
-                         softmax_scale=None):
-    """``(o, lse)`` from the kernels; inputs are checked first, nothing falls back."""
+                         softmax_scale=None, sliding_window=None, sinks=None):
+    """``(o, lse)`` from the kernels; inputs are checked first, nothing falls back.
+    ``sinks`` (H,) is differentiable; its gradient is :func:`sink_grad`."""
     seg_q, seg_kv = _segments(segment_ids_q, segment_ids_kv)
-    _check_cuda(q, k, v, seg_q, seg_kv)
+    _check_cuda(q, k, v, seg_q, seg_kv, sinks)
     if seg_q is not None:
         seg_q = seg_q.to(torch.int32).contiguous()
         seg_kv = seg_kv.to(torch.int32).contiguous()
     scale = q.shape[-1] ** -0.5 if softmax_scale is None else softmax_scale
-    o, lse = _FlashAttention.apply(q, k, v, seg_q, seg_kv, float(scale), bool(causal))
+    window = None if sliding_window is None else int(sliding_window)
+    if window is not None and not 0 <= window < 2**31:
+        raise ValueError(f"flash_attention: sliding_window {window} is outside the kernels' "
+                         "int32 range")
+    o, lse = _FlashAttention.apply(q, k, v, seg_q, seg_kv, sinks, float(scale), bool(causal),
+                                   window)
     return o, lse
 
 
@@ -292,10 +340,10 @@ def flash_attention(
             segment_ids_kv=segment_ids_kv, softmax_scale=softmax_scale,
             sliding_window=sliding_window, logit_soft_cap=logit_soft_cap, sinks=sinks)
         return o
-    if sliding_window is not None or logit_soft_cap is not None or sinks is not None:
-        raise NotImplementedError(
-            "the flash kernels take no sliding window, soft-cap or sinks yet "
-            "(ROADMAP.md: the Gemma/gpt-oss slice)")
+    if logit_soft_cap is not None:
+        raise NotImplementedError("the flash kernels take no logit soft-cap yet (ROADMAP.md "
+                                  "Queue 2: it comes with the Gemma family)")
     o, _ = flash_attention_cuda(q, k, v, causal=causal, segment_ids_q=segment_ids_q,
-                                segment_ids_kv=segment_ids_kv, softmax_scale=softmax_scale)
+                                segment_ids_kv=segment_ids_kv, softmax_scale=softmax_scale,
+                                sliding_window=sliding_window, sinks=sinks)
     return o

@@ -1,6 +1,6 @@
 """Rotary position embeddings, rotate-half convention (counterpart of
-``automodel_tpu/ops/rope.py``): default, linear and llama3 frequency scaling.
-Other scaling types raise until a slice needs them."""
+``automodel_tpu/ops/rope.py``): default, linear, llama3 and YaRN frequency scaling, and
+YaRN's cos/sin scale. Other scaling types (longrope) raise until a slice needs them."""
 
 from __future__ import annotations
 
@@ -44,16 +44,53 @@ def rope_frequencies(
         mid = (1 - smooth) * inv_freq / factor + smooth * inv_freq
         return torch.where(wavelen > low_wl, inv_freq / factor,
                            torch.where(wavelen < high_wl, inv_freq, mid))
+    if rope_type == "yarn":
+        # transformers _compute_yarn_parameters: interpolated below the ramp, extrapolated
+        # above it; ``truncate`` (default true) rounds the ramp's ends outwards
+        factor = float(rope_scaling["factor"])
+        orig_len = float(rope_scaling.get("original_max_position_embeddings", 4096))
+        beta_fast = float(rope_scaling.get("beta_fast", 32.0))
+        beta_slow = float(rope_scaling.get("beta_slow", 1.0))
+
+        def find_dim(num_rot: float) -> float:
+            return (rotary_dim * math.log(orig_len / (num_rot * 2 * math.pi))) / (
+                2 * math.log(theta))
+
+        low, high = find_dim(beta_fast), find_dim(beta_slow)
+        if rope_scaling.get("truncate", True):
+            low, high = math.floor(low), math.ceil(high)
+        low = max(low, 0)
+        high = min(high, rotary_dim - 1)
+        dims = torch.arange(rotary_dim // 2, dtype=torch.float32, device=device)
+        ramp = ((dims - low) / max(high - low, 1e-3)).clamp(0, 1)
+        mask = 1.0 - ramp
+        return inv_freq / factor * (1 - mask) + inv_freq * mask
     raise NotImplementedError(f"rope scaling type {rope_type!r} is not ported yet")
 
 
 def rope_attention_scaling(rope_scaling: dict[str, Any] | None) -> float:
-    """cos/sin scale of the scaling type: 1.0 for default, linear and llama3."""
+    """cos/sin scale of the scaling type: 1.0 for default, linear and llama3; YaRN's
+    mscale (``attention_factor`` when given)."""
     if not rope_scaling:
         return 1.0
     rope_type = rope_scaling.get("rope_type", rope_scaling.get("type", "default"))
     if rope_type in ("default", None, "linear", "llama3"):
         return 1.0
+    if rope_type == "yarn":
+        factor = float(rope_scaling["factor"])
+        attention_factor = rope_scaling.get("attention_factor")
+        if attention_factor is not None:
+            return float(attention_factor)
+
+        def get_mscale(scale: float, mscale: float = 1.0) -> float:
+            return 0.1 * mscale * math.log(scale) + 1.0 if scale > 1 else 1.0
+
+        # transformers reads mscale / mscale_all_dim by truthiness: 0 means the default
+        mscale = rope_scaling.get("mscale")
+        mscale_all_dim = rope_scaling.get("mscale_all_dim")
+        if mscale and mscale_all_dim:
+            return get_mscale(factor, float(mscale)) / get_mscale(factor, float(mscale_all_dim))
+        return get_mscale(factor)
     raise NotImplementedError(f"rope scaling type {rope_type!r} is not ported yet")
 
 

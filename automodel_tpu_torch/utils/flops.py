@@ -2,9 +2,14 @@
 GQA decoders with a dense or MoE MLP).
 
 Train FLOPs = 3 x forward. The attention score term counts the full S x S product,
-as the JAX package counts it. An MoE layer counts its active experts (top-k) plus
-shared experts, a dense prefix (``first_k_dense_replace``) the dense MLP; the router's
-product is not counted, as in JAX. MFU is achieved over the card's dense bf16 peak.
+as the JAX package counts it, on sliding-window layers too (``layer_types``: each
+attention layer, sliding or full, counts the same). An MoE layer counts its active
+experts (top-k) plus shared experts, a dense prefix (``first_k_dense_replace``) the
+dense MLP; the router's product is not counted, as in JAX. The routed experts are
+``num_experts``, ``n_routed_experts`` or, in GPT-OSS's config, ``num_local_experts``:
+JAX's formula does not read the last, so it counts a GPT-OSS layer's MLP as one dense
+MLP of ``intermediate_size`` where this one counts its top-k experts. MFU is achieved
+over the card's dense bf16 peak.
 """
 
 from __future__ import annotations
@@ -20,17 +25,19 @@ PEAK_TFLOPS: dict[str, float] = {"h100": 989.0, "h200": 989.0}
 def flops_per_token(cfg: Any, seq_len: int, training: bool = True) -> float:
     """FLOPs per token of a decoder given as an HF-config-like dict or object."""
     get = cfg.get if isinstance(cfg, dict) else (lambda k, d=None: getattr(cfg, k, d))
-    for key in ("kv_lora_rank", "layer_types", "hybrid_override_pattern", "vision_config",
-                "text_config"):
+    for key in ("kv_lora_rank", "hybrid_override_pattern", "vision_config", "text_config"):
         if get(key):
             raise NotImplementedError(f"flops_per_token: {key} configs are not ported yet")
+    other = [t for t in get("layer_types") or () if "linear" in str(t) or "mamba" in str(t)]
+    if other:
+        raise NotImplementedError(f"flops_per_token: {other[0]} layers are not ported yet")
     d, L, v = get("hidden_size"), get("num_hidden_layers"), get("vocab_size")
     n = get("num_attention_heads")
     k = get("num_key_value_heads", n) or n
     h = get("head_dim") or d // n
     inter = get("intermediate_size")
     attn = 2 * d * (n + 2 * k) * h + 2 * n * h * d + 2 * 2 * seq_len * n * h
-    n_routed = get("num_experts") or get("n_routed_experts") or 0
+    n_routed = get("num_experts") or get("n_routed_experts") or get("num_local_experts") or 0
     if n_routed:
         top_k = get("num_experts_per_tok") or get("top_k") or 1
         moe_inter = get("moe_intermediate_size") or inter

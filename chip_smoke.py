@@ -12,22 +12,31 @@ Phases, in order; any failure exits non-zero before the last line:
    one nvcc per source, all started together), with each kernel's registers and
    spills from -Xptxas -v;
 2b. the twice-launch phase: each backward kernel launched twice on the same inputs, and
-   the outputs that differ bitwise (flash_dq and flash_dkv at flash cases a and f,
-   ring_bwd, ring_dq and ring_dkv at ring case a's diagonal step, lce_bwd at lce case a,
-   gmm dX and tgmm at gmm case a); fails if flash_dq, flash_dkv, ring_dq or ring_dkv
-   differs;
+   the outputs that differ bitwise (flash_dq and flash_dkv at flash cases a and f and
+   with GPT-OSS's window, ring_bwd, ring_dq and ring_dkv at ring case a's diagonal step,
+   lce_bwd at lce case a, gmm dX and tgmm at gmm case a, and the backward of the expert
+   biases' gathers at main path 11's shape); fails if flash_dq, flash_dkv, ring_dq,
+   ring_dkv or a bias gather differs;
 3. flash_fwd and the backward (flash_dq + flash_dkv) against their plain version (f32
-   from the same bf16 inputs) in eleven cases: (a) the Llama-3.2-1B training shape, (b) packed segments with
+   from the same bf16 inputs) in twenty cases: (a) the Llama-3.2-1B training shape, (b) packed segments with
    right padding, (c) non-causal, (d) a 16k sequence, (e) the shape and segments of
    main path 3 (rows of 4096 packed by pack_dataset from 1000-token documents); at
    head_dim 128: (f) the Qwen3-30B-A3B training shape, (g) case e's rows and segments;
    at the tiles' edges: (h) S=1000 at head_dim 64 and 128, (i) H=KH=8, head_dim 128,
    non-causal, segment boundaries inside tiles, (j) a grid smaller than the card (B=1,
-   H=4, KH=1, S=4096, head_dim 128);
+   H=4, KH=1, S=4096, head_dim 128); with GPT-OSS's sliding window and sinks (the sinks'
+   gradient from lse and delta held too): (k) window 128, (l) window 100 at head_dim
+   128, (m) sinks, (n) window 128 and sinks at head_dim 128, (o) window 100, sinks and
+   segment boundaries inside tiles at head_dim 64 and 128, (p) window 1 with sinks at
+   S=1000, (q) a window longer than S, (r) a window without the causal mask;
 4. flash kernel times (flash_fwd, flash_dq, flash_dkv) at shapes (a) and (f) beside the
    bound, the plain version and SDPA, and the whole backward as the wrapper runs it
    (delta, flash_dq, flash_dkv) beside SDPA's backward (one phase alone:
-   ``chip_smoke._timings(torch, fa, 4, 2048, 32, 4, 128)``);
+   ``chip_smoke._timings(torch, fa, 4, 2048, 32, 4, 128)``); then at GPT-OSS's shape
+   (B=1, S=8192, H=64, KH=8, D=64) causal, with window 128, and with window 128 and
+   sinks, the bound over the allowed pairs, SDPA with the window as a boolean mask
+   beside the window-only rows; fails unless the windowed forward and backward each
+   take under a quarter of the causal time (``chip_smoke._window_timings(torch, fa)``);
 5. Llama-3.2-1B width at 2 layers: one forward and backward with attention "flash"
    against attention "xla" on the same weights;
 6. lce_fwd / lce_bwd (fused linear CE) against their plain version in nine cases:
@@ -37,13 +46,15 @@ Phases, in order; any failure exits non-zero before the last line:
    (f) E=1000, not a multiple of the 128 tile; (g) E=1003, tied, rows not 16-byte
    aligned; (h) E=8, V=16, tied, every dimension inside one tile; (i) E=1000,
    V=50,264, a multiple of 8 but not of the 256-column tile, so lce_fwd's wgmma route
-   must mask the columns past V that TMA fills with zeros; each case line names the
+   must mask the columns past V that TMA fills with zeros; (j) GPT-OSS-20B's E=2880
+   (no multiple of the 128-wide tile) and V=201,088; each case line names the
    routes of lce_fwd and lce_bwd (wgmma where E and V are multiples of 8, else
    mma_sync: c, f, g) and fails if others were launched;
    then their times at shape (a) beside the bound, the plain version and the
    yardstick torch.logsumexp((h @ w).float(), -1), both kernels' times at main path 7's
    shape (N=32768, E=4096) beside their bounds (lce_fwd's also beside its plain
-   version and yardstick, where the card holds their logits), and the peak memory
+   version and yardstick, where the card holds their logits), at case j's shape, and the
+   peak memory
    that one forward and backward of linear_cross_entropy adds;
 7. gmm / tgmm (grouped expert GEMM: forward, dX, dW) against their plain version in
    seven cases: (a) the slice's gate_up (N=65,536 routed rows, D=2048, F=1536, E=128,
@@ -53,10 +64,11 @@ Phases, in order; any failure exits non-zero before the last line:
    dimension inside one tile, (f) c's experts and 300 rows past the groups, whose out
    and dX must be exactly 0, (g) tgmm's ragged K steps: experts of 1, 63, 64, 65, 127,
    0 and 200 rows (starts off the 64-row steps) and 37 rows past the groups at D=256,
-   F=512; each case line names the routes of gmm and tgmm (wgmma where the row
-   lengths are multiples of 8, else mma_sync: c, d) and fails if others were launched;
-   then gmm (forward and dX) and tgmm times at (a) and (b) beside the bound, the plain
-   version and torch._grouped_mm;
+   F=512; (h, i) GPT-OSS-20B's gate_up (D=2880, F=5760) and down (2880, 2880), 32
+   experts top-4 over 16,384 tokens; each case line names the routes of gmm and tgmm
+   (wgmma where the row lengths are multiples of 8, else mma_sync: c, d) and fails if
+   others were launched; then gmm (forward and dX) and tgmm times at (a), (b), (h) and
+   (i) beside the bound, the plain version and torch._grouped_mm;
 8. Qwen3-30B-A3B width at 1 layer: the kernels against the plain versions on the same
    weights, with routing held fixed;
 8b. ring_fwd / ring_bwd (ring-attention chunk kernels), and the deterministic route
@@ -112,10 +124,17 @@ Phases, in order; any failure exits non-zero before the last line:
    torch.use_deterministic_algorithms(True) (``_deterministic_child``): main path 9
    again, where run B's step-4 loss must equal run A's bitwise; and main path 10, main
    path 8's config run twice, its ring backward through ring_dq + ring_dkv, every loss
-   of the two runs bitwise equal. Every
-   main path also checks that each of its gmm, tgmm, lce_fwd and lce_bwd launches took
-   the wgmma route (``launches by route`` on its line);
-18. one JSON line of per-kernel numbers (every kernel launched on some main path), the
+   of the two runs bitwise equal;
+18. main path 11: the benchmark recipe on examples/benchmark/gpt_oss_20b_proxy.yaml with
+   the published openai/gpt-oss-20b widths at 4 of 24 layers (GPT_OSS_20B, gpt_oss_args:
+   2 sliding-window layers, 2 full, sinks, biases, YaRN, 32 experts top-4, pallas
+   experts, linear CE, adamw_lowmem, mb 8 x seq 2048);
+19. main path 12: train_ft on the same at 2 layers, default loss, 500-token documents
+   packed into rows of 2048 (segment ids through the windowed, sink-carrying kernels).
+   Every main path also checks that each of its gmm, tgmm, lce_fwd and lce_bwd launches
+   took the wgmma route (``launches by route`` on its line), and that its windowed flash
+   launches are those of its sliding layers (printed apart from the unwindowed ones);
+20. one JSON line of per-kernel numbers (every kernel launched on some main path), the
    card line, then the result line.
 
 To run one phase alone on the card, import the script: e.g.
@@ -189,6 +208,23 @@ LLAMA32_1B = {
 }
 BASELINE_STEPS = 4  # max_steps of main path 9: checkpoints and validation at 2 and 4
 BASELINE_VAL_BATCHES = 2  # validation_max_batches of main path 9
+GPT_OSS_YAML = os.path.join(HERE, "examples", "benchmark", "gpt_oss_20b_proxy.yaml")
+# The published config.json of openai/gpt-oss-20b (Hugging Face Hub) laid over the proxy
+# config, at 4 of its 24 layers (2 sliding, 2 full, alternating from sliding, as its
+# layer_types run); random weights from the seed (no weights in the repository).
+GPT_OSS_20B = {
+    "vocab_size": 201088, "hidden_size": 2880, "intermediate_size": 2880,
+    "num_attention_heads": 64, "num_key_value_heads": 8, "head_dim": 64,
+    "num_local_experts": 32, "num_experts_per_tok": 4, "sliding_window": 128,
+    "layer_types": ["sliding_attention", "full_attention"] * 2,
+    "rope_theta": 150000.0,
+    "rope_scaling": {"rope_type": "yarn", "factor": 32.0, "beta_fast": 32.0, "beta_slow": 1.0,
+                     "truncate": False, "original_max_position_embeddings": 4096},
+    "max_position_embeddings": 131072, "swiglu_limit": 7.0, "attention_bias": True,
+    "tie_word_embeddings": False, "rms_norm_eps": 1e-5, "router_aux_loss_coef": 0.9,
+    "initializer_range": 0.02, "num_hidden_layers": 4,
+}
+GPT_OSS_LAYERS_TRAIN_FT = 2  # depth of main path 12
 
 
 class ByteTokenizer:
@@ -302,6 +338,19 @@ def cp_config(out_dir: str) -> str:
     return path
 
 
+def gpt_oss_args(layers: int = GPT_OSS_20B["num_hidden_layers"]) -> list[str]:
+    """CLI overrides that turn the GPT-OSS proxy config into the slice configuration: the
+    published widths at ``layers`` layers (layer_types cut to them), the pallas experts."""
+    args = []
+    cfg = dict(GPT_OSS_20B, num_hidden_layers=layers,
+               layer_types=GPT_OSS_20B["layer_types"][:layers])
+    for key, value in cfg.items():
+        args += [f"--model.config.{key}", json.dumps(value) if isinstance(value, (list, dict))
+                 else str(value).lower() if isinstance(value, bool) else str(value)]
+    return args + ["--dataset.vocab_size", str(GPT_OSS_20B["vocab_size"]),
+                   "--backend.experts_backend", "pallas"]
+
+
 def qwen3_args(layers: int = QWEN3_30B_A3B["num_hidden_layers"]) -> list[str]:
     """CLI overrides that turn the proxy config into the slice configuration."""
     args = []
@@ -407,15 +456,23 @@ def _inputs(torch, b, s, h, kh, d=64, seed=0, device="cuda"):
     return q, k, v, do
 
 
-def _flash_work(q, k, v):
+def _allowed_pairs(s, window=None):
+    """Allowed (q, k) pairs of one causal (batch, head): row i sees min(i + 1, window)."""
+    if window is None or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
+
+
+def _flash_work(q, k, v, window=None):
     """FLOP and byte counts of one causal flash forward and backward, read from the
     timed tensors' own shapes: {"flash_fwd": (flops, bytes), "flash_dq": (...), ...}.
-    The bytes count each input read once and each output written once. Products a
-    (q, k) pair: forward 2 (S, PV), flash_dq 3 (S, dP, dQ), flash_dkv 4 (S, dP, dV,
-    dK), and the backward as the wrapper runs it ("flash_backward": both, from q, k, v,
-    O, dO and lse to dq, dk and dv) 7."""
+    The bytes count each input read once and each output written once; the FLOPs only
+    the allowed pairs (with a sliding ``window``, those inside it). Products a (q, k)
+    pair: forward 2 (S, PV), flash_dq 3 (S, dP, dQ), flash_dkv 4 (S, dP, dV, dK), and
+    the backward as the wrapper runs it ("flash_backward": both, from q, k, v, O, dO and
+    lse to dq, dk and dv) 7."""
     b, s, h, d = q.shape
-    pairs = b * h * s * (s + 1) // 2  # allowed (q, k) pairs of a causal run
+    pairs = b * h * _allowed_pairs(s, window)
     qkv_bytes = 2 * (q.numel() + k.numel() + v.numel())
     lse_bytes = 4 * b * h * s
     return {"flash_fwd": (4 * d * pairs, qkv_bytes + 2 * q.numel() + lse_bytes),  # + O, lse
@@ -442,32 +499,41 @@ def _deterministic(torch, on=True):
         torch.use_deterministic_algorithms(before)
 
 
-def _kernel_case(torch, fa, name, b, s, h, kh, causal, seg=None, d=64):
+def _kernel_case(torch, fa, name, b, s, h, kh, causal, seg=None, d=64, window=None,
+                 sinks=False):
     """flash_fwd and the backward (flash_dq, flash_dkv) through flash_attention_cuda
-    against the plain version; returns the largest errors (O, dq, dk / dv)."""
+    against the plain version, with a sliding ``window`` and per-head ``sinks`` (f32
+    logits ~ N(0, 2^2), the sinks' gradient from lse and delta held against the plain
+    version's autograd); returns the largest errors (O, dq, dk / dv)."""
     q, k, v, do = _inputs(torch, b, s, h, kh, d)
+    g = torch.Generator(device="cuda").manual_seed(s + h)
+    sink = torch.randn(h, device="cuda", generator=g) * 2.0 if sinks else None
     qk, kk, vk = (x.clone().requires_grad_() for x in (q, k, v))
-    o, lse = fa.flash_attention_cuda(qk, kk, vk, causal=causal, segment_ids_q=seg)
-    grads = torch.autograd.grad(o, (qk, kk, vk), do)
+    sk = [] if sink is None else [sink.clone().requires_grad_()]
+    opts = dict(causal=causal, segment_ids_q=seg, sliding_window=window)
+    o, lse = fa.flash_attention_cuda(qk, kk, vk, sinks=sk[0] if sk else None, **opts)
+    grads = torch.autograd.grad(o, (qk, kk, vk, *sk), do)
     torch.cuda.synchronize()
     o = o.detach()
     qr, kr, vr = (x.float().requires_grad_() for x in (q, k, v))
-    o_ref, lse_ref = fa.flash_attention_reference(qr, kr, vr, causal=causal, segment_ids_q=seg)
-    grads_ref = torch.autograd.grad(o_ref, (qr, kr, vr), do.float())
+    sr = [] if sink is None else [sink.clone().requires_grad_()]
+    o_ref, lse_ref = fa.flash_attention_reference(qr, kr, vr, sinks=sr[0] if sr else None, **opts)
+    grads_ref = torch.autograd.grad(o_ref, (qr, kr, vr, *sr), do.float())
     err_o = (o.float() - o_ref).abs().max().item()
     err_lse = (lse - lse_ref).abs().max().item()
     rel = [_rel_l2(a, r) for a, r in zip(grads, grads_ref)]
     err = [(a.float() - r).abs().max().item() for a, r in zip(grads, grads_ref)]
     print(f"case {name}: B={b} S={s} H={h} KH={kh} D={d} causal={causal} "
-          f"segments={seg is not None}: "
+          f"segments={seg is not None} window={window} sinks={sinks}: "
           f"O max abs {err_o:.3e} (tol {TOL_O}), lse max abs {err_lse:.3e} (tol {TOL_LSE}), "
           f"grad rel L2 dq (flash_dq) {rel[0]:.3e}, dk {rel[1]:.3e} dv {rel[2]:.3e} "
-          f"(flash_dkv) (tol {TOL_GRAD})", flush=True)
+          f"(flash_dkv)" + (f", dsinks {rel[3]:.3e} (lse, delta)" if sinks else "")
+          + f" (tol {TOL_GRAD})", flush=True)
     if not (err_o <= TOL_O and err_lse <= TOL_LSE and max(rel) <= TOL_GRAD):
         raise AssertionError(f"case {name}: kernels disagree with the plain version")
     del o_ref, lse_ref, grads_ref, qr, kr, vr
     torch.cuda.empty_cache()
-    return err_o, err[0], max(err[1:])
+    return err_o, err[0], max(err[1:3])
 
 
 def _packed_segments(torch):
@@ -494,7 +560,7 @@ def _inner_segments(torch):
 
 
 def _flash_phase(torch, fa, errs):
-    """flash_fwd and flash_dq / flash_dkv cases a-j against the plain version (see the
+    """flash_fwd and flash_dq / flash_dkv cases a-r against the plain version (see the
     module docstring); the largest errors go into ``errs``."""
     names = ("flash_fwd", "flash_dq", "flash_dkv")
     errs.update(dict.fromkeys(names, 0.0))
@@ -522,27 +588,55 @@ def _flash_phase(torch, fa, errs):
     note(_kernel_case(torch, fa, "i", 2, 2048, 8, 8, causal=False, seg=_inner_segments(torch),
                       d=128))
     note(_kernel_case(torch, fa, "j", 1, 4096, 4, 1, causal=True, d=128))
+    # sliding windows and sinks (GPT-OSS: window 128, sinks, GQA 64 / 8 heads at D=64):
+    # k-l windows of 128 and 100 (no multiple of a tile), m sinks alone, n sinks and a
+    # window at D=128, o window, sinks and segments whose boundaries fall inside tiles
+    # (the window crosses them), p a window of 1 on a ragged length, q a window longer
+    # than S, r a window without the causal mask
+    note(_kernel_case(torch, fa, "k", 2, 2048, 16, 2, causal=True, window=128))
+    note(_kernel_case(torch, fa, "l", 2, 2048, 16, 2, causal=True, window=100, d=128))
+    note(_kernel_case(torch, fa, "m", 2, 2048, 16, 2, causal=True, sinks=True))
+    note(_kernel_case(torch, fa, "n", 2, 2048, 16, 4, causal=True, window=128, sinks=True,
+                      d=128))
+    inner = _inner_segments(torch)
+    note(_kernel_case(torch, fa, "o", 2, 2048, 16, 2, causal=True, seg=inner, window=100,
+                      sinks=True))
+    note(_kernel_case(torch, fa, "o", 2, 2048, 16, 2, causal=True, seg=inner, window=100,
+                      sinks=True, d=128))
+    note(_kernel_case(torch, fa, "p", 2, 1000, 8, 2, causal=True, window=1, sinks=True))
+    note(_kernel_case(torch, fa, "q", 2, 2048, 8, 2, causal=True, window=4096, d=128))
+    note(_kernel_case(torch, fa, "r", 2, 2048, 8, 2, causal=False, window=300))
 
 
-def _time_ms(torch, fn, warmup=3, reps=20) -> float:
-    """Median of ``reps`` CUDA-event timings of one call, after ``warmup`` calls."""
+def _time_ms(torch, fn, warmup=3, reps=20, batch=1) -> float:
+    """Median of ``reps`` CUDA-event timings of one call, after ``warmup`` calls; with
+    ``batch`` > 1 each timing spans that many calls back to back and is divided by it,
+    so the host's launch work of a short kernel overlaps the previous call's device time
+    instead of adding to it."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(batch):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / batch)
     return sorted(times)[len(times) // 2]
 
 
-def _library_sdpa(torch, q, k, v, causal):
-    """The yardstick: PyTorch's own attention call, timed here and used nowhere in the port."""
+def _library_sdpa(torch, q, k, v, causal, mask=None):
+    """The yardstick: PyTorch's own attention call, timed here and used nowhere in the port.
+    ``mask``: a boolean (Sq, Skv) mask in place of the causal flag (the sliding window's
+    yardstick), with k and v repeated to q's heads beforehand by the caller (a masked call
+    takes no GQA in its memory-efficient kernel)."""
     import torch.nn.functional as F
 
+    if mask is not None:
+        return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                              v.transpose(1, 2), attn_mask=mask).transpose(1, 2)
     return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
                                           v.transpose(1, 2), is_causal=causal,
                                           enable_gqa=True).transpose(1, 2)
@@ -615,6 +709,97 @@ def _timings(torch, fa, b=4, s=2048, h=32, kh=8, d=64):
                  f"SDPA backward {lib_bwd:.3f} ms")
               + (f", of it delta {delta_ms:.3f} ms" if name == "flash_backward" else ""),
               flush=True)
+    return out
+
+
+BATCH_AT_GPT_OSS = 10
+
+
+def _window_timings(torch, fa, b=1, s=8192, h=64, kh=8, d=64, window=128):
+    """flash_fwd, flash_dq, flash_dkv and the whole backward at GPT-OSS's attention
+    shape (B=1, S=8192, H=64, KH=8, D=64): causal, causal with the window, and causal
+    with the window and sinks. The bound counts the allowed pairs only. Yardsticks: SDPA
+    (causal; the window as a boolean mask); none for sinks (null). The plain version's
+    (B, H, S, S) f32 scores take 17 GB a tensor at this shape: where the card cannot
+    hold them the row keeps null and the reason. Kernels and yardsticks are timed
+    ``BATCH_AT_GPT_OSS`` calls back to back a timing (a windowed call is short enough for
+    the host's launch work to show otherwise). Fails unless the windowed forward and the
+    windowed backward each take under a quarter of the causal ones' time (the window
+    allows ~1/32 of the causal pairs)."""
+    (q, k, v, do), _ = _flash_timing_inputs(torch, b, s, h, kh, d)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    sinks = torch.randn(h, device="cuda", generator=g) * 2.0
+    scale = d**-0.5
+    rep = h // kh
+    kx, vx = k.repeat_interleave(rep, 2), v.repeat_interleave(rep, 2)
+    idx = torch.arange(s, device="cuda")
+    band = (idx[:, None] >= idx[None, :]) & (idx[:, None] - idx[None, :] < window)
+    out = {}
+    for case, win, snk in (("causal", None, None), ("window", window, None),
+                           ("window_sinks", window, sinks)):
+        work = _flash_work(q, k, v, win)
+        o, lse = fa.flash_fwd(q, k, v, None, None, scale, True, win, snk)
+        delta = fa._delta(o, do)
+        n = BATCH_AT_GPT_OSS
+        times = {
+            "flash_fwd": _time_ms(torch, lambda: fa.flash_fwd(q, k, v, None, None, scale, True,
+                                                              win, snk), batch=n),
+            "flash_dq": _time_ms(torch, lambda: fa.flash_dq(q, k, v, None, None, do, lse, delta,
+                                                            scale, True, win), batch=n),
+            "flash_dkv": _time_ms(torch, lambda: fa.flash_dkv(q, k, v, None, None, do, lse,
+                                                              delta, scale, True, win), batch=n),
+            "flash_backward": _time_ms(torch, lambda: (fa.flash_backward(
+                q, k, v, None, None, o, lse, do, scale, True, win),
+                None if snk is None else fa.sink_grad(snk, lse, delta)), batch=n)}
+        lib = {"flash_fwd": None, "flash_backward": None}
+        if snk is None:
+            ql, kl, vl = (x.clone().requires_grad_() for x in ((q, k, v) if win is None
+                                                               else (q, kx, vx)))
+            call = ((lambda: _library_sdpa(torch, ql, kl, vl, True)) if win is None else
+                    (lambda: _library_sdpa(torch, ql, kl, vl, True, mask=band)))
+            lib["flash_fwd"] = _time_ms(torch, call, batch=n)
+            o_lib = call()
+            lib["flash_backward"] = _time_ms(torch, lambda: torch.autograd.grad(
+                o_lib, (ql, kl, vl), do, retain_graph=True), batch=n)
+            del o_lib, ql, kl, vl
+        plain, note = None, None
+        try:
+            plain = _time_ms(torch, lambda: fa.flash_attention_reference(
+                q, k, v, causal=True, sliding_window=win, sinks=snk), warmup=1, reps=3)
+        except torch.cuda.OutOfMemoryError as exc:
+            note = f"not timed: {str(exc).splitlines()[0][:160]}"
+        torch.cuda.empty_cache()
+        shown = f"B={b} S={s} H={h} KH={kh} D={d} causal, window {win}, sinks {snk is not None}"
+        for name, ms in times.items():
+            flops, nbytes = work[name]
+            t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+            row = {"ms": ms, "bound_ms": max(t_ops, t_bytes),
+                   "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                   "plain_ms": plain if name == "flash_fwd" else None,
+                   "library_ms": lib.get(name),
+                   "shape": {"B": b, "S": s, "H": h, "KH": kh, "D": d, "window": win,
+                             "sinks": snk is not None}, "calls_a_timing": n}
+            if name == "flash_fwd" and note:
+                row["plain_note"] = note
+            if snk is not None:
+                row["library"] = "no single PyTorch call computes attention with sinks"
+            elif name not in lib:
+                row["library"] = "no single PyTorch call computes this part of the backward"
+            out.setdefault(name, {})[case] = row
+            print(f"time {name} at {shown}: {ms:.3f} ms, bound {row['bound_ms']:.3f} ms "
+                  f"({row['bound_by']}: {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB), "
+                  f"plain {row['plain_ms']}, library {row['library_ms']}", flush=True)
+        del o, lse, delta
+        torch.cuda.empty_cache()
+    for name in ("flash_fwd", "flash_backward"):
+        share = out[name]["window"]["ms"] / out[name]["causal"]["ms"]
+        print(f"{name} at GPT-OSS's shape: window 128 takes {share:.4f} of the causal time "
+              f"(allowed pairs {_allowed_pairs(s, window) / _allowed_pairs(s):.4f})", flush=True)
+        if share >= 0.25:
+            raise AssertionError(f"{name}: the windowed run takes {share:.3f} of the causal "
+                                 "one's time: tiles behind the window are not skipped")
+    del q, k, v, do, kx, vx, band
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1257,21 +1442,27 @@ def _gmm_work(n, d, f, e, live):
 
 
 # where each grouped GEMM timing goes in the kernels line: case a's forward and tgmm
-# are the rows themselves (None), the rest keyed sub-rows
+# are the rows themselves (None), the rest keyed sub-rows; h and i are GPT-OSS-20B's
+# gate_up and down (D = 2880, not a multiple of the 128-wide tile)
 _GMM_ROW_KEYS = {("forward", "a"): None, ("forward", "b"): "at_case_b", ("dX", "a"): "dx",
-                 ("dX", "b"): "dx_at_case_b", ("tgmm", "a"): None, ("tgmm", "b"): "at_case_b"}
+                 ("dX", "b"): "dx_at_case_b", ("tgmm", "a"): None, ("tgmm", "b"): "at_case_b",
+                 ("forward", "h"): "at_gpt_oss_gate_up", ("dX", "h"): "dx_at_gpt_oss_gate_up",
+                 ("tgmm", "h"): "at_gpt_oss_gate_up", ("forward", "i"): "at_gpt_oss_down",
+                 ("dX", "i"): "dx_at_gpt_oss_down", ("tgmm", "i"): "at_gpt_oss_down"}
+GMM_SHAPES = (("a", 2048, 1536), ("b", 768, 2048))  # the Qwen3-30B-A3B slice's
+GPT_OSS_GMM_SHAPES = (("h", 2880, 5760), ("i", 2880, 2880))
 
 
-def _gmm_timings(torch, sizes):
+def _gmm_timings(torch, sizes, shapes=GMM_SHAPES):
     """ms of gmm (forward and dX) and tgmm (dW) at the slice's gate_up (a) and down (b)
-    shapes, with bound, plain version and yardstick."""
+    shapes, or the ``shapes`` given, with bound, plain version and yardstick."""
     from automodel_tpu_torch.ops import grouped_gemm as gg
 
     out = {"gmm": {}, "tgmm": {}}
     e = sizes.numel()
     live = int((sizes > 0).sum())
     ends = gg._ends(sizes)
-    for case, d, f in (("a", 2048, 1536), ("b", 768, 2048)):
+    for case, d, f in shapes:
         x, w, dout = _gmm_inputs(torch, sizes, d, f, seed=11)
         n = x.shape[0]
         work = _gmm_work(n, d, f, e, live)
@@ -1316,7 +1507,7 @@ def _gmm_timings(torch, sizes):
 
 
 def _gmm_phase(torch, errs):
-    """Grouped GEMM cases a-f and timings. a / b: the slice's gate_up and down shapes
+    """Grouped GEMM cases a-i and timings. a / b: the slice's gate_up and down shapes
     with group sizes from a softmax top-8 router over 8192 tokens and 128 experts; c:
     empty head / mid / tail experts, N not a tile multiple, D = 1000 and F = 1003; d:
     one expert owning every row, D = 1003 (rows of x and the K of dW not 16-byte
@@ -1325,8 +1516,11 @@ def _gmm_phase(torch, errs):
     sizes with 300 rows past the groups at D = 256, F = 512, on the wgmma route (its
     tail tiles zero those rows); g: tgmm's wgmma route with every kind of last K step
     (experts of 1, 63, 64, 65, 127 and 200 rows, one empty, 37 rows past the groups
-    whose x must not enter the last expert's dW)."""
+    whose x must not enter the last expert's dW); h / i: GPT-OSS-20B's gate_up (D = 2880,
+    F = 5760) and down (2880, 2880), 32 experts top-4 over 16,384 tokens (main path 11's
+    microbatch), K and N no multiple of the 128-wide tile; timed at both."""
     sizes = _router_group_sizes(torch, 8192, 2048, 128, 8)
+    gpt_oss = _router_group_sizes(torch, 16384, 2880, 32, 4)
     ragged = torch.tensor([0, 0, 300, 0, 77, 5, 0, 1, 134, 0, 0], dtype=torch.int32,
                           device="cuda")
     owner = torch.tensor([0, 1000, 0, 0], dtype=torch.int32, device="cuda")
@@ -1335,11 +1529,15 @@ def _gmm_phase(torch, errs):
     errs.update({"gmm": 0.0, "tgmm": 0.0})
     for case in (("a", sizes, 2048, 1536), ("b", sizes, 768, 2048),
                  ("c", ragged, 1000, 1003), ("d", owner, 1003, 1000), ("e", small, 16, 24),
-                 ("f", ragged, 256, 512, 300), ("g", tails, 256, 512, 37)):
+                 ("f", ragged, 256, 512, 300), ("g", tails, 256, 512, 37),
+                 ("h", gpt_oss, 2880, 5760), ("i", gpt_oss, 2880, 2880)):
         err_gmm, err_tgmm = _gmm_case(torch, *case)
         errs["gmm"] = max(errs["gmm"], err_gmm)
         errs["tgmm"] = max(errs["tgmm"], err_tgmm)
-    return _gmm_timings(torch, sizes)
+    out = _gmm_timings(torch, sizes)
+    for name, rows in _gmm_timings(torch, gpt_oss, GPT_OSS_GMM_SHAPES).items():
+        out[name].update(rows)
+    return out
 
 
 def _twice(torch, label, fn, names):
@@ -1356,31 +1554,45 @@ def _twice(torch, label, fn, names):
     return {n: (out[n] if n in differ else 0.0) for n in names}
 
 
-# the kernels of the deterministic route: two launches on the same inputs must agree bitwise
-DETERMINISTIC_KERNELS = ("flash_dq", "flash_dkv", "ring_dq", "ring_dkv")
+# the kernels of the deterministic route, and the expert-bias gathers' backward on main
+# paths 11 and 12: two launches on the same inputs must agree bitwise
+DETERMINISTIC_KERNELS = ("flash_dq", "flash_dkv", "ring_dq", "ring_dkv", "gate_up_bias gather",
+                         "down_bias gather")
+
+
+def _bias_gather_grad(torch, bias, idx, g):
+    """The gradient of ``bias[idx]`` (the expert biases' gather in
+    ``moe/experts.py::sorted_ragged_ffn``) for the upstream gradient ``g``."""
+    b = bias.detach().requires_grad_()
+    return torch.autograd.grad(b[idx], b, g)
 
 
 def _twice_phase(torch):
     """Each backward kernel launched twice on the same inputs, and the outputs that differ
-    bitwise: flash_dq and flash_dkv at flash cases (a) and (f), ring_bwd and the
-    deterministic route (ring_dq, ring_dkv) at ring case (a)'s diagonal step, lce_bwd at
-    lce case (a), gmm dX and tgmm at gmm case (a). Fails if a kernel of
+    bitwise: flash_dq and flash_dkv at flash cases (a) and (f) and with GPT-OSS's window
+    (w: B=1, S=4096, H=16, KH=2, D=64, window 128), ring_bwd and the deterministic route
+    (ring_dq, ring_dkv) at ring case (a)'s diagonal step, lce_bwd at lce case (a), gmm dX
+    and tgmm at gmm case (a), and the backward of the expert biases' gathers at main path
+    11's shapes (65,536 rows sorted over 32 experts). Fails if one of
     DETERMINISTIC_KERNELS differs; the others are reported."""
     from automodel_tpu_torch.ops import flash_attention as fa, grouped_gemm as gg
     from automodel_tpu_torch.ops import linear_ce as lce, ring_chunk as rc
 
     found = {}
-    for case, shape in (("a", (4, 2048, 32, 8, 64)), ("f", (4, 2048, 32, 4, 128))):
+    for case, shape, win in (("a", (4, 2048, 32, 8, 64), None), ("f", (4, 2048, 32, 4, 128), None),
+                             ("w", (1, 4096, 16, 2, 64), 128)):
         q, k, v, do = _inputs(torch, *shape, seed=3)
         scale = q.shape[-1]**-0.5
-        o, lse = fa.flash_fwd(q, k, v, None, None, scale, True)
+        o, lse = fa.flash_fwd(q, k, v, None, None, scale, True, win)
         delta = fa._delta(o, do)
         found[f"flash_dq ({case})"] = _twice(
             torch, f"flash_dq at flash case ({case})",
-            lambda: (fa.flash_dq(q, k, v, None, None, do, lse, delta, scale, True),), ("dq",))
+            lambda: (fa.flash_dq(q, k, v, None, None, do, lse, delta, scale, True, win),),
+            ("dq",))
         found[f"flash_dkv ({case})"] = _twice(
             torch, f"flash_dkv at flash case ({case})",
-            lambda: fa.flash_dkv(q, k, v, None, None, do, lse, delta, scale, True), ("dk", "dv"))
+            lambda: fa.flash_dkv(q, k, v, None, None, do, lse, delta, scale, True, win),
+            ("dk", "dv"))
         del q, k, v, do, o, lse, delta
 
     calls, st = _ring_launches(torch, (0,))
@@ -1418,6 +1630,17 @@ def _twice_phase(torch):
     found["tgmm (a)"] = _twice(torch, "tgmm at gmm case (a)",
                                lambda: (gg.tgmm(x, dout, ends, sizes.numel()),), ("dw",))
     del x, w, dout
+
+    sizes = _router_group_sizes(torch, 16384, 2880, 32, 4)
+    idx = torch.repeat_interleave(torch.arange(32, device="cuda"), sizes.long())
+    g = torch.Generator(device="cuda").manual_seed(13)
+    for name, cols in (("gate_up_bias", 5760), ("down_bias", 2880)):
+        bias = torch.randn(32, cols, device="cuda", generator=g).to(torch.bfloat16)
+        up = torch.randn(idx.numel(), cols, device="cuda", generator=g).to(torch.bfloat16)
+        found[f"{name} gather (gpt-oss)"] = _twice(
+            torch, f"the backward of {name}[sorted expert ids] at main path 11's shape",
+            lambda: _bias_gather_grad(torch, bias, idx, up), (f"d{name}",))
+        del bias, up
     torch.cuda.empty_cache()
 
     differ = {k: [n for n, d in v.items() if d] for k, v in found.items()}
@@ -1475,9 +1698,18 @@ def _counters():
 
 
 def _reset_counts():
-    for counter in (*_counters(), *_route_counters()):
+    from automodel_tpu_torch.ops import flash_attention as fa
+
+    for counter in (*_counters(), *_route_counters(), fa.WINDOWED_LAUNCHES):
         for key in counter:
             counter[key] = 0
+
+
+def _read_windowed() -> dict:
+    """The flash launches that carried a sliding window ("flash_fwd/windowed", ...)."""
+    from automodel_tpu_torch.ops import flash_attention as fa
+
+    return {f"{k}/windowed": v for k, v in fa.WINDOWED_LAUNCHES.items()}
 
 
 def _read_counts() -> dict:
@@ -1500,14 +1732,46 @@ def _read_routes() -> dict:
 
 def _check_routes(name, launches) -> dict:
     """Every launch of gmm, tgmm, lce_fwd and lce_bwd on a main path must have taken
-    the wgmma route; returns the launches with the route counts added."""
+    the wgmma route; returns the launches with the route counts and the windowed flash
+    launches added."""
     routes = _read_routes()
     print(f"{name}: launches by route {routes}", flush=True)
     for kernel in ROUTED:
         if routes[f"{kernel}/wgmma"] != launches.get(kernel, 0):
             raise AssertionError(f"{name}: {launches.get(kernel, 0)} {kernel} launches, "
                                  f"{routes[f'{kernel}/wgmma']} of them on the wgmma route")
-    return {**launches, **routes}
+    return {**launches, **routes, **_read_windowed()}
+
+
+def _sliding_layers(cfg) -> int:
+    """How many of a config's layers attend through the sliding window (GPT-OSS's
+    layer_types; a window with no layer_types is every layer's)."""
+    model = cfg.model.config
+    layers = int(model.num_hidden_layers)
+    types = model.get("layer_types")
+    if types:
+        return sum(t == "sliding_attention" for t in list(types)[:layers])
+    return layers if model.get("sliding_window") is not None else 0
+
+
+def _is_moe(cfg) -> bool:
+    model = cfg.model.config
+    return bool(model.get("num_experts") or model.get("num_local_experts"))
+
+
+def _check_windowed(name, launches, sliding, micro, steps):
+    """The windowed share of a path's flash launches: with n = sliding layers x
+    microbatches x steps, flash_fwd 2n (forward and replay), flash_dq and flash_dkv n;
+    printed apart from the unwindowed ones, which the full layers launch."""
+    n = sliding * micro * steps
+    want = {"flash_fwd/windowed": 2 * n, "flash_dq/windowed": n, "flash_dkv/windowed": n}
+    got = {k: launches[k] for k in want}
+    plain = {k: launches[k] - launches[f"{k}/windowed"] for k in ("flash_fwd", "flash_dq",
+                                                                   "flash_dkv")}
+    print(f"{name}: windowed flash launches {got} (expected {want}; {sliding} sliding "
+          f"layers), unwindowed {plain}", flush=True)
+    if got != want:
+        raise AssertionError(f"{name}: windowed flash launches {got} != expected {want}")
 
 
 def _release():
@@ -1586,8 +1850,8 @@ def _bench_path(name, yaml, linear_ce, overrides=()):
         result = benchmark.main(argv=argv)
         launches = _read_counts()
     vocab = int(cfg.model.config.vocab_size)
-    want = _expected(layers, micro, WARMUP + TIMED, linear_ce,
-                     moe=bool(cfg.model.config.get("num_experts")), ring_cp=_ring_cp(cfg))
+    want = _expected(layers, micro, WARMUP + TIMED, linear_ce, moe=_is_moe(cfg),
+                     ring_cp=_ring_cp(cfg))
     print(f"{name}: benchmark recipe on {_shown(yaml)} ({layers} layers, "
           f"{micro} microbatch, mb {cfg.micro_batch_size}, seq {cfg.seq_len}, loss "
           f"{cfg.get('loss.name')}, tied {cfg.model.config.get('tie_word_embeddings')}), {WARMUP} warmup + {TIMED} timed steps: "
@@ -1596,15 +1860,22 @@ def _bench_path(name, yaml, linear_ce, overrides=()):
           f"{result['losses']}, launches {launches} (expected {want})", flush=True)
     hidden = int(cfg.model.config.hidden_size)
     std = float(cfg.model.config.get("initializer_range", 0.02))
-    want_loss = random_init_loss(vocab, hidden, std)
+    # an MoE model's loss carries coef x its layers' aux losses, each ~1 (f_i P_i summed
+    # over E experts is 1 when the routing is balanced, as at init)
+    aux = float(cfg.model.config.get("router_aux_loss_coef", 0.0)) * layers if _is_moe(cfg) \
+        else 0.0
+    want_loss = random_init_loss(vocab, hidden, std) + aux
     if not all(math.isfinite(x) for x in result["losses"]):
         raise AssertionError(f"non-finite loss on {name}")
     if abs(result["loss"] - want_loss) > 0.5:
         raise AssertionError(f"{name}: loss {result['loss']} is not within 0.5 of "
-                             f"ln({vocab}) + {hidden} * {std}^2 / 2 = {want_loss:.3f}")
+                             f"ln({vocab}) + {hidden} * {std}^2 / 2 + {aux:g} (aux) = "
+                             f"{want_loss:.3f}")
     if launches != want:
         raise AssertionError(f"{name}: kernel launches {launches} != expected {want}")
-    return _check_routes(name, launches), result["losses"]
+    routed = _check_routes(name, launches)
+    _check_windowed(name, routed, _sliding_layers(cfg), micro, WARMUP + TIMED)
+    return routed, result["losses"]
 
 
 def _train_ft_path(name, yaml, overrides, deterministic=False):
@@ -1634,7 +1905,7 @@ def _train_ft_path(name, yaml, overrides, deterministic=False):
             rows = [r for r in map(json.loads, f) if "loss" in r]
     layers = int(cfg.model.config.num_hidden_layers)
     micro = int(cfg.get("step_scheduler.grad_acc_steps", 1))
-    moe = bool(cfg.model.config.get("num_experts"))
+    moe = _is_moe(cfg)
     want = _expected(layers, micro, TRAIN_FT_STEPS, True, moe, ring_cp=_ring_cp(cfg),
                      deterministic=deterministic)
     losses = [r["loss"] for r in rows]
@@ -1652,7 +1923,9 @@ def _train_ft_path(name, yaml, overrides, deterministic=False):
         raise AssertionError(f"{name}: training.jsonl rows without moe_load/* metrics")
     if launches != want:
         raise AssertionError(f"{name}: kernel launches {launches} != expected {want}")
-    return _check_routes(name, launches), losses
+    routed = _check_routes(name, launches)
+    _check_windowed(name, routed, _sliding_layers(cfg), micro, TRAIN_FT_STEPS)
+    return routed, losses
 
 
 def _recorded_train_ft(cfg, on_setup=None):
@@ -1951,11 +2224,11 @@ def _library_lse(torch, h, w):
     return torch.logsumexp((h @ w).float(), -1)
 
 
-def _lce_timings(torch):
-    """ms of each linear-CE kernel at shape (a), with bound, plain version and yardstick."""
+def _lce_timings(torch, n=8192, e=2048, v=128256, large=True):
+    """ms of each linear-CE kernel at shape (a), or (N, E, V) as given, with bound, plain
+    version and yardstick; ``large``: also at main path 7's shape."""
     from automodel_tpu_torch.ops import linear_ce as lce
 
-    n, e, v = 8192, 2048, 128256
     h, w, _ = _lce_inputs(torch, n, e, v, seed=7)
     dz = torch.ones(n, device="cuda")
     fwd_flops = 2 * n * e * v
@@ -1994,7 +2267,9 @@ def _lce_timings(torch):
     out["lce_bwd"]["route"] = lce.lce_bwd_route(h, w)
     del h, w, z, dz
     torch.cuda.empty_cache()
-    out["lce_fwd"]["at_path7_shape"], out["lce_bwd"]["at_path7_shape"] = _lce_timing_large(torch)
+    if large:
+        out["lce_fwd"]["at_path7_shape"], out["lce_bwd"]["at_path7_shape"] = \
+            _lce_timing_large(torch)
     return out
 
 
@@ -2180,6 +2455,10 @@ def main(argv: list[str]) -> int:
     timings = _timings(torch, fa)
     for name, row in _timings(torch, fa, 4, 2048, 32, 4, 128).items():
         timings[name]["at_d128"] = row
+    gpt_oss = _window_timings(torch, fa)
+    for name in ("flash_fwd", "flash_dq", "flash_dkv"):
+        timings[name]["at_gpt_oss"] = gpt_oss[name]
+    timings["flash_dq"]["at_gpt_oss"]["whole_backward"] = gpt_oss["flash_backward"]
     _model_check(torch)
 
     errs.update({"lce_fwd": 0.0, "lce_bwd": 0.0})
@@ -2187,11 +2466,13 @@ def main(argv: list[str]) -> int:
                  ("c", 8190, 2048, 50257), ("d", 4096, 4096, 128256),
                  ("e", 8192, 2048, 128256, 1e-7, 32.0, True), ("f", 1024, 1000, 50257),
                  ("g", 256, 1003, 3001, None, 1.0, True), ("h", 256, 8, 16, None, 1.0, True),
-                 ("i", 1024, 1000, 50264)):
+                 ("i", 1024, 1000, 50264), ("j", 8192, 2880, 201088)):
         err_z, err_grad = _lce_case(torch, *case)
         errs["lce_fwd"] = max(errs["lce_fwd"], err_z)
         errs["lce_bwd"] = max(errs["lce_bwd"], err_grad)
     timings.update(_lce_timings(torch))
+    for name, row in _lce_timings(torch, 8192, 2880, 201088, large=False).items():
+        timings[name]["at_gpt_oss"] = row
     _lce_memory(torch)
     timings.update(_gmm_phase(torch, errs))
     _moe_model_check(torch)
@@ -2226,6 +2507,13 @@ def main(argv: list[str]) -> int:
         by_path["main path 8"], _ = _train_ft_path("main path 8", cp_yaml, _cp_train_ft_args())
     by_path["main path 9"] = _baseline_path("main path 9")
     by_path.update(_deterministic_paths())
+    by_path["main path 11"], _ = _bench_path("main path 11", GPT_OSS_YAML, linear_ce=True,
+                                             overrides=gpt_oss_args())
+    by_path["main path 12"], _ = _train_ft_path(
+        "main path 12", GPT_OSS_YAML, [*gpt_oss_args(GPT_OSS_LAYERS_TRAIN_FT),
+                                       "--packed_sequence.packed_sequence_size", "2048",
+                                       "--dataset.seq_len", "500",
+                                       "--backend.attention_segments", "true"])
 
     flash = "automodel_tpu/ops/pallas/flash_attention.py"
     lce_src = "automodel_tpu/ops/pallas/linear_ce.py"
@@ -2250,12 +2538,18 @@ def main(argv: list[str]) -> int:
                "ring_dq": "ring_chunk.cu", "ring_dkv": "ring_chunk.cu"}
     kernels = []
     for name in replaces:
-        row = {"name": name, "route": "cuda",
+        timing = dict(timings[name])
+        # the contract's route is the language (every kernel here is CUDA C++); a timed
+        # GEMM-core kernel's wgmma / mma_sync route stays beside it as kernel_route
+        kernel_route = timing.pop("route", None)
+        row = {"name": name, **timing, "route": "cuda",
                "source": f"automodel_tpu_torch/csrc/{sources[name]}",
                "replaces": replaces[name][0],
                "launches": sum(counts[name] for counts in by_path.values()),
-               "max_abs_err": errs[name], **timings[name],
+               "max_abs_err": errs[name],
                "launches_by_path": {p: counts[name] for p, counts in by_path.items()}}
+        if kernel_route is not None:
+            row["kernel_route"] = kernel_route
         if replaces[name][1]:
             row["replaces_by_function"] = replaces[name][1]
         if name in ROUTED:  # main-path launches by route
@@ -2264,6 +2558,9 @@ def main(argv: list[str]) -> int:
                 for r in ("wgmma", "mma_sync")}
         if name in ("ring_dq", "ring_dkv"):  # a part of _chunk_bwd_kernel
             row["replaces_part"] = "dq" if name == "ring_dq" else "dk, dv"
+        if name.startswith("flash_"):  # the launches with a sliding window, by path
+            row["launches_windowed"] = {p: counts.get(f"{name}/windowed", 0)
+                                        for p, counts in by_path.items()}
         kernels.append(row)
     idle = [row["name"] for row in kernels if row["launches"] == 0]
     if idle:

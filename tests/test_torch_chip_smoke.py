@@ -180,11 +180,14 @@ def test_gmm_timing_work_counts():
     assert work["forward"][1] == 2 * (n * d + live * d * f + n * f) + 4 * e
     assert work["dX"][1] == 2 * (n * f + live * d * f + n * d) + 4 * e  # dout in, dX out
     assert work["tgmm"][1] == 2 * (n * d + n * f + e * d * f) + 4 * e  # every dW written
-    # every gmm timing lands in the kernels line: case a's forward is the row itself
+    # every gmm timing lands in the kernels line: case a's forward is the row itself, the
+    # rest (b, and GPT-OSS's h and i) keyed sub-rows
     keys = chip_smoke._GMM_ROW_KEYS
-    assert {p for p, _ in keys} == {"forward", "dX", "tgmm"} and {c for _, c in keys} == {"a", "b"}
+    cases = {c for c, _, _ in chip_smoke.GMM_SHAPES + chip_smoke.GPT_OSS_GMM_SHAPES}
+    assert {p for p, _ in keys} == {"forward", "dX", "tgmm"} and {c for _, c in keys} == cases
+    assert cases == {"a", "b", "h", "i"} and len(keys) == 3 * len(cases)
     assert keys["forward", "a"] is None and keys["tgmm", "a"] is None
-    assert len({v for v in keys.values() if v}) == 3
+    assert len({v for v in keys.values() if v}) == 7
 
 
 def test_lce_bwd_work_at_path7_shape():
@@ -411,13 +414,14 @@ def test_ring_split_work_sums_to_a_fused_launch(step):
 def test_phase_order():
     """The twice-launch phase runs first, the kernel cases next, then the main paths in
     order, the deterministic ones (main paths 9 and 10 under the flag, in a child
-    process) last, before the kernels line."""
+    process) before GPT-OSS's (main paths 11 and 12), then the kernels line."""
     src = inspect.getsource(chip_smoke.main)
-    order = ["_twice_phase(", "_flash_phase(", "_timings(", "_model_check(", "_lce_case(",
-             "_gmm_phase(", "_moe_model_check(", "_ring_phase(", "_ring_timings(",
+    order = ["_twice_phase(", "_flash_phase(", "_timings(", "_window_timings(", "_model_check(",
+             "_lce_case(", "_gmm_phase(", "_moe_model_check(", "_ring_phase(", "_ring_timings(",
              "_ring_model_check(", '"main path 1"', '"main path 2"', '"main path 3"',
              '"main path 4"', '"main path 5"', '"main path 6"', '"main path 7"',
-             '"main path 8"', '"main path 9"', "_deterministic_paths()", '{"kernels"']
+             '"main path 8"', '"main path 9"', "_deterministic_paths()", '"main path 11"',
+             '"main path 12"', '{"kernels"']
     at = [re.search(r"(?<!\w)" + re.escape(x), src).start() for x in order]
     assert at == sorted(at)
     child = inspect.getsource(chip_smoke._deterministic_child)
@@ -435,3 +439,65 @@ def test_deterministic_restores_the_flag():
             assert not torch.are_deterministic_algorithms_enabled()
         assert torch.are_deterministic_algorithms_enabled()
     assert torch.are_deterministic_algorithms_enabled() == before
+
+
+def test_gpt_oss_config_runs_through_both_recipes(tmp_path):
+    """Main paths 11 and 12 at small widths: the GPT-OSS proxy config with the published
+    config's other settings (gpt_oss_args: layer_types cut to the depth, YaRN, biases,
+    sinks, window 128) trains in the benchmark recipe and, packed, in train_ft."""
+    cfg = parse_args_and_load_config(["-c", chip_smoke.GPT_OSS_YAML, *chip_smoke.gpt_oss_args(),
+                                      *SMALL])
+    model = cfg.model.config
+    assert model.layer_types == ["sliding_attention", "full_attention"] * 2
+    assert model.rope_scaling["rope_type"] == "yarn" and model.rope_scaling["truncate"] is False
+    assert chip_smoke._sliding_layers(cfg) == 2 and chip_smoke._is_moe(cfg)
+    assert cfg.backend.experts_backend == "pallas" and cfg.micro_batch_size == 8
+    result = benchmark.main(argv=["-c", chip_smoke.GPT_OSS_YAML, *chip_smoke.gpt_oss_args(),
+                                  *SMALL, "--benchmark.warmup_steps", "1",
+                                  "--benchmark.timed_steps", "1", "--micro_batch_size", "2",
+                                  "--output_dir", str(tmp_path / "bench")])
+    assert len(result["losses"]) == 2 and all(map(math.isfinite, result["losses"]))
+
+    cfg = parse_args_and_load_config([
+        "-c", chip_smoke.GPT_OSS_YAML, *chip_smoke.gpt_oss_args(chip_smoke.GPT_OSS_LAYERS_TRAIN_FT),
+        *SMALL, "--packed_sequence.packed_sequence_size", "256", "--dataset.seq_len", "60",
+        "--backend.attention_segments", "true", "--micro_batch_size", "2",
+        "--step_scheduler.max_steps", "2", "--checkpoint.enabled", "false",
+        "--output_dir", str(tmp_path / "ft")])
+    assert chip_smoke._sliding_layers(cfg) == 1
+    recipe = train_ft.main(cfg=cfg)
+    assert type(recipe.model).__name__ == "GptOssForCausalLM"
+    with open(tmp_path / "ft" / "training.jsonl") as f:
+        rows = [r for r in map(json.loads, f) if "loss" in r]
+    assert len(rows) == 2 and all(math.isfinite(r["loss"]) for r in rows)
+    assert all(any(k.startswith("moe_load/") for k in r) for r in rows)
+
+
+def test_windowed_launch_check():
+    """The windowed share of a path's flash launches: 2n forward (with the replay), n of
+    each backward kernel, for n = sliding layers x microbatches x steps."""
+    launches = {"flash_fwd": 56, "flash_dq": 28, "flash_dkv": 28, "flash_fwd/windowed": 28,
+                "flash_dq/windowed": 14, "flash_dkv/windowed": 14}
+    chip_smoke._check_windowed("path", launches, 2, 1, 7)
+    with pytest.raises(AssertionError, match="windowed flash launches"):
+        chip_smoke._check_windowed("path", launches, 1, 1, 7)
+    chip_smoke._reset_counts()
+    assert chip_smoke._read_windowed() == {"flash_fwd/windowed": 0, "flash_dq/windowed": 0,
+                                           "flash_dkv/windowed": 0}
+
+
+def test_window_bound_at_the_gpt_oss_shape():
+    """GPT-OSS's window of 128 at S=8192 allows 1,040,448 pairs a head, 1/32.25 of the
+    causal 33,558,528; the bound of the windowed forward is 4 D pairs over the peak."""
+    s, w = 8192, 128
+    assert chip_smoke._allowed_pairs(s, w) == 8256 + (s - w) * w == 1040448
+    assert chip_smoke._allowed_pairs(s) == s * (s + 1) // 2
+    assert chip_smoke._allowed_pairs(100, 4096) == chip_smoke._allowed_pairs(100)
+    q = torch.empty(1, s, 64, 64, dtype=torch.bfloat16, device="meta")
+    kv = torch.empty(1, s, 8, 64, dtype=torch.bfloat16, device="meta")
+    work = chip_smoke._flash_work(q, kv, kv, w)
+    assert work["flash_fwd"][0] == 4 * 64 * 64 * 1040448
+    assert work["flash_backward"][0] == 14 * 64 * 64 * 1040448
+    t_ops = work["flash_fwd"][0] / chip_smoke.PEAK_FLOPS * 1e3
+    t_bytes = work["flash_fwd"][1] / chip_smoke.PEAK_BYTES * 1e3
+    assert t_ops == pytest.approx(0.0172, abs=1e-4) and t_bytes > t_ops  # bound by bytes

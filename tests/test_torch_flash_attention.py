@@ -8,7 +8,10 @@ Inputs come from numpy seeds. Tolerances, f32 throughout: 2e-5 on O and lse,
 flash_dkv_reference) are held against the split backward's kernels (_dq_kernel,
 _dkv_kernel) at 1e-4 too, and the route the wrapper takes under
 torch.use_deterministic_algorithms is read from the entry points it launches. The CUDA
-kernels themselves are checked on the card.
+kernels themselves are checked on the card. With a sliding window and sinks: the plain
+split backward against JAX's split kernels, the sinks' gradient (sink_grad, from lse and
+delta) against JAX's _dsinks_from_residuals, and the window and sinks as the wrappers
+pass them to the entry points.
 """
 
 import jax
@@ -116,8 +119,8 @@ def test_plain_version_matches_pallas(name, fused, monkeypatch):
 
 @pytest.mark.parametrize("option", ["sliding_window", "logit_soft_cap", "sinks"])
 def test_plain_version_options_match_pallas(option):
-    """Window, soft-cap and sinks exist in the plain version only (the CUDA kernels
-    raise on them); they still match the Pallas kernel, forward and gradients."""
+    """Window, soft-cap and sinks in the plain version (the CUDA kernels take the window
+    and sinks and raise on soft-cap) match the Pallas kernel, forward and gradients."""
     q, k, v, do = _inputs(11, 1, 64, 4, 2, 16)
     sinks = np.random.RandomState(12).randn(4).astype(np.float32)
     value = {"sliding_window": 16, "logit_soft_cap": 2.0, "sinks": sinks}[option]
@@ -133,13 +136,14 @@ def test_plain_version_options_match_pallas(option):
 
 
 @pytest.mark.parametrize("kw,err", [
-    (dict(sliding_window=8), NotImplementedError),
-    (dict(logit_soft_cap=1.0), NotImplementedError),
-    (dict(sinks=torch.zeros(2)), NotImplementedError),
+    (dict(sliding_window=8), ValueError),  # a kernel feature: the kernels' check refuses meta
+    (dict(logit_soft_cap=1.0), NotImplementedError),  # no kernel takes it yet
+    (dict(sinks=torch.zeros(2)), ValueError),  # a kernel feature, as the window
     (dict(), ValueError),  # not a CUDA tensor
 ])
 def test_non_cpu_tensors_never_fall_back(kw, err):
-    """A tensor off the CPU goes to the kernels or raises: never to the plain version."""
+    """A tensor off the CPU goes to the kernels or raises: never to the plain version.
+    The window and sinks reach the kernels' input check; soft-cap raises by name."""
     q = torch.empty(1, 64, 2, 64, dtype=torch.bfloat16, device="meta")
     before = dict(tfa.LAUNCHES)
     with pytest.raises(err):
@@ -223,3 +227,100 @@ def test_backward_raises_when_a_kernel_fails(flag, failing, monkeypatch, determi
     with pytest.raises(RuntimeError, match=failing):
         tfa.flash_backward(q, k, v, None, None, q, torch.zeros(4, 64), do, 0.125, True)
     assert calls == ["flash_dq", "flash_dkv"][:["flash_dq", "flash_dkv"].index(failing) + 1]
+
+
+WINDOW_CASES = {
+    # (shape (B, S, H, KH, D), causal, window, segments, sinks)
+    "window_16": ((2, 64, 4, 2, 16), True, 16, False, False),
+    "window_1": ((1, 64, 4, 4, 16), True, 1, False, False),
+    "window_past_s": ((1, 64, 4, 2, 16), True, 100, False, False),
+    "window_12_segments": ((2, 64, 4, 2, 16), True, 12, True, False),
+    "window_non_causal": ((1, 64, 2, 2, 16), False, 20, False, False),
+    "sinks": ((2, 64, 4, 2, 16), True, None, False, True),
+    "window_sinks_segments": ((2, 64, 8, 2, 16), True, 12, True, True),
+}
+
+
+@pytest.mark.parametrize("name", list(WINDOW_CASES))
+def test_windowed_split_plain_versions_and_dsinks_match_pallas(name, monkeypatch):
+    """With a sliding window (1, one that is no multiple of a tile, one longer than S, one
+    across a segment boundary) and sinks: the plain forward against JAX's forward kernel
+    (O, lse), flash_dq_reference / flash_dkv_reference from its lse and delta against JAX's
+    split kernels, and sink_grad against the sinks' gradient from JAX's
+    _dsinks_from_residuals (interpret mode, fused backward off)."""
+    monkeypatch.setenv("AUTOMODEL_FLASH_FUSED_BWD", "0")
+    shape, causal, window, segments, with_sinks = WINDOW_CASES[name]
+    q, k, v, do = _inputs(20 + sorted(WINDOW_CASES).index(name), *shape)
+    b, s, h = shape[:3]
+    sinks = np.random.RandomState(3).randn(h).astype(np.float32) if with_sinks else None
+    seg_q = seg_kv = None
+    if segments:
+        seg_q, seg_kv = _segments(b, s, pad_row_fully_masked=True)
+    kw = dict(causal=causal, sliding_window=window)
+    tseg = {} if seg_q is None else dict(segment_ids_q=torch.tensor(seg_q),
+                                         segment_ids_kv=torch.tensor(seg_kv))
+    jseg = {} if seg_q is None else dict(segment_ids_q=jnp.asarray(seg_q),
+                                         segment_ids_kv=jnp.asarray(seg_kv))
+    qt, kt, vt, dot = (torch.tensor(x) for x in (q, k, v, do))
+    tsinks = None if sinks is None else torch.tensor(sinks)
+    o, lse = tfa.flash_attention_reference(qt, kt, vt, sinks=tsinks, **kw, **tseg)
+    delta = tfa._delta(o, dot)
+    dq = tfa.flash_dq_reference(qt, kt, vt, dot, lse, delta, **kw, **tseg)
+    dk, dv = tfa.flash_dkv_reference(qt, kt, vt, dot, lse, delta, **kw, **tseg)
+
+    jsinks = None if sinks is None else jnp.asarray(sinks)
+
+    def f(q_, k_, v_, sinks_):
+        out = jfa.flash_attention(q_, k_, v_, interpret=True, block_q=32, block_k=32,
+                                  sinks=sinks_, **kw, **jseg)
+        return jnp.sum(out * jnp.asarray(do)), out
+
+    argnums = (0, 1, 2, 3) if sinks is not None else (0, 1, 2)
+    (_, o_j), grads_j = jax.value_and_grad(f, argnums=argnums, has_aux=True)(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jsinks)
+    np.testing.assert_allclose(o.numpy(), np.asarray(o_j), atol=ATOL_FWD, rtol=0)
+    for got, want in zip((dq, dk, dv), grads_j):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL_GRAD, rtol=0)
+    if sinks is not None:
+        dsinks = tfa.sink_grad(tsinks, lse, delta)
+        np.testing.assert_allclose(dsinks.numpy(), np.asarray(grads_j[3]), atol=ATOL_GRAD,
+                                   rtol=1e-5)
+        # the plain version's own autograd gives the same sinks gradient
+        ts = tsinks.clone().requires_grad_()
+        o_a, _ = tfa.flash_attention_reference(qt, kt, vt, sinks=ts, **kw, **tseg)
+        np.testing.assert_allclose(torch.autograd.grad(o_a, ts, dot)[0].numpy(),
+                                   dsinks.numpy(), atol=ATOL_GRAD, rtol=1e-5)
+    if window == 1 and not segments:  # each row sees itself alone: O is v's row
+        np.testing.assert_allclose(o.numpy(), np.repeat(v, h // shape[3], axis=2), atol=1e-6)
+
+
+@pytest.mark.parametrize("window,sinks", [(None, False), (128, False), (None, True),
+                                          (100, True)], ids=["plain", "window", "sinks",
+                                                             "window_sinks"])
+def test_window_and_sinks_reach_the_entry_points(window, sinks, monkeypatch):
+    """The wrappers pass (has_window, window) to all three entry points and the sinks
+    (f32, (H,)) to flash_fwd only; the windowed launches are counted apart, and the
+    sinks' gradient comes from lse and delta (sink_grad), in the sinks' dtype."""
+    seen = {}
+
+    def launch(source, name, device, *args):
+        assert len(args) + 1 == len(build.SOURCES[source][name]), name
+        seen[name] = args
+
+    monkeypatch.setattr(build, "launch", launch)
+    monkeypatch.setattr(tfa, "_check_cuda", lambda *a: None)  # CPU tensors stand in
+    q, k, v, do = (torch.tensor(x).to(torch.bfloat16).requires_grad_()
+                   for x in _inputs(0, 1, 64, 4, 2, 64))
+    tsinks = torch.randn(4, dtype=torch.bfloat16, requires_grad=True) if sinks else None
+    before, before_w = dict(tfa.LAUNCHES), dict(tfa.WINDOWED_LAUNCHES)
+    o, _ = tfa.flash_attention_cuda(q, k, v, sliding_window=window, sinks=tsinks)
+    grads = torch.autograd.grad(o, [t for t in (q, k, v, tsinks) if t is not None], do)
+    pair = (0, 0) if window is None else (1, window)
+    assert seen["flash_fwd"][-2:] == pair
+    assert seen["flash_dq"][-2:] == pair and seen["flash_dkv"][-2:] == pair
+    assert (seen["flash_fwd"][5] is None) == (not sinks)
+    assert {n: tfa.LAUNCHES[n] - before[n] for n in before} == dict.fromkeys(before, 1)
+    assert {n: tfa.WINDOWED_LAUNCHES[n] - before_w[n] for n in before_w} == dict.fromkeys(
+        before_w, int(window is not None))
+    if sinks:
+        assert grads[3].dtype == torch.bfloat16 and grads[3].shape == (4,)

@@ -53,8 +53,11 @@ def test_rope(scaling):
 
 
 def test_rope_unported_scaling_raises():
+    longrope = {"rope_type": "longrope", "short_factor": [1.0] * 32, "long_factor": [2.0] * 32}
     with pytest.raises(NotImplementedError):
-        trope.rope_frequencies(64, 10000.0, {"rope_type": "yarn", "factor": 2.0})
+        trope.rope_frequencies(64, 10000.0, longrope)
+    with pytest.raises(NotImplementedError):
+        trope.rope_attention_scaling(longrope)
 
 
 @pytest.mark.parametrize("kw", [
