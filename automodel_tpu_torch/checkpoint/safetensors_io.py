@@ -108,6 +108,9 @@ class LazySafetensors(Mapping):
         # ValueError, which is not transient and fails at once
         return with_retry(read, description=f"safetensors read {key!r}")
 
+    def __contains__(self, key) -> bool:  # from the headers: no tensor is read
+        return key in self._files
+
     def __iter__(self) -> Iterator[str]:
         return iter(self._files)
 

@@ -38,7 +38,7 @@
 // Design. The kernels are warp-specialised: 3 warpgroups (384 threads) a block.
 // Warpgroup 0 gives up its registers (setmaxnreg.dec) and is the producer: one lane
 // issues the TMA loads of 128-byte-swizzled tiles (tensor maps over q, k, v, dO as they
-// lie, 3-d (B, S, heads*D), so rows past S read as zeros) into a ring of stages under
+// lie, 4-d (B, S, heads, D), so rows past S read as zeros) into a ring of stages under
 // full/empty mbarriers, and the small per-row data (segment ids; in the backward lse
 // and delta, by cp.async from a second warp) lands beside them. Warpgroups 1 and 2
 // take the registers (setmaxnreg.inc) and compute:
@@ -62,6 +62,14 @@
 // past the causal limit or wholly behind the window are never loaded (the forward and
 // flash_dq start their key walk at the window's first tile, flash_dkv ends its q walk at
 // the window's last q tile), as _run_block skips such blocks on the TPU.
+// Head dims: 64 and 128 run tiles of their own width. 96 (Phi-3) runs the 128-wide
+// instantiations: a 64-column box at column 64 of a head holds its columns 64-95 and 32
+// columns past the head's end, which the 4-d map fills with zeros (TMA's out-of-bounds
+// fill), never the next head's. Zero columns of Q and K add nothing to S, of dO and V
+// nothing to dP, and P.V, dV, dK and dQ come out 128 wide with zeros past column 96,
+// which the epilogues leave unstored. So the D=128 design runs unchanged (its stages,
+// shared memory and register budget), at 128/96 of the tensor-core work the head needs:
+// at most ~75% of a 96-wide bound. The softmax scale is the caller's (1/sqrt(96)).
 // What it leaves on the table: the two consumer warpgroups are not scheduled in turns
 // (ping-pong), so their softmax and their wgmmas overlap only by chance; in the
 // backward each step waits for its own products (at D=128 the registers hold dK and dV,
@@ -167,7 +175,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
                  const __grid_constant__ CUtensorMap tv, const int* __restrict__ seg_q,
                  const int* __restrict__ seg_kv, const float* __restrict__ sinks,
                  bf16* __restrict__ o, float* __restrict__ lse, int Sq, int Skv, int H, int KH,
-                 float scale_log2, int causal, int has_window, int window) {
+                 int dim, float scale_log2, int causal, int has_window, int window) {
   using C = Fwd<D>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
@@ -205,7 +213,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
     if (lane == 0) {
       mbar_arrive_expect_tx(q_full, C::Q_BYTES);
       for (int c = 0; c < C::BOXES; ++c)
-        tma_load_3d(smem + c * C::BM * ROW_BYTES, &tq, q_full, h * D + c * BOX, q_start, b);
+        tma_load_4d(smem + c * C::BM * ROW_BYTES, &tq, q_full, c * BOX, h, q_start, b);
     }
     for (int it = 0; it < n_tiles; ++it) {
       const int stage = it % C::STAGES;
@@ -230,10 +238,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
         unsigned char* sk = smem + C::K_OFF + stage * C::KV_BYTES;
         unsigned char* sv = smem + C::V_OFF + stage * C::KV_BYTES;
         for (int c = 0; c < C::BOXES; ++c) {
-          tma_load_3d(sk + c * C::BN * ROW_BYTES, &tk, &full[stage], kvh * D + c * BOX,
-                      kv_start, b);
-          tma_load_3d(sv + c * C::BN * ROW_BYTES, &tv, &full[stage], kvh * D + c * BOX,
-                      kv_start, b);
+          tma_load_4d(sk + c * C::BN * ROW_BYTES, &tk, &full[stage], c * BOX, kvh, kv_start, b);
+          tma_load_4d(sv + c * C::BN * ROW_BYTES, &tv, &full[stage], c * BOX, kvh, kv_start, b);
         }
       }
     }
@@ -396,11 +402,12 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
       inv = none ? 0.f : 1.f / li;
       lse_i = none ? NEG_INF : (m[i] + log2f(li)) * LN2;
     }
-    bf16* orow = o + ((size_t)b * Sq + row[i]) * H * D + (size_t)h * D;
+    bf16* orow = o + (((size_t)b * Sq + row[i]) * H + h) * dim;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<uint32_t*>(orow + 8 * j + tc) =
-          pack_f32(acc[4 * j + 2 * i] * inv, acc[4 * j + 2 * i + 1] * inv);
+      if (8 * j < dim)  // the tile's columns past a 96-wide head are not the head's
+        *reinterpret_cast<uint32_t*>(orow + 8 * j + tc) =
+            pack_f32(acc[4 * j + 2 * i] * inv, acc[4 * j + 2 * i + 1] * inv);
     if ((lane & 3) == 0) lse[(size_t)bh * Sq + row[i]] = lse_i;
   }
 }
@@ -436,7 +443,7 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
                  const int* __restrict__ seg_q, const int* __restrict__ seg_kv,
                  const float* __restrict__ lse, const float* __restrict__ delta,
                  bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq, int Skv, int H, int KH,
-                 float scale, int causal, int has_window, int window) {
+                 int dim, float scale, int causal, int has_window, int window) {
   using C = Bwd<D>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
@@ -474,9 +481,9 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
     if (warp == 0 && lane == 0) {
       mbar_arrive_expect_tx(kv_full, 2 * C::KV_BYTES);
       for (int c = 0; c < C::BOXES; ++c) {
-        tma_load_3d(smem + C::K_OFF + c * C::BN * ROW_BYTES, &tk, kv_full, kvh * D + c * BOX,
+        tma_load_4d(smem + C::K_OFF + c * C::BN * ROW_BYTES, &tk, kv_full, c * BOX, kvh,
                     kv_start, b);
-        tma_load_3d(smem + C::V_OFF + c * C::BN * ROW_BYTES, &tv, kv_full, kvh * D + c * BOX,
+        tma_load_4d(smem + C::V_OFF + c * C::BN * ROW_BYTES, &tv, kv_full, c * BOX, kvh,
                     kv_start, b);
       }
     }
@@ -490,10 +497,8 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
             unsigned char* sq = smem + C::Q_OFF + stage * C::QT_BYTES;
             unsigned char* sdo = smem + C::DO_OFF + stage * C::QT_BYTES;
             for (int c = 0; c < C::BOXES; ++c) {
-              tma_load_3d(sq + c * C::BM * ROW_BYTES, &tq, &full[stage], h * D + c * BOX,
-                          q_start, b);
-              tma_load_3d(sdo + c * C::BM * ROW_BYTES, &tdo, &full[stage], h * D + c * BOX,
-                          q_start, b);
+              tma_load_4d(sq + c * C::BM * ROW_BYTES, &tq, &full[stage], c * BOX, h, q_start, b);
+              tma_load_4d(sdo + c * C::BM * ROW_BYTES, &tdo, &full[stage], c * BOX, h, q_start, b);
             }
           }
         } else {
@@ -633,9 +638,10 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
   for (int i = 0; i < 2; ++i) {
     const int key = k0 + krow + 8 * i;
     if (key >= Skv) continue;
-    const size_t off = ((size_t)b * Skv + key) * KH * D + (size_t)kvh * D;
+    const size_t off = (((size_t)b * Skv + key) * KH + kvh) * dim;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
+      if (8 * j >= dim) continue;
       *reinterpret_cast<uint32_t*>(dk + off + 8 * j + tc) =
           pack_f32(dk_acc[4 * j + 2 * i] * scale, dk_acc[4 * j + 2 * i + 1] * scale);
       *reinterpret_cast<uint32_t*>(dv + off + 8 * j + tc) =
@@ -670,8 +676,8 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
                 const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
                 const int* __restrict__ seg_q, const int* __restrict__ seg_kv,
                 const float* __restrict__ lse, const float* __restrict__ delta,
-                bf16* __restrict__ dq, int Sq, int Skv, int H, int KH, float scale, int causal,
-                int has_window, int window) {
+                bf16* __restrict__ dq, int Sq, int Skv, int H, int KH, int dim, float scale,
+                int causal, int has_window, int window) {
   using C = Dq<D>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
@@ -708,9 +714,9 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
     if (lane == 0) {
       mbar_arrive_expect_tx(q_full, 2 * C::Q_BYTES);
       for (int c = 0; c < C::BOXES; ++c) {
-        tma_load_3d(smem + c * C::BM * ROW_BYTES, &tq, q_full, h * D + c * BOX, q_start, b);
-        tma_load_3d(smem + C::DO_OFF + c * C::BM * ROW_BYTES, &tdo, q_full, h * D + c * BOX,
-                    q_start, b);
+        tma_load_4d(smem + c * C::BM * ROW_BYTES, &tq, q_full, c * BOX, h, q_start, b);
+        tma_load_4d(smem + C::DO_OFF + c * C::BM * ROW_BYTES, &tdo, q_full, c * BOX, h, q_start,
+                    b);
       }
     }
     for (int it = 0; it < n_tiles; ++it) {
@@ -736,10 +742,8 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
         unsigned char* sk = smem + C::K_OFF + stage * C::KV_BYTES;
         unsigned char* sv = smem + C::V_OFF + stage * C::KV_BYTES;
         for (int c = 0; c < C::BOXES; ++c) {
-          tma_load_3d(sk + c * C::BN * ROW_BYTES, &tk, &full[stage], kvh * D + c * BOX,
-                      kv_start, b);
-          tma_load_3d(sv + c * C::BN * ROW_BYTES, &tv, &full[stage], kvh * D + c * BOX,
-                      kv_start, b);
+          tma_load_4d(sk + c * C::BN * ROW_BYTES, &tk, &full[stage], c * BOX, kvh, kv_start, b);
+          tma_load_4d(sv + c * C::BN * ROW_BYTES, &tv, &full[stage], c * BOX, kvh, kv_start, b);
         }
       }
     }
@@ -792,39 +796,42 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     if (row[i] >= Sq) continue;
-    bf16* drow = dq + ((size_t)b * Sq + row[i]) * H * D + (size_t)h * D;
+    bf16* drow = dq + (((size_t)b * Sq + row[i]) * H + h) * dim;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<uint32_t*>(drow + 8 * j + tc) =
-          pack_f32(acc[4 * j + 2 * i] * scale, acc[4 * j + 2 * i + 1] * scale);
+      if (8 * j < dim)
+        *reinterpret_cast<uint32_t*>(drow + 8 * j + tc) =
+            pack_f32(acc[4 * j + 2 * i] * scale, acc[4 * j + 2 * i + 1] * scale);
   }
 }
 
-// Tensor maps over a (B, S, heads, D) bf16 tensor as (B, S, heads*D), boxes of 64
-// columns x `rows` rows.
-inline cudaError_t bf16_map(CUtensorMap* map, const void* p, int B, int S, int heads, int D,
+// Tensor maps over a (B, S, heads, dim) bf16 tensor as it lies, 4-d, boxes of 64 columns
+// of one head x `rows` rows. A box's columns past dim (the second box of a 96-wide head)
+// read as zeros, as do rows past S.
+inline cudaError_t bf16_map(CUtensorMap* map, const void* p, int B, int S, int heads, int dim,
                             int rows) {
-  return make_map_3d(map, p, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, (uint64_t)heads * D, S, B, BOX,
-                     rows);
+  return make_map_4d(map, p, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, dim, heads, S, B, BOX, rows);
 }
 
+// D: the tile width the kernel is built for (64 or 128); dim: the tensors' head dim (D, or
+// 96 in the 128-wide tiles).
 template <int D>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, const int* seg_q,
                        const int* seg_kv, const float* sinks, void* o, float* lse, int B, int Sq,
-                       int Skv, int H, int KH, float scale, int causal, int has_window,
+                       int Skv, int H, int KH, int dim, float scale, int causal, int has_window,
                        int window, cudaStream_t stream) {
   using C = Fwd<D>;
   CUtensorMap tq, tk, tv;
-  cudaError_t err = bf16_map(&tq, q, B, Sq, H, D, C::BM);
-  if (err == cudaSuccess) err = bf16_map(&tk, k, B, Skv, KH, D, C::BN);
-  if (err == cudaSuccess) err = bf16_map(&tv, v, B, Skv, KH, D, C::BN);
+  cudaError_t err = bf16_map(&tq, q, B, Sq, H, dim, C::BM);
+  if (err == cudaSuccess) err = bf16_map(&tk, k, B, Skv, KH, dim, C::BN);
+  if (err == cudaSuccess) err = bf16_map(&tv, v, B, Skv, KH, dim, C::BN);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                C::SMEM);
   if (err != cudaSuccess) return err;
   dim3 grid((Sq + C::BM - 1) / C::BM, B * H);
   flash_fwd_kernel<D><<<grid, THREADS, C::SMEM, stream>>>(
-      tq, tk, tv, seg_q, seg_kv, sinks, static_cast<bf16*>(o), lse, Sq, Skv, H, KH,
+      tq, tk, tv, seg_q, seg_kv, sinks, static_cast<bf16*>(o), lse, Sq, Skv, H, KH, dim,
       scale * LOG2E, causal, has_window, window);
   return cudaGetLastError();
 }
@@ -833,14 +840,14 @@ template <int D>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v, const int* seg_q,
                        const int* seg_kv, const void* dout, const float* lse,
                        const float* delta, void* dk, void* dv, int B, int Sq, int Skv, int H,
-                       int KH, float scale, int causal, int has_window, int window,
+                       int KH, int dim, float scale, int causal, int has_window, int window,
                        cudaStream_t stream) {
   using C = Bwd<D>;
   CUtensorMap tq, tk, tv, tdo;
-  cudaError_t err = bf16_map(&tq, q, B, Sq, H, D, C::BM);
-  if (err == cudaSuccess) err = bf16_map(&tdo, dout, B, Sq, H, D, C::BM);
-  if (err == cudaSuccess) err = bf16_map(&tk, k, B, Skv, KH, D, C::BN);
-  if (err == cudaSuccess) err = bf16_map(&tv, v, B, Skv, KH, D, C::BN);
+  cudaError_t err = bf16_map(&tq, q, B, Sq, H, dim, C::BM);
+  if (err == cudaSuccess) err = bf16_map(&tdo, dout, B, Sq, H, dim, C::BM);
+  if (err == cudaSuccess) err = bf16_map(&tk, k, B, Skv, KH, dim, C::BN);
+  if (err == cudaSuccess) err = bf16_map(&tv, v, B, Skv, KH, dim, C::BN);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(flash_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                C::SMEM);
@@ -848,21 +855,21 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const int* s
   dim3 grid((Skv + C::BN - 1) / C::BN, B * KH);
   flash_dkv_kernel<D><<<grid, THREADS, C::SMEM, stream>>>(
       tq, tk, tv, tdo, seg_q, seg_kv, lse, delta, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), Sq, Skv, H, KH, scale, causal, has_window, window);
+      static_cast<bf16*>(dv), Sq, Skv, H, KH, dim, scale, causal, has_window, window);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const int* seg_q,
                       const int* seg_kv, const void* dout, const float* lse, const float* delta,
-                      void* dq, int B, int Sq, int Skv, int H, int KH, float scale, int causal,
-                      int has_window, int window, cudaStream_t stream) {
+                      void* dq, int B, int Sq, int Skv, int H, int KH, int dim, float scale,
+                      int causal, int has_window, int window, cudaStream_t stream) {
   using C = Dq<D>;
   CUtensorMap tq, tk, tv, tdo;
-  cudaError_t err = bf16_map(&tq, q, B, Sq, H, D, C::BM);
-  if (err == cudaSuccess) err = bf16_map(&tdo, dout, B, Sq, H, D, C::BM);
-  if (err == cudaSuccess) err = bf16_map(&tk, k, B, Skv, KH, D, C::BN);
-  if (err == cudaSuccess) err = bf16_map(&tv, v, B, Skv, KH, D, C::BN);
+  cudaError_t err = bf16_map(&tq, q, B, Sq, H, dim, C::BM);
+  if (err == cudaSuccess) err = bf16_map(&tdo, dout, B, Sq, H, dim, C::BM);
+  if (err == cudaSuccess) err = bf16_map(&tk, k, B, Skv, KH, dim, C::BN);
+  if (err == cudaSuccess) err = bf16_map(&tv, v, B, Skv, KH, dim, C::BN);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(flash_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                C::SMEM);
@@ -870,28 +877,35 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const int* se
   dim3 grid((Sq + C::BM - 1) / C::BM, B * H);
   flash_dq_kernel<D><<<grid, THREADS, C::SMEM, stream>>>(tq, tk, tv, tdo, seg_q, seg_kv, lse,
                                                          delta, static_cast<bf16*>(dq), Sq, Skv,
-                                                         H, KH, scale, causal, has_window,
+                                                         H, KH, dim, scale, causal, has_window,
                                                          window);
   return cudaGetLastError();
 }
 
+// The tile width of a head dim: 64 and 128 as they are, 96 in the 128-wide tiles; 0 for a
+// head dim the kernels do not take.
+inline int tile_width(int dim) { return dim == 64 ? 64 : dim == 96 || dim == 128 ? 128 : 0; }
+
 }  // namespace
 
 // Plain C entry points (bound with ctypes). Each returns a cudaError_t; the caller
-// checks inputs (bf16, contiguous, 16-byte aligned, D in {64, 128}, H % KH == 0)
-// beforehand. flash_dq writes dq (bf16, q's layout) whole, each row once. has_window = 0
-// ignores window; sinks: null, or f32 (H,).
+// checks inputs (bf16, contiguous, 16-byte aligned, D in {64, 96, 128}, H % KH == 0)
+// beforehand. D is the head dim; the softmax scale comes as given (1/sqrt(96) at D = 96,
+// never the tile's). flash_dq writes dq (bf16, q's layout) whole, each row once.
+// has_window = 0 ignores window; sinks: null, or f32 (H,).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, const int* seg_q,
                          const int* seg_kv, const float* sinks, void* o, float* lse, int B,
                          int Sq, int Skv, int H, int KH, int D, float scale, int causal,
                          int has_window, int window, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64)
-    return (int)launch_fwd<64>(q, k, v, seg_q, seg_kv, sinks, o, lse, B, Sq, Skv, H, KH, scale,
-                               causal, has_window, window, s);
-  if (D == 128)
-    return (int)launch_fwd<128>(q, k, v, seg_q, seg_kv, sinks, o, lse, B, Sq, Skv, H, KH, scale,
-                                causal, has_window, window, s);
+  switch (tile_width(D)) {
+    case 64:
+      return (int)launch_fwd<64>(q, k, v, seg_q, seg_kv, sinks, o, lse, B, Sq, Skv, H, KH, D,
+                                 scale, causal, has_window, window, s);
+    case 128:
+      return (int)launch_fwd<128>(q, k, v, seg_q, seg_kv, sinks, o, lse, B, Sq, Skv, H, KH, D,
+                                  scale, causal, has_window, window, s);
+  }
   return (int)cudaErrorInvalidValue;
 }
 
@@ -900,12 +914,14 @@ extern "C" int flash_dq(const void* q, const void* k, const void* v, const int* 
                         const float* delta, void* dq, int B, int Sq, int Skv, int H, int KH,
                         int D, float scale, int causal, int has_window, int window, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64)
-    return (int)launch_dq<64>(q, k, v, seg_q, seg_kv, dout, lse, delta, dq, B, Sq, Skv, H, KH,
-                              scale, causal, has_window, window, s);
-  if (D == 128)
-    return (int)launch_dq<128>(q, k, v, seg_q, seg_kv, dout, lse, delta, dq, B, Sq, Skv, H, KH,
-                               scale, causal, has_window, window, s);
+  switch (tile_width(D)) {
+    case 64:
+      return (int)launch_dq<64>(q, k, v, seg_q, seg_kv, dout, lse, delta, dq, B, Sq, Skv, H, KH,
+                                D, scale, causal, has_window, window, s);
+    case 128:
+      return (int)launch_dq<128>(q, k, v, seg_q, seg_kv, dout, lse, delta, dq, B, Sq, Skv, H,
+                                 KH, D, scale, causal, has_window, window, s);
+  }
   return (int)cudaErrorInvalidValue;
 }
 
@@ -915,11 +931,13 @@ extern "C" int flash_dkv(const void* q, const void* k, const void* v, const int*
                          int KH, int D, float scale, int causal, int has_window, int window,
                          void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64)
-    return (int)launch_dkv<64>(q, k, v, seg_q, seg_kv, dout, lse, delta, dk, dv, B, Sq, Skv, H,
-                               KH, scale, causal, has_window, window, s);
-  if (D == 128)
-    return (int)launch_dkv<128>(q, k, v, seg_q, seg_kv, dout, lse, delta, dk, dv, B, Sq, Skv, H,
-                                KH, scale, causal, has_window, window, s);
+  switch (tile_width(D)) {
+    case 64:
+      return (int)launch_dkv<64>(q, k, v, seg_q, seg_kv, dout, lse, delta, dk, dv, B, Sq, Skv,
+                                 H, KH, D, scale, causal, has_window, window, s);
+    case 128:
+      return (int)launch_dkv<128>(q, k, v, seg_q, seg_kv, dout, lse, delta, dk, dv, B, Sq, Skv,
+                                  H, KH, D, scale, causal, has_window, window, s);
+  }
   return (int)cudaErrorInvalidValue;
 }

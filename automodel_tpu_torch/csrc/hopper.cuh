@@ -51,6 +51,15 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
+// cuTensorMapEncodeTiled needs a current context. A host thread that has made no runtime
+// call yet (autograd's backward worker, when the caching allocator served every tensor)
+// has none; setting the device binds its primary context.
+inline cudaError_t bind_current_device() {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  return err == cudaSuccess ? cudaSetDevice(device) : err;
+}
+
 // A 3-d tiled map over (batch, rows, inner) elements, innermost first, with the 128-byte
 // swizzle; a row is `row_bytes` and a batch entry `batch_bytes` apart (both multiples
 // of 16); a box is (box_inner, box_rows, 1). Elements past `inner` or `rows` read as
@@ -61,18 +70,36 @@ inline cudaError_t make_map_3d_strided(CUtensorMap* map, const void* ptr,
                                        uint32_t box_inner, uint32_t box_rows) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return cudaErrorSymbolNotFound;
-  // cuTensorMapEncodeTiled needs a current context. A host thread that has made no
-  // runtime call yet (autograd's backward worker, when the caching allocator served
-  // every tensor) has none; setting the device binds its primary context.
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess) err = cudaSetDevice(device);
+  cudaError_t err = bind_current_device();
   if (err != cudaSuccess) return err;
   const cuuint64_t dims[3] = {inner, rows, batch};
   const cuuint64_t strides[2] = {row_bytes, batch_bytes};
   const cuuint32_t box[3] = {box_inner, box_rows, 1};
   const cuuint32_t elem_strides[3] = {1, 1, 1};
   CUresult r = fn(map, type, 3, const_cast<void*>(ptr), dims, strides, box, elem_strides,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A 4-d tiled map over contiguous (d3, d2, d1, d0) elements, innermost (d0) first, with
+// the 128-byte swizzle; a box is (box0, 1, box2, 1). Elements past d0 in a box read as
+// zeros: a (B, S, heads, D) tensor mapped as (B, S, heads, D) with 64-column boxes reads
+// a head of D = 96 as two boxes, the second holding 32 columns and 32 zero columns, never
+// the next head's.
+inline cudaError_t make_map_4d(CUtensorMap* map, const void* ptr, CUtensorMapDataType type,
+                               uint32_t elem_bytes, uint64_t d0, uint64_t d1, uint64_t d2,
+                               uint64_t d3, uint32_t box0, uint32_t box2) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorSymbolNotFound;
+  cudaError_t err = bind_current_device();
+  if (err != cudaSuccess) return err;
+  const cuuint64_t dims[4] = {d0, d1, d2, d3};
+  const uint64_t row = d0 * elem_bytes;  // contiguous: each stride the one below it x its dim
+  const cuuint64_t strides[3] = {row, d1 * row, d2 * d1 * row};
+  const cuuint32_t box[4] = {box0, 1, box2, 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  CUresult r = fn(map, type, 4, const_cast<void*>(ptr), dims, strides, box, elem_strides,
                   CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
@@ -161,6 +188,17 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// Load one (box0, 1, box2, 1) box of a 4-d map at coordinates (c0, c1, c2, c3).
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
       : "memory");
 }
 

@@ -113,7 +113,7 @@ def moe_decoder_forward(
         positions = torch.arange(input_ids.shape[1], device=input_ids.device).expand(
             input_ids.shape)
     inv_freq = rope_frequencies(cfg.head_dim, cfg.rope_theta, cfg.rope_scaling,
-                                device=input_ids.device)
+                                cfg.partial_rotary_factor, device=input_ids.device)
     rope = rope_tables(positions, inv_freq, rope_attention_scaling(cfg.rope_scaling))
     emit_aux = cfg.moe.aux_loss_coeff > 0 and training and not backend.fake_balanced_gate
     h = F.embedding(input_ids.long(), params["embed"].to(dtype))

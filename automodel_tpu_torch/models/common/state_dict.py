@@ -208,6 +208,34 @@ class LazyHFTensor:
         return self._thunk()
 
 
+class _SplitView(Mapping):
+    """``tensors`` with each fused tensor in place of its parts, split when a part is read,
+    so a lazy checkpoint (``LazySafetensors``) stays lazy: one fused tensor is read at a
+    time, once for each of its parts."""
+
+    def __init__(self, tensors: Mapping[str, torch.Tensor], parts: dict):
+        self._tensors, self._parts = tensors, parts
+        self._fused = {fk for fk, _, _ in parts.values()}
+
+    def __getitem__(self, key: str) -> torch.Tensor:
+        if key in self._parts:
+            fk, j, sizes = self._parts[key]
+            return torch.split(self._tensors[fk], sizes)[j]
+        if key in self._fused:
+            raise KeyError(key)
+        return self._tensors[key]
+
+    def __contains__(self, key) -> bool:
+        return key in self._parts or (key not in self._fused and key in self._tensors)
+
+    def __iter__(self):
+        yield from (k for k in self._tensors if k not in self._fused)
+        yield from self._parts
+
+    def __len__(self) -> int:
+        return len(self._tensors) - len(self._fused) + len(self._parts)
+
+
 class FusedTensorMixin:
     """Split fused HF tensors into the table's part keys on the way in and fuse them
     again on export (Phi-3 packs q|k|v and gate|up). Mix in before the adapter and set
@@ -222,15 +250,13 @@ class FusedTensorMixin:
         return pre + fused, [pre + p for p in parts]
 
     def from_hf(self, tensors, dtype=None, device=None) -> dict:
-        t = dict(tensors)
+        parts = {}  # part key -> (fused key, index, sizes)
         for i in range(self.num_layers):
-            for fused, parts in self._fused:
-                fk, pks = self._fused_keys(i, fused, parts)
-                if fk not in t:
-                    continue
-                for pk, part in zip(pks, torch.split(t.pop(fk), self._fused_splits[fused])):
-                    t[pk] = part
-        return super().from_hf(t, dtype, device)
+            for fused, names in self._fused:
+                fk, pks = self._fused_keys(i, fused, names)
+                if fk in tensors:
+                    parts |= {pk: (fk, j, self._fused_splits[fused]) for j, pk in enumerate(pks)}
+        return super().from_hf(_SplitView(tensors, parts), dtype, device)
 
     def to_hf(self, params, dtype=None) -> dict:
         out = super().to_hf(params, dtype)

@@ -50,6 +50,7 @@ class DenseDecoderConfig:
     max_position_embeddings: int = 4096
     rope_theta: float = 10000.0
     rope_scaling: dict[str, Any] | None = None
+    partial_rotary_factor: float = 1.0  # RoPE on the first fraction of head_dim only
     rms_norm_eps: float = 1e-5
     tie_word_embeddings: bool = False
     attention_bias: bool = False  # bias on the q / k / v projections
@@ -244,7 +245,7 @@ def decoder_forward(
         positions = torch.arange(input_ids.shape[1], device=input_ids.device).expand(
             input_ids.shape)
     inv_freq = rope_frequencies(cfg.head_dim, cfg.rope_theta, cfg.rope_scaling,
-                                device=input_ids.device)
+                                cfg.partial_rotary_factor, device=input_ids.device)
     # the RoPE tables once a forward, not in each layer (and again in each replay)
     rope = rope_tables(positions, inv_freq, rope_attention_scaling(cfg.rope_scaling))
     h = F.embedding(input_ids.long(), params["embed"].to(dtype))

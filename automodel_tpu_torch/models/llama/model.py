@@ -1,9 +1,12 @@
-"""Llama (counterpart of ``automodel_tpu/models/llama/model.py``), plain lineage only.
+"""Llama (counterpart of ``automodel_tpu/models/llama/model.py``) and the members of its
+lineage that the JAX package builds from the same class: Qwen2 (q/k/v biases), Qwen3
+(per-head q/k RMSNorm, an explicit head_dim) and Mistral (a sliding window).
 
-``LlamaConfig.from_hf`` reads an HF config.json dict. The branches the JAX package
-takes for other members of the lineage (Qwen2/3 biases and qk-norm, Olmo2, Cohere,
-GLM, Arcee, Granite multipliers, NoPE layers, sliding windows) raise
-NotImplementedError until a slice ports them.
+``LlamaConfig.from_hf`` reads an HF config.json dict as the JAX package reads it. The
+branches the JAX package takes for the lineage's other members raise NotImplementedError
+by name until a slice ports them: Olmo2's post-sublayer norms and whole-projection
+qk-norm, Cohere's layernorm, parallel block and logit scale, GLM's interleaved rope,
+Arcee's relu^2 MLP, Granite's multipliers, NoPE layers and per-layer ``layer_types``.
 """
 
 from __future__ import annotations
@@ -21,25 +24,29 @@ from automodel_tpu_torch.models.common.transformer import (
 
 __all__ = ["LlamaConfig", "LlamaForCausalLM"]
 
-_ARCHS = ("LlamaForCausalLM", "MistralForCausalLM")
+_ARCHS = ("LlamaForCausalLM", "MistralForCausalLM", "Qwen2ForCausalLM", "Qwen3ForCausalLM")
+# what the JAX package's from_hf turns on for architecture names the port does not take
+# yet (matched by substring, as JAX matches them)
+_REFUSED = {"norm_placement post and qk_norm_whole (Olmo2/3)": ("Olmo2", "Olmo3"),
+            "norm_type layernorm, parallel_block and logit_scale (Cohere)": ("Cohere",),
+            "rope_interleaved (GLM)": ("Glm",),
+            "mlp_act relu2 (Arcee)": ("Arcee",)}
 
 
 def _unsupported(hf: dict[str, Any]) -> list[str]:
     found = []
     archs = hf.get("architectures") or ["LlamaForCausalLM"]
-    found += [f"architecture {a}" for a in archs if a not in _ARCHS]
-    if hf.get("attention_bias") or hf.get("qkv_bias"):
-        found.append("attention_bias")
+    joined = "".join(archs)
+    found += [why for why, names in _REFUSED.items() if any(n in joined for n in names)]
+    if not found:
+        found += [f"architecture {a}" for a in archs if a not in _ARCHS]
     if hf.get("mlp_bias"):
         found.append("mlp_bias")
-    if hf.get("sliding_window") is not None and hf.get("use_sliding_window", True):
-        found.append("sliding_window")
     for key in ("layer_types", "no_rope_layers", "no_rope_layer_interval", "logit_scale",
                 "attention_multiplier", "llama4_attn_scale_beta"):
         if hf.get(key):
             found.append(key)
-    for key in ("embedding_multiplier", "residual_multiplier", "logits_scaling",
-                "partial_rotary_factor"):
+    for key in ("embedding_multiplier", "residual_multiplier", "logits_scaling"):
         if hf.get(key, 1.0) != 1.0:
             found.append(key)
     if hf.get("hidden_act", "silu") != "silu":
@@ -51,7 +58,7 @@ def _unsupported(hf: dict[str, Any]) -> list[str]:
 class LlamaConfig(DenseDecoderConfig):
     @classmethod
     def from_hf(cls, hf: dict[str, Any]) -> "LlamaConfig":
-        """Build from an HF config.json dict of the plain Llama lineage."""
+        """Build from an HF config.json dict of Llama, Qwen2, Qwen3 or Mistral."""
         bad = _unsupported(hf)
         if bad:
             raise NotImplementedError(
@@ -67,8 +74,13 @@ class LlamaConfig(DenseDecoderConfig):
             max_position_embeddings=hf.get("max_position_embeddings", 4096),
             rope_theta=hf.get("rope_theta", 10000.0),
             rope_scaling=hf.get("rope_scaling"),
-            rms_norm_eps=hf.get("rms_norm_eps", 1e-5),
+            partial_rotary_factor=hf.get("partial_rotary_factor", 1.0),
+            rms_norm_eps=hf.get("rms_norm_eps", hf.get("layer_norm_eps", 1e-5)),
             tie_word_embeddings=hf.get("tie_word_embeddings", False),
+            attention_bias=hf.get("attention_bias", hf.get("qkv_bias", False)),
+            qk_norm="Qwen3" in "".join(hf.get("architectures", [])),
+            sliding_window=(hf.get("sliding_window") if hf.get("use_sliding_window", True)
+                            else None),
             initializer_range=hf.get("initializer_range", 0.02),
         )
 
@@ -96,7 +108,7 @@ class LlamaForCausalLM(ParamModule):
     def from_config(cls, config: LlamaConfig | dict, backend: BackendConfig | None = None,
                     **kw) -> "LlamaForCausalLM":
         if isinstance(config, dict):
-            config = LlamaConfig.from_hf(config)
+            config = cls.config_class.from_hf(config)
         return cls(config, backend, **kw)
 
     def state_dict_adapter(self):

@@ -15,6 +15,7 @@ MODEL_REGISTRY: dict[str, str] = {
         "LlamaForCausalLM", "Qwen2ForCausalLM", "Qwen3ForCausalLM", "MistralForCausalLM",
         "GraniteForCausalLM", "SmolLM3ForCausalLM", "Olmo2ForCausalLM", "Olmo3ForCausalLM",
         "CohereForCausalLM", "Cohere2ForCausalLM", "ArceeForCausalLM")},
+    "Phi3ForCausalLM": "automodel_tpu_torch.models.phi3.model:Phi3ForCausalLM",
     "Qwen3MoeForCausalLM": "automodel_tpu_torch.models.qwen3_moe.model:Qwen3MoeForCausalLM",
     "GptOssForCausalLM": "automodel_tpu_torch.models.gpt_oss.model:GptOssForCausalLM",
 }

@@ -14,7 +14,8 @@ are the same on every run; their plain versions are :func:`flash_dq_reference` a
 The kernels take causal and non-causal masks, GQA, segment ids, a sliding window
 (tiles wholly behind it are never loaded), per-head sink logits (folded into the
 forward's softmax denominator, so lse holds them and the backward kernels take none; the
-sinks' gradient is a reduction over lse and delta, :func:`sink_grad`), bf16, head_dim 64
+sinks' gradient is a reduction over lse and delta, :func:`sink_grad`), bf16, head_dim 64,
+96 (Phi-3: the 128-wide kernels, whose tensor maps read the columns past 96 as zeros)
 and 128. Logit soft-cap exists only in the plain version and raises on CUDA, as do
 other head dims.
 """
@@ -23,17 +24,19 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["LAUNCHES", "WINDOWED_LAUNCHES", "flash_attention", "flash_attention_cuda",
-           "flash_attention_reference", "flash_backward", "flash_dkv", "flash_dkv_reference",
-           "flash_dq", "flash_dq_reference", "flash_fwd", "sink_grad"]
+__all__ = ["HEAD_DIM_LAUNCHES", "LAUNCHES", "WINDOWED_LAUNCHES", "flash_attention",
+           "flash_attention_cuda", "flash_attention_reference", "flash_backward", "flash_dkv",
+           "flash_dkv_reference", "flash_dq", "flash_dq_reference", "flash_fwd", "sink_grad"]
 
 NEG_INF = -1e30
+_SOURCE = "flash_attention.cu"
+_HEAD_DIMS = (64, 96, 128)
 # one count per kernel launch, so a run can show that it went through the kernels
 LAUNCHES = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
 # the launches of LAUNCHES that carried a sliding window
 WINDOWED_LAUNCHES = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
-_SOURCE = "flash_attention.cu"
-_HEAD_DIMS = (64, 128)
+# the launches of LAUNCHES by head dim ("flash_fwd/d96", ...)
+HEAD_DIM_LAUNCHES = {f"{name}/d{d}": 0 for name in LAUNCHES for d in _HEAD_DIMS}
 
 
 def _mask(sq, skv, causal, seg_q, seg_kv, sliding_window, device):
@@ -205,8 +208,9 @@ def _window(window):
     return (0, 0) if window is None else (1, window)
 
 
-def _count(name, window):
+def _count(name, window, head_dim):
     LAUNCHES[name] += 1
+    HEAD_DIM_LAUNCHES[f"{name}/d{head_dim}"] += 1
     if window is not None:
         WINDOWED_LAUNCHES[name] += 1
 
@@ -223,7 +227,7 @@ def flash_fwd(q, k, v, seg_q, seg_kv, scale, causal, window=None, sinks=None):
     launch(_SOURCE, "flash_fwd", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
            _ptr(seg_q), _ptr(seg_kv), _ptr(sinks), o.data_ptr(), lse.data_ptr(), b, sq, skv,
            h, kh, d, float(scale), int(causal), *_window(window))
-    _count("flash_fwd", window)
+    _count("flash_fwd", window, d)
     return o, lse
 
 
@@ -245,7 +249,7 @@ def flash_dq(q, k, v, seg_q, seg_kv, do, lse, delta, scale, causal, window=None)
            _ptr(seg_q), _ptr(seg_kv), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
            dq.data_ptr(), b, sq, k.shape[1], h, k.shape[2], d, float(scale), int(causal),
            *_window(window))
-    _count("flash_dq", window)
+    _count("flash_dq", window, d)
     return dq
 
 
@@ -260,7 +264,7 @@ def flash_dkv(q, k, v, seg_q, seg_kv, do, lse, delta, scale, causal, window=None
            _ptr(seg_q), _ptr(seg_kv), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
            dk.data_ptr(), dv.data_ptr(), b, sq, k.shape[1], h, k.shape[2], d, float(scale),
            int(causal), *_window(window))
-    _count("flash_dkv", window)
+    _count("flash_dkv", window, d)
     return dk, dv
 
 

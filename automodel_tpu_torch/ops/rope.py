@@ -1,10 +1,12 @@
 """Rotary position embeddings, rotate-half convention (counterpart of
-``automodel_tpu/ops/rope.py``): default, linear, llama3 and YaRN frequency scaling, and
-YaRN's cos/sin scale. Other scaling types (longrope) raise until a slice needs them."""
+``automodel_tpu/ops/rope.py``): default, linear, llama3, longrope (Phi-3) and YaRN
+frequency scaling, and the cos/sin scale of YaRN and longrope. Other scaling types
+raise."""
 
 from __future__ import annotations
 
 import math
+import warnings
 from typing import Any
 
 import torch
@@ -44,6 +46,21 @@ def rope_frequencies(
         mid = (1 - smooth) * inv_freq / factor + smooth * inv_freq
         return torch.where(wavelen > low_wl, inv_freq / factor,
                            torch.where(wavelen < high_wl, inv_freq, mid))
+    if rope_type == "longrope":
+        # transformers _compute_longrope_parameters (Phi-3): per-frequency rescale factors,
+        # the short ones inside the original window; the long ones only when asked for
+        # (use_long_factor) and the window was extended, as the JAX package picks them
+        orig = float(rope_scaling.get("original_max_position_embeddings", 4096))
+        max_pos = float(rope_scaling.get("max_position_embeddings", orig))
+        use_long = bool(rope_scaling.get("use_long_factor", False)) and max_pos > orig
+        if not use_long and max_pos > orig:
+            warnings.warn(
+                "longrope: using short_factor frequencies; HF switches to long_factor for "
+                f"sequences past original_max_position_embeddings ({orig:.0f}): set "
+                "rope_scaling.use_long_factor: true for long-context runs so exported "
+                "checkpoints match HF inference", stacklevel=2)
+        ext = rope_scaling["long_factor"] if use_long else rope_scaling["short_factor"]
+        return inv_freq / torch.tensor(ext, dtype=torch.float32, device=device)
     if rope_type == "yarn":
         # transformers _compute_yarn_parameters: interpolated below the ramp, extrapolated
         # above it; ``truncate`` (default true) rounds the ramp's ends outwards
@@ -70,7 +87,8 @@ def rope_frequencies(
 
 def rope_attention_scaling(rope_scaling: dict[str, Any] | None) -> float:
     """cos/sin scale of the scaling type: 1.0 for default, linear and llama3; YaRN's
-    mscale (``attention_factor`` when given)."""
+    mscale and longrope's sqrt(1 + ln(factor) / ln(original window)) (either one's
+    ``attention_factor`` when given)."""
     if not rope_scaling:
         return 1.0
     rope_type = rope_scaling.get("rope_type", rope_scaling.get("type", "default"))
@@ -91,6 +109,14 @@ def rope_attention_scaling(rope_scaling: dict[str, Any] | None) -> float:
         if mscale and mscale_all_dim:
             return get_mscale(factor, float(mscale)) / get_mscale(factor, float(mscale_all_dim))
         return get_mscale(factor)
+    if rope_type == "longrope":
+        attention_factor = rope_scaling.get("attention_factor")
+        if attention_factor is not None:
+            return float(attention_factor)
+        orig = float(rope_scaling.get("original_max_position_embeddings", 4096))
+        factor = float(rope_scaling.get("max_position_embeddings", orig)) / orig
+        # on the short factors too: transformers scales cos/sin by it either way
+        return math.sqrt(1 + math.log(factor) / math.log(orig)) if factor > 1 else 1.0
     raise NotImplementedError(f"rope scaling type {rope_type!r} is not ported yet")
 
 

@@ -2,8 +2,9 @@
 
 Ported: the model from a local HF directory (``model.pretrained_model_name_or_path``,
 ``models/auto.py``; a hub repo id raises) or built from ``model.config`` (an HF config
-dict; the class from its ``architectures`` through ``models/registry.py``: Llama,
-Qwen3-MoE), ``model.params_dtype``, the loss choice with the JAX recipe's default rule
+dict; the class from its ``architectures`` through ``models/registry.py``: Llama with
+Qwen2 / Qwen3 / Mistral, Phi-3, Qwen3-MoE, GPT-OSS), ``model.params_dtype``, the loss
+choice with the JAX recipe's default rule
 (``linear_ce`` at vocab >= 65536, with ``loss.impl`` and ``loss.filter_eps``), an MoE
 model's token mask, aux-loss term and ``moe_load/*`` rows (``moe_metrics.mode``,
 default ``brief``), the tokenizer (``tokenizer``, with ``_target_`` or a local HF

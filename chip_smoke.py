@@ -12,14 +12,14 @@ Phases, in order; any failure exits non-zero before the last line:
    one nvcc per source, all started together), with each kernel's registers and
    spills from -Xptxas -v;
 2b. the twice-launch phase: each backward kernel launched twice on the same inputs, and
-   the outputs that differ bitwise (flash_dq and flash_dkv at flash cases a and f and
-   with GPT-OSS's window, ring_bwd, ring_dq and ring_dkv at ring case a's diagonal step,
-   lce_bwd at lce case a, gmm dX and tgmm at gmm case a, and the backward of the expert
+   the outputs that differ bitwise (flash_dq and flash_dkv at flash cases a and f, with
+   GPT-OSS's window and at Phi-3's head_dim 96 and window, ring_bwd, ring_dq and ring_dkv
+   at ring case a's diagonal step, lce_bwd at lce case a, gmm dX and tgmm at gmm case a, and the backward of the expert
    biases' gathers at main path 11's shape); fails if flash_dq, flash_dkv, ring_dq,
    ring_dkv or a bias gather differs;
 3. flash_fwd and the backward (flash_dq + flash_dkv) against their plain version (f32
-   from the same bf16 inputs) in twenty cases: (a) the Llama-3.2-1B training shape, (b) packed segments with
-   right padding, (c) non-causal, (d) a 16k sequence, (e) the shape and segments of
+   from the same bf16 inputs) in twenty-seven cases: (a) the Llama-3.2-1B training
+   shape, (b) packed segments with right padding, (c) non-causal, (d) a 16k sequence, (e) the shape and segments of
    main path 3 (rows of 4096 packed by pack_dataset from 1000-token documents); at
    head_dim 128: (f) the Qwen3-30B-A3B training shape, (g) case e's rows and segments;
    at the tiles' edges: (h) S=1000 at head_dim 64 and 128, (i) H=KH=8, head_dim 128,
@@ -28,7 +28,10 @@ Phases, in order; any failure exits non-zero before the last line:
    gradient from lse and delta held too): (k) window 128, (l) window 100 at head_dim
    128, (m) sinks, (n) window 128 and sinks at head_dim 128, (o) window 100, sinks and
    segment boundaries inside tiles at head_dim 64 and 128, (p) window 1 with sinks at
-   S=1000, (q) a window longer than S, (r) a window without the causal mask;
+   S=1000, (q) a window longer than S, (r) a window without the causal mask; at Phi-3's
+   head_dim 96 (the 128-wide kernels): (s) Phi-3-mini's heads, (t) GQA with segment
+   boundaries inside tiles, (u) window 100, (v) Phi-3's window 2047, (w) sinks, window and
+   segments, (x) S=1000, (y) non-causal packed rows of 4096;
 4. flash kernel times (flash_fwd, flash_dq, flash_dkv) at shapes (a) and (f) beside the
    bound, the plain version and SDPA, and the whole backward as the wrapper runs it
    (delta, flash_dq, flash_dkv) beside SDPA's backward (one phase alone:
@@ -37,6 +40,9 @@ Phases, in order; any failure exits non-zero before the last line:
    sinks, the bound over the allowed pairs, SDPA with the window as a boolean mask
    beside the window-only rows; fails unless the windowed forward and backward each
    take under a quarter of the causal time (``chip_smoke._window_timings(torch, fa)``);
+   then at Phi-3-mini's shape (P: B=4, S=2048, H=KH=32, D=96) causal and with its window
+   2047, beside SDPA (the window as a boolean mask); then head_dim 80 and the logit
+   soft-cap must raise NotImplementedError on the card and launch nothing;
 5. Llama-3.2-1B width at 2 layers: one forward and backward with attention "flash"
    against attention "xla" on the same weights;
 6. lce_fwd / lce_bwd (fused linear CE) against their plain version in nine cases:
@@ -131,10 +137,19 @@ Phases, in order; any failure exits non-zero before the last line:
    experts, linear CE, adamw_lowmem, mb 8 x seq 2048);
 19. main path 12: train_ft on the same at 2 layers, default loss, 500-token documents
    packed into rows of 2048 (segment ids through the windowed, sink-carrying kernels).
+20. main path 13: the benchmark recipe on examples/benchmark/phi3_proxy.yaml with the
+   published microsoft/Phi-3-mini-4k-instruct widths at all 32 layers (PHI3_MINI,
+   phi3_args: head_dim 96, window 2047 on every layer, masked CE);
+21. main path 14: train_ft on examples/llm_finetune/phi3_mini_sft.yaml from a local HF
+   directory of a random-init Phi-3-mini at 2 layers in HF's fused layout
+   (write_pretrained, phi3_sft_args): packed 1000-token documents, 4 steps of 2
+   microbatches, a checkpoint with the consolidated HF export every 2 steps; step_4/hf
+   must hold the fused tensors and reload bitwise equal to the final parameters.
    Every main path also checks that each of its gmm, tgmm, lce_fwd and lce_bwd launches
-   took the wgmma route (``launches by route`` on its line), and that its windowed flash
-   launches are those of its sliding layers (printed apart from the unwindowed ones);
-20. one JSON line of per-kernel numbers (every kernel launched on some main path), the
+   took the wgmma route (``launches by route`` on its line), that its windowed flash
+   launches are those of its sliding layers (printed apart from the unwindowed ones),
+   and that every flash launch is at its model's head dim;
+22. one JSON line of per-kernel numbers (every kernel launched on some main path), the
    card line, then the result line.
 
 To run one phase alone on the card, import the script: e.g.
@@ -145,7 +160,8 @@ examples/benchmark/qwen3_moe_a3b_proxy.yaml $(python3 -c "import chip_smoke;
 print(' '.join(chip_smoke.qwen3_args()))")``.
 
 ``python3 chip_smoke.py --kernel-times [ROOT]`` builds the package of the checkout at
-ROOT (default: this one) and times only its gmm (forward and dX) and tgmm at a and b,
+ROOT (default: this one) and times only its flash_fwd, flash_dq and flash_dkv at flash
+shapes a, f, L and GPT-OSS's, its gmm (forward and dX) and tgmm at a and b,
 its lce_fwd and lce_bwd at N=8192 / E=2048 and at main path 7's shape, and its ring_fwd
 and ring_bwd at ring case (a)'s diagonal step and step 1, on the inputs of the timing
 rows, so that two checkouts' kernels can be compared on one card in one call.
@@ -225,6 +241,24 @@ GPT_OSS_20B = {
     "initializer_range": 0.02, "num_hidden_layers": 4,
 }
 GPT_OSS_LAYERS_TRAIN_FT = 2  # depth of main path 12
+PHI3_YAML = os.path.join(HERE, "examples", "benchmark", "phi3_proxy.yaml")
+PHI3_SFT_YAML = os.path.join(HERE, "examples", "llm_finetune", "phi3_mini_sft.yaml")
+# The published config.json of microsoft/Phi-3-mini-4k-instruct (Hugging Face Hub): 32
+# heads of 96 over width 3072 (the flash kernels' head_dim 96), a sliding window of 2047
+# on every layer, no rope_scaling. Main path 13 lays its widths over the proxy config at
+# all 32 layers; main path 14 writes it at PHI3_LAYERS_TRAIN_FT layers as a local HF
+# directory of random weights from the seed (no weights in the repository).
+PHI3_MINI = {
+    "architectures": ["Phi3ForCausalLM"], "model_type": "phi3", "vocab_size": 32064,
+    "hidden_size": 3072, "intermediate_size": 8192, "num_hidden_layers": 32,
+    "num_attention_heads": 32, "num_key_value_heads": 32, "hidden_act": "silu",
+    "max_position_embeddings": 4096, "original_max_position_embeddings": 4096,
+    "sliding_window": 2047, "rope_theta": 10000.0, "rope_scaling": None,
+    "rms_norm_eps": 1e-5, "tie_word_embeddings": False, "initializer_range": 0.02,
+    "bos_token_id": 1, "eos_token_id": 32000, "pad_token_id": 32000, "torch_dtype": "bfloat16",
+}
+PHI3_LAYERS_TRAIN_FT = 2  # depth of main path 14
+PHI3_STEPS = 4  # max_steps of main path 14: a consolidated save at steps 2 and 4
 
 
 class ByteTokenizer:
@@ -262,14 +296,14 @@ def write_hellaswag_jsonl(path: str, rows: int, seed: int) -> str:
 def write_pretrained(out_dir: str, config: dict = LLAMA32_1B, seed: int = 0,
                      device: str = "cuda") -> str:
     """A local HF directory (config.json and model.safetensors, bf16 as published) of a
-    random-init Llama of ``config`` (Llama-3.2-1B at LLAMA32_1B's depth), written by the
-    port's own writer."""
+    random-init model of ``config`` (its architecture's class: Llama-3.2-1B at LLAMA32_1B's
+    depth, or Phi-3-mini in HF's fused layout), written by the port's own writer."""
     import torch
 
     from automodel_tpu_torch.checkpoint.safetensors_io import save_safetensors
-    from automodel_tpu_torch.models.llama.model import LlamaForCausalLM
+    from automodel_tpu_torch.models.auto import AutoModelForCausalLM
 
-    model = LlamaForCausalLM.from_config(
+    model = AutoModelForCausalLM.from_config(
         config, device=device, dtype=torch.bfloat16,
         generator=torch.Generator(device=device).manual_seed(seed))
     save_safetensors(model.state_dict_adapter().to_hf_lazy(model.param_dict()), out_dir)
@@ -349,6 +383,36 @@ def gpt_oss_args(layers: int = GPT_OSS_20B["num_hidden_layers"]) -> list[str]:
                  else str(value).lower() if isinstance(value, bool) else str(value)]
     return args + ["--dataset.vocab_size", str(GPT_OSS_20B["vocab_size"]),
                    "--backend.experts_backend", "pallas"]
+
+
+def phi3_args(layers: int = PHI3_MINI["num_hidden_layers"]) -> list[str]:
+    """CLI overrides that lay the published Phi-3-mini widths over the proxy config (which
+    names Phi3ForCausalLM and has no rope_scaling), at ``layers`` layers."""
+    args = []
+    for key in ("vocab_size", "hidden_size", "intermediate_size", "num_hidden_layers",
+                "num_attention_heads", "num_key_value_heads", "max_position_embeddings",
+                "original_max_position_embeddings", "sliding_window", "rope_theta",
+                "rms_norm_eps", "tie_word_embeddings", "initializer_range"):
+        value = layers if key == "num_hidden_layers" else PHI3_MINI[key]
+        args += [f"--model.config.{key}", str(value).lower() if isinstance(value, bool)
+                 else str(value)]
+    return args + ["--dataset.vocab_size", str(PHI3_MINI["vocab_size"])]
+
+
+def phi3_sft_args(hf_dir: str, ckpt_dir: str) -> list[str]:
+    """Main path 14's overrides of examples/llm_finetune/phi3_mini_sft.yaml: the model from
+    the local directory ``hf_dir``, the mock data at Phi-3's vocabulary (the file's 128,256
+    runs past it), 64 of its 65,536 samples (packing reads them all), 1000-token documents
+    packed into its rows of 4096 (segment ids into the kernels), 2 microbatches a step,
+    PHI3_STEPS steps, a checkpoint (with the consolidated HF export) every 2 steps under
+    ``ckpt_dir``."""
+    return ["--model.pretrained_model_name_or_path", hf_dir,
+            "--dataset.vocab_size", str(PHI3_MINI["vocab_size"]), "--dataset.seq_len", "1000",
+            "--dataset.num_samples", "64",
+            "--packed_sequence.packed_sequence_size", "4096",
+            "--backend.attention_segments", "true",
+            "--step_scheduler.grad_acc_steps", "2", "--step_scheduler.max_steps", str(PHI3_STEPS),
+            "--step_scheduler.ckpt_every_steps", "2", "--checkpoint.checkpoint_dir", ckpt_dir]
 
 
 def qwen3_args(layers: int = QWEN3_30B_A3B["num_hidden_layers"]) -> list[str]:
@@ -560,7 +624,7 @@ def _inner_segments(torch):
 
 
 def _flash_phase(torch, fa, errs):
-    """flash_fwd and flash_dq / flash_dkv cases a-r against the plain version (see the
+    """flash_fwd and flash_dq / flash_dkv cases a-y against the plain version (see the
     module docstring); the largest errors go into ``errs``."""
     names = ("flash_fwd", "flash_dq", "flash_dkv")
     errs.update(dict.fromkeys(names, 0.0))
@@ -606,6 +670,35 @@ def _flash_phase(torch, fa, errs):
     note(_kernel_case(torch, fa, "p", 2, 1000, 8, 2, causal=True, window=1, sinks=True))
     note(_kernel_case(torch, fa, "q", 2, 2048, 8, 2, causal=True, window=4096, d=128))
     note(_kernel_case(torch, fa, "r", 2, 2048, 8, 2, causal=False, window=300))
+    # head_dim 96 (Phi-3; the 128-wide kernels, their columns past 96 read as zeros): s
+    # Phi-3-mini's heads, causal, t GQA with segment boundaries inside tiles, u window
+    # 100, v Phi-3's window 2047 at S=2048, w sinks, window 100 and segments, x S=1000 (no
+    # multiple of a tile), y non-causal with main path 3's packed segments
+    note(_kernel_case(torch, fa, "s", 2, 2048, 32, 32, causal=True, d=96))
+    note(_kernel_case(torch, fa, "t", 2, 2048, 8, 2, causal=True, seg=inner, d=96))
+    note(_kernel_case(torch, fa, "u", 2, 2048, 8, 2, causal=True, window=100, d=96))
+    note(_kernel_case(torch, fa, "v", 2, 2048, 32, 32, causal=True, window=2047, d=96))
+    note(_kernel_case(torch, fa, "w", 2, 2048, 8, 2, causal=True, seg=inner, window=100,
+                      sinks=True, d=96))
+    note(_kernel_case(torch, fa, "x", 2, 1000, 8, 2, causal=True, d=96))
+    note(_kernel_case(torch, fa, "y", 2, 4096, 8, 2, causal=False, seg=_packed_segments(torch),
+                      d=96))
+
+
+def _refused_on_the_card(torch, fa):
+    """What the flash kernels do not take raises NotImplementedError on the card and
+    launches nothing in its place: head_dim 80, and the logit soft-cap at head_dim 96."""
+    before = dict(fa.LAUNCHES)
+    for d, kw in ((80, {}), (96, {"logit_soft_cap": 30.0})):
+        q = torch.zeros(1, 128, 2, d, dtype=torch.bfloat16, device="cuda")
+        try:
+            fa.flash_attention(q, q, q, **kw)
+        except NotImplementedError as exc:
+            print(f"refused on the card: head_dim {d} {kw or ''}: {exc}", flush=True)
+        else:
+            raise AssertionError(f"flash_attention at head_dim {d} {kw} did not raise")
+    if fa.LAUNCHES != before:
+        raise AssertionError("a refused flash call launched a kernel")
 
 
 def _time_ms(torch, fn, warmup=3, reps=20, batch=1) -> float:
@@ -649,42 +742,54 @@ def _flash_timing_inputs(torch, b, s, h, kh, d, device="cuda"):
     return (q, k, v, do), _flash_work(q, k, v)
 
 
-def _timings(torch, fa, b=4, s=2048, h=32, kh=8, d=64):
-    """ms of each kernel at shape (a), or at the shape given, with bound, plain version
-    and SDPA, and of the whole backward as the wrapper runs it ("flash_backward": delta,
-    flash_dq and flash_dkv) beside SDPA's backward. The work behind the bound is read
-    from the timed tensors."""
-    (q, k, v, do), work = _flash_timing_inputs(torch, b, s, h, kh, d)
+def _timings(torch, fa, b=4, s=2048, h=32, kh=8, d=64, window=None):
+    """ms of each kernel at shape (a), or at the shape (and sliding ``window``) given, with
+    bound, plain version and SDPA (with a window: SDPA over the window as a boolean mask),
+    and of the whole backward as the wrapper runs it ("flash_backward": delta, flash_dq and
+    flash_dkv) beside SDPA's backward. The work behind the bound is read from the timed
+    tensors (and the pairs the window allows)."""
+    (q, k, v, do), _ = _flash_timing_inputs(torch, b, s, h, kh, d)
+    work = _flash_work(q, k, v, window)
     scale = q.shape[-1]**-0.5
     out = {}
 
-    o, lse = fa.flash_fwd(q, k, v, None, None, scale, True)
+    o, lse = fa.flash_fwd(q, k, v, None, None, scale, True, window)
     delta = fa._delta(o, do)
-    fwd_ms = _time_ms(torch, lambda: fa.flash_fwd(q, k, v, None, None, scale, True))
-    dq_ms = _time_ms(torch, lambda: fa.flash_dq(q, k, v, None, None, do, lse, delta, scale, True))
+    fwd_ms = _time_ms(torch, lambda: fa.flash_fwd(q, k, v, None, None, scale, True, window))
+    dq_ms = _time_ms(torch, lambda: fa.flash_dq(q, k, v, None, None, do, lse, delta, scale, True,
+                                                window))
     dkv_ms = _time_ms(torch, lambda: fa.flash_dkv(q, k, v, None, None, do, lse, delta, scale,
-                                                  True))
+                                                  True, window))
     bwd_ms = _time_ms(torch, lambda: fa.flash_backward(q, k, v, None, None, o, lse, do, scale,
-                                                       True))
+                                                       True, window))
     delta_ms = _time_ms(torch, lambda: fa._delta(o, do))
-    plain_dq = _time_ms(torch, lambda: fa.flash_dq_reference(q, k, v, do, lse, delta),
+    plain_dq = _time_ms(torch, lambda: fa.flash_dq_reference(q, k, v, do, lse, delta,
+                                                             sliding_window=window),
                         warmup=1, reps=3)
-    plain_dkv = _time_ms(torch, lambda: fa.flash_dkv_reference(q, k, v, do, lse, delta),
+    plain_dkv = _time_ms(torch, lambda: fa.flash_dkv_reference(q, k, v, do, lse, delta,
+                                                               sliding_window=window),
                          warmup=1, reps=3)
-    plain_fwd = _time_ms(torch, lambda: fa.flash_attention_reference(q, k, v, causal=True))
+    plain_fwd = _time_ms(torch, lambda: fa.flash_attention_reference(q, k, v, causal=True,
+                                                                     sliding_window=window))
     qp, kp, vp = (x.clone().requires_grad_() for x in (q, k, v))
-    o_plain, _ = fa.flash_attention_reference(qp, kp, vp, causal=True)
+    o_plain, _ = fa.flash_attention_reference(qp, kp, vp, causal=True, sliding_window=window)
     plain_bwd = _time_ms(torch, lambda: torch.autograd.grad(o_plain, (qp, kp, vp), do,
                                                             retain_graph=True))
     del o_plain
-    lib_fwd = _time_ms(torch, lambda: _library_sdpa(torch, q, k, v, True))
+    mask = None
+    if window is not None:  # SDPA's masked kernels take no GQA: k, v at q's heads
+        idx = torch.arange(s, device="cuda")
+        mask = (idx[:, None] >= idx[None, :]) & (idx[:, None] - idx[None, :] < window)
+        k, v = k.repeat_interleave(h // kh, 2), v.repeat_interleave(h // kh, 2)
+    lib_fwd = _time_ms(torch, lambda: _library_sdpa(torch, q, k, v, True, mask))
     ql, kl, vl = (x.clone().requires_grad_() for x in (q, k, v))
-    o_lib = _library_sdpa(torch, ql, kl, vl, True)
+    o_lib = _library_sdpa(torch, ql, kl, vl, True, mask)
     lib_bwd = _time_ms(torch, lambda: torch.autograd.grad(o_lib, (ql, kl, vl), do,
                                                           retain_graph=True))
-    del o_lib, delta
+    del o_lib, delta, mask
     torch.cuda.empty_cache()
-    shown = f"B={b} S={s} H={h} KH={kh} D={q.shape[-1]} causal"
+    shown = f"B={b} S={s} H={h} KH={kh} D={q.shape[-1]} causal" + (
+        f", window {window}" if window is not None else "")
     for name, ms, plain, lib in (("flash_fwd", fwd_ms, plain_fwd, lib_fwd),
                                  ("flash_dq", dq_ms, plain_dq, None),
                                  ("flash_dkv", dkv_ms, plain_dkv, None),
@@ -694,7 +799,8 @@ def _timings(torch, fa, b=4, s=2048, h=32, kh=8, d=64):
         out[name] = {"ms": ms, "plain_ms": plain, "library_ms": lib,
                      "bound_ms": max(t_ops, t_bytes),
                      "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                     "shape": {"B": b, "S": s, "H": h, "KH": kh, "D": q.shape[-1]}}
+                     "shape": {"B": b, "S": s, "H": h, "KH": kh, "D": q.shape[-1],
+                               **({"window": window} if window is not None else {})}}
         if name == "flash_backward":
             out[name]["delta_ms"] = delta_ms
         if lib is None:  # SDPA's backward gives dq, dk and dv together: a comparison only
@@ -1569,8 +1675,9 @@ def _bias_gather_grad(torch, bias, idx, g):
 
 def _twice_phase(torch):
     """Each backward kernel launched twice on the same inputs, and the outputs that differ
-    bitwise: flash_dq and flash_dkv at flash cases (a) and (f) and with GPT-OSS's window
-    (w: B=1, S=4096, H=16, KH=2, D=64, window 128), ring_bwd and the deterministic route
+    bitwise: flash_dq and flash_dkv at flash cases (a) and (f), with GPT-OSS's window
+    (w: B=1, S=4096, H=16, KH=2, D=64, window 128) and at Phi-3's shape and window (P: B=4,
+    S=2048, H=KH=32, D=96, window 2047), ring_bwd and the deterministic route
     (ring_dq, ring_dkv) at ring case (a)'s diagonal step, lce_bwd at lce case (a), gmm dX
     and tgmm at gmm case (a), and the backward of the expert biases' gathers at main path
     11's shapes (65,536 rows sorted over 32 experts). Fails if one of
@@ -1580,7 +1687,7 @@ def _twice_phase(torch):
 
     found = {}
     for case, shape, win in (("a", (4, 2048, 32, 8, 64), None), ("f", (4, 2048, 32, 4, 128), None),
-                             ("w", (1, 4096, 16, 2, 64), 128)):
+                             ("w", (1, 4096, 16, 2, 64), 128), ("P", (4, 2048, 32, 32, 96), 2047)):
         q, k, v, do = _inputs(torch, *shape, seed=3)
         scale = q.shape[-1]**-0.5
         o, lse = fa.flash_fwd(q, k, v, None, None, scale, True, win)
@@ -1700,7 +1807,8 @@ def _counters():
 def _reset_counts():
     from automodel_tpu_torch.ops import flash_attention as fa
 
-    for counter in (*_counters(), *_route_counters(), fa.WINDOWED_LAUNCHES):
+    for counter in (*_counters(), *_route_counters(), fa.WINDOWED_LAUNCHES,
+                    fa.HEAD_DIM_LAUNCHES):
         for key in counter:
             counter[key] = 0
 
@@ -1710,6 +1818,29 @@ def _read_windowed() -> dict:
     from automodel_tpu_torch.ops import flash_attention as fa
 
     return {f"{k}/windowed": v for k, v in fa.WINDOWED_LAUNCHES.items()}
+
+
+def _read_head_dims() -> dict:
+    """The flash launches by head dim ("flash_fwd/d96", ...), those of no launch left out."""
+    from automodel_tpu_torch.ops import flash_attention as fa
+
+    return {k: v for k, v in fa.HEAD_DIM_LAUNCHES.items() if v}
+
+
+def _check_head_dim(name, launches, head_dim):
+    """Every flash launch of a path is at its model's head dim: main paths 13 and 14 run
+    Phi-3-mini's 96 through the 128-wide kernels."""
+    want = {f"{k}/d{head_dim}": launches[k] for k in ("flash_fwd", "flash_dq", "flash_dkv")
+            if launches[k]}
+    got = {k: v for k, v in launches.items() if k.startswith("flash_") and "/d" in k}
+    print(f"{name}: flash launches by head dim {got} (head_dim {head_dim})", flush=True)
+    if got != want:
+        raise AssertionError(f"{name}: flash launches by head dim {got} != {want}")
+
+
+def _head_dim(model) -> int:
+    """A model config's head dim: head_dim, or hidden over heads."""
+    return int(model.get("head_dim") or model["hidden_size"] // model["num_attention_heads"])
 
 
 def _read_counts() -> dict:
@@ -1740,7 +1871,7 @@ def _check_routes(name, launches) -> dict:
         if routes[f"{kernel}/wgmma"] != launches.get(kernel, 0):
             raise AssertionError(f"{name}: {launches.get(kernel, 0)} {kernel} launches, "
                                  f"{routes[f'{kernel}/wgmma']} of them on the wgmma route")
-    return {**launches, **routes, **_read_windowed()}
+    return {**launches, **routes, **_read_windowed(), **_read_head_dims()}
 
 
 def _sliding_layers(cfg) -> int:
@@ -1875,6 +2006,7 @@ def _bench_path(name, yaml, linear_ce, overrides=()):
         raise AssertionError(f"{name}: kernel launches {launches} != expected {want}")
     routed = _check_routes(name, launches)
     _check_windowed(name, routed, _sliding_layers(cfg), micro, WARMUP + TIMED)
+    _check_head_dim(name, routed, _head_dim(cfg.model.config))
     return routed, result["losses"]
 
 
@@ -1925,6 +2057,7 @@ def _train_ft_path(name, yaml, overrides, deterministic=False):
         raise AssertionError(f"{name}: kernel launches {launches} != expected {want}")
     routed = _check_routes(name, launches)
     _check_windowed(name, routed, _sliding_layers(cfg), micro, TRAIN_FT_STEPS)
+    _check_head_dim(name, routed, _head_dim(cfg.model.config))
     return routed, losses
 
 
@@ -2051,6 +2184,79 @@ def _baseline_path(name):
         raise AssertionError(f"{name}: kernel launches A {a['launches']} B {b['launches']} != "
                              f"expected A {want_a} B {want_b}")
     return {k: a["routed"][k] + b["routed"][k] for k in a["routed"]}
+
+
+def _phi3_train_ft_path(name):
+    """examples/llm_finetune/phi3_mini_sft.yaml through train_ft (main path 14): its model a
+    local HF directory of a random-init Phi-3-mini at PHI3_LAYERS_TRAIN_FT layers in HF's
+    fused layout (qkv_proj, gate_up_proj), written by write_pretrained; packed 1000-token
+    documents, PHI3_STEPS steps of 2 microbatches, a checkpoint with the consolidated HF
+    export every 2 steps (phi3_sft_args). Checks: finite losses, the first within 0.5 of
+    the random-init loss, the launches (every flash launch windowed and at head_dim 96),
+    step_N/hf holding the fused names only, and its reload through from_pretrained
+    bitwise equal to the final parameters."""
+    import torch
+
+    from automodel_tpu_torch.checkpoint.safetensors_io import load_safetensors
+    from automodel_tpu_torch.config.cli_overrides import parse_args_and_load_config
+    from automodel_tpu_torch.models.auto import AutoModelForCausalLM
+
+    _release()
+    layers, micro = PHI3_LAYERS_TRAIN_FT, 2
+    with tempfile.TemporaryDirectory() as tmp:
+        hf_dir = write_pretrained(os.path.join(tmp, "phi3_mini"),
+                                  dict(PHI3_MINI, num_hidden_layers=layers))
+        ckpt = os.path.join(tmp, "ckpts")
+        cfg = parse_args_and_load_config(["-c", PHI3_SFT_YAML, *phi3_sft_args(hf_dir, ckpt),
+                                          "--output_dir", os.path.join(tmp, "run")])
+        _reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        recipe, losses, rows, _ = _recorded_train_ft(cfg)
+        launches = _read_counts()
+        routed = _check_routes(name, launches)
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        step_hf = os.path.join(ckpt, f"step_{PHI3_STEPS}", "hf")
+        hf_names = sorted(load_safetensors(step_hf))
+        reloaded = AutoModelForCausalLM.from_pretrained(step_hf, dtype=torch.float32,
+                                                        device="cuda").param_dict()
+        differ = sorted(k for k, v in recipe.params.items() if not torch.equal(v, reloaded[k]))
+        loss_name = recipe.loss_name
+        del recipe, reloaded
+        _release()
+    saves = [(x["step"], x["seconds"], x["bytes"]) for x in rows
+             if x.get("event") == "checkpoint_save"]
+    want = _expected(layers, micro, PHI3_STEPS, False)
+    want_loss = random_init_loss(PHI3_MINI["vocab_size"], PHI3_MINI["hidden_size"],
+                                 PHI3_MINI["initializer_range"])
+    fused = [n for n in hf_names if n.endswith(("qkv_proj.weight", "gate_up_proj.weight"))]
+    split = [n for n in hf_names if n.endswith((".q_proj.weight", ".k_proj.weight",
+                                                ".v_proj.weight", ".gate_proj.weight",
+                                                ".up_proj.weight"))]
+    print(f"{name}: train_ft on {_shown(PHI3_SFT_YAML)} ({layers} layers from a local HF "
+          f"directory, loss {loss_name}, packed rows of 4096), losses {losses}, step times "
+          f"{[x['step_time_s'] for x in rows if 'loss' in x]} s, MFU "
+          f"{[x.get('mfu') for x in rows if 'loss' in x]}, saves {saves} (step, s, "
+          f"bytes), peak memory {peak_gib:.2f} GiB, step_{PHI3_STEPS}/hf fused tensors "
+          f"{len(fused)}, split ones {len(split)}, reloaded through from_pretrained: "
+          f"{'bitwise equal' if not differ else differ}, launches {launches} (expected "
+          f"{want})", flush=True)
+    if sorted(losses) != list(range(1, PHI3_STEPS + 1)):
+        raise AssertionError(f"{name}: stepped {sorted(losses)}")
+    if not all(math.isfinite(x) for x in losses.values()):
+        raise AssertionError(f"{name}: non-finite loss")
+    if abs(losses[1] - want_loss) > 0.5:
+        raise AssertionError(f"{name}: first loss {losses[1]} is not within 0.5 of {want_loss:.3f}")
+    if [x[0] for x in saves] != [2, PHI3_STEPS]:
+        raise AssertionError(f"{name}: checkpoints saved at {saves}")
+    if len(fused) != 2 * layers or split:
+        raise AssertionError(f"{name}: step_{PHI3_STEPS}/hf holds fused {fused}, split {split}")
+    if differ:
+        raise AssertionError(f"{name}: hf/ reloaded differs from the final parameters in {differ}")
+    if launches != want:
+        raise AssertionError(f"{name}: kernel launches {launches} != expected {want}")
+    _check_windowed(name, routed, layers, micro, PHI3_STEPS)
+    _check_head_dim(name, routed, _head_dim(PHI3_MINI))
+    return routed
 
 
 def _cp_train_ft_args(layers=CP_LAYERS_TRAIN_FT) -> list[str]:
@@ -2336,18 +2542,36 @@ def _lce_timing_large(torch):
 
 
 def _kernel_times(torch):
-    """ms of gmm (forward and dX) and tgmm at the slice's shapes (a) and (b), of lce_fwd
-    and lce_bwd at N=8192, E=2048, V=128,256 and at main path 7's shape, and of ring_fwd
-    and ring_bwd at ring case (a)'s diagonal step and step 1, on the inputs their timing
-    rows use, called only through the wrapper calls that the package has had since the
-    kernels were ported (``gmm(x, w, ends, transpose_w)``, ``tgmm(x, dout, ends, e)``,
-    ``lce_fwd(h, w)``, ``lce_bwd(h, w, z, dz, None)``, ``ring_fwd(q, k, v, pos_q,
-    pos_kv, seg_q, seg_kv, acc, m, l, **kw)``, ``ring_bwd(...)``), so that
-    ``--kernel-times ROOT`` can time an older checkout's kernels beside this one's."""
+    """ms of flash_fwd, flash_dq and flash_dkv (causal) at flash shapes (a), (f), (L)
+    and GPT-OSS's, of gmm (forward and dX) and tgmm at the slice's shapes (a) and (b), of
+    lce_fwd and lce_bwd at N=8192, E=2048, V=128,256 and at main path 7's shape, and of
+    ring_fwd and ring_bwd at ring case (a)'s diagonal step and step 1, on the inputs their
+    timing rows use, called only through the wrapper calls that the package has had since
+    the kernels were ported (``flash_fwd(q, k, v, seg_q, seg_kv, scale, causal)``,
+    ``flash_dq`` / ``flash_dkv(..., do, lse, delta, scale, causal)``, ``gmm(x, w, ends,
+    transpose_w)``, ``tgmm(x, dout, ends, e)``, ``lce_fwd(h, w)``, ``lce_bwd(h, w, z, dz,
+    None)``, ``ring_fwd(q, k, v, pos_q, pos_kv, seg_q, seg_kv, acc, m, l, **kw)``,
+    ``ring_bwd(...)``), so that ``--kernel-times ROOT`` can time an older checkout's
+    kernels beside this one's."""
+    from automodel_tpu_torch.ops import flash_attention as fa
     from automodel_tpu_torch.ops import grouped_gemm as gg
     from automodel_tpu_torch.ops import linear_ce as lce
 
     out = {}
+    for case, shape in (("a", (4, 2048, 32, 8, 64)), ("f", (4, 2048, 32, 4, 128)),
+                        ("L", (1, 32768, 32, 8, 128)), ("G", (1, 8192, 64, 8, 64))):
+        q, k, v, do = _inputs(torch, *shape, seed=1)
+        scale = q.shape[-1]**-0.5
+        o, lse = fa.flash_fwd(q, k, v, None, None, scale, True)
+        delta = fa._delta(o, do)
+        out[f"flash_fwd ({case})"] = _time_ms(torch, lambda: fa.flash_fwd(
+            q, k, v, None, None, scale, True))
+        out[f"flash_dq ({case})"] = _time_ms(torch, lambda: fa.flash_dq(
+            q, k, v, None, None, do, lse, delta, scale, True))
+        out[f"flash_dkv ({case})"] = _time_ms(torch, lambda: fa.flash_dkv(
+            q, k, v, None, None, do, lse, delta, scale, True))
+        del q, k, v, do, o, lse, delta
+        torch.cuda.empty_cache()
     sizes = _router_group_sizes(torch, 8192, 2048, 128, 8)
     ends = gg._ends(sizes)
     for case, d, f in (("a", 2048, 1536), ("b", 768, 2048)):
@@ -2459,6 +2683,10 @@ def main(argv: list[str]) -> int:
     for name in ("flash_fwd", "flash_dq", "flash_dkv"):
         timings[name]["at_gpt_oss"] = gpt_oss[name]
     timings["flash_dq"]["at_gpt_oss"]["whole_backward"] = gpt_oss["flash_backward"]
+    for key, window in (("at_phi3", None), ("at_phi3_window", PHI3_MINI["sliding_window"])):
+        for name, row in _timings(torch, fa, 4, 2048, 32, 32, 96, window).items():
+            timings[name][key] = row
+    _refused_on_the_card(torch, fa)
     _model_check(torch)
 
     errs.update({"lce_fwd": 0.0, "lce_bwd": 0.0})
@@ -2514,6 +2742,9 @@ def main(argv: list[str]) -> int:
                                        "--packed_sequence.packed_sequence_size", "2048",
                                        "--dataset.seq_len", "500",
                                        "--backend.attention_segments", "true"])
+    by_path["main path 13"], _ = _bench_path("main path 13", PHI3_YAML, linear_ce=False,
+                                             overrides=phi3_args())
+    by_path["main path 14"] = _phi3_train_ft_path("main path 14")
 
     flash = "automodel_tpu/ops/pallas/flash_attention.py"
     lce_src = "automodel_tpu/ops/pallas/linear_ce.py"
@@ -2558,9 +2789,12 @@ def main(argv: list[str]) -> int:
                 for r in ("wgmma", "mma_sync")}
         if name in ("ring_dq", "ring_dkv"):  # a part of _chunk_bwd_kernel
             row["replaces_part"] = "dq" if name == "ring_dq" else "dk, dv"
-        if name.startswith("flash_"):  # the launches with a sliding window, by path
+        if name.startswith("flash_"):  # the launches with a sliding window, by head dim
             row["launches_windowed"] = {p: counts.get(f"{name}/windowed", 0)
                                         for p, counts in by_path.items()}
+            row["launches_by_head_dim"] = {
+                f"d{d}": sum(counts.get(f"{name}/d{d}", 0) for counts in by_path.values())
+                for d in fa._HEAD_DIMS}
         kernels.append(row)
     idle = [row["name"] for row in kernels if row["launches"] == 0]
     if idle:

@@ -336,7 +336,8 @@ def test_baseline_path_resumes_on_cpu(tmp_path):
     """Main path 9 at small widths on the CPU: a local HF directory written by
     write_pretrained, the derived config with prefetch, validation and checkpoints every
     2 steps; run B, resumed from step 2 after step_4 is removed, repeats run A's losses
-    bitwise (no atomics on the CPU), and step_4/hf reloads to run A's final weights."""
+    bitwise (no atomics on the CPU), and step_4/hf reloads to run A's final weights. One
+    microbatch a step and one validation batch keep the CPU's work small."""
     import shutil
 
     from automodel_tpu_torch.models.auto import AutoModelForCausalLM
@@ -355,7 +356,8 @@ def test_baseline_path_resumes_on_cpu(tmp_path):
             shutil.rmtree(os.path.join(ckpt, "step_4"))
         cfg = parse_args_and_load_config([
             "-c", path, *chip_smoke.baseline_args(ckpt), "--output_dir", str(tmp_path / run),
-            "--device", "cpu", "--seq_len", "256"])
+            "--device", "cpu", "--seq_len", "256", "--step_scheduler.grad_acc_steps", "1",
+            "--validation_max_batches", "1"])
         runs[run] = chip_smoke._recorded_train_ft(cfg)
         if run == "A":
             reloaded = AutoModelForCausalLM.from_pretrained(
@@ -414,14 +416,16 @@ def test_ring_split_work_sums_to_a_fused_launch(step):
 def test_phase_order():
     """The twice-launch phase runs first, the kernel cases next, then the main paths in
     order, the deterministic ones (main paths 9 and 10 under the flag, in a child
-    process) before GPT-OSS's (main paths 11 and 12), then the kernels line."""
+    process) before GPT-OSS's (main paths 11 and 12) and Phi-3's (13 and 14), then the
+    kernels line."""
     src = inspect.getsource(chip_smoke.main)
-    order = ["_twice_phase(", "_flash_phase(", "_timings(", "_window_timings(", "_model_check(",
+    order = ["_twice_phase(", "_flash_phase(", "_timings(", "_window_timings(",
+             "_refused_on_the_card(", "_model_check(",
              "_lce_case(", "_gmm_phase(", "_moe_model_check(", "_ring_phase(", "_ring_timings(",
              "_ring_model_check(", '"main path 1"', '"main path 2"', '"main path 3"',
              '"main path 4"', '"main path 5"', '"main path 6"', '"main path 7"',
              '"main path 8"', '"main path 9"', "_deterministic_paths()", '"main path 11"',
-             '"main path 12"', '{"kernels"']
+             '"main path 12"', '"main path 13"', '"main path 14"', '{"kernels"']
     at = [re.search(r"(?<!\w)" + re.escape(x), src).start() for x in order]
     assert at == sorted(at)
     child = inspect.getsource(chip_smoke._deterministic_child)
@@ -444,7 +448,9 @@ def test_deterministic_restores_the_flag():
 def test_gpt_oss_config_runs_through_both_recipes(tmp_path):
     """Main paths 11 and 12 at small widths: the GPT-OSS proxy config with the published
     config's other settings (gpt_oss_args: layer_types cut to the depth, YaRN, biases,
-    sinks, window 128) trains in the benchmark recipe and, packed, in train_ft."""
+    sinks, window 128) trains in the benchmark recipe and, packed, in train_ft. The runs
+    take 2 layers (one sliding, one full) and 8 of the 32 experts (top-4 still): the
+    experts' plain version loops over them."""
     cfg = parse_args_and_load_config(["-c", chip_smoke.GPT_OSS_YAML, *chip_smoke.gpt_oss_args(),
                                       *SMALL])
     model = cfg.model.config
@@ -452,18 +458,19 @@ def test_gpt_oss_config_runs_through_both_recipes(tmp_path):
     assert model.rope_scaling["rope_type"] == "yarn" and model.rope_scaling["truncate"] is False
     assert chip_smoke._sliding_layers(cfg) == 2 and chip_smoke._is_moe(cfg)
     assert cfg.backend.experts_backend == "pallas" and cfg.micro_batch_size == 8
-    result = benchmark.main(argv=["-c", chip_smoke.GPT_OSS_YAML, *chip_smoke.gpt_oss_args(),
-                                  *SMALL, "--benchmark.warmup_steps", "1",
+    experts = ["--model.config.num_local_experts", "8", "--dataset.num_samples", "256"]
+    result = benchmark.main(argv=["-c", chip_smoke.GPT_OSS_YAML, *chip_smoke.gpt_oss_args(2),
+                                  *SMALL, *experts, "--benchmark.warmup_steps", "1",
                                   "--benchmark.timed_steps", "1", "--micro_batch_size", "2",
                                   "--output_dir", str(tmp_path / "bench")])
     assert len(result["losses"]) == 2 and all(map(math.isfinite, result["losses"]))
 
     cfg = parse_args_and_load_config([
         "-c", chip_smoke.GPT_OSS_YAML, *chip_smoke.gpt_oss_args(chip_smoke.GPT_OSS_LAYERS_TRAIN_FT),
-        *SMALL, "--packed_sequence.packed_sequence_size", "256", "--dataset.seq_len", "60",
-        "--backend.attention_segments", "true", "--micro_batch_size", "2",
-        "--step_scheduler.max_steps", "2", "--checkpoint.enabled", "false",
-        "--output_dir", str(tmp_path / "ft")])
+        *SMALL, *experts, "--packed_sequence.packed_sequence_size", "256",
+        "--dataset.seq_len", "60", "--backend.attention_segments", "true",
+        "--micro_batch_size", "2", "--step_scheduler.max_steps", "2",
+        "--checkpoint.enabled", "false", "--output_dir", str(tmp_path / "ft")])
     assert chip_smoke._sliding_layers(cfg) == 1
     recipe = train_ft.main(cfg=cfg)
     assert type(recipe.model).__name__ == "GptOssForCausalLM"
@@ -501,3 +508,76 @@ def test_window_bound_at_the_gpt_oss_shape():
     t_ops = work["flash_fwd"][0] / chip_smoke.PEAK_FLOPS * 1e3
     t_bytes = work["flash_fwd"][1] / chip_smoke.PEAK_BYTES * 1e3
     assert t_ops == pytest.approx(0.0172, abs=1e-4) and t_bytes > t_ops  # bound by bytes
+
+
+def test_expected_launches_of_the_phi3_paths():
+    """Main path 13: all 32 layers, 7 steps of one microbatch, masked CE (Phi-3's vocab is
+    under 65,536): flash_fwd 448 (forward and replay), flash_dq and flash_dkv 224, every
+    one windowed and at head_dim 96; main path 14: 2 layers, 2 microbatches, 4 steps."""
+    for layers, micro, steps, n in ((32, 1, chip_smoke.WARMUP + chip_smoke.TIMED, 224),
+                                    (chip_smoke.PHI3_LAYERS_TRAIN_FT, 2, chip_smoke.PHI3_STEPS,
+                                     16)):
+        want = chip_smoke._expected(layers, micro, steps, False)
+        assert (want["flash_fwd"], want["flash_dq"], want["flash_dkv"]) == (2 * n, n, n)
+        assert not any(v for k, v in want.items() if not k.startswith("flash_"))
+        launches = dict(want, **{f"{k}/windowed": want[k] for k in ("flash_fwd", "flash_dq",
+                                                                    "flash_dkv")},
+                        **{f"{k}/d96": want[k] for k in ("flash_fwd", "flash_dq", "flash_dkv")})
+        chip_smoke._check_windowed("path", launches, layers, micro, steps)
+        chip_smoke._check_head_dim("path", launches, 96)
+        with pytest.raises(AssertionError, match="head dim"):
+            chip_smoke._check_head_dim("path", dict(launches, **{"flash_dq/d96": n - 1,
+                                                                 "flash_dq/d128": 1}), 96)
+    assert chip_smoke._head_dim(chip_smoke.PHI3_MINI) == 96
+
+
+SMALL_PHI3 = ["--model.config.hidden_size", "192", "--model.config.intermediate_size", "256",
+              "--model.config.num_attention_heads", "2", "--model.config.num_key_value_heads",
+              "2", "--model.config.vocab_size", "512", "--dataset.vocab_size", "512",
+              "--dataset.seq_len", "128", "--seq_len", "128", "--device", "cpu"]
+
+
+def test_phi3_config_runs_through_both_recipes(tmp_path):
+    """Main paths 13 and 14 at small widths (head_dim 96 kept: hidden 192 over 2 heads):
+    the Phi-3 proxy config with the published widths' other settings (phi3_args: window
+    2047 on every layer, untied) in the benchmark recipe at 1 layer; phi3_mini_sft.yaml
+    with phi3_sft_args from a local directory in HF's fused layout (write_pretrained),
+    packed, in train_ft for 2 steps of one microbatch, with its checkpoint every 2 steps:
+    step_2/hf holds the fused tensors and reloads to the final weights bitwise."""
+    from automodel_tpu_torch.checkpoint.safetensors_io import load_safetensors
+    from automodel_tpu_torch.models.auto import AutoModelForCausalLM
+
+    cfg = parse_args_and_load_config(["-c", chip_smoke.PHI3_YAML, *chip_smoke.phi3_args(),
+                                      *SMALL_PHI3])
+    model = cfg.model.config
+    assert model.architectures == ["Phi3ForCausalLM"] and model.num_hidden_layers == 32
+    assert model.sliding_window == 2047 and model.tie_word_embeddings is False
+    assert chip_smoke._sliding_layers(cfg) == 32 and chip_smoke._head_dim(model) == 96
+    result = benchmark.main(argv=["-c", chip_smoke.PHI3_YAML, *chip_smoke.phi3_args(1),
+                                  *SMALL_PHI3, "--benchmark.warmup_steps", "1",
+                                  "--benchmark.timed_steps", "1", "--micro_batch_size", "2",
+                                  "--output_dir", str(tmp_path / "bench")])
+    assert len(result["losses"]) == 2 and all(map(math.isfinite, result["losses"]))
+
+    small = dict(chip_smoke.PHI3_MINI, hidden_size=192, intermediate_size=256,
+                 num_attention_heads=2, num_key_value_heads=2, vocab_size=512,
+                 num_hidden_layers=chip_smoke.PHI3_LAYERS_TRAIN_FT)
+    hf = chip_smoke.write_pretrained(str(tmp_path / "hf"), small, device="cpu")
+    assert any(k.endswith("qkv_proj.weight") for k in load_safetensors(hf))
+    ckpt = str(tmp_path / "ck")
+    cfg = parse_args_and_load_config([
+        "-c", chip_smoke.PHI3_SFT_YAML, *chip_smoke.phi3_sft_args(hf, ckpt),
+        "--dataset.vocab_size", "512", "--dataset.seq_len", "60", "--seq_len", "128",
+        "--packed_sequence.packed_sequence_size", "128", "--step_scheduler.grad_acc_steps", "1",
+        "--step_scheduler.max_steps", "2", "--device", "cpu", "--output_dir", str(tmp_path / "ft")])
+    recipe, losses, rows, _ = chip_smoke._recorded_train_ft(cfg)
+    assert type(recipe.model).__name__ == "Phi3ForCausalLM" and recipe.loss_name == "masked_ce"
+    assert sorted(losses) == [1, 2] and all(map(math.isfinite, losses.values()))
+    assert [r["step"] for r in rows if r.get("event") == "checkpoint_save"] == [2]
+    step_hf = os.path.join(ckpt, "step_2", "hf")
+    names = set(load_safetensors(step_hf))
+    assert {f"model.layers.{i}.{n}" for i in range(2)
+            for n in ("self_attn.qkv_proj.weight", "mlp.gate_up_proj.weight")} <= names
+    assert not any(n.endswith((".q_proj.weight", ".gate_proj.weight")) for n in names)
+    reloaded = AutoModelForCausalLM.from_pretrained(step_hf, device="cpu").param_dict()
+    assert all(torch.equal(v, reloaded[k]) for k, v in recipe.params.items())

@@ -3,7 +3,8 @@
 On the CPU the port's wrapper runs the kernels' plain version; the JAX side runs
 the Pallas kernels in interpret mode with 32x32 blocks, as tests/unit/
 test_flash_attention.py does, with the fused backward and with the split one.
-Inputs come from numpy seeds. Tolerances, f32 throughout: 2e-5 on O and lse,
+Inputs come from numpy seeds; cases run at head_dim 16, 128 and Phi-3's 96 (with GQA,
+segments and a window). Tolerances, f32 throughout: 2e-5 on O and lse,
 1e-4 on the gradients. The deterministic route's plain versions (flash_dq_reference,
 flash_dkv_reference) are held against the split backward's kernels (_dq_kernel,
 _dkv_kernel) at 1e-4 too, and the route the wrapper takes under
@@ -89,6 +90,8 @@ CASES = {
     # the cases above, whose seeds are their sorted positions)
     "wide_gqa_d128": dict(shape=(1, 64, 4, 2, 128), causal=True),
     "wide_packed_d128": dict(shape=(1, 64, 4, 2, 128), causal=True, segments=True),
+    # head_dim 96, Phi-3's (the CUDA kernels run it in their 128-wide tiles)
+    "y_d96_gqa_packed": dict(shape=(1, 64, 4, 2, 96), causal=True, segments=True),
 }
 
 
@@ -238,6 +241,7 @@ WINDOW_CASES = {
     "window_non_causal": ((1, 64, 2, 2, 16), False, 20, False, False),
     "sinks": ((2, 64, 4, 2, 16), True, None, False, True),
     "window_sinks_segments": ((2, 64, 8, 2, 16), True, 12, True, True),
+    "y_d96_window_segments": ((1, 64, 4, 2, 96), True, 20, True, False),
 }
 
 
@@ -324,3 +328,27 @@ def test_window_and_sinks_reach_the_entry_points(window, sinks, monkeypatch):
         before_w, int(window is not None))
     if sinks:
         assert grads[3].dtype == torch.bfloat16 and grads[3].shape == (4,)
+
+
+def test_head_dim_96_reaches_the_entry_points(monkeypatch):
+    """At head_dim 96 all three entry points get D = 96 and the softmax scale 1/sqrt(96)
+    (the kernels run it in their 128-wide tiles, but the scale is never the tile's), and
+    the launches are counted under d96."""
+    seen = {}
+
+    def launch(source, name, device, *args):
+        assert len(args) + 1 == len(build.SOURCES[source][name]), name
+        seen[name] = args
+
+    monkeypatch.setattr(build, "launch", launch)
+    monkeypatch.setattr(tfa, "_check_cuda", lambda *a: None)  # CPU tensors stand in
+    q, k, v, do = (torch.tensor(x).to(torch.bfloat16).requires_grad_()
+                   for x in _inputs(0, 1, 64, 4, 2, 96))
+    before = dict(tfa.HEAD_DIM_LAUNCHES)
+    o, _ = tfa.flash_attention_cuda(q, k, v, sliding_window=2047)
+    torch.autograd.grad(o, (q, k, v), do)
+    for name, args in seen.items():
+        ints, floats = [a for a in args if type(a) is int], [a for a in args if type(a) is float]
+        assert 96 in ints and floats == [96**-0.5], name
+    assert {n: tfa.HEAD_DIM_LAUNCHES[n] - before[n] for n in before} == {
+        n: int(n.endswith("/d96")) for n in before}

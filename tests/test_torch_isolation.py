@@ -90,3 +90,5 @@ def test_every_module_is_walked():
                                                    "automodel_tpu_torch.")]
     assert "automodel_tpu_torch.ops.flash_attention" in names
     assert "automodel_tpu_torch.recipes.llm.benchmark" in names
+    assert {"automodel_tpu_torch.models.phi3.model",
+            "automodel_tpu_torch.models.phi3.state_dict_adapter"} <= set(names)

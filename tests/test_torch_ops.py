@@ -53,11 +53,13 @@ def test_rope(scaling):
 
 
 def test_rope_unported_scaling_raises():
-    longrope = {"rope_type": "longrope", "short_factor": [1.0] * 32, "long_factor": [2.0] * 32}
+    """A scaling type neither package computes (HF's dynamic NTK) raises; longrope is
+    ported (tests/test_torch_phi3.py)."""
+    dynamic = {"rope_type": "dynamic", "factor": 2.0}
     with pytest.raises(NotImplementedError):
-        trope.rope_frequencies(64, 10000.0, longrope)
+        trope.rope_frequencies(64, 10000.0, dynamic)
     with pytest.raises(NotImplementedError):
-        trope.rope_attention_scaling(longrope)
+        trope.rope_attention_scaling(dynamic)
 
 
 @pytest.mark.parametrize("kw", [

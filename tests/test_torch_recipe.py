@@ -316,15 +316,21 @@ def test_seq4096_untied_head_through_params_from_jax():
 def test_packed_default_linear_ce_matches_jax(cfg_path, tmp_path):
     """vocab 65536 with no loss.name: both recipes pick linear_ce, pack documents of 20
     tokens into rows of 64 (three a row, with padding and segment ids), and take the
-    same 3-step loss trajectory (f32, 1e-4)."""
+    same 3-step loss trajectory (f32, 1e-4). One layer and one microbatch a step; the JAX
+    side replicates over its 8 CPU devices instead of sharding (the port has one device,
+    the losses are the same), which halves its steps: no gathers of the sharded
+    65536-row embedding."""
     over = ["--model.config.vocab_size", "65536", "--dataset.vocab_size", "65536",
             "--model.config.hidden_size", "128", "--model.config.intermediate_size", "256",
             "--dataset.seq_len", "20", "--packed_sequence.packed_sequence_size", "64",
+            "--model.config.num_hidden_layers", "1", "--step_scheduler.grad_acc_steps", "1",
             "--backend.attention_segments", "true", "--optimizer.optimizer", "adamw"]
     jcfg = jax_load_config(cfg_path)
     for key, val in zip(over[::2], over[1::2]):
         jcfg.set_by_path(key[2:], {"true": True}.get(val, int(val) if val.isdigit() else val))
     jcfg.set_by_path("output_dir", str(tmp_path / "jax"))
+    jcfg.set_by_path("distributed.dp_shard", 1)
+    jcfg.set_by_path("distributed.dp_replicate", 8)
     del jcfg._data["loss"]
     jr = JaxTrainFt(jcfg)
     jr.setup()
