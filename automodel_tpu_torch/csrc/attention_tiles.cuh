@@ -87,25 +87,28 @@ __device__ __forceinline__ uint32_t swz_f32(int r, int c, int nrows) {
 // 128 query rows of one (b, h) (64 a consumer warpgroup), holds its Q and dO tiles and
 // walks the key tiles of its kv head in order through a ring of K / V stages. Key tiles
 // are 64 rows: the consumers then hold S and dP (32 registers each), dS as bf16 A
-// fragments (16) and the f32 dQ (64 at D=128) with room to spare. The kernel's own
-// per-stage words follow at TAIL_OFF.
-template <int D>
+// fragments (16) and the f32 dQ (64 at D=128, 96 at D=192) with room to spare. Q and K
+// are D wide, dO and V DV wide (MLA: D=192, DV=128, where 4 stages would pass the
+// 227 KB of shared memory and 3 fit). The kernel's own per-stage words follow at
+// TAIL_OFF. KV_BYTES: one K stage (one V stage too when DV == D).
+template <int D, int DV = D>
 struct DqTiles {
-  static constexpr int DIM = D;
+  static constexpr int DIM = D, DIM_V = DV;
   static constexpr int BM = 128, BN = 64;
-  static constexpr int STAGES = 4;
-  static constexpr int BOXES = D / BOX;
-  static constexpr int Q_BYTES = BM * D * 2, KV_BYTES = BN * D * 2;
+  static constexpr int STAGES = D == DV ? 4 : 3;
+  static constexpr int BOXES = D / BOX, V_BOXES = DV / BOX;
+  static constexpr int Q_BYTES = BM * D * 2, DO_BYTES = BM * DV * 2;
+  static constexpr int KV_BYTES = BN * D * 2, V_BYTES = BN * DV * 2;
   static constexpr int DO_OFF = Q_BYTES;
-  static constexpr int K_OFF = 2 * Q_BYTES;
+  static constexpr int K_OFF = Q_BYTES + DO_BYTES;
   static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
-  static constexpr int TAIL_OFF = V_OFF + STAGES * KV_BYTES;
+  static constexpr int TAIL_OFF = V_OFF + STAGES * V_BYTES;
 };
 
 // The consumer warpgroup cw's walk of a q-stationary dQ kernel over n key tiles, the
 // tile of step `it` in stage it % STAGES (its full barrier arrives when it has landed,
 // its empty barrier takes one arrival a consumer warp). For each tile:
-//   S = Q K^T and dP = dO V^T (shared-memory wgmmas, 64 q rows x 64 keys),
+//   S = Q K^T over D and dP = dO V^T over DV (shared-memory wgmmas, 64 q rows x 64 keys),
 //   mask(it, s) sets the scores of disallowed pairs to -inf (the kernel's mask policy),
 //   dS = P o (dP - delta) with P = 2^(S scale log2(e) - lse log2(e)),
 //   dQ += dS K (dS from registers as bf16, K through the transpose flag),
@@ -119,7 +122,7 @@ __device__ __forceinline__ void dq_walk(float (&acc)[C::DIM / 2], int n, unsigne
                                         int cw, uint64_t* full, uint64_t* empty,
                                         const float (&lse2)[2], const float (&delta)[2],
                                         float scale_log2, int lane, MaskFn mask) {
-  constexpr int D = C::DIM, BN = C::BN;
+  constexpr int D = C::DIM, DV = C::DIM_V, BN = C::BN;
   const uint32_t q_addr = smem_u32(smem) + cw * 64 * ROW_BYTES;
   const uint32_t do_addr = smem_u32(smem + C::DO_OFF) + cw * 64 * ROW_BYTES;
   float s[BN / 2], dp[BN / 2];
@@ -130,7 +133,7 @@ __device__ __forceinline__ void dq_walk(float (&acc)[C::DIM / 2], int n, unsigne
   // S and dP of the tile in `stage`, one commit group
   auto issue_sdp = [&](int stage) {
     const uint32_t k_addr = smem_u32(smem + C::K_OFF + stage * C::KV_BYTES);
-    const uint32_t v_addr = smem_u32(smem + C::V_OFF + stage * C::KV_BYTES);
+    const uint32_t v_addr = smem_u32(smem + C::V_OFF + stage * C::V_BYTES);
     wgmma_fence();
 #pragma unroll
     for (int ks = 0; ks < D / 16; ++ks) {
@@ -139,7 +142,7 @@ __device__ __forceinline__ void dq_walk(float (&acc)[C::DIM / 2], int n, unsigne
       wgmma_ss<BN, 0, 0>(s, desc_sw128(q_addr + off, 16), desc_sw128(k_addr + koff, 16), ks);
     }
 #pragma unroll
-    for (int ks = 0; ks < D / 16; ++ks) {
+    for (int ks = 0; ks < DV / 16; ++ks) {
       const uint32_t off = (ks / 4) * C::BM * ROW_BYTES + (ks % 4) * 32;
       const uint32_t koff = (ks / 4) * BN * ROW_BYTES + (ks % 4) * 32;
       wgmma_ss<BN, 0, 0>(dp, desc_sw128(do_addr + off, 16), desc_sw128(v_addr + koff, 16), ks);

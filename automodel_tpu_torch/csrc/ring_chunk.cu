@@ -11,16 +11,19 @@
 //                non-skipped key tiles in order, sums dQ in registers and adds it into
 //                the carried dq by one read-modify-write a q tile
 // ring_dq + ring_dkv are the deterministic route, taken by the wrapper when
-// torch.are_deterministic_algorithms_enabled(): ring steps run in sequence, so dq sums
-// in the same order on every run. ring_bwd is the default because it is faster here:
-// one recompute of S and dP, where the split does two.
+// torch.are_deterministic_algorithms_enabled(), and the only route at Dv != D: ring
+// steps run in sequence, so dq sums in the same order on every run. ring_bwd is the
+// default at Dv == D because it is faster there: one recompute of S and dP, where the
+// split does two.
 //
-// Layouts (row form, as the TPU kernels): q (B*H, Sq, D), k / v (B*KH, Skv, D) bf16,
-// contiguous, 16-byte aligned; q row b*H + h reads kv row b*KH + h / (H / KH) (GQA).
-// Positions and segment ids are int32 (B, Sq) / (B, Skv); segments are optional. The
-// carry acc is (B*H, Sq, D) f32 and m / l are (B*H, Sq) f32; lse and delta are (B*H, Sq)
-// f32; dq is (B*H, Sq, D) f32 and dk / dv are (B*KH, Skv, D) f32. Dv must equal D here
-// (MLA's Dv != D runs in the plain version only).
+// Layouts (row form, as the TPU kernels): q (B*H, Sq, D), k (B*KH, Skv, D), v (B*KH, Skv,
+// Dv) bf16, contiguous, 16-byte aligned; q row b*H + h reads kv row b*KH + h / (H / KH)
+// (GQA). Positions and segment ids are int32 (B, Sq) / (B, Skv); segments are optional.
+// The carry acc is (B*H, Sq, Dv) f32 and m / l are (B*H, Sq) f32; dO is (B*H, Sq, Dv);
+// lse and delta are (B*H, Sq) f32; dq is (B*H, Sq, D) f32, dk (B*KH, Skv, D) f32 and dv
+// (B*KH, Skv, Dv) f32. (D, Dv) is (64, 64), (128, 128) or MLA's (192, 128) (DeepSeek-V3,
+// Moonlight: 128 + 64 rope columns for q and k, 128 for v); ring_bwd takes the first two.
+// The softmax scale is the caller's (DeepSeek's carries YaRN's mscale^2).
 //
 // Masks come from data: global positions and segment ids travel with the chunks, so
 // q row r may see key c when (not causal or pq[r] >= pkv[c]) and (no window or
@@ -39,7 +42,18 @@
 // KH 8, D 128, causal) a launch at the diagonal ring step allows half the pairs: 1.1
 // TFLOP forward and 2.7 backward, 1.1 / 2.8 ms at the H100's 989 TFLOP/s dense bf16,
 // against ~1.5 / ~2.5 GB of operands and carry (0.45 / 0.75 ms at 3.35 TB/s): both are
-// bound by operations.
+// bound by operations. At Dv != D, Q K^T and dP take 2*D and 2*Dv operations a pair, P V
+// and dV 2*Dv, dK and dQ 2*D.
+//
+// MLA's (192, 128). The 3-d row-form maps stay: a 192-wide row is three 64-column boxes
+// and a 128-wide one two, so no box reads past a row. ring_fwd keeps 128 q rows, 128-key
+// tiles and its registers (S 64 x 128 and acc 64 x Dv = 64 x 128 f32: Q K^T only gets
+// longer, 12 k16 steps in place of 8) in 2 K/V stages (Q 48 KB + 2 x (48 + 32) KB = 208
+// KB). The fused ring_bwd would need ~288 KB (K and V resident, two Q / dO stages, two
+// dS buffers and 96 KB of f32 dQ staging), so Dv != D takes ring_dq + ring_dkv. ring_dkv
+// takes 32 q rows a step (dK 96 + dV 64 + S^T 16 + dP^T 16 accumulator registers, 123 KB
+// of shared memory); ring_dq keeps 128 q rows and 64-key tiles in 3 stages (Q 48 + dO
+// 32 + 3 x (24 + 16) KB = 200 KB; dQ 64 x 192 f32 is 96 registers).
 //
 // Design: flash_attention.cu's kernels, with data-driven masks.
 //  - Tile classes (tile_class, the one place of the rule): a (q tile, kv tile) pair is
@@ -185,25 +199,27 @@ __device__ __forceinline__ Walk block_walk(int n, Walk* sWalk, Cls cls) {
 
 // ------------------------------------------------------------------ forward
 
-template <int D>
+template <int D, int DV>
 struct Fwd {
-  static constexpr int DIM = D;
   static constexpr int BM = 128, BN = 128;
-  // K/V stages: 4 x 32 KB at D=64; 3 x 64 KB at D=128, with Q 32 KB just inside 227 KB
-  static constexpr int STAGES = D == 64 ? 4 : 3;
-  static constexpr int BOXES = D / BOX;
-  static constexpr int Q_BYTES = BM * D * 2, KV_BYTES = BN * D * 2;
+  // K/V stages: 4 x 32 KB at D=64; 3 x 64 KB at D=128, with Q 32 KB just inside 227 KB;
+  // 2 x (48 + 32) KB at (192, 128), with Q 48 KB (208 KB; 3 stages would not fit)
+  static constexpr int STAGES = D == 64 ? 4 : D == 128 ? 3 : 2;
+  static constexpr int BOXES = D / BOX, V_BOXES = DV / BOX;
+  static constexpr int Q_BYTES = BM * D * 2, K_BYTES = BN * D * 2, V_BYTES = BN * DV * 2;
   static constexpr int K_OFF = Q_BYTES;
-  static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
+  static constexpr int V_OFF = K_OFF + STAGES * K_BYTES;
   static constexpr int RING = 8;  // tile words the classing warp may run ahead
-  static constexpr int WORD_OFF = V_OFF + STAGES * KV_BYTES;  // one tile word a stage
+  static constexpr int WORD_OFF = V_OFF + STAGES * V_BYTES;  // one tile word a stage
   static constexpr int RING_OFF = WORD_OFF + (4 * STAGES + 15) / 16 * 16;
   static constexpr int WALK_OFF = RING_OFF + 4 * RING;  // the Walk
   static constexpr int BAR_OFF = WALK_OFF + 16;  // 8-byte aligned for the mbarriers
   static constexpr int SMEM = BAR_OFF + (1 + 2 * STAGES + 2 * RING) * 8 + 1024;  // + slack
 };
-static_assert(Fwd<128>::SMEM <= 232448 && Fwd<64>::SMEM <= 232448, "forward shared memory");
-static_assert(Fwd<128>::BAR_OFF % 8 == 0 && Fwd<64>::BAR_OFF % 8 == 0, "forward barriers");
+static_assert(Fwd<64, 64>::SMEM <= 232448 && Fwd<128, 128>::SMEM <= 232448 &&
+                  Fwd<192, 128>::SMEM <= 232448, "forward shared memory");
+static_assert(Fwd<64, 64>::BAR_OFF % 8 == 0 && Fwd<128, 128>::BAR_OFF % 8 == 0 &&
+                  Fwd<192, 128>::BAR_OFF % 8 == 0, "forward barriers");
 
 // Masks one S accumulator tile of a partial key tile: register 4j + 2i + e holds row
 // row[i] and key kv_start + 8j + tc + e. The ids come from global memory (in cache after
@@ -241,7 +257,7 @@ __device__ __forceinline__ void mask_keys(float (&s)[N], const int (&row)[2], in
 // grid (ceil(Sq / 128), B * H), 384 threads; block x takes q tile gridDim.x - 1 - x (the
 // heaviest tiles of a causal diagonal step first). counts: null, or SKIP / PARTIAL / FULL
 // tallies the producer adds to.
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(THREADS, 1)
 ring_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv, const int* __restrict__ pos_q,
@@ -249,7 +265,7 @@ ring_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
                 const int* __restrict__ seg_kv, float* __restrict__ acc_carry,
                 float* __restrict__ m_carry, float* __restrict__ l_carry, int* __restrict__ counts,
                 int Sq, int Skv, int H, int KH, float scale, Mask mask) {
-  using C = Fwd<D>;
+  using C = Fwd<D, DV>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
   volatile int* sWord = reinterpret_cast<int*>(smem + C::WORD_OFF);
@@ -328,13 +344,13 @@ ring_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
       const int j = word >> 2, stage = it % C::STAGES;
       mbar_wait(&empty[stage], ((it / C::STAGES) & 1) ^ 1);
       sWord[stage] = word;
-      mbar_arrive_expect_tx(&full[stage], 2 * C::KV_BYTES);
-      unsigned char* sk = smem + C::K_OFF + stage * C::KV_BYTES;
-      unsigned char* sv = smem + C::V_OFF + stage * C::KV_BYTES;
-      for (int x = 0; x < C::BOXES; ++x) {
+      mbar_arrive_expect_tx(&full[stage], C::K_BYTES + C::V_BYTES);
+      unsigned char* sk = smem + C::K_OFF + stage * C::K_BYTES;
+      unsigned char* sv = smem + C::V_OFF + stage * C::V_BYTES;
+      for (int x = 0; x < C::BOXES; ++x)
         tma_load_3d(sk + x * C::BN * ROW_BYTES, &tk, &full[stage], x * BOX, j * C::BN, bk);
+      for (int x = 0; x < C::V_BOXES; ++x)
         tma_load_3d(sv + x * C::BN * ROW_BYTES, &tv, &full[stage], x * BOX, j * C::BN, bk);
-      }
     }
     return;
   }
@@ -351,7 +367,7 @@ ring_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
   // quad at the end, so only its first lane starts with it; the carry loads run under
   // the first tiles' loads
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
-  float acc[D / 2];
+  float acc[DV / 2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const bool in = row[i] < Sq;
@@ -361,9 +377,9 @@ ring_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
       if (tc == 0) l[i] = l_carry[r];
     }
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < DV / 8; ++j) {
       float2 a = make_float2(0.f, 0.f);
-      if (in) a = *reinterpret_cast<const float2*>(acc_carry + r * D + 8 * j + tc);
+      if (in) a = *reinterpret_cast<const float2*>(acc_carry + r * DV + 8 * j + tc);
       acc[4 * j + 2 * i] = a.x;
       acc[4 * j + 2 * i + 1] = a.y;
     }
@@ -380,7 +396,7 @@ ring_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
   int word = 0;  // the tile of the current step and its class
   // S of the tile in `stage` into s (its full barrier waited for)
   auto issue_s = [&](int stage) {
-    const uint32_t k_addr = smem_u32(smem + C::K_OFF + stage * C::KV_BYTES);
+    const uint32_t k_addr = smem_u32(smem + C::K_OFF + stage * C::K_BYTES);
     wgmma_fence();
 #pragma unroll
     for (int ks = 0; ks < D / 16; ++ks) {
@@ -419,7 +435,7 @@ ring_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
   // are keys 16kk..16kk+15
   auto rescale_and_pack = [&](const float (&alpha)[2]) {
 #pragma unroll
-    for (int jj = 0; jj < D / 8; ++jj) {
+    for (int jj = 0; jj < DV / 8; ++jj) {
       acc[4 * jj] *= alpha[0];
       acc[4 * jj + 1] *= alpha[0];
       acc[4 * jj + 2] *= alpha[1];
@@ -435,10 +451,10 @@ ring_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
   auto issue_pv = [&](int stage) {
     fence_regs(acc);
     wgmma_fence();
-    const uint32_t v_addr = smem_u32(smem + C::V_OFF + stage * C::KV_BYTES);
+    const uint32_t v_addr = smem_u32(smem + C::V_OFF + stage * C::V_BYTES);
 #pragma unroll
     for (int kk = 0; kk < C::BN / 16; ++kk)
-      wgmma_rs<D, 1>(acc, pa[kk], desc_sw128(v_addr + kk * 16 * ROW_BYTES, C::BN * ROW_BYTES), 1);
+      wgmma_rs<DV, 1>(acc, pa[kk], desc_sw128(v_addr + kk * 16 * ROW_BYTES, C::BN * ROW_BYTES), 1);
     wgmma_commit();
   };
   auto fence_pa = [&]() {
@@ -487,8 +503,8 @@ ring_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
     if (row[i] >= Sq) continue;
     const size_t r = (size_t)bh * Sq + row[i];
 #pragma unroll
-    for (int jj = 0; jj < D / 8; ++jj)
-      *reinterpret_cast<float2*>(acc_carry + r * D + 8 * jj + tc) =
+    for (int jj = 0; jj < DV / 8; ++jj)
+      *reinterpret_cast<float2*>(acc_carry + r * DV + 8 * jj + tc) =
           make_float2(acc[4 * jj + 2 * i], acc[4 * jj + 2 * i + 1]);
     if (tc == 0) {
       m_carry[r] = m[i];
@@ -499,31 +515,40 @@ ring_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
 
 // ------------------------------------------------------------------ backward
 
-template <int D>
+// With DQ, dS^T and the dQ partials are staged in shared memory (the fused ring_bwd, at
+// DV == D only: at (192, 128) K and V resident, two Q / dO stages, the dS buffers and
+// the f32 dQ staging would take ~288 KB); without (ring_dkv), neither region exists.
+// At DV != D a step takes 32 q rows, not 64: dK's 64 x 192 f32 accumulator (96
+// registers a thread) and dV's 64 x 128 (64) then leave S^T and dP^T 16 each.
+template <int D, int DV, bool DQ>
 struct Bwd {
-  static constexpr int BN = 128, BM = 64;  // keys a block (64 a consumer warpgroup), q rows a step
+  static constexpr int BN = 128;                // keys a block (64 a consumer warpgroup)
+  static constexpr int BM = D == DV ? 64 : 32;  // q rows a step
   static constexpr int STAGES = 2;
-  static constexpr int BOXES = D / BOX;
+  static constexpr int BOXES = D / BOX, V_BOXES = DV / BOX;
   static constexpr int DH = D / 2;  // dQ columns of one consumer warpgroup
-  static constexpr int KV_BYTES = BN * D * 2, QT_BYTES = BM * D * 2;
+  static constexpr int K_BYTES = BN * D * 2, V_BYTES = BN * DV * 2;
+  static constexpr int QT_BYTES = BM * D * 2, DOT_BYTES = BM * DV * 2;
   static constexpr int DS_BYTES = BN * BM * 2;   // dS^T (keys x q rows), one buffer
   static constexpr int DQ_BYTES = BM * DH * 4;   // one warpgroup's staged dQ partial
-  static constexpr int K_OFF = 0, V_OFF = KV_BYTES;
-  static constexpr int Q_OFF = 2 * KV_BYTES;                   // per stage
+  static constexpr int K_OFF = 0, V_OFF = K_BYTES;
+  static constexpr int Q_OFF = K_BYTES + V_BYTES;              // per stage
   static constexpr int DO_OFF = Q_OFF + STAGES * QT_BYTES;     // per stage
-  static constexpr int DS_OFF = DO_OFF + STAGES * QT_BYTES;    // 2 buffers
-  static constexpr int DQ_OFF = DS_OFF + 2 * DS_BYTES;         // 2 warpgroups
+  static constexpr int DS_OFF = DO_OFF + STAGES * DOT_BYTES;   // 2 buffers
+  static constexpr int DQ_OFF = DS_OFF + (DQ ? 2 * DS_BYTES : 0);  // 2 warpgroups
   // per stage: lse, delta, q positions, q segment ids (BM each)
   static constexpr int ROWS_STRIDE = 4 * BM;
-  static constexpr int ROWS_OFF = DQ_OFF + 2 * DQ_BYTES;
+  static constexpr int ROWS_OFF = DQ_OFF + (DQ ? 2 * DQ_BYTES : 0);
   static constexpr int KIDS_OFF = ROWS_OFF + STAGES * ROWS_STRIDE * 4;  // key positions, ids
   static constexpr int WORD_OFF = KIDS_OFF + 2 * BN * 4;  // tile word and q head a stage
   static constexpr int WALK_OFF = WORD_OFF + (8 * STAGES + 15) / 16 * 16;  // the Walk
   static constexpr int BAR_OFF = WALK_OFF + 16;  // 8-byte aligned for the mbarriers
   static constexpr int SMEM = BAR_OFF + (1 + 2 * STAGES) * 8 + 1024;
 };
-static_assert(Bwd<128>::SMEM <= 232448 && Bwd<64>::SMEM <= 232448, "backward shared memory");
-static_assert(Bwd<128>::BAR_OFF % 8 == 0 && Bwd<64>::BAR_OFF % 8 == 0, "backward barriers");
+static_assert(Bwd<64, 64, true>::SMEM <= 232448 && Bwd<128, 128, true>::SMEM <= 232448 &&
+                  Bwd<192, 128, false>::SMEM <= 232448, "backward shared memory");
+static_assert(Bwd<64, 64, true>::BAR_OFF % 8 == 0 && Bwd<128, 128, true>::BAR_OFF % 8 == 0 &&
+                  Bwd<192, 128, false>::BAR_OFF % 8 == 0, "backward barriers");
 
 // Masks one S^T accumulator tile of a partial q tile: register r holds key
 // key[(r >> 1) & 1] and q row q_start + c, c = 8 * (r / 4) + tc + (r & 1); the q rows'
@@ -550,7 +575,7 @@ __device__ __forceinline__ void mask_queries(float (&s)[N], const int (&key)[2],
 // second pass; with DQ, dq gets the dQ partials by TMA reduce-adds (through tdq); without,
 // neither dS is staged nor dQ computed. counts: null, or SKIP / PARTIAL / FULL tallies of
 // the q tiles against this key tile (once, not once a head).
-template <int D, bool DQ>
+template <int D, int DV, bool DQ>
 __global__ void __launch_bounds__(THREADS, 1)
 ring_bwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
@@ -559,7 +584,7 @@ ring_bwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
                 const int* __restrict__ seg_kv, const float* __restrict__ lse,
                 const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv,
                 int* __restrict__ counts, int Sq, int Skv, int H, int KH, float scale, Mask mask) {
-  using C = Bwd<D>;
+  using C = Bwd<D, DV, DQ>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
   float* sRows = reinterpret_cast<float*>(smem + C::ROWS_OFF);
@@ -614,11 +639,11 @@ ring_bwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
     setmaxnreg_dec<PRODUCER_REGS>();
     if (threadIdx.x >= 32) return;
     if (lane == 0) {
-      mbar_arrive_expect_tx(kv_full, 2 * C::KV_BYTES);
-      for (int x = 0; x < C::BOXES; ++x) {
+      mbar_arrive_expect_tx(kv_full, C::K_BYTES + C::V_BYTES);
+      for (int x = 0; x < C::BOXES; ++x)
         tma_load_3d(smem + C::K_OFF + x * C::BN * ROW_BYTES, &tk, kv_full, x * BOX, kv_start, bk);
+      for (int x = 0; x < C::V_BOXES; ++x)
         tma_load_3d(smem + C::V_OFF + x * C::BN * ROW_BYTES, &tv, kv_full, x * BOX, kv_start, bk);
-      }
     }
     int stage = 0, phase = 1;  // the first pass over the stages finds them empty
     for (int h = kvh * groups; h < (kvh + 1) * groups; ++h) {
@@ -632,13 +657,13 @@ ring_bwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
         if (lane == 0) {
           sWord[2 * stage] = tile_word(j, c);
           sWord[2 * stage + 1] = h;
-          mbar_arrive_expect_tx(&full[stage], 2 * C::QT_BYTES);
+          mbar_arrive_expect_tx(&full[stage], C::QT_BYTES + C::DOT_BYTES);
           unsigned char* sq = smem + C::Q_OFF + stage * C::QT_BYTES;
-          unsigned char* sdo = smem + C::DO_OFF + stage * C::QT_BYTES;
-          for (int x = 0; x < C::BOXES; ++x) {
+          unsigned char* sdo = smem + C::DO_OFF + stage * C::DOT_BYTES;
+          for (int x = 0; x < C::BOXES; ++x)
             tma_load_3d(sq + x * C::BM * ROW_BYTES, &tq, &full[stage], x * BOX, q_start, bh);
+          for (int x = 0; x < C::V_BOXES; ++x)
             tma_load_3d(sdo + x * C::BM * ROW_BYTES, &tdo, &full[stage], x * BOX, q_start, bh);
-          }
         }
         // asynchronous 4-byte copies, no data through registers; past Sq they fill zeros
         // (such rows are masked). Each lane's arrival counts when its copies land.
@@ -668,9 +693,11 @@ ring_bwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
   const int krow = warp * 16 + g;  // this thread's keys: k0 + krow, k0 + krow + 8
   const float scale_log2 = scale * LOG2E;
   const uint32_t k_addr = smem_u32(smem + C::K_OFF), v_addr = smem_u32(smem + C::V_OFF);
-  float dk_acc[D / 2], dv_acc[D / 2];
+  float dk_acc[D / 2], dv_acc[DV / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) dk_acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < DV / 2; ++i) dv_acc[i] = 0.f;
 
   mbar_wait(kv_full, 0);
   // steps so far: the stage ring and the dS buffers follow it
@@ -682,7 +709,7 @@ ring_bwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
     const int q_start = (word >> 2) * C::BM;
     const int bh = b * H + sWord[2 * stage + 1];
     const uint32_t q_addr = smem_u32(smem + C::Q_OFF + stage * C::QT_BYTES);
-    const uint32_t do_addr = smem_u32(smem + C::DO_OFF + stage * C::QT_BYTES);
+    const uint32_t do_addr = smem_u32(smem + C::DO_OFF + stage * C::DOT_BYTES);
     const float* rows = sRows + stage * C::ROWS_STRIDE;
 
     // S^T = K Q^T and dP^T = V dO^T: this warpgroup's 64 keys x 64 q rows
@@ -696,7 +723,7 @@ ring_bwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
                             ks);
     }
 #pragma unroll
-    for (int ks = 0; ks < D / 16; ++ks) {
+    for (int ks = 0; ks < DV / 16; ++ks) {
       const uint32_t aoff = (ks / 4) * C::BN * ROW_BYTES + cw * 64 * ROW_BYTES + (ks % 4) * 32;
       const uint32_t boff = (ks / 4) * C::BM * ROW_BYTES + (ks % 4) * 32;
       wgmma_ss<C::BM, 0, 0>(dp, desc_sw128(v_addr + aoff, 16), desc_sw128(do_addr + boff, 16),
@@ -739,14 +766,14 @@ ring_bwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < C::BM / 16; ++kk)
-      wgmma_rs<D, 1>(dv_acc, pa[kk],
-                     desc_sw128(do_addr + kk * 16 * ROW_BYTES, C::BM * ROW_BYTES), 1);
+      wgmma_rs<DV, 1>(dv_acc, pa[kk],
+                      desc_sw128(do_addr + kk * 16 * ROW_BYTES, C::BM * ROW_BYTES), 1);
 #pragma unroll
     for (int kk = 0; kk < C::BM / 16; ++kk)
       wgmma_rs<D, 1>(dk_acc, sa[kk],
                      desc_sw128(q_addr + kk * 16 * ROW_BYTES, C::BM * ROW_BYTES), 1);
     wgmma_commit();
-    float dq[C::DH / 2];
+    float dq[DQ ? C::DH / 2 : 1];
     if constexpr (DQ) {
       // while they run, dS^T to shared memory for dQ: sa[kk][f] holds key row
       // krow + 8 * (f & 1), q columns 16kk + 8 * (f >> 1) + tc, +1
@@ -812,17 +839,21 @@ ring_bwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
   for (int i = 0; i < 2; ++i) {
     const int key = k0 + krow + 8 * i;
     if (key >= Skv) continue;
-    const size_t off = ((size_t)bk * Skv + key) * D;
+    const size_t row = (size_t)bk * Skv + key;
 #pragma unroll
     for (int jj = 0; jj < D / 8; ++jj) {
-      float2* pk = reinterpret_cast<float2*>(dk + off + 8 * jj + tc);
-      float2* pv = reinterpret_cast<float2*>(dv + off + 8 * jj + tc);
-      float2 a = *pk, c = *pv;
+      float2* pk = reinterpret_cast<float2*>(dk + row * D + 8 * jj + tc);
+      float2 a = *pk;
       a.x += dk_acc[4 * jj + 2 * i] * scale;
       a.y += dk_acc[4 * jj + 2 * i + 1] * scale;
+      *pk = a;
+    }
+#pragma unroll
+    for (int jj = 0; jj < DV / 8; ++jj) {
+      float2* pv = reinterpret_cast<float2*>(dv + row * DV + 8 * jj + tc);
+      float2 c = *pv;
       c.x += dv_acc[4 * jj + 2 * i];
       c.y += dv_acc[4 * jj + 2 * i + 1];
-      *pk = a;
       *pv = c;
     }
   }
@@ -830,16 +861,18 @@ ring_bwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
 
 // ------------------------------------------------------------------ dQ, q-stationary
 
-template <int D>
-struct Dq : DqTiles<D> {
-  using T = DqTiles<D>;
+template <int D, int DV>
+struct Dq : DqTiles<D, DV> {
+  using T = DqTiles<D, DV>;
   static constexpr int WORD_OFF = T::TAIL_OFF;  // one tile word a stage
   static constexpr int WALK_OFF = WORD_OFF + (4 * T::STAGES + 15) / 16 * 16;  // the Walk
   static constexpr int BAR_OFF = WALK_OFF + 16;  // 8-byte aligned for the mbarriers
   static constexpr int SMEM = BAR_OFF + (1 + 2 * T::STAGES) * 8 + 1024;  // + slack
 };
-static_assert(Dq<128>::SMEM <= 232448 && Dq<64>::SMEM <= 232448, "ring_dq shared memory");
-static_assert(Dq<128>::BAR_OFF % 8 == 0 && Dq<64>::BAR_OFF % 8 == 0, "ring_dq barriers");
+static_assert(Dq<64, 64>::SMEM <= 232448 && Dq<128, 128>::SMEM <= 232448 &&
+                  Dq<192, 128>::SMEM <= 232448, "ring_dq shared memory");
+static_assert(Dq<64, 64>::BAR_OFF % 8 == 0 && Dq<128, 128>::BAR_OFF % 8 == 0 &&
+                  Dq<192, 128>::BAR_OFF % 8 == 0, "ring_dq barriers");
 
 // grid (ceil(Sq / 128), B * H), 384 threads; block x takes q tile gridDim.x - 1 - x. All
 // warps class the 64-key tiles against the block's 128 q rows (block_walk); a block
@@ -849,7 +882,7 @@ static_assert(Dq<128>::BAR_OFF % 8 == 0 && Dq<64>::BAR_OFF % 8 == 0, "ring_dq ba
 // consumers run dq_walk with the ring's masks (none for a full tile, mask_keys for a
 // partial one) and add dQ * scale into dq (f32, (B*H, Sq, D)) row by row: the block owns
 // those rows in this launch.
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(THREADS, 1)
 ring_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
@@ -857,7 +890,7 @@ ring_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
                const int* __restrict__ seg_q, const int* __restrict__ seg_kv,
                const float* __restrict__ lse, const float* __restrict__ delta,
                float* __restrict__ dq, int Sq, int Skv, int H, int KH, float scale, Mask mask) {
-  using C = Dq<D>;
+  using C = Dq<D, DV>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
   volatile int* sWord = reinterpret_cast<int*>(smem + C::WORD_OFF);
@@ -896,11 +929,11 @@ ring_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
     setmaxnreg_dec<PRODUCER_REGS>();
     if (threadIdx.x >= 32) return;
     if (lane == 0) {
-      mbar_arrive_expect_tx(q_full, 2 * C::Q_BYTES);
-      for (int x = 0; x < C::BOXES; ++x) {
+      mbar_arrive_expect_tx(q_full, C::Q_BYTES + C::DO_BYTES);
+      for (int x = 0; x < C::BOXES; ++x)
         tma_load_3d(smem + x * C::BM * ROW_BYTES, &tq, q_full, x * BOX, q_start, bh);
+      for (int x = 0; x < C::V_BOXES; ++x)
         tma_load_3d(smem + C::DO_OFF + x * C::BM * ROW_BYTES, &tdo, q_full, x * BOX, q_start, bh);
-      }
     }
     int it = 0;
     for (int j = walk.first; j <= walk.last; ++j) {
@@ -910,13 +943,13 @@ ring_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
       mbar_wait(&empty[stage], ((it / C::STAGES) & 1) ^ 1);
       if (lane == 0) {
         sWord[stage] = tile_word(j, c);
-        mbar_arrive_expect_tx(&full[stage], 2 * C::KV_BYTES);
+        mbar_arrive_expect_tx(&full[stage], C::KV_BYTES + C::V_BYTES);
         unsigned char* sk = smem + C::K_OFF + stage * C::KV_BYTES;
-        unsigned char* sv = smem + C::V_OFF + stage * C::KV_BYTES;
-        for (int x = 0; x < C::BOXES; ++x) {
+        unsigned char* sv = smem + C::V_OFF + stage * C::V_BYTES;
+        for (int x = 0; x < C::BOXES; ++x)
           tma_load_3d(sk + x * C::BN * ROW_BYTES, &tk, &full[stage], x * BOX, j * C::BN, bk);
+        for (int x = 0; x < C::V_BOXES; ++x)
           tma_load_3d(sv + x * C::BN * ROW_BYTES, &tv, &full[stage], x * BOX, j * C::BN, bk);
-        }
       }
       ++it;
     }
@@ -969,73 +1002,71 @@ inline cudaError_t rows_map(CUtensorMap* map, const void* p, int batch, int rows
   return make_map_3d(map, p, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, D, rows, batch, BOX, box_rows);
 }
 
-template <int D>
+template <int D, int DV>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, const int* pos_q,
                        const int* pos_kv, const int* seg_q, const int* seg_kv, float* acc,
                        float* m, float* l, int* counts, int B, int Sq, int Skv, int H, int KH,
                        float scale, Mask mask, cudaStream_t stream) {
-  using C = Fwd<D>;
+  using C = Fwd<D, DV>;
   CUtensorMap tq, tk, tv;
   cudaError_t err = rows_map(&tq, q, B * H, Sq, D, C::BM);
   if (err == cudaSuccess) err = rows_map(&tk, k, B * KH, Skv, D, C::BN);
-  if (err == cudaSuccess) err = rows_map(&tv, v, B * KH, Skv, D, C::BN);
+  if (err == cudaSuccess) err = rows_map(&tv, v, B * KH, Skv, DV, C::BN);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(ring_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               C::SMEM);
+    err = cudaFuncSetAttribute(ring_fwd_kernel<D, DV>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (err != cudaSuccess) return err;
   dim3 grid((Sq + C::BM - 1) / C::BM, B * H);
-  ring_fwd_kernel<D><<<grid, THREADS, C::SMEM, stream>>>(tq, tk, tv, pos_q, pos_kv, seg_q, seg_kv,
-                                                          acc, m, l, counts, Sq, Skv, H, KH,
-                                                          scale, mask);
+  ring_fwd_kernel<D, DV><<<grid, THREADS, C::SMEM, stream>>>(
+      tq, tk, tv, pos_q, pos_kv, seg_q, seg_kv, acc, m, l, counts, Sq, Skv, H, KH, scale, mask);
   return cudaGetLastError();
 }
 
 // dq == nullptr: dk / dv only (DQ = false, no tdq map)
-template <int D, bool DQ>
+template <int D, int DV, bool DQ>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v, const int* pos_q,
                        const int* pos_kv, const int* seg_q, const int* seg_kv,
                        const void* dout, const float* lse, const float* delta, float* dq,
                        float* dk, float* dv, int* counts, int B, int Sq, int Skv, int H, int KH,
                        float scale, Mask mask, cudaStream_t stream) {
-  using C = Bwd<D>;
+  using C = Bwd<D, DV, DQ>;
   CUtensorMap tq, tk, tv, tdo, tdq{};
   cudaError_t err = rows_map(&tq, q, B * H, Sq, D, C::BM);
-  if (err == cudaSuccess) err = rows_map(&tdo, dout, B * H, Sq, D, C::BM);
+  if (err == cudaSuccess) err = rows_map(&tdo, dout, B * H, Sq, DV, C::BM);
   if (err == cudaSuccess) err = rows_map(&tk, k, B * KH, Skv, D, C::BN);
-  if (err == cudaSuccess) err = rows_map(&tv, v, B * KH, Skv, D, C::BN);
+  if (err == cudaSuccess) err = rows_map(&tv, v, B * KH, Skv, DV, C::BN);
   if (DQ && err == cudaSuccess)  // f32 boxes of 32 columns (128 bytes) x 64 rows
     err = make_map_3d(&tdq, dq, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, D, Sq, (uint64_t)B * H, 32,
                       C::BM);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(ring_bwd_kernel<D, DQ>,
+    err = cudaFuncSetAttribute(ring_bwd_kernel<D, DV, DQ>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (err != cudaSuccess) return err;
   dim3 grid((Skv + C::BN - 1) / C::BN, B * KH);
-  ring_bwd_kernel<D, DQ><<<grid, THREADS, C::SMEM, stream>>>(
+  ring_bwd_kernel<D, DV, DQ><<<grid, THREADS, C::SMEM, stream>>>(
       tq, tk, tv, tdo, tdq, pos_q, pos_kv, seg_q, seg_kv, lse, delta, dk, dv, counts, Sq, Skv, H,
       KH, scale, mask);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, int DV>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const int* pos_q,
                       const int* pos_kv, const int* seg_q, const int* seg_kv, const void* dout,
                       const float* lse, const float* delta, float* dq, int B, int Sq, int Skv,
                       int H, int KH, float scale, Mask mask, cudaStream_t stream) {
-  using C = Dq<D>;
+  using C = Dq<D, DV>;
   CUtensorMap tq, tk, tv, tdo;
   cudaError_t err = rows_map(&tq, q, B * H, Sq, D, C::BM);
-  if (err == cudaSuccess) err = rows_map(&tdo, dout, B * H, Sq, D, C::BM);
+  if (err == cudaSuccess) err = rows_map(&tdo, dout, B * H, Sq, DV, C::BM);
   if (err == cudaSuccess) err = rows_map(&tk, k, B * KH, Skv, D, C::BN);
-  if (err == cudaSuccess) err = rows_map(&tv, v, B * KH, Skv, D, C::BN);
+  if (err == cudaSuccess) err = rows_map(&tv, v, B * KH, Skv, DV, C::BN);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(ring_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               C::SMEM);
+    err = cudaFuncSetAttribute(ring_dq_kernel<D, DV>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (err != cudaSuccess) return err;
   dim3 grid((Sq + C::BM - 1) / C::BM, B * H);
-  ring_dq_kernel<D><<<grid, THREADS, C::SMEM, stream>>>(tq, tk, tv, tdo, pos_q, pos_kv, seg_q,
-                                                        seg_kv, lse, delta, dq, Sq, Skv, H, KH,
-                                                        scale, mask);
+  ring_dq_kernel<D, DV><<<grid, THREADS, C::SMEM, stream>>>(
+      tq, tk, tv, tdo, pos_q, pos_kv, seg_q, seg_kv, lse, delta, dq, Sq, Skv, H, KH, scale, mask);
   return cudaGetLastError();
 }
 
@@ -1043,24 +1074,27 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const int* po
 
 // Plain C entry points (bound with ctypes). Each returns a cudaError_t; the caller
 // checks inputs (bf16 q/k/v, f32 carries and gradients, int32 positions and segments,
-// all contiguous and 16-byte aligned, D in {64, 128}, H % KH == 0) beforehand. seg_q /
-// seg_kv are both null or both set; has_window = 0 ignores window. ring_bwd with a null
-// dq adds only dk / dv (ring_dq adds dq). tile_counts: null, or
+// all contiguous and 16-byte aligned, (D, Dv) in {(64, 64), (128, 128), (192, 128)},
+// H % KH == 0) beforehand; another pair returns cudaErrorInvalidValue. seg_q / seg_kv
+// are both null or both set; has_window = 0 ignores window. ring_bwd takes Dv == D
+// only; with a null dq it adds only dk / dv (ring_dq adds dq). tile_counts: null, or
 // three int32 the kernel adds its (q tile, kv tile) pairs of each class to (SKIP,
 // PARTIAL, FULL; over every q head forward, every kv head backward).
 extern "C" int ring_fwd(const void* q, const void* k, const void* v, const int* pos_q,
                         const int* pos_kv, const int* seg_q, const int* seg_kv, float* acc,
                         float* m, float* l, int B, int Sq, int Skv, int H, int KH, int D,
-                        float scale, int causal, int has_window, int window, int* tile_counts,
-                        void* stream) {
+                        int Dv, float scale, int causal, int has_window, int window,
+                        int* tile_counts, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Mask mask{causal, has_window, window, seg_q != nullptr};
-  if (D == 64)
-    return (int)launch_fwd<64>(q, k, v, pos_q, pos_kv, seg_q, seg_kv, acc, m, l, tile_counts, B,
-                               Sq, Skv, H, KH, scale, mask, s);
-  if (D == 128)
-    return (int)launch_fwd<128>(q, k, v, pos_q, pos_kv, seg_q, seg_kv, acc, m, l, tile_counts, B,
-                                Sq, Skv, H, KH, scale, mask, s);
+#define RING_FWD(DD, DVV)                                                                   \
+  if (D == DD && Dv == DVV)                                                                 \
+    return (int)launch_fwd<DD, DVV>(q, k, v, pos_q, pos_kv, seg_q, seg_kv, acc, m, l,       \
+                                    tile_counts, B, Sq, Skv, H, KH, scale, mask, s);
+  RING_FWD(64, 64)
+  RING_FWD(128, 128)
+  RING_FWD(192, 128)
+#undef RING_FWD
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1068,16 +1102,18 @@ extern "C" int ring_bwd(const void* q, const void* k, const void* v, const int* 
                         const int* pos_kv, const int* seg_q, const int* seg_kv,
                         const void* dout, const float* lse, const float* delta, float* dq,
                         float* dk, float* dv, int B, int Sq, int Skv, int H, int KH, int D,
-                        float scale, int causal, int has_window, int window, int* tile_counts,
-                        void* stream) {
+                        int Dv, float scale, int causal, int has_window, int window,
+                        int* tile_counts, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Mask mask{causal, has_window, window, seg_q != nullptr};
-  if (D == 64)
-    return (int)launch_bwd<64, true>(q, k, v, pos_q, pos_kv, seg_q, seg_kv, dout, lse, delta,
-                                     dq, dk, dv, tile_counts, B, Sq, Skv, H, KH, scale, mask, s);
-  if (D == 128)
-    return (int)launch_bwd<128, true>(q, k, v, pos_q, pos_kv, seg_q, seg_kv, dout, lse, delta,
-                                      dq, dk, dv, tile_counts, B, Sq, Skv, H, KH, scale, mask, s);
+  if (D == 64 && Dv == 64)
+    return (int)launch_bwd<64, 64, true>(q, k, v, pos_q, pos_kv, seg_q, seg_kv, dout, lse, delta,
+                                         dq, dk, dv, tile_counts, B, Sq, Skv, H, KH, scale, mask,
+                                         s);
+  if (D == 128 && Dv == 128)
+    return (int)launch_bwd<128, 128, true>(q, k, v, pos_q, pos_kv, seg_q, seg_kv, dout, lse,
+                                           delta, dq, dk, dv, tile_counts, B, Sq, Skv, H, KH,
+                                           scale, mask, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1085,34 +1121,37 @@ extern "C" int ring_bwd(const void* q, const void* k, const void* v, const int* 
 extern "C" int ring_dkv(const void* q, const void* k, const void* v, const int* pos_q,
                         const int* pos_kv, const int* seg_q, const int* seg_kv,
                         const void* dout, const float* lse, const float* delta, float* dk,
-                        float* dv, int B, int Sq, int Skv, int H, int KH, int D, float scale,
-                        int causal, int has_window, int window, int* tile_counts,
+                        float* dv, int B, int Sq, int Skv, int H, int KH, int D, int Dv,
+                        float scale, int causal, int has_window, int window, int* tile_counts,
                         void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Mask mask{causal, has_window, window, seg_q != nullptr};
-  if (D == 64)
-    return (int)launch_bwd<64, false>(q, k, v, pos_q, pos_kv, seg_q, seg_kv, dout, lse, delta,
-                                      nullptr, dk, dv, tile_counts, B, Sq, Skv, H, KH, scale,
-                                      mask, s);
-  if (D == 128)
-    return (int)launch_bwd<128, false>(q, k, v, pos_q, pos_kv, seg_q, seg_kv, dout, lse, delta,
-                                       nullptr, dk, dv, tile_counts, B, Sq, Skv, H, KH, scale,
-                                       mask, s);
+#define RING_DKV(DD, DVV)                                                                    \
+  if (D == DD && Dv == DVV)                                                                  \
+    return (int)launch_bwd<DD, DVV, false>(q, k, v, pos_q, pos_kv, seg_q, seg_kv, dout, lse, \
+                                           delta, nullptr, dk, dv, tile_counts, B, Sq, Skv, H, \
+                                           KH, scale, mask, s);
+  RING_DKV(64, 64)
+  RING_DKV(128, 128)
+  RING_DKV(192, 128)
+#undef RING_DKV
   return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int ring_dq(const void* q, const void* k, const void* v, const int* pos_q,
                        const int* pos_kv, const int* seg_q, const int* seg_kv, const void* dout,
                        const float* lse, const float* delta, float* dq, int B, int Sq, int Skv,
-                       int H, int KH, int D, float scale, int causal, int has_window, int window,
-                       void* stream) {
+                       int H, int KH, int D, int Dv, float scale, int causal, int has_window,
+                       int window, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Mask mask{causal, has_window, window, seg_q != nullptr};
-  if (D == 64)
-    return (int)launch_dq<64>(q, k, v, pos_q, pos_kv, seg_q, seg_kv, dout, lse, delta, dq, B, Sq,
-                              Skv, H, KH, scale, mask, s);
-  if (D == 128)
-    return (int)launch_dq<128>(q, k, v, pos_q, pos_kv, seg_q, seg_kv, dout, lse, delta, dq, B,
-                               Sq, Skv, H, KH, scale, mask, s);
+#define RING_DQ(DD, DVV)                                                                    \
+  if (D == DD && Dv == DVV)                                                                 \
+    return (int)launch_dq<DD, DVV>(q, k, v, pos_q, pos_kv, seg_q, seg_kv, dout, lse, delta, \
+                                   dq, B, Sq, Skv, H, KH, scale, mask, s);
+  RING_DQ(64, 64)
+  RING_DQ(128, 128)
+  RING_DQ(192, 128)
+#undef RING_DQ
   return (int)cudaErrorInvalidValue;
 }

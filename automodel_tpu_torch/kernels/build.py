@@ -50,13 +50,13 @@ SOURCES: dict[str, dict[str, list]] = {
     },
     "ring_chunk.cu": {
         "ring_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                     _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P, _P],
+                     _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P, _P],
         "ring_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                     _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P, _P],
+                     _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P, _P],
         "ring_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                     _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P, _P],
+                     _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P, _P],
         "ring_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                    _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P],
+                    _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P],
     },
 }
 

@@ -33,7 +33,7 @@ from automodel_tpu_torch.parallel.ring_attention import make_ring_attention
 
 __all__ = ["DenseDecoderConfig", "attention_block", "decoder_forward", "decoder_layer",
            "init_dense_decoder_params", "init_params", "layer_shapes", "layer_windows",
-           "param_shapes", "resolve_unembed"]
+           "mlp_block", "param_shapes", "project", "resolve_unembed"]
 
 
 @dataclasses.dataclass
@@ -157,7 +157,7 @@ def resolve_unembed(cfg: DenseDecoderConfig, params: dict, dtype) -> torch.Tenso
     return w.to(dtype)
 
 
-def _project(x, w, n_in):
+def project(x, w, n_in):
     """Contract x's trailing dims with w's first ``n_in`` dims (a plain matmul)."""
     in_shape, out_shape = w.shape[:n_in], w.shape[n_in:]
     k = 1
@@ -182,11 +182,11 @@ def attention_block(cfg, backend, lp, x, positions, segment_ids, inv_freq=None, 
     ``attn_k`` / ``attn_v``, ``attn_out``) sit where JAX sets them. ``rope``: the (cos,
     sin) of ``rope_tables``, else computed from ``inv_freq`` and ``attn_scale``."""
     with remat_name("attn_q"):
-        q = _project(x, lp["wq"], 1)
+        q = project(x, lp["wq"], 1)
     with remat_name("attn_k"):
-        k = _project(x, lp["wk"], 1)
+        k = project(x, lp["wk"], 1)
     with remat_name("attn_v"):
-        v = _project(x, lp["wv"], 1)
+        v = project(x, lp["wv"], 1)
     if cfg.attention_bias:
         q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
     if cfg.qk_norm:
@@ -208,7 +208,7 @@ def attention_block(cfg, backend, lp, x, positions, segment_ids, inv_freq=None, 
         out = checkpoint_name(dot_product_attention(
             q, k, v, causal=cfg.causal, segment_ids_q=seg, sliding_window=window, sinks=sinks,
             backend=backend.attention), "attn_out")
-    o = _project(out, lp["wo"], 2)
+    o = project(out, lp["wo"], 2)
     return o + lp["bo"] if cfg.attention_out_bias else o
 
 
@@ -220,12 +220,17 @@ def decoder_layer(cfg, backend, names, h, positions, segment_ids, rope, mesh, wi
     x = rms_norm(h, lp["attn_norm"], cfg.rms_norm_eps)
     h = h + attention_block(cfg, backend, lp, x, positions, segment_ids, mesh=mesh, rope=rope,
                             window=window)
-    x = rms_norm(h, lp["mlp_norm"], cfg.rms_norm_eps)
+    return h + mlp_block(lp, rms_norm(h, lp["mlp_norm"], cfg.rms_norm_eps))
+
+
+def mlp_block(lp, x):
+    """The SwiGLU MLP of one layer on the normed input x, its projections named as JAX
+    names them (``mlp_up``, ``mlp_gate``)."""
     with remat_name("mlp_up"):
-        up = _project(x, lp["w_up"], 1)
+        up = project(x, lp["w_up"], 1)
     with remat_name("mlp_gate"):
-        gate = _project(x, lp["w_gate"], 1)
-    return h + _project(F.silu(gate) * up, lp["w_down"], 1)
+        gate = project(x, lp["w_gate"], 1)
+    return project(F.silu(gate) * up, lp["w_down"], 1)
 
 
 def decoder_forward(

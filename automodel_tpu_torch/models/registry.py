@@ -10,6 +10,7 @@ import importlib
 __all__ = ["MODEL_REGISTRY", "resolve_model_class"]
 
 _LLAMA = "automodel_tpu_torch.models.llama.model:LlamaForCausalLM"
+_DEEPSEEK = "automodel_tpu_torch.models.deepseek_v3.model:DeepseekV3ForCausalLM"
 MODEL_REGISTRY: dict[str, str] = {
     **{arch: _LLAMA for arch in (
         "LlamaForCausalLM", "Qwen2ForCausalLM", "Qwen3ForCausalLM", "MistralForCausalLM",
@@ -18,6 +19,10 @@ MODEL_REGISTRY: dict[str, str] = {
     "Phi3ForCausalLM": "automodel_tpu_torch.models.phi3.model:Phi3ForCausalLM",
     "Qwen3MoeForCausalLM": "automodel_tpu_torch.models.qwen3_moe.model:Qwen3MoeForCausalLM",
     "GptOssForCausalLM": "automodel_tpu_torch.models.gpt_oss.model:GptOssForCausalLM",
+    # MLA + noaux-tc MoE: V3, V2 (softmax routing), Kimi-K2 and GLM-4-MoE-Lite, whose
+    # config.json files describe the same parameters
+    **{arch: _DEEPSEEK for arch in ("DeepseekV3ForCausalLM", "DeepseekV2ForCausalLM",
+                                    "KimiK2ForCausalLM", "Glm4MoeLiteForCausalLM")},
 }
 
 

@@ -6,8 +6,9 @@ arithmetic: gate math in f32, softmax or sigmoid scores, group-limited selection
 valid tokens per expert. Nothing here leaves the device: the load is a scatter-add,
 not a ``bincount`` (which would sync to size its output).
 
-``update_gate_bias`` is the pure function only; nothing calls it until a family with a
-correction bias (DeepSeek) is ported.
+``update_gate_bias`` is DeepSeek-V3's loss-free balancing step;
+``make_gate_bias_post_update`` applies it to every MoE layer's correction bias after the
+optimizer step (the train step's ``post_update``).
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import torch
 
 from automodel_tpu_torch.moe.config import MoEConfig
 
-__all__ = ["fake_balanced_route", "route", "update_gate_bias"]
+__all__ = ["fake_balanced_route", "make_gate_bias_post_update", "route", "update_gate_bias"]
 
 
 def _expert_load(indices: torch.Tensor, valid: torch.Tensor, num_experts: int) -> torch.Tensor:
@@ -119,6 +120,21 @@ def fake_balanced_route(cfg: MoEConfig, x: torch.Tensor, *, noise: float = 0.0,
 def update_gate_bias(score_correction_bias: torch.Tensor, cumulative_expert_load: torch.Tensor,
                      update_factor: float) -> torch.Tensor:
     """DeepSeek-V3 loss-free balancing: the bias rises for experts below the mean load
-    and falls for those above it, by sign(mean - load) * update_factor."""
+    and falls for those above it, by sign(mean - load) * update_factor. The last dim is
+    the experts': a stacked (L, E) bias and load update each layer from its own mean, as
+    JAX's ``vmap`` over layers does."""
     load = cumulative_expert_load.float()
-    return score_correction_bias + torch.sign(load.mean() - load) * update_factor
+    return score_correction_bias + torch.sign(load.mean(-1, keepdim=True) - load) * update_factor
+
+
+def make_gate_bias_post_update(update_factor: float):
+    """The train step's ``post_update(params, aux)``: every MoE layer's
+    ``score_correction_bias`` takes :func:`update_gate_bias` from the step's
+    ``expert_load`` (L_moe, E), summed over its microbatches; in place."""
+
+    def post_update(params: dict[str, torch.Tensor], aux: dict[str, torch.Tensor]) -> None:
+        bias = params["moe_layers.moe.gate.score_correction_bias"]
+        with torch.no_grad():
+            bias.copy_(update_gate_bias(bias, aux["expert_load"], update_factor))
+
+    return post_update

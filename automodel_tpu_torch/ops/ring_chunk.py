@@ -31,22 +31,27 @@ device's rule against :func:`tile_classes`.
 
 The backward has two routes. By default ``ring_bwd`` adds the dq partial by TMA
 reduce-adds, which land in no fixed order. When
-``torch.are_deterministic_algorithms_enabled()``, :func:`chunk_attention_bwd` runs
-``ring_dq`` (q-stationary: each q tile sums its dQ over the chunk's key tiles in order
-and adds it into dq once) and ``ring_dkv`` (``ring_bwd`` without dQ); their plain
-versions are :func:`chunk_attention_dq_reference` and
-:func:`chunk_attention_dkv_reference`. Neither route falls back to the other.
+``torch.are_deterministic_algorithms_enabled()``, or when Dv != D (the fused kernel's
+shared memory does not hold MLA's widths), :func:`chunk_attention_bwd` runs ``ring_dq``
+(q-stationary: each q tile sums its dQ over the chunk's key tiles in order and adds it
+into dq once) and ``ring_dkv`` (``ring_bwd`` without dQ); their plain versions are
+:func:`chunk_attention_dq_reference` and :func:`chunk_attention_dkv_reference`. Neither
+route falls back to the other.
 
 The JAX arguments ``block_q``, ``block_k``, ``interpret`` and ``vma`` have no
-counterpart. The kernels take D = Dv in {64, 128} in bf16; Dv != D (MLA) runs in the
-plain version only.
+counterpart. The kernels take bf16 at the (D, Dv) pairs of :data:`HEAD_DIMS`: (64, 64)
+and (128, 128), and MLA's (192, 128) (DeepSeek-V3, Moonlight), with ``ring_bwd`` at
+Dv == D only; any other pair raises NotImplementedError on the card. The softmax scale
+is always the caller's (DeepSeek's carries YaRN's mscale^2), never derived from D.
+:data:`DIM_LAUNCHES` counts the launches by (D, Dv) beside :data:`LAUNCHES`.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["FULL", "LAUNCHES", "NEG_INF", "PARTIAL", "SKIP", "allowed_mask",
+__all__ = ["DIM_LAUNCHES", "FULL", "HEAD_DIMS", "LAUNCHES", "NEG_INF", "PARTIAL", "SKIP",
+           "allowed_mask", "bwd_block_q", "check_head_dims",
            "chunk_attention_bwd", "chunk_attention_bwd_reference",
            "chunk_attention_dkv_reference", "chunk_attention_dq_reference",
            "chunk_attention_fwd", "chunk_attention_fwd_reference", "ring_bwd", "ring_dkv",
@@ -56,7 +61,11 @@ NEG_INF = -1e30
 # one count per kernel launch, so a run can show that it went through the kernels
 LAUNCHES = {"ring_fwd": 0, "ring_bwd": 0, "ring_dkv": 0, "ring_dq": 0}
 _SOURCE = "ring_chunk.cu"
-_HEAD_DIMS = (64, 128)
+# the (D, Dv) pairs the kernels are instantiated at (csrc/ring_chunk.cu)
+HEAD_DIMS = ((64, 64), (128, 128), (192, 128))
+# launches by kernel and (D, Dv), "ring_fwd/d192v128" and the like
+DIM_LAUNCHES = {f"{k}/d{d}v{dv}": 0 for k in LAUNCHES for d, dv in HEAD_DIMS
+                if not (k == "ring_bwd" and d != dv)}
 # tile classes (csrc/ring_chunk.cu: SKIP, PARTIAL, FULL)
 SKIP, PARTIAL, FULL = 0, 1, 2
 # the plain versions form (batch, H, Sq, Skv) f32 scores; they loop over batch rows so
@@ -228,6 +237,13 @@ def chunk_attention_dkv_reference(q, k, v, pos_q, pos_kv, seg_q, seg_kv, do, lse
                         **kw)
 
 
+def check_head_dims(d: int, dv: int) -> None:
+    """NotImplementedError unless the kernels are instantiated at (D, Dv)."""
+    if (d, dv) not in HEAD_DIMS:
+        raise NotImplementedError(f"ring chunk kernels take (D, Dv) in {HEAD_DIMS}, got "
+                                  f"({d}, {dv})")
+
+
 def _check_cuda(q, k, v, pos_q, pos_kv, seg_q, seg_kv, f32, groups, n_heads):
     """Raise on anything the kernels do not take; nothing falls back."""
     for name, t in (("q", q), ("k", k), ("v", v), *f32.items()):
@@ -239,19 +255,16 @@ def _check_cuda(q, k, v, pos_q, pos_kv, seg_q, seg_kv, f32, groups, n_heads):
         if t.dtype != torch.bfloat16:
             raise TypeError(f"ring chunk kernels take bf16 q/k/v, {name} is {t.dtype}")
     bn, sq, d = q.shape
-    if v.shape[-1] != d:
-        raise NotImplementedError(
-            f"ring chunk kernels take Dv == D; Dv={v.shape[-1]} != D={d} (MLA) runs in the "
-            "plain version only (ROADMAP.md: with DeepSeek-V3)")
-    shapes = {"acc": (bn, sq, d), "m": (bn, sq), "l": (bn, sq), "lse": (bn, sq),
+    dv = v.shape[-1]
+    check_head_dims(d, dv)
+    shapes = {"acc": (bn, sq, dv), "m": (bn, sq), "l": (bn, sq), "lse": (bn, sq),
               "delta": (bn, sq), "dq": (bn, sq, d), "dk": tuple(k.shape), "dv": tuple(v.shape)}
     for name, t in f32.items():
         if t.dtype != torch.float32 or tuple(t.shape) != shapes[name]:
             raise ValueError(f"ring chunk kernels: {name} must be f32 {shapes[name]}, got "
                              f"{t.dtype} {tuple(t.shape)}")
-    if d not in _HEAD_DIMS:
-        raise NotImplementedError(f"ring chunk kernels take head_dim in {_HEAD_DIMS}, got {d}")
-    if n_heads % groups or bn % n_heads or k.shape[0] * groups != bn or k.shape != v.shape:
+    if (n_heads % groups or bn % n_heads or k.shape[0] * groups != bn
+            or k.shape[:2] != v.shape[:2]):
         raise ValueError(f"ring chunk kernels: bad shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)} for n_heads={n_heads}, groups={groups}")
     b = bn // n_heads
@@ -285,6 +298,18 @@ def _window(window):
     return (0, 0) if window is None else (1, int(window))
 
 
+def bwd_block_q(d: int, dv: int) -> int:
+    """q rows of a step of ``ring_bwd`` / ``ring_dkv`` (their tile-count unit): 64, and 32
+    at Dv != D, where dK's 64 x 192 f32 accumulator leaves fewer registers for S and dP."""
+    return 64 if d == dv else 32
+
+
+def _count(name, q, v):
+    LAUNCHES[name] += 1
+    key = f"{name}/d{q.shape[-1]}v{v.shape[-1]}"
+    DIM_LAUNCHES[key] = DIM_LAUNCHES.get(key, 0) + 1
+
+
 def ring_fwd(q, k, v, pos_q, pos_kv, seg_q, seg_kv, acc, m, l, *, scale, causal, window,
              groups, n_heads, tile_counts=None):
     """Launch the forward kernel on checked inputs; updates (acc, m, l) in place, and
@@ -296,9 +321,9 @@ def ring_fwd(q, k, v, pos_q, pos_kv, seg_q, seg_kv, acc, m, l, *, scale, causal,
     launch(_SOURCE, "ring_fwd", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
            pos_q.data_ptr(), pos_kv.data_ptr(), _ptr(seg_q), _ptr(seg_kv), acc.data_ptr(),
            m.data_ptr(), l.data_ptr(), bn // n_heads, sq, k.shape[1], n_heads,
-           n_heads // groups, d, float(scale), int(causal), has_window, win,
+           n_heads // groups, d, v.shape[-1], float(scale), int(causal), has_window, win,
            _counts(tile_counts, q))
-    LAUNCHES["ring_fwd"] += 1
+    _count("ring_fwd", q, v)
     return acc, m, l
 
 
@@ -309,13 +334,15 @@ def ring_bwd(q, k, v, pos_q, pos_kv, seg_q, seg_kv, do, lse, delta, dq, dk, dv, 
     from automodel_tpu_torch.kernels.build import launch
 
     bn, sq, d = q.shape
+    if v.shape[-1] != d:
+        raise NotImplementedError("ring_bwd takes Dv == D; Dv != D runs ring_dq + ring_dkv")
     has_window, win = _window(window)
     launch(_SOURCE, "ring_bwd", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
            pos_q.data_ptr(), pos_kv.data_ptr(), _ptr(seg_q), _ptr(seg_kv), do.data_ptr(),
            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-           bn // n_heads, sq, k.shape[1], n_heads, n_heads // groups, d, float(scale),
-           int(causal), has_window, win, _counts(tile_counts, q))
-    LAUNCHES["ring_bwd"] += 1
+           bn // n_heads, sq, k.shape[1], n_heads, n_heads // groups, d, v.shape[-1],
+           float(scale), int(causal), has_window, win, _counts(tile_counts, q))
+    _count("ring_bwd", q, v)
     return dq, dk, dv
 
 
@@ -330,9 +357,9 @@ def ring_dkv(q, k, v, pos_q, pos_kv, seg_q, seg_kv, do, lse, delta, dk, dv, *, s
     launch(_SOURCE, "ring_dkv", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
            pos_q.data_ptr(), pos_kv.data_ptr(), _ptr(seg_q), _ptr(seg_kv), do.data_ptr(),
            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), bn // n_heads, sq,
-           k.shape[1], n_heads, n_heads // groups, d, float(scale), int(causal), has_window,
-           win, _counts(tile_counts, q))
-    LAUNCHES["ring_dkv"] += 1
+           k.shape[1], n_heads, n_heads // groups, d, v.shape[-1], float(scale), int(causal),
+           has_window, win, _counts(tile_counts, q))
+    _count("ring_dkv", q, v)
     return dk, dv
 
 
@@ -347,8 +374,9 @@ def ring_dq(q, k, v, pos_q, pos_kv, seg_q, seg_kv, do, lse, delta, dq, *, scale,
     launch(_SOURCE, "ring_dq", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
            pos_q.data_ptr(), pos_kv.data_ptr(), _ptr(seg_q), _ptr(seg_kv), do.data_ptr(),
            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bn // n_heads, sq, k.shape[1],
-           n_heads, n_heads // groups, d, float(scale), int(causal), has_window, win)
-    LAUNCHES["ring_dq"] += 1
+           n_heads, n_heads // groups, d, v.shape[-1], float(scale), int(causal), has_window,
+           win)
+    _count("ring_dq", q, v)
     return dq
 
 
@@ -372,9 +400,10 @@ def chunk_attention_bwd(q, k, v, pos_q, pos_kv, seg_q, seg_kv, do, lse, delta, d
                         scale, causal, window, groups, n_heads):
     """One backward ring step: add the dq partial and the chunk's dk / dv into (dq, dk,
     dv), in place; returns them. CUDA tensors launch ``ring_bwd`` (or, with the
-    deterministic-algorithms flag, ``ring_dq`` and ``ring_dkv``) or raise."""
+    deterministic-algorithms flag or at Dv != D, ``ring_dq`` and ``ring_dkv``) or
+    raise."""
     kw = dict(scale=scale, causal=causal, window=window, groups=groups, n_heads=n_heads)
-    split = torch.are_deterministic_algorithms_enabled()
+    split = torch.are_deterministic_algorithms_enabled() or v.shape[-1] != q.shape[-1]
     if q.device.type == "cpu":
         args = (q, k, v, pos_q, pos_kv, seg_q, seg_kv, do, lse, delta)
         out = ((chunk_attention_dq_reference(*args, **kw),
@@ -383,8 +412,10 @@ def chunk_attention_bwd(q, k, v, pos_q, pos_kv, seg_q, seg_kv, do, lse, delta, d
         for dst, src in zip((dq, dk, dv), out):
             dst.add_(src)
         return dq, dk, dv
-    if do.dtype != q.dtype or not do.is_contiguous() or do.shape != q.shape:
-        raise ValueError("ring chunk kernels: do must be contiguous, of q's shape and dtype")
+    if (do.dtype != q.dtype or not do.is_contiguous()
+            or do.shape != (*q.shape[:2], v.shape[-1])):
+        raise ValueError("ring chunk kernels: do must be contiguous, (B*H, Sq, Dv) in q's "
+                         "dtype")
     _check_cuda(q, k, v, pos_q, pos_kv, seg_q, seg_kv,
                 {"lse": lse, "delta": delta, "dq": dq, "dk": dk, "dv": dv}, groups, n_heads)
     if not split:

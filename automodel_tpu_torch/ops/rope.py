@@ -1,7 +1,7 @@
 """Rotary position embeddings, rotate-half convention (counterpart of
 ``automodel_tpu/ops/rope.py``): default, linear, llama3, longrope (Phi-3) and YaRN
 frequency scaling, and the cos/sin scale of YaRN and longrope. Other scaling types
-raise."""
+raise. :func:`apply_rope_interleaved` is the complex-pair convention of DeepSeek's MLA."""
 
 from __future__ import annotations
 
@@ -11,8 +11,8 @@ from typing import Any
 
 import torch
 
-__all__ = ["apply_rope", "apply_rope_tables", "rope_attention_scaling", "rope_frequencies",
-           "rope_tables"]
+__all__ = ["apply_rope", "apply_rope_interleaved", "apply_rope_tables", "rope_attention_scaling",
+           "rope_frequencies", "rope_tables"]
 
 
 def rope_frequencies(
@@ -152,3 +152,26 @@ def apply_rope(
 ) -> torch.Tensor:
     """out = x*cos + [-x2, x1]*sin with the half split at rotary_dim // 2, in f32."""
     return apply_rope_tables(x, *rope_tables(positions, inv_freq, attention_scaling))
+
+
+def apply_rope_interleaved(
+    x: torch.Tensor,  # (batch, seq, heads, head_dim)
+    positions: torch.Tensor,  # (batch, seq)
+    inv_freq: torch.Tensor,
+    attention_scaling: float = 1.0,
+) -> torch.Tensor:
+    """Complex-pair RoPE in f32: consecutive pairs (x0, x1) rotate to (x0 cos - x1 sin,
+    x0 sin + x1 cos) (DeepSeek's MLA). With fewer rotary dims than head_dim, the rest
+    passes unchanged."""
+    rot = 2 * inv_freq.shape[0]
+    x_rot, x_pass = x[..., :rot], x[..., rot:]
+    angles = positions[..., None].float() * inv_freq  # (b, s, rot/2)
+    cos = (torch.cos(angles) * attention_scaling)[:, :, None, :]
+    sin = (torch.sin(angles) * attention_scaling)[:, :, None, :]
+    xf = x_rot.float()
+    x0, x1 = xf[..., 0::2], xf[..., 1::2]
+    out = torch.stack([x0 * cos - x1 * sin, x0 * sin + x1 * cos], dim=-1)
+    out = out.reshape(x_rot.shape).to(x.dtype)
+    if x_pass.shape[-1]:
+        return torch.cat([out, x_pass], dim=-1)
+    return out

@@ -3,11 +3,11 @@
 Ported: the model from a local HF directory (``model.pretrained_model_name_or_path``,
 ``models/auto.py``; a hub repo id raises) or built from ``model.config`` (an HF config
 dict; the class from its ``architectures`` through ``models/registry.py``: Llama with
-Qwen2 / Qwen3 / Mistral, Phi-3, Qwen3-MoE, GPT-OSS), ``model.params_dtype``, the loss
-choice with the JAX recipe's default rule
+Qwen2 / Qwen3 / Mistral, Phi-3, Qwen3-MoE, GPT-OSS, the DeepSeek-V3 family),
+``model.params_dtype``, the loss choice with the JAX recipe's default rule
 (``linear_ce`` at vocab >= 65536, with ``loss.impl`` and ``loss.filter_eps``), an MoE
-model's token mask, aux-loss term and ``moe_load/*`` rows (``moe_metrics.mode``,
-default ``brief``), the tokenizer (``tokenizer``, with ``_target_`` or a local HF
+model's token mask, aux-loss term, gate-bias update and ``moe_load/*`` rows
+(``moe_metrics.mode``, default ``brief``), the tokenizer (``tokenizer``, with ``_target_`` or a local HF
 directory), the data path with sequence packing (``packed_sequence``) and the
 host / device prefetch pipeline (``dataloader.prefetch``), the accumulating train step
 with its optimizer and LR schedule, ``training.jsonl`` rows, validation every
@@ -22,7 +22,7 @@ Runs on ``device`` (default ``cuda``). With no card it raises unless the config 
 ``backend.context_parallel: ring``, runs ring attention over it. Sections this slice
 does not port (any other mesh axis larger than one device, expert parallelism and the
 ``a2a`` dispatcher, PEFT, QAT, PP, resilience and observability services, asynchronous
-saves, noisy fake routing, the gate-bias update) raise NotImplementedError.
+saves, noisy fake routing) raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -48,6 +48,7 @@ from automodel_tpu_torch.models.auto import AutoModelForCausalLM, load_hf_config
 from automodel_tpu_torch.models.common.backend import DTYPES, BackendConfig
 from automodel_tpu_torch.models.common.transformer import resolve_unembed
 from automodel_tpu_torch.models.hub import resolve_pretrained_path
+from automodel_tpu_torch.moe.gate import make_gate_bias_post_update
 from automodel_tpu_torch.moe.metrics import compute_load_balance_metrics
 from automodel_tpu_torch.ops.losses import (LINEAR_CE_IMPLS, linear_cross_entropy,
                                             masked_cross_entropy)
@@ -135,9 +136,6 @@ class TrainFinetuneRecipeForNextTokenPrediction:
         model_cls = AutoModelForCausalLM.model_class(self.hf_config)
         config = model_cls.config_class.from_hf(self.hf_config)
         self.moe = getattr(config, "moe", None)
-        if self.moe is not None and self.moe.gate_bias_update_factor > 0:
-            raise NotImplementedError("the MoE gate-bias update is not ported yet "
-                                      "(the DeepSeek family, ROADMAP.md)")
 
         # loss selection, with the JAX recipe's default: big vocabularies take the
         # fused linear CE, so the (tokens, vocab) logits never exist at once.
@@ -197,7 +195,8 @@ class TrainFinetuneRecipeForNextTokenPrediction:
         self.opt_state = self.optimizer.init(self.params)
         self._guard_nonfinite = bool(cfg.get("distributed.check_for_nan_in_grad", False))
         self._train_step = make_train_step(self._forward_loss, self.params, self.optimizer,
-                                           guard_nonfinite=self._guard_nonfinite)
+                                           guard_nonfinite=self._guard_nonfinite,
+                                           post_update=self._post_update())
         # validation: pure CE, no MoE aux term
         self._eval_step = make_eval_step(
             lambda batch, n: self._forward_loss(batch, n, training=False))
@@ -322,6 +321,13 @@ class TrainFinetuneRecipeForNextTokenPrediction:
             loss = loss + self.moe.aux_loss_coeff * stats["aux_loss"] * share
             aux["moe_aux_loss"] = (stats["aux_loss"] * share).detach()
         return loss, aux
+
+    def _post_update(self):
+        """The gate-bias loss-free balancing hook (JAX's ``_post_update``): an update of
+        each MoE layer's correction bias from the step's summed expert load, or None."""
+        if self.moe is None or self.moe.gate_bias_update_factor <= 0:
+            return None
+        return make_gate_bias_post_update(self.moe.gate_bias_update_factor)
 
     def _to_device(self, stack: dict) -> dict[str, torch.Tensor]:
         return {k: torch.from_numpy(v).to(self.device) for k, v in stack.items()}

@@ -4,7 +4,8 @@ One call does what the JAX step's scan does: gradients accumulate over the stack
 microbatches, every microbatch loss is normalised by the step's global label-token
 count (so the summed gradients are the global-mean gradient), the optimizer runs
 once, and with ``guard_nonfinite`` a non-finite loss or gradient norm skips the
-update and keeps the optimizer state.
+update and keeps the optimizer state. A ``post_update`` (the MoE gate-bias update) runs
+after the optimizer on the step's summed aux, on a skipped step too, as in JAX.
 """
 
 from __future__ import annotations
@@ -44,6 +45,7 @@ def make_train_step(
     params: dict[str, torch.Tensor],
     optimizer: Optimizer,
     guard_nonfinite: bool = False,
+    post_update: Callable[[dict, dict], None] | None = None,
 ):
     """Build ``train_step(opt_state, batch_stack) -> (opt_state, metrics)``.
 
@@ -54,6 +56,8 @@ def make_train_step(
     differentiates, updated in place. ``batch_stack`` holds (n_micro, ...) tensors.
     Metrics: ``loss``, ``grad_norm`` (before clipping), ``num_label_tokens``, the summed
     aux entries, and ``nonfinite`` under ``guard_nonfinite``; all are device tensors.
+    ``post_update(params, aux)`` updates ``params`` in place after the optimizer, from
+    the summed aux entries (JAX's hook for non-gradient updates).
     """
     names = list(params)
     leaves = [params[n] for n in names]
@@ -85,6 +89,8 @@ def make_train_step(
                 updates, new_state, metrics["nonfinite"] = _guard_nonfinite_update(
                     updates, new_state, opt_state, grad_norm, loss_acc)
             apply_updates(params, updates)
+            if post_update is not None:
+                post_update(params, aux_acc)
         return new_state, metrics
 
     return train_step

@@ -1,5 +1,5 @@
 """Analytic training FLOPs and MFU (counterpart of ``automodel_tpu/utils/flops.py``,
-GQA decoders with a dense or MoE MLP).
+GQA and MLA decoders with a dense or MoE MLP).
 
 Train FLOPs = 3 x forward. The attention score term counts the full S x S product,
 as the JAX package counts it, on sliding-window layers too (``layer_types``: each
@@ -25,18 +25,15 @@ PEAK_TFLOPS: dict[str, float] = {"h100": 989.0, "h200": 989.0}
 def flops_per_token(cfg: Any, seq_len: int, training: bool = True) -> float:
     """FLOPs per token of a decoder given as an HF-config-like dict or object."""
     get = cfg.get if isinstance(cfg, dict) else (lambda k, d=None: getattr(cfg, k, d))
-    for key in ("kv_lora_rank", "hybrid_override_pattern", "vision_config", "text_config"):
+    for key in ("index_topk", "hybrid_override_pattern", "vision_config", "text_config"):
         if get(key):
             raise NotImplementedError(f"flops_per_token: {key} configs are not ported yet")
     other = [t for t in get("layer_types") or () if "linear" in str(t) or "mamba" in str(t)]
     if other:
         raise NotImplementedError(f"flops_per_token: {other[0]} layers are not ported yet")
     d, L, v = get("hidden_size"), get("num_hidden_layers"), get("vocab_size")
-    n = get("num_attention_heads")
-    k = get("num_key_value_heads", n) or n
-    h = get("head_dim") or d // n
     inter = get("intermediate_size")
-    attn = 2 * d * (n + 2 * k) * h + 2 * n * h * d + 2 * 2 * seq_len * n * h
+    attn = _mla_attn(get, seq_len) if get("kv_lora_rank") else _dense_attn(get, seq_len)
     n_routed = get("num_experts") or get("n_routed_experts") or get("num_local_experts") or 0
     if n_routed:
         top_k = get("num_experts_per_tok") or get("top_k") or 1
@@ -49,6 +46,27 @@ def flops_per_token(cfg: Any, seq_len: int, training: bool = True) -> float:
         mlp_total = L * 3 * 2 * d * inter
     fwd = L * attn + mlp_total + 2 * d * v
     return 3.0 * fwd if training else fwd
+
+
+def _dense_attn(get, seq_len: int) -> float:
+    """A GQA layer's attention: q / k / v / o projections and the full S x S scores."""
+    d, n = get("hidden_size"), get("num_attention_heads")
+    k = get("num_key_value_heads", n) or n
+    h = get("head_dim") or d // n
+    return 2 * d * (n + 2 * k) * h + 2 * n * h * d + 2 * 2 * seq_len * n * h
+
+
+def _mla_attn(get, seq_len: int) -> float:
+    """An MLA layer's attention (JAX's formula): the low-rank or direct q projection,
+    the kv latent and its up-projection, o, and scores at the qk width with values at
+    ``v_head_dim``."""
+    d, n = get("hidden_size"), get("num_attention_heads")
+    nope, rope, vh = get("qk_nope_head_dim"), get("qk_rope_head_dim"), get("v_head_dim")
+    qk = nope + rope
+    q_rank, kv_rank = get("q_lora_rank"), get("kv_lora_rank")
+    q = 2 * d * q_rank + 2 * q_rank * n * qk if q_rank else 2 * d * n * qk
+    kv = 2 * d * (kv_rank + rope) + 2 * kv_rank * n * (nope + vh)
+    return q + kv + 2 * n * vh * d + 2 * seq_len * n * qk + 2 * seq_len * n * vh
 
 
 def peak_tflops(device_name: str) -> float | None:

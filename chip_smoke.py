@@ -42,7 +42,8 @@ Phases, in order; any failure exits non-zero before the last line:
    take under a quarter of the causal time (``chip_smoke._window_timings(torch, fa)``);
    then at Phi-3-mini's shape (P: B=4, S=2048, H=KH=32, D=96) causal and with its window
    2047, beside SDPA (the window as a boolean mask); then head_dim 80 and the logit
-   soft-cap must raise NotImplementedError on the card and launch nothing;
+   soft-cap must raise NotImplementedError on the card and launch nothing, and so must
+   the ring kernels at (D, Dv) = (96, 64) and (192, 192);
 5. Llama-3.2-1B width at 2 layers: one forward and backward with attention "flash"
    against attention "xla" on the same weights;
 6. lce_fwd / lce_bwd (fused linear CE) against their plain version in nine cases:
@@ -89,6 +90,11 @@ Phases, in order; any failure exits non-zero before the last line:
    skipped, partial and full, held against tile_classes in every case and at each timed
    step; and the whole ring against flash_fwd / flash_dq / flash_dkv / the flash
    backward and SDPA on the unsharded S 32768 (shape L), with flash's bounds there;
+   then MLA's (D, Dv) = (192, 128) (_mla_ring_phase: cases ma-me, Moonlight's heads,
+   packed segments, a window, non-causal GQA at DeepSeek-V3's YaRN-corrected scale, a
+   ragged length; ring_fwd, ring_dq and ring_dkv, the backward's only route there) and
+   its times at DeepSeek-V3's (V) and Moonlight's (M) attention, diagonal step and step
+   1, beside the bound and, at M, the plain version (_mla_ring_timings);
 8c. Llama-3-8B width at 2 layers, seq 8192, cp 4 folded: context_parallel ring (the ring
    kernels) against allgather (the flash kernels) on the same weights;
 9. main path 1: the benchmark recipe on examples/benchmark/llama3_2_1b.yaml
@@ -116,7 +122,7 @@ Phases, in order; any failure exits non-zero before the last line:
 17. main path 9: BASELINE config #1 (examples/llm_finetune/llama3_2_1b_hellaswag.yaml)
    through train_ft with its model section pointing at a local HF directory that the
    port's safetensors writer fills with a random-init Llama-3.2-1B (published config,
-   4 of 16 layers; write_pretrained), its data sections at HellaSwag-shaped JSONL rows
+   2 of 16 layers; write_pretrained), its data sections at HellaSwag-shaped JSONL rows
    read through ByteTokenizer (baseline_config), the prefetch pipeline on, validation
    and a checkpoint with the consolidated HF export every 2 steps, 4 steps
    (baseline_args). Run A runs fresh; its step_4 is removed and run B resumes from
@@ -144,12 +150,23 @@ Phases, in order; any failure exits non-zero before the last line:
    directory of a random-init Phi-3-mini at 2 layers in HF's fused layout
    (write_pretrained, phi3_sft_args): packed 1000-token documents, 4 steps of 2
    microbatches, a checkpoint with the consolidated HF export every 2 steps; step_4/hf
-   must hold the fused tensors and reload bitwise equal to the final parameters.
+   must hold the fused tensors and reload bitwise equal to the final parameters;
+22. main path 15: the benchmark recipe on examples/benchmark/deepseek_v3_proxy.yaml as it
+   stands (12 layers, MLA with the low-rank q route, 64 experts top-6, the fake gate;
+   MLA's attention on the plain path: no flash launch); main path 16: train_ft on
+   examples/llm_finetune/deepseek_v3_ep.yaml from a local HF directory of a random-init
+   Moonlight-16B-A3B at MOONLIGHT_LAYERS layers (moonlight_sft_args: bf16, one process,
+   real routing with the gate-bias update, packed documents, saves at steps 2 and 4):
+   each step's correction-bias move must be sign(mean - load) x 0.001 of its summed
+   loads, and step_4/hf must hold DeepSeek's names and reload bitwise; main path 17:
+   Moonlight's widths at 2 layers under ring attention, cp 4 folded, seq 16,384
+   (moonlight_ring_args): ring_fwd, ring_dq and ring_dkv at (192, 128), no ring_bwd.
    Every main path also checks that each of its gmm, tgmm, lce_fwd and lce_bwd launches
    took the wgmma route (``launches by route`` on its line), that its windowed flash
    launches are those of its sliding layers (printed apart from the unwindowed ones),
-   and that every flash launch is at its model's head dim;
-22. one JSON line of per-kernel numbers (every kernel launched on some main path), the
+   that every flash launch is at its model's head dim, and every ring launch at its
+   model's (D, Dv);
+23. one JSON line of per-kernel numbers (every kernel launched on some main path), the
    card line, then the result line.
 
 To run one phase alone on the card, import the script: e.g.
@@ -208,13 +225,15 @@ LLAMA3_8B = {
 }
 CP_LAYERS_TRAIN_FT = 2  # depth of main path 8
 BASELINE_YAML = os.path.join(HERE, "examples", "llm_finetune", "llama3_2_1b_hellaswag.yaml")
-# The published config.json of meta-llama/Llama-3.2-1B (Hugging Face Hub) at 4 of its 16
+# The published config.json of meta-llama/Llama-3.2-1B (Hugging Face Hub) at 2 of its 16
 # layers: main path 9 writes random weights from the seed in this shape to a local HF
 # directory, which the config loads as pretrained (no weights in the repository). At 16
-# layers a save (f32 parameters, both Adam moments, the HF export) would be ~15 GB.
+# layers a save (f32 parameters, both Adam moments, the HF export) would be ~15 GB; 4
+# layers (8.1 GB) ran until the script's other paths needed the time (its six saves and
+# two restores, with the deterministic repeat, are the script's largest cost).
 LLAMA32_1B = {
     "architectures": ["LlamaForCausalLM"], "model_type": "llama", "vocab_size": 128256,
-    "hidden_size": 2048, "intermediate_size": 8192, "num_hidden_layers": 4,
+    "hidden_size": 2048, "intermediate_size": 8192, "num_hidden_layers": 2,
     "num_attention_heads": 32, "num_key_value_heads": 8, "head_dim": 64,
     "hidden_act": "silu", "max_position_embeddings": 131072, "rope_theta": 500000.0,
     "rope_scaling": {"factor": 32.0, "high_freq_factor": 4.0, "low_freq_factor": 1.0,
@@ -259,6 +278,34 @@ PHI3_MINI = {
 }
 PHI3_LAYERS_TRAIN_FT = 2  # depth of main path 14
 PHI3_STEPS = 4  # max_steps of main path 14: a consolidated save at steps 2 and 4
+DSV3_PROXY_YAML = os.path.join(HERE, "examples", "benchmark", "deepseek_v3_proxy.yaml")
+DSV3_EP_YAML = os.path.join(HERE, "examples", "llm_finetune", "deepseek_v3_ep.yaml")
+# The published config.json of moonshotai/Moonlight-16B-A3B (Hugging Face Hub): a
+# DeepseekV3ForCausalLM with MLA (q_lora_rank null: the direct q projection; qk 128 + 64
+# rope, v 128: the ring kernels' (192, 128)), 64 experts top-6 under sigmoid noaux-tc
+# routing with the correction bias, 2 shared experts and a dense first layer. Main path
+# 16 writes it at MOONLIGHT_LAYERS layers as a local HF directory of random weights from
+# the seed (no weights in the repository); main path 17 lays its widths over the
+# DeepSeek-V3 proxy config at MOONLIGHT_RING_LAYERS layers.
+MOONLIGHT_16B_A3B = {
+    "architectures": ["DeepseekV3ForCausalLM"], "model_type": "deepseek_v3",
+    "vocab_size": 163840, "hidden_size": 2048, "intermediate_size": 11264,
+    "moe_intermediate_size": 1408, "num_hidden_layers": 27, "num_attention_heads": 16,
+    "num_key_value_heads": 16, "q_lora_rank": None, "kv_lora_rank": 512,
+    "qk_nope_head_dim": 128, "qk_rope_head_dim": 64, "v_head_dim": 128,
+    "n_routed_experts": 64, "num_experts_per_tok": 6, "n_shared_experts": 2, "n_group": 1,
+    "topk_group": 1, "scoring_func": "sigmoid", "topk_method": "noaux_tc",
+    "routed_scaling_factor": 2.446, "norm_topk_prob": True, "first_k_dense_replace": 1,
+    "moe_layer_freq": 1, "aux_loss_alpha": 0.001, "seq_aux": True, "hidden_act": "silu",
+    "rope_theta": 50000.0, "rope_scaling": None, "rms_norm_eps": 1e-5,
+    "max_position_embeddings": 8192, "tie_word_embeddings": False, "attention_bias": False,
+    "initializer_range": 0.02, "bos_token_id": 163584, "eos_token_id": 163585,
+    "torch_dtype": "bfloat16",
+}
+MOONLIGHT_LAYERS = 4  # depth of main path 16: the dense layer and 3 MoE layers
+MOONLIGHT_STEPS = 4  # max_steps of main path 16: a consolidated save at steps 2 and 4
+MOONLIGHT_RING_LAYERS = 2  # depth of main path 17: the dense layer and 1 MoE layer
+MOONLIGHT_RING_SEQ, MOONLIGHT_RING_CP = 16384, 4  # main path 17: 4096 tokens a cp shard
 
 
 class ByteTokenizer:
@@ -413,6 +460,43 @@ def phi3_sft_args(hf_dir: str, ckpt_dir: str) -> list[str]:
             "--backend.attention_segments", "true",
             "--step_scheduler.grad_acc_steps", "2", "--step_scheduler.max_steps", str(PHI3_STEPS),
             "--step_scheduler.ckpt_every_steps", "2", "--checkpoint.checkpoint_dir", ckpt_dir]
+
+
+def moonlight_sft_args(hf_dir: str, ckpt_dir: str) -> list[str]:
+    """Main path 16's overrides of examples/llm_finetune/deepseek_v3_ep.yaml: the model from
+    the local directory ``hf_dir`` in bf16 (the file's f32 default would hold adamw's
+    full-size f32 state and temporaries for 2.5 B parameters, and a save would be ~39
+    GB), one process (``ep`` 64 -> 1, the ``dense`` dispatcher: ``a2a`` needs expert
+    parallelism), the mock data at Moonlight's vocabulary, 128 of its 65,536 samples
+    (packing reads them all), 500-token documents packed into its rows of 4096,
+    MOONLIGHT_STEPS steps of 2 microbatches (16 in the file), a checkpoint (with the
+    consolidated HF export) every 2 steps under ``ckpt_dir``."""
+    return ["--model.pretrained_model_name_or_path", hf_dir, "--model.params_dtype", "bfloat16",
+            "--distributed.ep", "1", "--backend.dispatcher", "dense",
+            "--dataset.vocab_size", str(MOONLIGHT_16B_A3B["vocab_size"]),
+            "--dataset.seq_len", "500", "--dataset.num_samples", "128",
+            "--packed_sequence.packed_sequence_size", "4096",
+            "--backend.attention_segments", "true",
+            "--step_scheduler.grad_acc_steps", "2",
+            "--step_scheduler.max_steps", str(MOONLIGHT_STEPS),
+            "--step_scheduler.ckpt_every_steps", "2", "--checkpoint.checkpoint_dir", ckpt_dir]
+
+
+def moonlight_ring_args(layers: int = MOONLIGHT_RING_LAYERS) -> list[str]:
+    """Main path 17's overrides of the DeepSeek-V3 proxy config: Moonlight's published
+    widths at ``layers`` layers, ring attention over cp MOONLIGHT_RING_CP folded onto the
+    card, one row of MOONLIGHT_RING_SEQ tokens a step."""
+    args = []
+    for key, value in dict(MOONLIGHT_16B_A3B, num_hidden_layers=layers).items():
+        if key in ("architectures", "model_type", "torch_dtype", "rope_scaling"):
+            continue
+        args += [f"--model.config.{key}", "null" if value is None
+                 else str(value).lower() if isinstance(value, bool) else str(value)]
+    return args + ["--dataset.vocab_size", str(MOONLIGHT_16B_A3B["vocab_size"]),
+                   "--backend.context_parallel", "ring",
+                   "--distributed.cp", str(MOONLIGHT_RING_CP),
+                   "--seq_len", str(MOONLIGHT_RING_SEQ),
+                   "--dataset.seq_len", str(MOONLIGHT_RING_SEQ), "--micro_batch_size", "1"]
 
 
 def qwen3_args(layers: int = QWEN3_30B_A3B["num_hidden_layers"]) -> list[str]:
@@ -910,19 +994,22 @@ def _window_timings(torch, fa, b=1, s=8192, h=64, kh=8, d=64, window=128):
 
 
 def _ring_layout(torch, b, cp, s_loc, h, kh, d, seed, seg=None, positions=None,
-                 device="cuda"):
-    """Row-form inputs of one folded ring from global (B, S, H, D) bf16 tensors: q / dO
-    (B*cp*H, S_loc, D), k / v (B*cp*KH, S_loc, D), positions / segments (B*cp, S_loc)."""
+                 device="cuda", dv=None):
+    """Row-form inputs of one folded ring from global (B, S, H, D) bf16 tensors: q
+    (B*cp*H, S_loc, D), k (B*cp*KH, S_loc, D), v (B*cp*KH, S_loc, Dv), dO (B*cp*H, S_loc,
+    Dv) (Dv: ``dv``, default D), positions / segments (B*cp, S_loc)."""
     g = torch.Generator(device=device).manual_seed(seed)
     s = cp * s_loc
-    q, k, v, do = (torch.randn(b, s, n, d, device=device, generator=g).to(torch.bfloat16)
-                   for n in (h, kh, kh, h))
+    dv = d if dv is None else dv
+    q, k, v, do = (torch.randn(b, s, n, w, device=device, generator=g).to(torch.bfloat16)
+                   for n, w in ((h, d), (kh, d), (kh, dv), (h, dv)))
     if positions is None:
         positions = torch.arange(s, device=device, dtype=torch.int32).expand(b, s)
 
     def rows(x):
-        x = x.reshape(b * cp, s_loc, x.shape[2], d)
-        return x.transpose(1, 2).reshape(-1, s_loc, d).contiguous()
+        w = x.shape[-1]
+        x = x.reshape(b * cp, s_loc, x.shape[2], w)
+        return x.transpose(1, 2).reshape(-1, s_loc, w).contiguous()
 
     def ids(x):
         return None if x is None else x.reshape(b * cp, s_loc).to(torch.int32).contiguous()
@@ -964,39 +1051,46 @@ def _counted_tiles(torch, label, launch, cls, heads):
 
 
 def _ring_case_tiles(torch, name, q, k, v, do, pos, sid, kw):
-    """The tiles ring_fwd, ring_bwd and ring_dkv count at the case's diagonal ring step
-    (each shard's q against its own kv), on scratch carries and accumulators, held
-    against tile_classes."""
+    """The tiles ring_fwd, ring_bwd (at Dv == D) and ring_dkv count at the case's diagonal
+    ring step (each shard's q against its own kv), on scratch carries and accumulators,
+    held against tile_classes; the backward's q tiles are ``bwd_block_q(D, Dv)`` rows."""
     from automodel_tpu_torch.ops import ring_chunk as rc
 
     f32 = dict(dtype=torch.float32, device="cuda")
     rows = q.shape[:2]
-    cls = {bq: rc.tile_classes(pos, pos, sid, sid, kw["causal"], kw["window"], bq, 128)
-           for bq in (128, 64)}
+    bq = rc.bwd_block_q(q.shape[-1], v.shape[-1])
+    cls = {b: rc.tile_classes(pos, pos, sid, sid, kw["causal"], kw["window"], b, 128)
+           for b in (128, bq)}
     _counted_tiles(torch, f"ring_fwd in ring case {name}", lambda **c: rc.ring_fwd(
-        q, k, v, pos, pos, sid, sid, torch.zeros(q.shape, **f32), torch.full(rows, -1e30, **f32),
-        torch.zeros(rows, **f32), **kw, **c), cls[128], kw["n_heads"])
-    _counted_tiles(torch, f"ring_bwd in ring case {name}", lambda **c: rc.ring_bwd(
-        q, k, v, pos, pos, sid, sid, do, torch.zeros(rows, **f32), torch.zeros(rows, **f32),
-        torch.zeros(q.shape, **f32), torch.zeros(k.shape, **f32), torch.zeros(v.shape, **f32),
-        **kw, **c), cls[64], kw["n_heads"] // kw["groups"])
+        q, k, v, pos, pos, sid, sid, torch.zeros((*rows, v.shape[-1]), **f32),
+        torch.full(rows, -1e30, **f32), torch.zeros(rows, **f32), **kw, **c), cls[128],
+        kw["n_heads"])
+    if q.shape[-1] == v.shape[-1]:
+        _counted_tiles(torch, f"ring_bwd in ring case {name}", lambda **c: rc.ring_bwd(
+            q, k, v, pos, pos, sid, sid, do, torch.zeros(rows, **f32), torch.zeros(rows, **f32),
+            torch.zeros(q.shape, **f32), torch.zeros(k.shape, **f32),
+            torch.zeros(v.shape, **f32), **kw, **c), cls[bq], kw["n_heads"] // kw["groups"])
     _counted_tiles(torch, f"ring_dkv in ring case {name}", lambda **c: rc.ring_dkv(
         q, k, v, pos, pos, sid, sid, do, torch.zeros(rows, **f32), torch.zeros(rows, **f32),
-        torch.zeros(k.shape, **f32), torch.zeros(v.shape, **f32), **kw, **c), cls[64],
+        torch.zeros(k.shape, **f32), torch.zeros(v.shape, **f32), **kw, **c), cls[bq],
         kw["n_heads"] // kw["groups"])
 
 
 def _ring_case(torch, name, cp, b, s_loc, h, kh, d=128, causal=True, window=None, seg=None,
-               positions=None):
+               positions=None, dv=None, scale=None):
     """One full folded ring forward and backward through ring_fwd / ring_bwd against the
     same ring through their plain version (f32 from the same bf16 inputs), and the tiles
-    the kernels count at the diagonal step against tile_classes."""
+    the kernels count at the diagonal step against tile_classes. ``dv``: v's width (MLA's
+    128 beside D=192; the backward's default route is then ring_dq + ring_dkv too);
+    ``scale``: the softmax scale (default D^-0.5)."""
     from automodel_tpu_torch.parallel import ring_attention as ra
 
+    dv = d if dv is None else dv
     q, k, v, do, pos, sid = _ring_layout(torch, b, cp, s_loc, h, kh, d, seed=cp + s_loc + d,
-                                         seg=seg, positions=positions)
+                                         seg=seg, positions=positions, dv=dv)
     rot = ra.FoldedRotation(cp)
-    kw = dict(scale=d**-0.5, causal=causal, window=window, groups=h // kh, n_heads=h)
+    kw = dict(scale=d**-0.5 if scale is None else scale, causal=causal, window=window,
+              groups=h // kh, n_heads=h)
     out, lse = ra.ring_flash_forward(q, k, v, pos, pos, sid, sid, rot, kw)
     grads = ra.ring_flash_backward(q, k, v, pos, pos, sid, sid, out, lse, do, rot, kw)
     with _deterministic(torch):  # ring_dq + ring_dkv
@@ -1014,6 +1108,7 @@ def _ring_case(torch, name, cp, b, s_loc, h, kh, d=128, causal=True, window=None
     err_grad = max((a.float() - r).abs().max().item() for a, r in zip(grads, grads_ref))
     err_det = [(a.float() - r).abs().max().item() for a, r in zip(grads_det, grads_ref)]
     print(f"ring case {name}: cp={cp} folded, B={b} S_local={s_loc} H={h} KH={kh} D={d} "
+          f"Dv={dv} scale={kw['scale']:.6f} "
           f"causal={causal} window={window} segments={seg is not None} "
           f"positions={'given' if positions is not None else 'arange'}: "
           f"O max abs {err_o:.3e} (tol {TOL_O}), lse max abs {err_lse:.3e} (tol {TOL_LSE}), "
@@ -1076,17 +1171,18 @@ def _ring_phase(torch, errs):
 RING_A = dict(cp=8, b=1, s_loc=4096, h=32, kh=8, d=128)
 
 
-def _ring_step_inputs(torch, step, cp, b, s_loc, h, kh, d, device="cuda"):
+def _ring_step_inputs(torch, step, cp, b, s_loc, h, kh, d, device="cuda", dv=None):
     """The tensors of one ring_fwd / ring_bwd launch at ring step ``step`` of a causal ring
     over contiguous shards (seed 5): q / dO of every shard and the kv bundle rotated
     ``step`` times by FoldedRotation, so shard r holds the k, v and positions of shard
     (r - step) mod cp; with the launch's allowed (q, k) pairs over every head and the
-    shards that have any."""
+    shards that have any. ``dv``: v's and dO's width (default D)."""
     from automodel_tpu_torch.ops import ring_chunk as rc
     from automodel_tpu_torch.parallel import ring_attention as ra
 
-    q, k, v, do, pos, _ = _ring_layout(torch, b, cp, s_loc, h, kh, d, seed=5, device=device)
-    bundle = (k.view(b * cp, kh, s_loc, d), v.view(b * cp, kh, s_loc, d), pos)
+    q, k, v, do, pos, _ = _ring_layout(torch, b, cp, s_loc, h, kh, d, seed=5, device=device,
+                                       dv=dv)
+    bundle = (k.view(b * cp, kh, s_loc, d), v.view(b * cp, kh, s_loc, v.shape[-1]), pos)
     rot = ra.FoldedRotation(cp)
     for _ in range(step):
         bundle = rot(bundle)
@@ -1097,25 +1193,27 @@ def _ring_step_inputs(torch, step, cp, b, s_loc, h, kh, d, device="cuda"):
             "live": int((per_shard > 0).sum())}
 
 
-def _ring_work(x, h, kh, d):
+def _ring_work(x, h, kh, d, dv=None):
     """FLOP and bytes of one ring_fwd / ring_bwd launch on :func:`_ring_step_inputs`'s
-    tensors: the allowed pairs' products, and each input read once and each output
+    tensors: the allowed pairs' products (Q K^T and dQ / dK at D, P V / dP / dV at Dv:
+    2 D or 2 Dv operations a pair each), and each input read once and each output
     written once on the shards with any allowed pair (the carry and the f32
     accumulators are read and written)."""
-    s_loc = x["q"].shape[1]
-    qkv = 2 * s_loc * d * (h + 2 * kh)
+    dv = d if dv is None else dv
+    s_loc, pairs = x["q"].shape[1], x["pairs"]
+    qkv = 2 * s_loc * (d * (h + kh) + dv * kh)
     ids = 4 * 2 * s_loc
-    carry = 2 * 4 * (h * s_loc * d + 2 * h * s_loc)
-    grads = 2 * 4 * s_loc * d * (h + 2 * kh)
+    carry = 2 * 4 * (h * s_loc * dv + 2 * h * s_loc)
+    dk_dv = 2 * 4 * s_loc * kh * (d + dv)
+    do = 2 * h * s_loc * dv
     rows = 4 * 2 * h * s_loc  # lse, delta
     dq = 2 * 4 * s_loc * d * h
-    return {"ring_fwd": (4 * d * x["pairs"], x["live"] * (qkv + ids + carry)),
-            "ring_bwd": (10 * d * x["pairs"],
-                         x["live"] * (qkv + ids + 2 * h * s_loc * d + rows + grads)),
-            # the deterministic route: dq alone (3 products a pair), dk / dv alone (4)
-            "ring_dq": (6 * d * x["pairs"], x["live"] * (qkv + ids + 2 * h * s_loc * d + rows + dq)),
-            "ring_dkv": (8 * d * x["pairs"], x["live"] * (
-                qkv + ids + 2 * h * s_loc * d + rows + grads - dq))}
+    return {"ring_fwd": (2 * (d + dv) * pairs, x["live"] * (qkv + ids + carry)),
+            "ring_bwd": (2 * (3 * d + 2 * dv) * pairs,
+                         x["live"] * (qkv + ids + do + rows + dq + dk_dv)),
+            # the deterministic route: dq alone (S, dP, dQ), dk / dv alone (S, dP, dV, dK)
+            "ring_dq": (2 * (2 * d + dv) * pairs, x["live"] * (qkv + ids + do + rows + dq)),
+            "ring_dkv": (4 * (d + dv) * pairs, x["live"] * (qkv + ids + do + rows + dk_dv))}
 
 
 def _ring_launches(torch, steps):
@@ -1287,6 +1385,139 @@ def _ring_timings(torch):
           f"{sdpa_fwd_ms:.3f} ms, backward {sdpa_bwd_ms:.3f} ms", flush=True)
     out["ring_fwd"]["comparison_unsharded"] = comparison
     return out
+
+
+# MLA's (D, Dv) = (192, 128) on the ring: DeepSeek-V3's attention (V, H = KH = 128) and
+# Moonlight-16B-A3B's (M, H = KH = 16), a cp shard of 4096 (cp 4 folded, B 1), causal
+MLA_RING = {"V": dict(cp=4, b=1, s_loc=4096, h=128, kh=128, d=192, dv=128),
+            "M": dict(cp=4, b=1, s_loc=4096, h=16, kh=16, d=192, dv=128)}
+# DeepSeek-V3's softmax scale: 192^-0.5 times YaRN's mscale^2 (factor 40, mscale 1,
+# original context 4096 under 163,840 positions), as DeepseekV3Config.softmax_scale
+DSV3_SCALE = 192**-0.5 * (0.1 * math.log(40.0) + 1.0) ** 2
+
+
+def _mla_ring_phase(torch, errs):
+    """ring_fwd, ring_dq and ring_dkv at MLA's (D, Dv) = (192, 128) against the plain
+    version, one full folded ring each (its diagonal step, wholly allowed steps and
+    wholly skipped future steps), with the tiles counted at the diagonal step: (ma)
+    Moonlight's heads (H = KH = 16) at S_local 4096, cp 4, causal; (mb) packed segments
+    with positions restarting per document (boundaries inside tiles), B 2; (mc) a window
+    of 1024; (md) non-causal, GQA (H 8, KH 2) at DeepSeek-V3's scale (YaRN's mscale^2);
+    (me) a ragged local length (S_local 1000, cp 3)."""
+    def note(e):  # the backward's default route is ring_dq + ring_dkv at Dv != D
+        for name, x in zip(("ring_fwd", "ring_dq", "ring_dkv"), (e[0], e[2], e[3])):
+            errs[name] = max(errs.get(name, 0.0), x)
+
+    mla = dict(d=192, dv=128)
+    note(_ring_case(torch, "ma", 4, 1, 4096, 16, 16, **mla))
+    seg, pos = _packed_ring_segments(torch, 2, 4 * 2048, seed=1)
+    note(_ring_case(torch, "mb", 4, 2, 2048, 16, 16, seg=seg, positions=pos, **mla))
+    note(_ring_case(torch, "mc", 4, 1, 2048, 16, 16, window=1024, **mla))
+    note(_ring_case(torch, "md", 4, 1, 2048, 8, 2, causal=False, scale=DSV3_SCALE, **mla))
+    note(_ring_case(torch, "me", 3, 1, 1000, 16, 16, **mla))
+
+
+def _mla_ring_timings(torch):
+    """ms of ring_fwd, ring_dq and ring_dkv a launch at (192, 128) at shapes V and M
+    (MLA_RING): the diagonal ring step and step 1 (every shard's chunk wholly allowed or
+    wholly in its future), each beside its bound over the step's allowed pairs
+    (_ring_work at D and Dv) and, at M's diagonal step, the plain version; the tiles
+    ring_fwd and ring_dkv count at each step held against tile_classes. No single
+    PyTorch call computes a carried ring step, so there is no library time."""
+    from automodel_tpu_torch.ops import ring_chunk as rc
+    from automodel_tpu_torch.parallel import ring_attention as ra
+
+    out = {}
+    f32 = dict(dtype=torch.float32, device="cuda")
+    for shape, a in MLA_RING.items():
+        cp, h, kh, d, dv = (a[n] for n in ("cp", "h", "kh", "d", "dv"))
+        kw = dict(scale=d**-0.5, causal=True, window=None, groups=h // kh, n_heads=h)
+        base = _ring_step_inputs(torch, 0, **a)
+        q, do, pos = base["q"], base["do"], base["pos_q"]
+        o, lse = ra.ring_flash_forward(q, base["k"], base["v"], pos, pos, None, None,
+                                       ra.FoldedRotation(cp), kw)
+        delta = (o.float() * do.float()).sum(-1)
+        del o
+        acc, m, l = (torch.zeros((*q.shape[:2], dv), **f32), torch.full(q.shape[:2], -1e30, **f32),
+                     torch.zeros(q.shape[:2], **f32))
+        dq = torch.zeros(q.shape, **f32)
+        dk, dvv = torch.zeros(base["k"].shape, **f32), torch.zeros(base["v"].shape, **f32)
+        rows = out.setdefault(shape, {"ring_fwd": {}, "ring_dq": {}, "ring_dkv": {}})
+        for step in (0, 1):
+            x = base if step == 0 else _ring_step_inputs(torch, 1, **a)
+            k, v, pkv = x["k"], x["v"], x["pos_kv"]
+            fns = {"ring_fwd": lambda **c: rc.ring_fwd(q, k, v, pos, pkv, None, None, acc, m, l,
+                                                       **kw, **c),
+                   "ring_dq": lambda: rc.ring_dq(q, k, v, pos, pkv, None, None, do, lse, delta,
+                                                 dq, **kw),
+                   "ring_dkv": lambda **c: rc.ring_dkv(q, k, v, pos, pkv, None, None, do, lse,
+                                                       delta, dk, dvv, **kw, **c)}
+            work = _ring_work(x, h, kh, d, dv)
+            for name, fn in fns.items():
+                row = {}
+                if name != "ring_dq":  # ring_dq counts no tiles
+                    block_q = 128 if name == "ring_fwd" else rc.bwd_block_q(d, dv)
+                    cls = rc.tile_classes(pos, pkv, None, None, True, None, block_q, 128)
+                    row["tiles"] = _counted_tiles(torch, f"{name} at ({shape}) step {step}", fn,
+                                                  cls, h if name == "ring_fwd" else kh)
+                ms = _time_ms(torch, fn, warmup=2, reps=10)
+                flops, nbytes = work[name]
+                t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+                row.update({"ms": ms, "bound_ms": max(t_ops, t_bytes),
+                            "bound_by": "operations" if t_ops >= t_bytes else "bytes"})
+                print(f"time {name} at ({shape}) ring step {step} of cp={cp} folded B=1 "
+                      f"S_local={a['s_loc']} H={h} KH={kh} D={d} Dv={dv} causal: {ms:.3f} ms a "
+                      f"launch, bound {row['bound_ms']:.3f} ms ({row['bound_by']}: "
+                      f"{flops / 1e12:.3f} TFLOP over the step's allowed pairs; "
+                      f"{nbytes / 1e6:.1f} MB), share {row['bound_ms'] / ms:.3f}", flush=True)
+                rows[name]["diagonal" if step == 0 else "step_1"] = row
+            del x, k, v, pkv, fns
+        if shape == "M":
+            k, v = base["k"], base["v"]
+            for name, ref in (("ring_fwd", lambda: rc.chunk_attention_fwd_reference(
+                                  q, k, v, pos, pos, None, None, acc, m, l, **kw)),
+                              ("ring_dq", lambda: rc.chunk_attention_dq_reference(
+                                  q, k, v, pos, pos, None, None, do, lse, delta, **kw)),
+                              ("ring_dkv", lambda: rc.chunk_attention_dkv_reference(
+                                  q, k, v, pos, pos, None, None, do, lse, delta, **kw))):
+                rows[name]["diagonal"]["plain_ms"] = _time_ms(torch, ref, warmup=1, reps=3)
+                print(f"time {name} at (M) diagonal step: plain "
+                      f"{rows[name]['diagonal']['plain_ms']:.3f} ms", flush=True)
+            del k, v
+        del base, q, do, pos, lse, delta, acc, m, l, dq, dk, dvv
+        torch.cuda.empty_cache()
+    return out
+
+
+def _ring_refused_on_the_card(torch):
+    """(D, Dv) pairs the ring kernels are not instantiated at, (96, 64) and (192, 192),
+    raise NotImplementedError on the card through both chunk functions and launch
+    nothing: no fallback to the plain version."""
+    from automodel_tpu_torch.ops import ring_chunk as rc
+
+    f32 = dict(dtype=torch.float32, device="cuda")
+    for d, dv in ((96, 64), (192, 192)):
+        q, k, v, do, pos, _ = _ring_layout(torch, 1, 1, 256, 4, 4, d, seed=3, dv=dv)
+        kw = dict(scale=d**-0.5, causal=True, window=None, groups=1, n_heads=4)
+        rows = q.shape[:2]
+        before = dict(rc.LAUNCHES)
+        for what, call in (
+                ("forward", lambda: rc.chunk_attention_fwd(
+                    q, k, v, pos, pos, None, None, torch.zeros((*rows, dv), **f32),
+                    torch.full(rows, -1e30, **f32), torch.zeros(rows, **f32), **kw)),
+                ("backward", lambda: rc.chunk_attention_bwd(
+                    q, k, v, pos, pos, None, None, do, torch.zeros(rows, **f32),
+                    torch.zeros(rows, **f32), torch.zeros(q.shape, **f32),
+                    torch.zeros(k.shape, **f32), torch.zeros(v.shape, **f32), **kw))):
+            try:
+                call()
+            except NotImplementedError as e:
+                print(f"ring (D, Dv) = ({d}, {dv}) {what} on the card: NotImplementedError "
+                      f"({e})", flush=True)
+            else:
+                raise AssertionError(f"ring (D, Dv) = ({d}, {dv}) {what} ran on the card")
+        if rc.LAUNCHES != before:
+            raise AssertionError(f"ring (D, Dv) = ({d}, {dv}): a refused call launched")
 
 
 def _ring_model_check(torch):
@@ -1722,6 +1953,25 @@ def _twice_phase(torch):
                             *grads()[1:], **kw), ("dk", "dv"))
     del calls, st, x, q, k, v, do, pos
 
+    # the deterministic route at MLA's (192, 128): Moonlight's heads, the diagonal step
+    from automodel_tpu_torch.parallel import ring_attention as ra
+
+    a = MLA_RING["M"]
+    x = _ring_step_inputs(torch, 0, **a)
+    q, k, v, do, pos = x["q"], x["k"], x["v"], x["do"], x["pos_q"]
+    kw = dict(scale=a["d"]**-0.5, causal=True, window=None, groups=1, n_heads=a["h"])
+    o, lse = ra.ring_flash_forward(q, k, v, pos, pos, None, None, ra.FoldedRotation(a["cp"]), kw)
+    delta = (o.float() * do.float()).sum(-1)
+    found["ring_dq (M)"] = _twice(torch, "ring_dq at (192, 128), (M)'s diagonal step", lambda: (
+        rc.ring_dq(q, k, v, pos, pos, None, None, do, lse, delta,
+                   torch.zeros(q.shape, **f32), **kw),), ("dq",))
+    found["ring_dkv (M)"] = _twice(
+        torch, "ring_dkv at (192, 128), (M)'s diagonal step",
+        lambda: rc.ring_dkv(q, k, v, pos, pos, None, None, do, lse, delta,
+                            torch.zeros(k.shape, **f32), torch.zeros(v.shape, **f32), **kw),
+        ("dk", "dv"))
+    del x, q, k, v, do, pos, o, lse, delta
+
     h, w, _ = _lce_inputs(torch, 8192, 2048, 128256, seed=7)
     z, _ = lce.lce_fwd(h, w)
     dz = torch.ones(h.shape[0], device="cuda")
@@ -1805,12 +2055,19 @@ def _counters():
 
 
 def _reset_counts():
-    from automodel_tpu_torch.ops import flash_attention as fa
+    from automodel_tpu_torch.ops import flash_attention as fa, ring_chunk as rc
 
     for counter in (*_counters(), *_route_counters(), fa.WINDOWED_LAUNCHES,
-                    fa.HEAD_DIM_LAUNCHES):
+                    fa.HEAD_DIM_LAUNCHES, rc.DIM_LAUNCHES):
         for key in counter:
             counter[key] = 0
+
+
+def _read_ring_dims() -> dict:
+    """The ring launches by (D, Dv) ("ring_fwd/d192v128", ...), those of no launch left out."""
+    from automodel_tpu_torch.ops import ring_chunk as rc
+
+    return {k: v for k, v in rc.DIM_LAUNCHES.items() if v}
 
 
 def _read_windowed() -> dict:
@@ -1836,6 +2093,22 @@ def _check_head_dim(name, launches, head_dim):
     print(f"{name}: flash launches by head dim {got} (head_dim {head_dim})", flush=True)
     if got != want:
         raise AssertionError(f"{name}: flash launches by head dim {got} != {want}")
+
+
+def _check_ring_dims(name, launches, model):
+    """Every ring launch of a path is at its model's (D, Dv): (192, 128) for DeepSeek's
+    MLA at DeepSeek's widths, (head_dim, head_dim) otherwise."""
+    if _is_mla(model):
+        d = int(model["qk_nope_head_dim"]) + int(model["qk_rope_head_dim"])
+        dv = int(model["v_head_dim"])
+    else:
+        d = dv = _head_dim(model)
+    want = {f"{k}/d{d}v{dv}": launches[k] for k in ("ring_fwd", "ring_bwd", "ring_dq",
+                                                     "ring_dkv") if launches[k]}
+    got = {k: v for k, v in launches.items() if k.startswith("ring_") and "/d" in k}
+    print(f"{name}: ring launches by (D, Dv) {got}", flush=True)
+    if got != want:
+        raise AssertionError(f"{name}: ring launches by (D, Dv) {got} != {want}")
 
 
 def _head_dim(model) -> int:
@@ -1871,7 +2144,7 @@ def _check_routes(name, launches) -> dict:
         if routes[f"{kernel}/wgmma"] != launches.get(kernel, 0):
             raise AssertionError(f"{name}: {launches.get(kernel, 0)} {kernel} launches, "
                                  f"{routes[f'{kernel}/wgmma']} of them on the wgmma route")
-    return {**launches, **routes, **_read_windowed(), **_read_head_dims()}
+    return {**launches, **routes, **_read_windowed(), **_read_head_dims(), **_read_ring_dims()}
 
 
 def _sliding_layers(cfg) -> int:
@@ -1887,7 +2160,17 @@ def _sliding_layers(cfg) -> int:
 
 def _is_moe(cfg) -> bool:
     model = cfg.model.config
-    return bool(model.get("num_experts") or model.get("num_local_experts"))
+    return bool(model.get("num_experts") or model.get("num_local_experts")
+                or model.get("n_routed_experts"))
+
+
+def _is_mla(model) -> bool:
+    """A DeepSeek-family config (MLA: keys 192 wide, values 128 at DeepSeek's widths)."""
+    return bool(model.get("kv_lora_rank"))
+
+
+def _dense_prefix(model) -> int:
+    return int(model.get("first_k_dense_replace", 0) or 0)
 
 
 def _check_windowed(name, launches, sliding, micro, steps):
@@ -1916,7 +2199,7 @@ def _release():
 
 
 def _expected(layers, micro, steps, linear_ce, moe=False, ring_cp=1, val_batches=0,
-              deterministic=False):
+              deterministic=False, dense_prefix=0, mla=False):
     """Launches of each kernel in a run, n = layers x microbatches x steps.
 
     flash_fwd 2n (the forward, and once more when each layer's checkpoint replays it: no
@@ -1928,20 +2211,25 @@ def _expected(layers, micro, steps, linear_ce, moe=False, ring_cp=1, val_batches
     place, once per ring step: ring_fwd 2n x cp, ring_bwd n x cp. Validation runs forward
     only, with no layer checkpoint: ``val_batches`` (over all passes) add flash_fwd once a
     layer and lce_fwd once each. ``deterministic`` (the flag set): ring_dq and ring_dkv
-    n x cp each in ring_bwd's place."""
+    n x cp each in ring_bwd's place. ``dense_prefix``: the first layers of an MoE model
+    that are dense (no grouped GEMM). ``mla``: DeepSeek's attention, whose values are
+    narrower than its keys: no flash launch (the plain path, as JAX's dispatch), and on
+    the ring ring_dq + ring_dkv in ring_bwd's place."""
     n = layers * micro * steps
+    n_moe = (layers - dense_prefix) * micro * steps if moe else 0
     lce_n = micro * steps if linear_ce else 0
     ring = ring_cp > 1
-    flash_n = 0 if ring else n
+    flash = not (ring or mla)
     ring_bwd = n * ring_cp if ring else 0
-    return {"flash_fwd": 0 if ring else 2 * n + layers * val_batches,
-            "flash_dq": flash_n, "flash_dkv": flash_n,
+    split = deterministic or mla
+    return {"flash_fwd": 2 * n + layers * val_batches if flash else 0,
+            "flash_dq": n if flash else 0, "flash_dkv": n if flash else 0,
             "lce_fwd": lce_n + (val_batches if linear_ce else 0), "lce_bwd": lce_n,
-            "gmm": 6 * n if moe else 0, "tgmm": 2 * n if moe else 0,
+            "gmm": 6 * n_moe, "tgmm": 2 * n_moe,
             "ring_fwd": 2 * n * ring_cp if ring else 0,
-            "ring_bwd": 0 if deterministic else ring_bwd,
-            "ring_dkv": ring_bwd if deterministic else 0,
-            "ring_dq": ring_bwd if deterministic else 0}
+            "ring_bwd": 0 if split else ring_bwd,
+            "ring_dkv": ring_bwd if split else 0,
+            "ring_dq": ring_bwd if split else 0}
 
 
 def _ring_cp(cfg) -> int:
@@ -1982,7 +2270,8 @@ def _bench_path(name, yaml, linear_ce, overrides=()):
         launches = _read_counts()
     vocab = int(cfg.model.config.vocab_size)
     want = _expected(layers, micro, WARMUP + TIMED, linear_ce, moe=_is_moe(cfg),
-                     ring_cp=_ring_cp(cfg))
+                     ring_cp=_ring_cp(cfg), dense_prefix=_dense_prefix(cfg.model.config),
+                     mla=_is_mla(cfg.model.config))
     print(f"{name}: benchmark recipe on {_shown(yaml)} ({layers} layers, "
           f"{micro} microbatch, mb {cfg.micro_batch_size}, seq {cfg.seq_len}, loss "
           f"{cfg.get('loss.name')}, tied {cfg.model.config.get('tie_word_embeddings')}), {WARMUP} warmup + {TIMED} timed steps: "
@@ -2007,6 +2296,7 @@ def _bench_path(name, yaml, linear_ce, overrides=()):
     routed = _check_routes(name, launches)
     _check_windowed(name, routed, _sliding_layers(cfg), micro, WARMUP + TIMED)
     _check_head_dim(name, routed, _head_dim(cfg.model.config))
+    _check_ring_dims(name, routed, cfg.model.config)
     return routed, result["losses"]
 
 
@@ -2039,7 +2329,8 @@ def _train_ft_path(name, yaml, overrides, deterministic=False):
     micro = int(cfg.get("step_scheduler.grad_acc_steps", 1))
     moe = _is_moe(cfg)
     want = _expected(layers, micro, TRAIN_FT_STEPS, True, moe, ring_cp=_ring_cp(cfg),
-                     deterministic=deterministic)
+                     deterministic=deterministic, dense_prefix=_dense_prefix(cfg.model.config),
+                     mla=_is_mla(cfg.model.config))
     losses = [r["loss"] for r in rows]
     moe_rows = [sorted(k for k in r if k.startswith("moe_load/")) for r in rows]
     print(f"{name}: train_ft on {_shown(yaml)} ({layers} layers), default loss "
@@ -2058,6 +2349,7 @@ def _train_ft_path(name, yaml, overrides, deterministic=False):
     routed = _check_routes(name, launches)
     _check_windowed(name, routed, _sliding_layers(cfg), micro, TRAIN_FT_STEPS)
     _check_head_dim(name, routed, _head_dim(cfg.model.config))
+    _check_ring_dims(name, routed, cfg.model.config)
     return routed, losses
 
 
@@ -2256,6 +2548,113 @@ def _phi3_train_ft_path(name):
         raise AssertionError(f"{name}: kernel launches {launches} != expected {want}")
     _check_windowed(name, routed, layers, micro, PHI3_STEPS)
     _check_head_dim(name, routed, _head_dim(PHI3_MINI))
+    return routed
+
+
+def _moonlight_train_ft_path(name):
+    """examples/llm_finetune/deepseek_v3_ep.yaml through train_ft (main path 16): its model a
+    local HF directory of a random-init Moonlight-16B-A3B at MOONLIGHT_LAYERS layers in
+    DeepSeek's HF names, written by write_pretrained; real routing (sigmoid noaux-tc, no
+    fake gate) with the gate-bias update at its factor 0.001; packed 500-token documents,
+    MOONLIGHT_STEPS steps of 2 microbatches, a checkpoint with the consolidated HF export
+    every 2 steps (moonlight_sft_args). Checks: finite losses, the first within 0.5 of
+    the random-init loss; after each step every element of each MoE layer's correction
+    bias moved by sign(mean - load) * 0.001 of that step's expert load summed over its
+    microbatches, within 1e-6 (weight decay, which JAX's mask applies to the stacked
+    bias, moves it by lr * wd * bias, far below that), and not all zero after step 1;
+    the launches (no flash: MLA's values are narrower than its keys); step_N/hf holding
+    DeepSeek's names, the correction bias among them, and its reload through
+    from_pretrained bitwise equal to the final parameters."""
+    import torch
+
+    from automodel_tpu_torch.checkpoint.safetensors_io import load_safetensors
+    from automodel_tpu_torch.config.cli_overrides import parse_args_and_load_config
+    from automodel_tpu_torch.models.auto import AutoModelForCausalLM
+
+    _release()
+    layers, micro, factor = MOONLIGHT_LAYERS, 2, 0.001
+    model = dict(MOONLIGHT_16B_A3B, num_hidden_layers=layers)
+    bias_name = "moe_layers.moe.gate.score_correction_bias"
+    trace = []  # (bias before, bias after, summed expert load) a step
+
+    def on_setup(recipe):
+        bias, step_fn = recipe.params[bias_name], recipe._train_step
+
+        def traced(opt_state, stack):
+            before = bias.detach().clone()
+            opt_state, m = step_fn(opt_state, stack)
+            trace.append((before, bias.detach().clone(), m["expert_load"].detach().clone()))
+            return opt_state, m
+
+        recipe._train_step = traced
+
+    with tempfile.TemporaryDirectory() as tmp:
+        hf_dir = write_pretrained(os.path.join(tmp, "moonlight"), model)
+        ckpt = os.path.join(tmp, "ckpts")
+        cfg = parse_args_and_load_config(["-c", DSV3_EP_YAML, *moonlight_sft_args(hf_dir, ckpt),
+                                          "--output_dir", os.path.join(tmp, "run")])
+        _reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        recipe, losses, rows, _ = _recorded_train_ft(cfg, on_setup)
+        launches = _read_counts()
+        routed = _check_routes(name, launches)
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        step_hf = os.path.join(ckpt, f"step_{MOONLIGHT_STEPS}", "hf")
+        hf_tensors = load_safetensors(step_hf)
+        hf_names = sorted(hf_tensors)
+        hf_bias = [n for n in hf_names if n.endswith("mlp.gate.e_score_correction_bias")]
+        bias_dtypes = sorted({str(hf_tensors[n].dtype) for n in hf_bias})
+        del hf_tensors
+        reloaded = AutoModelForCausalLM.from_pretrained(step_hf, dtype=torch.bfloat16,
+                                                        device="cuda").param_dict()
+        differ = sorted(k for k, v in recipe.params.items() if not torch.equal(v, reloaded[k]))
+        loss_name, factor_used = recipe.loss_name, recipe.moe.gate_bias_update_factor
+        del recipe, reloaded
+        _release()
+    moved = []
+    for before, after, load in trace:
+        want = torch.sign(load.float().mean(-1, keepdim=True) - load.float()) * factor
+        moved.append((after - before - want).abs().max().item())
+    first_bias = trace[0][1] if trace else None
+    saves = [(x["step"], x["seconds"], x["bytes"]) for x in rows
+             if x.get("event") == "checkpoint_save"]
+    want = _expected(layers, micro, MOONLIGHT_STEPS, True, moe=True,
+                     dense_prefix=model["first_k_dense_replace"], mla=True)
+    want_loss = random_init_loss(model["vocab_size"], model["hidden_size"],
+                                 model["initializer_range"])
+    print(f"{name}: train_ft on {_shown(DSV3_EP_YAML)} ({layers} layers of Moonlight-16B-A3B "
+          f"from a local HF directory, bf16, loss {loss_name}, gate-bias factor {factor_used}, "
+          f"packed rows of 4096), losses {losses}, step times "
+          f"{[x['step_time_s'] for x in rows if 'loss' in x]} s, MFU "
+          f"{[x.get('mfu') for x in rows if 'loss' in x]}, saves {saves} (step, s, bytes), "
+          f"peak memory {peak_gib:.2f} GiB; correction bias: max |moved - sign(mean - load) x "
+          f"{factor}| per step {moved} (tol 1e-6), nonzero after step 1: "
+          f"{int((first_bias != 0).sum()) if first_bias is not None else 0} of "
+          f"{first_bias.numel() if first_bias is not None else 0}; step_{MOONLIGHT_STEPS}/hf "
+          f"{len(hf_names)} tensors, {len(hf_bias)} correction biases ({bias_dtypes}), "
+          f"reloaded through from_pretrained: {'bitwise equal' if not differ else differ}, "
+          f"launches {launches} (expected {want})", flush=True)
+    if sorted(losses) != list(range(1, MOONLIGHT_STEPS + 1)):
+        raise AssertionError(f"{name}: stepped {sorted(losses)}")
+    if not all(math.isfinite(x) for x in losses.values()):
+        raise AssertionError(f"{name}: non-finite loss")
+    if abs(losses[1] - want_loss) > 0.5:
+        raise AssertionError(f"{name}: first loss {losses[1]} is not within 0.5 of {want_loss:.3f}")
+    if factor_used != factor or len(moved) != MOONLIGHT_STEPS or max(moved) > 1e-6:
+        raise AssertionError(f"{name}: the correction bias did not move as its loads say: {moved}")
+    if not bool((first_bias != 0).any()):
+        raise AssertionError(f"{name}: the correction bias is all zero after step 1")
+    if [x[0] for x in saves] != [2, MOONLIGHT_STEPS]:
+        raise AssertionError(f"{name}: checkpoints saved at {saves}")
+    if len(hf_bias) != layers - model["first_k_dense_replace"] or bias_dtypes != ["torch.float32"]:
+        raise AssertionError(f"{name}: step_{MOONLIGHT_STEPS}/hf correction biases {hf_bias} "
+                             f"{bias_dtypes}")
+    if not any(n.endswith("self_attn.kv_a_proj_with_mqa.weight") for n in hf_names):
+        raise AssertionError(f"{name}: step_{MOONLIGHT_STEPS}/hf lacks DeepSeek's MLA names")
+    if differ:
+        raise AssertionError(f"{name}: hf/ reloaded differs from the final parameters in {differ}")
+    if launches != want:
+        raise AssertionError(f"{name}: kernel launches {launches} != expected {want}")
     return routed
 
 
@@ -2687,6 +3086,7 @@ def main(argv: list[str]) -> int:
         for name, row in _timings(torch, fa, 4, 2048, 32, 32, 96, window).items():
             timings[name][key] = row
     _refused_on_the_card(torch, fa)
+    _ring_refused_on_the_card(torch)
     _model_check(torch)
 
     errs.update({"lce_fwd": 0.0, "lce_bwd": 0.0})
@@ -2705,7 +3105,11 @@ def main(argv: list[str]) -> int:
     timings.update(_gmm_phase(torch, errs))
     _moe_model_check(torch)
     _ring_phase(torch, errs)
+    _mla_ring_phase(torch, errs)
     timings.update(_ring_timings(torch))
+    for shape, rows in _mla_ring_timings(torch).items():
+        for name, row in rows.items():
+            timings[name].setdefault("at_d192_dv128", {})[shape] = row
     _ring_model_check(torch)
 
     by_path, losses = {}, {}
@@ -2745,6 +3149,10 @@ def main(argv: list[str]) -> int:
     by_path["main path 13"], _ = _bench_path("main path 13", PHI3_YAML, linear_ce=False,
                                              overrides=phi3_args())
     by_path["main path 14"] = _phi3_train_ft_path("main path 14")
+    by_path["main path 15"], _ = _bench_path("main path 15", DSV3_PROXY_YAML, linear_ce=True)
+    by_path["main path 16"] = _moonlight_train_ft_path("main path 16")
+    by_path["main path 17"], _ = _bench_path("main path 17", DSV3_PROXY_YAML, linear_ce=True,
+                                             overrides=moonlight_ring_args())
 
     flash = "automodel_tpu/ops/pallas/flash_attention.py"
     lce_src = "automodel_tpu/ops/pallas/linear_ce.py"
@@ -2789,6 +3197,10 @@ def main(argv: list[str]) -> int:
                 for r in ("wgmma", "mma_sync")}
         if name in ("ring_dq", "ring_dkv"):  # a part of _chunk_bwd_kernel
             row["replaces_part"] = "dq" if name == "ring_dq" else "dk, dv"
+        if name.startswith("ring_"):  # the launches by (D, Dv)
+            row["launches_by_dims"] = {
+                dims: sum(counts.get(f"{name}/{dims}", 0) for counts in by_path.values())
+                for dims in ("d64v64", "d128v128", "d192v128")}
         if name.startswith("flash_"):  # the launches with a sliding window, by head dim
             row["launches_windowed"] = {p: counts.get(f"{name}/windowed", 0)
                                         for p, counts in by_path.items()}

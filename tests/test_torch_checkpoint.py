@@ -21,6 +21,7 @@ from automodel_tpu_torch.checkpoint.reshard import build_topology, mesh_delta, r
 from automodel_tpu_torch.config.cli_overrides import parse_args_and_load_config
 from automodel_tpu_torch.parallel.mesh import MeshContext
 from automodel_tpu_torch.recipes.llm import train_ft
+from tests.torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 
 def _state(seed):

@@ -21,6 +21,7 @@ from automodel_tpu_torch.models.common.backend import BackendConfig
 from automodel_tpu_torch.models.llama.model import LlamaForCausalLM
 from automodel_tpu_torch.ops.losses import masked_cross_entropy
 from automodel_tpu_torch.recipes.llm import benchmark, train_ft
+from tests.torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("hidden", [2048, 4096])
@@ -414,18 +415,19 @@ def test_ring_split_work_sums_to_a_fused_launch(step):
 
 
 def test_phase_order():
-    """The twice-launch phase runs first, the kernel cases next, then the main paths in
-    order, the deterministic ones (main paths 9 and 10 under the flag, in a child
-    process) before GPT-OSS's (main paths 11 and 12) and Phi-3's (13 and 14), then the
-    kernels line."""
+    """The twice-launch phase runs first, the kernel cases next (the ring's at (192, 128)
+    after its others), then the main paths in order, the deterministic ones (main paths 9
+    and 10 under the flag, in a child process) before GPT-OSS's (main paths 11 and 12),
+    Phi-3's (13 and 14) and the DeepSeek family's (15-17), then the kernels line."""
     src = inspect.getsource(chip_smoke.main)
     order = ["_twice_phase(", "_flash_phase(", "_timings(", "_window_timings(",
-             "_refused_on_the_card(", "_model_check(",
-             "_lce_case(", "_gmm_phase(", "_moe_model_check(", "_ring_phase(", "_ring_timings(",
-             "_ring_model_check(", '"main path 1"', '"main path 2"', '"main path 3"',
+             "_refused_on_the_card(", "_ring_refused_on_the_card(", "_model_check(",
+             "_lce_case(", "_gmm_phase(", "_moe_model_check(", "_ring_phase(",
+             "_mla_ring_phase(", "_ring_timings(", "_mla_ring_timings(", "_ring_model_check(", '"main path 1"', '"main path 2"', '"main path 3"',
              '"main path 4"', '"main path 5"', '"main path 6"', '"main path 7"',
              '"main path 8"', '"main path 9"', "_deterministic_paths()", '"main path 11"',
-             '"main path 12"', '"main path 13"', '"main path 14"', '{"kernels"']
+             '"main path 12"', '"main path 13"', '"main path 14"', '"main path 15"',
+             '"main path 16"', '"main path 17"', '{"kernels"']
     at = [re.search(r"(?<!\w)" + re.escape(x), src).start() for x in order]
     assert at == sorted(at)
     child = inspect.getsource(chip_smoke._deterministic_child)
@@ -449,8 +451,9 @@ def test_gpt_oss_config_runs_through_both_recipes(tmp_path):
     """Main paths 11 and 12 at small widths: the GPT-OSS proxy config with the published
     config's other settings (gpt_oss_args: layer_types cut to the depth, YaRN, biases,
     sinks, window 128) trains in the benchmark recipe and, packed, in train_ft. The runs
-    take 2 layers (one sliding, one full) and 8 of the 32 experts (top-4 still): the
-    experts' plain version loops over them."""
+    take 2 layers (one sliding, one full), 8 of the 32 experts (top-4 still: the experts'
+    plain version loops over them) and rows of 192 tokens (still longer than the window
+    of 128)."""
     cfg = parse_args_and_load_config(["-c", chip_smoke.GPT_OSS_YAML, *chip_smoke.gpt_oss_args(),
                                       *SMALL])
     model = cfg.model.config
@@ -462,12 +465,13 @@ def test_gpt_oss_config_runs_through_both_recipes(tmp_path):
     result = benchmark.main(argv=["-c", chip_smoke.GPT_OSS_YAML, *chip_smoke.gpt_oss_args(2),
                                   *SMALL, *experts, "--benchmark.warmup_steps", "1",
                                   "--benchmark.timed_steps", "1", "--micro_batch_size", "2",
+                                  "--dataset.seq_len", "192", "--seq_len", "192",
                                   "--output_dir", str(tmp_path / "bench")])
     assert len(result["losses"]) == 2 and all(map(math.isfinite, result["losses"]))
 
     cfg = parse_args_and_load_config([
         "-c", chip_smoke.GPT_OSS_YAML, *chip_smoke.gpt_oss_args(chip_smoke.GPT_OSS_LAYERS_TRAIN_FT),
-        *SMALL, *experts, "--packed_sequence.packed_sequence_size", "256",
+        *SMALL, *experts, "--packed_sequence.packed_sequence_size", "192",
         "--dataset.seq_len", "60", "--backend.attention_segments", "true",
         "--micro_batch_size", "2", "--step_scheduler.max_steps", "2",
         "--checkpoint.enabled", "false", "--output_dir", str(tmp_path / "ft")])
@@ -580,4 +584,96 @@ def test_phi3_config_runs_through_both_recipes(tmp_path):
             for n in ("self_attn.qkv_proj.weight", "mlp.gate_up_proj.weight")} <= names
     assert not any(n.endswith((".q_proj.weight", ".gate_proj.weight")) for n in names)
     reloaded = AutoModelForCausalLM.from_pretrained(step_hf, device="cpu").param_dict()
+    assert all(torch.equal(v, reloaded[k]) for k, v in recipe.params.items())
+
+
+def test_expected_launches_of_the_deepseek_paths():
+    """Main path 15: the proxy's 12 layers (1 dense), 7 steps of one microbatch, linear CE,
+    no flash (MLA's values are narrower than its keys); main path 16: 4 layers (1 dense),
+    4 steps of 2 microbatches; main path 17: 2 layers (1 dense), ring cp 4: ring_fwd
+    forward and replay a ring step, ring_dq + ring_dkv in ring_bwd's place, every launch
+    at (192, 128)."""
+    steps = chip_smoke.WARMUP + chip_smoke.TIMED
+    p15 = chip_smoke._expected(12, 1, steps, True, moe=True, dense_prefix=1, mla=True)
+    assert p15 == dict(dict.fromkeys(p15, 0), gmm=462, tgmm=154, lce_fwd=7, lce_bwd=7)
+    p16 = chip_smoke._expected(chip_smoke.MOONLIGHT_LAYERS, 2, chip_smoke.MOONLIGHT_STEPS, True,
+                               moe=True, dense_prefix=1, mla=True)
+    assert p16 == dict(dict.fromkeys(p16, 0), gmm=144, tgmm=48, lce_fwd=8, lce_bwd=8)
+    p17 = chip_smoke._expected(chip_smoke.MOONLIGHT_RING_LAYERS, 1, steps, True, moe=True,
+                               ring_cp=chip_smoke.MOONLIGHT_RING_CP, dense_prefix=1, mla=True)
+    assert p17 == dict(dict.fromkeys(p17, 0), gmm=42, tgmm=14, lce_fwd=7, lce_bwd=7,
+                       ring_fwd=112, ring_dq=56, ring_dkv=56)
+    assert chip_smoke._expected(4, 1, 7, True, ring_cp=8)["ring_bwd"] == 224  # Dv == D
+    model = chip_smoke.MOONLIGHT_16B_A3B
+    dims = {f"{k}/d192v128": p17[k] for k in ("ring_fwd", "ring_dq", "ring_dkv")}
+    chip_smoke._check_ring_dims("path", dict(p17, **dims), model)
+    with pytest.raises(AssertionError, match="D, Dv"):
+        chip_smoke._check_ring_dims("path", dict(p17, **dims, **{"ring_dq/d128v128": 1}), model)
+    assert chip_smoke._is_mla(model) and chip_smoke._dense_prefix(model) == 1
+
+
+SMALL_MLA = ["--model.config.hidden_size", "64", "--model.config.intermediate_size", "96",
+             "--model.config.moe_intermediate_size", "32", "--model.config.num_attention_heads",
+             "4", "--model.config.kv_lora_rank", "32", "--model.config.qk_nope_head_dim", "16",
+             "--model.config.qk_rope_head_dim", "8", "--model.config.v_head_dim", "16",
+             "--model.config.n_routed_experts", "8", "--model.config.vocab_size", "512",
+             "--dataset.vocab_size", "512", "--device", "cpu"]
+
+
+def test_deepseek_configs_run_through_both_recipes(tmp_path):
+    """Main paths 15-17 at small widths on the CPU: the DeepSeek-V3 proxy (its q_lora_rank
+    route, groups 4 / 2) in the benchmark recipe; Moonlight's published settings
+    (moonlight_ring_args: q_lora_rank null, one group) under the ring on cp 4; and
+    deepseek_v3_ep.yaml with moonlight_sft_args from a local HF directory in train_ft,
+    real routing with the gate-bias update on, 2 steps, a save at step 2 whose hf/ holds
+    the f32 correction bias and reloads bitwise."""
+    from automodel_tpu_torch.checkpoint.safetensors_io import load_safetensors
+    from automodel_tpu_torch.models.auto import AutoModelForCausalLM
+
+    bench = ["--benchmark.warmup_steps", "1", "--benchmark.timed_steps", "1"]
+    cfg = parse_args_and_load_config(["-c", chip_smoke.DSV3_PROXY_YAML])
+    assert chip_smoke._is_mla(cfg.model.config) and chip_smoke._is_moe(cfg)
+    assert cfg.model.config.q_lora_rank == 512 and cfg.backend.fake_balanced_gate
+    result = benchmark.main(argv=["-c", chip_smoke.DSV3_PROXY_YAML, *SMALL_MLA, *bench,
+                                  "--model.config.num_hidden_layers", "2", "--seq_len", "64",
+                                  "--dataset.seq_len", "64", "--micro_batch_size", "2",
+                                  "--output_dir", str(tmp_path / "p15")])
+    assert len(result["losses"]) == 2 and all(map(math.isfinite, result["losses"]))
+
+    args = chip_smoke.moonlight_ring_args()
+    cfg = parse_args_and_load_config(["-c", chip_smoke.DSV3_PROXY_YAML, *args])
+    assert cfg.model.config.q_lora_rank is None and cfg.model.config.n_group == 1
+    assert chip_smoke._ring_cp(cfg) == 4 and cfg.seq_len == 16384
+    result = benchmark.main(argv=["-c", chip_smoke.DSV3_PROXY_YAML, *args, *SMALL_MLA, *bench,
+                                  "--seq_len", "128", "--dataset.seq_len", "128",
+                                  "--output_dir", str(tmp_path / "p17")])
+    assert len(result["losses"]) == 2 and all(map(math.isfinite, result["losses"]))
+
+    small = dict(chip_smoke.MOONLIGHT_16B_A3B, hidden_size=64, intermediate_size=96,
+                 moe_intermediate_size=32, num_attention_heads=4, kv_lora_rank=32,
+                 qk_nope_head_dim=16, qk_rope_head_dim=8, v_head_dim=16, n_routed_experts=8,
+                 vocab_size=512, num_hidden_layers=2)
+    hf = chip_smoke.write_pretrained(str(tmp_path / "hf"), small, device="cpu")
+    ckpt = str(tmp_path / "ck")
+    cfg = parse_args_and_load_config([
+        "-c", chip_smoke.DSV3_EP_YAML, *chip_smoke.moonlight_sft_args(hf, ckpt),
+        "--dataset.vocab_size", "512", "--dataset.seq_len", "30", "--seq_len", "64",
+        "--packed_sequence.packed_sequence_size", "64", "--step_scheduler.max_steps", "2",
+        "--device", "cpu", "--output_dir", str(tmp_path / "p16")])
+    assert cfg.backend.dispatcher == "dense" and cfg.distributed.ep == 1
+    bias = "moe_layers.moe.gate.score_correction_bias"
+    recipe, losses, rows, _ = chip_smoke._recorded_train_ft(cfg)
+    assert type(recipe.model).__name__ == "DeepseekV3ForCausalLM"
+    assert recipe.moe.gate_bias_update_factor == 0.001 and recipe.loss_name == "masked_ce"
+    assert sorted(losses) == [1, 2] and all(map(math.isfinite, losses.values()))
+    moved = recipe.params[bias].detach()
+    assert moved.dtype == torch.float32 and bool((moved != 0).any())
+    assert torch.all((moved.abs() * 1000).round() <= 2)  # two steps of +-0.001 or 0
+    assert [r["step"] for r in rows if r.get("event") == "checkpoint_save"] == [2]
+    step_hf = os.path.join(ckpt, "step_2", "hf")
+    names = set(load_safetensors(step_hf))
+    assert "model.layers.1.mlp.gate.e_score_correction_bias" in names
+    assert "model.layers.0.self_attn.kv_a_proj_with_mqa.weight" in names
+    reloaded = AutoModelForCausalLM.from_pretrained(step_hf, dtype=torch.bfloat16,
+                                                    device="cpu").param_dict()
     assert all(torch.equal(v, reloaded[k]) for k, v in recipe.params.items())

@@ -24,6 +24,7 @@ from automodel_tpu_torch.loggers.metric_logger import MetricLogger
 from automodel_tpu_torch.optim.scheduler import build_lr_schedule
 from automodel_tpu_torch.training.step_scheduler import StepScheduler
 from automodel_tpu_torch.utils.flops import flops_per_token, mfu
+from tests.torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("pattern", ["random", "arith"])
@@ -82,8 +83,8 @@ def test_flops_and_mfu():
     assert flops_per_token(cfg, 2048) == jax_flops(cfg, 2048)
     assert mfu(500.0, 989e9, "NVIDIA H100 80GB HBM3") == pytest.approx(0.5)
     assert mfu(1000.0, 989e9, "cpu") is None
-    with pytest.raises(NotImplementedError):  # MLA is not ported yet (MoE is, below)
-        flops_per_token(dict(cfg, kv_lora_rank=512), 2048)
+    with pytest.raises(NotImplementedError):  # V3.2's sparse indexer is not ported yet
+        flops_per_token(dict(cfg, index_topk=2048), 2048)
 
 
 @pytest.mark.parametrize("moe", [

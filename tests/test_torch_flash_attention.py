@@ -24,6 +24,7 @@ import torch
 from automodel_tpu.ops.pallas import flash_attention as jfa
 from automodel_tpu_torch.kernels import build
 from automodel_tpu_torch.ops import flash_attention as tfa
+from tests.torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 ATOL_FWD, ATOL_GRAD = 2e-5, 1e-4
 

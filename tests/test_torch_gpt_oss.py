@@ -7,7 +7,8 @@ seed, and carried across with params_from_jax. Under "xla" (both sides' einsum p
 "flash" (the port's plain version on the CPU against JAX's Pallas kernel in interpret
 mode): logits, the aux loss and every parameter's gradient (sinks and biases included)
 agree to 1e-4 (absolute and relative, f32), and three steps of the train step (adamw,
-2 microbatches) give losses within 1e-4. Also: a full layer's window of None equals
+2 microbatches) at the first two layers, 4 experts and rows of 32 give losses within
+1e-4. Also: a full layer's window of None equals
 JAX's window longer than any distance; the HF adapter round trip (interleaved
 gate_up) through safetensors equals JAX's adapter; the ring guard (no ring for a layer
 with sinks or in a stack with sliding layers) in both packages; YaRN against JAX's
@@ -50,6 +51,7 @@ from automodel_tpu_torch.optim.scheduler import build_lr_schedule
 from automodel_tpu_torch.parallel.mesh import MeshContext
 from automodel_tpu_torch.training.train_step import make_train_step
 from automodel_tpu_torch.utils.flops import flops_per_token
+from tests.torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 YARN = {"rope_type": "yarn", "factor": 32.0, "beta_fast": 32.0, "beta_slow": 1.0,
         "truncate": False, "original_max_position_embeddings": 4096}
@@ -60,6 +62,9 @@ HF = dict(architectures=["GptOssForCausalLM"], vocab_size=128, hidden_size=64,
           max_position_embeddings=256, rope_theta=150000.0, rope_scaling=YARN,
           swiglu_limit=7.0, attention_bias=True, tie_word_embeddings=False,
           rms_norm_eps=1e-5, router_aux_loss_coef=0.9)
+# the three-step test's stack: the first sliding and the first full layer, 4 experts
+HF_TWO_LAYERS = dict(HF, num_hidden_layers=2, layer_types=HF["layer_types"][:2],
+                     num_local_experts=4)
 S = 64
 ATTENTION = {"xla": ("xla", "xla"), "flash": ("flash_interpret", "flash")}
 TOL = 1e-4
@@ -186,10 +191,10 @@ def test_logits_loss_and_grads_match_jax(attention):
                                    err_msg=n)
 
 
-def _train_batches(n_steps=3, grad_acc=2):
+def _train_batches(n_steps=3, grad_acc=2, s=S):
     out = []
     for step in range(n_steps):
-        micro = [_batch(seed=10 * step + m) for m in range(grad_acc)]
+        micro = [_batch(seed=10 * step + m, s=s) for m in range(grad_acc)]
         ids = np.stack([m[0] for m in micro])
         labels = np.where(np.stack([m[2] for m in micro]) != 0, np.roll(ids, -1, -1), -100)
         out.append({"input_ids": ids, "positions": np.stack([m[1] for m in micro]),
@@ -205,11 +210,13 @@ OPT = dict(optimizer="adamw", weight_decay=0.1, max_grad_norm=0.5, eps=1e-5)
 @pytest.mark.parametrize("attention", list(ATTENTION))
 def test_three_steps_match_jax(attention):
     """Three steps of the train step (cross entropy plus the aux loss, 2 microbatches,
-    adamw with clipping): the losses and gradient norms of both packages."""
-    params = _jax_params()
-    coef = HF["router_aux_loss_coef"]
-    batches = _train_batches()
-    jm = JaxGptOss.from_config(HF, JaxBackend(dtype="float32", remat_policy="full",
+    adamw with clipping): the losses and gradient norms of both packages, on the stack's
+    first two layers (one sliding, one full) with 4 experts (top-2), rows of 32."""
+    hf = HF_TWO_LAYERS
+    params = _jax_params(hf)
+    coef = hf["router_aux_loss_coef"]
+    batches = _train_batches(s=32)  # rows of 32: still longer than the window of 12
+    jm = JaxGptOss.from_config(hf, JaxBackend(dtype="float32", remat_policy="full",
                                               attention=ATTENTION[attention][0],
                                               experts_backend="ragged_dot",
                                               attention_segments=True))
@@ -228,7 +235,7 @@ def test_three_steps_match_jax(attention):
         jp, state, m = step(jp, state, {k: jnp.asarray(v) for k, v in batch.items()})
         jax_metrics.append({k: float(v) for k, v in m.items()})
 
-    tm = _port(HF, params, ATTENTION[attention][1], attention_segments=True)
+    tm = _port(hf, params, ATTENTION[attention][1], attention_segments=True)
     tparams = tm.param_dict()
 
     def forward_loss(batch, n):

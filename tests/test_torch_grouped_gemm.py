@@ -13,6 +13,7 @@ import torch
 
 from automodel_tpu.ops.pallas.grouped_gemm import grouped_matmul as jax_gmm
 from automodel_tpu_torch.ops import grouped_gemm as tgg
+from tests.torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 GROUPINGS = {
     "balanced": (8, 8, 8, 8),

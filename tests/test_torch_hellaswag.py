@@ -19,6 +19,7 @@ from automodel_tpu_torch.data.llm.hellaswag import HellaSwagDataset
 from automodel_tpu_torch.data.tokenize import tokenize_sft_example
 from automodel_tpu_torch.models.auto_tokenizer import AutoTokenizer
 from automodel_tpu_torch.recipes.llm import train_ft
+from tests.torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 WORDS = "a man is sitting on roof he starts pulling up shingles then walks away the woman".split()
 

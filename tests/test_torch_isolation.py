@@ -91,4 +91,6 @@ def test_every_module_is_walked():
     assert "automodel_tpu_torch.ops.flash_attention" in names
     assert "automodel_tpu_torch.recipes.llm.benchmark" in names
     assert {"automodel_tpu_torch.models.phi3.model",
-            "automodel_tpu_torch.models.phi3.state_dict_adapter"} <= set(names)
+            "automodel_tpu_torch.models.phi3.state_dict_adapter",
+            "automodel_tpu_torch.models.deepseek_v3.model",
+            "automodel_tpu_torch.models.deepseek_v3.state_dict_adapter"} <= set(names)

@@ -18,6 +18,7 @@ import torch
 from automodel_tpu.ops import losses as jloss
 from automodel_tpu.ops.pallas import linear_ce as jlce
 from automodel_tpu_torch.ops import linear_ce as tlce, losses as tloss
+from tests.torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 N, E, V = 48, 128, 512
 TOL_Z, TOL_GRAD = 1e-5, 1e-4

@@ -24,6 +24,7 @@ from automodel_tpu_torch.models.common.backend import REMAT_POLICIES, BackendCon
 from automodel_tpu_torch.ops import flash_attention as tfa
 from automodel_tpu_torch.models.llama.convert import params_from_jax
 from automodel_tpu_torch.models.llama.model import LlamaConfig, LlamaForCausalLM
+from tests.torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 HF = dict(architectures=["LlamaForCausalLM"], vocab_size=128, hidden_size=64,
           intermediate_size=128, num_hidden_layers=2, num_attention_heads=4,

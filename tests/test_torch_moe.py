@@ -24,6 +24,7 @@ from automodel_tpu.moe.metrics import compute_load_balance_metrics as jax_metric
 from automodel_tpu_torch.moe import experts, gate, layers
 from automodel_tpu_torch.moe.config import MoEConfig
 from automodel_tpu_torch.moe.metrics import compute_load_balance_metrics
+from tests.torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 ATOL, ATOL_GRAD = 1e-5, 1e-4
 BASE = dict(n_routed_experts=8, n_activated_experts=2, dim=32, moe_inter_dim=16)

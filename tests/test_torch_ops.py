@@ -9,6 +9,7 @@ import torch
 
 from automodel_tpu.ops import attention as jatt, losses as jloss, norms as jnorm, rope as jrope
 from automodel_tpu_torch.ops import attention as tatt, losses as tloss, norms as tnorm, rope as trope
+from tests.torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 RNG = np.random.RandomState(0)
 ATOL = 1e-5

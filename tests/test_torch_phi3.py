@@ -42,6 +42,7 @@ from automodel_tpu_torch.optim.builder import build_optimizer
 from automodel_tpu_torch.optim.scheduler import build_lr_schedule
 from automodel_tpu_torch.training.train_step import make_train_step
 from automodel_tpu_torch.utils.flops import flops_per_token
+from tests.torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 TOL = 1e-4
 BASE = dict(vocab_size=128, hidden_size=64, intermediate_size=128, num_hidden_layers=2,

@@ -22,6 +22,7 @@ from automodel_tpu_torch.data.loader import DataLoader
 from automodel_tpu_torch.data.prefetch import (DevicePrefetcher, HostPrefetcher, InputPipeline,
                                                PrefetchConfig)
 from automodel_tpu_torch.training.step_scheduler import StepScheduler
+from tests.torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 
 def _dataset(n=32, width=4):

@@ -30,6 +30,7 @@ from automodel_tpu_torch.models.registry import resolve_model_class
 from automodel_tpu_torch.moe import experts as texperts
 from automodel_tpu_torch.ops.grouped_gemm import grouped_matmul_reference
 from tests.test_torch_llama import MatmulCounter, jax_matmul_counts
+from tests.torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 HF = dict(architectures=["Qwen3MoeForCausalLM"], vocab_size=128, hidden_size=64,
           intermediate_size=96, moe_intermediate_size=32, num_hidden_layers=2,

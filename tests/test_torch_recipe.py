@@ -20,6 +20,7 @@ from automodel_tpu.recipes.llm.train_ft import (
 from automodel_tpu_torch.config.cli_overrides import parse_args_and_load_config
 from automodel_tpu_torch.models.llama.convert import params_from_jax
 from automodel_tpu_torch.recipes.llm import benchmark, train_ft
+from tests.torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 EXAMPLES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "examples",
                         "llm_finetune")
@@ -364,17 +365,18 @@ MOE_YAML = YAML.replace("""    architectures: [LlamaForCausalLM]
     hidden_size: 64
     intermediate_size: 96
     moe_intermediate_size: 32
-    num_hidden_layers: 2
+    num_hidden_layers: 1
     num_attention_heads: 4
     num_key_value_heads: 2
     head_dim: 16
-    num_experts: 8
+    num_experts: 4
     num_experts_per_tok: 2
     norm_topk_prob: true
     router_aux_loss_coef: 0.01""").replace("""  remat_policy: mlp_attn_dots
   attention_segments: false""", """  remat_policy: mlp_dots
   attention_segments: false
-  experts_backend: pallas""").replace("""  optimizer: adafactor_nomom""", """  optimizer: adamw_lowmem""")
+  experts_backend: pallas""").replace("""  optimizer: adafactor_nomom""", """  optimizer: adamw_lowmem""").replace(
+    "seq_len: 32", "seq_len: 16")
 
 
 @pytest.fixture
@@ -391,9 +393,9 @@ def _moe_rows(path):
 
 
 def test_moe_train_ft_matches_jax(moe_cfg_path, tmp_path):
-    """A tiny Qwen3-MoE (8 experts, top-2, aux loss 0.01, adamw_lowmem, the pallas
-    experts backend) through both train_ft recipes: the same 3-step losses (f32, 1e-4)
-    with the aux-loss term, and the same moe_load/* rows."""
+    """A tiny Qwen3-MoE (1 layer, 4 experts, top-2, aux loss 0.01, adamw_lowmem, the
+    pallas experts backend, rows of 16) through both train_ft recipes: the same 3-step
+    losses (f32, 1e-4) with the aux-loss term, and the same moe_load/* rows."""
     jax_recipe, params = _jax_recipe(JaxTrainFt, moe_cfg_path, tmp_path / "jax")
     jax_recipe.run_train_validation_loop()
     port = _port_recipe(train_ft.TrainFinetuneRecipeForNextTokenPrediction, moe_cfg_path,

@@ -39,6 +39,7 @@ from automodel_tpu_torch.models.llama.model import LlamaForCausalLM
 from automodel_tpu_torch.parallel import ring_attention as ra
 from automodel_tpu_torch.parallel.mesh import MeshContext
 from automodel_tpu_torch.recipes.llm import benchmark
+from tests.torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ATOL_OUT, ATOL_GRAD = 2e-5, 5e-5

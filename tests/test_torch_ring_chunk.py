@@ -3,7 +3,8 @@
 On the CPU the port's wrappers run the kernels' plain version; the JAX side runs
 ``ops/pallas/ring_chunk.py`` in interpret mode with 16x16 blocks, its positions,
 segments and (m, l, lse, delta) broadcast over the TPU's lanes / sublanes as its ring
-passes them. Inputs come from numpy seeds; f32 throughout, atol 2e-5. The deterministic
+passes them (blocks of 8 where S = 40). Inputs come from numpy seeds; f32 throughout, atol
+2e-5, with v narrower than q and k (MLA's Dv < D) in three cases. The deterministic
 route's plain versions (chunk_attention_dq_reference, chunk_attention_dkv_reference) are
 held against _chunk_bwd_kernel at the same tolerance, and the route the backward takes
 under torch.use_deterministic_algorithms is read from the calls it makes. The CUDA
@@ -21,6 +22,7 @@ from automodel_tpu.ops.pallas import ring_chunk as jrc
 from automodel_tpu.ops.pallas.flash_attention import _kv_sublanes, _q_lanes
 from automodel_tpu_torch.kernels import build
 from automodel_tpu_torch.ops import ring_chunk as trc
+from tests.torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 ATOL = 2e-5
 NEG_INF = -1e30
@@ -30,6 +32,9 @@ CASES = {
     "gqa_segments": dict(b=2, s=32, h=8, kh=2, d=16, dv=16, segments=True),
     "window": dict(b=1, s=32, h=4, kh=2, d=16, dv=16, window=12),
     "mla_dv": dict(b=1, s=32, h=4, kh=2, d=24, dv=16),
+    "mla_dv_segments": dict(b=2, s=32, h=8, kh=2, d=24, dv=16, segments=True),
+    # S = 40: the JAX kernel takes blocks of 8 here; the kernels' 128-row tiles run past S
+    "mla_dv_ragged": dict(b=1, s=40, h=4, kh=4, d=24, dv=16, block=8),
 }
 
 
@@ -62,23 +67,23 @@ def _kw(case):
                 groups=case["h"] // case["kh"], n_heads=case["h"])
 
 
-def _jax_fwd(q, k, v, pq, pkv, sq, skv, acc, m, l, kw):
+def _jax_fwd(q, k, v, pq, pkv, sq, skv, acc, m, l, kw, block=16):
     lanes = lambda x: None if x is None else _q_lanes(jnp.asarray(x))  # noqa: E731
     sub = lambda x: None if x is None else _kv_sublanes(jnp.asarray(x))  # noqa: E731
     out = jrc.chunk_attention_fwd(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), lanes(pq), sub(pkv), lanes(sq), sub(skv),
         jnp.asarray(acc), _q_lanes(jnp.asarray(m)), _q_lanes(jnp.asarray(l)),
-        block_q=16, block_k=16, interpret=True, **kw)
+        block_q=block, block_k=block, interpret=True, **kw)
     return np.asarray(out[0]), np.asarray(out[1][..., 0]), np.asarray(out[2][..., 0])
 
 
-def _jax_bwd(q, k, v, pq, pkv, sq, skv, do, lse, delta, kw):
+def _jax_bwd(q, k, v, pq, pkv, sq, skv, do, lse, delta, kw, block=16):
     lanes = lambda x: None if x is None else _q_lanes(jnp.asarray(x))  # noqa: E731
     sub = lambda x: None if x is None else _kv_sublanes(jnp.asarray(x))  # noqa: E731
     dq, dk, dv = jrc.chunk_attention_bwd(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), lanes(pq), sub(pkv), lanes(sq), sub(skv),
         jnp.asarray(do), _q_lanes(jnp.asarray(lse)), _q_lanes(jnp.asarray(delta)),
-        block_q=16, block_k=16, interpret=True, **kw)
+        block_q=block, block_k=block, interpret=True, **kw)
     g = kw["groups"]
 
     def group_sum(x):  # per-q-head rows -> kv rows, as the JAX ring's _gqa_sum
@@ -105,7 +110,8 @@ def test_two_ring_steps_match_jax(name):
     t_acc, t_m, t_l = _t(acc), _t(m), _t(l)
     before = dict(trc.LAUNCHES)
     for i in range(2):
-        acc, m, l = _jax_fwd(q, ks[i], vs[i], pos_q, pos[i], seg_q, seg[i], acc, m, l, kw)
+        acc, m, l = _jax_fwd(q, ks[i], vs[i], pos_q, pos[i], seg_q, seg[i], acc, m, l, kw,
+                             case.get("block", 16))
         out = trc.chunk_attention_fwd(_t(q), _t(ks[i]), _t(vs[i]), _t(pos_q), _t(pos[i]),
                                       _t(seg_q), _t(seg[i]), t_acc, t_m, t_l, **kw)
         assert out[0] is t_acc and out[1] is t_m and out[2] is t_l  # updated in place
@@ -119,7 +125,8 @@ def test_two_ring_steps_match_jax(name):
     delta = np.random.RandomState(3).randn(bn, s).astype(np.float32)
     dq = torch.zeros(bn, s, case["d"])
     for i in range(2):
-        want = _jax_bwd(q, ks[i], vs[i], pos_q, pos[i], seg_q, seg[i], do, lse, delta, kw)
+        want = _jax_bwd(q, ks[i], vs[i], pos_q, pos[i], seg_q, seg[i], do, lse, delta, kw,
+                        case.get("block", 16))
         dq_i = torch.zeros_like(dq)
         dk, dv_ = torch.zeros(ks[i].shape), torch.zeros(vs[i].shape)
         trc.chunk_attention_bwd(_t(q), _t(ks[i]), _t(vs[i]), _t(pos_q), _t(pos[i]), _t(seg_q),
@@ -353,7 +360,8 @@ def test_split_plain_versions_match_chunk_bwd_kernel(name):
     lse = (rng.randn(bn, s) + 4).astype(np.float32)
     delta = rng.randn(bn, s).astype(np.float32)
     for i in range(2):
-        want = _jax_bwd(q, ks[i], vs[i], pos_q, pos[i], seg_q, seg[i], do, lse, delta, kw)
+        want = _jax_bwd(q, ks[i], vs[i], pos_q, pos[i], seg_q, seg[i], do, lse, delta, kw,
+                        case.get("block", 16))
         args = (_t(q), _t(ks[i]), _t(vs[i]), _t(pos_q), _t(pos[i]), _t(seg_q), _t(seg[i]),
                 _t(do), _t(lse), _t(delta))
         got = (trc.chunk_attention_dq_reference(*args, **kw),
@@ -430,3 +438,81 @@ def test_ring_dkv_and_ring_dq_launch_their_own_entry_points(monkeypatch):
         "ring_fwd": 0, "ring_bwd": 0, "ring_dkv": 1, "ring_dq": 1}
     for name, a in calls:
         assert len(a) + 1 == len(build.SOURCES["ring_chunk.cu"][name])
+
+
+@pytest.mark.parametrize("dims, ok", [((64, 64), True), ((128, 128), True), ((192, 128), True),
+                                      ((96, 64), False), ((192, 192), False), ((96, 96), False)])
+def test_head_dim_pairs_the_kernels_take(dims, ok):
+    """The kernel route's check (``_check_cuda`` calls it after the device and dtype
+    checks): the three instantiated (D, Dv) pairs pass, any other raises
+    NotImplementedError, so nothing falls back to the plain version."""
+    if ok:
+        trc.check_head_dims(*dims)
+    else:
+        with pytest.raises(NotImplementedError, match="take \\(D, Dv\\)"):
+            trc.check_head_dims(*dims)
+
+
+def test_dv_below_d_takes_the_split_backward(monkeypatch, deterministic):
+    """At Dv != D the backward runs ring_dq + ring_dkv whatever the deterministic flag
+    says (the fused ring_bwd is Dv == D only, and refuses (192, 128) itself); on the CPU
+    the split plain versions, with the fused plain version's sums."""
+    case = CASES["mla_dv_segments"]
+    q, ks, vs, do, pos_q, pos, seg_q, seg = _inputs(5, **case)
+    kw = _kw(case)
+    bn, s = q.shape[:2]
+    lse, delta = torch.randn(bn, s) + 4, torch.randn(bn, s)
+    args = (_t(q), _t(ks[0]), _t(vs[0]), _t(pos_q), _t(pos[0]), _t(seg_q), _t(seg[0]), _t(do),
+            lse, delta)
+    want = trc.chunk_attention_bwd_reference(*args, **kw)
+    deterministic(False)
+    plain = []
+    for fn in ("chunk_attention_bwd_reference", "chunk_attention_dq_reference",
+               "chunk_attention_dkv_reference"):
+        real = getattr(trc, fn)
+        monkeypatch.setattr(trc, fn, lambda *a, _f=fn, _r=real, **k: plain.append(_f) or _r(*a, **k))
+    out = [torch.zeros(bn, s, case["d"]), torch.zeros(ks[0].shape), torch.zeros(vs[0].shape)]
+    trc.chunk_attention_bwd(*args, *out, **kw)
+    assert plain == ["chunk_attention_dq_reference", "chunk_attention_dkv_reference"]
+    for got, w in zip(out, want):
+        torch.testing.assert_close(got, w, atol=1e-6, rtol=0)
+
+    launched = []
+    monkeypatch.setattr(trc, "_check_cuda", lambda *a, **k: None)
+    for fn in ("ring_bwd", "ring_dq", "ring_dkv"):
+        monkeypatch.setattr(trc, fn, lambda *a, _f=fn, **k: launched.append(_f))
+    trc.chunk_attention_bwd(*[x.to("meta") for x in (*args, *out)], **kw)
+    assert launched == ["ring_dq", "ring_dkv"]
+    monkeypatch.undo()
+    with pytest.raises(NotImplementedError, match="ring_bwd takes Dv == D"):
+        trc.ring_bwd(*[x.to("meta") for x in (*args, *out)], **kw)
+
+
+def test_launches_are_counted_by_head_dims(monkeypatch):
+    """The wrappers pass Dv beside D to the C entry points and count each launch under
+    its kernel and under "kernel/d{D}v{Dv}"; the backward's q tile is 32 rows at Dv != D."""
+    calls = []
+    monkeypatch.setattr(build, "launch", lambda source, name, device, *args: calls.append(
+        (name, args)))
+    b, s, h, d, dv = 1, 64, 4, 192, 128
+    q, k = torch.zeros(b * h, s, d), torch.zeros(b * h, s, d)
+    v, do = torch.zeros(b * h, s, dv), torch.zeros(b * h, s, dv)
+    pos, rows = torch.zeros(b, s, dtype=torch.int32), torch.zeros(b * h, s)
+    kw = dict(scale=0.1, causal=True, window=None, groups=1, n_heads=h)
+    before, dims_before = dict(trc.LAUNCHES), dict(trc.DIM_LAUNCHES)
+    trc.ring_fwd(q, k, v, pos, pos, None, None, torch.zeros(b * h, s, dv), rows, rows, **kw)
+    trc.ring_dq(q, k, v, pos, pos, None, None, do, rows, rows, torch.zeros(q.shape), **kw)
+    trc.ring_dkv(q, k, v, pos, pos, None, None, do, rows, rows, torch.zeros(k.shape),
+                 torch.zeros(v.shape), **kw)
+    for name, args in calls:
+        argtypes = build.SOURCES["ring_chunk.cu"][name]
+        d_at = [i for i, t in enumerate(argtypes) if t is build._F][0] - 2  # D, Dv, scale
+        assert (args[d_at], args[d_at + 1]) == (d, dv), name
+    assert {n: trc.LAUNCHES[n] - before[n] for n in before} == {
+        "ring_fwd": 1, "ring_bwd": 0, "ring_dkv": 1, "ring_dq": 1}
+    assert {n: trc.DIM_LAUNCHES[n] - dims_before.get(n, 0) for n in trc.DIM_LAUNCHES
+            if trc.DIM_LAUNCHES[n] != dims_before.get(n, 0)} == {
+        "ring_fwd/d192v128": 1, "ring_dq/d192v128": 1, "ring_dkv/d192v128": 1}
+    assert "ring_bwd/d192v128" not in trc.DIM_LAUNCHES
+    assert (trc.bwd_block_q(64, 64), trc.bwd_block_q(128, 128), trc.bwd_block_q(192, 128)) == (
+        64, 64, 32)

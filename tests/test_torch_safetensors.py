@@ -19,6 +19,7 @@ from automodel_tpu.checkpoint.safetensors_io import save_safetensors as jax_save
 from automodel_tpu_torch.checkpoint.safetensors_io import (INDEX_NAME, load_safetensors,
                                                            save_safetensors)
 from automodel_tpu_torch.models.common.state_dict import LazyHFTensor
+from tests.torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 
 def _tensors(seed=0) -> dict[str, torch.Tensor]:

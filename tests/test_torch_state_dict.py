@@ -27,6 +27,7 @@ from automodel_tpu_torch.models.auto import AutoModelForCausalLM
 from automodel_tpu_torch.models.common.backend import BackendConfig
 from automodel_tpu_torch.models.common.state_dict import Entry, FusedTensorMixin, MappingAdapter
 from automodel_tpu_torch.models.llama.convert import flatten, params_from_jax, to_torch
+from tests.torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 LLAMA = dict(architectures=["LlamaForCausalLM"], vocab_size=128, hidden_size=64,
              intermediate_size=128, num_hidden_layers=2, num_attention_heads=4,

@@ -31,6 +31,7 @@ from automodel_tpu_torch.ops.losses import masked_cross_entropy
 from automodel_tpu_torch.optim.builder import build_optimizer, global_norm
 from automodel_tpu_torch.optim.scheduler import build_lr_schedule
 from automodel_tpu_torch.training.train_step import make_train_step
+from tests.torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 HF = dict(architectures=["LlamaForCausalLM"], vocab_size=256, hidden_size=128,
           intermediate_size=256, num_hidden_layers=2, num_attention_heads=4,

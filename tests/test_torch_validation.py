@@ -18,6 +18,7 @@ from automodel_tpu.recipes.llm.train_ft import (
 from automodel_tpu_torch.config.cli_overrides import parse_args_and_load_config
 from automodel_tpu_torch.models.llama.convert import params_from_jax
 from automodel_tpu_torch.recipes.llm import train_ft
+from tests.torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 YAML = """
 seed: 5
