@@ -62,6 +62,28 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
+// The tanh logit soft-cap (Gemma-2), for the kernels instantiated with it. A raw score s
+// (Q K^T, unscaled) becomes th = tanh(s scale / c), computed as 1 - 2 / (2^(s pre2) + 1)
+// with pre2 = 2 scale log2(e) / c; the capped logit c th is c tanh(s scale / c), its log2
+// units th * l2 with l2 = c log2(e), and d(c th) / d(s scale) = 1 - th^2. The cap is
+// applied to a tile before its mask (a masked score stays -inf; tanh(-inf) c would be
+// -c, a weight exp(-c - m) on a masked key). Not tanh.approx.f32: its relative error,
+// ~2^-11, is up to 0.025 in a logit at c = 50, past the forward's lse check of 1e-3;
+// ex2.approx and the fast divide keep th within ~1e-7 (a few 1e-6 in the logit). Both
+// factors come from the host, so they are kernel parameters and take no register.
+struct SoftCap {
+  float pre2, l2;
+  __device__ __forceinline__ float tanh_of(float s) const {
+    return 1.f - __fdividef(2.f, fast_exp2(s * pre2) + 1.f);  // 2^inf: th = 1; 2^-inf: -1
+  }
+};
+
+// 1 - th^2 of a capped score th, 0 for a masked one (-inf; its P is 0 too, and 0 * inf
+// would be NaN).
+__device__ __forceinline__ float soft_cap_jac(float th) {
+  return fmaxf(fmaf(-th, th, 1.f), 0.f);
+}
+
 // A consumer warp is done with a stage: one arrival a warp (an mbarrier arrival is an
 // atomic on one shared word, so 256 of them a tile would serialise).
 __device__ __forceinline__ void release(uint64_t* bar, int lane) {
@@ -110,18 +132,21 @@ struct DqTiles {
 // its empty barrier takes one arrival a consumer warp). For each tile:
 //   S = Q K^T over D and dP = dO V^T over DV (shared-memory wgmmas, 64 q rows x 64 keys),
 //   mask(it, s) sets the scores of disallowed pairs to -inf (the kernel's mask policy),
-//   dS = P o (dP - delta) with P = 2^(S scale log2(e) - lse log2(e)),
+//   dS = P o (dP - delta) with P = 2^(S scale log2(e) - lse log2(e)) (SOFTCAP: S is
+//   capped before the mask, P = 2^(th l2 - lse log2(e)) and dS takes the factor 1 - th^2;
+//   the ring instantiates it without),
 //   dQ += dS K (dS from registers as bf16, K through the transpose flag),
 // so dQ sums in f32 registers over the key tiles in the order they were walked: the
 // same order on every run. The dQ product of tile it - 1 runs on the tensor cores while
 // tile it's dS is computed; tile 0 is peeled off so that every wgmma sits in one block
 // with its wait (else ptxas serialises the kernel's wgmmas). lse2: lse * log2(e) of
 // this thread's two rows; acc comes back unscaled (dQ / scale).
-template <class C, class MaskFn>
+template <class C, bool SOFTCAP = false, class MaskFn>
 __device__ __forceinline__ void dq_walk(float (&acc)[C::DIM / 2], int n, unsigned char* smem,
                                         int cw, uint64_t* full, uint64_t* empty,
                                         const float (&lse2)[2], const float (&delta)[2],
-                                        float scale_log2, int lane, MaskFn mask) {
+                                        float scale_log2, int lane, MaskFn mask,
+                                        SoftCap cap = {}) {
   constexpr int D = C::DIM, DV = C::DIM_V, BN = C::BN;
   const uint32_t q_addr = smem_u32(smem) + cw * 64 * ROW_BYTES;
   const uint32_t do_addr = smem_u32(smem + C::DO_OFF) + cw * 64 * ROW_BYTES;
@@ -151,11 +176,18 @@ __device__ __forceinline__ void dq_walk(float (&acc)[C::DIM / 2], int n, unsigne
   };
   // dS in place of s (register r: row (r >> 1) & 1 of the thread's two)
   auto ds_step = [&](int it) {
+    if constexpr (SOFTCAP) {
+#pragma unroll
+      for (int r = 0; r < BN / 2; ++r) s[r] = cap.tanh_of(s[r]);
+    }
     mask(it, s);
 #pragma unroll
     for (int r = 0; r < BN / 2; ++r) {
       const int i = (r >> 1) & 1;
-      s[r] = fast_exp2(fmaf(s[r], scale_log2, -lse2[i])) * (dp[r] - delta[i]);
+      if constexpr (SOFTCAP)
+        s[r] = fast_exp2(fmaf(s[r], cap.l2, -lse2[i])) * (dp[r] - delta[i]) * soft_cap_jac(s[r]);
+      else
+        s[r] = fast_exp2(fmaf(s[r], scale_log2, -lse2[i])) * (dp[r] - delta[i]);
     }
   };
   // dS rounded to bf16 as the A operand: registers 8kk..8kk+7 are keys 16kk..16kk+15

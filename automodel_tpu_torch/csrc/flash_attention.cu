@@ -2,7 +2,8 @@
 //
 // Replaces the Pallas kernels of automodel_tpu/ops/pallas/flash_attention.py:
 //   flash_fwd  <- _fwd_kernel (online-softmax forward, emits O and the logsumexp;
-//                 sliding window and per-head sink logits as the TPU kernel has them)
+//                 sliding window, per-head sink logits and the tanh logit soft-cap as
+//                 the TPU kernel has them)
 //   flash_dq   <- _dq_kernel (q-stationary dQ: a block walks the key tiles in order
 //                 and sums dQ in registers, so dQ is the same on every run)
 //   flash_dkv  <- _dkv_kernel (kv-stationary dK, dV; their GQA group sum is in
@@ -70,6 +71,13 @@
 // which the epilogues leave unstored. So the D=128 design runs unchanged (its stages,
 // shared memory and register budget), at 128/96 of the tensor-core work the head needs:
 // at most ~75% of a 96-wide bound. The softmax scale is the caller's (1/sqrt(96)).
+// The tanh logit soft-cap (Gemma-2, _soft_cap / _soft_cap_jac) is a template flag,
+// SOFTCAP, so the uncapped instantiations keep their code. Capped, each score tile is
+// mapped to th = tanh(s scale / c) before its mask (attention_tiles.cuh SoftCap), the
+// softmax runs on th * c, and the backward's dS takes 1 - th^2. It costs two more MUFU
+// operations a score (ex2 and the fast divide's reciprocal) beside the exp2 each kernel
+// has (at D=128 one MUFU operation a score takes about half as long as the score's share
+// of the forward's products at the card's peak rates; PERF.md has the times).
 // What it leaves on the table: the two consumer warpgroups are not scheduled in turns
 // (ping-pong), so their softmax and their wgmmas overlap only by chance; in the
 // backward each step waits for its own products (at D=128 the registers hold dK and dV,
@@ -169,13 +177,17 @@ __device__ __forceinline__ void fence_pa(uint32_t (&pa)[C::BN / 16][4]) {
 }
 
 // grid (ceil(Sq / 128), B * H), 384 threads; block x takes q tile gridDim.x - 1 - x.
-template <int D>
+// SOFTCAP: each score is capped (SoftCap) before the mask, and the softmax runs over the
+// capped logits, whose log2 is th * cap.l2 (the scale is inside th); without it, cap is
+// unused and the code is the uncapped kernel's.
+template <int D, bool SOFTCAP>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                  const __grid_constant__ CUtensorMap tv, const int* __restrict__ seg_q,
                  const int* __restrict__ seg_kv, const float* __restrict__ sinks,
                  bf16* __restrict__ o, float* __restrict__ lse, int Sq, int Skv, int H, int KH,
-                 int dim, float scale_log2, int causal, int has_window, int window) {
+                 int dim, float scale_log2, SoftCap cap, int causal, int has_window,
+                 int window) {
   using C = Fwd<D>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
@@ -295,22 +307,28 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
     }
     wgmma_commit();
   };
-  // mask, scale and exponentiate s in place (log2 domain); returns O's rescale factors
+  // the log2 factor of a score in s: the scale, or (capped) the cap's l2
+  const float mul = SOFTCAP ? cap.l2 : scale_log2;
+  // (cap,) mask, scale and exponentiate s in place (log2 domain); returns O's rescale factors
   auto softmax = [&](int it, float (&alpha)[2]) {
     const int stage = it % C::STAGES;
     const int kv_start = (first + it) * C::BN;
     const int* ids = sSeg + stage * C::SEG_STRIDE;
+    if constexpr (SOFTCAP) {
+#pragma unroll
+      for (int r = 0; r < C::BN / 2; ++r) s[r] = cap.tanh_of(s[r]);
+    }
     if (tile_needs_mask(q0, 64, kv_start, C::BN, Sq, Skv, causal, has_window, window, segmented,
                         q_id, segmented ? ids[C::BN] : NO_ID))
       mask_tile<false>(s, row, kv_start, tc, Sq, Skv, causal, has_window, window, segmented, segr,
                        ids);
-    float mx[2] = {-INFINITY, -INFINITY};  // of the unscaled scores (the scale is > 0)
+    float mx[2] = {-INFINITY, -INFINITY};  // of the unscaled scores (mul is > 0)
 #pragma unroll
     for (int r = 0; r < C::BN / 2; ++r) mx[(r >> 1) & 1] = fmaxf(mx[(r >> 1) & 1], s[r]);
     float m_use[2];
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      const float m_new = fmaxf(m[i], quad_max(mx[i]) * scale_log2);
+      const float m_new = fmaxf(m[i], quad_max(mx[i]) * mul);
       m_use[i] = m_new == -INFINITY ? 0.f : m_new;  // a row with nothing allowed yet
       alpha[i] = fast_exp2(m[i] - m_use[i]);
       m[i] = m_new;
@@ -318,7 +336,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
     float rs[2] = {0.f, 0.f};
 #pragma unroll
     for (int r = 0; r < C::BN / 2; ++r) {
-      s[r] = fast_exp2(fmaf(s[r], scale_log2, -m_use[(r >> 1) & 1]));
+      s[r] = fast_exp2(fmaf(s[r], mul, -m_use[(r >> 1) & 1]));
       rs[(r >> 1) & 1] += s[r];
     }
 #pragma unroll
@@ -435,15 +453,16 @@ struct Bwd {
 // loops over the q heads of its GQA group and the q tiles from the causal start to the
 // window's end (q_end), and
 // owns its dK/dV rows (consumer warpgroup w: keys w*64 .. w*64+63), so the group sum
-// needs no second pass. dQ is flash_dq_kernel's.
-template <int D>
+// needs no second pass. dQ is flash_dq_kernel's. SOFTCAP: P^T from the capped scores, and
+// dS^T takes 1 - th^2; dK's store keeps its * scale (d(c th) / d(qk) = scale (1 - th^2)).
+template <int D, bool SOFTCAP>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                  const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
                  const int* __restrict__ seg_q, const int* __restrict__ seg_kv,
                  const float* __restrict__ lse, const float* __restrict__ delta,
                  bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq, int Skv, int H, int KH,
-                 int dim, float scale, int causal, int has_window, int window) {
+                 int dim, float scale, SoftCap cap, int causal, int has_window, int window) {
   using C = Bwd<D>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
@@ -542,7 +561,7 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
                   __reduce_max_sync(0xffffffffu, max(a, c)));
   }
 
-  const float scale_log2 = scale * LOG2E;
+  const float mul = SOFTCAP ? cap.l2 : scale * LOG2E;  // the log2 factor of a score in s
   const uint32_t k_addr = smem_u32(smem + C::K_OFF), v_addr = smem_u32(smem + C::V_OFF);
   float dk_acc[D / 2], dv_acc[D / 2];
 #pragma unroll
@@ -581,6 +600,11 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
     fence_regs(dp);
 
     // P^T = exp(S^T * scale - lse), dS^T = P^T * (dP^T - delta): bf16 A fragments of both
+    // (SOFTCAP: S^T capped before the mask, P^T = exp(c th - lse), dS^T times 1 - th^2)
+    if constexpr (SOFTCAP) {
+#pragma unroll
+      for (int r = 0; r < C::BM / 2; ++r) s[r] = cap.tanh_of(s[r]);
+    }
     int q_id = NO_ID;  // the q tile's one segment id
     if (segmented) {
       const int a = ids[lane], c = ids[lane + 32];
@@ -602,8 +626,9 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
       for (int e = 0; e < 8; ++e) {
         const int qc = 16 * kk + 8 * (e >> 2) + tc + (e & 1);  // q column within the tile
         const int r = 8 * kk + e;                              // accumulator register
-        p[e] = fast_exp2(fmaf(s[r], scale_log2, -rows[qc] * LOG2E));
+        p[e] = fast_exp2(fmaf(s[r], mul, -rows[qc] * LOG2E));
         ds[e] = p[e] * (dp[r] - rows[C::BM + qc]);
+        if constexpr (SOFTCAP) ds[e] *= soft_cap_jac(s[r]);
       }
 #pragma unroll
       for (int f = 0; f < 4; ++f) {
@@ -669,15 +694,15 @@ static_assert(Dq<128>::SMEM <= 232448 && Dq<64>::SMEM <= 232448, "flash_dq share
 // its keys' segment ids; the consumers
 // run dq_walk with flash's masks (tile_needs_mask, mask_tile) and store dQ * scale in
 // q's dtype once. Every dQ element is one block's in-order sum: nothing is added across
-// blocks, so dQ is the same on every run.
-template <int D>
+// blocks, so dQ is the same on every run. SOFTCAP: dq_walk's capped instantiation.
+template <int D, bool SOFTCAP>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
                 const int* __restrict__ seg_q, const int* __restrict__ seg_kv,
                 const float* __restrict__ lse, const float* __restrict__ delta,
                 bf16* __restrict__ dq, int Sq, int Skv, int H, int KH, int dim, float scale,
-                int causal, int has_window, int window) {
+                SoftCap cap, int causal, int has_window, int window) {
   using C = Dq<D>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
@@ -783,7 +808,7 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
 
   float acc[D / 2];
   mbar_wait(q_full, 0);
-  dq_walk<C>(acc, n_tiles, smem, cw, full, empty, lse2, dl, scale * LOG2E, lane,
+  dq_walk<C, SOFTCAP>(acc, n_tiles, smem, cw, full, empty, lse2, dl, scale * LOG2E, lane,
              [&](int it, float (&s)[C::BN / 2]) {
                const int kv_start = (first + it) * C::BN;
                const int* ids = sSeg + (it % C::STAGES) * C::SEG_STRIDE;
@@ -791,7 +816,8 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
                                    segmented, q_id, segmented ? ids[C::BN] : NO_ID))
                  mask_tile<false>(s, row, kv_start, tc, Sq, Skv, causal, has_window, window,
                                   segmented, segr, ids);
-             });
+             },
+             cap);
 
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -814,34 +840,34 @@ inline cudaError_t bf16_map(CUtensorMap* map, const void* p, int B, int S, int h
 }
 
 // D: the tile width the kernel is built for (64 or 128); dim: the tensors' head dim (D, or
-// 96 in the 128-wide tiles).
-template <int D>
+// 96 in the 128-wide tiles); SOFTCAP: the capped instantiation, cap its factors.
+template <int D, bool SOFTCAP>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, const int* seg_q,
                        const int* seg_kv, const float* sinks, void* o, float* lse, int B, int Sq,
-                       int Skv, int H, int KH, int dim, float scale, int causal, int has_window,
-                       int window, cudaStream_t stream) {
+                       int Skv, int H, int KH, int dim, float scale, SoftCap cap, int causal,
+                       int has_window, int window, cudaStream_t stream) {
   using C = Fwd<D>;
   CUtensorMap tq, tk, tv;
   cudaError_t err = bf16_map(&tq, q, B, Sq, H, dim, C::BM);
   if (err == cudaSuccess) err = bf16_map(&tk, k, B, Skv, KH, dim, C::BN);
   if (err == cudaSuccess) err = bf16_map(&tv, v, B, Skv, KH, dim, C::BN);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               C::SMEM);
+    err = cudaFuncSetAttribute(flash_fwd_kernel<D, SOFTCAP>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (err != cudaSuccess) return err;
   dim3 grid((Sq + C::BM - 1) / C::BM, B * H);
-  flash_fwd_kernel<D><<<grid, THREADS, C::SMEM, stream>>>(
+  flash_fwd_kernel<D, SOFTCAP><<<grid, THREADS, C::SMEM, stream>>>(
       tq, tk, tv, seg_q, seg_kv, sinks, static_cast<bf16*>(o), lse, Sq, Skv, H, KH, dim,
-      scale * LOG2E, causal, has_window, window);
+      scale * LOG2E, cap, causal, has_window, window);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool SOFTCAP>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v, const int* seg_q,
                        const int* seg_kv, const void* dout, const float* lse,
                        const float* delta, void* dk, void* dv, int B, int Sq, int Skv, int H,
-                       int KH, int dim, float scale, int causal, int has_window, int window,
-                       cudaStream_t stream) {
+                       int KH, int dim, float scale, SoftCap cap, int causal, int has_window,
+                       int window, cudaStream_t stream) {
   using C = Bwd<D>;
   CUtensorMap tq, tk, tv, tdo;
   cudaError_t err = bf16_map(&tq, q, B, Sq, H, dim, C::BM);
@@ -849,21 +875,21 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const int* s
   if (err == cudaSuccess) err = bf16_map(&tk, k, B, Skv, KH, dim, C::BN);
   if (err == cudaSuccess) err = bf16_map(&tv, v, B, Skv, KH, dim, C::BN);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(flash_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               C::SMEM);
+    err = cudaFuncSetAttribute(flash_dkv_kernel<D, SOFTCAP>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (err != cudaSuccess) return err;
   dim3 grid((Skv + C::BN - 1) / C::BN, B * KH);
-  flash_dkv_kernel<D><<<grid, THREADS, C::SMEM, stream>>>(
+  flash_dkv_kernel<D, SOFTCAP><<<grid, THREADS, C::SMEM, stream>>>(
       tq, tk, tv, tdo, seg_q, seg_kv, lse, delta, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), Sq, Skv, H, KH, dim, scale, causal, has_window, window);
+      static_cast<bf16*>(dv), Sq, Skv, H, KH, dim, scale, cap, causal, has_window, window);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool SOFTCAP>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const int* seg_q,
                       const int* seg_kv, const void* dout, const float* lse, const float* delta,
                       void* dq, int B, int Sq, int Skv, int H, int KH, int dim, float scale,
-                      int causal, int has_window, int window, cudaStream_t stream) {
+                      SoftCap cap, int causal, int has_window, int window, cudaStream_t stream) {
   using C = Dq<D>;
   CUtensorMap tq, tk, tv, tdo;
   cudaError_t err = bf16_map(&tq, q, B, Sq, H, dim, C::BM);
@@ -871,14 +897,13 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const int* se
   if (err == cudaSuccess) err = bf16_map(&tk, k, B, Skv, KH, dim, C::BN);
   if (err == cudaSuccess) err = bf16_map(&tv, v, B, Skv, KH, dim, C::BN);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(flash_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               C::SMEM);
+    err = cudaFuncSetAttribute(flash_dq_kernel<D, SOFTCAP>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (err != cudaSuccess) return err;
   dim3 grid((Sq + C::BM - 1) / C::BM, B * H);
-  flash_dq_kernel<D><<<grid, THREADS, C::SMEM, stream>>>(tq, tk, tv, tdo, seg_q, seg_kv, lse,
-                                                         delta, static_cast<bf16*>(dq), Sq, Skv,
-                                                         H, KH, dim, scale, causal, has_window,
-                                                         window);
+  flash_dq_kernel<D, SOFTCAP><<<grid, THREADS, C::SMEM, stream>>>(
+      tq, tk, tv, tdo, seg_q, seg_kv, lse, delta, static_cast<bf16*>(dq), Sq, Skv, H, KH, dim,
+      scale, cap, causal, has_window, window);
   return cudaGetLastError();
 }
 
@@ -886,58 +911,68 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const int* se
 // head dim the kernels do not take.
 inline int tile_width(int dim) { return dim == 64 ? 64 : dim == 96 || dim == 128 ? 128 : 0; }
 
+// The cap's two factors (SoftCap) for softmax scale `scale` and cap c = softcap > 0.
+inline SoftCap soft_cap(float scale, float softcap) {
+  return softcap > 0.f ? SoftCap{2.f * scale * LOG2E / softcap, softcap * LOG2E}
+                       : SoftCap{0.f, 0.f};
+}
+
+// One of a kernel's four instantiations (tile width 64 or 128, capped or not), called as
+// LAUNCH(D, SOFTCAP); an unknown head dim is cudaErrorInvalidValue.
+#define FLASH_DISPATCH(dim, softcap, LAUNCH)                                     \
+  switch (tile_width(dim) + ((softcap) > 0.f)) {                                  \
+    case 64: return (int)LAUNCH(64, false);                                       \
+    case 65: return (int)LAUNCH(64, true);                                        \
+    case 128: return (int)LAUNCH(128, false);                                     \
+    case 129: return (int)LAUNCH(128, true);                                      \
+  }                                                                               \
+  return (int)cudaErrorInvalidValue
+
 }  // namespace
 
 // Plain C entry points (bound with ctypes). Each returns a cudaError_t; the caller
 // checks inputs (bf16, contiguous, 16-byte aligned, D in {64, 96, 128}, H % KH == 0)
 // beforehand. D is the head dim; the softmax scale comes as given (1/sqrt(96) at D = 96,
 // never the tile's). flash_dq writes dq (bf16, q's layout) whole, each row once.
+// softcap: the tanh logit cap c (0: none; > 0 runs the capped instantiations);
 // has_window = 0 ignores window; sinks: null, or f32 (H,).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, const int* seg_q,
                          const int* seg_kv, const float* sinks, void* o, float* lse, int B,
-                         int Sq, int Skv, int H, int KH, int D, float scale, int causal,
-                         int has_window, int window, void* stream) {
+                         int Sq, int Skv, int H, int KH, int D, float scale, float softcap,
+                         int causal, int has_window, int window, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (tile_width(D)) {
-    case 64:
-      return (int)launch_fwd<64>(q, k, v, seg_q, seg_kv, sinks, o, lse, B, Sq, Skv, H, KH, D,
-                                 scale, causal, has_window, window, s);
-    case 128:
-      return (int)launch_fwd<128>(q, k, v, seg_q, seg_kv, sinks, o, lse, B, Sq, Skv, H, KH, D,
-                                  scale, causal, has_window, window, s);
-  }
-  return (int)cudaErrorInvalidValue;
+  const SoftCap cap = soft_cap(scale, softcap);
+#define LAUNCH(W, CAP)                                                                    \
+  launch_fwd<W, CAP>(q, k, v, seg_q, seg_kv, sinks, o, lse, B, Sq, Skv, H, KH, D, scale, cap, \
+                     causal, has_window, window, s)
+  FLASH_DISPATCH(D, softcap, LAUNCH);
+#undef LAUNCH
 }
 
 extern "C" int flash_dq(const void* q, const void* k, const void* v, const int* seg_q,
                         const int* seg_kv, const void* dout, const float* lse,
                         const float* delta, void* dq, int B, int Sq, int Skv, int H, int KH,
-                        int D, float scale, int causal, int has_window, int window, void* stream) {
+                        int D, float scale, float softcap, int causal, int has_window,
+                        int window, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (tile_width(D)) {
-    case 64:
-      return (int)launch_dq<64>(q, k, v, seg_q, seg_kv, dout, lse, delta, dq, B, Sq, Skv, H, KH,
-                                D, scale, causal, has_window, window, s);
-    case 128:
-      return (int)launch_dq<128>(q, k, v, seg_q, seg_kv, dout, lse, delta, dq, B, Sq, Skv, H,
-                                 KH, D, scale, causal, has_window, window, s);
-  }
-  return (int)cudaErrorInvalidValue;
+  const SoftCap cap = soft_cap(scale, softcap);
+#define LAUNCH(W, CAP)                                                                       \
+  launch_dq<W, CAP>(q, k, v, seg_q, seg_kv, dout, lse, delta, dq, B, Sq, Skv, H, KH, D, scale, \
+                    cap, causal, has_window, window, s)
+  FLASH_DISPATCH(D, softcap, LAUNCH);
+#undef LAUNCH
 }
 
 extern "C" int flash_dkv(const void* q, const void* k, const void* v, const int* seg_q,
                          const int* seg_kv, const void* dout, const float* lse,
                          const float* delta, void* dk, void* dv, int B, int Sq, int Skv, int H,
-                         int KH, int D, float scale, int causal, int has_window, int window,
-                         void* stream) {
+                         int KH, int D, float scale, float softcap, int causal, int has_window,
+                         int window, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (tile_width(D)) {
-    case 64:
-      return (int)launch_dkv<64>(q, k, v, seg_q, seg_kv, dout, lse, delta, dk, dv, B, Sq, Skv,
-                                 H, KH, D, scale, causal, has_window, window, s);
-    case 128:
-      return (int)launch_dkv<128>(q, k, v, seg_q, seg_kv, dout, lse, delta, dk, dv, B, Sq, Skv,
-                                  H, KH, D, scale, causal, has_window, window, s);
-  }
-  return (int)cudaErrorInvalidValue;
+  const SoftCap cap = soft_cap(scale, softcap);
+#define LAUNCH(W, CAP)                                                                      \
+  launch_dkv<W, CAP>(q, k, v, seg_q, seg_kv, dout, lse, delta, dk, dv, B, Sq, Skv, H, KH, D, \
+                     scale, cap, causal, has_window, window, s)
+  FLASH_DISPATCH(D, softcap, LAUNCH);
+#undef LAUNCH
 }

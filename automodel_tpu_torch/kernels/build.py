@@ -29,12 +29,12 @@ _F = ctypes.c_float
 # source name -> {C function: argtypes}; every function returns a cudaError_t
 SOURCES: dict[str, dict[str, list]] = {
     "flash_attention.cu": {
-        "flash_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I,
-                      _P],
-        "flash_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I,
-                     _P],
+        "flash_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I,
+                      _I, _P],
+        "flash_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I,
+                     _I, _P],
         "flash_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                      _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P],
+                      _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _I, _P],
     },
     "linear_ce.cu": {
         "lce_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],

@@ -19,6 +19,9 @@ MODEL_REGISTRY: dict[str, str] = {
     "Phi3ForCausalLM": "automodel_tpu_torch.models.phi3.model:Phi3ForCausalLM",
     "Qwen3MoeForCausalLM": "automodel_tpu_torch.models.qwen3_moe.model:Qwen3MoeForCausalLM",
     "GptOssForCausalLM": "automodel_tpu_torch.models.gpt_oss.model:GptOssForCausalLM",
+    # Gemma 2 / 3 (a multimodal Gemma-3 checkpoint loads its text backbone)
+    **{arch: "automodel_tpu_torch.models.gemma.model:GemmaForCausalLM" for arch in (
+        "Gemma2ForCausalLM", "Gemma3ForCausalLM", "Gemma3ForConditionalGeneration")},
     # MLA + noaux-tc MoE: V3, V2 (softmax routing), Kimi-K2 and GLM-4-MoE-Lite, whose
     # config.json files describe the same parameters
     **{arch: _DEEPSEEK for arch in ("DeepseekV3ForCausalLM", "DeepseekV2ForCausalLM",

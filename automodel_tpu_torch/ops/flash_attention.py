@@ -14,19 +14,21 @@ are the same on every run; their plain versions are :func:`flash_dq_reference` a
 The kernels take causal and non-causal masks, GQA, segment ids, a sliding window
 (tiles wholly behind it are never loaded), per-head sink logits (folded into the
 forward's softmax denominator, so lse holds them and the backward kernels take none; the
-sinks' gradient is a reduction over lse and delta, :func:`sink_grad`), bf16, head_dim 64,
-96 (Phi-3: the 128-wide kernels, whose tensor maps read the columns past 96 as zeros)
-and 128. Logit soft-cap exists only in the plain version and raises on CUDA, as do
-other head dims.
+sinks' gradient is a reduction over lse and delta, :func:`sink_grad`), the tanh logit
+soft-cap (Gemma-2: ``c tanh(s scale / c)`` before the mask, in instantiations of their
+own), bf16, head_dim 64, 96 (Phi-3: the 128-wide kernels, whose tensor maps read the
+columns past 96 as zeros) and 128. Other head dims raise on CUDA (256, Gemma-2-9B's and
+Gemma-3's, is queued: ROADMAP.md Queue 2).
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["HEAD_DIM_LAUNCHES", "LAUNCHES", "WINDOWED_LAUNCHES", "flash_attention",
-           "flash_attention_cuda", "flash_attention_reference", "flash_backward", "flash_dkv",
-           "flash_dkv_reference", "flash_dq", "flash_dq_reference", "flash_fwd", "sink_grad"]
+__all__ = ["HEAD_DIM_LAUNCHES", "LAUNCHES", "SOFTCAP_LAUNCHES", "WINDOWED_LAUNCHES",
+           "flash_attention", "flash_attention_cuda", "flash_attention_reference",
+           "flash_backward", "flash_dkv", "flash_dkv_reference", "flash_dq",
+           "flash_dq_reference", "flash_fwd", "sink_grad"]
 
 NEG_INF = -1e30
 _SOURCE = "flash_attention.cu"
@@ -37,6 +39,8 @@ LAUNCHES = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
 WINDOWED_LAUNCHES = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
 # the launches of LAUNCHES by head dim ("flash_fwd/d96", ...)
 HEAD_DIM_LAUNCHES = {f"{name}/d{d}": 0 for name in LAUNCHES for d in _HEAD_DIMS}
+# the launches of LAUNCHES that carried a logit soft-cap
+SOFTCAP_LAUNCHES = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
 
 
 def _mask(sq, skv, causal, seg_q, seg_kv, sliding_window, device):
@@ -116,10 +120,12 @@ def flash_attention_reference(
 
 
 def _split_backward(q, k, v, do, lse, delta, want_dq, want_dkv, *, causal, segment_ids_q,
-                    segment_ids_kv, softmax_scale, sliding_window):
+                    segment_ids_kv, softmax_scale, sliding_window, logit_soft_cap):
     """The split backward's plain arithmetic in f32, from lse and delta as the kernels
     take them: P = exp(S scale - lse), dS = P (dP - delta); dQ = dS K scale and, summed
-    over each GQA group, dK = dS^T Q scale, dV = P^T dO."""
+    over each GQA group, dK = dS^T Q scale, dV = P^T dO. With a soft-cap c, S scale is
+    capped first (c tanh(S scale / c)) and dS takes the factor 1 - (capped / c)^2, as
+    JAX's ``_soft_cap_jac``."""
     b, sq, h, d = q.shape
     _, skv, kh, _ = k.shape
     scale = d**-0.5 if softmax_scale is None else softmax_scale
@@ -129,12 +135,16 @@ def _split_backward(q, k, v, do, lse, delta, want_dq, want_dkv, *, causal, segme
     vf = v.float().permute(0, 2, 1, 3).repeat_interleave(groups, dim=1)
     dof = do.float().permute(0, 2, 1, 3)
     s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    if logit_soft_cap is not None:
+        s = torch.tanh(s / logit_soft_cap) * logit_soft_cap
     seg_q, seg_kv = _segments(segment_ids_q, segment_ids_kv)
     allowed = _mask(sq, skv, causal, seg_q, seg_kv, sliding_window, q.device)
     p = torch.exp(s - lse.float().reshape(b, h, sq, 1))
     if allowed is not None:
         p = torch.where(allowed, p, torch.zeros((), device=p.device))
     ds = p * (torch.matmul(dof, vf.transpose(-1, -2)) - delta.float().reshape(b, h, sq, 1))
+    if logit_soft_cap is not None:
+        ds = ds * (1.0 - (s / logit_soft_cap) ** 2)
     out = []
     if want_dq:
         out.append((torch.matmul(ds, kf) * scale).permute(0, 2, 1, 3).to(q.dtype))
@@ -147,22 +157,26 @@ def _split_backward(q, k, v, do, lse, delta, want_dq, want_dkv, *, causal, segme
 
 
 def flash_dq_reference(q, k, v, do, lse, delta, *, causal=True, segment_ids_q=None,
-                       segment_ids_kv=None, softmax_scale=None, sliding_window=None):
+                       segment_ids_kv=None, softmax_scale=None, sliding_window=None,
+                       logit_soft_cap=None):
     """``flash_dq``'s plain version: dQ in q's dtype from ``lse`` and ``delta`` ((B*H, Sq)
     f32, delta = rowsum(dO * O); with sinks, lse already holds them). For the CPU and the
     tests only."""
     return _split_backward(q, k, v, do, lse, delta, True, False, causal=causal,
                            segment_ids_q=segment_ids_q, segment_ids_kv=segment_ids_kv,
-                           softmax_scale=softmax_scale, sliding_window=sliding_window)[0]
+                           softmax_scale=softmax_scale, sliding_window=sliding_window,
+                           logit_soft_cap=logit_soft_cap)[0]
 
 
 def flash_dkv_reference(q, k, v, do, lse, delta, *, causal=True, segment_ids_q=None,
-                        segment_ids_kv=None, softmax_scale=None, sliding_window=None):
+                        segment_ids_kv=None, softmax_scale=None, sliding_window=None,
+                        logit_soft_cap=None):
     """``flash_dkv``'s plain version: ``(dk, dv)`` in k's and v's dtypes, summed over each
     GQA group, from ``lse`` and ``delta``. For the CPU and the tests only."""
     return _split_backward(q, k, v, do, lse, delta, False, True, causal=causal,
                            segment_ids_q=segment_ids_q, segment_ids_kv=segment_ids_kv,
-                           softmax_scale=softmax_scale, sliding_window=sliding_window)
+                           softmax_scale=softmax_scale, sliding_window=sliding_window,
+                           logit_soft_cap=logit_soft_cap)
 
 
 def sink_grad(sinks, lse, delta):
@@ -175,6 +189,10 @@ def sink_grad(sinks, lse, delta):
 
 
 def _check_cuda(q, k, v, seg_q, seg_kv, sinks=None):
+    if q.ndim == 4 and q.shape[3] not in _HEAD_DIMS:  # refused by name, on any device
+        raise NotImplementedError(f"flash_attention kernels take head_dim in {_HEAD_DIMS}, "
+                                  f"got {q.shape[3]} (256, Gemma-2-9B's and Gemma-3's, is "
+                                  "queued: ROADMAP.md Queue 2)")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda":
             raise ValueError(f"flash_attention: {name} is on {t.device}, q on cuda")
@@ -185,9 +203,6 @@ def _check_cuda(q, k, v, seg_q, seg_kv, sinks=None):
     if q.ndim != 4 or k.shape != v.shape or k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3]:
         raise ValueError(f"flash_attention: bad shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)}")
-    if q.shape[3] not in _HEAD_DIMS:
-        raise NotImplementedError(f"flash_attention kernels take head_dim in {_HEAD_DIMS}, "
-                                  f"got {q.shape[3]}")
     if q.shape[2] % k.shape[2]:
         raise ValueError(f"q heads {q.shape[2]} not a multiple of kv heads {k.shape[2]}")
     if seg_q is not None:
@@ -208,16 +223,18 @@ def _window(window):
     return (0, 0) if window is None else (1, window)
 
 
-def _count(name, window, head_dim):
+def _count(name, window, head_dim, softcap):
     LAUNCHES[name] += 1
     HEAD_DIM_LAUNCHES[f"{name}/d{head_dim}"] += 1
     if window is not None:
         WINDOWED_LAUNCHES[name] += 1
+    if softcap:
+        SOFTCAP_LAUNCHES[name] += 1
 
 
-def flash_fwd(q, k, v, seg_q, seg_kv, scale, causal, window=None, sinks=None):
+def flash_fwd(q, k, v, seg_q, seg_kv, scale, causal, window=None, sinks=None, softcap=0.0):
     """Launch the forward kernel on checked inputs (``sinks``: None or f32 (H,),
-    contiguous): ``(o, lse)``."""
+    contiguous; ``softcap``: the logit cap c, 0 for none): ``(o, lse)``."""
     from automodel_tpu_torch.kernels.build import launch
 
     b, sq, h, d = q.shape
@@ -226,8 +243,8 @@ def flash_fwd(q, k, v, seg_q, seg_kv, scale, causal, window=None, sinks=None):
     lse = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
     launch(_SOURCE, "flash_fwd", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
            _ptr(seg_q), _ptr(seg_kv), _ptr(sinks), o.data_ptr(), lse.data_ptr(), b, sq, skv,
-           h, kh, d, float(scale), int(causal), *_window(window))
-    _count("flash_fwd", window, d)
+           h, kh, d, float(scale), float(softcap), int(causal), *_window(window))
+    _count("flash_fwd", window, d, softcap)
     return o, lse
 
 
@@ -238,7 +255,7 @@ def _delta(o, do):
     return prod.sum(-1).transpose(1, 2).reshape(b * h, sq).contiguous()
 
 
-def flash_dq(q, k, v, seg_q, seg_kv, do, lse, delta, scale, causal, window=None):
+def flash_dq(q, k, v, seg_q, seg_kv, do, lse, delta, scale, causal, window=None, softcap=0.0):
     """Launch the q-stationary dQ kernel on checked inputs (``do`` contiguous, ``delta``
     from :func:`_delta`): dQ in q's dtype, summed in the same order on every run."""
     from automodel_tpu_torch.kernels.build import launch
@@ -247,13 +264,14 @@ def flash_dq(q, k, v, seg_q, seg_kv, do, lse, delta, scale, causal, window=None)
     dq = torch.empty_like(q)
     launch(_SOURCE, "flash_dq", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
            _ptr(seg_q), _ptr(seg_kv), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-           dq.data_ptr(), b, sq, k.shape[1], h, k.shape[2], d, float(scale), int(causal),
-           *_window(window))
-    _count("flash_dq", window, d)
+           dq.data_ptr(), b, sq, k.shape[1], h, k.shape[2], d, float(scale), float(softcap),
+           int(causal), *_window(window))
+    _count("flash_dq", window, d, softcap)
     return dq
 
 
-def flash_dkv(q, k, v, seg_q, seg_kv, do, lse, delta, scale, causal, window=None):
+def flash_dkv(q, k, v, seg_q, seg_kv, do, lse, delta, scale, causal, window=None,
+              softcap=0.0):
     """Launch the backward kernel without dQ on checked inputs: ``(dk, dv)``."""
     from automodel_tpu_torch.kernels.build import launch
 
@@ -263,34 +281,36 @@ def flash_dkv(q, k, v, seg_q, seg_kv, do, lse, delta, scale, causal, window=None
     launch(_SOURCE, "flash_dkv", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
            _ptr(seg_q), _ptr(seg_kv), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
            dk.data_ptr(), dv.data_ptr(), b, sq, k.shape[1], h, k.shape[2], d, float(scale),
-           int(causal), *_window(window))
-    _count("flash_dkv", window, d)
+           float(softcap), int(causal), *_window(window))
+    _count("flash_dkv", window, d, softcap)
     return dk, dv
 
 
-def flash_backward(q, k, v, seg_q, seg_kv, o, lse, do, scale, causal, window=None):
+def flash_backward(q, k, v, seg_q, seg_kv, o, lse, do, scale, causal, window=None,
+                   softcap=0.0):
     """``(dq, dk, dv)`` from ``flash_dq`` and ``flash_dkv``, after delta = rowsum(dO * O).
     With sinks, lse holds them: the kernels take the same inputs."""
-    dq, dk, dv, _ = _backward(q, k, v, seg_q, seg_kv, o, lse, do, scale, causal, window)
+    dq, dk, dv, _ = _backward(q, k, v, seg_q, seg_kv, o, lse, do, scale, causal, window,
+                              softcap)
     return dq, dk, dv
 
 
-def _backward(q, k, v, seg_q, seg_kv, o, lse, do, scale, causal, window):
+def _backward(q, k, v, seg_q, seg_kv, o, lse, do, scale, causal, window, softcap):
     do = do.contiguous()
     delta = _delta(o, do)
-    dq = flash_dq(q, k, v, seg_q, seg_kv, do, lse, delta, scale, causal, window)
-    dk, dv = flash_dkv(q, k, v, seg_q, seg_kv, do, lse, delta, scale, causal, window)
+    dq = flash_dq(q, k, v, seg_q, seg_kv, do, lse, delta, scale, causal, window, softcap)
+    dk, dv = flash_dkv(q, k, v, seg_q, seg_kv, do, lse, delta, scale, causal, window, softcap)
     return dq, dk, dv, delta
 
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, seg_q, seg_kv, sinks, scale, causal, window):
+    def forward(ctx, q, k, v, seg_q, seg_kv, sinks, scale, causal, window, softcap):
         sinks_f = None if sinks is None else sinks.float().contiguous()
-        o, lse = flash_fwd(q, k, v, seg_q, seg_kv, scale, causal, window, sinks_f)
+        o, lse = flash_fwd(q, k, v, seg_q, seg_kv, scale, causal, window, sinks_f, softcap)
         ctx.save_for_backward(q, k, v, seg_q, seg_kv, sinks, o, lse)
         ctx.mark_non_differentiable(lse)
-        ctx.scale, ctx.causal, ctx.window = scale, causal, window
+        ctx.scale, ctx.causal, ctx.window, ctx.softcap = scale, causal, window, softcap
         return o, lse
 
     @staticmethod
@@ -298,17 +318,19 @@ class _FlashAttention(torch.autograd.Function):
         del dlse  # lse is a residual for the backward, not a differentiated output
         q, k, v, seg_q, seg_kv, sinks, o, lse = ctx.saved_tensors
         dq, dk, dv, delta = _backward(q, k, v, seg_q, seg_kv, o, lse, do, ctx.scale, ctx.causal,
-                                      ctx.window)
+                                      ctx.window, ctx.softcap)
         dsinks = None
         if sinks is not None and ctx.needs_input_grad[5]:
             dsinks = sink_grad(sinks, lse, delta)
-        return dq, dk, dv, None, None, dsinks, None, None, None
+        return dq, dk, dv, None, None, dsinks, None, None, None, None
 
 
 def flash_attention_cuda(q, k, v, *, causal=True, segment_ids_q=None, segment_ids_kv=None,
-                         softmax_scale=None, sliding_window=None, sinks=None):
+                         softmax_scale=None, sliding_window=None, logit_soft_cap=None,
+                         sinks=None):
     """``(o, lse)`` from the kernels; inputs are checked first, nothing falls back.
-    ``sinks`` (H,) is differentiable; its gradient is :func:`sink_grad`."""
+    ``sinks`` (H,) is differentiable; its gradient is :func:`sink_grad`.
+    ``logit_soft_cap`` (c > 0, or None) runs the capped instantiations."""
     seg_q, seg_kv = _segments(segment_ids_q, segment_ids_kv)
     _check_cuda(q, k, v, seg_q, seg_kv, sinks)
     if seg_q is not None:
@@ -319,8 +341,11 @@ def flash_attention_cuda(q, k, v, *, causal=True, segment_ids_q=None, segment_id
     if window is not None and not 0 <= window < 2**31:
         raise ValueError(f"flash_attention: sliding_window {window} is outside the kernels' "
                          "int32 range")
+    softcap = 0.0 if logit_soft_cap is None else float(logit_soft_cap)
+    if logit_soft_cap is not None and not softcap > 0.0:
+        raise ValueError(f"flash_attention: logit_soft_cap must be > 0, got {logit_soft_cap}")
     o, lse = _FlashAttention.apply(q, k, v, seg_q, seg_kv, sinks, float(scale), bool(causal),
-                                   window)
+                                   window, softcap)
     return o, lse
 
 
@@ -344,10 +369,8 @@ def flash_attention(
             segment_ids_kv=segment_ids_kv, softmax_scale=softmax_scale,
             sliding_window=sliding_window, logit_soft_cap=logit_soft_cap, sinks=sinks)
         return o
-    if logit_soft_cap is not None:
-        raise NotImplementedError("the flash kernels take no logit soft-cap yet (ROADMAP.md "
-                                  "Queue 2: it comes with the Gemma family)")
     o, _ = flash_attention_cuda(q, k, v, causal=causal, segment_ids_q=segment_ids_q,
                                 segment_ids_kv=segment_ids_kv, softmax_scale=softmax_scale,
-                                sliding_window=sliding_window, sinks=sinks)
+                                sliding_window=sliding_window, logit_soft_cap=logit_soft_cap,
+                                sinks=sinks)
     return o

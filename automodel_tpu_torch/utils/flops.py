@@ -1,5 +1,7 @@
 """Analytic training FLOPs and MFU (counterpart of ``automodel_tpu/utils/flops.py``,
-GQA and MLA decoders with a dense or MoE MLP).
+GQA and MLA decoders with a dense or MoE MLP, and a multimodal wrapper's text model with
+one image through its vision tower, as JAX counts a ``text_config`` / ``vision_config``
+pair: Gemma3ForConditionalGeneration).
 
 Train FLOPs = 3 x forward. The attention score term counts the full S x S product,
 as the JAX package counts it, on sliding-window layers too (``layer_types``: each
@@ -16,7 +18,7 @@ from __future__ import annotations
 
 from typing import Any
 
-__all__ = ["PEAK_TFLOPS", "flops_per_token", "mfu", "peak_tflops"]
+__all__ = ["PEAK_TFLOPS", "flops_per_token", "mfu", "peak_tflops", "vision_tower_flops"]
 
 # dense bf16 peak per card, NVIDIA's data sheets (SXM parts, no sparsity)
 PEAK_TFLOPS: dict[str, float] = {"h100": 989.0, "h200": 989.0}
@@ -24,8 +26,11 @@ PEAK_TFLOPS: dict[str, float] = {"h100": 989.0, "h200": 989.0}
 
 def flops_per_token(cfg: Any, seq_len: int, training: bool = True) -> float:
     """FLOPs per token of a decoder given as an HF-config-like dict or object."""
-    get = cfg.get if isinstance(cfg, dict) else (lambda k, d=None: getattr(cfg, k, d))
-    for key in ("index_topk", "hybrid_override_pattern", "vision_config", "text_config"):
+    get = _getter(cfg)
+    vision, text = get("vision_config"), get("text_config")
+    if text is not None:
+        get = _getter(text)
+    for key in ("index_topk", "hybrid_override_pattern"):
         if get(key):
             raise NotImplementedError(f"flops_per_token: {key} configs are not ported yet")
     other = [t for t in get("layer_types") or () if "linear" in str(t) or "mamba" in str(t)]
@@ -45,7 +50,27 @@ def flops_per_token(cfg: Any, seq_len: int, training: bool = True) -> float:
     else:
         mlp_total = L * 3 * 2 * d * inter
     fwd = L * attn + mlp_total + 2 * d * v
+    if vision is not None:  # one image a sequence, amortised over its tokens
+        fwd += vision_tower_flops(vision) / float(seq_len)
     return 3.0 * fwd if training else fwd
+
+
+def _getter(cfg: Any):
+    return cfg.get if isinstance(cfg, dict) else (lambda k, d=None: getattr(cfg, k, d))
+
+
+def vision_tower_flops(cfg: Any) -> float:
+    """Forward FLOPs of one image through a ViT tower (an HF ``vision_config``), JAX's
+    count: the patch embedding as a matmul, then per layer full attention and an
+    ungated two-matmul MLP over the patches and one class token."""
+    get = _getter(cfg)
+    d, inter, layers = get("hidden_size"), get("intermediate_size"), get("num_hidden_layers")
+    patch = get("patch_size", 14) or 14
+    num_patches = ((get("image_size", 336) or 336) // patch) ** 2
+    n_pos = num_patches + 1
+    patch_embed = num_patches * 2 * (3 * patch * patch) * d
+    per_token = 2 * d * 3 * d + 2 * d * d + 2 * 2 * n_pos * d + 2 * 2 * d * inter
+    return float(patch_embed + n_pos * layers * per_token)
 
 
 def _dense_attn(get, seq_len: int) -> float:

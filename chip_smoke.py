@@ -13,12 +13,13 @@ Phases, in order; any failure exits non-zero before the last line:
    spills from -Xptxas -v;
 2b. the twice-launch phase: each backward kernel launched twice on the same inputs, and
    the outputs that differ bitwise (flash_dq and flash_dkv at flash cases a and f, with
-   GPT-OSS's window and at Phi-3's head_dim 96 and window, ring_bwd, ring_dq and ring_dkv
+   GPT-OSS's window, at Phi-3's head_dim 96 and window and with Gemma-2-27B's soft-cap at
+   its heads (G2), ring_bwd, ring_dq and ring_dkv
    at ring case a's diagonal step, lce_bwd at lce case a, gmm dX and tgmm at gmm case a, and the backward of the expert
    biases' gathers at main path 11's shape); fails if flash_dq, flash_dkv, ring_dq,
    ring_dkv or a bias gather differs;
 3. flash_fwd and the backward (flash_dq + flash_dkv) against their plain version (f32
-   from the same bf16 inputs) in twenty-seven cases: (a) the Llama-3.2-1B training
+   from the same bf16 inputs) in thirty-four cases: (a) the Llama-3.2-1B training
    shape, (b) packed segments with right padding, (c) non-causal, (d) a 16k sequence, (e) the shape and segments of
    main path 3 (rows of 4096 packed by pack_dataset from 1000-token documents); at
    head_dim 128: (f) the Qwen3-30B-A3B training shape, (g) case e's rows and segments;
@@ -31,7 +32,11 @@ Phases, in order; any failure exits non-zero before the last line:
    S=1000, (q) a window longer than S, (r) a window without the causal mask; at Phi-3's
    head_dim 96 (the 128-wide kernels): (s) Phi-3-mini's heads, (t) GQA with segment
    boundaries inside tiles, (u) window 100, (v) Phi-3's window 2047, (w) sinks, window and
-   segments, (x) S=1000, (y) non-causal packed rows of 4096;
+   segments, (x) S=1000, (y) non-causal packed rows of 4096; with the logit soft-cap
+   (Gemma-2's c = 50 at its scale 144^-0.5, and c = 2 at scale 1, where tanh saturates):
+   (ca) D=64 causal, (cb) Gemma-2-27B's heads with a window, (cc) D=96 packed, (cd) the
+   saturating cap at D=64 windowed and packed, (ce) at D=128 non-causal with segment
+   boundaries inside tiles, (cf) at D=96, (cg) sinks, a window and the cap at D=128;
 4. flash kernel times (flash_fwd, flash_dq, flash_dkv) at shapes (a) and (f) beside the
    bound, the plain version and SDPA, and the whole backward as the wrapper runs it
    (delta, flash_dq, flash_dkv) beside SDPA's backward (one phase alone:
@@ -41,9 +46,11 @@ Phases, in order; any failure exits non-zero before the last line:
    beside the window-only rows; fails unless the windowed forward and backward each
    take under a quarter of the causal time (``chip_smoke._window_timings(torch, fa)``);
    then at Phi-3-mini's shape (P: B=4, S=2048, H=KH=32, D=96) causal and with its window
-   2047, beside SDPA (the window as a boolean mask); then head_dim 80 and the logit
-   soft-cap must raise NotImplementedError on the card and launch nothing, and so must
-   the ring kernels at (D, Dv) = (96, 64) and (192, 192);
+   2047, beside SDPA (the window as a boolean mask); then at Gemma-2-27B's heads (G2:
+   B=2, S=2048, H=32, KH=16, D=128, causal, scale 144^-0.5) without and with its cap c =
+   50, beside SDPA without a cap (no PyTorch call computes the capped function); then
+   head_dim 80 and 256 must raise NotImplementedError on the card and launch nothing, and
+   so must the ring kernels at (D, Dv) = (96, 64) and (192, 192);
 5. Llama-3.2-1B width at 2 layers: one forward and backward with attention "flash"
    against attention "xla" on the same weights;
 6. lce_fwd / lce_bwd (fused linear CE) against their plain version in nine cases:
@@ -161,11 +168,21 @@ Phases, in order; any failure exits non-zero before the last line:
    loads, and step_4/hf must hold DeepSeek's names and reload bitwise; main path 17:
    Moonlight's widths at 2 layers under ring attention, cp 4 folded, seq 16,384
    (moonlight_ring_args): ring_fwd, ring_dq and ring_dkv at (192, 128), no ring_bwd.
+   Main path 18: the benchmark recipe on examples/benchmark/gemma3_proxy.yaml as it
+   stands (12 layers, 10 sliding at window 1024, head_dim 128, vocab 262,144, linear CE)
+   with ``--backend.attention flash`` (gemma3_proxy_args: the file names no attention
+   backend); main path 19: Gemma-2-27B's published widths over it at 4 of 46 layers
+   (GEMMA2_27B, gemma2_args: the caps 50 and 30, window 4096 on alternate layers, vocab
+   256,000, every flash launch capped); main path 20: train_ft on
+   examples/llm_finetune/gemma2_9b_sft.yaml with its dataset swapped for mock data
+   (gemma2_sft_config) from a local HF directory at Gemma-2-27B's widths, 2 layers
+   (gemma2_sft_args: bf16, saves at steps 2 and 4, hf/ reloaded bitwise). Paths 9, 14,
+   16 and 20 run through one helper (_pretrained_run, _check_pretrained_run).
    Every main path also checks that each of its gmm, tgmm, lce_fwd and lce_bwd launches
    took the wgmma route (``launches by route`` on its line), that its windowed flash
-   launches are those of its sliding layers (printed apart from the unwindowed ones),
-   that every flash launch is at its model's head dim, and every ring launch at its
-   model's (D, Dv);
+   launches are those of its sliding layers and its soft-capped ones those of its capped
+   layers (each printed apart), that every flash launch is at its model's head dim, and
+   every ring launch at its model's (D, Dv);
 23. one JSON line of per-kernel numbers (every kernel launched on some main path), the
    card line, then the result line.
 
@@ -306,6 +323,29 @@ MOONLIGHT_LAYERS = 4  # depth of main path 16: the dense layer and 3 MoE layers
 MOONLIGHT_STEPS = 4  # max_steps of main path 16: a consolidated save at steps 2 and 4
 MOONLIGHT_RING_LAYERS = 2  # depth of main path 17: the dense layer and 1 MoE layer
 MOONLIGHT_RING_SEQ, MOONLIGHT_RING_CP = 16384, 4  # main path 17: 4096 tokens a cp shard
+GEMMA3_PROXY_YAML = os.path.join(HERE, "examples", "benchmark", "gemma3_proxy.yaml")
+GEMMA2_SFT_YAML = os.path.join(HERE, "examples", "llm_finetune", "gemma2_9b_sft.yaml")
+# The published config.json of google/gemma-2-27b (Hugging Face Hub): width 4608, 32 heads
+# of 128 over 16 kv heads (head_dim 128: the flash kernels' existing tiles), the query
+# scale 144^-0.5 (query_pre_attn_scalar, not head_dim), the tanh caps 50 on the attention
+# logits and 30 on the final logits, a window of 4096 on alternate layers from the first,
+# a tied 256,000-row embedding. Main path 19 lays its widths over the Gemma-3 proxy config
+# at GEMMA2_LAYERS layers; main path 20 writes it at GEMMA2_LAYERS_TRAIN_FT layers as a
+# local HF directory of random weights from the seed (no weights in the repository).
+GEMMA2_27B = {
+    "architectures": ["Gemma2ForCausalLM"], "model_type": "gemma2", "vocab_size": 256000,
+    "hidden_size": 4608, "intermediate_size": 36864, "num_hidden_layers": 46,
+    "num_attention_heads": 32, "num_key_value_heads": 16, "head_dim": 128,
+    "query_pre_attn_scalar": 144, "attn_logit_softcapping": 50.0,
+    "final_logit_softcapping": 30.0, "sliding_window": 4096, "rope_theta": 10000.0,
+    "rms_norm_eps": 1e-6, "max_position_embeddings": 8192, "hidden_act": "gelu_pytorch_tanh",
+    "hidden_activation": "gelu_pytorch_tanh", "attention_bias": False,
+    "tie_word_embeddings": True, "initializer_range": 0.02, "bos_token_id": 2,
+    "eos_token_id": 1, "pad_token_id": 0, "torch_dtype": "float32",
+}
+GEMMA2_LAYERS = 4  # depth of main path 19: 2 sliding, 2 full
+GEMMA2_LAYERS_TRAIN_FT = 2  # depth of main path 20: 1 sliding, 1 full
+GEMMA2_STEPS = 4  # max_steps of main path 20: a consolidated save at steps 2 and 4
 
 
 class ByteTokenizer:
@@ -499,6 +539,62 @@ def moonlight_ring_args(layers: int = MOONLIGHT_RING_LAYERS) -> list[str]:
                    "--dataset.seq_len", str(MOONLIGHT_RING_SEQ), "--micro_batch_size", "1"]
 
 
+def gemma3_proxy_args() -> list[str]:
+    """Main path 18's override of the Gemma-3 proxy config: attention through the flash
+    kernels (the file names no backend.attention, whose default is the plain path)."""
+    return ["--backend.attention", "flash"]
+
+
+def gemma2_args(layers: int = GEMMA2_LAYERS) -> list[str]:
+    """Main path 19's overrides of the Gemma-3 proxy config: Gemma-2-27B's published widths,
+    caps and window at ``layers`` layers under Gemma2ForCausalLM (no
+    sliding_window_pattern, which the proxy sets to Gemma-3's 6: Gemma-2's layers
+    alternate), the mock data at its vocabulary (the proxy's 262,144 runs past it), and
+    attention through the flash kernels."""
+    args = []
+    for key in ("vocab_size", "hidden_size", "intermediate_size", "num_attention_heads",
+                "num_key_value_heads", "head_dim", "query_pre_attn_scalar",
+                "attn_logit_softcapping", "final_logit_softcapping", "sliding_window",
+                "rope_theta", "rms_norm_eps", "max_position_embeddings",
+                "tie_word_embeddings", "initializer_range"):
+        value = GEMMA2_27B[key]
+        args += [f"--model.config.{key}", str(value).lower() if isinstance(value, bool)
+                 else str(value)]
+    return args + ["--model.config.architectures", json.dumps(GEMMA2_27B["architectures"]),
+                   "--model.config.num_hidden_layers", str(layers),
+                   "--model.config.sliding_window_pattern", "null",
+                   "--dataset.vocab_size", str(GEMMA2_27B["vocab_size"]),
+                   *gemma3_proxy_args()]
+
+
+def gemma2_sft_config(out_dir: str) -> str:
+    """examples/llm_finetune/gemma2_9b_sft.yaml with its HellaSwag dataset section (a
+    ``_target_`` name neither package has, and no network) replaced by the mock dataset at
+    Gemma-2's vocabulary and the file's seq_len, written to ``out_dir``."""
+    import yaml
+
+    with open(GEMMA2_SFT_YAML) as f:
+        cfg = yaml.safe_load(f)
+    cfg["dataset"] = {"_target_": "automodel_tpu_torch.data.llm.mock.MockSFTDataset",
+                      "vocab_size": GEMMA2_27B["vocab_size"], "seq_len": cfg["seq_len"],
+                      "num_samples": 64, "seed": 0}
+    path = os.path.join(out_dir, "gemma2_sft_mock.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return path
+
+
+def gemma2_sft_args(hf_dir: str, ckpt_dir: str) -> list[str]:
+    """Main path 20's overrides of :func:`gemma2_sft_config`'s file: the model from the
+    local directory ``hf_dir`` (for the hub id) in bf16, 2 microbatches a step (8 in the
+    file), GEMMA2_STEPS steps, a checkpoint (with the consolidated HF export) every 2
+    steps under ``ckpt_dir``."""
+    return ["--model.pretrained_model_name_or_path", hf_dir, "--model.params_dtype", "bfloat16",
+            "--step_scheduler.grad_acc_steps", "2",
+            "--step_scheduler.max_steps", str(GEMMA2_STEPS),
+            "--step_scheduler.ckpt_every_steps", "2", "--checkpoint.checkpoint_dir", ckpt_dir]
+
+
 def qwen3_args(layers: int = QWEN3_30B_A3B["num_hidden_layers"]) -> list[str]:
     """CLI overrides that turn the proxy config into the slice configuration."""
     args = []
@@ -648,17 +744,19 @@ def _deterministic(torch, on=True):
 
 
 def _kernel_case(torch, fa, name, b, s, h, kh, causal, seg=None, d=64, window=None,
-                 sinks=False):
+                 sinks=False, softcap=None, scale=None):
     """flash_fwd and the backward (flash_dq, flash_dkv) through flash_attention_cuda
-    against the plain version, with a sliding ``window`` and per-head ``sinks`` (f32
+    against the plain version, with a sliding ``window``, per-head ``sinks`` (f32
     logits ~ N(0, 2^2), the sinks' gradient from lse and delta held against the plain
-    version's autograd); returns the largest errors (O, dq, dk / dv)."""
+    version's autograd), the logit soft-cap ``softcap`` and the softmax ``scale`` (None:
+    d^-0.5); returns the largest errors (O, dq, dk / dv)."""
     q, k, v, do = _inputs(torch, b, s, h, kh, d)
     g = torch.Generator(device="cuda").manual_seed(s + h)
     sink = torch.randn(h, device="cuda", generator=g) * 2.0 if sinks else None
     qk, kk, vk = (x.clone().requires_grad_() for x in (q, k, v))
     sk = [] if sink is None else [sink.clone().requires_grad_()]
-    opts = dict(causal=causal, segment_ids_q=seg, sliding_window=window)
+    opts = dict(causal=causal, segment_ids_q=seg, sliding_window=window,
+                logit_soft_cap=softcap, softmax_scale=scale)
     o, lse = fa.flash_attention_cuda(qk, kk, vk, sinks=sk[0] if sk else None, **opts)
     grads = torch.autograd.grad(o, (qk, kk, vk, *sk), do)
     torch.cuda.synchronize()
@@ -672,7 +770,8 @@ def _kernel_case(torch, fa, name, b, s, h, kh, causal, seg=None, d=64, window=No
     rel = [_rel_l2(a, r) for a, r in zip(grads, grads_ref)]
     err = [(a.float() - r).abs().max().item() for a, r in zip(grads, grads_ref)]
     print(f"case {name}: B={b} S={s} H={h} KH={kh} D={d} causal={causal} "
-          f"segments={seg is not None} window={window} sinks={sinks}: "
+          f"segments={seg is not None} window={window} sinks={sinks}"
+          + (f" softcap={softcap} scale={scale}" if softcap is not None else "") + ": "
           f"O max abs {err_o:.3e} (tol {TOL_O}), lse max abs {err_lse:.3e} (tol {TOL_LSE}), "
           f"grad rel L2 dq (flash_dq) {rel[0]:.3e}, dk {rel[1]:.3e} dv {rel[2]:.3e} "
           f"(flash_dkv)" + (f", dsinks {rel[3]:.3e} (lse, delta)" if sinks else "")
@@ -767,13 +866,31 @@ def _flash_phase(torch, fa, errs):
     note(_kernel_case(torch, fa, "x", 2, 1000, 8, 2, causal=True, d=96))
     note(_kernel_case(torch, fa, "y", 2, 4096, 8, 2, causal=False, seg=_packed_segments(torch),
                       d=96))
+    # the logit soft-cap (Gemma-2's c = 50 at its scale 144^-0.5, and c = 2 at scale 1,
+    # where the scores ~ N(0, D) put most of tanh's arguments past its knee): ca D=64
+    # causal, cb Gemma-2-27B's heads with its window, cc D=96 packed, cd-cf the saturating
+    # cap at D=64 windowed and packed, D=128 with segment boundaries inside tiles and
+    # non-causal, D=96 causal, cg sinks with the cap and a window
+    gemma = GEMMA2_27B["query_pre_attn_scalar"]**-0.5
+    note(_kernel_case(torch, fa, "ca", 2, 2048, 16, 2, causal=True, softcap=50.0))
+    note(_kernel_case(torch, fa, "cb", 2, 2048, 32, 16, causal=True, d=128, window=1024,
+                      softcap=50.0, scale=gemma))
+    note(_kernel_case(torch, fa, "cc", 2, 4096, 8, 2, causal=True, seg=_packed_segments(torch),
+                      d=96, softcap=50.0))
+    note(_kernel_case(torch, fa, "cd", 2, 4096, 8, 2, causal=True, seg=_packed_segments(torch),
+                      window=300, softcap=2.0, scale=1.0))
+    note(_kernel_case(torch, fa, "ce", 2, 2048, 8, 2, causal=False, seg=inner, d=128,
+                      softcap=2.0, scale=1.0))
+    note(_kernel_case(torch, fa, "cf", 2, 2048, 8, 2, causal=True, d=96, softcap=2.0, scale=1.0))
+    note(_kernel_case(torch, fa, "cg", 2, 2048, 16, 4, causal=True, d=128, window=128,
+                      sinks=True, softcap=50.0, scale=gemma))
 
 
 def _refused_on_the_card(torch, fa):
     """What the flash kernels do not take raises NotImplementedError on the card and
-    launches nothing in its place: head_dim 80, and the logit soft-cap at head_dim 96."""
+    launches nothing in its place: head_dim 80, and 256 (with Gemma-2's soft-cap)."""
     before = dict(fa.LAUNCHES)
-    for d, kw in ((80, {}), (96, {"logit_soft_cap": 30.0})):
+    for d, kw in ((80, {}), (256, {"logit_soft_cap": 50.0})):
         q = torch.zeros(1, 128, 2, d, dtype=torch.bfloat16, device="cuda")
         try:
             fa.flash_attention(q, q, q, **kw)
@@ -804,19 +921,21 @@ def _time_ms(torch, fn, warmup=3, reps=20, batch=1) -> float:
     return sorted(times)[len(times) // 2]
 
 
-def _library_sdpa(torch, q, k, v, causal, mask=None):
+def _library_sdpa(torch, q, k, v, causal, mask=None, scale=None):
     """The yardstick: PyTorch's own attention call, timed here and used nowhere in the port.
     ``mask``: a boolean (Sq, Skv) mask in place of the causal flag (the sliding window's
     yardstick), with k and v repeated to q's heads beforehand by the caller (a masked call
-    takes no GQA in its memory-efficient kernel)."""
+    takes no GQA in its memory-efficient kernel); ``scale``: the softmax scale (None:
+    head_dim^-0.5)."""
     import torch.nn.functional as F
 
     if mask is not None:
         return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                              v.transpose(1, 2), attn_mask=mask).transpose(1, 2)
+                                              v.transpose(1, 2), attn_mask=mask,
+                                              scale=scale).transpose(1, 2)
     return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
                                           v.transpose(1, 2), is_causal=causal,
-                                          enable_gqa=True).transpose(1, 2)
+                                          enable_gqa=True, scale=scale).transpose(1, 2)
 
 
 def _flash_timing_inputs(torch, b, s, h, kh, d, device="cuda"):
@@ -826,37 +945,42 @@ def _flash_timing_inputs(torch, b, s, h, kh, d, device="cuda"):
     return (q, k, v, do), _flash_work(q, k, v)
 
 
-def _timings(torch, fa, b=4, s=2048, h=32, kh=8, d=64, window=None):
-    """ms of each kernel at shape (a), or at the shape (and sliding ``window``) given, with
-    bound, plain version and SDPA (with a window: SDPA over the window as a boolean mask),
-    and of the whole backward as the wrapper runs it ("flash_backward": delta, flash_dq and
-    flash_dkv) beside SDPA's backward. The work behind the bound is read from the timed
-    tensors (and the pairs the window allows)."""
+def _timings(torch, fa, b=4, s=2048, h=32, kh=8, d=64, window=None, softcap=None, scale=None):
+    """ms of each kernel at shape (a), or at the shape (and sliding ``window``, logit
+    ``softcap`` and softmax ``scale``: d^-0.5 by default) given, with bound, plain version
+    and SDPA (with a window: SDPA over the window as a boolean mask; with a cap: SDPA
+    without it, kept apart as sdpa_uncapped_ms, since no PyTorch call computes the capped
+    function), and of the whole backward as the wrapper runs it ("flash_backward": delta,
+    flash_dq and flash_dkv) beside SDPA's backward. The work behind the bound is read
+    from the timed tensors (and the pairs the window allows): the products only, as
+    without the cap (its tanh runs on other units than the tensor cores)."""
     (q, k, v, do), _ = _flash_timing_inputs(torch, b, s, h, kh, d)
     work = _flash_work(q, k, v, window)
-    scale = q.shape[-1]**-0.5
+    scale = q.shape[-1]**-0.5 if scale is None else scale
+    cap = softcap or 0.0
+    plain_kw = dict(sliding_window=window, logit_soft_cap=softcap, softmax_scale=scale)
     out = {}
 
-    o, lse = fa.flash_fwd(q, k, v, None, None, scale, True, window)
+    o, lse = fa.flash_fwd(q, k, v, None, None, scale, True, window, None, cap)
     delta = fa._delta(o, do)
-    fwd_ms = _time_ms(torch, lambda: fa.flash_fwd(q, k, v, None, None, scale, True, window))
+    fwd_ms = _time_ms(torch, lambda: fa.flash_fwd(q, k, v, None, None, scale, True, window, None,
+                                                  cap))
     dq_ms = _time_ms(torch, lambda: fa.flash_dq(q, k, v, None, None, do, lse, delta, scale, True,
-                                                window))
+                                                window, cap))
     dkv_ms = _time_ms(torch, lambda: fa.flash_dkv(q, k, v, None, None, do, lse, delta, scale,
-                                                  True, window))
+                                                  True, window, cap))
     bwd_ms = _time_ms(torch, lambda: fa.flash_backward(q, k, v, None, None, o, lse, do, scale,
-                                                       True, window))
+                                                       True, window, cap))
     delta_ms = _time_ms(torch, lambda: fa._delta(o, do))
-    plain_dq = _time_ms(torch, lambda: fa.flash_dq_reference(q, k, v, do, lse, delta,
-                                                             sliding_window=window),
+    plain_dq = _time_ms(torch, lambda: fa.flash_dq_reference(q, k, v, do, lse, delta, **plain_kw),
                         warmup=1, reps=3)
     plain_dkv = _time_ms(torch, lambda: fa.flash_dkv_reference(q, k, v, do, lse, delta,
-                                                               sliding_window=window),
+                                                               **plain_kw),
                          warmup=1, reps=3)
     plain_fwd = _time_ms(torch, lambda: fa.flash_attention_reference(q, k, v, causal=True,
-                                                                     sliding_window=window))
+                                                                     **plain_kw))
     qp, kp, vp = (x.clone().requires_grad_() for x in (q, k, v))
-    o_plain, _ = fa.flash_attention_reference(qp, kp, vp, causal=True, sliding_window=window)
+    o_plain, _ = fa.flash_attention_reference(qp, kp, vp, causal=True, **plain_kw)
     plain_bwd = _time_ms(torch, lambda: torch.autograd.grad(o_plain, (qp, kp, vp), do,
                                                             retain_graph=True))
     del o_plain
@@ -865,15 +989,16 @@ def _timings(torch, fa, b=4, s=2048, h=32, kh=8, d=64, window=None):
         idx = torch.arange(s, device="cuda")
         mask = (idx[:, None] >= idx[None, :]) & (idx[:, None] - idx[None, :] < window)
         k, v = k.repeat_interleave(h // kh, 2), v.repeat_interleave(h // kh, 2)
-    lib_fwd = _time_ms(torch, lambda: _library_sdpa(torch, q, k, v, True, mask))
+    lib_fwd = _time_ms(torch, lambda: _library_sdpa(torch, q, k, v, True, mask, scale))
     ql, kl, vl = (x.clone().requires_grad_() for x in (q, k, v))
-    o_lib = _library_sdpa(torch, ql, kl, vl, True, mask)
+    o_lib = _library_sdpa(torch, ql, kl, vl, True, mask, scale)
     lib_bwd = _time_ms(torch, lambda: torch.autograd.grad(o_lib, (ql, kl, vl), do,
                                                           retain_graph=True))
     del o_lib, delta, mask
     torch.cuda.empty_cache()
     shown = f"B={b} S={s} H={h} KH={kh} D={q.shape[-1]} causal" + (
-        f", window {window}" if window is not None else "")
+        f", window {window}" if window is not None else "") + (
+        f", softcap {softcap}, scale {scale:.6g}" if softcap else "")
     for name, ms, plain, lib in (("flash_fwd", fwd_ms, plain_fwd, lib_fwd),
                                  ("flash_dq", dq_ms, plain_dq, None),
                                  ("flash_dkv", dkv_ms, plain_dkv, None),
@@ -884,18 +1009,24 @@ def _timings(torch, fa, b=4, s=2048, h=32, kh=8, d=64, window=None):
                      "bound_ms": max(t_ops, t_bytes),
                      "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                      "shape": {"B": b, "S": s, "H": h, "KH": kh, "D": q.shape[-1],
-                               **({"window": window} if window is not None else {})}}
+                               **({"window": window} if window is not None else {}),
+                               **({"softcap": softcap, "scale": scale} if softcap else {})}}
         if name == "flash_backward":
             out[name]["delta_ms"] = delta_ms
         if lib is None:  # SDPA's backward gives dq, dk and dv together: a comparison only
             out[name]["library"] = "no single PyTorch call computes this part of the backward"
             out[name]["sdpa_bwd_ms"] = lib_bwd
+        if softcap:  # SDPA has no soft-cap: its time without one, not the same function
+            out[name]["library_ms"] = None
+            out[name]["library"] = "no single PyTorch call computes soft-capped attention"
+            out[name]["sdpa_uncapped_ms"] = lib_fwd if name == "flash_fwd" else lib_bwd
         label = ("the backward (delta, flash_dq, flash_dkv)" if name == "flash_backward"
                  else name)
         print(f"time {label} at {shown}: {ms:.3f} ms, bound {out[name]['bound_ms']:.3f} ms "
               f"({out[name]['bound_by']}: {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB), "
               f"plain {plain:.3f} ms, "
-              + (f"SDPA {lib:.3f} ms" if name == "flash_fwd" else
+              + ("SDPA without the cap (not the same function) " if softcap else "")
+              + (f"SDPA {lib_fwd:.3f} ms" if name == "flash_fwd" else
                  f"SDPA backward {lib_bwd:.3f} ms")
               + (f", of it delta {delta_ms:.3f} ms" if name == "flash_backward" else ""),
               flush=True)
@@ -1908,7 +2039,8 @@ def _twice_phase(torch):
     """Each backward kernel launched twice on the same inputs, and the outputs that differ
     bitwise: flash_dq and flash_dkv at flash cases (a) and (f), with GPT-OSS's window
     (w: B=1, S=4096, H=16, KH=2, D=64, window 128) and at Phi-3's shape and window (P: B=4,
-    S=2048, H=KH=32, D=96, window 2047), ring_bwd and the deterministic route
+    S=2048, H=KH=32, D=96, window 2047) and, capped, at Gemma-2-27B's heads (G2: B=2,
+    S=2048, H=32, KH=16, D=128, c = 50, scale 144^-0.5), ring_bwd and the deterministic route
     (ring_dq, ring_dkv) at ring case (a)'s diagonal step, lce_bwd at lce case (a), gmm dX
     and tgmm at gmm case (a), and the backward of the expert biases' gathers at main path
     11's shapes (65,536 rows sorted over 32 experts). Fails if one of
@@ -1917,19 +2049,23 @@ def _twice_phase(torch):
     from automodel_tpu_torch.ops import linear_ce as lce, ring_chunk as rc
 
     found = {}
-    for case, shape, win in (("a", (4, 2048, 32, 8, 64), None), ("f", (4, 2048, 32, 4, 128), None),
-                             ("w", (1, 4096, 16, 2, 64), 128), ("P", (4, 2048, 32, 32, 96), 2047)):
+    gemma2 = (GEMMA2_27B["attn_logit_softcapping"], GEMMA2_27B["query_pre_attn_scalar"]**-0.5)
+    for case, shape, win, (cap, scale) in (
+            ("a", (4, 2048, 32, 8, 64), None, (0.0, 64**-0.5)),
+            ("f", (4, 2048, 32, 4, 128), None, (0.0, 128**-0.5)),
+            ("w", (1, 4096, 16, 2, 64), 128, (0.0, 64**-0.5)),
+            ("P", (4, 2048, 32, 32, 96), 2047, (0.0, 96**-0.5)),
+            ("G2", (2, 2048, 32, 16, 128), None, gemma2)):
         q, k, v, do = _inputs(torch, *shape, seed=3)
-        scale = q.shape[-1]**-0.5
-        o, lse = fa.flash_fwd(q, k, v, None, None, scale, True, win)
+        o, lse = fa.flash_fwd(q, k, v, None, None, scale, True, win, None, cap)
         delta = fa._delta(o, do)
         found[f"flash_dq ({case})"] = _twice(
             torch, f"flash_dq at flash case ({case})",
-            lambda: (fa.flash_dq(q, k, v, None, None, do, lse, delta, scale, True, win),),
+            lambda: (fa.flash_dq(q, k, v, None, None, do, lse, delta, scale, True, win, cap),),
             ("dq",))
         found[f"flash_dkv ({case})"] = _twice(
             torch, f"flash_dkv at flash case ({case})",
-            lambda: fa.flash_dkv(q, k, v, None, None, do, lse, delta, scale, True, win),
+            lambda: fa.flash_dkv(q, k, v, None, None, do, lse, delta, scale, True, win, cap),
             ("dk", "dv"))
         del q, k, v, do, o, lse, delta
 
@@ -2058,7 +2194,7 @@ def _reset_counts():
     from automodel_tpu_torch.ops import flash_attention as fa, ring_chunk as rc
 
     for counter in (*_counters(), *_route_counters(), fa.WINDOWED_LAUNCHES,
-                    fa.HEAD_DIM_LAUNCHES, rc.DIM_LAUNCHES):
+                    fa.HEAD_DIM_LAUNCHES, fa.SOFTCAP_LAUNCHES, rc.DIM_LAUNCHES):
         for key in counter:
             counter[key] = 0
 
@@ -2075,6 +2211,13 @@ def _read_windowed() -> dict:
     from automodel_tpu_torch.ops import flash_attention as fa
 
     return {f"{k}/windowed": v for k, v in fa.WINDOWED_LAUNCHES.items()}
+
+
+def _read_softcap() -> dict:
+    """The flash launches that carried a logit soft-cap ("flash_fwd/softcap", ...)."""
+    from automodel_tpu_torch.ops import flash_attention as fa
+
+    return {f"{k}/softcap": v for k, v in fa.SOFTCAP_LAUNCHES.items()}
 
 
 def _read_head_dims() -> dict:
@@ -2144,18 +2287,28 @@ def _check_routes(name, launches) -> dict:
         if routes[f"{kernel}/wgmma"] != launches.get(kernel, 0):
             raise AssertionError(f"{name}: {launches.get(kernel, 0)} {kernel} launches, "
                                  f"{routes[f'{kernel}/wgmma']} of them on the wgmma route")
-    return {**launches, **routes, **_read_windowed(), **_read_head_dims(), **_read_ring_dims()}
+    return {**launches, **routes, **_read_windowed(), **_read_softcap(), **_read_head_dims(),
+            **_read_ring_dims()}
+
+
+def _port_config(model: dict):
+    """The port's config of an HF config dict, read by its architecture's class (so the
+    layers' kinds are the ones the model runs: GPT-OSS's layer_types, Gemma's patterns)."""
+    from automodel_tpu_torch.models.auto import AutoModelForCausalLM
+
+    model = model.to_dict() if hasattr(model, "to_dict") else dict(model)
+    return AutoModelForCausalLM.model_class(model).config_class.from_hf(model)
 
 
 def _sliding_layers(cfg) -> int:
-    """How many of a config's layers attend through the sliding window (GPT-OSS's
-    layer_types; a window with no layer_types is every layer's)."""
-    model = cfg.model.config
-    layers = int(model.num_hidden_layers)
-    types = model.get("layer_types")
-    if types:
-        return sum(t == "sliding_attention" for t in list(types)[:layers])
-    return layers if model.get("sliding_window") is not None else 0
+    """How many of a config's layers attend through the sliding window."""
+    return sum(_port_config(cfg.model.config).sliding_flags)
+
+
+def _capped_layers(model) -> int:
+    """How many layers carry the attention logit soft-cap (Gemma-2's: every layer)."""
+    config = _port_config(model)
+    return config.num_hidden_layers if getattr(config, "attn_logit_softcapping", None) else 0
 
 
 def _is_moe(cfg) -> bool:
@@ -2186,6 +2339,18 @@ def _check_windowed(name, launches, sliding, micro, steps):
           f"layers), unwindowed {plain}", flush=True)
     if got != want:
         raise AssertionError(f"{name}: windowed flash launches {got} != expected {want}")
+
+
+def _check_softcap(name, launches, capped, micro, steps):
+    """The capped share of a path's flash launches, as _check_windowed counts the windowed
+    one: n = capped layers x microbatches x steps, flash_fwd 2n, flash_dq and flash_dkv n."""
+    n = capped * micro * steps
+    want = {"flash_fwd/softcap": 2 * n, "flash_dq/softcap": n, "flash_dkv/softcap": n}
+    got = {k: launches[k] for k in want}
+    print(f"{name}: soft-capped flash launches {got} (expected {want}; {capped} capped "
+          "layers)", flush=True)
+    if got != want:
+        raise AssertionError(f"{name}: soft-capped flash launches {got} != expected {want}")
 
 
 def _release():
@@ -2239,12 +2404,33 @@ def _ring_cp(cfg) -> int:
     return int(cfg.get("distributed.cp", 1) or 1)
 
 
-def random_init_loss(vocab: int, hidden: int, std: float) -> float:
+def random_init_loss(vocab: int, hidden: int, std: float, self_logit: float = 0.0) -> float:
     """The cross entropy of random labels under random weights: the logits of the normed
     hidden state through W ~ N(0, std^2) have variance hidden * std^2, so the loss is
     about ln(vocab) + hidden * std^2 / 2 (0.41 over ln(vocab) at hidden 2048, 0.82 at
-    4096)."""
-    return math.log(vocab) + hidden * std**2 / 2
+    4096). ``self_logit``: one logit more, the input token's own (:func:`tied_self_logit`),
+    summed into the logsumexp."""
+    base = math.log(vocab) + hidden * std**2 / 2
+    if not self_logit:
+        return base
+    return max(base, self_logit) + math.log1p(math.exp(-abs(base - self_logit)))
+
+
+def tied_self_logit(model) -> float:
+    """The input token's own logit in a random-init Gemma: its embedding is scaled by
+    sqrt(d) and tied to the unembedding, so the final hidden state keeps the token's
+    embedding row E, of squared norm d std^2, beside the 2L sublayer outputs that the
+    sandwich norms add to the residual at unit rms each: after the final norm the logit
+    is sqrt(d) d std^2 / sqrt(d std^2 + 2L) (39.9 at Gemma-2-27B's widths at 4 layers,
+    where it outweighs the vocabulary's; 2.7 at the Gemma-3 proxy's). 0 for other
+    families (no scale: the sublayers outweigh the embedding) and an untied head."""
+    from automodel_tpu_torch.models.gemma.model import GemmaConfig
+
+    config = _port_config(model)
+    if not isinstance(config, GemmaConfig) or not config.tie_word_embeddings:
+        return 0.0
+    d, square = config.hidden_size, config.hidden_size * config.initializer_range**2
+    return math.sqrt(d) * square / math.sqrt(square + 2 * config.num_hidden_layers)
 
 
 def _shown(yaml: str) -> str:
@@ -2284,17 +2470,19 @@ def _bench_path(name, yaml, linear_ce, overrides=()):
     # over E experts is 1 when the routing is balanced, as at init)
     aux = float(cfg.model.config.get("router_aux_loss_coef", 0.0)) * layers if _is_moe(cfg) \
         else 0.0
-    want_loss = random_init_loss(vocab, hidden, std) + aux
+    want_loss = random_init_loss(vocab, hidden, std, tied_self_logit(cfg.model.config)) + aux
     if not all(math.isfinite(x) for x in result["losses"]):
         raise AssertionError(f"non-finite loss on {name}")
     if abs(result["loss"] - want_loss) > 0.5:
         raise AssertionError(f"{name}: loss {result['loss']} is not within 0.5 of "
-                             f"ln({vocab}) + {hidden} * {std}^2 / 2 + {aux:g} (aux) = "
-                             f"{want_loss:.3f}")
+                             f"ln({vocab}) + {hidden} * {std}^2 / 2 (with the tied self "
+                             f"logit {tied_self_logit(cfg.model.config):.3f}) + {aux:g} (aux) "
+                             f"= {want_loss:.3f}")
     if launches != want:
         raise AssertionError(f"{name}: kernel launches {launches} != expected {want}")
     routed = _check_routes(name, launches)
     _check_windowed(name, routed, _sliding_layers(cfg), micro, WARMUP + TIMED)
+    _check_softcap(name, routed, _capped_layers(cfg.model.config), micro, WARMUP + TIMED)
     _check_head_dim(name, routed, _head_dim(cfg.model.config))
     _check_ring_dims(name, routed, cfg.model.config)
     return routed, result["losses"]
@@ -2348,6 +2536,7 @@ def _train_ft_path(name, yaml, overrides, deterministic=False):
         raise AssertionError(f"{name}: kernel launches {launches} != expected {want}")
     routed = _check_routes(name, launches)
     _check_windowed(name, routed, _sliding_layers(cfg), micro, TRAIN_FT_STEPS)
+    _check_softcap(name, routed, _capped_layers(cfg.model.config), micro, TRAIN_FT_STEPS)
     _check_head_dim(name, routed, _head_dim(cfg.model.config))
     _check_ring_dims(name, routed, cfg.model.config)
     return routed, losses
@@ -2382,6 +2571,90 @@ def _recorded_train_ft(cfg, on_setup=None):
         rows["validation"]
 
 
+def _pretrained_run(name, cfg_args, ckpt, reload_dtype=None, on_setup=None) -> dict:
+    """One train_ft run of the config ``cfg_args`` gives, through _recorded_train_ft with
+    the counts reset first: what main paths 9, 14, 16 and 20 share. Returns a dict:
+    losses ({step: loss}), rows and val (the jsonl rows), launches, routed (the launches
+    with their routes, window, cap and head-dim counts; _check_routes passed), saves
+    [(step, seconds, bytes)], peak / setup / end GiB (allocated at the peak, after setup,
+    after the run), the recipe's loss_name and moe; with ``reload_dtype``, also the newest
+    save's hf/ (hf_dir, its tensors' hf_names and hf_bytes) and hf_differ, the parameters
+    whose reload through from_pretrained in that dtype is not bitwise the final one."""
+    import torch
+
+    from automodel_tpu_torch.checkpoint.safetensors_io import load_safetensors
+    from automodel_tpu_torch.config.cli_overrides import parse_args_and_load_config
+    from automodel_tpu_torch.models.auto import AutoModelForCausalLM
+
+    cuda = torch.cuda.is_available()  # the CPU tests run it too, at small widths
+
+    def gib(stat):
+        return stat() / 2**30 if cuda else 0.0
+
+    cfg = parse_args_and_load_config(cfg_args)
+    _reset_counts()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    setup = {}
+
+    def after_setup(recipe):
+        setup["gib"] = gib(torch.cuda.memory_allocated)
+        if on_setup is not None:
+            on_setup(recipe)
+
+    recipe, losses, rows, val = _recorded_train_ft(cfg, after_setup)
+    launches = _read_counts()
+    out = dict(losses=losses, rows=rows, val=val, launches=launches,
+               routed=_check_routes(name, launches),
+               saves=[(x["step"], x["seconds"], x["bytes"]) for x in rows
+                      if x.get("event") == "checkpoint_save"],
+               peak_gib=gib(torch.cuda.max_memory_allocated), setup_gib=setup["gib"],
+               end_gib=gib(torch.cuda.memory_allocated), loss_name=recipe.loss_name,
+               moe=recipe.moe)
+    if reload_dtype is not None:
+        step_hf = os.path.join(ckpt, f"step_{max(x[0] for x in out['saves'])}", "hf")
+        reloaded = AutoModelForCausalLM.from_pretrained(step_hf, dtype=reload_dtype,
+                                                        device=recipe.device).param_dict()
+        out.update(hf_dir=step_hf, hf_names=sorted(load_safetensors(step_hf)),
+                   hf_bytes=sum(os.path.getsize(os.path.join(step_hf, f))
+                                for f in os.listdir(step_hf)),
+                   hf_differ=sorted(k for k, v in recipe.params.items()
+                                    if not torch.equal(v, reloaded[k])))
+        del reloaded
+    del recipe
+    _release()
+    return out
+
+
+def _check_pretrained_run(name, run, steps, want, saves=None, first_loss=None):
+    """The checks main paths 9, 14, 16 and 20 share: the steps taken, finite losses, the
+    first within 0.5 of ``first_loss``, checkpoints at ``saves``, hf/ reloaded bitwise
+    (when reloaded), and the launches ``want``."""
+    if sorted(run["losses"]) != list(steps):
+        raise AssertionError(f"{name}: stepped {sorted(run['losses'])}, not {list(steps)}")
+    if not all(math.isfinite(x) for x in run["losses"].values()):
+        raise AssertionError(f"{name}: non-finite loss")
+    first = run["losses"][min(steps)]
+    if first_loss is not None and abs(first - first_loss) > 0.5:
+        raise AssertionError(f"{name}: first loss {first} is not within 0.5 of {first_loss:.3f}")
+    if saves is not None and [x[0] for x in run["saves"]] != saves:
+        raise AssertionError(f"{name}: checkpoints saved at {run['saves']}, not steps {saves}")
+    if run.get("hf_differ"):
+        raise AssertionError(f"{name}: hf/ reloaded differs from the final parameters in "
+                             f"{run['hf_differ']}")
+    if run["launches"] != want:
+        raise AssertionError(f"{name}: kernel launches {run['launches']} != expected {want}")
+
+
+def _shown_run(run) -> str:
+    """A run's losses, step times, MFU, saves and memory, for its log line."""
+    return (f"losses {run['losses']}, step times "
+            f"{[x['step_time_s'] for x in run['rows'] if 'loss' in x]} s, MFU "
+            f"{[x.get('mfu') for x in run['rows'] if 'loss' in x]}, saves {run['saves']} (step, "
+            f"s, bytes), peak memory {run['peak_gib']:.2f} GiB (allocated after setup "
+            f"{run['setup_gib']:.2f} GiB, after the run {run['end_gib']:.2f} GiB)")
+
+
 def _baseline_path(name):
     """BASELINE config #1 through train_ft (main path 9): a local pretrained directory,
     HellaSwag rows through the tokenizer, the prefetch pipeline, validation and a
@@ -2392,9 +2665,6 @@ def _baseline_path(name):
     import shutil
 
     import torch
-
-    from automodel_tpu_torch.config.cli_overrides import parse_args_and_load_config
-    from automodel_tpu_torch.models.auto import AutoModelForCausalLM
 
     _release()
     with tempfile.TemporaryDirectory() as tmp:
@@ -2407,45 +2677,20 @@ def _baseline_path(name):
         for run in ("A", "B"):
             if run == "B":  # the walk-back must find step 2
                 shutil.rmtree(os.path.join(ckpt, f"step_{BASELINE_STEPS}"))
-            cfg = parse_args_and_load_config(["-c", yaml, *baseline_args(ckpt), "--output_dir",
-                                              os.path.join(tmp, f"run_{run}")])
-            _reset_counts()
-            torch.cuda.reset_peak_memory_stats()
-            setup = {}
-            recipe, losses, rows, val_rows = _recorded_train_ft(
-                cfg, on_setup=lambda r: setup.update(gib=torch.cuda.memory_allocated() / 2**30))
-            launches = _read_counts()
-            runs[run] = dict(recipe=recipe, losses=losses, rows=rows, val=val_rows,
-                             launches=launches, routed=_check_routes(f"{name} run {run}", launches),
-                             peak_gib=torch.cuda.max_memory_allocated() / 2**30,
-                             setup_gib=setup["gib"],
-                             end_gib=torch.cuda.memory_allocated() / 2**30)
-            if run == "A":  # its consolidated HF export against its final parameters
-                step_hf = os.path.join(ckpt, f"step_{BASELINE_STEPS}", "hf")
-                reloaded = AutoModelForCausalLM.from_pretrained(step_hf, dtype=torch.float32,
-                                                                device="cuda").param_dict()
-                runs[run]["hf_differ"] = sorted(k for k, v in recipe.params.items()
-                                               if not torch.equal(v, reloaded[k]))
-                runs[run]["hf_bytes"] = sum(os.path.getsize(os.path.join(step_hf, f))
-                                            for f in os.listdir(step_hf))
-                del reloaded
-            del recipe
-            runs[run].pop("recipe")
-            _release()
+            runs[run] = _pretrained_run(
+                f"{name} run {run}", ["-c", yaml, *baseline_args(ckpt), "--output_dir",
+                                      os.path.join(tmp, f"run_{run}")], ckpt,
+                reload_dtype=torch.float32 if run == "A" else None)
     layers = LLAMA32_1B["num_hidden_layers"]
     micro = 4  # the config's grad_acc_steps
     a, b = runs["A"], runs["B"]
     for run, r in runs.items():
-        saves = [x for x in r["rows"] if x.get("event") == "checkpoint_save"]
         restores = [x for x in r["rows"] if x.get("event") == "checkpoint_restore"]
         print(f"{name} run {run}: train_ft on {_shown(BASELINE_YAML)} (model and data sections "
-              f"swapped; {layers} layers, prefetch), losses {r['losses']}, step times "
-              f"{[x['step_time_s'] for x in r['rows'] if 'loss' in x]} s, validation "
-              f"{[(x['step'], x['val_loss']) for x in r['val']]}, saves "
-              f"{[(x['step'], x['seconds'], x['bytes']) for x in saves]} (step, s, bytes), "
-              f"restores {[(x['step'], x['seconds']) for x in restores]} (step, s), peak memory "
-              f"{r['peak_gib']:.2f} GiB (allocated after setup {r['setup_gib']:.2f} GiB, after "
-              f"the run {r['end_gib']:.2f} GiB), launches {r['launches']}", flush=True)
+              f"swapped; {layers} layers, prefetch), {_shown_run(r)}, validation "
+              f"{[(x['step'], x['val_loss']) for x in r['val']]}, restores "
+              f"{[(x['step'], x['seconds']) for x in restores]} (step, s), launches "
+              f"{r['launches']}", flush=True)
     print(f"{name}: step_{BASELINE_STEPS}/hf {a['hf_bytes']} bytes, reloaded through "
           f"from_pretrained: {'bitwise equal' if not a['hf_differ'] else a['hf_differ']}; run B "
           f"from step {min(b['losses'])}: step-3 loss |diff| "
@@ -2453,11 +2698,12 @@ def _baseline_path(name):
           f"{b['losses'].get(3) == a['losses'][3]}), step-4 |diff| "
           f"{abs(b['losses'].get(4, math.nan) - a['losses'][4]):.3e} (bitwise "
           f"{b['losses'].get(4) == a['losses'][4]}; must be bitwise)", flush=True)
-    if sorted(a["losses"]) != list(range(1, BASELINE_STEPS + 1)) or sorted(b["losses"]) != [3, 4]:
-        raise AssertionError(f"{name}: run A stepped {sorted(a['losses'])}, run B "
-                             f"{sorted(b['losses'])} (B must resume from step 2)")
-    if not all(math.isfinite(x) for r in runs.values() for x in r["losses"].values()):
-        raise AssertionError(f"{name}: non-finite loss")
+    _check_pretrained_run(f"{name} run A", a, range(1, BASELINE_STEPS + 1),
+                          _expected(layers, micro, BASELINE_STEPS, True,
+                                    val_batches=2 * BASELINE_VAL_BATCHES),
+                          saves=[2, BASELINE_STEPS])
+    _check_pretrained_run(f"{name} run B (B must resume from step 2)", b, range(3, 5),
+                          _expected(layers, micro, 2, True, val_batches=BASELINE_VAL_BATCHES))
     for step in (3, 4):
         if b["losses"][step] != a["losses"][step]:
             raise AssertionError(f"{name}: the resumed step-{step} loss differs from the "
@@ -2466,15 +2712,6 @@ def _baseline_path(name):
                  and math.isfinite(x["val_loss"])]
     if val_steps != [2, 4]:
         raise AssertionError(f"{name}: finite validation.jsonl rows at steps {val_steps}")
-    if a["hf_differ"]:
-        raise AssertionError(f"{name}: hf/ reloaded differs from the final parameters in "
-                             f"{a['hf_differ']}")
-    want_a = _expected(layers, micro, BASELINE_STEPS, True,
-                       val_batches=2 * BASELINE_VAL_BATCHES)
-    want_b = _expected(layers, micro, 2, True, val_batches=BASELINE_VAL_BATCHES)
-    if a["launches"] != want_a or b["launches"] != want_b:
-        raise AssertionError(f"{name}: kernel launches A {a['launches']} B {b['launches']} != "
-                             f"expected A {want_a} B {want_b}")
     return {k: a["routed"][k] + b["routed"][k] for k in a["routed"]}
 
 
@@ -2489,66 +2726,35 @@ def _phi3_train_ft_path(name):
     bitwise equal to the final parameters."""
     import torch
 
-    from automodel_tpu_torch.checkpoint.safetensors_io import load_safetensors
-    from automodel_tpu_torch.config.cli_overrides import parse_args_and_load_config
-    from automodel_tpu_torch.models.auto import AutoModelForCausalLM
-
     _release()
     layers, micro = PHI3_LAYERS_TRAIN_FT, 2
     with tempfile.TemporaryDirectory() as tmp:
         hf_dir = write_pretrained(os.path.join(tmp, "phi3_mini"),
                                   dict(PHI3_MINI, num_hidden_layers=layers))
         ckpt = os.path.join(tmp, "ckpts")
-        cfg = parse_args_and_load_config(["-c", PHI3_SFT_YAML, *phi3_sft_args(hf_dir, ckpt),
-                                          "--output_dir", os.path.join(tmp, "run")])
-        _reset_counts()
-        torch.cuda.reset_peak_memory_stats()
-        recipe, losses, rows, _ = _recorded_train_ft(cfg)
-        launches = _read_counts()
-        routed = _check_routes(name, launches)
-        peak_gib = torch.cuda.max_memory_allocated() / 2**30
-        step_hf = os.path.join(ckpt, f"step_{PHI3_STEPS}", "hf")
-        hf_names = sorted(load_safetensors(step_hf))
-        reloaded = AutoModelForCausalLM.from_pretrained(step_hf, dtype=torch.float32,
-                                                        device="cuda").param_dict()
-        differ = sorted(k for k, v in recipe.params.items() if not torch.equal(v, reloaded[k]))
-        loss_name = recipe.loss_name
-        del recipe, reloaded
-        _release()
-    saves = [(x["step"], x["seconds"], x["bytes"]) for x in rows
-             if x.get("event") == "checkpoint_save"]
+        run = _pretrained_run(name, ["-c", PHI3_SFT_YAML, *phi3_sft_args(hf_dir, ckpt),
+                                     "--output_dir", os.path.join(tmp, "run")], ckpt,
+                              reload_dtype=torch.float32)
     want = _expected(layers, micro, PHI3_STEPS, False)
-    want_loss = random_init_loss(PHI3_MINI["vocab_size"], PHI3_MINI["hidden_size"],
-                                 PHI3_MINI["initializer_range"])
-    fused = [n for n in hf_names if n.endswith(("qkv_proj.weight", "gate_up_proj.weight"))]
-    split = [n for n in hf_names if n.endswith((".q_proj.weight", ".k_proj.weight",
-                                                ".v_proj.weight", ".gate_proj.weight",
-                                                ".up_proj.weight"))]
+    fused = [n for n in run["hf_names"] if n.endswith(("qkv_proj.weight", "gate_up_proj.weight"))]
+    split = [n for n in run["hf_names"] if n.endswith((
+        ".q_proj.weight", ".k_proj.weight", ".v_proj.weight", ".gate_proj.weight",
+        ".up_proj.weight"))]
     print(f"{name}: train_ft on {_shown(PHI3_SFT_YAML)} ({layers} layers from a local HF "
-          f"directory, loss {loss_name}, packed rows of 4096), losses {losses}, step times "
-          f"{[x['step_time_s'] for x in rows if 'loss' in x]} s, MFU "
-          f"{[x.get('mfu') for x in rows if 'loss' in x]}, saves {saves} (step, s, "
-          f"bytes), peak memory {peak_gib:.2f} GiB, step_{PHI3_STEPS}/hf fused tensors "
-          f"{len(fused)}, split ones {len(split)}, reloaded through from_pretrained: "
-          f"{'bitwise equal' if not differ else differ}, launches {launches} (expected "
-          f"{want})", flush=True)
-    if sorted(losses) != list(range(1, PHI3_STEPS + 1)):
-        raise AssertionError(f"{name}: stepped {sorted(losses)}")
-    if not all(math.isfinite(x) for x in losses.values()):
-        raise AssertionError(f"{name}: non-finite loss")
-    if abs(losses[1] - want_loss) > 0.5:
-        raise AssertionError(f"{name}: first loss {losses[1]} is not within 0.5 of {want_loss:.3f}")
-    if [x[0] for x in saves] != [2, PHI3_STEPS]:
-        raise AssertionError(f"{name}: checkpoints saved at {saves}")
+          f"directory, loss {run['loss_name']}, packed rows of 4096), {_shown_run(run)}, "
+          f"step_{PHI3_STEPS}/hf fused tensors {len(fused)}, split ones {len(split)}, "
+          f"reloaded through from_pretrained: "
+          f"{'bitwise equal' if not run['hf_differ'] else run['hf_differ']}, launches "
+          f"{run['launches']} (expected {want})", flush=True)
+    _check_pretrained_run(name, run, range(1, PHI3_STEPS + 1), want, saves=[2, PHI3_STEPS],
+                          first_loss=random_init_loss(PHI3_MINI["vocab_size"],
+                                                      PHI3_MINI["hidden_size"],
+                                                      PHI3_MINI["initializer_range"]))
     if len(fused) != 2 * layers or split:
         raise AssertionError(f"{name}: step_{PHI3_STEPS}/hf holds fused {fused}, split {split}")
-    if differ:
-        raise AssertionError(f"{name}: hf/ reloaded differs from the final parameters in {differ}")
-    if launches != want:
-        raise AssertionError(f"{name}: kernel launches {launches} != expected {want}")
-    _check_windowed(name, routed, layers, micro, PHI3_STEPS)
-    _check_head_dim(name, routed, _head_dim(PHI3_MINI))
-    return routed
+    _check_windowed(name, run["routed"], layers, micro, PHI3_STEPS)
+    _check_head_dim(name, run["routed"], _head_dim(PHI3_MINI))
+    return run["routed"]
 
 
 def _moonlight_train_ft_path(name):
@@ -2568,8 +2774,6 @@ def _moonlight_train_ft_path(name):
     import torch
 
     from automodel_tpu_torch.checkpoint.safetensors_io import load_safetensors
-    from automodel_tpu_torch.config.cli_overrides import parse_args_and_load_config
-    from automodel_tpu_torch.models.auto import AutoModelForCausalLM
 
     _release()
     layers, micro, factor = MOONLIGHT_LAYERS, 2, 0.001
@@ -2591,71 +2795,90 @@ def _moonlight_train_ft_path(name):
     with tempfile.TemporaryDirectory() as tmp:
         hf_dir = write_pretrained(os.path.join(tmp, "moonlight"), model)
         ckpt = os.path.join(tmp, "ckpts")
-        cfg = parse_args_and_load_config(["-c", DSV3_EP_YAML, *moonlight_sft_args(hf_dir, ckpt),
-                                          "--output_dir", os.path.join(tmp, "run")])
-        _reset_counts()
-        torch.cuda.reset_peak_memory_stats()
-        recipe, losses, rows, _ = _recorded_train_ft(cfg, on_setup)
-        launches = _read_counts()
-        routed = _check_routes(name, launches)
-        peak_gib = torch.cuda.max_memory_allocated() / 2**30
-        step_hf = os.path.join(ckpt, f"step_{MOONLIGHT_STEPS}", "hf")
-        hf_tensors = load_safetensors(step_hf)
-        hf_names = sorted(hf_tensors)
-        hf_bias = [n for n in hf_names if n.endswith("mlp.gate.e_score_correction_bias")]
+        run = _pretrained_run(name, ["-c", DSV3_EP_YAML, *moonlight_sft_args(hf_dir, ckpt),
+                                     "--output_dir", os.path.join(tmp, "run")], ckpt,
+                              reload_dtype=torch.bfloat16, on_setup=on_setup)
+        hf_bias = [n for n in run["hf_names"] if n.endswith("mlp.gate.e_score_correction_bias")]
+        hf_tensors = load_safetensors(run["hf_dir"])
         bias_dtypes = sorted({str(hf_tensors[n].dtype) for n in hf_bias})
         del hf_tensors
-        reloaded = AutoModelForCausalLM.from_pretrained(step_hf, dtype=torch.bfloat16,
-                                                        device="cuda").param_dict()
-        differ = sorted(k for k, v in recipe.params.items() if not torch.equal(v, reloaded[k]))
-        loss_name, factor_used = recipe.loss_name, recipe.moe.gate_bias_update_factor
-        del recipe, reloaded
-        _release()
     moved = []
     for before, after, load in trace:
         want = torch.sign(load.float().mean(-1, keepdim=True) - load.float()) * factor
         moved.append((after - before - want).abs().max().item())
     first_bias = trace[0][1] if trace else None
-    saves = [(x["step"], x["seconds"], x["bytes"]) for x in rows
-             if x.get("event") == "checkpoint_save"]
+    factor_used = run["moe"].gate_bias_update_factor
     want = _expected(layers, micro, MOONLIGHT_STEPS, True, moe=True,
                      dense_prefix=model["first_k_dense_replace"], mla=True)
-    want_loss = random_init_loss(model["vocab_size"], model["hidden_size"],
-                                 model["initializer_range"])
     print(f"{name}: train_ft on {_shown(DSV3_EP_YAML)} ({layers} layers of Moonlight-16B-A3B "
-          f"from a local HF directory, bf16, loss {loss_name}, gate-bias factor {factor_used}, "
-          f"packed rows of 4096), losses {losses}, step times "
-          f"{[x['step_time_s'] for x in rows if 'loss' in x]} s, MFU "
-          f"{[x.get('mfu') for x in rows if 'loss' in x]}, saves {saves} (step, s, bytes), "
-          f"peak memory {peak_gib:.2f} GiB; correction bias: max |moved - sign(mean - load) x "
-          f"{factor}| per step {moved} (tol 1e-6), nonzero after step 1: "
-          f"{int((first_bias != 0).sum()) if first_bias is not None else 0} of "
+          f"from a local HF directory, bf16, loss {run['loss_name']}, gate-bias factor "
+          f"{factor_used}, packed rows of 4096), {_shown_run(run)}; correction bias: max "
+          f"|moved - sign(mean - load) x {factor}| per step {moved} (tol 1e-6), nonzero after "
+          f"step 1: {int((first_bias != 0).sum()) if first_bias is not None else 0} of "
           f"{first_bias.numel() if first_bias is not None else 0}; step_{MOONLIGHT_STEPS}/hf "
-          f"{len(hf_names)} tensors, {len(hf_bias)} correction biases ({bias_dtypes}), "
-          f"reloaded through from_pretrained: {'bitwise equal' if not differ else differ}, "
-          f"launches {launches} (expected {want})", flush=True)
-    if sorted(losses) != list(range(1, MOONLIGHT_STEPS + 1)):
-        raise AssertionError(f"{name}: stepped {sorted(losses)}")
-    if not all(math.isfinite(x) for x in losses.values()):
-        raise AssertionError(f"{name}: non-finite loss")
-    if abs(losses[1] - want_loss) > 0.5:
-        raise AssertionError(f"{name}: first loss {losses[1]} is not within 0.5 of {want_loss:.3f}")
+          f"{len(run['hf_names'])} tensors, {len(hf_bias)} correction biases ({bias_dtypes}), "
+          f"reloaded through from_pretrained: "
+          f"{'bitwise equal' if not run['hf_differ'] else run['hf_differ']}, launches "
+          f"{run['launches']} (expected {want})", flush=True)
+    _check_pretrained_run(name, run, range(1, MOONLIGHT_STEPS + 1), want,
+                          saves=[2, MOONLIGHT_STEPS],
+                          first_loss=random_init_loss(model["vocab_size"], model["hidden_size"],
+                                                      model["initializer_range"]))
     if factor_used != factor or len(moved) != MOONLIGHT_STEPS or max(moved) > 1e-6:
         raise AssertionError(f"{name}: the correction bias did not move as its loads say: {moved}")
     if not bool((first_bias != 0).any()):
         raise AssertionError(f"{name}: the correction bias is all zero after step 1")
-    if [x[0] for x in saves] != [2, MOONLIGHT_STEPS]:
-        raise AssertionError(f"{name}: checkpoints saved at {saves}")
     if len(hf_bias) != layers - model["first_k_dense_replace"] or bias_dtypes != ["torch.float32"]:
         raise AssertionError(f"{name}: step_{MOONLIGHT_STEPS}/hf correction biases {hf_bias} "
                              f"{bias_dtypes}")
-    if not any(n.endswith("self_attn.kv_a_proj_with_mqa.weight") for n in hf_names):
+    if not any(n.endswith("self_attn.kv_a_proj_with_mqa.weight") for n in run["hf_names"]):
         raise AssertionError(f"{name}: step_{MOONLIGHT_STEPS}/hf lacks DeepSeek's MLA names")
-    if differ:
-        raise AssertionError(f"{name}: hf/ reloaded differs from the final parameters in {differ}")
-    if launches != want:
-        raise AssertionError(f"{name}: kernel launches {launches} != expected {want}")
-    return routed
+    return run["routed"]
+
+
+def _gemma2_train_ft_path(name):
+    """examples/llm_finetune/gemma2_9b_sft.yaml through train_ft (main path 20), its
+    dataset section swapped for mock data (gemma2_sft_config) and its model a local HF
+    directory of a random-init model at Gemma-2-27B's widths, GEMMA2_LAYERS_TRAIN_FT
+    layers (one sliding, one full), written by write_pretrained (gemma2_sft_args: bf16,
+    2 microbatches of one row of 4096, GEMMA2_STEPS steps, a checkpoint with the
+    consolidated HF export every 2 steps). The vocab rule picks linear CE (no final cap,
+    as JAX's train_ft). Checks: finite losses, the first within 0.5 of the random-init
+    loss; the launches, every flash launch soft-capped and the sliding layer's windowed;
+    step_N/hf holding Gemma's sandwich-norm names and reloading bitwise."""
+    import torch
+
+    _release()
+    layers, micro = GEMMA2_LAYERS_TRAIN_FT, 2
+    model = dict(GEMMA2_27B, num_hidden_layers=layers)
+    with tempfile.TemporaryDirectory() as tmp:
+        hf_dir = write_pretrained(os.path.join(tmp, "gemma2"), model)
+        ckpt = os.path.join(tmp, "ckpts")
+        run = _pretrained_run(name, ["-c", gemma2_sft_config(tmp), *gemma2_sft_args(hf_dir, ckpt),
+                                     "--output_dir", os.path.join(tmp, "run")], ckpt,
+                              reload_dtype=torch.bfloat16)
+    want = _expected(layers, micro, GEMMA2_STEPS, True)
+    norms = [n for n in run["hf_names"] if n.endswith((
+        "pre_feedforward_layernorm.weight", "post_feedforward_layernorm.weight"))]
+    print(f"{name}: train_ft on {_shown(GEMMA2_SFT_YAML)} (dataset swapped for mock data; "
+          f"{layers} layers of Gemma-2-27B from a local HF directory, bf16, loss "
+          f"{run['loss_name']}, rows of 4096), {_shown_run(run)}, step_{GEMMA2_STEPS}/hf "
+          f"{len(run['hf_names'])} tensors ({len(norms)} feed-forward sandwich norms), "
+          f"reloaded through from_pretrained: "
+          f"{'bitwise equal' if not run['hf_differ'] else run['hf_differ']}, launches "
+          f"{run['launches']} (expected {want})", flush=True)
+    _check_pretrained_run(name, run, range(1, GEMMA2_STEPS + 1), want,
+                          saves=[2, GEMMA2_STEPS],
+                          first_loss=random_init_loss(model["vocab_size"], model["hidden_size"],
+                                                      model["initializer_range"],
+                                                      tied_self_logit(model)))
+    if run["loss_name"] != "linear_ce" or len(norms) != 2 * layers:
+        raise AssertionError(f"{name}: loss {run['loss_name']}, sandwich norms {norms}")
+    _check_windowed(name, run["routed"], sum(_port_config(model).sliding_flags), micro,
+                    GEMMA2_STEPS)
+    _check_softcap(name, run["routed"], _capped_layers(model), micro, GEMMA2_STEPS)
+    _check_head_dim(name, run["routed"], _head_dim(model))
+    return run["routed"]
 
 
 def _cp_train_ft_args(layers=CP_LAYERS_TRAIN_FT) -> list[str]:
@@ -3085,6 +3308,13 @@ def main(argv: list[str]) -> int:
     for key, window in (("at_phi3", None), ("at_phi3_window", PHI3_MINI["sliding_window"])):
         for name, row in _timings(torch, fa, 4, 2048, 32, 32, 96, window).items():
             timings[name][key] = row
+    # (G2) main path 19's attention, Gemma-2-27B's heads at its query scale, without and
+    # with its cap
+    for key, cap in (("at_gemma2", None),
+                     ("at_gemma2_softcap", GEMMA2_27B["attn_logit_softcapping"])):
+        for name, row in _timings(torch, fa, 2, 2048, 32, 16, 128, softcap=cap,
+                                  scale=GEMMA2_27B["query_pre_attn_scalar"]**-0.5).items():
+            timings[name][key] = row
     _refused_on_the_card(torch, fa)
     _ring_refused_on_the_card(torch)
     _model_check(torch)
@@ -3153,6 +3383,11 @@ def main(argv: list[str]) -> int:
     by_path["main path 16"] = _moonlight_train_ft_path("main path 16")
     by_path["main path 17"], _ = _bench_path("main path 17", DSV3_PROXY_YAML, linear_ce=True,
                                              overrides=moonlight_ring_args())
+    by_path["main path 18"], _ = _bench_path("main path 18", GEMMA3_PROXY_YAML, linear_ce=True,
+                                             overrides=gemma3_proxy_args())
+    by_path["main path 19"], _ = _bench_path("main path 19", GEMMA3_PROXY_YAML, linear_ce=True,
+                                             overrides=gemma2_args())
+    by_path["main path 20"] = _gemma2_train_ft_path("main path 20")
 
     flash = "automodel_tpu/ops/pallas/flash_attention.py"
     lce_src = "automodel_tpu/ops/pallas/linear_ce.py"
@@ -3201,9 +3436,11 @@ def main(argv: list[str]) -> int:
             row["launches_by_dims"] = {
                 dims: sum(counts.get(f"{name}/{dims}", 0) for counts in by_path.values())
                 for dims in ("d64v64", "d128v128", "d192v128")}
-        if name.startswith("flash_"):  # the launches with a sliding window, by head dim
+        if name.startswith("flash_"):  # the launches with a window, a cap, by head dim
             row["launches_windowed"] = {p: counts.get(f"{name}/windowed", 0)
                                         for p, counts in by_path.items()}
+            row["launches_softcap"] = {p: counts.get(f"{name}/softcap", 0)
+                                       for p, counts in by_path.items()}
             row["launches_by_head_dim"] = {
                 f"d{d}": sum(counts.get(f"{name}/d{d}", 0) for counts in by_path.values())
                 for d in fa._HEAD_DIMS}

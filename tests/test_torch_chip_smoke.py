@@ -49,6 +49,31 @@ def test_random_init_loss_matches_the_model(hidden):
         assert loss - math.log(vocab) > 0.5
 
 
+@pytest.mark.parametrize("hidden,layers", [(1024, 2), (2048, 4)])
+def test_random_init_loss_counts_gemmas_tied_self_logit(hidden, layers):
+    """A random-init Gemma-2 (embedding scaled by sqrt(hidden), tied to the unembedding)
+    scores the input token itself at about tied_self_logit: its linear-CE loss on random
+    labels (the recipes' loss at a large vocabulary) is the logsumexp of that logit and
+    the vocabulary's, within 0.3 (path 19's check allows 0.5)."""
+    from automodel_tpu_torch.models.gemma.model import GemmaForCausalLM
+    from automodel_tpu_torch.ops.losses import linear_cross_entropy
+
+    hf = dict(chip_smoke.GEMMA2_27B, hidden_size=hidden, intermediate_size=256,
+              num_hidden_layers=layers, num_attention_heads=hidden // 128,
+              num_key_value_heads=hidden // 256, vocab_size=1000)
+    model = GemmaForCausalLM.from_config(hf, BackendConfig(dtype="float32", remat_policy="full"),
+                                         device="cpu", generator=torch.Generator().manual_seed(0))
+    rng = np.random.RandomState(0)
+    ids, labels = (torch.tensor(rng.randint(0, 1000, (2, 64))) for _ in range(2))
+    with torch.no_grad():
+        loss = linear_cross_entropy(model(ids, return_hidden=True),
+                                    model.param_dict()["embed"].t(), labels).item()
+    self_logit = chip_smoke.tied_self_logit(hf)
+    assert self_logit > 6  # of the order of ln(vocab) or above
+    assert abs(loss - chip_smoke.random_init_loss(1000, hidden, 0.02, self_logit)) < 0.3
+    assert chip_smoke.tied_self_logit(dict(hf, tie_word_embeddings=False)) == 0.0
+
+
 def test_expected_launches_of_the_ring_paths():
     want = chip_smoke._expected(4, 1, 7, True, ring_cp=8)
     assert (want["ring_fwd"], want["ring_bwd"], want["flash_fwd"], want["flash_dq"]) == (
@@ -418,7 +443,8 @@ def test_phase_order():
     """The twice-launch phase runs first, the kernel cases next (the ring's at (192, 128)
     after its others), then the main paths in order, the deterministic ones (main paths 9
     and 10 under the flag, in a child process) before GPT-OSS's (main paths 11 and 12),
-    Phi-3's (13 and 14) and the DeepSeek family's (15-17), then the kernels line."""
+    Phi-3's (13 and 14), the DeepSeek family's (15-17) and Gemma's (18-20), then the
+    kernels line."""
     src = inspect.getsource(chip_smoke.main)
     order = ["_twice_phase(", "_flash_phase(", "_timings(", "_window_timings(",
              "_refused_on_the_card(", "_ring_refused_on_the_card(", "_model_check(",
@@ -427,7 +453,8 @@ def test_phase_order():
              '"main path 4"', '"main path 5"', '"main path 6"', '"main path 7"',
              '"main path 8"', '"main path 9"', "_deterministic_paths()", '"main path 11"',
              '"main path 12"', '"main path 13"', '"main path 14"', '"main path 15"',
-             '"main path 16"', '"main path 17"', '{"kernels"']
+             '"main path 16"', '"main path 17"', '"main path 18"', '"main path 19"',
+             '"main path 20"', '{"kernels"']
     at = [re.search(r"(?<!\w)" + re.escape(x), src).start() for x in order]
     assert at == sorted(at)
     child = inspect.getsource(chip_smoke._deterministic_child)
@@ -677,3 +704,87 @@ def test_deepseek_configs_run_through_both_recipes(tmp_path):
     reloaded = AutoModelForCausalLM.from_pretrained(step_hf, dtype=torch.bfloat16,
                                                     device="cpu").param_dict()
     assert all(torch.equal(v, reloaded[k]) for k, v in recipe.params.items())
+
+
+def test_expected_launches_of_the_gemma_paths():
+    """Main path 18: the Gemma-3 proxy as it stands with flash attention, 12 layers (10
+    sliding at window 1024, 2 full), 7 steps of one microbatch, linear CE, no soft-cap;
+    main path 19: Gemma-2-27B's widths over it at 4 layers (2 sliding), every launch
+    capped; main path 20: 2 layers (1 sliding), 2 microbatches, 4 steps, every launch
+    capped; all at head_dim 128. A capped count off by one fails its path."""
+    steps = chip_smoke.WARMUP + chip_smoke.TIMED
+    cfg = parse_args_and_load_config(["-c", chip_smoke.GEMMA3_PROXY_YAML,
+                                      *chip_smoke.gemma3_proxy_args()])
+    assert cfg.backend.attention == "flash" and cfg.model.config.architectures == [
+        "Gemma3ForCausalLM"]
+    assert chip_smoke._sliding_layers(cfg) == 10
+    assert chip_smoke._capped_layers(cfg.model.config) == 0
+    cfg = parse_args_and_load_config(["-c", chip_smoke.GEMMA3_PROXY_YAML,
+                                      *chip_smoke.gemma2_args()])
+    model = chip_smoke._port_config(cfg.model.config)
+    assert (model.hidden_size, model.intermediate_size, model.num_attention_heads,
+            model.num_key_value_heads, model.head_dim, model.vocab_size) == (
+        4608, 36864, 32, 16, 128, 256000)
+    assert (model.attn_logit_softcapping, model.final_logit_softcapping,
+            model.query_pre_attn_scalar, model.sliding_window, model.qk_norm) == (
+        50.0, 30.0, 144, 4096, False)
+    assert model.sliding_flags == [True, False, True, False]
+    assert chip_smoke._capped_layers(cfg.model.config) == 4
+    assert cfg.dataset.vocab_size == 256000 and cfg.backend.attention == "flash"
+    for layers, micro, n_steps, sliding, capped, n in (
+            (12, 1, steps, 10, 0, 84), (chip_smoke.GEMMA2_LAYERS, 1, steps, 2, 4, 28),
+            (chip_smoke.GEMMA2_LAYERS_TRAIN_FT, 2, chip_smoke.GEMMA2_STEPS, 1, 2, 16)):
+        want = chip_smoke._expected(layers, micro, n_steps, True)
+        assert (want["flash_fwd"], want["flash_dq"], want["flash_dkv"]) == (2 * n, n, n)
+        assert (want["lce_fwd"], want["lce_bwd"]) == (micro * n_steps, micro * n_steps)
+        flash = ("flash_fwd", "flash_dq", "flash_dkv")
+        launches = dict(want, **{f"{k}/windowed": want[k] * sliding // layers for k in flash},
+                        **{f"{k}/softcap": want[k] * capped // layers for k in flash})
+        chip_smoke._check_windowed("path", launches, sliding, micro, n_steps)
+        chip_smoke._check_softcap("path", launches, capped, micro, n_steps)
+        with pytest.raises(AssertionError, match="soft-capped"):
+            chip_smoke._check_softcap("path", dict(launches, **{"flash_dq/softcap": n + 1}),
+                                      capped, micro, n_steps)
+    small = dict(chip_smoke.GEMMA2_27B, num_hidden_layers=chip_smoke.GEMMA2_LAYERS_TRAIN_FT)
+    assert sum(chip_smoke._port_config(small).sliding_flags) == 1
+    assert chip_smoke._capped_layers(small) == 2 and chip_smoke._head_dim(small) == 128
+
+
+SMALL_GEMMA = ["--model.config.hidden_size", "64", "--model.config.intermediate_size", "128",
+               "--model.config.num_attention_heads", "4", "--model.config.num_key_value_heads",
+               "2", "--model.config.head_dim", "16", "--model.config.vocab_size", "512",
+               "--dataset.vocab_size", "512", "--dataset.seq_len", "64", "--seq_len", "64",
+               "--device", "cpu"]
+
+
+def test_gemma_configs_run_through_both_recipes(tmp_path):
+    """Main paths 18-20 at small widths on the CPU: the Gemma-3 proxy (5:1 windows, q / k
+    norms, dual RoPE) and Gemma-2-27B's settings over it (gemma2_args: caps, alternating
+    windows) in the benchmark recipe; gemma2_9b_sft.yaml with its dataset swapped
+    (gemma2_sft_config) and gemma2_sft_args from a local HF directory, through the shared
+    _pretrained_run for 2 steps with a save at step 2, whose hf/ holds Gemma's names and
+    reloads bitwise."""
+    bench = ["--benchmark.warmup_steps", "1", "--benchmark.timed_steps", "1",
+             "--micro_batch_size", "2"]
+    for name, args in (("p18", ["--model.config.num_hidden_layers", "6",
+                                *chip_smoke.gemma3_proxy_args()]),
+                       ("p19", chip_smoke.gemma2_args(2))):
+        result = benchmark.main(argv=["-c", chip_smoke.GEMMA3_PROXY_YAML, *args, *SMALL_GEMMA,
+                                      *bench, "--output_dir", str(tmp_path / name)])
+        assert len(result["losses"]) == 2 and all(map(math.isfinite, result["losses"]))
+
+    small = dict(chip_smoke.GEMMA2_27B, hidden_size=64, intermediate_size=128,
+                 num_attention_heads=4, num_key_value_heads=2, head_dim=16, vocab_size=512,
+                 num_hidden_layers=chip_smoke.GEMMA2_LAYERS_TRAIN_FT)
+    hf = chip_smoke.write_pretrained(str(tmp_path / "hf"), small, device="cpu")
+    ckpt = str(tmp_path / "ck")
+    path = chip_smoke.gemma2_sft_config(str(tmp_path))
+    run = chip_smoke._pretrained_run("p20", [
+        "-c", path, *chip_smoke.gemma2_sft_args(hf, ckpt), "--dataset.vocab_size", "512",
+        "--dataset.seq_len", "64", "--seq_len", "64", "--step_scheduler.grad_acc_steps", "1",
+        "--step_scheduler.max_steps", "2", "--device", "cpu",
+        "--output_dir", str(tmp_path / "p20")], ckpt, reload_dtype=torch.bfloat16)
+    chip_smoke._check_pretrained_run("p20", run, range(1, 3), run["launches"], saves=[2])
+    assert run["loss_name"] == "masked_ce" and run["hf_differ"] == []
+    assert "model.layers.1.pre_feedforward_layernorm.weight" in run["hf_names"]
+    assert "lm_head.weight" not in run["hf_names"]  # tied

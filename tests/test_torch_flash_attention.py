@@ -123,8 +123,8 @@ def test_plain_version_matches_pallas(name, fused, monkeypatch):
 
 @pytest.mark.parametrize("option", ["sliding_window", "logit_soft_cap", "sinks"])
 def test_plain_version_options_match_pallas(option):
-    """Window, soft-cap and sinks in the plain version (the CUDA kernels take the window
-    and sinks and raise on soft-cap) match the Pallas kernel, forward and gradients."""
+    """Window, soft-cap and sinks in the plain version (the CUDA kernels take all three)
+    match the Pallas kernel, forward and gradients."""
     q, k, v, do = _inputs(11, 1, 64, 4, 2, 16)
     sinks = np.random.RandomState(12).randn(4).astype(np.float32)
     value = {"sliding_window": 16, "logit_soft_cap": 2.0, "sinks": sinks}[option]
@@ -141,14 +141,17 @@ def test_plain_version_options_match_pallas(option):
 
 @pytest.mark.parametrize("kw,err", [
     (dict(sliding_window=8), ValueError),  # a kernel feature: the kernels' check refuses meta
-    (dict(logit_soft_cap=1.0), NotImplementedError),  # no kernel takes it yet
+    (dict(logit_soft_cap=1.0), ValueError),  # a kernel feature, as the window
     (dict(sinks=torch.zeros(2)), ValueError),  # a kernel feature, as the window
     (dict(), ValueError),  # not a CUDA tensor
+    (dict(head_dim=256), NotImplementedError),  # no kernel takes it yet
 ])
 def test_non_cpu_tensors_never_fall_back(kw, err):
     """A tensor off the CPU goes to the kernels or raises: never to the plain version.
-    The window and sinks reach the kernels' input check; soft-cap raises by name."""
-    q = torch.empty(1, 64, 2, 64, dtype=torch.bfloat16, device="meta")
+    The window, soft-cap and sinks reach the kernels' input check; head_dim 256 raises
+    by name."""
+    kw = dict(kw)
+    q = torch.empty(1, 64, 2, kw.pop("head_dim", 64), dtype=torch.bfloat16, device="meta")
     before = dict(tfa.LAUNCHES)
     with pytest.raises(err):
         tfa.flash_attention(q, q, q, **kw)
@@ -350,6 +353,90 @@ def test_head_dim_96_reaches_the_entry_points(monkeypatch):
     torch.autograd.grad(o, (q, k, v), do)
     for name, args in seen.items():
         ints, floats = [a for a in args if type(a) is int], [a for a in args if type(a) is float]
-        assert 96 in ints and floats == [96**-0.5], name
+        assert 96 in ints and floats == [96**-0.5, 0.0], name  # the scale; no soft-cap
     assert {n: tfa.HEAD_DIM_LAUNCHES[n] - before[n] for n in before} == {
         n: int(n.endswith("/d96")) for n in before}
+
+
+SOFTCAP_CASES = {
+    # (shape (B, S, H, KH, D), causal, cap, window, segments, sinks): c = 0.5 saturates tanh
+    # at these scores (s scale ~ N(0, 1))
+    "cap_2": ((2, 64, 4, 2, 16), True, 2.0, None, False, False),
+    "cap_half_non_causal": ((1, 64, 2, 2, 16), False, 0.5, None, False, False),
+    "cap_window_segments": ((2, 64, 4, 2, 16), True, 2.0, 12, True, False),
+    "cap_sinks": ((1, 64, 4, 2, 16), True, 0.5, None, False, True),
+    "cap_d96": ((1, 64, 4, 2, 96), True, 2.0, 20, False, False),
+}
+
+
+@pytest.mark.parametrize("name", list(SOFTCAP_CASES))
+def test_softcap_split_plain_versions_match_pallas_split_kernels(name, monkeypatch):
+    """With the tanh logit soft-cap (alone, saturating, with a window and segments, with
+    sinks, at head_dim 96): the plain forward against JAX's forward kernel (O),
+    flash_dq_reference / flash_dkv_reference with ``logit_soft_cap``, from its lse and
+    delta, against JAX's split kernels (_dq_kernel, _dkv_kernel: interpret mode, fused
+    backward off), and the plain version's own autograd against both."""
+    monkeypatch.setenv("AUTOMODEL_FLASH_FUSED_BWD", "0")
+    shape, causal, cap, window, segments, with_sinks = SOFTCAP_CASES[name]
+    q, k, v, do = _inputs(40 + sorted(SOFTCAP_CASES).index(name), *shape)
+    b, s, h = shape[:3]
+    sinks = np.random.RandomState(4).randn(h).astype(np.float32) if with_sinks else None
+    seg_q = seg_kv = None
+    if segments:
+        seg_q, seg_kv = _segments(b, s, pad_row_fully_masked=True)
+    kw = dict(causal=causal, sliding_window=window, logit_soft_cap=cap)
+    tseg = {} if seg_q is None else dict(segment_ids_q=torch.tensor(seg_q),
+                                         segment_ids_kv=torch.tensor(seg_kv))
+    jseg = {} if seg_q is None else dict(segment_ids_q=jnp.asarray(seg_q),
+                                         segment_ids_kv=jnp.asarray(seg_kv))
+    tsinks = None if sinks is None else torch.tensor(sinks)
+    qt, kt, vt, dot = (torch.tensor(x, requires_grad=True) for x in (q, k, v, do))
+    o, lse = tfa.flash_attention_reference(qt, kt, vt, sinks=tsinks, **kw, **tseg)
+    autograd = torch.autograd.grad(o, (qt, kt, vt), dot)
+    o, lse, dot = o.detach(), lse.detach(), dot.detach()
+    delta = tfa._delta(o, dot)
+    dq = tfa.flash_dq_reference(qt, kt, vt, dot, lse, delta, **kw, **tseg)
+    dk, dv = tfa.flash_dkv_reference(qt, kt, vt, dot, lse, delta, **kw, **tseg)
+
+    def f(q_, k_, v_):
+        out = jfa.flash_attention(q_, k_, v_, interpret=True, block_q=32, block_k=32,
+                                  sinks=None if sinks is None else jnp.asarray(sinks), **kw,
+                                  **jseg)
+        return jnp.sum(out * jnp.asarray(do)), out
+
+    (_, o_j), grads_j = jax.value_and_grad(f, argnums=(0, 1, 2), has_aux=True)(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    np.testing.assert_allclose(o.numpy(), np.asarray(o_j), atol=ATOL_FWD, rtol=0)
+    for got, auto, want in zip((dq, dk, dv), autograd, grads_j):
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), atol=ATOL_GRAD,
+                                   rtol=0)
+        np.testing.assert_allclose(auto.numpy(), np.asarray(want), atol=ATOL_GRAD, rtol=0)
+
+
+@pytest.mark.parametrize("window", [None, 100], ids=["causal", "window"])
+def test_softcap_reaches_the_entry_points(window, monkeypatch):
+    """The wrappers pass the cap c to all three entry points beside the scale (0.0 without
+    one) and count the capped launches apart; a cap that is not positive raises."""
+    seen = {}
+
+    def launch(source, name, device, *args):
+        assert len(args) + 1 == len(build.SOURCES[source][name]), name
+        seen[name] = args
+
+    monkeypatch.setattr(build, "launch", launch)
+    monkeypatch.setattr(tfa, "_check_cuda", lambda *a: None)  # CPU tensors stand in
+    q, k, v, do = (torch.tensor(x).to(torch.bfloat16).requires_grad_()
+                   for x in _inputs(0, 1, 64, 4, 2, 128))
+    before, before_c = dict(tfa.LAUNCHES), dict(tfa.SOFTCAP_LAUNCHES)
+    o, _ = tfa.flash_attention_cuda(q, k, v, softmax_scale=144**-0.5, sliding_window=window,
+                                    logit_soft_cap=50.0)
+    torch.autograd.grad(o, (q, k, v), do)
+    for name, args in seen.items():
+        assert [a for a in args if type(a) is float] == [144**-0.5, 50.0], name
+        assert args[-2:] == ((0, 0) if window is None else (1, window)), name
+    assert {n: tfa.LAUNCHES[n] - before[n] for n in before} == dict.fromkeys(before, 1)
+    assert {n: tfa.SOFTCAP_LAUNCHES[n] - before_c[n] for n in before_c} == dict.fromkeys(
+        before_c, 1)
+    for bad in (0.0, -1.0):
+        with pytest.raises(ValueError, match="logit_soft_cap"):
+            tfa.flash_attention_cuda(q, k, v, logit_soft_cap=bad)
