@@ -67,6 +67,9 @@ class MoEDecoderConfig(DenseDecoderConfig):
         the GQA block's here; a family with another attention overrides it."""
         return {n: s for n, s in layer_shapes(self).items() if n not in _DENSE_MLP}
 
+    def param_shapes(self) -> dict[str, tuple[int, ...]]:
+        return moe_decoder_param_shapes(self)
+
 
 def moe_decoder_param_shapes(cfg: MoEDecoderConfig) -> dict[str, tuple[int, ...]]:
     """Flat name -> shape of every parameter, named as the JAX tree flattens them: the

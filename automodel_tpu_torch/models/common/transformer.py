@@ -75,6 +75,11 @@ class DenseDecoderConfig:
             return [True] * self.num_hidden_layers
         return [False] * self.num_hidden_layers
 
+    def param_shapes(self) -> dict[str, tuple[int, ...]]:
+        """Flat name -> shape of every parameter of this config's model: the hook
+        through which a family with its own tree gives its shapes."""
+        return param_shapes(self)
+
 
 def layer_windows(cfg: DenseDecoderConfig) -> list[int | None]:
     """Each layer's sliding window, or None. JAX gives a full layer of a mixed stack a

@@ -32,7 +32,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
-from automodel_tpu_torch.models.common.backend import BackendConfig, checkpoint_name
+from automodel_tpu_torch.models.common.backend import BackendConfig
 from automodel_tpu_torch.models.common.param_module import ParamModule
 from automodel_tpu_torch.models.common.transformer import init_params, project, resolve_unembed
 from automodel_tpu_torch.ops.attention import dot_product_attention
@@ -109,6 +109,9 @@ class GemmaConfig:
             return [t == "sliding_attention" for t in self.layer_types]
         return [False] * self.num_hidden_layers
 
+    def param_shapes(self) -> dict[str, tuple[int, ...]]:
+        return gemma_param_shapes(self)
+
 
 def text_config(hf: dict[str, Any]) -> dict[str, Any]:
     """The text model's config of an HF dict: a multimodal wrapper's ``text_config``
@@ -158,10 +161,10 @@ def gemma_layer(cfg, backend, names, h, segment_ids, rope, window, *weights):
         q = rms_norm(q, lp["q_norm"], eps, offset=1.0)
         k = rms_norm(k, lp["k_norm"], eps, offset=1.0)
     q, k = apply_rope_tables(q, *rope), apply_rope_tables(k, *rope)
-    out = checkpoint_name(dot_product_attention(
+    out = dot_product_attention(
         q, k, v, causal=cfg.causal, segment_ids_q=segment_ids, sliding_window=window,
         softmax_scale=float(cfg.query_pre_attn_scalar) ** -0.5,
-        logit_soft_cap=cfg.attn_logit_softcapping, backend=backend.attention), "attn_out")
+        logit_soft_cap=cfg.attn_logit_softcapping, backend=backend.attention)
     h = h + rms_norm(project(out, lp["wo"], 2), lp["post_attn_norm"], eps, offset=1.0)
     x = rms_norm(h, lp["pre_ffn_norm"], eps, offset=1.0)
     act = F.gelu(project(x, lp["w_gate"], 1), approximate="tanh") * project(x, lp["w_up"], 1)

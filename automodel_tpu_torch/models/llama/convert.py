@@ -1,5 +1,5 @@
-"""Carry a JAX model's parameter tree across to the PyTorch model (Llama, the MoE
-decoders and Gemma).
+"""Carry a JAX model's parameter tree across to the PyTorch model (any family whose
+config gives its parameters' shapes through ``param_shapes()``).
 
 The tree is the JAX package's nested dict (stacked ``(L, ...)`` layer leaves) with
 numpy leaves, as ``jax.device_get`` returns it; nothing here imports JAX.
@@ -11,11 +11,6 @@ from typing import Any, Mapping
 
 import numpy as np
 import torch
-
-from automodel_tpu_torch.models.common.moe_transformer import (MoEDecoderConfig,
-                                                               moe_decoder_param_shapes)
-from automodel_tpu_torch.models.common.transformer import DenseDecoderConfig, param_shapes
-from automodel_tpu_torch.models.gemma.model import GemmaConfig, gemma_param_shapes
 
 __all__ = ["check_params", "flatten", "params_from_jax", "to_torch"]
 
@@ -39,23 +34,17 @@ def flatten(tree: Mapping[str, Any], prefix: str = "") -> dict[str, Any]:
     return flat
 
 
-def params_from_jax(tree: Mapping[str, Any],
-                    cfg: DenseDecoderConfig | GemmaConfig) -> dict[str, torch.Tensor]:
+def params_from_jax(tree: Mapping[str, Any], cfg: Any) -> dict[str, torch.Tensor]:
     """Flat state dict (``embed``, ``layers.wq``, ``moe_layers.moe.experts.down_proj``, ...)
     of the port's model, checked name by name and shape by shape against ``cfg``."""
     return check_params({name: to_torch(leaf) for name, leaf in flatten(tree).items()}, cfg,
                         "JAX tree")
 
 
-def check_params(flat: dict[str, torch.Tensor], cfg: DenseDecoderConfig | GemmaConfig,
+def check_params(flat: dict[str, torch.Tensor], cfg: Any,
                  what: str = "state dict") -> dict[str, torch.Tensor]:
-    """``flat``, after checking its names and shapes against the model of ``cfg``."""
-    if isinstance(cfg, GemmaConfig):  # its own tree: sandwich norms, q / k norms
-        want = gemma_param_shapes(cfg)
-    elif isinstance(cfg, MoEDecoderConfig):
-        want = moe_decoder_param_shapes(cfg)
-    else:
-        want = param_shapes(cfg)
+    """``flat``, after checking its names and shapes against ``cfg.param_shapes()``."""
+    want = cfg.param_shapes()
     if set(flat) != set(want):
         raise KeyError(f"{what} does not match the config: missing "
                        f"{sorted(set(want) - set(flat))}, unexpected {sorted(set(flat) - set(want))}")

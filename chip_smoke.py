@@ -19,7 +19,7 @@ Phases, in order; any failure exits non-zero before the last line:
    biases' gathers at main path 11's shape); fails if flash_dq, flash_dkv, ring_dq,
    ring_dkv or a bias gather differs;
 3. flash_fwd and the backward (flash_dq + flash_dkv) against their plain version (f32
-   from the same bf16 inputs) in thirty-four cases: (a) the Llama-3.2-1B training
+   from the same bf16 inputs) in thirty-six cases: (a) the Llama-3.2-1B training
    shape, (b) packed segments with right padding, (c) non-causal, (d) a 16k sequence, (e) the shape and segments of
    main path 3 (rows of 4096 packed by pack_dataset from 1000-token documents); at
    head_dim 128: (f) the Qwen3-30B-A3B training shape, (g) case e's rows and segments;
@@ -36,7 +36,9 @@ Phases, in order; any failure exits non-zero before the last line:
    (Gemma-2's c = 50 at its scale 144^-0.5, and c = 2 at scale 1, where tanh saturates):
    (ca) D=64 causal, (cb) Gemma-2-27B's heads with a window, (cc) D=96 packed, (cd) the
    saturating cap at D=64 windowed and packed, (ce) at D=128 non-causal with segment
-   boundaries inside tiles, (cf) at D=96, (cg) sinks, a window and the cap at D=128;
+   boundaries inside tiles, (cf) at D=96, (cg) sinks, a window and the cap at D=128, (ch)
+   the same at the saturating cap, (ci) Gemma-2-27B's heads with q scaled by 16, where
+   its cap c = 50 bites;
 4. flash kernel times (flash_fwd, flash_dq, flash_dkv) at shapes (a) and (f) beside the
    bound, the plain version and SDPA, and the whole backward as the wrapper runs it
    (delta, flash_dq, flash_dkv) beside SDPA's backward (one phase alone:
@@ -48,7 +50,9 @@ Phases, in order; any failure exits non-zero before the last line:
    then at Phi-3-mini's shape (P: B=4, S=2048, H=KH=32, D=96) causal and with its window
    2047, beside SDPA (the window as a boolean mask); then at Gemma-2-27B's heads (G2:
    B=2, S=2048, H=32, KH=16, D=128, causal, scale 144^-0.5) without and with its cap c =
-   50, beside SDPA without a cap (no PyTorch call computes the capped function); then
+   50, beside SDPA, and the capped rows beside FlexAttention with the tanh cap as its
+   score_mod (compiled once, forward and backward; its output held against flash_fwd's)
+   and SDPA without a cap; then
    head_dim 80 and 256 must raise NotImplementedError on the card and launch nothing, and
    so must the ring kernels at (D, Dv) = (96, 64) and (192, 192);
 5. Llama-3.2-1B width at 2 layers: one forward and backward with attention "flash"
@@ -744,13 +748,15 @@ def _deterministic(torch, on=True):
 
 
 def _kernel_case(torch, fa, name, b, s, h, kh, causal, seg=None, d=64, window=None,
-                 sinks=False, softcap=None, scale=None):
+                 sinks=False, softcap=None, scale=None, q_scale=1):
     """flash_fwd and the backward (flash_dq, flash_dkv) through flash_attention_cuda
     against the plain version, with a sliding ``window``, per-head ``sinks`` (f32
     logits ~ N(0, 2^2), the sinks' gradient from lse and delta held against the plain
-    version's autograd), the logit soft-cap ``softcap`` and the softmax ``scale`` (None:
-    d^-0.5); returns the largest errors (O, dq, dk / dv)."""
+    version's autograd), the logit soft-cap ``softcap``, the softmax ``scale`` (None:
+    d^-0.5) and q ~ N(0, ``q_scale``^2) (a power of 2: exact in bf16); returns the
+    largest errors (O, dq, dk / dv)."""
     q, k, v, do = _inputs(torch, b, s, h, kh, d)
+    q = q * q_scale
     g = torch.Generator(device="cuda").manual_seed(s + h)
     sink = torch.randn(h, device="cuda", generator=g) * 2.0 if sinks else None
     qk, kk, vk = (x.clone().requires_grad_() for x in (q, k, v))
@@ -771,7 +777,8 @@ def _kernel_case(torch, fa, name, b, s, h, kh, causal, seg=None, d=64, window=No
     err = [(a.float() - r).abs().max().item() for a, r in zip(grads, grads_ref)]
     print(f"case {name}: B={b} S={s} H={h} KH={kh} D={d} causal={causal} "
           f"segments={seg is not None} window={window} sinks={sinks}"
-          + (f" softcap={softcap} scale={scale}" if softcap is not None else "") + ": "
+          + (f" softcap={softcap} scale={scale}" if softcap is not None else "")
+          + (f" q_scale={q_scale}" if q_scale != 1 else "") + ": "
           f"O max abs {err_o:.3e} (tol {TOL_O}), lse max abs {err_lse:.3e} (tol {TOL_LSE}), "
           f"grad rel L2 dq (flash_dq) {rel[0]:.3e}, dk {rel[1]:.3e} dv {rel[2]:.3e} "
           f"(flash_dkv)" + (f", dsinks {rel[3]:.3e} (lse, delta)" if sinks else "")
@@ -870,7 +877,10 @@ def _flash_phase(torch, fa, errs):
     # where the scores ~ N(0, D) put most of tanh's arguments past its knee): ca D=64
     # causal, cb Gemma-2-27B's heads with its window, cc D=96 packed, cd-cf the saturating
     # cap at D=64 windowed and packed, D=128 with segment boundaries inside tiles and
-    # non-causal, D=96 causal, cg sinks with the cap and a window
+    # non-causal, D=96 causal, cg sinks with the cap and a window, ch the same at the
+    # saturating cap (the sinks ~ N(0, 2^2) beside logits within +-2), ci cb's heads with
+    # q ~ N(0, 16^2): tanh's arguments ~ N(0, 0.3^2) at c = 50, so the cap moves the
+    # logits by up to several units
     gemma = GEMMA2_27B["query_pre_attn_scalar"]**-0.5
     note(_kernel_case(torch, fa, "ca", 2, 2048, 16, 2, causal=True, softcap=50.0))
     note(_kernel_case(torch, fa, "cb", 2, 2048, 32, 16, causal=True, d=128, window=1024,
@@ -884,6 +894,10 @@ def _flash_phase(torch, fa, errs):
     note(_kernel_case(torch, fa, "cf", 2, 2048, 8, 2, causal=True, d=96, softcap=2.0, scale=1.0))
     note(_kernel_case(torch, fa, "cg", 2, 2048, 16, 4, causal=True, d=128, window=128,
                       sinks=True, softcap=50.0, scale=gemma))
+    note(_kernel_case(torch, fa, "ch", 2, 2048, 16, 4, causal=True, d=128, window=128,
+                      sinks=True, softcap=2.0, scale=1.0))
+    note(_kernel_case(torch, fa, "ci", 2, 2048, 32, 16, causal=True, d=128, window=1024,
+                      softcap=50.0, scale=gemma, q_scale=16))
 
 
 def _refused_on_the_card(torch, fa):
@@ -938,6 +952,29 @@ def _library_sdpa(torch, q, k, v, causal, mask=None, scale=None):
                                           enable_gqa=True, scale=scale).transpose(1, 2)
 
 
+def _library_flex(torch, s, cap, scale, window=None):
+    """The capped yardstick: FlexAttention, one PyTorch call computing c tanh(s scale / c)
+    (its ``score_mod``) before a causal (and with ``window``, sliding) block mask, wrapped
+    once in ``torch.compile``; a function of (q, k, v) laid out as (B, S, heads, D), with
+    k and v at their own heads. Timed here and used nowhere in the port."""
+    import torch._inductor.config as inductor_config
+    from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+
+    inductor_config.compile_threads = 1  # no pool of compile workers left behind
+
+    def softcap(score, b, h, i, j):
+        return cap * torch.tanh(score / cap)
+
+    def causal(b, h, i, j):
+        return (i >= j) if window is None else (i >= j) & (i - j < window)
+
+    mask = create_block_mask(causal, None, None, s, s, device="cuda")
+    flex = torch.compile(flex_attention)
+    return lambda q, k, v: flex(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                score_mod=softcap, block_mask=mask, scale=scale,
+                                enable_gqa=True).transpose(1, 2)
+
+
 def _flash_timing_inputs(torch, b, s, h, kh, d, device="cuda"):
     """The tensors a flash timing row times, (q, k, v, dO) at head dim ``d``, and the
     work they hold (:func:`_flash_work`)."""
@@ -948,11 +985,12 @@ def _flash_timing_inputs(torch, b, s, h, kh, d, device="cuda"):
 def _timings(torch, fa, b=4, s=2048, h=32, kh=8, d=64, window=None, softcap=None, scale=None):
     """ms of each kernel at shape (a), or at the shape (and sliding ``window``, logit
     ``softcap`` and softmax ``scale``: d^-0.5 by default) given, with bound, plain version
-    and SDPA (with a window: SDPA over the window as a boolean mask; with a cap: SDPA
-    without it, kept apart as sdpa_uncapped_ms, since no PyTorch call computes the capped
-    function), and of the whole backward as the wrapper runs it ("flash_backward": delta,
-    flash_dq and flash_dkv) beside SDPA's backward. The work behind the bound is read
-    from the timed tensors (and the pairs the window allows): the products only, as
+    and SDPA (with a window: SDPA over the window as a boolean mask; with a cap:
+    FlexAttention with the cap, :func:`_library_flex`, its output held against
+    flash_fwd's, and SDPA without the cap kept apart as sdpa_uncapped_ms), and of the
+    whole backward as the wrapper runs it ("flash_backward": delta, flash_dq and
+    flash_dkv) beside SDPA's (or FlexAttention's) backward. The work behind the bound is
+    read from the timed tensors (and the pairs the window allows): the products only, as
     without the cap (its tanh runs on other units than the tensor cores)."""
     (q, k, v, do), _ = _flash_timing_inputs(torch, b, s, h, kh, d)
     work = _flash_work(q, k, v, window)
@@ -984,6 +1022,19 @@ def _timings(torch, fa, b=4, s=2048, h=32, kh=8, d=64, window=None, softcap=None
     plain_bwd = _time_ms(torch, lambda: torch.autograd.grad(o_plain, (qp, kp, vp), do,
                                                             retain_graph=True))
     del o_plain
+    flex = {}
+    if softcap:  # FlexAttention computes the capped function: the yardstick
+        flex_fn = _library_flex(torch, s, softcap, scale, window)
+        flex["diff"] = (flex_fn(q, k, v).float() - o.float()).abs().max().item()
+        if not flex["diff"] <= TOL_O:
+            raise AssertionError(f"FlexAttention with the cap disagrees with flash_fwd: "
+                                 f"{flex['diff']:.3e}")
+        flex["fwd"] = _time_ms(torch, lambda: flex_fn(q, k, v))
+        ql, kl, vl = (x.clone().requires_grad_() for x in (q, k, v))
+        o_lib = flex_fn(ql, kl, vl)
+        flex["bwd"] = _time_ms(torch, lambda: torch.autograd.grad(o_lib, (ql, kl, vl), do,
+                                                                  retain_graph=True))
+        del o_lib, ql, kl, vl, flex_fn
     mask = None
     if window is not None:  # SDPA's masked kernels take no GQA: k, v at q's heads
         idx = torch.arange(s, device="cuda")
@@ -1016,16 +1067,24 @@ def _timings(torch, fa, b=4, s=2048, h=32, kh=8, d=64, window=None, softcap=None
         if lib is None:  # SDPA's backward gives dq, dk and dv together: a comparison only
             out[name]["library"] = "no single PyTorch call computes this part of the backward"
             out[name]["sdpa_bwd_ms"] = lib_bwd
-        if softcap:  # SDPA has no soft-cap: its time without one, not the same function
-            out[name]["library_ms"] = None
-            out[name]["library"] = "no single PyTorch call computes soft-capped attention"
+        if softcap:  # FlexAttention with the cap; SDPA without it (not the same function)
             out[name]["sdpa_uncapped_ms"] = lib_fwd if name == "flash_fwd" else lib_bwd
+            out[name]["library_max_abs_diff"] = flex["diff"]
+            if lib is None:  # a part of the backward: FlexAttention's whole one beside it
+                del out[name]["sdpa_bwd_ms"]
+                out[name]["flex_bwd_ms"] = flex["bwd"]
+            else:
+                out[name]["library"] = "FlexAttention, tanh score_mod, compiled"
+                out[name]["library_ms"] = flex["fwd" if name == "flash_fwd" else "bwd"]
         label = ("the backward (delta, flash_dq, flash_dkv)" if name == "flash_backward"
                  else name)
         print(f"time {label} at {shown}: {ms:.3f} ms, bound {out[name]['bound_ms']:.3f} ms "
               f"({out[name]['bound_by']}: {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB), "
               f"plain {plain:.3f} ms, "
-              + ("SDPA without the cap (not the same function) " if softcap else "")
+              + ((f"FlexAttention with the cap {flex['fwd']:.3f} ms" if name == "flash_fwd"
+                  else f"FlexAttention's backward {flex['bwd']:.3f} ms")
+                 + f" (O max abs diff to flash_fwd {flex['diff']:.3e}), "
+                 "SDPA without the cap (not the same function) " if softcap else "")
               + (f"SDPA {lib_fwd:.3f} ms" if name == "flash_fwd" else
                  f"SDPA backward {lib_bwd:.3f} ms")
               + (f", of it delta {delta_ms:.3f} ms" if name == "flash_backward" else ""),
@@ -1548,6 +1607,42 @@ def _mla_ring_phase(torch, errs):
     note(_ring_case(torch, "me", 3, 1, 1000, 16, 16, **mla))
 
 
+def _mla_ring_calls(torch, a, steps=(0, 1)):
+    """At (192, 128) shape ``a`` (MLA_RING): per ring step of ``steps`` its inputs and one
+    call each of ring_fwd, ring_dq and ring_dkv through the wrappers (keywords given to a
+    call go on to the wrapper), on the carry of a fresh ring and the lse / delta of one
+    whole ring forward; and that state (``kw``, ``q``, ``do``, ``pos``, ``lse``,
+    ``delta``, ``acc``, ``m``, ``l``)."""
+    from automodel_tpu_torch.ops import ring_chunk as rc
+    from automodel_tpu_torch.parallel import ring_attention as ra
+
+    f32 = dict(dtype=torch.float32, device="cuda")
+    cp, h, kh, d, dv = (a[n] for n in ("cp", "h", "kh", "d", "dv"))
+    kw = dict(scale=d**-0.5, causal=True, window=None, groups=h // kh, n_heads=h)
+    base = _ring_step_inputs(torch, 0, **a)
+    q, do, pos = base["q"], base["do"], base["pos_q"]
+    o, lse = ra.ring_flash_forward(q, base["k"], base["v"], pos, pos, None, None,
+                                   ra.FoldedRotation(cp), kw)
+    delta = (o.float() * do.float()).sum(-1)
+    del o
+    acc, m, l = (torch.zeros((*q.shape[:2], dv), **f32), torch.full(q.shape[:2], -1e30, **f32),
+                 torch.zeros(q.shape[:2], **f32))
+    dq = torch.zeros(q.shape, **f32)
+    dk, dvv = torch.zeros(base["k"].shape, **f32), torch.zeros(base["v"].shape, **f32)
+    calls = {}
+    for step in steps:
+        x = base if step == 0 else _ring_step_inputs(torch, step, **a)
+        k, v, pkv = x["k"], x["v"], x["pos_kv"]
+        calls[step] = (x, {
+            "ring_fwd": lambda k=k, v=v, pkv=pkv, **c: rc.ring_fwd(
+                q, k, v, pos, pkv, None, None, acc, m, l, **kw, **c),
+            "ring_dq": lambda k=k, v=v, pkv=pkv: rc.ring_dq(
+                q, k, v, pos, pkv, None, None, do, lse, delta, dq, **kw),
+            "ring_dkv": lambda k=k, v=v, pkv=pkv, **c: rc.ring_dkv(
+                q, k, v, pos, pkv, None, None, do, lse, delta, dk, dvv, **kw, **c)})
+    return calls, dict(kw=kw, q=q, do=do, pos=pos, lse=lse, delta=delta, acc=acc, m=m, l=l)
+
+
 def _mla_ring_timings(torch):
     """ms of ring_fwd, ring_dq and ring_dkv a launch at (192, 128) at shapes V and M
     (MLA_RING): the diagonal ring step and step 1 (every shard's chunk wholly allowed or
@@ -1556,33 +1651,14 @@ def _mla_ring_timings(torch):
     ring_fwd and ring_dkv count at each step held against tile_classes. No single
     PyTorch call computes a carried ring step, so there is no library time."""
     from automodel_tpu_torch.ops import ring_chunk as rc
-    from automodel_tpu_torch.parallel import ring_attention as ra
 
     out = {}
-    f32 = dict(dtype=torch.float32, device="cuda")
     for shape, a in MLA_RING.items():
         cp, h, kh, d, dv = (a[n] for n in ("cp", "h", "kh", "d", "dv"))
-        kw = dict(scale=d**-0.5, causal=True, window=None, groups=h // kh, n_heads=h)
-        base = _ring_step_inputs(torch, 0, **a)
-        q, do, pos = base["q"], base["do"], base["pos_q"]
-        o, lse = ra.ring_flash_forward(q, base["k"], base["v"], pos, pos, None, None,
-                                       ra.FoldedRotation(cp), kw)
-        delta = (o.float() * do.float()).sum(-1)
-        del o
-        acc, m, l = (torch.zeros((*q.shape[:2], dv), **f32), torch.full(q.shape[:2], -1e30, **f32),
-                     torch.zeros(q.shape[:2], **f32))
-        dq = torch.zeros(q.shape, **f32)
-        dk, dvv = torch.zeros(base["k"].shape, **f32), torch.zeros(base["v"].shape, **f32)
+        calls, st = _mla_ring_calls(torch, a)
         rows = out.setdefault(shape, {"ring_fwd": {}, "ring_dq": {}, "ring_dkv": {}})
-        for step in (0, 1):
-            x = base if step == 0 else _ring_step_inputs(torch, 1, **a)
-            k, v, pkv = x["k"], x["v"], x["pos_kv"]
-            fns = {"ring_fwd": lambda **c: rc.ring_fwd(q, k, v, pos, pkv, None, None, acc, m, l,
-                                                       **kw, **c),
-                   "ring_dq": lambda: rc.ring_dq(q, k, v, pos, pkv, None, None, do, lse, delta,
-                                                 dq, **kw),
-                   "ring_dkv": lambda **c: rc.ring_dkv(q, k, v, pos, pkv, None, None, do, lse,
-                                                       delta, dk, dvv, **kw, **c)}
+        for step, (x, fns) in calls.items():
+            pos, pkv = st["pos"], x["pos_kv"]
             work = _ring_work(x, h, kh, d, dv)
             for name, fn in fns.items():
                 row = {}
@@ -1602,11 +1678,12 @@ def _mla_ring_timings(torch):
                       f"{flops / 1e12:.3f} TFLOP over the step's allowed pairs; "
                       f"{nbytes / 1e6:.1f} MB), share {row['bound_ms'] / ms:.3f}", flush=True)
                 rows[name]["diagonal" if step == 0 else "step_1"] = row
-            del x, k, v, pkv, fns
         if shape == "M":
-            k, v = base["k"], base["v"]
+            q, do, pos, lse, delta, kw = (st[n] for n in ("q", "do", "pos", "lse", "delta", "kw"))
+            k, v = calls[0][0]["k"], calls[0][0]["v"]
             for name, ref in (("ring_fwd", lambda: rc.chunk_attention_fwd_reference(
-                                  q, k, v, pos, pos, None, None, acc, m, l, **kw)),
+                                  q, k, v, pos, pos, None, None, st["acc"], st["m"], st["l"],
+                                  **kw)),
                               ("ring_dq", lambda: rc.chunk_attention_dq_reference(
                                   q, k, v, pos, pos, None, None, do, lse, delta, **kw)),
                               ("ring_dkv", lambda: rc.chunk_attention_dkv_reference(
@@ -1614,8 +1691,8 @@ def _mla_ring_timings(torch):
                 rows[name]["diagonal"]["plain_ms"] = _time_ms(torch, ref, warmup=1, reps=3)
                 print(f"time {name} at (M) diagonal step: plain "
                       f"{rows[name]['diagonal']['plain_ms']:.3f} ms", flush=True)
-            del k, v
-        del base, q, do, pos, lse, delta, acc, m, l, dq, dk, dvv
+            del q, do, pos, lse, delta, k, v
+        del calls, st
         torch.cuda.empty_cache()
     return out
 
@@ -3164,34 +3241,43 @@ def _lce_timing_large(torch):
 
 
 def _kernel_times(torch):
-    """ms of flash_fwd, flash_dq and flash_dkv (causal) at flash shapes (a), (f), (L)
-    and GPT-OSS's, of gmm (forward and dX) and tgmm at the slice's shapes (a) and (b), of
-    lce_fwd and lce_bwd at N=8192, E=2048, V=128,256 and at main path 7's shape, and of
-    ring_fwd and ring_bwd at ring case (a)'s diagonal step and step 1, on the inputs their
-    timing rows use, called only through the wrapper calls that the package has had since
-    the kernels were ported (``flash_fwd(q, k, v, seg_q, seg_kv, scale, causal)``,
-    ``flash_dq`` / ``flash_dkv(..., do, lse, delta, scale, causal)``, ``gmm(x, w, ends,
-    transpose_w)``, ``tgmm(x, dout, ends, e)``, ``lce_fwd(h, w)``, ``lce_bwd(h, w, z, dz,
-    None)``, ``ring_fwd(q, k, v, pos_q, pos_kv, seg_q, seg_kv, acc, m, l, **kw)``,
-    ``ring_bwd(...)``), so that ``--kernel-times ROOT`` can time an older checkout's
-    kernels beside this one's."""
+    """ms of flash_fwd, flash_dq and flash_dkv (causal, no cap) at flash shapes (a), (f),
+    (L), GPT-OSS's (G) and with its window (Gw), Phi-3's (P) and with its window (Pw),
+    and Gemma-2-27B's heads at its scale (G2), of gmm (forward and dX) and tgmm at the
+    slice's shapes (a) and (b), of lce_fwd and lce_bwd at N=8192, E=2048, V=128,256 and at
+    main path 7's shape, of ring_fwd and ring_bwd at ring case (a)'s diagonal step and
+    step 1, and of ring_fwd, ring_dq and ring_dkv at (192, 128) shape (M)'s, on the inputs
+    their timing rows use, called only through the wrapper calls that the package has had
+    since the ring took (192, 128) (``flash_fwd(q, k, v, seg_q, seg_kv, scale, causal[,
+    window])``, ``flash_dq`` / ``flash_dkv(..., do, lse, delta, scale, causal[, window])``,
+    ``gmm(x,
+    w, ends, transpose_w)``, ``tgmm(x, dout, ends, e)``, ``lce_fwd(h, w)``, ``lce_bwd(h,
+    w, z, dz, None)``, ``ring_fwd(q, k, v, pos_q, pos_kv, seg_q, seg_kv, acc, m, l,
+    **kw)``, ``ring_bwd(...)``, ``ring_dq(...)``, ``ring_dkv(...)``), so that
+    ``--kernel-times ROOT`` can time an older checkout's kernels beside this one's."""
     from automodel_tpu_torch.ops import flash_attention as fa
     from automodel_tpu_torch.ops import grouped_gemm as gg
     from automodel_tpu_torch.ops import linear_ce as lce
 
     out = {}
-    for case, shape in (("a", (4, 2048, 32, 8, 64)), ("f", (4, 2048, 32, 4, 128)),
-                        ("L", (1, 32768, 32, 8, 128)), ("G", (1, 8192, 64, 8, 64))):
+    gemma2 = GEMMA2_27B["query_pre_attn_scalar"]**-0.5
+    window = PHI3_MINI["sliding_window"]
+    for case, shape, win, scale in (
+            ("a", (4, 2048, 32, 8, 64), (), None), ("f", (4, 2048, 32, 4, 128), (), None),
+            ("L", (1, 32768, 32, 8, 128), (), None), ("G", (1, 8192, 64, 8, 64), (), None),
+            ("Gw", (1, 8192, 64, 8, 64), (128,), None), ("P", (4, 2048, 32, 32, 96), (), None),
+            ("Pw", (4, 2048, 32, 32, 96), (window,), None),
+            ("G2", (2, 2048, 32, 16, 128), (), gemma2)):
         q, k, v, do = _inputs(torch, *shape, seed=1)
-        scale = q.shape[-1]**-0.5
-        o, lse = fa.flash_fwd(q, k, v, None, None, scale, True)
+        scale = q.shape[-1]**-0.5 if scale is None else scale
+        o, lse = fa.flash_fwd(q, k, v, None, None, scale, True, *win)
         delta = fa._delta(o, do)
         out[f"flash_fwd ({case})"] = _time_ms(torch, lambda: fa.flash_fwd(
-            q, k, v, None, None, scale, True))
+            q, k, v, None, None, scale, True, *win))
         out[f"flash_dq ({case})"] = _time_ms(torch, lambda: fa.flash_dq(
-            q, k, v, None, None, do, lse, delta, scale, True))
+            q, k, v, None, None, do, lse, delta, scale, True, *win))
         out[f"flash_dkv ({case})"] = _time_ms(torch, lambda: fa.flash_dkv(
-            q, k, v, None, None, do, lse, delta, scale, True))
+            q, k, v, None, None, do, lse, delta, scale, True, *win))
         del q, k, v, do, o, lse, delta
         torch.cuda.empty_cache()
     sizes = _router_group_sizes(torch, 8192, 2048, 128, 8)
@@ -3217,6 +3303,12 @@ def _kernel_times(torch):
         label = "diagonal step" if step == 0 else f"step {step}"
         out[f"ring_fwd (a) {label}"] = _time_ms(torch, fwd, warmup=2, reps=10)
         out[f"ring_bwd (a) {label}"] = _time_ms(torch, bwd, warmup=2, reps=10)
+    del calls, state
+    calls, state = _mla_ring_calls(torch, MLA_RING["M"])
+    for step, (_, fns) in calls.items():
+        for name, fn in fns.items():
+            label = "diagonal step" if step == 0 else f"step {step}"
+            out[f"{name} (M) {label}"] = _time_ms(torch, fn, warmup=2, reps=10)
     del calls, state
     torch.cuda.empty_cache()
     for name, ms in out.items():

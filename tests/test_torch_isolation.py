@@ -1,6 +1,6 @@
 """The PyTorch package and chip_smoke.py stand alone: they import neither JAX nor
-anything of automodel_tpu, and call no library attention kernel or compiler (SDPA
-appears only in chip_smoke's timing yardstick). Every module also imports without
+anything of automodel_tpu, and call no library attention kernel or compiler (SDPA,
+FlexAttention and torch.compile appear only in chip_smoke's timing yardsticks). Every module also imports without
 safetensors, transformers and datasets, which the card machine does not have: those
 are imported only inside the functions that need them."""
 
@@ -62,7 +62,8 @@ def test_no_forbidden_imports_or_library_kernels():
         tree = ast.parse(open(path).read(), path)
         allowed = set()
         for node in ast.walk(tree):
-            if isinstance(node, ast.FunctionDef) and node.name == "_library_sdpa":
+            if isinstance(node, ast.FunctionDef) and node.name in ("_library_sdpa",
+                                                                  "_library_flex"):
                 allowed |= {id(n) for n in ast.walk(node)}
         for node in ast.walk(tree):
             if isinstance(node, ast.Import):
@@ -74,11 +75,17 @@ def test_no_forbidden_imports_or_library_kernels():
             for root in roots:
                 assert root not in ("jax", "jaxlib", "automodel_tpu", "flax", "optax"), \
                     f"{path}:{node.lineno} imports {root}"
+            if isinstance(node, (ast.Import, ast.ImportFrom)) and id(node) not in allowed:
+                names = [node.module or ""] if isinstance(node, ast.ImportFrom) else []
+                names += [a.name for a in node.names]
+                assert not any("flex_attention" in n for n in names), \
+                    f"{path}:{node.lineno} imports FlexAttention"
                 # only inside a function: the card machine does not have these packages
                 if root in ("safetensors", "transformers", "datasets", "tokenizers"):
                     assert node.col_offset > 0, f"{path}:{node.lineno} imports {root} at the top"
             if isinstance(node, ast.Attribute) and id(node) not in allowed:
                 assert node.attr != "scaled_dot_product_attention", f"{path}:{node.lineno}"
+                assert node.attr != "flex_attention", f"{path}:{node.lineno}"
                 torch_compile = (node.attr == "compile" and isinstance(node.value, ast.Name)
                                  and node.value.id == "torch")
                 assert not torch_compile, f"{path}:{node.lineno} calls torch.compile"
