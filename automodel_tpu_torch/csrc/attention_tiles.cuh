@@ -111,13 +111,16 @@ __device__ __forceinline__ uint32_t swz_f32(int r, int c, int nrows) {
 // are 64 rows: the consumers then hold S and dP (32 registers each), dS as bf16 A
 // fragments (16) and the f32 dQ (64 at D=128, 96 at D=192) with room to spare. Q and K
 // are D wide, dO and V DV wide (MLA: D=192, DV=128, where 4 stages would pass the
-// 227 KB of shared memory and 3 fit). The kernel's own per-stage words follow at
-// TAIL_OFF. KV_BYTES: one K stage (one V stage too when DV == D).
+// 227 KB of shared memory and 3 fit). At D=256 (Gemma) key tiles are 32 rows: Q and dO
+// take 128 KB, so three 32 KB K / V stages fit beside them where two of 64 keys would
+// not, and the consumers hold dQ (128 registers), S and dP (16 each) and dS (8), 168
+// in all, against 208 at 64 keys. The kernel's own per-stage words follow at TAIL_OFF.
+// KV_BYTES: one K stage (one V stage too when DV == D).
 template <int D, int DV = D>
 struct DqTiles {
   static constexpr int DIM = D, DIM_V = DV;
-  static constexpr int BM = 128, BN = 64;
-  static constexpr int STAGES = D == DV ? 4 : 3;
+  static constexpr int BM = 128, BN = D == 256 ? 32 : 64;
+  static constexpr int STAGES = D == DV && D != 256 ? 4 : 3;
   static constexpr int BOXES = D / BOX, V_BOXES = DV / BOX;
   static constexpr int Q_BYTES = BM * D * 2, DO_BYTES = BM * DV * 2;
   static constexpr int KV_BYTES = BN * D * 2, V_BYTES = BN * DV * 2;

@@ -44,8 +44,8 @@
 // and delta, by cp.async from a second warp) lands beside them. Warpgroups 1 and 2
 // take the registers (setmaxnreg.inc) and compute:
 //   forward: a block owns 128 query rows (64 per consumer warpgroup) of one (b, h)
-//     and walks key tiles of 128. S = Q K^T is a wgmma with both operands in shared
-//     memory; the online softmax runs in registers in the log2 domain (log2(e) folded
+//     and walks key tiles of 128 (64 at D=256). S = Q K^T is a wgmma with both operands
+//     in shared memory; the online softmax runs in registers in the log2 domain (log2(e) folded
 //     into the scale, one ex2 a score); P is rounded to bf16 in registers (as the TPU
 //     kernel casts p to v's dtype) and O += P V is a wgmma with P as the register A
 //     operand and V read through the transpose flag. The P.V of key tile i runs on the
@@ -55,15 +55,24 @@
 //     and walks the GQA group's q heads and the q tiles of 64 from the causal start,
 //     so dK and dV sum in registers. S^T = K Q^T and dP^T = V dO^T are shared-memory
 //     wgmmas whose accumulators are already the A layout of dV += P^T dO and dK +=
-//     dS^T Q (register A, transposed B).
+//     dS^T Q (register A, transposed B). At D=256 a block owns 64 keys and each
+//     consumer warpgroup half of their dK / dV columns (struct Bwd).
 //   flash_dq: a block owns 128 query rows of one (b, h), loads Q and dO once and walks
-//     the key tiles of 64 in order to the causal limit (attention_tiles.cuh dq_walk).
+//     the key tiles of 64 (32 at D=256) in order to the causal limit
+//     (attention_tiles.cuh dq_walk).
 // Masks are applied only to tiles that cross the causal diagonal, the window's edge, the
 // ragged end, or a segment boundary (the test is in one place: tile_needs_mask); key tiles
 // past the causal limit or wholly behind the window are never loaded (the forward and
 // flash_dq start their key walk at the window's first tile, flash_dkv ends its q walk at
 // the window's last q tile), as _run_block skips such blocks on the TPU.
-// Head dims: 64 and 128 run tiles of their own width. 96 (Phi-3) runs the 128-wide
+// Head dims: 64, 128 and 256 run tiles of their own width. At 256 (Gemma-2-9B, Gemma-3)
+// a row of a tile is twice as wide as at 128, so shared memory and the consumers' 240
+// registers a thread hold half as many rows: the forward walks key tiles of 64 in two
+// stages beside Q (O 128 registers, S 32, P 16), flash_dq key tiles of 32 in three stages
+// beside Q and dO (dQ 128, S and dP 16 each, dS 8), and flash_dkv splits dK / dV's
+// columns between its two consumer warpgroups over 64 keys (each recomputes S^T and dP^T
+// over the full D: 6 D products a pair against 4 D). The P.V, dQ, dV and dK products
+// are 256 or 128 wide (wgmma_rs takes N = 256). 96 (Phi-3) runs the 128-wide
 // instantiations: a 64-column box at column 64 of a head holds its columns 64-95 and 32
 // columns past the head's end, which the 4-d map fills with zeros (TMA's out-of-bounds
 // fill), never the next head's. Zero columns of Q and K add nothing to S, of dO and V
@@ -82,7 +91,9 @@
 // (ping-pong), so their softmax and their wgmmas overlap only by chance; in the
 // backward each step waits for its own products (at D=128 the registers hold dK and dV,
 // or dQ, and leave no room to run a step ahead); the epilogues store straight from
-// registers.
+// registers. At D=256 flash_dkv's recomputed S^T and dP^T (a third of its products; one
+// warpgroup could own dV and the other dK, with P^T handed over in shared memory) and
+// flash_dq's 32-key steps (a wait on a barrier every 32 keys).
 
 #include <climits>
 
@@ -145,9 +156,12 @@ __device__ __forceinline__ int first_key_tile(int q_start, bool has_window, int 
 template <int D>
 struct Fwd {
   static constexpr int DIM = D;
-  static constexpr int BM = 128, BN = 128;
-  // K/V stages: 4 x 32 KB at D=64; 3 x 64 KB at D=128, with Q 32 KB just inside 227 KB
-  static constexpr int STAGES = D == 64 ? 4 : 3;
+  // D=256: key tiles of 64, so that O (128 registers), S (32) and P (16) fit the
+  // consumers' 240 (S and P of 128 keys would take 224 beside O)
+  static constexpr int BM = 128, BN = D == 256 ? 64 : 128;
+  // K/V stages: 4 x 32 KB at D=64; 3 x 64 KB at D=128, with Q 32 KB just inside 227 KB;
+  // 2 x 64 KB at D=256 beside Q's 64 KB
+  static constexpr int STAGES = D == 64 ? 4 : D == 128 ? 3 : 2;
   static constexpr int BOXES = D / BOX;
   static constexpr int Q_BYTES = BM * D * 2, KV_BYTES = BN * D * 2;
   static constexpr int K_OFF = Q_BYTES;
@@ -432,9 +446,17 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
 
 // ------------------------------------------------------------------ backward
 
+// D <= 128: a block owns 128 keys, consumer warpgroup w keys w*64 .. w*64+63 and every
+// column of their dK and dV. D = 256 (SPLIT_D): dK and dV of 64 keys at 256 columns would
+// take 256 registers a thread, over the 240 a consumer has, so a block owns 64 keys and
+// warpgroup w owns columns w*128 .. w*128+127 of their dK and dV (64 + 64 registers, as
+// at D=128); both warpgroups compute the same S^T and dP^T over the full D (6 D products
+// a (q, k) pair where 4 D would do) from one copy of each Q / dO stage.
 template <int D>
 struct Bwd {
-  static constexpr int BN = 128, BM = 64;  // keys a block (64 a consumer warpgroup), q rows a step
+  static constexpr bool SPLIT_D = D == 256;
+  static constexpr int BN = SPLIT_D ? 64 : 128, BM = 64;  // keys a block, q rows a step
+  static constexpr int DC = SPLIT_D ? D / 2 : D;  // dK / dV columns a consumer warpgroup
   static constexpr int STAGES = 2;
   static constexpr int BOXES = D / BOX;
   static constexpr int KV_BYTES = BN * D * 2, QT_BYTES = BM * D * 2;
@@ -444,17 +466,18 @@ struct Bwd {
   // per stage: lse, delta, q segment ids (BM each)
   static constexpr int ROWS_STRIDE = 3 * BM;
   static constexpr int ROWS_OFF = DO_OFF + STAGES * QT_BYTES;
-  static constexpr int KSEG_OFF = ROWS_OFF + STAGES * ROWS_STRIDE * 4;  // the BN keys' ids
-  static constexpr int BAR_OFF = KSEG_OFF + BN * 4;
+  // the ids of each consumer warpgroup's 64 keys
+  static constexpr int KSEG_OFF = ROWS_OFF + STAGES * ROWS_STRIDE * 4;
+  static constexpr int BAR_OFF = KSEG_OFF + 2 * 64 * 4;
   static constexpr int SMEM = BAR_OFF + (1 + 2 * STAGES) * 8 + 1024;
 };
 
-// grid (ceil(Skv / 128), B * KH), 384 threads. Each block holds one 128-key K/V tile,
+// grid (ceil(Skv / BN), B * KH), 384 threads. Each block holds one K/V tile of BN keys,
 // loops over the q heads of its GQA group and the q tiles from the causal start to the
-// window's end (q_end), and
-// owns its dK/dV rows (consumer warpgroup w: keys w*64 .. w*64+63), so the group sum
-// needs no second pass. dQ is flash_dq_kernel's. SOFTCAP: P^T from the capped scores, and
-// dS^T takes 1 - th^2; dK's store keeps its * scale (d(c th) / d(qk) = scale (1 - th^2)).
+// window's end (q_end), and owns its dK/dV rows (consumer warpgroup w: keys w*64 ..
+// w*64+63, or at D=256 columns w*128 .. w*128+127 of all 64), so the group sum needs no
+// second pass. dQ is flash_dq_kernel's. SOFTCAP: P^T from the capped scores, and dS^T
+// takes 1 - th^2; dK's store keeps its * scale (d(c th) / d(qk) = scale (1 - th^2)).
 template <int D, bool SOFTCAP>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
@@ -544,10 +567,13 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
   }
 
   setmaxnreg_inc<CONSUMER_REGS>();
-  const int cw = wg - 1;  // consumer warpgroup: keys cw*64 .. cw*64+63 of the tile
+  const int cw = wg - 1;  // consumer warpgroup: keys cw*64 .. cw*64+63 of the tile, or
+                          // (SPLIT_D) dK / dV columns cw*DC .. cw*DC+DC-1 of its 64 keys
   const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
   const int g = lane / 4, tc = (lane % 4) * 2;
-  const int k0 = kv_start + cw * 64;
+  const int key_off = C::SPLIT_D ? 0 : cw * 64;  // this warpgroup's keys in the tile
+  const int c0 = C::SPLIT_D ? cw * C::DC : 0;     // its first dK / dV column
+  const int k0 = kv_start + key_off;
   const int krow = warp * 16 + g;  // this thread's keys: k0 + krow, k0 + krow + 8
   // the segment ids of this warpgroup's keys wait in shared memory for masked tiles
   // (registers are scarce at D=128); k_id is their one id, or NO_ID
@@ -563,9 +589,9 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
 
   const float mul = SOFTCAP ? cap.l2 : scale * LOG2E;  // the log2 factor of a score in s
   const uint32_t k_addr = smem_u32(smem + C::K_OFF), v_addr = smem_u32(smem + C::V_OFF);
-  float dk_acc[D / 2], dv_acc[D / 2];
+  float dk_acc[C::DC / 2], dv_acc[C::DC / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  for (int i = 0; i < C::DC / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
 
   mbar_wait(kv_full, 0);
   int it = 0;  // steps so far: the stage ring follows it
@@ -583,13 +609,13 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
     wgmma_fence();
 #pragma unroll
     for (int ks = 0; ks < D / 16; ++ks) {
-      const uint32_t aoff = (ks / 4) * C::BN * ROW_BYTES + cw * 64 * ROW_BYTES + (ks % 4) * 32;
+      const uint32_t aoff = (ks / 4) * C::BN * ROW_BYTES + key_off * ROW_BYTES + (ks % 4) * 32;
       const uint32_t boff = (ks / 4) * C::BM * ROW_BYTES + (ks % 4) * 32;
       wgmma_ss<C::BM, 0, 0>(s, desc_sw128(k_addr + aoff, 16), desc_sw128(q_addr + boff, 16), ks);
     }
 #pragma unroll
     for (int ks = 0; ks < D / 16; ++ks) {
-      const uint32_t aoff = (ks / 4) * C::BN * ROW_BYTES + cw * 64 * ROW_BYTES + (ks % 4) * 32;
+      const uint32_t aoff = (ks / 4) * C::BN * ROW_BYTES + key_off * ROW_BYTES + (ks % 4) * 32;
       const uint32_t boff = (ks / 4) * C::BM * ROW_BYTES + (ks % 4) * 32;
       wgmma_ss<C::BM, 0, 0>(dp, desc_sw128(v_addr + aoff, 16), desc_sw128(do_addr + boff, 16),
                             ks);
@@ -637,16 +663,18 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
       }
     }
 
-    // dV += P^T dO and dK += dS^T Q: register A, B (q rows x D, D contiguous) transposed
+    // dV += P^T dO and dK += dS^T Q: register A, B (q rows x D, D contiguous) transposed,
+    // from the box of column c0 on
+    const uint32_t col_off = (c0 / BOX) * C::BM * ROW_BYTES;
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < C::BM / 16; ++kk)
-      wgmma_rs<D, 1>(dv_acc, pa[kk], desc_sw128(do_addr + kk * 16 * ROW_BYTES, C::BM * ROW_BYTES),
-                     1);
+      wgmma_rs<C::DC, 1>(dv_acc, pa[kk],
+                         desc_sw128(do_addr + col_off + kk * 16 * ROW_BYTES, C::BM * ROW_BYTES), 1);
 #pragma unroll
     for (int kk = 0; kk < C::BM / 16; ++kk)
-      wgmma_rs<D, 1>(dk_acc, sa[kk], desc_sw128(q_addr + kk * 16 * ROW_BYTES, C::BM * ROW_BYTES),
-                     1);
+      wgmma_rs<C::DC, 1>(dk_acc, sa[kk],
+                         desc_sw128(q_addr + col_off + kk * 16 * ROW_BYTES, C::BM * ROW_BYTES), 1);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(dv_acc);
@@ -663,10 +691,10 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
   for (int i = 0; i < 2; ++i) {
     const int key = k0 + krow + 8 * i;
     if (key >= Skv) continue;
-    const size_t off = (((size_t)b * Skv + key) * KH + kvh) * dim;
+    const size_t off = (((size_t)b * Skv + key) * KH + kvh) * dim + c0;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      if (8 * j >= dim) continue;
+    for (int j = 0; j < C::DC / 8; ++j) {
+      if (c0 + 8 * j >= dim) continue;
       *reinterpret_cast<uint32_t*>(dk + off + 8 * j + tc) =
           pack_f32(dk_acc[4 * j + 2 * i] * scale, dk_acc[4 * j + 2 * i + 1] * scale);
       *reinterpret_cast<uint32_t*>(dv + off + 8 * j + tc) =
@@ -686,7 +714,12 @@ struct Dq : DqTiles<D> {
   static constexpr int BAR_OFF = (QSEG_OFF + 2 * 4 * 2 * 4 + 7) / 8 * 8;
   static constexpr int SMEM = BAR_OFF + (1 + 2 * T::STAGES) * 8 + 1024;  // + alignment slack
 };
-static_assert(Dq<128>::SMEM <= 232448 && Dq<64>::SMEM <= 232448, "flash_dq shared memory");
+static_assert(Fwd<64>::SMEM <= 232448 && Fwd<128>::SMEM <= 232448 && Fwd<256>::SMEM <= 232448,
+              "flash_fwd shared memory");
+static_assert(Bwd<64>::SMEM <= 232448 && Bwd<128>::SMEM <= 232448 && Bwd<256>::SMEM <= 232448,
+              "flash_dkv shared memory");
+static_assert(Dq<64>::SMEM <= 232448 && Dq<128>::SMEM <= 232448 && Dq<256>::SMEM <= 232448,
+              "flash_dq shared memory");
 
 // grid (ceil(Sq / 128), B * H), 384 threads; block x takes q tile gridDim.x - 1 - x (the
 // heaviest causal tiles first). The producer loads the block's Q and dO once, then the
@@ -839,8 +872,8 @@ inline cudaError_t bf16_map(CUtensorMap* map, const void* p, int B, int S, int h
   return make_map_4d(map, p, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, dim, heads, S, B, BOX, rows);
 }
 
-// D: the tile width the kernel is built for (64 or 128); dim: the tensors' head dim (D, or
-// 96 in the 128-wide tiles); SOFTCAP: the capped instantiation, cap its factors.
+// D: the tile width the kernel is built for (64, 128 or 256); dim: the tensors' head dim
+// (D, or 96 in the 128-wide tiles); SOFTCAP: the capped instantiation, cap its factors.
 template <int D, bool SOFTCAP>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, const int* seg_q,
                        const int* seg_kv, const float* sinks, void* o, float* lse, int B, int Sq,
@@ -907,9 +940,11 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const int* se
   return cudaGetLastError();
 }
 
-// The tile width of a head dim: 64 and 128 as they are, 96 in the 128-wide tiles; 0 for a
-// head dim the kernels do not take.
-inline int tile_width(int dim) { return dim == 64 ? 64 : dim == 96 || dim == 128 ? 128 : 0; }
+// The tile width of a head dim: 64, 128 and 256 as they are, 96 in the 128-wide tiles; 0
+// for a head dim the kernels do not take.
+inline int tile_width(int dim) {
+  return dim == 64 ? 64 : dim == 96 || dim == 128 ? 128 : dim == 256 ? 256 : 0;
+}
 
 // The cap's two factors (SoftCap) for softmax scale `scale` and cap c = softcap > 0.
 inline SoftCap soft_cap(float scale, float softcap) {
@@ -917,21 +952,23 @@ inline SoftCap soft_cap(float scale, float softcap) {
                        : SoftCap{0.f, 0.f};
 }
 
-// One of a kernel's four instantiations (tile width 64 or 128, capped or not), called as
-// LAUNCH(D, SOFTCAP); an unknown head dim is cudaErrorInvalidValue.
+// One of a kernel's six instantiations (tile width 64, 128 or 256, capped or not), called
+// as LAUNCH(D, SOFTCAP); an unknown head dim is cudaErrorInvalidValue.
 #define FLASH_DISPATCH(dim, softcap, LAUNCH)                                     \
   switch (tile_width(dim) + ((softcap) > 0.f)) {                                  \
     case 64: return (int)LAUNCH(64, false);                                       \
     case 65: return (int)LAUNCH(64, true);                                        \
     case 128: return (int)LAUNCH(128, false);                                     \
     case 129: return (int)LAUNCH(128, true);                                      \
+    case 256: return (int)LAUNCH(256, false);                                     \
+    case 257: return (int)LAUNCH(256, true);                                      \
   }                                                                               \
   return (int)cudaErrorInvalidValue
 
 }  // namespace
 
 // Plain C entry points (bound with ctypes). Each returns a cudaError_t; the caller
-// checks inputs (bf16, contiguous, 16-byte aligned, D in {64, 96, 128}, H % KH == 0)
+// checks inputs (bf16, contiguous, 16-byte aligned, D in {64, 96, 128, 256}, H % KH == 0)
 // beforehand. D is the head dim; the softmax scale comes as given (1/sqrt(96) at D = 96,
 // never the tile's). flash_dq writes dq (bf16, q's layout) whole, each row once.
 // softcap: the tanh logit cap c (0: none; > 0 runs the capped instantiations);

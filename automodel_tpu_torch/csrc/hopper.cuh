@@ -308,6 +308,17 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[R]) {
   "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, "  \
   "%87, %88, %89, %90, %91, %92, %93, %94, %95}"
 
+#define HOPPER_R128 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, " \
+  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, " \
+  "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, " \
+  "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, " \
+  "%66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, " \
+  "%82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, " \
+  "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, " \
+  "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, " \
+  "%126, %127}"
+
 // d (64 x N, f32, N/2 registers a thread) (+)= A . B, one k16 step, both operands in
 // shared memory. TA / TB: the transpose flags (1 = MN-major). scale_d = 0 overwrites d.
 // Accumulator layout: warp w of the warpgroup holds rows 16w + lane/4 (+8), and n8
@@ -345,7 +356,8 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t
 template <int N, int TB>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b,
                                          int scale_d) {
-  static_assert(N == 64 || N == 128 || N == 192, "wgmma_rs: N in {64, 128, 192}");
+  static_assert(N == 64 || N == 128 || N == 192 || N == 256,
+                "wgmma_rs: N in {64, 128, 192, 256}");
   if constexpr (N == 64) {
     asm volatile(
         "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
@@ -360,13 +372,21 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
         ", {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
         : HOPPER_F16(0), HOPPER_F16(16), HOPPER_F16(32), HOPPER_F16(48)
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(TB));
-  } else {
+  } else if constexpr (N == 192) {
     asm volatile(
         "{\n .reg .pred p;\n setp.ne.b32 p, %101, 0;\n"
         " wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 " HOPPER_R96
         ", {%96, %97, %98, %99}, %100, p, 1, 1, %102;\n}\n"
         : HOPPER_F16(0), HOPPER_F16(16), HOPPER_F16(32), HOPPER_F16(48), HOPPER_F16(64),
           HOPPER_F16(80)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(TB));
+  } else {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %133, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " HOPPER_R128
+        ", {%128, %129, %130, %131}, %132, p, 1, 1, %134;\n}\n"
+        : HOPPER_F16(0), HOPPER_F16(16), HOPPER_F16(32), HOPPER_F16(48), HOPPER_F16(64),
+          HOPPER_F16(80), HOPPER_F16(96), HOPPER_F16(112)
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(TB));
   }
 }
@@ -377,5 +397,6 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
 #undef HOPPER_R32
 #undef HOPPER_R64
 #undef HOPPER_R96
+#undef HOPPER_R128
 
 }  // namespace

@@ -17,8 +17,8 @@ forward's softmax denominator, so lse holds them and the backward kernels take n
 sinks' gradient is a reduction over lse and delta, :func:`sink_grad`), the tanh logit
 soft-cap (Gemma-2: ``c tanh(s scale / c)`` before the mask, in instantiations of their
 own), bf16, head_dim 64, 96 (Phi-3: the 128-wide kernels, whose tensor maps read the
-columns past 96 as zeros) and 128. Other head dims raise on CUDA (256, Gemma-2-9B's and
-Gemma-3's, is queued: ROADMAP.md Queue 2).
+columns past 96 as zeros), 128 and 256 (Gemma-2-9B, Gemma-3: tiles of their own, with
+fewer keys a step). Other head dims raise on CUDA.
 """
 
 from __future__ import annotations
@@ -32,7 +32,7 @@ __all__ = ["HEAD_DIM_LAUNCHES", "LAUNCHES", "SOFTCAP_LAUNCHES", "WINDOWED_LAUNCH
 
 NEG_INF = -1e30
 _SOURCE = "flash_attention.cu"
-_HEAD_DIMS = (64, 96, 128)
+_HEAD_DIMS = (64, 96, 128, 256)
 # one count per kernel launch, so a run can show that it went through the kernels
 LAUNCHES = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
 # the launches of LAUNCHES that carried a sliding window
@@ -191,8 +191,7 @@ def sink_grad(sinks, lse, delta):
 def _check_cuda(q, k, v, seg_q, seg_kv, sinks=None):
     if q.ndim == 4 and q.shape[3] not in _HEAD_DIMS:  # refused by name, on any device
         raise NotImplementedError(f"flash_attention kernels take head_dim in {_HEAD_DIMS}, "
-                                  f"got {q.shape[3]} (256, Gemma-2-9B's and Gemma-3's, is "
-                                  "queued: ROADMAP.md Queue 2)")
+                                  f"got {q.shape[3]}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda":
             raise ValueError(f"flash_attention: {name} is on {t.device}, q on cuda")

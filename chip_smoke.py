@@ -13,13 +13,14 @@ Phases, in order; any failure exits non-zero before the last line:
    spills from -Xptxas -v;
 2b. the twice-launch phase: each backward kernel launched twice on the same inputs, and
    the outputs that differ bitwise (flash_dq and flash_dkv at flash cases a and f, with
-   GPT-OSS's window, at Phi-3's head_dim 96 and window and with Gemma-2-27B's soft-cap at
-   its heads (G2), ring_bwd, ring_dq and ring_dkv
+   GPT-OSS's window, at Phi-3's head_dim 96 and window, with Gemma-2-27B's soft-cap at
+   its heads (G2), and at Gemma-2-9B's head_dim 256 with and without its cap (G9, G9c),
+   ring_bwd, ring_dq and ring_dkv
    at ring case a's diagonal step, lce_bwd at lce case a, gmm dX and tgmm at gmm case a, and the backward of the expert
    biases' gathers at main path 11's shape); fails if flash_dq, flash_dkv, ring_dq,
    ring_dkv or a bias gather differs;
 3. flash_fwd and the backward (flash_dq + flash_dkv) against their plain version (f32
-   from the same bf16 inputs) in thirty-six cases: (a) the Llama-3.2-1B training
+   from the same bf16 inputs) in forty-four cases: (a) the Llama-3.2-1B training
    shape, (b) packed segments with right padding, (c) non-causal, (d) a 16k sequence, (e) the shape and segments of
    main path 3 (rows of 4096 packed by pack_dataset from 1000-token documents); at
    head_dim 128: (f) the Qwen3-30B-A3B training shape, (g) case e's rows and segments;
@@ -38,7 +39,11 @@ Phases, in order; any failure exits non-zero before the last line:
    saturating cap at D=64 windowed and packed, (ce) at D=128 non-causal with segment
    boundaries inside tiles, (cf) at D=96, (cg) sinks, a window and the cap at D=128, (ch)
    the same at the saturating cap, (ci) Gemma-2-27B's heads with q scaled by 16, where
-   its cap c = 50 bites;
+   its cap c = 50 bites; at head_dim 256 (Gemma-2-9B's and Gemma-3's own tiles): (da)
+   Gemma-2-9B's heads at its scale 256^-0.5, (db) with its cap, (dc) Gemma-3-4B's heads
+   with its window 1024, (dd) S=1000, (de) non-causal, segment boundaries inside tiles,
+   the saturating cap, (df) sinks, window 100 and those segments, (dg) main path 3's packed
+   rows with a window and the cap, (dh) da's heads with q scaled by 16 and the cap;
 4. flash kernel times (flash_fwd, flash_dq, flash_dkv) at shapes (a) and (f) beside the
    bound, the plain version and SDPA, and the whole backward as the wrapper runs it
    (delta, flash_dq, flash_dkv) beside SDPA's backward (one phase alone:
@@ -52,9 +57,12 @@ Phases, in order; any failure exits non-zero before the last line:
    B=2, S=2048, H=32, KH=16, D=128, causal, scale 144^-0.5) without and with its cap c =
    50, beside SDPA, and the capped rows beside FlexAttention with the tanh cap as its
    score_mod (compiled once, forward and backward; its output held against flash_fwd's)
-   and SDPA without a cap; then
-   head_dim 80 and 256 must raise NotImplementedError on the card and launch nothing, and
-   so must the ring kernels at (D, Dv) = (96, 64) and (192, 192);
+   and SDPA without a cap; then at head_dim 256: Gemma-2-9B's heads (G9: B=2, S=2048,
+   H=16, KH=8, causal, scale 256^-0.5) without and with its cap (G9c, beside
+   FlexAttention), and Gemma-3-4B's (G4w: H=8, KH=4, window 1024, SDPA with the window as
+   a boolean mask); then head_dim 80 (with and without the cap) must raise
+   NotImplementedError on the card and launch nothing, and so must the ring kernels at
+   (D, Dv) = (96, 64) and (192, 192);
 5. Llama-3.2-1B width at 2 layers: one forward and backward with attention "flash"
    against attention "xla" on the same weights;
 6. lce_fwd / lce_bwd (fused linear CE) against their plain version in nine cases:
@@ -180,8 +188,18 @@ Phases, in order; any failure exits non-zero before the last line:
    256,000, every flash launch capped); main path 20: train_ft on
    examples/llm_finetune/gemma2_9b_sft.yaml with its dataset swapped for mock data
    (gemma2_sft_config) from a local HF directory at Gemma-2-27B's widths, 2 layers
-   (gemma2_sft_args: bf16, saves at steps 2 and 4, hf/ reloaded bitwise). Paths 9, 14,
-   16 and 20 run through one helper (_pretrained_run, _check_pretrained_run).
+   (gemma2_sft_args: bf16, saves at steps 2 and 4, hf/ reloaded bitwise). Main path 21:
+   Gemma-2-9B's published widths over the Gemma-3 proxy at 8 of 42 layers (GEMMA2_9B,
+   gemma2_args: head_dim 256, caps, window 4096 on alternate layers; every flash launch
+   capped and at d256); main path 22: Gemma-3-4B's published text widths over it at all 34
+   layers (GEMMA3_4B_TEXT: head_dim 256, 29 sliding layers at window 1024, linear RoPE
+   scaling 8 on the full ones, vocab 262,208; no cap); main path 23: train_ft on
+   examples/llm_finetune/gemma3_4b_sft.yaml (its mock data as it stands, attention
+   through the flash kernels: the file names no backend) from a local HF
+   directory of a random-init Gemma-3-4B in the published Gemma3ForConditionalGeneration
+   layout at 6 layers (GEMMA3_4B, gemma2_sft_args: bf16, 2 microbatches, saves at steps
+   2 and 4, hf/ reloaded bitwise). Paths 9, 14, 16, 20 and 23 run through one helper
+   (_pretrained_run, _check_pretrained_run).
    Every main path also checks that each of its gmm, tgmm, lce_fwd and lce_bwd launches
    took the wgmma route (``launches by route`` on its line), that its windowed flash
    launches are those of its sliding layers and its soft-capped ones those of its capped
@@ -350,6 +368,53 @@ GEMMA2_27B = {
 GEMMA2_LAYERS = 4  # depth of main path 19: 2 sliding, 2 full
 GEMMA2_LAYERS_TRAIN_FT = 2  # depth of main path 20: 1 sliding, 1 full
 GEMMA2_STEPS = 4  # max_steps of main path 20: a consolidated save at steps 2 and 4
+GEMMA3_SFT_YAML = os.path.join(HERE, "examples", "llm_finetune", "gemma3_4b_sft.yaml")
+# The published config.json of google/gemma-2-9b: width 3584, MLP 14,336, 16 heads of 256
+# over 8 kv heads (the flash kernels' 256-wide tiles), the query scale 256^-0.5, the caps
+# 50 and 30, a window of 4096 on alternate layers, a tied 256,000-row embedding. Main path
+# 21 lays its widths over the Gemma-3 proxy config at GEMMA2_9B_LAYERS layers.
+GEMMA2_9B = {
+    "architectures": ["Gemma2ForCausalLM"], "model_type": "gemma2", "vocab_size": 256000,
+    "hidden_size": 3584, "intermediate_size": 14336, "num_hidden_layers": 42,
+    "num_attention_heads": 16, "num_key_value_heads": 8, "head_dim": 256,
+    "query_pre_attn_scalar": 256, "attn_logit_softcapping": 50.0,
+    "final_logit_softcapping": 30.0, "sliding_window": 4096, "rope_theta": 10000.0,
+    "rms_norm_eps": 1e-6, "max_position_embeddings": 8192, "hidden_act": "gelu_pytorch_tanh",
+    "hidden_activation": "gelu_pytorch_tanh", "attention_bias": False,
+    "tie_word_embeddings": True, "initializer_range": 0.02, "bos_token_id": 2,
+    "eos_token_id": 1, "pad_token_id": 0, "torch_dtype": "float32",
+}
+GEMMA2_9B_LAYERS = 8  # depth of main path 21: 4 sliding, 4 full
+# The published config.json of google/gemma-3-4b-it, a Gemma3ForConditionalGeneration
+# wrapper. Its text_config names width 2560, MLP 10,240, 34 layers, a window of 1024 and
+# linear RoPE scaling 8 (on the full layers); the rest of it is Gemma3TextConfig's defaults,
+# written out here: vocab 262,208, 8 heads of 256 over 4, query scale 256^-0.5, RoPE bases
+# 1e6 (full layers) and 10,000 (sliding), 5 sliding layers to 1 full, a tied embedding, no
+# soft-cap. The vision tower's config is kept as published (the text model runs alone: the
+# adapter drops the vision tensors, which the directory of main path 23 does not hold).
+GEMMA3_4B_TEXT = {
+    "architectures": ["Gemma3ForCausalLM"], "model_type": "gemma3_text", "vocab_size": 262208,
+    "hidden_size": 2560, "intermediate_size": 10240, "num_hidden_layers": 34,
+    "num_attention_heads": 8, "num_key_value_heads": 4, "head_dim": 256,
+    "query_pre_attn_scalar": 256, "sliding_window": 1024,
+    "rope_scaling": {"rope_type": "linear", "factor": 8.0}, "rope_theta": 1000000.0,
+    "rope_local_base_freq": 10000.0, "rms_norm_eps": 1e-6, "max_position_embeddings": 131072,
+    "hidden_activation": "gelu_pytorch_tanh", "tie_word_embeddings": True,
+    "initializer_range": 0.02,
+}
+GEMMA3_4B = {
+    "architectures": ["Gemma3ForConditionalGeneration"], "model_type": "gemma3",
+    "text_config": {k: v for k, v in GEMMA3_4B_TEXT.items() if k != "architectures"},
+    "vision_config": {"model_type": "siglip_vision_model", "hidden_size": 1152,
+                      "intermediate_size": 4304, "num_hidden_layers": 27,
+                      "num_attention_heads": 16, "patch_size": 14, "image_size": 896,
+                      "vision_use_head": False},
+    "mm_tokens_per_image": 256, "boi_token_index": 255999, "eoi_token_index": 256000,
+    "image_token_index": 262144, "eos_token_id": [1, 106], "initializer_range": 0.02,
+    "torch_dtype": "bfloat16",
+}
+GEMMA3_4B_LAYERS_TRAIN_FT = 6  # depth of main path 23: 5 sliding, 1 full
+GEMMA3_4B_STEPS = 4  # max_steps of main path 23: a consolidated save at steps 2 and 4
 
 
 class ByteTokenizer:
@@ -385,10 +450,12 @@ def write_hellaswag_jsonl(path: str, rows: int, seed: int) -> str:
 
 
 def write_pretrained(out_dir: str, config: dict = LLAMA32_1B, seed: int = 0,
-                     device: str = "cuda") -> str:
+                     device: str = "cuda", prefix: str = "") -> str:
     """A local HF directory (config.json and model.safetensors, bf16 as published) of a
     random-init model of ``config`` (its architecture's class: Llama-3.2-1B at LLAMA32_1B's
-    depth, or Phi-3-mini in HF's fused layout), written by the port's own writer."""
+    depth, or Phi-3-mini in HF's fused layout), written by the port's own writer;
+    ``prefix`` goes before every tensor's name (``language_model.``: the text model's
+    tensors as a Gemma3ForConditionalGeneration checkpoint names them)."""
     import torch
 
     from automodel_tpu_torch.checkpoint.safetensors_io import save_safetensors
@@ -397,7 +464,8 @@ def write_pretrained(out_dir: str, config: dict = LLAMA32_1B, seed: int = 0,
     model = AutoModelForCausalLM.from_config(
         config, device=device, dtype=torch.bfloat16,
         generator=torch.Generator(device=device).manual_seed(seed))
-    save_safetensors(model.state_dict_adapter().to_hf_lazy(model.param_dict()), out_dir)
+    tensors = model.state_dict_adapter().to_hf_lazy(model.param_dict())
+    save_safetensors({prefix + k: v for k, v in tensors.items()}, out_dir)
     with open(os.path.join(out_dir, "config.json"), "w") as f:
         json.dump(config, f, indent=2)
     return out_dir
@@ -544,30 +612,39 @@ def moonlight_ring_args(layers: int = MOONLIGHT_RING_LAYERS) -> list[str]:
 
 
 def gemma3_proxy_args() -> list[str]:
-    """Main path 18's override of the Gemma-3 proxy config: attention through the flash
-    kernels (the file names no backend.attention, whose default is the plain path)."""
+    """Main path 18's override of the Gemma-3 proxy config, and 23's of gemma3_4b_sft.yaml:
+    attention through the flash kernels (neither file names a backend.attention, whose
+    default is the plain path)."""
     return ["--backend.attention", "flash"]
 
 
-def gemma2_args(layers: int = GEMMA2_LAYERS) -> list[str]:
-    """Main path 19's overrides of the Gemma-3 proxy config: Gemma-2-27B's published widths,
-    caps and window at ``layers`` layers under Gemma2ForCausalLM (no
-    sliding_window_pattern, which the proxy sets to Gemma-3's 6: Gemma-2's layers
-    alternate), the mock data at its vocabulary (the proxy's 262,144 runs past it), and
+# the keys of a Gemma config that gemma2_args lays over the proxy's, where the config has them
+_GEMMA_KEYS = ("vocab_size", "hidden_size", "intermediate_size", "num_attention_heads",
+               "num_key_value_heads", "head_dim", "query_pre_attn_scalar",
+               "attn_logit_softcapping", "final_logit_softcapping", "sliding_window",
+               "rope_theta", "rope_local_base_freq", "rope_scaling", "rms_norm_eps",
+               "max_position_embeddings", "tie_word_embeddings", "initializer_range")
+
+
+def gemma2_args(layers: int = GEMMA2_LAYERS, model: dict = GEMMA2_27B) -> list[str]:
+    """The overrides of the Gemma-3 proxy config that run a published Gemma config (main
+    path 19: Gemma-2-27B; 21: Gemma-2-9B; 22: Gemma-3-4B's text config): its widths, caps,
+    window and RoPE at ``layers`` layers under its architecture, with no
+    sliding_window_pattern (the proxy's 6 is Gemma-3's default; Gemma-2's layers
+    alternate), the mock data at its vocabulary (the proxy's 262,144 differs), and
     attention through the flash kernels."""
     args = []
-    for key in ("vocab_size", "hidden_size", "intermediate_size", "num_attention_heads",
-                "num_key_value_heads", "head_dim", "query_pre_attn_scalar",
-                "attn_logit_softcapping", "final_logit_softcapping", "sliding_window",
-                "rope_theta", "rms_norm_eps", "max_position_embeddings",
-                "tie_word_embeddings", "initializer_range"):
-        value = GEMMA2_27B[key]
-        args += [f"--model.config.{key}", str(value).lower() if isinstance(value, bool)
-                 else str(value)]
-    return args + ["--model.config.architectures", json.dumps(GEMMA2_27B["architectures"]),
+    for key in _GEMMA_KEYS:
+        if key not in model:
+            continue
+        value = model[key]
+        args += [f"--model.config.{key}",
+                 str(value).lower() if isinstance(value, bool)
+                 else json.dumps(value) if isinstance(value, dict) else str(value)]
+    return args + ["--model.config.architectures", json.dumps(model["architectures"]),
                    "--model.config.num_hidden_layers", str(layers),
                    "--model.config.sliding_window_pattern", "null",
-                   "--dataset.vocab_size", str(GEMMA2_27B["vocab_size"]),
+                   "--dataset.vocab_size", str(model["vocab_size"]),
                    *gemma3_proxy_args()]
 
 
@@ -588,14 +665,14 @@ def gemma2_sft_config(out_dir: str) -> str:
     return path
 
 
-def gemma2_sft_args(hf_dir: str, ckpt_dir: str) -> list[str]:
-    """Main path 20's overrides of :func:`gemma2_sft_config`'s file: the model from the
-    local directory ``hf_dir`` (for the hub id) in bf16, 2 microbatches a step (8 in the
-    file), GEMMA2_STEPS steps, a checkpoint (with the consolidated HF export) every 2
+def gemma2_sft_args(hf_dir: str, ckpt_dir: str, steps: int = GEMMA2_STEPS) -> list[str]:
+    """The overrides of a Gemma SFT file (main path 20: :func:`gemma2_sft_config`'s; 23:
+    examples/llm_finetune/gemma3_4b_sft.yaml, its mock data as it stands): the model from
+    the local directory ``hf_dir`` (for the hub id) in bf16, 2 microbatches a step (8 in
+    the files), ``steps`` steps, a checkpoint (with the consolidated HF export) every 2
     steps under ``ckpt_dir``."""
     return ["--model.pretrained_model_name_or_path", hf_dir, "--model.params_dtype", "bfloat16",
-            "--step_scheduler.grad_acc_steps", "2",
-            "--step_scheduler.max_steps", str(GEMMA2_STEPS),
+            "--step_scheduler.grad_acc_steps", "2", "--step_scheduler.max_steps", str(steps),
             "--step_scheduler.ckpt_every_steps", "2", "--checkpoint.checkpoint_dir", ckpt_dir]
 
 
@@ -898,13 +975,33 @@ def _flash_phase(torch, fa, errs):
                       sinks=True, softcap=2.0, scale=1.0))
     note(_kernel_case(torch, fa, "ci", 2, 2048, 32, 16, causal=True, d=128, window=1024,
                       softcap=50.0, scale=gemma, q_scale=16))
+    # head_dim 256 (Gemma-2-9B, Gemma-3; tiles of their own): da Gemma-2-9B's heads at its
+    # scale 256^-0.5, db with its cap c = 50, dc Gemma-3-4B's heads with its window 1024, dd
+    # S=1000, de non-causal with segment boundaries inside tiles at the saturating cap, df
+    # sinks, window 100 and those segments (GQA 16 / 4), dg main path 3's packed rows of
+    # 4096 with a window, de's cap, dh da's heads with q ~ N(0, 16^2) and the cap, which bites
+    d256 = 256**-0.5
+    note(_kernel_case(torch, fa, "da", 2, 2048, 16, 8, causal=True, d=256, scale=d256))
+    note(_kernel_case(torch, fa, "db", 2, 2048, 16, 8, causal=True, d=256, softcap=50.0,
+                      scale=d256))
+    note(_kernel_case(torch, fa, "dc", 2, 2048, 8, 4, causal=True, d=256, window=1024,
+                      scale=d256))
+    note(_kernel_case(torch, fa, "dd", 2, 1000, 8, 2, causal=True, d=256))
+    note(_kernel_case(torch, fa, "de", 2, 2048, 8, 8, causal=False, seg=inner, d=256,
+                      softcap=2.0, scale=1.0))
+    note(_kernel_case(torch, fa, "df", 2, 2048, 16, 4, causal=True, seg=inner, d=256,
+                      window=100, sinks=True))
+    note(_kernel_case(torch, fa, "dg", 2, 4096, 8, 4, causal=True, seg=_packed_segments(torch),
+                      d=256, window=1024, softcap=2.0, scale=1.0))
+    note(_kernel_case(torch, fa, "dh", 2, 2048, 16, 8, causal=True, d=256, softcap=50.0,
+                      scale=d256, q_scale=16))
 
 
 def _refused_on_the_card(torch, fa):
     """What the flash kernels do not take raises NotImplementedError on the card and
-    launches nothing in its place: head_dim 80, and 256 (with Gemma-2's soft-cap)."""
+    launches nothing in its place: head_dim 80, with and without Gemma-2's soft-cap."""
     before = dict(fa.LAUNCHES)
-    for d, kw in ((80, {}), (256, {"logit_soft_cap": 50.0})):
+    for d, kw in ((80, {}), (80, {"logit_soft_cap": 50.0})):
         q = torch.zeros(1, 128, 2, d, dtype=torch.bfloat16, device="cuda")
         try:
             fa.flash_attention(q, q, q, **kw)
@@ -2117,22 +2214,26 @@ def _twice_phase(torch):
     bitwise: flash_dq and flash_dkv at flash cases (a) and (f), with GPT-OSS's window
     (w: B=1, S=4096, H=16, KH=2, D=64, window 128) and at Phi-3's shape and window (P: B=4,
     S=2048, H=KH=32, D=96, window 2047) and, capped, at Gemma-2-27B's heads (G2: B=2,
-    S=2048, H=32, KH=16, D=128, c = 50, scale 144^-0.5), ring_bwd and the deterministic route
-    (ring_dq, ring_dkv) at ring case (a)'s diagonal step, lce_bwd at lce case (a), gmm dX
-    and tgmm at gmm case (a), and the backward of the expert biases' gathers at main path
-    11's shapes (65,536 rows sorted over 32 experts). Fails if one of
-    DETERMINISTIC_KERNELS differs; the others are reported."""
+    S=2048, H=32, KH=16, D=128, c = 50, scale 144^-0.5), at Gemma-2-9B's heads without and
+    with the cap (G9 / G9c: B=2, S=2048, H=16, KH=8, D=256, scale 256^-0.5), ring_bwd and
+    the deterministic route (ring_dq, ring_dkv) at ring case (a)'s diagonal step, lce_bwd
+    at lce case (a), gmm dX and tgmm at gmm case (a), and the backward of the expert
+    biases' gathers at main path 11's shapes (65,536 rows sorted over 32 experts). Fails
+    if one of DETERMINISTIC_KERNELS differs; the others are reported."""
     from automodel_tpu_torch.ops import flash_attention as fa, grouped_gemm as gg
     from automodel_tpu_torch.ops import linear_ce as lce, ring_chunk as rc
 
     found = {}
     gemma2 = (GEMMA2_27B["attn_logit_softcapping"], GEMMA2_27B["query_pre_attn_scalar"]**-0.5)
+    gemma9 = (GEMMA2_9B["attn_logit_softcapping"], GEMMA2_9B["query_pre_attn_scalar"]**-0.5)
     for case, shape, win, (cap, scale) in (
             ("a", (4, 2048, 32, 8, 64), None, (0.0, 64**-0.5)),
             ("f", (4, 2048, 32, 4, 128), None, (0.0, 128**-0.5)),
             ("w", (1, 4096, 16, 2, 64), 128, (0.0, 64**-0.5)),
             ("P", (4, 2048, 32, 32, 96), 2047, (0.0, 96**-0.5)),
-            ("G2", (2, 2048, 32, 16, 128), None, gemma2)):
+            ("G2", (2, 2048, 32, 16, 128), None, gemma2),
+            ("G9", (2, 2048, 16, 8, 256), None, (0.0, gemma9[1])),
+            ("G9c", (2, 2048, 16, 8, 256), None, gemma9)):
         q, k, v, do = _inputs(torch, *shape, seed=3)
         o, lse = fa.flash_fwd(q, k, v, None, None, scale, True, win, None, cap)
         delta = fa._delta(o, do)
@@ -2650,7 +2751,7 @@ def _recorded_train_ft(cfg, on_setup=None):
 
 def _pretrained_run(name, cfg_args, ckpt, reload_dtype=None, on_setup=None) -> dict:
     """One train_ft run of the config ``cfg_args`` gives, through _recorded_train_ft with
-    the counts reset first: what main paths 9, 14, 16 and 20 share. Returns a dict:
+    the counts reset first: what main paths 9, 14, 16, 20 and 23 share. Returns a dict:
     losses ({step: loss}), rows and val (the jsonl rows), launches, routed (the launches
     with their routes, window, cap and head-dim counts; _check_routes passed), saves
     [(step, seconds, bytes)], peak / setup / end GiB (allocated at the peak, after setup,
@@ -2704,7 +2805,7 @@ def _pretrained_run(name, cfg_args, ckpt, reload_dtype=None, on_setup=None) -> d
 
 
 def _check_pretrained_run(name, run, steps, want, saves=None, first_loss=None):
-    """The checks main paths 9, 14, 16 and 20 share: the steps taken, finite losses, the
+    """The checks main paths 9, 14, 16, 20 and 23 share: the steps taken, finite losses, the
     first within 0.5 of ``first_loss``, checkpoints at ``saves``, hf/ reloaded bitwise
     (when reloaded), and the launches ``want``."""
     if sorted(run["losses"]) != list(steps):
@@ -2913,49 +3014,81 @@ def _moonlight_train_ft_path(name):
     return run["routed"]
 
 
-def _gemma2_train_ft_path(name):
-    """examples/llm_finetune/gemma2_9b_sft.yaml through train_ft (main path 20), its
-    dataset section swapped for mock data (gemma2_sft_config) and its model a local HF
-    directory of a random-init model at Gemma-2-27B's widths, GEMMA2_LAYERS_TRAIN_FT
-    layers (one sliding, one full), written by write_pretrained (gemma2_sft_args: bf16,
-    2 microbatches of one row of 4096, GEMMA2_STEPS steps, a checkpoint with the
-    consolidated HF export every 2 steps). The vocab rule picks linear CE (no final cap,
-    as JAX's train_ft). Checks: finite losses, the first within 0.5 of the random-init
-    loss; the launches, every flash launch soft-capped and the sliding layer's windowed;
-    step_N/hf holding Gemma's sandwich-norm names and reloading bitwise."""
+def _gemma_train_ft_path(name, model, layers, steps, yaml, cfg_args, prefix=""):
+    """One Gemma model through train_ft from a local HF directory of a random-init model
+    (``model`` at ``layers`` layers, written by write_pretrained with the tensor-name
+    ``prefix``), the config ``cfg_args(tmp_dir, hf_dir, ckpt_dir)`` gives (gemma2_sft_args
+    among it: 2 microbatches a step, a save every 2 steps), ``steps`` steps: main paths 20
+    and 23. The vocab rule picks linear CE (no final cap, as JAX's train_ft). Checks:
+    finite losses, the first within 0.5 of the random-init loss (with the tied self
+    logit); the launches, the windowed ones those of the sliding layers and the capped
+    ones those of the capped layers, every flash launch at the model's head dim; step_N/hf
+    holding Gemma's sandwich-norm names and reloading bitwise."""
     import torch
 
     _release()
-    layers, micro = GEMMA2_LAYERS_TRAIN_FT, 2
-    model = dict(GEMMA2_27B, num_hidden_layers=layers)
+    micro = 2  # gemma2_sft_args' grad_acc_steps
+    if "text_config" in model:  # a multimodal wrapper: its text model's depth
+        hf_model = dict(model, text_config=dict(model["text_config"], num_hidden_layers=layers))
+    else:
+        hf_model = dict(model, num_hidden_layers=layers)
+    text = _port_config(hf_model)
     with tempfile.TemporaryDirectory() as tmp:
-        hf_dir = write_pretrained(os.path.join(tmp, "gemma2"), model)
+        hf_dir = write_pretrained(os.path.join(tmp, "gemma"), hf_model, prefix=prefix)
         ckpt = os.path.join(tmp, "ckpts")
-        run = _pretrained_run(name, ["-c", gemma2_sft_config(tmp), *gemma2_sft_args(hf_dir, ckpt),
+        run = _pretrained_run(name, [*cfg_args(tmp, hf_dir, ckpt),
                                      "--output_dir", os.path.join(tmp, "run")], ckpt,
                               reload_dtype=torch.bfloat16)
-    want = _expected(layers, micro, GEMMA2_STEPS, True)
+    want = _expected(layers, micro, steps, True)
     norms = [n for n in run["hf_names"] if n.endswith((
         "pre_feedforward_layernorm.weight", "post_feedforward_layernorm.weight"))]
-    print(f"{name}: train_ft on {_shown(GEMMA2_SFT_YAML)} (dataset swapped for mock data; "
-          f"{layers} layers of Gemma-2-27B from a local HF directory, bf16, loss "
-          f"{run['loss_name']}, rows of 4096), {_shown_run(run)}, step_{GEMMA2_STEPS}/hf "
+    print(f"{name}: train_ft on {_shown(yaml)} ({layers} layers of "
+          f"{text.vocab_size}-vocab, {text.hidden_size}-wide Gemma ({hf_model['architectures'][0]}"
+          f"{', tensors named ' + prefix + '*' if prefix else ''}) from a local HF directory, "
+          f"bf16, loss {run['loss_name']}), {_shown_run(run)}, step_{steps}/hf "
           f"{len(run['hf_names'])} tensors ({len(norms)} feed-forward sandwich norms), "
           f"reloaded through from_pretrained: "
           f"{'bitwise equal' if not run['hf_differ'] else run['hf_differ']}, launches "
           f"{run['launches']} (expected {want})", flush=True)
-    _check_pretrained_run(name, run, range(1, GEMMA2_STEPS + 1), want,
-                          saves=[2, GEMMA2_STEPS],
-                          first_loss=random_init_loss(model["vocab_size"], model["hidden_size"],
-                                                      model["initializer_range"],
-                                                      tied_self_logit(model)))
+    _check_pretrained_run(name, run, range(1, steps + 1), want, saves=[2, steps],
+                          first_loss=random_init_loss(text.vocab_size, text.hidden_size,
+                                                      text.initializer_range,
+                                                      tied_self_logit(hf_model)))
     if run["loss_name"] != "linear_ce" or len(norms) != 2 * layers:
         raise AssertionError(f"{name}: loss {run['loss_name']}, sandwich norms {norms}")
-    _check_windowed(name, run["routed"], sum(_port_config(model).sliding_flags), micro,
-                    GEMMA2_STEPS)
-    _check_softcap(name, run["routed"], _capped_layers(model), micro, GEMMA2_STEPS)
-    _check_head_dim(name, run["routed"], _head_dim(model))
+    _check_windowed(name, run["routed"], sum(text.sliding_flags), micro, steps)
+    _check_softcap(name, run["routed"], _capped_layers(hf_model), micro, steps)
+    _check_head_dim(name, run["routed"], text.head_dim)
     return run["routed"]
+
+
+def _gemma2_train_ft_path(name):
+    """examples/llm_finetune/gemma2_9b_sft.yaml through train_ft (main path 20), its
+    dataset section swapped for mock data (gemma2_sft_config) and its model a local HF
+    directory of a random-init model at Gemma-2-27B's widths, GEMMA2_LAYERS_TRAIN_FT
+    layers (one sliding, one full; gemma2_sft_args: bf16, 2 microbatches of one row of
+    4096, GEMMA2_STEPS steps, a checkpoint with the consolidated HF export every 2 steps);
+    every flash launch soft-capped. The checks are _gemma_train_ft_path's."""
+    return _gemma_train_ft_path(
+        name, GEMMA2_27B, GEMMA2_LAYERS_TRAIN_FT, GEMMA2_STEPS, GEMMA2_SFT_YAML,
+        lambda tmp, hf_dir, ckpt: ["-c", gemma2_sft_config(tmp),
+                                   *gemma2_sft_args(hf_dir, ckpt)])
+
+
+def _gemma3_train_ft_path(name):
+    """examples/llm_finetune/gemma3_4b_sft.yaml through train_ft (main path 23), its mock
+    data as it stands, attention through the flash kernels (the file names no
+    backend.attention, whose default is the plain path), its model a local HF directory of a random-init Gemma-3-4B in the
+    published checkpoint's layout (GEMMA3_4B: the Gemma3ForConditionalGeneration config
+    with its vision_config, the text model's tensors under ``language_model.``) at
+    GEMMA3_4B_LAYERS_TRAIN_FT layers (5 sliding, 1 full; gemma2_sft_args: bf16, 2
+    microbatches of one row of 4096, GEMMA3_4B_STEPS steps, a save every 2 steps); every
+    flash launch at head_dim 256, none capped. The checks are _gemma_train_ft_path's."""
+    return _gemma_train_ft_path(
+        name, GEMMA3_4B, GEMMA3_4B_LAYERS_TRAIN_FT, GEMMA3_4B_STEPS, GEMMA3_SFT_YAML,
+        lambda tmp, hf_dir, ckpt: ["-c", GEMMA3_SFT_YAML, *gemma3_proxy_args(),
+                                   *gemma2_sft_args(hf_dir, ckpt, GEMMA3_4B_STEPS)],
+        prefix="language_model.")
 
 
 def _cp_train_ft_args(layers=CP_LAYERS_TRAIN_FT) -> list[str]:
@@ -3344,6 +3477,11 @@ def _lce_memory(torch):
 
 
 def main(argv: list[str]) -> int:
+    # every phase and main path runs in this one process: segments that grow in place keep
+    # one path's freed memory usable by the next (with fixed segments, main path 11 once
+    # failed to allocate 7.9 GiB beside 32.7 GiB reserved but split); read by the caching
+    # allocator at its first allocation, and inherited by the deterministic paths' child
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import torch
 
     if not torch.cuda.is_available():
@@ -3406,6 +3544,16 @@ def main(argv: list[str]) -> int:
                      ("at_gemma2_softcap", GEMMA2_27B["attn_logit_softcapping"])):
         for name, row in _timings(torch, fa, 2, 2048, 32, 16, 128, softcap=cap,
                                   scale=GEMMA2_27B["query_pre_attn_scalar"]**-0.5).items():
+            timings[name][key] = row
+    # head_dim 256: (G9) / (G9c) main path 21's attention, Gemma-2-9B's heads without and
+    # with its cap; (G4w) main path 22's sliding layers, Gemma-3-4B's heads and window 1024
+    for key, shape, kw in (
+            ("at_gemma2_9b", (2, 2048, 16, 8), {}),
+            ("at_gemma2_9b_softcap", (2, 2048, 16, 8),
+             {"softcap": GEMMA2_9B["attn_logit_softcapping"]}),
+            ("at_gemma3_4b_window", (2, 2048, 8, 4),
+             {"window": GEMMA3_4B_TEXT["sliding_window"]})):
+        for name, row in _timings(torch, fa, *shape, 256, scale=256**-0.5, **kw).items():
             timings[name][key] = row
     _refused_on_the_card(torch, fa)
     _ring_refused_on_the_card(torch)
@@ -3480,6 +3628,12 @@ def main(argv: list[str]) -> int:
     by_path["main path 19"], _ = _bench_path("main path 19", GEMMA3_PROXY_YAML, linear_ce=True,
                                              overrides=gemma2_args())
     by_path["main path 20"] = _gemma2_train_ft_path("main path 20")
+    by_path["main path 21"], _ = _bench_path("main path 21", GEMMA3_PROXY_YAML, linear_ce=True,
+                                             overrides=gemma2_args(GEMMA2_9B_LAYERS, GEMMA2_9B))
+    by_path["main path 22"], _ = _bench_path(
+        "main path 22", GEMMA3_PROXY_YAML, linear_ce=True,
+        overrides=gemma2_args(GEMMA3_4B_TEXT["num_hidden_layers"], GEMMA3_4B_TEXT))
+    by_path["main path 23"] = _gemma3_train_ft_path("main path 23")
 
     flash = "automodel_tpu/ops/pallas/flash_attention.py"
     lce_src = "automodel_tpu/ops/pallas/linear_ce.py"

@@ -443,7 +443,7 @@ def test_phase_order():
     """The twice-launch phase runs first, the kernel cases next (the ring's at (192, 128)
     after its others), then the main paths in order, the deterministic ones (main paths 9
     and 10 under the flag, in a child process) before GPT-OSS's (main paths 11 and 12),
-    Phi-3's (13 and 14), the DeepSeek family's (15-17) and Gemma's (18-20), then the
+    Phi-3's (13 and 14), the DeepSeek family's (15-17) and Gemma's (18-23), then the
     kernels line."""
     src = inspect.getsource(chip_smoke.main)
     order = ["_twice_phase(", "_flash_phase(", "_timings(", "_window_timings(",
@@ -454,7 +454,8 @@ def test_phase_order():
              '"main path 8"', '"main path 9"', "_deterministic_paths()", '"main path 11"',
              '"main path 12"', '"main path 13"', '"main path 14"', '"main path 15"',
              '"main path 16"', '"main path 17"', '"main path 18"', '"main path 19"',
-             '"main path 20"', '{"kernels"']
+             '"main path 20"', '"main path 21"', '"main path 22"', '"main path 23"',
+             '{"kernels"']
     at = [re.search(r"(?<!\w)" + re.escape(x), src).start() for x in order]
     assert at == sorted(at)
     child = inspect.getsource(chip_smoke._deterministic_child)
@@ -788,3 +789,95 @@ def test_gemma_configs_run_through_both_recipes(tmp_path):
     assert run["loss_name"] == "masked_ce" and run["hf_differ"] == []
     assert "model.layers.1.pre_feedforward_layernorm.weight" in run["hf_names"]
     assert "lm_head.weight" not in run["hf_names"]  # tied
+
+
+def test_expected_launches_of_the_head_dim_256_gemma_paths():
+    """Main path 21: Gemma-2-9B's widths over the Gemma-3 proxy at 8 layers (4 sliding),
+    every flash launch capped; main path 22: Gemma-3-4B's text widths at all 34 layers (29
+    sliding at window 1024, linear RoPE scaling 8), none capped; main path 23: 6 layers of
+    the multimodal Gemma-3-4B config (5 sliding), 2 microbatches, 4 steps, none capped; all
+    at head_dim 256. A launch counted at another head dim fails its path."""
+    steps = chip_smoke.WARMUP + chip_smoke.TIMED
+    cfg = parse_args_and_load_config(["-c", chip_smoke.GEMMA3_PROXY_YAML, *chip_smoke.gemma2_args(
+        chip_smoke.GEMMA2_9B_LAYERS, chip_smoke.GEMMA2_9B)])
+    model = chip_smoke._port_config(cfg.model.config)
+    assert (model.hidden_size, model.intermediate_size, model.num_attention_heads,
+            model.num_key_value_heads, model.head_dim, model.vocab_size) == (
+        3584, 14336, 16, 8, 256, 256000)
+    assert (model.attn_logit_softcapping, model.final_logit_softcapping,
+            model.query_pre_attn_scalar, model.sliding_window, model.qk_norm) == (
+        50.0, 30.0, 256, 4096, False)
+    assert model.sliding_flags == [True, False] * 4
+    assert chip_smoke._capped_layers(cfg.model.config) == 8
+    assert chip_smoke._head_dim(cfg.model.config) == 256
+    cfg = parse_args_and_load_config(["-c", chip_smoke.GEMMA3_PROXY_YAML, *chip_smoke.gemma2_args(
+        34, chip_smoke.GEMMA3_4B_TEXT)])
+    model = chip_smoke._port_config(cfg.model.config)
+    assert (model.hidden_size, model.intermediate_size, model.num_attention_heads,
+            model.num_key_value_heads, model.head_dim, model.vocab_size,
+            model.query_pre_attn_scalar, model.sliding_window, model.qk_norm) == (
+        2560, 10240, 8, 4, 256, 262208, 256, 1024, True)
+    assert model.rope_scaling == {"rope_type": "linear", "factor": 8.0}
+    assert (model.rope_theta, model.rope_local_base_freq) == (1e6, 1e4)
+    assert chip_smoke._sliding_layers(cfg) == 29 and chip_smoke._capped_layers(
+        cfg.model.config) == 0
+    assert cfg.dataset.vocab_size == 262208 and cfg.backend.attention == "flash"
+    # the multimodal config of main path 23 reads as the text model's
+    text = chip_smoke._port_config(dict(
+        chip_smoke.GEMMA3_4B, text_config=dict(chip_smoke.GEMMA3_4B["text_config"],
+                                               num_hidden_layers=6)))
+    assert (text.hidden_size, text.head_dim, text.num_hidden_layers, sum(text.sliding_flags),
+            text.vocab_size, text.attn_logit_softcapping) == (2560, 256, 6, 5, 262208, None)
+    flash = ("flash_fwd", "flash_dq", "flash_dkv")
+    for layers, micro, n_steps, sliding, capped, n in (
+            (chip_smoke.GEMMA2_9B_LAYERS, 1, steps, 4, 8, 56), (34, 1, steps, 29, 0, 238),
+            (chip_smoke.GEMMA3_4B_LAYERS_TRAIN_FT, 2, chip_smoke.GEMMA3_4B_STEPS, 5, 0, 48)):
+        want = chip_smoke._expected(layers, micro, n_steps, True)
+        assert (want["flash_fwd"], want["flash_dq"], want["flash_dkv"]) == (2 * n, n, n)
+        launches = dict(want, **{f"{k}/windowed": want[k] * sliding // layers for k in flash},
+                        **{f"{k}/softcap": want[k] * capped // layers for k in flash},
+                        **{f"{k}/d256": want[k] for k in flash})
+        chip_smoke._check_windowed("path", launches, sliding, micro, n_steps)
+        chip_smoke._check_softcap("path", launches, capped, micro, n_steps)
+        chip_smoke._check_head_dim("path", launches, 256)
+        with pytest.raises(AssertionError, match="head dim"):
+            chip_smoke._check_head_dim("path", dict(launches, **{"flash_dq/d256": n - 1,
+                                                                 "flash_dq/d128": 1}), 256)
+
+
+def test_gemma_head_dim_256_configs_run_through_both_recipes(tmp_path):
+    """Main paths 21-23 at small widths on the CPU: Gemma-2-9B's and Gemma-3-4B's settings
+    over the Gemma-3 proxy (gemma2_args of each config) in the benchmark recipe, and
+    gemma3_4b_sft.yaml as it stands with gemma2_sft_args from a local HF directory in the
+    multimodal layout (write_pretrained's ``language_model.`` prefix, the wrapper's
+    config.json with its vision_config), through the shared _pretrained_run for 2 steps with
+    a save at step 2, whose hf/ holds Gemma's names and reloads bitwise."""
+    bench = ["--benchmark.warmup_steps", "1", "--benchmark.timed_steps", "1",
+             "--micro_batch_size", "2"]
+    for name, args in (("p21", chip_smoke.gemma2_args(2, chip_smoke.GEMMA2_9B)),
+                       ("p22", chip_smoke.gemma2_args(6, chip_smoke.GEMMA3_4B_TEXT))):
+        result = benchmark.main(argv=["-c", chip_smoke.GEMMA3_PROXY_YAML, *args, *SMALL_GEMMA,
+                                      *bench, "--output_dir", str(tmp_path / name)])
+        assert len(result["losses"]) == 2 and all(map(math.isfinite, result["losses"]))
+
+    small = dict(chip_smoke.GEMMA3_4B, text_config=dict(
+        chip_smoke.GEMMA3_4B["text_config"], hidden_size=64, intermediate_size=128,
+        num_attention_heads=4, num_key_value_heads=2, head_dim=16, vocab_size=512,
+        num_hidden_layers=chip_smoke.GEMMA3_4B_LAYERS_TRAIN_FT))
+    hf = chip_smoke.write_pretrained(str(tmp_path / "hf"), small, device="cpu",
+                                     prefix="language_model.")
+    with open(os.path.join(hf, "model.safetensors"), "rb") as f:
+        header = json.loads(f.read(int.from_bytes(f.read(8), "little")))
+    assert "language_model.model.layers.5.self_attn.q_norm.weight" in header
+    assert not any(k.startswith("model.") for k in header)
+    ckpt = str(tmp_path / "ck")
+    args = ["-c", chip_smoke.GEMMA3_SFT_YAML, *chip_smoke.gemma3_proxy_args(),
+            *chip_smoke.gemma2_sft_args(hf, ckpt),
+            "--dataset.vocab_size", "512", "--dataset.seq_len", "64", "--seq_len", "64",
+            "--step_scheduler.grad_acc_steps", "1", "--step_scheduler.max_steps", "2",
+            "--device", "cpu", "--output_dir", str(tmp_path / "p23")]
+    assert parse_args_and_load_config(args).backend.attention == "flash"
+    run = chip_smoke._pretrained_run("p23", args, ckpt, reload_dtype=torch.bfloat16)
+    chip_smoke._check_pretrained_run("p23", run, range(1, 3), run["launches"], saves=[2])
+    assert run["hf_differ"] == []
+    assert "model.layers.5.post_feedforward_layernorm.weight" in run["hf_names"]

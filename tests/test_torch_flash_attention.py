@@ -3,8 +3,8 @@
 On the CPU the port's wrapper runs the kernels' plain version; the JAX side runs
 the Pallas kernels in interpret mode with 32x32 blocks, as tests/unit/
 test_flash_attention.py does, with the fused backward and with the split one.
-Inputs come from numpy seeds; cases run at head_dim 16, 128 and Phi-3's 96 (with GQA,
-segments and a window). Tolerances, f32 throughout: 2e-5 on O and lse,
+Inputs come from numpy seeds; cases run at head_dim 16, 128, Phi-3's 96 and Gemma's
+256 (with GQA, segments, a window and the soft-cap). Tolerances, f32 throughout: 2e-5 on O and lse,
 1e-4 on the gradients. The deterministic route's plain versions (flash_dq_reference,
 flash_dkv_reference) are held against the split backward's kernels (_dq_kernel,
 _dkv_kernel) at 1e-4 too, and the route the wrapper takes under
@@ -93,6 +93,8 @@ CASES = {
     "wide_packed_d128": dict(shape=(1, 64, 4, 2, 128), causal=True, segments=True),
     # head_dim 96, Phi-3's (the CUDA kernels run it in their 128-wide tiles)
     "y_d96_gqa_packed": dict(shape=(1, 64, 4, 2, 96), causal=True, segments=True),
+    # head_dim 256, Gemma-2-9B's and Gemma-3's (tiles of their own in the CUDA kernels)
+    "z_d256_gqa_packed": dict(shape=(1, 64, 2, 1, 256), causal=True, segments=True),
 }
 
 
@@ -144,12 +146,13 @@ def test_plain_version_options_match_pallas(option):
     (dict(logit_soft_cap=1.0), ValueError),  # a kernel feature, as the window
     (dict(sinks=torch.zeros(2)), ValueError),  # a kernel feature, as the window
     (dict(), ValueError),  # not a CUDA tensor
-    (dict(head_dim=256), NotImplementedError),  # no kernel takes it yet
+    (dict(head_dim=256), ValueError),  # the kernels take it: their input check refuses meta
+    (dict(head_dim=80), NotImplementedError),  # no kernel takes it
 ])
 def test_non_cpu_tensors_never_fall_back(kw, err):
     """A tensor off the CPU goes to the kernels or raises: never to the plain version.
-    The window, soft-cap and sinks reach the kernels' input check; head_dim 256 raises
-    by name."""
+    The window, soft-cap, sinks and head_dim 256 reach the kernels' input check; head_dim
+    80 raises by name."""
     kw = dict(kw)
     q = torch.empty(1, 64, 2, kw.pop("head_dim", 64), dtype=torch.bfloat16, device="meta")
     before = dict(tfa.LAUNCHES)
@@ -246,6 +249,7 @@ WINDOW_CASES = {
     "sinks": ((2, 64, 4, 2, 16), True, None, False, True),
     "window_sinks_segments": ((2, 64, 8, 2, 16), True, 12, True, True),
     "y_d96_window_segments": ((1, 64, 4, 2, 96), True, 20, True, False),
+    "z_d256_window_sinks_segments": ((1, 64, 2, 1, 256), True, 20, True, True),
 }
 
 
@@ -334,6 +338,36 @@ def test_window_and_sinks_reach_the_entry_points(window, sinks, monkeypatch):
         assert grads[3].dtype == torch.bfloat16 and grads[3].shape == (4,)
 
 
+@pytest.mark.parametrize("softcap", [None, 50.0], ids=["uncapped", "capped"])
+def test_head_dim_256_reaches_the_entry_points(softcap, monkeypatch):
+    """At head_dim 256 all three entry points get D = 256 beside the caller's scale
+    (Gemma's 256^-0.5) and cap, nothing is refused, and the launches are counted under
+    d256 (capped ones apart)."""
+    seen = {}
+
+    def launch(source, name, device, *args):
+        assert len(args) + 1 == len(build.SOURCES[source][name]), name
+        seen[name] = args
+
+    monkeypatch.setattr(build, "launch", launch)
+    monkeypatch.setattr(tfa, "_check_cuda", lambda *a: None)  # CPU tensors stand in
+    q, k, v, do = (torch.tensor(x).to(torch.bfloat16).requires_grad_()
+                   for x in _inputs(0, 1, 64, 2, 1, 256))
+    before, before_c = dict(tfa.HEAD_DIM_LAUNCHES), dict(tfa.SOFTCAP_LAUNCHES)
+    o, _ = tfa.flash_attention_cuda(q, k, v, softmax_scale=256**-0.5, sliding_window=1024,
+                                    logit_soft_cap=softcap)
+    torch.autograd.grad(o, (q, k, v), do)
+    assert sorted(seen) == ["flash_dkv", "flash_dq", "flash_fwd"]
+    for name, args in seen.items():
+        ints, floats = [a for a in args if type(a) is int], [a for a in args if type(a) is float]
+        assert 256 in ints and floats == [256**-0.5, softcap or 0.0], name
+        assert args[-2:] == (1, 1024), name
+    assert {n: tfa.HEAD_DIM_LAUNCHES[n] - before[n] for n in before} == {
+        n: int(n.endswith("/d256")) for n in before}
+    assert {n: tfa.SOFTCAP_LAUNCHES[n] - before_c[n] for n in before_c} == dict.fromkeys(
+        before_c, int(softcap is not None))
+
+
 def test_head_dim_96_reaches_the_entry_points(monkeypatch):
     """At head_dim 96 all three entry points get D = 96 and the softmax scale 1/sqrt(96)
     (the kernels run it in their 128-wide tiles, but the scale is never the tile's), and
@@ -366,6 +400,7 @@ SOFTCAP_CASES = {
     "cap_window_segments": ((2, 64, 4, 2, 16), True, 2.0, 12, True, False),
     "cap_sinks": ((1, 64, 4, 2, 16), True, 0.5, None, False, True),
     "cap_d96": ((1, 64, 4, 2, 96), True, 2.0, 20, False, False),
+    "cap_window_segments_d256": ((1, 64, 2, 1, 256), True, 2.0, 20, True, False),
 }
 
 

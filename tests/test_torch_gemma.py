@@ -1,8 +1,10 @@
 """The port's Gemma 2 / 3 against the JAX package's, f32, on tiny configs: Gemma-2 at 2
 layers (sliding, full: a window of 12 on rows of 32), attention soft-cap 2 and final
 soft-cap 3; Gemma-3 at 6 layers (5 sliding, 1 full, its default pattern), q / k norms and
-dual RoPE (the full layer's linear scaling 8, the local base 10,000). Weights come from a
-numpy seed in the JAX package's parameter tree, scaled so that both caps bite (the
+dual RoPE (the full layer's linear scaling 8, the local base 10,000); Gemma-2 again at
+head_dim 256 (2 heads over 1, query scale 256^-0.5), Gemma-2-9B's and Gemma-3's head
+width. Weights come from a numpy seed in the JAX package's parameter tree, scaled so
+that both caps bite (the
 matrices N(0, 0.15^2), the embedding N(0, 0.3^2), the zero-centred norms N(0, 0.2^2)),
 and are carried across with params_from_jax. The port's "flash" path (the kernels'
 plain version on the CPU) runs against JAX's Pallas kernels in interpret mode
@@ -55,7 +57,11 @@ GEMMA3 = dict(architectures=["Gemma3ForCausalLM"], vocab_size=128, hidden_size=6
               rope_theta=1_000_000.0, rope_local_base_freq=10_000.0,
               rope_scaling={"rope_type": "linear", "factor": 8.0},
               max_position_embeddings=256, rms_norm_eps=1e-6)
-FAMILIES = {"gemma2": GEMMA2, "gemma3": GEMMA3}
+# Gemma-2-9B's head shape (head_dim 256, 2 q heads over 1 kv head, the query scale
+# 256^-0.5) with both caps and alternating windows: the flash kernels' D=256 tiles on the card
+GEMMA2_D256 = dict(GEMMA2, num_attention_heads=2, num_key_value_heads=1, head_dim=256,
+                   query_pre_attn_scalar=256)
+FAMILIES = {"gemma2": GEMMA2, "gemma3": GEMMA3, "gemma2_d256": GEMMA2_D256}
 # the published config.json files (Hugging Face Hub) of google/gemma-2-27b and the text
 # part of google/gemma-3-4b-pt (its Gemma3ForConditionalGeneration wrapper)
 GEMMA2_27B = dict(architectures=["Gemma2ForCausalLM"], vocab_size=256000, hidden_size=4608,
@@ -140,7 +146,7 @@ def test_logits_and_grads_match_jax(family):
     (_, jlogits), jgrads = jax.jit(jax.value_and_grad(jloss, has_aux=True))(
         jax.tree.map(jnp.asarray, params))
     tm = _port(hf, params)
-    assert tm.config.sliding_flags == ([True, False] if family == "gemma2"
+    assert tm.config.sliding_flags == ([True, False] if family.startswith("gemma2")
                                        else [True] * 5 + [False])
     logits = tm(torch.tensor(ids), positions=torch.tensor(pos), segment_ids=torch.tensor(seg))
     grads = torch.autograd.grad((logits * torch.tensor(ct)).sum(), list(tm.param_dict().values()))
