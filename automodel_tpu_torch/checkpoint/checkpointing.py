@@ -3,7 +3,8 @@
 
 Layout of a save, as the JAX package lays it out:
 
-    <root>/step_{N}/model/          the parameters, torch.distributed.checkpoint
+    <root>/step_{N}/model/          the parameters (under PEFT the adapter alone),
+                                    torch.distributed.checkpoint
     <root>/step_{N}/optim/          the optimizer state, torch.distributed.checkpoint
     <root>/step_{N}/client.json     step scheduler and dataloader state_dicts
     <root>/step_{N}/signature.json  name -> "shape/dtype" of every parameter, and the
@@ -153,9 +154,12 @@ class Checkpointer:
     # -- save ---------------------------------------------------------------
     def save(self, step: int, params: Mapping[str, torch.Tensor], opt_state: Any = None,
              client_states: Mapping[str, Any] | None = None,
-             consolidated: bool | None = None) -> str:
+             consolidated: bool | None = None,
+             hf_params: Mapping[str, torch.Tensor] | None = None) -> str:
         """Write step ``step``; ``consolidated`` overrides ``config.save_consolidated`` for
-        this save. Returns the step directory ("" when checkpointing is off)."""
+        this save. ``hf_params``: what the consolidated export writes instead of
+        ``params`` (under PEFT ``params`` is the adapter, ``hf_params`` the merged
+        model). Returns the step directory ("" when checkpointing is off)."""
         if not self.config.enabled:
             return ""
         d = self.step_dir(step)
@@ -186,7 +190,7 @@ class Checkpointer:
         do_consolidated = (self.config.save_consolidated if consolidated is None
                            else consolidated)
         if do_consolidated and self.state_dict_adapter is not None:
-            self.save_hf(os.path.join(d, "hf"), params)
+            self.save_hf(os.path.join(d, "hf"), params if hf_params is None else hf_params)
         self._pending = step
         self.wait()
         self._prune()

@@ -6,7 +6,11 @@
 //              row) maxima `bmax` for the backward's block filter)
 //   lce_bwd <- _bwd_dh_kernel (:137, dH = (softmax * dz) @ W^T) and, by function,
 //              _bwd_dw_kernel (:163, dW = H^T @ (softmax * dz)), both skipping the
-//              blocks the filter marks as insignificant.
+//              blocks the filter marks as insignificant. With dw null, lce_bwd is
+//              _bwd_dh_kernel alone (a frozen unembedding, as under LoRA, where JAX's
+//              jit drops the dW call): the dlogits recompute and the dH product per
+//              chunk, the same launches in the same order, so dH is bitwise the full
+//              call's; 4NEV instead of 6NEV.
 //
 // Layouts: h (N, E) bf16 row-major, N a multiple of 128 (the caller pads tokens with
 // zero rows); w bf16 either (E, V) row-major or, with w_vmajor, (V, E) row-major (a
@@ -754,9 +758,10 @@ extern "C" int lce_fwd_wgmma(const void* h, const void* w, float* z, float* bmax
   return (int)cudaGetLastError();
 }
 
-// dh (N, E) bf16; dw bf16 in w's layout. dl: (N, chunk) bf16 scratch, chunk a multiple
-// of 128; dh32: (N, E) f32 scratch, needed when V > chunk (else may be null). sig may
-// be null. The mma.sync route: any E and V.
+// dh (N, E) bf16; dw bf16 in w's layout, or null for dH alone (no dW product is
+// launched). dl: (N, chunk) bf16 scratch, chunk a multiple of 128; dh32: (N, E) f32
+// scratch, needed when V > chunk (else may be null). sig may be null. The mma.sync
+// route: any E and V.
 extern "C" int lce_bwd(const void* h, const void* w, const float* z, const float* dz,
                        const int* sig, void* dh, void* dw, void* dl, float* dh32, int N, int E,
                        int V, int w_vmajor, int chunk, void* stream) {
@@ -802,6 +807,7 @@ extern "C" int lce_bwd(const void* h, const void* w, const float* z, const float
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
 
+    if (dwp == nullptr) continue;  // dH alone
     if (w_vmajor) {
       // dW[v0 : v0 + width, :] = dl^T (width x N) @ h (N x E)
       const Operand a_dlt{dlp, (size_t)chunk, kpad, N, aligned16(dlp, chunk)};
@@ -824,7 +830,7 @@ extern "C" int lce_bwd(const void* h, const void* w, const float* z, const float
 }
 
 // The wgmma route of lce_bwd (E % 8 == 0, V % 8 == 0, h and w 16-byte aligned), with
-// lce_bwd's arguments.
+// lce_bwd's arguments (dw null: dH alone).
 extern "C" int lce_bwd_wgmma(const void* h, const void* w, const float* z, const float* dz,
                              const int* sig, void* dh, void* dw, void* dl, float* dh32, int N,
                              int E, int V, int w_vmajor, int chunk, void* stream) {
@@ -874,6 +880,7 @@ extern "C" int lce_bwd_wgmma(const void* h, const void* w, const float* z, const
                    : launch_sm90<false, false>(dl_k, w_dh, E, N, 0, v0, v_steps, f_dh, e_dh, s);
     if (err != cudaSuccess) break;
 
+    if (dw == nullptr) continue;  // dH alone
     const int t_steps = N / sm90::BK;
     bf16* dwp = static_cast<bf16*>(dw);
     if (w_vmajor) {

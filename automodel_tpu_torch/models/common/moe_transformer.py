@@ -224,8 +224,10 @@ class MoECausalLM(ParamModule):
         return None
 
     def forward(self, input_ids, positions=None, segment_ids=None, token_mask=None,
-                return_hidden=False, training=True, mesh=None):
-        return moe_decoder_forward(self.config, self.backend, self.param_dict(), input_ids,
+                return_hidden=False, training=True, mesh=None, params=None):
+        """``params``: run on these tensors instead of the module's (a LoRA merge)."""
+        return moe_decoder_forward(self.config, self.backend,
+                                   self.param_dict() if params is None else params, input_ids,
                                    positions=positions, segment_ids=segment_ids,
                                    token_mask=token_mask, return_hidden=return_hidden,
                                    training=training, mesh=mesh,

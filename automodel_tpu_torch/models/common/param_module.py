@@ -6,11 +6,15 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from automodel_tpu_torch.models.common.logical_axes import DENSE_LAYER_AXES, logical_axes
+
 __all__ = ["ParamModule"]
 
 
 class ParamModule(nn.Module):
     """An ``nn.Module`` whose parameters are one flat dict with JAX-tree names."""
+
+    layer_axes = DENSE_LAYER_AXES  # the family's per-layer logical-axes table
 
     def __init__(self, init: dict[str, torch.Tensor]):
         super().__init__()
@@ -21,6 +25,11 @@ class ParamModule(nn.Module):
     def param_dict(self) -> dict[str, torch.Tensor]:
         """name -> parameter, with the JAX tree's names (``layers.wq``)."""
         return {k.replace("__", "."): v for k, v in self.params.items()}
+
+    def logical_axes(self) -> dict[str, tuple]:
+        """name -> logical axes of every parameter, as the JAX model's ``logical_axes()``
+        gives them (flattened to the same names)."""
+        return logical_axes(self.config.param_shapes(), self.layer_axes)
 
     def load_params(self, tensors: dict[str, torch.Tensor]) -> None:
         """Copy ``tensors`` (flat JAX names, e.g. from ``params_from_jax``) in place."""

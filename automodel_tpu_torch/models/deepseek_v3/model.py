@@ -27,6 +27,7 @@ from typing import Any
 import torch
 
 from automodel_tpu_torch.models.common.backend import checkpoint_name
+from automodel_tpu_torch.models.common.logical_axes import MLA_LAYER_AXES
 from automodel_tpu_torch.models.common.moe_transformer import MoECausalLM, MoEDecoderConfig
 from automodel_tpu_torch.models.common.transformer import project
 from automodel_tpu_torch.moe.config import MoEConfig
@@ -205,6 +206,7 @@ class DeepseekV3ForCausalLM(MoECausalLM):
     DeepSeek's names (``e_score_correction_bias`` kept in f32)."""
 
     config_class = DeepseekV3Config
+    layer_axes = MLA_LAYER_AXES
 
     def attention_fn(self, device):
         return make_mla_attention_fn(self.config, self.backend, device)

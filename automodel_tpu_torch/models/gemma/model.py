@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from automodel_tpu_torch.models.common.backend import BackendConfig
+from automodel_tpu_torch.models.common.logical_axes import GEMMA_LAYER_AXES
 from automodel_tpu_torch.models.common.param_module import ParamModule
 from automodel_tpu_torch.models.common.transformer import init_params, project, resolve_unembed
 from automodel_tpu_torch.ops.attention import dot_product_attention
@@ -175,6 +176,7 @@ class GemmaForCausalLM(ParamModule):
     """Holds the parameters (JAX layout, flat names) and runs the Gemma stack."""
 
     config_class = GemmaConfig
+    layer_axes = GEMMA_LAYER_AXES
 
     def __init__(self, config: GemmaConfig, backend: BackendConfig | None = None, *,
                  device: torch.device | str = "cuda", dtype=torch.float32,
@@ -208,12 +210,13 @@ class GemmaForCausalLM(ParamModule):
         return GemmaStateDictAdapter(self.config)
 
     def forward(self, input_ids, positions=None, segment_ids=None, return_hidden=False,
-                mesh=None):
+                mesh=None, params=None):
         """Logits (B, S, V) in the compute dtype (Gemma-2: soft-capped), or the final
-        hidden states. ``mesh`` is accepted and unused: JAX's Gemma has no ring branch."""
+        hidden states. ``mesh`` is accepted and unused: JAX's Gemma has no ring branch.
+        ``params``: run on these tensors instead of the module's (a LoRA merge)."""
         del mesh
         cfg, backend = self.config, self.backend
-        params = self.param_dict()
+        params = self.param_dict() if params is None else params
         dtype = backend.torch_dtype
         if positions is None:
             positions = torch.arange(input_ids.shape[1], device=input_ids.device).expand(

@@ -117,7 +117,9 @@ class LlamaForCausalLM(ParamModule):
         return LlamaStateDictAdapter(self.config)
 
     def forward(self, input_ids, positions=None, segment_ids=None, return_hidden=False,
-                mesh=None):
-        return decoder_forward(self.config, self.backend, self.param_dict(), input_ids,
+                mesh=None, params=None):
+        """``params``: run on these tensors instead of the module's (a LoRA merge)."""
+        return decoder_forward(self.config, self.backend,
+                               self.param_dict() if params is None else params, input_ids,
                                positions=positions, segment_ids=segment_ids,
                                return_hidden=return_hidden, mesh=mesh)

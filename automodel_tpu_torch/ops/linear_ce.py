@@ -19,6 +19,12 @@ products on the Hopper core, TMA-fed) when E and V are multiples of 8 bf16 and h
 w start 16-byte aligned, as TMA requires, else ``mma_sync`` (any E and V, e.g.
 GPT-2's vocabulary of 50,257).
 
+A frozen unembedding (no gradient asked for w, as under LoRA) takes ``lce_bwd`` with
+dH alone (``need_dw=False``: the C entry points get a null dw and launch no dW
+product), as JAX's jit drops the ``_bwd_dw_kernel`` call whose output nothing reads;
+its dH is bitwise the full call's. ``ROUTE_LAUNCHES["lce_bwd/dh_only"]`` counts those
+launches beside the route counts.
+
 A CUDA tensor goes to the kernels or raises; a CPU tensor goes to
 :func:`fused_logsumexp_reference`, in f32, which applies the same filter at a tile
 given by the caller (the kernels' 128 x 128 by default; the JAX package's tiles in the
@@ -44,9 +50,10 @@ TILE_N = 128  # token tile of the kernels and of the filter
 TILE_V = 128  # vocab tile of the kernels, of bmax and of the filter
 # one count per kernel launch, so a run can show that it went through the kernels
 LAUNCHES = {"lce_fwd": 0, "lce_bwd": 0}
-# launches by route (each kernel's sum is its LAUNCHES count)
+# launches by route (each kernel's sum is its LAUNCHES count), and the lce_bwd launches
+# that computed dH alone
 ROUTE_LAUNCHES = {"lce_fwd/wgmma": 0, "lce_fwd/mma_sync": 0,
-                  "lce_bwd/wgmma": 0, "lce_bwd/mma_sync": 0}
+                  "lce_bwd/wgmma": 0, "lce_bwd/mma_sync": 0, "lce_bwd/dh_only": 0}
 _SOURCE = "linear_ce.cu"
 _CHUNK_BYTES = 256 * 2**20  # budget of the backward's (tokens, vocab chunk) bf16 buffer
 
@@ -215,17 +222,19 @@ def lce_chunk(n: int, v: int) -> int:
     return max(TILE_V, min(-(-v // TILE_V) * TILE_V, _CHUNK_BYTES // (2 * n) // TILE_V * TILE_V))
 
 
-def lce_bwd(h, w, z, dz, sig, vmajor: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+def lce_bwd(h, w, z, dz, sig, vmajor: bool = False,
+            need_dw: bool = True) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Launch the backward on checked inputs: ``(dh, dw)`` in bf16, dw in w's layout
     (see :func:`lce_fwd`), on the route :func:`lce_bwd_route` picks. ``sig`` is the
-    (N/128, ceil(V/128)) int32 filter mask, or None for exact gradients."""
+    (N/128, ceil(V/128)) int32 filter mask, or None for exact gradients. ``need_dw``
+    False: dH alone (dw is None), counted under ``lce_bwd/dh_only``."""
     from automodel_tpu_torch.kernels.build import launch
 
     n, e = h.shape
     v = w.shape[0] if vmajor else w.shape[1]
     chunk = lce_chunk(n, v)
     dh = torch.empty_like(h)
-    dw = torch.empty_like(w)
+    dw = torch.empty_like(w) if need_dw else None
     dl = torch.empty((n, chunk), dtype=torch.bfloat16, device=h.device)
     dh32 = torch.empty((n, e), dtype=torch.float32, device=h.device) if v > chunk else None
     z, dz = z.contiguous(), dz.float().contiguous()
@@ -234,16 +243,18 @@ def lce_bwd(h, w, z, dz, sig, vmajor: bool = False) -> tuple[torch.Tensor, torch
     route = lce_bwd_route(h, w, vmajor)
     launch(_SOURCE, "lce_bwd_wgmma" if route == "wgmma" else "lce_bwd", h.device, h.data_ptr(),
            w.data_ptr(), z.data_ptr(), dz.data_ptr(), None if sig is None else sig.data_ptr(),
-           dh.data_ptr(), dw.data_ptr(), dl.data_ptr(), None if dh32 is None else dh32.data_ptr(),
-           n, e, v, int(vmajor), chunk)
+           dh.data_ptr(), None if dw is None else dw.data_ptr(), dl.data_ptr(),
+           None if dh32 is None else dh32.data_ptr(), n, e, v, int(vmajor), chunk)
     LAUNCHES["lce_bwd"] += 1
     ROUTE_LAUNCHES[f"lce_bwd/{route}"] += 1
+    if not need_dw:
+        ROUTE_LAUNCHES["lce_bwd/dh_only"] += 1
     return dh, dw
 
 
 class _FusedLogsumexp(torch.autograd.Function):
     """z from the kernels; w is the operand as stored ((E, V), or (V, E) with vmajor)
-    and its gradient comes back in the same layout."""
+    and its gradient comes back in the same layout, or not at all when w needs none."""
 
     @staticmethod
     def forward(ctx, h, w, vmajor, log_eps):
@@ -259,7 +270,7 @@ class _FusedLogsumexp(torch.autograd.Function):
         sig = None
         if log_eps is not None:
             sig = block_significance(bmax, z, TILE_N, log_eps)
-        dh, dw = lce_bwd(h, w, z, dz, sig, vmajor)
+        dh, dw = lce_bwd(h, w, z, dz, sig, vmajor, need_dw=ctx.needs_input_grad[1])
         return dh, dw, None, None
 
 

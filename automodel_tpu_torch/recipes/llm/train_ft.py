@@ -16,13 +16,26 @@ with its optimizer and LR schedule, ``training.jsonl`` rows, validation every
 (``checkpoint``: ``checkpoint/checkpointing.py``, with ``save_consolidated`` HF
 safetensors and best tracking) with resume from the newest verifiable one.
 
+PEFT (``peft``, JAX's ``_build_peft``): LoRA / DoRA adapters on the matched weights
+(``peft/lora.py``), dropout from the ``lora_dropout`` stream of ``training/rng.py``,
+and with ``peft.qlora`` (int8 | nf4) the matched base weights stored quantized after
+the adapters are made (DoRA's magnitudes need them dense). The train step
+differentiates the adapter alone, on the base merged every microbatch; the base is
+frozen, so a frozen unembedding runs linear CE's dH-only kernel and frozen experts no
+tgmm. Checkpoints hold the adapter and its optimizer state, ``hf/`` the merged model and
+``hf_adapter/`` the HF PEFT export; validation runs on the merged model; an MoE model's
+gate-bias update is off (with JAX's warning). QAT (``qat``): the matched weights
+fake-quantized in the forward, from ``fake_quant_after_n_steps`` on (a second step
+function before it, as JAX's two compiled steps), also under PEFT (on the base, before
+the merge). The client state keeps the random streams (``rng``).
+
 Runs on ``device`` (default ``cuda``). With no card it raises unless the config says
 ``device: cpu``. The ``distributed`` section builds a ``MeshContext``; on one process a
 ``cp`` larger than 1 folds onto the one card (``parallel/mesh.py``) and, with
 ``backend.context_parallel: ring``, runs ring attention over it. Sections this slice
 does not port (any other mesh axis larger than one device, expert parallelism and the
-``a2a`` dispatcher, PEFT, QAT, PP, resilience and observability services, asynchronous
-saves, noisy fake routing) raise NotImplementedError.
+``a2a`` dispatcher, PP, resilience and observability services, asynchronous saves, noisy
+fake routing) raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -55,6 +68,7 @@ from automodel_tpu_torch.ops.losses import (LINEAR_CE_IMPLS, linear_cross_entrop
 from automodel_tpu_torch.optim.builder import build_optimizer
 from automodel_tpu_torch.optim.scheduler import build_lr_schedule
 from automodel_tpu_torch.parallel.mesh import MeshAxis, MeshContext
+from automodel_tpu_torch.training.rng import StatefulRNG
 from automodel_tpu_torch.training.step_scheduler import StepScheduler
 from automodel_tpu_torch.training.train_step import (count_label_tokens, make_eval_step,
                                                      make_train_step)
@@ -83,9 +97,8 @@ def _unsupported(cfg: ConfigNode) -> list[str]:
             found.append(f"distributed.{axis} > 1")
     if int(cfg.get("distributed.dp_shard", 1) or 1) not in (1, -1):
         found.append("distributed.dp_shard > 1")
-    for key in ("peft", "qat", "tuned_config"):
-        if cfg.get(key) is not None:
-            found.append(key)
+    if cfg.get("tuned_config") is not None:
+        found.append("tuned_config")
     for key in ("resilience.enabled", "observability.enabled"):
         if cfg.get(key):
             found.append(key)
@@ -114,6 +127,7 @@ class TrainFinetuneRecipeForNextTokenPrediction:
             raise NotImplementedError(
                 f"not ported to the PyTorch package yet: {', '.join(bad)} (see ROADMAP.md)")
         seed = int(cfg.get("seed", 42))
+        self.rng = StatefulRNG(seed)
         dist_cfg = {k: int(v) for k, v in (cfg.get("distributed") or ConfigNode()).items()
                     if k in MeshAxis.ALL and v is not None}
         self.mesh = MeshContext(**dist_cfg)
@@ -162,6 +176,7 @@ class TrainFinetuneRecipeForNextTokenPrediction:
         n_params = sum(p.numel() for p in self.params.values())
         logger.info("model: %s (%.1fM params) on %s", model_cls.__name__, n_params / 1e6,
                     self.device)
+        self._build_peft()
         # MoE load-balance rows, as the JAX recipe: "brief" by default for MoE models
         self.moe_metrics_mode = cfg.get("moe_metrics.mode",
                                         "brief" if self.moe is not None else None)
@@ -192,14 +207,9 @@ class TrainFinetuneRecipeForNextTokenPrediction:
         self.lr_schedule = build_lr_schedule(max_lr=max_lr, **lr_cfg)
         betas = opt_cfg.pop("betas", (0.9, 0.95))
         self.optimizer = build_optimizer(lr=self.lr_schedule, betas=tuple(betas), **opt_cfg)
-        self.opt_state = self.optimizer.init(self.params)
+        self.opt_state = self.optimizer.init(self.train_params)
         self._guard_nonfinite = bool(cfg.get("distributed.check_for_nan_in_grad", False))
-        self._train_step = make_train_step(self._forward_loss, self.params, self.optimizer,
-                                           guard_nonfinite=self._guard_nonfinite,
-                                           post_update=self._post_update())
-        # validation: pure CE, no MoE aux term
-        self._eval_step = make_eval_step(
-            lambda batch, n: self._forward_loss(batch, n, training=False))
+        self._build_train_step()
 
         # checkpointing; a recipe that never saves (the benchmark) builds none
         self.checkpointer = None
@@ -255,13 +265,109 @@ class TrainFinetuneRecipeForNextTokenPrediction:
         return DataLoader(dataset, batch_size=self.micro_batch_size, collate_fn=collate,
                           seed=int(self.cfg.get("seed", 42)), shuffle=is_train)
 
+    def _build_peft(self):
+        """The LoRA / DoRA adapter (JAX's ``_build_peft``): ``train_params`` is what the
+        optimizer and the checkpoints hold, the adapter under PEFT and the model's
+        parameters otherwise. QLoRA quantizes the matched base weights after the adapter
+        is made, and drops the module's dense copies of them."""
+        peft_cfg = self.cfg.get("peft")
+        self.peft = None
+        self.train_params = self.params
+        if peft_cfg is None:
+            return
+        from automodel_tpu_torch.peft.lora import (PeftConfig, count_lora_params,
+                                                   init_lora_params, match_lora_paths)
+
+        self.peft = PeftConfig.from_dict(peft_cfg.to_dict())
+        axes = self.model.logical_axes()
+        lora = init_lora_params(self.params, axes, self.peft,
+                                self.rng.generator("lora_init", self.device))
+        self.train_params = {k: v.requires_grad_() for k, v in lora.items()}
+        for p in self.params.values():
+            p.requires_grad_(False)
+        scheme = peft_cfg.get("qlora")
+        if scheme:
+            from automodel_tpu_torch.quantization.qlora import quantize_params, tree_nbytes
+
+            matched = match_lora_paths(axes, self.peft)
+            before = tree_nbytes(self.params)
+            self.params = quantize_params(self.params, matched, scheme)
+            for name in matched:  # the forward reads the merged dict, never these
+                del self.model.params[name.replace(".", "__")]
+            logger.info("qlora(%s): base %.1fMB -> %.1fMB (%d tensors quantized)", scheme,
+                        before / 2**20, tree_nbytes(self.params) / 2**20, len(matched))
+        logger.info("peft: lora dim=%d alpha=%d dora=%s - %.2fM trainable params",
+                    self.peft.dim, self.peft.alpha, self.peft.use_dora,
+                    count_lora_params(self.train_params) / 1e6)
+
+    def _qat_param_fn(self):
+        """params -> a dict with the matched weights fake-quantized, or None when QAT is
+        off (JAX's ``_build_qat_param_fn``: ``qat.target_modules`` matched as LoRA matches,
+        ``["*"]`` meaning every linear weight)."""
+        qat_cfg = self.cfg.get("qat")
+        if qat_cfg is None or not qat_cfg.get("enabled", True):
+            return None
+        import dataclasses
+
+        from automodel_tpu_torch.peft.lora import PeftConfig, match_lora_paths
+        from automodel_tpu_torch.quantization.qat import QATConfig, fake_quant_params
+
+        known = {f.name for f in dataclasses.fields(QATConfig)}
+        qat = QATConfig(**{k: v for k, v in qat_cfg.to_dict().items() if k in known})
+        matcher = PeftConfig(target_modules=qat.target_modules,
+                             match_all_linear=qat.target_modules == ["*"])
+        paths = sorted(match_lora_paths(self.model.logical_axes(), matcher))
+        logger.info("qat: int%d fake-quant on %d weight tensors", qat.weight_bits, len(paths))
+        return lambda params: fake_quant_params(params, paths, qat)
+
+    def _loss_on(self, get_params, training: bool = True):
+        """``f(batch, n)``: the loss on the dict ``get_params()`` gives at each call
+        (under PEFT the base merged with the adapter, dropout only in training)."""
+        if self.peft is None:
+            return lambda batch, n: self._forward_loss(batch, n, training, get_params())
+        from automodel_tpu_torch.peft.lora import lora_merged_loss
+
+        generator = (self.rng.generator("lora_dropout", self.device)
+                     if training and self.peft.dropout > 0.0 else None)
+        return lora_merged_loss(
+            lambda merged, batch, n: self._forward_loss(batch, n, training, merged),
+            get_params, self.train_params, self.peft, generator)
+
+    def _build_train_step(self):
+        """The train and eval steps (JAX's ``_build_train_step``); with a delayed QAT
+        start a second train step without fake quantization runs the steps before it, and
+        validation follows the same switch."""
+        qfn = self._qat_param_fn()
+        qat_start = int(self.cfg.get("qat.fake_quant_after_n_steps") or 0) if qfn else 0
+        self._qat_start_step = qat_start
+        post_update = self._post_update()
+        if self.peft is not None and post_update is not None:
+            logger.warning("moe gate-bias update disabled under peft (base is frozen)")
+            post_update = None
+        plain = (lambda: None) if self.peft is None else (lambda: self.params)
+        quantized = plain if qfn is None else (lambda: qfn(self.params))
+
+        def step(get_params):
+            return make_train_step(self._loss_on(get_params), self.train_params,
+                                   self.optimizer, guard_nonfinite=self._guard_nonfinite,
+                                   post_update=post_update)
+
+        delayed = qfn is not None and qat_start > 0
+        self._train_step = step(quantized)
+        self._pre_qat_step = step(plain) if delayed else None
+        # validation: pure CE, no MoE aux term, on the weights training sees at the step
+        self._eval_step = make_eval_step(self._loss_on(quantized, training=False))
+        self._pre_qat_eval_step = (make_eval_step(self._loss_on(plain, training=False))
+                                   if delayed else None)
+
     def _maybe_resume(self):
         """Restore in place from the newest checkpoint that verifies (walking back past
-        torn or corrupt steps); a fresh run when there is none."""
+        torn or corrupt steps); a fresh run when there is none. Under PEFT the checkpoint
+        holds the adapter, restored over the base the model was loaded with."""
         if self.checkpointer is None or not self.checkpointer.config.enabled:
             return
         t0 = time.perf_counter()
-        restored = self.checkpointer.load_latest_verified(self.params, self.opt_state)
+        restored = self.checkpointer.load_latest_verified(self.train_params, self.opt_state)
         if restored is None:
             return
         client, step = restored
@@ -271,6 +377,8 @@ class TrainFinetuneRecipeForNextTokenPrediction:
         self.metric_logger.log(step, event="checkpoint_restore", seconds=seconds)
 
     def _apply_client_state(self, client: dict):
+        if "rng" in client:
+            self.rng.load_state_dict(client["rng"])
         if "step_scheduler" in client:
             self.step_scheduler.load_state_dict(client["step_scheduler"])
         if "dataloader" in client:
@@ -296,17 +404,22 @@ class TrainFinetuneRecipeForNextTokenPrediction:
         self.seq_len = pack_size
         return dataset, packed_collate
 
-    def _forward_loss(self, batch, num_label_tokens, training: bool = True):
+    def _forward_loss(self, batch, num_label_tokens, training: bool = True, params=None):
+        """The microbatch's loss on ``params`` (a merged or fake-quantized dict), or on
+        the model's own parameters when None."""
         kwargs = {}
         if self.moe is not None:
             # segment id 0 marks padding: pad tokens count for no routing load or aux loss
             kwargs = {"token_mask": batch["segment_ids"] != 0, "training": training}
+        if params is not None:
+            kwargs["params"] = params
         out = self.model(batch["input_ids"], positions=batch["positions"],
                          segment_ids=batch["segment_ids"],
                          return_hidden=self.loss_name == "linear_ce", mesh=self.mesh, **kwargs)
         out, stats = out if isinstance(out, tuple) else (out, None)
         if self.loss_name == "linear_ce":
-            unembed = resolve_unembed(self.model.config, self.params, out.dtype)
+            unembed = resolve_unembed(self.model.config,
+                                      self.params if params is None else params, out.dtype)
             loss = linear_cross_entropy(out, unembed, batch["labels"], num_label_tokens,
                                         impl=self.loss_impl, filter_eps=self.loss_filter_eps)
         else:
@@ -358,7 +471,10 @@ class TrainFinetuneRecipeForNextTokenPrediction:
                                          "tokenizer / model mismatch")
                     checked_vocab = True
                 t0 = time.perf_counter()
-                self.opt_state, m = self._train_step(self.opt_state, stack)
+                step_fn = self._train_step
+                if self._pre_qat_step is not None and step < self._qat_start_step:
+                    step_fn = self._pre_qat_step
+                self.opt_state, m = step_fn(self.opt_state, stack)
                 loss = float(m["loss"])  # host read: the step's end
                 dt = time.perf_counter() - t0
                 if self._guard_nonfinite and bool(m["nonfinite"]):
@@ -402,12 +518,15 @@ class TrainFinetuneRecipeForNextTokenPrediction:
     # ------------------------------------------------------------- validation
     def _run_validation(self, step: int):
         """Token-weighted mean loss over the validation window, summed in f64 on the host."""
+        eval_step = self._eval_step
+        if self._pre_qat_eval_step is not None and step < self._qat_start_step:
+            eval_step = self._pre_qat_eval_step
         total, count = 0.0, 0
         for batch in self._iter_val_batches():
             stack = self._to_device(batch)
             n = count_label_tokens(stack["labels"])
             n_host = int(n)
-            total += float(self._eval_step(stack, n)) * n_host
+            total += float(eval_step(stack, n)) * n_host
             count += n_host
         self._log_val_loss(step, total, count)
 
@@ -438,13 +557,33 @@ class TrainFinetuneRecipeForNextTokenPrediction:
     def _save(self, step: int):
         """Save ``step``. Under prefetch the live scheduler and dataloader have run past
         the consumed step, so their consumed-position snapshots are saved instead, and a
-        resume replays every batch that was in flight."""
+        resume replays every batch that was in flight. Under PEFT the checkpoint holds the
+        adapter; the consolidated export writes the merged model to ``hf/`` and the
+        adapter alone, in the HF PEFT layout, to ``hf_adapter/``."""
         self._last_saved_step = step
-        client = {"step_scheduler": self.step_scheduler, "dataloader": self.dataloader}
+        client = {"rng": self.rng, "step_scheduler": self.step_scheduler,
+                  "dataloader": self.dataloader}
         if self._pipeline is not None:
             client.update(self._pipeline.client_states())
         t0 = time.perf_counter()
-        d = self.checkpointer.save(step, self.params, self.opt_state, client_states=client)
+        consolidated = self.checkpointer.config.save_consolidated
+        hf_params = None
+        if self.peft is not None:
+            from automodel_tpu_torch.peft.lora import merge_lora_params
+
+            client["peft_config"] = self.peft.to_dict()
+            if consolidated:
+                with torch.no_grad():
+                    hf_params = merge_lora_params(self.params, self.train_params, self.peft)
+        d = self.checkpointer.save(step, self.train_params, self.opt_state,
+                                   client_states=client, hf_params=hf_params)
+        del hf_params
+        if self.peft is not None and consolidated:
+            from automodel_tpu_torch.checkpoint.peft_export import save_peft_adapter
+
+            save_peft_adapter(os.path.join(d, "hf_adapter"), self.train_params, self.peft,
+                              self.model.state_dict_adapter().entries,
+                              base_model_name=self.cfg.get("model.pretrained_model_name_or_path"))
         seconds = time.perf_counter() - t0
         n_bytes = sum(os.path.getsize(os.path.join(root, f))
                       for root, _, files in os.walk(d) for f in files)

@@ -53,7 +53,9 @@ def make_train_step(
     divided by the global ``num_label_tokens``, or ``(loss, aux)`` with a dict of aux
     tensors (an MoE model's ``expert_load``, ``moe_aux_loss``) that are summed over the
     microbatches, as the JAX scan carry sums them; ``params`` are the tensors it
-    differentiates, updated in place. ``batch_stack`` holds (n_micro, ...) tensors.
+    differentiates, updated in place (under PEFT the adapter: the frozen base rides in
+    ``forward_loss``'s closure, as JAX's ``with_frozen`` passes it undifferentiated).
+    ``batch_stack`` holds (n_micro, ...) tensors.
     Metrics: ``loss``, ``grad_norm`` (before clipping), ``num_label_tokens``, the summed
     aux entries, and ``nonfinite`` under ``guard_nonfinite``; all are device tensors.
     ``post_update(params, aux)`` updates ``params`` in place after the optimizer, from

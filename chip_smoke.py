@@ -175,7 +175,7 @@ Phases, in order; any failure exits non-zero before the last line:
    MLA's attention on the plain path: no flash launch); main path 16: train_ft on
    examples/llm_finetune/deepseek_v3_ep.yaml from a local HF directory of a random-init
    Moonlight-16B-A3B at MOONLIGHT_LAYERS layers (moonlight_sft_args: bf16, one process,
-   real routing with the gate-bias update, packed documents, saves at steps 2 and 4):
+   real routing with the gate-bias update, packed documents, one save at step 4):
    each step's correction-bias move must be sign(mean - load) x 0.001 of its summed
    loads, and step_4/hf must hold DeepSeek's names and reload bitwise; main path 17:
    Moonlight's widths at 2 layers under ring attention, cp 4 folded, seq 16,384
@@ -188,7 +188,7 @@ Phases, in order; any failure exits non-zero before the last line:
    256,000, every flash launch capped); main path 20: train_ft on
    examples/llm_finetune/gemma2_9b_sft.yaml with its dataset swapped for mock data
    (gemma2_sft_config) from a local HF directory at Gemma-2-27B's widths, 2 layers
-   (gemma2_sft_args: bf16, saves at steps 2 and 4, hf/ reloaded bitwise). Main path 21:
+   (gemma2_sft_args: bf16, one save at step 4, hf/ reloaded bitwise). Main path 21:
    Gemma-2-9B's published widths over the Gemma-3 proxy at 8 of 42 layers (GEMMA2_9B,
    gemma2_args: head_dim 256, caps, window 4096 on alternate layers; every flash launch
    capped and at d256); main path 22: Gemma-3-4B's published text widths over it at all 34
@@ -234,6 +234,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 BENCH_YAML = os.path.join(HERE, "examples", "benchmark", "llama3_2_1b.yaml")
@@ -342,7 +343,7 @@ MOONLIGHT_16B_A3B = {
     "torch_dtype": "bfloat16",
 }
 MOONLIGHT_LAYERS = 4  # depth of main path 16: the dense layer and 3 MoE layers
-MOONLIGHT_STEPS = 4  # max_steps of main path 16: a consolidated save at steps 2 and 4
+MOONLIGHT_STEPS = 4  # max_steps of main path 16: one consolidated save, at step 4
 MOONLIGHT_RING_LAYERS = 2  # depth of main path 17: the dense layer and 1 MoE layer
 MOONLIGHT_RING_SEQ, MOONLIGHT_RING_CP = 16384, 4  # main path 17: 4096 tokens a cp shard
 GEMMA3_PROXY_YAML = os.path.join(HERE, "examples", "benchmark", "gemma3_proxy.yaml")
@@ -367,7 +368,7 @@ GEMMA2_27B = {
 }
 GEMMA2_LAYERS = 4  # depth of main path 19: 2 sliding, 2 full
 GEMMA2_LAYERS_TRAIN_FT = 2  # depth of main path 20: 1 sliding, 1 full
-GEMMA2_STEPS = 4  # max_steps of main path 20: a consolidated save at steps 2 and 4
+GEMMA2_STEPS = 4  # max_steps of main path 20: one consolidated save, at step 4
 GEMMA3_SFT_YAML = os.path.join(HERE, "examples", "llm_finetune", "gemma3_4b_sft.yaml")
 # The published config.json of google/gemma-2-9b: width 3584, MLP 14,336, 16 heads of 256
 # over 8 kv heads (the flash kernels' 256-wide tiles), the query scale 256^-0.5, the caps
@@ -415,6 +416,30 @@ GEMMA3_4B = {
 }
 GEMMA3_4B_LAYERS_TRAIN_FT = 6  # depth of main path 23: 5 sliding, 1 full
 GEMMA3_4B_STEPS = 4  # max_steps of main path 23: a consolidated save at steps 2 and 4
+LORA_YAML = os.path.join(HERE, "examples", "llm_finetune", "llama3_2_1b_lora.yaml")
+QLORA_YAML = os.path.join(HERE, "examples", "llm_finetune", "llama3_2_1b_qlora.yaml")
+DORA_YAML = os.path.join(HERE, "examples", "llm_finetune", "llama3_2_1b_dora.yaml")
+LORA_DROPOUT_YAML = os.path.join(HERE, "examples", "llm_finetune",
+                                 "llama3_2_1b_lora_dropout.yaml")
+QWEN25_LORA_YAML = os.path.join(HERE, "examples", "llm_finetune", "qwen2_5_7b_lora.yaml")
+QWEN3_MOE_LORA_YAML = os.path.join(HERE, "examples", "llm_finetune",
+                                   "qwen3_moe_lora_dropout.yaml")
+GEMMA3_QAT_YAML = os.path.join(HERE, "examples", "llm_finetune", "gemma3_4b_qat.yaml")
+# The published config.json of Qwen/Qwen2.5-7B (Hugging Face Hub), all 28 layers;
+# attention_bias is written out (HF's Qwen2 always has q / k / v biases; both packages'
+# config readers take the key), sliding_window dropped (use_sliding_window is false)
+QWEN25_7B = {
+    "architectures": ["Qwen2ForCausalLM"], "model_type": "qwen2", "vocab_size": 152064,
+    "hidden_size": 3584, "intermediate_size": 18944, "num_hidden_layers": 28,
+    "num_attention_heads": 28, "num_key_value_heads": 4, "hidden_act": "silu",
+    "max_position_embeddings": 131072, "rope_theta": 1000000.0, "rms_norm_eps": 1e-6,
+    "tie_word_embeddings": False, "use_sliding_window": False, "attention_bias": True,
+    "initializer_range": 0.02, "torch_dtype": "bfloat16",
+}
+LORA_LAYERS = 16  # depth of main paths 24 and 26: all of Llama-3.2-1B's
+LORA_STEPS = 4  # max_steps of main path 24: a save at steps 2 and 4
+PEFT_STEPS = 3  # max_steps of main paths 25-28
+QAT_STEPS = 4  # max_steps of main path 29
 
 
 class ByteTokenizer:
@@ -581,8 +606,9 @@ def moonlight_sft_args(hf_dir: str, ckpt_dir: str) -> list[str]:
     GB), one process (``ep`` 64 -> 1, the ``dense`` dispatcher: ``a2a`` needs expert
     parallelism), the mock data at Moonlight's vocabulary, 128 of its 65,536 samples
     (packing reads them all), 500-token documents packed into its rows of 4096,
-    MOONLIGHT_STEPS steps of 2 microbatches (16 in the file), a checkpoint (with the
-    consolidated HF export) every 2 steps under ``ckpt_dir``."""
+    MOONLIGHT_STEPS steps of 2 microbatches (16 in the file), one checkpoint (with the
+    consolidated HF export) at the last step under ``ckpt_dir``: a save of ~20 GB takes
+    36-61 s, which the script's time limit cannot spare twice."""
     return ["--model.pretrained_model_name_or_path", hf_dir, "--model.params_dtype", "bfloat16",
             "--distributed.ep", "1", "--backend.dispatcher", "dense",
             "--dataset.vocab_size", str(MOONLIGHT_16B_A3B["vocab_size"]),
@@ -591,7 +617,8 @@ def moonlight_sft_args(hf_dir: str, ckpt_dir: str) -> list[str]:
             "--backend.attention_segments", "true",
             "--step_scheduler.grad_acc_steps", "2",
             "--step_scheduler.max_steps", str(MOONLIGHT_STEPS),
-            "--step_scheduler.ckpt_every_steps", "2", "--checkpoint.checkpoint_dir", ckpt_dir]
+            "--step_scheduler.ckpt_every_steps", str(MOONLIGHT_STEPS),
+            "--checkpoint.checkpoint_dir", ckpt_dir]
 
 
 def moonlight_ring_args(layers: int = MOONLIGHT_RING_LAYERS) -> list[str]:
@@ -648,21 +675,33 @@ def gemma2_args(layers: int = GEMMA2_LAYERS, model: dict = GEMMA2_27B) -> list[s
                    *gemma3_proxy_args()]
 
 
+def mock_data_config(out_dir: str, yaml_path: str, vocab: int,
+                     model: dict | None = None) -> str:
+    """A fine-tune file of examples/llm_finetune with its HellaSwag dataset section (a
+    hub dataset or a ``_target_`` name neither package has, and no network) replaced by the
+    mock dataset at ``vocab`` and the file's seq_len, and its model section by ``model``
+    when given (a model built from ``config``, in place of a hub id); every other setting
+    is the file's. Written to ``out_dir``."""
+    import yaml
+
+    with open(yaml_path) as f:
+        cfg = yaml.safe_load(f)
+    cfg["dataset"] = {"_target_": "automodel_tpu_torch.data.llm.mock.MockSFTDataset",
+                      "vocab_size": vocab, "seq_len": cfg["seq_len"], "num_samples": 64,
+                      "seed": 0}
+    if model is not None:
+        cfg["model"] = model
+    path = os.path.join(out_dir, "mock_" + os.path.basename(yaml_path))
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return path
+
+
 def gemma2_sft_config(out_dir: str) -> str:
     """examples/llm_finetune/gemma2_9b_sft.yaml with its HellaSwag dataset section (a
     ``_target_`` name neither package has, and no network) replaced by the mock dataset at
     Gemma-2's vocabulary and the file's seq_len, written to ``out_dir``."""
-    import yaml
-
-    with open(GEMMA2_SFT_YAML) as f:
-        cfg = yaml.safe_load(f)
-    cfg["dataset"] = {"_target_": "automodel_tpu_torch.data.llm.mock.MockSFTDataset",
-                      "vocab_size": GEMMA2_27B["vocab_size"], "seq_len": cfg["seq_len"],
-                      "num_samples": 64, "seed": 0}
-    path = os.path.join(out_dir, "gemma2_sft_mock.yaml")
-    with open(path, "w") as f:
-        yaml.safe_dump(cfg, f)
-    return path
+    return mock_data_config(out_dir, GEMMA2_SFT_YAML, GEMMA2_27B["vocab_size"])
 
 
 def gemma2_sft_args(hf_dir: str, ckpt_dir: str, steps: int = GEMMA2_STEPS) -> list[str]:
@@ -2455,16 +2494,21 @@ def _read_routes() -> dict:
     return {k: v for counter in _route_counters() for k, v in counter.items()}
 
 
-def _check_routes(name, launches) -> dict:
+def _check_routes(name, launches, dh_only=False) -> dict:
     """Every launch of gmm, tgmm, lce_fwd and lce_bwd on a main path must have taken
-    the wgmma route; returns the launches with the route counts and the windowed flash
-    launches added."""
+    the wgmma route, and every lce_bwd launch computed dH alone when ``dh_only`` (a
+    frozen unembedding: PEFT) and none did otherwise; returns the launches with the
+    route counts and the windowed flash launches added."""
     routes = _read_routes()
     print(f"{name}: launches by route {routes}", flush=True)
     for kernel in ROUTED:
         if routes[f"{kernel}/wgmma"] != launches.get(kernel, 0):
             raise AssertionError(f"{name}: {launches.get(kernel, 0)} {kernel} launches, "
                                  f"{routes[f'{kernel}/wgmma']} of them on the wgmma route")
+    want_dh = launches.get("lce_bwd", 0) if dh_only else 0
+    if routes["lce_bwd/dh_only"] != want_dh:
+        raise AssertionError(f"{name}: {routes['lce_bwd/dh_only']} lce_bwd launches with dH "
+                             f"alone, not {want_dh}")
     return {**launches, **routes, **_read_windowed(), **_read_softcap(), **_read_head_dims(),
             **_read_ring_dims()}
 
@@ -2542,7 +2586,7 @@ def _release():
 
 
 def _expected(layers, micro, steps, linear_ce, moe=False, ring_cp=1, val_batches=0,
-              deterministic=False, dense_prefix=0, mla=False):
+              deterministic=False, dense_prefix=0, mla=False, peft=False):
     """Launches of each kernel in a run, n = layers x microbatches x steps.
 
     flash_fwd 2n (the forward, and once more when each layer's checkpoint replays it: no
@@ -2557,7 +2601,9 @@ def _expected(layers, micro, steps, linear_ce, moe=False, ring_cp=1, val_batches
     n x cp each in ring_bwd's place. ``dense_prefix``: the first layers of an MoE model
     that are dense (no grouped GEMM). ``mla``: DeepSeek's attention, whose values are
     narrower than its keys: no flash launch (the plain path, as JAX's dispatch), and on
-    the ring ring_dq + ring_dkv in ring_bwd's place."""
+    the ring ring_dq + ring_dkv in ring_bwd's place. ``peft``: a LoRA run, whose experts
+    are frozen (no tgmm; gmm's dX still runs, for the earlier layers' adapters) and whose
+    lce_bwd launches compute dH alone (checked by _check_routes)."""
     n = layers * micro * steps
     n_moe = (layers - dense_prefix) * micro * steps if moe else 0
     lce_n = micro * steps if linear_ce else 0
@@ -2568,7 +2614,7 @@ def _expected(layers, micro, steps, linear_ce, moe=False, ring_cp=1, val_batches
     return {"flash_fwd": 2 * n + layers * val_batches if flash else 0,
             "flash_dq": n if flash else 0, "flash_dkv": n if flash else 0,
             "lce_fwd": lce_n + (val_batches if linear_ce else 0), "lce_bwd": lce_n,
-            "gmm": 6 * n_moe, "tgmm": 2 * n_moe,
+            "gmm": 6 * n_moe, "tgmm": 0 if peft else 2 * n_moe,
             "ring_fwd": 2 * n * ring_cp if ring else 0,
             "ring_bwd": 0 if split else ring_bwd,
             "ring_dkv": ring_bwd if split else 0,
@@ -2732,14 +2778,19 @@ def _recorded_train_ft(cfg, on_setup=None):
         on_setup(recipe)
     first = recipe.step_scheduler.step + 1
     losses = []
-    step_fn = recipe._train_step
+    recipe.recorded_kinds = []  # which step function ran each step: QAT's switch
 
-    def recorded(opt_state, stack):
-        opt_state, m = step_fn(opt_state, stack)
-        losses.append(float(m["loss"]))
-        return opt_state, m
+    def recorder(step_fn, kind):
+        def recorded(opt_state, stack):
+            opt_state, m = step_fn(opt_state, stack)
+            losses.append(float(m["loss"]))
+            recipe.recorded_kinds.append(kind)
+            return opt_state, m
+        return recorded
 
-    recipe._train_step = recorded
+    recipe._train_step = recorder(recipe._train_step, "train")
+    if recipe._pre_qat_step is not None:
+        recipe._pre_qat_step = recorder(recipe._pre_qat_step, "before_qat")
     recipe.run_train_validation_loop()
     rows = {}
     for name in ("training", "validation"):
@@ -2783,12 +2834,20 @@ def _pretrained_run(name, cfg_args, ckpt, reload_dtype=None, on_setup=None) -> d
     recipe, losses, rows, val = _recorded_train_ft(cfg, after_setup)
     launches = _read_counts()
     out = dict(losses=losses, rows=rows, val=val, launches=launches,
-               routed=_check_routes(name, launches),
+               routed=_check_routes(name, launches, dh_only=recipe.peft is not None),
                saves=[(x["step"], x["seconds"], x["bytes"]) for x in rows
                       if x.get("event") == "checkpoint_save"],
                peak_gib=gib(torch.cuda.max_memory_allocated), setup_gib=setup["gib"],
                end_gib=gib(torch.cuda.memory_allocated), loss_name=recipe.loss_name,
-               moe=recipe.moe)
+               moe=recipe.moe, kinds=recipe.recorded_kinds)
+    final = recipe.params
+    if recipe.peft is not None:  # the adapter, and the model hf/ holds: the merged one
+        from automodel_tpu_torch.peft.lora import merge_lora_params
+
+        out["adapter"] = {k: v.detach().clone() for k, v in recipe.train_params.items()}
+        if reload_dtype is not None:
+            with torch.no_grad():
+                final = merge_lora_params(recipe.params, recipe.train_params, recipe.peft)
     if reload_dtype is not None:
         step_hf = os.path.join(ckpt, f"step_{max(x[0] for x in out['saves'])}", "hf")
         reloaded = AutoModelForCausalLM.from_pretrained(step_hf, dtype=reload_dtype,
@@ -2796,9 +2855,10 @@ def _pretrained_run(name, cfg_args, ckpt, reload_dtype=None, on_setup=None) -> d
         out.update(hf_dir=step_hf, hf_names=sorted(load_safetensors(step_hf)),
                    hf_bytes=sum(os.path.getsize(os.path.join(step_hf, f))
                                 for f in os.listdir(step_hf)),
-                   hf_differ=sorted(k for k, v in recipe.params.items()
+                   hf_differ=sorted(k for k, v in final.items()
                                     if not torch.equal(v, reloaded[k])))
         del reloaded
+    del final
     del recipe
     _release()
     return out
@@ -2940,8 +3000,8 @@ def _moonlight_train_ft_path(name):
     local HF directory of a random-init Moonlight-16B-A3B at MOONLIGHT_LAYERS layers in
     DeepSeek's HF names, written by write_pretrained; real routing (sigmoid noaux-tc, no
     fake gate) with the gate-bias update at its factor 0.001; packed 500-token documents,
-    MOONLIGHT_STEPS steps of 2 microbatches, a checkpoint with the consolidated HF export
-    every 2 steps (moonlight_sft_args). Checks: finite losses, the first within 0.5 of
+    MOONLIGHT_STEPS steps of 2 microbatches, one checkpoint with the consolidated HF export
+    at the last step (moonlight_sft_args). Checks: finite losses, the first within 0.5 of
     the random-init loss; after each step every element of each MoE layer's correction
     bias moved by sign(mean - load) * 0.001 of that step's expert load summed over its
     microbatches, within 1e-6 (weight decay, which JAX's mask applies to the stacked
@@ -2999,7 +3059,7 @@ def _moonlight_train_ft_path(name):
           f"{'bitwise equal' if not run['hf_differ'] else run['hf_differ']}, launches "
           f"{run['launches']} (expected {want})", flush=True)
     _check_pretrained_run(name, run, range(1, MOONLIGHT_STEPS + 1), want,
-                          saves=[2, MOONLIGHT_STEPS],
+                          saves=[MOONLIGHT_STEPS],
                           first_loss=random_init_loss(model["vocab_size"], model["hidden_size"],
                                                       model["initializer_range"]))
     if factor_used != factor or len(moved) != MOONLIGHT_STEPS or max(moved) > 1e-6:
@@ -3014,7 +3074,7 @@ def _moonlight_train_ft_path(name):
     return run["routed"]
 
 
-def _gemma_train_ft_path(name, model, layers, steps, yaml, cfg_args, prefix=""):
+def _gemma_train_ft_path(name, model, layers, steps, yaml, cfg_args, prefix="", saves=None):
     """One Gemma model through train_ft from a local HF directory of a random-init model
     (``model`` at ``layers`` layers, written by write_pretrained with the tensor-name
     ``prefix``), the config ``cfg_args(tmp_dir, hf_dir, ckpt_dir)`` gives (gemma2_sft_args
@@ -3050,7 +3110,7 @@ def _gemma_train_ft_path(name, model, layers, steps, yaml, cfg_args, prefix=""):
           f"reloaded through from_pretrained: "
           f"{'bitwise equal' if not run['hf_differ'] else run['hf_differ']}, launches "
           f"{run['launches']} (expected {want})", flush=True)
-    _check_pretrained_run(name, run, range(1, steps + 1), want, saves=[2, steps],
+    _check_pretrained_run(name, run, range(1, steps + 1), want, saves=saves or [2, steps],
                           first_loss=random_init_loss(text.vocab_size, text.hidden_size,
                                                       text.initializer_range,
                                                       tied_self_logit(hf_model)))
@@ -3067,12 +3127,14 @@ def _gemma2_train_ft_path(name):
     dataset section swapped for mock data (gemma2_sft_config) and its model a local HF
     directory of a random-init model at Gemma-2-27B's widths, GEMMA2_LAYERS_TRAIN_FT
     layers (one sliding, one full; gemma2_sft_args: bf16, 2 microbatches of one row of
-    4096, GEMMA2_STEPS steps, a checkpoint with the consolidated HF export every 2 steps);
-    every flash launch soft-capped. The checks are _gemma_train_ft_path's."""
+    4096, GEMMA2_STEPS steps, one checkpoint with the consolidated HF export, at the last
+    step: an ~18.5 GB save takes 36-51 s, which the script's time limit cannot spare
+    twice); every flash launch soft-capped. The checks are _gemma_train_ft_path's."""
     return _gemma_train_ft_path(
         name, GEMMA2_27B, GEMMA2_LAYERS_TRAIN_FT, GEMMA2_STEPS, GEMMA2_SFT_YAML,
-        lambda tmp, hf_dir, ckpt: ["-c", gemma2_sft_config(tmp),
-                                   *gemma2_sft_args(hf_dir, ckpt)])
+        lambda tmp, hf_dir, ckpt: ["-c", gemma2_sft_config(tmp), *gemma2_sft_args(hf_dir, ckpt),
+                                   "--step_scheduler.ckpt_every_steps", str(GEMMA2_STEPS)],
+        saves=[GEMMA2_STEPS])
 
 
 def _gemma3_train_ft_path(name):
@@ -3089,6 +3151,367 @@ def _gemma3_train_ft_path(name):
         lambda tmp, hf_dir, ckpt: ["-c", GEMMA3_SFT_YAML, *gemma3_proxy_args(),
                                    *gemma2_sft_args(hf_dir, ckpt, GEMMA3_4B_STEPS)],
         prefix="language_model.")
+
+
+def peft_args(out_dir: str, steps: int, micro: int = 2, hf_dir: str | None = None,
+              ckpt: str | None = None, dtype: str | None = "bfloat16") -> list[str]:
+    """The overrides of a PEFT path: the model from the local directory ``hf_dir`` (for
+    the hub id), parameters in ``dtype`` (None: the file's, float32), ``micro``
+    microbatches a step, ``steps`` steps, and a save every 2 steps under ``ckpt`` (with the
+    file's consolidated export) or none."""
+    args = ["--step_scheduler.grad_acc_steps", str(micro), "--step_scheduler.max_steps",
+            str(steps), "--output_dir", out_dir]
+    if hf_dir is not None:
+        args += ["--model.pretrained_model_name_or_path", hf_dir]
+    if dtype is not None:
+        args += ["--model.params_dtype", dtype]
+    if ckpt is None:
+        return args + ["--checkpoint.enabled", "false"]
+    return args + ["--step_scheduler.ckpt_every_steps", "2", "--checkpoint.checkpoint_dir", ckpt]
+
+
+def _shown_peft_run(run, tokens) -> str:
+    """A PEFT run's log line: _shown_run's, with tokens/s and the first loss."""
+    steps = [x for x in run["rows"] if "loss" in x]
+    return (f"{_shown_run(run)}, tokens/s {[x.get('tps') for x in steps]} ({tokens} tokens a "
+            f"step), first loss {run['losses'][min(run['losses'])]:.4f}, launches "
+            f"{run['launches']}, dH-only lce_bwd {run['routed']['lce_bwd/dh_only']}")
+
+
+def _lora_llama_paths(name24, name26):
+    """Main paths 24 and 26 from one local HF directory of a random-init Llama-3.2-1B at
+    all 16 layers (bf16, as published).
+
+    24: examples/llm_finetune/llama3_2_1b_lora.yaml through train_ft (rank 8 on wq and wv,
+    flash, the vocab rule's linear CE; mock data in place of the hub's HellaSwag; bf16
+    parameters, grad_acc_steps 4 -> 2, LORA_STEPS steps, a save every 2 with the
+    consolidated export). Run A fresh; run B resumes from step 2 after step 4 is removed,
+    and must end on run A's step-4 adapter bitwise. Checks: every lce_bwd launch dH alone;
+    the DCP state the adapter alone; step_4/hf (the merged model) reloaded bitwise against
+    merge_lora_params of the live tensors; hf_adapter/ rank-8 factors of q_proj and
+    v_proj of all 16 layers.
+    26: llama3_2_1b_qlora.yaml (nf4, rank 16) with --backend.attention flash (the file
+    names none), 3 steps, no saves; the matched wq / wv stay quantized on the card."""
+    import shutil
+
+    import torch
+
+    from automodel_tpu_torch.checkpoint.safetensors_io import load_safetensors
+    from automodel_tpu_torch.quantization.qlora import is_quantized_leaf, tree_nbytes
+
+    _release()
+    model = dict(LLAMA32_1B, num_hidden_layers=LORA_LAYERS)
+    micro, layers, vocab = 2, LORA_LAYERS, model["vocab_size"]
+    tokens = micro * 2 * 2048
+    first_loss = random_init_loss(vocab, model["hidden_size"], model["initializer_range"])
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        hf_dir = write_pretrained(os.path.join(tmp, "llama3_2_1b"), model)
+        written = time.perf_counter() - t0
+        yaml = mock_data_config(tmp, LORA_YAML, vocab)
+        ckpt = os.path.join(tmp, "ckpts")
+        runs = {}
+        for run in ("A", "B"):
+            if run == "B":  # the walk-back must find step 2
+                shutil.rmtree(os.path.join(ckpt, f"step_{LORA_STEPS}"))
+            t0 = time.perf_counter()
+            runs[run] = _pretrained_run(
+                f"{name24} run {run}", ["-c", yaml, *peft_args(
+                    os.path.join(tmp, f"run_{run}"), LORA_STEPS, micro, hf_dir, ckpt)], ckpt,
+                reload_dtype=torch.bfloat16 if run == "A" else None)
+            runs[run]["seconds"] = time.perf_counter() - t0
+        a, b = runs["A"], runs["B"]
+        step2 = os.path.join(ckpt, "step_2")
+        with open(os.path.join(step2, "signature.json")) as f:
+            dcp_names = [k for k in json.load(f) if not k.startswith("__")]
+        adapter = load_safetensors(os.path.join(step2, "hf_adapter",
+                                                "adapter_model.safetensors"))
+        shapes = {k: tuple(adapter[k].shape) for k in adapter}
+        with open(os.path.join(step2, "client.json")) as f:
+            client = json.load(f)
+        for run, r in runs.items():
+            restores = [(x["step"], x["seconds"]) for x in r["rows"]
+                        if x.get("event") == "checkpoint_restore"]
+            print(f"{name24} run {run}: train_ft on {_shown(LORA_YAML)} (mock data; "
+                  f"{layers} layers of Llama-3.2-1B, bf16, LoRA rank 8 on wq / wv), "
+                  f"{_shown_peft_run(r, tokens)}, restores {restores} (step, s), "
+                  f"{r['seconds']:.1f} s", flush=True)
+        differ = [k for k in a["adapter"] if not torch.equal(a["adapter"][k], b["adapter"][k])]
+        layer0 = [shapes.get(_ADAPTER_KEY.format(0, proj, f))
+                  for proj, f in (("q", "A"), ("q", "B"), ("v", "B"))]
+        print(f"{name24}: HF directory written in {written:.1f} s; step_{LORA_STEPS}/hf "
+              f"{a['hf_bytes']} bytes reloaded against merge_lora_params of the live tensors: "
+              f"{'bitwise equal' if not a['hf_differ'] else a['hf_differ']}; DCP state "
+              f"{len(dcp_names)} tensors, {sorted({n.rsplit('.', 1)[-1] for n in dcp_names})}; "
+              f"hf_adapter {len(shapes)} tensors (layer 0's q_proj A / B, v_proj B "
+              f"{layer0}); client state "
+              f"{sorted(client)}; run B's step-{LORA_STEPS} adapter bitwise run A's: "
+              f"{not differ} ({len(a['adapter'])} tensors)", flush=True)
+        _check_pretrained_run(f"{name24} run A", a, range(1, LORA_STEPS + 1),
+                              _expected(layers, micro, LORA_STEPS, True, peft=True),
+                              saves=[2, LORA_STEPS], first_loss=first_loss)
+        _check_pretrained_run(f"{name24} run B (B must resume from step 2)", b,
+                              range(3, LORA_STEPS + 1), _expected(layers, micro, 2, True,
+                                                                  peft=True), saves=[4])
+        want_shapes = {}
+        for i in range(layers):
+            for proj, width in (("q", 2048), ("v", 512)):
+                want_shapes[_ADAPTER_KEY.format(i, proj, "A")] = (8, 2048)
+                want_shapes[_ADAPTER_KEY.format(i, proj, "B")] = (width, 8)
+        if differ or shapes != want_shapes or sorted({n.rsplit(".", 1)[-1] for n in dcp_names}) \
+                != ["lora_a", "lora_b"] or "peft_config" not in client or "rng" not in client:
+            raise AssertionError(f"{name24}: resume differs in {differ}, or hf_adapter / DCP / "
+                                 "client state are not the adapter's")
+        out[name24] = {k: a["routed"][k] + b["routed"][k] for k in a["routed"]}
+
+        facts = {}
+
+        def quantized(recipe):
+            params = recipe.params
+            facts["quantized"] = sorted(k for k, v in params.items() if is_quantized_leaf(v)
+                                        and v.q.device.type == "cuda")
+            facts["after"] = tree_nbytes(params)
+            facts["before"] = facts["after"] + sum(
+                math.prod(v.shape) * 2 - v.nbytes for v in params.values()
+                if is_quantized_leaf(v))
+
+        t0 = time.perf_counter()
+        run = _pretrained_run(name26, [
+            "-c", mock_data_config(tmp, QLORA_YAML, vocab), "--backend.attention", "flash",
+            *peft_args(os.path.join(tmp, "run_qlora"), PEFT_STEPS, micro, hf_dir)], None,
+            on_setup=quantized)
+        print(f"{name26}: train_ft on {_shown(QLORA_YAML)} (mock data, flash; {layers} layers, "
+              f"bf16 base, nf4 on {facts['quantized']}), base {facts['before']} -> "
+              f"{facts['after']} bytes (tree_nbytes), {_shown_peft_run(run, tokens)}, "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        _check_pretrained_run(name26, run, range(1, PEFT_STEPS + 1),
+                              _expected(layers, micro, PEFT_STEPS, True, peft=True),
+                              first_loss=first_loss)
+        if facts["quantized"] != ["layers.wq", "layers.wv"]:
+            raise AssertionError(f"{name26}: quantized on the card: {facts['quantized']}")
+        out[name26] = run["routed"]
+    return out
+
+
+# the HF PEFT name of layer i's q_proj / v_proj factor A / B
+_ADAPTER_KEY = "base_model.model.model.layers.{0}.self_attn.{1}_proj.lora_{2}.weight"
+
+
+def _nf4_host(w):
+    """The JAX package's nf4 quantization (numpy, on the host), for the check that the
+    port's on the card gives the same codes and scales."""
+    import numpy as np
+
+    from automodel_tpu_torch.quantization.qlora import NF4_CODEBOOK
+
+    flat = np.asarray(w, np.float32).reshape(-1)
+    flat = np.concatenate([flat, np.zeros((-len(flat)) % 64, np.float32)])
+    blocks = flat.reshape(-1, 64)
+    scale = np.maximum(np.abs(blocks).max(axis=1, keepdims=True), 1e-12)
+    codes = np.abs((blocks / scale)[..., None] - NF4_CODEBOOK).argmin(-1).astype(np.uint8)
+    return (codes[:, 0::2] << 4) | codes[:, 1::2], scale[:, 0]
+
+
+def _nf4_phase(torch):
+    """nf4 codes and scales of a bf16 weight quantized on the card (Llama-3.2-1B's wv
+    shape at 2 layers) against the JAX package's host algorithm, bitwise."""
+    import numpy as np
+
+    from automodel_tpu_torch.quantization.qlora import quantize_leaf
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    w = (torch.randn(2, 2048, 8, 64, device="cuda", generator=g) * 0.02).to(torch.bfloat16)
+    leaf = quantize_leaf(w, "nf4", 1)
+    codes, scale = _nf4_host(w.float().cpu().numpy())
+    same = (np.array_equal(leaf.q.cpu().numpy(), codes)
+            and np.array_equal(leaf.scale.cpu().numpy(), scale))
+    print(f"nf4 on the card vs the host algorithm ({tuple(w.shape)} bf16): codes and scales "
+          f"bitwise equal: {same}", flush=True)
+    if not same:
+        raise AssertionError("nf4 codes on the card differ from the host algorithm's")
+
+
+def _qwen25_lora_path(name):
+    """examples/llm_finetune/qwen2_5_7b_lora.yaml through train_ft at Qwen2.5-7B's
+    published widths, all 28 layers (QWEN25_7B, built from model.config and random init
+    on the card: no HF directory), bf16 parameters, mock data, mb 2 x 2048, the file's
+    grad_acc_steps 4, PEFT_STEPS steps, no saves. Prints step time, tokens/s, MFU and peak
+    memory for BASELINE.md's Qwen2.5 7B LoRA row (1x H100, seq 4096 there)."""
+    _release()
+    micro = 4
+    with tempfile.TemporaryDirectory() as tmp:
+        yaml = mock_data_config(tmp, QWEN25_LORA_YAML, QWEN25_7B["vocab_size"],
+                           model={"config": QWEN25_7B})
+        t0 = time.perf_counter()
+        run = _pretrained_run(name, ["-c", yaml, *peft_args(os.path.join(tmp, "run"),
+                                                            PEFT_STEPS, micro)], None)
+    layers = QWEN25_7B["num_hidden_layers"]
+    print(f"{name}: train_ft on {_shown(QWEN25_LORA_YAML)} (mock data; Qwen2.5-7B's widths, "
+          f"all {layers} layers, bf16, LoRA rank 8 on wq / wv), "
+          f"{_shown_peft_run(run, micro * 2 * 2048)}, {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    _check_pretrained_run(name, run, range(1, PEFT_STEPS + 1),
+                          _expected(layers, micro, PEFT_STEPS, True, peft=True),
+                          first_loss=random_init_loss(QWEN25_7B["vocab_size"],
+                                                      QWEN25_7B["hidden_size"], 0.02))
+    return run["routed"]
+
+
+def _dora_dropout_path(name):
+    """Main path 27: llama3_2_1b_dora.yaml and llama3_2_1b_lora_dropout.yaml through
+    train_ft, each at 2 of Llama-3.2-1B's 16 layers from a 2-layer local HF directory, the
+    files' float32 parameters, mock data, 2 microbatches, PEFT_STEPS steps. DoRA's
+    magnitudes must move; the dropout run saves at step 2 and at its last step (no
+    consolidated export), and its client state must hold the lora_dropout stream."""
+    import torch
+
+    _release()
+    micro, layers = 2, LLAMA32_1B["num_hidden_layers"]
+    first_loss = random_init_loss(LLAMA32_1B["vocab_size"], LLAMA32_1B["hidden_size"], 0.02)
+    routed = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        hf_dir = write_pretrained(os.path.join(tmp, "llama"), LLAMA32_1B)
+        start = {}
+
+        def magnitudes(recipe):
+            start.update({k: v.detach().clone() for k, v in recipe.train_params.items()
+                          if k.endswith("magnitude")})
+
+        t0 = time.perf_counter()
+        dora = _pretrained_run(f"{name} (DoRA)", [
+            "-c", mock_data_config(tmp, DORA_YAML, LLAMA32_1B["vocab_size"]),
+            *peft_args(os.path.join(tmp, "dora"), PEFT_STEPS, micro, hf_dir, dtype=None)],
+            None, on_setup=magnitudes)
+        moved = {k: (dora["adapter"][k] - v).abs().max().item() for k, v in start.items()}
+        print(f"{name} (DoRA): train_ft on {_shown(DORA_YAML)} (mock data; {layers} layers, "
+              f"f32), {_shown_peft_run(dora, micro * 2 * 2048)}, magnitudes moved by at most "
+              f"{moved}, {time.perf_counter() - t0:.1f} s", flush=True)
+        ckpt = os.path.join(tmp, "ckpts")
+        t0 = time.perf_counter()
+        drop = _pretrained_run(f"{name} (dropout)", [
+            "-c", mock_data_config(tmp, LORA_DROPOUT_YAML, LLAMA32_1B["vocab_size"]),
+            *peft_args(os.path.join(tmp, "dropout"), PEFT_STEPS, micro, hf_dir, ckpt,
+                       dtype=None), "--checkpoint.save_consolidated", "false"], ckpt)
+        with open(os.path.join(ckpt, f"step_{PEFT_STEPS}", "client.json")) as f:
+            streams = json.load(f)["rng"]["streams"]
+        print(f"{name} (dropout): train_ft on {_shown(LORA_DROPOUT_YAML)} (mock data; "
+              f"{layers} layers, f32, dropout 0.1), {_shown_peft_run(drop, micro * 2 * 2048)}, "
+              f"random streams in client.json {sorted(streams)}, "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    want = _expected(layers, micro, PEFT_STEPS, True, peft=True)
+    _check_pretrained_run(f"{name} (DoRA)", dora, range(1, PEFT_STEPS + 1), want,
+                          first_loss=first_loss)
+    _check_pretrained_run(f"{name} (dropout)", drop, range(1, PEFT_STEPS + 1), want,
+                          saves=[2, PEFT_STEPS], first_loss=first_loss)
+    if len(moved) != 2 or not all(x > 0 for x in moved.values()):
+        raise AssertionError(f"{name}: DoRA's magnitudes did not move: {moved}")
+    if "lora_dropout" not in streams:
+        raise AssertionError(f"{name}: no lora_dropout stream in the client state: {streams}")
+    for run in (dora, drop):
+        for k, v in run["routed"].items():
+            routed[k] = routed.get(k, 0) + v
+    return routed
+
+
+def _qwen3_moe_lora_path(name):
+    """examples/llm_finetune/qwen3_moe_lora_dropout.yaml through train_ft at
+    Qwen3-30B-A3B's widths (QWEN3_30B_A3B, from model.config), 2 of 48 layers, ep 4 -> 1,
+    the pallas experts, mock data, mb 1 x 4096, grad_acc_steps 8 -> 2, PEFT_STEPS steps,
+    no saves. The experts are frozen: gmm runs forward and dX, tgmm never; the model has no
+    gate-bias update to turn off."""
+    _release()
+    micro, layers = 2, MOE_LAYERS_TRAIN_FT
+    model = {"config": dict(QWEN3_30B_A3B, architectures=["Qwen3MoeForCausalLM"],
+                            num_hidden_layers=layers, decoder_sparse_step=1, mlp_only_layers=[])}
+    with tempfile.TemporaryDirectory() as tmp:
+        yaml = mock_data_config(tmp, QWEN3_MOE_LORA_YAML, QWEN3_30B_A3B["vocab_size"], model)
+        t0 = time.perf_counter()
+        run = _pretrained_run(name, ["-c", yaml, "--distributed.ep", "1",
+                                     "--backend.experts_backend", "pallas",
+                                     *peft_args(os.path.join(tmp, "run"), PEFT_STEPS, micro,
+                                                dtype=None)], None)
+    print(f"{name}: train_ft on {_shown(QWEN3_MOE_LORA_YAML)} (mock data; Qwen3-30B-A3B's "
+          f"widths, {layers} layers, ep 1, LoRA rank 8 on wq / wv, dropout 0.05), "
+          f"{_shown_peft_run(run, micro * 4096)}, {time.perf_counter() - t0:.1f} s", flush=True)
+    aux = QWEN3_30B_A3B["router_aux_loss_coef"] * layers
+    _check_pretrained_run(name, run, range(1, PEFT_STEPS + 1),
+                          _expected(layers, micro, PEFT_STEPS, True, moe=True, peft=True),
+                          first_loss=random_init_loss(QWEN3_30B_A3B["vocab_size"],
+                                                      QWEN3_30B_A3B["hidden_size"], 0.02) + aux)
+    return run["routed"]
+
+
+def _gemma3_qat_path(name):
+    """examples/llm_finetune/gemma3_4b_qat.yaml through train_ft from a local HF directory
+    of a random-init Gemma-3-4B in the published layout at GEMMA3_4B_LAYERS_TRAIN_FT layers
+    (path 23's), the file's float32 parameters, mock data, mb 2 x 2048, 2 microbatches,
+    fake_quant_after_n_steps 100 -> 2, QAT_STEPS steps, no saves. Step 1 runs the step
+    function without fake quantization, steps 2-4 with int8 fake quantization (JAX's rule:
+    a step s >= n, counted from 1, is quantized); the fake-quantized weights lie on the
+    int8 grid, and the stored weights do not."""
+    import torch
+
+    from automodel_tpu_torch.quantization.qat import fake_quant
+
+    _release()
+    micro, layers = 2, GEMMA3_4B_LAYERS_TRAIN_FT
+    hf_model = dict(GEMMA3_4B, text_config=dict(GEMMA3_4B["text_config"],
+                                                num_hidden_layers=layers))
+    text = _port_config(hf_model)
+    held = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        hf_dir = write_pretrained(os.path.join(tmp, "gemma"), hf_model, prefix="language_model.")
+        t0 = time.perf_counter()
+        run = _pretrained_run(name, [
+            "-c", mock_data_config(tmp, GEMMA3_QAT_YAML, text.vocab_size),
+            "--qat.fake_quant_after_n_steps", "2",
+            *peft_args(os.path.join(tmp, "run"), QAT_STEPS, micro, hf_dir, dtype=None)], None,
+            on_setup=lambda recipe: held.update(recipe=recipe))
+    recipe = held.pop("recipe")
+    with torch.no_grad():
+        w = recipe.params["layers.wq"].float()
+        q = fake_quant(w, 8, 32)
+
+        def off_grid(x):  # distance from the int8 grid of x's groups of 32, in grid steps
+            g = x.reshape(-1, 32)
+            scale = g.abs().amax(-1, keepdim=True).clamp_min(1e-12) / 127
+            return ((g / scale) - (g / scale).round()).abs().max().item()
+
+        off = {"fake-quantized": off_grid(q), "stored": off_grid(w)}
+    del recipe, w, q
+    _release()
+    print(f"{name}: train_ft on {_shown(GEMMA3_QAT_YAML)} (mock data, {layers} layers, f32, "
+          f"int8 fake quant from step 2), step functions {run['kinds']}, "
+          f"{_shown_peft_run(run, micro * 2 * 2048)}, layers.wq off the int8 grid by {off} "
+          f"grid steps, {time.perf_counter() - t0:.1f} s", flush=True)
+    want = _expected(layers, micro, QAT_STEPS, True)
+    _check_pretrained_run(name, run, range(1, QAT_STEPS + 1), want,
+                          first_loss=random_init_loss(text.vocab_size, text.hidden_size,
+                                                      text.initializer_range,
+                                                      tied_self_logit(hf_model)))
+    _check_windowed(name, run["routed"], sum(text.sliding_flags), micro, QAT_STEPS)
+    _check_head_dim(name, run["routed"], text.head_dim)
+    if run["kinds"] != ["before_qat"] + ["train"] * (QAT_STEPS - 1):
+        raise AssertionError(f"{name}: step functions {run['kinds']}")
+    if off["fake-quantized"] > 1e-3 or off["stored"] < 0.1:
+        raise AssertionError(f"{name}: off the int8 grid by {off}")
+    return run["routed"]
+
+
+def _peft_paths() -> dict:
+    """Main paths 24-29, each with its seconds."""
+    by_path = {}
+    for names, fn in ((("main path 24", "main path 26"), _lora_llama_paths),
+                      (("main path 25",), _qwen25_lora_path),
+                      (("main path 27",), _dora_dropout_path),
+                      (("main path 28",), _qwen3_moe_lora_path),
+                      (("main path 29",), _gemma3_qat_path)):
+        t0 = time.perf_counter()
+        got = fn(*names)
+        by_path.update(got if len(names) > 1 else {names[0]: got})
+        print(f"{' and '.join(names)}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return by_path
 
 
 def _cp_train_ft_args(layers=CP_LAYERS_TRAIN_FT) -> list[str]:
@@ -3256,6 +3679,108 @@ def _lce_case(torch, name, n, e, v, filter_eps=None, h_scale=1.0, tied=False):
     return err_z, err_grad
 
 
+def _lce_dh_case(torch, name, n, e, v, filter_eps=None, h_scale=1.0, tied=False):
+    """lce_bwd with dH alone (the unembedding frozen, as under LoRA: a null dw, no dW
+    product) against the plain version's dH from the same bf16 inputs (rel. L2 within
+    TOL_LCE_GRAD), and bitwise against the dH of the full call on the same inputs (the
+    same products in the same order). Fails unless the frozen call went through
+    lce_bwd/dh_only on the route lce_bwd_route names and the full one did not. Returns
+    the max abs error of dH against the plain version."""
+    from automodel_tpu_torch.ops import linear_ce as lce
+    from automodel_tpu_torch.ops import losses
+
+    h, w, labels = _lce_inputs(torch, n, e, v, seed=n + e + v + 1, h_scale=h_scale, tied=tied)
+    unembed = (lambda x: x.t()) if tied else (lambda x: x)
+    dz = (labels != -100).float()
+    route = lce.lce_bwd_route(h, *lce.kernel_operand(unembed(w)))
+    grads, taken = {}, {}
+    for kind, w_grad in (("dh_only", False), ("full", True)):
+        hk, wk = h.clone().requires_grad_(), w.clone().requires_grad_(w_grad)
+        before = dict(lce.ROUTE_LAUNCHES)
+        z, _ = losses.fused_linear_ce_tokens(hk, unembed(wk), labels, filter_eps=filter_eps)
+        out = torch.autograd.grad(z, (hk, wk) if w_grad else (hk,), dz)
+        torch.cuda.synchronize()
+        taken[kind] = {k: lce.ROUTE_LAUNCHES[k] - before[k] for k in before
+                       if k.startswith("lce_bwd")}
+        grads[kind] = out[0]
+        del hk, wk, z, out
+    hr = h.float().requires_grad_()
+    z_ref = lce.fused_logsumexp_reference(hr, unembed(w.float()), filter_eps)
+    (dh_ref,) = torch.autograd.grad(z_ref, (hr,), dz)
+    dh = grads["dh_only"]
+    rel, err = _rel_l2(dh, dh_ref), (dh.float() - dh_ref).abs().max().item()
+    bitwise = torch.equal(dh, grads["full"])
+    want = {"dh_only": {f"lce_bwd/{route}": 1, "lce_bwd/dh_only": 1},
+            "full": {f"lce_bwd/{route}": 1}}
+    want = {kind: {k: want[kind].get(k, 0) for k in taken[kind]} for kind in want}
+    print(f"lce dH-only case {name}: N={n} E={e} V={v} tied={tied} h_scale={h_scale} "
+          f"filter_eps={filter_eps}, route {route} (launched {taken}): dH rel L2 vs plain "
+          f"{rel:.3e} (tol {TOL_LCE_GRAD}), max abs {err:.3e}; bitwise equal to the full "
+          f"call's dH: {bitwise}", flush=True)
+    if taken != want:
+        raise AssertionError(f"lce dH-only case {name}: launched {taken}, not {want}")
+    if rel > TOL_LCE_GRAD or not bitwise:
+        raise AssertionError(f"lce dH-only case {name}: dH disagrees (rel L2 {rel:.3e}, "
+                             f"bitwise {bitwise})")
+    del h, w, hr, z_ref, dh_ref, grads
+    torch.cuda.empty_cache()
+    return err
+
+
+# dH-only cases: the wgmma route untied and tied (the filter on, as on the main paths),
+# and the mma.sync route (V = 50,257; E = 1003 tied)
+LCE_DH_CASES = (("dh-a", 8192, 2048, 128256), ("dh-b", 8192, 2048, 128256, 1e-7, 32.0, True),
+                ("dh-c", 8190, 2048, 50257, 1e-7), ("dh-d", 256, 1003, 3001, None, 1.0, True))
+
+
+def _library_dh(torch, h, w, dz):
+    """The dH-only yardstick: autograd's gradient in h alone of the same logsumexp (the
+    (N, V) logits formed and their gradient), timed here and used nowhere in the port."""
+    hl = h.detach().requires_grad_()
+    return torch.autograd.grad(_library_lse(torch, hl, w), (hl,), dz)
+
+
+def _lce_dh_work(n, e, v):
+    """FLOPs and bytes of lce_bwd with dH alone at (N, E, V): 4NEV (the recompute and the
+    dH product); h and w read, z and dz read, dH written."""
+    return 4 * n * e * v, 2 * (n * e + e * v) + 2 * n * e + 4 * n * 2
+
+
+def _lce_dh_row(torch, lce, h, w, z, dz, plain=True):
+    """The timing row of lce_bwd with dH alone on (h, w), with its plain version (the
+    reference's gradient in h alone) and yardstick, each None with the reason where the
+    card cannot hold its f32 logits."""
+    n, e = h.shape
+    v = w.shape[1]
+    flops, nbytes = _lce_dh_work(n, e, v)
+    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    row = {"ms": _time_ms(torch, lambda: lce.lce_bwd(h, w, z, dz, None, need_dw=False),
+                          warmup=1, reps=5 if n > 8192 else 20),
+           "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "plain_ms": None, "library_ms": None, "route": lce.lce_bwd_route(h, w),
+           "library": "torch.autograd.grad(torch.logsumexp((h @ w).float(), -1), h)"}
+
+    def plain_dh():
+        hp = h.detach().requires_grad_()
+        return torch.autograd.grad(lce.fused_logsumexp_reference(hp, w), (hp,), dz)
+
+    for key, fn, run in (("plain_ms", plain_dh, plain),
+                         ("library_ms", lambda: _library_dh(torch, h, w, dz), True)):
+        if not run:
+            continue
+        try:
+            row[key] = _time_ms(torch, fn, warmup=1, reps=3 if n > 8192 else 5)
+        except torch.cuda.OutOfMemoryError as exc:  # the row keeps None and the reason
+            row[f"{key}_note"] = f"not timed: {str(exc).splitlines()[0][:160]}"
+        torch.cuda.empty_cache()
+    print(f"time lce_bwd/dh_only at N={n} E={e} V={v} ({row['route']}): {row['ms']:.3f} ms, "
+          f"bound {row['bound_ms']:.3f} ms ({row['bound_by']}: {flops / 1e12:.2f} TFLOP, "
+          f"{nbytes / 1e6:.1f} MB), plain {row['plain_ms']} ms, yardstick "
+          f"{row['library_ms']} ms", flush=True)
+    return row
+
+
 def _library_lse(torch, h, w):
     """The yardstick: one PyTorch call chain for the same z, timed here and used
     nowhere in the port (it forms the (N, V) logits)."""
@@ -3303,11 +3828,12 @@ def _lce_timings(torch, n=8192, e=2048, v=128256, large=True):
               flush=True)
     out["lce_fwd"]["route"] = lce.lce_fwd_route(h, w)
     out["lce_bwd"]["route"] = lce.lce_bwd_route(h, w)
+    out["lce_bwd/dh_only"] = _lce_dh_row(torch, lce, h, w, z, dz)
     del h, w, z, dz
     torch.cuda.empty_cache()
     if large:
-        out["lce_fwd"]["at_path7_shape"], out["lce_bwd"]["at_path7_shape"] = \
-            _lce_timing_large(torch)
+        (out["lce_fwd"]["at_path7_shape"], out["lce_bwd"]["at_path7_shape"],
+         out["lce_bwd/dh_only"]["at_path7_shape"]) = _lce_timing_large(torch)
     return out
 
 
@@ -3368,9 +3894,15 @@ def _lce_timing_large(torch):
     fwd["library"] = "torch.logsumexp((h @ w).float(), -1)"
     print(f"time lce_fwd at N={n} E={e} V={v}: plain {fwd['plain_ms']} ms, yardstick "
           f"{fwd['library_ms']} ms", flush=True)
-    del h, w
+    z, _ = lce.lce_fwd(h, w)
+    dz = torch.ones(n, device="cuda")
+    # dH alone: the plain version's f32 logits and their gradient would not fit beside it
+    dh = _lce_dh_row(torch, lce, h, w, z, dz, plain=False)
+    dh["plain_ms_note"] = "not timed: the f32 logits and their gradient need ~50 GB"
+    dh["shape"] = {"N": n, "E": e, "V": v}
+    del h, w, z, dz
     torch.cuda.empty_cache()
-    return rows["lce_fwd"], rows["lce_bwd"]
+    return rows["lce_fwd"], rows["lce_bwd"], dh
 
 
 def _kernel_times(torch):
@@ -3568,6 +4100,7 @@ def main(argv: list[str]) -> int:
         err_z, err_grad = _lce_case(torch, *case)
         errs["lce_fwd"] = max(errs["lce_fwd"], err_z)
         errs["lce_bwd"] = max(errs["lce_bwd"], err_grad)
+    errs["lce_bwd/dh_only"] = max(_lce_dh_case(torch, *case) for case in LCE_DH_CASES)
     timings.update(_lce_timings(torch))
     for name, row in _lce_timings(torch, 8192, 2880, 201088, large=False).items():
         timings[name]["at_gpt_oss"] = row
@@ -3634,6 +4167,8 @@ def main(argv: list[str]) -> int:
         "main path 22", GEMMA3_PROXY_YAML, linear_ce=True,
         overrides=gemma2_args(GEMMA3_4B_TEXT["num_hidden_layers"], GEMMA3_4B_TEXT))
     by_path["main path 23"] = _gemma3_train_ft_path("main path 23")
+    _nf4_phase(torch)
+    by_path.update(_peft_paths())
 
     flash = "automodel_tpu/ops/pallas/flash_attention.py"
     lce_src = "automodel_tpu/ops/pallas/linear_ce.py"
@@ -3644,6 +4179,7 @@ def main(argv: list[str]) -> int:
                 "flash_dkv": (f"{flash}:258", [f"{flash}:192"]),
                 "lce_fwd": (f"{lce_src}:105", []),
                 "lce_bwd": (f"{lce_src}:137", [f"{lce_src}:163"]),
+                "lce_bwd/dh_only": (f"{lce_src}:137", []),
                 "gmm": (f"{gmm_src}:126", []),
                 "tgmm": (f"{gmm_src}:151", []),
                 "ring_fwd": (f"{ring_src}:110", []),
@@ -3653,9 +4189,15 @@ def main(argv: list[str]) -> int:
     sources = {"flash_fwd": "flash_attention.cu",
                "flash_dq": "flash_attention.cu", "flash_dkv": "flash_attention.cu",
                "lce_fwd": "linear_ce.cu", "lce_bwd": "linear_ce.cu",
+               "lce_bwd/dh_only": "linear_ce.cu",
                "gmm": "grouped_gemm.cu", "tgmm": "grouped_gemm.cu",
                "ring_fwd": "ring_chunk.cu", "ring_bwd": "ring_chunk.cu",
                "ring_dq": "ring_chunk.cu", "ring_dkv": "ring_chunk.cu"}
+    # lce_bwd's launches with dH alone (a frozen unembedding) have their own row; the
+    # lce_bwd row counts the full ones
+    for counts in by_path.values():
+        counts["lce_bwd/full"] = counts["lce_bwd"] - counts["lce_bwd/dh_only"]
+    counted = {"lce_bwd": "lce_bwd/full"}
     kernels = []
     for name in replaces:
         timing = dict(timings[name])
@@ -3665,14 +4207,15 @@ def main(argv: list[str]) -> int:
         row = {"name": name, **timing, "route": "cuda",
                "source": f"automodel_tpu_torch/csrc/{sources[name]}",
                "replaces": replaces[name][0],
-               "launches": sum(counts[name] for counts in by_path.values()),
+               "launches": sum(counts[counted.get(name, name)] for counts in by_path.values()),
                "max_abs_err": errs[name],
-               "launches_by_path": {p: counts[name] for p, counts in by_path.items()}}
+               "launches_by_path": {p: counts[counted.get(name, name)]
+                                    for p, counts in by_path.items()}}
         if kernel_route is not None:
             row["kernel_route"] = kernel_route
         if replaces[name][1]:
             row["replaces_by_function"] = replaces[name][1]
-        if name in ROUTED:  # main-path launches by route
+        if name in ROUTED:  # main-path launches by route (lce_bwd: full and dH alone)
             row["launches_by_route"] = {
                 r: sum(counts[f"{name}/{r}"] for counts in by_path.values())
                 for r in ("wgmma", "mma_sync")}

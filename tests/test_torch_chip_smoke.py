@@ -443,19 +443,20 @@ def test_phase_order():
     """The twice-launch phase runs first, the kernel cases next (the ring's at (192, 128)
     after its others), then the main paths in order, the deterministic ones (main paths 9
     and 10 under the flag, in a child process) before GPT-OSS's (main paths 11 and 12),
-    Phi-3's (13 and 14), the DeepSeek family's (15-17) and Gemma's (18-23), then the
-    kernels line."""
+    Phi-3's (13 and 14), the DeepSeek family's (15-17), Gemma's (18-23) and the PEFT and
+    QAT paths (24-29, after the nf4 check), then the kernels line."""
     src = inspect.getsource(chip_smoke.main)
     order = ["_twice_phase(", "_flash_phase(", "_timings(", "_window_timings(",
              "_refused_on_the_card(", "_ring_refused_on_the_card(", "_model_check(",
-             "_lce_case(", "_gmm_phase(", "_moe_model_check(", "_ring_phase(",
+             "_lce_case(", "_lce_dh_case(", "_lce_timings(", "_gmm_phase(",
+             "_moe_model_check(", "_ring_phase(",
              "_mla_ring_phase(", "_ring_timings(", "_mla_ring_timings(", "_ring_model_check(", '"main path 1"', '"main path 2"', '"main path 3"',
              '"main path 4"', '"main path 5"', '"main path 6"', '"main path 7"',
              '"main path 8"', '"main path 9"', "_deterministic_paths()", '"main path 11"',
              '"main path 12"', '"main path 13"', '"main path 14"', '"main path 15"',
              '"main path 16"', '"main path 17"', '"main path 18"', '"main path 19"',
              '"main path 20"', '"main path 21"', '"main path 22"', '"main path 23"',
-             '{"kernels"']
+             "_nf4_phase(", "_peft_paths()", '{"kernels"']
     at = [re.search(r"(?<!\w)" + re.escape(x), src).start() for x in order]
     assert at == sorted(at)
     child = inspect.getsource(chip_smoke._deterministic_child)
@@ -881,3 +882,84 @@ def test_gemma_head_dim_256_configs_run_through_both_recipes(tmp_path):
     chip_smoke._check_pretrained_run("p23", run, range(1, 3), run["launches"], saves=[2])
     assert run["hf_differ"] == []
     assert "model.layers.5.post_feedforward_layernorm.weight" in run["hf_names"]
+
+
+def test_expected_launches_of_the_peft_paths():
+    """Main paths 24-29: under PEFT every lce_bwd launch computes dH alone and the frozen
+    experts launch no tgmm (gmm's forward, replay and dX stay); a full lce_bwd on a PEFT
+    path, or a dH-only one elsewhere, fails the path. Qwen2.5-7B's widths (path 25) and
+    the Qwen3-MoE path's read as published."""
+    from automodel_tpu_torch.ops import linear_ce as lce
+
+    want = chip_smoke._expected(2, 2, 3, True, moe=True, peft=True)
+    assert (want["gmm"], want["tgmm"], want["lce_bwd"]) == (72, 0, 6)
+    assert chip_smoke._expected(16, 2, 4, True, peft=True)["flash_dq"] == 128
+    launches = {"gmm": 0, "tgmm": 0, "lce_fwd": 6, "lce_bwd": 6}
+    chip_smoke._reset_counts()
+    try:
+        lce.ROUTE_LAUNCHES.update({"lce_fwd/wgmma": 6, "lce_bwd/wgmma": 6})
+        with pytest.raises(AssertionError, match="dH alone"):
+            chip_smoke._check_routes("path", launches, dh_only=True)
+        lce.ROUTE_LAUNCHES["lce_bwd/dh_only"] = 6
+        assert chip_smoke._check_routes("path", launches, dh_only=True)["lce_bwd/dh_only"] == 6
+        with pytest.raises(AssertionError, match="dH alone"):
+            chip_smoke._check_routes("path", launches)
+    finally:
+        chip_smoke._reset_counts()
+    qwen = chip_smoke._port_config(chip_smoke.QWEN25_7B)
+    assert (qwen.hidden_size, qwen.intermediate_size, qwen.num_hidden_layers,
+            qwen.num_attention_heads, qwen.num_key_value_heads, qwen.head_dim,
+            qwen.vocab_size, qwen.attention_bias, qwen.sliding_window,
+            qwen.tie_word_embeddings) == (3584, 18944, 28, 28, 4, 128, 152064, True, None,
+                                          False)
+    n = sum(math.prod(v) for v in qwen.param_shapes().values())
+    assert 7.60e9 < n < 7.65e9
+
+
+SMALL_LLAMA = dict(chip_smoke.LLAMA32_1B, hidden_size=64, intermediate_size=128,
+                   num_attention_heads=4, num_key_value_heads=2, head_dim=16, vocab_size=512)
+
+
+def test_peft_configs_run_through_train_ft(tmp_path):
+    """Main paths 24, 26 and 29 at small widths on the CPU, through the shared
+    _pretrained_run: the LoRA file with mock data (mock_data_config) from a local HF directory,
+    2 steps and a save at step 2, whose hf/ (the merged model) reloads bitwise against
+    merge_lora_params of the live tensors and whose hf_adapter/ holds the q / v factors;
+    the QLoRA file (nf4 on wq / wv); the QAT file with the switch at step 2."""
+    from automodel_tpu_torch.checkpoint.safetensors_io import load_safetensors
+    from automodel_tpu_torch.quantization.qlora import is_quantized_leaf
+
+    hf = chip_smoke.write_pretrained(str(tmp_path / "hf"), SMALL_LLAMA, device="cpu")
+    small = ["--device", "cpu", "--seq_len", "64", "--dataset.seq_len", "64"]
+    ckpt = str(tmp_path / "ck")
+    yaml = chip_smoke.mock_data_config(str(tmp_path), chip_smoke.LORA_YAML, 512)
+    run = chip_smoke._pretrained_run("p24", [
+        "-c", yaml, *chip_smoke.peft_args(str(tmp_path / "p24"), 2, 1, hf, ckpt), *small], ckpt,
+        reload_dtype=torch.bfloat16)
+    chip_smoke._check_pretrained_run("p24", run, range(1, 3), run["launches"], saves=[2],
+                                     first_loss=chip_smoke.random_init_loss(512, 64, 0.02))
+    assert run["hf_differ"] == [] and sorted(run["adapter"])[0] == "layers.wq.lora_a"
+    adapter = load_safetensors(os.path.join(ckpt, "step_2", "hf_adapter",
+                                            "adapter_model.safetensors"))
+    assert tuple(adapter[chip_smoke._ADAPTER_KEY.format(1, "v", "B")].shape) == (32, 8)
+    assert len(adapter) == 2 * 2 * 2
+
+    quantized = []
+    run = chip_smoke._pretrained_run("p26", [
+        "-c", chip_smoke.mock_data_config(str(tmp_path), chip_smoke.QLORA_YAML, 512),
+        *chip_smoke.peft_args(str(tmp_path / "p26"), 2, 1, hf), *small], None,
+        on_setup=lambda r: quantized.extend(k for k, v in r.params.items()
+                                             if is_quantized_leaf(v)))
+    assert sorted(quantized) == ["layers.wq", "layers.wv"] and len(run["losses"]) == 2
+
+    gemma = dict(chip_smoke.GEMMA3_4B, text_config=dict(
+        chip_smoke.GEMMA3_4B["text_config"], hidden_size=64, intermediate_size=128,
+        num_attention_heads=4, num_key_value_heads=2, head_dim=16, vocab_size=512,
+        num_hidden_layers=2))
+    hf_gemma = chip_smoke.write_pretrained(str(tmp_path / "gemma"), gemma, device="cpu",
+                                           prefix="language_model.")
+    run = chip_smoke._pretrained_run("p29", [
+        "-c", chip_smoke.mock_data_config(str(tmp_path), chip_smoke.GEMMA3_QAT_YAML, 512),
+        "--qat.fake_quant_after_n_steps", "2",
+        *chip_smoke.peft_args(str(tmp_path / "p29"), 3, 1, hf_gemma, dtype=None), *small], None)
+    assert run["kinds"] == ["before_qat", "train", "train"]

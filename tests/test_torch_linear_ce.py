@@ -400,3 +400,59 @@ def test_lce_chunk_keeps_the_buffer_within_its_budget():
         assert chunk % tlce.TILE_V == 0 and tlce.TILE_V <= chunk <= -(-v // 128) * 128
         assert chunk == tlce.TILE_V or 2 * n * chunk <= tlce._CHUNK_BYTES
     assert tlce.lce_chunk(8192, 128256) == 16384 and tlce.lce_chunk(32768, 128256) == 4096
+
+
+def _jax_pallas_calls_after_dce(h, w, argnums) -> int:
+    """``pallas_call``s left in the jaxpr of JAX's fused-logsumexp gradient with respect
+    to ``argnums`` once dead code is eliminated (what its jit launches)."""
+    from jax.interpreters import partial_eval as pe
+
+    def count(jaxpr):
+        n = 0
+        for eqn in jaxpr.eqns:
+            n += eqn.primitive.name == "pallas_call"
+            for value in eqn.params.values():
+                for sub in value if isinstance(value, (list, tuple)) else [value]:
+                    inner = getattr(sub, "jaxpr", sub)
+                    if hasattr(inner, "eqns"):
+                        n += count(inner)
+        return n
+
+    f = lambda h_, w_: jlce.fused_logsumexp(h_, w_, 128, 256, True).sum()  # noqa: E731
+    closed = jax.make_jaxpr(jax.grad(f, argnums=argnums))(jnp.asarray(h), jnp.asarray(w))
+    live, _ = pe.dce_jaxpr(closed.jaxpr, [True] * len(closed.jaxpr.outvars))
+    return count(live)
+
+
+@pytest.mark.parametrize("frozen", [True, False], ids=["frozen_w", "trained_w"])
+@pytest.mark.parametrize("e,v,tied,route", [
+    (128, 1024, False, "wgmma"), (128, 1024, True, "wgmma"), (128, 1003, False, "mma_sync"),
+    (1003, 512, True, "mma_sync")])
+def test_frozen_unembedding_asks_for_dh_alone(monkeypatch, e, v, tied, route, frozen):
+    """With w needing no gradient (a frozen unembedding, as under LoRA) the backward
+    launches lce_bwd with a null dw, counted under lce_bwd/dh_only, and returns no dW:
+    the kernels JAX's jit launches, whose gradient in h alone keeps 2 of its 3 Pallas
+    calls (forward and dH) after dead-code elimination. A w that needs its gradient
+    gets the full call. The launch recorder stands in for the card."""
+    from automodel_tpu_torch.kernels import build
+
+    h_np, w_np, _, _ = _data(seed=3, n=256, e=128, v=1024)
+    assert _jax_pallas_calls_after_dce(h_np, w_np, 0 if frozen else (0, 1)) == (2 if frozen
+                                                                                 else 3)
+    calls = []
+    monkeypatch.setattr(build, "launch", lambda source, name, device, *args:
+                        calls.append((name, args)))
+    monkeypatch.setattr(tlce, "_sm_count", lambda device: 132)
+    n = 256
+    h = torch.zeros(n, e, dtype=torch.bfloat16, requires_grad=True)
+    w = torch.zeros((v, e) if tied else (e, v), dtype=torch.bfloat16, requires_grad=not frozen)
+    before = dict(tlce.ROUTE_LAUNCHES)
+    z = tlce._FusedLogsumexp.apply(h, w, tied, None)
+    z.backward(torch.ones(n))
+    suffix = "_wgmma" if route == "wgmma" else ""
+    assert [name for name, _ in calls] == [f"lce_fwd{suffix}", f"lce_bwd{suffix}"]
+    assert (calls[1][1][6] is None) == frozen  # the dw pointer
+    assert calls[1][1][5] is not None  # dh
+    taken = {k: tlce.ROUTE_LAUNCHES[k] - before[k] for k in before}
+    assert taken[f"lce_bwd/{route}"] == 1 and taken["lce_bwd/dh_only"] == int(frozen)
+    assert h.grad is not None and (w.grad is None) == frozen

@@ -228,7 +228,7 @@ def test_no_device_and_no_card_raises(cfg_path, monkeypatch):
 @pytest.mark.parametrize("override", [
     ["--distributed.tp", "2"],
     ["--distributed.dp_shard", "2"],
-    ["--peft.dim", "8"],
+    ["--peft.dim", "8", "--distributed.pp", "2"],
     ["--checkpoint.enabled", "true", "--checkpoint.async_save", "true"],
     # a streaming (unsized) validation set: itertools.count stands in for one
     ["--validation_dataset._target_", "itertools.count"],
