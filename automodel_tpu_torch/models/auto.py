@@ -2,9 +2,11 @@
 ``automodel_tpu/models/auto.py``, causal LMs).
 
 ``from_pretrained(path)`` reads ``config.json``, resolves the family through
-``models/registry.py`` and loads the safetensors through the family's state-dict
-adapter: each parameter is cast to the requested dtype and moved to the device before
-the next is read, so the host holds one parameter at a time.
+``models/registry.py`` (an unregistered ``*ForCausalLM`` through the structural alias of
+``models/structural.py``, as JAX's ``from_config`` falls back to it) and loads the
+safetensors through the family's state-dict adapter: each parameter is cast to the
+requested dtype and moved to the device before the next is read, so the host holds one
+parameter at a time.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ from automodel_tpu_torch.models.common.backend import BackendConfig
 from automodel_tpu_torch.models.hub import resolve_pretrained_path
 from automodel_tpu_torch.models.llama.convert import check_params
 from automodel_tpu_torch.models.registry import resolve_model_class
+from automodel_tpu_torch.models.structural import (AliasedLlamaForCausalLM,
+                                                   StructuralDivergence, alias_overrides)
 
 __all__ = ["AutoModelForCausalLM", "load_hf_config"]
 
@@ -35,7 +39,19 @@ class AutoModelForCausalLM:
 
     @classmethod
     def model_class(cls, config: dict):
-        return resolve_model_class((config.get("architectures") or [cls._default_architecture])[0])
+        """The registered class of the config's architecture, or, for an unregistered
+        Llama delta, :class:`AliasedLlamaForCausalLM`; NotImplementedError naming both the
+        registry miss and the divergent field otherwise."""
+        arch = (config.get("architectures") or [cls._default_architecture])[0]
+        try:
+            return resolve_model_class(arch)
+        except NotImplementedError as missing:
+            try:
+                alias_overrides(arch, config)
+            except StructuralDivergence as diverged:
+                raise NotImplementedError(f"{missing} Auto-alias also failed: "
+                                          f"{diverged}") from diverged
+            return AliasedLlamaForCausalLM
 
     @classmethod
     def from_config(cls, config: dict, backend: BackendConfig | None = None, **kw):

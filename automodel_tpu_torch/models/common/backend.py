@@ -44,7 +44,8 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-__all__ = ["BackendConfig", "DTYPES", "REMAT_POLICIES", "checkpoint_name", "remat_name"]
+__all__ = ["BackendConfig", "DTYPES", "PARALLEL_OUT", "REMAT_POLICIES", "checkpoint_name",
+           "remat_name"]
 
 # policy -> (save every matmul, batched matmuls too, the names it saves)
 _REMAT_POLICIES = {
@@ -59,6 +60,13 @@ _REMAT_POLICIES = {
                                                "attn_out"})),
 }
 REMAT_POLICIES = (*_REMAT_POLICIES, "full")
+# The two output products of a parallel block (Cohere: h + attn(x) + mlp(x)), which the
+# dense decoder names so: no backward needs their outputs, and JAX's replay skips both,
+# but a checkpoint's replay runs to the last tensor the backward saved, which the second
+# product saves, so it would run the first again. Every checkpointing policy keeps their
+# outputs instead (a layer that asks for it, ``layer_remat(fn, selective=True)``, takes
+# the selective checkpoint under "none" too), and the replays' matmuls are JAX's.
+PARALLEL_OUT = "parallel_out"
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
 _aten = torch.ops.aten
@@ -88,7 +96,8 @@ def checkpoint_name(x: torch.Tensor, name: str) -> torch.Tensor:
 
 def _policy(dots: bool, batched: bool, names: frozenset, ctx, op, *args, **kwargs):
     del ctx, args, kwargs
-    named = getattr(_SCOPE, "name", None) in names
+    name = getattr(_SCOPE, "name", None)
+    named = name in names or name == PARALLEL_OUT
     if op in _MATMULS:
         saved = named or (dots and (batched or op not in _BATCHED))
     else:  # every other op replays: a kernel's output buffer is never saved
@@ -160,15 +169,17 @@ class BackendConfig:
         """True when each layer runs under torch.utils.checkpoint."""
         return self.remat_policy != "full"
 
-    def layer_remat(self, fn):
+    def layer_remat(self, fn, selective: bool = False):
         """``fn`` (one layer) under the policy: as it is for "full" or without grad, else
-        checkpointed with the policy's saves (see the module docstring)."""
+        checkpointed with the policy's saves (see the module docstring); ``selective``: a
+        layer that names ``PARALLEL_OUT`` products, checkpointed selectively under "none"
+        too."""
         if not self.checkpoint_layers:
             return fn
         kw = {}
         # "none" saves nothing, which a plain checkpoint does without the selective
         # policy's dispatch mode and its host time on every op
-        if self.remat_policy != "none":
+        if self.remat_policy != "none" or selective:
             kw["context_fn"] = functools.partial(
                 create_selective_checkpoint_contexts,
                 functools.partial(_policy, *_REMAT_POLICIES[self.remat_policy]))

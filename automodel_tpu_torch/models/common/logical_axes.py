@@ -10,8 +10,8 @@ output) and which tensors are norms. The tables are the JAX package's, name for 
 
 from __future__ import annotations
 
-__all__ = ["DENSE_LAYER_AXES", "GEMMA_LAYER_AXES", "MLA_LAYER_AXES", "MOE_BLOCK_AXES",
-           "logical_axes"]
+__all__ = ["DENSE_LAYER_AXES", "GEMMA_LAYER_AXES", "HEAD_QK_NORM_AXES", "MLA_LAYER_AXES",
+           "MOE_BLOCK_AXES", "logical_axes"]
 
 Axes = tuple[str | None, ...]
 
@@ -41,6 +41,11 @@ DENSE_LAYER_AXES: dict[str, Axes] = {
     "attn_norm_b": ("norm",),
     "mlp_norm_b": ("norm",),
 }
+
+# JAX dense_decoder_logical_axes: the (heads, head_dim) q / k norms of qk_norm_whole (OLMo-2)
+# and of Cohere+'s per-head LayerNorm
+HEAD_QK_NORM_AXES: dict[str, Axes] = {"q_norm": ("heads", "head_dim"),
+                                      "k_norm": ("kv_heads", "head_dim")}
 
 # JAX models/gemma/model.py _LAYER_AXES
 GEMMA_LAYER_AXES: dict[str, Axes] = {
@@ -90,18 +95,23 @@ _TOP: dict[str, Axes] = {"embed": ("vocab", "embed"), "final_norm": ("norm",),
 _STACKS = {"layers": "layers", "moe_layers": "layers", "dense_layers": "dense_layers"}
 
 
-def logical_axes(names, layer_axes: dict[str, Axes] = DENSE_LAYER_AXES) -> dict[str, Axes]:
-    """Flat name -> logical axes of each parameter name in ``names`` (the port's flat
-    names: ``layers.wq``, ``moe_layers.moe.experts.down_proj``); ``layer_axes`` is the
-    family's per-layer table. Raises KeyError on a name no table knows."""
+def logical_axes(shapes: dict[str, tuple[int, ...]],
+                 layer_axes: dict[str, Axes] = DENSE_LAYER_AXES) -> dict[str, Axes]:
+    """Flat name -> logical axes of each parameter of ``shapes`` (name -> shape, as
+    ``param_shapes()`` gives, under the port's flat names: ``layers.wq``,
+    ``moe_layers.moe.experts.down_proj``; the shape tells (heads, head_dim) q/k norms from
+    (head_dim,) ones); ``layer_axes`` is the family's per-layer table. Raises KeyError on
+    a name no table knows."""
     out: dict[str, Axes] = {}
-    for name in names:
+    for name in shapes:
         if name in _TOP:
             out[name] = _TOP[name]
             continue
         stack, _, rest = name.partition(".")
         if rest.startswith("moe."):
             axes = MOE_BLOCK_AXES[rest[len("moe."):]]
+        elif rest in HEAD_QK_NORM_AXES and len(shapes[name]) == 3:
+            axes = HEAD_QK_NORM_AXES[rest]
         else:
             axes = layer_axes[rest]
         out[name] = (_STACKS[stack],) + axes

@@ -106,7 +106,7 @@ def _dense_layer(cfg, backend, attention_fn, names, h, positions, segment_ids, r
     lp = {n: w.to(dtype) for n, w in zip(names, weights)}
     x = rms_norm(h, lp["attn_norm"], cfg.rms_norm_eps)
     h = h + attention_fn(lp, x, positions, segment_ids, window, rope, mesh)
-    return h + mlp_block(lp, rms_norm(h, lp["mlp_norm"], cfg.rms_norm_eps))
+    return h + mlp_block(cfg, lp, rms_norm(h, lp["mlp_norm"], cfg.rms_norm_eps))
 
 
 def _moe_layer(cfg, backend, moe_block, attention_fn, attn_names, moe_names, h, positions,

@@ -74,7 +74,7 @@ class DeepseekV3StateDictAdapter(MappingAdapter):
                 for hf, ours in (("gate", "gate"), ("up", "up"), ("down", "down"))]
         if k > 0:
             entries += [*_mla_entries(cfg, "dense_layers", (0, k)),
-                        *dense_mlp_entries("dense_layers", layer_range=(0, k))]
+                        *dense_mlp_entries(cfg, "dense_layers", layer_range=(0, k))]
         if not cfg.tie_word_embeddings:
             entries.append(Entry("lm_head.weight", "lm_head", _t, _t))
         super().__init__(entries, n_layers, num_experts=cfg.moe.n_routed_experts)

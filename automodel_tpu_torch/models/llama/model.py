@@ -1,12 +1,12 @@
-"""Llama (counterpart of ``automodel_tpu/models/llama/model.py``) and the members of its
-lineage that the JAX package builds from the same class: Qwen2 (q/k/v biases), Qwen3
-(per-head q/k RMSNorm, an explicit head_dim) and Mistral (a sliding window).
-
-``LlamaConfig.from_hf`` reads an HF config.json dict as the JAX package reads it. The
-branches the JAX package takes for the lineage's other members raise NotImplementedError
-by name until a slice ports them: Olmo2's post-sublayer norms and whole-projection
-qk-norm, Cohere's layernorm, parallel block and logit scale, GLM's interleaved rope,
-Arcee's relu^2 MLP, Granite's multipliers, NoPE layers and per-layer ``layer_types``.
+"""Llama (counterpart of ``automodel_tpu/models/llama/model.py``) and every member of
+its lineage that the JAX package builds from the same class, through
+``LlamaConfig.from_hf``: Qwen2 (q/k/v biases), Qwen3 (per-head q/k RMSNorm), Mistral (a
+sliding window), Granite (four multipliers), SmolLM3 (NoPE layers), OLMo-2 / OLMo-3
+(post-sublayer norms, the whole-projection q/k RMSNorm), Cohere (mean-centred LayerNorm,
+the parallel block, interleaved RoPE, the logit scale; Cohere+'s per-head q/k
+LayerNorm), Cohere2 (its 3:1 sliding pattern with RoPE on the sliding layers only),
+Arcee (the ungated relu^2 MLP) and, through their own classes, GLM / GLM-4 and
+Ministral-3.
 """
 
 from __future__ import annotations
@@ -24,45 +24,52 @@ from automodel_tpu_torch.models.common.transformer import (
 
 __all__ = ["LlamaConfig", "LlamaForCausalLM"]
 
-_ARCHS = ("LlamaForCausalLM", "MistralForCausalLM", "Qwen2ForCausalLM", "Qwen3ForCausalLM")
-# what the JAX package's from_hf turns on for architecture names the port does not take
-# yet (matched by substring, as JAX matches them)
-_REFUSED = {"norm_placement post and qk_norm_whole (Olmo2/3)": ("Olmo2", "Olmo3"),
-            "norm_type layernorm, parallel_block and logit_scale (Cohere)": ("Cohere",),
-            "rope_interleaved (GLM)": ("Glm",),
-            "mlp_act relu2 (Arcee)": ("Arcee",)}
+
+def _archs(hf: dict[str, Any]) -> str:
+    return "".join(hf.get("architectures") or [])
 
 
-def _unsupported(hf: dict[str, Any]) -> list[str]:
-    found = []
-    archs = hf.get("architectures") or ["LlamaForCausalLM"]
-    joined = "".join(archs)
-    found += [why for why, names in _REFUSED.items() if any(n in joined for n in names)]
-    if not found:
-        found += [f"architecture {a}" for a in archs if a not in _ARCHS]
-    if hf.get("mlp_bias"):
-        found.append("mlp_bias")
-    for key in ("layer_types", "no_rope_layers", "no_rope_layer_interval", "logit_scale",
-                "attention_multiplier", "llama4_attn_scale_beta"):
-        if hf.get(key):
-            found.append(key)
-    for key in ("embedding_multiplier", "residual_multiplier", "logits_scaling"):
-        if hf.get(key, 1.0) != 1.0:
-            found.append(key)
-    if hf.get("hidden_act", "silu") != "silu":
-        found.append(f"hidden_act {hf['hidden_act']}")
-    return found
+def _is_olmo2(hf: dict[str, Any]) -> bool:
+    archs = _archs(hf)
+    return "Olmo2" in archs or "Olmo3" in archs
+
+
+def _cohere2_layer_types(hf: dict[str, Any]) -> list[str]:
+    """Cohere2's per-layer pattern: its layer_types, or, in the original R7B config.json,
+    derived from the integer sliding_window_pattern as Cohere2Config's compatibility
+    branch derives it (every pattern-th layer attends in full)."""
+    if hf.get("layer_types"):
+        return hf["layer_types"]
+    p = int(hf.get("sliding_window_pattern", 4))
+    return ["sliding_attention" if (i + 1) % p else "full_attention"
+            for i in range(hf["num_hidden_layers"])]
+
+
+def _no_rope_layers(hf: dict[str, Any]) -> list[int] | None:
+    """Per-layer RoPE (1 = on), or None when every layer takes it: SmolLM3's
+    no_rope_layers, or every no_rope_layer_interval-th layer without; Cohere2's RoPE on
+    its sliding layers only."""
+    layers = hf.get("no_rope_layers")
+    if layers is None and hf.get("no_rope_layer_interval"):
+        k = int(hf["no_rope_layer_interval"])
+        layers = [int((i + 1) % k != 0) for i in range(hf["num_hidden_layers"])]
+    if layers is None and "Cohere2" in _archs(hf):
+        layers = [int(t == "sliding_attention") for t in _cohere2_layer_types(hf)]
+    if layers is not None and all(layers):
+        return None
+    return layers
 
 
 @dataclasses.dataclass
 class LlamaConfig(DenseDecoderConfig):
     @classmethod
     def from_hf(cls, hf: dict[str, Any]) -> "LlamaConfig":
-        """Build from an HF config.json dict of Llama, Qwen2, Qwen3 or Mistral."""
-        bad = _unsupported(hf)
-        if bad:
-            raise NotImplementedError(
-                f"LlamaConfig.from_hf: {', '.join(bad)} not ported to the PyTorch package yet")
+        """Build from an HF config.json dict of the lineage, as the JAX package reads it."""
+        archs = _archs(hf)
+        is_cohere = "Cohere" in archs
+        is_glm4 = "Glm4" in archs
+        is_glm = "Glm" in archs  # GLM and GLM-4: interleaved partial RoPE
+        is_arcee = "Arcee" in archs
         return cls(
             vocab_size=hf["vocab_size"],
             hidden_size=hf["hidden_size"],
@@ -76,12 +83,28 @@ class LlamaConfig(DenseDecoderConfig):
             rope_scaling=hf.get("rope_scaling"),
             partial_rotary_factor=hf.get("partial_rotary_factor", 1.0),
             rms_norm_eps=hf.get("rms_norm_eps", hf.get("layer_norm_eps", 1e-5)),
-            tie_word_embeddings=hf.get("tie_word_embeddings", False),
+            tie_word_embeddings=hf.get("tie_word_embeddings", is_cohere),
             attention_bias=hf.get("attention_bias", hf.get("qkv_bias", False)),
-            qk_norm="Qwen3" in "".join(hf.get("architectures", [])),
+            qk_norm="Qwen3" in archs or (is_cohere and hf.get("use_qk_norm", False)),
+            qk_norm_whole=_is_olmo2(hf),
+            norm_placement="post" if _is_olmo2(hf) else "sandwich" if is_glm4 else "pre",
+            norm_type="layernorm" if is_cohere else "rms",
+            parallel_block=is_cohere,
+            mlp_gated=not is_arcee,
+            mlp_act="relu2" if is_arcee else "silu",
+            rope_interleaved=is_cohere or is_glm,
             sliding_window=(hf.get("sliding_window") if hf.get("use_sliding_window", True)
                             else None),
+            layer_types=(_cohere2_layer_types(hf) if "Cohere2" in archs
+                         else hf.get("layer_types")),
+            no_rope_layers=_no_rope_layers(hf),
             initializer_range=hf.get("initializer_range", 0.02),
+            embedding_multiplier=hf.get("embedding_multiplier", 1.0),
+            residual_multiplier=hf.get("residual_multiplier", 1.0),
+            attention_multiplier=hf.get("attention_multiplier"),
+            # Cohere's logit_scale multiplies the logits: dividing by its inverse
+            logits_scaling=(1.0 / hf["logit_scale"] if is_cohere and hf.get("logit_scale")
+                            else hf.get("logits_scaling", 1.0)),
         )
 
 

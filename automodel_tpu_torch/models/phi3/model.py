@@ -39,6 +39,7 @@ class Phi3Config(LlamaConfig):
             num_key_value_heads=hf.get("num_key_value_heads", hf["num_attention_heads"]),
             head_dim=hf.get("head_dim"),
             max_position_embeddings=hf.get("max_position_embeddings", 4096),
+            original_max_position_embeddings=hf.get("original_max_position_embeddings"),
             rope_theta=hf.get("rope_theta", 10000.0),
             rope_scaling=rope_scaling,
             partial_rotary_factor=hf.get("partial_rotary_factor", 1.0),

@@ -53,7 +53,7 @@ class Qwen3MoeStateDictAdapter(MappingAdapter):
         ]
         if k > 0:
             entries += [*attention_entries(cfg, "dense_layers", layer_range=(0, k)),
-                        *dense_mlp_entries("dense_layers", layer_range=(0, k))]
+                        *dense_mlp_entries(cfg, "dense_layers", layer_range=(0, k))]
         if not cfg.tie_word_embeddings:
             entries.append(Entry("lm_head.weight", "lm_head", _t, _t))
         super().__init__(entries, n_layers, num_experts=cfg.moe.n_routed_experts)

@@ -1,7 +1,7 @@
 """HF architecture name -> the port's model class (counterpart of
 ``automodel_tpu/models/registry.py`` for the families the port has). Names the JAX
-registry sends to its Llama lineage go to the port's Llama, whose ``from_hf`` raises
-for the lineage members not ported yet."""
+registry sends to its Llama lineage go to the port's Llama; an unregistered
+``*ForCausalLM`` goes through ``models/structural.py`` (``models/auto.py``)."""
 
 from __future__ import annotations
 
@@ -16,6 +16,11 @@ MODEL_REGISTRY: dict[str, str] = {
         "LlamaForCausalLM", "Qwen2ForCausalLM", "Qwen3ForCausalLM", "MistralForCausalLM",
         "GraniteForCausalLM", "SmolLM3ForCausalLM", "Olmo2ForCausalLM", "Olmo3ForCausalLM",
         "CohereForCausalLM", "Cohere2ForCausalLM", "ArceeForCausalLM")},
+    # GLM-4 dense (sandwich norms) and GLM: interleaved partial RoPE, fused gate_up
+    **{arch: "automodel_tpu_torch.models.glm4.model:Glm4ForCausalLM" for arch in (
+        "Glm4ForCausalLM", "GlmForCausalLM")},
+    "Ministral3ForCausalLM": "automodel_tpu_torch.models.mistral3.model:Ministral3ForCausalLM",
+    "MixtralForCausalLM": "automodel_tpu_torch.models.mixtral.model:MixtralForCausalLM",
     "Phi3ForCausalLM": "automodel_tpu_torch.models.phi3.model:Phi3ForCausalLM",
     "Qwen3MoeForCausalLM": "automodel_tpu_torch.models.qwen3_moe.model:Qwen3MoeForCausalLM",
     "GptOssForCausalLM": "automodel_tpu_torch.models.gpt_oss.model:GptOssForCausalLM",
@@ -30,8 +35,8 @@ MODEL_REGISTRY: dict[str, str] = {
 
 
 def resolve_model_class(architecture: str):
-    """The model class of an HF architecture name; NotImplementedError for a family the
-    port does not have yet."""
+    """The model class of a registered HF architecture name; NotImplementedError for any
+    other (``models/auto.py`` then tries the structural alias)."""
     target = MODEL_REGISTRY.get(architecture)
     if target is None:
         raise NotImplementedError(f"architecture {architecture!r} is not ported to the "

@@ -8,14 +8,22 @@ import torch
 __all__ = ["layer_norm", "rms_norm"]
 
 
-def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-               eps: float = 1e-5) -> torch.Tensor:
-    """LayerNorm with f32 accumulation."""
+def layer_norm(x: torch.Tensor, scale: torch.Tensor | None = None,
+               bias: torch.Tensor | None = None, eps: float = 1e-5) -> torch.Tensor:
+    """Mean-centred LayerNorm over the last dim with f32 accumulation. ``scale`` None is
+    the non-parametric form (OLMo v1), ``bias`` None the bias-free one (Cohere); the
+    affine part stays in f32 before the cast, as the JAX package's ``layer_norm`` and the
+    dense decoder's ``_centered_norm``. Per-head weights (Cohere+'s (n, h) q/k norms)
+    broadcast over the leading dims."""
     xf = x.float()
     mu = xf.mean(-1, keepdim=True)
     var = ((xf - mu) ** 2).mean(-1, keepdim=True)
     y = (xf - mu) * torch.rsqrt(var + eps)
-    return (y * scale.float() + bias.float()).to(x.dtype)
+    if scale is not None:
+        y = y * scale.float()
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(x.dtype)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,

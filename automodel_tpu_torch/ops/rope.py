@@ -1,7 +1,8 @@
 """Rotary position embeddings, rotate-half convention (counterpart of
 ``automodel_tpu/ops/rope.py``): default, linear, llama3, longrope (Phi-3) and YaRN
 frequency scaling, and the cos/sin scale of YaRN and longrope. Other scaling types
-raise. :func:`apply_rope_interleaved` is the complex-pair convention of DeepSeek's MLA."""
+raise. :func:`apply_rope_interleaved` is the complex-pair convention (DeepSeek's MLA, and
+the dense decoder's ``rope_interleaved``)."""
 
 from __future__ import annotations
 
@@ -11,8 +12,9 @@ from typing import Any
 
 import torch
 
-__all__ = ["apply_rope", "apply_rope_interleaved", "apply_rope_tables", "rope_attention_scaling",
-           "rope_frequencies", "rope_tables"]
+__all__ = ["apply_rope", "apply_rope_interleaved", "apply_rope_interleaved_tables",
+           "apply_rope_tables", "rope_attention_scaling", "rope_frequencies", "rope_tables",
+           "rope_tables_interleaved"]
 
 
 def rope_frequencies(
@@ -154,20 +156,22 @@ def apply_rope(
     return apply_rope_tables(x, *rope_tables(positions, inv_freq, attention_scaling))
 
 
-def apply_rope_interleaved(
-    x: torch.Tensor,  # (batch, seq, heads, head_dim)
-    positions: torch.Tensor,  # (batch, seq)
-    inv_freq: torch.Tensor,
-    attention_scaling: float = 1.0,
-) -> torch.Tensor:
-    """Complex-pair RoPE in f32: consecutive pairs (x0, x1) rotate to (x0 cos - x1 sin,
-    x0 sin + x1 cos) (DeepSeek's MLA). With fewer rotary dims than head_dim, the rest
-    passes unchanged."""
-    rot = 2 * inv_freq.shape[0]
-    x_rot, x_pass = x[..., :rot], x[..., rot:]
+def rope_tables_interleaved(positions: torch.Tensor, inv_freq: torch.Tensor,
+                            attention_scaling: float = 1.0) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(cos, sin)`` of :func:`apply_rope_interleaved`, (batch, seq, 1, rotary_dim // 2)
+    in f32, once a forward as :func:`rope_tables`."""
     angles = positions[..., None].float() * inv_freq  # (b, s, rot/2)
-    cos = (torch.cos(angles) * attention_scaling)[:, :, None, :]
-    sin = (torch.sin(angles) * attention_scaling)[:, :, None, :]
+    return ((torch.cos(angles) * attention_scaling)[:, :, None, :],
+            (torch.sin(angles) * attention_scaling)[:, :, None, :])
+
+
+def apply_rope_interleaved_tables(x: torch.Tensor, cos: torch.Tensor,
+                                  sin: torch.Tensor) -> torch.Tensor:
+    """Complex-pair RoPE in f32 from :func:`rope_tables_interleaved`: consecutive pairs
+    (x0, x1) rotate to (x0 cos - x1 sin, x0 sin + x1 cos). With fewer rotary dims than
+    head_dim (GLM), the rest passes unchanged."""
+    rot = 2 * cos.shape[-1]
+    x_rot, x_pass = x[..., :rot], x[..., rot:]
     xf = x_rot.float()
     x0, x1 = xf[..., 0::2], xf[..., 1::2]
     out = torch.stack([x0 * cos - x1 * sin, x0 * sin + x1 * cos], dim=-1)
@@ -175,3 +179,15 @@ def apply_rope_interleaved(
     if x_pass.shape[-1]:
         return torch.cat([out, x_pass], dim=-1)
     return out
+
+
+def apply_rope_interleaved(
+    x: torch.Tensor,  # (batch, seq, heads, head_dim)
+    positions: torch.Tensor,  # (batch, seq)
+    inv_freq: torch.Tensor,
+    attention_scaling: float = 1.0,
+) -> torch.Tensor:
+    """Complex-pair RoPE in f32 (DeepSeek's MLA; Cohere, GLM, Helium and Ernie-4.5 in the
+    dense decoder): see :func:`apply_rope_interleaved_tables`."""
+    return apply_rope_interleaved_tables(
+        x, *rope_tables_interleaved(positions, inv_freq, attention_scaling))

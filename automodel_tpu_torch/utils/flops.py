@@ -8,10 +8,12 @@ as the JAX package counts it, on sliding-window layers too (``layer_types``: eac
 attention layer, sliding or full, counts the same). An MoE layer counts its active
 experts (top-k) plus shared experts, a dense prefix (``first_k_dense_replace``) the
 dense MLP; the router's product is not counted, as in JAX. The routed experts are
-``num_experts``, ``n_routed_experts`` or, in GPT-OSS's config, ``num_local_experts``:
-JAX's formula does not read the last, so it counts a GPT-OSS layer's MLP as one dense
-MLP of ``intermediate_size`` where this one counts its top-k experts. MFU is achieved
-over the card's dense bf16 peak.
+``num_experts``, ``n_routed_experts`` or, in GPT-OSS's and Mixtral's configs,
+``num_local_experts``: JAX's formula does not read the last, so it counts a GPT-OSS or
+Mixtral layer's MLP as one dense MLP of ``intermediate_size`` where this one counts its
+top-k experts (Mixtral: twice JAX's MLP term). Every MLP counts three matmuls, the
+ungated two-matrix MLP (Arcee, StarCoder2) too, as JAX counts it. MFU is achieved over
+the card's dense bf16 peak.
 """
 
 from __future__ import annotations

@@ -20,7 +20,7 @@ Phases, in order; any failure exits non-zero before the last line:
    biases' gathers at main path 11's shape); fails if flash_dq, flash_dkv, ring_dq,
    ring_dkv or a bias gather differs;
 3. flash_fwd and the backward (flash_dq + flash_dkv) against their plain version (f32
-   from the same bf16 inputs) in forty-four cases: (a) the Llama-3.2-1B training
+   from the same bf16 inputs) in fifty cases: (a) the Llama-3.2-1B training
    shape, (b) packed segments with right padding, (c) non-causal, (d) a 16k sequence, (e) the shape and segments of
    main path 3 (rows of 4096 packed by pack_dataset from 1000-token documents); at
    head_dim 128: (f) the Qwen3-30B-A3B training shape, (g) case e's rows and segments;
@@ -43,7 +43,13 @@ Phases, in order; any failure exits non-zero before the last line:
    Gemma-2-9B's heads at its scale 256^-0.5, (db) with its cap, (dc) Gemma-3-4B's heads
    with its window 1024, (dd) S=1000, (de) non-causal, segment boundaries inside tiles,
    the saturating cap, (df) sinks, window 100 and those segments, (dg) main path 3's packed
-   rows with a window and the cap, (dh) da's heads with q scaled by 16 and the cap;
+   rows with a window and the cap, (dh) da's heads with q scaled by 16 and the cap; for
+   the lineage slice, at the heads of main paths 30-32: (ea) shape (a) at Granite's
+   softmax scale 1/64 without a cap, q scaled by 4, (eb) Command R7B's window 4096 over
+   rows of 8192 at its 32 heads over 8, D=128; causal at D=128 over 4 x 2048: (ec)
+   GLM-4-9B's 32 heads over 2, (ed) OLMo-2-7B's 32 over 32, (ee) SmolLM3-3B's 16 over 4,
+   (ef) Mixtral's 32 over 8 (the plain version over groups of KV heads where its scores
+   would pass 4 GiB);
 4. flash kernel times (flash_fwd, flash_dq, flash_dkv) at shapes (a) and (f) beside the
    bound, the plain version and SDPA, and the whole backward as the wrapper runs it
    (delta, flash_dq, flash_dkv) beside SDPA's backward (one phase alone:
@@ -60,12 +66,14 @@ Phases, in order; any failure exits non-zero before the last line:
    and SDPA without a cap; then at head_dim 256: Gemma-2-9B's heads (G9: B=2, S=2048,
    H=16, KH=8, causal, scale 256^-0.5) without and with its cap (G9c, beside
    FlexAttention), and Gemma-3-4B's (G4w: H=8, KH=4, window 1024, SDPA with the window as
-   a boolean mask); then head_dim 80 (with and without the cap) must raise
+   a boolean mask); then Command R7B's sliding layers (C: B=1, S=8192, H=32, KH=8, D=128,
+   window 4096, SDPA with the window as a boolean mask); then head_dim 80 (with and without
+   the cap) must raise
    NotImplementedError on the card and launch nothing, and so must the ring kernels at
    (D, Dv) = (96, 64) and (192, 192);
 5. Llama-3.2-1B width at 2 layers: one forward and backward with attention "flash"
    against attention "xla" on the same weights;
-6. lce_fwd / lce_bwd (fused linear CE) against their plain version in nine cases:
+6. lce_fwd / lce_bwd (fused linear CE) against their plain version in twelve cases:
    (a) N=8192, E=2048, V=128,256 with 10% ignored labels, exact; (b) the same with h
    scaled up under filter_eps=1e-7; (c) ragged N=8190 with V=50,257; (d) E=4096;
    (e) shape (b) with a tied unembedding (the (V, E) embedding read in place);
@@ -73,17 +81,19 @@ Phases, in order; any failure exits non-zero before the last line:
    aligned; (h) E=8, V=16, tied, every dimension inside one tile; (i) E=1000,
    V=50,264, a multiple of 8 but not of the 256-column tile, so lce_fwd's wgmma route
    must mask the columns past V that TMA fills with zeros; (j) GPT-OSS-20B's E=2880
-   (no multiple of the 128-wide tile) and V=201,088; each case line names the
+   (no multiple of the 128-wide tile) and V=201,088; (k) Command R7B's tied unembedding
+   (E=4096, V=256,000), (l) GLM-4-9B's (E=4096, V=151,552), both exact; each case line
+   names the
    routes of lce_fwd and lce_bwd (wgmma where E and V are multiples of 8, else
    mma_sync: c, f, g) and fails if others were launched;
    then their times at shape (a) beside the bound, the plain version and the
    yardstick torch.logsumexp((h @ w).float(), -1), both kernels' times at main path 7's
    shape (N=32768, E=4096) beside their bounds (lce_fwd's also beside its plain
-   version and yardstick, where the card holds their logits), at case j's shape, and the
-   peak memory
+   version and yardstick, where the card holds their logits), at case j's shape, at
+   Command R7B's (R: N=8192, E=4096, V=256,000, tied), and the peak memory
    that one forward and backward of linear_cross_entropy adds;
 7. gmm / tgmm (grouped expert GEMM: forward, dX, dW) against their plain version in
-   seven cases: (a) the slice's gate_up (N=65,536 routed rows, D=2048, F=1536, E=128,
+   eleven cases: (a) the slice's gate_up (N=65,536 routed rows, D=2048, F=1536, E=128,
    group sizes from a softmax top-8 router), (b) its down projection (D=768, F=2048),
    (c) empty head / middle / tail experts with N, D and F off the tiles, (d) one expert
    owning every row with rows not 16-byte aligned, (e) D=16, F=24, N=30, every
@@ -91,10 +101,12 @@ Phases, in order; any failure exits non-zero before the last line:
    and dX must be exactly 0, (g) tgmm's ragged K steps: experts of 1, 63, 64, 65, 127,
    0 and 200 rows (starts off the 64-row steps) and 37 rows past the groups at D=256,
    F=512; (h, i) GPT-OSS-20B's gate_up (D=2880, F=5760) and down (2880, 2880), 32
-   experts top-4 over 16,384 tokens; each case line names the routes of gmm and tgmm
-   (wgmma where the row lengths are multiples of 8, else mma_sync: c, d) and fails if
-   others were launched; then gmm (forward and dX) and tgmm times at (a), (b), (h) and
-   (i) beside the bound, the plain version and torch._grouped_mm;
+   experts top-4 over 16,384 tokens; (m, n) Mixtral-8x7B's gate_up (D=4096, F=28,672)
+   and down (14,336, 4096), 8 experts top-2 over 8192 tokens (about 2048 rows an expert);
+   each case line names the routes of gmm and tgmm (wgmma where the row lengths are
+   multiples of 8, else mma_sync: c, d) and fails if others were launched; then gmm
+   (forward and dX) and tgmm times at (a), (b), (h), (i), (m) and (n) beside the bound,
+   the plain version and torch._grouped_mm;
 8. Qwen3-30B-A3B width at 1 layer: the kernels against the plain versions on the same
    weights, with routing held fixed;
 8b. ring_fwd / ring_bwd (ring-attention chunk kernels), and the deterministic route
@@ -197,14 +209,28 @@ Phases, in order; any failure exits non-zero before the last line:
    examples/llm_finetune/gemma3_4b_sft.yaml (its mock data as it stands, attention
    through the flash kernels: the file names no backend) from a local HF
    directory of a random-init Gemma-3-4B in the published Gemma3ForConditionalGeneration
-   layout at 6 layers (GEMMA3_4B, gemma2_sft_args: bf16, 2 microbatches, saves at steps
-   2 and 4, hf/ reloaded bitwise). Paths 9, 14, 16, 20 and 23 run through one helper
-   (_pretrained_run, _check_pretrained_run).
+   layout at 6 layers (GEMMA3_4B, gemma2_sft_args: bf16, 2 microbatches, one save at step
+   4, hf/ reloaded bitwise). Paths 9, 14, 16, 20 and 23-30 run through one
+   helper (_pretrained_run, _check_pretrained_run);
+   the PEFT and QAT paths 24-29 (_peft_paths); then the Llama lineage and Mixtral: main
+   path 30, train_ft on examples/llm_finetune/cohere2_r7b_sft.yaml (mock data) from a
+   local HF directory of a random-init Command R7B (COMMAND_R7B) at 4 of 32 layers (3
+   sliding RoPE layers at window 4096, 1 full NoPE layer; command_r7b_sft_args: bf16, rows
+   of 8192, 2 microbatches, 4 steps, one save, hf/ reloaded bitwise); main path 31, the
+   benchmark recipe on examples/benchmark/mixtral_proxy.yaml with Mixtral-8x7B's widths
+   (mixtral_args: 3 of 32 layers, 8 experts top-2, mb 4 x 2048, its MFU also as JAX counts
+   it); main path 32 (_lineage_paths), the benchmark recipe, 1 warmup + 3 timed steps, on
+   llama3_2_1b.yaml with the model section of Granite-3.3-2B (40 layers), OLMo-2-1124-7B
+   (2), SmolLM3-3B (4, one NoPE layer) and GLM-4-9B-0414 (2) (lineage_config; linear CE at
+   a vocabulary of 65,536 or more), and on examples/benchmark/starcoder2_proxy.yaml as it
+   stands (the structural alias) with adafactor_nomom for its optimizer, which neither
+   package has.
    Every main path also checks that each of its gmm, tgmm, lce_fwd and lce_bwd launches
-   took the wgmma route (``launches by route`` on its line), that its windowed flash
-   launches are those of its sliding layers and its soft-capped ones those of its capped
-   layers (each printed apart), that every flash launch is at its model's head dim, and
-   every ring launch at its model's (D, Dv);
+   took the wgmma route (``launches by route`` on its line), and, through one helper
+   (_check_path_launches), that its windowed flash launches are those of its sliding
+   layers and its soft-capped ones those of its capped layers (each printed apart), that
+   every flash launch is at its model's head dim, and every ring launch at its model's
+   (D, Dv);
 23. one JSON line of per-kernel numbers (every kernel launched on some main path), the
    card line, then the result line.
 
@@ -342,7 +368,9 @@ MOONLIGHT_16B_A3B = {
     "initializer_range": 0.02, "bos_token_id": 163584, "eos_token_id": 163585,
     "torch_dtype": "bfloat16",
 }
-MOONLIGHT_LAYERS = 4  # depth of main path 16: the dense layer and 3 MoE layers
+# depth of main path 16: the dense layer and 2 MoE layers (the script's time: a slow host
+# nears its 1200 s limit at 4)
+MOONLIGHT_LAYERS = 3
 MOONLIGHT_STEPS = 4  # max_steps of main path 16: one consolidated save, at step 4
 MOONLIGHT_RING_LAYERS = 2  # depth of main path 17: the dense layer and 1 MoE layer
 MOONLIGHT_RING_SEQ, MOONLIGHT_RING_CP = 16384, 4  # main path 17: 4096 tokens a cp shard
@@ -415,7 +443,7 @@ GEMMA3_4B = {
     "torch_dtype": "bfloat16",
 }
 GEMMA3_4B_LAYERS_TRAIN_FT = 6  # depth of main path 23: 5 sliding, 1 full
-GEMMA3_4B_STEPS = 4  # max_steps of main path 23: a consolidated save at steps 2 and 4
+GEMMA3_4B_STEPS = 4  # max_steps of main path 23: one consolidated save, at step 4
 LORA_YAML = os.path.join(HERE, "examples", "llm_finetune", "llama3_2_1b_lora.yaml")
 QLORA_YAML = os.path.join(HERE, "examples", "llm_finetune", "llama3_2_1b_qlora.yaml")
 DORA_YAML = os.path.join(HERE, "examples", "llm_finetune", "llama3_2_1b_dora.yaml")
@@ -436,10 +464,73 @@ QWEN25_7B = {
     "tie_word_embeddings": False, "use_sliding_window": False, "attention_bias": True,
     "initializer_range": 0.02, "torch_dtype": "bfloat16",
 }
-LORA_LAYERS = 16  # depth of main paths 24 and 26: all of Llama-3.2-1B's
+# depth of main paths 24 and 26: 8 of Llama-3.2-1B's 16 (the script's time: a slow host nears
+# its 1200 s limit at 16)
+LORA_LAYERS = 8
 LORA_STEPS = 4  # max_steps of main path 24: a save at steps 2 and 4
 PEFT_STEPS = 3  # max_steps of main paths 25-28
 QAT_STEPS = 4  # max_steps of main path 29
+COHERE2_SFT_YAML = os.path.join(HERE, "examples", "llm_finetune", "cohere2_r7b_sft.yaml")
+MIXTRAL_YAML = os.path.join(HERE, "examples", "benchmark", "mixtral_proxy.yaml")
+STARCODER2_YAML = os.path.join(HERE, "examples", "benchmark", "starcoder2_proxy.yaml")
+# The published widths of CohereLabs/c4ai-command-r7b-12-2024 (Cohere2, its original
+# config.json format: an integer sliding_window_pattern, no layer_types); main path 30
+# writes it at COMMAND_R7B_LAYERS layers as a local HF directory of random weights
+COMMAND_R7B = {
+    "architectures": ["Cohere2ForCausalLM"], "model_type": "cohere2", "vocab_size": 256000,
+    "hidden_size": 4096, "intermediate_size": 14336, "num_hidden_layers": 32,
+    "num_attention_heads": 32, "num_key_value_heads": 8, "head_dim": 128,
+    "rope_theta": 50000.0, "layer_norm_eps": 1e-5, "logit_scale": 0.25,
+    "sliding_window": 4096, "sliding_window_pattern": 4, "tie_word_embeddings": True,
+    "use_qk_norm": False, "attention_bias": False, "hidden_act": "silu",
+    "initializer_range": 0.02, "torch_dtype": "bfloat16",
+}
+COMMAND_R7B_LAYERS = 4  # depth of main path 30: 3 sliding RoPE layers, then 1 full NoPE one
+COMMAND_R7B_STEPS = 4  # max_steps of main path 30: one consolidated save, at step 4
+COMMAND_R7B_SEQ = 8192  # main path 30's rows: the window of 4096 bites on the sliding layers
+# The published widths of mistralai/Mixtral-8x7B-v0.1; main path 31 lays them over the
+# Mixtral proxy config at MIXTRAL_LAYERS layers
+MIXTRAL_8X7B = {
+    "vocab_size": 32000, "hidden_size": 4096, "intermediate_size": 14336,
+    "num_hidden_layers": 32, "num_attention_heads": 32, "num_key_value_heads": 8,
+    "num_local_experts": 8, "num_experts_per_tok": 2, "rope_theta": 1000000.0,
+    "router_aux_loss_coef": 0.02, "max_position_embeddings": 32768, "rms_norm_eps": 1e-5,
+    "tie_word_embeddings": False, "initializer_range": 0.02,
+}
+# depth of main path 31: 3 of 32 layers; at 4 its peak passes the card's 80 GB (bf16
+# parameters, gradients and adamw_lowmem's two moments alone take 48 GB of 6.1 B)
+MIXTRAL_LAYERS = 3
+# main path 32: the published widths of four lineage members, each at the depth beside
+# it, over examples/benchmark/llama3_2_1b.yaml with its model section replaced
+GRANITE_33_2B = {
+    "architectures": ["GraniteForCausalLM"], "vocab_size": 49159, "hidden_size": 2048,
+    "intermediate_size": 8192, "num_hidden_layers": 40, "num_attention_heads": 32,
+    "num_key_value_heads": 8, "tie_word_embeddings": True, "embedding_multiplier": 12.0,
+    "residual_multiplier": 0.22, "attention_multiplier": 0.015625, "logits_scaling": 8.0,
+    "rms_norm_eps": 1e-5, "initializer_range": 0.02,
+}
+OLMO2_7B = {
+    "architectures": ["Olmo2ForCausalLM"], "vocab_size": 100352, "hidden_size": 4096,
+    "intermediate_size": 11008, "num_hidden_layers": 32, "num_attention_heads": 32,
+    "num_key_value_heads": 32, "tie_word_embeddings": False, "rms_norm_eps": 1e-6,
+    "initializer_range": 0.02,
+}
+SMOLLM3_3B = {
+    "architectures": ["SmolLM3ForCausalLM"], "vocab_size": 128256, "hidden_size": 2048,
+    "intermediate_size": 11008, "num_hidden_layers": 36, "num_attention_heads": 16,
+    "num_key_value_heads": 4, "tie_word_embeddings": True, "no_rope_layer_interval": 4,
+    "rms_norm_eps": 1e-6, "initializer_range": 0.02,
+}
+GLM4_9B = {
+    "architectures": ["Glm4ForCausalLM"], "vocab_size": 151552, "hidden_size": 4096,
+    "intermediate_size": 13696, "num_hidden_layers": 40, "num_attention_heads": 32,
+    "num_key_value_heads": 2, "head_dim": 128, "partial_rotary_factor": 0.5,
+    "attention_bias": True, "tie_word_embeddings": False, "rms_norm_eps": 1e-5,
+    "initializer_range": 0.02,
+}
+LINEAGE_SWEEP = (("Granite-3.3-2B", GRANITE_33_2B, 40), ("OLMo-2-1124-7B", OLMO2_7B, 2),
+                 ("SmolLM3-3B", SMOLLM3_3B, 4), ("GLM-4-9B-0414", GLM4_9B, 2))
+SWEEP_WARMUP, SWEEP_TIMED = 1, 3  # benchmark steps of each member of main path 32
 
 
 class ByteTokenizer:
@@ -715,6 +806,39 @@ def gemma2_sft_args(hf_dir: str, ckpt_dir: str, steps: int = GEMMA2_STEPS) -> li
             "--step_scheduler.ckpt_every_steps", "2", "--checkpoint.checkpoint_dir", ckpt_dir]
 
 
+def command_r7b_sft_args(hf_dir: str, ckpt_dir: str) -> list[str]:
+    """Main path 30's overrides of examples/llm_finetune/cohere2_r7b_sft.yaml (its dataset
+    swapped by :func:`mock_data_config`): the model from the local directory ``hf_dir`` in
+    bf16, rows of COMMAND_R7B_SEQ tokens (the file's 4096 would fit inside the window),
+    2 microbatches a step (8 in the file), COMMAND_R7B_STEPS steps, one checkpoint (with
+    the consolidated HF export) at the last step under ``ckpt_dir``."""
+    return ["--model.pretrained_model_name_or_path", hf_dir, "--model.params_dtype", "bfloat16",
+            "--seq_len", str(COMMAND_R7B_SEQ), "--dataset.seq_len", str(COMMAND_R7B_SEQ),
+            "--step_scheduler.grad_acc_steps", "2",
+            "--step_scheduler.max_steps", str(COMMAND_R7B_STEPS),
+            "--step_scheduler.ckpt_every_steps", str(COMMAND_R7B_STEPS),
+            "--checkpoint.checkpoint_dir", ckpt_dir]
+
+
+def mixtral_args(layers: int = MIXTRAL_LAYERS) -> list[str]:
+    """Main path 31's overrides of the Mixtral proxy config: Mixtral-8x7B's published
+    widths at ``layers`` layers; every other setting is the file's (mb 4 x 2048,
+    adamw_lowmem, mlp_dots, flash)."""
+    args = []
+    for key, value in dict(MIXTRAL_8X7B, num_hidden_layers=layers).items():
+        args += [f"--model.config.{key}", str(value).lower() if isinstance(value, bool)
+                 else str(value)]
+    return args + ["--dataset.vocab_size", str(MIXTRAL_8X7B["vocab_size"])]
+
+
+def lineage_config(out_dir: str, model: dict, layers: int) -> str:
+    """examples/benchmark/llama3_2_1b.yaml with its model section replaced by ``model`` at
+    ``layers`` layers (bf16 parameters, as the file's) and the mock data at the model's
+    vocabulary: one member of main path 32, written to ``out_dir``."""
+    return mock_data_config(out_dir, BENCH_YAML, model["vocab_size"], {
+        "params_dtype": "bfloat16", "config": dict(model, num_hidden_layers=layers)})
+
+
 def qwen3_args(layers: int = QWEN3_30B_A3B["num_hidden_layers"]) -> list[str]:
     """CLI overrides that turn the proxy config into the slice configuration."""
     args = []
@@ -883,17 +1007,15 @@ def _kernel_case(torch, fa, name, b, s, h, kh, causal, seg=None, d=64, window=No
     grads = torch.autograd.grad(o, (qk, kk, vk, *sk), do)
     torch.cuda.synchronize()
     o = o.detach()
-    qr, kr, vr = (x.float().requires_grad_() for x in (q, k, v))
-    sr = [] if sink is None else [sink.clone().requires_grad_()]
-    o_ref, lse_ref = fa.flash_attention_reference(qr, kr, vr, sinks=sr[0] if sr else None, **opts)
-    grads_ref = torch.autograd.grad(o_ref, (qr, kr, vr, *sr), do.float())
+    o_ref, lse_ref, grads_ref = _reference_by_kv_groups(torch, fa, q, k, v, do, sink, opts)
     err_o = (o.float() - o_ref).abs().max().item()
     err_lse = (lse - lse_ref).abs().max().item()
     rel = [_rel_l2(a, r) for a, r in zip(grads, grads_ref)]
     err = [(a.float() - r).abs().max().item() for a, r in zip(grads, grads_ref)]
     print(f"case {name}: B={b} S={s} H={h} KH={kh} D={d} causal={causal} "
           f"segments={seg is not None} window={window} sinks={sinks}"
-          + (f" softcap={softcap} scale={scale}" if softcap is not None else "")
+          + (f" softcap={softcap}" if softcap is not None else "")
+          + (f" scale={scale}" if scale is not None else "")
           + (f" q_scale={q_scale}" if q_scale != 1 else "") + ": "
           f"O max abs {err_o:.3e} (tol {TOL_O}), lse max abs {err_lse:.3e} (tol {TOL_LSE}), "
           f"grad rel L2 dq (flash_dq) {rel[0]:.3e}, dk {rel[1]:.3e} dv {rel[2]:.3e} "
@@ -901,9 +1023,34 @@ def _kernel_case(torch, fa, name, b, s, h, kh, causal, seg=None, d=64, window=No
           + f" (tol {TOL_GRAD})", flush=True)
     if not (err_o <= TOL_O and err_lse <= TOL_LSE and max(rel) <= TOL_GRAD):
         raise AssertionError(f"case {name}: kernels disagree with the plain version")
-    del o_ref, lse_ref, grads_ref, qr, kr, vr
+    del o_ref, lse_ref, grads_ref
     torch.cuda.empty_cache()
     return err_o, err[0], max(err[1:3])
+
+
+def _reference_by_kv_groups(torch, fa, q, k, v, do, sink, opts, max_bytes=1 << 32):
+    """The plain version's O, lse and gradients (dq, dk, dv[, dsinks]) from the same bf16
+    inputs in f32, over consecutive groups of KV heads, each with its own query heads
+    (query head i reads KV head i // (H / KH)), so that a group's f32 (B, heads, Sq, Skv)
+    scores stay within ``max_bytes``; the groups' outputs and gradients depend on their
+    own heads alone, and are joined along the heads. One group where the whole fits."""
+    b, s, h, _ = q.shape
+    skv, kh = k.shape[1], k.shape[2]
+    g = h // kh
+    n = max(1, min(kh, max_bytes // (b * g * s * skv * 4)))
+    outs, lses, grads = [], [], []
+    for j in range(0, kh, n):
+        heads, kv = slice(j * g, min(j + n, kh) * g), slice(j, min(j + n, kh))
+        qr, kr, vr = (x[:, :, sl].float().requires_grad_() for x, sl in
+                      ((q, heads), (k, kv), (v, kv)))
+        sr = [] if sink is None else [sink[heads].clone().requires_grad_()]
+        o, lse = fa.flash_attention_reference(qr, kr, vr, sinks=sr[0] if sr else None, **opts)
+        grads.append(torch.autograd.grad(o, (qr, kr, vr, *sr), do[:, :, heads].float()))
+        outs.append(o.detach())
+        lses.append(lse.detach().reshape(b, -1, s))
+        del o, lse, qr, kr, vr, sr
+    joined = [torch.cat(x, dim=0 if i == 3 else 2) for i, x in enumerate(zip(*grads))]
+    return torch.cat(outs, dim=2), torch.cat(lses, dim=1).reshape(b * h, s), joined
 
 
 def _packed_segments(torch):
@@ -1034,6 +1181,21 @@ def _flash_phase(torch, fa, errs):
                       d=256, window=1024, softcap=2.0, scale=1.0))
     note(_kernel_case(torch, fa, "dh", 2, 2048, 16, 8, causal=True, d=256, softcap=50.0,
                       scale=d256, q_scale=16))
+    # the lineage slice, each at its main path's heads: ea (a)'s shape at Granite's softmax
+    # scale 1/64 (not D^-0.5) without a cap, q ~ N(0, 4^2) so that the scale shapes the
+    # softmax; eb Command R7B's window 4096 over rows of 8192 (main path 30's sliding
+    # layers); ec GLM-4-9B's 32 heads over 2 (16 query heads a KV head); ed OLMo-2-7B's
+    # causal MHA; ee SmolLM3-3B's 16 over 4 (the StarCoder2 proxy's too); ef Mixtral's 32
+    # over 8, each causal at D=128 over main path 31-32's micro-batch of 4 x 2048
+    note(_kernel_case(torch, fa, "ea", 4, 2048, 32, 8, causal=True,
+                      scale=GRANITE_33_2B["attention_multiplier"], q_scale=4))
+    note(_kernel_case(torch, fa, "eb", 1, COMMAND_R7B_SEQ, COMMAND_R7B["num_attention_heads"],
+                      COMMAND_R7B["num_key_value_heads"], causal=True, d=128,
+                      window=COMMAND_R7B["sliding_window"]))
+    for name, model in (("ec", GLM4_9B), ("ed", OLMO2_7B), ("ee", SMOLLM3_3B),
+                        ("ef", MIXTRAL_8X7B)):
+        note(_kernel_case(torch, fa, name, 4, 2048, model["num_attention_heads"],
+                          model["num_key_value_heads"], causal=True, d=128))
 
 
 def _refused_on_the_card(torch, fa):
@@ -1152,11 +1314,13 @@ def _timings(torch, fa, b=4, s=2048, h=32, kh=8, d=64, window=None, softcap=None
                                                                **plain_kw),
                          warmup=1, reps=3)
     plain_fwd = _time_ms(torch, lambda: fa.flash_attention_reference(q, k, v, causal=True,
-                                                                     **plain_kw))
+                                                                     **plain_kw),
+                         warmup=1, reps=5)
     qp, kp, vp = (x.clone().requires_grad_() for x in (q, k, v))
     o_plain, _ = fa.flash_attention_reference(qp, kp, vp, causal=True, **plain_kw)
     plain_bwd = _time_ms(torch, lambda: torch.autograd.grad(o_plain, (qp, kp, vp), do,
-                                                            retain_graph=True))
+                                                            retain_graph=True),
+                         warmup=1, reps=5)
     del o_plain
     flex = {}
     if softcap:  # FlexAttention computes the capped function: the yardstick
@@ -2130,8 +2294,13 @@ _GMM_ROW_KEYS = {("forward", "a"): None, ("forward", "b"): "at_case_b", ("dX", "
                  ("forward", "h"): "at_gpt_oss_gate_up", ("dX", "h"): "dx_at_gpt_oss_gate_up",
                  ("tgmm", "h"): "at_gpt_oss_gate_up", ("forward", "i"): "at_gpt_oss_down",
                  ("dX", "i"): "dx_at_gpt_oss_down", ("tgmm", "i"): "at_gpt_oss_down"}
+_GMM_ROW_KEYS |= {(part, case): f"{'dx_' if part == 'dX' else ''}at_mixtral_{proj}"
+                  for case, proj in (("m", "gate_up"), ("n", "down"))
+                  for part in ("forward", "dX", "tgmm")}
 GMM_SHAPES = (("a", 2048, 1536), ("b", 768, 2048))  # the Qwen3-30B-A3B slice's
 GPT_OSS_GMM_SHAPES = (("h", 2880, 5760), ("i", 2880, 2880))
+# Mixtral-8x7B's gate_up (D = 4096, F = 2 x 14336) and down (14336, 4096): main path 31's
+MIXTRAL_GMM_SHAPES = (("m", 4096, 28672), ("n", 14336, 4096))
 
 
 def _gmm_timings(torch, sizes, shapes=GMM_SHAPES):
@@ -2199,9 +2368,12 @@ def _gmm_phase(torch, errs):
     (experts of 1, 63, 64, 65, 127 and 200 rows, one empty, 37 rows past the groups
     whose x must not enter the last expert's dW); h / i: GPT-OSS-20B's gate_up (D = 2880,
     F = 5760) and down (2880, 2880), 32 experts top-4 over 16,384 tokens (main path 11's
-    microbatch), K and N no multiple of the 128-wide tile; timed at both."""
+    microbatch), K and N no multiple of the 128-wide tile; m / n: Mixtral-8x7B's gate_up
+    (D = 4096, F = 28,672) and down (14,336, 4096), 8 experts top-2 over 8192 tokens (main
+    path 31's microbatch: about 2048 rows an expert); timed at a / b, h / i and m / n."""
     sizes = _router_group_sizes(torch, 8192, 2048, 128, 8)
     gpt_oss = _router_group_sizes(torch, 16384, 2880, 32, 4)
+    mixtral = _router_group_sizes(torch, 8192, 4096, 8, 2)
     ragged = torch.tensor([0, 0, 300, 0, 77, 5, 0, 1, 134, 0, 0], dtype=torch.int32,
                           device="cuda")
     owner = torch.tensor([0, 1000, 0, 0], dtype=torch.int32, device="cuda")
@@ -2211,13 +2383,16 @@ def _gmm_phase(torch, errs):
     for case in (("a", sizes, 2048, 1536), ("b", sizes, 768, 2048),
                  ("c", ragged, 1000, 1003), ("d", owner, 1003, 1000), ("e", small, 16, 24),
                  ("f", ragged, 256, 512, 300), ("g", tails, 256, 512, 37),
-                 ("h", gpt_oss, 2880, 5760), ("i", gpt_oss, 2880, 2880)):
+                 ("h", gpt_oss, 2880, 5760), ("i", gpt_oss, 2880, 2880),
+                 ("m", mixtral, 4096, 28672), ("n", mixtral, 14336, 4096)):
         err_gmm, err_tgmm = _gmm_case(torch, *case)
         errs["gmm"] = max(errs["gmm"], err_gmm)
         errs["tgmm"] = max(errs["tgmm"], err_tgmm)
     out = _gmm_timings(torch, sizes)
-    for name, rows in _gmm_timings(torch, gpt_oss, GPT_OSS_GMM_SHAPES).items():
-        out[name].update(rows)
+    for more in (_gmm_timings(torch, gpt_oss, GPT_OSS_GMM_SHAPES),
+                 _gmm_timings(torch, mixtral, MIXTRAL_GMM_SHAPES)):
+        for name, rows in more.items():
+            out[name].update(rows)
     return out
 
 
@@ -2462,18 +2637,13 @@ def _check_ring_dims(name, launches, model):
         d = int(model["qk_nope_head_dim"]) + int(model["qk_rope_head_dim"])
         dv = int(model["v_head_dim"])
     else:
-        d = dv = _head_dim(model)
+        d = dv = _port_config(model).head_dim
     want = {f"{k}/d{d}v{dv}": launches[k] for k in ("ring_fwd", "ring_bwd", "ring_dq",
                                                      "ring_dkv") if launches[k]}
     got = {k: v for k, v in launches.items() if k.startswith("ring_") and "/d" in k}
     print(f"{name}: ring launches by (D, Dv) {got}", flush=True)
     if got != want:
         raise AssertionError(f"{name}: ring launches by (D, Dv) {got} != {want}")
-
-
-def _head_dim(model) -> int:
-    """A model config's head dim: head_dim, or hidden over heads."""
-    return int(model.get("head_dim") or model["hidden_size"] // model["num_attention_heads"])
 
 
 def _read_counts() -> dict:
@@ -2522,11 +2692,6 @@ def _port_config(model: dict):
     return AutoModelForCausalLM.model_class(model).config_class.from_hf(model)
 
 
-def _sliding_layers(cfg) -> int:
-    """How many of a config's layers attend through the sliding window."""
-    return sum(_port_config(cfg.model.config).sliding_flags)
-
-
 def _capped_layers(model) -> int:
     """How many layers carry the attention logit soft-cap (Gemma-2's: every layer)."""
     config = _port_config(model)
@@ -2573,6 +2738,19 @@ def _check_softcap(name, launches, capped, micro, steps):
           "layers)", flush=True)
     if got != want:
         raise AssertionError(f"{name}: soft-capped flash launches {got} != expected {want}")
+
+
+def _check_path_launches(name, launches, model, micro, steps):
+    """The launch checks every main path shares, in one order, from its model's HF config
+    (read by its architecture's class): the windowed flash launches those of its sliding
+    layers, the soft-capped ones those of its capped layers, every flash launch at its
+    head dim, every ring launch at its (D, Dv); ``micro`` microbatches a step, ``steps``
+    steps."""
+    config = _port_config(model)
+    _check_windowed(name, launches, sum(config.sliding_flags), micro, steps)
+    _check_softcap(name, launches, _capped_layers(model), micro, steps)
+    _check_head_dim(name, launches, config.head_dim)
+    _check_ring_dims(name, launches, model)
 
 
 def _release():
@@ -2663,8 +2841,31 @@ def _shown(yaml: str) -> str:
     return os.path.basename(yaml) if rel.startswith("..") else rel
 
 
-def _bench_path(name, yaml, linear_ce, overrides=()):
-    """The benchmark recipe at full width, through its entry point."""
+def _jax_count_mfu(model, seq_len, mfu):
+    """The MFU of a run as JAX's ``utils/flops.py`` counts it: its formula reads no
+    ``num_local_experts``, so a Mixtral or GPT-OSS layer's MLP counts as one dense MLP of
+    ``intermediate_size`` where the port counts the top-k experts; the same figure for
+    every other model."""
+    from automodel_tpu_torch.utils.flops import flops_per_token
+
+    model = model.to_dict() if hasattr(model, "to_dict") else dict(model)
+    jax_model = {k: v for k, v in model.items() if k != "num_local_experts"}
+    if mfu is None:
+        return None
+    return mfu * flops_per_token(jax_model, seq_len) / flops_per_token(model, seq_len)
+
+
+def _logit_std(model) -> float:
+    """The init std of the logits' weights as the loss sees them: the initializer range
+    over ``logits_scaling`` (Granite's 8; Cohere's logit_scale 0.25 is 1 / 4), which the
+    unembedding is divided by."""
+    std = float(model.get("initializer_range", 0.02))
+    return std / getattr(_port_config(model), "logits_scaling", 1.0)
+
+
+def _bench_path(name, yaml, linear_ce, overrides=(), warmup=WARMUP, timed=TIMED):
+    """The benchmark recipe at full width, through its entry point, ``warmup`` + ``timed``
+    steps."""
     from automodel_tpu_torch.config.cli_overrides import parse_args_and_load_config
     from automodel_tpu_torch.recipes.llm import benchmark
 
@@ -2673,23 +2874,27 @@ def _bench_path(name, yaml, linear_ce, overrides=()):
     layers = int(cfg.model.config.num_hidden_layers)
     micro = int(cfg.get("step_scheduler.grad_acc_steps", 1))
     with tempfile.TemporaryDirectory() as out_dir:
-        argv = ["-c", yaml, *overrides, "--benchmark.warmup_steps", str(WARMUP),
-                "--benchmark.timed_steps", str(TIMED), "--output_dir", out_dir]
+        argv = ["-c", yaml, *overrides, "--benchmark.warmup_steps", str(warmup),
+                "--benchmark.timed_steps", str(timed), "--output_dir", out_dir]
         _reset_counts()
         result = benchmark.main(argv=argv)
         launches = _read_counts()
     vocab = int(cfg.model.config.vocab_size)
-    want = _expected(layers, micro, WARMUP + TIMED, linear_ce, moe=_is_moe(cfg),
+    want = _expected(layers, micro, warmup + timed, linear_ce, moe=_is_moe(cfg),
                      ring_cp=_ring_cp(cfg), dense_prefix=_dense_prefix(cfg.model.config),
                      mla=_is_mla(cfg.model.config))
-    print(f"{name}: benchmark recipe on {_shown(yaml)} ({layers} layers, "
-          f"{micro} microbatch, mb {cfg.micro_batch_size}, seq {cfg.seq_len}, loss "
-          f"{cfg.get('loss.name')}, tied {cfg.model.config.get('tie_word_embeddings')}), {WARMUP} warmup + {TIMED} timed steps: "
-          f"{result['tokens_per_sec']:.1f} tokens/s, step {result['step_time_s'] * 1e3:.1f} ms, "
-          f"MFU {result['mfu']}, peak memory {result['peak_memory_gib']} GiB, losses "
-          f"{result['losses']}, launches {launches} (expected {want})", flush=True)
+    arch = (cfg.model.config.get("architectures") or ["LlamaForCausalLM"])[0]
+    print(f"{name}: benchmark recipe on {_shown(yaml)} ({arch}, "
+          f"{layers} layers, {micro} microbatch, mb {cfg.micro_batch_size}, seq "
+          f"{cfg.seq_len}, loss {cfg.get('loss.name')}, tied "
+          f"{cfg.model.config.get('tie_word_embeddings')}), {warmup} warmup + {timed} timed "
+          f"steps: {result['tokens_per_sec']:.1f} tokens/s, step "
+          f"{result['step_time_s'] * 1e3:.1f} ms, MFU {result['mfu']} (as JAX counts it: "
+          f"{_jax_count_mfu(cfg.model.config, int(cfg.seq_len), result['mfu'])}), peak memory "
+          f"{result['peak_memory_gib']} GiB, losses {result['losses']}, launches {launches} "
+          f"(expected {want})", flush=True)
     hidden = int(cfg.model.config.hidden_size)
-    std = float(cfg.model.config.get("initializer_range", 0.02))
+    std = _logit_std(cfg.model.config)
     # an MoE model's loss carries coef x its layers' aux losses, each ~1 (f_i P_i summed
     # over E experts is 1 when the routing is balanced, as at init)
     aux = float(cfg.model.config.get("router_aux_loss_coef", 0.0)) * layers if _is_moe(cfg) \
@@ -2705,10 +2910,7 @@ def _bench_path(name, yaml, linear_ce, overrides=()):
     if launches != want:
         raise AssertionError(f"{name}: kernel launches {launches} != expected {want}")
     routed = _check_routes(name, launches)
-    _check_windowed(name, routed, _sliding_layers(cfg), micro, WARMUP + TIMED)
-    _check_softcap(name, routed, _capped_layers(cfg.model.config), micro, WARMUP + TIMED)
-    _check_head_dim(name, routed, _head_dim(cfg.model.config))
-    _check_ring_dims(name, routed, cfg.model.config)
+    _check_path_launches(name, routed, cfg.model.config, micro, warmup + timed)
     return routed, result["losses"]
 
 
@@ -2759,10 +2961,7 @@ def _train_ft_path(name, yaml, overrides, deterministic=False):
     if launches != want:
         raise AssertionError(f"{name}: kernel launches {launches} != expected {want}")
     routed = _check_routes(name, launches)
-    _check_windowed(name, routed, _sliding_layers(cfg), micro, TRAIN_FT_STEPS)
-    _check_softcap(name, routed, _capped_layers(cfg.model.config), micro, TRAIN_FT_STEPS)
-    _check_head_dim(name, routed, _head_dim(cfg.model.config))
-    _check_ring_dims(name, routed, cfg.model.config)
+    _check_path_launches(name, routed, cfg.model.config, micro, TRAIN_FT_STEPS)
     return routed, losses
 
 
@@ -2864,10 +3063,12 @@ def _pretrained_run(name, cfg_args, ckpt, reload_dtype=None, on_setup=None) -> d
     return out
 
 
-def _check_pretrained_run(name, run, steps, want, saves=None, first_loss=None):
-    """The checks main paths 9, 14, 16, 20 and 23 share: the steps taken, finite losses, the
-    first within 0.5 of ``first_loss``, checkpoints at ``saves``, hf/ reloaded bitwise
-    (when reloaded), and the launches ``want``."""
+def _check_pretrained_run(name, run, steps, want, *, model, micro, saves=None,
+                          first_loss=None):
+    """The checks main paths 9, 14, 16, 20 and 23-30 share: the steps taken, finite
+    losses, the first within 0.5 of ``first_loss``, checkpoints at ``saves``, hf/ reloaded
+    bitwise (when reloaded), the launches ``want``, and :func:`_check_path_launches` of the
+    run's ``model`` (its HF config) at ``micro`` microbatches a step."""
     if sorted(run["losses"]) != list(steps):
         raise AssertionError(f"{name}: stepped {sorted(run['losses'])}, not {list(steps)}")
     if not all(math.isfinite(x) for x in run["losses"].values()):
@@ -2882,6 +3083,7 @@ def _check_pretrained_run(name, run, steps, want, saves=None, first_loss=None):
                              f"{run['hf_differ']}")
     if run["launches"] != want:
         raise AssertionError(f"{name}: kernel launches {run['launches']} != expected {want}")
+    _check_path_launches(name, run["routed"], model, micro, len(steps))
 
 
 def _shown_run(run) -> str:
@@ -2939,9 +3141,10 @@ def _baseline_path(name):
     _check_pretrained_run(f"{name} run A", a, range(1, BASELINE_STEPS + 1),
                           _expected(layers, micro, BASELINE_STEPS, True,
                                     val_batches=2 * BASELINE_VAL_BATCHES),
-                          saves=[2, BASELINE_STEPS])
+                          saves=[2, BASELINE_STEPS], model=LLAMA32_1B, micro=micro)
     _check_pretrained_run(f"{name} run B (B must resume from step 2)", b, range(3, 5),
-                          _expected(layers, micro, 2, True, val_batches=BASELINE_VAL_BATCHES))
+                          _expected(layers, micro, 2, True, val_batches=BASELINE_VAL_BATCHES),
+                          model=LLAMA32_1B, micro=micro)
     for step in (3, 4):
         if b["losses"][step] != a["losses"][step]:
             raise AssertionError(f"{name}: the resumed step-{step} loss differs from the "
@@ -2987,11 +3190,10 @@ def _phi3_train_ft_path(name):
     _check_pretrained_run(name, run, range(1, PHI3_STEPS + 1), want, saves=[2, PHI3_STEPS],
                           first_loss=random_init_loss(PHI3_MINI["vocab_size"],
                                                       PHI3_MINI["hidden_size"],
-                                                      PHI3_MINI["initializer_range"]))
+                                                      PHI3_MINI["initializer_range"]),
+                          model=dict(PHI3_MINI, num_hidden_layers=layers), micro=micro)
     if len(fused) != 2 * layers or split:
         raise AssertionError(f"{name}: step_{PHI3_STEPS}/hf holds fused {fused}, split {split}")
-    _check_windowed(name, run["routed"], layers, micro, PHI3_STEPS)
-    _check_head_dim(name, run["routed"], _head_dim(PHI3_MINI))
     return run["routed"]
 
 
@@ -3061,7 +3263,8 @@ def _moonlight_train_ft_path(name):
     _check_pretrained_run(name, run, range(1, MOONLIGHT_STEPS + 1), want,
                           saves=[MOONLIGHT_STEPS],
                           first_loss=random_init_loss(model["vocab_size"], model["hidden_size"],
-                                                      model["initializer_range"]))
+                                                      model["initializer_range"]),
+                          model=model, micro=micro)
     if factor_used != factor or len(moved) != MOONLIGHT_STEPS or max(moved) > 1e-6:
         raise AssertionError(f"{name}: the correction bias did not move as its loads say: {moved}")
     if not bool((first_bias != 0).any()):
@@ -3113,12 +3316,10 @@ def _gemma_train_ft_path(name, model, layers, steps, yaml, cfg_args, prefix="", 
     _check_pretrained_run(name, run, range(1, steps + 1), want, saves=saves or [2, steps],
                           first_loss=random_init_loss(text.vocab_size, text.hidden_size,
                                                       text.initializer_range,
-                                                      tied_self_logit(hf_model)))
+                                                      tied_self_logit(hf_model)),
+                          model=hf_model, micro=micro)
     if run["loss_name"] != "linear_ce" or len(norms) != 2 * layers:
         raise AssertionError(f"{name}: loss {run['loss_name']}, sandwich norms {norms}")
-    _check_windowed(name, run["routed"], sum(text.sliding_flags), micro, steps)
-    _check_softcap(name, run["routed"], _capped_layers(hf_model), micro, steps)
-    _check_head_dim(name, run["routed"], text.head_dim)
     return run["routed"]
 
 
@@ -3144,13 +3345,16 @@ def _gemma3_train_ft_path(name):
     published checkpoint's layout (GEMMA3_4B: the Gemma3ForConditionalGeneration config
     with its vision_config, the text model's tensors under ``language_model.``) at
     GEMMA3_4B_LAYERS_TRAIN_FT layers (5 sliding, 1 full; gemma2_sft_args: bf16, 2
-    microbatches of one row of 4096, GEMMA3_4B_STEPS steps, a save every 2 steps); every
-    flash launch at head_dim 256, none capped. The checks are _gemma_train_ft_path's."""
+    microbatches of one row of 4096, GEMMA3_4B_STEPS steps, one save, at the last step: a
+    9.9 GB save takes 21-25 s, which the script's time limit cannot spare twice since
+    paths 30-32); every flash launch at head_dim 256, none capped. The checks are
+    _gemma_train_ft_path's."""
     return _gemma_train_ft_path(
         name, GEMMA3_4B, GEMMA3_4B_LAYERS_TRAIN_FT, GEMMA3_4B_STEPS, GEMMA3_SFT_YAML,
         lambda tmp, hf_dir, ckpt: ["-c", GEMMA3_SFT_YAML, *gemma3_proxy_args(),
-                                   *gemma2_sft_args(hf_dir, ckpt, GEMMA3_4B_STEPS)],
-        prefix="language_model.")
+                                   *gemma2_sft_args(hf_dir, ckpt, GEMMA3_4B_STEPS),
+                                   "--step_scheduler.ckpt_every_steps", str(GEMMA3_4B_STEPS)],
+        prefix="language_model.", saves=[GEMMA3_4B_STEPS])
 
 
 def peft_args(out_dir: str, steps: int, micro: int = 2, hf_dir: str | None = None,
@@ -3180,7 +3384,7 @@ def _shown_peft_run(run, tokens) -> str:
 
 def _lora_llama_paths(name24, name26):
     """Main paths 24 and 26 from one local HF directory of a random-init Llama-3.2-1B at
-    all 16 layers (bf16, as published).
+    LORA_LAYERS of its 16 layers (bf16, as published).
 
     24: examples/llm_finetune/llama3_2_1b_lora.yaml through train_ft (rank 8 on wq and wv,
     flash, the vocab rule's linear CE; mock data in place of the hub's HellaSwag; bf16
@@ -3189,7 +3393,7 @@ def _lora_llama_paths(name24, name26):
     and must end on run A's step-4 adapter bitwise. Checks: every lce_bwd launch dH alone;
     the DCP state the adapter alone; step_4/hf (the merged model) reloaded bitwise against
     merge_lora_params of the live tensors; hf_adapter/ rank-8 factors of q_proj and
-    v_proj of all 16 layers.
+    v_proj of every layer.
     26: llama3_2_1b_qlora.yaml (nf4, rank 16) with --backend.attention flash (the file
     names none), 3 steps, no saves; the matched wq / wv stay quantized on the card."""
     import shutil
@@ -3250,10 +3454,12 @@ def _lora_llama_paths(name24, name26):
               f"{not differ} ({len(a['adapter'])} tensors)", flush=True)
         _check_pretrained_run(f"{name24} run A", a, range(1, LORA_STEPS + 1),
                               _expected(layers, micro, LORA_STEPS, True, peft=True),
-                              saves=[2, LORA_STEPS], first_loss=first_loss)
+                              model=model, micro=micro, saves=[2, LORA_STEPS],
+                              first_loss=first_loss)
         _check_pretrained_run(f"{name24} run B (B must resume from step 2)", b,
                               range(3, LORA_STEPS + 1), _expected(layers, micro, 2, True,
-                                                                  peft=True), saves=[4])
+                                                                  peft=True),
+                              model=model, micro=micro, saves=[4])
         want_shapes = {}
         for i in range(layers):
             for proj, width in (("q", 2048), ("v", 512)):
@@ -3287,7 +3493,7 @@ def _lora_llama_paths(name24, name26):
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         _check_pretrained_run(name26, run, range(1, PEFT_STEPS + 1),
                               _expected(layers, micro, PEFT_STEPS, True, peft=True),
-                              first_loss=first_loss)
+                              model=model, micro=micro, first_loss=first_loss)
         if facts["quantized"] != ["layers.wq", "layers.wv"]:
             raise AssertionError(f"{name26}: quantized on the card: {facts['quantized']}")
         out[name26] = run["routed"]
@@ -3353,6 +3559,7 @@ def _qwen25_lora_path(name):
           flush=True)
     _check_pretrained_run(name, run, range(1, PEFT_STEPS + 1),
                           _expected(layers, micro, PEFT_STEPS, True, peft=True),
+                          model=QWEN25_7B, micro=micro,
                           first_loss=random_init_loss(QWEN25_7B["vocab_size"],
                                                       QWEN25_7B["hidden_size"], 0.02))
     return run["routed"]
@@ -3401,9 +3608,10 @@ def _dora_dropout_path(name):
               f"{time.perf_counter() - t0:.1f} s", flush=True)
     want = _expected(layers, micro, PEFT_STEPS, True, peft=True)
     _check_pretrained_run(f"{name} (DoRA)", dora, range(1, PEFT_STEPS + 1), want,
-                          first_loss=first_loss)
+                          model=LLAMA32_1B, micro=micro, first_loss=first_loss)
     _check_pretrained_run(f"{name} (dropout)", drop, range(1, PEFT_STEPS + 1), want,
-                          saves=[2, PEFT_STEPS], first_loss=first_loss)
+                          model=LLAMA32_1B, micro=micro, saves=[2, PEFT_STEPS],
+                          first_loss=first_loss)
     if len(moved) != 2 or not all(x > 0 for x in moved.values()):
         raise AssertionError(f"{name}: DoRA's magnitudes did not move: {moved}")
     if "lora_dropout" not in streams:
@@ -3437,6 +3645,7 @@ def _qwen3_moe_lora_path(name):
     aux = QWEN3_30B_A3B["router_aux_loss_coef"] * layers
     _check_pretrained_run(name, run, range(1, PEFT_STEPS + 1),
                           _expected(layers, micro, PEFT_STEPS, True, moe=True, peft=True),
+                          model=model["config"], micro=micro,
                           first_loss=random_init_loss(QWEN3_30B_A3B["vocab_size"],
                                                       QWEN3_30B_A3B["hidden_size"], 0.02) + aux)
     return run["routed"]
@@ -3489,9 +3698,8 @@ def _gemma3_qat_path(name):
     _check_pretrained_run(name, run, range(1, QAT_STEPS + 1), want,
                           first_loss=random_init_loss(text.vocab_size, text.hidden_size,
                                                       text.initializer_range,
-                                                      tied_self_logit(hf_model)))
-    _check_windowed(name, run["routed"], sum(text.sliding_flags), micro, QAT_STEPS)
-    _check_head_dim(name, run["routed"], text.head_dim)
+                                                      tied_self_logit(hf_model)),
+                          model=hf_model, micro=micro)
     if run["kinds"] != ["before_qat"] + ["train"] * (QAT_STEPS - 1):
         raise AssertionError(f"{name}: step functions {run['kinds']}")
     if off["fake-quantized"] > 1e-3 or off["stored"] < 0.1:
@@ -3511,6 +3719,72 @@ def _peft_paths() -> dict:
         got = fn(*names)
         by_path.update(got if len(names) > 1 else {names[0]: got})
         print(f"{' and '.join(names)}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return by_path
+
+
+def _command_r7b_train_ft_path(name):
+    """examples/llm_finetune/cohere2_r7b_sft.yaml through train_ft (main path 30), its
+    HellaSwag section swapped for mock data (mock_data_config) and its model a local HF
+    directory of a random-init Command R7B (COMMAND_R7B) at COMMAND_R7B_LAYERS layers:
+    three sliding RoPE layers at window 4096 and one full NoPE layer, the parallel block,
+    the mean-centred LayerNorm, interleaved RoPE, the tied unembedding divided by the
+    logit scale's inverse in the linear CE (command_r7b_sft_args: bf16, rows of 8192, 2
+    microbatches, 4 steps, one save). Checks: finite losses, the first within 0.5 of the
+    random-init loss at the scaled logits, the launches (the windowed ones those of the
+    three sliding layers, all at head_dim 128), step_4/hf holding Cohere's names (one norm
+    a layer, no lm_head) and reloading bitwise."""
+    import torch
+
+    _release()
+    layers, micro, steps = COMMAND_R7B_LAYERS, 2, COMMAND_R7B_STEPS
+    model = dict(COMMAND_R7B, num_hidden_layers=layers)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        hf_dir = write_pretrained(os.path.join(tmp, "command_r7b"), model)
+        ckpt = os.path.join(tmp, "ckpts")
+        run = _pretrained_run(name, [
+            "-c", mock_data_config(tmp, COHERE2_SFT_YAML, model["vocab_size"]),
+            *command_r7b_sft_args(hf_dir, ckpt), "--output_dir", os.path.join(tmp, "run")],
+            ckpt, reload_dtype=torch.bfloat16)
+    want = _expected(layers, micro, steps, True)
+    config = _port_config(model)
+    norms = [n for n in run["hf_names"] if "layernorm" in n]
+    print(f"{name}: train_ft on {_shown(COHERE2_SFT_YAML)} ({layers} layers of Command R7B "
+          f"from a local HF directory, bf16, rows of {COMMAND_R7B_SEQ}, loss "
+          f"{run['loss_name']}, sliding layers {config.sliding_flags}, NoPE layers "
+          f"{config.nope_flags}, unembedding / {config.logits_scaling}), {_shown_run(run)}, "
+          f"step_{steps}/hf {len(run['hf_names'])} tensors ({len(norms)} layer norms), "
+          f"reloaded through from_pretrained: "
+          f"{'bitwise equal' if not run['hf_differ'] else run['hf_differ']}, launches "
+          f"{run['launches']} (expected {want}), {time.perf_counter() - t0:.1f} s", flush=True)
+    _check_pretrained_run(name, run, range(1, steps + 1), want, saves=[steps],
+                          first_loss=random_init_loss(model["vocab_size"], model["hidden_size"],
+                                                      _logit_std(model)),
+                          model=model, micro=micro)
+    if (run["loss_name"] != "linear_ce" or len(norms) != layers
+            or "lm_head.weight" in run["hf_names"]):
+        raise AssertionError(f"{name}: loss {run['loss_name']}, norms {norms}, names "
+                             f"{run['hf_names'][:4]}")
+    return run["routed"]
+
+
+def _lineage_paths() -> dict:
+    """Main path 32: the benchmark recipe on each member of LINEAGE_SWEEP (lineage_config:
+    llama3_2_1b.yaml with the member's published widths; linear CE where the vocabulary is
+    65,536 or more, as train_ft would pick it) and on examples/benchmark/starcoder2_proxy.yaml
+    as it stands (the structural alias), whose optimizer adafactor_momentum_free exists in
+    neither package: adafactor_nomom in its place. SWEEP_WARMUP + SWEEP_TIMED steps each;
+    the launch counts and the loss band are _bench_path's."""
+    by_path = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, model, layers in LINEAGE_SWEEP:
+            linear_ce = model["vocab_size"] >= 65536
+            by_path[f"main path 32 ({label})"], _ = _bench_path(
+                f"main path 32 ({label})", lineage_config(tmp, model, layers), linear_ce,
+                ["--loss.name", "linear_ce"] if linear_ce else [], SWEEP_WARMUP, SWEEP_TIMED)
+    by_path["main path 32 (StarCoder2 proxy)"], _ = _bench_path(
+        "main path 32 (StarCoder2 proxy)", STARCODER2_YAML, False,
+        ["--optimizer.optimizer", "adafactor_nomom"], SWEEP_WARMUP, SWEEP_TIMED)
     return by_path
 
 
@@ -3787,12 +4061,15 @@ def _library_lse(torch, h, w):
     return torch.logsumexp((h @ w).float(), -1)
 
 
-def _lce_timings(torch, n=8192, e=2048, v=128256, large=True):
+def _lce_timings(torch, n=8192, e=2048, v=128256, large=True, tied=False):
     """ms of each linear-CE kernel at shape (a), or (N, E, V) as given, with bound, plain
-    version and yardstick; ``large``: also at main path 7's shape."""
+    version and yardstick; ``large``: also at main path 7's shape; ``tied``: the
+    unembedding the transpose of a row-major (V, E) embedding, as a tied model hands it."""
     from automodel_tpu_torch.ops import linear_ce as lce
 
-    h, w, _ = _lce_inputs(torch, n, e, v, seed=7)
+    h, w, _ = _lce_inputs(torch, n, e, v, seed=7, tied=tied)
+    if tied:
+        w = w.t()
     dz = torch.ones(n, device="cuda")
     fwd_flops = 2 * n * e * v
     bwd_flops, bwd_bytes = _lce_work(n, e, v)
@@ -3822,7 +4099,7 @@ def _lce_timings(torch, n=8192, e=2048, v=128256, large=True):
         out[name] = {"ms": ms, "plain_ms": plain, "library_ms": lib,
                      "bound_ms": max(t_ops, t_bytes),
                      "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
-        print(f"time {name} at N={n} E={e} V={v}: {ms:.3f} ms, bound "
+        print(f"time {name} at N={n} E={e} V={v}{' tied' if tied else ''}: {ms:.3f} ms, bound "
               f"{out[name]['bound_ms']:.3f} ms ({out[name]['bound_by']}: {flops / 1e12:.2f} "
               f"TFLOP, {nbytes / 1e6:.1f} MB), plain {plain:.3f} ms, yardstick {lib:.3f} ms",
               flush=True)
@@ -4031,6 +4308,10 @@ def main(argv: list[str]) -> int:
     sys.path.insert(0, root)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
     print(f"card: {_card_line()}", flush=True)
+    start = time.perf_counter()
+
+    def mark(phases):  # the script's clock after each group of phases (its 1200 s limit)
+        print(f"elapsed: {phases} done at {time.perf_counter() - start:.1f} s", flush=True)
 
     from automodel_tpu_torch.kernels import build
     from automodel_tpu_torch.ops import flash_attention as fa
@@ -4060,6 +4341,7 @@ def main(argv: list[str]) -> int:
     errs = {}
     twice = _twice_phase(torch)
     _flash_phase(torch, fa, errs)
+    mark("build, twice-launch and flash cases")
     timings = _timings(torch, fa)
     for name, row in _timings(torch, fa, 4, 2048, 32, 4, 128).items():
         timings[name]["at_d128"] = row
@@ -4087,6 +4369,11 @@ def main(argv: list[str]) -> int:
              {"window": GEMMA3_4B_TEXT["sliding_window"]})):
         for name, row in _timings(torch, fa, *shape, 256, scale=256**-0.5, **kw).items():
             timings[name][key] = row
+    # (C) main path 30's sliding layers: Command R7B's heads, window 4096 over rows of 8192
+    for name, row in _timings(torch, fa, 1, COMMAND_R7B_SEQ, 32, 8, 128,
+                              window=COMMAND_R7B["sliding_window"]).items():
+        timings[name]["at_command_r7b_window"] = row
+    mark("flash timings")
     _refused_on_the_card(torch, fa)
     _ring_refused_on_the_card(torch)
     _model_check(torch)
@@ -4096,7 +4383,8 @@ def main(argv: list[str]) -> int:
                  ("c", 8190, 2048, 50257), ("d", 4096, 4096, 128256),
                  ("e", 8192, 2048, 128256, 1e-7, 32.0, True), ("f", 1024, 1000, 50257),
                  ("g", 256, 1003, 3001, None, 1.0, True), ("h", 256, 8, 16, None, 1.0, True),
-                 ("i", 1024, 1000, 50264), ("j", 8192, 2880, 201088)):
+                 ("i", 1024, 1000, 50264), ("j", 8192, 2880, 201088),
+                 ("k", 8192, 4096, 256000, None, 1.0, True), ("l", 8192, 4096, 151552)):
         err_z, err_grad = _lce_case(torch, *case)
         errs["lce_fwd"] = max(errs["lce_fwd"], err_z)
         errs["lce_bwd"] = max(errs["lce_bwd"], err_grad)
@@ -4104,6 +4392,9 @@ def main(argv: list[str]) -> int:
     timings.update(_lce_timings(torch))
     for name, row in _lce_timings(torch, 8192, 2880, 201088, large=False).items():
         timings[name]["at_gpt_oss"] = row
+    # (R) main path 30's: Command R7B's tied unembedding over a microbatch of 8192 tokens
+    for name, row in _lce_timings(torch, 8192, 4096, 256000, large=False, tied=True).items():
+        timings[name]["at_command_r7b"] = row
     _lce_memory(torch)
     timings.update(_gmm_phase(torch, errs))
     _moe_model_check(torch)
@@ -4114,6 +4405,7 @@ def main(argv: list[str]) -> int:
         for name, row in rows.items():
             timings[name].setdefault("at_d192_dv128", {})[shape] = row
     _ring_model_check(torch)
+    mark("linear-CE, grouped GEMM and ring phases")
 
     by_path, losses = {}, {}
     by_path["main path 1"], losses[1] = _bench_path("main path 1", BENCH_YAML, linear_ce=False)
@@ -4140,8 +4432,11 @@ def main(argv: list[str]) -> int:
         by_path["main path 7"], _ = _bench_path("main path 7", cp_yaml, linear_ce=True,
                                                 overrides=llama3_8b_args())
         by_path["main path 8"], _ = _train_ft_path("main path 8", cp_yaml, _cp_train_ft_args())
+    mark("paths 1-8")
     by_path["main path 9"] = _baseline_path("main path 9")
+    mark("path 9")
     by_path.update(_deterministic_paths())
+    mark("paths 9-10 under the deterministic flag")
     by_path["main path 11"], _ = _bench_path("main path 11", GPT_OSS_YAML, linear_ce=True,
                                              overrides=gpt_oss_args())
     by_path["main path 12"], _ = _train_ft_path(
@@ -4153,22 +4448,36 @@ def main(argv: list[str]) -> int:
                                              overrides=phi3_args())
     by_path["main path 14"] = _phi3_train_ft_path("main path 14")
     by_path["main path 15"], _ = _bench_path("main path 15", DSV3_PROXY_YAML, linear_ce=True)
+    mark("paths 11-15")
     by_path["main path 16"] = _moonlight_train_ft_path("main path 16")
+    mark("path 16")
     by_path["main path 17"], _ = _bench_path("main path 17", DSV3_PROXY_YAML, linear_ce=True,
                                              overrides=moonlight_ring_args())
     by_path["main path 18"], _ = _bench_path("main path 18", GEMMA3_PROXY_YAML, linear_ce=True,
                                              overrides=gemma3_proxy_args())
     by_path["main path 19"], _ = _bench_path("main path 19", GEMMA3_PROXY_YAML, linear_ce=True,
                                              overrides=gemma2_args())
+    mark("paths 17-19")
     by_path["main path 20"] = _gemma2_train_ft_path("main path 20")
+    mark("path 20")
     by_path["main path 21"], _ = _bench_path("main path 21", GEMMA3_PROXY_YAML, linear_ce=True,
                                              overrides=gemma2_args(GEMMA2_9B_LAYERS, GEMMA2_9B))
     by_path["main path 22"], _ = _bench_path(
         "main path 22", GEMMA3_PROXY_YAML, linear_ce=True,
         overrides=gemma2_args(GEMMA3_4B_TEXT["num_hidden_layers"], GEMMA3_4B_TEXT))
+    mark("paths 21-22")
     by_path["main path 23"] = _gemma3_train_ft_path("main path 23")
+    mark("path 23")
     _nf4_phase(torch)
     by_path.update(_peft_paths())
+    mark("paths 24-29")
+    by_path["main path 30"] = _command_r7b_train_ft_path("main path 30")
+    mark("path 30")
+    by_path["main path 31"], _ = _bench_path("main path 31", MIXTRAL_YAML, linear_ce=False,
+                                             overrides=mixtral_args())
+    mark("path 31")
+    by_path.update(_lineage_paths())
+    mark("path 32")
 
     flash = "automodel_tpu/ops/pallas/flash_attention.py"
     lce_src = "automodel_tpu/ops/pallas/linear_ce.py"

@@ -131,6 +131,32 @@ def test_flash_timing_inputs_have_the_named_head_dim(d, kh):
     assert work["flash_backward"][1] == 2 * qkv + 4 * b * s * h * d + 4 * b * h * s
 
 
+@pytest.mark.parametrize("h,kh,sinks", [(16, 2, False), (8, 4, True), (4, 4, False)])
+def test_reference_by_kv_groups_matches_the_whole(h, kh, sinks):
+    """The flash cases' plain version over groups of KV heads (one KV head a group, as
+    the 4 GiB limit makes it at case eb) gives the O, lse and every gradient that the
+    plain version over all heads gives: query head i reads KV head i // (H / KH)."""
+    from automodel_tpu_torch.ops import flash_attention as fa
+
+    b, s, d = 2, 48, 16
+    q, k, v, do = chip_smoke._inputs(torch, b, s, h, kh, d, seed=3, device="cpu")
+    sink = torch.randn(h, generator=torch.Generator().manual_seed(4)) if sinks else None
+    opts = dict(causal=True, segment_ids_q=None, sliding_window=20, logit_soft_cap=None,
+                softmax_scale=None)
+    whole = chip_smoke._reference_by_kv_groups(torch, fa, q, k, v, do, sink, opts)
+    split = chip_smoke._reference_by_kv_groups(torch, fa, q, k, v, do, sink, opts,
+                                               max_bytes=(h // kh) * b * s * s * 4)
+    for a, r in [(whole[0], split[0]), (whole[1], split[1]), *zip(whole[2], split[2])]:
+        torch.testing.assert_close(a, r, rtol=1e-5, atol=1e-6)
+    qr, kr, vr = (x.float().requires_grad_() for x in (q, k, v))
+    o, lse = fa.flash_attention_reference(qr, kr, vr, sinks=sink, **opts)
+    torch.testing.assert_close(split[0], o.detach(), rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(split[1], lse.detach(), rtol=1e-5, atol=1e-6)
+    grads = torch.autograd.grad(o, (qr, kr, vr), do.float())
+    for a, r in zip(split[2], grads):
+        torch.testing.assert_close(a, r, rtol=1e-5, atol=1e-6)
+
+
 @pytest.mark.parametrize("step", [0, 1, 3])
 def test_ring_step_inputs_hand_shard_r_the_ids_of_shard_r_minus_t(step):
     """The ring timing rows' inputs at ring step t: shard r holds the k, v and positions
@@ -207,13 +233,18 @@ def test_gmm_timing_work_counts():
     assert work["dX"][1] == 2 * (n * f + live * d * f + n * d) + 4 * e  # dout in, dX out
     assert work["tgmm"][1] == 2 * (n * d + n * f + e * d * f) + 4 * e  # every dW written
     # every gmm timing lands in the kernels line: case a's forward is the row itself, the
-    # rest (b, and GPT-OSS's h and i) keyed sub-rows
+    # rest (b, GPT-OSS's h and i, Mixtral's m and n) keyed sub-rows
     keys = chip_smoke._GMM_ROW_KEYS
-    cases = {c for c, _, _ in chip_smoke.GMM_SHAPES + chip_smoke.GPT_OSS_GMM_SHAPES}
+    cases = {c for c, _, _ in chip_smoke.GMM_SHAPES + chip_smoke.GPT_OSS_GMM_SHAPES
+             + chip_smoke.MIXTRAL_GMM_SHAPES}
     assert {p for p, _ in keys} == {"forward", "dX", "tgmm"} and {c for _, c in keys} == cases
-    assert cases == {"a", "b", "h", "i"} and len(keys) == 3 * len(cases)
+    assert cases == {"a", "b", "h", "i", "m", "n"} and len(keys) == 3 * len(cases)
     assert keys["forward", "a"] is None and keys["tgmm", "a"] is None
-    assert len({v for v in keys.values() if v}) == 7
+    assert len({v for v in keys.values() if v}) == 11
+    # Mixtral's gate_up at about 2048 rows an expert: 2 x 16,384 x 4096 x 28,672 FLOPs
+    # (3.85 TFLOP, 3.89 ms at 989 TFLOP/s)
+    m = chip_smoke._gmm_work(16384, 4096, 28672, 8, 8)
+    assert m["forward"][0] / chip_smoke.PEAK_FLOPS * 1e3 == pytest.approx(3.891, abs=1e-3)
 
 
 def test_lce_bwd_work_at_path7_shape():
@@ -443,8 +474,9 @@ def test_phase_order():
     """The twice-launch phase runs first, the kernel cases next (the ring's at (192, 128)
     after its others), then the main paths in order, the deterministic ones (main paths 9
     and 10 under the flag, in a child process) before GPT-OSS's (main paths 11 and 12),
-    Phi-3's (13 and 14), the DeepSeek family's (15-17), Gemma's (18-23) and the PEFT and
-    QAT paths (24-29, after the nf4 check), then the kernels line."""
+    Phi-3's (13 and 14), the DeepSeek family's (15-17), Gemma's (18-23), the PEFT and
+    QAT paths (24-29, after the nf4 check) and the Llama lineage's and Mixtral's (30-32),
+    then the kernels line."""
     src = inspect.getsource(chip_smoke.main)
     order = ["_twice_phase(", "_flash_phase(", "_timings(", "_window_timings(",
              "_refused_on_the_card(", "_ring_refused_on_the_card(", "_model_check(",
@@ -456,7 +488,8 @@ def test_phase_order():
              '"main path 12"', '"main path 13"', '"main path 14"', '"main path 15"',
              '"main path 16"', '"main path 17"', '"main path 18"', '"main path 19"',
              '"main path 20"', '"main path 21"', '"main path 22"', '"main path 23"',
-             "_nf4_phase(", "_peft_paths()", '{"kernels"']
+             "_nf4_phase(", "_peft_paths()", '"main path 30"', '"main path 31"',
+             "_lineage_paths()", '{"kernels"']
     at = [re.search(r"(?<!\w)" + re.escape(x), src).start() for x in order]
     assert at == sorted(at)
     child = inspect.getsource(chip_smoke._deterministic_child)
@@ -488,7 +521,8 @@ def test_gpt_oss_config_runs_through_both_recipes(tmp_path):
     model = cfg.model.config
     assert model.layer_types == ["sliding_attention", "full_attention"] * 2
     assert model.rope_scaling["rope_type"] == "yarn" and model.rope_scaling["truncate"] is False
-    assert chip_smoke._sliding_layers(cfg) == 2 and chip_smoke._is_moe(cfg)
+    assert sum(chip_smoke._port_config(cfg.model.config).sliding_flags) == 2
+    assert chip_smoke._is_moe(cfg)
     assert cfg.backend.experts_backend == "pallas" and cfg.micro_batch_size == 8
     experts = ["--model.config.num_local_experts", "8", "--dataset.num_samples", "256"]
     result = benchmark.main(argv=["-c", chip_smoke.GPT_OSS_YAML, *chip_smoke.gpt_oss_args(2),
@@ -504,7 +538,7 @@ def test_gpt_oss_config_runs_through_both_recipes(tmp_path):
         "--dataset.seq_len", "60", "--backend.attention_segments", "true",
         "--micro_batch_size", "2", "--step_scheduler.max_steps", "2",
         "--checkpoint.enabled", "false", "--output_dir", str(tmp_path / "ft")])
-    assert chip_smoke._sliding_layers(cfg) == 1
+    assert sum(chip_smoke._port_config(cfg.model.config).sliding_flags) == 1
     recipe = train_ft.main(cfg=cfg)
     assert type(recipe.model).__name__ == "GptOssForCausalLM"
     with open(tmp_path / "ft" / "training.jsonl") as f:
@@ -561,7 +595,7 @@ def test_expected_launches_of_the_phi3_paths():
         with pytest.raises(AssertionError, match="head dim"):
             chip_smoke._check_head_dim("path", dict(launches, **{"flash_dq/d96": n - 1,
                                                                  "flash_dq/d128": 1}), 96)
-    assert chip_smoke._head_dim(chip_smoke.PHI3_MINI) == 96
+    assert chip_smoke._port_config(chip_smoke.PHI3_MINI).head_dim == 96
 
 
 SMALL_PHI3 = ["--model.config.hidden_size", "192", "--model.config.intermediate_size", "256",
@@ -585,7 +619,8 @@ def test_phi3_config_runs_through_both_recipes(tmp_path):
     model = cfg.model.config
     assert model.architectures == ["Phi3ForCausalLM"] and model.num_hidden_layers == 32
     assert model.sliding_window == 2047 and model.tie_word_embeddings is False
-    assert chip_smoke._sliding_layers(cfg) == 32 and chip_smoke._head_dim(model) == 96
+    assert sum(chip_smoke._port_config(cfg.model.config).sliding_flags) == 32
+    assert chip_smoke._port_config(model).head_dim == 96
     result = benchmark.main(argv=["-c", chip_smoke.PHI3_YAML, *chip_smoke.phi3_args(1),
                                   *SMALL_PHI3, "--benchmark.warmup_steps", "1",
                                   "--benchmark.timed_steps", "1", "--micro_batch_size", "2",
@@ -618,7 +653,7 @@ def test_phi3_config_runs_through_both_recipes(tmp_path):
 
 def test_expected_launches_of_the_deepseek_paths():
     """Main path 15: the proxy's 12 layers (1 dense), 7 steps of one microbatch, linear CE,
-    no flash (MLA's values are narrower than its keys); main path 16: 4 layers (1 dense),
+    no flash (MLA's values are narrower than its keys); main path 16: 3 layers (1 dense),
     4 steps of 2 microbatches; main path 17: 2 layers (1 dense), ring cp 4: ring_fwd
     forward and replay a ring step, ring_dq + ring_dkv in ring_bwd's place, every launch
     at (192, 128)."""
@@ -627,7 +662,7 @@ def test_expected_launches_of_the_deepseek_paths():
     assert p15 == dict(dict.fromkeys(p15, 0), gmm=462, tgmm=154, lce_fwd=7, lce_bwd=7)
     p16 = chip_smoke._expected(chip_smoke.MOONLIGHT_LAYERS, 2, chip_smoke.MOONLIGHT_STEPS, True,
                                moe=True, dense_prefix=1, mla=True)
-    assert p16 == dict(dict.fromkeys(p16, 0), gmm=144, tgmm=48, lce_fwd=8, lce_bwd=8)
+    assert p16 == dict(dict.fromkeys(p16, 0), gmm=96, tgmm=32, lce_fwd=8, lce_bwd=8)
     p17 = chip_smoke._expected(chip_smoke.MOONLIGHT_RING_LAYERS, 1, steps, True, moe=True,
                                ring_cp=chip_smoke.MOONLIGHT_RING_CP, dense_prefix=1, mla=True)
     assert p17 == dict(dict.fromkeys(p17, 0), gmm=42, tgmm=14, lce_fwd=7, lce_bwd=7,
@@ -719,7 +754,7 @@ def test_expected_launches_of_the_gemma_paths():
                                       *chip_smoke.gemma3_proxy_args()])
     assert cfg.backend.attention == "flash" and cfg.model.config.architectures == [
         "Gemma3ForCausalLM"]
-    assert chip_smoke._sliding_layers(cfg) == 10
+    assert sum(chip_smoke._port_config(cfg.model.config).sliding_flags) == 10
     assert chip_smoke._capped_layers(cfg.model.config) == 0
     cfg = parse_args_and_load_config(["-c", chip_smoke.GEMMA3_PROXY_YAML,
                                       *chip_smoke.gemma2_args()])
@@ -749,7 +784,7 @@ def test_expected_launches_of_the_gemma_paths():
                                       capped, micro, n_steps)
     small = dict(chip_smoke.GEMMA2_27B, num_hidden_layers=chip_smoke.GEMMA2_LAYERS_TRAIN_FT)
     assert sum(chip_smoke._port_config(small).sliding_flags) == 1
-    assert chip_smoke._capped_layers(small) == 2 and chip_smoke._head_dim(small) == 128
+    assert chip_smoke._capped_layers(small) == 2 and chip_smoke._port_config(small).head_dim == 128
 
 
 SMALL_GEMMA = ["--model.config.hidden_size", "64", "--model.config.intermediate_size", "128",
@@ -786,7 +821,9 @@ def test_gemma_configs_run_through_both_recipes(tmp_path):
         "--dataset.seq_len", "64", "--seq_len", "64", "--step_scheduler.grad_acc_steps", "1",
         "--step_scheduler.max_steps", "2", "--device", "cpu",
         "--output_dir", str(tmp_path / "p20")], ckpt, reload_dtype=torch.bfloat16)
-    chip_smoke._check_pretrained_run("p20", run, range(1, 3), run["launches"], saves=[2])
+    # no kernel launches on the CPU: the path's launch checks expect none (0 microbatches)
+    chip_smoke._check_pretrained_run("p20", run, range(1, 3), run["launches"], model=small,
+                                     micro=0, saves=[2])
     assert run["loss_name"] == "masked_ce" and run["hf_differ"] == []
     assert "model.layers.1.pre_feedforward_layernorm.weight" in run["hf_names"]
     assert "lm_head.weight" not in run["hf_names"]  # tied
@@ -810,7 +847,7 @@ def test_expected_launches_of_the_head_dim_256_gemma_paths():
         50.0, 30.0, 256, 4096, False)
     assert model.sliding_flags == [True, False] * 4
     assert chip_smoke._capped_layers(cfg.model.config) == 8
-    assert chip_smoke._head_dim(cfg.model.config) == 256
+    assert chip_smoke._port_config(cfg.model.config).head_dim == 256
     cfg = parse_args_and_load_config(["-c", chip_smoke.GEMMA3_PROXY_YAML, *chip_smoke.gemma2_args(
         34, chip_smoke.GEMMA3_4B_TEXT)])
     model = chip_smoke._port_config(cfg.model.config)
@@ -820,8 +857,8 @@ def test_expected_launches_of_the_head_dim_256_gemma_paths():
         2560, 10240, 8, 4, 256, 262208, 256, 1024, True)
     assert model.rope_scaling == {"rope_type": "linear", "factor": 8.0}
     assert (model.rope_theta, model.rope_local_base_freq) == (1e6, 1e4)
-    assert chip_smoke._sliding_layers(cfg) == 29 and chip_smoke._capped_layers(
-        cfg.model.config) == 0
+    assert sum(chip_smoke._port_config(cfg.model.config).sliding_flags) == 29
+    assert chip_smoke._capped_layers(cfg.model.config) == 0
     assert cfg.dataset.vocab_size == 262208 and cfg.backend.attention == "flash"
     # the multimodal config of main path 23 reads as the text model's
     text = chip_smoke._port_config(dict(
@@ -879,7 +916,8 @@ def test_gemma_head_dim_256_configs_run_through_both_recipes(tmp_path):
             "--device", "cpu", "--output_dir", str(tmp_path / "p23")]
     assert parse_args_and_load_config(args).backend.attention == "flash"
     run = chip_smoke._pretrained_run("p23", args, ckpt, reload_dtype=torch.bfloat16)
-    chip_smoke._check_pretrained_run("p23", run, range(1, 3), run["launches"], saves=[2])
+    chip_smoke._check_pretrained_run("p23", run, range(1, 3), run["launches"], model=small,
+                                     micro=0, saves=[2])  # the CPU launches no kernel
     assert run["hf_differ"] == []
     assert "model.layers.5.post_feedforward_layernorm.weight" in run["hf_names"]
 
@@ -936,7 +974,8 @@ def test_peft_configs_run_through_train_ft(tmp_path):
     run = chip_smoke._pretrained_run("p24", [
         "-c", yaml, *chip_smoke.peft_args(str(tmp_path / "p24"), 2, 1, hf, ckpt), *small], ckpt,
         reload_dtype=torch.bfloat16)
-    chip_smoke._check_pretrained_run("p24", run, range(1, 3), run["launches"], saves=[2],
+    chip_smoke._check_pretrained_run("p24", run, range(1, 3), run["launches"],
+                                     model=SMALL_LLAMA, micro=1, saves=[2],
                                      first_loss=chip_smoke.random_init_loss(512, 64, 0.02))
     assert run["hf_differ"] == [] and sorted(run["adapter"])[0] == "layers.wq.lora_a"
     adapter = load_safetensors(os.path.join(ckpt, "step_2", "hf_adapter",
@@ -963,3 +1002,111 @@ def test_peft_configs_run_through_train_ft(tmp_path):
         "--qat.fake_quant_after_n_steps", "2",
         *chip_smoke.peft_args(str(tmp_path / "p29"), 3, 1, hf_gemma, dtype=None), *small], None)
     assert run["kinds"] == ["before_qat", "train", "train"]
+
+
+def test_expected_launches_of_the_lineage_paths():
+    """Main path 30: Command R7B at 4 layers (3 sliding RoPE layers at window 4096, 1 full
+    NoPE layer; the unembedding divided by 4), 2 microbatches, 4 steps, linear CE; main
+    path 31: Mixtral-8x7B's widths over the proxy at 3 layers, 8 experts top-2, every layer
+    MoE (gmm 6n, tgmm 2n); main path 32: each member's widths over llama3_2_1b.yaml, and
+    the StarCoder2 proxy through the structural alias. _check_path_launches holds each
+    path's windowed, soft-capped and head-dim counts, and fails on one off by one."""
+    model = dict(chip_smoke.COMMAND_R7B, num_hidden_layers=chip_smoke.COMMAND_R7B_LAYERS)
+    config = chip_smoke._port_config(model)
+    assert config.sliding_flags == [True, True, True, False]
+    assert config.nope_flags == [False, False, False, True]
+    assert (config.logits_scaling, config.head_dim, config.parallel_block,
+            config.rope_interleaved, config.norm_type) == (4.0, 128, True, True, "layernorm")
+    assert chip_smoke._logit_std(model) == pytest.approx(0.005)
+    want = chip_smoke._expected(4, 2, 4, True)
+    assert (want["flash_fwd"], want["flash_dq"], want["lce_fwd"]) == (64, 32, 8)
+    launches = dict(want, **{f"{k}/windowed": want[k] * 3 // 4
+                             for k in ("flash_fwd", "flash_dq", "flash_dkv")},
+                    **{f"{k}/softcap": 0 for k in ("flash_fwd", "flash_dq", "flash_dkv")},
+                    **{f"{k}/d128": want[k] for k in ("flash_fwd", "flash_dq", "flash_dkv")})
+    chip_smoke._check_path_launches("p30", launches, model, 2, 4)
+    with pytest.raises(AssertionError, match="windowed"):
+        chip_smoke._check_path_launches("p30", dict(launches, **{"flash_dkv/windowed": 25}),
+                                        model, 2, 4)
+    with pytest.raises(AssertionError, match="head dim"):
+        chip_smoke._check_path_launches("p30", dict(launches, **{"flash_dq/d64": 1}), model, 2,
+                                        4)
+
+    cfg = parse_args_and_load_config(["-c", chip_smoke.MIXTRAL_YAML, *chip_smoke.mixtral_args()])
+    mixtral = chip_smoke._port_config(cfg.model.config)
+    assert (mixtral.hidden_size, mixtral.intermediate_size, mixtral.moe.n_routed_experts,
+            mixtral.moe.n_activated_experts, mixtral.moe.aux_loss_coeff,
+            mixtral.num_hidden_layers, mixtral.vocab_size) == (4096, 14336, 8, 2, 0.02, 3, 32000)
+    assert chip_smoke._is_moe(cfg) and cfg.optimizer.optimizer == "adamw_lowmem"
+    want = chip_smoke._expected(3, 1, chip_smoke.WARMUP + chip_smoke.TIMED, False, moe=True)
+    assert (want["gmm"], want["tgmm"], want["lce_fwd"]) == (126, 42, 0)
+    # JAX's formula reads no num_local_experts: one dense MLP a layer where the port
+    # counts two experts
+    assert chip_smoke._jax_count_mfu(cfg.model.config, 2048, 0.5) < 0.5
+    assert chip_smoke._jax_count_mfu(chip_smoke.COMMAND_R7B, 2048, 0.5) == pytest.approx(0.5)
+
+    assert [m["vocab_size"] >= 65536 for _, m, _ in chip_smoke.LINEAGE_SWEEP] == [
+        False, True, True, True]
+    granite = chip_smoke._port_config(chip_smoke.GRANITE_33_2B)
+    assert (granite.head_dim, granite.attention_multiplier, granite.logits_scaling,
+            granite.embedding_multiplier, granite.residual_multiplier) == (
+        64, 0.015625, 8.0, 12.0, 0.22)
+    smol = chip_smoke._port_config(dict(chip_smoke.SMOLLM3_3B, num_hidden_layers=4))
+    assert smol.nope_flags == [False, False, False, True] and smol.head_dim == 128
+    olmo = chip_smoke._port_config(chip_smoke.OLMO2_7B)
+    assert olmo.head_dim == 128 and olmo.qk_norm_whole and olmo.norm_placement == "post"
+    glm = chip_smoke._port_config(chip_smoke.GLM4_9B)
+    assert (glm.partial_rotary_factor, glm.norm_placement, glm.rope_interleaved) == (
+        0.5, "sandwich", True)
+    cfg = parse_args_and_load_config(["-c", chip_smoke.STARCODER2_YAML])
+    star = chip_smoke._port_config(cfg.model.config)
+    assert type(star).__name__ == "AliasedLlamaConfig" and not star.mlp_gated
+    assert cfg.optimizer.optimizer == "adafactor_momentum_free"
+
+
+SMALL_WIDTHS = dict(hidden_size=64, intermediate_size=128, num_attention_heads=4,
+                    num_key_value_heads=2, head_dim=16, vocab_size=512)
+
+
+def test_lineage_configs_run_through_both_recipes(tmp_path):
+    """Main paths 30-32 at small widths on the CPU: Command R7B's config (its original
+    format) from a local HF directory through cohere2_r7b_sft.yaml with mock data and
+    command_r7b_sft_args, through the shared _pretrained_run (2 steps, a save at step 2
+    whose hf/ holds one norm a layer and no lm_head and reloads bitwise); Mixtral's
+    widths over the proxy, each lineage member over llama3_2_1b.yaml and the StarCoder2
+    proxy (with adafactor_nomom) through the benchmark recipe, finite losses."""
+    small = dict(chip_smoke.COMMAND_R7B, **SMALL_WIDTHS, num_hidden_layers=4,
+                 sliding_window=16)
+    hf = chip_smoke.write_pretrained(str(tmp_path / "hf"), small, device="cpu")
+    ckpt = str(tmp_path / "ck")
+    yaml = chip_smoke.mock_data_config(str(tmp_path), chip_smoke.COHERE2_SFT_YAML, 512)
+    run = chip_smoke._pretrained_run("p30", [
+        "-c", yaml, *chip_smoke.command_r7b_sft_args(hf, ckpt), "--seq_len", "64",
+        "--dataset.seq_len", "64", "--dataset.vocab_size", "512",
+        "--step_scheduler.max_steps", "2", "--step_scheduler.ckpt_every_steps", "2",
+        "--device", "cpu", "--output_dir", str(tmp_path / "p30")], ckpt,
+        reload_dtype=torch.bfloat16)
+    chip_smoke._check_pretrained_run("p30", run, range(1, 3), run["launches"], model=small,
+                                     micro=0, saves=[2], first_loss=chip_smoke.random_init_loss(
+                                         512, 64, chip_smoke._logit_std(small)))
+    assert run["loss_name"] == "masked_ce" and run["hf_differ"] == []
+    assert "lm_head.weight" not in run["hf_names"]
+    assert not any("post_attention_layernorm" in n for n in run["hf_names"])
+
+    bench = ["--benchmark.warmup_steps", "1", "--benchmark.timed_steps", "1",
+             "--micro_batch_size", "2", "--seq_len", "64", "--dataset.seq_len", "64",
+             "--device", "cpu"]
+    widths = [x for kv in SMALL_WIDTHS.items() for x in (f"--model.config.{kv[0]}", str(kv[1]))]
+    runs = [(chip_smoke.MIXTRAL_YAML, [*chip_smoke.mixtral_args(2), *widths,
+                                       "--dataset.vocab_size", "512"]),
+            (chip_smoke.STARCODER2_YAML, ["--optimizer.optimizer", "adafactor_nomom",
+                                          "--model.config.num_hidden_layers", "2", *widths,
+                                          "--dataset.vocab_size", "512"])]
+    for label, member, _ in chip_smoke.LINEAGE_SWEEP:
+        path = chip_smoke.lineage_config(str(tmp_path), dict(member, **SMALL_WIDTHS), 2)
+        os.rename(path, path := str(tmp_path / f"{label}.yaml"))
+        runs.append((path, []))
+    for i, (yaml, args) in enumerate(runs):
+        result = benchmark.main(argv=["-c", yaml, *args, *bench,
+                                      "--output_dir", str(tmp_path / f"b{i}")])
+        assert len(result["losses"]) == 2 and all(map(math.isfinite, result["losses"])), yaml

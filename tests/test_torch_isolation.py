@@ -101,3 +101,9 @@ def test_every_module_is_walked():
             "automodel_tpu_torch.models.phi3.state_dict_adapter",
             "automodel_tpu_torch.models.deepseek_v3.model",
             "automodel_tpu_torch.models.deepseek_v3.state_dict_adapter"} <= set(names)
+    assert {"automodel_tpu_torch.models.structural",
+            "automodel_tpu_torch.models.glm4.model",
+            "automodel_tpu_torch.models.glm4.state_dict_adapter",
+            "automodel_tpu_torch.models.mistral3.model",
+            "automodel_tpu_torch.models.mixtral.model",
+            "automodel_tpu_torch.models.mixtral.state_dict_adapter"} <= set(names)

@@ -92,25 +92,6 @@ def test_remat_changes_no_value():
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("extra,field", [
-    (dict(architectures=["Olmo2ForCausalLM"]), "qk_norm_whole"),
-    (dict(architectures=["CohereForCausalLM"]), "parallel_block"),
-    (dict(architectures=["Cohere2ForCausalLM"], layer_types=["full_attention"] * 2),
-     "layer_types"),
-    (dict(architectures=["GlmForCausalLM"]), "rope_interleaved"),
-    (dict(architectures=["ArceeForCausalLM"]), "relu2"),
-    (dict(embedding_multiplier=12.0), "embedding_multiplier"),
-    (dict(no_rope_layer_interval=4), "no_rope_layer_interval"),
-    (dict(layer_types=["full_attention", "sliding_attention"]), "layer_types"),
-], ids=["olmo2", "cohere", "cohere2", "glm", "arcee", "granite", "nope", "layer_types"])
-def test_unported_lineage_raises(extra, field):
-    """The lineage members the port does not build yet raise, naming what they need;
-    Qwen2's biases and a sliding window (Mistral, Qwen2) are ported
-    (tests/test_torch_phi3.py)."""
-    with pytest.raises(NotImplementedError, match=field):
-        LlamaConfig.from_hf(dict(HF, **extra))
-
-
 def test_backend_validates_remat_names():
     with pytest.raises(ValueError, match="remat_policy"):
         BackendConfig(remat_policy="bogus")
