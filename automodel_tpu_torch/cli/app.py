@@ -4,10 +4,13 @@
     python -m automodel_tpu_torch.cli.app finetune llm -c cfg.yaml [--a.b.c v ...]
     python -m automodel_tpu_torch.cli.app pretrain llm -c cfg.yaml
     python -m automodel_tpu_torch.cli.app benchmark llm -c cfg.yaml
+    python -m automodel_tpu_torch.cli.app finetune seq_cls -c cfg.yaml
+    python -m automodel_tpu_torch.cli.app finetune biencoder -c cfg.yaml
+    python -m automodel_tpu_torch.cli.app mine biencoder -c cfg.yaml
 
 The recipe runs in this process, on one card. The JAX package's other recipes (kd,
-generate, sequence classification, VLM, biencoder) are not ported and are refused by
-name, as is a config with a ``slurm:`` section (the launcher is not ported).
+generate, VLM) are not ported and are refused by name, as is a config with a
+``slurm:`` section (the launcher is not ported).
 """
 
 from __future__ import annotations
@@ -24,10 +27,12 @@ RECIPES: dict[tuple[str, str], str] = {
     ("finetune", "llm"): "automodel_tpu_torch.recipes.llm.train_ft:main",
     ("pretrain", "llm"): "automodel_tpu_torch.recipes.llm.train_ft:main",
     ("benchmark", "llm"): "automodel_tpu_torch.recipes.llm.benchmark:main",
+    ("finetune", "seq_cls"): "automodel_tpu_torch.recipes.llm.train_seq_cls:main",
+    ("finetune", "biencoder"): "automodel_tpu_torch.recipes.biencoder.train_biencoder:main",
+    ("mine", "biencoder"): "automodel_tpu_torch.recipes.biencoder.mine_hard_negatives:main",
 }
 # the JAX package's recipes that have no port yet
-UNPORTED = (("kd", "llm"), ("generate", "llm"), ("finetune", "seq_cls"), ("finetune", "vlm"),
-            ("finetune", "biencoder"), ("mine", "biencoder"))
+UNPORTED = (("kd", "llm"), ("generate", "llm"), ("finetune", "vlm"))
 
 
 def _resolve(command: str, domain: str):

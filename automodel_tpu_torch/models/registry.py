@@ -20,6 +20,10 @@ MODEL_REGISTRY: dict[str, str] = {
     **{arch: "automodel_tpu_torch.models.glm4.model:Glm4ForCausalLM" for arch in (
         "Glm4ForCausalLM", "GlmForCausalLM")},
     "Ministral3ForCausalLM": "automodel_tpu_torch.models.mistral3.model:Ministral3ForCausalLM",
+    # the biencoder recipe's tower: Llama's trunk, non-causal, pooled
+    "LlamaBidirectionalModel":
+        "automodel_tpu_torch.models.llama_bidirectional.model:LlamaBidirectionalModel",
+    "GPT2LMHeadModel": "automodel_tpu_torch.models.gpt2.model:GPT2LMHeadModel",
     "MixtralForCausalLM": "automodel_tpu_torch.models.mixtral.model:MixtralForCausalLM",
     "Phi3ForCausalLM": "automodel_tpu_torch.models.phi3.model:Phi3ForCausalLM",
     "Qwen3MoeForCausalLM": "automodel_tpu_torch.models.qwen3_moe.model:Qwen3MoeForCausalLM",

@@ -25,7 +25,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["HEAD_DIM_LAUNCHES", "LAUNCHES", "SOFTCAP_LAUNCHES", "WINDOWED_LAUNCHES",
+__all__ = ["HEAD_DIM_LAUNCHES", "LAUNCHES", "NONCAUSAL_LAUNCHES", "SOFTCAP_LAUNCHES",
+           "WINDOWED_LAUNCHES",
            "flash_attention", "flash_attention_cuda", "flash_attention_reference",
            "flash_backward", "flash_dkv", "flash_dkv_reference", "flash_dq",
            "flash_dq_reference", "flash_fwd", "sink_grad"]
@@ -41,6 +42,8 @@ WINDOWED_LAUNCHES = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
 HEAD_DIM_LAUNCHES = {f"{name}/d{d}": 0 for name in LAUNCHES for d in _HEAD_DIMS}
 # the launches of LAUNCHES that carried a logit soft-cap
 SOFTCAP_LAUNCHES = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+# the launches of LAUNCHES without the causal mask (a bidirectional encoder's)
+NONCAUSAL_LAUNCHES = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
 
 
 def _mask(sq, skv, causal, seg_q, seg_kv, sliding_window, device):
@@ -222,13 +225,15 @@ def _window(window):
     return (0, 0) if window is None else (1, window)
 
 
-def _count(name, window, head_dim, softcap):
+def _count(name, window, head_dim, softcap, causal):
     LAUNCHES[name] += 1
     HEAD_DIM_LAUNCHES[f"{name}/d{head_dim}"] += 1
     if window is not None:
         WINDOWED_LAUNCHES[name] += 1
     if softcap:
         SOFTCAP_LAUNCHES[name] += 1
+    if not causal:
+        NONCAUSAL_LAUNCHES[name] += 1
 
 
 def flash_fwd(q, k, v, seg_q, seg_kv, scale, causal, window=None, sinks=None, softcap=0.0):
@@ -243,7 +248,7 @@ def flash_fwd(q, k, v, seg_q, seg_kv, scale, causal, window=None, sinks=None, so
     launch(_SOURCE, "flash_fwd", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
            _ptr(seg_q), _ptr(seg_kv), _ptr(sinks), o.data_ptr(), lse.data_ptr(), b, sq, skv,
            h, kh, d, float(scale), float(softcap), int(causal), *_window(window))
-    _count("flash_fwd", window, d, softcap)
+    _count("flash_fwd", window, d, softcap, causal)
     return o, lse
 
 
@@ -265,7 +270,7 @@ def flash_dq(q, k, v, seg_q, seg_kv, do, lse, delta, scale, causal, window=None,
            _ptr(seg_q), _ptr(seg_kv), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
            dq.data_ptr(), b, sq, k.shape[1], h, k.shape[2], d, float(scale), float(softcap),
            int(causal), *_window(window))
-    _count("flash_dq", window, d, softcap)
+    _count("flash_dq", window, d, softcap, causal)
     return dq
 
 
@@ -281,7 +286,7 @@ def flash_dkv(q, k, v, seg_q, seg_kv, do, lse, delta, scale, causal, window=None
            _ptr(seg_q), _ptr(seg_kv), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
            dk.data_ptr(), dv.data_ptr(), b, sq, k.shape[1], h, k.shape[2], d, float(scale),
            float(softcap), int(causal), *_window(window))
-    _count("flash_dkv", window, d, softcap)
+    _count("flash_dkv", window, d, softcap, causal)
     return dk, dv
 
 

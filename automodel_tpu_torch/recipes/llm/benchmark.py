@@ -84,13 +84,13 @@ class BenchmarkingRecipeForNextTokenPrediction(TrainFinetuneRecipeForNextTokenPr
         mean_t = window / steps
         tokens_per_step = self.step_scheduler.grad_acc_steps * self.micro_batch_size * self.seq_len
         tps = tokens_per_step / mean_t
-        util = mfu(tps, self._flops_per_token, self.device_kind)
+        fpt = self._flops_per_token  # None for a config outside the FLOPs formula
         result = {
             "step_time_s": mean_t,
             "tokens_per_sec": tps,
             "tokens_per_sec_per_chip": tps,
-            "model_tflops_per_sec_per_chip": tps * self._flops_per_token / 1e12,
-            "mfu": util,
+            "model_tflops_per_sec_per_chip": None if fpt is None else tps * fpt / 1e12,
+            "mfu": None if fpt is None else mfu(tps, fpt, self.device_kind),
             "device_kind": self.device_kind,
             "n_chips": 1,
             "loss": float(m["loss"]),

@@ -3,7 +3,8 @@
 Ported: the model from a local HF directory (``model.pretrained_model_name_or_path``,
 ``models/auto.py``; a hub repo id raises) or built from ``model.config`` (an HF config
 dict; the class from its ``architectures`` through ``models/registry.py``: Llama with
-Qwen2 / Qwen3 / Mistral, Phi-3, Qwen3-MoE, GPT-OSS, the DeepSeek-V3 family),
+Qwen2 / Qwen3 / Mistral, Phi-3, Qwen3-MoE, GPT-OSS, the DeepSeek-V3 family, GPT-2; the
+``_build_model_and_params`` hook, which the sequence-classification recipe overrides),
 ``model.params_dtype``, the loss choice with the JAX recipe's default rule
 (``linear_ce`` at vocab >= 65536, with ``loss.impl`` and ``loss.filter_eps``), an MoE
 model's token mask, aux-loss term, gate-bias update and ``moe_load/*`` rows
@@ -78,6 +79,8 @@ logger = logging.getLogger(__name__)
 
 __all__ = ["TrainFinetuneRecipeForNextTokenPrediction", "main", "resolve_device"]
 
+_TOKEN_KEYS = ("input_ids", "q_ids", "p_ids")  # the token tensors a batch may carry
+
 
 def resolve_device(name: str) -> torch.device:
     """The run's device; a CUDA device with no card raises instead of using the CPU."""
@@ -112,6 +115,7 @@ def _unsupported(cfg: ConfigNode) -> list[str]:
 
 
 class TrainFinetuneRecipeForNextTokenPrediction:
+    auto_model = AutoModelForCausalLM  # the loader _build_model_and_params calls
     saves_checkpoints = True
 
     def __init__(self, cfg: ConfigNode):
@@ -126,8 +130,7 @@ class TrainFinetuneRecipeForNextTokenPrediction:
         if bad:
             raise NotImplementedError(
                 f"not ported to the PyTorch package yet: {', '.join(bad)} (see ROADMAP.md)")
-        seed = int(cfg.get("seed", 42))
-        self.rng = StatefulRNG(seed)
+        self.rng = StatefulRNG(int(cfg.get("seed", 42)))
         dist_cfg = {k: int(v) for k, v in (cfg.get("distributed") or ConfigNode()).items()
                     if k in MeshAxis.ALL and v is not None}
         self.mesh = MeshContext(**dist_cfg)
@@ -136,46 +139,26 @@ class TrainFinetuneRecipeForNextTokenPrediction:
 
         backend_cfg = cfg.get("backend")
         self.backend = BackendConfig(**backend_cfg.to_dict()) if backend_cfg else BackendConfig()
-        pretrained = cfg.get("model.pretrained_model_name_or_path")
-        if pretrained:
-            pretrained = resolve_pretrained_path(pretrained)
-            self.hf_config = load_hf_config(pretrained)
-        else:
-            model_cfg = cfg.get("model.config")
-            if model_cfg is None:
-                raise ValueError("config needs model.pretrained_model_name_or_path or "
-                                 "model.config (an HF config dict)")
-            self.hf_config = (model_cfg.to_dict() if isinstance(model_cfg, ConfigNode)
-                              else dict(model_cfg))
-        model_cls = AutoModelForCausalLM.model_class(self.hf_config)
-        config = model_cls.config_class.from_hf(self.hf_config)
-        self.moe = getattr(config, "moe", None)
-
-        # loss selection, with the JAX recipe's default: big vocabularies take the
-        # fused linear CE, so the (tokens, vocab) logits never exist at once.
-        # loss.impl "auto" runs its kernels on the card and their plain version on
-        # the CPU (ops/losses.py)
-        default_loss = "linear_ce" if config.vocab_size >= 65536 else "masked_ce"
-        self.loss_name = cfg.get("loss.name", default_loss)
-        if self.loss_name not in ("masked_ce", "linear_ce"):
-            raise NotImplementedError(f"loss {self.loss_name!r} is not ported yet")
+        # loss.impl "auto" runs the linear-CE kernels on the card and their plain version
+        # on the CPU (ops/losses.py); a bad one raises before anything is built
         self.loss_impl = cfg.get("loss.impl", "auto")
         if self.loss_impl not in LINEAR_CE_IMPLS:
             raise ValueError(f"unknown loss.impl {self.loss_impl!r} {LINEAR_CE_IMPLS}")
         self.loss_filter_eps = cfg.get("loss.filter_eps", 1e-7)
+        self._build_model_and_params()
+        config = self.model.config
+        self.moe = getattr(config, "moe", None)
+        # the loss, with the JAX recipe's default: big vocabularies take the fused linear
+        # CE, so the (tokens, vocab) logits never exist at once
+        default_loss = "linear_ce" if config.vocab_size >= 65536 else "masked_ce"
+        self.loss_name = cfg.get("loss.name", default_loss)
+        if self.loss_name not in ("masked_ce", "linear_ce"):
+            raise NotImplementedError(f"loss {self.loss_name!r} is not ported yet")
 
-        params_dtype = DTYPES[cfg.get("model.params_dtype", "float32")]
-        if pretrained:
-            self.model = AutoModelForCausalLM.from_pretrained(
-                pretrained, self.backend, dtype=params_dtype, device=self.device)
-        else:
-            generator = torch.Generator(device=self.device).manual_seed(seed)
-            self.model = model_cls(config, self.backend, device=self.device, dtype=params_dtype,
-                                   generator=generator)
         self.params = self.model.param_dict()
         n_params = sum(p.numel() for p in self.params.values())
-        logger.info("model: %s (%.1fM params) on %s", model_cls.__name__, n_params / 1e6,
-                    self.device)
+        logger.info("model: %s (%.1fM params) on %s", type(self.model).__name__,
+                    n_params / 1e6, self.device)
         self._build_peft()
         # MoE load-balance rows, as the JAX recipe: "brief" by default for MoE models
         self.moe_metrics_mode = cfg.get("moe_metrics.mode",
@@ -234,8 +217,46 @@ class TrainFinetuneRecipeForNextTokenPrediction:
         self.metric_logger.log_header(
             torch_version=torch.__version__, device_kind=self.device_kind, n_devices=1,
             config_digest=_digest(cfg), loss_name=self.loss_name, n_params=n_params)
-        self._flops_per_token = flops_per_token(self.hf_config, self.seq_len)
+        # MFU needs the analytic FLOPs count; a config outside its formula (GPT-2's
+        # n_embd / n_layer names) logs rows without tflops_per_chip and mfu, as JAX's
+        try:
+            self._flops_per_token = float(flops_per_token(self.hf_config, self.seq_len))
+        except Exception:
+            self._flops_per_token = None
         self._maybe_resume()
+
+    def _build_model_and_params(self):
+        """``self.model`` on ``self.device`` and ``self.hf_config``, the HF config dict it
+        was built from: the weights of a local HF directory
+        (``model.pretrained_model_name_or_path``) or random ones from the seed
+        (``model.config``), through ``auto_model`` in ``_params_dtype()``. A recipe with
+        another head (sequence classification) sets those two and ``_auto_model_kwargs``,
+        as JAX's subclasses override this hook."""
+        cfg = self.cfg
+        kw = dict(backend=self.backend, dtype=self._params_dtype(), device=self.device,
+                  **self._auto_model_kwargs())
+        pretrained = cfg.get("model.pretrained_model_name_or_path")
+        if pretrained:
+            pretrained = resolve_pretrained_path(pretrained)
+            self.hf_config = load_hf_config(pretrained)
+            self.model = self.auto_model.from_pretrained(pretrained, **kw)
+            return
+        self.hf_config = self._model_config_dict()
+        generator = torch.Generator(device=self.device).manual_seed(int(cfg.get("seed", 42)))
+        self.model = self.auto_model.from_config(self.hf_config, generator=generator, **kw)
+
+    def _params_dtype(self) -> torch.dtype:
+        return DTYPES[self.cfg.get("model.params_dtype", "float32")]
+
+    def _auto_model_kwargs(self) -> dict:
+        return {}
+
+    def _model_config_dict(self) -> dict:
+        model_cfg = self.cfg.get("model.config")
+        if model_cfg is None:
+            raise ValueError("config needs model.pretrained_model_name_or_path or "
+                             "model.config (an HF config dict)")
+        return model_cfg.to_dict() if isinstance(model_cfg, ConfigNode) else dict(model_cfg)
 
     def _build_tokenizer(self):
         """``tokenizer._target_`` builds it; else a local HF directory (``tokenizer.
@@ -451,7 +472,6 @@ class TrainFinetuneRecipeForNextTokenPrediction:
 
     # ------------------------------------------------------------------ train
     def run_train_validation_loop(self):
-        tokens = self.micro_batch_size * self.seq_len
         saving = self.checkpointer is not None and self.checkpointer.config.enabled
         pipeline = self._pipeline = InputPipeline(self.step_scheduler, self.dataloader,
                                                   stack_batches, self._to_device, self.prefetch,
@@ -462,13 +482,16 @@ class TrainFinetuneRecipeForNextTokenPrediction:
                 # the consumed step rides on the batch: under prefetch the scheduler's own
                 # counter runs ahead
                 stack, step = fetched.stack, fetched.step
+                # biencoder batches carry q_ids / p_ids in place of input_ids
+                token_keys = [k for k in _TOKEN_KEYS if k in stack]
                 if not checked_vocab:
                     # a tokenizer / model vocab mismatch fails here, not as NaN later
-                    top = int(stack["input_ids"].max())
-                    if top >= self.model.config.vocab_size:
-                        raise ValueError(f"batch input_ids contains token id {top} >= model "
-                                         f"vocab_size {self.model.config.vocab_size}: "
-                                         "tokenizer / model mismatch")
+                    vocab = self.model.config.vocab_size
+                    for key in token_keys:
+                        top = int(stack[key].max())
+                        if top >= vocab:
+                            raise ValueError(f"batch {key} contains token id {top} >= model "
+                                             f"vocab_size {vocab}: tokenizer / model mismatch")
                     checked_vocab = True
                 t0 = time.perf_counter()
                 step_fn = self._train_step
@@ -480,8 +503,8 @@ class TrainFinetuneRecipeForNextTokenPrediction:
                 if self._guard_nonfinite and bool(m["nonfinite"]):
                     raise FloatingPointError(f"non-finite loss or gradient at step {step}")
                 if self.step_scheduler.is_log_step_at(step):
-                    self._log_step(step, m, loss, dt, stack["labels"].shape[0] * tokens,
-                                   pipeline)
+                    self._log_step(step, m, loss, dt,
+                                   sum(stack[k].numel() for k in token_keys), pipeline)
                 if self.val_dataloader is not None and self.step_scheduler.is_val_step_at(step):
                     self._run_validation(step)
                 # the best-tracking path may have just saved this very step
@@ -501,19 +524,20 @@ class TrainFinetuneRecipeForNextTokenPrediction:
 
     def _log_step(self, step, m, loss, dt, step_tokens, pipeline):
         tps = step_tokens / dt
-        util = mfu(tps, self._flops_per_token, self.device_kind)
         extra = {}
+        if self._flops_per_token is not None:
+            util = mfu(tps, self._flops_per_token, self.device_kind)
+            extra = {"tflops_per_chip": round(tps * self._flops_per_token / 1e12, 2),
+                     "mfu": None if util is None else round(util, 4)}
         if "expert_load" in m and self.moe_metrics_mode:
-            extra = compute_load_balance_metrics(m["expert_load"].cpu().numpy(),
-                                                 mode=self.moe_metrics_mode)
+            extra.update(compute_load_balance_metrics(m["expert_load"].cpu().numpy(),
+                                                      mode=self.moe_metrics_mode))
         if pipeline.prefetching:
             extra["prefetch_depth"] = pipeline.ready_depth()
         self.metric_logger.log(
             step, loss=loss, grad_norm=float(m["grad_norm"]),
             lr=self.lr_schedule(step), num_label_tokens=int(m["num_label_tokens"]),
-            step_time_s=round(dt, 4), tps=round(tps, 1), tps_per_chip=round(tps, 1),
-            tflops_per_chip=round(tps * self._flops_per_token / 1e12, 2),
-            mfu=None if util is None else round(util, 4), **extra)
+            step_time_s=round(dt, 4), tps=round(tps, 1), tps_per_chip=round(tps, 1), **extra)
 
     # ------------------------------------------------------------- validation
     def _run_validation(self, step: int):
@@ -540,12 +564,17 @@ class TrainFinetuneRecipeForNextTokenPrediction:
         finally:
             dl.load_state_dict(state)
 
-    def _log_val_loss(self, step: int, total: float, count: int):
+    def _log_val_loss(self, step: int, total: float, count: int,
+                      extra_sums: dict[str, float] | None = None):
+        """Log ``total / count``; ``extra_sums``: other per-example sums over the same
+        ``count`` (the biencoder's acc@1, recall@k and MRR), logged as their means."""
         if not count:
             return
         val_loss = total / count
-        self.val_metric_logger.log(step, val_loss=val_loss)
-        logger.info("validation @ step %d: loss %.4f", step, val_loss)
+        extras = {k: v / count for k, v in (extra_sums or {}).items()}
+        self.val_metric_logger.log(step, val_loss=val_loss, **extras)
+        logger.info("validation @ step %d: loss %.4f%s", step, val_loss,
+                    "".join(f" | {k} {v:.4f}" for k, v in extras.items()))
         # best-checkpoint tracking: save the improving step and point `best` at it
         if (self.checkpointer is not None and self.checkpointer.config.enabled
                 and bool(self.cfg.get("checkpoint.save_best", True))

@@ -49,7 +49,9 @@ Phases, in order; any failure exits non-zero before the last line:
    rows of 8192 at its 32 heads over 8, D=128; causal at D=128 over 4 x 2048: (ec)
    GLM-4-9B's 32 heads over 2, (ed) OLMo-2-7B's 32 over 32, (ee) SmolLM3-3B's 16 over 4,
    (ef) Mixtral's 32 over 8 (the plain version over groups of KV heads where its scores
-   would pass 4 GiB);
+   would pass 4 GiB); for the encoder slice: (ga) / (gb) non-causal over right-padded
+   rows of 64 (one q tile, the padding inside it) and 256 at 32 heads over 8, D=64 (the
+   biencoder's towers), (gc) GPT-2's causal MHA, 12 heads over 12, S=1024;
 4. flash kernel times (flash_fwd, flash_dq, flash_dkv) at shapes (a) and (f) beside the
    bound, the plain version and SDPA, and the whole backward as the wrapper runs it
    (delta, flash_dq, flash_dkv) beside SDPA's backward (one phase alone:
@@ -67,7 +69,11 @@ Phases, in order; any failure exits non-zero before the last line:
    H=16, KH=8, causal, scale 256^-0.5) without and with its cap (G9c, beside
    FlexAttention), and Gemma-3-4B's (G4w: H=8, KH=4, window 1024, SDPA with the window as
    a boolean mask); then Command R7B's sliding layers (C: B=1, S=8192, H=32, KH=8, D=128,
-   window 4096, SDPA with the window as a boolean mask); then head_dim 80 (with and without
+   window 4096, SDPA with the window as a boolean mask); then main path 35's towers, (Bq)
+   32 queries of 64 and (Bp) 64 passages of 256 at 32 heads over 8, D=64, non-causal over
+   right-padded rows (the bound over the pairs the segment ids allow, SDPA with the
+   padding as a boolean mask), and (GPT) main path 37's causal MHA (B=16, S=1024, H=KH=12,
+   D=64); then head_dim 80 (with and without
    the cap) must raise
    NotImplementedError on the card and launch nothing, and so must the ring kernels at
    (D, Dv) = (96, 64) and (192, 192);
@@ -153,7 +159,7 @@ Phases, in order; any failure exits non-zero before the last line:
 17. main path 9: BASELINE config #1 (examples/llm_finetune/llama3_2_1b_hellaswag.yaml)
    through train_ft with its model section pointing at a local HF directory that the
    port's safetensors writer fills with a random-init Llama-3.2-1B (published config,
-   2 of 16 layers; write_pretrained), its data sections at HellaSwag-shaped JSONL rows
+   BASELINE_LAYERS of 16 layers; write_pretrained), its data sections at HellaSwag-shaped JSONL rows
    read through ByteTokenizer (baseline_config), the prefetch pipeline on, validation
    and a checkpoint with the consolidated HF export every 2 steps, 4 steps
    (baseline_args). Run A runs fresh; its step_4 is removed and run B resumes from
@@ -224,7 +230,27 @@ Phases, in order; any failure exits non-zero before the last line:
    (2), SmolLM3-3B (4, one NoPE layer) and GLM-4-9B-0414 (2) (lineage_config; linear CE at
    a vocabulary of 65,536 or more), and on examples/benchmark/starcoder2_proxy.yaml as it
    stands (the structural alias) with adafactor_nomom for its optimizer, which neither
-   package has.
+   package has. Then the classifier and encoder recipes and GPT-2 (_encoder_paths), each
+   file's hub data swapped for local rows of random words read through ByteTokenizer
+   (local_data_config): main path 33, train_seq_cls on
+   examples/llm_finetune/seq_cls.yaml from a local HF directory of a random-init
+   Llama-3.2-1B at 4 of 16 layers without a score head (the fresh head must be JAX's
+   default_rng(0) one bitwise), flash, 2 labels, 4 steps of 4 microbatches of 8 x 512,
+   one save whose hf/ (score.weight, no lm_head) reloads bitwise; main path 34,
+   train_seq_cls on examples/llm_finetune/qwen2_5_seq_cls_lora.yaml at Qwen2.5-7B's
+   widths, 4 of 28 layers, 3 labels, LoRA on wq / wv: four trainable factors, the head
+   bitwise at its init after 3 steps; main path 35, train_biencoder on
+   examples/biencoder/llama3_2_1b_last_token_pool.yaml (its own 16-layer tower, flash,
+   32 queries of 64 with 64 passages of 256, 4 steps, validation at 2 and 4), every
+   flash launch non-causal, its first loss within TOL_BIENCODER_LOSS of the xla path's
+   and the same first step with flash's mask made causal or blind to the padding beyond it;
+   main path 36, mine_hard_negatives on examples/biencoder/mine_hard_negatives.yaml over
+   MINE_ROWS rows (1-4 negatives a row, none the positive, each under the margin cut,
+   read back by RetrievalDataset); main path 37, train_ft on
+   examples/llm_pretrain/nanogpt.yaml (GPT-2-124M, 12 layers, flash, mb 16 x 1024) over
+   nanoGPT shards from the seed, run A fresh with saves at 2 and 4, run B resumed from
+   step 2 bitwise, step_4/hf reloaded bitwise, nanoGPT's MFU printed beside the
+   recipe's absent one.
    Every main path also checks that each of its gmm, tgmm, lce_fwd and lce_bwd launches
    took the wgmma route (``launches by route`` on its line), and, through one helper
    (_check_path_launches), that its windowed flash launches are those of its sliding
@@ -307,8 +333,10 @@ LLAMA32_1B = {
     "rms_norm_eps": 1e-5, "tie_word_embeddings": True, "initializer_range": 0.02,
     "bos_token_id": 128000, "eos_token_id": 128001, "torch_dtype": "bfloat16",
 }
+BASELINE_LAYERS = 1  # depth of main path 9 (2 until the encoder slice's paths: its six saves)
 BASELINE_STEPS = 4  # max_steps of main path 9: checkpoints and validation at 2 and 4
 BASELINE_VAL_BATCHES = 2  # validation_max_batches of main path 9
+BASELINE_MODEL = dict(LLAMA32_1B, num_hidden_layers=BASELINE_LAYERS)
 GPT_OSS_YAML = os.path.join(HERE, "examples", "benchmark", "gpt_oss_20b_proxy.yaml")
 # The published config.json of openai/gpt-oss-20b (Hugging Face Hub) laid over the proxy
 # config, at 4 of its 24 layers (2 sliding, 2 full, alternating from sliding, as its
@@ -368,9 +396,9 @@ MOONLIGHT_16B_A3B = {
     "initializer_range": 0.02, "bos_token_id": 163584, "eos_token_id": 163585,
     "torch_dtype": "bfloat16",
 }
-# depth of main path 16: the dense layer and 2 MoE layers (the script's time: a slow host
-# nears its 1200 s limit at 4)
-MOONLIGHT_LAYERS = 3
+# depth of main path 16: the dense layer and 1 MoE layer (the script's time: a slow host
+# neared its 1200 s limit at 4; 3 until the encoder slice's paths)
+MOONLIGHT_LAYERS = 2
 MOONLIGHT_STEPS = 4  # max_steps of main path 16: one consolidated save, at step 4
 MOONLIGHT_RING_LAYERS = 2  # depth of main path 17: the dense layer and 1 MoE layer
 MOONLIGHT_RING_SEQ, MOONLIGHT_RING_CP = 16384, 4  # main path 17: 4096 tokens a cp shard
@@ -464,12 +492,25 @@ QWEN25_7B = {
     "tie_word_embeddings": False, "use_sliding_window": False, "attention_bias": True,
     "initializer_range": 0.02, "torch_dtype": "bfloat16",
 }
-# depth of main paths 24 and 26: 8 of Llama-3.2-1B's 16 (the script's time: a slow host nears
-# its 1200 s limit at 16)
-LORA_LAYERS = 8
+# depth of main paths 24 and 26: 4 of Llama-3.2-1B's 16 (the script's time: a slow host
+# neared its 1200 s limit at 16; 8 until the encoder slice's paths)
+LORA_LAYERS = 4
 LORA_STEPS = 4  # max_steps of main path 24: a save at steps 2 and 4
 PEFT_STEPS = 3  # max_steps of main paths 25-28
 QAT_STEPS = 4  # max_steps of main path 29
+SEQ_CLS_YAML = os.path.join(HERE, "examples", "llm_finetune", "seq_cls.yaml")
+QWEN25_SEQ_CLS_YAML = os.path.join(HERE, "examples", "llm_finetune",
+                                   "qwen2_5_seq_cls_lora.yaml")
+BIENCODER_YAML = os.path.join(HERE, "examples", "biencoder", "llama3_2_1b_last_token_pool.yaml")
+MINE_YAML = os.path.join(HERE, "examples", "biencoder", "mine_hard_negatives.yaml")
+NANOGPT_YAML = os.path.join(HERE, "examples", "llm_pretrain", "nanogpt.yaml")
+SEQ_CLS_LAYERS = 4  # depth of main paths 33 (Llama-3.2-1B's 16) and 34 (Qwen2.5-7B's 28)
+SEQ_CLS_STEPS = 4  # max_steps of main path 33: one save, at step 4
+QWEN25_SEQ_CLS_STEPS = 3  # max_steps of main path 34
+BIENCODER_STEPS = 4  # max_steps of main path 35: validation at steps 2 and 4
+BIENCODER_VAL_BATCHES = 1  # validation_max_batches of main path 35
+MINE_ROWS = 512  # query / positive pairs of main path 36
+GPT2_STEPS = 4  # max_steps of main path 37: saves at steps 2 and 4
 COHERE2_SFT_YAML = os.path.join(HERE, "examples", "llm_finetune", "cohere2_r7b_sft.yaml")
 MIXTRAL_YAML = os.path.join(HERE, "examples", "benchmark", "mixtral_proxy.yaml")
 STARCODER2_YAML = os.path.join(HERE, "examples", "benchmark", "starcoder2_proxy.yaml")
@@ -562,6 +603,70 @@ def write_hellaswag_jsonl(path: str, rows: int, seed: int) -> str:
         for _ in range(rows):
             f.write(json.dumps({"ctx": words(20, 80), "endings": [words(5, 25) for _ in range(4)],
                                 "label": int(rng.randint(4))}) + "\n")
+    return path
+
+
+def _words(rng, lo, hi) -> str:
+    return " ".join(rng.choice(_WORDS, rng.randint(lo, hi)))
+
+
+def write_seq_cls_jsonl(path: str, rows: int, labels: int, seed: int) -> str:
+    """Classification rows ``{text, label}`` of random words from ``seed``: texts of 20-80
+    words (about 100-500 bytes, within the files' rows of 512), labels in [0, labels)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    with open(path, "w") as f:
+        for _ in range(rows):
+            f.write(json.dumps({"text": _words(rng, 20, 80),
+                                "label": int(rng.randint(labels))}) + "\n")
+    return path
+
+
+def write_retrieval_rows(path: str, rows: int, seed: int, negatives: int = 0) -> str:
+    """Retrieval rows ``{query, pos_doc[, neg_doc]}`` of random words from ``seed``: a
+    query of 3-10 words, its positive passage that query and 20-50 words more (the
+    lexical overlap a real positive has), and with ``negatives`` the positives of the
+    next rows as its hard negatives."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    queries = [_words(rng, 3, 10) for _ in range(rows)]
+    docs = [f"{q} {_words(rng, 20, 50)}" for q in queries]
+    with open(path, "w") as f:
+        for i, (q, d) in enumerate(zip(queries, docs)):
+            row = {"query": q, "pos_doc": d}
+            if negatives:
+                row["neg_doc"] = [docs[(i + j) % rows] for j in range(1, negatives + 1)]
+            f.write(json.dumps(row) + "\n")
+    return path
+
+
+def write_nanogpt_shards(out_dir: str, tokens: int, vocab: int, seed: int) -> str:
+    """Two nanoGPT .bin shards (write_shard: magic 278895051, uint16) of ``tokens`` ids
+    uniform in [0, vocab) from ``seed``; returns their file pattern."""
+    import numpy as np
+
+    from automodel_tpu_torch.data.llm.nanogpt_dataset import write_shard
+
+    ids = np.random.RandomState(seed).randint(0, vocab, tokens)
+    for i, part in enumerate(np.array_split(ids, 2)):
+        write_shard(os.path.join(out_dir, f"fineweb_train_{i:06d}.bin"), part)
+    return os.path.join(out_dir, "fineweb_train_*.bin")
+
+
+def local_data_config(out_dir: str, yaml_path: str, sections: dict) -> str:
+    """A file of examples/ with the top-level ``sections`` given in place of its own (its
+    hub dataset and model sections: no network here), a ByteTokenizer, and every other
+    setting the file's; written to ``out_dir``."""
+    import yaml
+
+    with open(yaml_path) as f:
+        cfg = yaml.safe_load(f)
+    cfg.update(sections, tokenizer={"_target_": "chip_smoke.ByteTokenizer"})
+    path = os.path.join(out_dir, "local_" + os.path.basename(yaml_path))
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
     return path
 
 
@@ -868,6 +973,10 @@ TOL_MOE_LOSS, TOL_MOE_GRAD = 1e-2, 2e-2
 # same weights and batch: linear CE takes f32 logits of the bf16 h and w where masked
 # CE upcasts bf16-rounded logits; the mean over 8192 tokens differs by ~1e-4
 TOL_TIED_LOSS = 1e-3
+# main path 35's first loss, flash against xla (the same weights and batch): 16 bf16
+# non-causal layers, embeddings normalised and their products over temperature 0.02,
+# which scales a bf16 rounding of a score by 50
+TOL_BIENCODER_LOSS = 2e-2
 # linear CE kernels vs plain version (f32 from the same bf16 inputs). z: the kernel
 # accumulates the same bf16 products in f32 in another order (|z| up to ~150 in case
 # b, where 1e-5 relative is 1.5e-3). dH, dW: the kernel rounds dlogits to bf16
@@ -951,16 +1060,32 @@ def _allowed_pairs(s, window=None):
     return window * (window + 1) // 2 + (s - window) * window
 
 
-def _flash_work(q, k, v, window=None):
+def _segment_pairs(seg, causal) -> int:
+    """Allowed (q, k) pairs of one head over a (B, S) tensor of segment ids: pairs within
+    one segment (a right-padded row's pads attend to each other, segment 0 == 0), those
+    with k at or before q when ``causal``; counted from this run's ids."""
+    total = 0
+    for row in seg.tolist():
+        runs, start = [], 0
+        for i in range(1, len(row) + 1):
+            if i == len(row) or row[i] != row[start]:
+                runs.append(i - start)
+                start = i
+        total += sum(n * (n + 1) // 2 if causal else n * n for n in runs)
+    return total
+
+
+def _flash_work(q, k, v, window=None, pairs=None):
     """FLOP and byte counts of one causal flash forward and backward, read from the
     timed tensors' own shapes: {"flash_fwd": (flops, bytes), "flash_dq": (...), ...}.
     The bytes count each input read once and each output written once; the FLOPs only
-    the allowed pairs (with a sliding ``window``, those inside it). Products a (q, k)
-    pair: forward 2 (S, PV), flash_dq 3 (S, dP, dQ), flash_dkv 4 (S, dP, dV, dK), and
-    the backward as the wrapper runs it ("flash_backward": both, from q, k, v, O, dO and
-    lse to dq, dk and dv) 7."""
+    the allowed pairs (with a sliding ``window``, those inside it; ``pairs``: the
+    allowed pairs of one head over the batch, where segment ids or no causal mask set
+    them, :func:`_segment_pairs`). Products a (q, k) pair: forward 2 (S, PV), flash_dq 3
+    (S, dP, dQ), flash_dkv 4 (S, dP, dV, dK), and the backward as the wrapper runs it
+    ("flash_backward": both, from q, k, v, O, dO and lse to dq, dk and dv) 7."""
     b, s, h, d = q.shape
-    pairs = b * h * _allowed_pairs(s, window)
+    pairs = h * (b * _allowed_pairs(s, window) if pairs is None else pairs)
     qkv_bytes = 2 * (q.numel() + k.numel() + v.numel())
     lse_bytes = 4 * b * h * s
     return {"flash_fwd": (4 * d * pairs, qkv_bytes + 2 * q.numel() + lse_bytes),  # + O, lse
@@ -1073,6 +1198,17 @@ def _inner_segments(torch):
                                 (0, 65, 191, 700, 1203, 1300, 2048))):
         for i, (a, b) in enumerate(zip(cuts[:-1], cuts[1:])):
             seg[row, a:b] = i + 1
+    return seg.cuda()
+
+
+def _right_padded(torch, b, s, seed=0):
+    """(b, s) int32 segment ids of a right-padded batch, as retrieval_collate and
+    seq_cls_collate lay one out: 1 on each row's tokens, 0 on its padding; the first row
+    full, the second one token long, the others of random lengths from ``seed``."""
+    g = torch.Generator().manual_seed(seed)
+    lengths = torch.randint(1, s + 1, (b,), generator=g)
+    lengths[0], lengths[min(1, b - 1)] = s, 1 if b > 1 else s
+    seg = (torch.arange(s)[None, :] < lengths[:, None]).to(torch.int32)
     return seg.cuda()
 
 
@@ -1196,6 +1332,14 @@ def _flash_phase(torch, fa, errs):
                         ("ef", MIXTRAL_8X7B)):
         note(_kernel_case(torch, fa, name, 4, 2048, model["num_attention_heads"],
                           model["num_key_value_heads"], causal=True, d=128))
+    # the classifier and encoder slice: ga / gb the biencoder's towers (main paths 35-36),
+    # non-causal over right-padded rows of 64 (one q tile, padding inside it) and 256 at
+    # Llama-3.2-1B's 32 heads over 8; gc GPT-2's causal MHA, 12 heads over 12, rows of
+    # 1024 (main path 37)
+    for name, b, length in (("ga", 8, 64), ("gb", 4, 256)):
+        note(_kernel_case(torch, fa, name, b, length, 32, 8, causal=False,
+                          seg=_right_padded(torch, b, length)))
+    note(_kernel_case(torch, fa, "gc", 2, 1024, 12, 12, causal=True))
 
 
 def _refused_on_the_card(torch, fa):
@@ -1214,7 +1358,7 @@ def _refused_on_the_card(torch, fa):
         raise AssertionError("a refused flash call launched a kernel")
 
 
-def _time_ms(torch, fn, warmup=3, reps=20, batch=1) -> float:
+def _time_ms(torch, fn, warmup=2, reps=10, batch=1) -> float:
     """Median of ``reps`` CUDA-event timings of one call, after ``warmup`` calls; with
     ``batch`` > 1 each timing spans that many calls back to back and is divided by it,
     so the host's launch work of a short kernel overlaps the previous call's device time
@@ -1235,8 +1379,8 @@ def _time_ms(torch, fn, warmup=3, reps=20, batch=1) -> float:
 
 def _library_sdpa(torch, q, k, v, causal, mask=None, scale=None):
     """The yardstick: PyTorch's own attention call, timed here and used nowhere in the port.
-    ``mask``: a boolean (Sq, Skv) mask in place of the causal flag (the sliding window's
-    yardstick), with k and v repeated to q's heads beforehand by the caller (a masked call
+    ``mask``: a boolean (Sq, Skv) or (B, 1, Sq, Skv) mask in place of the causal flag (the
+    sliding window's and a padded batch's yardstick), with k and v repeated to q's heads beforehand by the caller (a masked call
     takes no GQA in its memory-efficient kernel); ``scale``: the softmax scale (None:
     head_dim^-0.5)."""
     import torch.nn.functional as F
@@ -1280,7 +1424,8 @@ def _flash_timing_inputs(torch, b, s, h, kh, d, device="cuda"):
     return (q, k, v, do), _flash_work(q, k, v)
 
 
-def _timings(torch, fa, b=4, s=2048, h=32, kh=8, d=64, window=None, softcap=None, scale=None):
+def _timings(torch, fa, b=4, s=2048, h=32, kh=8, d=64, window=None, softcap=None, scale=None,
+             causal=True, seg=None):
     """ms of each kernel at shape (a), or at the shape (and sliding ``window``, logit
     ``softcap`` and softmax ``scale``: d^-0.5 by default) given, with bound, plain version
     and SDPA (with a window: SDPA over the window as a boolean mask; with a cap:
@@ -1289,38 +1434,45 @@ def _timings(torch, fa, b=4, s=2048, h=32, kh=8, d=64, window=None, softcap=None
     whole backward as the wrapper runs it ("flash_backward": delta, flash_dq and
     flash_dkv) beside SDPA's (or FlexAttention's) backward. The work behind the bound is
     read from the timed tensors (and the pairs the window allows): the products only, as
-    without the cap (its tanh runs on other units than the tensor cores)."""
+    without the cap (its tanh runs on other units than the tensor cores). ``causal``
+    False and ``seg`` (int32 (B, S) segment ids, a right-padded batch's: 0 on the pads)
+    time the masks of an encoder's batch; the bound then counts the pairs the ids allow
+    (:func:`_segment_pairs`) and SDPA takes the same mask as a boolean one."""
     (q, k, v, do), _ = _flash_timing_inputs(torch, b, s, h, kh, d)
-    work = _flash_work(q, k, v, window)
+    pairs = None if seg is None and causal else _segment_pairs(
+        torch.ones(b, s) if seg is None else seg, causal)
+    work = _flash_work(q, k, v, window, pairs)
     scale = q.shape[-1]**-0.5 if scale is None else scale
     cap = softcap or 0.0
-    plain_kw = dict(sliding_window=window, logit_soft_cap=softcap, softmax_scale=scale)
+    plain_kw = dict(sliding_window=window, logit_soft_cap=softcap, softmax_scale=scale,
+                    segment_ids_q=seg)
     out = {}
 
-    o, lse = fa.flash_fwd(q, k, v, None, None, scale, True, window, None, cap)
+    o, lse = fa.flash_fwd(q, k, v, seg, seg, scale, causal, window, None, cap)
     delta = fa._delta(o, do)
-    fwd_ms = _time_ms(torch, lambda: fa.flash_fwd(q, k, v, None, None, scale, True, window, None,
+    fwd_ms = _time_ms(torch, lambda: fa.flash_fwd(q, k, v, seg, seg, scale, causal, window, None,
                                                   cap))
-    dq_ms = _time_ms(torch, lambda: fa.flash_dq(q, k, v, None, None, do, lse, delta, scale, True,
+    dq_ms = _time_ms(torch, lambda: fa.flash_dq(q, k, v, seg, seg, do, lse, delta, scale, causal,
                                                 window, cap))
-    dkv_ms = _time_ms(torch, lambda: fa.flash_dkv(q, k, v, None, None, do, lse, delta, scale,
-                                                  True, window, cap))
-    bwd_ms = _time_ms(torch, lambda: fa.flash_backward(q, k, v, None, None, o, lse, do, scale,
-                                                       True, window, cap))
+    dkv_ms = _time_ms(torch, lambda: fa.flash_dkv(q, k, v, seg, seg, do, lse, delta, scale,
+                                                  causal, window, cap))
+    bwd_ms = _time_ms(torch, lambda: fa.flash_backward(q, k, v, seg, seg, o, lse, do, scale,
+                                                       causal, window, cap))
     delta_ms = _time_ms(torch, lambda: fa._delta(o, do))
-    plain_dq = _time_ms(torch, lambda: fa.flash_dq_reference(q, k, v, do, lse, delta, **plain_kw),
-                        warmup=1, reps=3)
+    plain_dq = _time_ms(torch, lambda: fa.flash_dq_reference(q, k, v, do, lse, delta,
+                                                             causal=causal, **plain_kw),
+                        warmup=1, reps=2)
     plain_dkv = _time_ms(torch, lambda: fa.flash_dkv_reference(q, k, v, do, lse, delta,
-                                                               **plain_kw),
-                         warmup=1, reps=3)
-    plain_fwd = _time_ms(torch, lambda: fa.flash_attention_reference(q, k, v, causal=True,
+                                                               causal=causal, **plain_kw),
+                         warmup=1, reps=2)
+    plain_fwd = _time_ms(torch, lambda: fa.flash_attention_reference(q, k, v, causal=causal,
                                                                      **plain_kw),
-                         warmup=1, reps=5)
+                         warmup=1, reps=3)
     qp, kp, vp = (x.clone().requires_grad_() for x in (q, k, v))
-    o_plain, _ = fa.flash_attention_reference(qp, kp, vp, causal=True, **plain_kw)
+    o_plain, _ = fa.flash_attention_reference(qp, kp, vp, causal=causal, **plain_kw)
     plain_bwd = _time_ms(torch, lambda: torch.autograd.grad(o_plain, (qp, kp, vp), do,
                                                             retain_graph=True),
-                         warmup=1, reps=5)
+                         warmup=1, reps=3)
     del o_plain
     flex = {}
     if softcap:  # FlexAttention computes the capped function: the yardstick
@@ -1336,18 +1488,25 @@ def _timings(torch, fa, b=4, s=2048, h=32, kh=8, d=64, window=None, softcap=None
                                                                   retain_graph=True))
         del o_lib, ql, kl, vl, flex_fn
     mask = None
-    if window is not None:  # SDPA's masked kernels take no GQA: k, v at q's heads
-        idx = torch.arange(s, device="cuda")
-        mask = (idx[:, None] >= idx[None, :]) & (idx[:, None] - idx[None, :] < window)
+    if window is not None or seg is not None:  # SDPA's masked kernels take no GQA: k, v
+        idx = torch.arange(s, device="cuda")  # at q's heads
+        mask = (idx[:, None] >= idx[None, :]) if causal else torch.ones(
+            s, s, dtype=torch.bool, device="cuda")
+        if window is not None:
+            mask = mask & (idx[:, None] - idx[None, :] < window)
+        if seg is not None:  # (B, 1, S, S): each row's own segments
+            mask = mask & (seg[:, None, :, None] == seg[:, None, None, :])
         k, v = k.repeat_interleave(h // kh, 2), v.repeat_interleave(h // kh, 2)
-    lib_fwd = _time_ms(torch, lambda: _library_sdpa(torch, q, k, v, True, mask, scale))
+    lib_fwd = _time_ms(torch, lambda: _library_sdpa(torch, q, k, v, causal, mask, scale))
     ql, kl, vl = (x.clone().requires_grad_() for x in (q, k, v))
-    o_lib = _library_sdpa(torch, ql, kl, vl, True, mask, scale)
+    o_lib = _library_sdpa(torch, ql, kl, vl, causal, mask, scale)
     lib_bwd = _time_ms(torch, lambda: torch.autograd.grad(o_lib, (ql, kl, vl), do,
                                                           retain_graph=True))
     del o_lib, delta, mask
     torch.cuda.empty_cache()
-    shown = f"B={b} S={s} H={h} KH={kh} D={q.shape[-1]} causal" + (
+    shown = f"B={b} S={s} H={h} KH={kh} D={q.shape[-1]} " + (
+        "causal" if causal else "non-causal") + (
+        f", right-padded ({pairs} allowed pairs a head)" if seg is not None else "") + (
         f", window {window}" if window is not None else "") + (
         f", softcap {softcap}, scale {scale:.6g}" if softcap else "")
     for name, ms, plain, lib in (("flash_fwd", fwd_ms, plain_fwd, lib_fwd),
@@ -1360,6 +1519,8 @@ def _timings(torch, fa, b=4, s=2048, h=32, kh=8, d=64, window=None, softcap=None
                      "bound_ms": max(t_ops, t_bytes),
                      "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                      "shape": {"B": b, "S": s, "H": h, "KH": kh, "D": q.shape[-1],
+                               **({} if causal else {"causal": False}),
+                               **({"allowed_pairs": pairs} if seg is not None else {}),
                                **({"window": window} if window is not None else {}),
                                **({"softcap": softcap, "scale": scale} if softcap else {})}}
         if name == "flash_backward":
@@ -1445,7 +1606,7 @@ def _window_timings(torch, fa, b=1, s=8192, h=64, kh=8, d=64, window=128):
         plain, note = None, None
         try:
             plain = _time_ms(torch, lambda: fa.flash_attention_reference(
-                q, k, v, causal=True, sliding_window=win, sinks=snk), warmup=1, reps=3)
+                q, k, v, causal=True, sliding_window=win, sinks=snk), warmup=1, reps=2)
         except torch.cuda.OutOfMemoryError as exc:
             note = f"not timed: {str(exc).splitlines()[0][:160]}"
         torch.cuda.empty_cache()
@@ -1809,18 +1970,18 @@ def _ring_timings(torch):
     del calls, x
     torch.cuda.empty_cache()
     out["ring_fwd"]["plain_ms"] = _time_ms(torch, lambda: rc.chunk_attention_fwd_reference(
-        q, k, v, pos, pos, None, None, st["acc"], st["m"], st["l"], **kw), warmup=1, reps=3)
+        q, k, v, pos, pos, None, None, st["acc"], st["m"], st["l"], **kw), warmup=1, reps=2)
     out["ring_bwd"]["plain_ms"] = _time_ms(torch, lambda: rc.chunk_attention_bwd_reference(
-        q, k, v, pos, pos, None, None, do, st["lse"], st["delta"], **kw), warmup=1, reps=3)
+        q, k, v, pos, pos, None, None, do, st["lse"], st["delta"], **kw), warmup=1, reps=2)
     out["ring_dq"]["plain_ms"] = _time_ms(torch, lambda: rc.chunk_attention_dq_reference(
-        q, k, v, pos, pos, None, None, do, st["lse"], st["delta"], **kw), warmup=1, reps=3)
+        q, k, v, pos, pos, None, None, do, st["lse"], st["delta"], **kw), warmup=1, reps=2)
     out["ring_dkv"]["plain_ms"] = _time_ms(torch, lambda: rc.chunk_attention_dkv_reference(
-        q, k, v, pos, pos, None, None, do, st["lse"], st["delta"], **kw), warmup=1, reps=3)
+        q, k, v, pos, pos, None, None, do, st["lse"], st["delta"], **kw), warmup=1, reps=2)
     rot = ra.FoldedRotation(cp)
     ring_fwd_all = _time_ms(torch, lambda: ra.ring_flash_forward(q, k, v, pos, pos, None, None,
-                                                                 rot, kw), warmup=1, reps=3)
+                                                                 rot, kw), warmup=1, reps=2)
     ring_bwd_all = _time_ms(torch, lambda: ra.ring_flash_backward(
-        q, k, v, pos, pos, None, None, st["out"], st["lse"], do, rot, kw), warmup=1, reps=3)
+        q, k, v, pos, pos, None, None, st["out"], st["lse"], do, rot, kw), warmup=1, reps=2)
     del st, q, k, v, do
     torch.cuda.empty_cache()
     for name in out:
@@ -1835,14 +1996,14 @@ def _ring_timings(torch):
     scale = d**-0.5
     o, lse_g = fa.flash_fwd(qg, kg, vg, None, None, scale, True)
     flash_fwd_ms = _time_ms(torch, lambda: fa.flash_fwd(qg, kg, vg, None, None, scale, True),
-                            warmup=1, reps=3)
+                            warmup=1, reps=2)
     flash_backward_ms = _time_ms(torch, lambda: fa.flash_backward(qg, kg, vg, None, None, o, lse_g,
-                                                             dog, scale, True), warmup=1, reps=3)
+                                                             dog, scale, True), warmup=1, reps=2)
     delta_g = fa._delta(o, dog)
     flash_dq_ms = _time_ms(torch, lambda: fa.flash_dq(qg, kg, vg, None, None, dog, lse_g, delta_g,
-                                                      scale, True), warmup=1, reps=3)
+                                                      scale, True), warmup=1, reps=2)
     flash_dkv_ms = _time_ms(torch, lambda: fa.flash_dkv(qg, kg, vg, None, None, dog, lse_g,
-                                                        delta_g, scale, True), warmup=1, reps=3)
+                                                        delta_g, scale, True), warmup=1, reps=2)
     del o, lse_g, delta_g
     sdpa_fwd_ms = _time_ms(torch, lambda: _library_sdpa(torch, qg, kg, vg, True), warmup=1,
                            reps=3)
@@ -1850,7 +2011,7 @@ def _ring_timings(torch):
     o_lib = _library_sdpa(torch, ql, kl, vl, True)
     sdpa_bwd_ms = _time_ms(torch, lambda: torch.autograd.grad(o_lib, (ql, kl, vl), dog,
                                                               retain_graph=True),
-                           warmup=1, reps=3)
+                           warmup=1, reps=2)
     flash_bound = {}  # flash's bound at (L), from the timed tensors
     for name, (flops, nbytes) in _flash_work(qg, kg, vg).items():
         flash_bound[name] = max(flops / PEAK_FLOPS, nbytes / PEAK_BYTES) * 1e3
@@ -1988,7 +2149,7 @@ def _mla_ring_timings(torch):
                                   q, k, v, pos, pos, None, None, do, lse, delta, **kw)),
                               ("ring_dkv", lambda: rc.chunk_attention_dkv_reference(
                                   q, k, v, pos, pos, None, None, do, lse, delta, **kw))):
-                rows[name]["diagonal"]["plain_ms"] = _time_ms(torch, ref, warmup=1, reps=3)
+                rows[name]["diagonal"]["plain_ms"] = _time_ms(torch, ref, warmup=1, reps=2)
                 print(f"time {name} at (M) diagonal step: plain "
                       f"{rows[name]['diagonal']['plain_ms']:.3f} ms", flush=True)
             del q, do, pos, lse, delta, k, v
@@ -2173,7 +2334,7 @@ def _pg_ring_phase(torch, nproc: int) -> dict:
         return fold(a, b, c, pos)
 
     out, grads = _pg_ring_step(torch, ring, q, k, v, do)
-    fold_ms = _time_ms(torch, lambda: _pg_ring_step(torch, ring, q, k, v, do), warmup=1, reps=3)
+    fold_ms = _time_ms(torch, lambda: _pg_ring_step(torch, ring, q, k, v, do), warmup=1, reps=2)
     err_out, rel = 0.0, 0.0
     for r, got in enumerate(ranks):
         sl = slice(r * PG_S_LOCAL, (r + 1) * PG_S_LOCAL)
@@ -2322,16 +2483,16 @@ def _gmm_timings(torch, sizes, shapes=GMM_SHAPES):
         times = {
             "forward": (_time_ms(torch, lambda: gg.gmm(x, w, ends)),
                         _time_ms(torch, lambda: gg.grouped_matmul_reference(x, w, sizes),
-                                 warmup=1, reps=5),
+                                 warmup=1, reps=3),
                         _time_ms(torch, lib_fwd), gg.gmm_route(x, w)),
             "dX": (_time_ms(torch, lambda: gg.gmm(dout, w, ends, transpose_w=True)),
                    _time_ms(torch, lambda: torch.autograd.grad(ref, xp, dout, retain_graph=True),
-                            warmup=1, reps=5),
+                            warmup=1, reps=3),
                    _time_ms(torch, lib_dx), gg.gmm_route(dout, w, transpose_w=True)),
             "tgmm": (_time_ms(torch, lambda: gg.tgmm(x, dout, ends, e)),
                      _time_ms(torch, lambda: torch.autograd.grad(ref, wp, dout,
                                                                  retain_graph=True),
-                              warmup=1, reps=5),
+                              warmup=1, reps=3),
                      _time_ms(torch, lib_dw), gg.tgmm_route(x, dout))}
         for part, (ms, plain, lib, route) in times.items():
             flops, nbytes = work[part]
@@ -2586,7 +2747,8 @@ def _reset_counts():
     from automodel_tpu_torch.ops import flash_attention as fa, ring_chunk as rc
 
     for counter in (*_counters(), *_route_counters(), fa.WINDOWED_LAUNCHES,
-                    fa.HEAD_DIM_LAUNCHES, fa.SOFTCAP_LAUNCHES, rc.DIM_LAUNCHES):
+                    fa.HEAD_DIM_LAUNCHES, fa.SOFTCAP_LAUNCHES, fa.NONCAUSAL_LAUNCHES,
+                    rc.DIM_LAUNCHES):
         for key in counter:
             counter[key] = 0
 
@@ -2610,6 +2772,13 @@ def _read_softcap() -> dict:
     from automodel_tpu_torch.ops import flash_attention as fa
 
     return {f"{k}/softcap": v for k, v in fa.SOFTCAP_LAUNCHES.items()}
+
+
+def _read_noncausal() -> dict:
+    """The flash launches without the causal mask ("flash_fwd/noncausal", ...)."""
+    from automodel_tpu_torch.ops import flash_attention as fa
+
+    return {f"{k}/noncausal": v for k, v in fa.NONCAUSAL_LAUNCHES.items()}
 
 
 def _read_head_dims() -> dict:
@@ -2679,8 +2848,8 @@ def _check_routes(name, launches, dh_only=False) -> dict:
     if routes["lce_bwd/dh_only"] != want_dh:
         raise AssertionError(f"{name}: {routes['lce_bwd/dh_only']} lce_bwd launches with dH "
                              f"alone, not {want_dh}")
-    return {**launches, **routes, **_read_windowed(), **_read_softcap(), **_read_head_dims(),
-            **_read_ring_dims()}
+    return {**launches, **routes, **_read_windowed(), **_read_softcap(), **_read_noncausal(),
+            **_read_head_dims(), **_read_ring_dims()}
 
 
 def _port_config(model: dict):
@@ -2740,15 +2909,27 @@ def _check_softcap(name, launches, capped, micro, steps):
         raise AssertionError(f"{name}: soft-capped flash launches {got} != expected {want}")
 
 
+def _check_noncausal(name, launches, causal):
+    """A causal model's flash launches are all causal; a bidirectional encoder's (the
+    biencoder's tower) all non-causal."""
+    want = {f"{k}/noncausal": 0 if causal else launches[k]
+            for k in ("flash_fwd", "flash_dq", "flash_dkv")}
+    got = {k: launches.get(k, 0) for k in want}
+    print(f"{name}: non-causal flash launches {got} (expected {want})", flush=True)
+    if got != want:
+        raise AssertionError(f"{name}: non-causal flash launches {got} != expected {want}")
+
+
 def _check_path_launches(name, launches, model, micro, steps):
     """The launch checks every main path shares, in one order, from its model's HF config
     (read by its architecture's class): the windowed flash launches those of its sliding
-    layers, the soft-capped ones those of its capped layers, every flash launch at its
-    head dim, every ring launch at its (D, Dv); ``micro`` microbatches a step, ``steps``
-    steps."""
+    layers, the soft-capped ones those of its capped layers, the non-causal ones all or
+    none as the model is bidirectional or not, every flash launch at its head dim, every
+    ring launch at its (D, Dv); ``micro`` microbatches a step, ``steps`` steps."""
     config = _port_config(model)
-    _check_windowed(name, launches, sum(config.sliding_flags), micro, steps)
+    _check_windowed(name, launches, sum(getattr(config, "sliding_flags", ())), micro, steps)
     _check_softcap(name, launches, _capped_layers(model), micro, steps)
+    _check_noncausal(name, launches, getattr(config, "causal", True))
     _check_head_dim(name, launches, config.head_dim)
     _check_ring_dims(name, launches, model)
 
@@ -2764,7 +2945,7 @@ def _release():
 
 
 def _expected(layers, micro, steps, linear_ce, moe=False, ring_cp=1, val_batches=0,
-              deterministic=False, dense_prefix=0, mla=False, peft=False):
+              deterministic=False, dense_prefix=0, mla=False, peft=False, towers=1):
     """Launches of each kernel in a run, n = layers x microbatches x steps.
 
     flash_fwd 2n (the forward, and once more when each layer's checkpoint replays it: no
@@ -2781,15 +2962,17 @@ def _expected(layers, micro, steps, linear_ce, moe=False, ring_cp=1, val_batches
     narrower than its keys: no flash launch (the plain path, as JAX's dispatch), and on
     the ring ring_dq + ring_dkv in ring_bwd's place. ``peft``: a LoRA run, whose experts
     are frozen (no tgmm; gmm's dX still runs, for the earlier layers' adapters) and whose
-    lce_bwd launches compute dH alone (checked by _check_routes)."""
-    n = layers * micro * steps
+    lce_bwd launches compute dH alone (checked by _check_routes). ``towers``: the
+    forwards a microbatch (and a validation batch) runs through the layers, the
+    biencoder's 2 (queries, then passages)."""
+    n = layers * micro * steps * towers
     n_moe = (layers - dense_prefix) * micro * steps if moe else 0
     lce_n = micro * steps if linear_ce else 0
     ring = ring_cp > 1
     flash = not (ring or mla)
     ring_bwd = n * ring_cp if ring else 0
     split = deterministic or mla
-    return {"flash_fwd": 2 * n + layers * val_batches if flash else 0,
+    return {"flash_fwd": 2 * n + layers * val_batches * towers if flash else 0,
             "flash_dq": n if flash else 0, "flash_dkv": n if flash else 0,
             "lce_fwd": lce_n + (val_batches if linear_ce else 0), "lce_bwd": lce_n,
             "gmm": 6 * n_moe, "tgmm": 0 if peft else 2 * n_moe,
@@ -2965,13 +3148,14 @@ def _train_ft_path(name, yaml, overrides, deterministic=False):
     return routed, losses
 
 
-def _recorded_train_ft(cfg, on_setup=None):
-    """Run train_ft through its recipe class, recording each step's loss unrounded (the
+def _recorded_train_ft(cfg, on_setup=None, recipe_cls=None):
+    """Run train_ft (or ``recipe_cls``, one of its subclasses: train_seq_cls,
+    train_biencoder) through its recipe class, recording each step's loss unrounded (the
     training.jsonl rows round to 6 digits). Returns (recipe, {step: loss}, rows of
     training.jsonl, rows of validation.jsonl)."""
     from automodel_tpu_torch.recipes.llm import train_ft
 
-    recipe = train_ft.TrainFinetuneRecipeForNextTokenPrediction(cfg)
+    recipe = (recipe_cls or train_ft.TrainFinetuneRecipeForNextTokenPrediction)(cfg)
     recipe.setup()
     if on_setup is not None:
         on_setup(recipe)
@@ -2999,7 +3183,8 @@ def _recorded_train_ft(cfg, on_setup=None):
         rows["validation"]
 
 
-def _pretrained_run(name, cfg_args, ckpt, reload_dtype=None, on_setup=None) -> dict:
+def _pretrained_run(name, cfg_args, ckpt, reload_dtype=None, on_setup=None, recipe_cls=None,
+                    reload=None) -> dict:
     """One train_ft run of the config ``cfg_args`` gives, through _recorded_train_ft with
     the counts reset first: what main paths 9, 14, 16, 20 and 23 share. Returns a dict:
     losses ({step: loss}), rows and val (the jsonl rows), launches, routed (the launches
@@ -3007,7 +3192,9 @@ def _pretrained_run(name, cfg_args, ckpt, reload_dtype=None, on_setup=None) -> d
     [(step, seconds, bytes)], peak / setup / end GiB (allocated at the peak, after setup,
     after the run), the recipe's loss_name and moe; with ``reload_dtype``, also the newest
     save's hf/ (hf_dir, its tensors' hf_names and hf_bytes) and hf_differ, the parameters
-    whose reload through from_pretrained in that dtype is not bitwise the final one."""
+    whose reload through from_pretrained in that dtype is not bitwise the final one
+    (``reload(path, dtype, device)``: the model class's loader, by default
+    AutoModelForCausalLM's). ``recipe_cls``: the recipe, train_ft's by default."""
     import torch
 
     from automodel_tpu_torch.checkpoint.safetensors_io import load_safetensors
@@ -3030,7 +3217,7 @@ def _pretrained_run(name, cfg_args, ckpt, reload_dtype=None, on_setup=None) -> d
         if on_setup is not None:
             on_setup(recipe)
 
-    recipe, losses, rows, val = _recorded_train_ft(cfg, after_setup)
+    recipe, losses, rows, val = _recorded_train_ft(cfg, after_setup, recipe_cls)
     launches = _read_counts()
     out = dict(losses=losses, rows=rows, val=val, launches=launches,
                routed=_check_routes(name, launches, dh_only=recipe.peft is not None),
@@ -3038,7 +3225,7 @@ def _pretrained_run(name, cfg_args, ckpt, reload_dtype=None, on_setup=None) -> d
                       if x.get("event") == "checkpoint_save"],
                peak_gib=gib(torch.cuda.max_memory_allocated), setup_gib=setup["gib"],
                end_gib=gib(torch.cuda.memory_allocated), loss_name=recipe.loss_name,
-               moe=recipe.moe, kinds=recipe.recorded_kinds)
+               moe=recipe.moe, kinds=recipe.recorded_kinds, seq_len=recipe.seq_len)
     final = recipe.params
     if recipe.peft is not None:  # the adapter, and the model hf/ holds: the merged one
         from automodel_tpu_torch.peft.lora import merge_lora_params
@@ -3049,8 +3236,9 @@ def _pretrained_run(name, cfg_args, ckpt, reload_dtype=None, on_setup=None) -> d
                 final = merge_lora_params(recipe.params, recipe.train_params, recipe.peft)
     if reload_dtype is not None:
         step_hf = os.path.join(ckpt, f"step_{max(x[0] for x in out['saves'])}", "hf")
-        reloaded = AutoModelForCausalLM.from_pretrained(step_hf, dtype=reload_dtype,
-                                                        device=recipe.device).param_dict()
+        load = reload or (lambda path, dtype, device: AutoModelForCausalLM.from_pretrained(
+            path, dtype=dtype, device=device))
+        reloaded = load(step_hf, reload_dtype, recipe.device).param_dict()
         out.update(hf_dir=step_hf, hf_names=sorted(load_safetensors(step_hf)),
                    hf_bytes=sum(os.path.getsize(os.path.join(step_hf, f))
                                 for f in os.listdir(step_hf)),
@@ -3108,7 +3296,7 @@ def _baseline_path(name):
 
     _release()
     with tempfile.TemporaryDirectory() as tmp:
-        hf_dir = write_pretrained(os.path.join(tmp, "llama3_2_1b"))
+        hf_dir = write_pretrained(os.path.join(tmp, "llama3_2_1b"), BASELINE_MODEL)
         yaml = baseline_config(
             tmp, hf_dir, write_hellaswag_jsonl(os.path.join(tmp, "train.jsonl"), 512, seed=0),
             write_hellaswag_jsonl(os.path.join(tmp, "val.jsonl"), 64, seed=1))
@@ -3121,7 +3309,7 @@ def _baseline_path(name):
                 f"{name} run {run}", ["-c", yaml, *baseline_args(ckpt), "--output_dir",
                                       os.path.join(tmp, f"run_{run}")], ckpt,
                 reload_dtype=torch.float32 if run == "A" else None)
-    layers = LLAMA32_1B["num_hidden_layers"]
+    layers = BASELINE_LAYERS
     micro = 4  # the config's grad_acc_steps
     a, b = runs["A"], runs["B"]
     for run, r in runs.items():
@@ -3141,10 +3329,10 @@ def _baseline_path(name):
     _check_pretrained_run(f"{name} run A", a, range(1, BASELINE_STEPS + 1),
                           _expected(layers, micro, BASELINE_STEPS, True,
                                     val_batches=2 * BASELINE_VAL_BATCHES),
-                          saves=[2, BASELINE_STEPS], model=LLAMA32_1B, micro=micro)
+                          saves=[2, BASELINE_STEPS], model=BASELINE_MODEL, micro=micro)
     _check_pretrained_run(f"{name} run B (B must resume from step 2)", b, range(3, 5),
                           _expected(layers, micro, 2, True, val_batches=BASELINE_VAL_BATCHES),
-                          model=LLAMA32_1B, micro=micro)
+                          model=BASELINE_MODEL, micro=micro)
     for step in (3, 4):
         if b["losses"][step] != a["losses"][step]:
             raise AssertionError(f"{name}: the resumed step-{step} loss differs from the "
@@ -3788,6 +3976,395 @@ def _lineage_paths() -> dict:
     return by_path
 
 
+def classifier_init_loss(labels: int, hidden: int, std: float) -> float:
+    """The cross entropy over ``labels`` classes of a fresh head: each logit is the pooled
+    hidden state (unit rms after the final norm) through a column ~ N(0, std^2), so the
+    logits ~ N(0, hidden std^2) and the loss is E[logsumexp(z) - z_0] (0.87 for 2 labels
+    at Llama-3.2-1B's hidden 2048 and std 0.02, where ln 2 is 0.69), by 200,000 draws from
+    a fixed seed."""
+    import numpy as np
+
+    z = np.random.default_rng(0).normal(0.0, math.sqrt(hidden) * std, (200_000, labels))
+    top = z.max(-1)
+    return float((top + np.log(np.exp(z - top[:, None]).sum(-1)) - z[:, 0]).mean())
+
+
+def _device(extra) -> str:
+    """The device a main path's ``extra`` CLI overrides name (the CPU tests' ``--device
+    cpu``), else the card."""
+    extra = list(extra)
+    return extra[extra.index("--device") + 1] if "--device" in extra else "cuda"
+
+
+def _seq_cls_path(name, model=None, extra=()):
+    """examples/llm_finetune/seq_cls.yaml through train_seq_cls (main path 33): its model a
+    local HF directory of a random-init Llama-3.2-1B at SEQ_CLS_LAYERS of 16 layers,
+    written without a score head (so the fresh-head branch of from_pretrained runs: JAX's
+    default_rng(0) at std 0.02, checked bitwise at setup), its GLUE section swapped for
+    local rows of random words with 2 labels, --backend.attention flash (the file names
+    none), the file's mb 8 x 512 and 4 microbatches, SEQ_CLS_STEPS steps, one save; the
+    step's hf/ (with score.weight, no lm_head) reloads bitwise. ``model`` / ``extra``: other
+    widths and more CLI overrides (the CPU tests')."""
+    import numpy as np
+    import torch
+
+    from automodel_tpu_torch.models.seq_cls import AutoModelForSequenceClassification
+    from automodel_tpu_torch.recipes.llm.train_seq_cls import TrainSeqClsRecipe
+
+    _release()
+    model = model or dict(LLAMA32_1B, num_hidden_layers=SEQ_CLS_LAYERS)
+    layers, micro, steps = model["num_hidden_layers"], 4, SEQ_CLS_STEPS
+    fresh = np.random.default_rng(0).normal(0, model["initializer_range"],
+                                            (model["hidden_size"], 2)).astype(np.float32)
+    seen = {}
+
+    def head(recipe):
+        seen["fresh"] = torch.equal(recipe.params["score"].cpu(), torch.from_numpy(fresh))
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        hf_dir = write_pretrained(os.path.join(tmp, "llama3_2_1b"), model,
+                                  device=_device(extra))
+        yaml = local_data_config(tmp, SEQ_CLS_YAML, {
+            "model": {"pretrained_model_name_or_path": hf_dir, "num_labels": 2},
+            "dataset": {"_target_": "automodel_tpu.data.llm.seq_cls.SeqClsDataset",
+                        "path_or_dataset_id": write_seq_cls_jsonl(
+                            os.path.join(tmp, "sst2.jsonl"), 256, 2, seed=0)}})
+        ckpt = os.path.join(tmp, "ckpts")
+        run = _pretrained_run(name, [
+            "-c", yaml, "--backend.attention", "flash", "--step_scheduler.max_steps", str(steps),
+            "--step_scheduler.ckpt_every_steps", str(steps), "--checkpoint.checkpoint_dir",
+            ckpt, "--output_dir", os.path.join(tmp, "run"), *extra], ckpt,
+            reload_dtype=torch.float32, on_setup=head, recipe_cls=TrainSeqClsRecipe,
+            reload=lambda path, dtype, device: AutoModelForSequenceClassification.from_pretrained(
+                path, 2, dtype=dtype, device=device))
+    want = _expected(layers, micro, steps, False)
+    init = classifier_init_loss(2, model["hidden_size"], model["initializer_range"])
+    first = run["losses"][1]
+    print(f"{name}: train_seq_cls on {_shown(SEQ_CLS_YAML)} ({layers} layers of Llama-3.2-1B "
+          f"from a local HF directory without a score head, f32 as JAX's recipe, flash, 2 "
+          f"labels), fresh head bitwise JAX's default_rng(0): {seen['fresh']}, "
+          f"{_shown_run(run)}, first loss {first:.4f} (fresh-head expectation {init:.4f}, "
+          f"ln 2 = {math.log(2):.4f}), step_{steps}/hf {len(run['hf_names'])} tensors "
+          f"(score.weight {'score.weight' in run['hf_names']}, lm_head "
+          f"{'lm_head.weight' in run['hf_names']}), reloaded through from_pretrained: "
+          f"{'bitwise equal' if not run['hf_differ'] else run['hf_differ']}, launches "
+          f"{run['launches']} (expected {want}), {time.perf_counter() - t0:.1f} s", flush=True)
+    _check_pretrained_run(name, run, range(1, steps + 1), want, saves=[steps], first_loss=init,
+                          model=model, micro=micro)
+    if not seen["fresh"] or "score.weight" not in run["hf_names"] \
+            or "lm_head.weight" in run["hf_names"]:
+        raise AssertionError(f"{name}: fresh head {seen['fresh']}, hf/ names "
+                             f"{run['hf_names'][:4]}")
+    return run["routed"]
+
+
+def _qwen25_seq_cls_path(name, model=None, extra=()):
+    """examples/llm_finetune/qwen2_5_seq_cls_lora.yaml through train_seq_cls (main path 34)
+    at Qwen2.5-7B's published widths (QWEN25_7B, built from model.config and random init
+    on the card), SEQ_CLS_LAYERS of 28 layers, 3 labels (its MNLI section swapped for
+    local rows), LoRA rank 8 on wq / wv and flash as the file sets them, mb 8 x 512 and 2
+    microbatches, QWEN25_SEQ_CLS_STEPS steps, no save: the trainable tensors are the
+    adapter's four factors and the head stays bitwise at its init, as in JAX."""
+    import torch
+
+    from automodel_tpu_torch.recipes.llm.train_seq_cls import TrainSeqClsRecipe
+
+    _release()
+    model = model or dict(QWEN25_7B, num_hidden_layers=SEQ_CLS_LAYERS)
+    layers, micro, steps = model["num_hidden_layers"], 2, QWEN25_SEQ_CLS_STEPS
+    seen = {}
+
+    def head(recipe):
+        seen.update(score=recipe.params["score"], init=recipe.params["score"].detach().clone(),
+                    trainable=sorted(recipe.train_params))
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        yaml = local_data_config(tmp, QWEN25_SEQ_CLS_YAML, {
+            "model": {"config": model, "num_labels": 3},
+            "dataset": {"_target_": "automodel_tpu.data.llm.seq_cls.SeqClsDataset",
+                        "path_or_dataset_id": write_seq_cls_jsonl(
+                            os.path.join(tmp, "mnli.jsonl"), 128, 3, seed=1)}})
+        run = _pretrained_run(name, [
+            "-c", yaml, "--step_scheduler.max_steps", str(steps), "--checkpoint.enabled",
+            "false", "--output_dir", os.path.join(tmp, "run"), *extra], None, on_setup=head,
+            recipe_cls=TrainSeqClsRecipe)
+    frozen = torch.equal(seen.pop("score"), seen.pop("init"))
+    want = _expected(layers, micro, steps, False)
+    init = classifier_init_loss(3, model["hidden_size"], model["initializer_range"])
+    print(f"{name}: train_seq_cls on {_shown(QWEN25_SEQ_CLS_YAML)} (local rows; Qwen2.5-7B's "
+          f"widths, {layers} layers, f32, 3 labels, LoRA rank 8 on wq / wv), trainable "
+          f"{seen['trainable']}, head bitwise at its init after {steps} steps: {frozen}, "
+          f"{_shown_run(run)}, first loss {run['losses'][1]:.4f} (fresh-head expectation "
+          f"{init:.4f}, ln 3 = {math.log(3):.4f}), launches {run['launches']} (expected "
+          f"{want}), {time.perf_counter() - t0:.1f} s", flush=True)
+    _check_pretrained_run(name, run, range(1, steps + 1), want, first_loss=init, model=model,
+                          micro=micro)
+    if not frozen or len(seen["trainable"]) != 4 or not all(
+            ".lora_" in n for n in seen["trainable"]):
+        raise AssertionError(f"{name}: head frozen {frozen}, trainable {seen['trainable']}")
+    return run["routed"]
+
+
+def _biencoder_args(out_dir: str, attention: str, steps: int) -> list[str]:
+    """Main path 35's overrides: the attention path, ``steps`` steps, validation every 2
+    over BIENCODER_VAL_BATCHES batch, no checkpoint."""
+    return ["--backend.attention", attention, "--step_scheduler.max_steps", str(steps),
+            "--step_scheduler.val_every_steps", "2", "--validation_max_batches",
+            str(BIENCODER_VAL_BATCHES), "--checkpoint.enabled", "false", "--output_dir", out_dir]
+
+
+def _causal_tower(recipe):
+    """Main path 35's control: the tower's flash launches causal."""
+    recipe.model.config.causal = True
+
+
+def _unmasked_tower(recipe):
+    """Main path 35's control: the tower's layers get no segment ids, so flash attends
+    over the right padding; the pooling still reads the real tokens."""
+    from automodel_tpu_torch.models.llama_bidirectional import pool_hidden
+
+    model, forward = recipe.model, recipe.model.forward
+
+    def unmasked(input_ids, positions=None, segment_ids=None, **kw):
+        hidden = forward(input_ids, positions=positions, pooled=False, **kw)
+        return pool_hidden(hidden, segment_ids != 0, model.config.pooling)
+
+    model.forward = unmasked
+
+
+def _biencoder_path(name, model=None, extra=()):
+    """examples/biencoder/llama3_2_1b_last_token_pool.yaml through train_biencoder (main
+    path 35): its own model section (Llama-3.2-1B's widths, all 16 layers, non-causal,
+    last-token pooling; random init on the card), its data sections swapped for local
+    query / passage rows with 1 hard negative each, --backend.attention flash (the file
+    names none), the file's mb of 32 queries of 64 tokens with 64 passages of 256,
+    BIENCODER_STEPS steps, validation at steps 2 and 4 (acc@1, recall@10, MRR), no save.
+    Every flash launch is non-causal, two tower forwards a microbatch and a validation
+    batch. Its first loss is held within TOL_BIENCODER_LOSS of the first step of the same
+    config on backend.attention xla (the same weights from the seed, the same batch), and
+    two controls, that first step on flash launched causal and on flash without the
+    segment ids, must miss it by more."""
+    from automodel_tpu_torch.config.cli_overrides import parse_args_and_load_config
+    from automodel_tpu_torch.recipes.biencoder.train_biencoder import TrainBiencoderRecipe
+
+    _release()
+    steps = BIENCODER_STEPS
+    target = "automodel_tpu.data.llm.retrieval.RetrievalDataset"
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        yaml = local_data_config(tmp, BIENCODER_YAML, {
+            **({"model": {"config": model}} if model else {}),
+            "dataset": {"_target_": target, "num_hard_negatives": 1, "path_or_dataset_id":
+                        write_retrieval_rows(os.path.join(tmp, "train.jsonl"), 256, 0, 1)},
+            "validation_dataset": {"_target_": target, "num_hard_negatives": 1,
+                                   "path_or_dataset_id": write_retrieval_rows(
+                                       os.path.join(tmp, "val.jsonl"), 64, 1, 1)}})
+        run = _pretrained_run(name, ["-c", yaml, *_biencoder_args(
+            os.path.join(tmp, "flash"), "flash", steps), *extra], None,
+            recipe_cls=TrainBiencoderRecipe)
+        _release()
+        recipe, xla_losses, _, _ = _recorded_train_ft(parse_args_and_load_config([
+            "-c", yaml, *_biencoder_args(os.path.join(tmp, "xla"), "xla", 1), *extra]),
+            recipe_cls=TrainBiencoderRecipe)
+        model, xla_first = recipe.hf_config, xla_losses[1]
+        del recipe
+        # controls: the same first step on flash with a wrong mask must miss xla's first
+        # loss by more than the tolerance, or the check could not catch such a kernel
+        controls = {}
+        for label, wrong in (("causal", _causal_tower), ("unmasked", _unmasked_tower)):
+            _release()
+            recipe, losses, _, _ = _recorded_train_ft(parse_args_and_load_config([
+                "-c", yaml, *_biencoder_args(os.path.join(tmp, label), "flash", 1), *extra]),
+                on_setup=wrong, recipe_cls=TrainBiencoderRecipe)
+            controls[label] = abs(losses[1] - xla_first)
+            del recipe
+    _release()
+    layers = model["num_hidden_layers"]
+    want = _expected(layers, 1, steps, False, val_batches=2 * BIENCODER_VAL_BATCHES, towers=2)
+    d_first = abs(run["losses"][1] - xla_first)
+    val = [(x["step"], x["val_loss"], x["val_acc1"], x["val_recall_at_10"], x["val_mrr"])
+           for x in run["val"]]
+    tokens = 32 * 64 + 64 * 256
+    print(f"{name}: train_biencoder on {_shown(BIENCODER_YAML)} (local rows; Llama-3.2-1B's "
+          f"widths, all {layers} layers, non-causal, last-token pooling, f32, flash), "
+          f"{_shown_run(run)}, tokens/s {[x.get('tps') for x in run['rows'] if 'loss' in x]} "
+          f"({tokens} tokens a step), validation (step, loss, acc@1, recall@10, MRR) {val}, "
+          f"first loss {run['losses'][1]:.6f} against xla's {xla_first:.6f}: |diff| "
+          f"{d_first:.3e} (tol {TOL_BIENCODER_LOSS}; with flash causal "
+          f"{controls['causal']:.3e}, blind to the padding {controls['unmasked']:.3e}), "
+          f"launches {run['launches']} (expected {want}), {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    _check_pretrained_run(name, run, range(1, steps + 1), want, model=model, micro=1)
+    if d_first > TOL_BIENCODER_LOSS:
+        raise AssertionError(f"{name}: the flash tower's first loss is not xla's")
+    if min(controls.values()) <= TOL_BIENCODER_LOSS:
+        raise AssertionError(f"{name}: a wrong flash mask passes the check: {controls}")
+    if [v[0] for v in val] != [2, 4] or not all(math.isfinite(x) for v in val for x in v[1:]):
+        raise AssertionError(f"{name}: validation rows {val}")
+    return run["routed"]
+
+
+def _mining_path(name, model=None, extra=()):
+    """examples/biencoder/mine_hard_negatives.yaml through mine_hard_negatives' main (main
+    path 36): its own model section (4 layers, 512 wide, mean pooling; random init on the
+    card), margin 0.95 perc, 4 negatives, the E5 prefixes; its data and mine sections
+    swapped for MINE_ROWS local query / positive rows, --backend.attention flash (the
+    file names none). Every row gets 1-4 negatives, none its positive, each scoring at or
+    under the margin cut (the scores re-encoded by a second tower from the same seed);
+    RetrievalDataset reads the output back. Forward only: flash_fwd once a layer an
+    encoded batch of 32 (the corpus, then the queries), all non-causal."""
+    import numpy as np
+    import yaml as yaml_lib
+
+    from automodel_tpu_torch.config.cli_overrides import parse_args_and_load_config
+    from automodel_tpu_torch.data.llm.retrieval import RetrievalDataset
+    from automodel_tpu_torch.recipes.biencoder import mine_hard_negatives
+    from automodel_tpu_torch.recipes.biencoder.train_biencoder import TrainBiencoderRecipe
+
+    _release()
+    t0 = time.perf_counter()
+    with open(MINE_YAML) as f:
+        mine = yaml_lib.safe_load(f)["mine"]
+    with tempfile.TemporaryDirectory() as tmp:
+        pairs = write_retrieval_rows(os.path.join(tmp, "qa_pairs.jsonl"), MINE_ROWS, 2)
+        mine.update(input=pairs, output=os.path.join(tmp, "mined.jsonl"))
+        yaml = local_data_config(tmp, MINE_YAML, {"mine": mine, "dataset": {
+            "_target_": "automodel_tpu.data.llm.retrieval.RetrievalDataset",
+            "path_or_dataset_id": pairs, "num_hard_negatives": 0},
+            **({"model": {"config": model}} if model else {})})
+        cfg = parse_args_and_load_config(["-c", yaml, "--backend.attention", "flash",
+                                          "--checkpoint.enabled", "false", "--output_dir",
+                                          os.path.join(tmp, "run"), *extra])
+        _reset_counts()
+        mined = mine_hard_negatives.main(cfg)
+        launches = _read_counts()
+        routed = _check_routes(name, launches)
+        back = RetrievalDataset(mine["output"], num_hard_negatives=mine["num_negatives"])
+        tower = TrainBiencoderRecipe(cfg)
+        tower.setup()
+        corpus = sorted({r["pos_doc"] for r in mined})
+        docs = tower.encode([mine["passage_prefix"] + d for d in corpus])
+        queries = tower.encode([mine["query_prefix"] + r["query"] for r in mined])
+        model = tower.hf_config
+        del tower
+    _release()
+    scores = queries @ docs.T
+    row = {d: i for i, d in enumerate(corpus)}
+    over, counts = [], []
+    for i, r in enumerate(mined):
+        pos = scores[i, row[r["pos_doc"]]]
+        if mine["margin_type"] == "abs":
+            cut = pos - mine["margin"]
+        else:
+            cut = mine["margin"] * pos if pos > 0 else pos
+        counts.append(len(r["neg_doc"]))
+        over += [(i, n) for n in r["neg_doc"] if n == r["pos_doc"] or scores[i, row[n]] > cut]
+    batches = 2 * -(-MINE_ROWS // 32)
+    want = _expected(model["num_hidden_layers"], 0, 0, False, val_batches=batches)
+    print(f"{name}: mine_hard_negatives on {_shown(MINE_YAML)} ({MINE_ROWS} local rows, 4 "
+          f"layers of 512, flash, margin {mine['margin']} {mine['margin_type']}), negatives a "
+          f"row {dict(zip(*(a.tolist() for a in np.unique(counts, return_counts=True))))} "
+          f"(count: rows), over the "
+          f"cut or the positive {len(over)}, read back {len(back)} rows, launches {launches} "
+          f"(expected {want}), {time.perf_counter() - t0:.1f} s", flush=True)
+    if launches != want:
+        raise AssertionError(f"{name}: kernel launches {launches} != expected {want}")
+    _check_path_launches(name, routed, model, 0, 0)
+    if over or not 1 <= min(counts) <= max(counts) <= mine["num_negatives"] \
+            or back.rows != mined or len(mined) != MINE_ROWS:
+        raise AssertionError(f"{name}: negatives {counts[:8]}..., over the cut {over[:4]}")
+    return routed
+
+
+def gpt2_mfu(model: dict, seq_len: int, tokens_per_s: float) -> float:
+    """MFU of a GPT-2 step as nanoGPT's estimate_mfu counts it: 6N + 12 L H Q T FLOPs a
+    token (N the parameters without the position table, the tied wte counted once; Q
+    the head dim, T the sequence), over the card's dense bf16 peak."""
+    d, layers, vocab = model["n_embd"], model["n_layer"], model["vocab_size"]
+    n = vocab * d + layers * (12 * d * d + 13 * d) + 2 * d
+    flops = 6 * n + 12 * layers * model["n_head"] * (d // model["n_head"]) * seq_len
+    return tokens_per_s * flops / PEAK_FLOPS
+
+
+def _gpt2_path(name, model=None, extra=()):
+    """examples/llm_pretrain/nanogpt.yaml through train_ft (main path 37): GPT-2-124M as
+    the file gives it (all 12 layers, 768 wide, vocab 50,304, random init on the card),
+    nanoGPT shards written from the seed in place of its fineweb ones,
+    --backend.attention flash (the file names none), the file's mb 16 x 1024, masked CE
+    (vocab < 65,536), GPT2_STEPS steps with saves at 2 and 4. Run A fresh, run B resumed
+    from step 2 after step 4 is removed: its step-3 and step-4 losses bitwise run A's;
+    step_4/hf reloads bitwise. The recipe's rows carry no MFU (GPT-2's config is outside
+    the FLOPs formula, as in JAX): the script prints nanoGPT's count beside them."""
+    import shutil
+
+    import torch
+    import yaml as yaml_lib
+
+    _release()
+    with open(NANOGPT_YAML) as f:
+        cfg = yaml_lib.safe_load(f)
+    model = model or cfg["model"]["config"]
+    steps, micro, layers = GPT2_STEPS, 1, model["n_layer"]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        # GPT-2's tokenizer has 50,257 ids; the file's vocabulary is padded to 50,304
+        pattern = write_nanogpt_shards(tmp, (steps * 16 + 14) * 1024 + 2,
+                                       min(model["vocab_size"], 50257), seed=0)
+        yaml = local_data_config(tmp, NANOGPT_YAML, {
+            "dataset": dict(cfg["dataset"], file_pattern=pattern), "model": {"config": model}})
+        ckpt = os.path.join(tmp, "ckpts")
+        runs = {}
+        for run in ("A", "B"):
+            if run == "B":  # the walk-back must find step 2
+                shutil.rmtree(os.path.join(ckpt, f"step_{steps}"))
+            runs[run] = _pretrained_run(f"{name} run {run}", [
+                "-c", yaml, "--backend.attention", "flash", "--step_scheduler.max_steps",
+                str(steps), "--step_scheduler.ckpt_every_steps", "2",
+                "--checkpoint.checkpoint_dir", ckpt, "--output_dir",
+                os.path.join(tmp, f"run_{run}"), *extra], ckpt,
+                reload_dtype=torch.float32 if run == "A" else None)
+    a, b = runs["A"], runs["B"]
+    for run, r in runs.items():
+        steps_rows = [x for x in r["rows"] if "loss" in x]
+        print(f"{name} run {run}: train_ft on {_shown(NANOGPT_YAML)} (local shards; GPT-2-124M, "
+              f"{layers} layers, f32, flash, masked CE {r['loss_name'] == 'masked_ce'}), "
+              f"{_shown_run(r)}, tokens/s {[x['tps'] for x in steps_rows]}, MFU by nanoGPT's "
+              f"count {[round(gpt2_mfu(model, r['seq_len'], x['tps']), 4) for x in steps_rows]} "
+              f"(the recipe's: {[x.get('mfu') for x in steps_rows]}), launches "
+              f"{r['launches']}", flush=True)
+    print(f"{name}: step_{steps}/hf {a['hf_bytes']} bytes reloaded through from_pretrained: "
+          f"{'bitwise equal' if not a['hf_differ'] else a['hf_differ']}; run B from step "
+          f"{min(b['losses'])}: steps 3-4 bitwise run A's: "
+          f"{all(b['losses'].get(i) == a['losses'][i] for i in (3, 4))}, "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    first = random_init_loss(model["vocab_size"], model["n_embd"], 0.02)
+    _check_pretrained_run(f"{name} run A", a, range(1, steps + 1),
+                          _expected(layers, micro, steps, False), model=model, micro=micro,
+                          saves=[2, steps], first_loss=first)
+    _check_pretrained_run(f"{name} run B (B must resume from step 2)", b, range(3, steps + 1),
+                          _expected(layers, micro, 2, False), model=model, micro=micro,
+                          saves=[steps])
+    if any(b["losses"][i] != a["losses"][i] for i in (3, 4)) or a["loss_name"] != "masked_ce" \
+            or any("mfu" in x for x in a["rows"] + b["rows"]):
+        raise AssertionError(f"{name}: the resumed losses differ, or the loss or the MFU rows "
+                             "are not GPT-2's")
+    return {k: a["routed"][k] + b["routed"][k] for k in a["routed"]}
+
+
+def _encoder_paths() -> dict:
+    """Main paths 33-37, each with its seconds."""
+    by_path = {}
+    for path, fn in (("main path 33", _seq_cls_path), ("main path 34", _qwen25_seq_cls_path),
+                     ("main path 35", _biencoder_path), ("main path 36", _mining_path),
+                     ("main path 37", _gpt2_path)):
+        t0 = time.perf_counter()
+        by_path[path] = fn(path)
+        print(f"{path}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return by_path
+
+
 def _cp_train_ft_args(layers=CP_LAYERS_TRAIN_FT) -> list[str]:
     """Main path 8's overrides of the CP config: packed rows of 32768 from 4096-token
     documents."""
@@ -4029,7 +4606,7 @@ def _lce_dh_row(torch, lce, h, w, z, dz, plain=True):
     flops, nbytes = _lce_dh_work(n, e, v)
     t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
     row = {"ms": _time_ms(torch, lambda: lce.lce_bwd(h, w, z, dz, None, need_dw=False),
-                          warmup=1, reps=5 if n > 8192 else 20),
+                          warmup=1, reps=3 if n > 8192 else 20),
            "bound_ms": max(t_ops, t_bytes),
            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
            "plain_ms": None, "library_ms": None, "route": lce.lce_bwd_route(h, w),
@@ -4044,7 +4621,7 @@ def _lce_dh_row(torch, lce, h, w, z, dz, plain=True):
         if not run:
             continue
         try:
-            row[key] = _time_ms(torch, fn, warmup=1, reps=3 if n > 8192 else 5)
+            row[key] = _time_ms(torch, fn, warmup=1, reps=2 if n > 8192 else 5)
         except torch.cuda.OutOfMemoryError as exc:  # the row keeps None and the reason
             row[f"{key}_note"] = f"not timed: {str(exc).splitlines()[0][:160]}"
         torch.cuda.empty_cache()
@@ -4077,18 +4654,18 @@ def _lce_timings(torch, n=8192, e=2048, v=128256, large=True, tied=False):
     z, _ = lce.lce_fwd(h, w)
     fwd_ms = _time_ms(torch, lambda: lce.lce_fwd(h, w))
     bwd_ms = _time_ms(torch, lambda: lce.lce_bwd(h, w, z, dz, None))
-    plain_fwd = _time_ms(torch, lambda: lce.fused_logsumexp_reference(h, w), warmup=1, reps=5)
+    plain_fwd = _time_ms(torch, lambda: lce.fused_logsumexp_reference(h, w), warmup=1, reps=3)
     hp, wp = h.clone().requires_grad_(), w.clone().requires_grad_()
     z_plain = lce.fused_logsumexp_reference(hp, wp)
     plain_bwd = _time_ms(torch, lambda: torch.autograd.grad(z_plain, (hp, wp), dz,
-                                                            retain_graph=True), warmup=1, reps=5)
+                                                            retain_graph=True), warmup=1, reps=3)
     del z_plain
     torch.cuda.empty_cache()
-    lib_fwd = _time_ms(torch, lambda: _library_lse(torch, h, w), warmup=1, reps=5)
+    lib_fwd = _time_ms(torch, lambda: _library_lse(torch, h, w), warmup=1, reps=3)
     hl, wl = h.clone().requires_grad_(), w.clone().requires_grad_()
     z_lib = _library_lse(torch, hl, wl)
     lib_bwd = _time_ms(torch, lambda: torch.autograd.grad(z_lib, (hl, wl), dz, retain_graph=True),
-                       warmup=1, reps=5)
+                       warmup=1, reps=3)
     del z_lib
     torch.cuda.empty_cache()
     out = {}
@@ -4139,7 +4716,7 @@ def _lce_timing_large(torch):
     dz = torch.ones(n, device="cuda")
     z, _ = lce.lce_fwd(h, w)
     chunk = lce.lce_chunk(n, v)
-    times = {"lce_fwd": (_time_ms(torch, lambda: lce.lce_fwd(h, w), warmup=1, reps=5),
+    times = {"lce_fwd": (_time_ms(torch, lambda: lce.lce_fwd(h, w), warmup=1, reps=3),
                          2 * n * e * v, _lce_fwd_bytes(n, e, v), lce.lce_fwd_route(h, w)),
              "lce_bwd": (_time_ms(torch, lambda: lce.lce_bwd(h, w, z, dz, None), warmup=1,
                                   reps=5), *_lce_work(n, e, v), lce.lce_bwd_route(h, w))}
@@ -4164,7 +4741,7 @@ def _lce_timing_large(torch):
     for key, fn in (("library_ms", lambda: _library_lse(torch, h, w)),
                     ("plain_ms", lambda: lce.fused_logsumexp_reference(h, w))):
         try:
-            fwd[key] = _time_ms(torch, fn, warmup=1, reps=3)
+            fwd[key] = _time_ms(torch, fn, warmup=1, reps=2)
         except torch.cuda.OutOfMemoryError as exc:  # the row keeps None and the reason
             fwd[f"{key}_note"] = f"not timed: {str(exc).splitlines()[0][:160]}"
         torch.cuda.empty_cache()
@@ -4196,7 +4773,10 @@ def _kernel_times(torch):
     w, ends, transpose_w)``, ``tgmm(x, dout, ends, e)``, ``lce_fwd(h, w)``, ``lce_bwd(h,
     w, z, dz, None)``, ``ring_fwd(q, k, v, pos_q, pos_kv, seg_q, seg_kv, acc, m, l,
     **kw)``, ``ring_bwd(...)``, ``ring_dq(...)``, ``ring_dkv(...)``), so that
-    ``--kernel-times ROOT`` can time an older checkout's kernels beside this one's."""
+    ``--kernel-times ROOT`` can time an older checkout's kernels beside this one's. The
+    flash kernels are timed by ``_time_ms``'s defaults and again at 3 warmups and 20 reps
+    (rows ending "3/20"), so that a change of the timing method can be told apart from
+    one of the code."""
     from automodel_tpu_torch.ops import flash_attention as fa
     from automodel_tpu_torch.ops import grouped_gemm as gg
     from automodel_tpu_torch.ops import linear_ce as lce
@@ -4214,13 +4794,15 @@ def _kernel_times(torch):
         scale = q.shape[-1]**-0.5 if scale is None else scale
         o, lse = fa.flash_fwd(q, k, v, None, None, scale, True, *win)
         delta = fa._delta(o, do)
-        out[f"flash_fwd ({case})"] = _time_ms(torch, lambda: fa.flash_fwd(
-            q, k, v, None, None, scale, True, *win))
-        out[f"flash_dq ({case})"] = _time_ms(torch, lambda: fa.flash_dq(
-            q, k, v, None, None, do, lse, delta, scale, True, *win))
-        out[f"flash_dkv ({case})"] = _time_ms(torch, lambda: fa.flash_dkv(
-            q, k, v, None, None, do, lse, delta, scale, True, *win))
-        del q, k, v, do, o, lse, delta
+        calls = {"flash_fwd": lambda: fa.flash_fwd(q, k, v, None, None, scale, True, *win),
+                 "flash_dq": lambda: fa.flash_dq(q, k, v, None, None, do, lse, delta, scale,
+                                                 True, *win),
+                 "flash_dkv": lambda: fa.flash_dkv(q, k, v, None, None, do, lse, delta,
+                                                   scale, True, *win)}
+        for name, call in calls.items():
+            out[f"{name} ({case})"] = _time_ms(torch, call)
+            out[f"{name} ({case}) 3/20"] = _time_ms(torch, call, warmup=3, reps=20)
+        del q, k, v, do, o, lse, delta, calls
         torch.cuda.empty_cache()
     sizes = _router_group_sizes(torch, 8192, 2048, 128, 8)
     ends = gg._ends(sizes)
@@ -4373,6 +4955,18 @@ def main(argv: list[str]) -> int:
     for name, row in _timings(torch, fa, 1, COMMAND_R7B_SEQ, 32, 8, 128,
                               window=COMMAND_R7B["sliding_window"]).items():
         timings[name]["at_command_r7b_window"] = row
+    # (Bq) / (Bp) main path 35's towers, non-causal over right-padded rows at Llama-3.2-1B's
+    # 32 heads over 8: 32 queries of 64, 64 passages of 256; (GPT) main path 37's causal
+    # MHA, 12 heads over 12, 16 rows of 1024
+    for key, shape, kw in (
+            ("at_biencoder_queries", (32, 64), {"causal": False,
+                                                "seg": _right_padded(torch, 32, 64, 1)}),
+            ("at_biencoder_passages", (64, 256), {"causal": False,
+                                                  "seg": _right_padded(torch, 64, 256, 2)}),
+            ("at_gpt2", (16, 1024), {"h": 12, "kh": 12})):
+        heads = {"h": kw.pop("h", 32), "kh": kw.pop("kh", 8)}
+        for name, row in _timings(torch, fa, *shape, **heads, d=64, **kw).items():
+            timings[name][key] = row
     mark("flash timings")
     _refused_on_the_card(torch, fa)
     _ring_refused_on_the_card(torch)
@@ -4478,6 +5072,8 @@ def main(argv: list[str]) -> int:
     mark("path 31")
     by_path.update(_lineage_paths())
     mark("path 32")
+    by_path.update(_encoder_paths())
+    mark("paths 33-37")
 
     flash = "automodel_tpu/ops/pallas/flash_attention.py"
     lce_src = "automodel_tpu/ops/pallas/linear_ce.py"
@@ -4539,6 +5135,9 @@ def main(argv: list[str]) -> int:
                                         for p, counts in by_path.items()}
             row["launches_softcap"] = {p: counts.get(f"{name}/softcap", 0)
                                        for p, counts in by_path.items()}
+            row["launches_noncausal"] = {p: counts[f"{name}/noncausal"]
+                                         for p, counts in by_path.items()
+                                         if counts.get(f"{name}/noncausal")}
             row["launches_by_head_dim"] = {
                 f"d{d}": sum(counts.get(f"{name}/d{d}", 0) for counts in by_path.values())
                 for d in fa._HEAD_DIMS}

@@ -475,8 +475,8 @@ def test_phase_order():
     after its others), then the main paths in order, the deterministic ones (main paths 9
     and 10 under the flag, in a child process) before GPT-OSS's (main paths 11 and 12),
     Phi-3's (13 and 14), the DeepSeek family's (15-17), Gemma's (18-23), the PEFT and
-    QAT paths (24-29, after the nf4 check) and the Llama lineage's and Mixtral's (30-32),
-    then the kernels line."""
+    QAT paths (24-29, after the nf4 check), the Llama lineage's and Mixtral's (30-32) and
+    the classifier and encoder recipes' (33-37), then the kernels line."""
     src = inspect.getsource(chip_smoke.main)
     order = ["_twice_phase(", "_flash_phase(", "_timings(", "_window_timings(",
              "_refused_on_the_card(", "_ring_refused_on_the_card(", "_model_check(",
@@ -489,7 +489,7 @@ def test_phase_order():
              '"main path 16"', '"main path 17"', '"main path 18"', '"main path 19"',
              '"main path 20"', '"main path 21"', '"main path 22"', '"main path 23"',
              "_nf4_phase(", "_peft_paths()", '"main path 30"', '"main path 31"',
-             "_lineage_paths()", '{"kernels"']
+             "_lineage_paths()", "_encoder_paths()", '{"kernels"']
     at = [re.search(r"(?<!\w)" + re.escape(x), src).start() for x in order]
     assert at == sorted(at)
     child = inspect.getsource(chip_smoke._deterministic_child)
@@ -653,7 +653,7 @@ def test_phi3_config_runs_through_both_recipes(tmp_path):
 
 def test_expected_launches_of_the_deepseek_paths():
     """Main path 15: the proxy's 12 layers (1 dense), 7 steps of one microbatch, linear CE,
-    no flash (MLA's values are narrower than its keys); main path 16: 3 layers (1 dense),
+    no flash (MLA's values are narrower than its keys); main path 16: 2 layers (1 dense),
     4 steps of 2 microbatches; main path 17: 2 layers (1 dense), ring cp 4: ring_fwd
     forward and replay a ring step, ring_dq + ring_dkv in ring_bwd's place, every launch
     at (192, 128)."""
@@ -662,7 +662,7 @@ def test_expected_launches_of_the_deepseek_paths():
     assert p15 == dict(dict.fromkeys(p15, 0), gmm=462, tgmm=154, lce_fwd=7, lce_bwd=7)
     p16 = chip_smoke._expected(chip_smoke.MOONLIGHT_LAYERS, 2, chip_smoke.MOONLIGHT_STEPS, True,
                                moe=True, dense_prefix=1, mla=True)
-    assert p16 == dict(dict.fromkeys(p16, 0), gmm=96, tgmm=32, lce_fwd=8, lce_bwd=8)
+    assert p16 == dict(dict.fromkeys(p16, 0), gmm=48, tgmm=16, lce_fwd=8, lce_bwd=8)
     p17 = chip_smoke._expected(chip_smoke.MOONLIGHT_RING_LAYERS, 1, steps, True, moe=True,
                                ring_cp=chip_smoke.MOONLIGHT_RING_CP, dense_prefix=1, mla=True)
     assert p17 == dict(dict.fromkeys(p17, 0), gmm=42, tgmm=14, lce_fwd=7, lce_bwd=7,
@@ -1110,3 +1110,92 @@ def test_lineage_configs_run_through_both_recipes(tmp_path):
         result = benchmark.main(argv=["-c", yaml, *args, *bench,
                                       "--output_dir", str(tmp_path / f"b{i}")])
         assert len(result["losses"]) == 2 and all(map(math.isfinite, result["losses"])), yaml
+
+
+def test_expected_launches_of_the_encoder_paths():
+    """Main paths 33-37: the classifier's (Llama-3.2-1B at 4 layers, 4 microbatches, 4
+    steps) and GPT-2's counts are train_ft's with no linear CE; the biencoder's tower runs
+    twice a microbatch and a validation batch (queries, then passages); mining runs the
+    tower forward only, once a layer an encoded batch. _check_path_launches wants every
+    flash launch of a bidirectional config non-causal and none of a causal one, and fails
+    on one off by one."""
+    want = chip_smoke._expected(4, 4, 4, False)
+    assert (want["flash_fwd"], want["flash_dq"], want["lce_fwd"]) == (128, 64, 0)
+    bi = chip_smoke._expected(16, 1, 4, False, val_batches=2, towers=2)
+    assert (bi["flash_fwd"], bi["flash_dq"], bi["flash_dkv"]) == (2 * 128 + 16 * 2 * 2, 128, 128)
+    mine = chip_smoke._expected(4, 0, 0, False, val_batches=32)
+    assert (mine["flash_fwd"], mine["flash_dq"]) == (128, 0)
+    from automodel_tpu_torch.config.loader import load_config
+
+    tower = load_config(chip_smoke.BIENCODER_YAML).model.config.to_dict()
+    config = chip_smoke._port_config(tower)
+    assert not config.causal and (config.hidden_size, config.num_hidden_layers,
+                                  config.pooling) == (2048, 16, "last")
+    flash = ("flash_fwd", "flash_dq", "flash_dkv")
+    launches = dict(bi, **{f"{k}/{kind}": 0 for k in flash for kind in ("windowed", "softcap")},
+                    **{f"{k}/noncausal": bi[k] for k in flash},
+                    **{f"{k}/d64": bi[k] for k in flash})
+    chip_smoke._check_path_launches("p35", launches, tower, 1, 4)
+    with pytest.raises(AssertionError, match="non-causal"):
+        chip_smoke._check_path_launches("p35", dict(launches, **{"flash_dq/noncausal": 127}),
+                                        tower, 1, 4)
+    gpt2 = load_config(chip_smoke.NANOGPT_YAML).model.config.to_dict()
+    want = chip_smoke._expected(12, 1, 4, False)
+    launches = dict(want, **{f"{k}/{kind}": 0 for k in flash
+                             for kind in ("windowed", "softcap", "noncausal")},
+                    **{f"{k}/d64": want[k] for k in flash})
+    chip_smoke._check_path_launches("p37", launches, gpt2, 1, 4)
+    with pytest.raises(AssertionError, match="non-causal"):
+        chip_smoke._check_path_launches("p37", dict(launches, **{"flash_fwd/noncausal": 1}),
+                                        gpt2, 1, 4)
+    # the classifier's first loss at init, and GPT-2-124M's FLOPs by nanoGPT's count
+    assert chip_smoke.classifier_init_loss(2, 2048, 0.02) == pytest.approx(0.869, abs=1e-3)
+    assert chip_smoke.classifier_init_loss(3, 16, 0.001) == pytest.approx(math.log(3), abs=1e-3)
+    assert chip_smoke.gpt2_mfu(gpt2, 1024, 1.0) * chip_smoke.PEAK_FLOPS == pytest.approx(
+        6 * 123_689_472 + 12 * 12 * 768 * 1024)
+    # the pairs a padded batch allows: 3 real tokens and 1 pad; 4 of 4
+    seg = torch.tensor([[1, 1, 1, 0], [1, 1, 1, 1]])
+    assert chip_smoke._segment_pairs(seg, causal=False) == 9 + 1 + 16
+    assert chip_smoke._segment_pairs(seg, causal=True) == 6 + 1 + 10
+    assert chip_smoke._segment_pairs(torch.ones(2, 8), True) == 2 * chip_smoke._allowed_pairs(8)
+
+
+ENCODER_WIDTHS = dict(hidden_size=64, intermediate_size=128, num_attention_heads=4,
+                      num_key_value_heads=2, head_dim=16, vocab_size=512)
+
+
+def test_encoder_paths_run_on_cpu(monkeypatch):
+    """Main paths 33-37 through their own functions on the CPU at small widths (2 layers,
+    short rows): the classifier from a local directory without a head (the fresh head,
+    the save and the bitwise reload of hf/), its LoRA run on Qwen2.5's config (a frozen
+    head, four trainable factors), the biencoder (validation rows, flash against xla and
+    its wrong-mask controls beyond the tolerance),
+    mining (every row 1-4 negatives under the margin cut, read back) and GPT-2 on nanoGPT
+    shards (a bitwise resume and reload). The kernels do not launch on the CPU: the
+    launches expected are none."""
+    import yaml
+
+    zero = {k: 0 for k in chip_smoke._read_counts()}
+    monkeypatch.setattr(chip_smoke, "_expected", lambda *a, **k: dict(zero))
+    monkeypatch.setattr(chip_smoke, "MINE_ROWS", 64)
+    cpu = ["--device", "cpu"]
+
+    def tower(path):
+        with open(path) as f:
+            return dict(yaml.safe_load(f)["model"]["config"], **ENCODER_WIDTHS,
+                        num_hidden_layers=2)
+
+    for fn, model, extra in (
+            (chip_smoke._seq_cls_path, dict(chip_smoke.LLAMA32_1B, **ENCODER_WIDTHS,
+                                            num_hidden_layers=2), ["--seq_len", "64"]),
+            (chip_smoke._qwen25_seq_cls_path, dict(chip_smoke.QWEN25_7B, **ENCODER_WIDTHS,
+                                                   num_hidden_layers=2), ["--seq_len", "64"]),
+            (chip_smoke._biencoder_path, tower(chip_smoke.BIENCODER_YAML), [
+                "--micro_batch_size", "4", "--backend.dtype", "float32"]),
+            (chip_smoke._mining_path, tower(chip_smoke.MINE_YAML),
+             ["--biencoder.passage_seq_len", "32"]),
+            (chip_smoke._gpt2_path, dict(architectures=["GPT2LMHeadModel"], vocab_size=512,
+                                         n_embd=64, n_layer=2, n_head=4, n_positions=64),
+             ["--micro_batch_size", "2", "--seq_len", "64", "--dataset.seq_len", "64"])):
+        routed = fn("p", model, [*cpu, *extra])
+        assert routed["flash_fwd/noncausal"] == 0

@@ -107,3 +107,14 @@ def test_every_module_is_walked():
             "automodel_tpu_torch.models.mistral3.model",
             "automodel_tpu_torch.models.mixtral.model",
             "automodel_tpu_torch.models.mixtral.state_dict_adapter"} <= set(names)
+    assert {"automodel_tpu_torch.data.llm.column_mapped",
+            "automodel_tpu_torch.data.llm.seq_cls",
+            "automodel_tpu_torch.data.llm.retrieval",
+            "automodel_tpu_torch.data.llm.nanogpt_dataset",
+            "automodel_tpu_torch.models.seq_cls",
+            "automodel_tpu_torch.models.llama_bidirectional.model",
+            "automodel_tpu_torch.models.gpt2.model",
+            "automodel_tpu_torch.models.gpt2.state_dict_adapter",
+            "automodel_tpu_torch.recipes.llm.train_seq_cls",
+            "automodel_tpu_torch.recipes.biencoder.train_biencoder",
+            "automodel_tpu_torch.recipes.biencoder.mine_hard_negatives"} <= set(names)
