@@ -44,7 +44,7 @@ def save_peft_adapter(out_dir: str, lora: dict[str, torch.Tensor], peft_cfg, ent
         mag = leaf["magnitude"].detach().cpu() if "magnitude" in leaf else None
         n_stack = a.ndim - 2
         if n_stack >= 1:
-            hf_ids = list(range(*e.layer_range)) if e.layer_range else list(range(a.shape[0]))
+            hf_ids = list(e.layer_range if e.layer_range is not None else range(a.shape[0]))
         else:
             hf_ids = [None]
         for li, i in enumerate(hf_ids):

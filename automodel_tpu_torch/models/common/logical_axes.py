@@ -11,7 +11,7 @@ output) and which tensors are norms. The tables are the JAX package's, name for 
 from __future__ import annotations
 
 __all__ = ["DENSE_LAYER_AXES", "GEMMA_LAYER_AXES", "HEAD_QK_NORM_AXES", "MLA_LAYER_AXES",
-           "MOE_BLOCK_AXES", "logical_axes"]
+           "MOE_BLOCK_AXES", "QWEN3_NEXT_LAYER_AXES", "STEP3P5_LAYER_AXES", "logical_axes"]
 
 Axes = tuple[str | None, ...]
 
@@ -73,6 +73,26 @@ MLA_LAYER_AXES: dict[str, Axes] = {
     "w_gate": ("embed", "mlp"), "w_up": ("embed", "mlp"), "w_down": ("mlp", "embed"),
 }
 
+# JAX models/step3p5/model.py _AXES (every stream's)
+STEP3P5_LAYER_AXES: dict[str, Axes] = {
+    "attn_norm": ("norm",), "mlp_norm": ("norm",),
+    "wq": ("embed", "heads", "head_dim"), "wk": ("embed", "kv_heads", "head_dim"),
+    "wv": ("embed", "kv_heads", "head_dim"), "wo": ("heads", "head_dim", "embed"),
+    "q_norm": ("norm",), "k_norm": ("norm",), "wg": ("embed", "heads"),
+    "w_gate": ("embed", "mlp"), "w_up": ("embed", "mlp"), "w_down": ("mlp", "embed"),
+    "sh_gate": ("embed", "mlp"), "sh_up": ("embed", "mlp"), "sh_down": ("mlp", "embed"),
+}
+
+# JAX models/qwen3_next/model.py _LINEAR_AXES and _FULL_AXES (no name differs between them)
+QWEN3_NEXT_LAYER_AXES: dict[str, Axes] = {
+    "attn_norm": ("norm",), "mlp_norm": ("norm",),
+    "wqkvz": ("embed", "kv_heads", "head_dim"), "wba": ("embed", "kv_heads", "head_dim"),
+    "conv_w": (None, None), "dt_bias": ("heads",), "a_log": ("heads",), "norm": ("norm",),
+    "wq": ("embed", "heads", "head_dim"), "wk": ("embed", "kv_heads", "head_dim"),
+    "wv": ("embed", "kv_heads", "head_dim"), "wo": ("heads", "head_dim", "embed"),
+    "q_norm": ("norm",), "k_norm": ("norm",),
+}
+
 # JAX moe/layers.py moe_logical_axes (gate.py, experts.py), by the MoE block's names
 MOE_BLOCK_AXES: dict[str, Axes] = {
     "gate.weight": (None, "embed"),
@@ -92,7 +112,10 @@ _TOP: dict[str, Axes] = {"embed": ("vocab", "embed"), "final_norm": ("norm",),
                          "final_norm_b": ("norm",), "lm_head": ("embed", "vocab")}
 # a stack's name -> the logical axis of its leading dim (the dense prefix of an MoE model
 # has its own, as in JAX, so that it is not sharded over pp)
-_STACKS = {"layers": "layers", "moe_layers": "layers", "dense_layers": "dense_layers"}
+# (Step-3.5's four streams and Qwen3-Next's two stacks are layer stacks too)
+_STACKS = {"layers": "layers", "moe_layers": "layers", "dense_layers": "dense_layers",
+           **{f"{a}_{f}": "layers" for a in ("full", "sliding") for f in ("mlp", "moe")},
+           "linear_layers": "layers", "full_layers": "layers"}
 
 
 def logical_axes(shapes: dict[str, tuple[int, ...]],

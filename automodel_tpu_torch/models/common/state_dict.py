@@ -4,16 +4,19 @@
 An adapter is a table of :class:`Entry`: an HF key template, the port's parameter
 name (``embed``, ``layers.wq``, ``moe_layers.moe.experts.gate_up_proj``: the names
 ``models/llama/convert.py::params_from_jax`` uses) and a transform each way. The
-transforms run on CPU tensors, one HF tensor (one layer, one expert) at a time;
-layers, and experts under them, are stacked here into the (L, ...) / (L, E, ...)
-layout the models take. Both packages read and write the same HF layout, which is
-how weights cross between them.
+transforms run one HF tensor (one layer, one expert) at a time, on the device the
+parameters live on: loading moves each HF tensor there before its transform, and the lazy
+export transforms each slice where its parameter lies and copies the result to the host.
+Layers, and experts under them, are stacked here into the (L, ...) / (L, E, ...) layout
+the models take. The transforms are exact (transposes, reshapes, concatenations), so the
+device changes no value. Both packages read and write the same HF layout, which is how
+weights cross between them.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Iterable, Mapping
+from typing import Any, Callable, Iterable, Mapping, Sequence
 
 import torch
 
@@ -33,7 +36,8 @@ class Entry:
     ``hf`` may be a tuple of key templates: the tensors are passed together to
     ``to_ours(*tensors)`` (HF gate_proj + up_proj merged into one gate_up tensor) and
     ``to_hf`` returns a matching tuple. ``{i}`` expands over layers (within
-    ``layer_range`` when set), ``{e}`` over experts, which stack under the layer dim.
+    ``layer_range`` when set: a ``range``, or the HF layers of one stream of a hybrid
+    whose streams interleave), ``{e}`` over experts, which stack under the layer dim.
     """
 
     hf: str | tuple[str, ...]  # e.g. "model.layers.{i}.self_attn.q_proj.weight"
@@ -41,7 +45,7 @@ class Entry:
     to_ours: Transform = _identity
     to_hf: Transform = _identity
     optional: bool = False
-    layer_range: tuple[int, int] | None = None  # [start, stop) HF layer indices
+    layer_range: Sequence[int] | None = None  # the HF layer indices the entry covers
     keep_dtype: bool = False  # exempt from the load-time cast (an f32 routing bias)
 
     @property
@@ -70,10 +74,11 @@ class MappingAdapter:
         self.num_layers = num_layers
         self.num_experts = num_experts
 
-    def _layers(self, e: Entry) -> range:
-        return range(*e.layer_range) if e.layer_range is not None else range(self.num_layers)
+    def _layers(self, e: Entry) -> Sequence[int]:
+        return e.layer_range if e.layer_range is not None else range(self.num_layers)
 
-    def _load_one(self, entry: Entry, tensors: Mapping[str, torch.Tensor], **fmt):
+    def _load_one(self, entry: Entry, tensors: Mapping[str, torch.Tensor], device=None,
+                  **fmt):
         arrays = []
         for tmpl in entry.hf_keys:
             key = tmpl.format(**fmt)
@@ -81,7 +86,7 @@ class MappingAdapter:
                 if entry.optional:
                     return None
                 raise KeyError(f"missing tensor {key!r} in checkpoint")
-            arrays.append(tensors[key])
+            arrays.append(tensors[key] if device is None else tensors[key].to(device))
         return entry.to_ours(*arrays)
 
     def from_hf(self, tensors: Mapping[str, torch.Tensor], dtype: torch.dtype | None = None,
@@ -95,12 +100,12 @@ class MappingAdapter:
                 per = []
                 for i in self._layers(e):
                     if e.per_expert:
-                        experts = [self._load_one(e, tensors, i=i, e=x)
+                        experts = [self._load_one(e, tensors, device, i=i, e=x)
                                    for x in range(self.num_experts)]
                         layer = (None if any(a is None for a in experts)
                                  else torch.stack(experts))
                     else:
-                        layer = self._load_one(e, tensors, i=i)
+                        layer = self._load_one(e, tensors, device, i=i)
                     if layer is None:
                         break
                     per.append(layer)
@@ -109,7 +114,7 @@ class MappingAdapter:
                     del per
                     params[e.ours] = self._place(value, e, dtype, device)
             else:
-                t = self._load_one(e, tensors)
+                t = self._load_one(e, tensors, device)
                 if t is not None:
                     params[e.ours] = self._place(t, e, dtype, device)
         return params
@@ -153,17 +158,18 @@ class MappingAdapter:
                    dtype: torch.dtype | None = None) -> dict[str, "LazyHFTensor"]:
         """The port's flat state dict -> flat dict of deferred HF tensors.
 
-        Nothing is copied here: each value is a :class:`LazyHFTensor` that copies one
-        layer / expert slice to the host and applies the entry's transform when it is
-        materialized, so a writer that consumes them in order holds one tensor at a
-        time. ``params`` may live on the card."""
+        Nothing is copied here: each value is a :class:`LazyHFTensor` that applies the
+        entry's transform to one layer / expert slice where it lies and copies the result
+        to the host when it is materialized, so a writer that consumes them in order holds
+        one tensor at a time. ``params`` may live on the card."""
         # one-slot memo: an entry with several HF keys (gate + up) transforms once
         memo: dict = {"tag": None, "results": None}
 
         def make(e: Entry, slicer, cast, key_idx, tag):
             def thunk():
                 if memo["tag"] != tag:
-                    memo["results"] = _as_tuple(e.to_hf(slicer().detach().to("cpu")))
+                    memo["results"] = tuple(t.to("cpu") for t in
+                                            _as_tuple(e.to_hf(slicer().detach())))
                     memo["tag"] = tag
                 t = memo["results"][key_idx]
                 return t if cast is None else t.to(cast)

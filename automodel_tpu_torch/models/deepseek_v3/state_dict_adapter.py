@@ -55,7 +55,7 @@ def _mla_entries(cfg: DeepseekV3Config, ours_prefix: str, layer_range) -> list[E
 class DeepseekV3StateDictAdapter(MappingAdapter):
     def __init__(self, cfg: DeepseekV3Config):
         k, n_layers = cfg.first_k_dense_replace, cfg.num_hidden_layers
-        moe_range = (k, n_layers)
+        moe_range = range(k, n_layers)
         pre = "model.layers.{i}.mlp"
         entries = [
             Entry("model.embed_tokens.weight", "embed"),
@@ -73,8 +73,8 @@ class DeepseekV3StateDictAdapter(MappingAdapter):
                       f"moe_layers.moe.shared_experts.w_{ours}", _t, _t, layer_range=moe_range)
                 for hf, ours in (("gate", "gate"), ("up", "up"), ("down", "down"))]
         if k > 0:
-            entries += [*_mla_entries(cfg, "dense_layers", (0, k)),
-                        *dense_mlp_entries(cfg, "dense_layers", layer_range=(0, k))]
+            entries += [*_mla_entries(cfg, "dense_layers", range(k)),
+                        *dense_mlp_entries(cfg, "dense_layers", layer_range=range(k))]
         if not cfg.tie_word_embeddings:
             entries.append(Entry("lm_head.weight", "lm_head", _t, _t))
         super().__init__(entries, n_layers, num_experts=cfg.moe.n_routed_experts)

@@ -21,9 +21,6 @@ class Qwen3MoeConfig(MoEDecoderConfig):
     @classmethod
     def from_hf(cls, hf: dict[str, Any]) -> "Qwen3MoeConfig":
         """Build from an HF config.json dict, with the JAX package's reading of it."""
-        if hf.get("attention_bias"):
-            raise NotImplementedError("Qwen3MoeConfig.from_hf: attention_bias is not ported "
-                                      "to the PyTorch package yet")
         n_layers = hf["num_hidden_layers"]
         mlp_only = hf.get("mlp_only_layers") or []
         sparse_step = hf.get("decoder_sparse_step", 1)
@@ -56,6 +53,7 @@ class Qwen3MoeConfig(MoEDecoderConfig):
             rope_scaling=hf.get("rope_scaling"),
             rms_norm_eps=hf.get("rms_norm_eps", 1e-6),
             tie_word_embeddings=hf.get("tie_word_embeddings", False),
+            attention_bias=hf.get("attention_bias", False),
             qk_norm=True,
             initializer_range=hf.get("initializer_range", 0.02),
             moe=moe,

@@ -35,6 +35,13 @@ MODEL_REGISTRY: dict[str, str] = {
     # config.json files describe the same parameters
     **{arch: _DEEPSEEK for arch in ("DeepseekV3ForCausalLM", "DeepseekV2ForCausalLM",
                                     "KimiK2ForCausalLM", "Glm4MoeLiteForCausalLM")},
+    "Glm4MoeForCausalLM": "automodel_tpu_torch.models.glm4_moe.model:Glm4MoeForCausalLM",
+    "MiniMaxM2ForCausalLM": "automodel_tpu_torch.models.minimax_m2.model:MiniMaxM2ForCausalLM",
+    "Step3p5ForCausalLM": "automodel_tpu_torch.models.step3p5.model:Step3p5ForCausalLM",
+    # the gated DeltaNet hybrids (Qwen3.5-MoE: the text stack of either name)
+    "Qwen3NextForCausalLM": "automodel_tpu_torch.models.qwen3_next.model:Qwen3NextForCausalLM",
+    **{arch: "automodel_tpu_torch.models.qwen3_5_moe.model:Qwen3_5MoeForCausalLM" for arch in (
+        "Qwen3_5MoeForCausalLM", "Qwen3_5MoeForConditionalGeneration")},
 }
 
 

@@ -9,7 +9,8 @@ ignores the section.
 ``profile_dir`` trace those steps with ``torch.profiler`` (the JAX recipe's
 jax.profiler window; the trace adds overhead inside the timed steps). The window
 writes ``trace.json`` (Chrome trace), ``kernels.txt`` (device time by kernel) and
-``summary.json`` (device-busy seconds, idle share and the top kernels).
+``summary.json`` (device-busy seconds, idle share, the top kernels, and the device time
+of each named scope of the model, forward, replay and backward: ``utils/tracing.py``).
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from automodel_tpu_torch.config.loader import ConfigNode
 from automodel_tpu_torch.data.collate import stack_batches
 from automodel_tpu_torch.recipes.llm.train_ft import TrainFinetuneRecipeForNextTokenPrediction
 from automodel_tpu_torch.utils.flops import mfu
+from automodel_tpu_torch.utils.tracing import scope_names, scope_times
 
 logger = logging.getLogger(__name__)
 
@@ -117,10 +119,11 @@ def _start_profiler(cuda: bool):
 
 def _device_us(event) -> float:
     """Device time of a kernel-side event (kernels, copies, memsets); 0 for host ops,
-    whose device time the kernel events already carry."""
+    whose device time the kernel events already carry, and for a scope's span on the
+    device's timeline, which covers kernels counted already."""
     from torch.autograd import DeviceType
 
-    if event.device_type != DeviceType.CUDA:
+    if event.device_type != DeviceType.CUDA or getattr(event, "is_user_annotation", False):
         return 0.0
     return float(getattr(event, "self_device_time_total",
                          getattr(event, "self_cuda_time_total", 0.0)))
@@ -152,9 +155,10 @@ def _stop_profiler(prof, out_dir: str, window_s: float, n_steps: int) -> dict:
     prof.stop()
     os.makedirs(out_dir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(out_dir, "trace.json"))
-    events = sorted(prof.key_averages(), key=_device_us, reverse=True)
+    averages = prof.key_averages()
+    events = sorted(averages, key=_device_us, reverse=True)
     with open(os.path.join(out_dir, "kernels.txt"), "w") as f:
-        f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=60))
+        f.write(averages.table(sort_by="self_device_time_total", row_limit=60))
     busy_s = sum(_device_us(e) for e in events) / 1e6
     by_class: dict[str, float] = {}
     for e in events:
@@ -168,6 +172,8 @@ def _stop_profiler(prof, out_dir: str, window_s: float, n_steps: int) -> dict:
         "device_ms_by_class": by_class,
         "top": [{"name": e.key, "device_ms": _device_us(e) / 1e3, "calls": e.count}
                 for e in events[:25] if _device_us(e) > 0],
+        "device_ms_by_scope": {k: v / 1e3 for k, v in
+                               scope_times(prof.events(), scope_names()).items()},
     }
     with open(os.path.join(out_dir, "summary.json"), "w") as f:
         json.dump(summary, f, indent=2)

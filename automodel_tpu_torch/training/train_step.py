@@ -3,9 +3,11 @@
 One call does what the JAX step's scan does: gradients accumulate over the stacked
 microbatches, every microbatch loss is normalised by the step's global label-token
 count (so the summed gradients are the global-mean gradient), the optimizer runs
-once, and with ``guard_nonfinite`` a non-finite loss or gradient norm skips the
-update and keeps the optimizer state. A ``post_update`` (the MoE gate-bias update) runs
-after the optimizer on the step's summed aux, on a skipped step too, as in JAX.
+once, in place and leaf by leaf (``Optimizer.step``: the step's peak holds no full-size
+copy of the gradients or moments), and with ``guard_nonfinite`` a non-finite loss or
+gradient norm skips the update and keeps the optimizer state, slice by slice from a device
+flag. A ``post_update`` (the MoE gate-bias update) runs after the optimizer on the step's
+summed aux, on a skipped step too, as in JAX.
 """
 
 from __future__ import annotations
@@ -15,7 +17,8 @@ from typing import Callable
 import torch
 
 from automodel_tpu_torch.ops.losses import IGNORE_INDEX
-from automodel_tpu_torch.optim.builder import Optimizer, apply_updates, global_norm
+from automodel_tpu_torch.optim.builder import Optimizer, global_norm
+from automodel_tpu_torch.utils.tracing import scoped
 
 __all__ = ["count_label_tokens", "make_eval_step", "make_train_step"]
 
@@ -24,20 +27,22 @@ def count_label_tokens(labels: torch.Tensor, ignore_index: int = IGNORE_INDEX) -
     return (labels != ignore_index).sum()
 
 
-def _guard_nonfinite_update(updates, new_state, old_state, grad_norm, loss):
-    """Zero the update and keep the old optimizer state when the step is non-finite.
-    Returns (updates, state, nonfinite flag) without a host sync."""
-    ok = torch.isfinite(grad_norm) & torch.isfinite(loss)
-    updates = {k: torch.where(ok, u, torch.zeros_like(u)) for k, u in updates.items()}
+def _own_buffers(grads) -> list[torch.Tensor]:
+    """``grads`` with a dense buffer of its own each, for the in-place sum over
+    microbatches: autograd may hand two inputs the same tensor (an add passes its gradient
+    to both operands), or a stride-0 one (a sum's gradient is an expanded tensor)."""
+    seen, out = set(), []
+    for t in grads:
+        if t.data_ptr() in seen or not t.is_contiguous():
+            t = t.clone(memory_format=torch.contiguous_format)
+        seen.add(t.data_ptr())
+        out.append(t)
+    return out
 
-    def pick(new, old):
-        if isinstance(new, dict):
-            return {k: pick(new[k], old[k]) for k in new}
-        if isinstance(new, list):
-            return [pick(n, o) for n, o in zip(new, old)]
-        return torch.where(ok.to(new.device), new, old)
 
-    return updates, pick(new_state, old_state), ~ok
+@scoped("optimizer")  # the update's share of a profiled step
+def _optimizer_step(optimizer: Optimizer, grads, opt_state, params, ok):
+    return optimizer.step(grads, opt_state, params, ok)
 
 
 def make_train_step(
@@ -47,7 +52,8 @@ def make_train_step(
     guard_nonfinite: bool = False,
     post_update: Callable[[dict, dict], None] | None = None,
 ):
-    """Build ``train_step(opt_state, batch_stack) -> (opt_state, metrics)``.
+    """Build ``train_step(opt_state, batch_stack) -> (opt_state, metrics)``; the step
+    overwrites ``opt_state``'s tensors in place.
 
     ``forward_loss(microbatch, num_label_tokens)`` returns the microbatch's CE sum
     divided by the global ``num_label_tokens``, or ``(loss, aux)`` with a dict of aux
@@ -77,20 +83,22 @@ def make_train_step(
             # a parameter the loss does not reach (a router under fake_balanced_gate)
             # gets a zero gradient, as jax.grad gives it
             g = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
-            grads = list(g) if grads is None else [a + b for a, b in zip(grads, g)]
+            # summed into the first microbatch's buffers: the same values as a + b,
+            # without a third set of gradients at the peak
+            grads = _own_buffers(g) if grads is None else [a.add_(b) for a, b in zip(grads, g)]
             loss_acc = loss_acc + loss.detach().float()
             for k, v in aux.items():
                 aux_acc[k] = v.detach() if k not in aux_acc else aux_acc[k] + v.detach()
         grads = dict(zip(names, grads))
         grad_norm = global_norm(grads)
+        metrics = {"loss": loss_acc, "grad_norm": grad_norm,
+                   "num_label_tokens": num_label_tokens, **aux_acc}
         with torch.no_grad():
-            updates, new_state = optimizer.update(grads, opt_state, params)
-            metrics = {"loss": loss_acc, "grad_norm": grad_norm,
-                       "num_label_tokens": num_label_tokens, **aux_acc}
+            ok = None
             if guard_nonfinite:
-                updates, new_state, metrics["nonfinite"] = _guard_nonfinite_update(
-                    updates, new_state, opt_state, grad_norm, loss_acc)
-            apply_updates(params, updates)
+                ok = torch.isfinite(grad_norm) & torch.isfinite(loss_acc)
+                metrics["nonfinite"] = ~ok
+            new_state = _optimizer_step(optimizer, grads, opt_state, params, ok)
             if post_update is not None:
                 post_update(params, aux_acc)
         return new_state, metrics

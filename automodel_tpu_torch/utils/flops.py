@@ -5,7 +5,9 @@ pair: Gemma3ForConditionalGeneration).
 
 Train FLOPs = 3 x forward. The attention score term counts the full S x S product,
 as the JAX package counts it, on sliding-window layers too (``layer_types``: each
-attention layer, sliding or full, counts the same). An MoE layer counts its active
+attention layer, sliding or full, counts the same); a gated DeltaNet layer (Qwen3-Next's
+linear attention, named in ``layer_types`` or implied by ``full_attention_interval``)
+counts its projections and its state, not S x S. Mamba layers raise. An MoE layer counts its active
 experts (top-k) plus shared experts, a dense prefix (``first_k_dense_replace``) the
 dense MLP; the router's product is not counted, as in JAX. The routed experts are
 ``num_experts``, ``n_routed_experts`` or, in GPT-OSS's and Mixtral's configs,
@@ -35,12 +37,14 @@ def flops_per_token(cfg: Any, seq_len: int, training: bool = True) -> float:
     for key in ("index_topk", "hybrid_override_pattern"):
         if get(key):
             raise NotImplementedError(f"flops_per_token: {key} configs are not ported yet")
-    other = [t for t in get("layer_types") or () if "linear" in str(t) or "mamba" in str(t)]
-    if other:
-        raise NotImplementedError(f"flops_per_token: {other[0]} layers are not ported yet")
     d, L, v = get("hidden_size"), get("num_hidden_layers"), get("vocab_size")
+    kinds = _layer_kinds(get, L)
+    if "mamba" in kinds:
+        raise NotImplementedError("flops_per_token: mamba layers are not ported yet")
     inter = get("intermediate_size")
     attn = _mla_attn(get, seq_len) if get("kv_lora_rank") else _dense_attn(get, seq_len)
+    linear = _linear_attn(get) if get("linear_num_key_heads") else attn
+    attn_total = sum(linear if k == "linear" else attn for k in kinds)
     n_routed = get("num_experts") or get("n_routed_experts") or get("num_local_experts") or 0
     if n_routed:
         top_k = get("num_experts_per_tok") or get("top_k") or 1
@@ -51,7 +55,7 @@ def flops_per_token(cfg: Any, seq_len: int, training: bool = True) -> float:
         mlp_total = dense * 3 * 2 * d * inter + (L - dense) * moe_mlp
     else:
         mlp_total = L * 3 * 2 * d * inter
-    fwd = L * attn + mlp_total + 2 * d * v
+    fwd = attn_total + mlp_total + 2 * d * v
     if vision is not None:  # one image a sequence, amortised over its tokens
         fwd += vision_tower_flops(vision) / float(seq_len)
     return 3.0 * fwd if training else fwd
@@ -59,6 +63,34 @@ def flops_per_token(cfg: Any, seq_len: int, training: bool = True) -> float:
 
 def _getter(cfg: Any):
     return cfg.get if isinstance(cfg, dict) else (lambda k, d=None: getattr(cfg, k, d))
+
+
+def _layer_kinds(get, L: int) -> list[str]:
+    """Each layer's kind, "attn" | "linear" | "mamba", as JAX's ``_layer_kinds`` reads a
+    config: from ``layer_types``, else (a Qwen3-Next config without them) every
+    ``full_attention_interval``-th layer full and the rest gated DeltaNet."""
+    types = get("layer_types")
+    if types:
+        kinds = ["linear" if "linear" in str(t) else "mamba" if "mamba" in str(t) or t == "M"
+                 else "attn" for t in types]
+        return (kinds * (L // len(kinds) + 1))[:L]  # a table of the repeating block
+    if get("linear_num_key_heads") and get("full_attention_interval"):
+        interval = int(get("full_attention_interval"))
+        return ["attn" if (i + 1) % interval == 0 else "linear" for i in range(L)]
+    return ["attn"] * L
+
+
+def _linear_attn(get) -> float:
+    """A gated DeltaNet layer (JAX's formula): the q / k / v / z and b / a projections,
+    the depthwise conv, the delta rule over each value head's (dk, dv) state (decay,
+    rank-1 update, readout) and the output projection; no S x S term."""
+    d = get("hidden_size")
+    hk, dk = get("linear_num_key_heads"), get("linear_key_head_dim")
+    hv, dv = get("linear_num_value_heads"), get("linear_value_head_dim")
+    conv = get("linear_conv_kernel_dim", 4) or 4
+    proj = 2 * d * (2 * hk * dk + 2 * hv * dv) + 2 * d * 2 * hv
+    return (proj + 2 * (2 * hk * dk + hv * dv) * conv + 6 * hv * dk * dv
+            + 2 * hv * dv * d)
 
 
 def vision_tower_flops(cfg: Any) -> float:

@@ -51,7 +51,11 @@ Phases, in order; any failure exits non-zero before the last line:
    (ef) Mixtral's 32 over 8 (the plain version over groups of KV heads where its scores
    would pass 4 GiB); for the encoder slice: (ga) / (gb) non-causal over right-padded
    rows of 64 (one q tile, the padding inside it) and 256 at 32 heads over 8, D=64 (the
-   biencoder's towers), (gc) GPT-2's causal MHA, 12 heads over 12, S=1024;
+   biencoder's towers), (gc) GPT-2's causal MHA, 12 heads over 12, S=1024; for the MoE
+   families and hybrids: (ha) the Step-3.5 geometry's sliding layers (STEP35_FLASH,
+   unverified against the published config), 96 heads over 8 at D=128,
+   window 512, over packed rows of 4096, (hb) Qwen3-Next's full layers, 16 heads over 2
+   at D=256 over 4 x 2048;
 4. flash kernel times (flash_fwd, flash_dq, flash_dkv) at shapes (a) and (f) beside the
    bound, the plain version and SDPA, and the whole backward as the wrapper runs it
    (delta, flash_dq, flash_dkv) beside SDPA's backward (one phase alone:
@@ -109,10 +113,13 @@ Phases, in order; any failure exits non-zero before the last line:
    F=512; (h, i) GPT-OSS-20B's gate_up (D=2880, F=5760) and down (2880, 2880), 32
    experts top-4 over 16,384 tokens; (m, n) Mixtral-8x7B's gate_up (D=4096, F=28,672)
    and down (14,336, 4096), 8 experts top-2 over 8192 tokens (about 2048 rows an expert);
+   (o, p) GLM-4.5-Air's gate_up (D=4096, F=2816) and down (1408, 4096), 128 experts top-8
+   over 4096 tokens; (q, r) Qwen3-Next-80B-A3B's (2048, 1024) and (512, 2048), 512
+   experts top-10 over 8192 tokens (160 rows an expert);
    each case line names the routes of gmm and tgmm (wgmma where the row lengths are
    multiples of 8, else mma_sync: c, d) and fails if others were launched; then gmm
-   (forward and dX) and tgmm times at (a), (b), (h), (i), (m) and (n) beside the bound,
-   the plain version and torch._grouped_mm;
+   (forward and dX) and tgmm times at (a), (b), (h), (i), (m), (n) and (o)-(r) beside the
+   bound, the plain version (timed once at (o)-(r)) and torch._grouped_mm;
 8. Qwen3-30B-A3B width at 1 layer: the kernels against the plain versions on the same
    weights, with routing held fixed;
 8b. ring_fwd / ring_bwd (ring-attention chunk kernels), and the deterministic route
@@ -250,7 +257,23 @@ Phases, in order; any failure exits non-zero before the last line:
    examples/llm_pretrain/nanogpt.yaml (GPT-2-124M, 12 layers, flash, mb 16 x 1024) over
    nanoGPT shards from the seed, run A fresh with saves at 2 and 4, run B resumed from
    step 2 bitwise, step_4/hf reloaded bitwise, nanoGPT's MFU printed beside the
-   recipe's absent one.
+   recipe's absent one. Then the MoE families and the hybrids (_family_paths over
+   FAMILY_PATHS, each at a published config written down here): main path 38, the
+   benchmark recipe on examples/benchmark/glm4_moe_proxy.yaml at GLM-4.5-Air's widths
+   (its dense layer and 2 MoE layers, flash, linear CE), each step's move of the
+   correction bias held to the gate-bias update's rule; main path 39, train_ft on
+   examples/llm_finetune/minimax_m2_sft.yaml from a local HF directory of a random-init
+   MiniMax-M2 at 2 of 62 layers (ep 16 -> 1, flash, adafactor_nomom, packed rows of
+   4096, 2 steps of 2 microbatches, one save, hf/ reloaded bitwise, its MFU also as JAX
+   counts it); main path 40, the same on examples/llm_finetune/step3p5_moe.yaml at
+   the first 4 layers of STEP35_FLASH, a Step-3.5 geometry unverified against the
+   published config (full, sliding, sliding, sliding MoE; 64 heads over 8 on the full
+   layer, 96 over 8 at window 512 on the sliding ones; no clamp on the card); main path 41, the
+   benchmark recipe on examples/benchmark/qwen3_next_proxy.yaml at Qwen3-Next-80B-A3B's
+   widths, one period (3 gated DeltaNet layers, no attention kernel, and 1 gated full
+   layer at D=256; then one more step in the recipe's profile window, whose device time
+   by scope gives the DeltaNet's share of the step), then the DeltaNet mixer's time at its
+   shape, op by op (_delta_net_timings).
    Every main path also checks that each of its gmm, tgmm, lce_fwd and lce_bwd launches
    took the wgmma route (``launches by route`` on its line), and, through one helper
    (_check_path_launches), that its windowed flash launches are those of its sliding
@@ -283,6 +306,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -572,6 +596,94 @@ GLM4_9B = {
 LINEAGE_SWEEP = (("Granite-3.3-2B", GRANITE_33_2B, 40), ("OLMo-2-1124-7B", OLMO2_7B, 2),
                  ("SmolLM3-3B", SMOLLM3_3B, 4), ("GLM-4-9B-0414", GLM4_9B, 2))
 SWEEP_WARMUP, SWEEP_TIMED = 1, 3  # benchmark steps of each member of main path 32
+# Main paths 38-41 (the MoE families and the hybrids): the published config.json files
+# on the Hugging Face Hub, written down here (the repository holds no weights and the
+# script needs no network), each laid over a repo YAML at a depth cut for the card's
+# memory and the script's time, with random weights from the seed.
+# zai-org/GLM-4.5-Air: GQA 96 / 8 at head_dim 128 with q/k/v biases and half-width
+# rotary, no q/k norm; sigmoid routing over 128 experts top-8 with the correction bias,
+# one shared expert, a dense first layer
+GLM45_AIR = {
+    "architectures": ["Glm4MoeForCausalLM"], "model_type": "glm4_moe", "vocab_size": 151552,
+    "hidden_size": 4096, "intermediate_size": 10944, "moe_intermediate_size": 1408,
+    "num_hidden_layers": 46, "num_attention_heads": 96, "num_key_value_heads": 8,
+    "head_dim": 128, "partial_rotary_factor": 0.5, "attention_bias": True,
+    "use_qk_norm": False, "n_routed_experts": 128, "num_experts_per_tok": 8,
+    "n_shared_experts": 1, "n_group": 1, "topk_group": 1, "routed_scaling_factor": 1.0,
+    "norm_topk_prob": True, "first_k_dense_replace": 1, "rope_theta": 1000000.0,
+    "rope_scaling": None, "rms_norm_eps": 1e-5, "max_position_embeddings": 131072,
+    "tie_word_embeddings": False, "initializer_range": 0.02, "hidden_act": "silu",
+}
+# depth of main path 38: the dense first layer and 2 MoE layers (6.1 B parameters:
+# bf16 weights, gradients and adamw_lowmem's two bf16 moments take ~46 GiB)
+GLM45_AIR_LAYERS = 3
+# MiniMaxAI/MiniMax-M2: GQA 48 / 8 at head_dim 128; every layer MoE, 256 experts top-8,
+# sigmoid scores with the correction bias, no shared expert. Its rotary_dim 64 is half
+# the head, but HF's rope init (and JAX's reading) takes partial_rotary_factor, absent
+# here: the whole head rotates; its q/k norms ("per_layer": over the whole projection)
+# are read by JAX as per-head ones (PERF.md, reference caveats)
+MINIMAX_M2 = {
+    "architectures": ["MiniMaxM2ForCausalLM"], "model_type": "minimax_m2",
+    "vocab_size": 200064, "hidden_size": 3072, "intermediate_size": 1536,
+    "num_hidden_layers": 62, "num_attention_heads": 48, "num_key_value_heads": 8,
+    "head_dim": 128, "rotary_dim": 64, "rope_theta": 5000000.0, "num_local_experts": 256,
+    "num_experts_per_tok": 8, "scoring_func": "sigmoid", "use_routing_bias": True,
+    "router_aux_loss_coef": 0.001, "use_qk_norm": True, "qk_norm_type": "per_layer",
+    "shared_intermediate_size": 0, "rms_norm_eps": 1e-6, "max_position_embeddings": 196608,
+    "tie_word_embeddings": False, "initializer_range": 0.02, "hidden_act": "silu",
+}
+# A Step-3.5 geometry after stepfun-ai/Step-3.5-Flash, UNVERIFIED against its published
+# config.json (written down without the file: the repository holds none and the script
+# needs no network): 45 layers, one full-attention layer (64 heads over 8) then three
+# sliding ones (window 512, 96 heads over 8), head_dim 128, the head-wise gate; full
+# layers rope half the head at theta 5e6, sliding ones all of it at 1e4; dense layers
+# 0-2, then 288 experts top-8 (sigmoid, router bias) beside a shared expert. The layer
+# pattern, the per-layer thetas and factors and the router settings are reconstructed,
+# and the dict names no swiglu_limits / swiglu_limits_shared: its dense MLPs and shared
+# experts run unclamped on the card (the clamped SwiGLU is held to JAX's on the CPU,
+# tests/test_torch_step3p5.py). Check it against the published file once the repository
+# has one.
+STEP35_FLASH_LAYERS_ALL = 45
+STEP35_FLASH = {
+    "architectures": ["Step3p5ForCausalLM"], "model_type": "step3p5", "vocab_size": 128896,
+    "hidden_size": 4096, "intermediate_size": 11264, "num_hidden_layers": 45,
+    "num_attention_heads": 64, "num_attention_groups": 8, "head_dim": 128,
+    "layer_types": ["full_attention" if i % 4 == 0 else "sliding_attention"
+                    for i in range(STEP35_FLASH_LAYERS_ALL)],
+    "sliding_window": 512,
+    "attention_other_setting": {"attention_type": "sliding_attention",
+                                "num_attention_heads": 96, "num_attention_groups": 8,
+                                "head_dim": 128, "true_head_dim": 128},
+    "use_head_wise_attn_gate": True,
+    "rope_theta": [5000000.0 if i % 4 == 0 else 10000.0
+                   for i in range(STEP35_FLASH_LAYERS_ALL)],
+    "partial_rotary_factors": [0.5 if i % 4 == 0 else 1.0
+                               for i in range(STEP35_FLASH_LAYERS_ALL)],
+    "moe_layers_enum": ",".join(str(i) for i in range(3, STEP35_FLASH_LAYERS_ALL)),
+    "moe_num_experts": 288, "moe_top_k": 8, "moe_intermediate_size": 1280,
+    "share_expert_dim": 1280, "moe_router_activation": "sigmoid",
+    "moe_router_scaling_factor": 3.0, "use_moe_router_bias": True,
+    "max_position_embeddings": 262144, "rms_norm_eps": 1e-5, "tie_word_embeddings": False,
+    "initializer_range": 0.02,
+}
+# Qwen/Qwen3-Next-80B-A3B-Instruct: 48 layers in periods of three gated DeltaNet layers
+# (16 key heads of 128, 32 value heads of 128) and one gated full-attention layer (16
+# heads over 2 at head_dim 256, a quarter rotary); 512 experts top-10 of 512 wide and a
+# gated shared expert in every layer
+QWEN3_NEXT_80B = {
+    "architectures": ["Qwen3NextForCausalLM"], "model_type": "qwen3_next",
+    "vocab_size": 151936, "hidden_size": 2048, "intermediate_size": 5120,
+    "num_hidden_layers": 48, "full_attention_interval": 4, "num_attention_heads": 16,
+    "num_key_value_heads": 2, "head_dim": 256, "partial_rotary_factor": 0.25,
+    "rope_theta": 10000000.0, "linear_num_value_heads": 32, "linear_num_key_heads": 16,
+    "linear_key_head_dim": 128, "linear_value_head_dim": 128, "linear_conv_kernel_dim": 4,
+    "num_experts": 512, "num_experts_per_tok": 10, "moe_intermediate_size": 512,
+    "shared_expert_intermediate_size": 512, "decoder_sparse_step": 1, "mlp_only_layers": [],
+    "norm_topk_prob": True, "router_aux_loss_coef": 0.001, "rms_norm_eps": 1e-6,
+    "max_position_embeddings": 262144, "tie_word_embeddings": False,
+    "initializer_range": 0.02, "hidden_act": "silu",
+}
+QWEN3_NEXT_LAYERS = 4  # depth of main path 41: one period, 3 DeltaNet layers and 1 full
 
 
 class ByteTokenizer:
@@ -752,17 +864,37 @@ def cp_config(out_dir: str) -> str:
     return path
 
 
+def at_depth(model: dict, layers: int) -> dict:
+    """``model`` (an HF config dict) at its first ``layers`` layers: its per-layer lists
+    (``layer_types``, Step-3.5's RoPE thetas and factors) cut to them, and a string
+    ``moe_layers_enum`` to the MoE layers among them."""
+    out = dict(model, num_hidden_layers=layers)
+    for key, value in model.items():
+        if isinstance(value, list) and len(value) == model["num_hidden_layers"]:
+            out[key] = value[:layers]
+    if isinstance(model.get("moe_layers_enum"), str):
+        out["moe_layers_enum"] = ",".join(
+            x for x in model["moe_layers_enum"].split(",") if int(x) < layers)
+    return out
+
+
+def model_config_args(model: dict) -> list[str]:
+    """``--model.config.KEY VALUE`` overrides that lay ``model`` over a YAML's ``config:``
+    block (lists, dicts and null as JSON, booleans in lower case)."""
+    args = []
+    for key, value in model.items():
+        args += [f"--model.config.{key}",
+                 json.dumps(value) if value is None or isinstance(value, (list, dict))
+                 else str(value).lower() if isinstance(value, bool) else str(value)]
+    return args
+
+
 def gpt_oss_args(layers: int = GPT_OSS_20B["num_hidden_layers"]) -> list[str]:
     """CLI overrides that turn the GPT-OSS proxy config into the slice configuration: the
     published widths at ``layers`` layers (layer_types cut to them), the pallas experts."""
-    args = []
-    cfg = dict(GPT_OSS_20B, num_hidden_layers=layers,
-               layer_types=GPT_OSS_20B["layer_types"][:layers])
-    for key, value in cfg.items():
-        args += [f"--model.config.{key}", json.dumps(value) if isinstance(value, (list, dict))
-                 else str(value).lower() if isinstance(value, bool) else str(value)]
-    return args + ["--dataset.vocab_size", str(GPT_OSS_20B["vocab_size"]),
-                   "--backend.experts_backend", "pallas"]
+    return [*model_config_args(at_depth(GPT_OSS_20B, layers)),
+            "--dataset.vocab_size", str(GPT_OSS_20B["vocab_size"]),
+            "--backend.experts_backend", "pallas"]
 
 
 def phi3_args(layers: int = PHI3_MINI["num_hidden_layers"]) -> list[str]:
@@ -929,11 +1061,8 @@ def mixtral_args(layers: int = MIXTRAL_LAYERS) -> list[str]:
     """Main path 31's overrides of the Mixtral proxy config: Mixtral-8x7B's published
     widths at ``layers`` layers; every other setting is the file's (mb 4 x 2048,
     adamw_lowmem, mlp_dots, flash)."""
-    args = []
-    for key, value in dict(MIXTRAL_8X7B, num_hidden_layers=layers).items():
-        args += [f"--model.config.{key}", str(value).lower() if isinstance(value, bool)
-                 else str(value)]
-    return args + ["--dataset.vocab_size", str(MIXTRAL_8X7B["vocab_size"])]
+    return [*model_config_args(at_depth(MIXTRAL_8X7B, layers)),
+            "--dataset.vocab_size", str(MIXTRAL_8X7B["vocab_size"])]
 
 
 def lineage_config(out_dir: str, model: dict, layers: int) -> str:
@@ -946,12 +1075,9 @@ def lineage_config(out_dir: str, model: dict, layers: int) -> str:
 
 def qwen3_args(layers: int = QWEN3_30B_A3B["num_hidden_layers"]) -> list[str]:
     """CLI overrides that turn the proxy config into the slice configuration."""
-    args = []
-    for key, value in dict(QWEN3_30B_A3B, num_hidden_layers=layers).items():
-        args += [f"--model.config.{key}", str(value).lower() if isinstance(value, bool)
-                 else str(value)]
-    return args + ["--dataset.vocab_size", str(QWEN3_30B_A3B["vocab_size"]),
-                   "--backend.experts_backend", "pallas"]
+    return [*model_config_args(at_depth(QWEN3_30B_A3B, layers)),
+            "--dataset.vocab_size", str(QWEN3_30B_A3B["vocab_size"]),
+            "--backend.experts_backend", "pallas"]
 
 
 WARMUP, TIMED = 2, 5  # benchmark steps of the main-path runs (CLI overrides)
@@ -1340,6 +1466,12 @@ def _flash_phase(torch, fa, errs):
         note(_kernel_case(torch, fa, name, b, length, 32, 8, causal=False,
                           seg=_right_padded(torch, b, length)))
     note(_kernel_case(torch, fa, "gc", 2, 1024, 12, 12, causal=True))
+    # the MoE-family and hybrid slice: ha STEP35_FLASH's sliding layers (96 heads over 8
+    # at D=128, window 512) over main path 40's packed rows of 4096; hb Qwen3-Next's gated
+    # full attention (16 heads over 2 at D=256) over main path 41's micro-batch of 4 x 2048
+    note(_kernel_case(torch, fa, "ha", 2, 4096, 96, 8, causal=True, d=128, window=512,
+                      seg=_packed_segments(torch)))
+    note(_kernel_case(torch, fa, "hb", 4, 2048, 16, 2, causal=True, d=256))
 
 
 def _refused_on_the_card(torch, fa):
@@ -2455,18 +2587,27 @@ _GMM_ROW_KEYS = {("forward", "a"): None, ("forward", "b"): "at_case_b", ("dX", "
                  ("forward", "h"): "at_gpt_oss_gate_up", ("dX", "h"): "dx_at_gpt_oss_gate_up",
                  ("tgmm", "h"): "at_gpt_oss_gate_up", ("forward", "i"): "at_gpt_oss_down",
                  ("dX", "i"): "dx_at_gpt_oss_down", ("tgmm", "i"): "at_gpt_oss_down"}
-_GMM_ROW_KEYS |= {(part, case): f"{'dx_' if part == 'dX' else ''}at_mixtral_{proj}"
-                  for case, proj in (("m", "gate_up"), ("n", "down"))
+_GMM_ROW_KEYS |= {(part, case): f"{'dx_' if part == 'dX' else ''}at_{model}_{proj}"
+                  for case, model, proj in (("m", "mixtral", "gate_up"), ("n", "mixtral", "down"),
+                                            ("o", "glm45_air", "gate_up"),
+                                            ("p", "glm45_air", "down"),
+                                            ("q", "qwen3_next", "gate_up"),
+                                            ("r", "qwen3_next", "down"))
                   for part in ("forward", "dX", "tgmm")}
 GMM_SHAPES = (("a", 2048, 1536), ("b", 768, 2048))  # the Qwen3-30B-A3B slice's
 GPT_OSS_GMM_SHAPES = (("h", 2880, 5760), ("i", 2880, 2880))
 # Mixtral-8x7B's gate_up (D = 4096, F = 2 x 14336) and down (14336, 4096): main path 31's
 MIXTRAL_GMM_SHAPES = (("m", 4096, 28672), ("n", 14336, 4096))
+# GLM-4.5-Air's gate_up (D = 4096, F = 2 x 1408) and down (1408, 4096), main path 38's;
+# Qwen3-Next-80B-A3B's (2048, 2 x 512) and (512, 2048), main path 41's
+GLM45_GMM_SHAPES = (("o", 4096, 2816), ("p", 1408, 4096))
+QWEN3_NEXT_GMM_SHAPES = (("q", 2048, 1024), ("r", 512, 2048))
 
 
-def _gmm_timings(torch, sizes, shapes=GMM_SHAPES):
+def _gmm_timings(torch, sizes, shapes=GMM_SHAPES, plain_reps=(1, 3)):
     """ms of gmm (forward and dX) and tgmm (dW) at the slice's gate_up (a) and down (b)
-    shapes, or the ``shapes`` given, with bound, plain version and yardstick."""
+    shapes, or the ``shapes`` given, with bound, plain version (``plain_reps``: its warmup
+    calls and timed reps) and yardstick."""
     from automodel_tpu_torch.ops import grouped_gemm as gg
 
     out = {"gmm": {}, "tgmm": {}}
@@ -2483,16 +2624,16 @@ def _gmm_timings(torch, sizes, shapes=GMM_SHAPES):
         times = {
             "forward": (_time_ms(torch, lambda: gg.gmm(x, w, ends)),
                         _time_ms(torch, lambda: gg.grouped_matmul_reference(x, w, sizes),
-                                 warmup=1, reps=3),
+                                 *plain_reps),
                         _time_ms(torch, lib_fwd), gg.gmm_route(x, w)),
             "dX": (_time_ms(torch, lambda: gg.gmm(dout, w, ends, transpose_w=True)),
                    _time_ms(torch, lambda: torch.autograd.grad(ref, xp, dout, retain_graph=True),
-                            warmup=1, reps=3),
+                            *plain_reps),
                    _time_ms(torch, lib_dx), gg.gmm_route(dout, w, transpose_w=True)),
             "tgmm": (_time_ms(torch, lambda: gg.tgmm(x, dout, ends, e)),
                      _time_ms(torch, lambda: torch.autograd.grad(ref, wp, dout,
                                                                  retain_graph=True),
-                              warmup=1, reps=3),
+                              *plain_reps),
                      _time_ms(torch, lib_dw), gg.tgmm_route(x, dout))}
         for part, (ms, plain, lib, route) in times.items():
             flops, nbytes = work[part]
@@ -2531,10 +2672,16 @@ def _gmm_phase(torch, errs):
     F = 5760) and down (2880, 2880), 32 experts top-4 over 16,384 tokens (main path 11's
     microbatch), K and N no multiple of the 128-wide tile; m / n: Mixtral-8x7B's gate_up
     (D = 4096, F = 28,672) and down (14,336, 4096), 8 experts top-2 over 8192 tokens (main
-    path 31's microbatch: about 2048 rows an expert); timed at a / b, h / i and m / n."""
+    path 31's microbatch: about 2048 rows an expert); o / p: GLM-4.5-Air's gate_up (4096,
+    2816) and down (1408, 4096), 128 experts top-8 over main path 38's 4096 tokens (256
+    rows an expert); q / r: Qwen3-Next-80B-A3B's (2048, 1024) and (512, 2048), 512 experts
+    top-10 over main path 41's 8192 tokens (160 rows an expert, most 128-row tiles part
+    empty); timed at a / b, h / i, m / n, o / p and q / r."""
     sizes = _router_group_sizes(torch, 8192, 2048, 128, 8)
     gpt_oss = _router_group_sizes(torch, 16384, 2880, 32, 4)
     mixtral = _router_group_sizes(torch, 8192, 4096, 8, 2)
+    glm = _router_group_sizes(torch, 4096, 4096, 128, 8)
+    qwen3_next = _router_group_sizes(torch, 8192, 2048, 512, 10)
     ragged = torch.tensor([0, 0, 300, 0, 77, 5, 0, 1, 134, 0, 0], dtype=torch.int32,
                           device="cuda")
     owner = torch.tensor([0, 1000, 0, 0], dtype=torch.int32, device="cuda")
@@ -2545,13 +2692,19 @@ def _gmm_phase(torch, errs):
                  ("c", ragged, 1000, 1003), ("d", owner, 1003, 1000), ("e", small, 16, 24),
                  ("f", ragged, 256, 512, 300), ("g", tails, 256, 512, 37),
                  ("h", gpt_oss, 2880, 5760), ("i", gpt_oss, 2880, 2880),
-                 ("m", mixtral, 4096, 28672), ("n", mixtral, 14336, 4096)):
+                 ("m", mixtral, 4096, 28672), ("n", mixtral, 14336, 4096),
+                 *((c, glm, d, f) for c, d, f in GLM45_GMM_SHAPES),
+                 *((c, qwen3_next, d, f) for c, d, f in QWEN3_NEXT_GMM_SHAPES)):
         err_gmm, err_tgmm = _gmm_case(torch, *case)
         errs["gmm"] = max(errs["gmm"], err_gmm)
         errs["tgmm"] = max(errs["tgmm"], err_tgmm)
     out = _gmm_timings(torch, sizes)
     for more in (_gmm_timings(torch, gpt_oss, GPT_OSS_GMM_SHAPES),
-                 _gmm_timings(torch, mixtral, MIXTRAL_GMM_SHAPES)):
+                 _gmm_timings(torch, mixtral, MIXTRAL_GMM_SHAPES),
+                 # the plain versions once each at the new shapes (up to 1.5 s a call)
+                 _gmm_timings(torch, glm, GLM45_GMM_SHAPES, plain_reps=(0, 1)),
+                 _gmm_timings(torch, qwen3_next, QWEN3_NEXT_GMM_SHAPES,
+                              plain_reps=(0, 1))):
         for name, rows in more.items():
             out[name].update(rows)
     return out
@@ -2870,7 +3023,7 @@ def _capped_layers(model) -> int:
 def _is_moe(cfg) -> bool:
     model = cfg.model.config
     return bool(model.get("num_experts") or model.get("num_local_experts")
-                or model.get("n_routed_experts"))
+                or model.get("n_routed_experts") or model.get("moe_num_experts"))
 
 
 def _is_mla(model) -> bool:
@@ -2878,8 +3031,16 @@ def _is_mla(model) -> bool:
     return bool(model.get("kv_lora_rank"))
 
 
-def _dense_prefix(model) -> int:
-    return int(model.get("first_k_dense_replace", 0) or 0)
+def _kernel_layers(model) -> tuple[int, int]:
+    """(the layers whose attention launches flash or the ring, the MoE layers) of an HF
+    config, read by its architecture's class: Qwen3-Next's gated DeltaNet layers launch
+    no attention kernel, Step-3.5's MoE layers are its ``moe_layers_enum``, an MoE
+    decoder's those after its dense prefix."""
+    config = _port_config(model)
+    layers = config.num_hidden_layers
+    attn = len(config.full_layer_indices) if hasattr(config, "linear_layer_indices") else layers
+    moe = getattr(config, "num_moe_layers", 0) if getattr(config, "moe", None) else 0
+    return attn, moe
 
 
 def _check_windowed(name, launches, sliding, micro, steps):
@@ -2945,7 +3106,8 @@ def _release():
 
 
 def _expected(layers, micro, steps, linear_ce, moe=False, ring_cp=1, val_batches=0,
-              deterministic=False, dense_prefix=0, mla=False, peft=False, towers=1):
+              deterministic=False, dense_prefix=0, mla=False, peft=False, towers=1,
+              attn_layers=None):
     """Launches of each kernel in a run, n = layers x microbatches x steps.
 
     flash_fwd 2n (the forward, and once more when each layer's checkpoint replays it: no
@@ -2964,15 +3126,18 @@ def _expected(layers, micro, steps, linear_ce, moe=False, ring_cp=1, val_batches
     are frozen (no tgmm; gmm's dX still runs, for the earlier layers' adapters) and whose
     lce_bwd launches compute dH alone (checked by _check_routes). ``towers``: the
     forwards a microbatch (and a validation batch) runs through the layers, the
-    biencoder's 2 (queries, then passages)."""
-    n = layers * micro * steps * towers
+    biencoder's 2 (queries, then passages). ``attn_layers``: the layers whose attention
+    launches a kernel, if not all (Qwen3-Next's full-attention layers; its DeltaNet
+    layers launch none)."""
+    attn = layers if attn_layers is None else attn_layers
+    n = attn * micro * steps * towers
     n_moe = (layers - dense_prefix) * micro * steps if moe else 0
     lce_n = micro * steps if linear_ce else 0
     ring = ring_cp > 1
     flash = not (ring or mla)
     ring_bwd = n * ring_cp if ring else 0
     split = deterministic or mla
-    return {"flash_fwd": 2 * n + layers * val_batches * towers if flash else 0,
+    return {"flash_fwd": 2 * n + attn * val_batches * towers if flash else 0,
             "flash_dq": n if flash else 0, "flash_dkv": n if flash else 0,
             "lce_fwd": lce_n + (val_batches if linear_ce else 0), "lce_bwd": lce_n,
             "gmm": 6 * n_moe, "tgmm": 0 if peft else 2 * n_moe,
@@ -3046,9 +3211,12 @@ def _logit_std(model) -> float:
     return std / getattr(_port_config(model), "logits_scaling", 1.0)
 
 
-def _bench_path(name, yaml, linear_ce, overrides=(), warmup=WARMUP, timed=TIMED):
-    """The benchmark recipe at full width, through its entry point, ``warmup`` + ``timed``
-    steps."""
+def _bench_path(name, yaml, linear_ce, overrides=(), warmup=WARMUP, timed=TIMED,
+                on_setup=None, on_profile=None):
+    """The benchmark recipe at full width, through its recipe class as its entry point
+    runs it, ``warmup`` + ``timed`` steps; ``on_setup(recipe)``: a hook run after the
+    recipe's setup; ``on_profile(summary)``: with it, the last timed step runs in the
+    recipe's profile window and the hook gets the window's ``summary.json``."""
     from automodel_tpu_torch.config.cli_overrides import parse_args_and_load_config
     from automodel_tpu_torch.recipes.llm import benchmark
 
@@ -3059,13 +3227,26 @@ def _bench_path(name, yaml, linear_ce, overrides=(), warmup=WARMUP, timed=TIMED)
     with tempfile.TemporaryDirectory() as out_dir:
         argv = ["-c", yaml, *overrides, "--benchmark.warmup_steps", str(warmup),
                 "--benchmark.timed_steps", str(timed), "--output_dir", out_dir]
+        if on_profile is not None:
+            argv += ["--benchmark.profile_start", str(timed - 1),
+                     "--benchmark.profile_dir", os.path.join(out_dir, "profile")]
         _reset_counts()
-        result = benchmark.main(argv=argv)
+        recipe = benchmark.BenchmarkingRecipeForNextTokenPrediction(
+            parse_args_and_load_config(argv))
+        recipe.setup()
+        if on_setup is not None:
+            on_setup(recipe)
+        result = recipe.run_benchmark()
+        del recipe
         launches = _read_counts()
+        if on_profile is not None:
+            with open(os.path.join(out_dir, "profile", "summary.json")) as f:
+                on_profile(json.load(f))
     vocab = int(cfg.model.config.vocab_size)
-    want = _expected(layers, micro, warmup + timed, linear_ce, moe=_is_moe(cfg),
-                     ring_cp=_ring_cp(cfg), dense_prefix=_dense_prefix(cfg.model.config),
-                     mla=_is_mla(cfg.model.config))
+    attn_layers, moe_layers = _kernel_layers(cfg.model.config)
+    want = _expected(layers, micro, warmup + timed, linear_ce, moe=moe_layers > 0,
+                     ring_cp=_ring_cp(cfg), dense_prefix=layers - moe_layers,
+                     mla=_is_mla(cfg.model.config), attn_layers=attn_layers)
     arch = (cfg.model.config.get("architectures") or ["LlamaForCausalLM"])[0]
     print(f"{name}: benchmark recipe on {_shown(yaml)} ({arch}, "
           f"{layers} layers, {micro} microbatch, mb {cfg.micro_batch_size}, seq "
@@ -3080,8 +3261,7 @@ def _bench_path(name, yaml, linear_ce, overrides=(), warmup=WARMUP, timed=TIMED)
     std = _logit_std(cfg.model.config)
     # an MoE model's loss carries coef x its layers' aux losses, each ~1 (f_i P_i summed
     # over E experts is 1 when the routing is balanced, as at init)
-    aux = float(cfg.model.config.get("router_aux_loss_coef", 0.0)) * layers if _is_moe(cfg) \
-        else 0.0
+    aux = float(cfg.model.config.get("router_aux_loss_coef", 0.0)) * moe_layers
     want_loss = random_init_loss(vocab, hidden, std, tied_self_logit(cfg.model.config)) + aux
     if not all(math.isfinite(x) for x in result["losses"]):
         raise AssertionError(f"non-finite loss on {name}")
@@ -3125,9 +3305,10 @@ def _train_ft_path(name, yaml, overrides, deterministic=False):
     layers = int(cfg.model.config.num_hidden_layers)
     micro = int(cfg.get("step_scheduler.grad_acc_steps", 1))
     moe = _is_moe(cfg)
+    attn_layers, moe_layers = _kernel_layers(cfg.model.config)
     want = _expected(layers, micro, TRAIN_FT_STEPS, True, moe, ring_cp=_ring_cp(cfg),
-                     deterministic=deterministic, dense_prefix=_dense_prefix(cfg.model.config),
-                     mla=_is_mla(cfg.model.config))
+                     deterministic=deterministic, dense_prefix=layers - moe_layers,
+                     mla=_is_mla(cfg.model.config), attn_layers=attn_layers)
     losses = [r["loss"] for r in rows]
     moe_rows = [sorted(k for k in r if k.startswith("moe_load/")) for r in rows]
     print(f"{name}: train_ft on {_shown(yaml)} ({layers} layers), default loss "
@@ -3406,34 +3587,18 @@ def _moonlight_train_ft_path(name):
     _release()
     layers, micro, factor = MOONLIGHT_LAYERS, 2, 0.001
     model = dict(MOONLIGHT_16B_A3B, num_hidden_layers=layers)
-    bias_name = "moe_layers.moe.gate.score_correction_bias"
     trace = []  # (bias before, bias after, summed expert load) a step
-
-    def on_setup(recipe):
-        bias, step_fn = recipe.params[bias_name], recipe._train_step
-
-        def traced(opt_state, stack):
-            before = bias.detach().clone()
-            opt_state, m = step_fn(opt_state, stack)
-            trace.append((before, bias.detach().clone(), m["expert_load"].detach().clone()))
-            return opt_state, m
-
-        recipe._train_step = traced
-
     with tempfile.TemporaryDirectory() as tmp:
         hf_dir = write_pretrained(os.path.join(tmp, "moonlight"), model)
         ckpt = os.path.join(tmp, "ckpts")
         run = _pretrained_run(name, ["-c", DSV3_EP_YAML, *moonlight_sft_args(hf_dir, ckpt),
                                      "--output_dir", os.path.join(tmp, "run")], ckpt,
-                              reload_dtype=torch.bfloat16, on_setup=on_setup)
+                              reload_dtype=torch.bfloat16, on_setup=_bias_tracer(trace))
         hf_bias = [n for n in run["hf_names"] if n.endswith("mlp.gate.e_score_correction_bias")]
         hf_tensors = load_safetensors(run["hf_dir"])
         bias_dtypes = sorted({str(hf_tensors[n].dtype) for n in hf_bias})
         del hf_tensors
-    moved = []
-    for before, after, load in trace:
-        want = torch.sign(load.float().mean(-1, keepdim=True) - load.float()) * factor
-        moved.append((after - before - want).abs().max().item())
+    moved = _bias_moves(trace, factor)
     first_bias = trace[0][1] if trace else None
     factor_used = run["moe"].gate_bias_update_factor
     want = _expected(layers, micro, MOONLIGHT_STEPS, True, moe=True,
@@ -3973,6 +4138,255 @@ def _lineage_paths() -> dict:
     by_path["main path 32 (StarCoder2 proxy)"], _ = _bench_path(
         "main path 32 (StarCoder2 proxy)", STARCODER2_YAML, False,
         ["--optimizer.optimizer", "adafactor_nomom"], SWEEP_WARMUP, SWEEP_TIMED)
+    return by_path
+
+
+GLM4_MOE_YAML = os.path.join(HERE, "examples", "benchmark", "glm4_moe_proxy.yaml")
+QWEN3_NEXT_YAML = os.path.join(HERE, "examples", "benchmark", "qwen3_next_proxy.yaml")
+MINIMAX_SFT_YAML = os.path.join(HERE, "examples", "llm_finetune", "minimax_m2_sft.yaml")
+STEP_SFT_YAML = os.path.join(HERE, "examples", "llm_finetune", "step3p5_moe.yaml")
+# depth of main path 39: 2 of 62 layers (8.6 B parameters, 7.2 B of them its experts).
+# The path writes its weights three times (the local HF directory, the step's model and
+# hf/: 17 GB each, a save of 34.3 GB in 88 s on the H100's machine)
+MINIMAX_M2_LAYERS = 2
+# depth of main path 40: the full layer 0, the sliding layers 1-2 (dense) and the sliding
+# MoE layer 3, moe_layers_enum cut to "3" (6.4 B parameters, 4.5 B of them the experts)
+STEP35_FLASH_LAYERS = 4
+FAMILY_STEPS = 2  # train_ft steps of main paths 39-40 (2 microbatches each), one save
+# main paths 38-41: (path, model, recipe, YAML, published config, depth)
+FAMILY_PATHS = (
+    ("main path 38", "GLM-4.5-Air", "benchmark", GLM4_MOE_YAML, GLM45_AIR, GLM45_AIR_LAYERS),
+    ("main path 39", "MiniMax-M2", "train_ft", MINIMAX_SFT_YAML, MINIMAX_M2, MINIMAX_M2_LAYERS),
+    ("main path 40", "Step-3.5 geometry, unverified", "train_ft", STEP_SFT_YAML, STEP35_FLASH,
+     STEP35_FLASH_LAYERS),
+    ("main path 41", "Qwen3-Next-80B-A3B", "benchmark", QWEN3_NEXT_YAML, QWEN3_NEXT_80B,
+     QWEN3_NEXT_LAYERS),
+)
+
+
+def family_sft_args(model: dict, hf_dir: str, ckpt_dir: str) -> list[str]:
+    """Main paths 39-40's overrides of minimax_m2_sft.yaml / step3p5_moe.yaml: the model
+    from the local directory ``hf_dir`` in bf16, one process (``ep`` 16 -> 1, the ``dense``
+    dispatcher), flash attention (the files name none), adafactor_nomom (its factored
+    state adds next to nothing to the save: the files' adamw would add twice the model's
+    bytes, 20-26 GB here, beyond the card machine's disk once the weights are written
+    too), the mock data at the model's vocabulary, 500-token documents packed into the
+    files' rows of 4096, FAMILY_STEPS steps of 2 microbatches (8 in the files), one save
+    (with the consolidated HF export) at the last step under ``ckpt_dir``."""
+    return ["--model.pretrained_model_name_or_path", hf_dir, "--model.params_dtype", "bfloat16",
+            "--distributed.ep", "1", "--backend.dispatcher", "dense",
+            "--backend.attention", "flash", "--optimizer.optimizer", "adafactor_nomom",
+            "--dataset.vocab_size", str(model["vocab_size"]),
+            "--dataset.seq_len", "500", "--dataset.num_samples", "64",
+            "--packed_sequence.packed_sequence_size", "4096",
+            "--backend.attention_segments", "true",
+            "--step_scheduler.grad_acc_steps", "2",
+            "--step_scheduler.max_steps", str(FAMILY_STEPS),
+            "--step_scheduler.ckpt_every_steps", str(FAMILY_STEPS),
+            "--checkpoint.checkpoint_dir", ckpt_dir]
+
+
+def _bias_tracer(trace: list, name: str = "moe_layers.moe.gate.score_correction_bias"):
+    """An ``on_setup`` hook that appends, each train step, (the correction bias before,
+    after, the step's expert load summed over its microbatches) to ``trace``."""
+    def on_setup(recipe):
+        bias, step_fn = recipe.params[name], recipe._train_step
+
+        def traced(opt_state, stack):
+            before = bias.detach().clone()
+            opt_state, m = step_fn(opt_state, stack)
+            trace.append((before, bias.detach().clone(), m["expert_load"].detach().clone()))
+            return opt_state, m
+
+        recipe._train_step = traced
+
+    return on_setup
+
+
+def _bias_moves(trace: list, factor: float) -> list[float]:
+    """Each traced step's largest |moved - sign(mean load - load) x factor| (the gate-bias
+    update's rule, JAX's; weight decay moves the bias by far less)."""
+    import torch
+
+    return [(after - before - torch.sign(load.float().mean(-1, keepdim=True) - load.float())
+             * factor).abs().max().item() for before, after, load in trace]
+
+
+def _family_path(path, label, recipe, yaml, model, layers, extra=()):
+    """One of main paths 38-41 at ``model``'s widths (a published config) at ``layers``
+    layers: ``recipe`` "benchmark" (the YAML's config block overlaid, WARMUP + TIMED
+    steps through _bench_path) or "train_ft" (a local HF directory of random weights,
+    family_sft_args, through _pretrained_run: FAMILY_STEPS steps, one save, hf/ reloaded
+    bitwise). Both with flash; ``extra``: more CLI overrides (the CPU tests'). Checks:
+    finite losses, the first within 0.5 of the random-init loss plus the router term (aux
+    coefficient x MoE layers), the exact launches (flash only on the layers whose
+    attention launches it: none of Qwen3-Next's DeltaNet layers), and, where the config
+    updates the gate bias (GLM-4-MoE), each step's move of the correction bias within
+    1e-6 of sign(mean load - load) x its factor. Prints the MFU both as the port and as
+    JAX counts the FLOPs (JAX reads no num_local_experts: MiniMax-M2's MLPs as dense).
+    Returns the routed launches."""
+    import torch
+
+    name = f"{path} ({label})"
+    model = at_depth(model, layers)
+    config = _port_config(model)
+    attn_layers, moe_layers = _kernel_layers(model)
+    vocab, hidden = model["vocab_size"], model["hidden_size"]
+    want_first = (random_init_loss(vocab, hidden, model["initializer_range"])
+                  + float(model.get("router_aux_loss_coef", 0.0)) * moe_layers)
+    factor = config.moe.gate_bias_update_factor
+    trace = []
+    tracer = _bias_tracer(trace) if factor > 0 else None
+    if recipe == "benchmark":
+        args = [*model_config_args(model), "--dataset.vocab_size", str(vocab),
+                "--backend.attention", "flash", *extra]
+        routed, losses = _bench_path(name, yaml, True, args, on_setup=tracer)
+        if hasattr(config, "linear_layer_indices"):  # a hybrid: its scopes' shares
+            _bench_path(f"{name}, profiled", yaml, True, args, warmup=1, timed=1,
+                        on_profile=_scope_shares(name))
+        first = losses[0]
+        if abs(first - want_first) > 0.5:
+            raise AssertionError(f"{name}: first loss {first} is not within 0.5 of "
+                                 f"{want_first:.3f}")
+    else:
+        _release()
+        micro = 2
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            hf_dir = write_pretrained(os.path.join(tmp, "hf"), model, device=_device(extra))
+            written = time.perf_counter() - t0
+            ckpt = os.path.join(tmp, "ckpts")
+
+            def on_setup(recipe):
+                # the weights are on the card: the directory's disk goes to the save
+                shutil.rmtree(hf_dir)
+                if tracer is not None:
+                    tracer(recipe)
+
+            run = _pretrained_run(name, ["-c", yaml, *family_sft_args(model, hf_dir, ckpt),
+                                         "--output_dir", os.path.join(tmp, "run"), *extra],
+                                  ckpt, reload_dtype=torch.bfloat16, on_setup=on_setup)
+        want = _expected(layers, micro, FAMILY_STEPS, True, moe=True,
+                         dense_prefix=layers - moe_layers, attn_layers=attn_layers)
+        mfus = [x.get("mfu") for x in run["rows"] if "loss" in x]
+        print(f"{name}: train_ft on {_shown(yaml)} ({layers} layers, {moe_layers} MoE, bf16, "
+              f"loss {run['loss_name']}, packed rows of {run['seq_len']}; the local HF "
+              f"directory written in {written:.1f} s), {_shown_run(run)}; MFU as JAX counts "
+              f"it {[_jax_count_mfu(model, run['seq_len'], m) for m in mfus]}; hf/ "
+              f"{len(run['hf_names'])} tensors, {run['hf_bytes']} bytes, reloaded through "
+              f"from_pretrained: {'bitwise equal' if not run['hf_differ'] else run['hf_differ']}"
+              f", launches {run['launches']} (expected {want})", flush=True)
+        _check_pretrained_run(name, run, range(1, FAMILY_STEPS + 1), want, model=model,
+                              micro=micro, saves=[FAMILY_STEPS], first_loss=want_first)
+        routed = run["routed"]
+    if factor > 0:
+        moved = _bias_moves(trace, factor)
+        print(f"{name}: correction bias, max |moved - sign(mean - load) x {factor}| per step "
+              f"{moved} (tol 1e-6)", flush=True)
+        if not moved or max(moved) > 1e-6 or not bool((trace[0][1] != 0).any()):
+            raise AssertionError(f"{name}: the correction bias did not move as its loads "
+                                 f"say: {moved}")
+    return routed
+
+
+def _scope_shares(name):
+    """An ``on_profile`` hook for a hybrid's profiled benchmark run (one warmup step, one
+    timed step in the recipe's profile window, apart from the path's timed steps, whose
+    step time the window's own cost would inflate): prints the device time of each named
+    scope (the model's ``delta_net``, ``gated_attention``, ``moe``: forward, replay and
+    backward; the train step's ``optimizer``; ``utils/tracing.py``) with its share of the
+    device's busy time, and the rest (the embedding, the norms, linear CE, the gradient
+    norm). On the card it fails if a
+    scope saw no device time, or if the scopes and the linear-CE kernels (outside every
+    scope) add up to more than the busy time (a node counted twice); the CPU records no
+    device time."""
+    def on_profile(summary):
+        busy_ms, window_ms = summary["device_busy_s"] * 1e3, summary["window_s"] * 1e3
+        scopes = summary["device_ms_by_scope"]
+        lce_ms = summary["device_ms_by_class"].get("linear_ce_kernels", 0.0)
+        rest = busy_ms - sum(scopes.values())
+        shares = {k: {"device_ms": v, "of_busy": v / busy_ms if busy_ms else None}
+                  for k, v in {**scopes, "rest": rest}.items()}
+        print(f"{name}: profiled step: device busy {busy_ms:.1f} ms of a {window_ms:.1f} ms "
+              f"window (idle share {summary['idle_share']}; the profiler's own host time "
+              f"inside), linear-CE kernels {lce_ms:.1f} ms, by scope {json.dumps(shares)}",
+              flush=True)
+        if not busy_ms:
+            return
+        missing = [k for k in ("delta_net", "gated_attention", "moe", "optimizer")
+                   if not scopes.get(k)]
+        if missing:
+            raise AssertionError(f"{name}: the profile window saw no device time under "
+                                 f"{missing}")
+        if rest < lce_ms:
+            raise AssertionError(f"{name}: the scopes' device time {scopes} leaves "
+                                 f"{rest:.1f} ms of the busy {busy_ms:.1f} ms, less than the "
+                                 f"linear-CE kernels' {lce_ms:.1f} ms outside them")
+    return on_profile
+
+
+def _delta_net_timings(torch, b=4, s=2048, model=QWEN3_NEXT_80B) -> dict:
+    """ms of one gated DeltaNet token mixer (``models/qwen3_next``: projections, the
+    masked conv, the chunked delta rule, the gated norm; plain PyTorch, no kernel of the
+    port's) at ``model``'s widths over main path 41's micro-batch (b x s) in bf16: its
+    forward, forward and backward, and the chunked rule alone (forward, and forward and
+    backward): the breakdown of the ``delta_net`` scope's time in main path 41's profile
+    window (_scope_shares)."""
+    from automodel_tpu_torch.models.qwen3_next.model import (Qwen3NextConfig,
+                                                              gated_delta_attention)
+    from automodel_tpu_torch.ops.gated_delta import chunk_gated_delta_rule
+
+    cfg = Qwen3NextConfig.from_hf(at_depth(model, 4))
+    g = torch.Generator(device="cuda").manual_seed(41)
+    lp = {n: (torch.randn(shape, device="cuda", generator=g) * 0.02).to(torch.bfloat16)
+          for n, shape in cfg.linear_shapes().items()}
+    lp["a_log"] = torch.log(torch.rand(lp["a_log"].shape, device="cuda", generator=g) * 16
+                            + 1e-4)
+    lp["dt_bias"] = torch.ones_like(lp["dt_bias"])
+    lp["norm"] = torch.ones_like(lp["norm"])
+    x = torch.randn(b, s, cfg.hidden_size, device="cuda", generator=g).to(torch.bfloat16)
+    seg = torch.ones(b, s, dtype=torch.int32, device="cuda")
+    xg = x.clone().requires_grad_()
+    leaves = [lp[n].requires_grad_() for n in ("wqkvz", "wba", "conv_w", "dt_bias", "norm", "wo")]
+    dout = torch.randn_like(x)
+
+    def fwd_bwd():
+        out = gated_delta_attention(cfg, lp, xg, seg)
+        torch.autograd.grad(out, [xg, *leaves], dout)
+
+    hv, dk, dv = cfg.linear_num_value_heads, cfg.linear_key_head_dim, cfg.linear_value_head_dim
+    q, k = (torch.randn(b, s, hv, dk, device="cuda", generator=g).to(torch.bfloat16)
+            .requires_grad_() for _ in range(2))
+    v = torch.randn(b, s, hv, dv, device="cuda", generator=g).to(torch.bfloat16).requires_grad_()
+    gl = -torch.rand(b, s, hv, device="cuda", generator=g)
+    beta = torch.rand(b, s, hv, device="cuda", generator=g)
+
+    def rule():
+        return chunk_gated_delta_rule(q, k, v, gl, beta, chunk_size=64)[0]
+
+    with torch.no_grad():
+        fwd = _time_ms(torch, lambda: gated_delta_attention(cfg, lp, x, seg), reps=5)
+        rule_fwd = _time_ms(torch, rule, reps=5)
+    both = _time_ms(torch, fwd_bwd, reps=5)
+    rule_both = _time_ms(torch, lambda: torch.autograd.grad(rule(), (q, k, v),
+                                                            torch.ones_like(v)), reps=5)
+    out = {"forward_ms": fwd, "forward_backward_ms": both, "rule_forward_ms": rule_fwd,
+           "rule_forward_backward_ms": rule_both}
+    print(f"time gated DeltaNet mixer at B={b} S={s} D={cfg.hidden_size} "
+          f"Hk={cfg.linear_num_key_heads} Hv={hv} dk={dk} dv={dv} (plain PyTorch): "
+          f"{json.dumps(out)}", flush=True)
+    del lp, x, xg, leaves, dout, q, k, v, gl, beta
+    torch.cuda.empty_cache()
+    return out
+
+
+def _family_paths(rows=FAMILY_PATHS, extra=()) -> dict:
+    """Main paths 38-41 (the rows of FAMILY_PATHS), each with its seconds."""
+    by_path = {}
+    for row in rows:
+        t0 = time.perf_counter()
+        by_path[row[0]] = _family_path(*row, extra=extra)
+        print(f"{row[0]}: {time.perf_counter() - t0:.1f} s", flush=True)
     return by_path
 
 
@@ -4927,6 +5341,7 @@ def main(argv: list[str]) -> int:
     timings = _timings(torch, fa)
     for name, row in _timings(torch, fa, 4, 2048, 32, 4, 128).items():
         timings[name]["at_d128"] = row
+    mark("flash timings (a), (d128)")
     gpt_oss = _window_timings(torch, fa)
     for name in ("flash_fwd", "flash_dq", "flash_dkv"):
         timings[name]["at_gpt_oss"] = gpt_oss[name]
@@ -4990,8 +5405,10 @@ def main(argv: list[str]) -> int:
     for name, row in _lce_timings(torch, 8192, 4096, 256000, large=False, tied=True).items():
         timings[name]["at_command_r7b"] = row
     _lce_memory(torch)
+    mark("linear-CE phase")
     timings.update(_gmm_phase(torch, errs))
     _moe_model_check(torch)
+    mark("grouped GEMM phase")
     _ring_phase(torch, errs)
     _mla_ring_phase(torch, errs)
     timings.update(_ring_timings(torch))
@@ -5003,11 +5420,14 @@ def main(argv: list[str]) -> int:
 
     by_path, losses = {}, {}
     by_path["main path 1"], losses[1] = _bench_path("main path 1", BENCH_YAML, linear_ce=False)
+    mark("path 1")
     by_path["main path 2"], _ = _bench_path("main path 2", SEQ4096_YAML, linear_ce=True)
+    mark("path 2")
     by_path["main path 3"], _ = _train_ft_path(
         "main path 3", SEQ4096_YAML, ["--packed_sequence.packed_sequence_size", "4096",
                                       "--dataset.seq_len", "1000",
                                       "--backend.attention_segments", "true"])
+    mark("path 3")
     by_path["main path 4"], losses[4] = _bench_path("main path 4", BENCH_YAML, linear_ce=True,
                                                     overrides=("--loss.name", "linear_ce"))
     d_first = abs(losses[4][0] - losses[1][0])
@@ -5017,10 +5437,12 @@ def main(argv: list[str]) -> int:
         raise AssertionError("main path 4: tied linear_ce disagrees with masked_ce")
     by_path["main path 5"], _ = _bench_path("main path 5", MOE_YAML, linear_ce=True,
                                             overrides=qwen3_args())
+    mark("path 5")
     by_path["main path 6"], _ = _train_ft_path(
         "main path 6", MOE_YAML, [*qwen3_args(MOE_LAYERS_TRAIN_FT),
                                   "--packed_sequence.packed_sequence_size", "2048",
                                   "--dataset.seq_len", "500"])
+    mark("path 6")
     with tempfile.TemporaryDirectory() as cfg_dir:
         cp_yaml = cp_config(cfg_dir)
         by_path["main path 7"], _ = _bench_path("main path 7", cp_yaml, linear_ce=True,
@@ -5033,14 +5455,18 @@ def main(argv: list[str]) -> int:
     mark("paths 9-10 under the deterministic flag")
     by_path["main path 11"], _ = _bench_path("main path 11", GPT_OSS_YAML, linear_ce=True,
                                              overrides=gpt_oss_args())
+    mark("path 11")
     by_path["main path 12"], _ = _train_ft_path(
         "main path 12", GPT_OSS_YAML, [*gpt_oss_args(GPT_OSS_LAYERS_TRAIN_FT),
                                        "--packed_sequence.packed_sequence_size", "2048",
                                        "--dataset.seq_len", "500",
                                        "--backend.attention_segments", "true"])
+    mark("path 12")
     by_path["main path 13"], _ = _bench_path("main path 13", PHI3_YAML, linear_ce=False,
                                              overrides=phi3_args())
+    mark("path 13")
     by_path["main path 14"] = _phi3_train_ft_path("main path 14")
+    mark("path 14")
     by_path["main path 15"], _ = _bench_path("main path 15", DSV3_PROXY_YAML, linear_ce=True)
     mark("paths 11-15")
     by_path["main path 16"] = _moonlight_train_ft_path("main path 16")
@@ -5074,6 +5500,9 @@ def main(argv: list[str]) -> int:
     mark("path 32")
     by_path.update(_encoder_paths())
     mark("paths 33-37")
+    by_path.update(_family_paths())
+    _delta_net_timings(torch)
+    mark("paths 38-41")
 
     flash = "automodel_tpu/ops/pallas/flash_attention.py"
     lce_src = "automodel_tpu/ops/pallas/linear_ce.py"

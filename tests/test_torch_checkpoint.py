@@ -2,8 +2,9 @@
 that apply to one process: a bitwise round trip in place, the save layout, a torn step
 (marker still present), a corrupt step walked back past, keep_last_k, the latest
 symlink, non-numeric step directories, best tracking, a changed model, a changed mesh
-and asynchronous saves. Then train_ft: a run resumed from a checkpoint continues the
-uninterrupted run's loss trajectory bitwise (f32, CPU), with and without prefetch."""
+and asynchronous saves; the manifest's segmented CRC-32 against zlib's. Then train_ft: a
+run resumed from a checkpoint continues the uninterrupted run's loss trajectory bitwise
+(f32, CPU), with and without prefetch."""
 
 import json
 import os
@@ -58,6 +59,22 @@ def test_round_trip_in_place(tmp_path):
     assert step == 3 and client == {"step_scheduler": {"step": 3, "epoch": 0}}
     assert _equal(target, params) and _equal(target_opt, opt)
     assert target["embed"] is live  # loaded into the given tensors
+
+
+@pytest.mark.parametrize("size", [0, 1, 4095, 4096, 4097, 3 * 4096, 3 * 4096 + 17, 50_000])
+def test_segmented_crc32_equals_zlib(tmp_path, monkeypatch, size):
+    """A file checksummed in segments of 4 KiB on threads, the CRCs combined, gives
+    zlib.crc32 of the whole file: the manifest's value (and JAX's) is unchanged."""
+    import zlib
+
+    from automodel_tpu_torch.checkpoint import manifest
+
+    monkeypatch.setattr(manifest, "_SEGMENT", 4096)
+    monkeypatch.setattr(manifest, "_THREADS", 4)
+    data = np.random.default_rng(size).integers(0, 256, size, dtype=np.uint8).tobytes()
+    path = tmp_path / "f.bin"
+    path.write_bytes(data)
+    assert manifest._file_crc32(str(path)) == f"{zlib.crc32(data) & 0xFFFFFFFF:08x}"
 
 
 def test_torn_and_corrupt_steps_walk_back(tmp_path):

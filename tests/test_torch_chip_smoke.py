@@ -233,14 +233,17 @@ def test_gmm_timing_work_counts():
     assert work["dX"][1] == 2 * (n * f + live * d * f + n * d) + 4 * e  # dout in, dX out
     assert work["tgmm"][1] == 2 * (n * d + n * f + e * d * f) + 4 * e  # every dW written
     # every gmm timing lands in the kernels line: case a's forward is the row itself, the
-    # rest (b, GPT-OSS's h and i, Mixtral's m and n) keyed sub-rows
+    # rest (b, GPT-OSS's h and i, Mixtral's m and n, GLM-4.5-Air's o and p, Qwen3-Next's q
+    # and r) keyed sub-rows
     keys = chip_smoke._GMM_ROW_KEYS
     cases = {c for c, _, _ in chip_smoke.GMM_SHAPES + chip_smoke.GPT_OSS_GMM_SHAPES
-             + chip_smoke.MIXTRAL_GMM_SHAPES}
+             + chip_smoke.MIXTRAL_GMM_SHAPES + chip_smoke.GLM45_GMM_SHAPES
+             + chip_smoke.QWEN3_NEXT_GMM_SHAPES}
     assert {p for p, _ in keys} == {"forward", "dX", "tgmm"} and {c for _, c in keys} == cases
-    assert cases == {"a", "b", "h", "i", "m", "n"} and len(keys) == 3 * len(cases)
+    assert cases == set("abhimnopqr") and len(keys) == 3 * len(cases)
     assert keys["forward", "a"] is None and keys["tgmm", "a"] is None
-    assert len({v for v in keys.values() if v}) == 11
+    assert len({v for v in keys.values() if v}) == 19
+    assert keys["dX", "q"] == "dx_at_qwen3_next_gate_up"
     # Mixtral's gate_up at about 2048 rows an expert: 2 x 16,384 x 4096 x 28,672 FLOPs
     # (3.85 TFLOP, 3.89 ms at 989 TFLOP/s)
     m = chip_smoke._gmm_work(16384, 4096, 28672, 8, 8)
@@ -475,8 +478,9 @@ def test_phase_order():
     after its others), then the main paths in order, the deterministic ones (main paths 9
     and 10 under the flag, in a child process) before GPT-OSS's (main paths 11 and 12),
     Phi-3's (13 and 14), the DeepSeek family's (15-17), Gemma's (18-23), the PEFT and
-    QAT paths (24-29, after the nf4 check), the Llama lineage's and Mixtral's (30-32) and
-    the classifier and encoder recipes' (33-37), then the kernels line."""
+    QAT paths (24-29, after the nf4 check), the Llama lineage's and Mixtral's (30-32),
+    the classifier and encoder recipes' (33-37) and the MoE families' and hybrids' (38-41,
+    then the DeltaNet timing), then the kernels line."""
     src = inspect.getsource(chip_smoke.main)
     order = ["_twice_phase(", "_flash_phase(", "_timings(", "_window_timings(",
              "_refused_on_the_card(", "_ring_refused_on_the_card(", "_model_check(",
@@ -489,7 +493,8 @@ def test_phase_order():
              '"main path 16"', '"main path 17"', '"main path 18"', '"main path 19"',
              '"main path 20"', '"main path 21"', '"main path 22"', '"main path 23"',
              "_nf4_phase(", "_peft_paths()", '"main path 30"', '"main path 31"',
-             "_lineage_paths()", "_encoder_paths()", '{"kernels"']
+             "_lineage_paths()", "_encoder_paths()", "_family_paths()",
+             "_delta_net_timings(", '{"kernels"']
     at = [re.search(r"(?<!\w)" + re.escape(x), src).start() for x in order]
     assert at == sorted(at)
     child = inspect.getsource(chip_smoke._deterministic_child)
@@ -673,7 +678,8 @@ def test_expected_launches_of_the_deepseek_paths():
     chip_smoke._check_ring_dims("path", dict(p17, **dims), model)
     with pytest.raises(AssertionError, match="D, Dv"):
         chip_smoke._check_ring_dims("path", dict(p17, **dims, **{"ring_dq/d128v128": 1}), model)
-    assert chip_smoke._is_mla(model) and chip_smoke._dense_prefix(model) == 1
+    assert chip_smoke._is_mla(model) and chip_smoke._kernel_layers(
+        dict(model, num_hidden_layers=2)) == (2, 1)
 
 
 SMALL_MLA = ["--model.config.hidden_size", "64", "--model.config.intermediate_size", "96",
@@ -1199,3 +1205,87 @@ def test_encoder_paths_run_on_cpu(monkeypatch):
              ["--micro_batch_size", "2", "--seq_len", "64", "--dataset.seq_len", "64"])):
         routed = fn("p", model, [*cpu, *extra])
         assert routed["flash_fwd/noncausal"] == 0
+
+
+def test_expected_launches_of_the_family_paths():
+    """Main paths 38-41 at their depths: GLM-4.5-Air's dense first layer and 2 MoE layers,
+    Qwen3-Next's period (flash on its one full-attention layer only, the grouped GEMM on
+    all four), MiniMax-M2's 2 MoE layers and the Step-3.5 geometry's 4 layers (3 sliding, MoE on
+    layer 3 alone after moe_layers_enum is cut); the benchmark's 7 steps of 1 microbatch,
+    train_ft's 2 steps of 2."""
+    got = {}
+    for path, _, recipe, _, model, layers in chip_smoke.FAMILY_PATHS:
+        cut = chip_smoke.at_depth(model, layers)
+        attn, moe = chip_smoke._kernel_layers(cut)
+        micro, steps = ((1, chip_smoke.WARMUP + chip_smoke.TIMED) if recipe == "benchmark"
+                        else (2, chip_smoke.FAMILY_STEPS))
+        want = chip_smoke._expected(layers, micro, steps, True, moe=True,
+                                    dense_prefix=layers - moe, attn_layers=attn)
+        got[path] = {k: v for k, v in want.items() if v}
+        if path == "main path 40":
+            assert cut["moe_layers_enum"] == "3" and len(cut["layer_types"]) == 4
+            assert sum(chip_smoke._port_config(cut).sliding_flags) == 3
+    assert got == {
+        "main path 38": dict(flash_fwd=42, flash_dq=21, flash_dkv=21, lce_fwd=7, lce_bwd=7,
+                             gmm=84, tgmm=28),
+        "main path 39": dict(flash_fwd=16, flash_dq=8, flash_dkv=8, lce_fwd=4, lce_bwd=4,
+                             gmm=48, tgmm=16),
+        "main path 40": dict(flash_fwd=32, flash_dq=16, flash_dkv=16, lce_fwd=4, lce_bwd=4,
+                             gmm=24, tgmm=8),
+        "main path 41": dict(flash_fwd=14, flash_dq=7, flash_dkv=7, lce_fwd=7, lce_bwd=7,
+                             gmm=168, tgmm=56)}
+    # every earlier MoE family keeps its counts through _kernel_layers
+    assert chip_smoke._kernel_layers(chip_smoke.MOONLIGHT_16B_A3B) == (27, 26)
+    assert chip_smoke._kernel_layers(chip_smoke.MIXTRAL_8X7B | {"architectures": [
+        "MixtralForCausalLM"]}) == (32, 32)
+    assert chip_smoke._kernel_layers(chip_smoke.LLAMA32_1B) == (
+        chip_smoke.LLAMA32_1B["num_hidden_layers"], 0)
+
+
+FAMILY_WIDTHS = {
+    "main path 38": dict(hidden_size=64, intermediate_size=96, moe_intermediate_size=32,
+                         num_attention_heads=4, num_key_value_heads=2, head_dim=16,
+                         n_routed_experts=8, num_experts_per_tok=2, vocab_size=512),
+    "main path 39": dict(hidden_size=64, intermediate_size=32, num_attention_heads=4,
+                         num_key_value_heads=2, head_dim=16, num_local_experts=8,
+                         num_experts_per_tok=2, vocab_size=512),
+    "main path 40": dict(hidden_size=64, intermediate_size=96, moe_intermediate_size=32,
+                         share_expert_dim=48, num_attention_heads=4, num_attention_groups=2,
+                         head_dim=16, moe_num_experts=8, moe_top_k=2, vocab_size=512,
+                         sliding_window=16, attention_other_setting={
+                             "num_attention_heads": 6, "num_attention_groups": 2}),
+    "main path 41": dict(hidden_size=64, moe_intermediate_size=32,
+                         shared_expert_intermediate_size=32, num_attention_heads=4,
+                         num_key_value_heads=2, head_dim=16, linear_num_value_heads=4,
+                         linear_num_key_heads=2, linear_key_head_dim=16,
+                         linear_value_head_dim=16, num_experts=8, num_experts_per_tok=2,
+                         vocab_size=512)}
+
+
+def test_family_paths_run_on_cpu(monkeypatch):
+    """Main paths 38-41 through their table's runner on the CPU, each at small widths
+    over its config in chip_smoke.py (the depth, the layer pattern and the routing kept): GLM-4-
+    MoE and Qwen3-Next in the benchmark recipe (GLM's gate-bias update moving the bias as
+    its loads say), MiniMax-M2 and Step-3.5 through train_ft from a local HF directory
+    (one save, hf/ reloaded bitwise). The first losses fall within 0.5 of the random-init
+    loss; Qwen3-Next's path runs one more step in the recipe's profile window (the CPU
+    records no device time for its scopes). The kernels do not launch on the CPU: the
+    launches expected are none."""
+    zero = {k: 0 for k in chip_smoke._read_counts()}
+    monkeypatch.setattr(chip_smoke, "_expected", lambda *a, **k: dict(zero))
+    checked = []
+    monkeypatch.setattr(chip_smoke, "_check_path_launches",
+                        lambda name, launches, model, micro, steps: checked.append(name))
+    cpu = ["--device", "cpu"]
+    extras = {"benchmark": [*cpu, "--seq_len", "64", "--dataset.seq_len", "64",
+                            "--micro_batch_size", "2"],
+              "train_ft": [*cpu, "--dataset.seq_len", "30",
+                           "--packed_sequence.packed_sequence_size", "64"]}
+    for path, label, recipe, yaml_path, model, layers in chip_smoke.FAMILY_PATHS:
+        small = dict(model, **FAMILY_WIDTHS[path])
+        routed = chip_smoke._family_path(path, label, recipe, yaml_path, small, layers,
+                                         extra=extras[recipe])
+        assert routed["flash_fwd"] == 0
+    assert [c.split(" (")[0] for c in checked] == [
+        "main path 38", "main path 39", "main path 40", "main path 41", "main path 41"]
+    assert checked[-1].endswith(", profiled")  # the hybrid's step in the profile window

@@ -314,6 +314,9 @@ GUARD_CASES = {
     "mixed_full_layer": dict(sliding_window=8, num_hidden_layers=2,
                              layer_types=["full_attention", "sliding_attention"]),
     "neither": dict(),
+    # Phi-3's geometry under cp 4 (phi3_longrope_128k.yaml): head_dim 96, heads 32 / 32 cut
+    # to 4 / 4, and a window (phi3_proxy.yaml's 2047), so ordinary attention in both
+    "phi3_d96_window": dict(head_dim=96, num_key_value_heads=4, sliding_window=2047),
 }
 
 
@@ -333,8 +336,9 @@ def _no_ring(*args, **kw):
 @pytest.mark.parametrize("name", list(GUARD_CASES))
 def test_ring_guard_matches_jax(name, cp_mesh, monkeypatch):
     """With context_parallel ring and a cp axis of 4, a layer with sinks, or any layer
-    of a stack with a sliding layer (the full layer of a mixed stack too), runs
-    ordinary attention in both packages; a layer with neither takes the ring in both."""
+    of a stack with a sliding layer (the full layer of a mixed stack too, and Phi-3's
+    (96, 96) layers, which carry a window), runs ordinary attention in both packages; a
+    layer with neither takes the ring in both."""
     from automodel_tpu.parallel import ring_attention as jra
 
     kw = dict(dict(vocab_size=64, hidden_size=32, intermediate_size=64, num_hidden_layers=1,
@@ -348,7 +352,8 @@ def test_ring_guard_matches_jax(name, cp_mesh, monkeypatch):
     pos = np.arange(32)[None].repeat(2, 0).astype(np.int32)
     window = ttr.layer_windows(tcfg)[0]
     any_sliding = any(jcfg.sliding_flags)
-    jwindow = (None if not any_sliding else jnp.int32(8 if window else 10_000))
+    jwindow = (None if not any_sliding else jnp.int32(window or 10_000))
+    head_dim = kw["head_dim"]
     monkeypatch.setattr(jra, "make_ring_attention", _no_ring)
     monkeypatch.setattr(ttr, "make_ring_attention", _no_ring)
     taken = {}
@@ -357,7 +362,8 @@ def test_ring_guard_matches_jax(name, cp_mesh, monkeypatch):
         with jax.sharding.set_mesh(cp_mesh):
             jout = np.asarray(jax.jit(lambda lp, x: jtr._attention_block(
                 jcfg, JaxBackend(dtype="float32", context_parallel="ring"), lp, x,
-                jnp.asarray(pos), None, jrope.rope_frequencies(16, 10000.0, None), 1.0, jwindow,
+                jnp.asarray(pos), None, jrope.rope_frequencies(head_dim, 10000.0, None), 1.0,
+                jwindow,
                 rules))({k: jnp.asarray(v) for k, v in lp.items()}, jnp.asarray(x)))
         taken["jax"] = False
     except _RingTaken:
@@ -366,7 +372,7 @@ def test_ring_guard_matches_jax(name, cp_mesh, monkeypatch):
         tout = ttr.attention_block(
             tcfg, BackendConfig(dtype="float32", context_parallel="ring"),
             {k: torch.tensor(v) for k, v in lp.items()}, torch.tensor(x), torch.tensor(pos),
-            None, trope.rope_frequencies(16, 10000.0, None), 1.0, mesh=MeshContext(cp=4),
+            None, trope.rope_frequencies(head_dim, 10000.0, None), 1.0, mesh=MeshContext(cp=4),
             window=window)
         taken["port"] = False
     except _RingTaken:
@@ -408,6 +414,10 @@ def test_flops_count_gpt_oss():
     d, n, k, h = 2880, 64, 8, 64
     attn = 2 * d * (n + 2 * k) * h + 2 * n * h * d + 4 * 2048 * n * h
     assert got == 3 * (4 * attn + 4 * 3 * 2 * d * 2880 * 4 + 2 * d * 201088)
-    with pytest.raises(NotImplementedError, match="linear_attention"):
-        flops_per_token(dict(published, layer_types=["linear_attention"] * 4), 2048)
+    # a linear layer without a DeltaNet's widths counts as attention, as JAX counts it; a
+    # mamba layer is not ported
+    linear = dict(published, layer_types=["linear_attention"] * 4, num_experts=32)
+    assert flops_per_token(linear, 2048) == jax_flops_per_token(linear, 2048) == got
+    with pytest.raises(NotImplementedError, match="mamba"):
+        flops_per_token(dict(published, layer_types=["mamba"] * 4), 2048)
     assert math.isclose(got, 3 * (4 * attn + 24 * d * 2880 * 4 + 2 * d * 201088))

@@ -73,7 +73,7 @@ def test_from_hf_matches_jax():
         Qwen3MoeConfig.from_hf(dict(HF, num_hidden_layers=3, mlp_only_layers=[1]))
     assert resolve_model_class("Qwen3MoeForCausalLM") is Qwen3MoeForCausalLM
     with pytest.raises(NotImplementedError):
-        resolve_model_class("Glm4MoeForCausalLM")
+        resolve_model_class("NemotronHForCausalLM")
 
 
 @pytest.mark.parametrize("mlp_only", [[], [0]], ids=["all_moe", "dense_prefix"])

@@ -133,10 +133,14 @@ def test_nonfinite_step_keeps_params_and_state():
 
     step = make_train_step(forward_loss, {"w": w}, opt, guard_nonfinite=True)
     batch = {"x": torch.ones(1, 4, 3), "labels": torch.ones(1, 4, dtype=torch.long)}
+    before = [{k: (v.clone() if torch.is_tensor(v) else {n: t.clone() for n, t in v.items()})
+               for k, v in s.items()} for s in state]  # the step overwrites the state
     new_state, m = step(state, batch)
     assert bool(m["nonfinite"])
     torch.testing.assert_close(w.detach(), torch.ones(4, 3))
-    torch.testing.assert_close(new_state[0]["mu"]["w"], state[0]["mu"]["w"])
+    torch.testing.assert_close(new_state[0]["mu"]["w"], before[0]["mu"]["w"])
+    torch.testing.assert_close(new_state[0]["nu"]["w"], before[0]["nu"]["w"])
+    assert int(new_state[0]["count"]) == int(new_state[-1]["count"]) == 0
 
 
 def test_unported_optimizer_raises():
@@ -159,12 +163,14 @@ def test_adamw_lowmem_slices_change_no_value():
               "c": torch.randn(2, 40, generator=gen).to(torch.bfloat16)}
     out = {}
     for budget in (7, 1 << 26):
-        init, update = builder._scale_by_adam_lowmem(0.9, 0.95, 1e-8, slice_elems=budget)
+        init, begin = builder._scale_by_adam_lowmem(0.9, 0.95, 1e-8, slice_elems=budget)
         state = init(params)
         for step in range(3):
             grads = {k: torch.randn(p.shape, generator=torch.Generator().manual_seed(step))
                      .to(p.dtype) for k, p in params.items()}
-            upd, state = update(grads, state, params)
+            leaf, finish = begin(grads, state, params, None)
+            upd = {k: leaf(k, g) for k, g in grads.items()}
+            state = finish()
         out[budget] = (upd, state)
     (u1, s1), (u2, s2) = out.values()
     for k in params:
@@ -206,3 +212,74 @@ def test_aux_sums_over_microbatches_as_jax():
         np.testing.assert_allclose(m[k].numpy(), np.asarray(jm[k]), rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(w.detach().numpy(), np.asarray(jparams["w"]), rtol=1e-5,
                                atol=1e-6)
+
+
+@pytest.mark.parametrize("name", ["adamw", "adamw_lowmem", "adafactor_nomom"])
+def test_guard_skips_a_nonfinite_step_slice_by_slice(name):
+    """With clipping, weight decay and a schedule (adamw_lowmem in slices of 7 elements,
+    so leaves of every rank take several; adafactor_nomom factored and not), a guarded
+    run whose second of four steps is NaN ends with the parameters and optimizer state of
+    an unguarded run of the three finite steps, bit for bit: the skipped step changes no
+    slice and no count."""
+    from automodel_tpu_torch.optim import builder
+
+    gen = torch.Generator().manual_seed(1)
+    init = {"layers.w": torch.randn(3, 5, 4, generator=gen), "b": torch.randn(6, generator=gen),
+            "c": torch.randn(2, 40, generator=gen).to(torch.bfloat16),
+            "big": torch.randn(130, 129, generator=gen)}  # factored by adafactor
+    x = torch.randn(8, 4, generator=gen)
+    results = []
+    for scales in ([1.0, float("nan"), 2.0, 3.0], [1.0, 2.0, 3.0]):
+        params = {k: v.clone().requires_grad_() for k, v in init.items()}
+        opt = builder.build_optimizer(lambda step: 0.1 / (step + 1), weight_decay=0.1,
+                                      max_grad_norm=0.5, optimizer=name)
+        if name == "adamw_lowmem":
+            opt.transforms[1] = builder._scale_by_adam_lowmem(0.9, 0.95, 1e-8, slice_elems=7)
+
+        def loss_fn(batch, n):
+            y = (batch["x"] @ params["layers.w"].sum(0).T).sum() + params["b"].sum() ** 2
+            y = y + params["big"].sin().sum() + params["c"].float().pow(2).sum()
+            return y * batch["s"][0] / n
+
+        step = make_train_step(loss_fn, params, opt, guard_nonfinite=len(scales) == 4)
+        state = opt.init(params)
+        for s in scales:
+            state, m = step(state, {"x": (x * s)[None], "s": torch.tensor([[s]]),
+                                    "labels": torch.zeros(1, 4, dtype=torch.long)})
+        results.append((params, state))
+    (p1, s1), (p2, s2) = results
+    for k in init:
+        assert torch.equal(p1[k], p2[k]), k
+        for slot in ("mu", "nu", "v_row", "v_col", "v"):
+            if slot in s1[1]:  # the link after the clip
+                assert torch.equal(s1[1][slot][k], s2[1][slot][k]), (slot, k)
+    assert [int(s["count"]) for s in s1 if "count" in s] == [3, 3]
+    assert [int(s["count"]) for s in s2 if "count" in s] == [3, 3]
+    assert not torch.equal(p1["big"], init["big"])
+
+
+def test_microbatch_sum_keeps_shared_gradients_apart():
+    """Two parameters added directly get the same gradient tensor from autograd, and a
+    summed one a stride-0 gradient; the in-place sum over microbatches still gives each
+    its own sum (a + b's values)."""
+    from automodel_tpu_torch.optim import builder
+
+    a, b = torch.ones(3, requires_grad=True), torch.full((3,), 2.0, requires_grad=True)
+    c = torch.zeros(2, 3, requires_grad=True)
+    params = {"a": a, "b": b, "c": c}
+    opt = build_optimizer(1.0)
+    seen = {}
+
+    def loss_fn(batch, n):
+        return (((a + b) * batch["x"]).sum() + c.sum() * batch["x"][0]) / n
+
+    def begin(grads, state, params, ok):
+        seen.update({k: g.clone() for k, g in grads.items()})
+        return (lambda name, g: g.zero_()), lambda: state
+
+    opt.transforms[:] = [builder.Transform(lambda params: {}, begin)]
+    step = make_train_step(loss_fn, params, opt)
+    x = torch.tensor([[1.0, 2.0, 3.0], [10.0, 20.0, 30.0]])
+    step(opt.init(params), {"x": x, "labels": torch.zeros(2, 1, dtype=torch.long)})
+    assert torch.equal(seen["a"], seen["b"]) and torch.equal(seen["a"], x.sum(0) / 2)
+    assert torch.equal(seen["c"], torch.full((2, 3), 11.0 / 2))
